@@ -1,0 +1,22 @@
+"""grmonty_tpu_torch — the PyTorch/CUDA port of ``grmonty_tpu``.
+
+The same general-relativistic Monte Carlo transport as ``grmonty_tpu``,
+written against PyTorch so it runs on an NVIDIA H100.  The layout mirrors
+the JAX package module for module, so each function's counterpart is found
+under the same name:
+
+    models/     HARM dump I/O, units, the synthetic torus writer (numpy)
+    ops/        geometry, opacities, fluid tables, tetrads, samplers,
+                emission and spectrum binning (torch on tensors)
+    transport/  the engine (plain torch), the two hand-written CUDA hot-step
+                kernels (``hot_kernels`` + ``csrc/hot_step.cu``), the
+                shipped profile and the ``Simulation`` driver
+    utils/      the tracked physics tables and their Chebyshev fits
+    convert.py  JAX-package objects (as numpy) -> the port's state
+
+The package imports torch, numpy and scipy only; it never imports JAX or
+``grmonty_tpu``.  Every function takes an explicit ``device`` or works on
+the device of its tensors; no autograd is used anywhere.
+"""
+
+__version__ = "0.1.0"

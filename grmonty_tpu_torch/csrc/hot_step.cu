@@ -1,0 +1,767 @@
+// Hot-step kernels of the transport engine, hand-written for Hopper (sm_90a).
+//
+// Kernel A (hot_phase_a_kernel) replaces the Pallas kernel
+// grmonty_tpu/transport/hotstep_pallas.py:104 `kernel_a` (body
+// engine.hot_phase_a): step size, one implicit-midpoint Kerr push with the
+// closed-form 40-term connection and `fp_iters` (engine.FP_ITERS = 2)
+// fixed-point rounds, the commit gate, the error-proportional step
+// control, the pend/arrival bookkeeping, the stop test with Russian
+// roulette and the bilinear cell index z.  Unlike the Pallas kernel it also
+// carries the grown-step optical-depth cap (alpha_scatti, bi in; `grown`
+// out).
+//
+// Kernel B (hot_phase_b_kernel) replaces hotstep_pallas.py:152 `kernel_b`
+// (body engine.hot_phase_b) in its derived-fluid form: each thread loads
+// its own 44-float corner row derived_rows[z] (eleven float4 loads; the
+// 256x256 table is 11.5 MB and stays in the 50 MB L2), blends it, and
+// computes nu, the sin pitch angle, the Chebyshev hotcross alpha_scatt
+// (41x31 coefficients staged in shared memory), the Kirchhoff alpha_abs
+// with the Chebyshev K2 (25 coefficients passed by value), the trapezoid
+// dtau, the biased scatter decision with rollback, the entry rollback and
+// tau_over of grown steps, the weight decay, the step count and stall
+// kill, the hotcross clamp census and the detached-event refresh values.
+//
+// What bounds them on the H100: both are per-lane state machines.  Kernel A
+// moves ~162 B per lane (10.6 MB per launch at N = 65536) and took 7.1 us on
+// an H100 80GB HBM3 at 700 W, 1.5 TB/s: it sits nearer the memory bound than
+// the latency of its dependent fixed-point rounds.  Kernel B moves ~270 B
+// per lane plus one L2-resident 176 B row and took 26 us: the 1,271-term
+// hotcross sum per lane (unfused under -fmad=false) and the
+// transcendentals bound it.  The 40-term connection and the 31-entry
+// Chebyshev row set the register pressure (A 102, B 77 registers, no
+// spills).  The design keeps one thread per lane over SoA arrays with
+// __launch_bounds__(256) and no shared state beyond the coefficient table.
+//
+// Numerics: the arithmetic mirrors the plain torch versions operation by
+// operation (same association order, float32, constants folded in double
+// first where the Python expression folds them).  PyTorch on the card
+// divides a tensor by a Python scalar as a multiply by the scalar's float
+// reciprocal, and a scalar by a tensor as the tensor's reciprocal times the
+// scalar; the kernels use the same two forms (the inv_* constants), so the
+// rounding matches op for op.  The build must not use
+// --use_fast_math: the commit gate and the step controller test
+// isfinite(err), which fast math folds to true, and flushing denormals
+// would zero the fluid-frame frequency of the lowest-energy photons.
+//
+// Interface: plain C entry points for ctypes.  Each takes an array of
+// device pointers in the order of the structs below (the Python wrapper in
+// transport/hot_kernels.py lists the same order and checks the counts),
+// an array of double scalars, the lane count and the CUDA stream, and
+// returns cudaGetLastError() after the launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+typedef unsigned char u8;
+
+namespace {
+
+constexpr double PI_D = 3.14159265358979323846;
+constexpr double EPS_D = 1.0e-30;
+constexpr double ME_D = 9.1093826e-28;
+constexpr double CL_D = 2.99792458e10;
+constexpr double HPL_D = 6.6260693e-27;
+constexpr double EE_D = 4.80320680e-10;
+constexpr double SIGMA_T_D = 0.665245873e-24;
+
+__device__ __forceinline__ float jmax(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+__device__ __forceinline__ float jclip(float x, float lo, float hi) {
+  return jmin(jmax(x, lo), hi);
+}
+
+// ---------------------------------------------------------------------------
+// kernel A
+// ---------------------------------------------------------------------------
+
+struct APtrs {  // order = hot_kernels._A_PTRS
+  const float *x0, *x1, *x2, *x3, *k0, *k1, *k2, *k3, *d0, *d1, *d2, *d3;
+  const float *e_0_s, *dl_shrink, *pend_dl;
+  const u8 *pend_push, *at_event, *alive;
+  const float *w;
+  const u8 *record_pending;
+  const float *u_roul, *alpha_scatti, *bi;
+  float *ox0, *ox1, *ox2, *ox3, *ok0, *ok1, *ok2, *ok3, *od0, *od1, *od2, *od3;
+  float *oe_0_s, *odl_shrink, *opend_dl;
+  u8 *opend_push, *oat_event, *oalive;
+  float *ow;
+  u8 *orecord_pending;
+  float *oseg;
+  u8 *ocommit, *omoving, *owas_pend, *oarrived, *ostopped;
+  int32_t *oz;
+  u8 *ogrown;
+};
+constexpr int A_NPTRS = sizeof(APtrs) / sizeof(void *);
+
+struct AScal {  // order = hot_kernels._A_SCAL
+  double a, h_slope, r_0, x_start1, x_start2, x_stop2, dx1, dx2, n1, n2,
+      x1_min, d_tau_k, fp_iters, weight_min, shrink_floor, grow_cap,
+      grow_tau_cap, step_ctrl, inv_dx1, inv_dx2, inv_e_tol, inv_e_drift_tol;
+};
+constexpr int A_NSCAL = sizeof(AScal) / sizeof(double);
+
+// Per-launch float constants, folded in double on the host side of the
+// launch exactly as the Python expressions fold their float literals.
+struct AConst {
+  float a, a2, a3, a4, neg_a, neg_a2, neg_2a, r_0, two_pi, pi, half_1mh,
+      one_mh, neg2pipi_1mh, x_start1, x_start2, x_stop2, dx1, dx2, x1_min,
+      half_dtk, weight_min, shrink_floor, grow_cap, grow_tau_cap, step_ctrl,
+      inv_dx1, inv_dx2, inv_e_tol, inv_e_drift_tol;
+  int n1, n2, fp_iters;
+};
+
+__device__ __forceinline__ void connection(float x1, float x2, const AConst &C,
+                                           float *c) {
+  const float r1 = expf(x1);
+  const float r2 = r1 * r1, r3 = r2 * r1, r4 = r3 * r1;
+  const float sx = sinf(C.two_pi * x2);
+  const float cx = cosf(C.two_pi * x2);
+  const float th = C.pi * x2 + C.half_1mh * sx;
+  const float dth = C.pi * (1.0f + C.one_mh * cx);
+  const float d2th = C.neg2pipi_1mh * sx;
+  const float dth2 = dth * dth;
+  const float sth = sinf(th), cth = cosf(th);
+  const float sth2 = sth * sth, sth4 = sth2 * sth2;
+  const float cth2 = cth * cth, cth4 = cth2 * cth2;
+  const float s2th = 2.0f * sth * cth;
+  const float c2th = 2.0f * cth2 - 1.0f;
+  const float r1sth2 = r1 * sth2;
+  const float a = C.a, a2 = C.a2, a3 = C.a3, a4 = C.a4;
+  const float a2sth2 = a2 * sth2, a2cth2 = a2 * cth2, a4cth4 = a4 * cth4;
+  const float rho2 = r2 + a2cth2;
+  const float rho22 = rho2 * rho2, rho23 = rho22 * rho2;
+  const float ir2 = 1.0f / rho2;
+  const float ir22 = ir2 * ir2, ir23 = ir22 * ir2;
+  const float ir23_dth = ir23 / dth;
+  const float fac1 = r2 - a2cth2;
+  const float f1r3 = fac1 * ir23;
+  const float fac2 = a2 + 2.0f * r2 + a2 * c2th;
+  const float fac3 = a2 + r1 * (r1 - 2.0f);
+
+  c[0] = 2.0f * r1 * f1r3;
+  c[1] = r1 * (2.0f * r1 + rho2) * f1r3;
+  c[2] = C.neg_a2 * r1 * s2th * dth * ir22;
+  c[3] = C.neg_2a * r1sth2 * f1r3;
+  c[4] = 2.0f * r2 * (r4 + r1 * fac1 - a4cth4) * ir23;
+  c[5] = C.neg_a2 * r2 * s2th * dth * ir22;
+  c[6] = a * r1 * (-r1 * (r3 + 2.0f * fac1) + a4cth4) * sth2 * ir23;
+  c[7] = -2.0f * r2 * dth2 * ir2;
+  c[8] = a3 * r1sth2 * s2th * dth * ir22;
+  c[9] = 2.0f * r1sth2 * (-r1 * rho22 + a2sth2 * fac1) * ir23;
+
+  c[10] = fac3 * fac1 / (r1 * rho23);
+  c[11] = fac1 * (-2.0f * r1 + a2sth2) * ir23;
+  c[12] = 0.0f;
+  c[13] = C.neg_a * sth2 * fac3 * fac1 / (r1 * rho23);
+  c[14] = (r4 * (r1 - 2.0f) * (1.0f + r1) +
+           a2 * (a2 * r1 * (1.0f + 3.0f * r1) * cth4 + a4cth4 * cth2 +
+                 r3 * sth2 + r1 * cth2 * (2.0f * r1 + 3.0f * r3 - a2sth2))) *
+          ir23;
+  c[15] = C.neg_a2 * dth * s2th / fac2;
+  c[16] = a * sth2 *
+          (a4 * r1 * cth4 + r2 * (2.0f * r1 + r3 - a2sth2) +
+           a2cth2 * (2.0f * r1 * (r2 - 1.0f) + a2sth2)) *
+          ir23;
+  c[17] = -fac3 * dth2 * ir2;
+  c[18] = 0.0f;
+  c[19] = -fac3 * sth2 * (r1 * rho22 - a2 * fac1 * sth2) / (r1 * rho23);
+
+  const float c200 = C.neg_a2 * r1 * s2th * ir23_dth;
+  c[20] = c200;
+  c[21] = r1 * c200;
+  c[22] = 0.0f;
+  c[23] = a * r1 * (a2 + r2) * s2th * ir23_dth;
+  c[24] = r2 * c200;
+  c[25] = r2 * ir2;
+  c[26] = (a * r1 * cth * sth *
+           (r3 * (2.0f + r1) +
+            a2 * (2.0f * r1 * (1.0f + r1) * cth2 + a2 * cth4 + 2.0f * r1sth2))) *
+          ir23_dth;
+  c[27] = C.neg_a2 * cth * sth * dth * ir2 + d2th / dth;
+  c[28] = 0.0f;
+  c[29] = (-cth * sth *
+           (rho23 + a2sth2 * rho2 * (r1 * (4.0f + r1) + a2cth2) +
+            2.0f * r1 * a4 * sth4) *
+           ir23_dth);
+
+  const float c300 = a * f1r3;
+  c[30] = c300;
+  c[31] = r1 * c300;
+  c[32] = C.neg_2a * r1 * cth * dth / (sth * rho22);
+  c[33] = -a2sth2 * f1r3;
+  c[34] = a * r2 * f1r3;
+  c[35] = C.neg_2a * r1 * (a2 + 2.0f * r1 * (2.0f + r1) + a2 * c2th) * cth *
+          dth / (sth * fac2 * fac2);
+  c[36] = r1 * (r1 * rho22 - a2sth2 * fac1) * ir23;
+  c[37] = C.neg_a * r1 * dth2 * ir2;
+  c[38] = dth * (0.25f * fac2 * fac2 * cth / sth + a2 * r1 * s2th) * ir22;
+  c[39] = (C.neg_a * r1sth2 * rho22 + a3 * sth4 * fac1) * ir23;
+}
+
+__device__ __forceinline__ void geodesic_rhs(const float *c, const float *k,
+                                             float *dk) {
+  const float q[10] = {k[0] * k[0],        2.0f * k[0] * k[1],
+                       2.0f * k[0] * k[2], 2.0f * k[0] * k[3],
+                       k[1] * k[1],        2.0f * k[1] * k[2],
+                       2.0f * k[1] * k[3], k[2] * k[2],
+                       2.0f * k[2] * k[3], k[3] * k[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float s = c[10 * i] * q[0];
+#pragma unroll
+    for (int j = 1; j < 10; ++j) s = s + c[10 * i + j] * q[j];
+    dk[i] = -s;
+  }
+}
+
+__device__ __forceinline__ float step_size(float x1, float x2, float k1,
+                                           float k2, float k3, float x2_stop) {
+  const float eps = (float)EPS_D, se = 0.04f;
+  const float dl1 = se * x1 / (fabsf(k1) + eps);
+  const float dl2 = se * jmin(x2, x2_stop - x2) / (fabsf(k2) + eps);
+  const float dl3 = (1.0f / (fabsf(k3) + eps)) * se;
+  return 1.0f / (1.0f / (fabsf(dl1) + eps) + 1.0f / (fabsf(dl2) + eps) +
+                 1.0f / (fabsf(dl3) + eps));
+}
+
+__global__ void __launch_bounds__(256)
+    hot_phase_a_kernel(const APtrs P, const AConst C, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float eps = (float)EPS_D;
+
+  float x[4] = {P.x0[i], P.x1[i], P.x2[i], P.x3[i]};
+  float k[4] = {P.k0[i], P.k1[i], P.k2[i], P.k3[i]};
+  float dk[4] = {P.d0[i], P.d1[i], P.d2[i], P.d3[i]};
+  const float e_0_s = P.e_0_s[i], dl_shrink = P.dl_shrink[i];
+  const float pend_dl = P.pend_dl[i], w = P.w[i];
+  const bool pend_push = P.pend_push[i], at_event = P.at_event[i];
+  const bool alive = P.alive[i], record_pending = P.record_pending[i];
+
+  const bool moving = alive && !at_event;
+  const float dl_full =
+      pend_push ? pend_dl : step_size(x[1], x[2], k[1], k[2], k[3], C.x_stop2);
+  float seg = dl_full * dl_shrink;
+  if (pend_push) seg = jmin(seg, dl_full);
+  if (!pend_push) {  // cap the biased scattering depth a grown step carries
+    const float seg_tau =
+        (1.0f / (C.half_dtk * P.alpha_scatti[i] * P.bi[i] + eps)) * C.grow_tau_cap;
+    seg = jmin(seg, jmax(seg_tau, dl_full));
+  }
+  const bool at_floor = dl_shrink <= C.shrink_floor;
+  const bool act = moving && !(x[1] < C.x_start1);
+
+  // one implicit-midpoint attempt (harm_model.cpp:1217-1289)
+  const float dl_2 = 0.5f * seg;
+  float k_half[4], k_pred[4], x_new[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    k_half[m] = k[m] + dk[m] * dl_2;
+    k_pred[m] = k_half[m] + dk[m] * dl_2;
+    x_new[m] = x[m] + k_half[m] * seg;
+  }
+  float conn[40];
+  connection(x_new[1], x_new[2], C, conn);
+  // metric row 0 at x_new
+  const float r = expf(x_new[1]) + C.r_0;
+  const float th =
+      C.pi * x_new[2] + C.half_1mh * sinf(C.two_pi * x_new[2]);
+  const float sth = fabsf(sinf(th)) + eps;
+  const float cth = cosf(th);
+  const float rho2 = r * r + C.a2 * cth * cth;
+  const float tworr = 2.0f * r / rho2;
+  const float g00 = -1.0f + tworr;
+  const float g01 = tworr * (r - C.r_0);
+  const float g03 = C.neg_a * sth * sth * tworr;
+
+  float err = 0.0f;
+  float dk_new[4] = {dk[0], dk[1], dk[2], dk[3]};
+  for (int it = 0; it < C.fp_iters; ++it) {
+    geodesic_rhs(conn, k_pred, dk_new);
+    float k_next[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) k_next[m] = k_half[m] + dl_2 * dk_new[m];
+    const float kscale = fabsf(k_next[0]) + fabsf(k_next[1]) +
+                         fabsf(k_next[2]) + fabsf(k_next[3]) + eps;
+    err = (fabsf(k_pred[0] - k_next[0]) + fabsf(k_pred[1] - k_next[1]) +
+           fabsf(k_pred[2] - k_next[2]) + fabsf(k_pred[3] - k_next[3])) /
+          kscale;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) k_pred[m] = k_next[m];
+  }
+  const float e_1 = -(k_pred[0] * g00 + k_pred[1] * g01 + k_pred[3] * g03);
+  const float err_e = fabsf((e_1 - e_0_s) / (e_0_s + eps));
+  const bool bad = (err_e > 1.0e-4f) || (err > 1.0e-3f) || !isfinite(err);
+  const bool commit = act && (!bad || at_floor);
+  if (commit) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      x[m] = x_new[m];
+      k[m] = k_pred[m];
+      dk[m] = dk_new[m];
+    }
+  }
+  const float e0sn = commit ? e_1 : e_0_s;
+  const float err_r = jmax(err * C.inv_e_tol, err_e * C.inv_e_drift_tol);
+
+  // error-proportional step control: fac = safety / sqrt(err), clamped
+  float err_eff = isfinite(err_r) ? err_r : 1.0e12f;
+  if (!act) err_eff = 1.0e-12f;  // idle lanes re-grow
+  const float fac =
+      jclip(C.step_ctrl * rsqrtf(jmax(err_eff, 1.0e-12f)), 0.25f, 2.0f);
+  const float dl_shrink_n = jclip(dl_shrink * fac, C.shrink_floor, C.grow_cap);
+
+  const float pend_rem = (pend_push && commit) ? pend_dl - seg : pend_dl;
+  const bool arrived = moving && pend_push && commit && (pend_rem <= 0.0f);
+
+  // stop criterion + roulette (harm_model.cpp:1589-1616)
+  const bool checkable = (moving && commit && !arrived) || (moving && !act);
+  const bool horizon = x[1] < C.x1_min;
+  const bool escaped = x[1] > (float)4.605170185988092;  // ln R_MAX
+  const bool small = w < C.weight_min;
+  const bool win = P.u_roul[i] <= (float)(1.0 / 1.0e4);
+  const float w_roul = win ? w * 1.0e4f : 0.0f;
+  const float w_n = (checkable && small && !horizon) ? w_roul : w;
+  const bool killed_inside = checkable && small && !horizon && !escaped && !win;
+  const bool stopped = checkable && (horizon || escaped || killed_inside);
+  const bool record = checkable && escaped && !horizon;
+
+  // bilinear cell (harm_model.cpp:1406-1434)
+  const float fi = floorf((x[1] - C.x_start1) * C.inv_dx1 - 0.5f);
+  const float fj = floorf((x[2] - C.x_start2) * C.inv_dx2 - 0.5f);
+  const int ii = (int)fminf(fmaxf(fi, 0.0f), (float)(C.n1 - 2));
+  const int jj = (int)fminf(fmaxf(fj, 0.0f), (float)(C.n2 - 2));
+
+  P.ox0[i] = x[0]; P.ox1[i] = x[1]; P.ox2[i] = x[2]; P.ox3[i] = x[3];
+  P.ok0[i] = k[0]; P.ok1[i] = k[1]; P.ok2[i] = k[2]; P.ok3[i] = k[3];
+  P.od0[i] = dk[0]; P.od1[i] = dk[1]; P.od2[i] = dk[2]; P.od3[i] = dk[3];
+  P.oe_0_s[i] = e0sn;
+  P.odl_shrink[i] = dl_shrink_n;
+  P.opend_dl[i] = pend_rem;
+  P.opend_push[i] = pend_push && !arrived;
+  P.oat_event[i] = at_event || arrived;
+  P.oalive[i] = alive && !stopped;
+  P.ow[i] = w_n;
+  P.orecord_pending[i] = record_pending || record;
+  P.oseg[i] = seg;
+  P.ocommit[i] = commit;
+  P.omoving[i] = moving;
+  P.owas_pend[i] = pend_push;
+  P.oarrived[i] = arrived;
+  P.ostopped[i] = stopped;
+  P.oz[i] = ii * C.n2 + jj;
+  P.ogrown[i] = !pend_push && (dl_shrink > 1.0f);
+}
+
+// ---------------------------------------------------------------------------
+// kernel B
+// ---------------------------------------------------------------------------
+
+constexpr int HC_NX = 41, HC_NY = 31, K2_N = 25, ROW_W = 44, NC = 11;
+
+struct BPtrs {  // order = hot_kernels._B_PTRS
+  const float *rows;
+  const int32_t *z;
+  const float *hc;
+  const float *bias_scale;
+  const float *x0, *x1, *x2, *x3, *k0, *k1, *k2, *k3, *d0, *d1, *d2, *d3;
+  const float *e_0_s, *w, *alpha_scatti, *alpha_absi, *bi, *tau_abs,
+      *tau_scatt;
+  const u8 *interacting;
+  const float *pend_dl;
+  const u8 *pend_push;
+  const float *sec_w;
+  const int32_t *n_step;
+  const u8 *alive;
+  const float *px0, *px1, *px2, *px3, *pk0, *pk1, *pk2, *pk3, *pd0, *pd1,
+      *pd2, *pd3, *pe0s;
+  const float *seg;
+  const u8 *commit, *moving, *was_pend, *stopped;
+  const float *u_x1;
+  const u8 *grown;
+  u8 *otau_over, *oentry_roll;
+  float *ox0, *ox1, *ox2, *ox3, *ok0, *ok1, *ok2, *ok3, *od0, *od1, *od2, *od3;
+  float *oe_0_s, *opend_dl, *osec_w;
+  u8 *opend_push;
+  float *ow, *otau_abs, *otau_scatt, *oalpha_scatti, *oalpha_absi, *obi;
+  u8 *ointeracting, *oalive;
+  int32_t *on_step;
+  float *oa_scf, *oa_abf, *obf, *onu, *on_e;
+  u8 *ohc_clamp;
+};
+constexpr int B_NPTRS = sizeof(BPtrs) / sizeof(void *);
+
+struct BScal {  // order = hot_kernels._B_SCAL
+  double x_start1, x_start2, x_stop1, x_stop2, dx1, dx2, n1, n2, b_unit,
+      d_tau_k, weight_min, stall_steps, tau_cap, hc_xlo, hc_xhi,
+      hc_ylo, hc_yhi, k2_lo, k2_hi, inv_dx1, inv_dx2, inv_b_unit, inv_hpl,
+      inv_mecc, inv_hc_xdiff, inv_hc_ydiff, inv_k2_diff, inv_cl, inv_24,
+      inv_2pimecl, inv_weight_min, inv_tp_over_te;
+  double k2c[K2_N];
+};
+constexpr int B_NSCAL = sizeof(BScal) / sizeof(double);
+
+struct BConst {
+  float x_start1, x_start2, x_stop1, x_stop2, dx1, dx2, b_unit, half_dtk,
+      weight_min, tau_cap, hc_xlo, hc_xhi, hc_xsum, hc_xdiff, hc_ylo, hc_yhi,
+      hc_ysum, hc_ydiff, k2_lo, k2_hi, k2_sum, k2_diff, inv_dx1, inv_dx2,
+      inv_b_unit, inv_hpl, inv_mecc, inv_hc_xdiff, inv_hc_ydiff, inv_k2_diff,
+      inv_cl, inv_24, inv_2pimecl, inv_weight_min, inv_tp_over_te;
+  float k2c[K2_N];
+  int n1, n2, stall_steps;
+};
+
+__device__ __forceinline__ float hc_klein_nishina(float w) {
+  const float series = 1.0f - 2.0f * w;
+  const float ws = jmax(w, 1.0e-6f);
+  const float full =
+      0.75f * ((1.0f / (ws * ws)) * 2.0f +
+               (1.0f / (2.0f * ws) - (1.0f + ws) / (ws * ws * ws)) *
+                   log1pf(2.0f * ws) +
+               (1.0f + ws) / ((1.0f + 2.0f * ws) * (1.0f + 2.0f * ws)));
+  return (w < 1.0e-3f) ? series : full;
+}
+
+// sigma_hot(w, theta_e) [cm^2] from the Chebyshev surface (cheb.hotcross_eval)
+__device__ __forceinline__ float hotcross(float w, float te, const float *hc,
+                                          const BConst &C) {
+  const float l_w = jclip(log10f(jmax(w, 1e-30f)), C.hc_xlo, C.hc_xhi);
+  const float l_t = jclip(log10f(jmax(te, 1e-30f)), C.hc_ylo, C.hc_yhi);
+  const float tx = (2.0f * l_w - C.hc_xsum) * C.inv_hc_xdiff;
+  const float ty = (2.0f * l_t - C.hc_ysum) * C.inv_hc_ydiff;
+  float by[HC_NY];
+  by[0] = 1.0f;
+  by[1] = ty;
+#pragma unroll
+  for (int j = 2; j < HC_NY; ++j) by[j] = 2.0f * ty * by[j - 1] - by[j - 2];
+  float acc = 0.0f, tm2 = 1.0f, tm1 = tx;
+  for (int ix = 0; ix < HC_NX; ++ix) {
+    float t;
+    if (ix == 0) t = 1.0f;
+    else if (ix == 1) t = tx;
+    else {
+      t = 2.0f * tx * tm1 - tm2;
+      tm2 = tm1;
+      tm1 = t;
+    }
+    const float *row = hc + ix * HC_NY;
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < HC_NY; ++j) s += row[j] * by[j];
+    acc += t * s;
+  }
+  const float interp = expf(acc * (float)2.302585092994046);
+  const float cold = hc_klein_nishina(w) * (float)SIGMA_T_D;
+  const float out = (te < 1.0e-4f) ? cold : interp;
+  return (w * te < 1.0e-6f) ? (float)SIGMA_T_D : out;
+}
+
+__device__ __forceinline__ float k2_eval(float te, const BConst &C) {
+  const float l_t = jclip(logf(jmax(te, 0.3f)), C.k2_lo, C.k2_hi);
+  const float t = (2.0f * l_t - C.k2_sum) * C.inv_k2_diff;
+  const float t2 = 2.0f * t;
+  float b1 = 0.0f, b2 = 0.0f;
+#pragma unroll
+  for (int k = K2_N - 1; k > 0; --k) {
+    const float nb = C.k2c[k] + t2 * b1 - b2;
+    b2 = b1;
+    b1 = nb;
+  }
+  const float interp = expf(C.k2c[0] + t * b1 - b2);
+  const float out = (te > 100.0f) ? 2.0f * te * te : interp;
+  return (te < 0.3f) ? 0.0f : out;
+}
+
+__device__ __forceinline__ float b_nu(float nu, float te, const BConst &C) {
+  const float x = (float)HPL_D * nu /
+                  ((float)(ME_D * CL_D * CL_D) * te + (float)EPS_D);
+  const float pref = ((float)(2.0 * HPL_D) * nu) * (nu * C.inv_cl) * (nu * C.inv_cl);
+  const float series =
+      pref / (x * C.inv_24 * (24.0f + x * (12.0f + x * (4.0f + x))) +
+              (float)EPS_D);
+  const float full = pref / (expf(jmin(x, 80.0f)) - 1.0f + (float)EPS_D);
+  return (x < 1.0e-3f) ? series : full;
+}
+
+__device__ __forceinline__ float synch(float nu, float n_e, float te, float b,
+                                       float sin_th, float k2, const BConst &C) {
+  const float nu_c = (float)EE_D * b * C.inv_2pimecl;
+  const float nu_s = (float)(2.0 / 9.0) * nu_c * te * te * sin_th;
+  const float x = nu / (nu_s + (float)EPS_D);
+  const float xp = expf(logf(jmax(x, 1e-37f)) * (float)(1.0 / 3.0));
+  const float xx = sqrtf(x) + (float)1.88774862536 * sqrtf(xp);
+  const float f = xx * xx;
+  const float val =
+      (float)(1.4142135623730951 * PI_D * EE_D * EE_D / (3.0 * CL_D)) * n_e *
+      nu_s / (k2 + (float)EPS_D) * f * expf(-xp);
+  const bool bad = (te < 0.3f) || (nu > 1.0e12f * nu_s) || (k2 <= 0.0f);
+  return bad ? 0.0f : val;
+}
+
+__global__ void __launch_bounds__(256)
+    hot_phase_b_kernel(const BPtrs P, const BConst C, int n) {
+  __shared__ float hc[HC_NX * HC_NY];
+  for (int t = threadIdx.x; t < HC_NX * HC_NY; t += blockDim.x) hc[t] = P.hc[t];
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float eps = (float)EPS_D;
+
+  const float x[4] = {P.x0[i], P.x1[i], P.x2[i], P.x3[i]};
+  const float k[4] = {P.k0[i], P.k1[i], P.k2[i], P.k3[i]};
+  const float w = P.w[i];
+  const float alpha_scatti = P.alpha_scatti[i], alpha_absi = P.alpha_absi[i];
+  const float bi = P.bi[i];
+  const bool moving = P.moving[i], commit = P.commit[i];
+  const bool was_pend = P.was_pend[i], stopped = P.stopped[i];
+  bool inter = moving && commit && !was_pend && !stopped;
+
+  // bilinear blend of the derived corner row (fluid.blend_derived)
+  const float4 *rp = reinterpret_cast<const float4 *>(P.rows + (size_t)P.z[i] * ROW_W);
+  float row[ROW_W];
+#pragma unroll
+  for (int q = 0; q < ROW_W / 4; ++q) {
+    const float4 v = __ldg(rp + q);
+    row[4 * q] = v.x;
+    row[4 * q + 1] = v.y;
+    row[4 * q + 2] = v.z;
+    row[4 * q + 3] = v.w;
+  }
+  const float x1 = x[1], x2 = x[2];
+  const bool inside = (x1 >= C.x_start1) && (x1 <= C.x_stop1) &&
+                      (x2 >= C.x_start2) && (x2 <= C.x_stop2);
+  const float fi = floorf((x1 - C.x_start1) * C.inv_dx1 - 0.5f);
+  const float fj = floorf((x2 - C.x_start2) * C.inv_dx2 - 0.5f);
+  const float ci = fminf(fmaxf(fi, 0.0f), (float)(C.n1 - 2));
+  const float cj = fminf(fmaxf(fj, 0.0f), (float)(C.n2 - 2));
+  float del_i = (x1 - ((ci + 0.5f) * C.dx1 + C.x_start1)) * C.inv_dx1;
+  float del_j = (x2 - ((cj + 0.5f) * C.dx2 + C.x_start2)) * C.inv_dx2;
+  del_i = (fi < 0.0f) ? 0.0f : ((fi > (float)(C.n1 - 2)) ? 1.0f : del_i);
+  del_j = (fj < 0.0f) ? 0.0f : ((fj > (float)(C.n2 - 2)) ? 1.0f : del_j);
+  const float c00 = (1.0f - del_i) * (1.0f - del_j);
+  const float c01 = (1.0f - del_i) * del_j;
+  const float c10 = del_i * (1.0f - del_j);
+  const float c11 = del_i * del_j;
+  float pr[NC];
+#pragma unroll
+  for (int m = 0; m < NC; ++m)
+    pr[m] = row[m] * c00 + row[NC + m] * c01 + row[2 * NC + m] * c10 +
+            row[3 * NC + m] * c11;
+  const float n_e = inside ? pr[0] : 0.0f;
+  const float te = pr[1] / pr[0];
+  const float b_mag = pr[2];
+
+  // kinematics (radiation.kinematics_sin_c)
+  const float k_u = k[0] * pr[3] + k[1] * pr[4] + k[2] * pr[5] + k[3] * pr[6];
+  const float k_b = k[0] * pr[7] + k[1] * pr[8] + k[2] * pr[9] + k[3] * pr[10];
+  const float mu =
+      jclip(k_b / (fabsf(k_u) * b_mag * C.inv_b_unit + eps), -1.0f, 1.0f);
+  const float sin_th = (b_mag == 0.0f) ? 1.0f : sqrtf(1.0f - mu * mu);
+  const float nu =
+      -k_u * (float)ME_D * (float)CL_D * (float)CL_D * C.inv_hpl;
+
+  const bool bound = n_e == 0.0f;
+  const float nu_safe = fabsf(nu) + eps;
+  const float e_g =
+      (float)HPL_D * nu_safe * C.inv_mecc;
+  const float a_scf = nu_safe * hotcross(e_g, te, hc, C) * n_e;
+  const bool hc_thomson = e_g * te < 1.0e-6f, hc_cold = te < 1.0e-4f;
+  const bool hc_hit = !hc_thomson && !hc_cold &&
+                      ((e_g <= 1.0e-12f) || (e_g >= 1.0e6f) || (te <= 1.0e-4f) ||
+                       (te >= 1.0e4f)) &&
+                      (n_e > 0.0f);
+  const float j = synch(nu_safe, n_e, te, b_mag, sin_th, k2_eval(te, C), C);
+  const float a_abf = nu_safe * j / (b_nu(nu_safe, te, C) + eps);
+  const float cap = 0.5f * w * C.inv_weight_min;
+  const float bf =
+      jmin(jmax(P.bias_scale[0] * te * te, 3.0f), cap) * C.inv_tp_over_te;
+
+  const bool dead_branch = bound || (nu < 0.0f);
+  // vacuum -> matter entry rollback of grown steps
+  const bool entry_roll = inter && P.grown[i] && !dead_branch &&
+                          (alpha_scatti <= 0.0f) && (alpha_absi <= 0.0f) &&
+                          (n_e > 0.0f);
+  inter = inter && !entry_roll;
+
+  const float seg = P.seg[i];
+  const float half = C.half_dtk * seg;
+  const float d_tau_scatt =
+      dead_branch ? alpha_scatti * half : (alpha_scatti + a_scf) * half;
+  const float d_tau_abs =
+      dead_branch ? alpha_absi * half : (alpha_absi + a_abf) * half;
+  const float bias = dead_branch ? 0.0f : 0.5f * (bi + bf);
+
+  const float alpha_scatti_n = inter ? (dead_branch ? 0.0f : a_scf) : alpha_scatti;
+  const float alpha_absi_n = inter ? (dead_branch ? 0.0f : a_abf) : alpha_absi;
+  const float bi_n = inter ? (dead_branch ? 0.0f : bf) : bi;
+
+  const float x1r = -logf(P.u_x1[i] + 1e-30f);
+  const float sec_w_new = w / jmax(bias, eps);
+  const bool scatter = inter && (bias * d_tau_scatt > x1r) && (sec_w_new > C.weight_min);
+  const float frac = scatter ? x1r / (bias * d_tau_scatt + eps) : 1.0f;
+  const float d_tau_abs_eff = d_tau_abs * frac;
+  const float d_tau_scatt_eff = d_tau_scatt * frac;
+  const bool absorbed = inter && (d_tau_abs_eff > 100.0f);
+  const float d_tau = d_tau_abs_eff + d_tau_scatt_eff;
+  const float decay =
+      (d_tau < 1.0e-3f)
+          ? 1.0f - d_tau * C.inv_24 *
+                       (24.0f - d_tau * (12.0f - d_tau * (4.0f - d_tau)))
+          : expf(-jmin(d_tau, 200.0f));
+  const bool live = inter && !absorbed;
+  const bool roll = scatter && !absorbed;
+  const bool roll_any = roll || entry_roll;
+
+  const int32_t n_step_n = P.n_step[i] + (moving ? 1 : 0);
+  const bool over = moving && (n_step_n > C.stall_steps);
+  const bool tau_over = inter && (jmax(d_tau_scatt, d_tau_abs) > C.tau_cap);
+
+  if (roll_any) {
+    P.ox0[i] = P.px0[i]; P.ox1[i] = P.px1[i]; P.ox2[i] = P.px2[i]; P.ox3[i] = P.px3[i];
+    P.ok0[i] = P.pk0[i]; P.ok1[i] = P.pk1[i]; P.ok2[i] = P.pk2[i]; P.ok3[i] = P.pk3[i];
+    P.od0[i] = P.pd0[i]; P.od1[i] = P.pd1[i]; P.od2[i] = P.pd2[i]; P.od3[i] = P.pd3[i];
+    P.oe_0_s[i] = P.pe0s[i];
+  } else {
+    P.ox0[i] = x[0]; P.ox1[i] = x[1]; P.ox2[i] = x[2]; P.ox3[i] = x[3];
+    P.ok0[i] = k[0]; P.ok1[i] = k[1]; P.ok2[i] = k[2]; P.ok3[i] = k[3];
+    P.od0[i] = P.d0[i]; P.od1[i] = P.d1[i]; P.od2[i] = P.d2[i]; P.od3[i] = P.d3[i];
+    P.oe_0_s[i] = P.e_0_s[i];
+  }
+  P.otau_over[i] = tau_over;
+  P.oentry_roll[i] = entry_roll;
+  P.opend_dl[i] = roll ? seg * frac : P.pend_dl[i];
+  P.osec_w[i] = roll ? sec_w_new : P.sec_w[i];
+  P.opend_push[i] = P.pend_push[i] || roll;
+  P.ow[i] = live ? w * decay : w;
+  P.otau_abs[i] = live ? P.tau_abs[i] + d_tau_abs_eff : P.tau_abs[i];
+  P.otau_scatt[i] = live ? P.tau_scatt[i] + d_tau_scatt_eff : P.tau_scatt[i];
+  P.oalpha_scatti[i] = alpha_scatti_n;
+  P.oalpha_absi[i] = alpha_absi_n;
+  P.obi[i] = bi_n;
+  P.ointeracting[i] =
+      inter ? ((alpha_scatti_n > 0.0f) || (alpha_absi_n > 0.0f) || (n_e > 0.0f))
+            : (bool)P.interacting[i];
+  P.oalive[i] = P.alive[i] && !absorbed && !over;
+  P.on_step[i] = n_step_n;
+  P.oa_scf[i] = a_scf;
+  P.oa_abf[i] = a_abf;
+  P.obf[i] = bf;
+  P.onu[i] = nu;
+  P.on_e[i] = n_e;
+  P.ohc_clamp[i] = hc_hit && inter;
+}
+
+constexpr int THREADS = 256;
+
+}  // namespace
+
+extern "C" {
+
+int hot_phase_a_nptrs() { return A_NPTRS; }
+int hot_phase_a_nscal() { return A_NSCAL; }
+int hot_phase_b_nptrs() { return B_NPTRS; }
+int hot_phase_b_nscal() { return B_NSCAL; }
+
+int hot_phase_a_launch(void **ptrs, const double *scal, int n, void *stream) {
+  APtrs P;
+  memcpy(&P, ptrs, sizeof(APtrs));
+  AScal S;
+  memcpy(&S, scal, sizeof(AScal));
+  AConst C;
+  C.a = (float)S.a;
+  C.a2 = (float)(S.a * S.a);
+  C.a3 = (float)(S.a * S.a * S.a);
+  C.a4 = (float)(S.a * S.a * S.a * S.a);
+  C.neg_a = (float)(-S.a);
+  C.neg_a2 = (float)(-(S.a * S.a));
+  C.neg_2a = (float)(-2.0 * S.a);
+  C.r_0 = (float)S.r_0;
+  C.two_pi = (float)(2.0 * PI_D);
+  C.pi = (float)PI_D;
+  C.half_1mh = (float)(0.5 * (1.0 - S.h_slope));
+  C.one_mh = (float)(1.0 - S.h_slope);
+  C.neg2pipi_1mh = (float)(-2.0 * PI_D * PI_D * (1.0 - S.h_slope));
+  C.x_start1 = (float)S.x_start1;
+  C.x_start2 = (float)S.x_start2;
+  C.x_stop2 = (float)S.x_stop2;
+  C.dx1 = (float)S.dx1;
+  C.dx2 = (float)S.dx2;
+  C.inv_dx1 = (float)S.inv_dx1;
+  C.inv_dx2 = (float)S.inv_dx2;
+  C.inv_e_tol = (float)S.inv_e_tol;
+  C.inv_e_drift_tol = (float)S.inv_e_drift_tol;
+  C.x1_min = (float)S.x1_min;
+  C.half_dtk = (float)(0.5 * S.d_tau_k);
+  C.weight_min = (float)S.weight_min;
+  C.shrink_floor = (float)S.shrink_floor;
+  C.grow_cap = (float)S.grow_cap;
+  C.grow_tau_cap = (float)S.grow_tau_cap;
+  C.step_ctrl = (float)S.step_ctrl;
+  C.n1 = (int)S.n1;
+  C.n2 = (int)S.n2;
+  C.fp_iters = (int)S.fp_iters;
+  if (n > 0) {
+    hot_phase_a_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                         (cudaStream_t)stream>>>(P, C, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int hot_phase_b_launch(void **ptrs, const double *scal, int n, void *stream) {
+  BPtrs P;
+  memcpy(&P, ptrs, sizeof(BPtrs));
+  BScal S;
+  memcpy(&S, scal, sizeof(BScal));
+  BConst C;
+  C.x_start1 = (float)S.x_start1;
+  C.x_start2 = (float)S.x_start2;
+  C.x_stop1 = (float)S.x_stop1;
+  C.x_stop2 = (float)S.x_stop2;
+  C.dx1 = (float)S.dx1;
+  C.dx2 = (float)S.dx2;
+  C.b_unit = (float)S.b_unit;
+  C.half_dtk = (float)(0.5 * S.d_tau_k);
+  C.weight_min = (float)S.weight_min;
+  C.tau_cap = (float)S.tau_cap;
+  C.hc_xlo = (float)S.hc_xlo;
+  C.hc_xhi = (float)S.hc_xhi;
+  C.hc_xsum = (float)(S.hc_xhi + S.hc_xlo);
+  C.hc_xdiff = (float)(S.hc_xhi - S.hc_xlo);
+  C.hc_ylo = (float)S.hc_ylo;
+  C.hc_yhi = (float)S.hc_yhi;
+  C.hc_ysum = (float)(S.hc_yhi + S.hc_ylo);
+  C.hc_ydiff = (float)(S.hc_yhi - S.hc_ylo);
+  C.k2_lo = (float)S.k2_lo;
+  C.k2_hi = (float)S.k2_hi;
+  C.k2_sum = (float)(S.k2_hi + S.k2_lo);
+  C.k2_diff = (float)(S.k2_hi - S.k2_lo);
+  C.inv_dx1 = (float)S.inv_dx1;
+  C.inv_dx2 = (float)S.inv_dx2;
+  C.inv_b_unit = (float)S.inv_b_unit;
+  C.inv_hpl = (float)S.inv_hpl;
+  C.inv_mecc = (float)S.inv_mecc;
+  C.inv_hc_xdiff = (float)S.inv_hc_xdiff;
+  C.inv_hc_ydiff = (float)S.inv_hc_ydiff;
+  C.inv_k2_diff = (float)S.inv_k2_diff;
+  C.inv_cl = (float)S.inv_cl;
+  C.inv_24 = (float)S.inv_24;
+  C.inv_2pimecl = (float)S.inv_2pimecl;
+  C.inv_weight_min = (float)S.inv_weight_min;
+  C.inv_tp_over_te = (float)S.inv_tp_over_te;
+  for (int q = 0; q < K2_N; ++q) C.k2c[q] = (float)S.k2c[q];
+  C.n1 = (int)S.n1;
+  C.n2 = (int)S.n2;
+  C.stall_steps = (int)S.stall_steps;
+  if (n > 0) {
+    hot_phase_b_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                         (cudaStream_t)stream>>>(P, C, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,93 @@
+"""Thermal synchrotron emissivity evaluators.
+
+Port of the evaluators of ``grmonty_tpu/ops/jnu.py`` (reference
+``jnu_mixed.cpp:57-168``).  The F(k) and K2 tables themselves are the
+tracked ``.npz`` inputs (``utils/tables.jnu_tables``).
+"""
+
+import math
+
+import torch
+
+from grmonty_tpu_torch import consts
+
+PI = math.pi
+
+
+def _cbrt(x):
+    """Real cube root of x > 0."""
+    return torch.pow(x, 1.0 / 3.0)
+
+
+def _interp_log(l_v, l_min, d_l, table):
+    """Linear interpolation of ln-valued ``table`` on a log-spaced axis."""
+    d_i = (l_v - l_min) / d_l
+    i = torch.clamp(torch.floor(d_i).to(torch.int64), 0, table.shape[0] - 2)
+    frac = d_i - i.to(d_i.dtype)
+    return torch.exp((1.0 - frac) * table[i] + frac * table[i + 1])
+
+
+def k2_eval(theta_e, k2_table):
+    """K_2(1/theta_e) with the asymptote above the table (jnu_mixed.cpp:102-111)."""
+    interp = _interp_log(torch.log(torch.clamp(theta_e, min=consts.jnu.MIN_T)),
+                         consts.jnu.L_MIN_T, consts.jnu.D_L_T, k2_table)
+    out = torch.where(theta_e > consts.jnu.MAX_T, 2.0 * theta_e * theta_e, interp)
+    return torch.where(theta_e < consts.THETA_E_MIN, torch.zeros_like(out), out)
+
+
+def f_eval(theta_e, b_mag, nu, f_table):
+    """Angle-integrated emissivity shape F(k) (jnu_mixed.cpp:113-125)."""
+    k = consts.jnu.K_FAC * nu / (b_mag * theta_e * theta_e + consts.EPS)
+    small = _cbrt(torch.clamp(k, min=consts.EPS))
+    small_val = small * (37.67503800178 + 2.240274341836 * small)
+    interp = _interp_log(torch.log(torch.clamp(k, min=consts.jnu.MIN_K)),
+                         consts.jnu.L_MIN_K, consts.jnu.D_L_K, f_table)
+    out = torch.where(k < consts.jnu.MIN_K, small_val, interp)
+    return torch.where(k > consts.jnu.MAX_K, torch.zeros_like(out), out)
+
+
+def ln_f_eval(theta_e, b_mag, nu, f_table):
+    """ln F(k); out-of-table k > MAX_K returns -inf (f_eval's 0)."""
+    k = consts.jnu.K_FAC * nu / (b_mag * theta_e * theta_e + consts.EPS)
+    small = _cbrt(torch.clamp(k, min=consts.EPS))
+    ln_small = torch.log(small * (37.67503800178 + 2.240274341836 * small))
+    d_i = (torch.log(torch.clamp(k, min=consts.jnu.MIN_K)) - consts.jnu.L_MIN_K) / consts.jnu.D_L_K
+    i = torch.clamp(torch.floor(d_i).to(torch.int64), 0, f_table.shape[0] - 2)
+    frac = d_i - i.to(d_i.dtype)
+    interp = (1.0 - frac) * f_table[i] + frac * f_table[i + 1]
+    out = torch.where(k < consts.jnu.MIN_K, ln_small, interp)
+    return torch.where(k > consts.jnu.MAX_K, torch.full_like(out, -math.inf), out)
+
+
+def synch_sin_c(nu, n_e, theta_e, b, sin_th, k2_coeffs):
+    """Angle-dependent emissivity j_nu from sin(pitch angle), with the
+    Chebyshev K2 surrogate (the transport hot path)."""
+    from grmonty_tpu_torch.ops import cheb
+
+    return _synch_from_sin(nu, n_e, theta_e, b, sin_th,
+                           cheb.k2_eval(theta_e, k2_coeffs))
+
+
+def _cbrt_pos(x):
+    """cbrt for x >= 0 as exp(log(x)/3) (the form the kernels use)."""
+    return torch.exp(torch.log(torch.clamp(x, min=1e-37)) * (1.0 / 3.0))
+
+
+def _synch_from_sin(nu, n_e, theta_e, b, sin_th, k2):
+    nu_c = consts.EE * b / (2.0 * PI * consts.ME * consts.CL)
+    nu_s = (2.0 / 9.0) * nu_c * theta_e * theta_e * sin_th
+
+    x = nu / (nu_s + consts.EPS)
+    xp = _cbrt_pos(x)
+    xx = torch.sqrt(x) + consts.jnu.CST * torch.sqrt(xp)
+    f = xx * xx
+    val = (
+        (math.sqrt(2.0) * PI * consts.EE * consts.EE / (3.0 * consts.CL))
+        * n_e
+        * nu_s
+        / (k2 + consts.EPS)
+        * f
+        * torch.exp(-xp)
+    )
+    bad = (theta_e < consts.THETA_E_MIN) | (nu > 1.0e12 * nu_s) | (k2 <= 0.0)
+    return torch.where(bad, torch.zeros_like(val), val)

@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""Where the port's time goes in the smoke cell, on one CUDA card.
+
+    python3 profile_slice.py            # phase clocks
+    python3 profile_slice.py --trace    # trace windows
+
+Runs the cell of ``chip_smoke.py`` (256x256 torus, M = 4e19, seed 123,
+float32, the shipped profile at pool 65,536, 1e5 photons) once, and
+measures one of two
+things.  Run them in separate processes: once ``torch.profiler`` has traced
+a window, every later kernel launch of the process costs more, so a
+traced run's phase clocks and device window are not the run's.
+
+1. **Phase clocks over the whole run** (default).  Every call of the engine's phases
+   (``hot_step``, ``periodic_phase``, ``light_phase`` and, inside them,
+   ``process_scatters`` and ``init_fresh``) is bracketed by two CUDA
+   events on the current stream.  Nothing is synchronised, so the run is
+   not stretched; the stream time between a phase's two events is the
+   time the stream spent on that phase's work, waiting for its launches
+   included, so the phases split the engine's device window (nested
+   phases are also counted inside their parents).
+2. **Device busy share in trace windows** (``--trace``).  ``torch.profiler``
+   traces 64 hot iterations twice: in the first wave after 64 iterations
+   (full pool), and in the final drain 64 iterations after it starts.  The busy time is the union of the device activity intervals
+   (kernels, copies, sets) in the window; the window is timed by CUDA
+   events with the profiler on.  The share holds for those iterations
+   only, not for the run.
+
+Prints the card's name and power limit and one JSON object; with
+``--trace`` the profiler's table of the device's kernels goes to
+``chiprun_out/profile_kernels.txt``.
+"""
+
+import argparse
+import json
+import logging
+import os
+import sys
+import time
+
+import chip_smoke
+
+PHASES = ("hot_step", "periodic_phase", "light_phase", "process_scatters", "init_fresh")
+PHOTON_N = 100_000
+WAVE_AT = 64  # trace the first wave from this hot iteration
+TRACE_ITERS = 64  # hot iterations per trace window
+
+
+def clock_phases(engine_cls, clocks):
+    """Bracket each phase method of ``engine_cls`` with CUDA events."""
+    import torch
+
+    for name in PHASES:
+        fn = getattr(engine_cls, name)
+
+        def timed(self, *a, _fn=fn, _name=name, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = _fn(self, *a, **kw)
+            e1.record()
+            clocks[_name].append((e0, e1))
+            return out
+
+        setattr(engine_cls, name, timed)
+
+
+def busy_ms(prof):
+    """Union of the device activity intervals of a finished trace, ms."""
+    import torch
+
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, None
+    for s, t in spans:
+        if end is None or s > end:
+            busy += t - s
+            end = t
+        elif t > end:
+            busy += t - end
+            end = t
+    return busy / 1e6, len(spans)
+
+
+class Windows:
+    """Starts and stops ``torch.profiler`` around hot iterations."""
+
+    def __init__(self, iters):
+        self.iters, self.start_at, self.results = iters, {"wave": WAVE_AT}, {}
+        self.live, self.last_it, self.table = None, 0, ""
+
+    def before(self, it):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        for name, at in self.start_at.items():
+            if self.live is None and it == at and name not in self.results:
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.start()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                self.live = (name, it, prof, e0)
+
+    def after(self, it):
+        import torch
+
+        if self.live is None or it < self.live[1] + self.iters:
+            return
+        name, _, prof, e0 = self.live
+        e1 = torch.cuda.Event(enable_timing=True)
+        e1.record()
+        e1.synchronize()
+        prof.stop()
+        window = e0.elapsed_time(e1)
+        busy, n_dev = busy_ms(prof)
+        hot = {}
+        for k in ("hot_phase_a_kernel", "hot_phase_b_kernel"):
+            hot[k] = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == torch.autograd.DeviceType.CUDA
+                         and k in e.name()) / 1e6
+        self.results[name] = {
+            "iters": self.iters, "window_ms": window, "busy_ms": busy,
+            "busy_share": busy / window, "device_activities": n_dev,
+            "kernel_a_ms": hot["hot_phase_a_kernel"], "kernel_b_ms": hot["hot_phase_b_kernel"],
+        }
+        self.table += (f"== {name} window ==\n" + prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=25) + "\n")
+        self.live = None
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", action="store_true", help="trace windows, not phase clocks")
+    args = ap.parse_args()
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_slice: no CUDA device; this measurement runs only on the card",
+              file=sys.stderr)
+        sys.exit(2)
+    root = os.path.dirname(os.path.abspath(__file__))
+    from grmonty_tpu_torch.transport import driver, engine, hot_kernels
+
+    card = chip_smoke.card_line()
+    hot_kernels.build()
+    sim = chip_smoke.make_simulation(root, PHOTON_N)
+
+    clocks = {name: [] for name in PHASES}
+    win = Windows(TRACE_ITERS)
+    if args.trace:
+        hot = engine.Engine.hot_step
+        tail = driver.Simulation.tail_engine
+
+        def traced_hot_step(self, state, *a, **kw):
+            win.before(state.it)
+            state = hot(self, state, *a, **kw)
+            win.last_it = state.it
+            win.after(state.it)
+            return state
+
+        def traced_tail_engine(self):
+            win.start_at["drain"] = win.last_it + WAVE_AT
+            return tail(self)
+
+        engine.Engine.hot_step = traced_hot_step
+        driver.Simulation.tail_engine = traced_tail_engine
+    else:
+        clock_phases(engine.Engine, clocks)
+
+    t0 = time.monotonic()
+    _, stats = sim.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    window_ms = stats["device_s"] * 1e3
+    result = {"mode": "trace" if args.trace else "clocks",
+              "photon_n": PHOTON_N, "n_created": stats["n_created"],
+              "hot_iters": stats["hot_iters"], "device_window_ms": window_ms,
+              "wall_s": wall, "rate_device": stats["photon_rate_device"]}
+    if args.trace:
+        out_dir = os.path.join(root, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "profile_kernels.txt"), "w") as f:
+            f.write(win.table)
+        result["trace_windows"] = win.results
+    else:
+        phases = {}
+        for name, pairs in clocks.items():
+            ms = sum(e0.elapsed_time(e1) for e0, e1 in pairs)
+            phases[name] = {"calls": len(pairs), "ms": ms,
+                            "ms_per_call": ms / max(1, len(pairs)), "share": ms / window_ms}
+        top = sum(phases[n]["ms"] for n in ("hot_step", "periodic_phase", "light_phase"))
+        result.update(phases=phases, outside_phases_share=1.0 - top / window_ms)
+    print(card)
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()
