@@ -1,28 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's two paths once on one CUDA card and check them.
 
-    python3 chip_smoke.py [--photon-n 1e5]     # --photon-n 1e6 for the long run
+    python3 chip_smoke.py [--photon-n 1e5] [--ref-photon-n 5e4]
 
 Phases, each of which exits non-zero on failure:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the two hot-step kernels from ``grmonty_tpu_torch/csrc`` (nvcc);
+2. build the kernels from ``grmonty_tpu_torch/csrc`` (one nvcc per source,
+   in parallel);
 3. generate the 256x256 synthetic torus into ``.cache/`` with the port's
    writer and build the per-dump tables on the card;
-4. kernel A and kernel B against their plain PyTorch versions at
-   N = 65,536 on synthetic lane states (seeded numpy; the rows come from
-   the torus's derived table), on every lane: kernel A exactly equal,
-   kernel B within the Pallas-vs-XLA parity contract
-   (``hot_kernels.KERNEL_TOLERANCE``), with the time per call of kernel and
-   plain when the host calls them back to back (``ms``, ``plain_ms``, CUDA
-   events) and the kernel's device time per launch (``device_ms``: launches
-   queued behind a GPU sleep, so the host's launch cost is hidden; the
-   plain versions launch too many kernels per call to queue that way);
-5. the slice end to end with the shipped profile at M = 4e19, seed 123,
-   float32, pool 65,536: every hot step must go through both kernels, the
-   spectrum must be finite with a photon count equal to ``n_recorded``, no
-   secondary may be dropped, and the luminosity must lie within 10% of the
-   JAX engine's 12694.3 on the same torus and seed.
+4. every kernel against its plain PyTorch version at N = 65,536: kernels A
+   and B in their shipped and reference variants on synthetic lane states
+   (seeded numpy; kernel B's rows come from the torus's derived or raw
+   table), on every lane: both variants of A exactly equal, both of B
+   within the Pallas-vs-XLA parity contract (``hot_kernels.KERNEL_TOLERANCE``);
+   the row gather on the raw corner table at seeded indices, bitwise equal
+   to ``table[idx]``.  Each with the time per call of kernel and plain when
+   the host calls them back to back (``ms``, ``plain_ms``, CUDA events), the
+   kernel's device time per launch (``device_ms``: launches queued behind a
+   GPU sleep, so the host's launch cost is hidden), the one PyTorch call
+   that computes the same function where there is one (``library_ms``),
+   and the least time the card could take (``bound_ms``: the bytes the
+   call must move at 3.35 TB/s or its float32 work at 67 TFLOP/s, the
+   larger; ``bound_by`` says which);
+5. the shipped profile end to end at M = 4e19, seed 123, float32, pool
+   65,536: every hot step must go through kernels A and B, the spectrum
+   must be finite with a photon count equal to ``n_recorded``, no secondary
+   may be dropped, and the luminosity must lie within 10% of the JAX
+   engine's 12694.3 on the same torus and seed;
+6. reference semantics end to end on the same cell (``--ref-photon-n``
+   photons, ``profiles.reference_config`` with its step cap cut to
+   ``--ref-stall-steps``): every hot step must go through
+   kernel A's ladder variant, the row gather and kernel B's raw variant,
+   with the same checks of the spectrum and the luminosity.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result line.
@@ -40,11 +51,34 @@ import time
 REF_LUMINOSITY = 12694.3  # JAX engine, 256x256 torus, M=4e19, seed 123
 N_CHECK = 65536
 REPS = 20
+# The reference path's per-photon step cap, cut from the reference's
+# 150,000: at 150,000 its drain ran 415,200 hot iterations (754 s of device
+# window on an H100 80GB HBM3 at 700 W), chains of secondaries near the hole
+# outliving any one photon's cap (PERF.md, the reference cell).
+REF_STALL_STEPS = 50000
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# Float32 operations per lane, counted from csrc/hot_step.cu (every add,
+# multiply, compare-select, division, square root and transcendental as
+# one): A is dominated by the 40-term connection and two fixed-point
+# rounds of the 40-term geodesic right-hand side; B by the 41x31 hotcross
+# Chebyshev sum.  The row gather does no arithmetic.
+OPS_PER_LANE = {"hot_phase_a": 600, "hot_phase_a_ladder": 590,
+                "hot_phase_b": 3200, "hot_phase_b_raw": 3250, "row_gather": 0}
 TOLERANCE = {
     "hot_phase_a": "exactly equal on every lane",
+    "hot_phase_a_ladder": "exactly equal on every lane",
     "hot_phase_b": "masks and integers differ on at most 0.1% of lanes; floats within "
                    "rtol 1e-4 atol 1e-6 on every lane",
+    "hot_phase_b_raw": "masks and integers differ on at most 0.1% of lanes; floats within "
+                       "rtol 1e-4 atol 1e-6 on every lane",
+    "row_gather": "bitwise equal",
 }
+SOURCES = {"hot_phase_a": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:104"),
+           "hot_phase_a_ladder": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:104"),
+           "hot_phase_b": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:152"),
+           "hot_phase_b_raw": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:152"),
+           "row_gather": ("row_gather.cu", "grmonty_tpu/ops/gather.py:63")}
 
 
 def fail(msg):
@@ -88,10 +122,32 @@ def cuda_ms(fn, reps=REPS, queued=False):
     fail("the GPU sleep never outlasted the enqueueing of the timed calls")
 
 
-def make_simulation(root, photon_n):
+def nbytes(*objs):
+    """Bytes of every tensor in ``objs`` (nested tuples, lists and dicts)."""
+    import torch
+
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            total += nbytes(*o.values())
+        elif isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+    return total
+
+
+def bound(moved_bytes, ops):
+    """(least ms, what bounds it) for ``moved_bytes`` of traffic and
+    ``ops`` float32 operations on the card."""
+    t_bytes, t_ops = moved_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def make_simulation(root, photon_n, reference=False, stall_steps=REF_STALL_STEPS):
     """The smoke cell's ``Simulation`` on the card: the 256x256 synthetic
     torus (written into ``root/.cache`` once), M = 4e19, seed 123, float32,
-    the shipped profile at pool 65,536."""
+    the shipped profile (or reference semantics) at pool 65,536."""
     import torch
 
     from grmonty_tpu_torch.models import torus
@@ -103,20 +159,49 @@ def make_simulation(root, photon_n):
     if not os.path.exists(dump):
         torus.write_torus_dump(dump, n1=256, n2=256)
     pool = 65536
-    cfg = profiles.bench_config(pool=pool, dtype=torch.float32)
+    if reference:
+        cfg = profiles.reference_config(pool=pool, dtype=torch.float32,
+                                        stall_steps=stall_steps)
+        kw = profiles.reference_sim_kwargs(pool)
+    else:
+        cfg = profiles.bench_config(pool=pool, dtype=torch.float32)
+        kw = profiles.bench_sim_kwargs(pool)
     return driver.Simulation(dump, photon_n=int(photon_n), mass_unit=4.0e19, seed=123,
-                             config=cfg, device="cuda", **profiles.bench_sim_kwargs(pool))
+                             config=cfg, device="cuda", **kw)
+
+
+def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None):
+    """Hold ``got`` against ``ref`` under the kernel's tolerance, time
+    plain, kernel, kernel, plain (one pair of each per call, averaged),
+    the kernel's device time and the library call, and return the record."""
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    err, rel, mask, fails = hot_kernels.compare(ref, got, **hot_kernels.KERNEL_TOLERANCE[name])
+    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+    bound_ms, bound_by = bound(moved_bytes, OPS_PER_LANE[name] * N_CHECK)
+    src, replaces = SOURCES[name]
+    rec = {"name": name, "route": "cuda", "source": f"grmonty_tpu_torch/csrc/{src}",
+           "replaces": replaces, "max_abs_err": err, "max_rel_err": rel,
+           "mask_mismatch": mask, "tolerance": TOLERANCE[name],
+           "ms": 0.5 * (k1 + k2), "plain_ms": 0.5 * (p1 + p2),
+           "device_ms": cuda_ms(kern, queued=True),
+           "library_ms": None if library is None else cuda_ms(library),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved_bytes, "n": N_CHECK}
+    print(f"kernel check {name}: {json.dumps(rec)}")
+    if fails:
+        fail(f"{name} disagrees with its plain version: " + "; ".join(fails))
+    return rec
 
 
 def kernel_checks(sim):
-    """Phase 4: kernels A and B vs their plain versions at N_CHECK lanes."""
+    """Phase 4: every kernel vs its plain version at N_CHECK lanes."""
+    import numpy as np
     import torch
 
-    from grmonty_tpu_torch.transport import engine, hot_kernels
+    from grmonty_tpu_torch.transport import engine, hot_kernels, profiles
 
     mc, cfg, tabs = sim.mc, sim.cfg, sim.tables
     dev, f32 = sim.device, torch.float32
-    lanes = hot_kernels.synthetic_lanes(mc, N_CHECK, 2024, cfg.stall_steps)
 
     def t(v):
         if isinstance(v, tuple):
@@ -124,55 +209,114 @@ def kernel_checks(sim):
         a = torch.as_tensor(v, device=dev)
         return a if a.dtype in (torch.bool, torch.int32) else a.to(f32)
 
-    s = {k: t(v) for k, v in lanes.items() if k != "bias_scale"}
-    bias_scale = torch.tensor(lanes["bias_scale"], dtype=f32, device=dev)
-    a_args = (s["x"], s["k"], s["dkdlam"], s["e_0_s"], s["dl_shrink"], s["pend_dl"],
-              s["pend_push"], s["at_event"], s["alive"], s["w"], s["record_pending"],
-              s["u_roul"], s["alpha_scatti"], s["bi"], mc, cfg.grow_cap)
-    plain_a = lambda: engine.hot_phase_a(*a_args)  # noqa: E731
-    kern_a = lambda: hot_kernels.phase_a(*a_args)  # noqa: E731
-    ref_a = plain_a()
-    got_a = kern_a()
-    torch.cuda.synchronize()
-
-    A = ref_a
-    b_tail = (A["x"], A["k"], A["dkdlam"], A["e_0_s"], A["w"], s["alpha_scatti"],
-              s["alpha_absi"], s["bi"], s["tau_abs"], s["tau_scatt"], s["interacting"],
-              A["pend_dl"], A["pend_push"], s["sec_w"], s["n_step"], A["alive"],
-              s["x"], s["k"], s["dkdlam"], s["e_0_s"], A["seg"], A["commit"],
-              A["moving"], A["was_pend"], A["stopped"], s["u_x1"], A["grown"], bias_scale,
-              mc, tabs.hc_coeffs, tabs.k2_coeffs, cfg.stall_steps)
-    plain_b = lambda: engine.hot_phase_b(tabs.hot_tab[A["z"].long()], *b_tail)  # noqa: E731
-    kern_b = lambda: hot_kernels.phase_b(tabs.hot_tab, A["z"], *b_tail)  # noqa: E731
-    ref_b = plain_b()
-    got_b = kern_b()
-    torch.cuda.synchronize()
-
     out = []
-    for name, ref, got, plain, kern, line in (
-            ("hot_phase_a", ref_a, got_a, plain_a, kern_a, 104),
-            ("hot_phase_b", ref_b, got_b, plain_b, kern_b, 152)):
-        err, rel, mask, fails = hot_kernels.compare(ref, got,
-                                                    **hot_kernels.KERNEL_TOLERANCE[name])
-        # plain, kernel, kernel, plain: one pair of each per call, averaged
-        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-        device_ms = cuda_ms(kern, queued=True)
-        rec = {"name": name, "route": "cuda", "source": "grmonty_tpu_torch/csrc/hot_step.cu",
-               "replaces": f"grmonty_tpu/transport/hotstep_pallas.py:{line}",
-               "max_abs_err": err, "max_rel_err": rel, "mask_mismatch": mask,
-               "tolerance": TOLERANCE[name],
-               "ms": 0.5 * (k1 + k2), "plain_ms": 0.5 * (p1 + p2),
-               "device_ms": device_ms, "n": N_CHECK}
-        print(f"kernel check {name}: {json.dumps(rec)}")
-        if fails:
-            fail(f"{name} disagrees with its plain version: " + "; ".join(fails))
-        out.append(rec)
+    for reference in (False, True):
+        lanes = hot_kernels.synthetic_lanes(mc, N_CHECK, 2024, cfg.stall_steps, reference)
+        s = {k: t(v) for k, v in lanes.items() if k != "bias_scale"}
+        bias_scale = torch.tensor(lanes["bias_scale"], dtype=f32, device=dev)
+        grow_cap = (profiles.reference_config() if reference else cfg).grow_cap
+        a_args = (s["x"], s["k"], s["dkdlam"], s["e_0_s"], s["dl_shrink"], s["pend_dl"],
+                  s["pend_push"], s["at_event"], s["alive"], s["w"], s["record_pending"],
+                  s["u_roul"], s["alpha_scatti"], s["bi"], mc, grow_cap)
+        plain_a = lambda: engine.hot_phase_a(*a_args, reference=reference)  # noqa: E731
+        kern_a = lambda: hot_kernels.phase_a(*a_args, reference=reference)  # noqa: E731
+        ref_a, got_a = plain_a(), kern_a()
+        torch.cuda.synchronize()
+        a_in = a_args[:12] if reference else a_args[:14]  # the ladder reads no opacities
+        name = "hot_phase_a_ladder" if reference else "hot_phase_a"
+        out.append(time_kernel(name, ref_a, got_a, plain_a, kern_a, nbytes(a_in, ref_a)))
+
+        A = ref_a
+        b_tail = (A["x"], A["k"], A["dkdlam"], A["e_0_s"], A["w"], s["alpha_scatti"],
+                  s["alpha_absi"], s["bi"], s["tau_abs"], s["tau_scatt"], s["interacting"],
+                  A["pend_dl"], A["pend_push"], s["sec_w"], s["n_step"], A["alive"],
+                  s["x"], s["k"], s["dkdlam"], s["e_0_s"], A["seg"], A["commit"],
+                  A["moving"], A["was_pend"], A["stopped"], s["u_x1"],
+                  None if reference else A["grown"], bias_scale,
+                  mc, tabs.hc_coeffs, tabs.k2_coeffs, cfg.stall_steps)
+        z = A["z"].long()
+        if reference:
+            rows = tabs.corner_rows[z]
+            plain_b = lambda: engine.hot_phase_b(rows, *b_tail, reference=True)  # noqa: E731
+            kern_b = lambda: hot_kernels.phase_b_raw(rows, *b_tail)  # noqa: E731
+            rows_bytes = nbytes(rows)
+        else:
+            plain_b = lambda: engine.hot_phase_b(tabs.hot_tab[z], *b_tail)  # noqa: E731
+            kern_b = lambda: hot_kernels.phase_b(tabs.hot_tab, A["z"], *b_tail)  # noqa: E731
+            # the derived rows of the cells this call reads, and their index
+            rows_bytes = nbytes(A["z"]) + torch.unique(z).numel() * tabs.hot_tab.shape[1] * 4
+        ref_b, got_b = plain_b(), kern_b()
+        torch.cuda.synchronize()
+        name = "hot_phase_b_raw" if reference else "hot_phase_b"
+        out.append(time_kernel(name, ref_b, got_b, plain_b, kern_b,
+                               rows_bytes + nbytes(b_tail[:-4], ref_b)))
+
+    # the row gather on the raw corner table, indices 0 and Z-1 included
+    table = tabs.corner_rows
+    z_n = table.shape[0]
+    idx_np = np.random.default_rng(2025).integers(0, z_n, N_CHECK).astype(np.int32)
+    idx_np[:2] = (0, z_n - 1)
+    idx = torch.as_tensor(idx_np, device=dev)
+    plain_g = lambda: table[idx.long()]  # noqa: E731
+    kern_g = lambda: hot_kernels.row_gather(table, idx)  # noqa: E731
+    library_g = lambda: torch.index_select(table, 0, idx)  # noqa: E731
+    ref_g, got_g = plain_g(), kern_g()
+    torch.cuda.synchronize()
+    if not torch.equal(ref_g, got_g):
+        fail("row_gather is not bitwise equal to table[idx]")
+    moved = nbytes(idx, ref_g) + torch.unique(idx).numel() * table.shape[1] * 4
+    out.append(time_kernel("row_gather", {"rows": ref_g}, {"rows": got_g}, plain_g, kern_g,
+                           moved, library=library_g))
     return out
+
+
+def drive(sim, label):
+    """Run ``sim`` with every launch count set to 0 just before, check its
+    spectrum and luminosity, print its result line; returns (stats, counts)."""
+    import torch
+
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    hot_kernels.reset_launches()
+    spec, stats = sim.run()
+    counts = dict(hot_kernels.launches)
+    rows = sim.report(os.path.join(root, ".cache", f"chip_smoke_spectrum_{label}"))
+    lum = rows["luminosity"]
+    n_ph = float(spec[:, 2].sum())
+    result = {
+        "path": label, "photon_n": sim.photon_n, "n_created": stats["n_created"],
+        "n_tracked": stats["n_tracked"], "n_recorded": stats["n_recorded"],
+        "luminosity": lum, "lum_ratio": lum / REF_LUMINOSITY,
+        "rate_device": stats["photon_rate_device"], "rate_wall": stats["photon_rate"],
+        "device_s": stats["device_s"], "elapsed_s": stats["elapsed_s"],
+        "steps_per_photon": stats["steps_per_photon"],
+        "n_sec_drop": stats["n_secondary_dropped"], "n_stall": stats["n_stall_killed"],
+        "w_stall_frac": stats["w_stall_frac"],
+        "n_hc_clamp": stats["n_hc_clamp"], "hot_iters": stats["hot_iters"],
+        "launches": counts,
+        "util": [stats.get(k) for k in ("util_occupied", "util_moving",
+                                         "util_committed", "util_parked")],
+        "max_tau_scatt": stats["max_tau_scatt"], "spectrum_photons": n_ph,
+    }
+    print(json.dumps(result))
+    if not bool(torch.isfinite(torch.as_tensor(spec)).all()):
+        fail(f"{label}: spectrum has non-finite entries")
+    if n_ph != stats["n_recorded"]:
+        fail(f"{label}: spectrum photon count {n_ph} != n_recorded {stats['n_recorded']}")
+    if stats["n_secondary_dropped"] != 0:
+        fail(f"{label}: {stats['n_secondary_dropped']} secondaries dropped")
+    if not (math.isfinite(lum) and abs(lum / REF_LUMINOSITY - 1.0) <= 0.10):
+        fail(f"{label}: luminosity {lum} not within 10% of {REF_LUMINOSITY}")
+    return stats, counts
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--photon-n", type=float, default=1e5)
+    ap.add_argument("--photon-n", type=float, default=1e5, help="shipped path")
+    ap.add_argument("--ref-photon-n", type=float, default=5e4, help="reference path")
+    ap.add_argument("--ref-stall-steps", type=int, default=REF_STALL_STEPS,
+                    help="the reference path's per-photon step cap")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
@@ -193,8 +337,9 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    path, build_s, log = hot_kernels.build()
-    print(f"kernel build: {build_s:.1f} s -> {os.path.relpath(path, root)}")
+    paths, build_s, log = hot_kernels.build()
+    print(f"kernel build: {build_s:.1f} s -> "
+          + ", ".join(os.path.relpath(p, root) for p in paths))
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
@@ -204,45 +349,27 @@ def main():
     torch.cuda.synchronize()
     print(f"torus + tables: {time.monotonic() - t0:.1f} s")
 
-    kernels = kernel_checks(sim)
+    kernels = {rec["name"]: rec for rec in kernel_checks(sim)}
 
-    hot_kernels.reset_launches()
-    spec, stats = sim.run()
-    counts = dict(hot_kernels.launches)
-    rows = sim.report(os.path.join(root, ".cache", "chip_smoke_spectrum"))
-    lum = rows["luminosity"]
-    n_ph = float(spec[:, 2].sum())
-    result = {
-        "photon_n": int(args.photon_n), "n_created": stats["n_created"],
-        "n_tracked": stats["n_tracked"], "n_recorded": stats["n_recorded"],
-        "luminosity": lum, "lum_ratio": lum / REF_LUMINOSITY,
-        "rate_device": stats["photon_rate_device"], "rate_wall": stats["photon_rate"],
-        "device_s": stats["device_s"], "elapsed_s": stats["elapsed_s"],
-        "steps_per_photon": stats["steps_per_photon"],
-        "n_sec_drop": stats["n_secondary_dropped"], "n_stall": stats["n_stall_killed"],
-        "n_hc_clamp": stats["n_hc_clamp"], "hot_iters": stats["hot_iters"],
-        "launches_a": counts["hot_phase_a"], "launches_b": counts["hot_phase_b"],
-        "util": [stats.get(k) for k in ("util_occupied", "util_moving",
-                                         "util_committed", "util_parked")],
-        "max_tau_scatt": stats["max_tau_scatt"], "spectrum_photons": n_ph,
-    }
-    print(json.dumps(result))
-
+    stats, counts = drive(sim, "shipped")
     if not (counts["hot_phase_a"] == counts["hot_phase_b"] == stats["hot_iters"] > 0):
-        fail(f"kernel launches {counts} != hot iterations {stats['hot_iters']}")
-    if not bool(torch.isfinite(torch.as_tensor(spec)).all()):
-        fail("spectrum has non-finite entries")
-    if n_ph != stats["n_recorded"]:
-        fail(f"spectrum photon count {n_ph} != n_recorded {stats['n_recorded']}")
-    if stats["n_secondary_dropped"] != 0:
-        fail(f"{stats['n_secondary_dropped']} secondaries dropped")
-    if not (math.isfinite(lum) and abs(lum / REF_LUMINOSITY - 1.0) <= 0.10):
-        fail(f"luminosity {lum} not within 10% of {REF_LUMINOSITY}")
+        fail(f"shipped: kernel launches {counts} != hot iterations {stats['hot_iters']}")
+    for name in ("hot_phase_a", "hot_phase_b"):
+        kernels[name]["launches"] = counts[name]
+    del sim
 
-    for rec in kernels:
-        rec["launches"] = counts[rec["name"]]
+    ref_sim = make_simulation(root, args.ref_photon_n, reference=True,
+                              stall_steps=args.ref_stall_steps)
+    stats, counts = drive(ref_sim, "reference")
+    n = stats["hot_iters"]
+    if not (counts["hot_phase_a_ladder"] == counts["hot_phase_b_raw"] == n > 0
+            and counts["row_gather"] >= n):
+        fail(f"reference: kernel launches {counts} != hot iterations {n}")
+    for name in ("hot_phase_a_ladder", "hot_phase_b_raw", "row_gather"):
+        kernels[name]["launches"] = counts[name]
+
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

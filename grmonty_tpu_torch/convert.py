@@ -11,7 +11,9 @@ run from the same state:
   port's (the Chebyshev coefficients and the two corner tables);
 * :func:`from_jax_state`: an ``engine.State`` -> the port's ``State`` (the
   pool, the counters, the secondary ring and the spectrum; the JAX RNG key
-  has no counterpart and is dropped).
+  has no counterpart and is dropped);
+* :func:`from_jax_config`: an ``engine.EngineConfig`` at the shipped
+  profile's physics or at reference semantics -> the port's.
 """
 
 import numpy as np
@@ -67,10 +69,17 @@ _POOL_BOOL = ("ev_pending", "occupied", "alive", "interacting", "pend_push",
 
 
 def from_jax_pool(p, dtype, device="cpu"):
-    """A JAX ``Pool`` (detached-events layout) as the port's ``Pool``."""
+    """A JAX ``Pool`` as the port's ``Pool``.  Without detached events the
+    JAX pool's shadow registers are empty; the port's are then zeros and
+    ``ev_pending`` False."""
     out = {}
+    n = np.asarray(p.w).shape[0]
     for name in engine.Pool._fields:
         v = getattr(p, name)
+        if name in _POOL_4 and len(v) == 0:
+            v = tuple(np.zeros(n) for _ in range(4))
+        elif name in ("ev_w", "ev_pending") and np.asarray(v).size == 0:
+            v = np.zeros(n, bool if name == "ev_pending" else np.float64)
         if name in _POOL_4:
             out[name] = tuple(_t(c, device, dtype) for c in v)
         elif name in _POOL_INT:
@@ -88,6 +97,37 @@ def from_jax_counters(c, dtype, device="cpu"):
     return engine.Counters(**{
         name: _t(getattr(c, name), device, dtype if name in float_fields else torch.int64)
         for name in engine.Counters._fields})
+
+
+_SHIPPED = dict(fp_iters=engine.FP_ITERS, step_ctrl=engine.STEP_CTRL,
+                grow_tau_cap=engine.GROW_TAU_CAP, bias_ema=engine.BIAS_EMA,
+                detached_events=True, derived_fluid=True)
+_REFERENCE = dict(fp_iters=engine.FP_ITERS, step_ctrl=0.0, grow_rate=2.0, grow_cap=1.0,
+                  bias_ema=0.0, detached_events=False, derived_fluid=False)
+
+
+def from_jax_config(cfg):
+    """A JAX ``EngineConfig`` as the port's: its widths, and
+    ``reference=True`` where its physics knobs hold reference semantics
+    (the JAX defaults).  Raises where they hold neither that nor the
+    shipped profile's physics, which the port has no switch for."""
+    def holds(values):
+        return all(getattr(cfg, k) == v for k, v in values.items())
+
+    if holds(_REFERENCE):
+        reference = True
+    elif holds(_SHIPPED):
+        reference = False
+    else:
+        raise ValueError("the port runs the shipped profile's physics or reference "
+                         "semantics; this JAX EngineConfig holds neither")
+    dtype = {np.dtype(np.float64): torch.float64,
+             np.dtype(np.float32): torch.float32}[np.dtype(cfg.dtype)]
+    return engine.EngineConfig(
+        n_pool=cfg.n_pool, m_period=cfg.m_period, sec_cap=cfg.sec_cap,
+        tail_exit=cfg.tail_exit, stall_steps=cfg.stall_steps, ev_k=cfg.ev_k,
+        refill_k=cfg.refill_k, light_k=cfg.light_k, refill_period=cfg.refill_period,
+        grow_cap=cfg.grow_cap, dtype=dtype, reference=reference)
 
 
 def from_jax_state(state, dtype=torch.float64, device="cpu"):

@@ -4,33 +4,42 @@
 // grmonty_tpu/transport/hotstep_pallas.py:104 `kernel_a` (body
 // engine.hot_phase_a): step size, one implicit-midpoint Kerr push with the
 // closed-form 40-term connection and `fp_iters` (engine.FP_ITERS = 2)
-// fixed-point rounds, the commit gate, the error-proportional step
-// control, the pend/arrival bookkeeping, the stop test with Russian
-// roulette and the bilinear cell index z.  Unlike the Pallas kernel it also
-// carries the grown-step optical-depth cap (alpha_scatti, bi in; `grown`
-// out).
+// fixed-point rounds, the commit gate, the step control, the pend/arrival
+// bookkeeping, the stop test with Russian roulette and the bilinear cell
+// index z.  Two compile-time variants: the shipped profile's (the
+// error-proportional step control, and the grown-step optical-depth cap,
+// which reads alpha_scatti and bi and the Pallas kernel lacks), and
+// kLadder, reference semantics (the halve/double ladder, no cap), which is
+// what the Pallas kernel computes at step_ctrl=0.
 //
 // Kernel B (hot_phase_b_kernel) replaces hotstep_pallas.py:152 `kernel_b`
-// (body engine.hot_phase_b) in its derived-fluid form: each thread loads
-// its own 44-float corner row derived_rows[z] (eleven float4 loads; the
-// 256x256 table is 11.5 MB and stays in the 50 MB L2), blends it, and
-// computes nu, the sin pitch angle, the Chebyshev hotcross alpha_scatt
-// (41x31 coefficients staged in shared memory), the Kirchhoff alpha_abs
-// with the Chebyshev K2 (25 coefficients passed by value), the trapezoid
-// dtau, the biased scatter decision with rollback, the entry rollback and
-// tau_over of grown steps, the weight decay, the step count and stall
-// kill, the hotcross clamp census and the detached-event refresh values.
+// (body engine.hot_phase_b).  Derived-fluid variant (shipped profile): each
+// thread loads its own 44-float corner row derived_rows[z] (eleven float4
+// loads; the 256x256 table is 11.5 MB and stays in the 50 MB L2) and
+// blends it.  Raw variant (kRaw, reference semantics, the Pallas kernel's
+// own layout): each thread loads the 32-float raw row that row_gather.cu
+// gathered for its lane (eight float4 loads), blends the 8 primitives and
+// rebuilds u_mu, b_mu and |B| through the metric pair gcov/gcon at the new
+// position.  Both then compute nu, the sin pitch angle, the Chebyshev
+// hotcross alpha_scatt (41x31 coefficients staged in shared memory), the
+// Kirchhoff alpha_abs with the Chebyshev K2 (25 coefficients passed by
+// value), the trapezoid dtau, the biased scatter decision with rollback,
+// the weight decay, the step count and stall kill and the hotcross clamp
+// census; the derived variant also the entry rollback and tau_over of grown
+// steps and the detached-event refresh values.
 //
 // What bounds them on the H100: both are per-lane state machines.  Kernel A
 // moves ~162 B per lane (10.6 MB per launch at N = 65536) and took 7.1 us on
 // an H100 80GB HBM3 at 700 W, 1.5 TB/s: it sits nearer the memory bound than
 // the latency of its dependent fixed-point rounds.  Kernel B moves ~270 B
 // per lane plus one L2-resident 176 B row and took 26 us: the 1,271-term
-// hotcross sum per lane (unfused under -fmad=false) and the
-// transcendentals bound it.  The 40-term connection and the 31-entry
-// Chebyshev row set the register pressure (A 102, B 77 registers, no
-// spills).  The design keeps one thread per lane over SoA arrays with
-// __launch_bounds__(256) and no shared state beyond the coefficient table.
+// hotcross sum per lane and the transcendentals bound it.  The raw variant
+// reads a 128 B row per lane instead and adds the metric pair's four
+// transcendentals, in the same 26 us.  The 40-term connection and the
+// Chebyshev row set the register pressure (A 102, B 77, B raw 127 with its
+// 31 partial sums; no spills).  The design keeps one thread per lane over SoA
+// arrays with __launch_bounds__(256) and no shared state beyond the
+// coefficient table.
 //
 // Numerics: the arithmetic mirrors the plain torch versions operation by
 // operation (same association order, float32, constants folded in double
@@ -229,6 +238,10 @@ __device__ __forceinline__ float step_size(float x1, float x2, float k1,
                  1.0f / (fabsf(dl3) + eps));
 }
 
+// kLadder: reference semantics (engine.hot_phase_a(reference=True)): no
+// optical-depth cap (alpha_scatti and bi are not read) and the halve/double
+// ladder in place of the error-proportional step control.
+template <bool kLadder>
 __global__ void __launch_bounds__(256)
     hot_phase_a_kernel(const APtrs P, const AConst C, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -248,7 +261,7 @@ __global__ void __launch_bounds__(256)
       pend_push ? pend_dl : step_size(x[1], x[2], k[1], k[2], k[3], C.x_stop2);
   float seg = dl_full * dl_shrink;
   if (pend_push) seg = jmin(seg, dl_full);
-  if (!pend_push) {  // cap the biased scattering depth a grown step carries
+  if (!kLadder && !pend_push) {  // cap the biased scattering depth a grown step carries
     const float seg_tau =
         (1.0f / (C.half_dtk * P.alpha_scatti[i] * P.bi[i] + eps)) * C.grow_tau_cap;
     seg = jmin(seg, jmax(seg_tau, dl_full));
@@ -309,12 +322,17 @@ __global__ void __launch_bounds__(256)
   const float e0sn = commit ? e_1 : e_0_s;
   const float err_r = jmax(err * C.inv_e_tol, err_e * C.inv_e_drift_tol);
 
-  // error-proportional step control: fac = safety / sqrt(err), clamped
-  float err_eff = isfinite(err_r) ? err_r : 1.0e12f;
-  if (!act) err_eff = 1.0e-12f;  // idle lanes re-grow
-  const float fac =
-      jclip(C.step_ctrl * rsqrtf(jmax(err_eff, 1.0e-12f)), 0.25f, 2.0f);
-  const float dl_shrink_n = jclip(dl_shrink * fac, C.shrink_floor, C.grow_cap);
+  float dl_shrink_n;
+  if constexpr (kLadder) {  // halve a failed attempt, else double
+    dl_shrink_n = (act && !commit) ? jmax(dl_shrink * 0.5f, C.shrink_floor)
+                                   : jmin(dl_shrink * 2.0f, C.grow_cap);
+  } else {  // error-proportional step control: fac = safety / sqrt(err), clamped
+    float err_eff = isfinite(err_r) ? err_r : 1.0e12f;
+    if (!act) err_eff = 1.0e-12f;  // idle lanes re-grow
+    const float fac =
+        jclip(C.step_ctrl * rsqrtf(jmax(err_eff, 1.0e-12f)), 0.25f, 2.0f);
+    dl_shrink_n = jclip(dl_shrink * fac, C.shrink_floor, C.grow_cap);
+  }
 
   const float pend_rem = (pend_push && commit) ? pend_dl - seg : pend_dl;
   const bool arrived = moving && pend_push && commit && (pend_rem <= 0.0f);
@@ -363,6 +381,7 @@ __global__ void __launch_bounds__(256)
 // ---------------------------------------------------------------------------
 
 constexpr int HC_NX = 41, HC_NY = 31, K2_N = 25, ROW_W = 44, NC = 11;
+constexpr int RAW_W = 32, RAW_NC = 8;
 
 struct BPtrs {  // order = hot_kernels._B_PTRS
   const float *rows;
@@ -396,6 +415,37 @@ struct BPtrs {  // order = hot_kernels._B_PTRS
 };
 constexpr int B_NPTRS = sizeof(BPtrs) / sizeof(void *);
 
+// Kernel B on raw rows: the (N, 32) rows row_gather produced (one per lane,
+// in lane order), no cell index, no entry roll, no tau_over and no values
+// for the detached-event capture.  Order = hot_kernels._B_RAW_PTRS.
+struct BRawPtrs {
+  const float *rows;
+  const float *hc;
+  const float *bias_scale;
+  const float *x0, *x1, *x2, *x3, *k0, *k1, *k2, *k3, *d0, *d1, *d2, *d3;
+  const float *e_0_s, *w, *alpha_scatti, *alpha_absi, *bi, *tau_abs,
+      *tau_scatt;
+  const u8 *interacting;
+  const float *pend_dl;
+  const u8 *pend_push;
+  const float *sec_w;
+  const int32_t *n_step;
+  const u8 *alive;
+  const float *px0, *px1, *px2, *px3, *pk0, *pk1, *pk2, *pk3, *pd0, *pd1,
+      *pd2, *pd3, *pe0s;
+  const float *seg;
+  const u8 *commit, *moving, *was_pend, *stopped;
+  const float *u_x1;
+  float *ox0, *ox1, *ox2, *ox3, *ok0, *ok1, *ok2, *ok3, *od0, *od1, *od2, *od3;
+  float *oe_0_s, *opend_dl, *osec_w;
+  u8 *opend_push;
+  float *ow, *otau_abs, *otau_scatt, *oalpha_scatti, *oalpha_absi, *obi;
+  u8 *ointeracting, *oalive;
+  int32_t *on_step;
+  u8 *ohc_clamp;
+};
+constexpr int B_RAW_NPTRS = sizeof(BRawPtrs) / sizeof(void *);
+
 struct BScal {  // order = hot_kernels._B_SCAL
   double x_start1, x_start2, x_stop1, x_stop2, dx1, dx2, n1, n2, b_unit,
       d_tau_k, weight_min, stall_steps, tau_cap, hc_xlo, hc_xhi,
@@ -406,6 +456,12 @@ struct BScal {  // order = hot_kernels._B_SCAL
 };
 constexpr int B_NSCAL = sizeof(BScal) / sizeof(double);
 
+struct BRawScal {  // order = hot_kernels._B_RAW_SCAL, then BScal
+  double a, h_slope, r_0, n_e_unit, theta_e_unit;
+  BScal b;
+};
+constexpr int B_RAW_NSCAL = sizeof(BRawScal) / sizeof(double);
+
 struct BConst {
   float x_start1, x_start2, x_stop1, x_stop2, dx1, dx2, b_unit, half_dtk,
       weight_min, tau_cap, hc_xlo, hc_xhi, hc_xsum, hc_xdiff, hc_ylo, hc_yhi,
@@ -414,6 +470,8 @@ struct BConst {
       inv_cl, inv_24, inv_2pimecl, inv_weight_min, inv_tp_over_te;
   float k2c[K2_N];
   int n1, n2, stall_steps;
+  // raw rows only: the metric pair and the primitives' units
+  float a, a2, neg_a, r_0, two_pi, pi, half_1mh, one_mh, n_e_unit, theta_e_unit;
 };
 
 __device__ __forceinline__ float hc_klein_nishina(float w) {
@@ -427,7 +485,14 @@ __device__ __forceinline__ float hc_klein_nishina(float w) {
   return (w < 1.0e-3f) ? series : full;
 }
 
-// sigma_hot(w, theta_e) [cm^2] from the Chebyshev surface (cheb.hotcross_eval)
+// sigma_hot(w, theta_e) [cm^2] from the Chebyshev surface
+// (cheb.hotcross_eval).  kPlainOrder = false (the derived variant, as the
+// shipped profile was measured): s_ix = sum_j c[ix, j] T_j(ty), then
+// sum_ix T_ix(tx) s_ix.  kPlainOrder = true (the raw variant): the order of
+// the plain version, u_j = sum_ix T_ix(tx) c[ix, j] as one fused
+// multiply-add chain in ix order (each row's dot product of the float32
+// matrix product), then sum_j u_j T_j(ty).
+template <bool kPlainOrder>
 __device__ __forceinline__ float hotcross(float w, float te, const float *hc,
                                           const BConst &C) {
   const float l_w = jclip(log10f(jmax(w, 1e-30f)), C.hc_xlo, C.hc_xhi);
@@ -439,6 +504,9 @@ __device__ __forceinline__ float hotcross(float w, float te, const float *hc,
   by[1] = ty;
 #pragma unroll
   for (int j = 2; j < HC_NY; ++j) by[j] = 2.0f * ty * by[j - 1] - by[j - 2];
+  float u[HC_NY];
+#pragma unroll
+  for (int j = 0; j < HC_NY; ++j) u[j] = 0.0f;
   float acc = 0.0f, tm2 = 1.0f, tm1 = tx;
   for (int ix = 0; ix < HC_NX; ++ix) {
     float t;
@@ -450,10 +518,19 @@ __device__ __forceinline__ float hotcross(float w, float te, const float *hc,
       tm1 = t;
     }
     const float *row = hc + ix * HC_NY;
-    float s = 0.0f;
+    if constexpr (kPlainOrder) {
 #pragma unroll
-    for (int j = 0; j < HC_NY; ++j) s += row[j] * by[j];
-    acc += t * s;
+      for (int j = 0; j < HC_NY; ++j) u[j] = __fmaf_rn(t, row[j], u[j]);
+    } else {
+      float s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < HC_NY; ++j) s += row[j] * by[j];
+      acc += t * s;
+    }
+  }
+  if constexpr (kPlainOrder) {
+#pragma unroll
+    for (int j = 0; j < HC_NY; ++j) acc += u[j] * by[j];
   }
   const float interp = expf(acc * (float)2.302585092994046);
   const float cold = hc_klein_nishina(w) * (float)SIGMA_T_D;
@@ -503,8 +580,74 @@ __device__ __forceinline__ float synch(float nu, float n_e, float te, float b,
   return bad ? 0.0f : val;
 }
 
+// The covariant and contravariant MKS metric at (x1, x2) (geometry.gcov_c,
+// gcon_c): g = (g00, g01, g03, g11, g13, g22, g33), gc = (gc00, gc01, gc11,
+// gc13, gc22, gc33).
+__device__ __forceinline__ void metric_pair(float x1, float x2, const BConst &C,
+                                            float *g, float *gc) {
+  const float eps = (float)EPS_D;
+  const float r = expf(x1) + C.r_0;
+  const float th = C.pi * x2 + C.half_1mh * sinf(C.two_pi * x2);
+  const float sth = fabsf(sinf(th)) + eps;
+  const float cth = cosf(th);
+  const float s2 = sth * sth;
+  const float rho2 = r * r + C.a2 * cth * cth;
+  const float tworr = 2.0f * r / rho2;
+  const float rfac = r - C.r_0;
+  const float hfac = C.pi * (1.0f + C.one_mh * cosf(C.two_pi * x2));
+  g[0] = -1.0f + tworr;
+  g[1] = tworr * rfac;
+  g[2] = C.neg_a * s2 * tworr;
+  g[3] = (1.0f + tworr) * rfac * rfac;
+  g[4] = C.neg_a * s2 * (1.0f + tworr) * rfac;
+  g[5] = rho2 * hfac * hfac;
+  g[6] = s2 * (rho2 + C.a2 * s2 * (1.0f + tworr));
+  const float irho2 = 1.0f / (r * r + C.a2 * cth * cth);
+  gc[0] = -1.0f - 2.0f * r * irho2;
+  gc[1] = 2.0f * irho2;
+  gc[2] = irho2 * (r * (r - 2.0f) + C.a2) / (r * r);
+  gc[3] = C.a * irho2 / r;
+  gc[4] = irho2 / (hfac * hfac);
+  gc[5] = irho2 / (sth * sth);
+}
+
+// v_mu = g_{mu nu} v^nu (geometry.lower_c)
+__device__ __forceinline__ void lower(const float *g, const float *v, float *out) {
+  out[0] = g[0] * v[0] + g[1] * v[1] + g[2] * v[3];
+  out[1] = g[1] * v[0] + g[3] * v[1] + g[4] * v[3];
+  out[2] = g[5] * v[2];
+  out[3] = g[2] * v[0] + g[4] * v[1] + g[6] * v[3];
+}
+
+// u_mu, b_mu and |B| from the blended primitives (fluid._four_vectors_c)
+__device__ __forceinline__ void four_vectors(const float *pr, const float *g,
+                                             const float *gc, const BConst &C,
+                                             float *u_cov, float *b_cov,
+                                             float *b_mag) {
+  const float v1 = pr[2], v2 = pr[3], v3 = pr[4];
+  const float b1 = pr[5], b2 = pr[6], b3 = pr[7];
+  const float v_dot_v = g[3] * v1 * v1 + g[5] * v2 * v2 + g[6] * v3 * v3 +
+                        2.0f * g[4] * v1 * v3;
+  const float v_fac = sqrtf(-1.0f / gc[0] * (1.0f + fabsf(v_dot_v)));
+  const float u0 = -v_fac * gc[0];
+  const float u1 = v1 - v_fac * gc[1];
+  const float u_con[4] = {u0, u1, v2, v3};
+  lower(g, u_con, u_cov);
+  const float u_dot_bp = u_cov[1] * b1 + u_cov[2] * b2 + u_cov[3] * b3;
+  const float b_con[4] = {u_dot_bp, (b1 + u1 * u_dot_bp) / u0,
+                          (b2 + v2 * u_dot_bp) / u0, (b3 + v3 * u_dot_bp) / u0};
+  lower(g, b_con, b_cov);
+  const float bsq = b_con[0] * b_cov[0] + b_con[1] * b_cov[1] +
+                    b_con[2] * b_cov[2] + b_con[3] * b_cov[3];
+  *b_mag = sqrtf(fabsf(bsq)) * C.b_unit;
+}
+
+// kRaw = false: derived rows gathered by the kernel at z (BPtrs); kRaw =
+// true: raw rows gathered beforehand, one per lane (BRawPtrs), blended with
+// the metric pair as engine.hot_phase_b(reference=True).
+template <bool kRaw, class Ptrs>
 __global__ void __launch_bounds__(256)
-    hot_phase_b_kernel(const BPtrs P, const BConst C, int n) {
+    hot_phase_b_kernel(const Ptrs P, const BConst C, int n) {
   __shared__ float hc[HC_NX * HC_NY];
   for (int t = threadIdx.x; t < HC_NX * HC_NY; t += blockDim.x) hc[t] = P.hc[t];
   __syncthreads();
@@ -521,11 +664,15 @@ __global__ void __launch_bounds__(256)
   const bool was_pend = P.was_pend[i], stopped = P.stopped[i];
   bool inter = moving && commit && !was_pend && !stopped;
 
-  // bilinear blend of the derived corner row (fluid.blend_derived)
-  const float4 *rp = reinterpret_cast<const float4 *>(P.rows + (size_t)P.z[i] * ROW_W);
-  float row[ROW_W];
+  // the corner row: derived (fluid.blend_derived) or raw (fluid.blend_raw)
+  constexpr int W = kRaw ? RAW_W : ROW_W, M = kRaw ? RAW_NC : NC;
+  size_t row_at;
+  if constexpr (kRaw) row_at = (size_t)i * RAW_W;
+  else row_at = (size_t)P.z[i] * ROW_W;
+  const float4 *rp = reinterpret_cast<const float4 *>(P.rows + row_at);
+  float row[W];
 #pragma unroll
-  for (int q = 0; q < ROW_W / 4; ++q) {
+  for (int q = 0; q < W / 4; ++q) {
     const float4 v = __ldg(rp + q);
     row[4 * q] = v.x;
     row[4 * q + 1] = v.y;
@@ -547,18 +694,32 @@ __global__ void __launch_bounds__(256)
   const float c01 = (1.0f - del_i) * del_j;
   const float c10 = del_i * (1.0f - del_j);
   const float c11 = del_i * del_j;
-  float pr[NC];
+  float pr[M];
 #pragma unroll
-  for (int m = 0; m < NC; ++m)
-    pr[m] = row[m] * c00 + row[NC + m] * c01 + row[2 * NC + m] * c10 +
-            row[3 * NC + m] * c11;
-  const float n_e = inside ? pr[0] : 0.0f;
-  const float te = pr[1] / pr[0];
-  const float b_mag = pr[2];
+  for (int m = 0; m < M; ++m)
+    pr[m] = row[m] * c00 + row[M + m] * c01 + row[2 * M + m] * c10 +
+            row[3 * M + m] * c11;
+  float n_e, te, b_mag, u_cov[4], b_cov[4];
+  if constexpr (kRaw) {
+    n_e = inside ? pr[0] * C.n_e_unit : 0.0f;
+    te = pr[1] / pr[0] * C.theta_e_unit;
+    float g[7], gc[6];
+    metric_pair(x1, x2, C, g, gc);
+    four_vectors(pr, g, gc, C, u_cov, b_cov, &b_mag);
+  } else {
+    n_e = inside ? pr[0] : 0.0f;
+    te = pr[1] / pr[0];
+    b_mag = pr[2];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      u_cov[m] = pr[3 + m];
+      b_cov[m] = pr[7 + m];
+    }
+  }
 
   // kinematics (radiation.kinematics_sin_c)
-  const float k_u = k[0] * pr[3] + k[1] * pr[4] + k[2] * pr[5] + k[3] * pr[6];
-  const float k_b = k[0] * pr[7] + k[1] * pr[8] + k[2] * pr[9] + k[3] * pr[10];
+  const float k_u = k[0] * u_cov[0] + k[1] * u_cov[1] + k[2] * u_cov[2] + k[3] * u_cov[3];
+  const float k_b = k[0] * b_cov[0] + k[1] * b_cov[1] + k[2] * b_cov[2] + k[3] * b_cov[3];
   const float mu =
       jclip(k_b / (fabsf(k_u) * b_mag * C.inv_b_unit + eps), -1.0f, 1.0f);
   const float sin_th = (b_mag == 0.0f) ? 1.0f : sqrtf(1.0f - mu * mu);
@@ -569,7 +730,7 @@ __global__ void __launch_bounds__(256)
   const float nu_safe = fabsf(nu) + eps;
   const float e_g =
       (float)HPL_D * nu_safe * C.inv_mecc;
-  const float a_scf = nu_safe * hotcross(e_g, te, hc, C) * n_e;
+  const float a_scf = nu_safe * hotcross<kRaw>(e_g, te, hc, C) * n_e;
   const bool hc_thomson = e_g * te < 1.0e-6f, hc_cold = te < 1.0e-4f;
   const bool hc_hit = !hc_thomson && !hc_cold &&
                       ((e_g <= 1.0e-12f) || (e_g >= 1.0e6f) || (te <= 1.0e-4f) ||
@@ -583,10 +744,12 @@ __global__ void __launch_bounds__(256)
 
   const bool dead_branch = bound || (nu < 0.0f);
   // vacuum -> matter entry rollback of grown steps
-  const bool entry_roll = inter && P.grown[i] && !dead_branch &&
-                          (alpha_scatti <= 0.0f) && (alpha_absi <= 0.0f) &&
-                          (n_e > 0.0f);
-  inter = inter && !entry_roll;
+  bool entry_roll = false;
+  if constexpr (!kRaw) {
+    entry_roll = inter && P.grown[i] && !dead_branch && (alpha_scatti <= 0.0f) &&
+                 (alpha_absi <= 0.0f) && (n_e > 0.0f);
+    inter = inter && !entry_roll;
+  }
 
   const float seg = P.seg[i];
   const float half = C.half_dtk * seg;
@@ -619,7 +782,6 @@ __global__ void __launch_bounds__(256)
 
   const int32_t n_step_n = P.n_step[i] + (moving ? 1 : 0);
   const bool over = moving && (n_step_n > C.stall_steps);
-  const bool tau_over = inter && (jmax(d_tau_scatt, d_tau_abs) > C.tau_cap);
 
   if (roll_any) {
     P.ox0[i] = P.px0[i]; P.ox1[i] = P.px1[i]; P.ox2[i] = P.px2[i]; P.ox3[i] = P.px3[i];
@@ -632,8 +794,15 @@ __global__ void __launch_bounds__(256)
     P.od0[i] = P.d0[i]; P.od1[i] = P.d1[i]; P.od2[i] = P.d2[i]; P.od3[i] = P.d3[i];
     P.oe_0_s[i] = P.e_0_s[i];
   }
-  P.otau_over[i] = tau_over;
-  P.oentry_roll[i] = entry_roll;
+  if constexpr (!kRaw) {
+    P.otau_over[i] = inter && (jmax(d_tau_scatt, d_tau_abs) > C.tau_cap);
+    P.oentry_roll[i] = entry_roll;
+    P.oa_scf[i] = a_scf;
+    P.oa_abf[i] = a_abf;
+    P.obf[i] = bf;
+    P.onu[i] = nu;
+    P.on_e[i] = n_e;
+  }
   P.opend_dl[i] = roll ? seg * frac : P.pend_dl[i];
   P.osec_w[i] = roll ? sec_w_new : P.sec_w[i];
   P.opend_push[i] = P.pend_push[i] || roll;
@@ -648,28 +817,12 @@ __global__ void __launch_bounds__(256)
             : (bool)P.interacting[i];
   P.oalive[i] = P.alive[i] && !absorbed && !over;
   P.on_step[i] = n_step_n;
-  P.oa_scf[i] = a_scf;
-  P.oa_abf[i] = a_abf;
-  P.obf[i] = bf;
-  P.onu[i] = nu;
-  P.on_e[i] = n_e;
   P.ohc_clamp[i] = hc_hit && inter;
 }
 
 constexpr int THREADS = 256;
 
-}  // namespace
-
-extern "C" {
-
-int hot_phase_a_nptrs() { return A_NPTRS; }
-int hot_phase_a_nscal() { return A_NSCAL; }
-int hot_phase_b_nptrs() { return B_NPTRS; }
-int hot_phase_b_nscal() { return B_NSCAL; }
-
-int hot_phase_a_launch(void **ptrs, const double *scal, int n, void *stream) {
-  APtrs P;
-  memcpy(&P, ptrs, sizeof(APtrs));
+AConst make_aconst(const double *scal) {
   AScal S;
   memcpy(&S, scal, sizeof(AScal));
   AConst C;
@@ -705,18 +858,10 @@ int hot_phase_a_launch(void **ptrs, const double *scal, int n, void *stream) {
   C.n1 = (int)S.n1;
   C.n2 = (int)S.n2;
   C.fp_iters = (int)S.fp_iters;
-  if (n > 0) {
-    hot_phase_a_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                         (cudaStream_t)stream>>>(P, C, n);
-  }
-  return (int)cudaGetLastError();
+  return C;
 }
 
-int hot_phase_b_launch(void **ptrs, const double *scal, int n, void *stream) {
-  BPtrs P;
-  memcpy(&P, ptrs, sizeof(BPtrs));
-  BScal S;
-  memcpy(&S, scal, sizeof(BScal));
+BConst make_bconst(const BScal &S) {
   BConst C;
   C.x_start1 = (float)S.x_start1;
   C.x_start2 = (float)S.x_start2;
@@ -757,9 +902,74 @@ int hot_phase_b_launch(void **ptrs, const double *scal, int n, void *stream) {
   C.n1 = (int)S.n1;
   C.n2 = (int)S.n2;
   C.stall_steps = (int)S.stall_steps;
+  return C;
+}
+
+template <bool kLadder>
+int launch_a(void **ptrs, const double *scal, int n, void *stream) {
+  APtrs P;
+  memcpy(&P, ptrs, sizeof(APtrs));
+  const AConst C = make_aconst(scal);
   if (n > 0) {
-    hot_phase_b_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                         (cudaStream_t)stream>>>(P, C, n);
+    hot_phase_a_kernel<kLadder><<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                                         (cudaStream_t)stream>>>(P, C, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int hot_phase_a_nptrs() { return A_NPTRS; }
+int hot_phase_a_nscal() { return A_NSCAL; }
+int hot_phase_a_ladder_nptrs() { return A_NPTRS; }
+int hot_phase_a_ladder_nscal() { return A_NSCAL; }
+int hot_phase_b_nptrs() { return B_NPTRS; }
+int hot_phase_b_nscal() { return B_NSCAL; }
+int hot_phase_b_raw_nptrs() { return B_RAW_NPTRS; }
+int hot_phase_b_raw_nscal() { return B_RAW_NSCAL; }
+
+int hot_phase_a_launch(void **ptrs, const double *scal, int n, void *stream) {
+  return launch_a<false>(ptrs, scal, n, stream);
+}
+
+int hot_phase_a_ladder_launch(void **ptrs, const double *scal, int n, void *stream) {
+  return launch_a<true>(ptrs, scal, n, stream);
+}
+
+int hot_phase_b_launch(void **ptrs, const double *scal, int n, void *stream) {
+  BPtrs P;
+  memcpy(&P, ptrs, sizeof(BPtrs));
+  BScal S;
+  memcpy(&S, scal, sizeof(BScal));
+  const BConst C = make_bconst(S);
+  if (n > 0) {
+    hot_phase_b_kernel<false, BPtrs><<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                                       (cudaStream_t)stream>>>(P, C, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int hot_phase_b_raw_launch(void **ptrs, const double *scal, int n, void *stream) {
+  BRawPtrs P;
+  memcpy(&P, ptrs, sizeof(BRawPtrs));
+  BRawScal S;
+  memcpy(&S, scal, sizeof(BRawScal));
+  BConst C = make_bconst(S.b);
+  C.a = (float)S.a;
+  C.a2 = (float)(S.a * S.a);
+  C.neg_a = (float)(-S.a);
+  C.r_0 = (float)S.r_0;
+  C.two_pi = (float)(2.0 * PI_D);
+  C.pi = (float)PI_D;
+  C.half_1mh = (float)(0.5 * (1.0 - S.h_slope));
+  C.one_mh = (float)(1.0 - S.h_slope);
+  C.n_e_unit = (float)S.n_e_unit;
+  C.theta_e_unit = (float)S.theta_e_unit;
+  if (n > 0) {
+    hot_phase_b_kernel<true, BRawPtrs><<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                               (cudaStream_t)stream>>>(P, C, n);
   }
   return (int)cudaGetLastError();
 }

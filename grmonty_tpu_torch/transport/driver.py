@@ -8,9 +8,12 @@ Port of the main path of ``grmonty_tpu/transport/driver.py``
   tables and the two bilinear corner tables) are built in torch on the
   device, float64;
 * :meth:`Simulation.plan` rounds the per-zone budgets to counts and orders
-  the photons by a strided permutation of the zone sweep;
+  the photons by a strided permutation of the zone sweep (the shipped
+  profile) or in plan order, the zone sweep itself (reference semantics,
+  ``EngineConfig.reference``);
 * :meth:`Simulation.run` emits the plan in waves of ``emit_chunk`` rows on
-  the device, runs each wave through the engine until its backlog is
+  the device (inverse-CDF sampling, or rejection sampling under reference
+  semantics), runs each wave through the engine until its backlog is
   consumed (the pool stays full across the hand-off), drains the last
   photons in the same pool with the tail overrides, and accumulates the
   spectrum on the host in float64 after every wave.
@@ -92,12 +95,13 @@ def build_engine_tables(host, mc, dtype) -> engine_mod.EngineTables:
 
 
 class Simulation:
-    """One HARM snapshot and photon budget -> spectrum, on ``device``."""
+    """One HARM snapshot and photon budget -> spectrum, on ``device`` (the
+    CUDA card unless the caller asks for the CPU)."""
 
     def __init__(self, dump_path: str, photon_n: int = 5_000_000,
                  mass_unit: float = 4.0e19, seed: int = consts.RNG_SEED,
                  config: engine_mod.EngineConfig | None = None,
-                 device: torch.device | str = "cpu", emit_chunk: int = 1 << 20,
+                 device: torch.device | str = "cuda", emit_chunk: int = 1 << 20,
                  wave_tail_exit: int | None = None,
                  tail_grow_cap: float | None = None,
                  tail_stall_steps: int | None = None):
@@ -132,10 +136,12 @@ class Simulation:
         fz = h["fluid_zone"]
         z = self.mc.n1 * self.mc.n2
         dead = (h["dn_max"] <= 0.0) | (fz.theta_e < consts.THETA_E_MIN)
+        ln_dn_max = torch.where(h["dn_max"] > 0.0,
+                                torch.log(torch.clamp(h["dn_max"], min=1e-300)), -math.inf)
         zt = emission.ZoneTables(
             x=h["zone_x"].reshape(z, 4).to(dt), theta_e=fz.theta_e.reshape(z).to(dt),
             n_e=fz.n_e.reshape(z).to(dt), b=fz.b.reshape(z).to(dt),
-            dead=dead.reshape(z), e_con=h["e_con_z"].reshape(z, 4, 4).to(dt),
+            dead=dead.reshape(z), ln_dn_max=ln_dn_max.reshape(z).to(dt), e_con=h["e_con_z"].reshape(z, 4, 4).to(dt),
             e_cov=h["e_cov_z"].reshape(z, 4, 4).to(dt), weights=h["weights"].to(dt))
         tabs = emission.SamplerTables(
             zone_map=h["nu_zone_map"], lnrho=h["nu_lnrho"], cdf=h["nu_cdf"],
@@ -149,12 +155,12 @@ class Simulation:
         counts = emission.zone_counts(self.gen, self.host["nz"]).cpu().numpy()
         plan = emission.plan_emission(counts)
         self._total = plan.total
-        self._stride = self._pick_stride(plan.total)
+        self._stride = 0 if self.cfg.reference else self._pick_stride(plan.total)
         z = self.mc.n1 * self.mc.n2
         cum = np.zeros(z + 1, np.int64)
         np.cumsum(counts.reshape(-1), out=cum[1:])
         self._cum = torch.as_tensor(cum, device=self.device)
-        log.info("Emission plan: %d superphotons from %d zones (stride %d)",
+        log.info("Emission plan: %d superphotons from %d zones (stride %d; 0: plan order)",
                  plan.total, int((counts > 0).sum()), self._stride)
         return plan
 
@@ -171,12 +177,18 @@ class Simulation:
         [start, start + count) in emission order, sampled on the device
         with weights in engine units."""
         t = torch.arange(start, start + count, dtype=torch.int64, device=self.device)
-        t = (t * self._stride) % self._total
+        if self._stride:
+            t = (t * self._stride) % self._total
         zflat = torch.clamp(torch.searchsorted(self._cum, t, right=True) - 1,
                             0, self._cum.shape[0] - 2)
+        ln_w_offset = math.log(engine_mod.WEIGHT_SCALE)
+        if self.cfg.reference:
+            return emission.sample_photons(self.gen, zflat, self._zone_tabs,
+                                           self.host["f_t"].to(self.cfg.dtype),
+                                           self.cfg.dtype, ln_w_offset=ln_w_offset)
         return emission.sample_photons_cdf(
             self.gen, zflat, self._zone_tabs, self._sampler_tabs, self.cfg.dtype,
-            ln_w_offset=math.log(engine_mod.WEIGHT_SCALE))
+            ln_w_offset=ln_w_offset)
 
     def _drain_spec(self, state):
         self.spec_acc += state.spec.double().cpu().numpy()

@@ -1,10 +1,12 @@
-"""The shipped engine profile.
+"""The engine profiles: the shipped one, and reference semantics.
 
 Port of ``grmonty_tpu/transport/profiles.py`` with the same values.  The
 JAX profile's layout knobs (``mxu_extract``, ``gather_split``,
 ``hot_halves``, ``pallas_*``) tuned XLA and Mosaic on the TPU and have no
-counterpart here; the hot step always reads the derived-fluid table, so
-``derived_fluid`` is not a knob either.
+counterpart here; ``derived_fluid`` is not a knob either: the shipped
+profile's hot step reads the derived table, reference semantics the raw
+one.  The JAX ``ref_mode`` is one switch, ``EngineConfig.reference``, with
+the widths of :func:`reference_config`.
 """
 
 import torch
@@ -31,3 +33,22 @@ def bench_sim_kwargs(pool):
     emission order is always strided)."""
     return dict(emit_chunk=1 << 20, wave_tail_exit=pool,
                 tail_grow_cap=16.0, tail_stall_steps=50000)
+
+
+def reference_config(pool=65536, dtype=torch.float32, stall_steps=150000):
+    """Reference semantics at ``pool`` lanes, with the JAX
+    ``bench_config(ref_mode=True)`` widths: the full phase every 32 hot
+    iterations and no light phases, events and refills ``min(pool,
+    16384)`` wide, no step growth (the ladder capped at 1)."""
+    return engine.EngineConfig(
+        n_pool=pool, m_period=32, sec_cap=2 * pool, stall_steps=stall_steps,
+        dtype=dtype, ev_k=min(pool, 16384), refill_k=0, refill_period=0, light_k=0,
+        grow_cap=1.0, reference=True,
+    )
+
+
+def reference_sim_kwargs(pool):
+    """Driver-level pieces of reference semantics: the emission wave size
+    and the pool-full wave hand-off; the final drain keeps the wave
+    engine's step cap and growth (no overrides)."""
+    return dict(emit_chunk=1 << 20, wave_tail_exit=pool)

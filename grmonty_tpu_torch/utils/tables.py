@@ -2,9 +2,10 @@
 
 The hotcross sigma table, the synchrotron F(k)/K2 tables and the emission
 direction quantile table depend only on compile-time constants; the JAX
-package built them once and the repository tracks them as ``.npz`` files
-under ``grmonty_tpu/data/``.  They are the system's fixed inputs, so the
-port reads those files by path (numpy only, no import of the JAX package).
+package built them once and tracks them as ``.npz`` files under
+``grmonty_tpu/data/``.  They are the system's fixed inputs, so the port
+keeps its own byte-for-byte copies under ``grmonty_tpu_torch/data/`` and
+reads them with numpy.
 
 The Chebyshev fits are ports of ``grmonty_tpu/ops/cheb.py``
 ``fit1d``/``fit2d``/``fit_hotcross``/``fit_k2``: the 41x31 log10-sigma
@@ -18,9 +19,7 @@ import numpy as np
 
 from grmonty_tpu_torch import consts
 
-DATA_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "grmonty_tpu", "data")
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
 HOTCROSS_FILE = "hotcross_a94a8318dd69.npz"
 JNU_FILE = "jnu_53254050ed24.npz"

@@ -3,11 +3,12 @@
 
     python3 profile_slice.py            # phase clocks
     python3 profile_slice.py --trace    # trace windows
+    python3 profile_slice.py --reference [--trace]   # reference semantics
 
-Runs the cell of ``chip_smoke.py`` (256x256 torus, M = 4e19, seed 123,
-float32, the shipped profile at pool 65,536, 1e5 photons) once, and
-measures one of two
-things.  Run them in separate processes: once ``torch.profiler`` has traced
+Runs a cell of ``chip_smoke.py`` (256x256 torus, M = 4e19, seed 123,
+float32, pool 65,536: the shipped profile at 1e5 photons, or with
+``--reference`` reference semantics at 5e4 photons and ``chip_smoke.py``'s
+step cap) once, and measures one of two things.  Run them in separate processes: once ``torch.profiler`` has traced
 a window, every later kernel launch of the process costs more, so a
 traced run's phase clocks and device window are not the run's.
 
@@ -42,6 +43,10 @@ import chip_smoke
 
 PHASES = ("hot_step", "periodic_phase", "light_phase", "process_scatters", "init_fresh")
 PHOTON_N = 100_000
+REF_PHOTON_N = 50_000
+# device kernels whose time the trace windows report, by name
+TRACED = {"kernel_a_ms": "hot_phase_a_kernel", "kernel_b_ms": "hot_phase_b_kernel",
+          "row_gather_ms": "row_gather_kernel"}
 WAVE_AT = 64  # trace the first wave from this hot iteration
 TRACE_ITERS = 64  # hot iterations per trace window
 
@@ -114,16 +119,14 @@ class Windows:
         prof.stop()
         window = e0.elapsed_time(e1)
         busy, n_dev = busy_ms(prof)
-        hot = {}
-        for k in ("hot_phase_a_kernel", "hot_phase_b_kernel"):
-            hot[k] = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-                         if e.device_type() == torch.autograd.DeviceType.CUDA
-                         and k in e.name()) / 1e6
         self.results[name] = {
             "iters": self.iters, "window_ms": window, "busy_ms": busy,
-            "busy_share": busy / window, "device_activities": n_dev,
-            "kernel_a_ms": hot["hot_phase_a_kernel"], "kernel_b_ms": hot["hot_phase_b_kernel"],
-        }
+            "busy_share": busy / window, "device_activities": n_dev}
+        for key, kernel in TRACED.items():
+            self.results[name][key] = sum(
+                e.duration_ns() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA
+                and kernel in e.name()) / 1e6
         self.table += (f"== {name} window ==\n" + prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=25) + "\n")
         self.live = None
@@ -132,6 +135,7 @@ class Windows:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true", help="trace windows, not phase clocks")
+    ap.add_argument("--reference", action="store_true", help="the reference-semantics cell")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
@@ -146,7 +150,8 @@ def main():
 
     card = chip_smoke.card_line()
     hot_kernels.build()
-    sim = chip_smoke.make_simulation(root, PHOTON_N)
+    photon_n = REF_PHOTON_N if args.reference else PHOTON_N
+    sim = chip_smoke.make_simulation(root, photon_n, reference=args.reference)
 
     clocks = {name: [] for name in PHASES}
     win = Windows(TRACE_ITERS)
@@ -176,13 +181,15 @@ def main():
     wall = time.monotonic() - t0
     window_ms = stats["device_s"] * 1e3
     result = {"mode": "trace" if args.trace else "clocks",
-              "photon_n": PHOTON_N, "n_created": stats["n_created"],
+              "path": "reference" if args.reference else "shipped",
+              "photon_n": photon_n, "n_created": stats["n_created"],
               "hot_iters": stats["hot_iters"], "device_window_ms": window_ms,
               "wall_s": wall, "rate_device": stats["photon_rate_device"]}
     if args.trace:
         out_dir = os.path.join(root, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "profile_kernels.txt"), "w") as f:
+        table = "profile_kernels_reference.txt" if args.reference else "profile_kernels.txt"
+        with open(os.path.join(out_dir, table), "w") as f:
             f.write(win.table)
         result["trace_windows"] = win.results
     else:

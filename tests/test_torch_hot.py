@@ -1,5 +1,7 @@
 """The hot step: the port's plain phases against the JAX package's, and the
-CUDA kernels against the plain phases.
+CUDA kernels against the plain phases, for the shipped profile and for
+reference semantics (the ladder phase A, phase B on raw corner rows and the
+row gather between them).
 
 Inputs are synthetic lane states from a numpy seed
 (``hot_kernels.synthetic_lanes``) that reach every branch of both phases.
@@ -24,7 +26,7 @@ import pytest
 import torch
 
 from grmonty_tpu_torch.models import harm, torus
-from grmonty_tpu_torch.ops import fluid
+from grmonty_tpu_torch.ops import fluid, geometry, radiation
 from grmonty_tpu_torch.transport import driver, engine, hot_kernels, profiles
 
 N = 4096
@@ -44,6 +46,13 @@ def setup(tmp_path_factory):
     return mc, tabs, cfg, lanes
 
 
+@pytest.fixture(scope="module")
+def ref_setup(setup):
+    """``setup`` with the synthetic lanes of the reference variants."""
+    mc, tabs, cfg, _ = setup
+    return mc, tabs, cfg, hot_kernels.synthetic_lanes(mc, N, 7, cfg.stall_steps, reference=True)
+
+
 def _torch_lanes(lanes, dtype, device="cpu"):
     def t(v):
         if isinstance(v, tuple):
@@ -54,29 +63,36 @@ def _torch_lanes(lanes, dtype, device="cpu"):
     return {k: t(v) for k, v in lanes.items()}
 
 
-def _args_a(s, mc, cfg):
+REF_GROW_CAP = profiles.reference_config().grow_cap
+
+
+def _args_a(s, mc, cfg, reference=False):
     return (s["x"], s["k"], s["dkdlam"], s["e_0_s"], s["dl_shrink"], s["pend_dl"],
             s["pend_push"], s["at_event"], s["alive"], s["w"], s["record_pending"],
-            s["u_roul"], s["alpha_scatti"], s["bi"], mc, cfg.grow_cap)
+            s["u_roul"], s["alpha_scatti"], s["bi"], mc,
+            REF_GROW_CAP if reference else cfg.grow_cap)
 
 
-def _args_b_tail(s, A, bias_scale, mc, cfg, hc, k2):
+def _args_b_tail(s, A, bias_scale, mc, cfg, hc, k2, reference=False):
     return (A["x"], A["k"], A["dkdlam"], A["e_0_s"], A["w"], s["alpha_scatti"],
             s["alpha_absi"], s["bi"], s["tau_abs"], s["tau_scatt"], s["interacting"],
             A["pend_dl"], A["pend_push"], s["sec_w"], s["n_step"], A["alive"],
             s["x"], s["k"], s["dkdlam"], s["e_0_s"], A["seg"], A["commit"], A["moving"],
-            A["was_pend"], A["stopped"], s["u_x1"], A["grown"], bias_scale, mc, hc, k2,
-            cfg.stall_steps)
+            A["was_pend"], A["stopped"], s["u_x1"], None if reference else A["grown"],
+            bias_scale, mc, hc, k2, cfg.stall_steps)
 
 
-def _port_phases(setup, dtype):
+def _port_phases(setup, dtype, reference=False):
+    """The port's plain phases; under ``reference`` the ladder phase A and
+    phase B on the raw corner rows."""
     mc, tabs, cfg, lanes = setup
     s = _torch_lanes(lanes, dtype)
-    A = engine.hot_phase_a(*_args_a(s, mc, cfg))
+    A = engine.hot_phase_a(*_args_a(s, mc, cfg, reference), reference=reference)
     bias = torch.tensor(lanes["bias_scale"], dtype=dtype)
-    B = engine.hot_phase_b(tabs.hot_tab.to(dtype)[A["z"].long()],
+    tab = tabs.corner_rows if reference else tabs.hot_tab
+    B = engine.hot_phase_b(tab.to(dtype)[A["z"].long()],
                            *_args_b_tail(s, A, bias, mc, cfg, tabs.hc_coeffs.to(dtype),
-                                         tabs.k2_coeffs))
+                                         tabs.k2_coeffs, reference), reference=reference)
     return s, A, B
 
 
@@ -88,9 +104,20 @@ def jax_phases():
 
     from grmonty_tpu.transport import engine as jengine
 
-    def run(setup, x64):
+    def run(setup, x64, reference=False):
+        """JAX's phases; under ``reference`` at reference semantics (the
+        ladder with grow_cap 1, raw rows, no optical-depth cap)."""
         mc, tabs, cfg, lanes = setup
         dt = jnp.float64 if x64 else jnp.float32
+        if reference:
+            a_kw = dict(grow_cap=REF_GROW_CAP, grow_rate=2.0, step_ctrl=0.0)
+            b_kw = dict(derived=False, tau_cap=0.0, grown=None)
+            tab = tabs.corner_rows
+        else:
+            a_kw = dict(grow_cap=cfg.grow_cap, grow_tau_cap=engine.GROW_TAU_CAP,
+                        step_ctrl=engine.STEP_CTRL)
+            b_kw = dict(derived=True, tau_cap=engine.GROW_TAU_CAP)
+            tab = tabs.hot_tab
 
         def j(v):
             if isinstance(v, tuple):
@@ -104,9 +131,8 @@ def jax_phases():
                 s["x"], s["k"], s["dkdlam"], s["e_0_s"], s["dl_shrink"], s["pend_dl"],
                 s["pend_push"], s["at_event"], s["alive"], s["w"], s["record_pending"],
                 s["u_roul"], mc, engine.FP_ITERS, engine.WEIGHT_MIN, engine.SHRINK_FLOOR,
-                grow_cap=cfg.grow_cap, grow_tau_cap=engine.GROW_TAU_CAP,
-                alpha_scatti=s["alpha_scatti"], bi=s["bi"], step_ctrl=engine.STEP_CTRL)
-            rows = jnp.asarray(tabs.hot_tab.numpy().astype(dt))[A["z"]]
+                alpha_scatti=s["alpha_scatti"], bi=s["bi"], **a_kw)
+            rows = jnp.asarray(tab.numpy().astype(dt))[A["z"]]
             B = jengine.hot_phase_b(
                 rows, A["x"], A["k"], A["dkdlam"], A["e_0_s"], A["w"],
                 s["alpha_scatti"], s["alpha_absi"], s["bi"], s["tau_abs"],
@@ -115,8 +141,7 @@ def jax_phases():
                 s["e_0_s"], A["seg"], A["commit"], A["moving"], A["was_pend"],
                 A["stopped"], s["u_x1"], jnp.asarray(lanes["bias_scale"], dt), mc,
                 jnp.asarray(tabs.hc_coeffs.numpy().astype(dt)), tabs.k2_coeffs,
-                engine.WEIGHT_MIN, cfg.stall_steps, derived=True,
-                tau_cap=engine.GROW_TAU_CAP, grown=A["grown"])
+                engine.WEIGHT_MIN, cfg.stall_steps, **{"grown": A["grown"], **b_kw})
             A = {k: (tuple(np.asarray(c) for c in v) if isinstance(v, tuple)
                      else np.asarray(v)) for k, v in A.items()}
             B = {k: (tuple(np.asarray(c) for c in v) if isinstance(v, tuple)
@@ -195,6 +220,22 @@ def test_plain_phases_match_jax_float32(setup, jax_phases):
         assert not fails, f"{what}: {fails}"
 
 
+def test_reference_phases_match_jax_float64(ref_setup, jax_phases):
+    _, A, B = _port_phases(ref_setup, torch.float64, reference=True)
+    jA, jB = jax_phases(ref_setup, x64=True, reference=True)
+    assert set(B) == set(jB) - {"tau_over", "entry_roll", "a_scf", "a_abf", "bf", "nu", "n_e"}
+    _assert_f64(A, jA, "phase_a")
+    _assert_f64(B, jB, "phase_b")
+
+
+def test_reference_phases_match_jax_float32(ref_setup, jax_phases):
+    _, A, B = _port_phases(ref_setup, torch.float32, reference=True)
+    jA, jB = jax_phases(ref_setup, x64=False, reference=True)
+    for what, got, ref in (("phase_a", A, jA), ("phase_b", B, jB)):
+        fails = _compare_f32(_as_torch({k: ref[k] for k in got}), got)
+        assert not fails, f"{what}: {fails}"
+
+
 def test_synthetic_lanes_reach_every_branch(setup):
     mc, _, cfg, lanes = setup
     s, A, B = _port_phases(setup, torch.float64)
@@ -214,6 +255,38 @@ def test_synthetic_lanes_reach_every_branch(setup):
     )
     missing = [k for k, v in reached.items() if not bool(v.any())]
     assert not missing, f"branches never reached: {missing}"
+
+
+def test_reference_lanes_reach_every_branch(ref_setup):
+    mc, tabs, cfg, _ = ref_setup
+    s, A, B = _port_phases(ref_setup, torch.float64, reference=True)
+    x1n, x2n = A["x"][1], A["x"][2]
+    escaped = A["record_pending"] & ~s["record_pending"]
+    failed = A["moving"] & ~A["commit"] & (A["x"][1] >= mc.x_start[1])
+    fl = fluid.blend_raw(x1n, x2n, tabs.corner_rows[A["z"].long()], mc,
+                         geometry.gcov_c(x1n, x2n, mc.a, mc.h_slope, mc.r_0),
+                         geometry.gcon_c(x1n, x2n, mc.a, mc.h_slope, mc.r_0))
+    nu = radiation.kinematics_sin_c(A["k"], fl.u_cov, fl.b_cov, fl.b, mc.b_unit)[1]
+    reached = dict(
+        commit=A["commit"], halved=failed & (A["dl_shrink"] < s["dl_shrink"]),
+        halve_floor=failed & (A["dl_shrink"] == engine.SHRINK_FLOOR),
+        doubled=A["commit"] & (A["dl_shrink"] == 2.0 * s["dl_shrink"]),
+        capped=A["commit"] & (A["dl_shrink"] == REF_GROW_CAP) & (s["dl_shrink"] > 0.5),
+        pend_push=s["pend_push"] & A["commit"], arrival=A["arrived"],
+        horizon=A["stopped"] & (x1n < mc.x1_min), escape=escaped,
+        roulette_win=A["w"] > s["w"],
+        roulette_kill=A["stopped"] & ~escaped & (x1n >= mc.x1_min),
+        polar_edge=A["moving"] & ((x2n < mc.x_start[2] + 0.5 * mc.dx[2])
+                                  | (x2n > mc.x_stop[2] - 0.5 * mc.dx[2])),
+        scatter=B["pend_push"] & ~A["pend_push"],
+        absorbed=A["alive"] & ~B["alive"] & (B["n_step"] <= cfg.stall_steps),
+        stall_kill=A["alive"] & ~B["alive"] & (B["n_step"] > cfg.stall_steps),
+        outside=A["moving"] & (fl.n_e == 0.0), negative_nu=A["moving"] & (nu < 0.0),
+        inside=A["moving"] & (fl.n_e > 0.0),
+    )
+    missing = [k for k, v in reached.items() if not bool(v.any())]
+    assert not missing, f"branches never reached: {missing}"
+    assert bool(torch.isfinite(B["w"]).all())
 
 
 def test_wrappers_take_the_plain_version_on_cpu(setup):
@@ -238,28 +311,61 @@ def test_wrappers_take_the_plain_version_on_cpu(setup):
         hot_kernels.phase_a(*_args_a(meta, mc, cfg))
 
 
+def test_reference_wrappers_take_the_plain_version_on_cpu(ref_setup):
+    mc, tabs, cfg, lanes = ref_setup
+    s = _torch_lanes(lanes, torch.float64)
+    before = dict(hot_kernels.launches)
+    args = _args_a(s, mc, cfg, reference=True)
+    A = hot_kernels.phase_a(*args, reference=True)
+    ref = engine.hot_phase_a(*args, reference=True)
+    for name, v in hot_kernels._flat(A).items():
+        assert torch.equal(v, hot_kernels._flat(ref)[name]), name
+    rows = hot_kernels.row_gather(tabs.corner_rows, A["z"])
+    assert torch.equal(rows, tabs.corner_rows[A["z"].long()])
+    bias = torch.tensor(lanes["bias_scale"], dtype=torch.float64)
+    tail = _args_b_tail(s, A, bias, mc, cfg, tabs.hc_coeffs, tabs.k2_coeffs, reference=True)
+    B = hot_kernels.phase_b_raw(rows, *tail)
+    ref_b = engine.hot_phase_b(rows, *tail, reference=True)
+    for name, v in hot_kernels._flat(B).items():
+        assert torch.equal(v, hot_kernels._flat(ref_b)[name]), name
+    assert hot_kernels.launches == before
+    with pytest.raises(ValueError):
+        hot_kernels.row_gather(tabs.corner_rows.to("meta"), A["z"].to("meta"))
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_the_card(setup):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
     mc, tabs, cfg, _ = setup
     dev, f32 = torch.device("cuda"), torch.float32
-    lanes = hot_kernels.synthetic_lanes(mc, 65536, 11, cfg.stall_steps)
-    s = _torch_lanes(lanes, f32, dev)
     hot = tabs.hot_tab.to(dev, f32).contiguous()
+    raw = tabs.corner_rows.to(dev, f32).contiguous()
     hc = tabs.hc_coeffs.to(dev, f32).contiguous()
-    args = _args_a(s, mc, cfg)
-    ref_a = engine.hot_phase_a(*args)
     n0 = dict(hot_kernels.launches)
-    got_a = hot_kernels.phase_a(*args)
-    bias = torch.tensor(lanes["bias_scale"], dtype=f32, device=dev)
-    tail = _args_b_tail(s, ref_a, bias, mc, cfg, hc, tabs.k2_coeffs)
-    ref_b = engine.hot_phase_b(hot[ref_a["z"].long()], *tail)
-    got_b = hot_kernels.phase_b(hot, ref_a["z"], *tail)
+    checks = []
+    for reference in (False, True):
+        lanes = hot_kernels.synthetic_lanes(mc, 65536, 11, cfg.stall_steps, reference)
+        s = _torch_lanes(lanes, f32, dev)
+        bias = torch.tensor(lanes["bias_scale"], dtype=f32, device=dev)
+        args = _args_a(s, mc, cfg, reference)
+        ref_a = engine.hot_phase_a(*args, reference=reference)
+        got_a = hot_kernels.phase_a(*args, reference=reference)
+        tail = _args_b_tail(s, ref_a, bias, mc, cfg, hc, tabs.k2_coeffs, reference)
+        if reference:
+            rows = raw[ref_a["z"].long()]
+            got_rows = hot_kernels.row_gather(raw, ref_a["z"])
+            ref_b = engine.hot_phase_b(rows, *tail, reference=True)
+            got_b = hot_kernels.phase_b_raw(rows, *tail)
+            checks += [("hot_phase_a_ladder", ref_a, got_a), ("hot_phase_b_raw", ref_b, got_b),
+                       ("row_gather", {"rows": rows}, {"rows": got_rows})]
+        else:
+            ref_b = engine.hot_phase_b(hot[ref_a["z"].long()], *tail)
+            got_b = hot_kernels.phase_b(hot, ref_a["z"], *tail)
+            checks += [("hot_phase_a", ref_a, got_a), ("hot_phase_b", ref_b, got_b)]
     torch.cuda.synchronize()
-    assert hot_kernels.launches["hot_phase_a"] == n0["hot_phase_a"] + 1
-    assert hot_kernels.launches["hot_phase_b"] == n0["hot_phase_b"] + 1
-    for name, ref, got in (("hot_phase_a", ref_a, got_a), ("hot_phase_b", ref_b, got_b)):
+    for name, ref, got in checks:
+        assert hot_kernels.launches[name] == n0[name] + 1, name
         _, _, _, fails = hot_kernels.compare(ref, got, **hot_kernels.KERNEL_TOLERANCE[name])
         assert not fails, f"{name}: {fails}"
-    assert os.path.exists(hot_kernels._Build.path)
+    assert all(os.path.exists(p) for p in hot_kernels._Build.paths)

@@ -109,7 +109,8 @@ def test_end_to_end_luminosity_in_golden_band(tmp_path):
     cfg = _port_cfg(stall_steps=5000)
     kw = profiles.bench_sim_kwargs(POOL)
     kw["tail_stall_steps"] = 5000
-    sim = driver.Simulation(path, photon_n=180, mass_unit=4.0e18, seed=123, config=cfg, **kw)
+    sim = driver.Simulation(path, photon_n=180, mass_unit=4.0e18, seed=123, config=cfg,
+                            device="cpu", **kw)
     spec, stats = sim.run()
     with open(GOLDEN) as f:
         gold = json.load(f)
