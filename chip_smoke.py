@@ -33,7 +33,18 @@ Phases, each of which exits non-zero on failure:
    photons, ``profiles.reference_config`` with its step cap cut to
    ``--ref-stall-steps``): every hot step must go through
    kernel A's ladder variant, the row gather and kernel B's raw variant,
-   with the same checks of the spectrum and the luminosity.
+   with the same checks of the spectrum and the luminosity;
+7. the gather probes (``grmonty_tpu_torch/tools/``): (a) the five kernels
+   of ``csrc/gather_probe.cu`` against their plain versions at N = Z =
+   65,536 and w = 32 (and the cooperative and row-loop sums at w = 216,
+   where the table outgrows L2 and 54 float4s fall unevenly on a warp), on
+   a seeded table at seeded indices with 0 and Z-1 included: the four row
+   sums within ``hot_kernels.rowsum_slack`` on every index, the row copy
+   bitwise; (b) then, with every launch count set to 0, the three probes,
+   each printed as ``probe <name>: {...}``; each of the five kernels must
+   have been launched.  The chained probes replay CUDA graphs, and a
+   replayed launch does not pass through the wrapper: the counts see the
+   captures and the probes' eager calls only.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result line.
@@ -62,9 +73,13 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # multiply, compare-select, division, square root and transcendental as
 # one): A is dominated by the 40-term connection and two fixed-point
 # rounds of the 40-term geodesic right-hand side; B by the 41x31 hotcross
-# Chebyshev sum.  The row gather does no arithmetic.
+# Chebyshev sum.  The row gathers do no arithmetic; a row sum of width w
+# does w - 1 additions (W_PROBE here; the w = 216 checks pass their own).
+W_PROBE = 32
+ROWSUMS = tuple(f"gather_rowsum_{s}" for s in ("coop", "persistent", "rowloop", "smem"))
 OPS_PER_LANE = {"hot_phase_a": 600, "hot_phase_a_ladder": 590,
-                "hot_phase_b": 3200, "hot_phase_b_raw": 3250, "row_gather": 0}
+                "hot_phase_b": 3200, "hot_phase_b_raw": 3250, "row_gather": 0,
+                **{name: W_PROBE - 1 for name in ROWSUMS}, "row_gather_rowloop": 0}
 TOLERANCE = {
     "hot_phase_a": "exactly equal on every lane",
     "hot_phase_a_ladder": "exactly equal on every lane",
@@ -73,12 +88,25 @@ TOLERANCE = {
     "hot_phase_b_raw": "masks and integers differ on at most 0.1% of lanes; floats within "
                        "rtol 1e-4 atol 1e-6 on every lane",
     "row_gather": "bitwise equal",
+    **{name: "|kernel - plain| <= w * 2^-23 * sum_j |table[idx, j]| on every index"
+       for name in ROWSUMS},
+    "row_gather_rowloop": "bitwise equal",
 }
 SOURCES = {"hot_phase_a": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:104"),
            "hot_phase_a_ladder": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:104"),
            "hot_phase_b": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:152"),
            "hot_phase_b_raw": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:152"),
-           "row_gather": ("row_gather.cu", "grmonty_tpu/ops/gather.py:63")}
+           "row_gather": ("row_gather.cu", "grmonty_tpu/ops/gather.py:63"),
+           "gather_rowsum_coop": ("gather_probe.cu", "tools/probe_gather.py:104, "
+                                  "tools/probe_pallas_gather.py:99, "
+                                  "tools/probe_vmem_gather.py:106, "
+                                  "tools/probe_vmem_gather.py:142"),
+           "gather_rowsum_persistent": ("gather_probe.cu", "tools/probe_pallas_gather.py:74"),
+           "gather_rowsum_rowloop": ("gather_probe.cu", "tools/probe_gather.py:133"),
+           "gather_rowsum_smem": ("gather_probe.cu", "tools/probe_pallas_gather.py:125"),
+           "row_gather_rowloop": ("gather_probe.cu", "tools/probe_vmem_gather.py:178")}
+# Phase 7's probes, by module name under grmonty_tpu_torch/tools.
+PROBES = ("probe_gather", "probe_pallas_gather", "probe_vmem_gather")
 
 
 def fail(msg):
@@ -170,15 +198,19 @@ def make_simulation(root, photon_n, reference=False, stall_steps=REF_STALL_STEPS
                              config=cfg, device="cuda", **kw)
 
 
-def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None):
-    """Hold ``got`` against ``ref`` under the kernel's tolerance, time
-    plain, kernel, kernel, plain (one pair of each per call, averaged),
-    the kernel's device time and the library call, and return the record."""
+def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None,
+                slack=None):
+    """Hold ``got`` against ``ref`` under the kernel's tolerance (plus
+    ``slack`` per lane where given), time plain, kernel, kernel, plain (one
+    pair of each per call, averaged), the kernel's device time and the
+    library call, and return the record; ``ops`` is the call's float32
+    work, ``OPS_PER_LANE`` over N_CHECK lanes unless given."""
     from grmonty_tpu_torch.transport import hot_kernels
 
-    err, rel, mask, fails = hot_kernels.compare(ref, got, **hot_kernels.KERNEL_TOLERANCE[name])
+    err, rel, mask, fails = hot_kernels.compare(ref, got, **hot_kernels.KERNEL_TOLERANCE[name],
+                                                slack=slack)
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-    bound_ms, bound_by = bound(moved_bytes, OPS_PER_LANE[name] * N_CHECK)
+    bound_ms, bound_by = bound(moved_bytes, OPS_PER_LANE[name] * N_CHECK if ops is None else ops)
     src, replaces = SOURCES[name]
     rec = {"name": name, "route": "cuda", "source": f"grmonty_tpu_torch/csrc/{src}",
            "replaces": replaces, "max_abs_err": err, "max_rel_err": rel,
@@ -268,6 +300,71 @@ def kernel_checks(sim):
     out.append(time_kernel("row_gather", {"rows": ref_g}, {"rows": got_g}, plain_g, kern_g,
                            moved, library=library_g))
     return out
+
+
+def probe_kernel_checks():
+    """Phase 7a: the gather-probe kernels vs their plain versions at N = Z =
+    N_CHECK, all five at w = W_PROBE, the cooperative and row-loop sums
+    also at w = 216.  Returns the w = W_PROBE records."""
+    import numpy as np
+    import torch
+
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    dev = torch.device("cuda")
+    out = []
+    for w, names in ((W_PROBE, ROWSUMS + ("row_gather_rowloop",)),
+                     (216, ("gather_rowsum_coop", "gather_rowsum_rowloop"))):
+        rng = np.random.default_rng(w)
+        table = torch.as_tensor(rng.standard_normal((N_CHECK, w)).astype(np.float32), device=dev)
+        idx_np = rng.integers(0, N_CHECK, N_CHECK).astype(np.int32)
+        idx_np[:2] = (0, N_CHECK - 1)
+        idx = torch.as_tensor(idx_np, device=dev)
+        # the rows these indices touch, once, and the indices
+        moved_in = nbytes(idx) + torch.unique(idx).numel() * w * 4
+        for name in names:
+            if name == "row_gather_rowloop":
+                plain = lambda: table[idx.long()]  # noqa: E731
+                kern = lambda: hot_kernels.row_gather_rowloop(table, idx)  # noqa: E731
+                ref, got = plain(), kern()
+                torch.cuda.synchronize()
+                if not torch.equal(ref, got):
+                    fail("row_gather_rowloop is not bitwise equal to table[idx]")
+                rec = time_kernel(name, {"rows": ref}, {"rows": got}, plain, kern,
+                                  moved_in + nbytes(ref), ops=0,
+                                  library=lambda: torch.index_select(table, 0, idx))
+            else:
+                strategy = name.removeprefix("gather_rowsum_")
+                plain = lambda: hot_kernels.plain_rowsum(table, idx)  # noqa: E731
+                kern = lambda: hot_kernels.gather_rowsum(table, idx, strategy)  # noqa: E731
+                ref, got = plain(), kern()
+                torch.cuda.synchronize()
+                # no one PyTorch call gathers and sums: library_ms stays null
+                # and the probe's two-op torch_ms is added beside it
+                rec = time_kernel(name, {"sum": ref}, {"sum": got}, plain, kern,
+                                  moved_in + nbytes(ref), ops=(w - 1) * N_CHECK,
+                                  slack=hot_kernels.rowsum_slack(table, idx))
+            rec["w"] = w
+            if w == W_PROBE:
+                out.append(rec)
+    return out
+
+
+def run_probes():
+    """Phase 7b: the three probes with every launch count set to 0 just
+    before; prints each line and returns (results by probe, counts)."""
+    import importlib
+
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    hot_kernels.reset_launches()
+    results = {}
+    for name in PROBES:
+        t0 = time.monotonic()
+        results[name] = importlib.import_module(f"grmonty_tpu_torch.tools.{name}").measure()
+        print(f"probe {name}: {json.dumps(results[name])}")
+        print(f"  ({time.monotonic() - t0:.1f} s)")
+    return results, dict(hot_kernels.launches)
 
 
 def drive(sim, label):
@@ -367,6 +464,16 @@ def main():
         fail(f"reference: kernel launches {counts} != hot iterations {n}")
     for name in ("hot_phase_a_ladder", "hot_phase_b_raw", "row_gather"):
         kernels[name]["launches"] = counts[name]
+    del ref_sim
+
+    kernels.update((rec["name"], rec) for rec in probe_kernel_checks())
+    probes, counts = run_probes()
+    for name in ROWSUMS + ("row_gather_rowloop",):
+        if counts[name] < 1:
+            fail(f"probes: {name} was never launched ({counts})")
+        kernels[name]["launches"] = counts[name]
+    for name in ROWSUMS:
+        kernels[name]["probe_torch_ms"] = probes["probe_vmem_gather"]["torch_ms"]
 
     print(card)
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -17,14 +17,20 @@ in two compile-time variants:
 (``_gather_kernel``): ``out[n, :] = table[idx[n], :]``, the raw corner-row
 gather of the reference hot step, the event phase and the fresh-lane init.
 
+``csrc/gather_probe.cu`` replaces the eight Pallas kernels of the gather
+probes under ``tools/``: :func:`gather_rowsum` (``table[idx].sum(1)`` by
+four strategies) and :func:`row_gather_rowloop` (the row copy, one thread
+per row); the probes that drive them are ``grmonty_tpu_torch/tools/``.
+
 Each thread of a phase kernel runs one lane; the headers of the ``.cu``
 files say what bounds each kernel on the card.
 
-:func:`phase_a`, :func:`phase_b`, :func:`phase_b_raw` and
-:func:`row_gather` take their plain versions' arguments.  On CPU tensors
-they call the plain versions (``engine.hot_phase_a`` / ``hot_phase_b`` /
-indexing); on CUDA tensors they launch the kernel, or raise.
-``launches`` counts kernel launches only.
+:func:`phase_a`, :func:`phase_b`, :func:`phase_b_raw`, :func:`row_gather`,
+:func:`gather_rowsum` and :func:`row_gather_rowloop` take their plain
+versions' arguments.  On CPU tensors they call the plain versions
+(``engine.hot_phase_a`` / ``hot_phase_b`` / indexing); on CUDA tensors they
+launch the kernel, or raise.  ``launches`` counts kernel launches only; a
+launch captured into a CUDA graph counts once, its replays not at all.
 
 Build: ``nvcc`` compiles each ``csrc/*.cu`` into its own shared library
 with a plain C interface under ``build/grmonty_tpu_torch/`` (keyed by a
@@ -60,7 +66,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Kernel launches on CUDA tensors, per kernel (the plain path counts nothing).
 launches = {"hot_phase_a": 0, "hot_phase_a_ladder": 0, "hot_phase_b": 0,
-            "hot_phase_b_raw": 0, "row_gather": 0}
+            "hot_phase_b_raw": 0, "row_gather": 0, "gather_rowsum_coop": 0,
+            "gather_rowsum_persistent": 0, "gather_rowsum_rowloop": 0,
+            "gather_rowsum_smem": 0, "row_gather_rowloop": 0}
+# The strategies of gather_rowsum, each its own entry point gather_rowsum_<s>.
+ROWSUM_STRATEGIES = ("coop", "persistent", "rowloop", "smem")
 
 
 def reset_launches():
@@ -106,7 +116,9 @@ _ABI = {"hot_phase_a": (len(_A_PTRS), len(_A_SCAL)),
         "hot_phase_a_ladder": (len(_A_PTRS), len(_A_SCAL)),
         "hot_phase_b": (len(_B_PTRS), len(_B_SCAL_HEAD) + _K2_N),
         "hot_phase_b_raw": (len(_B_RAW_PTRS), len(_B_RAW_SCAL) + len(_B_SCAL_HEAD) + _K2_N),
-        "row_gather": (3, 1)}
+        "row_gather": (3, 1),
+        **{f"gather_rowsum_{s}": (3, 2 if s == "smem" else 1) for s in ROWSUM_STRATEGIES},
+        "row_gather_rowloop": (3, 1)}
 
 
 class _Build:
@@ -321,18 +333,63 @@ def row_gather(table, idx):
     tensors (float32, contiguous, W a multiple of 4); no host sync."""
     if table.device.type == "cpu":
         return table[idx.long()]
+    dev, n, w = _gather_args(table, idx, "row gather")
+    out = torch.empty((n, w), dtype=torch.float32, device=dev)
+    _launch("row_gather", [table, idx, out], [w], n, dev)
+    return out
+
+
+def plain_rowsum(table, idx):
+    """The plain version of :func:`gather_rowsum`: ``table[idx].sum(1)``."""
+    return table[idx.long()].sum(dim=1)
+
+
+def gather_rowsum(table, idx, strategy="coop", blk=256):
+    """``table[idx].sum(1)``: row sums of a (Z, W) table at (N,) int32
+    indices in [0, Z) (not checked, as in the TPU kernels).  The plain
+    version on CPU tensors; on CUDA tensors the kernel of
+    ``csrc/gather_probe.cu`` that ``strategy`` names (one of
+    ``ROWSUM_STRATEGIES``; float32, contiguous, 16-byte aligned, W a
+    multiple of 4).  ``blk`` is the rows per CTA of ``"smem"`` and is read
+    by no other strategy.  The sums run in another order than the plain
+    version's (``rowsum_slack`` bounds the difference); no host sync."""
+    if strategy not in ROWSUM_STRATEGIES:
+        raise ValueError(f"gather_rowsum: strategy {strategy!r} not in {ROWSUM_STRATEGIES}")
+    if table.device.type == "cpu":
+        return plain_rowsum(table, idx)
+    dev, n, w = _gather_args(table, idx, f"gather_rowsum {strategy}")
+    if strategy == "smem" and not (isinstance(blk, int) and blk > 0):
+        raise ValueError(f"gather_rowsum smem: blk must be a positive int, got {blk!r}")
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    _launch(f"gather_rowsum_{strategy}", [table, idx, out],
+            [w, blk] if strategy == "smem" else [w], n, dev)
+    return out
+
+
+def row_gather_rowloop(table, idx):
+    """``table[idx]`` as :func:`row_gather`, by the one-thread-per-row
+    kernel of ``csrc/gather_probe.cu`` on CUDA tensors (the plain version
+    on CPU tensors)."""
+    if table.device.type == "cpu":
+        return table[idx.long()]
+    dev, n, w = _gather_args(table, idx, "row_gather_rowloop")
+    out = torch.empty((n, w), dtype=torch.float32, device=dev)
+    _launch("row_gather_rowloop", [table, idx, out], [w], n, dev)
+    return out
+
+
+def _gather_args(table, idx, what):
+    """(device, N, W) of a gather's CUDA table (Z, W) and int32 indices (N,)."""
     dev = _cuda_device(table)
     if table.dim() != 2 or table.shape[1] % 4:
-        raise ValueError(f"row gather: expected a (Z, W) table with W % 4 == 0, got "
+        raise ValueError(f"{what}: expected a (Z, W) table with W % 4 == 0, got "
                          f"{tuple(table.shape)}")
     n = idx.shape[0]
-    _check_rows(table, None, table.shape[1], dev, "row gather table")
+    _check_rows(table, None, table.shape[1], dev, f"{what} table")
     _check(["idx"], [idx], n, dev)
     if idx.dtype != torch.int32:
-        raise TypeError(f"row gather: int32 indices, got {idx.dtype}")
-    out = torch.empty((n, table.shape[1]), dtype=torch.float32, device=dev)
-    _launch("row_gather", [table, idx, out], [table.shape[1]], n, dev)
-    return out
+        raise TypeError(f"{what}: int32 indices, got {idx.dtype}")
+    return dev, n, table.shape[1]
 
 
 def _empty(n, dtype, dev):
@@ -492,21 +549,35 @@ def _flat(out):
 # cannot round exactly as the plain version's float32 matrix product and
 # sum, and a weight decays by exp(-dtau), which multiplies a relative
 # error in dtau by dtau; so both variants are held to the Pallas-vs-XLA
-# parity contract of tests/test_pallas_hot.py.
+# parity contract of tests/test_pallas_hot.py.  The gather-probe row sums
+# add a row's W terms in another order than the plain version, and rows of
+# normal numbers can sum to nearly zero, so no relative tolerance fits
+# them: each index may differ by rowsum_slack, W * 2^-23 * sum_j |row_j|
+# (twice the worst-case error of either order), passed as compare's slack.
 KERNEL_TOLERANCE = {
     "hot_phase_a": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
     "hot_phase_a_ladder": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
     "hot_phase_b": dict(rtol=1e-4, atol=1e-6, mask_frac=1e-3),
     "hot_phase_b_raw": dict(rtol=1e-4, atol=1e-6, mask_frac=1e-3),
     "row_gather": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
+    **{f"gather_rowsum_{s}": dict(rtol=0.0, atol=0.0, mask_frac=0.0)
+       for s in ROWSUM_STRATEGIES},
+    "row_gather_rowloop": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
 }
 
 
-def compare(ref, got, rtol, atol, mask_frac):
+def rowsum_slack(table, idx):
+    """What a row sum of ``table[idx]`` may differ by between two summation
+    orders, per index (float64): W * 2^-23 * sum_j |table[idx, j]|."""
+    return table.shape[1] * 2.0 ** -23 * plain_rowsum(table.abs().double(), idx)
+
+
+def compare(ref, got, rtol, atol, mask_frac, slack=None):
     """Hold a phase's outputs ``got`` against ``ref`` (dicts as the phases
     return them) on every lane: each mask and integer field differs on at
     most ``mask_frac`` of the lanes, and each float field agrees to
-    ``rtol``/``atol`` (NaN only where ``ref`` is NaN).  Returns
+    ``rtol``/``atol``, plus ``slack`` (a tensor of the lanes) where given
+    (NaN only where ``ref`` is NaN).  Returns
     (max_abs_err, max_rel_err, worst mask mismatch fraction, failures);
     the relative error is taken against max(|ref|, atol/rtol), or |ref|
     when rtol is 0."""
@@ -530,7 +601,11 @@ def compare(ref, got, rtol, atol, mask_frac):
         if diff.numel():
             max_err = max(max_err, float(diff.max()))
             max_rel = max(max_rel, float(torch.nan_to_num(rel, nan=math.inf).max()))
-        bad = ~(diff <= atol + rtol * torch.abs(a64))
+        allowed = atol + rtol * torch.abs(a64)
+        if slack is not None:
+            allowed = allowed + slack.to(a64.device)
+        bad = ~(diff <= allowed)
         if bool(bad.any()):
-            fails.append(f"{name}: {int(bad.sum())} lanes beyond rtol {rtol} atol {atol}")
+            fails.append(f"{name}: {int(bad.sum())} lanes beyond rtol {rtol} atol {atol}"
+                         + ("" if slack is None else " plus the slack"))
     return max_err, max_rel, worst, fails
