@@ -10,30 +10,38 @@ Phases, each of which exits non-zero on failure:
    in parallel);
 3. generate the 256x256 synthetic torus into ``.cache/`` with the port's
    writer and build the per-dump tables on the card;
-4. every kernel against its plain PyTorch version at N = 65,536: kernels A
-   and B in their shipped and reference variants on synthetic lane states
-   (seeded numpy; kernel B's rows come from the torus's derived or raw
-   table), on every lane: both variants of A exactly equal, both of B
-   within the Pallas-vs-XLA parity contract (``hot_kernels.KERNEL_TOLERANCE``);
-   the row gather on the raw corner table at seeded indices, bitwise equal
-   to ``table[idx]``.  Each with the time per call of kernel and plain when
-   the host calls them back to back (``ms``, ``plain_ms``, CUDA events), the
-   kernel's device time per launch (``device_ms``: launches queued behind a
-   GPU sleep, so the host's launch cost is hidden), the one PyTorch call
-   that computes the same function where there is one (``library_ms``),
-   and the least time the card could take (``bound_ms``: the bytes the
-   call must move at 3.35 TB/s or its float32 work at 67 TFLOP/s, the
-   larger; ``bound_by`` says which);
+4. every kernel of the two paths against its plain PyTorch version at
+   N = 65,536: the fused hot step in its shipped and reference variants
+   (``hot_step``, ``hot_step_ref``) on synthetic lane states (seeded
+   numpy, ``hot_kernels.synthetic_lanes(events=True)``, at each path's own
+   step cap) against ``engine.hot_step_plain``, on every lane within the
+   Pallas-vs-XLA parity contract (``hot_kernels.KERNEL_TOLERANCE``, the
+   weight also within ``hot_kernels.weight_slack``) and with the census
+   counters exactly equal; the row gather on the raw corner table at
+   seeded indices, bitwise equal to ``table[idx]``.  Each with the time per call of kernel
+   and plain when the host calls them back to back (``ms``, ``plain_ms``,
+   CUDA events), the kernel's device time per launch (``device_ms``:
+   launches queued behind a GPU sleep, so the host's launch cost is
+   hidden), the one PyTorch call that computes the same function where
+   there is one (``library_ms``, and queued the same way
+   ``library_device_ms``), and the least time the card could take
+   (``bound_ms``: the bytes the call must move at 3.35 TB/s or its float32
+   work at 67 TFLOP/s, the larger; ``bound_by`` says which); for the hot
+   step also its registers and spills (``ptxas``) and the shared-memory
+   loads in its SASS (``lds``, by cuobjdump), and on a line of its own the
+   weight's worst lane and an estimate of the float32 issue floor;
 5. the shipped profile end to end at M = 4e19, seed 123, float32, pool
-   65,536: every hot step must go through kernels A and B, the spectrum
-   must be finite with a photon count equal to ``n_recorded``, no secondary
-   may be dropped, and the luminosity must lie within 10% of the JAX
-   engine's 12694.3 on the same torus and seed;
+   65,536: every hot step must be one launch of ``hot_step`` and the row
+   gather must run once per full phase (its event samplers) and nowhere
+   else, the spectrum must be finite with a photon count equal to
+   ``n_recorded``, no secondary may be dropped, and the luminosity must lie
+   within 10% of the JAX engine's 12694.3 on the same torus and seed;
 6. reference semantics end to end on the same cell (``--ref-photon-n``
    photons, ``profiles.reference_config`` with its step cap cut to
-   ``--ref-stall-steps``): every hot step must go through
-   kernel A's ladder variant, the row gather and kernel B's raw variant,
-   with the same checks of the spectrum and the luminosity;
+   ``--ref-stall-steps``): every hot step must be one launch of
+   ``hot_step_ref`` and the row gather must run once per full phase and
+   once per fresh-lane init (one in each full and light phase), with the
+   same checks of the spectrum and the luminosity;
 7. the gather probes (``grmonty_tpu_torch/tools/``): (a) the five kernels
    of ``csrc/gather_probe.cu`` against their plain versions at N = Z =
    65,536 and w = 32 (and the cooperative and row-loop sums at w = 216,
@@ -55,6 +63,8 @@ import json
 import logging
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -69,33 +79,37 @@ REPS = 20
 REF_STALL_STEPS = 50000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# The float32 instruction issue rate: 67e12 counts a fused multiply-add as
+# two operations, and the kernels are built with -fmad=false, so each
+# multiply and each add issues on its own at half that rate.
+FP32_ISSUE_PER_S = FP32_OPS_PER_S / 2
 # Float32 operations per lane, counted from csrc/hot_step.cu (every add,
 # multiply, compare-select, division, square root and transcendental as
-# one): A is dominated by the 40-term connection and two fixed-point
-# rounds of the 40-term geodesic right-hand side; B by the 41x31 hotcross
-# Chebyshev sum.  The row gathers do no arithmetic; a row sum of width w
-# does w - 1 additions (W_PROBE here; the w = 216 checks pass their own).
+# one): about 600 in phase A (the 40-term connection and two fixed-point
+# rounds of the 40-term geodesic right-hand side) and 3,200 in phase B
+# (the 41x31 hotcross Chebyshev sum, 2,542 multiplies and adds); the raw
+# rows' metric pair adds about 50.  The row gathers do no arithmetic; a row
+# sum of width w does w - 1 additions (W_PROBE here; the w = 216 checks
+# pass their own).
 W_PROBE = 32
 ROWSUMS = tuple(f"gather_rowsum_{s}" for s in ("coop", "persistent", "rowloop", "smem"))
-OPS_PER_LANE = {"hot_phase_a": 600, "hot_phase_a_ladder": 590,
-                "hot_phase_b": 3200, "hot_phase_b_raw": 3250, "row_gather": 0,
+OPS_PER_LANE = {"hot_step": 3800, "hot_step_ref": 3840, "row_gather": 0,
                 **{name: W_PROBE - 1 for name in ROWSUMS}, "row_gather_rowloop": 0}
 TOLERANCE = {
-    "hot_phase_a": "exactly equal on every lane",
-    "hot_phase_a_ladder": "exactly equal on every lane",
-    "hot_phase_b": "masks and integers differ on at most 0.1% of lanes; floats within "
-                   "rtol 1e-4 atol 1e-6 on every lane",
-    "hot_phase_b_raw": "masks and integers differ on at most 0.1% of lanes; floats within "
-                       "rtol 1e-4 atol 1e-6 on every lane",
+    "hot_step": "masks and integers differ on at most 0.1% of lanes; floats within "
+                "rtol 1e-4 atol 1e-6 on every lane; census counters exactly equal",
+    "hot_step_ref": "masks and integers differ on at most 0.1% of lanes; floats within "
+                    "rtol 1e-4 atol 1e-6 on every lane; census counters exactly equal",
     "row_gather": "bitwise equal",
     **{name: "|kernel - plain| <= w * 2^-23 * sum_j |table[idx, j]| on every index"
        for name in ROWSUMS},
     "row_gather_rowloop": "bitwise equal",
 }
-SOURCES = {"hot_phase_a": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:104"),
-           "hot_phase_a_ladder": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:104"),
-           "hot_phase_b": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:152"),
-           "hot_phase_b_raw": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:152"),
+SOURCES = {"hot_step": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:104, "
+                        "grmonty_tpu/transport/hotstep_pallas.py:152"),
+           "hot_step_ref": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:104, "
+                            "grmonty_tpu/transport/hotstep_pallas.py:152, "
+                            "grmonty_tpu/ops/gather.py:63"),
            "row_gather": ("row_gather.cu", "grmonty_tpu/ops/gather.py:63"),
            "gather_rowsum_coop": ("gather_probe.cu", "tools/probe_gather.py:104, "
                                   "tools/probe_pallas_gather.py:99, "
@@ -210,7 +224,8 @@ def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None
     err, rel, mask, fails = hot_kernels.compare(ref, got, **hot_kernels.KERNEL_TOLERANCE[name],
                                                 slack=slack)
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-    bound_ms, bound_by = bound(moved_bytes, OPS_PER_LANE[name] * N_CHECK if ops is None else ops)
+    ops = OPS_PER_LANE[name] * N_CHECK if ops is None else ops
+    bound_ms, bound_by = bound(moved_bytes, ops)
     src, replaces = SOURCES[name]
     rec = {"name": name, "route": "cuda", "source": f"grmonty_tpu_torch/csrc/{src}",
            "replaces": replaces, "max_abs_err": err, "max_rel_err": rel,
@@ -218,6 +233,7 @@ def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None
            "ms": 0.5 * (k1 + k2), "plain_ms": 0.5 * (p1 + p2),
            "device_ms": cuda_ms(kern, queued=True),
            "library_ms": None if library is None else cuda_ms(library),
+           "library_device_ms": None if library is None else cuda_ms(library, queued=True),
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved_bytes, "n": N_CHECK}
     print(f"kernel check {name}: {json.dumps(rec)}")
     if fails:
@@ -225,70 +241,128 @@ def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None
     return rec
 
 
-def kernel_checks(sim):
-    """Phase 4: every kernel vs its plain version at N_CHECK lanes."""
-    import numpy as np
+def ptxas_usage(log):
+    """{kernel function: registers and spill bytes} from nvcc's -Xptxas -v
+    output."""
+    usage, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            usage[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn]["registers"] = int(m.group(1))
+    return usage
+
+
+def sass_counts(path):
+    """{kernel function: (shared-memory loads LDS, instructions)} in the SASS
+    of a built library, by cuobjdump; {} where cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                             timeout=300).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return {}
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = [0, 0]
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            counts[fn][1] += 1
+            if re.search(r"\bLDS(\.[A-Z0-9]+)*\b", line):
+                counts[fn][0] += 1
+    return counts
+
+
+def hot_step_checks(sim, usage, sass, ref_stall_steps):
+    """Phase 4a: the hot step of each semantics against its plain version at
+    N_CHECK lanes of synthetic state drawn at the path's step cap (the
+    shipped ``sim.cfg``'s, ``ref_stall_steps`` under reference semantics),
+    its census counters exactly; ``usage``/``sass``: the build's ptxas and
+    SASS counts by kernel function."""
     import torch
 
     from grmonty_tpu_torch.transport import engine, hot_kernels, profiles
 
-    mc, cfg, tabs = sim.mc, sim.cfg, sim.tables
-    dev, f32 = sim.device, torch.float32
-
-    def t(v):
-        if isinstance(v, tuple):
-            return tuple(t(c) for c in v)
-        a = torch.as_tensor(v, device=dev)
-        return a if a.dtype in (torch.bool, torch.int32) else a.to(f32)
-
+    mc, tabs, dev, f32 = sim.mc, sim.tables, sim.device, torch.float32
     out = []
     for reference in (False, True):
-        lanes = hot_kernels.synthetic_lanes(mc, N_CHECK, 2024, cfg.stall_steps, reference)
-        s = {k: t(v) for k, v in lanes.items() if k != "bias_scale"}
-        bias_scale = torch.tensor(lanes["bias_scale"], dtype=f32, device=dev)
-        grow_cap = (profiles.reference_config() if reference else cfg).grow_cap
-        a_args = (s["x"], s["k"], s["dkdlam"], s["e_0_s"], s["dl_shrink"], s["pend_dl"],
-                  s["pend_push"], s["at_event"], s["alive"], s["w"], s["record_pending"],
-                  s["u_roul"], s["alpha_scatti"], s["bi"], mc, grow_cap)
-        plain_a = lambda: engine.hot_phase_a(*a_args, reference=reference)  # noqa: E731
-        kern_a = lambda: hot_kernels.phase_a(*a_args, reference=reference)  # noqa: E731
-        ref_a, got_a = plain_a(), kern_a()
-        torch.cuda.synchronize()
-        a_in = a_args[:12] if reference else a_args[:14]  # the ladder reads no opacities
-        name = "hot_phase_a_ladder" if reference else "hot_phase_a"
-        out.append(time_kernel(name, ref_a, got_a, plain_a, kern_a, nbytes(a_in, ref_a)))
+        cfg = (profiles.reference_config(pool=N_CHECK, dtype=f32, stall_steps=ref_stall_steps)
+               if reference else sim.cfg)
+        name = "hot_step_ref" if reference else "hot_step"
+        lanes = hot_kernels.synthetic_lanes(mc, N_CHECK, 2024, cfg.stall_steps, reference,
+                                            events=True)
+        pool, counters, u_roul, u_x1, bias = hot_kernels.synthetic_step(lanes, f32, dev)
 
-        A = ref_a
-        b_tail = (A["x"], A["k"], A["dkdlam"], A["e_0_s"], A["w"], s["alpha_scatti"],
-                  s["alpha_absi"], s["bi"], s["tau_abs"], s["tau_scatt"], s["interacting"],
-                  A["pend_dl"], A["pend_push"], s["sec_w"], s["n_step"], A["alive"],
-                  s["x"], s["k"], s["dkdlam"], s["e_0_s"], A["seg"], A["commit"],
-                  A["moving"], A["was_pend"], A["stopped"], s["u_x1"],
-                  None if reference else A["grown"], bias_scale,
-                  mc, tabs.hc_coeffs, tabs.k2_coeffs, cfg.stall_steps)
-        z = A["z"].long()
-        if reference:
-            rows = tabs.corner_rows[z]
-            plain_b = lambda: engine.hot_phase_b(rows, *b_tail, reference=True)  # noqa: E731
-            kern_b = lambda: hot_kernels.phase_b_raw(rows, *b_tail)  # noqa: E731
-            rows_bytes = nbytes(rows)
-        else:
-            plain_b = lambda: engine.hot_phase_b(tabs.hot_tab[z], *b_tail)  # noqa: E731
-            kern_b = lambda: hot_kernels.phase_b(tabs.hot_tab, A["z"], *b_tail)  # noqa: E731
-            # the derived rows of the cells this call reads, and their index
-            rows_bytes = nbytes(A["z"]) + torch.unique(z).numel() * tabs.hot_tab.shape[1] * 4
-        ref_b, got_b = plain_b(), kern_b()
-        torch.cuda.synchronize()
-        name = "hot_phase_b_raw" if reference else "hot_phase_b"
-        out.append(time_kernel(name, ref_b, got_b, plain_b, kern_b,
-                               rows_bytes + nbytes(b_tail[:-4], ref_b)))
+        def fresh():
+            return counters._replace(**{c: getattr(counters, c).clone()
+                                        for c in hot_kernels.CENSUS})
 
+        def step(fn, c=None):
+            return fn(pool, fresh() if c is None else c, u_roul, u_x1, bias, mc, tabs, cfg)
+
+        kc = fresh()  # the kernel adds its census to these in place
+        plain = lambda: step(engine.hot_step_plain, counters)  # noqa: E731
+        kern = lambda: step(hot_kernels.hot_step, kc)  # noqa: E731
+        ref_f, ref_c = hot_kernels.step_outputs(*plain(), reference)
+        got_f, got_c = hot_kernels.step_outputs(*step(hot_kernels.hot_step), reference)
+        torch.cuda.synchronize()
+        if got_c != ref_c:
+            fail(f"{name}: census {got_c} != the plain version's {ref_c}")
+        # the bytes: every input read once, every output written once, and
+        # each table row the lanes' cells touch
+        z = engine.hot_phase_a(pool.x, pool.k, pool.dkdlam, pool.e_0_s, pool.dl_shrink,
+                               pool.pend_dl, pool.pend_push, pool.at_event, pool.alive,
+                               pool.w, pool.record_pending, u_roul, pool.alpha_scatti,
+                               pool.bi, mc, cfg.grow_cap, reference=reference)["z"]
+        table = tabs.corner_rows if reference else tabs.hot_tab
+        ins = (hot_kernels._pool_cols(pool), pool.occupied, u_roul, u_x1, bias, tabs.hc_coeffs,
+               [getattr(counters, c) for c in hot_kernels.CENSUS],
+               [] if reference else hot_kernels._ev_cols(pool))
+        moved = (nbytes(ins, got_f, [getattr(counters, c) for c in hot_kernels.CENSUS])
+                 + torch.unique(z).numel() * table.shape[1] * 4)
+        slack = hot_kernels.weight_slack(pool, ref_f,
+                                         hot_kernels.KERNEL_TOLERANCE[name]["rtol"])
+        # the weight's worst lane, with the optical depth that decayed it
+        w_rel = (got_f["w"].double() - ref_f["w"].double()).abs() / ref_f["w"].double().abs()
+        i = int(torch.argmax(torch.nan_to_num(w_rel, nan=0.0)))
+        print(f"  {name}: w's worst lane {i}: relative error {float(w_rel[i])} at d_tau "
+              f"{float(hot_kernels.step_d_tau(pool, ref_f)[i])}; issue floor (estimate, "
+              f"OPS_PER_LANE) {1e3 * OPS_PER_LANE[name] * N_CHECK / FP32_ISSUE_PER_S} ms")
+        rec = time_kernel(name, ref_f, got_f, plain, kern, moved, slack=slack)
+        rec["census"] = got_c
+        inst = f"hot_step_kernelILb{int(reference)}E"
+        rec["ptxas"] = next((v for f, v in usage.items() if inst in f), None)
+        rec["lds"], rec["sass_instructions"] = next(
+            (v for f, v in sass.items() if inst in f), (None, None))
+        print(f"  {name}: census {got_c}; ptxas {rec['ptxas']}; {rec['lds']} LDS in "
+              f"{rec['sass_instructions']} instructions")
+        out.append(rec)
+    return out
+
+
+def kernel_checks(sim, usage, sass, ref_stall_steps):
+    """Phase 4: every kernel of the path vs its plain version at N_CHECK lanes."""
+    import numpy as np
+    import torch
+
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    out = hot_step_checks(sim, usage, sass, ref_stall_steps)
     # the row gather on the raw corner table, indices 0 and Z-1 included
-    table = tabs.corner_rows
+    table = sim.tables.corner_rows
     z_n = table.shape[0]
     idx_np = np.random.default_rng(2025).integers(0, z_n, N_CHECK).astype(np.int32)
     idx_np[:2] = (0, z_n - 1)
-    idx = torch.as_tensor(idx_np, device=dev)
+    idx = torch.as_tensor(idx_np, device=sim.device)
     plain_g = lambda: table[idx.long()]  # noqa: E731
     kern_g = lambda: hot_kernels.row_gather(table, idx)  # noqa: E731
     library_g = lambda: torch.index_select(table, 0, idx)  # noqa: E731
@@ -369,7 +443,10 @@ def run_probes():
 
 def drive(sim, label):
     """Run ``sim`` with every launch count set to 0 just before, check its
-    spectrum and luminosity, print its result line; returns (stats, counts)."""
+    spectrum, its luminosity and its launches (one fused hot step per hot
+    iteration; the row gather once in each full phase's event samplers and,
+    under reference semantics, once in each phase's fresh-lane init), print
+    its result line; returns (stats, counts)."""
     import torch
 
     from grmonty_tpu_torch.transport import hot_kernels
@@ -391,7 +468,8 @@ def drive(sim, label):
         "n_sec_drop": stats["n_secondary_dropped"], "n_stall": stats["n_stall_killed"],
         "w_stall_frac": stats["w_stall_frac"],
         "n_hc_clamp": stats["n_hc_clamp"], "hot_iters": stats["hot_iters"],
-        "launches": counts,
+        "launches": counts, "full_phases": stats["full_phases"],
+        "light_phases": stats["light_phases"],
         "util": [stats.get(k) for k in ("util_occupied", "util_moving",
                                          "util_committed", "util_parked")],
         "max_tau_scatt": stats["max_tau_scatt"], "spectrum_photons": n_ph,
@@ -405,6 +483,12 @@ def drive(sim, label):
         fail(f"{label}: {stats['n_secondary_dropped']} secondaries dropped")
     if not (math.isfinite(lum) and abs(lum / REF_LUMINOSITY - 1.0) <= 0.10):
         fail(f"{label}: luminosity {lum} not within 10% of {REF_LUMINOSITY}")
+    hot = "hot_step_ref" if sim.cfg.reference else "hot_step"
+    gathers = stats["full_phases"] + (stats["full_phases"] + stats["light_phases"]
+                                      if sim.cfg.reference else 0)
+    if not (counts[hot] == stats["hot_iters"] > 0 and counts["row_gather"] == gathers):
+        fail(f"{label}: launches {counts} against {stats['hot_iters']} hot iterations and "
+             f"{gathers} row-gather call sites")
     return stats, counts
 
 
@@ -440,29 +524,29 @@ def main():
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+    usage = ptxas_usage(log)
+    sass = {}
+    for path in paths:
+        sass.update(sass_counts(path))
+    for fn, (lds, n_ins) in sass.items():
+        print(f"  sass: {fn}: {lds} LDS in {n_ins} instructions")
 
     t0 = time.monotonic()
     sim = make_simulation(root, args.photon_n)
     torch.cuda.synchronize()
     print(f"torus + tables: {time.monotonic() - t0:.1f} s")
 
-    kernels = {rec["name"]: rec for rec in kernel_checks(sim)}
+    kernels = {rec["name"]: rec for rec in kernel_checks(sim, usage, sass,
+                                                          args.ref_stall_steps)}
 
-    stats, counts = drive(sim, "shipped")
-    if not (counts["hot_phase_a"] == counts["hot_phase_b"] == stats["hot_iters"] > 0):
-        fail(f"shipped: kernel launches {counts} != hot iterations {stats['hot_iters']}")
-    for name in ("hot_phase_a", "hot_phase_b"):
-        kernels[name]["launches"] = counts[name]
+    _, counts = drive(sim, "shipped")
+    kernels["hot_step"]["launches"] = counts["hot_step"]
     del sim
 
     ref_sim = make_simulation(root, args.ref_photon_n, reference=True,
                               stall_steps=args.ref_stall_steps)
-    stats, counts = drive(ref_sim, "reference")
-    n = stats["hot_iters"]
-    if not (counts["hot_phase_a_ladder"] == counts["hot_phase_b_raw"] == n > 0
-            and counts["row_gather"] >= n):
-        fail(f"reference: kernel launches {counts} != hot iterations {n}")
-    for name in ("hot_phase_a_ladder", "hot_phase_b_raw", "row_gather"):
+    _, counts = drive(ref_sim, "reference")
+    for name in ("hot_step_ref", "row_gather"):
         kernels[name]["launches"] = counts[name]
     del ref_sim
 

@@ -8,10 +8,10 @@ B2, B3.  Two bilinear corner tables serve the transport:
 * the raw 32-wide table (:func:`make_corner_table`): the 8 primitives at
   the 4 corners of each cell, read by the event phase through
   :func:`get_fluid_params_c` and, under reference semantics, by the hot
-  step (:func:`blend_raw` on rows ``hot_kernels.row_gather`` gathered);
+  step (:func:`blend_raw`; the fused kernel fetches its rows itself);
 * the derived 44-wide table (:func:`derived11` + :func:`pack_corner_rows`):
   n_e, theta_e*n_e, |B|, u_cov and b_cov at the 4 corners, read by the hot
-  step (kernel B gathers its rows itself).
+  step of the shipped profile.
 """
 
 import typing

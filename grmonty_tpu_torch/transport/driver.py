@@ -240,7 +240,8 @@ class Simulation:
                      int(state.counters.n_recorded))
         empty = torch.zeros((1, engine_mod.ROW_WIDTH), dtype=self.cfg.dtype,
                             device=self.device)
-        state = self._timed_run(self.tail_engine(), state, empty)
+        tail = self.tail_engine()
+        state = self._timed_run(tail, state, empty)
         state = self._drain_spec(state)
         elapsed = time.monotonic() - t0
 
@@ -258,6 +259,8 @@ class Simulation:
             "n_ev_soft": int(c.n_ev_soft),
             "n_ev_forced": int(c.n_ev_forced),
             "hot_iters": int(c.ls_iters),
+            "full_phases": self.engine.phases["full"] + tail.phases["full"],
+            "light_phases": self.engine.phases["light"] + tail.phases["light"],
             "steps_per_photon": float(c.n_steps_retired) / max(n_retired, 1),
             "elapsed_s": elapsed,
             "photon_rate": plan.total / max(elapsed, 1e-9),

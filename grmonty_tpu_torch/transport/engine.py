@@ -6,12 +6,12 @@ Photons are an SoA pool of (N,) tensors stepped in lockstep:
 
 * the **hot step** (:meth:`Engine.hot_step`) runs phase A (step size, one
   implicit-midpoint Kerr push, step control, stop test and roulette, cell
-  index) and phase B (fluid blend, opacities, scatter decision, weight
-  decay) — on a CUDA tensor each phase is one hand-written kernel
-  (``hot_kernels``), on a CPU tensor the plain versions below.  The
-  shipped profile's phase B blends the derived 44-wide corner rows, which
-  kernel B gathers itself; under reference semantics the raw 32-wide rows
-  are gathered between the phases (``hot_kernels.row_gather``);
+  index), the corner row at the new cell, phase B (fluid blend, opacities,
+  scatter decision, weight decay), the detached-event capture and the
+  lane-slot census — on CUDA tensors as one hand-written kernel
+  (``hot_kernels.hot_step``), on CPU tensors as the plain
+  :func:`hot_step_plain`.  The shipped profile blends the derived 44-wide
+  corner rows, reference semantics the raw 32-wide rows;
 * every ``refill_period`` iterations a **light phase** records escaped
   photons and refills free lanes; every ``m_period`` iterations the **full
   phase** also runs the deferred scattering events;
@@ -239,8 +239,8 @@ def _util_counters(counters, occupied, moving, commit, parked):
 
 
 # ---------------------------------------------------------------------------
-# the hot step, plain versions (the CUDA kernels in csrc/hot_step.cu compute
-# the same functions; hot_kernels dispatches between them)
+# the hot step, plain versions (the CUDA kernel of csrc/hot_step.cu computes
+# hot_step_plain; hot_kernels.hot_step dispatches between them)
 # ---------------------------------------------------------------------------
 
 def push_attempt_c(x, k, dkdlam, e_0_s, seg_dl, active, at_floor, a, hs, r0):
@@ -472,6 +472,51 @@ def _capture_events(p, arrived, at_event, x, k, w, sec_w, alive,
     )
 
 
+def hot_step_plain(p: Pool, counters: Counters, u_roul, u_x1, bias_scale, mc,
+                   tables: EngineTables, cfg: EngineConfig):
+    """One hot iteration, the plain version of the fused kernel
+    (``csrc/hot_step.cu`` ``hot_step_kernel``): phase A, the corner rows at
+    its cells (derived, or raw under reference semantics), phase B, the
+    ``dl_shrink`` clamp of a grown step that overshot or re-entered matter,
+    the detached-event capture (not under reference semantics, where
+    arrivals park at_event) and the lane-slot census.  ``p`` is the
+    pre-step pool, ``bias_scale`` a 0-d tensor (``Engine._bias_scale``).
+    Returns the post-step (pool, counters)."""
+    ref = cfg.reference
+    A = hot_phase_a(
+        p.x, p.k, p.dkdlam, p.e_0_s, p.dl_shrink, p.pend_dl, p.pend_push, p.at_event,
+        p.alive, p.w, p.record_pending, u_roul, p.alpha_scatti, p.bi, mc, cfg.grow_cap,
+        reference=ref)
+    table = tables.corner_rows if ref else tables.hot_tab
+    B = hot_phase_b(
+        table[A["z"].long()], A["x"], A["k"], A["dkdlam"], A["e_0_s"], A["w"],
+        p.alpha_scatti, p.alpha_absi, p.bi, p.tau_abs, p.tau_scatt, p.interacting,
+        A["pend_dl"], A["pend_push"], p.sec_w, p.n_step, A["alive"], p.x, p.k, p.dkdlam,
+        p.e_0_s, A["seg"], A["commit"], A["moving"], A["was_pend"], A["stopped"], u_x1,
+        None if ref else A["grown"], bias_scale, mc, tables.hc_coeffs, tables.k2_coeffs,
+        cfg.stall_steps, reference=ref)
+    dl_shrink_n = A["dl_shrink"]
+    if not ref:
+        dl_shrink_n = torch.where(B["tau_over"] | B["entry_roll"],
+                                  torch.clamp(dl_shrink_n, max=1.0), dl_shrink_n)
+    q = p._replace(
+        x=B["x"], k=B["k"], dkdlam=B["dkdlam"], e_0_s=B["e_0_s"],
+        dl_shrink=dl_shrink_n, pend_dl=B["pend_dl"], pend_push=B["pend_push"],
+        at_event=A["at_event"], w=B["w"], alive=B["alive"],
+        record_pending=A["record_pending"], tau_abs=B["tau_abs"],
+        tau_scatt=B["tau_scatt"], alpha_scatti=B["alpha_scatti"],
+        alpha_absi=B["alpha_absi"], bi=B["bi"], interacting=B["interacting"],
+        sec_w=B["sec_w"], n_step=B["n_step"])
+    if not ref:
+        q = q._replace(**_capture_events(
+            p, A["arrived"], A["at_event"], B["x"], B["k"], B["w"], B["sec_w"],
+            B["alive"], B["alpha_scatti"], B["alpha_absi"], B["bi"], B["a_scf"],
+            B["a_abf"], B["bf"], B["nu"]))
+    counters = _util_counters(counters, q.occupied, A["moving"], A["commit"], q.at_event)
+    counters = counters._replace(n_hc_clamp=counters.n_hc_clamp + B["hc_clamp"].sum())
+    return q, counters
+
+
 # ---------------------------------------------------------------------------
 # compaction helpers
 # ---------------------------------------------------------------------------
@@ -517,10 +562,12 @@ class Engine:
         self.ev_k = min(n, cfg.ev_k) if cfg.ev_k else min(n, max(256, n // 8))
         self.rf_k = min(n, cfg.refill_k) if cfg.refill_k else self.ev_k
         self.light_k = min(n, cfg.light_k if cfg.light_k else min(self.ev_k, self.rf_k))
+        self.phases = {"full": 0, "light": 0}  # calls since fresh_state, on the host
 
     # -- state ------------------------------------------------------------
     def fresh_state(self) -> State:
         c, dt, dev = self.cfg, self.dt, self.device
+        self.phases = {"full": 0, "light": 0}
         return State(
             pool=empty_pool(c.n_pool, dt, dev),
             spec=torch.zeros((N_BINS + 1, N_SPEC_CHAN), dtype=dt, device=dev),
@@ -585,54 +632,20 @@ class Engine:
 
     # -- the hot iteration ----------------------------------------------------
     def hot_step(self, state: State, u_roul=None, u_x1=None) -> State:
-        """One hot iteration.  ``u_roul``/``u_x1``: the roulette and
-        optical-depth uniforms, drawn from the run's generator when None."""
+        """One hot iteration (``hot_kernels.hot_step``: one fused kernel on
+        the card, :func:`hot_step_plain` on the CPU).  ``u_roul``/``u_x1``:
+        the roulette and optical-depth uniforms, drawn from the run's
+        generator when None."""
         from grmonty_tpu_torch.transport import hot_kernels
 
-        cfg, mc, p = self.cfg, self.mc, state.pool
-        n = cfg.n_pool
+        n = self.cfg.n_pool
         if u_roul is None:
             u_roul = self._uniform(n)
         if u_x1 is None:
             u_x1 = self._uniform(n)
-        bias_s = self._bias_scale(state.counters)
-        ref = cfg.reference
-
-        A = hot_kernels.phase_a(
-            p.x, p.k, p.dkdlam, p.e_0_s, p.dl_shrink, p.pend_dl, p.pend_push,
-            p.at_event, p.alive, p.w, p.record_pending, u_roul, p.alpha_scatti, p.bi,
-            mc, cfg.grow_cap, reference=ref)
-        b_args = (A["x"], A["k"], A["dkdlam"], A["e_0_s"], A["w"],
-                  p.alpha_scatti, p.alpha_absi, p.bi, p.tau_abs, p.tau_scatt,
-                  p.interacting, A["pend_dl"], A["pend_push"], p.sec_w, p.n_step,
-                  A["alive"], p.x, p.k, p.dkdlam, p.e_0_s,
-                  A["seg"], A["commit"], A["moving"], A["was_pend"], A["stopped"],
-                  u_x1, None if ref else A["grown"], bias_s, mc, self.tables.hc_coeffs,
-                  self.tables.k2_coeffs, cfg.stall_steps)
-        if ref:
-            rows = hot_kernels.row_gather(self.tables.corner_rows, A["z"])
-            B = hot_kernels.phase_b_raw(rows, *b_args)
-            dl_shrink_n = A["dl_shrink"]
-        else:
-            B = hot_kernels.phase_b(self.tables.hot_tab, A["z"], *b_args)
-            dl_shrink_n = torch.where(B["tau_over"] | B["entry_roll"],
-                                      torch.clamp(A["dl_shrink"], max=1.0), A["dl_shrink"])
-        p = p._replace(
-            x=B["x"], k=B["k"], dkdlam=B["dkdlam"], e_0_s=B["e_0_s"],
-            dl_shrink=dl_shrink_n, pend_dl=B["pend_dl"], pend_push=B["pend_push"],
-            at_event=A["at_event"], w=B["w"], alive=B["alive"],
-            record_pending=A["record_pending"], tau_abs=B["tau_abs"],
-            tau_scatt=B["tau_scatt"], alpha_scatti=B["alpha_scatti"],
-            alpha_absi=B["alpha_absi"], bi=B["bi"], interacting=B["interacting"],
-            sec_w=B["sec_w"], n_step=B["n_step"])
-        if not ref:  # arrivals park at_event under reference semantics
-            p = p._replace(**_capture_events(
-                state.pool, A["arrived"], A["at_event"], B["x"], B["k"], B["w"],
-                B["sec_w"], B["alive"], B["alpha_scatti"], B["alpha_absi"], B["bi"],
-                B["a_scf"], B["a_abf"], B["bf"], B["nu"]))
-        counters = _util_counters(state.counters, p.occupied, A["moving"], A["commit"],
-                                  p.at_event)
-        counters = counters._replace(n_hc_clamp=counters.n_hc_clamp + B["hc_clamp"].sum())
+        p, counters = hot_kernels.hot_step(
+            state.pool, state.counters, u_roul, u_x1, self._bias_scale(state.counters),
+            self.mc, self.tables, self.cfg)
         return state._replace(pool=p, counters=counters, it=state.it + 1)
 
     # -- periodic phase -------------------------------------------------------
@@ -894,6 +907,7 @@ class Engine:
         """The full phase: scatter events, record, free, refill, init."""
         if n_valid is None:
             n_valid = backlog_rows.shape[0]
+        self.phases["full"] += 1
         p = self._poison_sweep(state.pool)
         p, sec, counters = self.process_scatters(p, state.sec, state.counters)
         p, spec, counters, sec, backlog_pos = self._record_free_refill(
@@ -913,6 +927,7 @@ class Engine:
         """Record + free + refill only (no scatter events, no RNG)."""
         if n_valid is None:
             n_valid = backlog_rows.shape[0]
+        self.phases["light"] += 1
         p = self._poison_sweep(state.pool)
         p, spec, counters, sec, backlog_pos = self._record_free_refill(
             p, state.spec, state.counters, state.sec, backlog_rows, state.backlog_pos,

@@ -1,36 +1,33 @@
-"""The hand-written CUDA kernels of the hot step, and their dispatch.
+"""The hand-written CUDA kernels of the transport engine, and their dispatch.
 
-``csrc/hot_step.cu`` holds the two phase kernels for Hopper (sm_90a), each
-in two compile-time variants:
-
-* kernel A replaces the TPU kernel ``grmonty_tpu/transport/hotstep_pallas.py:104``
-  (``kernel_a``, body ``engine.hot_phase_a``): the geodesic push, step
-  control, stop test and cell index.  ``hot_phase_a`` is the shipped
-  profile's (proportional step control, grown-step optical-depth cap);
-  ``hot_phase_a_ladder`` reference semantics (the halve/double ladder);
-* kernel B replaces ``hotstep_pallas.py:152`` (``kernel_b``, body
-  ``engine.hot_phase_b``): ``hot_phase_b`` blends the derived 44-wide
-  corner rows, which it gathers itself; ``hot_phase_b_raw`` blends the raw
-  32-wide rows that the row gather produced, through the metric pair.
+``csrc/hot_step.cu`` holds the hot step for Hopper (sm_90a) as one kernel,
+``hot_step_kernel``, in two compile-time variants: ``hot_step`` (the
+shipped profile: derived 44-wide corner rows, the error-proportional step
+control, the detached-event capture) and ``hot_step_ref`` (reference
+semantics: the ladder, raw 32-wide rows through the metric pair).  It
+replaces the TPU kernels ``grmonty_tpu/transport/hotstep_pallas.py:104``
+(``kernel_a``, body ``engine.hot_phase_a``) and ``hotstep_pallas.py:152``
+(``kernel_b``, body ``engine.hot_phase_b``) and the corner-row gather
+between them, and computes ``engine.hot_step_plain``: phase A, the row,
+phase B, the ``dl_shrink`` clamp, the capture and the lane-slot census.
 
 ``csrc/row_gather.cu`` replaces ``grmonty_tpu/ops/gather.py:63``
 (``_gather_kernel``): ``out[n, :] = table[idx[n], :]``, the raw corner-row
-gather of the reference hot step, the event phase and the fresh-lane init.
+gather of the event phase and of the reference fresh-lane init.
 
 ``csrc/gather_probe.cu`` replaces the eight Pallas kernels of the gather
 probes under ``tools/``: :func:`gather_rowsum` (``table[idx].sum(1)`` by
 four strategies) and :func:`row_gather_rowloop` (the row copy, one thread
 per row); the probes that drive them are ``grmonty_tpu_torch/tools/``.
 
-Each thread of a phase kernel runs one lane; the headers of the ``.cu``
-files say what bounds each kernel on the card.
+The headers of the ``.cu`` files say what bounds each kernel on the card.
 
-:func:`phase_a`, :func:`phase_b`, :func:`phase_b_raw`, :func:`row_gather`,
-:func:`gather_rowsum` and :func:`row_gather_rowloop` take their plain
-versions' arguments.  On CPU tensors they call the plain versions
-(``engine.hot_phase_a`` / ``hot_phase_b`` / indexing); on CUDA tensors they
-launch the kernel, or raise.  ``launches`` counts kernel launches only; a
-launch captured into a CUDA graph counts once, its replays not at all.
+:func:`hot_step`, :func:`row_gather`, :func:`gather_rowsum` and
+:func:`row_gather_rowloop` take their plain versions' arguments.  On CPU
+tensors they call the plain versions (``engine.hot_step_plain`` /
+indexing); on CUDA tensors they launch the kernel, or raise.  ``launches``
+counts kernel launches only; a launch captured into a CUDA graph counts
+once, its replays not at all.
 
 Build: ``nvcc`` compiles each ``csrc/*.cu`` into its own shared library
 with a plain C interface under ``build/grmonty_tpu_torch/`` (keyed by a
@@ -65,8 +62,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel launches on CUDA tensors, per kernel (the plain path counts nothing).
-launches = {"hot_phase_a": 0, "hot_phase_a_ladder": 0, "hot_phase_b": 0,
-            "hot_phase_b_raw": 0, "row_gather": 0, "gather_rowsum_coop": 0,
+launches = {"hot_step": 0, "hot_step_ref": 0, "row_gather": 0, "gather_rowsum_coop": 0,
             "gather_rowsum_persistent": 0, "gather_rowsum_rowloop": 0,
             "gather_rowsum_smem": 0, "row_gather_rowloop": 0}
 # The strategies of gather_rowsum, each its own entry point gather_rowsum_<s>.
@@ -78,44 +74,35 @@ def reset_launches():
         launches[name] = 0
 
 
-# Pointer and scalar orders of the C structs APtrs/AScal/BPtrs/BScal.
-_A_PTRS = ("x0 x1 x2 x3 k0 k1 k2 k3 d0 d1 d2 d3 e_0_s dl_shrink pend_dl "
-           "pend_push at_event alive w record_pending u_roul alpha_scatti bi "
-           "ox0 ox1 ox2 ox3 ok0 ok1 ok2 ok3 od0 od1 od2 od3 oe_0_s odl_shrink "
-           "opend_dl opend_push oat_event oalive ow orecord_pending oseg ocommit "
-           "omoving owas_pend oarrived ostopped oz ogrown").split()
+# Scalar orders of the C structs AScal and BScal.
 _A_SCAL = ("a h_slope r_0 x_start1 x_start2 x_stop2 dx1 dx2 n1 n2 x1_min d_tau_k "
            "fp_iters weight_min shrink_floor grow_cap grow_tau_cap step_ctrl "
            "inv_dx1 inv_dx2 inv_e_tol inv_e_drift_tol").split()
-_B_PTRS = ("rows z hc bias_scale x0 x1 x2 x3 k0 k1 k2 k3 d0 d1 d2 d3 e_0_s w "
-           "alpha_scatti alpha_absi bi tau_abs tau_scatt interacting pend_dl "
-           "pend_push sec_w n_step alive px0 px1 px2 px3 pk0 pk1 pk2 pk3 pd0 pd1 "
-           "pd2 pd3 pe0s seg commit moving was_pend stopped u_x1 grown "
-           "otau_over oentry_roll ox0 ox1 ox2 ox3 ok0 ok1 ok2 ok3 od0 od1 od2 od3 "
-           "oe_0_s opend_dl osec_w opend_push ow otau_abs otau_scatt "
-           "oalpha_scatti oalpha_absi obi ointeracting oalive on_step oa_scf "
-           "oa_abf obf onu on_e ohc_clamp").split()
 _B_SCAL_HEAD = ("x_start1 x_start2 x_stop1 x_stop2 dx1 dx2 n1 n2 b_unit d_tau_k "
                 "weight_min stall_steps tau_cap hc_xlo hc_xhi hc_ylo "
                 "hc_yhi k2_lo k2_hi inv_dx1 inv_dx2 inv_b_unit inv_hpl inv_mecc "
                 "inv_hc_xdiff inv_hc_ydiff inv_k2_diff inv_cl inv_24 inv_2pimecl "
                 "inv_weight_min inv_tp_over_te").split()
 _K2_N = 25
-# Kernel B on raw rows: no cell index, entry roll, tau_over or detached
-# outputs; its scalars are these, then kernel B's.
-_B_RAW_PTRS = ("rows hc bias_scale x0 x1 x2 x3 k0 k1 k2 k3 d0 d1 d2 d3 e_0_s w "
-               "alpha_scatti alpha_absi bi tau_abs tau_scatt interacting pend_dl "
-               "pend_push sec_w n_step alive px0 px1 px2 px3 pk0 pk1 pk2 pk3 pd0 pd1 "
-               "pd2 pd3 pe0s seg commit moving was_pend stopped u_x1 "
-               "ox0 ox1 ox2 ox3 ok0 ok1 ok2 ok3 od0 od1 od2 od3 "
-               "oe_0_s opend_dl osec_w opend_push ow otau_abs otau_scatt "
-               "oalpha_scatti oalpha_absi obi ointeracting oalive on_step ohc_clamp").split()
-_B_RAW_SCAL = "a h_slope r_0 n_e_unit theta_e_unit".split()
+# The fused hot step (the C structs HotPtrs and HotScal): the pre-step pool,
+# the uniforms, the bias scale, the corner table, the hotcross surface, the
+# census counters, the post-step pool; then, for the shipped profile only,
+# the detached-event registers in and out and ``occupied`` out.  Its
+# scalars are phase A's, phase B's, then the primitives' units of the raw
+# rows.
+_POOL_IN = ("x0 x1 x2 x3 k0 k1 k2 k3 d0 d1 d2 d3 e_0_s dl_shrink pend_dl pend_push "
+            "at_event alive w record_pending alpha_scatti alpha_absi bi tau_abs "
+            "tau_scatt interacting sec_w n_step occupied").split()
+CENSUS = ("ls_iters ls_slots ls_occupied ls_moving ls_committed ls_parked "
+           "n_hc_clamp").split()
+_EV = "ev_x0 ev_x1 ev_x2 ev_x3 ev_k0 ev_k1 ev_k2 ev_k3 ev_w ev_pending".split()
+_HOT_REF_PTRS = (_POOL_IN + ["u_roul", "u_x1", "bias_scale", "table", "hc"] + CENSUS
+                 + ["o" + f for f in _POOL_IN[:-1]])
+_HOT_PTRS = _HOT_REF_PTRS + _EV + ["o" + f for f in _EV] + ["ooccupied"]
+_HOT_NSCAL = len(_A_SCAL) + len(_B_SCAL_HEAD) + _K2_N + 2
 # (pointers, scalars) each entry point takes
-_ABI = {"hot_phase_a": (len(_A_PTRS), len(_A_SCAL)),
-        "hot_phase_a_ladder": (len(_A_PTRS), len(_A_SCAL)),
-        "hot_phase_b": (len(_B_PTRS), len(_B_SCAL_HEAD) + _K2_N),
-        "hot_phase_b_raw": (len(_B_RAW_PTRS), len(_B_RAW_SCAL) + len(_B_SCAL_HEAD) + _K2_N),
+_ABI = {"hot_step": (len(_HOT_PTRS), _HOT_NSCAL),
+        "hot_step_ref": (len(_HOT_REF_PTRS), _HOT_NSCAL),
         "row_gather": (3, 1),
         **{f"gather_rowsum_{s}": (3, 2 if s == "smem" else 1) for s in ROWSUM_STRATEGIES},
         "row_gather_rowloop": (3, 1)}
@@ -183,21 +170,20 @@ def build():
     return _Build.paths, _Build.seconds, _Build.log
 
 
-def _check(names, tensors, n, device):
-    for name, t in zip(names, tensors):
-        if t.device != device:
-            raise ValueError(f"{name}: on {t.device}, expected {device}")
-        if t.dtype not in (torch.float32, torch.bool, torch.int32):
-            raise TypeError(f"{name}: dtype {t.dtype} (the kernels take float32, bool, int32)")
-        if t.dim() != 1 or t.shape[0] != n or not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous ({n},) tensor, got "
-                             f"{tuple(t.shape)} stride {t.stride()}")
+def _check_lanes(what, tensors, dtypes, n, dev):
+    """Each tensor a contiguous (n,) tensor of its dtype on dev."""
+    for t, dt in zip(tensors, dtypes, strict=True):
+        if (t.device != dev or t.dtype != dt or t.dim() != 1 or t.shape[0] != n
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: expected contiguous ({n},) {dt} tensors on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} stride {t.stride()} on {t.device}")
 
 
 def _launch(name, ptr_tensors, scal, n, device):
     build()
     ptrs = (ctypes.c_void_p * len(ptr_tensors))(*[t.data_ptr() for t in ptr_tensors])
-    sc = (ctypes.c_double * len(scal))(*[float(v) for v in scal])
+    sc = scal if isinstance(scal, ctypes.Array) else (ctypes.c_double * len(scal))(
+        *[float(v) for v in scal])
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = _Build.fns[name](ptrs, sc, n, ctypes.c_void_p(stream))
     if rc != 0:
@@ -222,108 +208,104 @@ def _recip(c, device):
 
 def _cuda_device(t):
     if t.device.type != "cuda":
-        raise ValueError(f"hot-step kernels need CPU or CUDA tensors, got {t.device}")
+        raise ValueError(f"the kernels take CPU or CUDA tensors, got {t.device}")
     return t.device
 
 
-def phase_a(x, k, dkdlam, e_0_s, dl_shrink, pend_dl, pend_push, at_event,
-            alive, w, record_pending, u_roul, alpha_scatti, bi, mc, grow_cap,
-            reference=False):
-    """Phase A of the hot step: the plain version on CPU tensors, kernel A
-    (its ladder variant under ``reference``) on CUDA tensors.  Arguments
-    and result as ``engine.hot_phase_a``."""
-    if w.device.type == "cpu":
-        return engine.hot_phase_a(
-            x, k, dkdlam, e_0_s, dl_shrink, pend_dl, pend_push, at_event, alive, w,
-            record_pending, u_roul, alpha_scatti, bi, mc, grow_cap, reference=reference)
-    dev = _cuda_device(w)
-    n = w.shape[0]
-    ins = [*x, *k, *dkdlam, e_0_s, dl_shrink, pend_dl, pend_push, at_event, alive, w,
-           record_pending, u_roul, alpha_scatti, bi]
-    _check(_A_PTRS[:len(ins)], ins, n, dev)
+_SCAL_HELD = {}  # (ids of mc and tables, cfg, device) -> (mc, tables, ctypes scalars)
 
-    def f():
-        return torch.empty(n, dtype=torch.float32, device=dev)
 
-    def b():
-        return torch.empty(n, dtype=torch.bool, device=dev)
+def hot_step(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg):
+    """One hot iteration: on CPU tensors the plain version
+    (``engine.hot_step_plain``), on CUDA tensors one launch of the fused
+    kernel of ``csrc/hot_step.cu`` (``hot_step``, or ``hot_step_ref`` under
+    ``cfg.reference``), or raise.  ``pool``: the pre-step ``engine.Pool``
+    (float32); ``u_roul``/``u_x1``: (N,) uniforms; ``bias_scale``: a 0-d
+    float32 tensor; ``tables``: the ``engine.EngineTables``.  Returns the
+    post-step (pool, counters).  On the card the census counters are added
+    to in place (integer atomics) and returned; the pool's fields are new
+    tensors, views of three allocations.  No host sync."""
+    if pool.w.device.type == "cpu":
+        return engine.hot_step_plain(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg)
+    dev = _cuda_device(pool.w)
+    n = pool.w.shape[0]
+    if n == 0:
+        raise ValueError("hot_step: empty pool")
+    ref = cfg.reference
+    f32, b8, i32 = torch.float32, torch.bool, torch.int32
+    nf, nb = (22, 5) if ref else (31, 7)
+    fo = torch.empty((nf, n), dtype=f32, device=dev).unbind(0)
+    bo = torch.empty((nb, n), dtype=b8, device=dev).unbind(0)
+    new = dict(x=fo[0:4], k=fo[4:8], dkdlam=fo[8:12], e_0_s=fo[12], dl_shrink=fo[13],
+               pend_dl=fo[14], pend_push=bo[0], at_event=bo[1], alive=bo[2], w=fo[15],
+               record_pending=bo[3], alpha_scatti=fo[16], alpha_absi=fo[17], bi=fo[18],
+               tau_abs=fo[19], tau_scatt=fo[20], interacting=bo[4], sec_w=fo[21],
+               n_step=torch.empty(n, dtype=i32, device=dev))
+    if not ref:
+        new.update(ev_x=fo[22:26], ev_k=fo[26:30], ev_w=fo[30], ev_pending=bo[5],
+                   occupied=bo[6])
+    q = pool._replace(**new)
+    ins = _pool_cols(pool) + [pool.occupied, u_roul, u_x1] + ([] if ref else _ev_cols(pool))
+    want = ([t.dtype for t in _pool_cols(q)] + [b8, f32, f32]
+            + ([] if ref else [t.dtype for t in _ev_cols(q)]))
+    _check_lanes("hot_step", ins, want, n, dev)
+    table = tables.corner_rows if ref else tables.hot_tab
+    _check_rows(table, 32 if ref else 44, dev, "corner table")
+    if table.shape[0] < mc.n1 * mc.n2:
+        raise ValueError(f"corner table: {table.shape[0]} rows for {mc.n1}x{mc.n2} cells")
+    hc = tables.hc_coeffs
+    if (hc.dtype != f32 or tuple(hc.shape) != (41, 31) or not hc.is_contiguous()
+            or hc.device != dev):
+        raise ValueError(f"hotcross coefficients: expected float32 (41, 31) on {dev}")
+    if bias_scale.dtype != f32 or bias_scale.numel() != 1 or bias_scale.device != dev:
+        raise ValueError(f"bias_scale: expected a float32 scalar tensor on {dev}")
+    census = [getattr(counters, name) for name in CENSUS]
+    if any(c.dtype != torch.int64 or c.dim() != 0 or c.device != dev for c in census):
+        raise ValueError(f"hot_step: census counters must be int64 scalars on {dev}")
+    name = "hot_step_ref" if ref else "hot_step"
+    ptrs = (_pool_cols(pool) + [pool.occupied, u_roul, u_x1, bias_scale, table, hc] + census
+            + _pool_cols(q))
+    if not ref:
+        ptrs += _ev_cols(pool) + _ev_cols(q) + [q.occupied]
+    _launch(name, ptrs, _hot_scalars(mc, tables, cfg, dev), n, dev)
+    return q, counters
 
-    xo, ko, do = (f(), f(), f(), f()), (f(), f(), f(), f()), (f(), f(), f(), f())
-    out = dict(e_0_s=f(), dl_shrink=f(), pend_dl=f(), pend_push=b(), at_event=b(),
-               alive=b(), w=f(), record_pending=b(), seg=f(), commit=b(), moving=b(),
-               was_pend=b(), arrived=b(), stopped=b(),
-               z=torch.empty(n, dtype=torch.int32, device=dev), grown=b())
-    outs = [*xo, *ko, *do] + list(out.values())
+
+def _pool_cols(p):
+    """The pool's columns in the order of ``_POOL_IN``, but ``occupied``."""
+    return [*p.x, *p.k, *p.dkdlam, p.e_0_s, p.dl_shrink, p.pend_dl, p.pend_push, p.at_event,
+            p.alive, p.w, p.record_pending, p.alpha_scatti, p.alpha_absi, p.bi, p.tau_abs,
+            p.tau_scatt, p.interacting, p.sec_w, p.n_step]
+
+
+def _ev_cols(p):
+    return [*p.ev_x, *p.ev_k, p.ev_w, p.ev_pending]
+
+
+def _hot_scalars(mc, tables, cfg, dev):
+    """The fused kernel's scalars as a ctypes array, built once per (mc,
+    tables, cfg, device)."""
+    key = (id(mc), id(tables), cfg, str(dev))
+    held = _SCAL_HELD.get(key)
+    if held is None or held[0] is not mc or held[1] is not tables:
+        scal = (_a_scalars(mc, cfg.grow_cap, dev)
+                + _b_scalars(mc, cfg.stall_steps, tables.k2_coeffs, dev)
+                + [mc.n_e_unit, mc.theta_e_unit])
+        if len(_SCAL_HELD) >= 8:
+            _SCAL_HELD.clear()
+        held = _SCAL_HELD[key] = (mc, tables, (ctypes.c_double * len(scal))(
+            *[float(v) for v in scal]))
+    return held[2]
+
+
+def _a_scalars(mc, grow_cap, dev):
+    """Phase A's scalars (``_A_SCAL`` order)."""
     scal = [mc.a, mc.h_slope, mc.r_0, mc.x_start[1], mc.x_start[2], mc.x_stop[2],
             mc.dx[1], mc.dx[2], mc.n1, mc.n2, mc.x1_min, mc.d_tau_k, engine.FP_ITERS,
             engine.WEIGHT_MIN, engine.SHRINK_FLOOR, grow_cap, engine.GROW_TAU_CAP,
             engine.STEP_CTRL]
-    scal += [_recip(c, dev) for c in (mc.dx[1], mc.dx[2], consts.E_TOL, consts.E_DRIFT_TOL)]
-    _launch("hot_phase_a_ladder" if reference else "hot_phase_a", ins + outs, scal, n, dev)
-    out.update(x=xo, k=ko, dkdlam=do)
-    return out
-
-
-def phase_b(tab, z, x, k, dkdlam, e_0_s, w, alpha_scatti, alpha_absi, bi,
-            tau_abs, tau_scatt, interacting, pend_dl, pend_push, sec_w,
-            n_step, alive, x_pre, k_pre, dk_pre, e0s_pre,
-            seg, commit, moving, was_pend, stopped, u_x1, grown, bias_scale,
-            mc, hc_coeffs, k2_coeffs, stall_steps):
-    """Phase B of the hot step on the derived corner table ``tab`` (Z, 44)
-    at cells ``z``: the plain version (``engine.hot_phase_b`` on
-    ``tab[z]``) on CPU tensors, kernel B (gathering the rows itself) on
-    CUDA tensors.  Result as ``engine.hot_phase_b``."""
-    if w.device.type == "cpu":
-        return engine.hot_phase_b(
-            tab[z.to(torch.int64)], x, k, dkdlam, e_0_s, w, alpha_scatti, alpha_absi,
-            bi, tau_abs, tau_scatt, interacting, pend_dl, pend_push, sec_w, n_step,
-            alive, x_pre, k_pre, dk_pre, e0s_pre, seg, commit, moving, was_pend,
-            stopped, u_x1, grown, bias_scale, mc, hc_coeffs, k2_coeffs, stall_steps)
-    dev = _cuda_device(w)
-    n = w.shape[0]
-    _check_rows(tab, None, 44, dev, "derived table")
-    lanes = [z, *x, *k, *dkdlam, e_0_s, w, alpha_scatti, alpha_absi, bi, tau_abs,
-             tau_scatt, interacting, pend_dl, pend_push, sec_w, n_step, alive,
-             *x_pre, *k_pre, *dk_pre, e0s_pre, seg, commit, moving, was_pend, stopped,
-             u_x1, grown]
-    _check(["z"] + _B_PTRS[4:4 + len(lanes) - 1], lanes, n, dev)
-    head = dict(tau_over=_empty(n, torch.bool, dev), entry_roll=_empty(n, torch.bool, dev))
-    out = _b_outputs(n, dev, detached=True)
-    ptrs = ([tab, z] + _b_tables(hc_coeffs, bias_scale, dev) + lanes[1:]
-            + list(head.values()) + _flat_outputs(out))
-    _launch("hot_phase_b", ptrs, _b_scalars(mc, stall_steps, k2_coeffs, dev), n, dev)
-    return dict(**head, **out)
-
-
-def phase_b_raw(rows, x, k, dkdlam, e_0_s, w, alpha_scatti, alpha_absi, bi,
-                tau_abs, tau_scatt, interacting, pend_dl, pend_push, sec_w,
-                n_step, alive, x_pre, k_pre, dk_pre, e0s_pre,
-                seg, commit, moving, was_pend, stopped, u_x1, grown, bias_scale,
-                mc, hc_coeffs, k2_coeffs, stall_steps):
-    """Phase B of the hot step under reference semantics, on the raw corner
-    rows ``rows`` (N, 32) gathered at phase A's cells: the plain version
-    (``engine.hot_phase_b(..., reference=True)``) on CPU tensors, the raw
-    variant of kernel B on CUDA tensors.  ``grown`` is not read."""
-    if w.device.type == "cpu":
-        return engine.hot_phase_b(
-            rows, x, k, dkdlam, e_0_s, w, alpha_scatti, alpha_absi, bi, tau_abs,
-            tau_scatt, interacting, pend_dl, pend_push, sec_w, n_step, alive, x_pre,
-            k_pre, dk_pre, e0s_pre, seg, commit, moving, was_pend, stopped, u_x1,
-            grown, bias_scale, mc, hc_coeffs, k2_coeffs, stall_steps, reference=True)
-    dev = _cuda_device(w)
-    n = w.shape[0]
-    _check_rows(rows, n, 32, dev, "raw rows")
-    lanes = [*x, *k, *dkdlam, e_0_s, w, alpha_scatti, alpha_absi, bi, tau_abs,
-             tau_scatt, interacting, pend_dl, pend_push, sec_w, n_step, alive,
-             *x_pre, *k_pre, *dk_pre, e0s_pre, seg, commit, moving, was_pend, stopped,
-             u_x1]
-    _check(_B_RAW_PTRS[3:3 + len(lanes)], lanes, n, dev)
-    out = _b_outputs(n, dev, detached=False)
-    ptrs = [rows] + _b_tables(hc_coeffs, bias_scale, dev) + lanes + _flat_outputs(out)
-    scal = [mc.a, mc.h_slope, mc.r_0, mc.n_e_unit, mc.theta_e_unit]
-    scal += _b_scalars(mc, stall_steps, k2_coeffs, dev)
-    _launch("hot_phase_b_raw", ptrs, scal, n, dev)
-    return out
+    return scal + [_recip(c, dev) for c in (mc.dx[1], mc.dx[2], consts.E_TOL,
+                                            consts.E_DRIFT_TOL)]
 
 
 def row_gather(table, idx):
@@ -385,62 +367,22 @@ def _gather_args(table, idx, what):
         raise ValueError(f"{what}: expected a (Z, W) table with W % 4 == 0, got "
                          f"{tuple(table.shape)}")
     n = idx.shape[0]
-    _check_rows(table, None, table.shape[1], dev, f"{what} table")
-    _check(["idx"], [idx], n, dev)
-    if idx.dtype != torch.int32:
-        raise TypeError(f"{what}: int32 indices, got {idx.dtype}")
+    _check_rows(table, table.shape[1], dev, f"{what} table")
+    _check_lanes(f"{what} indices", [idx], [torch.int32], n, dev)
     return dev, n, table.shape[1]
 
 
-def _empty(n, dtype, dev):
-    return torch.empty(n, dtype=dtype, device=dev)
-
-
-def _check_rows(t, n, width, dev, what):
-    """A contiguous, 16-byte aligned float32 (n or any, width) tensor on dev."""
+def _check_rows(t, width, dev, what):
+    """A contiguous, 16-byte aligned float32 (Z, width) tensor on dev."""
     if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != width
-            or (n is not None and t.shape[0] != n) or not t.is_contiguous()
-            or t.device != dev or t.data_ptr() % 16):
+            or not t.is_contiguous() or t.device != dev or t.data_ptr() % 16):
         raise ValueError(f"{what}: expected a contiguous, 16-byte aligned float32 "
-                         f"({'Z' if n is None else n}, {width}) tensor on {dev}, got "
+                         f"(Z, {width}) tensor on {dev}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _b_tables(hc_coeffs, bias_scale, dev):
-    if (hc_coeffs.dtype != torch.float32 or tuple(hc_coeffs.shape) != (41, 31)
-            or not hc_coeffs.is_contiguous() or hc_coeffs.device != dev):
-        raise ValueError(f"hotcross coefficients: expected float32 (41, 31) on {dev}")
-    if (bias_scale.dtype != torch.float32 or bias_scale.numel() != 1
-            or bias_scale.device != dev):
-        raise ValueError(f"bias_scale: expected a float32 scalar tensor on {dev}")
-    return [hc_coeffs, bias_scale]
-
-
-def _b_outputs(n, dev, detached):
-    """Kernel B's outputs in pointer order (after tau_over/entry_roll)."""
-    f32, b8 = torch.float32, torch.bool
-    out = dict(x=tuple(_empty(n, f32, dev) for _ in range(4)),
-               k=tuple(_empty(n, f32, dev) for _ in range(4)),
-               dkdlam=tuple(_empty(n, f32, dev) for _ in range(4)))
-    for name in ("e_0_s", "pend_dl", "sec_w"):
-        out[name] = _empty(n, f32, dev)
-    out["pend_push"] = _empty(n, b8, dev)
-    for name in ("w", "tau_abs", "tau_scatt", "alpha_scatti", "alpha_absi", "bi"):
-        out[name] = _empty(n, f32, dev)
-    out.update(interacting=_empty(n, b8, dev), alive=_empty(n, b8, dev),
-               n_step=_empty(n, torch.int32, dev))
-    if detached:
-        out.update({name: _empty(n, f32, dev) for name in ("a_scf", "a_abf", "bf", "nu", "n_e")})
-    out["hc_clamp"] = _empty(n, b8, dev)
-    return out
-
-
-def _flat_outputs(out):
-    return [t for v in out.values() for t in (v if isinstance(v, tuple) else (v,))]
-
-
 def _b_scalars(mc, stall_steps, k2_coeffs, dev):
-    """Kernel B's scalars (``_B_SCAL_HEAD`` order, then the K2 series)."""
+    """Phase B's scalars (``_B_SCAL_HEAD`` order, then the K2 series)."""
     if len(k2_coeffs) != _K2_N:
         raise ValueError(f"k2 coefficients: expected {_K2_N}, got {len(k2_coeffs)}")
     scal = [mc.x_start[1], mc.x_start[2], mc.x_stop[1], mc.x_stop[2], mc.dx[1],
@@ -459,7 +401,7 @@ def _b_scalars(mc, stall_steps, k2_coeffs, dev):
 # checks: synthetic lane states and the comparison contract
 # ---------------------------------------------------------------------------
 
-def synthetic_lanes(mc, n, seed, stall_steps, reference=False):
+def synthetic_lanes(mc, n, seed, stall_steps, reference=False, events=False):
     """Random per-lane hot-step inputs, float64 numpy, from ``seed``.
 
     Positions span the grid, the vacuum beyond it, the horizon and the
@@ -474,8 +416,13 @@ def synthetic_lanes(mc, n, seed, stall_steps, reference=False):
     the raw rows' metric pair is extreme), lanes flying backwards in time
     (negative fluid-frame frequency), and lanes whose conserved energy is
     off by 1e-3, so that their push fails unless at the shrink floor, some
-    of them just above it.  Returns a dict of (n,) arrays (4-vectors as
-    4-tuples) and the scalar ``bias_scale``."""
+    of them just above it.  ``events`` adds what the whole step reads
+    beyond the two phases, from a third stream: ``occupied`` (every alive
+    lane and half of the others), the detached-event registers ``ev_x``,
+    ``ev_k``, ``ev_w`` and ``ev_pending``, and (for the shipped profile,
+    whose step captures events) lanes flying backwards in time, so that
+    some arrivals are doomed parents.  Returns a dict of (n,)
+    arrays (4-vectors as 4-tuples) and the scalar ``bias_scale``."""
     weight_min = engine.WEIGHT_MIN
     rng = np.random.default_rng(seed)
     u = rng.random
@@ -495,7 +442,9 @@ def synthetic_lanes(mc, n, seed, stall_steps, reference=False):
     x2 = np.where(extra[0] < 0.02, mc.x_start[2] + edge,
                   np.where(extra[0] < 0.04, mc.x_stop[2] - edge, x2))
     x = (x[0], x1, x2, x[3])
-    k = (np.where((extra[0] >= 0.04) & (extra[0] < 0.06), -k[0], k[0]),) + k[1:]
+    ev = np.random.default_rng([seed, 2]).random((5, n)) if events else np.ones((5, n))
+    back = (ev[0] < 0.05) & (not reference)  # only the shipped profile captures events
+    k = (np.where(((extra[0] >= 0.04) & (extra[0] < 0.06)) | back, -k[0], k[0]),) + k[1:]
     drift = (extra[0] >= 0.06) & (extra[0] < 0.09)
     t = lambda a: torch.as_tensor(a, dtype=torch.float64)  # noqa: E731
     conn = geometry.connection_c(t(x1), t(x2), mc.a, mc.h_slope)
@@ -518,7 +467,7 @@ def synthetic_lanes(mc, n, seed, stall_steps, reference=False):
     u_roul = np.where(u(n) < 0.02, 0.5e-4 * u(n), u(n))
     u_x1 = np.where(u(n) < 0.1, 1.0 - 1e-6 * u(n), u(n))
     n_step = np.where(u(n) < 0.05, stall_steps, rng.integers(0, stall_steps, n))
-    return dict(
+    out = dict(
         x=x, k=k, dkdlam=dk, e_0_s=e_0_s, dl_shrink=dl_shrink,
         pend_dl=pend_dl, pend_push=pend_push, at_event=u(n) < 0.1,
         alive=u(n) < 0.93, w=weight_min * 10.0 ** rng.uniform(-1.0, 6.0, n),
@@ -529,6 +478,50 @@ def synthetic_lanes(mc, n, seed, stall_steps, reference=False):
         n_step=n_step.astype(np.int32), u_x1=u_x1,
         bias_scale=100.0 / (mc.bias_norm * mc.max_tau_scatt0 * 2.0),
     )
+    if events:
+        out.update(occupied=out["alive"] | (ev[1] < 0.5), ev_pending=ev[2] < 0.4,
+                   ev_x=tuple(np.where(ev[3] < 0.5, x[m], 0.5 * x[m]) for m in range(4)),
+                   ev_k=tuple(np.where(ev[4] < 0.5, k[m], -k[m]) for m in range(4)),
+                   ev_w=out["sec_w"] * (0.5 + ev[4]))
+    return out
+
+
+# The pool fields a hot step writes; the shipped profile's capture also the
+# detached-event registers and occupied.
+STEP_FIELDS = tuple(("x k dkdlam e_0_s dl_shrink pend_dl pend_push at_event w alive "
+                     "record_pending tau_abs tau_scatt alpha_scatti alpha_absi bi "
+                     "interacting sec_w n_step").split())
+EVENT_FIELDS = ("ev_x", "ev_k", "ev_w", "ev_pending", "occupied")
+
+
+def synthetic_step(lanes, dtype, device):
+    """(pool, counters, u_roul, u_x1, bias_scale) of one hot step, as torch
+    on ``device``, from ``synthetic_lanes(..., events=True)``: the pool's
+    fields that the lanes do not give are zero, and the census counters
+    start at small nonzero values, so that a step adds to them."""
+    def t(v):
+        if isinstance(v, tuple):
+            return tuple(t(c) for c in v)
+        a = torch.as_tensor(np.asarray(v), device=device)
+        return a if a.dtype in (torch.bool, torch.int32) else a.to(dtype)
+
+    s = {k: t(v) for k, v in lanes.items() if k != "bias_scale"}
+    n = s["w"].shape[0]
+    pool = engine.empty_pool(n, dtype, device)._replace(
+        **{k: v for k, v in s.items() if k in engine.Pool._fields})
+    start = dict(ls_iters=5, ls_slots=5 * n, ls_occupied=3, ls_moving=2, ls_committed=1,
+                 ls_parked=0, n_hc_clamp=7)
+    counters = engine.init_counters(1.0, dtype, device)._replace(**{
+        name: torch.tensor(v, dtype=torch.int64, device=device) for name, v in start.items()})
+    bias = torch.tensor(lanes["bias_scale"], dtype=dtype, device=device)
+    return pool, counters, s["u_roul"], s["u_x1"], bias
+
+
+def step_outputs(pool, counters, reference):
+    """({field: tensor} of what a hot step writes, {census counter: int})."""
+    fields = STEP_FIELDS + (() if reference else EVENT_FIELDS)
+    return ({f: getattr(pool, f) for f in fields},
+            {c: int(getattr(counters, c)) for c in CENSUS})
 
 
 def _flat(out):
@@ -543,27 +536,43 @@ def _flat(out):
 
 
 # What each kernel is held to against its plain version on the same inputs,
-# on every lane.  Kernel A mirrors its plain version operation by operation
-# (-fmad=false, the reciprocals of _recip), so both variants must equal it
-# exactly; so must the gather, a copy.  Kernel B's hotcross Chebyshev sum
-# cannot round exactly as the plain version's float32 matrix product and
-# sum, and a weight decays by exp(-dtau), which multiplies a relative
-# error in dtau by dtau; so both variants are held to the Pallas-vs-XLA
-# parity contract of tests/test_pallas_hot.py.  The gather-probe row sums
+# on every lane.  The hot step's phase A mirrors its plain version
+# operation by operation (-fmad=false, the reciprocals of _recip), and the
+# gather is a copy.  But the hot step's hotcross Chebyshev sum cannot round
+# exactly as the plain version's float32 matrix product and sum, so both
+# variants of the hot step are held to the Pallas-vs-XLA parity contract of
+# tests/test_pallas_hot.py, and their census counters (integer counts of
+# masks) to equality.  A weight decays by exp(-d_tau), which turns an error
+# of rtol * d_tau in d_tau into a relative error of rtol * d_tau in w: w is
+# held to rtol * (1 + d_tau), the slack of weight_slack.  The gather-probe row sums
 # add a row's W terms in another order than the plain version, and rows of
 # normal numbers can sum to nearly zero, so no relative tolerance fits
 # them: each index may differ by rowsum_slack, W * 2^-23 * sum_j |row_j|
 # (twice the worst-case error of either order), passed as compare's slack.
 KERNEL_TOLERANCE = {
-    "hot_phase_a": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
-    "hot_phase_a_ladder": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
-    "hot_phase_b": dict(rtol=1e-4, atol=1e-6, mask_frac=1e-3),
-    "hot_phase_b_raw": dict(rtol=1e-4, atol=1e-6, mask_frac=1e-3),
+    "hot_step": dict(rtol=1e-4, atol=1e-6, mask_frac=1e-3),
+    "hot_step_ref": dict(rtol=1e-4, atol=1e-6, mask_frac=1e-3),
     "row_gather": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
     **{f"gather_rowsum_{s}": dict(rtol=0.0, atol=0.0, mask_frac=0.0)
        for s in ROWSUM_STRATEGIES},
     "row_gather_rowloop": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
 }
+
+
+def step_d_tau(pool, ref):
+    """The optical depth a hot step added per lane (float64, at least 0):
+    the step ``ref`` (fields as ``step_outputs`` gives them) against the
+    pre-step ``pool``."""
+    d_tau = ((ref["tau_abs"].double() - pool.tau_abs.double())
+             + (ref["tau_scatt"].double() - pool.tau_scatt.double()))
+    return torch.clamp(d_tau, min=0.0)
+
+
+def weight_slack(pool, ref, rtol):
+    """The weight's slack in a hot step's comparison, per lane (float64):
+    ``rtol * d_tau * |w|`` with ``d_tau`` from :func:`step_d_tau` of the
+    plain step ``ref``.  For ``compare``'s ``slack``."""
+    return {"w": rtol * step_d_tau(pool, ref) * ref["w"].double().abs()}
 
 
 def rowsum_slack(table, idx):
@@ -576,8 +585,9 @@ def compare(ref, got, rtol, atol, mask_frac, slack=None):
     """Hold a phase's outputs ``got`` against ``ref`` (dicts as the phases
     return them) on every lane: each mask and integer field differs on at
     most ``mask_frac`` of the lanes, and each float field agrees to
-    ``rtol``/``atol``, plus ``slack`` (a tensor of the lanes) where given
-    (NaN only where ``ref`` is NaN).  Returns
+    ``rtol``/``atol``, plus ``slack`` where given: a tensor of the lanes,
+    or a dict of such tensors by field name (NaN only where ``ref`` is
+    NaN).  Returns
     (max_abs_err, max_rel_err, worst mask mismatch fraction, failures);
     the relative error is taken against max(|ref|, atol/rtol), or |ref|
     when rtol is 0."""
@@ -601,11 +611,14 @@ def compare(ref, got, rtol, atol, mask_frac, slack=None):
         if diff.numel():
             max_err = max(max_err, float(diff.max()))
             max_rel = max(max_rel, float(torch.nan_to_num(rel, nan=math.inf).max()))
+        extra = slack.get(name) if isinstance(slack, dict) else slack
         allowed = atol + rtol * torch.abs(a64)
-        if slack is not None:
-            allowed = allowed + slack.to(a64.device)
+        if extra is not None:
+            allowed = allowed + extra.to(a64.device)
         bad = ~(diff <= allowed)
         if bool(bad.any()):
+            i = int(torch.argmax(torch.nan_to_num(diff - allowed, nan=math.inf)))
             fails.append(f"{name}: {int(bad.sum())} lanes beyond rtol {rtol} atol {atol}"
-                         + ("" if slack is None else " plus the slack"))
+                         + ("" if extra is None else " plus the slack")
+                         + f"; worst lane {i}: {float(b64[i])} against {float(a64[i])}")
     return max_err, max_rel, worst, fails

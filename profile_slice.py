@@ -25,7 +25,8 @@ traced run's phase clocks and device window are not the run's.
    (full pool), and in the final drain 64 iterations after it starts.  The busy time is the union of the device activity intervals
    (kernels, copies, sets) in the window; the window is timed by CUDA
    events with the profiler on.  The share holds for those iterations
-   only, not for the run.
+   only, not for the run.  One more window holds a single hot step of the
+   first wave (``one_hot_step``): the names of its device activities.
 
 Prints the card's name and power limit and one JSON object; with
 ``--trace`` the profiler's table of the device's kernels goes to
@@ -45,10 +46,10 @@ PHASES = ("hot_step", "periodic_phase", "light_phase", "process_scatters", "init
 PHOTON_N = 100_000
 REF_PHOTON_N = 50_000
 # device kernels whose time the trace windows report, by name
-TRACED = {"kernel_a_ms": "hot_phase_a_kernel", "kernel_b_ms": "hot_phase_b_kernel",
-          "row_gather_ms": "row_gather_kernel"}
+TRACED = {"hot_step_ms": "hot_step_kernel", "row_gather_ms": "row_gather_kernel"}
 WAVE_AT = 64  # trace the first wave from this hot iteration
 TRACE_ITERS = 64  # hot iterations per trace window
+ONE_STEP_AT = WAVE_AT + TRACE_ITERS + 1  # trace this hot iteration alone
 
 
 def clock_phases(engine_cls, clocks):
@@ -160,10 +161,33 @@ def main():
         tail = driver.Simulation.tail_engine
 
         def traced_hot_step(self, state, *a, **kw):
+            if state.it == ONE_STEP_AT and win.live is None:
+                return one_hot_step(self, state, *a, **kw)
             win.before(state.it)
             state = hot(self, state, *a, **kw)
             win.last_it = state.it
             win.after(state.it)
+            return state
+
+        def one_hot_step(self, state, *a, **kw):
+            """Trace one hot step after a marker kernel (a tracer can miss
+            the first launches of its window), and keep the device
+            activities that start after the marker, in order."""
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.full((1,), 7.0, device=self.device)
+                torch.cuda.synchronize()
+                state = hot(self, state, *a, **kw)
+                torch.cuda.synchronize()
+            dev = sorted(((e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                          if e.device_type() == torch.autograd.DeviceType.CUDA))
+            mark = max((t for t, name in dev if "fill" in name.lower()), default=None)
+            win.results["one_hot_step"] = {
+                "iteration": ONE_STEP_AT, "marker_seen": mark is not None,
+                "device_activities": [name for t, name in dev if mark is None or t > mark]}
+            win.last_it = state.it
             return state
 
         def traced_tail_engine(self):

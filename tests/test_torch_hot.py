@@ -1,7 +1,7 @@
-"""The hot step: the port's plain phases against the JAX package's, and the
-CUDA kernels against the plain phases, for the shipped profile and for
-reference semantics (the ladder phase A, phase B on raw corner rows and the
-row gather between them).
+"""The hot step's two phases: the port's plain phases against the JAX
+package's, for the shipped profile and for reference semantics (the ladder
+phase A, phase B on raw corner rows).  tests/test_torch_hot_step.py holds
+the whole step, the wrapper's dispatch and the fused CUDA kernel.
 
 Inputs are synthetic lane states from a numpy seed
 (``hot_kernels.synthetic_lanes``) that reach every branch of both phases.
@@ -11,15 +11,8 @@ with x64 off, as the JAX engine traces its float32 phases): masks and
 integers differ on at most 0.1% of lanes (the Pallas-vs-XLA contract of
 tests/test_pallas_hot.py) and floats agree to rtol 1e-4 and atol 1e-6 on
 the lanes where every mask and integer agrees, ``dl_shrink`` as
-``_F32_ILL_CONDITIONED`` says.  On the card each kernel is held to its
-plain version on every lane (``hot_kernels.KERNEL_TOLERANCE``).
-
-JAX is imported inside a fixture, so that the kernel test, which needs no
-JAX, also runs on a machine that has only the port's dependencies:
-``python -m pytest --noconftest -m cuda tests/test_torch_hot.py``.
+``_F32_ILL_CONDITIONED`` says.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -287,85 +280,3 @@ def test_reference_lanes_reach_every_branch(ref_setup):
     missing = [k for k, v in reached.items() if not bool(v.any())]
     assert not missing, f"branches never reached: {missing}"
     assert bool(torch.isfinite(B["w"]).all())
-
-
-def test_wrappers_take_the_plain_version_on_cpu(setup):
-    mc, tabs, cfg, lanes = setup
-    s = _torch_lanes(lanes, torch.float64)
-    before = dict(hot_kernels.launches)
-    args = _args_a(s, mc, cfg)
-    A = hot_kernels.phase_a(*args)
-    ref = engine.hot_phase_a(*args)
-    for name, v in hot_kernels._flat(A).items():
-        assert torch.equal(v, hot_kernels._flat(ref)[name]), name
-    bias = torch.tensor(lanes["bias_scale"], dtype=torch.float64)
-    tail = _args_b_tail(s, A, bias, mc, cfg, tabs.hc_coeffs, tabs.k2_coeffs)
-    B = hot_kernels.phase_b(tabs.hot_tab, A["z"], *tail)
-    ref_b = engine.hot_phase_b(tabs.hot_tab[A["z"].long()], *tail)
-    for name, v in hot_kernels._flat(B).items():
-        assert torch.equal(v, hot_kernels._flat(ref_b)[name]), name
-    assert hot_kernels.launches == before
-    meta = {k: (tuple(c.to("meta") for c in v) if isinstance(v, tuple) else v.to("meta"))
-            for k, v in s.items()}
-    with pytest.raises(ValueError):
-        hot_kernels.phase_a(*_args_a(meta, mc, cfg))
-
-
-def test_reference_wrappers_take_the_plain_version_on_cpu(ref_setup):
-    mc, tabs, cfg, lanes = ref_setup
-    s = _torch_lanes(lanes, torch.float64)
-    before = dict(hot_kernels.launches)
-    args = _args_a(s, mc, cfg, reference=True)
-    A = hot_kernels.phase_a(*args, reference=True)
-    ref = engine.hot_phase_a(*args, reference=True)
-    for name, v in hot_kernels._flat(A).items():
-        assert torch.equal(v, hot_kernels._flat(ref)[name]), name
-    rows = hot_kernels.row_gather(tabs.corner_rows, A["z"])
-    assert torch.equal(rows, tabs.corner_rows[A["z"].long()])
-    bias = torch.tensor(lanes["bias_scale"], dtype=torch.float64)
-    tail = _args_b_tail(s, A, bias, mc, cfg, tabs.hc_coeffs, tabs.k2_coeffs, reference=True)
-    B = hot_kernels.phase_b_raw(rows, *tail)
-    ref_b = engine.hot_phase_b(rows, *tail, reference=True)
-    for name, v in hot_kernels._flat(B).items():
-        assert torch.equal(v, hot_kernels._flat(ref_b)[name]), name
-    assert hot_kernels.launches == before
-    with pytest.raises(ValueError):
-        hot_kernels.row_gather(tabs.corner_rows.to("meta"), A["z"].to("meta"))
-
-
-@pytest.mark.cuda
-def test_kernels_match_plain_on_the_card(setup):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
-    mc, tabs, cfg, _ = setup
-    dev, f32 = torch.device("cuda"), torch.float32
-    hot = tabs.hot_tab.to(dev, f32).contiguous()
-    raw = tabs.corner_rows.to(dev, f32).contiguous()
-    hc = tabs.hc_coeffs.to(dev, f32).contiguous()
-    n0 = dict(hot_kernels.launches)
-    checks = []
-    for reference in (False, True):
-        lanes = hot_kernels.synthetic_lanes(mc, 65536, 11, cfg.stall_steps, reference)
-        s = _torch_lanes(lanes, f32, dev)
-        bias = torch.tensor(lanes["bias_scale"], dtype=f32, device=dev)
-        args = _args_a(s, mc, cfg, reference)
-        ref_a = engine.hot_phase_a(*args, reference=reference)
-        got_a = hot_kernels.phase_a(*args, reference=reference)
-        tail = _args_b_tail(s, ref_a, bias, mc, cfg, hc, tabs.k2_coeffs, reference)
-        if reference:
-            rows = raw[ref_a["z"].long()]
-            got_rows = hot_kernels.row_gather(raw, ref_a["z"])
-            ref_b = engine.hot_phase_b(rows, *tail, reference=True)
-            got_b = hot_kernels.phase_b_raw(rows, *tail)
-            checks += [("hot_phase_a_ladder", ref_a, got_a), ("hot_phase_b_raw", ref_b, got_b),
-                       ("row_gather", {"rows": rows}, {"rows": got_rows})]
-        else:
-            ref_b = engine.hot_phase_b(hot[ref_a["z"].long()], *tail)
-            got_b = hot_kernels.phase_b(hot, ref_a["z"], *tail)
-            checks += [("hot_phase_a", ref_a, got_a), ("hot_phase_b", ref_b, got_b)]
-    torch.cuda.synchronize()
-    for name, ref, got in checks:
-        assert hot_kernels.launches[name] == n0[name] + 1, name
-        _, _, _, fails = hot_kernels.compare(ref, got, **hot_kernels.KERNEL_TOLERANCE[name])
-        assert not fails, f"{name}: {fails}"
-    assert all(os.path.exists(p) for p in hot_kernels._Build.paths)
