@@ -29,19 +29,26 @@ Phases, each of which exits non-zero on failure:
    work at 67 TFLOP/s, the larger; ``bound_by`` says which); for the hot
    step also its registers and spills (``ptxas``) and the shared-memory
    loads in its SASS (``lds``, by cuobjdump), and on a line of its own the
-   weight's worst lane and an estimate of the float32 issue floor;
+   weight's worst lane and an estimate of the float32 issue floor.  The
+   hot step is checked and timed the same way at the tail cascade's
+   widths, N = 4,096 and 512 (``kernel check hot_step@4096: ...``);
 5. the shipped profile end to end at M = 4e19, seed 123, float32, pool
-   65,536: every hot step must be one launch of ``hot_step`` and the row
-   gather must run once per full phase (its event samplers) and nowhere
-   else, the spectrum must be finite with a photon count equal to
-   ``n_recorded``, no secondary may be dropped, and the luminosity must lie
-   within 10% of the JAX engine's 12694.3 on the same torus and seed;
+   65,536, the JAX driver's whole schedule: the pilot (8,192 photons on the
+   host tracker; its seconds and counters printed), the waves (the first
+   chunk ramped), the tail cascade (each stage's width, iterations and
+   device window printed); every hot step of every engine must be one
+   launch of ``hot_step`` and the row gather must run once per full phase
+   of every engine (its event samplers) and nowhere else, the cascade must
+   end with the pool empty, the spectrum must be finite with a photon
+   count equal to ``n_recorded`` (the pilot's records debited), no
+   secondary may be dropped, and the luminosity must lie within 10% of the
+   JAX engine's 12694.3 on the same torus and seed;
 6. reference semantics end to end on the same cell (``--ref-photon-n``
    photons, ``profiles.reference_config`` with its step cap cut to
-   ``--ref-stall-steps``): every hot step must be one launch of
-   ``hot_step_ref`` and the row gather must run once per full phase and
-   once per fresh-lane init (one in each full and light phase), with the
-   same checks of the spectrum and the luminosity;
+   ``--ref-stall-steps``, the same schedule): every hot step must be one
+   launch of ``hot_step_ref`` and the row gather must run once per full
+   phase and once per fresh-lane init (one in each full and light phase),
+   with the same checks of the schedule, the spectrum and the luminosity;
 7. the gather probes (``grmonty_tpu_torch/tools/``): (a) the five kernels
    of ``csrc/gather_probe.cu`` against their plain versions at N = Z =
    65,536 and w = 32 (and the cooperative and row-loop sums at w = 216,
@@ -52,7 +59,17 @@ Phases, each of which exits non-zero on failure:
    each printed as ``probe <name>: {...}``; each of the five kernels must
    have been launched.  The chained probes replay CUDA graphs, and a
    replayed launch does not pass through the wrapper: the counts see the
-   captures and the probes' eager calls only.
+   captures and the probes' eager calls only;
+8. checkpoint/resume: the shipped profile at ``--resume-photon-n`` photons
+   with 65,536-photon waves (the ramp and several whole waves) and the
+   cascade's step cap cut to ``RESUME_TAIL_STALL``, three times: uninterrupted; with a checkpoint and a failure injected after its
+   second wave (in this phase only); resumed from the checkpoint in a fresh
+   ``Simulation``.  The resumed spectrum must match the uninterrupted one
+   to rtol 1e-6 (float atomics sum it on the card), every count exactly,
+   and the checkpoint must be gone;
+9. the command line, ``python -m grmonty_tpu_torch`` on the card in a
+   subprocess at ``--resume-photon-n`` photons and the cells' pool of
+   65,536 (``CLI_POOL``): exit 0 and a 200 x 37 spectrum file.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result line.
@@ -71,6 +88,19 @@ import time
 
 REF_LUMINOSITY = 12694.3  # JAX engine, 256x256 torus, M=4e19, seed 123
 N_CHECK = 65536
+TAIL_CHECKS = (4096, 512)  # the tail cascade's narrower pools
+RESUME_PHOTON_N = 2e4
+RESUME_CHUNK = 1 << 16
+# The resume phase's step cap in the tail cascade, cut from the shipped
+# profile's 50,000: at 50,000 one photon ran to the cap and each of the
+# phase's three runs drained for 51,200 iterations of the 512-lane pool
+# (48 s on an H100 80GB HBM3 at 700 W, PERF.md).
+RESUME_TAIL_STALL = 5000
+# The command line's pool in phase 9: the cells' width.  At the command
+# line's default of 16,384 the same 2e4 photons drained for 237,056
+# iterations of the 512-lane pool (308-376 s); at 65,536, 12,928 (42 s; an
+# H100 80GB HBM3 at 700 W, PERF.md).
+CLI_POOL = 65536
 REPS = 20
 # The reference path's per-photon step cap, cut from the reference's
 # 150,000: at 150,000 its drain ran 415,200 hot iterations (754 s of device
@@ -186,20 +216,28 @@ def bound(moved_bytes, ops):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def make_simulation(root, photon_n, reference=False, stall_steps=REF_STALL_STEPS):
-    """The smoke cell's ``Simulation`` on the card: the 256x256 synthetic
-    torus (written into ``root/.cache`` once), M = 4e19, seed 123, float32,
-    the shipped profile (or reference semantics) at pool 65,536."""
-    import torch
-
+def torus_dump(root):
+    """The 256x256 synthetic torus, written into ``root/.cache`` once."""
     from grmonty_tpu_torch.models import torus
-    from grmonty_tpu_torch.transport import driver, profiles
 
     cache = os.path.join(root, ".cache")
     os.makedirs(cache, exist_ok=True)
     dump = os.path.join(cache, "torus_256x256_dump")
     if not os.path.exists(dump):
         torus.write_torus_dump(dump, n1=256, n2=256)
+    return dump
+
+
+def make_simulation(root, photon_n, reference=False, stall_steps=REF_STALL_STEPS, **over):
+    """The smoke cell's ``Simulation`` on the card: the 256x256 synthetic
+    torus, M = 4e19, seed 123, float32, the shipped profile (or reference
+    semantics) at pool 65,536; ``over`` replaces the profile's driver
+    arguments."""
+    import torch
+
+    from grmonty_tpu_torch.transport import driver, profiles
+
+    dump = torus_dump(root)
     pool = 65536
     if reference:
         cfg = profiles.reference_config(pool=pool, dtype=torch.float32,
@@ -208,23 +246,24 @@ def make_simulation(root, photon_n, reference=False, stall_steps=REF_STALL_STEPS
     else:
         cfg = profiles.bench_config(pool=pool, dtype=torch.float32)
         kw = profiles.bench_sim_kwargs(pool)
+    kw.update(over)
     return driver.Simulation(dump, photon_n=int(photon_n), mass_unit=4.0e19, seed=123,
                              config=cfg, device="cuda", **kw)
 
 
 def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None,
-                slack=None):
+                slack=None, n=N_CHECK):
     """Hold ``got`` against ``ref`` under the kernel's tolerance (plus
     ``slack`` per lane where given), time plain, kernel, kernel, plain (one
     pair of each per call, averaged), the kernel's device time and the
     library call, and return the record; ``ops`` is the call's float32
-    work, ``OPS_PER_LANE`` over N_CHECK lanes unless given."""
+    work, ``OPS_PER_LANE`` over ``n`` lanes unless given."""
     from grmonty_tpu_torch.transport import hot_kernels
 
     err, rel, mask, fails = hot_kernels.compare(ref, got, **hot_kernels.KERNEL_TOLERANCE[name],
                                                 slack=slack)
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-    ops = OPS_PER_LANE[name] * N_CHECK if ops is None else ops
+    ops = OPS_PER_LANE[name] * n if ops is None else ops
     bound_ms, bound_by = bound(moved_bytes, ops)
     src, replaces = SOURCES[name]
     rec = {"name": name, "route": "cuda", "source": f"grmonty_tpu_torch/csrc/{src}",
@@ -234,8 +273,8 @@ def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None
            "device_ms": cuda_ms(kern, queued=True),
            "library_ms": None if library is None else cuda_ms(library),
            "library_device_ms": None if library is None else cuda_ms(library, queued=True),
-           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved_bytes, "n": N_CHECK}
-    print(f"kernel check {name}: {json.dumps(rec)}")
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved_bytes, "n": n}
+    print(f"kernel check {name}{'' if n == N_CHECK else f'@{n}'}: {json.dumps(rec)}")
     if fails:
         fail(f"{name} disagrees with its plain version: " + "; ".join(fails))
     return rec
@@ -282,9 +321,9 @@ def sass_counts(path):
     return counts
 
 
-def hot_step_checks(sim, usage, sass, ref_stall_steps):
+def hot_step_checks(sim, usage, sass, ref_stall_steps, n=N_CHECK):
     """Phase 4a: the hot step of each semantics against its plain version at
-    N_CHECK lanes of synthetic state drawn at the path's step cap (the
+    ``n`` lanes of synthetic state drawn at the path's step cap (the
     shipped ``sim.cfg``'s, ``ref_stall_steps`` under reference semantics),
     its census counters exactly; ``usage``/``sass``: the build's ptxas and
     SASS counts by kernel function."""
@@ -295,10 +334,10 @@ def hot_step_checks(sim, usage, sass, ref_stall_steps):
     mc, tabs, dev, f32 = sim.mc, sim.tables, sim.device, torch.float32
     out = []
     for reference in (False, True):
-        cfg = (profiles.reference_config(pool=N_CHECK, dtype=f32, stall_steps=ref_stall_steps)
-               if reference else sim.cfg)
+        cfg = (profiles.reference_config(pool=n, dtype=f32, stall_steps=ref_stall_steps)
+               if reference else sim.cfg._replace(n_pool=n))
         name = "hot_step_ref" if reference else "hot_step"
-        lanes = hot_kernels.synthetic_lanes(mc, N_CHECK, 2024, cfg.stall_steps, reference,
+        lanes = hot_kernels.synthetic_lanes(mc, n, 2024, cfg.stall_steps, reference,
                                             events=True)
         pool, counters, u_roul, u_x1, bias = hot_kernels.synthetic_step(lanes, f32, dev)
 
@@ -334,29 +373,33 @@ def hot_step_checks(sim, usage, sass, ref_stall_steps):
         # the weight's worst lane, with the optical depth that decayed it
         w_rel = (got_f["w"].double() - ref_f["w"].double()).abs() / ref_f["w"].double().abs()
         i = int(torch.argmax(torch.nan_to_num(w_rel, nan=0.0)))
-        print(f"  {name}: w's worst lane {i}: relative error {float(w_rel[i])} at d_tau "
+        print(f"  {name}@{n}: w's worst lane {i}: relative error {float(w_rel[i])} at d_tau "
               f"{float(hot_kernels.step_d_tau(pool, ref_f)[i])}; issue floor (estimate, "
-              f"OPS_PER_LANE) {1e3 * OPS_PER_LANE[name] * N_CHECK / FP32_ISSUE_PER_S} ms")
-        rec = time_kernel(name, ref_f, got_f, plain, kern, moved, slack=slack)
+              f"OPS_PER_LANE) {1e3 * OPS_PER_LANE[name] * n / FP32_ISSUE_PER_S} ms")
+        rec = time_kernel(name, ref_f, got_f, plain, kern, moved, slack=slack, n=n)
         rec["census"] = got_c
         inst = f"hot_step_kernelILb{int(reference)}E"
         rec["ptxas"] = next((v for f, v in usage.items() if inst in f), None)
         rec["lds"], rec["sass_instructions"] = next(
             (v for f, v in sass.items() if inst in f), (None, None))
-        print(f"  {name}: census {got_c}; ptxas {rec['ptxas']}; {rec['lds']} LDS in "
+        print(f"  {name}@{n}: census {got_c}; ptxas {rec['ptxas']}; {rec['lds']} LDS in "
               f"{rec['sass_instructions']} instructions")
         out.append(rec)
     return out
 
 
 def kernel_checks(sim, usage, sass, ref_stall_steps):
-    """Phase 4: every kernel of the path vs its plain version at N_CHECK lanes."""
+    """Phase 4: every kernel of the path vs its plain version at N_CHECK
+    lanes (the records returned), and the hot step at the cascade's
+    widths (printed)."""
     import numpy as np
     import torch
 
     from grmonty_tpu_torch.transport import hot_kernels
 
     out = hot_step_checks(sim, usage, sass, ref_stall_steps)
+    for n in TAIL_CHECKS:
+        hot_step_checks(sim, usage, sass, ref_stall_steps, n=n)
     # the row gather on the raw corner table, indices 0 and Z-1 included
     table = sim.tables.corner_rows
     z_n = table.shape[0]
@@ -441,12 +484,39 @@ def run_probes():
     return results, dict(hot_kernels.launches)
 
 
+def check_schedule(sim, stats, label):
+    """Print the pilot's and the cascade's lines and fail unless the run
+    went through the JAX driver's schedule: the pilot on the host tracker,
+    the waves of ``driver.wave_list`` (the first chunk ramped), and cascade
+    stages of decreasing width from ``_tail_sizes`` that leave the pool
+    empty."""
+    from grmonty_tpu_torch.transport import driver
+
+    pilot, stages = stats["pilot"], stats["tail_stages"]
+    print(f"{label} pilot: {json.dumps(pilot)}")
+    for st in stages:
+        print(f"{label} cascade stage: {json.dumps(st)}")
+    waves = driver.wave_list(stats["n_created"], sim.emit_chunk, sim.cfg.n_pool,
+                             sim._wave_tail_exit)
+    widths = [st["pool"] for st in stages]
+    if pilot is None or pilot["photons"] != min(sim.warmup, stats["n_created"]):
+        fail(f"{label}: the pilot did not run ({pilot})")
+    if stats["waves"] != len(waves):
+        fail(f"{label}: {stats['waves']} waves, the schedule has {len(waves)}")
+    if (not widths or widths != sorted(set(widths), reverse=True)
+            or not set(widths) <= set(sim._tail_sizes())):
+        fail(f"{label}: cascade stages {widths} against the widths {sim._tail_sizes()}")
+    if int(sim.state.pool.occupied.sum()) != 0 or int(sim.state.sec.count) != 0:
+        fail(f"{label}: the cascade left photons behind")
+
+
 def drive(sim, label):
     """Run ``sim`` with every launch count set to 0 just before, check its
-    spectrum, its luminosity and its launches (one fused hot step per hot
-    iteration; the row gather once in each full phase's event samplers and,
-    under reference semantics, once in each phase's fresh-lane init), print
-    its result line; returns (stats, counts)."""
+    schedule, its spectrum, its luminosity and its launches (one fused hot
+    step per hot iteration of every engine; the row gather once in each
+    full phase's event samplers and, under reference semantics, once in
+    each phase's fresh-lane init), print its result line; returns (stats,
+    counts)."""
     import torch
 
     from grmonty_tpu_torch.transport import hot_kernels
@@ -473,8 +543,12 @@ def drive(sim, label):
         "util": [stats.get(k) for k in ("util_occupied", "util_moving",
                                          "util_committed", "util_parked")],
         "max_tau_scatt": stats["max_tau_scatt"], "spectrum_photons": n_ph,
+        "waves": stats["waves"], "pilot_host_s": stats["pilot"] and stats["pilot"]["host_s"],
+        "tail_stages": [[st["pool"], st["iters"], st["device_s"]] for st in stats["tail_stages"]],
+        "util_waves": stats.get("util_waves"),
     }
     print(json.dumps(result))
+    check_schedule(sim, stats, label)
     if not bool(torch.isfinite(torch.as_tensor(spec)).all()):
         fail(f"{label}: spectrum has non-finite entries")
     if n_ph != stats["n_recorded"]:
@@ -492,12 +566,94 @@ def drive(sim, label):
     return stats, counts
 
 
+class InjectedFailure(Exception):
+    """The failure phase 8 injects into a run after its second wave."""
+
+
+def resume_check(root, photon_n):
+    """Phase 8: an uninterrupted run, a run that fails after its second
+    wave with a checkpoint, and its resumption in a fresh ``Simulation``."""
+    import numpy as np
+
+    ck = os.path.join(root, ".cache", "chip_smoke_resume.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+
+    def sim():
+        return make_simulation(root, photon_n, emit_chunk=RESUME_CHUNK,
+                               tail_stall_steps=RESUME_TAIL_STALL)
+
+    t0 = time.monotonic()
+    spec_ref, st_ref = sim().run()
+    crashing = sim()
+    wave, done = crashing._run_wave, []
+
+    def fail_after_two(*a, **kw):
+        if len(done) == 2:
+            raise InjectedFailure()
+        done.append(1)
+        return wave(*a, **kw)
+
+    crashing._run_wave = fail_after_two
+    try:
+        crashing.run(checkpoint_path=ck)
+        fail("resume: the injected failure did not stop the run")
+    except InjectedFailure:
+        pass
+    if not os.path.exists(ck):
+        fail("resume: no checkpoint after the failure")
+    spec_res, st_res = sim().run(checkpoint_path=ck)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        rel = np.abs(spec_res - spec_ref) / np.abs(spec_ref)
+    max_rel = float(np.nanmax(np.where(spec_ref == spec_res, 0.0, rel)))
+    counts = ("n_recorded", "n_scatt_recorded", "n_tracked", "hot_iters", "n_stall_killed",
+              "n_secondary_dropped")
+    result = {"phase": "resume", "photon_n": photon_n, "waves": st_ref["waves"],
+              "max_rel_spec_diff": max_rel, "seconds": time.monotonic() - t0,
+              **{k: [st_ref[k], st_res[k]] for k in counts}}
+    print(json.dumps(result))
+    if st_ref["waves"] <= 3:
+        fail(f"resume: {st_ref['waves']} waves, too few to fail after the second")
+    if not np.allclose(spec_res, spec_ref, rtol=1e-6, atol=0.0):
+        fail(f"resume: the resumed spectrum differs by {max_rel} relative")
+    moved = [k for k in counts if st_ref[k] != st_res[k]]
+    if moved:
+        fail(f"resume: counts moved across the resume: {moved}")
+    if os.path.exists(ck):
+        fail("resume: the completed run left its checkpoint")
+
+
+def cli_check(root, photon_n):
+    """Phase 9: ``python -m grmonty_tpu_torch`` on the card, in a subprocess."""
+    out_path = os.path.join(root, ".cache", "chip_smoke_cli_spectrum")
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    cmd = [sys.executable, "-m", "grmonty_tpu_torch", "--harm_dump_path", torus_dump(root),
+           "--photon_n", str(photon_n), "--pool", str(CLI_POOL), "--spectrum_path", out_path]
+    t0 = time.monotonic()
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=900)
+    secs = time.monotonic() - t0
+    tail = out.stderr.strip().splitlines()[-4:]
+    print(json.dumps({"phase": "cli", "cmd": " ".join(cmd[1:]), "rc": out.returncode,
+                      "seconds": secs, "log_tail": tail}))
+    if out.returncode != 0:
+        fail(f"cli: exit {out.returncode}:\n{out.stderr[-3000:]}")
+    if not os.path.exists(out_path):
+        fail("cli: no spectrum file")
+    with open(out_path) as f:
+        lines = f.read().splitlines()
+    if len(lines) != 200 or any(len(line.split()) != 37 for line in lines):
+        fail(f"cli: the spectrum file is not 200 x 37 ({len(lines)} lines)")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--photon-n", type=float, default=1e5, help="shipped path")
     ap.add_argument("--ref-photon-n", type=float, default=5e4, help="reference path")
     ap.add_argument("--ref-stall-steps", type=int, default=REF_STALL_STEPS,
                     help="the reference path's per-photon step cap")
+    ap.add_argument("--resume-photon-n", type=float, default=RESUME_PHOTON_N,
+                    help="the resume and command-line phases")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
@@ -509,7 +665,7 @@ def main():
         sys.exit(2)
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from grmonty_tpu_torch.transport import hot_kernels
+    from grmonty_tpu_torch.transport import hot_kernels, oracle_native
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -521,6 +677,10 @@ def main():
     paths, build_s, log = hot_kernels.build()
     print(f"kernel build: {build_s:.1f} s -> "
           + ", ".join(os.path.relpath(p, root) for p in paths))
+    t0 = time.monotonic()
+    oracle_native.load()
+    print(f"host tracker build: {time.monotonic() - t0:.1f} s -> "
+          + os.path.relpath(oracle_native.library_path(), root))
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
@@ -558,6 +718,9 @@ def main():
         kernels[name]["launches"] = counts[name]
     for name in ROWSUMS:
         kernels[name]["probe_torch_ms"] = probes["probe_vmem_gather"]["torch_ms"]
+
+    resume_check(root, args.resume_photon_n)
+    cli_check(root, args.resume_photon_n)
 
     print(card)
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -8,11 +8,14 @@ under the same name:
     models/     HARM dump I/O, units, the synthetic torus writer (numpy)
     ops/        geometry, opacities, fluid tables, tetrads, samplers,
                 emission and spectrum binning (torch on tensors)
-    transport/  the engine (plain torch), the two hand-written CUDA hot-step
-                kernels (``hot_kernels`` + ``csrc/hot_step.cu``), the
-                shipped profile and the ``Simulation`` driver
-    utils/      the tracked physics tables and their Chebyshev fits
+    transport/  the engine (plain torch), the hand-written CUDA kernels
+                (``hot_kernels`` + ``csrc/*.cu``), the native scalar
+                tracker's binding (``oracle_native`` + ``csrc/oracle.cpp``),
+                the profiles and the ``Simulation`` driver (pilot, waves,
+                tail cascade, checkpoints)
+    utils/      the tracked physics tables and their Chebyshev fits; logging
     convert.py  JAX-package objects (as numpy) -> the port's state
+    cli.py      the command line (``python -m grmonty_tpu_torch``)
 
 The package imports torch, numpy and scipy only; it never imports JAX or
 ``grmonty_tpu``.  Every function takes an explicit ``device`` or works on

@@ -1,0 +1,118 @@
+"""Command-line entry point of the PyTorch/CUDA port.
+
+Port of ``grmonty_tpu/cli.py`` (the reference's ``main.cpp:19-56``): the same
+five flags with the same defaults (``--photon_n``, ``--mass_unit``,
+``--harm_dump_path``, ``--spectrum_path``, ``--verbosity``), driving read ->
+init -> run -> report::
+
+    python -m grmonty_tpu_torch --harm_dump_path DUMP [--photon_n 5e6] ...
+
+The run is the shipped profile (``profiles.bench_config`` and
+``bench_sim_kwargs`` at ``--pool`` lanes) or, with ``--reference``,
+reference semantics (``reference_config``, ``reference_sim_kwargs``): that
+one switch stands in for the JAX flags ``--grow_cap``, ``--detach``,
+``--no-cdf_sampler`` and ``--period``.  It runs on the CUDA card unless
+``--device cpu`` asks for the CPU; the card runs float32 only, as its
+hand-written kernels do.  ``--backend cpu`` tracks with the native scalar
+tracker instead of the engine.
+"""
+
+import argparse
+import contextlib
+import os
+import sys
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="grmonty-tpu-torch",
+        description="General-relativistic Monte Carlo radiative transport on PyTorch/CUDA",
+    )
+    p.add_argument("--photon_n", type=float, default=5_000_000,
+                   help="estimate of the number of superphotons to emit")
+    p.add_argument("--mass_unit", type=float, default=4.0e19,
+                   help="mass unit [g] scaling the dump's density")
+    p.add_argument("--harm_dump_path", type=str, required=True,
+                   help="path to the HARM dump file")
+    p.add_argument("--spectrum_path", type=str, default="spectrum",
+                   help="output spectrum file path")
+    p.add_argument("--verbosity", type=str, default="info",
+                   help="log level: trace|debug|info|warn|err|critical|off")
+    p.add_argument("--pool", type=int, default=16384, help="photon pool size (lanes)")
+    p.add_argument("--seed", type=int, default=123, help="RNG seed")
+    p.add_argument("--reference", action="store_true",
+                   help="reference semantics (the ladder step control, parked scatter "
+                   "events, the cumulative bias, raw corner rows, rejection emission in "
+                   "plan order) instead of the shipped profile")
+    p.add_argument("--dtype", type=str, default="float32", choices=["float32", "float64"],
+                   help="transport dtype; float64 only with --device cpu")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the run (default: the CUDA card)")
+    p.add_argument("--backend", choices=("accel", "cpu"), default="accel",
+                   help="'accel': the batched engine on --device (default); 'cpu': the "
+                   "native scalar tracker on the host, emission on --device (the "
+                   "reference CPU build's equivalent, harm_model.cpp:362-404)")
+    p.add_argument("--checkpoint", type=str, default="",
+                   help="write a resume point here after the pilot and every wave, and "
+                   "resume from it if it exists (a completed run deletes it)")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="write a torch.profiler trace of the run into this directory "
+                   "(trace.json, for chrome://tracing or Perfetto)")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    from grmonty_tpu_torch.utils.logging import setup
+
+    log = setup(args.verbosity)
+
+    import torch
+
+    from grmonty_tpu_torch.transport import driver, profiles
+
+    device = torch.device(args.device)
+    dtype = torch.float32 if args.dtype == "float32" else torch.float64
+    if device.type == "cuda":
+        if dtype != torch.float32:
+            raise SystemExit("--dtype float64 runs only with --device cpu: the CUDA "
+                             "kernels are float32")
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")
+    if args.backend == "cpu" and args.checkpoint:
+        raise SystemExit("--checkpoint applies to the engine only (a --backend cpu run "
+                         "restarts by running again)")
+    if args.reference:
+        cfg = profiles.reference_config(pool=args.pool, dtype=dtype)
+        kw = profiles.reference_sim_kwargs(args.pool)
+    else:
+        cfg = profiles.bench_config(pool=args.pool, dtype=dtype)
+        kw = profiles.bench_sim_kwargs(args.pool)
+    sim = driver.Simulation(args.harm_dump_path, photon_n=int(args.photon_n),
+                            mass_unit=args.mass_unit, seed=args.seed, config=cfg,
+                            device=device, **kw)
+    prof = contextlib.nullcontext()
+    if args.profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if device.type == "cuda" else [])
+        prof = profile(activities=acts)
+    with prof:
+        if args.backend == "cpu":
+            spec, stats = sim.run_native_cpu()
+        else:
+            spec, stats = sim.run(checkpoint_path=args.checkpoint or None)
+    if args.profile_dir:
+        os.makedirs(args.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+    sim.report(args.spectrum_path, spec)
+    log.info("Super photons: created %d, recorded %d", stats["n_created"],
+             stats["n_recorded"])
+    log.info("Done: %.0f photons/s", stats["photon_rate"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

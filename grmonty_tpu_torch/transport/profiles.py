@@ -29,9 +29,9 @@ def bench_config(pool=65536, dtype=torch.float32, stall_steps=150000):
 
 def bench_sim_kwargs(pool):
     """Driver-level pieces of the shipped profile: the emission wave size,
-    the pool-full wave hand-off and the overrides of the final drain (the
-    emission order is always strided)."""
-    return dict(emit_chunk=1 << 20, wave_tail_exit=pool,
+    the pilot's 8,192 photons, the pool-full wave hand-off and the
+    overrides of the tail cascade (the emission order is always strided)."""
+    return dict(emit_chunk=1 << 20, warmup=8192, wave_tail_exit=pool,
                 tail_grow_cap=16.0, tail_stall_steps=50000)
 
 
@@ -48,7 +48,8 @@ def reference_config(pool=65536, dtype=torch.float32, stall_steps=150000):
 
 
 def reference_sim_kwargs(pool):
-    """Driver-level pieces of reference semantics: the emission wave size
-    and the pool-full wave hand-off; the final drain keeps the wave
-    engine's step cap and growth (no overrides)."""
-    return dict(emit_chunk=1 << 20, wave_tail_exit=pool)
+    """Driver-level pieces of reference semantics: the emission wave size,
+    the pilot's 8,192 photons (the JAX ``bench_sim_kwargs`` gives both
+    semantics the same pilot) and the pool-full wave hand-off; the tail
+    cascade keeps the wave engine's step cap and growth (no overrides)."""
+    return dict(emit_chunk=1 << 20, warmup=8192, wave_tail_exit=pool)

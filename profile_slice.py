@@ -8,9 +8,11 @@
 Runs a cell of ``chip_smoke.py`` (256x256 torus, M = 4e19, seed 123,
 float32, pool 65,536: the shipped profile at 1e5 photons, or with
 ``--reference`` reference semantics at 5e4 photons and ``chip_smoke.py``'s
-step cap) once, and measures one of two things.  Run them in separate processes: once ``torch.profiler`` has traced
-a window, every later kernel launch of the process costs more, so a
-traced run's phase clocks and device window are not the run's.
+step cap) once, through the driver's whole schedule (the host pilot, the
+waves, the tail cascade), and measures one of two things.  Run them in
+separate processes: once ``torch.profiler`` has traced a window, every
+later kernel launch of the process costs more, so a traced run's phase
+clocks and device window are not the run's.
 
 1. **Phase clocks over the whole run** (default).  Every call of the engine's phases
    (``hot_step``, ``periodic_phase``, ``light_phase`` and, inside them,
@@ -19,10 +21,15 @@ traced run's phase clocks and device window are not the run's.
    not stretched; the stream time between a phase's two events is the
    time the stream spent on that phase's work, waiting for its launches
    included, so the phases split the engine's device window (nested
-   phases are also counted inside their parents).
+   phases are also counted inside their parents).  Beside them: the
+   pilot's host seconds (it runs before the first wave, on the host
+   tracker, outside the device window), and the window of the waves and of
+   each cascade stage (width, hot iterations, CUDA-event seconds).
 2. **Device busy share in trace windows** (``--trace``).  ``torch.profiler``
-   traces 64 hot iterations twice: in the first wave after 64 iterations
-   (full pool), and in the final drain 64 iterations after it starts.  The busy time is the union of the device activity intervals
+   traces 64 hot iterations twice: in the waves from hot iteration 64 on
+   (full pool; the ramp's first waves), and in the first stage of the tail
+   cascade 64 iterations after it starts.  The busy time is the union of
+   the device activity intervals
    (kernels, copies, sets) in the window; the window is timed by CUDA
    events with the profiler on.  The share holds for those iterations
    only, not for the run.  One more window holds a single hot step of the
@@ -158,10 +165,11 @@ def main():
     win = Windows(TRACE_ITERS)
     if args.trace:
         hot = engine.Engine.hot_step
-        tail = driver.Simulation.tail_engine
+        drain = driver.Simulation._drain_tail
 
         def traced_hot_step(self, state, *a, **kw):
-            if state.it == ONE_STEP_AT and win.live is None:
+            if (state.it == ONE_STEP_AT and win.live is None
+                    and "one_hot_step" not in win.results):
                 return one_hot_step(self, state, *a, **kw)
             win.before(state.it)
             state = hot(self, state, *a, **kw)
@@ -190,12 +198,12 @@ def main():
             win.last_it = state.it
             return state
 
-        def traced_tail_engine(self):
-            win.start_at["drain"] = win.last_it + WAVE_AT
-            return tail(self)
+        def traced_drain_tail(self, state):
+            win.start_at["drain"] = WAVE_AT  # a stage counts its iterations from 0
+            return drain(self, state)
 
         engine.Engine.hot_step = traced_hot_step
-        driver.Simulation.tail_engine = traced_tail_engine
+        driver.Simulation._drain_tail = traced_drain_tail
     else:
         clock_phases(engine.Engine, clocks)
 
@@ -204,11 +212,16 @@ def main():
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     window_ms = stats["device_s"] * 1e3
+    stages = [{"pool": st["pool"], "iters": st["iters"], "device_ms": st["device_s"] * 1e3}
+              for st in stats["tail_stages"]]
     result = {"mode": "trace" if args.trace else "clocks",
               "path": "reference" if args.reference else "shipped",
               "photon_n": photon_n, "n_created": stats["n_created"],
               "hot_iters": stats["hot_iters"], "device_window_ms": window_ms,
-              "wall_s": wall, "rate_device": stats["photon_rate_device"]}
+              "wall_s": wall, "rate_device": stats["photon_rate_device"],
+              "pilot_host_s": stats["pilot"]["host_s"], "waves": stats["waves"],
+              "waves_device_ms": window_ms - sum(st["device_ms"] for st in stages),
+              "tail_stages": stages}
     if args.trace:
         out_dir = os.path.join(root, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)

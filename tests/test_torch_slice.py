@@ -6,11 +6,13 @@
     hot steps, the port fed the uniforms the JAX engine draws.  Pools and
     counters agree field by field: masks and integers exactly, floats to
     rtol 1e-10 (absolute floor 1e-12 of the field's largest magnitude).
-(b) End to end: the port's ``Simulation`` at photon_n=180, M=4e18; its
+(b) End to end: the port's ``Simulation`` at photon_n=180, M=4e18, through
+    the whole schedule (the host pilot, the waves, the tail cascade); its
     luminosity lies in the golden band of tests/golden/spectrum_torus64x32.json
     (the gate of tests/test_spectrum_regression.py: max(3.5 sigma, 5%)), and
     the spectrum's photon count equals n_recorded.
-(c) The port imports with JAX and the JAX package blocked.
+(c) The port imports with JAX and the JAX package blocked, every module
+    (the command line and the native tracker's binding among them).
 """
 
 import json
@@ -111,7 +113,12 @@ def test_end_to_end_luminosity_in_golden_band(tmp_path):
     kw["tail_stall_steps"] = 5000
     sim = driver.Simulation(path, photon_n=180, mass_unit=4.0e18, seed=123, config=cfg,
                             device="cpu", **kw)
-    spec, stats = sim.run()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # 1024-lane tensors: threads only add overhead
+    try:
+        spec, stats = sim.run()
+    finally:
+        torch.set_num_threads(threads)
     with open(GOLDEN) as f:
         gold = json.load(f)
     nb = consts.N_TH_BINS * consts.N_E_BINS
@@ -147,6 +154,9 @@ def test_port_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.startswith("ok"), out.stderr
     assert len(names) >= 20
+    assert {"grmonty_tpu_torch.cli", "grmonty_tpu_torch.__main__",
+            "grmonty_tpu_torch.transport.oracle_native",
+            "grmonty_tpu_torch.utils.logging"} <= set(names)
     for mod in names:
         src = open(sys.modules[mod].__file__ if mod in sys.modules else
                    __import__(mod, fromlist=["_"]).__file__).read()
