@@ -51,8 +51,10 @@ Phases, each of which exits non-zero on failure:
    with the same checks of the schedule, the spectrum and the luminosity;
 7. the gather probes (``grmonty_tpu_torch/tools/``): (a) the five kernels
    of ``csrc/gather_probe.cu`` against their plain versions at N = Z =
-   65,536 and w = 32 (and the cooperative and row-loop sums at w = 216,
-   where the table outgrows L2 and 54 float4s fall unevenly on a warp), on
+   65,536 and w = 32 (and the cooperative and row-loop sums and the row
+   copy at w = 216, where the table outgrows L2 and 54 float4s fall
+   unevenly on a warp; their records carry the names ``<kernel>@216`` and
+   ``launches`` null, since no phase launches them at that width), on
    a seeded table at seeded indices with 0 and Z-1 included: the four row
    sums within ``hot_kernels.rowsum_slack`` on every index, the row copy
    bitwise; (b) then, with every launch count set to 0, the three probes,
@@ -69,7 +71,14 @@ Phases, each of which exits non-zero on failure:
    and the checkpoint must be gone;
 9. the command line, ``python -m grmonty_tpu_torch`` on the card in a
    subprocess at ``--resume-photon-n`` photons and the cells' pool of
-   65,536 (``CLI_POOL``): exit 0 and a 200 x 37 spectrum file.
+   65,536 (``CLI_POOL``): exit 0, a 200 x 37 spectrum file, and a kernel
+   build time (``compile_s``, the fresh process's load of the kernels in
+   ``Simulation.__init__``) above 0 in its log.
+
+With ``--probe-kernels-only`` the script runs phases 1, 2 and 7a and
+prints the card line and the kernels line (no result line); a copy of it
+placed in another commit's checkout times that commit's probe kernels
+the same way, which is how two versions are compared in one call.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result line.
@@ -421,8 +430,9 @@ def kernel_checks(sim, usage, sass, ref_stall_steps):
 
 def probe_kernel_checks():
     """Phase 7a: the gather-probe kernels vs their plain versions at N = Z =
-    N_CHECK, all five at w = W_PROBE, the cooperative and row-loop sums
-    also at w = 216.  Returns the w = W_PROBE records."""
+    N_CHECK, all five at w = W_PROBE, the cooperative and row-loop sums and
+    the row copy also at w = 216.  Returns the records, those at w = 216
+    named ``<kernel>@216``."""
     import numpy as np
     import torch
 
@@ -431,7 +441,8 @@ def probe_kernel_checks():
     dev = torch.device("cuda")
     out = []
     for w, names in ((W_PROBE, ROWSUMS + ("row_gather_rowloop",)),
-                     (216, ("gather_rowsum_coop", "gather_rowsum_rowloop"))):
+                     (216, ("gather_rowsum_coop", "gather_rowsum_rowloop",
+                            "row_gather_rowloop"))):
         rng = np.random.default_rng(w)
         table = torch.as_tensor(rng.standard_normal((N_CHECK, w)).astype(np.float32), device=dev)
         idx_np = rng.integers(0, N_CHECK, N_CHECK).astype(np.int32)
@@ -462,8 +473,11 @@ def probe_kernel_checks():
                                   moved_in + nbytes(ref), ops=(w - 1) * N_CHECK,
                                   slack=hot_kernels.rowsum_slack(table, idx))
             rec["w"] = w
-            if w == W_PROBE:
-                out.append(rec)
+            if w != W_PROBE:
+                # phase 7b's probes launch at w = W_PROBE only: no run of
+                # this script launches the kernel at w, so no count is given
+                rec["name"], rec["launches"] = f"{name}@{w}", None
+            out.append(rec)
     return out
 
 
@@ -534,7 +548,7 @@ def drive(sim, label):
         "luminosity": lum, "lum_ratio": lum / REF_LUMINOSITY,
         "rate_device": stats["photon_rate_device"], "rate_wall": stats["photon_rate"],
         "device_s": stats["device_s"], "elapsed_s": stats["elapsed_s"],
-        "steps_per_photon": stats["steps_per_photon"],
+        "compile_s": stats["compile_s"], "steps_per_photon": stats["steps_per_photon"],
         "n_sec_drop": stats["n_secondary_dropped"], "n_stall": stats["n_stall_killed"],
         "w_stall_frac": stats["w_stall_frac"],
         "n_hc_clamp": stats["n_hc_clamp"], "hot_iters": stats["hot_iters"],
@@ -634,10 +648,16 @@ def cli_check(root, photon_n):
     out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=900)
     secs = time.monotonic() - t0
     tail = out.stderr.strip().splitlines()[-4:]
+    m = re.search(r"kernel build (\S+) s", out.stderr)
+    compile_s = float(m.group(1)) if m else None
     print(json.dumps({"phase": "cli", "cmd": " ".join(cmd[1:]), "rc": out.returncode,
-                      "seconds": secs, "log_tail": tail}))
+                      "seconds": secs, "compile_s": compile_s, "log_tail": tail}))
     if out.returncode != 0:
         fail(f"cli: exit {out.returncode}:\n{out.stderr[-3000:]}")
+    # a fresh process loads the kernels in Simulation.__init__, outside its
+    # device window, and reports the seconds
+    if not (compile_s and compile_s > 0.0):
+        fail(f"cli: no kernel build time in its log (compile_s {compile_s})")
     if not os.path.exists(out_path):
         fail("cli: no spectrum file")
     with open(out_path) as f:
@@ -654,6 +674,10 @@ def main():
                     help="the reference path's per-photon step cap")
     ap.add_argument("--resume-photon-n", type=float, default=RESUME_PHOTON_N,
                     help="the resume and command-line phases")
+    ap.add_argument("--probe-kernels-only", action="store_true",
+                    help="phases 1, 2 and 7a alone, then the card line and the kernels "
+                         "line; a copy of this script beside another commit's package "
+                         "times that commit's probe kernels the same way")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
@@ -677,6 +701,11 @@ def main():
     paths, build_s, log = hot_kernels.build()
     print(f"kernel build: {build_s:.1f} s -> "
           + ", ".join(os.path.relpath(p, root) for p in paths))
+    if args.probe_kernels_only:
+        recs = probe_kernel_checks()
+        print(card)
+        print(json.dumps({"kernels": recs}))
+        return
     t0 = time.monotonic()
     oracle_native.load()
     print(f"host tracker build: {time.monotonic() - t0:.1f} s -> "

@@ -110,7 +110,8 @@ def main(argv=None):
     sim.report(args.spectrum_path, spec)
     log.info("Super photons: created %d, recorded %d", stats["n_created"],
              stats["n_recorded"])
-    log.info("Done: %.0f photons/s", stats["photon_rate"])
+    log.info("Done: %.0f photons/s; kernel build %.3g s", stats["photon_rate"],
+             stats["compile_s"])
     return 0
 
 

@@ -27,20 +27,43 @@
 // float32 for a row sum, (N, w) for the row copy.  Every kernel masks its
 // own ragged edge, so N need not be a multiple of any block.
 //
-// What bounds them on the H100: bytes.  At N = Z = 65,536, w = 32 and
-// uniform indices about Z (1 - 1/e) = 41,400 distinct rows are read once:
-// a row sum moves 5.30 MB of rows, 0.26 MB of indices and 0.26 MB of
-// output, 1.74 us at 3.35 TB/s; the row copy writes 8.39 MB more, 4.17 us.
-// Up to w = 128 (33.5 MB) the table fits the 50 MB L2; at w = 216 and 256
-// (56.6 and 67.1 MB) it does not.  The designs differ in how the row's
-// bytes reach a thread:
-//   coop        g neighbouring lanes (a power of two, at most 32 and at most
-//               w/4) take one row, stride over its float4s with __ldg and
-//               reduce with __shfl_xor_sync: a warp reads 32/g whole rows
-//               per load, each in 16 B pieces (at w = 216 the 54 float4s
-//               fall unevenly on 32 lanes);
-//   persistent  the same body, (SM count x resident blocks) CTAs walking the
-//               rows with a grid-stride loop;
+// What bounds them on the H100: bytes.  At N = Z = 65,536 and uniform
+// indices about Z (1 - 1/e) = 41,427 distinct rows are read once.  At
+// w = 32 (128 B rows) a row sum moves 5.30 MB of rows, 0.26 MB of indices
+// and 0.26 MB of output, 1.74 us at 3.35 TB/s; the row copy writes 8.39 MB
+// more, 4.17 us.  At w = 216 (864 B rows) the rows are 35.79 MB: 10.84 us
+// for a row sum, and with 56.62 MB written 27.66 us for the row copy.  Up
+// to w = 128 (33.5 MB) the table fits the 50 MB L2; at w = 216 and 256
+// (56.6 and 67.1 MB) it does not, though the rows one index set touches
+// (35.8 MB at w = 216) may stay there across launches.  The designs differ
+// in how the row's bytes reach a thread:
+//   coop        one wave of persistent blocks of ROWSUM_THREADS; a warp
+//               takes a batch of B rows: the batch's indices in one
+//               coalesced load (lane l holds row l's), then G lanes a row
+//               (G the largest power of two at most 32 and at most w/4;
+//               P = 32/G rows side by side) and U row passes, every 16 B
+//               __ldg of the batch issued before the first add (U * K
+//               loads a lane in flight, K = 1 or 2 float4s a lane a row,
+//               about ROWSUM_LOADS_NARROW for rows under 32 float4s and
+//               ROWSUM_LOADS above), shuffle reductions, and the B sums in
+//               one coalesced store; the next batch's indices are loaded
+//               before this batch's rows.  At w = 32: G = 8, U = 4, B = 16
+//               rows; at w = 216: G = 32, K = 2 (54 float4s, lanes 22-31
+//               take one), U = 4, B = 4.  The index -> row -> store chain
+//               runs once for every row at once, where two waves of
+//               one-row-per-group blocks ran it twice.  What is left at
+//               w = 32 is not the HBM bound: the rows sit in L2 across
+//               launches, every one of the N row reads (8.4 MB with the
+//               repeats) crosses from L2 to the SMs, and a launch of a
+//               single row takes a large part of the time.  The launch
+//               is programmatic (PDL): the next launch's blocks are
+//               scheduled while this one drains and wait in
+//               griddepcontrol.wait, which takes part of that floor out of
+//               a chain of launches;
+//   persistent  (SM count x resident blocks) CTAs walking the rows with a
+//               grid-stride loop; each group of g lanes takes one row, one
+//               __ldg of 16 B a lane in flight (coop's design until it was
+//               redesigned, kept here as this kernel's own);
 //   rowloop     one thread per row, w scalar __ldg loads in order j = 0..w-1:
 //               a warp touches 32 rows with every 4-byte load;
 //   smem        a CTA stages its indices in shared memory, copies the rows
@@ -48,9 +71,23 @@
 //               then one thread per row sums from shared memory in order;
 //               the row pitch is padded to an odd number of float4s so that
 //               eight neighbouring threads' float4 reads hit distinct banks;
-//   row_gather_rowloop  one thread per row copies its w/4 float4s: the
-//               stores of a warp land on 32 rows (compare with
-//               row_gather.cu's one thread per float4).
+//   row_gather_rowloop  the output of T consecutive rows is one contiguous
+//               tile of 4 w T bytes (T = COPY_STAGE_BYTES / (4 w): 64 rows
+//               at w = 32, 9 at w = 216, 8 at w = 256).  Persistent CTAs
+//               (one wave, launched programmatically as coop is) walk the
+//               tiles: the CTA's threads gather a tile's rows into a
+//               shared-memory stage with 16 B cp.async (consecutive
+//               threads on consecutive float4s of a row, so a warp reads
+//               whole rows), wait, fence the shared memory to the async
+//               proxy, and one thread writes the whole tile out with one
+//               bulk copy (cp.async.bulk.global.shared::cta) that runs
+//               while the CTA gathers its next tile into the other stage
+//               (COPY_STAGES stages; a stage is refilled once the bulk copy
+//               that read it has finished reading).  Every store is one
+//               bulk write of contiguous bytes.  One cp.async.bulk a row
+//               into the stage, completing on an mbarrier, was tried
+//               instead of the lanes' 16 B copies and lost at w = 8 (a bulk
+//               request for every 32 B row) without winning elsewhere.
 //
 // Interface: the plain C convention of row_gather.cu: an array of device
 // pointers (table, idx, out), an array of double scalars (w; for smem also
@@ -62,11 +99,28 @@
 
 namespace {
 
+// Sizes of the two redesigned kernels, chosen on the card at w = 8, 32, 216
+// and 256 (PERF.md): gather_rowsum_coop's block size and the 16-byte
+// loads a lane has in flight per batch, for rows of 32 float4s or more
+// (G = 32) and for narrower rows; the bytes and number of
+// row_gather_rowloop's shared-memory stages (a row must fit a stage, so
+// w <= COPY_STAGE_BYTES / 4 = 2,048).
+constexpr int ROWSUM_THREADS = 512;
+constexpr int ROWSUM_LOADS = 8;
+constexpr int ROWSUM_LOADS_NARROW = 4;
+constexpr int COPY_STAGE_BYTES = 8192;
+constexpr int COPY_STAGES = 2;
+
 constexpr int THREADS = 256;
+constexpr int COOP_WARPS = ROWSUM_THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
 // Dynamic shared memory a block may take without the opt-in attribute,
 // less the static index tile of the smem kernel.
 constexpr int SMEM_TILE_BYTES = 48 * 1024 - THREADS * (int)sizeof(int32_t);
 constexpr int MAX_DEVICES = 64;
+static_assert(COPY_STAGE_BYTES % 128 == 0 && COPY_STAGES >= 2 &&
+                  COPY_STAGES * COPY_STAGE_BYTES <= 48 * 1024,
+              "row copy stages: 128-byte multiples, at least two, within 48 KB");
 
 // Sum of the float4s q = lane, lane + g, ... < w4 of one row.
 __device__ __forceinline__ float row_part(const float4 *__restrict__ row, int w4,
@@ -96,11 +150,82 @@ __device__ __forceinline__ void coop_row(const float4 *__restrict__ table,
   if (row < n && lane == 0) out[row] = s;
 }
 
-template <int G>
-__global__ void __launch_bounds__(THREADS)
+// Programmatic dependent launch (the two redesigned kernels): let the
+// stream's next launch be scheduled now, then wait until the launches
+// before this one have finished and their writes are visible.  A kernel
+// reads nothing before it.
+__device__ __forceinline__ void pdl_begin() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// The batch of gather_rowsum_coop for G lanes a row and K float4s a lane
+// a row: P rows side by side, U row passes, B = U P rows (at most 32, one
+// lane each for the batch's indices and sums).
+template <int G, int K>
+struct CoopShape {
+  static constexpr int P = 32 / G;
+  static constexpr int U_WANT = (G == 32 ? ROWSUM_LOADS : ROWSUM_LOADS_NARROW) / K;
+  static constexpr int U = U_WANT < 1 ? 1 : (U_WANT > G ? G : U_WANT);
+  static constexpr int B = U * P;
+};
+
+template <int G, int K>
+__global__ void __launch_bounds__(ROWSUM_THREADS)
     rowsum_coop_kernel(const float4 *__restrict__ table, const int32_t *__restrict__ idx,
                        float *__restrict__ out, int n, int w4) {
-  coop_row<G>(table, idx, out, n, w4, (int64_t)blockIdx.x * THREADS + threadIdx.x);
+  using S = CoopShape<G, K>;
+  constexpr int P = S::P, U = S::U, B = S::B;
+  pdl_begin();
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);  // lane within its row's group
+  const int grp = lane / G;        // the group: row u * P + grp of pass u
+  const int64_t warps = (int64_t)gridDim.x * COOP_WARPS;
+  const int64_t batches = ((int64_t)n + B - 1) / B;
+  int64_t b = (int64_t)blockIdx.x * COOP_WARPS + threadIdx.x / 32;
+  // lane l holds the index of the batch's row l; b is warp-uniform, so every
+  // shuffle below runs with the whole warp
+  int id = 0;
+  if (b < batches && lane < B && b * B + lane < n) id = __ldg(idx + b * B + lane);
+  for (; b < batches; b += warps) {
+    const int64_t base = b * B;
+    const int64_t next = (b + warps) * B + lane;
+    int id_next = 0;
+    if (b + warps < batches && lane < B && next < n) id_next = __ldg(idx + next);
+    float s[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) s[u] = 0.0f;
+    for (int c0 = 0; c0 < w4; c0 += G * K) {  // one chunk unless G = 32, w4 > 64
+      float4 v[U][K];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = u * P + grp;
+        const float4 *row = table + (int64_t)__shfl_sync(FULL, id, r) * w4;
+        const bool live = base + r < n;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int q = c0 + sub + k * G;
+          v[u][k] = (live && q < w4) ? __ldg(row + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int k = 0; k < K; ++k) s[u] += (v[u][k].x + v[u][k].y) + (v[u][k].z + v[u][k].w);
+    }
+    // every lane of a group ends with its row's sum; lane l then takes row
+    // l = u * P + p from the first lane of group p
+    float res = 0.0f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) s[u] += __shfl_xor_sync(FULL, s[u], off);
+      const float t = __shfl_sync(FULL, s[u], (lane % P) * G);
+      if (lane / P == u) res = t;
+    }
+    if (lane < B && base + lane < n) out[base + lane] = res;
+    id = id_next;
+  }
 }
 
 template <int G>
@@ -134,6 +259,34 @@ __device__ __forceinline__ void cp_async16(void *smem_dst, const void *gmem_src)
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Make this thread's shared-memory writes visible to the async proxy (the
+// bulk copies).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from shared to global memory, in its own bulk group.
+__device__ __forceinline__ void bulk_store(void *gmem, const void *smem, unsigned bytes) {
+  const unsigned src = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(gmem),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are still reading
+// shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // CTA b sums rows [b * blk, (b + 1) * blk) in tiles of `tile` rows (at most
@@ -173,15 +326,33 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// Tiles of `tile_rows` consecutive output rows, tile t by CTA t % grid, the
+// CTA's k-th tile in stage k % COPY_STAGES.
 __global__ void __launch_bounds__(THREADS)
-    row_gather_rowloop_kernel(const float4 *__restrict__ table,
-                              const int32_t *__restrict__ idx, float4 *__restrict__ out,
-                              int n, int w4) {
-  const int64_t row = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (row >= n) return;
-  const float4 *src = table + (int64_t)__ldg(idx + row) * w4;
-  float4 *dst = out + row * w4;
-  for (int q = 0; q < w4; ++q) dst[q] = __ldg(src + q);
+    row_copy_kernel(const float4 *__restrict__ table, const int32_t *__restrict__ idx,
+                    float4 *__restrict__ out, int n, int w4, int tile_rows) {
+  extern __shared__ __align__(128) float4 stages[];
+  constexpr int STAGE_F4 = COPY_STAGE_BYTES / (int)sizeof(float4);
+  pdl_begin();
+  const int64_t tiles = ((int64_t)n + tile_rows - 1) / tile_rows;
+  int k = 0;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
+    float4 *stage = stages + (k % COPY_STAGES) * STAGE_F4;
+    const int64_t r0 = t * tile_rows;
+    const int count = (int)(n - r0 < tile_rows ? n - r0 : tile_rows) * w4;
+    // the bulk copy that read this stage COPY_STAGES tiles ago is done reading
+    if (threadIdx.x == 0) bulk_wait_read<COPY_STAGES - 1>();
+    __syncthreads();
+    for (int e = threadIdx.x; e < count; e += THREADS) {
+      const int r = e / w4;
+      cp_async16(stage + e, table + (int64_t)__ldg(idx + r0 + r) * w4 + (e - r * w4));
+    }
+    cp_async_wait_all();
+    fence_async_shared();
+    __syncthreads();
+    if (threadIdx.x == 0) bulk_store(out + r0 * w4, stage, (unsigned)count * sizeof(float4));
+  }
+  if (threadIdx.x == 0) bulk_wait_all();
 }
 
 unsigned blocks_for(int64_t threads) { return (unsigned)((threads + THREADS - 1) / THREADS); }
@@ -209,40 +380,96 @@ int sm_count() {
   return count[dev];
 }
 
-template <int G>
-int launch_rowsum(void **ptrs, int n, int w4, bool persistent, cudaStream_t stream) {
-  const float4 *table = (const float4 *)ptrs[0];
-  const int32_t *idx = (const int32_t *)ptrs[1];
-  float *out = (float *)ptrs[2];
-  if (!persistent) {
-    rowsum_coop_kernel<G><<<blocks_for((int64_t)n * G), THREADS, 0, stream>>>(table, idx, out,
-                                                                              n, w4);
-    return (int)cudaGetLastError();
-  }
-  static int per_sm = 0;  // resident blocks of this instance on one SM
-  if (per_sm == 0) {
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, rowsum_persistent_kernel<G>, THREADS, 0);
-    if (err != cudaSuccess) return (int)err;
+// The blocks of a one-wave persistent launch of `kernel` (blocks of
+// `threads`, `smem` bytes of dynamic shared memory): `wanted`, at most what
+// the card holds at once, SM count x resident blocks (*per_sm, found once);
+// a CUDA error as a negative number.
+template <typename Kernel>
+int64_t wave_blocks(Kernel kernel, int threads, int *per_sm, size_t smem, int64_t wanted) {
+  if (*per_sm == 0) {
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return -(int64_t)err;
   }
   const int sms = sm_count();
-  if (sms < 0) return -sms;
-  rowsum_persistent_kernel<G><<<sms * per_sm, THREADS, 0, stream>>>(table, idx, out, n, w4);
+  if (sms < 0) return sms;
+  const int64_t most = (int64_t)sms * *per_sm;
+  return wanted < most ? wanted : most;
+}
+
+// Launch `kernel` on `grid` blocks of `threads` with programmatic stream
+// serialization: its blocks may be scheduled while the stream's previous
+// launch drains (they wait in pdl_begin).  Returns the CUDA error.
+template <typename... Params, typename... Args>
+int launch_pdl(void (*kernel)(Params...), int64_t grid, int threads, size_t smem,
+               cudaStream_t stream, Args... args) {
+  if (grid <= 0) return grid < 0 ? (int)-grid : (int)cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+template <int G, int K>
+int launch_coop(void **ptrs, int n, int w4, cudaStream_t stream) {
+  static int per_sm = 0;
+  const int64_t batches = ((int64_t)n + CoopShape<G, K>::B - 1) / CoopShape<G, K>::B;
+  const int64_t grid = wave_blocks(rowsum_coop_kernel<G, K>, ROWSUM_THREADS, &per_sm, 0,
+                                   (batches + COOP_WARPS - 1) / COOP_WARPS);
+  return launch_pdl(rowsum_coop_kernel<G, K>, grid, ROWSUM_THREADS, 0, stream,
+                    (const float4 *)ptrs[0], (const int32_t *)ptrs[1], (float *)ptrs[2], n, w4);
+}
+
+int dispatch_coop(void **ptrs, const double *scal, int n, void *stream) {
+  const int w4 = (int)scal[0] / 4;
+  if (n <= 0) return (int)cudaGetLastError();
+  if (w4 <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  // K = 2 where w4 is not a power of two below 64 (w4 < 2 G then), or for
+  // G = 32 chunks of 64 float4s
+#define COOP_CASE(G) \
+  case G: return w4 > G ? launch_coop<G, 2>(ptrs, n, w4, st) : launch_coop<G, 1>(ptrs, n, w4, st)
+  switch (group_for(w4)) {
+    COOP_CASE(1);
+    COOP_CASE(2);
+    COOP_CASE(4);
+    COOP_CASE(8);
+    COOP_CASE(16);
+    default: return w4 > 32 ? launch_coop<32, 2>(ptrs, n, w4, st) : launch_coop<32, 1>(ptrs, n, w4, st);
+  }
+#undef COOP_CASE
+}
+
+template <int G>
+int launch_persistent(void **ptrs, int n, int w4, cudaStream_t stream) {
+  static int per_sm = 0;  // resident blocks of this instance on one SM
+  const int64_t grid = wave_blocks(rowsum_persistent_kernel<G>, THREADS, &per_sm, 0, INT32_MAX);
+  if (grid <= 0) return grid < 0 ? (int)-grid : (int)cudaErrorInvalidConfiguration;
+  rowsum_persistent_kernel<G><<<(unsigned)grid, THREADS, 0, stream>>>(
+      (const float4 *)ptrs[0], (const int32_t *)ptrs[1], (float *)ptrs[2], n, w4);
   return (int)cudaGetLastError();
 }
 
-int dispatch_rowsum(void **ptrs, const double *scal, int n, void *stream, bool persistent) {
+int dispatch_persistent(void **ptrs, const double *scal, int n, void *stream) {
   const int w4 = (int)scal[0] / 4;
   if (n <= 0) return (int)cudaGetLastError();
   if (w4 <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (group_for(w4)) {
-    case 1: return launch_rowsum<1>(ptrs, n, w4, persistent, st);
-    case 2: return launch_rowsum<2>(ptrs, n, w4, persistent, st);
-    case 4: return launch_rowsum<4>(ptrs, n, w4, persistent, st);
-    case 8: return launch_rowsum<8>(ptrs, n, w4, persistent, st);
-    case 16: return launch_rowsum<16>(ptrs, n, w4, persistent, st);
-    default: return launch_rowsum<32>(ptrs, n, w4, persistent, st);
+    case 1: return launch_persistent<1>(ptrs, n, w4, st);
+    case 2: return launch_persistent<2>(ptrs, n, w4, st);
+    case 4: return launch_persistent<4>(ptrs, n, w4, st);
+    case 8: return launch_persistent<8>(ptrs, n, w4, st);
+    case 16: return launch_persistent<16>(ptrs, n, w4, st);
+    default: return launch_persistent<32>(ptrs, n, w4, st);
   }
 }
 
@@ -253,13 +480,13 @@ extern "C" {
 int gather_rowsum_coop_nptrs() { return 3; }
 int gather_rowsum_coop_nscal() { return 1; }
 int gather_rowsum_coop_launch(void **ptrs, const double *scal, int n, void *stream) {
-  return dispatch_rowsum(ptrs, scal, n, stream, false);
+  return dispatch_coop(ptrs, scal, n, stream);
 }
 
 int gather_rowsum_persistent_nptrs() { return 3; }
 int gather_rowsum_persistent_nscal() { return 1; }
 int gather_rowsum_persistent_launch(void **ptrs, const double *scal, int n, void *stream) {
-  return dispatch_rowsum(ptrs, scal, n, stream, true);
+  return dispatch_persistent(ptrs, scal, n, stream);
 }
 
 int gather_rowsum_rowloop_nptrs() { return 3; }
@@ -291,11 +518,18 @@ int gather_rowsum_smem_launch(void **ptrs, const double *scal, int n, void *stre
 int row_gather_rowloop_nptrs() { return 3; }
 int row_gather_rowloop_nscal() { return 1; }
 int row_gather_rowloop_launch(void **ptrs, const double *scal, int n, void *stream) {
-  if (n > 0)
-    row_gather_rowloop_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const float4 *)ptrs[0], (const int32_t *)ptrs[1], (float4 *)ptrs[2], n,
-        (int)scal[0] / 4);
-  return (int)cudaGetLastError();
+  const int w4 = (int)scal[0] / 4;
+  if (n <= 0) return (int)cudaGetLastError();
+  // a row must fit a stage: w up to COPY_STAGE_BYTES / 4 = 2,048 floats
+  if (w4 <= 0 || w4 * (int)sizeof(float4) > COPY_STAGE_BYTES) return (int)cudaErrorInvalidValue;
+  const int tile_rows = COPY_STAGE_BYTES / (w4 * (int)sizeof(float4));
+  const size_t smem = (size_t)COPY_STAGES * COPY_STAGE_BYTES;
+  static int per_sm = 0;
+  const int64_t grid = wave_blocks(row_copy_kernel, THREADS, &per_sm, smem,
+                                   ((int64_t)n + tile_rows - 1) / tile_rows);
+  return launch_pdl(row_copy_kernel, grid, THREADS, smem, (cudaStream_t)stream,
+                    (const float4 *)ptrs[0], (const int32_t *)ptrs[1], (float4 *)ptrs[2], n, w4,
+                    tile_rows);
 }
 
 }  // extern "C"

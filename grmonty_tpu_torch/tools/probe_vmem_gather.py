@@ -16,7 +16,7 @@ Variants over a (Z, w) table:
   Hopper, so one kernel serves both; the two keys are two measurements of
   it;
 * ``cuda_ds``: ``row_gather_rowloop``, the row copy
-  ``out[n, :] = table[idx[n], :]`` one row per thread, of ``pallas_ds``
+  ``out[n, :] = table[idx[n], :]``, of ``pallas_ds``
   (``:178``); its link takes the row sum of the copy.
 
 The JAX probe's ``xla_barrier`` has no counterpart: ``lax.optimization_barrier``

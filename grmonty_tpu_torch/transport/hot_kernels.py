@@ -17,8 +17,8 @@ gather of the event phase and of the reference fresh-lane init.
 
 ``csrc/gather_probe.cu`` replaces the eight Pallas kernels of the gather
 probes under ``tools/``: :func:`gather_rowsum` (``table[idx].sum(1)`` by
-four strategies) and :func:`row_gather_rowloop` (the row copy, one thread
-per row); the probes that drive them are ``grmonty_tpu_torch/tools/``.
+four strategies) and :func:`row_gather_rowloop` (the row copy); the probes
+that drive them are ``grmonty_tpu_torch/tools/``.
 
 The headers of the ``.cu`` files say what bounds each kernel on the card.
 
@@ -67,6 +67,10 @@ launches = {"hot_step": 0, "hot_step_ref": 0, "row_gather": 0, "gather_rowsum_co
             "gather_rowsum_smem": 0, "row_gather_rowloop": 0}
 # The strategies of gather_rowsum, each its own entry point gather_rowsum_<s>.
 ROWSUM_STRATEGIES = ("coop", "persistent", "rowloop", "smem")
+# The widest row of row_gather_rowloop: one row must fit one of the row
+# copy's 8 KB shared-memory stages (COPY_STAGE_BYTES of csrc/gather_probe.cu);
+# a tile holds ROW_COPY_MAX_W // W rows.
+ROW_COPY_MAX_W = 2048
 
 
 def reset_launches():
@@ -116,6 +120,11 @@ class _Build:
     paths = []
     seconds = 0.0
     log = ""
+
+
+def built():
+    """Whether this process has loaded the kernels."""
+    return _Build.fns is not None
 
 
 def build():
@@ -181,6 +190,8 @@ def _check_lanes(what, tensors, dtypes, n, dev):
 
 def _launch(name, ptr_tensors, scal, n, device):
     build()
+    if n == 0:
+        return  # no lanes: nothing to launch
     ptrs = (ctypes.c_void_p * len(ptr_tensors))(*[t.data_ptr() for t in ptr_tensors])
     sc = scal if isinstance(scal, ctypes.Array) else (ctypes.c_double * len(scal))(
         *[float(v) for v in scal])
@@ -349,9 +360,13 @@ def gather_rowsum(table, idx, strategy="coop", blk=256):
 
 
 def row_gather_rowloop(table, idx):
-    """``table[idx]`` as :func:`row_gather`, by the one-thread-per-row
-    kernel of ``csrc/gather_probe.cu`` on CUDA tensors (the plain version
-    on CPU tensors)."""
+    """``table[idx]`` as :func:`row_gather`, by the row-copy kernel of
+    ``csrc/gather_probe.cu`` on CUDA tensors (tiles of rows gathered into
+    shared memory and written out by bulk copies), the plain version on
+    CPU tensors.  W is at most ``ROW_COPY_MAX_W`` on either device."""
+    if table.dim() == 2 and table.shape[1] > ROW_COPY_MAX_W:
+        raise ValueError(f"row_gather_rowloop: W = {table.shape[1]} exceeds "
+                         f"{ROW_COPY_MAX_W}, the floats of one shared-memory stage")
     if table.device.type == "cpu":
         return table[idx.long()]
     dev, n, w = _gather_args(table, idx, "row_gather_rowloop")

@@ -17,30 +17,27 @@
   JAX pool of 1,024 lanes carried in with ``convert.from_jax_pool``, at
   n_t = 512.
 
+* The kernel build: a CPU ``Simulation`` builds nothing and reports
+  ``compile_s`` 0.0; a CUDA one has its kernels loaded before ``run()``
+  (a ``cuda`` test).
+
 JAX's driver methods run on stand-in objects that hold only the attributes
-they read, so no JAX engine is compiled.
+they read, so no JAX engine is compiled.  JAX is imported inside a fixture,
+so that the card test, which needs no JAX, also runs on the card:
+``python -m pytest --noconftest -m cuda tests/test_torch_driver.py``.
 """
 
 import hashlib
 import os
 import types
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax import random
 
-from grmonty_tpu.models import harm as jharm
-from grmonty_tpu.ops import fluid as jfluid
-from grmonty_tpu.transport import driver as jdriver
-from grmonty_tpu.transport import engine as jengine
-from grmonty_tpu.transport import oracle_native as joracle
-from grmonty_tpu.utils import cache
 from grmonty_tpu_torch import consts, convert
 from grmonty_tpu_torch.models import torus
-from grmonty_tpu_torch.transport import driver, engine, oracle_native, profiles
+from grmonty_tpu_torch.transport import driver, engine, hot_kernels, oracle_native, profiles
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 M_UNIT = 4.0e18
@@ -54,6 +51,24 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's modules that the comparisons read."""
+    import jax
+    import jax.numpy as jnp
+    from jax import random
+
+    from grmonty_tpu.models import harm
+    from grmonty_tpu.ops import fluid
+    from grmonty_tpu.transport import driver as jdriver
+    from grmonty_tpu.transport import engine as jengine
+    from grmonty_tpu.transport import oracle_native as joracle
+    from grmonty_tpu.utils import cache
+
+    return types.SimpleNamespace(jax=jax, jnp=jnp, random=random, harm=harm, fluid=fluid,
+                                 driver=jdriver, engine=jengine, oracle=joracle, cache=cache)
 
 
 @pytest.fixture(scope="module")
@@ -74,12 +89,12 @@ def sim(dump):
 
 
 @pytest.fixture(scope="module")
-def jax_side(dump):
+def jax_side(jx, dump):
     """What the JAX tracker reads: mc, the two tables, the primitives."""
-    model = jharm.read_dump(dump, M_UNIT)
-    tabs = types.SimpleNamespace(hotcross=cache.hotcross_table(),
-                                 k2_table=cache.jnu_tables()[1])
-    return jfluid.make_model_consts(model), tabs, np.asarray(model.data.stacked())
+    model = jx.harm.read_dump(dump, M_UNIT)
+    tabs = types.SimpleNamespace(hotcross=jx.cache.hotcross_table(),
+                                 k2_table=jx.cache.jnu_tables()[1])
+    return jx.fluid.make_model_consts(model), tabs, np.asarray(model.data.stacked())
 
 
 def _sha(path):
@@ -91,11 +106,11 @@ def test_oracle_source_is_the_jax_packages():
     assert _sha(oracle_native.SRC) == _sha(os.path.join(ROOT, "native", "oracle.cpp"))
 
 
-def test_native_tracker_matches_jax(sim, jax_side):
+def test_native_tracker_matches_jax(jx, sim, jax_side):
     jmc, jtabs, prims = jax_side
     batch = oracle_native.photons_from_rows(sim._pilot_rows(600))
     mine = oracle_native.NativeTracker(sim.mc, prims, seed=7)
-    ref = joracle.NativeTracker(jmc, jtabs, prims, seed=7)
+    ref = jx.oracle.NativeTracker(jmc, jtabs, prims, seed=7)
     for lo, hi in ((0, 250), (250, 600)):
         part = oracle_native.Photons(*[a[lo:hi] for a in batch])
         mine.run(part, progress_every=0)
@@ -137,16 +152,16 @@ def test_pilot_photons_sit_at_evenly_spaced_plan_indices(sim):
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_pilot_counters_match_jax(sim, jax_side, dtype):
+def test_pilot_counters_match_jax(jx, sim, jax_side, dtype):
     jmc, jtabs, prims = jax_side
     rows = sim._pilot_rows(min(1024, sim.plan_.total))
-    t_dt, j_dt = getattr(torch, dtype), getattr(jnp, dtype)
+    t_dt, j_dt = getattr(torch, dtype), getattr(jx.jnp, dtype)
     mine = sim._host_warm_counters(rows, engine.init_counters(sim.mc.max_tau_scatt0, t_dt,
                                                               torch.device("cpu")))
     stand_in = types.SimpleNamespace(mc=jmc, tables=jtabs, prims=prims, seed=sim.seed)
-    ref = jdriver.Simulation._host_warm_counters(
+    ref = jx.driver.Simulation._host_warm_counters(
         stand_in, oracle_native.photons_from_rows(rows),
-        jengine.init_counters(jmc.max_tau_scatt0, j_dt))
+        jx.engine.init_counters(jmc.max_tau_scatt0, j_dt))
     assert ref is not None and int(ref.n_recorded) > 0
     for name in ("n_recorded", "n_scatt_rec", "max_tau_scatt", "avg_ema", "ema_scatt_mark",
                  "ema_rec_mark"):
@@ -158,34 +173,36 @@ def test_pilot_counters_match_jax(sim, jax_side, dtype):
 @pytest.mark.parametrize("total,chunk", [(100, 1000), (1000, 1000), (5000, 1024),
                                          (2000, 8), (20, 7), (1_587_750, 1 << 20),
                                          (793_890, 1 << 20), (3 << 20, 1 << 20)])
-def test_wave_list_matches_jax(total, chunk):
+def test_wave_list_matches_jax(jx, total, chunk):
+    jengine, jnp = jx.engine, jx.jnp
     pool, tail_exit = 65536, 65536
     seen = []
     state = jengine.State(
         pool=jengine.empty_pool(8, jnp.float32), spec=jnp.zeros((1, 1)),
         counters=jengine.init_counters(1.0, jnp.float32),
         sec=jengine.empty_secbuf(8, jnp.float32), backlog_pos=jnp.zeros((), jnp.int32),
-        key=random.PRNGKey(0), it=jnp.zeros((), jnp.int32))
+        key=jx.random.PRNGKey(0), it=jnp.zeros((), jnp.int32))
 
     def run_wave(st, backlog, t0, c, n, tot, start=0, tail_exit=None, n_valid=None):
         seen.append((start, n_valid, tail_exit))
         return st
 
     stand_in = types.SimpleNamespace(
-        plan=lambda: types.SimpleNamespace(total=total), key=random.PRNGKey(0),
+        plan=lambda: types.SimpleNamespace(total=total), key=jx.random.PRNGKey(0),
         engine={"fresh_state": lambda k: state}, _warm_compile=lambda plan: None,
         warmup=0, emit_chunk=chunk, cfg=types.SimpleNamespace(n_pool=pool, weight_scale=1.0),
         _wave_tail_exit=tail_exit, emit_packed_host=lambda *a: None, _run_wave=run_wave,
         _drain_tail=lambda st: st, _drain_spec=lambda st: st, device_s=0.0,
         spec_acc=np.zeros((1, 16)))
-    jdriver.Simulation.run(stand_in)
+    jx.driver.Simulation.run(stand_in)
     assert driver.wave_list(total, chunk, pool, tail_exit) == seen
     assert sum(n for _, n, _ in seen) == total
 
 
-def _jax_pool(n, seed):
+def _jax_pool(jx, n, seed):
     """A JAX pool with detached events, every field seeded at random, about
     60% of the lanes occupied."""
+    jnp = jx.jnp
     rng = np.random.default_rng(seed)
 
     def fill(a):
@@ -196,7 +213,7 @@ def _jax_pool(n, seed):
             return jnp.asarray(rng.integers(0, 1000, a.shape).astype(a.dtype))
         return jnp.asarray(rng.standard_normal(a.shape).astype(a.dtype))
 
-    return jax.tree.map(fill, jengine.empty_pool(n, jnp.float64, detached_events=True))
+    return jx.jax.tree.map(fill, jx.engine.empty_pool(n, jnp.float64, detached_events=True))
 
 
 def _assert_pools_equal(got, ref, what):
@@ -206,12 +223,13 @@ def _assert_pools_equal(got, ref, what):
             assert gc.dtype == rc.dtype and torch.equal(gc, rc), f"{what}.{name}[{i}]"
 
 
-def test_tail_gather_and_merge_match_jax():
+def test_tail_gather_and_merge_match_jax(jx):
+    jnp = jx.jnp
     n_pool, n_t = 1024, 512
     stand_in = types.SimpleNamespace(
         cfg=types.SimpleNamespace(n_pool=n_pool, detached_events=True), _drain_fns={})
-    gather, merge, _ = jdriver.Simulation._drain_jits(stand_in, n_t)
-    jpool = _jax_pool(n_pool, 11)
+    gather, merge, _ = jx.driver.Simulation._drain_jits(stand_in, n_t)
+    jpool = _jax_pool(jx, n_pool, 11)
     assert int(jpool.occupied.sum()) > n_t  # the gather must truncate
     j_small, j_wide = gather(jpool)
     small, wide = driver.tail_gather(convert.from_jax_pool(jpool, torch.float64), n_t)
@@ -249,3 +267,54 @@ def test_pilot_accounting(dump):
     assert stats["pilot"]["photons"] == 64 and stats["n_recorded"] > 0
     assert spec[: engine.N_BINS, 2].sum() == stats["n_recorded"]
     assert [st["pool"] for st in stats["tail_stages"]] == [64]
+
+
+def test_cpu_simulation_builds_no_kernels(dump, monkeypatch):
+    """On the CPU nothing is built: ``compile_s`` is 0.0 from ``run()``."""
+    def refuse():
+        raise AssertionError("a CPU Simulation built the CUDA kernels")
+
+    monkeypatch.setattr(hot_kernels, "build", refuse)
+    cfg = profiles.bench_config(pool=64, dtype=torch.float64)._replace(
+        m_period=8, sec_cap=512, stall_steps=100)
+    s = driver.Simulation(dump, photon_n=1, mass_unit=M_UNIT, config=cfg, device="cpu",
+                          emit_chunk=1024, warmup=0, tail_stall_steps=100)
+    assert s.compile_s == 0.0
+    _, stats = s.run()
+    assert stats["compile_s"] == 0.0 and stats["device_s"] is None
+    assert stats["n_created"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_simulation_loads_the_kernels_before_run(dump, monkeypatch):
+    """A CUDA ``Simulation`` builds or loads the kernels in ``__init__`` as a
+    process that does not hold them yet must (the loaded state is dropped
+    first), reports those seconds as ``compile_s``, and ``run()`` then finds
+    them loaded at every launch, so no build falls inside ``device_s``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    first_in_process = not hot_kernels.built()
+    for attr in ("fns", "paths", "seconds", "log"):
+        monkeypatch.setattr(hot_kernels._Build, attr, getattr(hot_kernels._Build, attr))
+    hot_kernels._Build.fns = None
+
+    def make():
+        return driver.Simulation(dump, photon_n=10, mass_unit=M_UNIT,
+                                 config=profiles.bench_config(pool=512, dtype=torch.float32),
+                                 device="cuda", warmup=0)
+
+    s = make()
+    assert hot_kernels.built() and s.compile_s > 0.0
+    build = hot_kernels.build
+
+    def loaded_only():
+        assert hot_kernels.built(), "run() built the kernels inside the device window"
+        return build()
+
+    monkeypatch.setattr(hot_kernels, "build", loaded_only)
+    _, stats = s.run()
+    assert stats["compile_s"] == s.compile_s and stats["device_s"] > 0.0
+    assert stats["n_created"] > 0
+    print(f"compile_s {s.compile_s:.4f} device_s {stats['device_s']:.4f} "
+          f"(first build in this process: {first_in_process})")
+    assert make().compile_s == 0.0  # the process already holds them

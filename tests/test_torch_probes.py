@@ -285,6 +285,32 @@ def test_probe_vmem_gather_experiments_match_jax(px):
     np.testing.assert_array_equal(op(base).numpy(), pallas_probe(px, "pallas_ds", table, idx))
 
 
+@pytest.mark.parametrize("strategy", hot_kernels.ROWSUM_STRATEGIES + ("row_gather_rowloop",))
+def test_no_indices_give_an_empty_result(strategy):
+    table, idx = inputs(256, 32, 8, 2)
+    t, i = torch.as_tensor(table), torch.as_tensor(idx[:0])
+    if strategy == "row_gather_rowloop":
+        assert tuple(hot_kernels.row_gather_rowloop(t, i).shape) == (0, 32)
+    else:
+        assert tuple(hot_kernels.gather_rowsum(t, i, strategy, blk=BLK).shape) == (0,)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_row_copy_takes_rows_up_to_one_stage(device):
+    """Rows of ROW_COPY_MAX_W floats are copied; a wider table raises a
+    ValueError on either device (on the card, before any launch)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    w = hot_kernels.ROW_COPY_MAX_W
+    rng = np.random.default_rng(5)
+    wide = torch.as_tensor(rng.standard_normal((64, w + 4)).astype(np.float32), device=device)
+    table = wide[:, :w].contiguous()
+    idx = torch.as_tensor(np.array([63, 0, 5, 5], np.int32), device=device)
+    assert torch.equal(hot_kernels.row_gather_rowloop(table, idx), table[idx.long()])
+    with pytest.raises(ValueError, match="exceeds"):
+        hot_kernels.row_gather_rowloop(wide, idx)
+
+
 @pytest.mark.parametrize("probe", [probe_gather, probe_pallas_gather, probe_vmem_gather])
 def test_probe_main_exits_2_without_a_card(probe, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -325,3 +351,36 @@ def test_probe_kernels_match_plain_on_the_card():
                lambda i: hot_kernels.row_gather_rowloop(table, i)):
         ms = chain_ms(op, idx, 4096, 2, 6, reps=2)
         assert np.isfinite(ms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gather_rowsum_coop", "row_gather_rowloop"])
+@pytest.mark.parametrize("w", [4, 32, 216, 256])
+def test_redesigned_kernels_at_their_tile_edges_on_the_card(kernel, w):
+    """The two redesigned kernels at the row counts their tiling makes edges
+    of: none, one, a warp's batch of 32 rows +-1, one row-copy tile +-1 and
+    65,537 (a ragged last tile); indices 0 and Z - 1 and repeats included.
+    The row copy bitwise, the row sum within rowsum_slack."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    dev, z = torch.device("cuda"), 4096
+    tile = hot_kernels.ROW_COPY_MAX_W // w  # rows of one row-copy stage
+    rng = np.random.default_rng(w)
+    table = torch.as_tensor(rng.standard_normal((z, w)).astype(np.float32), device=dev)
+    for n in sorted({0, 1, 31, 33, tile - 1, tile, tile + 1, 65537}):
+        idx_np = rng.integers(0, z, n).astype(np.int32)
+        idx_np[:6] = (z - 1, 0, z - 1, 0, 7, 7)[:n]
+        idx = torch.as_tensor(idx_np, device=dev)
+        before = hot_kernels.launches[kernel]
+        if kernel == "row_gather_rowloop":
+            got = hot_kernels.row_gather_rowloop(table, idx)
+            torch.cuda.synchronize()
+            assert tuple(got.shape) == (n, w)
+            assert torch.equal(got, table[idx.long()]), (w, n)
+        else:
+            got = hot_kernels.gather_rowsum(table, idx, "coop")
+            torch.cuda.synchronize()
+            assert tuple(got.shape) == (n,)
+            diff = (got.double() - hot_kernels.plain_rowsum(table, idx).double()).abs()
+            assert bool((diff <= hot_kernels.rowsum_slack(table, idx)).all()), (w, n)
+        assert hot_kernels.launches[kernel] == before + (n > 0)
