@@ -51,13 +51,15 @@ Phases, each of which exits non-zero on failure:
    with the same checks of the schedule, the spectrum and the luminosity;
 7. the gather probes (``grmonty_tpu_torch/tools/``): (a) the five kernels
    of ``csrc/gather_probe.cu`` against their plain versions at N = Z =
-   65,536 and w = 32 (and the cooperative and row-loop sums and the row
-   copy at w = 216, where the table outgrows L2 and 54 float4s fall
-   unevenly on a warp; their records carry the names ``<kernel>@216`` and
-   ``launches`` null, since no phase launches them at that width), on
-   a seeded table at seeded indices with 0 and Z-1 included: the four row
-   sums within ``hot_kernels.rowsum_slack`` on every index, the row copy
-   bitwise; (b) then, with every launch count set to 0, the three probes,
+   65,536 and w = 32 and 216 (where the table outgrows L2 and 54 float4s
+   fall unevenly on a warp), the staged row sum at blk 256 and also at the
+   probe's blk 8,192, on a seeded table at seeded indices with 0 and Z-1
+   included: the four row sums within ``hot_kernels.rowsum_slack`` on
+   every index, the row copy bitwise; each record also gives ``floor_ms``,
+   the device time of a one-row launch.  The records that no phase
+   launches (w = 216, blk 8,192) carry the names ``<kernel>@216`` and
+   ``gather_rowsum_smem@blk8192`` and ``launches`` null; (b) then, with
+   every launch count set to 0, the three probes,
    each printed as ``probe <name>: {...}``; each of the five kernels must
    have been launched.  The chained probes replay CUDA graphs, and a
    replayed launch does not pass through the wrapper: the counts see the
@@ -131,6 +133,7 @@ FP32_ISSUE_PER_S = FP32_OPS_PER_S / 2
 # sum of width w does w - 1 additions (W_PROBE here; the w = 216 checks
 # pass their own).
 W_PROBE = 32
+PROBE_BLK = 8192  # probe_pallas_gather's default blk (PROBE_BLK) for dsB
 ROWSUMS = tuple(f"gather_rowsum_{s}" for s in ("coop", "persistent", "rowloop", "smem"))
 OPS_PER_LANE = {"hot_step": 3800, "hot_step_ref": 3840, "row_gather": 0,
                 **{name: W_PROBE - 1 for name in ROWSUMS}, "row_gather_rowloop": 0}
@@ -261,12 +264,13 @@ def make_simulation(root, photon_n, reference=False, stall_steps=REF_STALL_STEPS
 
 
 def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None,
-                slack=None, n=N_CHECK):
+                slack=None, n=N_CHECK, extra=None):
     """Hold ``got`` against ``ref`` under the kernel's tolerance (plus
     ``slack`` per lane where given), time plain, kernel, kernel, plain (one
     pair of each per call, averaged), the kernel's device time and the
-    library call, and return the record; ``ops`` is the call's float32
-    work, ``OPS_PER_LANE`` over ``n`` lanes unless given."""
+    library call, and return the record, updated by ``extra``; ``ops`` is
+    the call's float32 work, ``OPS_PER_LANE`` over ``n`` lanes unless
+    given."""
     from grmonty_tpu_torch.transport import hot_kernels
 
     err, rel, mask, fails = hot_kernels.compare(ref, got, **hot_kernels.KERNEL_TOLERANCE[name],
@@ -283,7 +287,8 @@ def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None
            "library_ms": None if library is None else cuda_ms(library),
            "library_device_ms": None if library is None else cuda_ms(library, queued=True),
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved_bytes, "n": n}
-    print(f"kernel check {name}{'' if n == N_CHECK else f'@{n}'}: {json.dumps(rec)}")
+    rec.update(extra or {})
+    print(f"kernel check {rec['name']}{'' if n == N_CHECK else f'@{n}'}: {json.dumps(rec)}")
     if fails:
         fail(f"{name} disagrees with its plain version: " + "; ".join(fails))
     return rec
@@ -429,10 +434,12 @@ def kernel_checks(sim, usage, sass, ref_stall_steps):
 
 
 def probe_kernel_checks():
-    """Phase 7a: the gather-probe kernels vs their plain versions at N = Z =
-    N_CHECK, all five at w = W_PROBE, the cooperative and row-loop sums and
-    the row copy also at w = 216.  Returns the records, those at w = 216
-    named ``<kernel>@216``."""
+    """Phase 7a: the five gather-probe kernels vs their plain versions at N =
+    Z = N_CHECK and w = W_PROBE and 216 (blk 256), and the staged row sum
+    also at the probe's own blk (PROBE_BLK).  Each record also carries
+    ``floor_ms``, the device time of a one-row launch (queued as
+    ``device_ms`` is).  Returns the records, those that phase 7b's probes
+    do not run named ``<kernel>@216`` and ``gather_rowsum_smem@blk8192``."""
     import numpy as np
     import torch
 
@@ -440,43 +447,52 @@ def probe_kernel_checks():
 
     dev = torch.device("cuda")
     out = []
-    for w, names in ((W_PROBE, ROWSUMS + ("row_gather_rowloop",)),
-                     (216, ("gather_rowsum_coop", "gather_rowsum_rowloop",
-                            "row_gather_rowloop"))):
+    for w in (W_PROBE, 216):
         rng = np.random.default_rng(w)
         table = torch.as_tensor(rng.standard_normal((N_CHECK, w)).astype(np.float32), device=dev)
         idx_np = rng.integers(0, N_CHECK, N_CHECK).astype(np.int32)
         idx_np[:2] = (0, N_CHECK - 1)
         idx = torch.as_tensor(idx_np, device=dev)
+        one = idx[:1]
         # the rows these indices touch, once, and the indices
         moved_in = nbytes(idx) + torch.unique(idx).numel() * w * 4
-        for name in names:
+        cases = [(name, 256) for name in ROWSUMS + ("row_gather_rowloop",)]
+        if w == W_PROBE:
+            cases.insert(ROWSUMS.index("gather_rowsum_smem") + 1,
+                         ("gather_rowsum_smem", PROBE_BLK))
+        for name, blk in cases:
+            label = (name + ("" if w == W_PROBE else f"@{w}")
+                     + ("" if blk == 256 else f"@blk{blk}"))
+            extra = {"w": w}
+            if label != name:
+                # phase 7b's probes launch at w = W_PROBE and their own blk
+                # only, counted on the kernel's own record: none here
+                extra.update(name=label, launches=None)
             if name == "row_gather_rowloop":
                 plain = lambda: table[idx.long()]  # noqa: E731
-                kern = lambda: hot_kernels.row_gather_rowloop(table, idx)  # noqa: E731
+                kern = lambda i=idx: hot_kernels.row_gather_rowloop(table, i)  # noqa: E731
                 ref, got = plain(), kern()
                 torch.cuda.synchronize()
                 if not torch.equal(ref, got):
-                    fail("row_gather_rowloop is not bitwise equal to table[idx]")
+                    fail(f"{label} is not bitwise equal to table[idx]")
+                extra["floor_ms"] = cuda_ms(lambda: kern(one), queued=True)
                 rec = time_kernel(name, {"rows": ref}, {"rows": got}, plain, kern,
                                   moved_in + nbytes(ref), ops=0,
-                                  library=lambda: torch.index_select(table, 0, idx))
+                                  library=lambda: torch.index_select(table, 0, idx),
+                                  extra=extra)
             else:
                 strategy = name.removeprefix("gather_rowsum_")
                 plain = lambda: hot_kernels.plain_rowsum(table, idx)  # noqa: E731
-                kern = lambda: hot_kernels.gather_rowsum(table, idx, strategy)  # noqa: E731
+                kern = lambda i=idx: hot_kernels.gather_rowsum(  # noqa: E731
+                    table, i, strategy, blk=blk)
                 ref, got = plain(), kern()
                 torch.cuda.synchronize()
+                extra["floor_ms"] = cuda_ms(lambda: kern(one), queued=True)
                 # no one PyTorch call gathers and sums: library_ms stays null
                 # and the probe's two-op torch_ms is added beside it
                 rec = time_kernel(name, {"sum": ref}, {"sum": got}, plain, kern,
                                   moved_in + nbytes(ref), ops=(w - 1) * N_CHECK,
-                                  slack=hot_kernels.rowsum_slack(table, idx))
-            rec["w"] = w
-            if w != W_PROBE:
-                # phase 7b's probes launch at w = W_PROBE only: no run of
-                # this script launches the kernel at w, so no count is given
-                rec["name"], rec["launches"] = f"{name}@{w}", None
+                                  slack=hot_kernels.rowsum_slack(table, idx), extra=extra)
             out.append(rec)
     return out
 

@@ -60,17 +60,52 @@
 //               scheduled while this one drains and wait in
 //               griddepcontrol.wait, which takes part of that floor out of
 //               a chain of launches;
-//   persistent  (SM count x resident blocks) CTAs walking the rows with a
-//               grid-stride loop; each group of g lanes takes one row, one
-//               __ldg of 16 B a lane in flight (coop's design until it was
-//               redesigned, kept here as this kernel's own);
+//   persistent  one grid step over the whole pool: one wave of blocks of
+//               PERSIST_THREADS, sized by occupancy (no more than the rows
+//               need) and bound to every thread an SM can hold, over the
+//               flat list of (row, lane) pairs, G lanes a row as in coop.
+//               Where coop hands each warp batches of consecutive rows,
+//               here thread t takes pair t of every pass, a pass being the
+//               grid's threads: its rows lie one pass (grid threads / G
+//               rows) apart.  The passes are fixed at launch from N; a
+//               thread loads the indices of a group of U passes, then
+//               issues every 16 B __ldg of their rows (U K a lane, U =
+//               PERSIST_LOADS / K, or PERSIST_LOADS_NARROW / K for rows
+//               under 32 float4s) with the next group's indices, then adds,
+//               reduces by shuffles and stores: the index -> row -> store
+//               chain runs once for U passes, where a grid-stride loop ran
+//               it once a pass, and the next indices are in flight with the
+//               rows.  At w = 32 (G = 8) N = 65,536 rows are 524,288 pairs,
+//               two passes of the 270,336 threads; at w = 216 (G = 32,
+//               K = 2) 2.1 M pairs, eight passes in four groups.  The
+//               launch is programmatic, as coop's;
 //   rowloop     one thread per row, w scalar __ldg loads in order j = 0..w-1:
 //               a warp touches 32 rows with every 4-byte load;
-//   smem        a CTA stages its indices in shared memory, copies the rows
-//               of a tile with cp.async (16 B a lane, L1 bypassed), waits,
-//               then one thread per row sums from shared memory in order;
-//               the row pitch is padded to an odd number of float4s so that
-//               eight neighbouring threads' float4 reads hit distinct banks;
+//   smem        the rows land in shared memory before they are summed.  One
+//               wave of persistent blocks of SMEM_THREADS (sized by
+//               occupancy, launched programmatically) walks tiles of T
+//               consecutive rows, a warp a tile, T = min(blk, 32, the rows
+//               a warp's stage holds): blk, the JAX probe's grid block, only
+//               caps the stage.  It no longer sets the grid, which on this
+//               card left SMs idle (at blk = 8,192 and N = 65,536, 8 blocks
+//               on 132 SMs).  Each warp has two stages of SMEM_STAGE_F4
+//               float4s (2 KB: T = 16 rows at w = 32, 2 at w = 216): while it
+//               sums its tile in one, the 16 B cp.async copies of its next
+//               tile fill the other (commit_group, wait_group 1), the
+//               tile's indices having come a tile ahead in one coalesced
+//               load (lane l holds row l's).  Copy and sum share one
+//               layout, G lanes a row (G as coop's) on consecutive float4s
+//               and P = 32 / G rows side by side, so that a warp reads
+//               whole rows from memory and conflict-free float4s from
+//               shared memory; shuffle reductions leave lane l with row l's
+//               sum, and the tile's sums go out in one coalesced store.
+//               Only the warp synchronises: tiles of a whole block, with
+//               __syncthreads at each step, waited for the block's slowest
+//               warp and lost to the old one-thread-a-row kernel at blk 256
+//               on the card.  What this design pays beyond coop is the trip
+//               through shared memory: the N rows are written to it and
+//               read back (16.8 MB at w = 32, about 0.5 us at 128 B a clock
+//               an SM), and few blocks win (512 threads a block);
 //   row_gather_rowloop  the output of T consecutive rows is one contiguous
 //               tile of 4 w T bytes (T = COPY_STAGE_BYTES / (4 w): 64 rows
 //               at w = 32, 9 at w = 216, 8 at w = 256).  Persistent CTAs
@@ -91,66 +126,49 @@
 //
 // Interface: the plain C convention of row_gather.cu: an array of device
 // pointers (table, idx, out), an array of double scalars (w; for smem also
-// the rows per CTA), the row count N and the CUDA stream; returns
-// cudaGetLastError() after the launch.
+// T, the rows of one stage, which the wrapper derives from blk), the row
+// count N and the CUDA stream; returns cudaGetLastError() after the launch.
+// gather_rowsum_persistent_pass_rows(w) gives the rows one pass of the
+// persistent kernel covers on the current device.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// Sizes of the two redesigned kernels, chosen on the card at w = 8, 32, 216
+// Sizes of the redesigned kernels, chosen on the card at w = 8, 32, 216
 // and 256 (PERF.md): gather_rowsum_coop's block size and the 16-byte
 // loads a lane has in flight per batch, for rows of 32 float4s or more
 // (G = 32) and for narrower rows; the bytes and number of
 // row_gather_rowloop's shared-memory stages (a row must fit a stage, so
-// w <= COPY_STAGE_BYTES / 4 = 2,048).
+// w <= COPY_STAGE_BYTES / 4 = 2,048); gather_rowsum_smem's block size and
+// the float4s of one warp's stage (a row must fit a stage, so w <= 4
+// SMEM_STAGE_F4 = hot_kernels.SMEM_STAGE_FLOATS = 512); gather_rowsum_
+// persistent's block size and 16-byte loads a lane has in flight, as
+// coop's.
 constexpr int ROWSUM_THREADS = 512;
 constexpr int ROWSUM_LOADS = 8;
 constexpr int ROWSUM_LOADS_NARROW = 4;
 constexpr int COPY_STAGE_BYTES = 8192;
 constexpr int COPY_STAGES = 2;
+constexpr int SMEM_THREADS = 512;
+constexpr int SMEM_STAGE_F4 = 128;
+constexpr int PERSIST_THREADS = 256;
+constexpr int PERSIST_LOADS = 4;
+constexpr int PERSIST_LOADS_NARROW = 2;
 
 constexpr int THREADS = 256;
 constexpr int COOP_WARPS = ROWSUM_THREADS / 32;
+constexpr int SMEM_WARPS = SMEM_THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
-// Dynamic shared memory a block may take without the opt-in attribute,
-// less the static index tile of the smem kernel.
-constexpr int SMEM_TILE_BYTES = 48 * 1024 - THREADS * (int)sizeof(int32_t);
 constexpr int MAX_DEVICES = 64;
 static_assert(COPY_STAGE_BYTES % 128 == 0 && COPY_STAGES >= 2 &&
                   COPY_STAGES * COPY_STAGE_BYTES <= 48 * 1024,
               "row copy stages: 128-byte multiples, at least two, within 48 KB");
+static_assert(SMEM_THREADS / 32 * 2 * SMEM_STAGE_F4 * 16 <= 227 * 1024,
+              "smem: two stages a warp within a block's shared memory");
 
-// Sum of the float4s q = lane, lane + g, ... < w4 of one row.
-__device__ __forceinline__ float row_part(const float4 *__restrict__ row, int w4,
-                                          int lane, int g) {
-  float s = 0.0f;
-  for (int q = lane; q < w4; q += g) {
-    const float4 v = __ldg(row + q);
-    s += (v.x + v.y) + (v.z + v.w);
-  }
-  return s;
-}
-
-// Thread t of the (row, lane) pairs: lane `t % G` of row `t / G`.  Groups
-// are aligned inside a warp, and a thread past the last row still takes
-// part in the shuffles.
-template <int G>
-__device__ __forceinline__ void coop_row(const float4 *__restrict__ table,
-                                         const int32_t *__restrict__ idx,
-                                         float *__restrict__ out, int n, int w4,
-                                         int64_t t) {
-  const int64_t row = t / G;
-  const int lane = (int)(t & (G - 1));
-  float s = 0.0f;
-  if (row < n) s = row_part(table + (int64_t)__ldg(idx + row) * w4, w4, lane, G);
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (row < n && lane == 0) out[row] = s;
-}
-
-// Programmatic dependent launch (the two redesigned kernels): let the
+// Programmatic dependent launch (the redesigned kernels): let the
 // stream's next launch be scheduled now, then wait until the launches
 // before this one have finished and their writes are visible.  A kernel
 // reads nothing before it.
@@ -228,16 +246,73 @@ __global__ void __launch_bounds__(ROWSUM_THREADS)
   }
 }
 
-template <int G>
-__global__ void __launch_bounds__(THREADS)
+// The passes of gather_rowsum_persistent a thread holds at once, for G
+// lanes a row and K float4s a lane a row.
+template <int G, int K>
+struct PersistShape {
+  static constexpr int U_WANT = (G == 32 ? PERSIST_LOADS : PERSIST_LOADS_NARROW) / K;
+  static constexpr int U = U_WANT < 1 ? 1 : U_WANT;
+};
+
+// The indices of passes p .. p + U - 1 of a thread whose first row is row0
+// (0 past the pool).
+template <int U>
+__device__ __forceinline__ void persist_ids(const int32_t *__restrict__ idx, int n,
+                                            int64_t row0, int64_t step, int p, int (&id)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t r = row0 + (int64_t)(p + u) * step;
+    id[u] = r < n ? __ldg(idx + r) : 0;
+  }
+}
+
+// Pass p of thread t (of the grid's T threads) takes lane t % G of row
+// (p T + t) / G; `passes` is fixed at launch, and the loop over groups of U
+// passes is grid-uniform, so every shuffle runs with the whole warp.
+template <int G, int K>
+__global__ void __launch_bounds__(PERSIST_THREADS, 2048 / PERSIST_THREADS)
     rowsum_persistent_kernel(const float4 *__restrict__ table,
                              const int32_t *__restrict__ idx, float *__restrict__ out,
-                             int n, int w4) {
-  const int64_t total = (int64_t)n * G;
-  const int64_t stride = (int64_t)gridDim.x * THREADS;
-  // the bound is block-uniform, so every warp runs its shuffles whole
-  for (int64_t base = (int64_t)blockIdx.x * THREADS; base < total; base += stride)
-    coop_row<G>(table, idx, out, n, w4, base + threadIdx.x);
+                             int n, int w4, int passes) {
+  constexpr int U = PersistShape<G, K>::U;
+  pdl_begin();
+  const int sub = threadIdx.x & (G - 1);
+  const int64_t step = (int64_t)gridDim.x * (PERSIST_THREADS / G);  // rows of a pass
+  const int64_t row0 = ((int64_t)blockIdx.x * PERSIST_THREADS + threadIdx.x) / G;
+  int id[U];
+  persist_ids<U>(idx, n, row0, step, 0, id);
+  for (int p0 = 0; p0 < passes; p0 += U) {
+    int id_next[U];  // the next group's, in flight with this group's rows
+    persist_ids<U>(idx, n, row0, step, p0 + U, id_next);
+    float s[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) s[u] = 0.0f;
+    for (int c0 = 0; c0 < w4; c0 += G * K) {  // one chunk unless G = 32, w4 > 64
+      float4 v[U][K];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const bool live = row0 + (int64_t)(p0 + u) * step < n;
+        const float4 *row = table + (int64_t)id[u] * w4;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int q = c0 + sub + k * G;
+          v[u][k] = (live && q < w4) ? __ldg(row + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int k = 0; k < K; ++k) s[u] += (v[u][k].x + v[u][k].y) + (v[u][k].z + v[u][k].w);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) s[u] += __shfl_xor_sync(FULL, s[u], off);
+      const int64_t r = row0 + (int64_t)(p0 + u) * step;
+      if (sub == 0 && r < n) out[r] = s[u];
+      id[u] = id_next[u];
+    }
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -257,8 +332,19 @@ __device__ __forceinline__ void cp_async16(void *smem_dst, const void *gmem_src)
                : "memory");
 }
 
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Make this thread's shared-memory writes visible to the async proxy (the
@@ -289,40 +375,90 @@ __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// CTA b sums rows [b * blk, (b + 1) * blk) in tiles of `tile` rows (at most
-// THREADS): the tile's indices into shared memory, its rows after them by
-// cp.async at a pitch of s4 float4s, then one thread per row.
-__global__ void __launch_bounds__(THREADS)
+// The rows of tile t: rows [t T, t T + T) of the pool, T = `tile`, cut at N.
+__device__ __forceinline__ int smem_rows(int n, int tile, int64_t t) {
+  const int64_t left = (int64_t)n - t * tile;
+  return (int)(left < tile ? left : tile);
+}
+
+// Lane l's share of tile t's indices: row l's (0 past the tile).
+__device__ __forceinline__ int smem_id(const int32_t *__restrict__ idx, int n, int tile,
+                                       int64_t t, int64_t tiles, int lane) {
+  return t < tiles && lane < smem_rows(n, tile, t) ? __ldg(idx + t * tile + lane) : 0;
+}
+
+// Start the copies of tile t's rows into the warp's `stage` as one cp.async
+// group: G lanes a row and P rows side by side, as the sum reads them, lane
+// sub of a row's group copying its float4s q = sub, sub + G, ... to
+// stage[r w4 + q] (the rows dense at pitch w4); row r's index comes from
+// lane r's `id`.  The group is committed, empty, past the last tile too, so
+// that each step of the kernel's loop commits one.
+template <int G>
+__device__ __forceinline__ void smem_fill(float4 *stage, const float4 *__restrict__ table,
+                                          int n, int w4, int tile, int64_t t, int64_t tiles,
+                                          int id, int lane) {
+  if (t < tiles) {  // warp-uniform: the shuffles run with the whole warp
+    const int rows = smem_rows(n, tile, t);
+    const int sub = lane & (G - 1);
+    for (int rb = 0; rb < rows; rb += 32 / G) {
+      const int r = rb + lane / G;
+      const int64_t row = __shfl_sync(FULL, id, r < 32 ? r : 31);
+      if (r < rows)
+        for (int q = sub; q < w4; q += G) cp_async16(stage + r * w4 + q, table + row * w4 + q);
+    }
+  }
+  cp_async_commit();
+}
+
+// Tile t by warp t % (the grid's warps), the warp's k-th tile in its stage
+// k % 2.  Each step: the next tile's copies started (its indices loaded a
+// step before), the indices of the one after loaded, this tile's copies
+// waited for, its rows summed by groups of G lanes, P rows side by side,
+// lane l left with row l's sum, and the tile's sums stored at once.  Only
+// the warp synchronises.
+template <int G>
+__global__ void __launch_bounds__(SMEM_THREADS)
     rowsum_smem_kernel(const float4 *__restrict__ table, const int32_t *__restrict__ idx,
-                       float *__restrict__ out, int n, int w4, int s4, int blk, int tile) {
-  extern __shared__ float4 rows[];
-  __shared__ int32_t ids[THREADS];
-  const int64_t first = (int64_t)blockIdx.x * blk;
-  const int64_t end = first + blk < n ? first + blk : (int64_t)n;
-  for (int64_t r0 = first; r0 < end; r0 += tile) {
-    const int nr = (int)(end - r0 < tile ? end - r0 : tile);
-    if ((int)threadIdx.x < nr) ids[threadIdx.x] = __ldg(idx + r0 + threadIdx.x);
-    __syncthreads();
-    for (int e = threadIdx.x; e < nr * w4; e += THREADS) {
-      const int r = e / w4;
-      const int q = e - r * w4;
-      cp_async16(rows + r * s4 + q, table + (int64_t)ids[r] * w4 + q);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    if ((int)threadIdx.x < nr) {
-      const float4 *row = rows + threadIdx.x * s4;
+                       float *__restrict__ out, int n, int w4, int tile) {
+  extern __shared__ __align__(16) float4 smem_stages[];  // two stages a warp
+  constexpr int P = 32 / G;
+  pdl_begin();
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);  // lane within its row's group
+  const int grp = lane / G;        // the group: row rb + grp of a pass rb
+  float4 *stages = smem_stages + (threadIdx.x / 32) * 2 * SMEM_STAGE_F4;
+  const int64_t warps = (int64_t)gridDim.x * SMEM_WARPS;
+  const int64_t tiles = ((int64_t)n + tile - 1) / tile;
+  int64_t t = (int64_t)blockIdx.x * SMEM_WARPS + threadIdx.x / 32;
+  int id = smem_id(idx, n, tile, t, tiles, lane);
+  smem_fill<G>(stages, table, n, w4, tile, t, tiles, id, lane);
+  id = smem_id(idx, n, tile, t + warps, tiles, lane);
+  for (int k = 0; t < tiles; t += warps, ++k) {  // warp-uniform
+    const float4 *stage = stages + (k & 1) * SMEM_STAGE_F4;
+    smem_fill<G>(stages + ((k + 1) & 1) * SMEM_STAGE_F4, table, n, w4, tile, t + warps, tiles,
+                 id, lane);
+    id = smem_id(idx, n, tile, t + 2 * warps, tiles, lane);
+    cp_async_wait_group<1>();  // this lane's copies of tile t have landed
+    __syncwarp();              // and every lane's
+    const int rows = smem_rows(n, tile, t);
+    float res = 0.0f;
+    for (int rb = 0; rb < rows; rb += P) {
+      const int r = rb + grp;
       float s = 0.0f;
-      for (int q = 0; q < w4; ++q) {
-        const float4 v = row[q];
-        s += v.x;
-        s += v.y;
-        s += v.z;
-        s += v.w;
+      if (r < rows) {
+        for (int q = sub; q < w4; q += G) {
+          const float4 v = stage[r * w4 + q];
+          s += (v.x + v.y) + (v.z + v.w);
+        }
       }
-      out[r0 + threadIdx.x] = s;
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+      // row rb + p sits with lane p G
+      const float v = __shfl_sync(FULL, s, (lane % P) * G);
+      if (lane / P == rb / P) res = v;
     }
-    __syncthreads();  // the next tile overwrites ids and rows
+    if (lane < rows) out[t * tile + lane] = res;
+    __syncwarp();  // every lane is done with the stage the next step refills
   }
 }
 
@@ -448,28 +584,96 @@ int dispatch_coop(void **ptrs, const double *scal, int n, void *stream) {
 #undef COOP_CASE
 }
 
-template <int G>
-int launch_persistent(void **ptrs, int n, int w4, cudaStream_t stream) {
-  static int per_sm = 0;  // resident blocks of this instance on one SM
-  const int64_t grid = wave_blocks(rowsum_persistent_kernel<G>, THREADS, &per_sm, 0, INT32_MAX);
-  if (grid <= 0) return grid < 0 ? (int)-grid : (int)cudaErrorInvalidConfiguration;
-  rowsum_persistent_kernel<G><<<(unsigned)grid, THREADS, 0, stream>>>(
-      (const float4 *)ptrs[0], (const int32_t *)ptrs[1], (float *)ptrs[2], n, w4);
-  return (int)cudaGetLastError();
+// The persistent kernel's one-wave grid for `wanted` blocks (resident
+// blocks of this instance on one SM found once); a CUDA error as a
+// negative number.
+template <int G, int K>
+int64_t persistent_grid(int64_t wanted) {
+  static int per_sm = 0;
+  return wave_blocks(rowsum_persistent_kernel<G, K>, PERSIST_THREADS, &per_sm, 0, wanted);
 }
+
+// No more blocks than the (row, lane) pairs fill; the passes follow.
+template <int G, int K>
+int launch_persistent(void **ptrs, int n, int w4, cudaStream_t stream) {
+  const int64_t grid =
+      persistent_grid<G, K>(((int64_t)n * G + PERSIST_THREADS - 1) / PERSIST_THREADS);
+  const int64_t step = grid * (PERSIST_THREADS / G);
+  const int passes = grid > 0 ? (int)((n + step - 1) / step) : 0;
+  return launch_pdl(rowsum_persistent_kernel<G, K>, grid, PERSIST_THREADS, 0, stream,
+                    (const float4 *)ptrs[0], (const int32_t *)ptrs[1], (float *)ptrs[2], n, w4,
+                    passes);
+}
+
+// The rows of one pass of the whole wave.
+template <int G, int K>
+int pass_rows() {
+  const int64_t grid = persistent_grid<G, K>(INT64_MAX);
+  return grid < 0 ? (int)grid : (int)(grid * (PERSIST_THREADS / G));
+}
+
+// K as coop's: 2 where w4 is not a power of two below 64, or for G = 32
+// chunks of 64 float4s.
+#define PERSIST_SWITCH(CALL)                                  \
+  switch (group_for(w4)) {                                    \
+    case 1: return CALL(1, 1);                                \
+    case 2: return w4 > 2 ? CALL(2, 2) : CALL(2, 1);          \
+    case 4: return w4 > 4 ? CALL(4, 2) : CALL(4, 1);          \
+    case 8: return w4 > 8 ? CALL(8, 2) : CALL(8, 1);          \
+    case 16: return w4 > 16 ? CALL(16, 2) : CALL(16, 1);      \
+    default: return w4 > 32 ? CALL(32, 2) : CALL(32, 1);      \
+  }
 
 int dispatch_persistent(void **ptrs, const double *scal, int n, void *stream) {
   const int w4 = (int)scal[0] / 4;
   if (n <= 0) return (int)cudaGetLastError();
   if (w4 <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+#define LAUNCH(G, K) launch_persistent<G, K>(ptrs, n, w4, st)
+  PERSIST_SWITCH(LAUNCH)
+#undef LAUNCH
+}
+
+int persistent_pass_rows(int w) {
+  const int w4 = w / 4;
+  if (w4 <= 0) return -(int)cudaErrorInvalidValue;
+#define PASS(G, K) pass_rows<G, K>()
+  PERSIST_SWITCH(PASS)
+#undef PASS
+}
+#undef PERSIST_SWITCH
+
+template <int G>
+int launch_smem(void **ptrs, int n, int w4, int tile, cudaStream_t stream) {
+  static int per_sm = 0;
+  constexpr size_t smem = (size_t)SMEM_WARPS * 2 * SMEM_STAGE_F4 * sizeof(float4);
+  if (per_sm == 0 && smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rowsum_smem_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t tiles = ((int64_t)n + tile - 1) / tile;
+  const int64_t grid = wave_blocks(rowsum_smem_kernel<G>, SMEM_THREADS, &per_sm, smem,
+                                   (tiles + SMEM_WARPS - 1) / SMEM_WARPS);
+  return launch_pdl(rowsum_smem_kernel<G>, grid, SMEM_THREADS, smem, stream,
+                    (const float4 *)ptrs[0], (const int32_t *)ptrs[1], (float *)ptrs[2], n, w4,
+                    tile);
+}
+
+int dispatch_smem(void **ptrs, const double *scal, int n, void *stream) {
+  const int w4 = (int)scal[0] / 4;
+  const int tile = (int)scal[1];
+  if (n <= 0) return (int)cudaGetLastError();
+  if (w4 <= 0 || tile <= 0 || tile > 32 || (int64_t)tile * w4 > SMEM_STAGE_F4)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   switch (group_for(w4)) {
-    case 1: return launch_persistent<1>(ptrs, n, w4, st);
-    case 2: return launch_persistent<2>(ptrs, n, w4, st);
-    case 4: return launch_persistent<4>(ptrs, n, w4, st);
-    case 8: return launch_persistent<8>(ptrs, n, w4, st);
-    case 16: return launch_persistent<16>(ptrs, n, w4, st);
-    default: return launch_persistent<32>(ptrs, n, w4, st);
+    case 1: return launch_smem<1>(ptrs, n, w4, tile, st);
+    case 2: return launch_smem<2>(ptrs, n, w4, tile, st);
+    case 4: return launch_smem<4>(ptrs, n, w4, tile, st);
+    case 8: return launch_smem<8>(ptrs, n, w4, tile, st);
+    case 16: return launch_smem<16>(ptrs, n, w4, tile, st);
+    default: return launch_smem<32>(ptrs, n, w4, tile, st);
   }
 }
 
@@ -488,6 +692,9 @@ int gather_rowsum_persistent_nscal() { return 1; }
 int gather_rowsum_persistent_launch(void **ptrs, const double *scal, int n, void *stream) {
   return dispatch_persistent(ptrs, scal, n, stream);
 }
+// The rows one pass of the persistent kernel covers at row width w on the
+// current device, or a CUDA error as a negative number.
+int gather_rowsum_persistent_pass_rows(int w) { return persistent_pass_rows(w); }
 
 int gather_rowsum_rowloop_nptrs() { return 3; }
 int gather_rowsum_rowloop_nscal() { return 1; }
@@ -501,18 +708,7 @@ int gather_rowsum_rowloop_launch(void **ptrs, const double *scal, int n, void *s
 int gather_rowsum_smem_nptrs() { return 3; }
 int gather_rowsum_smem_nscal() { return 2; }
 int gather_rowsum_smem_launch(void **ptrs, const double *scal, int n, void *stream) {
-  const int w4 = (int)scal[0] / 4;
-  const int blk = (int)scal[1];
-  const int s4 = w4 | 1;  // odd pitch: conflict-free float4 reads
-  const int fit = SMEM_TILE_BYTES / (s4 * (int)sizeof(float4));
-  const int tile = fit < THREADS ? fit : THREADS;
-  if (w4 <= 0 || blk <= 0 || tile <= 0) return (int)cudaErrorInvalidValue;
-  if (n > 0)
-    rowsum_smem_kernel<<<(unsigned)((n + (int64_t)blk - 1) / blk), THREADS,
-                         (size_t)tile * s4 * sizeof(float4), (cudaStream_t)stream>>>(
-        (const float4 *)ptrs[0], (const int32_t *)ptrs[1], (float *)ptrs[2], n, w4, s4, blk,
-        tile);
-  return (int)cudaGetLastError();
+  return dispatch_smem(ptrs, scal, n, stream);
 }
 
 int row_gather_rowloop_nptrs() { return 3; }

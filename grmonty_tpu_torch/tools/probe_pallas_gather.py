@@ -5,16 +5,18 @@ counterpart of the JAX package's ``tools/probe_pallas_gather.py``.
 
 Variants, each ``table[idx].sum(1)`` over a (Z, 32) table:
 
-* ``take1``: ``gather_rowsum(strategy="persistent")``, one grid of
-  (SM count x resident blocks) CTAs over the whole pool, the counterpart of
-  the one-grid-step ``take1`` (``tools/probe_pallas_gather.py:74``);
+* ``take1``: ``gather_rowsum(strategy="persistent")``, one wave of CTAs
+  sized by occupancy over the whole pool (the passes fixed at launch), the
+  counterpart of the one-grid-step ``take1``
+  (``tools/probe_pallas_gather.py:74``);
 * ``takeB``: ``gather_rowsum(strategy="coop")``, of the blocked ``takeB``
   (``:99``);
 * ``dsB``: ``gather_rowsum(strategy="smem", blk=PROBE_BLK)``, rows staged
   into shared memory by ``cp.async`` and then summed, of ``dsB`` (``:125``,
   rows copied one by one into a VMEM scratch tile).  ``PROBE_BLK`` (default
-  8192) is the rows per CTA of this variant only, as the JAX probe's grid
-  block.
+  8192), the JAX probe's grid block, is read by this variant only: it caps
+  the rows of one shared-memory stage (``hot_kernels.smem_stage_rows``);
+  the kernel's grid is one wave whatever it is.
 
 Each is timed as the marginal time per link of a chain: chains of 8 and 40
 links captured into CUDA graphs (``tools.chain_ms``), the counterpart of

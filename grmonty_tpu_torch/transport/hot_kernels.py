@@ -71,6 +71,11 @@ ROWSUM_STRATEGIES = ("coop", "persistent", "rowloop", "smem")
 # copy's 8 KB shared-memory stages (COPY_STAGE_BYTES of csrc/gather_probe.cu);
 # a tile holds ROW_COPY_MAX_W // W rows.
 ROW_COPY_MAX_W = 2048
+# The floats of one warp's shared-memory stage in gather_rowsum "smem" (4 *
+# SMEM_STAGE_F4 of csrc/gather_probe.cu): the widest row it takes.  A stage
+# holds at most SMEM_STAGE_ROWS rows, one index a lane.
+SMEM_STAGE_FLOATS = 512
+SMEM_STAGE_ROWS = 32
 
 
 def reset_launches():
@@ -108,6 +113,7 @@ _HOT_NSCAL = len(_A_SCAL) + len(_B_SCAL_HEAD) + _K2_N + 2
 _ABI = {"hot_step": (len(_HOT_PTRS), _HOT_NSCAL),
         "hot_step_ref": (len(_HOT_REF_PTRS), _HOT_NSCAL),
         "row_gather": (3, 1),
+        # the row sums take W; "smem" also the rows of a stage (smem_stage_rows)
         **{f"gather_rowsum_{s}": (3, 2 if s == "smem" else 1) for s in ROWSUM_STRATEGIES},
         "row_gather_rowloop": (3, 1)}
 
@@ -117,6 +123,7 @@ class _Build:
     (one per process)."""
 
     fns = None  # kernel name -> ctypes function
+    pass_rows = None  # gather_rowsum_persistent_pass_rows
     paths = []
     seconds = 0.0
     log = ""
@@ -171,7 +178,11 @@ def build():
                 raise RuntimeError(f"{name}: library takes {got} pointers/scalars, "
                                    f"the wrapper passes {(n_ptrs, n_scal)}")
             fns[name] = fn
-    missing = sorted(set(_ABI) - set(fns))
+        if hasattr(lib, "gather_rowsum_persistent_pass_rows"):
+            _Build.pass_rows = lib.gather_rowsum_persistent_pass_rows
+            _Build.pass_rows.argtypes, _Build.pass_rows.restype = [ctypes.c_int], ctypes.c_int
+    missing = sorted(set(_ABI) - set(fns)) + (
+        [] if _Build.pass_rows else ["gather_rowsum_persistent_pass_rows"])
     if missing:
         raise RuntimeError(f"no entry point for {missing} in {paths}")
     _Build.fns, _Build.paths = fns, paths
@@ -343,20 +354,49 @@ def gather_rowsum(table, idx, strategy="coop", blk=256):
     version on CPU tensors; on CUDA tensors the kernel of
     ``csrc/gather_probe.cu`` that ``strategy`` names (one of
     ``ROWSUM_STRATEGIES``; float32, contiguous, 16-byte aligned, W a
-    multiple of 4).  ``blk`` is the rows per CTA of ``"smem"`` and is read
-    by no other strategy.  The sums run in another order than the plain
-    version's (``rowsum_slack`` bounds the difference); no host sync."""
+    multiple of 4).  ``blk``, the JAX probe's grid block, is read by
+    ``"smem"`` alone: it caps the rows of one shared-memory stage
+    (:func:`smem_stage_rows`, which checks it and W on either device).
+    The sums run in another order than the plain version's
+    (``rowsum_slack`` bounds the difference); no host sync."""
     if strategy not in ROWSUM_STRATEGIES:
         raise ValueError(f"gather_rowsum: strategy {strategy!r} not in {ROWSUM_STRATEGIES}")
+    scal = [table.shape[-1]]
+    if strategy == "smem":
+        scal.append(smem_stage_rows(table.shape[-1], blk))
     if table.device.type == "cpu":
         return plain_rowsum(table, idx)
-    dev, n, w = _gather_args(table, idx, f"gather_rowsum {strategy}")
-    if strategy == "smem" and not (isinstance(blk, int) and blk > 0):
-        raise ValueError(f"gather_rowsum smem: blk must be a positive int, got {blk!r}")
+    dev, n, _ = _gather_args(table, idx, f"gather_rowsum {strategy}")
     out = torch.empty(n, dtype=torch.float32, device=dev)
-    _launch(f"gather_rowsum_{strategy}", [table, idx, out],
-            [w, blk] if strategy == "smem" else [w], n, dev)
+    _launch(f"gather_rowsum_{strategy}", [table, idx, out], scal, n, dev)
     return out
+
+
+def smem_stage_rows(w, blk):
+    """The rows T of one shared-memory stage of ``gather_rowsum(...,
+    "smem", blk)`` for rows of ``w`` floats: ``blk`` capped at what a warp's
+    stage holds (``SMEM_STAGE_FLOATS``, ``SMEM_STAGE_ROWS``).  Each warp
+    sums tiles of T consecutive rows; the grid is one wave whatever ``blk``
+    is.  Raises a ValueError for a ``blk`` that is not a positive int or a
+    row wider than a stage."""
+    if not (isinstance(blk, int) and blk > 0):
+        raise ValueError(f"gather_rowsum smem: blk must be a positive int, got {blk!r}")
+    if not 0 < w <= SMEM_STAGE_FLOATS:
+        raise ValueError(f"gather_rowsum smem: W = {w} is not in 1..{SMEM_STAGE_FLOATS}, "
+                         "the floats of one shared-memory stage")
+    return min(blk, SMEM_STAGE_ROWS, SMEM_STAGE_FLOATS // w)
+
+
+def persistent_pass_rows(w):
+    """The rows one pass of ``gather_rowsum(..., "persistent")`` covers at
+    row width ``w`` on the current CUDA device: its one-wave grid's threads
+    over the lanes a row takes.  The kernel walks N rows in ceil(N / this)
+    passes (when N is smaller, its grid is)."""
+    build()
+    rows = _Build.pass_rows(int(w))
+    if rows <= 0:
+        raise RuntimeError(f"gather_rowsum_persistent_pass_rows({w}): CUDA error {-rows}")
+    return rows
 
 
 def row_gather_rowloop(table, idx):

@@ -311,6 +311,41 @@ def test_row_copy_takes_rows_up_to_one_stage(device):
         hot_kernels.row_gather_rowloop(wide, idx)
 
 
+@pytest.mark.parametrize("w, blk, rows", [(32, 256, 16), (32, 8192, 16), (32, 100, 16),
+                                           (32, 10, 10), (32, 1, 1), (216, 8192, 2),
+                                           (256, 256, 2), (4, 8192, 32), (512, 8192, 1)])
+def test_smem_stage_rows_caps_blk_at_one_stage(w, blk, rows):
+    """blk, the JAX probe's grid block, caps the rows of one warp's
+    shared-memory stage and nothing else: at w = 32 blk 256 and 8192 give
+    one plan."""
+    assert hot_kernels.smem_stage_rows(w, blk) == rows
+    assert rows * w <= hot_kernels.SMEM_STAGE_FLOATS and rows <= hot_kernels.SMEM_STAGE_ROWS
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_smem_takes_rows_up_to_one_stage_and_a_positive_blk(device):
+    """Rows of SMEM_STAGE_FLOATS floats are summed; a wider row, or a blk
+    that is not a positive int, raises a ValueError on either device (on
+    the card, before any launch)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    w = hot_kernels.SMEM_STAGE_FLOATS
+    rng = np.random.default_rng(6)
+    wide = torch.as_tensor(rng.standard_normal((64, w + 4)).astype(np.float32), device=device)
+    table = wide[:, :w].contiguous()
+    idx = torch.as_tensor(np.array([63, 0, 5, 5], np.int32), device=device)
+    before = hot_kernels.launches["gather_rowsum_smem"]
+    got = hot_kernels.gather_rowsum(table, idx, "smem", blk=8192)
+    diff = (got.double() - hot_kernels.plain_rowsum(table, idx).double()).abs()
+    assert bool((diff <= hot_kernels.rowsum_slack(table, idx)).all())
+    with pytest.raises(ValueError, match="W = "):
+        hot_kernels.gather_rowsum(wide, idx, "smem", blk=8192)
+    for blk in (0, -1, 2.5, "8"):
+        with pytest.raises(ValueError, match="blk"):
+            hot_kernels.gather_rowsum(table, idx, "smem", blk=blk)
+    assert hot_kernels.launches["gather_rowsum_smem"] == before + (device == "cuda")
+
+
 @pytest.mark.parametrize("probe", [probe_gather, probe_pallas_gather, probe_vmem_gather])
 def test_probe_main_exits_2_without_a_card(probe, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -354,20 +389,34 @@ def test_probe_kernels_match_plain_on_the_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["gather_rowsum_coop", "row_gather_rowloop"])
+@pytest.mark.parametrize("kernel", ["gather_rowsum_coop", "row_gather_rowloop",
+                                    "gather_rowsum_smem", "gather_rowsum_persistent"])
 @pytest.mark.parametrize("w", [4, 32, 216, 256])
 def test_redesigned_kernels_at_their_tile_edges_on_the_card(kernel, w):
-    """The two redesigned kernels at the row counts their tiling makes edges
-    of: none, one, a warp's batch of 32 rows +-1, one row-copy tile +-1 and
-    65,537 (a ragged last tile); indices 0 and Z - 1 and repeats included.
-    The row copy bitwise, the row sum within rowsum_slack."""
+    """The redesigned kernels at the row counts their tiling makes edges
+    of: none, one, a warp's batch of 32 rows +-1 and 65,537 (a ragged last
+    tile), and one tile +-1 of each: a row-copy stage (coop and the row
+    copy), a shared-memory stage of smem at blk 1, 100, 256 and 8192 (every
+    count at every blk), a pass of the persistent kernel's grid; indices 0
+    and Z - 1 and repeats included.  The row copy bitwise, the row sums
+    within rowsum_slack; each launch adds exactly one to its count."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
     dev, z = torch.device("cuda"), 4096
-    tile = hot_kernels.ROW_COPY_MAX_W // w  # rows of one row-copy stage
     rng = np.random.default_rng(w)
     table = torch.as_tensor(rng.standard_normal((z, w)).astype(np.float32), device=dev)
-    for n in sorted({0, 1, 31, 33, tile - 1, tile, tile + 1, 65537}):
+
+    def counts(tile):
+        return sorted({0, 1, 31, 33, tile - 1, tile, tile + 1, 65537})
+
+    if kernel == "gather_rowsum_smem":
+        runs = [(n, blk) for blk in (1, 100, 256, 8192)
+                for n in counts(hot_kernels.smem_stage_rows(w, blk))]
+    elif kernel == "gather_rowsum_persistent":
+        runs = [(n, 256) for n in counts(hot_kernels.persistent_pass_rows(w))]
+    else:  # rows of one row-copy stage
+        runs = [(n, 256) for n in counts(hot_kernels.ROW_COPY_MAX_W // w)]
+    for n, blk in runs:
         idx_np = rng.integers(0, z, n).astype(np.int32)
         idx_np[:6] = (z - 1, 0, z - 1, 0, 7, 7)[:n]
         idx = torch.as_tensor(idx_np, device=dev)
@@ -378,9 +427,10 @@ def test_redesigned_kernels_at_their_tile_edges_on_the_card(kernel, w):
             assert tuple(got.shape) == (n, w)
             assert torch.equal(got, table[idx.long()]), (w, n)
         else:
-            got = hot_kernels.gather_rowsum(table, idx, "coop")
+            got = hot_kernels.gather_rowsum(table, idx, kernel.removeprefix("gather_rowsum_"),
+                                            blk=blk)
             torch.cuda.synchronize()
             assert tuple(got.shape) == (n,)
             diff = (got.double() - hot_kernels.plain_rowsum(table, idx).double()).abs()
-            assert bool((diff <= hot_kernels.rowsum_slack(table, idx)).all()), (w, n)
+            assert bool((diff <= hot_kernels.rowsum_slack(table, idx)).all()), (w, n, blk)
         assert hot_kernels.launches[kernel] == before + (n > 0)
