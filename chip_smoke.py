@@ -75,7 +75,18 @@ Phases, each of which exits non-zero on failure:
    subprocess at ``--resume-photon-n`` photons and the cells' pool of
    65,536 (``CLI_POOL``): exit 0, a 200 x 37 spectrum file, and a kernel
    build time (``compile_s``, the fresh process's load of the kernels in
-   ``Simulation.__init__``) above 0 in its log.
+   ``Simulation.__init__``) above 0 in its log;
+10. the accuracy gate (``grmonty_tpu_torch.tools.validate_accuracy``) at
+   the shipped bar's setup (``GATE_ARGS``: the shipped profile at pool
+   1,024, float32, the 64x32 torus, M = 4e19, seed 123, 20,000 photons, 5
+   oracle replicates, the bias frozen at (0.0025, 2.6)), with
+   every launch count set to 0 just before: the engine on the card against
+   the native tracker on the host.  It must pass the gate's hard gates
+   (``chi2_sec_gen_per_dof`` < 5, no hotcross clamp), its luminosity ratio
+   must lie within 1 +- 0.10, every hot step of its engines must be one
+   launch of ``hot_step`` and the row gather must run once per full
+   phase; its numbers are printed on one line (``{"phase": "accuracy",
+   ...}``).
 
 With ``--probe-kernels-only`` the script runs phases 1, 2 and 7a and
 prints the card line and the kernels line (no result line); a copy of it
@@ -163,6 +174,12 @@ SOURCES = {"hot_step": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:
            "row_gather_rowloop": ("gather_probe.cu", "tools/probe_vmem_gather.py:178")}
 # Phase 7's probes, by module name under grmonty_tpu_torch/tools.
 PROBES = ("probe_gather", "probe_pallas_gather", "probe_vmem_gather")
+# Phase 10: the accuracy gate at the setup of the tracked shipped bar
+# ACCURACY_r5_M4e19_frozen_sc06.json (the tool's own pool of 1,024 and the
+# 64x32 torus), and the luminosity ratio it must hold.
+GATE_ARGS = ["--bench-profile", "--photons", "20000", "--mass-unit", "4e19", "--seed", "123",
+             "--oracle-reps", "5", "--freeze-bias", "0.0025", "--freeze-avg", "2.6"]
+GATE_LUM_TOL = 0.10
 
 
 def fail(msg):
@@ -682,6 +699,50 @@ def cli_check(root, photon_n):
         fail(f"cli: the spectrum file is not 200 x 37 ({len(lines)} lines)")
 
 
+def accuracy_check(root):
+    """Phase 10: the accuracy gate on the card, its launches counted."""
+    import contextlib
+    import io
+
+    from grmonty_tpu_torch.tools import validate_accuracy
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    args = validate_accuracy.parse_args(
+        GATE_ARGS + ["--json", os.path.join(root, ".cache", "chip_smoke_accuracy.json")])
+    hot_kernels.reset_launches()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()):  # the tool's JSON goes to the file
+        out = validate_accuracy.run(args)
+    counts = dict(hot_kernels.launches)
+    decomp, run = out["origin_decomp"] or {}, out["engine_run"]
+    line = {"phase": "accuracy", "photons": out["n_engine"], "mass_unit": out["mass_unit"],
+            "freeze_bias": out["freeze_bias"], "oracle_reps": out["oracle_reps"],
+            "lum_ratio": out["lum_ratio"], "lum_ratio_rel_sigma": out["lum_ratio_rel_sigma"],
+            "rec_ratio": out["rec_ratio"], "chi2_per_dof": out["chi2_per_dof"],
+            "dof": out["dof"], "chi2_counts_per_dof": out["chi2_counts_per_dof"],
+            **{k: decomp.get(k) for k in ("chi2_prim_per_dof", "kappa_fit", "kappa_gen_fit",
+                                          "chi2_sec_gen_per_dof", "dof_sec_gen",
+                                          "n_sec_engine", "n_sec_oracle")},
+            "n_hc_clamp_engine": out["n_hc_clamp_engine"],
+            "n_stall_engine": out["n_stall_engine"],
+            "max_tau_scatt": [out["max_tau_scatt_engine"], out["max_tau_scatt_oracle"]],
+            "engine_s": out["engine_s"], "oracle_s": out["oracle_s"],
+            "device_s": run["device_s"], "hot_iters": run["hot_iters"],
+            "full_phases": run["full_phases"], "light_phases": run["light_phases"],
+            "tail_stages": run["tail_stages"], "launches": counts,
+            "seconds": time.monotonic() - t0}
+    print(json.dumps(line))
+    fails = validate_accuracy.gate_failures(out)
+    if fails:
+        fail("accuracy gate: " + "; ".join(fails))
+    if not abs(out["lum_ratio"] - 1.0) <= GATE_LUM_TOL:
+        fail(f"accuracy gate: lum_ratio {out['lum_ratio']} not within 1 +- {GATE_LUM_TOL}")
+    if not (counts["hot_step"] == run["hot_iters"] > 0
+            and counts["row_gather"] == run["full_phases"]):
+        fail(f"accuracy gate: launches {counts} against {run['hot_iters']} hot iterations "
+             f"and {run['full_phases']} full phases")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--photon-n", type=float, default=1e5, help="shipped path")
@@ -766,6 +827,7 @@ def main():
 
     resume_check(root, args.resume_photon_n)
     cli_check(root, args.resume_photon_n)
+    accuracy_check(root)
 
     print(card)
     print(json.dumps({"kernels": list(kernels.values())}))

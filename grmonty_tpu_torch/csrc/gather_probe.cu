@@ -79,8 +79,33 @@
 //               two passes of the 270,336 threads; at w = 216 (G = 32,
 //               K = 2) 2.1 M pairs, eight passes in four groups.  The
 //               launch is programmatic, as coop's;
-//   rowloop     one thread per row, w scalar __ldg loads in order j = 0..w-1:
-//               a warp touches 32 rows with every 4-byte load;
+//   rowloop     the TPU kernel's form: an owner that walks its rows in order,
+//               a step at a time.  Each warp walks a run of consecutive steps,
+//               P = 32/G rows a step side by side, G lanes a row on 16 B
+//               loads (G and K as coop's), a wider row's chunks of G K
+//               float4s in turn.  The walk is a software pipeline of fixed
+//               depth held in registers: a ring of D + 1 slots, the row loads
+//               of the D items after the one being summed in flight (D =
+//               ROWLOOP_LOADS / K for G = 32, ROWLOOP_LOADS_NARROW / K
+//               below), each item's index loaded D + 1 items ahead of its
+//               row; the item's load D ahead is issued before its adds, a
+//               step's sum reduces by shuffles and stays with one lane of its
+//               group, and every 32 rows (Q = G steps) go out in one
+//               coalesced store.  One wave of blocks of ROWLOOP_THREADS
+//               sized by occupancy (no more warps than the steps fill; each
+//               takes ceil(steps / warps)), launched programmatically.  Where
+//               coop issues a batch's loads at once and then adds them all,
+//               this walk streams with a bounded number in flight.  What the
+//               card showed (PERF.md): at w = 32 a warp's run is 4 steps, so
+//               the cost is the walk's own instructions, not its depth: the
+//               counters are 32-bit, a lane's live items end at one limit,
+//               the loads past a run's end are skipped by uniform branches,
+//               and the registers are capped for ROWLOOP_MIN_BLOCKS blocks an
+//               SM (one 512-thread block an SM at 85-105 registers cost 35%).
+//               At w = 32: G = 8, P = 4, D = 4; at w = 216: G = 32, K = 2,
+//               P = 1, D = 4.  It replaced one thread a row making w scalar
+//               4 B loads in order, where each warp load touched 32 rows'
+//               lines to use 128 bytes and fed one serial add chain;
 //   smem        the rows land in shared memory before they are summed.  One
 //               wave of persistent blocks of SMEM_THREADS (sized by
 //               occupancy, launched programmatically) walks tiles of T
@@ -129,7 +154,9 @@
 // T, the rows of one stage, which the wrapper derives from blk), the row
 // count N and the CUDA stream; returns cudaGetLastError() after the launch.
 // gather_rowsum_persistent_pass_rows(w) gives the rows one pass of the
-// persistent kernel covers on the current device.
+// persistent kernel covers on the current device, and
+// gather_rowsum_rowloop_wave_rows(w) the rows of the rowloop kernel's
+// whole wave at one step a warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -145,7 +172,10 @@ namespace {
 // the float4s of one warp's stage (a row must fit a stage, so w <= 4
 // SMEM_STAGE_F4 = hot_kernels.SMEM_STAGE_FLOATS = 512); gather_rowsum_
 // persistent's block size and 16-byte loads a lane has in flight, as
-// coop's.
+// coop's; gather_rowsum_rowloop's block size, the 16-byte loads a lane
+// has in flight behind the item it sums (as coop's) and the blocks an SM
+// its registers are capped for (256-thread blocks and three an SM lost on
+// the card).
 constexpr int ROWSUM_THREADS = 512;
 constexpr int ROWSUM_LOADS = 8;
 constexpr int ROWSUM_LOADS_NARROW = 4;
@@ -156,10 +186,15 @@ constexpr int SMEM_STAGE_F4 = 128;
 constexpr int PERSIST_THREADS = 256;
 constexpr int PERSIST_LOADS = 4;
 constexpr int PERSIST_LOADS_NARROW = 2;
+constexpr int ROWLOOP_THREADS = 512;
+constexpr int ROWLOOP_LOADS = 8;
+constexpr int ROWLOOP_LOADS_NARROW = 4;
+constexpr int ROWLOOP_MIN_BLOCKS = 2;
 
 constexpr int THREADS = 256;
 constexpr int COOP_WARPS = ROWSUM_THREADS / 32;
 constexpr int SMEM_WARPS = SMEM_THREADS / 32;
+constexpr int ROWLOOP_WARPS = ROWLOOP_THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_DEVICES = 64;
 static_assert(COPY_STAGE_BYTES % 128 == 0 && COPY_STAGES >= 2 &&
@@ -315,15 +350,101 @@ __global__ void __launch_bounds__(PERSIST_THREADS, 2048 / PERSIST_THREADS)
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-    rowsum_rowloop_kernel(const float *__restrict__ table, const int32_t *__restrict__ idx,
-                          float *__restrict__ out, int n, int w) {
-  const int64_t row = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (row >= n) return;
-  const float *src = table + (int64_t)__ldg(idx + row) * w;
-  float s = 0.0f;
-  for (int j = 0; j < w; ++j) s += __ldg(src + j);
-  out[row] = s;
+// The walk of gather_rowsum_rowloop for G lanes a row and K float4s a lane
+// a row: P rows a step, D items (a step's chunk of G K float4s a row) in
+// flight behind the one being summed, a ring of R = D + 1 register slots,
+// Q steps to a coalesced store of 32 sums.  A row wider than one chunk
+// (WIDE: G = 32, K = 2, more than 64 float4s) takes several items.
+template <int G, int K>
+struct LoopShape {
+  static constexpr int P = 32 / G;
+  static constexpr int D_WANT = (G == 32 ? ROWLOOP_LOADS : ROWLOOP_LOADS_NARROW) / K;
+  static constexpr int D = D_WANT < 1 ? 1 : D_WANT;
+  static constexpr int R = D + 1;
+  static constexpr int Q = 32 / P;
+};
+
+// Warp w walks steps [s0, s1) = [w run, w run + run) of the pool, P rows a
+// step, item by item: item i is chunk i % chunks of step s0 + i / chunks
+// (one item a step unless WIDE).  Each item: the row load of item i + D
+// issued into the ring slot item i - 1 freed, the index of item i + D + R
+// (the next to use that slot) loaded into the slot's index register, then
+// item i's adds; at a step's last chunk the G lanes' partial sums reduce
+// by shuffles and lane q of group p keeps row q P + p of the 32
+// consecutive rows of Q = G steps (step q of the Q), and every Q steps
+// (and at the run's end) the 32 sums go out in one coalesced store.  A lane's live items are those before m (its group's
+// row below N, the step inside the run): past them it loads nothing.  The
+// walk is warp-uniform, so every shuffle runs with the whole warp; its
+// counters are 32-bit (N < 2^31), which keeps the kernel within the
+// registers of ROWLOOP_MIN_BLOCKS blocks an SM.
+template <int G, int K, bool WIDE>
+__global__ void __launch_bounds__(ROWLOOP_THREADS, ROWLOOP_MIN_BLOCKS)
+    rowsum_rowloop_kernel(const float4 *__restrict__ table, const int32_t *__restrict__ idx,
+                          float *__restrict__ out, int n, int w4, int chunks, int run) {
+  using S = LoopShape<G, K>;
+  constexpr int P = S::P, D = S::D, R = S::R, Q = S::Q;
+  pdl_begin();
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);  // lane within its row's group
+  const int grp = lane / G;        // the group: row s P + grp of step s
+  const int steps = (int)(((int64_t)n + P - 1) / P);
+  const int64_t first = ((int64_t)blockIdx.x * ROWLOOP_WARPS + threadIdx.x / 32) * run;
+  if (first >= steps) return;  // warp-uniform
+  const int s0 = (int)first;
+  const int len = (s0 + run < steps ? s0 + run : steps) - s0;  // steps of the run
+  const int per = WIDE ? chunks : 1;                            // items a step
+  const int items = len * per;
+  // the run's steps whose row this lane's group holds (s P + grp < N)
+  const int own = (n - grp + P - 1) / P - s0;
+  const int m = (own < len ? own : len) * per;
+  const int32_t *ip = idx + s0 * P + grp;  // this lane's index at the run's first step
+  const float4 *tp = table + sub;
+  auto index = [&](int i) { return i < m ? __ldg(ip + (WIDE ? i / chunks : i) * P) : 0; };
+  auto load = [&](int i, int id, float4 (&v)[K]) {
+    const int c = WIDE ? i % chunks * (G * K) : 0;  // the chunk's first float4
+    const float4 *row = tp + (int64_t)id * w4 + c;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      v[k] = (i < m && c + sub + k * G < w4) ? __ldg(row + k * G)
+                                             : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  float4 v[R][K];
+  int id[R];
+  // the prologue: the indices of items 0 .. D, the rows of items 0 .. D-1
+  // in flight, slot j's index register then holding item j + R's
+#pragma unroll
+  for (int j = 0; j <= D; ++j) id[j] = j < items ? index(j) : 0;
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    if (j < items) load(j, id[j], v[j]);
+    if (j + R < items) id[j] = index(j + R);
+  }
+  float acc = 0.0f, res = 0.0f;
+  for (int t = 0; t < items; t += R) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int i = t + j;
+      if (i >= items) break;
+      const int ahead = (j + D) % R;  // the slot item i - 1 freed
+      if (i + D < items) load(i + D, id[ahead], v[ahead]);
+      if (i + D + R < items) id[ahead] = index(i + D + R);
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc += (v[j][k].x + v[j][k].y) + (v[j][k].z + v[j][k].w);
+      if (!WIDE || i % chunks == chunks - 1) {
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(FULL, acc, off);
+        // step q of a store's Q = G steps: lane q of group p keeps row q P + p
+        const int s = WIDE ? i / chunks : i;  // the step within the run
+        const int q = s % Q;
+        if (sub == q) res = acc;
+        if (q == Q - 1 || s == len - 1) {
+          const int r = (s0 + s - q + sub) * P + grp;
+          if (sub <= q && r < n) out[r] = res;
+        }
+        acc = 0.0f;
+      }
+    }
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void *smem_dst, const void *gmem_src) {
@@ -491,8 +612,6 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) bulk_wait_all();
 }
 
-unsigned blocks_for(int64_t threads) { return (unsigned)((threads + THREADS - 1) / THREADS); }
-
 // The group width of coop/persistent: the largest power of two that is at
 // most 32 and at most w4.
 int group_for(int w4) {
@@ -612,16 +731,17 @@ int pass_rows() {
   return grid < 0 ? (int)grid : (int)(grid * (PERSIST_THREADS / G));
 }
 
-// K as coop's: 2 where w4 is not a power of two below 64, or for G = 32
-// chunks of 64 float4s.
-#define PERSIST_SWITCH(CALL)                                  \
-  switch (group_for(w4)) {                                    \
-    case 1: return CALL(1, 1);                                \
-    case 2: return w4 > 2 ? CALL(2, 2) : CALL(2, 1);          \
-    case 4: return w4 > 4 ? CALL(4, 2) : CALL(4, 1);          \
-    case 8: return w4 > 8 ? CALL(8, 2) : CALL(8, 1);          \
-    case 16: return w4 > 16 ? CALL(16, 2) : CALL(16, 1);      \
-    default: return w4 > 32 ? CALL(32, 2) : CALL(32, 1);      \
+// The (G, K) instance of persistent and rowloop for w4 float4s a row: G
+// as coop's, K as coop's, 2 where w4 is not a power of two below 64, or for
+// G = 32 chunks of 64 float4s.
+#define GROUP_SWITCH(CALL)                               \
+  switch (group_for(w4)) {                               \
+    case 1: return CALL(1, 1);                           \
+    case 2: return w4 > 2 ? CALL(2, 2) : CALL(2, 1);     \
+    case 4: return w4 > 4 ? CALL(4, 2) : CALL(4, 1);     \
+    case 8: return w4 > 8 ? CALL(8, 2) : CALL(8, 1);     \
+    case 16: return w4 > 16 ? CALL(16, 2) : CALL(16, 1); \
+    default: return w4 > 32 ? CALL(32, 2) : CALL(32, 1); \
   }
 
 int dispatch_persistent(void **ptrs, const double *scal, int n, void *stream) {
@@ -630,7 +750,7 @@ int dispatch_persistent(void **ptrs, const double *scal, int n, void *stream) {
   if (w4 <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define LAUNCH(G, K) launch_persistent<G, K>(ptrs, n, w4, st)
-  PERSIST_SWITCH(LAUNCH)
+  GROUP_SWITCH(LAUNCH)
 #undef LAUNCH
 }
 
@@ -638,10 +758,72 @@ int persistent_pass_rows(int w) {
   const int w4 = w / 4;
   if (w4 <= 0) return -(int)cudaErrorInvalidValue;
 #define PASS(G, K) pass_rows<G, K>()
-  PERSIST_SWITCH(PASS)
+  GROUP_SWITCH(PASS)
 #undef PASS
 }
-#undef PERSIST_SWITCH
+
+// The rowloop kernel's one-wave grid for `wanted` blocks (resident blocks
+// of this instance on one SM found once); a CUDA error as a negative number.
+template <int G, int K, bool WIDE>
+int64_t rowloop_grid(int64_t wanted) {
+  static int per_sm = 0;
+  return wave_blocks(rowsum_rowloop_kernel<G, K, WIDE>, ROWLOOP_THREADS, &per_sm, 0, wanted);
+}
+
+// No more warps than the steps fill; each walks a run of ceil(steps / warps)
+// consecutive steps.
+template <int G, int K, bool WIDE>
+int launch_rowloop_as(void **ptrs, int n, int w4, cudaStream_t stream) {
+  constexpr int P = LoopShape<G, K>::P;
+  const int64_t steps = ((int64_t)n + P - 1) / P;
+  const int64_t grid = rowloop_grid<G, K, WIDE>((steps + ROWLOOP_WARPS - 1) / ROWLOOP_WARPS);
+  if (grid <= 0) return grid < 0 ? (int)-grid : (int)cudaErrorInvalidConfiguration;
+  const int64_t warps = grid * ROWLOOP_WARPS;
+  const int64_t run = (steps + warps - 1) / warps;
+  const int64_t chunks = (w4 + G * K - 1) / (G * K);
+  if (run * chunks > INT32_MAX) return (int)cudaErrorInvalidValue;  // 32-bit walk
+  return launch_pdl(rowsum_rowloop_kernel<G, K, WIDE>, grid, ROWLOOP_THREADS, 0, stream,
+                    (const float4 *)ptrs[0], (const int32_t *)ptrs[1], (float *)ptrs[2], n, w4,
+                    (int)chunks, (int)run);
+}
+
+// A row takes several chunks (items) only at G = 32, K = 2 and more than
+// 64 float4s.
+template <int G, int K>
+int launch_rowloop(void **ptrs, int n, int w4, cudaStream_t stream) {
+  if constexpr (G == 32 && K == 2)
+    if (w4 > G * K) return launch_rowloop_as<G, K, true>(ptrs, n, w4, stream);
+  return launch_rowloop_as<G, K, false>(ptrs, n, w4, stream);
+}
+
+// The rows of a whole wave's warps, one step each.
+template <int G, int K>
+int wave_rows(int w4) {
+  int64_t grid = 0;
+  if constexpr (G == 32 && K == 2)
+    if (w4 > G * K) grid = rowloop_grid<G, K, true>(INT64_MAX);
+  if (grid == 0) grid = rowloop_grid<G, K, false>(INT64_MAX);
+  return grid < 0 ? (int)grid : (int)(grid * ROWLOOP_WARPS * LoopShape<G, K>::P);
+}
+
+int dispatch_rowloop(void **ptrs, const double *scal, int n, void *stream) {
+  const int w4 = (int)scal[0] / 4;
+  if (n <= 0) return (int)cudaGetLastError();
+  if (w4 <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define LAUNCH(G, K) launch_rowloop<G, K>(ptrs, n, w4, st)
+  GROUP_SWITCH(LAUNCH)
+#undef LAUNCH
+}
+
+int rowloop_wave_rows(int w) {
+  const int w4 = w / 4;
+  if (w4 <= 0) return -(int)cudaErrorInvalidValue;
+#define ROWS(G, K) wave_rows<G, K>(w4)
+  GROUP_SWITCH(ROWS)
+#undef ROWS
+}
+#undef GROUP_SWITCH
 
 template <int G>
 int launch_smem(void **ptrs, int n, int w4, int tile, cudaStream_t stream) {
@@ -699,11 +881,11 @@ int gather_rowsum_persistent_pass_rows(int w) { return persistent_pass_rows(w); 
 int gather_rowsum_rowloop_nptrs() { return 3; }
 int gather_rowsum_rowloop_nscal() { return 1; }
 int gather_rowsum_rowloop_launch(void **ptrs, const double *scal, int n, void *stream) {
-  if (n > 0)
-    rowsum_rowloop_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const float *)ptrs[0], (const int32_t *)ptrs[1], (float *)ptrs[2], n, (int)scal[0]);
-  return (int)cudaGetLastError();
+  return dispatch_rowloop(ptrs, scal, n, stream);
 }
+// The rows one wave of the rowloop kernel covers with one step a warp at
+// row width w on the current device, or a CUDA error as a negative number.
+int gather_rowsum_rowloop_wave_rows(int w) { return rowloop_wave_rows(w); }
 
 int gather_rowsum_smem_nptrs() { return 3; }
 int gather_rowsum_smem_nscal() { return 2; }

@@ -87,6 +87,15 @@ class EngineConfig(typing.NamedTuple):
     # corner rows in the hot step and the fresh-lane init, and (in the
     # driver) rejection emission in plan order.
     reference: bool = False
+    # The frozen-bias comparison mode, for validation only (the accuracy
+    # gate, grmonty_tpu_torch.tools.validate_accuracy): when bias_fixed_tau
+    # > 0 the scattering-bias normalization max_tau * (avg + 2) reads
+    # bias_fixed_tau * (bias_fixed_avg + 2) instead of the live feedback
+    # counters, as the native tracker's Consts.bias_fixed_tau does, so that
+    # the two trackers' secondary populations are comparable.  Production
+    # runs use the live feedback.
+    bias_fixed_tau: float = 0.0
+    bias_fixed_avg: float = 2.0
 
 
 class EngineTables(typing.NamedTuple):
@@ -585,7 +594,13 @@ class Engine:
     def _bias_denom(self, counters):
         """max_tau * (avg + 2): the average scatter count per record is the
         cumulative ratio under reference semantics, else the windowed mean
-        (BIAS_EMA)."""
+        (BIAS_EMA); under the frozen-bias mode the constants
+        bias_fixed_tau * (bias_fixed_avg + 2), a float64 0-d tensor, so that
+        the bias and its scale round once into the engine dtype, as the JAX
+        engine's Python constant does."""
+        if self.cfg.bias_fixed_tau > 0.0:
+            return torch.tensor(self.cfg.bias_fixed_tau * (self.cfg.bias_fixed_avg + 2.0),
+                                dtype=torch.float64, device=self.device)
         if self.cfg.reference:
             avg = counters.n_scatt_rec.to(self.dt) / (counters.n_recorded.to(self.dt) + 1.0)
         else:

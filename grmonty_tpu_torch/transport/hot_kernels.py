@@ -118,12 +118,19 @@ _ABI = {"hot_step": (len(_HOT_PTRS), _HOT_NSCAL),
         "row_gather_rowloop": (3, 1)}
 
 
+# The row counts of csrc/gather_probe.cu's tilings (int w -> int rows), by
+# _Build attribute.
+_ROW_COUNTS = {"pass_rows": "gather_rowsum_persistent_pass_rows",
+               "wave_rows": "gather_rowsum_rowloop_wave_rows"}
+
+
 class _Build:
     """The loaded libraries, their entry points and how they were built
     (one per process)."""
 
     fns = None  # kernel name -> ctypes function
     pass_rows = None  # gather_rowsum_persistent_pass_rows
+    wave_rows = None  # gather_rowsum_rowloop_wave_rows
     paths = []
     seconds = 0.0
     log = ""
@@ -178,11 +185,13 @@ def build():
                 raise RuntimeError(f"{name}: library takes {got} pointers/scalars, "
                                    f"the wrapper passes {(n_ptrs, n_scal)}")
             fns[name] = fn
-        if hasattr(lib, "gather_rowsum_persistent_pass_rows"):
-            _Build.pass_rows = lib.gather_rowsum_persistent_pass_rows
-            _Build.pass_rows.argtypes, _Build.pass_rows.restype = [ctypes.c_int], ctypes.c_int
-    missing = sorted(set(_ABI) - set(fns)) + (
-        [] if _Build.pass_rows else ["gather_rowsum_persistent_pass_rows"])
+        for attr, sym in _ROW_COUNTS.items():
+            if hasattr(lib, sym):
+                fn = getattr(lib, sym)
+                fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+                setattr(_Build, attr, fn)
+    missing = sorted(set(_ABI) - set(fns)) + [
+        sym for attr, sym in _ROW_COUNTS.items() if getattr(_Build, attr) is None]
     if missing:
         raise RuntimeError(f"no entry point for {missing} in {paths}")
     _Build.fns, _Build.paths = fns, paths
@@ -396,6 +405,28 @@ def persistent_pass_rows(w):
     rows = _Build.pass_rows(int(w))
     if rows <= 0:
         raise RuntimeError(f"gather_rowsum_persistent_pass_rows({w}): CUDA error {-rows}")
+    return rows
+
+
+def rowloop_step_rows(w):
+    """The rows P of one step of ``gather_rowsum(..., "rowloop")`` at row
+    width ``w``: 32 / G, G the lanes a row (the largest power of two at most
+    32 and at most w / 4)."""
+    g = 1
+    while g < 32 and 2 * g <= w // 4:
+        g *= 2
+    return 32 // g
+
+
+def rowloop_wave_rows(w):
+    """The rows ``gather_rowsum(..., "rowloop")`` covers at row width ``w``
+    on the current CUDA device when each warp of its one-wave grid walks one
+    step (:func:`rowloop_step_rows` rows): N up to this takes one step a
+    warp, beyond it each warp walks ceil(steps / warps)."""
+    build()
+    rows = _Build.wave_rows(int(w))
+    if rows <= 0:
+        raise RuntimeError(f"gather_rowsum_rowloop_wave_rows({w}): CUDA error {-rows}")
     return rows
 
 

@@ -1,15 +1,22 @@
 """ctypes binding of the native C++ scalar tracker (``csrc/oracle.cpp``).
 
 Port of ``grmonty_tpu/transport/oracle_native.py``: ``NativeTracker``,
-``_Consts``, ``_Out`` and the same ctypes signature of ``oracle_run``, the
-entry point the port calls (the JAX binding's test hooks ``probe`` and
-``sample_*`` and its frozen-bias mode serve the JAX package's accuracy
-tools, which are not ported yet).  ``csrc/oracle.cpp`` is a byte-identical
-copy of the JAX package's ``native/oracle.cpp`` (a test compares their
-hashes): the scalar physics of the reference, tracked one photon at a time
-with its per-photon bias feedback.  The driver uses it twice: the pilot that warms the bias
-counters before the first wave (``driver.Simulation._host_warm_counters``)
-and the CPU backend (``Simulation.run_native_cpu``).
+``_Consts``, ``_Out`` and the ctypes signatures of the library's four
+entry points: ``oracle_run`` (track a batch), and the hooks ``oracle_probe``
+(every deterministic sub-function at one state, ``PROBE_LEN`` values),
+``oracle_sample_electron`` and ``oracle_sample_scattered`` (the two
+rejection samplers, ``n`` draws from a seed), which tests hold against the
+JAX binding's.  ``NativeTracker(..., bias_fixed=(tau, avg))`` pins the
+scattering-bias normalization to tau * (avg + 2), the frozen-bias
+comparison mode of the accuracy gate
+(``grmonty_tpu_torch.tools.validate_accuracy``; ``Consts.bias_fixed_tau``
+in the source).  ``csrc/oracle.cpp`` is a byte-identical copy of the JAX
+package's ``native/oracle.cpp`` (a test compares their hashes): the scalar
+physics of the reference, tracked one photon at a time with its
+per-photon bias feedback.  The driver uses it twice: the pilot that warms
+the bias counters before the first wave
+(``driver.Simulation._host_warm_counters``) and the CPU backend
+(``Simulation.run_native_cpu``); the accuracy gate runs it as the oracle.
 
 The tracker reads the hotcross table (221x81) and the K2 table (201) from
 ``utils/tables.py``, and the primitives (8, n1, n2) from its caller.
@@ -42,6 +49,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "grmonty_tpu_torch")
 CXX_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 N_SPEC_CHAN = 16
+PROBE_LEN = 128
 
 _lock = threading.Lock()
 _lib = None
@@ -131,7 +139,7 @@ def _build(so):
 
 def load():
     """Build the library if its hashed file is missing, load it and set
-    the signature of ``oracle_run``."""
+    the signatures of its entry points."""
     global _lib
     with _lock:
         if _lib is not None:
@@ -148,6 +156,15 @@ def load():
             + [ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_uint64,
                _DP, ctypes.POINTER(_Out), ctypes.c_int64]
         )
+        lib.oracle_probe.restype = ctypes.c_int
+        lib.oracle_probe.argtypes = (
+            [ctypes.POINTER(_Consts)] + [_DP] * 6 + [ctypes.c_double, ctypes.c_double, _DP])
+        lib.oracle_sample_electron.restype = ctypes.c_int
+        lib.oracle_sample_electron.argtypes = [
+            ctypes.POINTER(_Consts), _DP, ctypes.c_double, ctypes.c_uint64, ctypes.c_int64, _DP]
+        lib.oracle_sample_scattered.restype = ctypes.c_int
+        lib.oracle_sample_scattered.argtypes = [
+            ctypes.POINTER(_Consts), _DP, _DP, ctypes.c_uint64, ctypes.c_int64, _DP]
         _lib = lib
         return _lib
 
@@ -186,12 +203,16 @@ class NativeTracker:
     spectrum into ``spec`` (N_TH_BINS, N_E_BINS, 16), carrying the bias
     feedback counters (``n_recorded``, ``n_scatt_rec``,
     ``max_tau_scatt``) from call to call.  ``prims``: the (8, n1, n2)
-    primitives, a host array."""
+    primitives, a host array.  ``bias_fixed``: None (the live feedback) or
+    (tau, avg), the frozen-bias comparison mode."""
 
-    def __init__(self, mc, prims, seed=consts.RNG_SEED):
+    def __init__(self, mc, prims, seed=consts.RNG_SEED, bias_fixed=None):
         self._lib = load()
         self.mc = mc
         self._c = _c_consts(mc)
+        if bias_fixed is not None:
+            self._c.bias_fixed_tau = float(bias_fixed[0])
+            self._c.bias_fixed_avg = float(bias_fixed[1])
         self._hc = _f64(tables_mod.hotcross_table())
         assert self._hc.shape == (221, 81), self._hc.shape
         self._k2 = _f64(tables_mod.jnu_tables()[1])
@@ -232,3 +253,38 @@ class NativeTracker:
         self.n_scatt_rec = int(self._out.n_scatt_rec)
         self.max_tau_scatt = float(self._out.max_tau_scatt)
         return self.spec
+
+    # -- test hooks -----------------------------------------------------------
+    def probe(self, x, k, dk, e0s, dl):
+        """Every deterministic sub-function at one state (x, k, dk/dlambda,
+        the conserved energy, a step length): ``PROBE_LEN`` values in the
+        layout of ``oracle_probe`` in the source."""
+        out = np.zeros(PROBE_LEN)
+        rc = self._lib.oracle_probe(
+            ctypes.byref(self._c), _ptr(self._hc), _ptr(self._k2), _ptr(self._prims),
+            _ptr(_f64(x)), _ptr(_f64(k)), _ptr(_f64(dk)), float(e0s), float(dl), _ptr(out))
+        if rc != 0:
+            raise RuntimeError(f"oracle_probe failed rc={rc}")
+        return out
+
+    def sample_electron(self, k_tet, theta_e, n, seed=1):
+        """``n`` electron momenta (n, 4) from the rejection sampler, for the
+        tetrad-frame photon ``k_tet`` at temperature ``theta_e``."""
+        out = np.zeros((n, 4))
+        rc = self._lib.oracle_sample_electron(
+            ctypes.byref(self._c), _ptr(_f64(k_tet)), float(theta_e), int(seed), int(n),
+            _ptr(out.reshape(-1)))
+        if rc != 0:
+            raise RuntimeError(f"oracle_sample_electron failed rc={rc}")
+        return out
+
+    def sample_scattered(self, k_tet, p, n, seed=1):
+        """``n`` scattered photon momenta (n, 4) from the Klein-Nishina
+        sampler, for the photon ``k_tet`` off the electron ``p``."""
+        out = np.zeros((n, 4))
+        rc = self._lib.oracle_sample_scattered(
+            ctypes.byref(self._c), _ptr(_f64(k_tet)), _ptr(_f64(p)), int(seed), int(n),
+            _ptr(out.reshape(-1)))
+        if rc != 0:
+            raise RuntimeError(f"oracle_sample_scattered failed rc={rc}")
+        return out

@@ -311,6 +311,14 @@ def test_row_copy_takes_rows_up_to_one_stage(device):
         hot_kernels.row_gather_rowloop(wide, idx)
 
 
+@pytest.mark.parametrize("w, rows", [(4, 32), (8, 16), (12, 16), (32, 4), (216, 1),
+                                     (2064, 1)])
+def test_rowloop_step_rows_follow_the_lanes_a_row(w, rows):
+    """The rowloop walk's step: 32 / G rows side by side, G lanes a row the
+    largest power of two at most 32 and at most w / 4, as coop's."""
+    assert hot_kernels.rowloop_step_rows(w) == rows
+
+
 @pytest.mark.parametrize("w, blk, rows", [(32, 256, 16), (32, 8192, 16), (32, 100, 16),
                                            (32, 10, 10), (32, 1, 1), (216, 8192, 2),
                                            (256, 256, 2), (4, 8192, 32), (512, 8192, 1)])
@@ -388,18 +396,26 @@ def test_probe_kernels_match_plain_on_the_card():
         assert np.isfinite(ms)
 
 
+# (w, kernel): every redesigned kernel at w = 4, 32, 216 and 256, and the
+# rowloop walk also at w = 8 and past 2,048 floats (a row in 9 chunks)
+EDGE_CASES = [(w, k) for w in (4, 32, 216, 256)
+              for k in ("gather_rowsum_coop", "row_gather_rowloop", "gather_rowsum_smem",
+                        "gather_rowsum_persistent", "gather_rowsum_rowloop")]
+EDGE_CASES += [(w, "gather_rowsum_rowloop") for w in (8, 2064)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["gather_rowsum_coop", "row_gather_rowloop",
-                                    "gather_rowsum_smem", "gather_rowsum_persistent"])
-@pytest.mark.parametrize("w", [4, 32, 216, 256])
+@pytest.mark.parametrize("w, kernel", EDGE_CASES, ids=[f"{w}-{k}" for w, k in EDGE_CASES])
 def test_redesigned_kernels_at_their_tile_edges_on_the_card(kernel, w):
     """The redesigned kernels at the row counts their tiling makes edges
     of: none, one, a warp's batch of 32 rows +-1 and 65,537 (a ragged last
     tile), and one tile +-1 of each: a row-copy stage (coop and the row
     copy), a shared-memory stage of smem at blk 1, 100, 256 and 8192 (every
-    count at every blk), a pass of the persistent kernel's grid; indices 0
-    and Z - 1 and repeats included.  The row copy bitwise, the row sums
-    within rowsum_slack; each launch adds exactly one to its count."""
+    count at every blk), a pass of the persistent kernel's grid, a step of
+    the rowloop walk (P rows; P - 1, P, P + 1) and its whole wave at one
+    step a warp; indices 0 and Z - 1 and repeats included.  The row copy
+    bitwise, the row sums within rowsum_slack; each launch adds exactly one
+    to its count."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
     dev, z = torch.device("cuda"), 4096
@@ -414,6 +430,10 @@ def test_redesigned_kernels_at_their_tile_edges_on_the_card(kernel, w):
                 for n in counts(hot_kernels.smem_stage_rows(w, blk))]
     elif kernel == "gather_rowsum_persistent":
         runs = [(n, 256) for n in counts(hot_kernels.persistent_pass_rows(w))]
+    elif kernel == "gather_rowsum_rowloop":
+        p = hot_kernels.rowloop_step_rows(w)
+        runs = [(n, 256) for n in sorted(set(counts(hot_kernels.rowloop_wave_rows(w)))
+                                         | {p - 1, p, p + 1})]
     else:  # rows of one row-copy stage
         runs = [(n, 256) for n in counts(hot_kernels.ROW_COPY_MAX_W // w)]
     for n, blk in runs:

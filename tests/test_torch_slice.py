@@ -5,7 +5,8 @@
     its state is carried into the port (``convert``) and both sides run 8
     hot steps, the port fed the uniforms the JAX engine draws.  Pools and
     counters agree field by field: masks and integers exactly, floats to
-    rtol 1e-10 (absolute floor 1e-12 of the field's largest magnitude).
+    rtol 1e-10 (absolute floor 1e-12 of the field's largest magnitude);
+    with the live bias feedback, and with the bias frozen on both sides.
 (b) End to end: the port's ``Simulation`` at photon_n=180, M=4e18, through
     the whole schedule (the host pilot, the waves, the tail cascade); its
     luminosity lies in the golden band of tests/golden/spectrum_torus64x32.json
@@ -53,7 +54,7 @@ def _jax_cfg(c):
         refill_period=c.refill_period, grow_cap=c.grow_cap,
         grow_tau_cap=engine.GROW_TAU_CAP, step_ctrl=engine.STEP_CTRL,
         bias_ema=engine.BIAS_EMA, detached_events=True, derived_fluid=True,
-        dtype=jnp.float64)
+        bias_fixed_tau=c.bias_fixed_tau, bias_fixed_avg=c.bias_fixed_avg, dtype=jnp.float64)
 
 
 def _close(got, ref, what):
@@ -67,9 +68,19 @@ def _close(got, ref, what):
 
 
 def test_hot_chain_matches_jax(tmp_path):
+    _hot_chain(tmp_path, _port_cfg())
+
+
+def test_hot_chain_matches_jax_under_a_frozen_bias(tmp_path):
+    """The same chain with both engines' bias normalization pinned (the
+    accuracy gate's frozen-bias mode): the hot step's bias scale is the
+    constant, on both sides."""
+    _hot_chain(tmp_path, _port_cfg(bias_fixed_tau=0.0025, bias_fixed_avg=2.6))
+
+
+def _hot_chain(tmp_path, pcfg):
     path = str(tmp_path / "torus")
     jtorus.write_torus_dump(path, n1=64, n2=32)
-    pcfg = _port_cfg()
     jsim = jdriver.Simulation(path, photon_n=2000, mass_unit=4e19, config=_jax_cfg(pcfg),
                               cdf_sampler=True, emit_stride=True, warmup=0)
     plan = jsim.plan()
