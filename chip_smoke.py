@@ -86,12 +86,29 @@ Phases, each of which exits non-zero on failure:
    must lie within 1 +- 0.10, every hot step of its engines must be one
    launch of ``hot_step`` and the row gather must run once per full
    phase; its numbers are printed on one line (``{"phase": "accuracy",
-   ...}``).
+   ...}``);
+11. the sharded path and the native dump parser on the 256x256 torus:
+   the dump parsed by the native parser (``models/harmio_native``) must
+   equal numpy's parse bit for bit; ``Simulation`` and
+   ``parallel.sharding.ShardedSimulation`` at world size 1 over NCCL (a
+   ``file://`` rendezvous in ``.cache/``), the shipped profile at
+   ``--resume-photon-n`` photons with phase 8's waves and cascade step cap,
+   the same seed (the ``Simulation`` run is phase 8's uninterrupted one):
+   every count equal and the spectrum within rtol 1e-6, with
+   the launch counts set to 0 just before the sharded run (one
+   ``hot_step`` launch per hot iteration, one row gather per full phase);
+   ``python -m grmonty_tpu_torch --devices N`` with one rank more than the
+   machine has cards must exit non-zero with "need N devices".  The
+   set-up seconds of each ``Simulation`` made here (the dump read and the
+   per-dump tables on the card) are printed; the numbers go on one line
+   (``{"phase": "sharded", ...}``).
 
 With ``--probe-kernels-only`` the script runs phases 1, 2 and 7a and
 prints the card line and the kernels line (no result line); a copy of it
 placed in another commit's checkout times that commit's probe kernels
-the same way, which is how two versions are compared in one call.
+the same way, which is how two versions are compared in one call.  With
+``--sharded-only`` it runs phases 1, 2 and 11 and prints the card line
+(no kernels line, no result line).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result line.
@@ -257,11 +274,12 @@ def torus_dump(root):
     return dump
 
 
-def make_simulation(root, photon_n, reference=False, stall_steps=REF_STALL_STEPS, **over):
-    """The smoke cell's ``Simulation`` on the card: the 256x256 synthetic
-    torus, M = 4e19, seed 123, float32, the shipped profile (or reference
-    semantics) at pool 65,536; ``over`` replaces the profile's driver
-    arguments."""
+def make_simulation(root, photon_n, reference=False, stall_steps=REF_STALL_STEPS, cls=None,
+                    **over):
+    """The smoke cell's ``Simulation`` (or ``cls``) on the card: the
+    256x256 synthetic torus, M = 4e19, seed 123, float32, the shipped
+    profile (or reference semantics) at pool 65,536; ``over`` replaces the
+    profile's driver arguments."""
     import torch
 
     from grmonty_tpu_torch.transport import driver, profiles
@@ -276,8 +294,8 @@ def make_simulation(root, photon_n, reference=False, stall_steps=REF_STALL_STEPS
         cfg = profiles.bench_config(pool=pool, dtype=torch.float32)
         kw = profiles.bench_sim_kwargs(pool)
     kw.update(over)
-    return driver.Simulation(dump, photon_n=int(photon_n), mass_unit=4.0e19, seed=123,
-                             config=cfg, device="cuda", **kw)
+    return (cls or driver.Simulation)(dump, photon_n=int(photon_n), mass_unit=4.0e19, seed=123,
+                                      config=cfg, device="cuda", **kw)
 
 
 def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None,
@@ -632,6 +650,7 @@ def resume_check(root, photon_n):
 
     t0 = time.monotonic()
     spec_ref, st_ref = sim().run()
+    ref = (spec_ref, st_ref)
     crashing = sim()
     wave, done = crashing._run_wave, []
 
@@ -668,6 +687,7 @@ def resume_check(root, photon_n):
         fail(f"resume: counts moved across the resume: {moved}")
     if os.path.exists(ck):
         fail("resume: the completed run left its checkpoint")
+    return ref
 
 
 def cli_check(root, photon_n):
@@ -743,6 +763,99 @@ def accuracy_check(root):
              f"and {run['full_phases']} full phases")
 
 
+def sharded_check(root, photon_n, ref=None):
+    """Phase 11: the native dump parse against numpy's; ``Simulation``
+    (``ref``: phase 8's uninterrupted run, the same setup, or run here)
+    against ``ShardedSimulation`` at world size 1 over NCCL, the sharded
+    run's launches counted; ``--devices`` beyond the machine's cards
+    refused."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from grmonty_tpu_torch.models import harm
+    from grmonty_tpu_torch.parallel import sharding
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    t_all = time.monotonic()
+    dump = torus_dump(root)
+    t0 = time.monotonic()
+    m_nat = harm.read_dump(dump, 4.0e19)
+    parse_native_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    m_np = harm.read_dump(dump, 4.0e19, native=False)
+    parse_numpy_s = time.monotonic() - t0
+    parse_equal = bool(m_nat.data.stacked().tobytes() == m_np.data.stacked().tobytes()
+                       and m_nat.bias_norm == m_np.bias_norm)
+
+    over = dict(emit_chunk=RESUME_CHUNK, tail_stall_steps=RESUME_TAIL_STALL)
+    setup_s = []
+    if ref is None:
+        t0 = time.monotonic()
+        sim = make_simulation(root, photon_n, **over)
+        torch.cuda.synchronize()
+        setup_s.append(time.monotonic() - t0)
+        ref = sim.run()
+        del sim
+    spec_ref, st_ref = ref
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_rdv_", dir=os.path.join(root, ".cache"))
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(rdv, 'rendezvous')}",
+                            rank=0, world_size=1)
+    try:
+        t0 = time.monotonic()
+        sim = make_simulation(root, photon_n, cls=sharding.ShardedSimulation, **over)
+        torch.cuda.synchronize()
+        setup_s.append(time.monotonic() - t0)
+        hot_kernels.reset_launches()
+        spec, st = sim.run()
+        counts = dict(hot_kernels.launches)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    del sim
+
+    n_over = torch.cuda.device_count() + 1
+    cmd = [sys.executable, "-m", "grmonty_tpu_torch", "--harm_dump_path", dump,
+           "--devices", str(n_over), "--photon_n", "1000",
+           "--spectrum_path", os.path.join(root, ".cache", "chip_smoke_devices_spectrum")]
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300)
+    refusal = out.stderr.strip().splitlines()[-1:] or [""]
+
+    with np.errstate(invalid="ignore", divide="ignore"):
+        rel = np.abs(spec - spec_ref) / np.abs(spec_ref)
+    max_rel = float(np.nanmax(np.where(spec_ref == spec, 0.0, rel)))
+    keys = ("n_created", "n_recorded", "n_scatt_recorded", "n_tracked", "hot_iters",
+            "full_phases", "light_phases", "waves", "n_stall_killed", "n_secondary_dropped")
+    result = {"phase": "sharded", "backend": backend, "world_size": st["n_devices"],
+              "photon_n": photon_n, "max_rel_spec_diff": max_rel,
+              **{k: [st_ref[k], st[k]] for k in keys},
+              "device_s": [st_ref["device_s"], st["device_s"]], "reduce_s": st["reduce_s"],
+              "setup_s": setup_s, "launches": counts,
+              "parse_equal": parse_equal, "parse_s": [parse_native_s, parse_numpy_s],
+              "devices_cmd": " ".join(cmd[3:5] + cmd[5:7]), "devices_rc": out.returncode,
+              "devices_refusal": refusal[0], "seconds": time.monotonic() - t_all}
+    print(json.dumps(result))
+    if not parse_equal:
+        fail("sharded: the native dump parse differs from numpy's")
+    if backend != "nccl" or st["n_devices"] != 1:
+        fail(f"sharded: ran on {backend} with {st['n_devices']} ranks")
+    if not np.allclose(spec, spec_ref, rtol=1e-6, atol=0.0):
+        fail(f"sharded: the spectrum differs from Simulation's by {max_rel} relative")
+    moved = [k for k in keys if st_ref[k] != st[k]]
+    if moved:
+        fail(f"sharded: counts differ from Simulation's: {moved}")
+    if not (counts["hot_step"] == st["hot_iters"] > 0
+            and counts["row_gather"] == st["full_phases"]):
+        fail(f"sharded: launches {counts} against {st['hot_iters']} hot iterations and "
+             f"{st['full_phases']} full phases")
+    if out.returncode == 0 or f"need {n_over} devices" not in out.stderr:
+        fail(f"sharded: --devices {n_over} was not refused (rc {out.returncode}):\n"
+             f"{out.stderr[-2000:]}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--photon-n", type=float, default=1e5, help="shipped path")
@@ -755,6 +868,8 @@ def main():
                     help="phases 1, 2 and 7a alone, then the card line and the kernels "
                          "line; a copy of this script beside another commit's package "
                          "times that commit's probe kernels the same way")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="phases 1, 2 and 11 alone, then the card line")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
@@ -796,6 +911,10 @@ def main():
         sass.update(sass_counts(path))
     for fn, (lds, n_ins) in sass.items():
         print(f"  sass: {fn}: {lds} LDS in {n_ins} instructions")
+    if args.sharded_only:
+        sharded_check(root, args.resume_photon_n)
+        print(card)
+        return
 
     t0 = time.monotonic()
     sim = make_simulation(root, args.photon_n)
@@ -825,9 +944,10 @@ def main():
     for name in ROWSUMS:
         kernels[name]["probe_torch_ms"] = probes["probe_vmem_gather"]["torch_ms"]
 
-    resume_check(root, args.resume_photon_n)
+    ref = resume_check(root, args.resume_photon_n)
     cli_check(root, args.resume_photon_n)
     accuracy_check(root)
+    sharded_check(root, args.resume_photon_n, ref)
 
     print(card)
     print(json.dumps({"kernels": list(kernels.values())}))

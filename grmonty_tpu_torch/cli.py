@@ -14,7 +14,9 @@ one switch stands in for the JAX flags ``--grow_cap``, ``--detach``,
 ``--no-cdf_sampler`` and ``--period``.  It runs on the CUDA card unless
 ``--device cpu`` asks for the CPU; the card runs float32 only, as its
 hand-written kernels do.  ``--backend cpu`` tracks with the native scalar
-tracker instead of the engine.
+tracker instead of the engine.  ``--devices N`` (N > 1) shards the photon
+plan over N ranks (``parallel/sharding.py``): N cards under NCCL, or with
+``--device cpu`` N CPU processes under gloo; rank 0 writes the spectrum.
 """
 
 import argparse
@@ -55,6 +57,9 @@ def build_parser():
     p.add_argument("--checkpoint", type=str, default="",
                    help="write a resume point here after the pilot and every wave, and "
                    "resume from it if it exists (a completed run deletes it)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="shard the photon plan over this many ranks (0 or 1 = one device): "
+                   "cards cuda:0..N-1, or CPU processes with --device cpu")
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler trace of the run into this directory "
                    "(trace.json, for chrome://tracing or Perfetto)")
@@ -89,6 +94,8 @@ def main(argv=None):
     else:
         cfg = profiles.bench_config(pool=args.pool, dtype=dtype)
         kw = profiles.bench_sim_kwargs(args.pool)
+    if args.devices > 1:
+        return _main_sharded(args, device, cfg, kw, log)
     sim = driver.Simulation(args.harm_dump_path, photon_n=int(args.photon_n),
                             mass_unit=args.mass_unit, seed=args.seed, config=cfg,
                             device=device, **kw)
@@ -112,6 +119,32 @@ def main(argv=None):
              stats["n_recorded"])
     log.info("Done: %.0f photons/s; kernel build %.3g s", stats["photon_rate"],
              stats["compile_s"])
+    return 0
+
+
+def _main_sharded(args, device, cfg, kw, log):
+    """``--devices N``: the run on N spawned ranks; rank 0 writes the spectrum."""
+    from grmonty_tpu_torch.parallel import sharding
+
+    if args.backend == "cpu":
+        raise SystemExit("--backend cpu is single-process (the scalar tracker has no "
+                         "sharded mode); drop --devices")
+    if args.checkpoint:
+        raise SystemExit("--checkpoint is not supported with --devices>1 (the sharded "
+                         "run loop has its own drain logic)")
+    if args.profile_dir:
+        raise SystemExit("--profile_dir traces one process; drop --devices")
+    try:
+        sharding.check_devices(args.devices, device.type)
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from None
+    _, stats = sharding.run_sharded(
+        args.harm_dump_path, args.devices, device.type, spectrum_path=args.spectrum_path,
+        verbosity=args.verbosity, photon_n=int(args.photon_n), mass_unit=args.mass_unit,
+        seed=args.seed, config=cfg, **kw)
+    log.info("Super photons: created %d, recorded %d over %d ranks", stats["n_created"],
+             stats["n_recorded"], stats["n_devices"])
+    log.info("Done: %.0f photons/s; reduce %.3g s", stats["photon_rate"], stats["reduce_s"])
     return 0
 
 

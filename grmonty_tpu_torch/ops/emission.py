@@ -8,6 +8,8 @@ Port of ``grmonty_tpu/ops/emission.py``:
 * ``get_zone`` stochastic rounding (:693-697)      -> :func:`zone_counts`
 * ``sample_zone_photon`` (harm_model.cpp:706-782)  -> :func:`sample_photons`
   (reference semantics) and :func:`sample_photons_cdf` (shipped profile)
+* the direction quantile table's builder          -> :func:`build_theta_quantiles`
+  (host numpy; ``utils/cache.theta_quantiles`` builds it on a cache miss)
 
 The reference samples frequency and direction by rejection, and so does
 :func:`sample_photons`, in log space.  The shipped profile samples both by
@@ -35,6 +37,37 @@ NU_CDF_NODES = 512
 TH_X_NODES = 384  # log10(x90) grid of the direction quantile table
 TH_U_NODES = 513  # quantile nodes per x90 row
 TH_LX_MIN, TH_LX_MAX = -14.0, 13.0
+
+
+def build_theta_quantiles():
+    """The global |cos theta| quantile table over log10(x90) (host numpy).
+
+    Row X: the CDF of the direction density sin(th) [f(x_th)/f(x90)]^2
+    exp(x90^(1/3) - x_th^(1/3)) with x_th = x90 / sin(th) (the density of
+    :func:`jnu.ln_synch_ratio`) on an 8,192-point grid in |cos theta|,
+    inverted at TH_U_NODES uniform quantiles; (TH_X_NODES, TH_U_NODES)
+    float32."""
+    lx = np.linspace(TH_LX_MIN, TH_LX_MAX, TH_X_NODES)
+    x90 = 10.0**lx
+    c = (np.arange(8192) + 0.5) / 8192.0  # |cos theta| midpoints
+    s = np.sqrt(1.0 - c * c)
+
+    def ln_f(x):
+        xp6 = np.power(np.maximum(x, 1e-30), 1.0 / 6.0)
+        return 2.0 * np.log(xp6**3 + consts.jnu.CST * xp6)
+
+    x_th = x90[:, None] / s[None, :]
+    lnr = (np.log(s)[None, :] + ln_f(x_th) - ln_f(x90)[:, None]
+           + np.cbrt(x90)[:, None] - np.cbrt(x_th))
+    lnr = np.maximum(lnr - lnr.max(axis=1, keepdims=True), -745.0)
+    cum = np.cumsum(np.exp(lnr), axis=1)
+    cdf = cum / np.maximum(cum[:, -1:], 1e-300)
+    u = np.linspace(0.0, 1.0, TH_U_NODES)
+    q = np.empty((TH_X_NODES, TH_U_NODES))
+    grid = np.concatenate([[0.0], c + 0.5 / 8192.0])
+    for ix in range(TH_X_NODES):
+        q[ix] = np.interp(u, np.concatenate([[0.0], cdf[ix]]), grid)
+    return q.astype(np.float32)
 
 
 class SamplerTables(typing.NamedTuple):

@@ -277,3 +277,21 @@ def blend_derived(x1, x2, rows, mc):
         theta_e=pr[1] / pr[0], b=pr[2], u_con=None,
         u_cov=(pr[3], pr[4], pr[5], pr[6]), b_con=None,
         b_cov=(pr[7], pr[8], pr[9], pr[10]))
+
+
+def get_fluid_params(x, g_cov, prims, mc):
+    """Bilinear fluid state at x (..., 4) from the (8, n1, n2) primitives,
+    with ``g_cov`` (..., 4, 4) at x from the caller (harm_model.cpp:595-671;
+    the scalar oracle's form).  Outside the grid n_e is 0."""
+    inside = _inside(x[..., 1], x[..., 2], mc)
+    i, j, del_i, del_j = geometry.x_to_ij_c(x[..., 1], x[..., 2], mc.x_start, mc.dx,
+                                            (mc.n1, mc.n2))
+    c00, c01, c10, c11 = bilinear_weights(del_i, del_j)
+    p = (prims[:, i, j] * c00 + prims[:, i, j + 1] * c01 + prims[:, i + 1, j] * c10
+         + prims[:, i + 1, j + 1] * c11)  # (8, ...)
+    n_e = torch.where(inside, p[0] * mc.n_e_unit, torch.zeros_like(p[0]))
+    theta_e = p[1] / p[0] * mc.theta_e_unit
+    g_con = geometry.gcon(x, mc.a, mc.h_slope, mc.r_0)
+    u_con, u_cov, b_con, b_cov, b_mag = _four_vectors(
+        torch.movedim(p[2:5], 0, -1), torch.movedim(p[5:8], 0, -1), g_cov, g_con, mc)
+    return FluidState(n_e, theta_e, b_mag, u_con, u_cov, b_con, b_cov)

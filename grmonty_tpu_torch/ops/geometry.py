@@ -296,3 +296,53 @@ def x_to_ij_c(x1, x2, x_start, dx, n):
     del_i = torch.where(fi < 0, zero, torch.where(fi > n[0] - 2, one, del_i))
     del_j = torch.where(fj < 0, zero, torch.where(fj > n[1] - 2, one, del_j))
     return i, j, del_i, del_j
+
+
+# ---------------------------------------------------------------------------
+# array wrappers (the scalar oracle, transport/cpu_reference.py)
+# ---------------------------------------------------------------------------
+
+def gcov(x, a, h_slope, r_0):
+    """Covariant MKS metric, (..., 4, 4) (harm_model.cpp:499-530)."""
+    g00, g01, g03, g11, g13, g22, g33 = gcov_c(x[..., 1], x[..., 2], a, h_slope, r_0)
+    z = torch.zeros_like(g00)
+    return torch.stack([torch.stack([g00, g01, z, g03], dim=-1),
+                        torch.stack([g01, g11, z, g13], dim=-1),
+                        torch.stack([z, z, g22, z], dim=-1),
+                        torch.stack([g03, g13, z, g33], dim=-1)], dim=-2)
+
+
+def gcon(x, a, h_slope, r_0):
+    """Contravariant MKS metric, (..., 4, 4) (harm_model.cpp:473-497)."""
+    g00, g01, g11, g13, g22, g33 = gcon_c(x[..., 1], x[..., 2], a, h_slope, r_0)
+    z = torch.zeros_like(g00)
+    return torch.stack([torch.stack([g00, g01, z, z], dim=-1),
+                        torch.stack([g01, g11, z, g13], dim=-1),
+                        torch.stack([z, z, g22, z], dim=-1),
+                        torch.stack([z, g13, z, g33], dim=-1)], dim=-2)
+
+
+def gcov_row0(x, a, h_slope, r_0):
+    """Row 0 of the covariant metric, (g00, g01, g03)."""
+    return gcov_row0_c(x[..., 1], x[..., 2], a, h_slope, r_0)
+
+
+def connection(x, a, h_slope):
+    """Affine connection Gamma^i_{lm}, packed (..., 4, 10)."""
+    c = connection_c(x[..., 1], x[..., 2], a, h_slope)
+    return torch.stack([torch.stack(c[10 * i:10 * (i + 1)], dim=-1) for i in range(4)],
+                       dim=-2)
+
+
+def geodesic_rhs(conn, k):
+    """dk^i/dlambda from the packed (..., 4, 10) connection and k (..., 4)."""
+    k0, k1, k2, k3 = k[..., 0], k[..., 1], k[..., 2], k[..., 3]
+    q = torch.stack([k0 * k0, 2.0 * k0 * k1, 2.0 * k0 * k2, 2.0 * k0 * k3,
+                     k1 * k1, 2.0 * k1 * k2, 2.0 * k1 * k3,
+                     k2 * k2, 2.0 * k2 * k3, k3 * k3], dim=-1)
+    return -torch.sum(conn * q[..., None, :], dim=-1)
+
+
+def step_size(x, k, x2_stop):
+    """Array wrapper of :func:`step_size_c`."""
+    return step_size_c(x[..., 1], x[..., 2], k[..., 1], k[..., 2], k[..., 3], x2_stop)

@@ -1,4 +1,4 @@
-"""The port's accuracy gate: its engine against the native scalar tracker.
+"""The port's accuracy gate: its engine against a scalar tracker.
 
     python -m grmonty_tpu_torch.tools.validate_accuracy --bench-profile \\
         --photons 20000 --mass-unit 4e19 --freeze-bias 0.0025 --oracle-reps 5
@@ -17,7 +17,10 @@ first ``--photons`` photons of the plan in emission order
 * the oracle: the native tracker (``transport/oracle_native.py``) on the
   same photons in float64 with unscaled weights, ``--oracle-reps`` times
   (seeds seed + 1 ... seed + R, run side by side in threads: the tracker
-  holds no shared state).
+  holds no shared state); or with ``--oracle python`` the Python scalar
+  tracker (``transport/cpu_reference.py``, the same physics through the
+  port's torch ops, about 1e3 times slower: seconds per photon on the CPU),
+  its replicates one after another.
 
 :func:`compare` (pure numpy) turns the two spectra, the oracle's
 replicates and the counters into the JAX tool's statistics under the JAX
@@ -41,7 +44,7 @@ two feedback trajectories diverge, and is only printed), and
 Left behind from the JAX tool: its TPU-era engine knobs (``--grow-cap``,
 ``--grow-rate``, ``--detached``, ``--derived-fluid``, ``--refill-period``,
 ``--bias-ema``, the ``GRMONTY_*`` overrides: the port's profile fixes
-them) and ``--oracle python`` (the Python scalar oracle is not ported).
+them).
 """
 
 import argparse
@@ -86,6 +89,9 @@ def parse_args(argv=None):
                     help="pin both trackers' bias normalization to this max_tau (with "
                          "--freeze-avg); enables the hard count gate")
     ap.add_argument("--freeze-avg", type=float, default=2.6)
+    ap.add_argument("--oracle", choices=("native", "python"), default="native",
+                    help="the oracle: the native C++ tracker (seconds) or the Python "
+                         "scalar tracker (transport/cpu_reference.py, ~1e3x slower)")
     ap.add_argument("--oracle-reps", type=int, default=1,
                     help="oracle replicates (seeds seed+1..); at 3 or more the kappa^g "
                          "gate runs against their median with MAD variance")
@@ -370,24 +376,36 @@ def run_engine(sim, rows, engine_seed):
     return spec, counts, time.time() - t0
 
 
-def run_oracle(sim, rows, seed, reps, bias_fixed):
-    """The native tracker on the sample (float64, unscaled weights), once
-    per replicate (seeds seed + 1 ... seed + reps), the replicates in
-    threads.  Returns (mean spectrum, the replicates, counters, seconds)."""
-    from grmonty_tpu_torch.transport import engine, oracle_native
+def run_oracle(sim, rows, seed, reps, bias_fixed, oracle="native"):
+    """The oracle on the sample (float64, unscaled weights), once per
+    replicate (seeds seed + 1 ... seed + reps): the native tracker's
+    replicates in threads, the Python tracker's (``oracle="python"``) one
+    after another.  Returns (mean spectrum, the replicates, counters,
+    seconds)."""
+    from grmonty_tpu_torch.transport import cpu_reference, engine, oracle_native
 
     t0 = time.time()
     photons = oracle_native.photons_from_rows(rows, engine.WEIGHT_SCALE)
     prims = sim.model.data.stacked()
 
     def one(r):
-        tr = oracle_native.NativeTracker(sim.mc, prims, seed=seed + 1 + r, bias_fixed=bias_fixed)
-        tr.run(photons, progress_every=0)
+        if oracle == "python":
+            tr = cpu_reference.CPUTracker(sim.mc, prims, seed=seed + 1 + r,
+                                          bias_fixed=bias_fixed)
+            tr.run(photons)
+        else:
+            tr = oracle_native.NativeTracker(sim.mc, prims, seed=seed + 1 + r,
+                                             bias_fixed=bias_fixed)
+            tr.run(photons, progress_every=0)
         return tr.spec.copy(), int(tr.n_recorded), float(tr.max_tau_scatt)
 
     reps = max(1, reps)
-    with concurrent.futures.ThreadPoolExecutor(max_workers=min(reps, os.cpu_count() or 1)) as ex:
-        done = list(ex.map(one, range(reps)))
+    if oracle == "python":  # it holds the GIL: threads would only take turns
+        done = [one(r) for r in range(reps)]
+    else:
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(reps, os.cpu_count() or 1)) as ex:
+            done = list(ex.map(one, range(reps)))
     specs = np.stack([d[0] for d in done])
     counts = dict(n_photons=int(rows.shape[0]),
                   n_recorded=int(round(float(np.mean([d[1] for d in done])))),
@@ -427,14 +445,14 @@ def run(args):
                    max_tau_scatt=float(dat["max_tau_scatt"]))
     else:
         so, so_reps, orc, t_orc = run_oracle(sim, rows, args.seed, args.oracle_reps,
-                                             bias_fixed)
+                                             bias_fixed, args.oracle)
         if args.oracle_npz:
             np.savez(args.oracle_npz, spec=so, specs=so_reps, n_recorded=orc["n_recorded"],
                      seconds=t_orc, n_photons=n, seed=args.seed, mass_unit=args.mass_unit,
                      max_tau_scatt=orc["max_tau_scatt"])
 
     out = compare(spec_e, so, so_reps, eng, orc, group=args.group)
-    out.update(engine_s=t_eng, oracle_s=t_orc, mass_unit=args.mass_unit, oracle="native",
+    out.update(engine_s=t_eng, oracle_s=t_orc, mass_unit=args.mass_unit, oracle=args.oracle,
                oracle_reps=args.oracle_reps,
                freeze_bias=[args.freeze_bias, args.freeze_avg] if bias_fixed else None)
     out["engine_config"] = {

@@ -109,6 +109,22 @@ def build_engine_tables(host, mc, dtype) -> engine_mod.EngineTables:
     )
 
 
+def warm_counters(counters, n_recorded, n_scatt_rec, max_tau_scatt, avg):
+    """``counters`` with the pilot's bias feedback state injected:
+    ``n_recorded``, ``n_scatt_rec``, ``max_tau_scatt``, ``avg_ema`` and the
+    two EMA marks; the floats in the counters' dtype."""
+    dt, dev = counters.max_tau_scatt.dtype, counters.max_tau_scatt.device
+
+    def i64(v):
+        return torch.tensor(v, dtype=torch.int64, device=dev)
+
+    return counters._replace(
+        n_recorded=i64(n_recorded), n_scatt_rec=i64(n_scatt_rec),
+        max_tau_scatt=torch.tensor(max_tau_scatt, dtype=dt, device=dev),
+        avg_ema=torch.tensor(avg, dtype=dt, device=dev),
+        ema_scatt_mark=i64(n_scatt_rec), ema_rec_mark=i64(n_recorded))
+
+
 def wave_list(total, chunk, n_pool, wave_tail_exit):
     """The run's waves as (first plan photon, photons, exit occupancy).
 
@@ -368,17 +384,9 @@ class Simulation:
         tracker = oracle_native.NativeTracker(self.mc, self.model.data.stacked(),
                                               seed=self.seed + 7)
         tracker.run(oracle_native.photons_from_rows(rows), progress_every=0)
-        dt, dev = counters.max_tau_scatt.dtype, counters.max_tau_scatt.device
         avg = tracker.n_scatt_rec / max(tracker.n_recorded, 1)
-
-        def i64(v):
-            return torch.tensor(v, dtype=torch.int64, device=dev)
-
-        warmed = counters._replace(
-            n_recorded=i64(tracker.n_recorded), n_scatt_rec=i64(tracker.n_scatt_rec),
-            max_tau_scatt=torch.tensor(tracker.max_tau_scatt, dtype=dt, device=dev),
-            avg_ema=torch.tensor(avg, dtype=dt, device=dev),
-            ema_scatt_mark=i64(tracker.n_scatt_rec), ema_rec_mark=i64(tracker.n_recorded))
+        warmed = warm_counters(counters, tracker.n_recorded, tracker.n_scatt_rec,
+                               tracker.max_tau_scatt, avg)
         self.pilot = dict(photons=int(rows.shape[0]), n_recorded=tracker.n_recorded,
                           n_scatt_rec=tracker.n_scatt_rec,
                           max_tau_scatt=tracker.max_tau_scatt, avg=avg,
@@ -468,7 +476,10 @@ class Simulation:
         return self._drain_spec(state)
 
     # -- checkpoints ----------------------------------------------------------
+    SETUP_FIELDS = ("photon_n", "n_pool", "emit_chunk", "reference")
+
     def _setup(self):
+        """The run setup a checkpoint must match (``SETUP_FIELDS``)."""
         return (self.photon_n, self.cfg.n_pool, self.emit_chunk, int(self.cfg.reference))
 
     def save_checkpoint(self, path, waves_done, state):
@@ -489,24 +500,36 @@ class Simulation:
         os.replace(tmp, path)
         log.info("checkpoint: %d wave(s) done -> %s", waves_done, path)
 
+    def checkpoint_setup(self, path):
+        """The run setup (:meth:`_setup`'s fields) a checkpoint file holds."""
+        with np.load(path, allow_pickle=False) as dat:
+            return tuple(int(v) for v in dat["meta"][1:1 + len(self._setup())])
+
     def load_checkpoint(self, path):
         """Restore (waves_done, state) from :meth:`save_checkpoint`'s file,
         with the host spectrum, the generator and the pilot's baseline;
         raises ``ValueError`` for a file of another run setup."""
+        n = len(self._setup())
         with np.load(path, allow_pickle=False) as dat:
             meta = [int(v) for v in dat["meta"]]
-            setup = tuple(meta[1:5])
+            setup = tuple(meta[1:1 + n])
             if setup != self._setup():
                 raise ValueError(
                     f"checkpoint {path} was written by a different run setup: "
-                    f"photon_n/n_pool/emit_chunk/reference {setup} != {self._setup()}")
-            state = _unflat_state(dat, meta[7], self.device)
+                    f"{'/'.join(self.SETUP_FIELDS)} {setup} != {self._setup()}")
+            w_rec, w_scatt, it = meta[1 + n:4 + n]
+            state = _unflat_state(dat, it, self.device)
             self.spec_acc = dat["spec_acc"].astype(np.float64)
             self.gen.set_state(torch.as_tensor(dat["gen_state"]))
-        self._warm_counts = (meta[5], meta[6]) if (meta[5] or meta[6]) else None
+        self._warm_counts = (w_rec, w_scatt) if (w_rec or w_scatt) else None
         return meta[0], state
 
     # -- the run --------------------------------------------------------------
+    def _waves(self, total):
+        """The run's waves (first emission index, photons, exit occupancy):
+        :func:`wave_list` over the whole plan."""
+        return wave_list(total, self.emit_chunk, self.cfg.n_pool, self._wave_tail_exit)
+
     def run(self, checkpoint_path=None, checkpoint_every=1):
         """Emit and track the whole plan; returns (spectrum, stats).
 
@@ -522,7 +545,7 @@ class Simulation:
         self.device_s = 0.0 if self.device.type == "cuda" else None
         self.spec_acc = np.zeros_like(self.spec_acc)
         self._warm_counts, self.pilot, self.tail_stages = None, None, []
-        waves = wave_list(plan.total, self.emit_chunk, self.cfg.n_pool, self._wave_tail_exit)
+        waves = self._waves(plan.total)
         resume = None
         if checkpoint_path and os.path.exists(checkpoint_path):
             resume, state = self.load_checkpoint(checkpoint_path)
@@ -547,12 +570,34 @@ class Simulation:
             os.remove(checkpoint_path)
         elapsed = time.monotonic() - t0
 
-        c = state.counters
-        w_rec, w_scatt = self._warm_counts or (0, 0)
-        n_retired = int(c.n_retired)
         engines = [self.engine, *self._tail_engines.values()]
         stats = {
             "n_created": plan.total,
+            "full_phases": sum(e.phases["full"] for e in engines),
+            "light_phases": sum(e.phases["light"] for e in engines),
+            "waves": len(waves),
+            "pilot": self.pilot,
+            "tail_stages": self.tail_stages,
+            "elapsed_s": elapsed,
+            "compile_s": self.compile_s,
+            "photon_rate": plan.total / max(elapsed, 1e-9),
+            "device_s": self.device_s,
+            "photon_rate_device": (plan.total / self.device_s if self.device_s else None),
+        }
+        stats.update(self._counter_stats(state.counters, self._warm_counts or (0, 0)))
+        if util_waves:
+            stats["util_waves"] = util_waves
+        self.state = state
+        self.spec = unscale_spectrum(self.spec_acc, engine_mod.WEIGHT_SCALE)
+        return self.spec, stats
+
+    def _counter_stats(self, c, debit):
+        """The stats read from the counters ``c``, the pilot's counts
+        ``debit`` = (n_recorded, n_scatt_rec) taken off, and the step-cap
+        truncation share against the host spectrum."""
+        w_rec, w_scatt = debit
+        n_retired = int(c.n_retired)
+        stats = {
             "n_tracked": n_retired,
             "n_recorded": max(0, int(c.n_recorded) - w_rec),
             "n_scatt_recorded": max(0, int(c.n_scatt_rec) - w_scatt),
@@ -563,30 +608,16 @@ class Simulation:
             "n_ev_soft": int(c.n_ev_soft),
             "n_ev_forced": int(c.n_ev_forced),
             "hot_iters": int(c.ls_iters),
-            "full_phases": sum(e.phases["full"] for e in engines),
-            "light_phases": sum(e.phases["light"] for e in engines),
-            "waves": len(waves),
-            "pilot": self.pilot,
-            "tail_stages": self.tail_stages,
             "steps_per_photon": float(c.n_steps_retired) / max(n_retired, 1),
-            "elapsed_s": elapsed,
-            "compile_s": self.compile_s,
-            "photon_rate": plan.total / max(elapsed, 1e-9),
-            "device_s": self.device_s,
-            "photon_rate_device": (plan.total / self.device_s if self.device_s else None),
         }
         util = self._util(c)
         if util:
             stats.update(util_occupied=util[0], util_moving=util[1],
                          util_committed=util[2], util_parked=util[3])
-        if util_waves:
-            stats["util_waves"] = util_waves
         w_spec = float(self.spec_acc[:, 0].sum())
         w_stall = float(c.w_stall)
         stats["w_stall_frac"] = w_stall / max(w_spec + w_stall, 1e-300)
-        self.state = state
-        self.spec = unscale_spectrum(self.spec_acc, engine_mod.WEIGHT_SCALE)
-        return self.spec, stats
+        return stats
 
     @staticmethod
     def _util(c):

@@ -1,11 +1,11 @@
-"""The tracked physics tables and their Chebyshev fits (numpy/scipy).
+"""The physics tables and their Chebyshev fits (numpy/scipy).
 
 The hotcross sigma table, the synchrotron F(k)/K2 tables and the emission
-direction quantile table depend only on compile-time constants; the JAX
-package built them once and tracks them as ``.npz`` files under
-``grmonty_tpu/data/``.  They are the system's fixed inputs, so the port
-keeps its own byte-for-byte copies under ``grmonty_tpu_torch/data/`` and
-reads them with numpy.
+direction quantile table depend only on constants.  They are read through
+``utils/cache.py``, which names each file by a hash of the constants that
+shape it (the JAX package's ``utils/cache._key``), reads the tracked copy
+under ``grmonty_tpu_torch/data/`` (byte-for-byte the JAX package's) and
+builds the table on a miss.
 
 The Chebyshev fits are ports of ``grmonty_tpu/ops/cheb.py``
 ``fit1d``/``fit2d``/``fit_hotcross``/``fit_k2``: the 41x31 log10-sigma
@@ -13,41 +13,18 @@ surface and the 25-term ln K2(1/theta_e) series the hot step evaluates.
 """
 
 import math
-import os
 
 import numpy as np
 
 from grmonty_tpu_torch import consts
+from grmonty_tpu_torch.utils import cache
+from grmonty_tpu_torch.utils.cache import (DATA_DIR, hotcross_table,  # noqa: F401
+                                           jnu_tables, theta_quantiles)
 
-DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
-
-HOTCROSS_FILE = "hotcross_a94a8318dd69.npz"
-JNU_FILE = "jnu_53254050ed24.npz"
-THETA_Q_FILE = "theta_q_79c4f4b83f1b.npz"
-
-
-def _load(name):
-    path = os.path.join(DATA_DIR, name)
-    with np.load(path) as z:
-        return [np.asarray(z[k]) for k in z.files]
-
-
-def hotcross_table() -> np.ndarray:
-    """(N_W+1, N_T+1) log10 hot Compton cross-section [cm^2]."""
-    (t,) = _load(HOTCROSS_FILE)
-    return t
-
-
-def jnu_tables():
-    """(f_table, k2_table): ln F(k) and ln K2(1/theta_e), each (201,)."""
-    f_table, k2_table = _load(JNU_FILE)
-    return f_table, k2_table
-
-
-def theta_quantiles() -> np.ndarray:
-    """(TH_X_NODES, TH_U_NODES) float32 |cos theta| emission quantiles."""
-    (q,) = _load(THETA_Q_FILE)
-    return q
+# the tracked files' names, derived from the constants
+HOTCROSS_FILE = cache.file_name("hotcross", cache.hotcross_key())
+JNU_FILE = cache.file_name("jnu", cache.jnu_key())
+THETA_Q_FILE = cache.file_name("theta_q", cache.theta_q_key())
 
 
 # ---------------------------------------------------------------------------
