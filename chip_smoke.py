@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's two paths once on one CUDA card and check them.
 
     python3 chip_smoke.py [--photon-n 1e5] [--ref-photon-n 5e4]
+    python3 chip_smoke.py --f64-only    # phases 1, 2 and 12
 
 Phases, each of which exits non-zero on failure:
 
@@ -25,13 +26,19 @@ Phases, each of which exits non-zero on failure:
    hidden), the one PyTorch call that computes the same function where
    there is one (``library_ms``, and queued the same way
    ``library_device_ms``), and the least time the card could take
-   (``bound_ms``: the bytes the call must move at 3.35 TB/s or its float32
-   work at 67 TFLOP/s, the larger; ``bound_by`` says which); for the hot
+   (``bound_ms``: the bytes the call must move at 3.35 TB/s or its
+   operations at the card's rate for their type, 67 TFLOP/s in float32 and
+   33.5 in float64, the larger; ``bound_by`` says which); for the hot
    step also its registers and spills (``ptxas``) and the shared-memory
    loads in its SASS (``lds``, by cuobjdump), and on a line of its own the
    weight's worst lane and an estimate of the float32 issue floor.  The
    hot step is checked and timed the same way at the tail cascade's
-   widths, N = 4,096 and 512 (``kernel check hot_step@4096: ...``);
+   widths, N = 4,096 and 512 (``kernel check hot_step@4096: ...``).  Every
+   run of phases 5-12 must launch exactly what its path runs
+   (``path_launches``: the hot step of its dtype and semantics once per hot
+   iteration, the row gather of its dtype once per full phase and, under
+   reference semantics, once per fresh-lane init, no other entry point) and
+   no plain hot step;
 5. the shipped profile end to end at M = 4e19, seed 123, float32, pool
    65,536, the JAX driver's whole schedule: the pilot (8,192 photons on the
    host tracker; its seconds and counters printed), the waves (the first
@@ -68,9 +75,11 @@ Phases, each of which exits non-zero on failure:
    with 65,536-photon waves (the ramp and several whole waves) and the
    cascade's step cap cut to ``RESUME_TAIL_STALL``, three times: uninterrupted; with a checkpoint and a failure injected after its
    second wave (in this phase only); resumed from the checkpoint in a fresh
-   ``Simulation``.  The resumed spectrum must match the uninterrupted one
-   to rtol 1e-6 (float atomics sum it on the card), every count exactly,
-   and the checkpoint must be gone;
+   ``Simulation``.  The uninterrupted run's phases are clocked by CUDA
+   events (``profile_slice.clock_phases``) for phase 12b.  The resumed
+   spectrum must match the uninterrupted one to rtol 1e-6 (float atomics
+   sum it on the card), every count exactly, and the checkpoint must be
+   gone;
 9. the command line, ``python -m grmonty_tpu_torch`` on the card in a
    subprocess at ``--resume-photon-n`` photons and the cells' pool of
    65,536 (``CLI_POOL``): exit 0, a 200 x 37 spectrum file, and a kernel
@@ -101,20 +110,36 @@ Phases, each of which exits non-zero on failure:
    machine has cards must exit non-zero with "need N devices".  The
    set-up seconds of each ``Simulation`` made here (the dump read and the
    per-dump tables on the card) are printed; the numbers go on one line
-   (``{"phase": "sharded", ...}``).
+   (``{"phase": "sharded", ...}``);
+12. float64 on the card: (a) phase 4's checks in float64 (``hot_step_f64``,
+   ``hot_step_ref_f64`` at N = 65,536, 4,096 and 512, ``row_gather_f64``
+   bitwise), on the tables of a float64 ``Simulation`` of the cell; (b)
+   that ``Simulation`` end to end, the shipped profile at
+   ``--resume-photon-n`` photons with phase 8's waves and cascade step cap,
+   under phase 5's checks (``"path": "shipped_f64"``), its phases clocked,
+   and one line (``{"phase": "f64_vs_f32", ...}``) with its window, rate
+   and counts beside phase 8's float32 run; (c) the accuracy gate at
+   reference semantics in float64 (``F64_GATE_ARGS``): its hard gates, the
+   luminosity ratio within 3 of the tool's sigmas, one ``hot_step_ref_f64``
+   launch per hot iteration; (d) ``python -m grmonty_tpu_torch --dtype
+   float64 --reference`` on the 64x32 torus at ``--photon_n`` 200
+   (``F64_CLI_PHOTON_N``), as phase 9.
 
 With ``--probe-kernels-only`` the script runs phases 1, 2 and 7a and
 prints the card line and the kernels line (no result line); a copy of it
 placed in another commit's checkout times that commit's probe kernels
 the same way, which is how two versions are compared in one call.  With
 ``--sharded-only`` it runs phases 1, 2 and 11 and prints the card line
-(no kernels line, no result line).
+(no kernels line, no result line); with ``--f64-only`` phases 1, 2 and 12
+(and phase 12b's float32 run of the same setup in place of phase 8's) and
+prints the card line and the kernels line (no result line).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result line.
 """
 
 import argparse
+import contextlib
 import json
 import logging
 import math
@@ -148,22 +173,27 @@ REPS = 20
 REF_STALL_STEPS = 50000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-# The float32 instruction issue rate: 67e12 counts a fused multiply-add as
+# H100 SXM float64 outside the tensor cores: the FP64 pipes run at half the
+# float32 rate (NVIDIA's data sheet: 34 TFLOP/s against 67).
+FP64_OPS_PER_S = FP32_OPS_PER_S / 2
+OPS_PER_S = {"float32": FP32_OPS_PER_S, "float64": FP64_OPS_PER_S}
+# The instruction issue rate: the peak rates count a fused multiply-add as
 # two operations, and the kernels are built with -fmad=false, so each
 # multiply and each add issues on its own at half that rate.
-FP32_ISSUE_PER_S = FP32_OPS_PER_S / 2
-# Float32 operations per lane, counted from csrc/hot_step.cu (every add,
-# multiply, compare-select, division, square root and transcendental as
-# one): about 600 in phase A (the 40-term connection and two fixed-point
-# rounds of the 40-term geodesic right-hand side) and 3,200 in phase B
-# (the 41x31 hotcross Chebyshev sum, 2,542 multiplies and adds); the raw
-# rows' metric pair adds about 50.  The row gathers do no arithmetic; a row
-# sum of width w does w - 1 additions (W_PROBE here; the w = 216 checks
-# pass their own).
+ISSUE_PER_S = {dt: ops / 2 for dt, ops in OPS_PER_S.items()}
+# Operations per lane, counted from csrc/hot_step.cu (every add, multiply,
+# compare-select, division, square root and transcendental as one; the same
+# count in float32 and float64): about 600 in phase A (the 40-term
+# connection and two fixed-point rounds of the 40-term geodesic right-hand
+# side) and 3,200 in phase B (the 41x31 hotcross Chebyshev sum, 2,542
+# multiplies and adds); the raw rows' metric pair adds about 50.  The row
+# gathers do no arithmetic; a row sum of width w does w - 1 additions
+# (W_PROBE here; the w = 216 checks pass their own).
 W_PROBE = 32
 PROBE_BLK = 8192  # probe_pallas_gather's default blk (PROBE_BLK) for dsB
 ROWSUMS = tuple(f"gather_rowsum_{s}" for s in ("coop", "persistent", "rowloop", "smem"))
 OPS_PER_LANE = {"hot_step": 3800, "hot_step_ref": 3840, "row_gather": 0,
+                "hot_step_f64": 3800, "hot_step_ref_f64": 3840, "row_gather_f64": 0,
                 **{name: W_PROBE - 1 for name in ROWSUMS}, "row_gather_rowloop": 0}
 TOLERANCE = {
     "hot_step": "masks and integers differ on at most 0.1% of lanes; floats within "
@@ -171,6 +201,11 @@ TOLERANCE = {
     "hot_step_ref": "masks and integers differ on at most 0.1% of lanes; floats within "
                     "rtol 1e-4 atol 1e-6 on every lane; census counters exactly equal",
     "row_gather": "bitwise equal",
+    "hot_step_f64": "masks and integers equal on every lane; floats within rtol 1e-11 "
+                    "atol 1e-30 on every lane; census counters exactly equal",
+    "hot_step_ref_f64": "masks and integers equal on every lane; floats within rtol 1e-11 "
+                        "atol 1e-30 on every lane; census counters exactly equal",
+    "row_gather_f64": "bitwise equal",
     **{name: "|kernel - plain| <= w * 2^-23 * sum_j |table[idx, j]| on every index"
        for name in ROWSUMS},
     "row_gather_rowloop": "bitwise equal",
@@ -189,6 +224,9 @@ SOURCES = {"hot_step": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:
            "gather_rowsum_rowloop": ("gather_probe.cu", "tools/probe_gather.py:133"),
            "gather_rowsum_smem": ("gather_probe.cu", "tools/probe_pallas_gather.py:125"),
            "row_gather_rowloop": ("gather_probe.cu", "tools/probe_vmem_gather.py:178")}
+# The float64 instantiations replace what their float32 kernels replace.
+SOURCES.update({f"{name}_f64": SOURCES[name]
+                for name in ("hot_step", "hot_step_ref", "row_gather")})
 # Phase 7's probes, by module name under grmonty_tpu_torch/tools.
 PROBES = ("probe_gather", "probe_pallas_gather", "probe_vmem_gather")
 # Phase 10: the accuracy gate at the setup of the tracked shipped bar
@@ -197,6 +235,23 @@ PROBES = ("probe_gather", "probe_pallas_gather", "probe_vmem_gather")
 GATE_ARGS = ["--bench-profile", "--photons", "20000", "--mass-unit", "4e19", "--seed", "123",
              "--oracle-reps", "5", "--freeze-bias", "0.0025", "--freeze-avg", "2.6"]
 GATE_LUM_TOL = 0.10
+# Phase 12c: the accuracy gate at reference semantics in float64, the JAX
+# tool's default run (ACCURACY.md, "reference semantics, f64"), on the same
+# torus, mass, seed, replicates and frozen bias as GATE_ARGS; the luminosity
+# ratio within F64_GATE_SIGMAS of the tool's sigma.  The photons are cut
+# from the JAX row's 20,000 to 10,000 (the first 10,000 of the plan took
+# 36 s; the whole plan of 31,590 drained for 278,464 iterations in the
+# first run of phase 12d, a chain of secondaries past the step cap; an H100
+# 80GB HBM3 at 700 W, PERF.md).
+F64_GATE_ARGS = ["--reference", "--photons", "10000", "--mass-unit", "4e19", "--seed", "123",
+                 "--oracle-reps", "5", "--freeze-bias", "0.0025", "--freeze-avg", "2.6"]
+F64_GATE_SIGMAS = 3.0
+# Phase 12d: the command line in float64 under reference semantics on the
+# 64x32 torus, at the accuracy gate's pool.  Its photon_n is cut from 2,000
+# (31,590 superphotons) to 200: at 2,000 its 512-lane drain ran 278,464
+# iterations (376 s on an H100 80GB HBM3 at 700 W, PERF.md).
+F64_CLI_ARGS = ["--dtype", "float64", "--reference", "--pool", "1024"]
+F64_CLI_PHOTON_N = 200
 
 
 def fail(msg):
@@ -255,10 +310,10 @@ def nbytes(*objs):
     return total
 
 
-def bound(moved_bytes, ops):
+def bound(moved_bytes, ops, dtype="float32"):
     """(least ms, what bounds it) for ``moved_bytes`` of traffic and
-    ``ops`` float32 operations on the card."""
-    t_bytes, t_ops = moved_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    ``ops`` operations in ``dtype`` ("float32" or "float64") on the card."""
+    t_bytes, t_ops = moved_bytes / HBM_BYTES_PER_S, ops / OPS_PER_S[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -275,23 +330,23 @@ def torus_dump(root):
 
 
 def make_simulation(root, photon_n, reference=False, stall_steps=REF_STALL_STEPS, cls=None,
-                    **over):
+                    dtype=None, **over):
     """The smoke cell's ``Simulation`` (or ``cls``) on the card: the
-    256x256 synthetic torus, M = 4e19, seed 123, float32, the shipped
-    profile (or reference semantics) at pool 65,536; ``over`` replaces the
-    profile's driver arguments."""
+    256x256 synthetic torus, M = 4e19, seed 123, float32 (or ``dtype``),
+    the shipped profile (or reference semantics) at pool 65,536; ``over``
+    replaces the profile's driver arguments."""
     import torch
 
     from grmonty_tpu_torch.transport import driver, profiles
 
     dump = torus_dump(root)
     pool = 65536
+    dtype = dtype or torch.float32
     if reference:
-        cfg = profiles.reference_config(pool=pool, dtype=torch.float32,
-                                        stall_steps=stall_steps)
+        cfg = profiles.reference_config(pool=pool, dtype=dtype, stall_steps=stall_steps)
         kw = profiles.reference_sim_kwargs(pool)
     else:
-        cfg = profiles.bench_config(pool=pool, dtype=torch.float32)
+        cfg = profiles.bench_config(pool=pool, dtype=dtype)
         kw = profiles.bench_sim_kwargs(pool)
     kw.update(over)
     return (cls or driver.Simulation)(dump, photon_n=int(photon_n), mass_unit=4.0e19, seed=123,
@@ -304,15 +359,15 @@ def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None
     ``slack`` per lane where given), time plain, kernel, kernel, plain (one
     pair of each per call, averaged), the kernel's device time and the
     library call, and return the record, updated by ``extra``; ``ops`` is
-    the call's float32 work, ``OPS_PER_LANE`` over ``n`` lanes unless
-    given."""
+    the call's work, ``OPS_PER_LANE`` over ``n`` lanes unless given, in
+    float64 for a float64 instantiation (``*_f64``), else float32."""
     from grmonty_tpu_torch.transport import hot_kernels
 
     err, rel, mask, fails = hot_kernels.compare(ref, got, **hot_kernels.KERNEL_TOLERANCE[name],
                                                 slack=slack)
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
     ops = OPS_PER_LANE[name] * n if ops is None else ops
-    bound_ms, bound_by = bound(moved_bytes, ops)
+    bound_ms, bound_by = bound(moved_bytes, ops, kernel_dtype(name))
     src, replaces = SOURCES[name]
     rec = {"name": name, "route": "cuda", "source": f"grmonty_tpu_torch/csrc/{src}",
            "replaces": replaces, "max_abs_err": err, "max_rel_err": rel,
@@ -327,6 +382,11 @@ def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None
     if fails:
         fail(f"{name} disagrees with its plain version: " + "; ".join(fails))
     return rec
+
+
+def kernel_dtype(name):
+    """"float64" for a float64 instantiation (``*_f64``), else "float32"."""
+    return "float64" if name.endswith("_f64") else "float32"
 
 
 def ptxas_usage(log):
@@ -348,47 +408,151 @@ def ptxas_usage(log):
     return usage
 
 
-def sass_counts(path):
-    """{kernel function: (shared-memory loads LDS, instructions)} in the SASS
-    of a built library, by cuobjdump; {} where cuobjdump is missing."""
+def sass_listing(path):
+    """{kernel function: [its SASS instructions, without addresses and
+    encodings]} of a built library, by cuobjdump; {} where cuobjdump is
+    missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         out = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
                              timeout=300).stdout
     except (OSError, subprocess.TimeoutExpired):
         return {}
-    counts, fn = {}, None
+    listing, fn = {}, None
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = [0, 0]
-        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            counts[fn][1] += 1
-            if re.search(r"\bLDS(\.[A-Z0-9]+)*\b", line):
-                counts[fn][0] += 1
-    return counts
+            listing[fn] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if fn and m:
+            listing[fn].append(m.group(1))
+    return listing
 
 
-def hot_step_checks(sim, usage, sass, ref_stall_steps, n=N_CHECK):
-    """Phase 4a: the hot step of each semantics against its plain version at
-    ``n`` lanes of synthetic state drawn at the path's step cap (the
-    shipped ``sim.cfg``'s, ``ref_stall_steps`` under reference semantics),
-    its census counters exactly; ``usage``/``sass``: the build's ptxas and
-    SASS counts by kernel function."""
+def sass_counts(path):
+    """{kernel function: (shared-memory loads LDS, instructions)} in the SASS
+    of a built library (:func:`sass_listing`)."""
+    return {fn: (sum(1 for ins in lst if re.search(r"\bLDS(\.[A-Z0-9]+)*\b", ins)), len(lst))
+            for fn, lst in sass_listing(path).items()}
+
+
+def hot_step_variant(fn):
+    """(reference, type) of a mangled hot_step_kernel instantiation, the
+    type None for the float-only kernels before the float64 ones."""
+    m = re.search(r"hot_step_kernelILb([01])E(?:([fd])E)?", fn)
+    return None if m is None else (m.group(1) == "1", {"f": "float", "d": "double"}.get(
+        m.group(2)))
+
+
+def ab_hot_step(root, sim, other, usage, ref_stall_steps, turns=2):
+    """``--ab-hot-step``: this checkout's float32 hot step against the one of
+    the checkout at ``other`` (its ``csrc/hot_step.cu`` built with this
+    build's flags; its C interface is the same, so this wrapper launches
+    it on the same arguments), on phase 4's lanes at N_CHECK: each side's
+    worst errors against the plain version and census, its device time in
+    turns (this, other, other, this, ``turns`` times), its ptxas registers
+    and spills, and whether the two SASS listings of each variant are
+    identical.  Prints one line per variant; fails if the census differs."""
+    import ctypes
+
     import torch
 
     from grmonty_tpu_torch.transport import engine, hot_kernels, profiles
 
+    src = os.path.join(other, "grmonty_tpu_torch", "csrc", "hot_step.cu")
+    lib_path = os.path.join(root, "build", "grmonty_tpu_torch", "ab_other_hot_step.so")
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    out = subprocess.run([nvcc, *hot_kernels.NVCC_FLAGS, "-o", lib_path, src],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        fail(f"ab: nvcc failed for {src}:\n{out.stdout}{out.stderr}")
+    other_usage = ptxas_usage(out.stdout + out.stderr)
+    lib = ctypes.CDLL(lib_path)
+    mine_sass = {hot_step_variant(f): v for path in hot_kernels._Build.paths
+                 for f, v in sass_listing(path).items() if hot_step_variant(f)}
+    other_sass = {hot_step_variant(f): v for f, v in sass_listing(lib_path).items()
+                  if hot_step_variant(f)}
     mc, tabs, dev, f32 = sim.mc, sim.tables, sim.device, torch.float32
-    out = []
     for reference in (False, True):
-        cfg = (profiles.reference_config(pool=n, dtype=f32, stall_steps=ref_stall_steps)
-               if reference else sim.cfg._replace(n_pool=n))
-        name = "hot_step_ref" if reference else "hot_step"
-        lanes = hot_kernels.synthetic_lanes(mc, n, 2024, cfg.stall_steps, reference,
+        name = hot_kernels.entry_point("hot_step", f32, reference)
+        theirs = getattr(lib, f"{name}_launch")
+        theirs.argtypes = hot_kernels._Build.fns[name].argtypes
+        theirs.restype = ctypes.c_int
+        fns = {"this": hot_kernels._Build.fns[name], "other": theirs}
+        cfg = (profiles.reference_config(pool=N_CHECK, dtype=f32, stall_steps=ref_stall_steps)
+               if reference else sim.cfg._replace(n_pool=N_CHECK))
+        lanes = hot_kernels.synthetic_lanes(mc, N_CHECK, 2024, cfg.stall_steps, reference,
                                             events=True)
         pool, counters, u_roul, u_x1, bias = hot_kernels.synthetic_step(lanes, f32, dev)
+
+        def step(fn, c=None):
+            if c is None:
+                c = counters._replace(**{k: getattr(counters, k).clone()
+                                         for k in hot_kernels.CENSUS})
+            return fn(pool, c, u_roul, u_x1, bias, mc, tabs, cfg)
+
+        ref_f, ref_c = hot_kernels.step_outputs(*step(engine.hot_step_plain), reference)
+        slack = hot_kernels.weight_slack(pool, ref_f, hot_kernels.KERNEL_TOLERANCE[name]["rtol"])
+        rec = {"name": name, "n": N_CHECK, "device_ms": {"this": [], "other": []}}
+        try:
+            for side, fn in fns.items():
+                hot_kernels._Build.fns[name] = fn
+                got_f, got_c = hot_kernels.step_outputs(*step(hot_kernels.hot_step), reference)
+                torch.cuda.synchronize()
+                err, rel, mask, fails = hot_kernels.compare(
+                    ref_f, got_f, **hot_kernels.KERNEL_TOLERANCE[name], slack=slack)
+                rec[side] = {"max_abs_err": err, "max_rel_err": rel, "mask_mismatch": mask,
+                             "fails": fails, "census_equal": got_c == ref_c}
+            # timed as phase 4 times it: the census added to one set of
+            # counters, no copies between the launches
+            kc = counters._replace(**{k: getattr(counters, k).clone()
+                                      for k in hot_kernels.CENSUS})
+            for _ in range(turns):
+                for side in ("this", "other", "other", "this"):
+                    hot_kernels._Build.fns[name] = fns[side]
+                    rec["device_ms"][side].append(
+                        cuda_ms(lambda: step(hot_kernels.hot_step, kc), queued=True))
+        finally:
+            hot_kernels._Build.fns[name] = fns["this"]
+        key = (reference, "float")
+        rec["ptxas"] = {"this": next((v for f, v in usage.items()
+                                      if hot_step_variant(f) == key), None),
+                        "other": next((v for f, v in other_usage.items()
+                                       if hot_step_variant(f) in (key, (reference, None))),
+                                      None)}
+        theirs_sass = other_sass.get(key, other_sass.get((reference, None)))
+        rec["sass_identical"] = theirs_sass is not None and mine_sass.get(key) == theirs_sass
+        rec["sass_instructions"] = {"this": len(mine_sass.get(key, [])),
+                                    "other": len(theirs_sass or [])}
+        print(f"ab {name}: {json.dumps(rec)}")
+        if not (rec["this"]["census_equal"] and rec["other"]["census_equal"]):
+            fail(f"ab {name}: a census differs from the plain version's")
+
+
+
+def hot_step_checks(sim, usage, sass, ref_stall_steps, n=N_CHECK):
+    """Phase 4a (and 12a): the hot step of each semantics, in ``sim``'s
+    dtype, against its plain version at ``n`` lanes of synthetic state
+    drawn at the path's step cap (the shipped ``sim.cfg``'s,
+    ``ref_stall_steps`` under reference semantics), its census counters
+    exactly; ``usage``/``sass``: the build's ptxas and SASS counts by
+    kernel function."""
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels, profiles
+
+    mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, sim.cfg.dtype
+    out = []
+    for reference in (False, True):
+        cfg = (profiles.reference_config(pool=n, dtype=dt, stall_steps=ref_stall_steps)
+               if reference else sim.cfg._replace(n_pool=n))
+        name = hot_kernels.entry_point("hot_step", dt, reference)
+        lanes = hot_kernels.synthetic_lanes(mc, n, 2024, cfg.stall_steps, reference,
+                                            events=True)
+        pool, counters, u_roul, u_x1, bias = hot_kernels.synthetic_step(lanes, dt, dev)
 
         def fresh():
             return counters._replace(**{c: getattr(counters, c).clone()
@@ -416,7 +580,7 @@ def hot_step_checks(sim, usage, sass, ref_stall_steps, n=N_CHECK):
                [getattr(counters, c) for c in hot_kernels.CENSUS],
                [] if reference else hot_kernels._ev_cols(pool))
         moved = (nbytes(ins, got_f, [getattr(counters, c) for c in hot_kernels.CENSUS])
-                 + torch.unique(z).numel() * table.shape[1] * 4)
+                 + torch.unique(z).numel() * table.shape[1] * table.element_size())
         slack = hot_kernels.weight_slack(pool, ref_f,
                                          hot_kernels.KERNEL_TOLERANCE[name]["rtol"])
         # the weight's worst lane, with the optical depth that decayed it
@@ -424,10 +588,12 @@ def hot_step_checks(sim, usage, sass, ref_stall_steps, n=N_CHECK):
         i = int(torch.argmax(torch.nan_to_num(w_rel, nan=0.0)))
         print(f"  {name}@{n}: w's worst lane {i}: relative error {float(w_rel[i])} at d_tau "
               f"{float(hot_kernels.step_d_tau(pool, ref_f)[i])}; issue floor (estimate, "
-              f"OPS_PER_LANE) {1e3 * OPS_PER_LANE[name] * n / FP32_ISSUE_PER_S} ms")
+              f"OPS_PER_LANE) {1e3 * OPS_PER_LANE[name] * n / ISSUE_PER_S[kernel_dtype(name)]}"
+              " ms")
         rec = time_kernel(name, ref_f, got_f, plain, kern, moved, slack=slack, n=n)
         rec["census"] = got_c
-        inst = f"hot_step_kernelILb{int(reference)}E"
+        # the mangled instantiation hot_step_kernel<reference, float or double>
+        inst = f"hot_step_kernelILb{int(reference)}E{'d' if dt == torch.float64 else 'f'}E"
         rec["ptxas"] = next((v for f, v in usage.items() if inst in f), None)
         rec["lds"], rec["sass_instructions"] = next(
             (v for f, v in sass.items() if inst in f), (None, None))
@@ -438,9 +604,9 @@ def hot_step_checks(sim, usage, sass, ref_stall_steps, n=N_CHECK):
 
 
 def kernel_checks(sim, usage, sass, ref_stall_steps):
-    """Phase 4: every kernel of the path vs its plain version at N_CHECK
-    lanes (the records returned), and the hot step at the cascade's
-    widths (printed)."""
+    """Phase 4 (and 12a): every kernel of the path in ``sim``'s dtype vs its
+    plain version at N_CHECK lanes (the records returned), and the hot step
+    at the cascade's widths (printed)."""
     import numpy as np
     import torch
 
@@ -455,15 +621,17 @@ def kernel_checks(sim, usage, sass, ref_stall_steps):
     idx_np = np.random.default_rng(2025).integers(0, z_n, N_CHECK).astype(np.int32)
     idx_np[:2] = (0, z_n - 1)
     idx = torch.as_tensor(idx_np, device=sim.device)
+    name = hot_kernels.entry_point("row_gather", table.dtype)
     plain_g = lambda: table[idx.long()]  # noqa: E731
     kern_g = lambda: hot_kernels.row_gather(table, idx)  # noqa: E731
     library_g = lambda: torch.index_select(table, 0, idx)  # noqa: E731
     ref_g, got_g = plain_g(), kern_g()
     torch.cuda.synchronize()
-    if not torch.equal(ref_g, got_g):
-        fail("row_gather is not bitwise equal to table[idx]")
-    moved = nbytes(idx, ref_g) + torch.unique(idx).numel() * table.shape[1] * 4
-    out.append(time_kernel("row_gather", {"rows": ref_g}, {"rows": got_g}, plain_g, kern_g,
+    if not (got_g.dtype == table.dtype and torch.equal(ref_g, got_g)):
+        fail(f"{name} is not bitwise equal to table[idx]")
+    moved = (nbytes(idx, ref_g)
+             + torch.unique(idx).numel() * table.shape[1] * table.element_size())
+    out.append(time_kernel(name, {"rows": ref_g}, {"rows": got_g}, plain_g, kern_g,
                            moved, library=library_g))
     return out
 
@@ -575,21 +743,96 @@ def check_schedule(sim, stats, label):
         fail(f"{label}: the cascade left photons behind")
 
 
-def drive(sim, label):
+def path_launches(cfg, stats):
+    """{entry point: launches} that a run of ``cfg`` with the counters
+    ``stats`` (hot_iters, full_phases, light_phases) must show: the fused
+    hot step of its dtype and semantics once per hot iteration of every
+    engine, the row gather of its dtype once in each full phase's event
+    samplers and, under reference semantics, once in each phase's
+    fresh-lane init; every other entry point never."""
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    hot = hot_kernels.entry_point("hot_step", cfg.dtype, cfg.reference)
+    gather = hot_kernels.entry_point("row_gather", cfg.dtype)
+    gathers = stats["full_phases"] + (stats["full_phases"] + stats["light_phases"]
+                                      if cfg.reference else 0)
+    want = {hot: stats["hot_iters"], gather: gathers}
+    return {name: want.get(name, 0) for name in hot_kernels.launches}
+
+
+def launch_failures(cfg, stats, counts):
+    """What is wrong with a run's launch ``counts`` against
+    :func:`path_launches` (empty when they match and a hot step ran)."""
+    want = path_launches(cfg, stats)
+    if counts == want and stats["hot_iters"] > 0:
+        return ""
+    return (f"launches {counts} against {want} ({stats['hot_iters']} hot iterations, "
+            f"{stats['full_phases']} full and {stats['light_phases']} light phases)")
+
+
+@contextlib.contextmanager
+def counting_plain_steps():
+    """Count the calls of the plain hot step (``engine.hot_step_plain``)
+    made inside: a run on the card must make none."""
+    from grmonty_tpu_torch.transport import engine
+
+    plain, calls = engine.hot_step_plain, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return plain(*a, **kw)
+
+    engine.hot_step_plain = counted
+    try:
+        yield calls
+    finally:
+        engine.hot_step_plain = plain
+
+
+@contextlib.contextmanager
+def phase_clocks():
+    """The engine's phases bracketed by CUDA events for the run inside
+    (``profile_slice.clock_phases``, which synchronises nothing); yields
+    {phase: [(event, event)]}, read by :func:`clock_summary`."""
+    import profile_slice
+    from grmonty_tpu_torch.transport import engine
+
+    saved = {name: getattr(engine.Engine, name) for name in profile_slice.PHASES}
+    clocks = {name: [] for name in profile_slice.PHASES}
+    profile_slice.clock_phases(engine.Engine, clocks)
+    try:
+        yield clocks
+    finally:
+        for name, fn in saved.items():
+            setattr(engine.Engine, name, fn)
+
+
+def clock_summary(clocks, device_s):
+    """{phase: {calls, ms, ms_per_call, share of the device window}}."""
+    out = {}
+    for name, pairs in clocks.items():
+        ms = sum(e0.elapsed_time(e1) for e0, e1 in pairs)
+        out[name] = {"calls": len(pairs), "ms": ms, "ms_per_call": ms / max(1, len(pairs)),
+                     "share": ms / (1e3 * device_s)}
+    return out
+
+
+def drive(sim, label, clocks=False):
     """Run ``sim`` with every launch count set to 0 just before, check its
-    schedule, its spectrum, its luminosity and its launches (one fused hot
-    step per hot iteration of every engine; the row gather once in each
-    full phase's event samplers and, under reference semantics, once in
-    each phase's fresh-lane init), print its result line; returns (stats,
-    counts)."""
+    schedule, its spectrum, its luminosity and its launches
+    (:func:`path_launches`; no plain hot step), print its result line (with
+    ``clocks``, also the phase clocks of :func:`phase_clocks`); returns
+    (stats, counts)."""
     import torch
 
     from grmonty_tpu_torch.transport import hot_kernels
 
     root = os.path.dirname(os.path.abspath(__file__))
-    hot_kernels.reset_launches()
-    spec, stats = sim.run()
-    counts = dict(hot_kernels.launches)
+    with (phase_clocks() if clocks else contextlib.nullcontext()) as clocked, \
+            counting_plain_steps() as plain_steps:
+        hot_kernels.reset_launches()
+        spec, stats = sim.run()
+        counts = dict(hot_kernels.launches)
     rows = sim.report(os.path.join(root, ".cache", f"chip_smoke_spectrum_{label}"))
     lum = rows["luminosity"]
     n_ph = float(spec[:, 2].sum())
@@ -610,8 +853,11 @@ def drive(sim, label):
         "max_tau_scatt": stats["max_tau_scatt"], "spectrum_photons": n_ph,
         "waves": stats["waves"], "pilot_host_s": stats["pilot"] and stats["pilot"]["host_s"],
         "tail_stages": [[st["pool"], st["iters"], st["device_s"]] for st in stats["tail_stages"]],
-        "util_waves": stats.get("util_waves"),
+        "util_waves": stats.get("util_waves"), "dtype": str(sim.cfg.dtype).removeprefix("torch."),
+        "plain_steps": plain_steps[0],
     }
+    if clocks:
+        result["phases"] = clock_summary(clocked, stats["device_s"])
     print(json.dumps(result))
     check_schedule(sim, stats, label)
     if not bool(torch.isfinite(torch.as_tensor(spec)).all()):
@@ -622,12 +868,9 @@ def drive(sim, label):
         fail(f"{label}: {stats['n_secondary_dropped']} secondaries dropped")
     if not (math.isfinite(lum) and abs(lum / REF_LUMINOSITY - 1.0) <= 0.10):
         fail(f"{label}: luminosity {lum} not within 10% of {REF_LUMINOSITY}")
-    hot = "hot_step_ref" if sim.cfg.reference else "hot_step"
-    gathers = stats["full_phases"] + (stats["full_phases"] + stats["light_phases"]
-                                      if sim.cfg.reference else 0)
-    if not (counts[hot] == stats["hot_iters"] > 0 and counts["row_gather"] == gathers):
-        fail(f"{label}: launches {counts} against {stats['hot_iters']} hot iterations and "
-             f"{gathers} row-gather call sites")
+    bad = launch_failures(sim.cfg, stats, counts)
+    if bad or plain_steps[0]:
+        fail(f"{label}: {bad or ''} {plain_steps[0]} plain hot steps")
     return stats, counts
 
 
@@ -636,8 +879,10 @@ class InjectedFailure(Exception):
 
 
 def resume_check(root, photon_n):
-    """Phase 8: an uninterrupted run, a run that fails after its second
-    wave with a checkpoint, and its resumption in a fresh ``Simulation``."""
+    """Phase 8: an uninterrupted run (its phases clocked,
+    :func:`phase_clocks`), a run that fails after its second wave with a
+    checkpoint, and its resumption in a fresh ``Simulation``.  Returns
+    ((spectrum, stats) of the uninterrupted run, its phase clocks)."""
     import numpy as np
 
     ck = os.path.join(root, ".cache", "chip_smoke_resume.npz")
@@ -649,8 +894,10 @@ def resume_check(root, photon_n):
                                tail_stall_steps=RESUME_TAIL_STALL)
 
     t0 = time.monotonic()
-    spec_ref, st_ref = sim().run()
+    with phase_clocks() as clocks:
+        spec_ref, st_ref = sim().run()
     ref = (spec_ref, st_ref)
+    phases_ref = clock_summary(clocks, st_ref["device_s"])
     crashing = sim()
     wave, done = crashing._run_wave, []
 
@@ -687,55 +934,66 @@ def resume_check(root, photon_n):
         fail(f"resume: counts moved across the resume: {moved}")
     if os.path.exists(ck):
         fail("resume: the completed run left its checkpoint")
-    return ref
+    return ref, phases_ref
 
 
-def cli_check(root, photon_n):
-    """Phase 9: ``python -m grmonty_tpu_torch`` on the card, in a subprocess."""
-    out_path = os.path.join(root, ".cache", "chip_smoke_cli_spectrum")
+def cli_check(root, photon_n, extra=None, dump=None, label="cli"):
+    """Phase 9 (and 12d): ``python -m grmonty_tpu_torch`` on the card, in a
+    subprocess, on ``dump`` (the 256x256 torus unless given) with ``extra``
+    flags (``--pool CLI_POOL`` unless given)."""
+    out_path = os.path.join(root, ".cache", f"chip_smoke_{label}_spectrum")
     if os.path.exists(out_path):
         os.remove(out_path)
-    cmd = [sys.executable, "-m", "grmonty_tpu_torch", "--harm_dump_path", torus_dump(root),
-           "--photon_n", str(photon_n), "--pool", str(CLI_POOL), "--spectrum_path", out_path]
+    extra = ["--pool", str(CLI_POOL)] if extra is None else list(extra)
+    cmd = [sys.executable, "-m", "grmonty_tpu_torch", "--harm_dump_path",
+           dump or torus_dump(root), "--photon_n", str(photon_n), *extra,
+           "--spectrum_path", out_path]
     t0 = time.monotonic()
     out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=900)
     secs = time.monotonic() - t0
     tail = out.stderr.strip().splitlines()[-4:]
     m = re.search(r"kernel build (\S+) s", out.stderr)
     compile_s = float(m.group(1)) if m else None
-    print(json.dumps({"phase": "cli", "cmd": " ".join(cmd[1:]), "rc": out.returncode,
+    print(json.dumps({"phase": label, "cmd": " ".join(cmd[1:]), "rc": out.returncode,
                       "seconds": secs, "compile_s": compile_s, "log_tail": tail}))
     if out.returncode != 0:
-        fail(f"cli: exit {out.returncode}:\n{out.stderr[-3000:]}")
+        fail(f"{label}: exit {out.returncode}:\n{out.stderr[-3000:]}")
     # a fresh process loads the kernels in Simulation.__init__, outside its
     # device window, and reports the seconds
     if not (compile_s and compile_s > 0.0):
-        fail(f"cli: no kernel build time in its log (compile_s {compile_s})")
+        fail(f"{label}: no kernel build time in its log (compile_s {compile_s})")
     if not os.path.exists(out_path):
-        fail("cli: no spectrum file")
+        fail(f"{label}: no spectrum file")
     with open(out_path) as f:
         lines = f.read().splitlines()
     if len(lines) != 200 or any(len(line.split()) != 37 for line in lines):
-        fail(f"cli: the spectrum file is not 200 x 37 ({len(lines)} lines)")
+        fail(f"{label}: the spectrum file is not 200 x 37 ({len(lines)} lines)")
 
 
-def accuracy_check(root):
-    """Phase 10: the accuracy gate on the card, its launches counted."""
-    import contextlib
+def accuracy_check(root, gate_args=GATE_ARGS, label="accuracy", sigmas=None):
+    """Phase 10 (and 12c): the accuracy gate on the card with ``gate_args``,
+    its launches counted (:func:`path_launches`; no plain hot step).  Its
+    luminosity ratio must lie within 1 +- GATE_LUM_TOL or, with
+    ``sigmas``, within that many of the tool's own sigmas.  Returns the
+    launch counts."""
     import io
 
     from grmonty_tpu_torch.tools import validate_accuracy
     from grmonty_tpu_torch.transport import hot_kernels
 
     args = validate_accuracy.parse_args(
-        GATE_ARGS + ["--json", os.path.join(root, ".cache", "chip_smoke_accuracy.json")])
-    hot_kernels.reset_launches()
+        gate_args + ["--json", os.path.join(root, ".cache", f"chip_smoke_{label}.json")])
+    cfg = validate_accuracy._config(args)[0]
     t0 = time.monotonic()
-    with contextlib.redirect_stdout(io.StringIO()):  # the tool's JSON goes to the file
+    # the tool's JSON goes to the file
+    with contextlib.redirect_stdout(io.StringIO()), counting_plain_steps() as plain_steps:
+        hot_kernels.reset_launches()
         out = validate_accuracy.run(args)
-    counts = dict(hot_kernels.launches)
+        counts = dict(hot_kernels.launches)
     decomp, run = out["origin_decomp"] or {}, out["engine_run"]
-    line = {"phase": "accuracy", "photons": out["n_engine"], "mass_unit": out["mass_unit"],
+    line = {"phase": label, "photons": out["n_engine"], "mass_unit": out["mass_unit"],
+            "reference": out["engine_config"]["reference"],
+            "dtype": out["engine_config"]["dtype"],
             "freeze_bias": out["freeze_bias"], "oracle_reps": out["oracle_reps"],
             "lum_ratio": out["lum_ratio"], "lum_ratio_rel_sigma": out["lum_ratio_rel_sigma"],
             "rec_ratio": out["rec_ratio"], "chi2_per_dof": out["chi2_per_dof"],
@@ -750,17 +1008,18 @@ def accuracy_check(root):
             "device_s": run["device_s"], "hot_iters": run["hot_iters"],
             "full_phases": run["full_phases"], "light_phases": run["light_phases"],
             "tail_stages": run["tail_stages"], "launches": counts,
-            "seconds": time.monotonic() - t0}
+            "plain_steps": plain_steps[0], "seconds": time.monotonic() - t0}
     print(json.dumps(line))
     fails = validate_accuracy.gate_failures(out)
     if fails:
-        fail("accuracy gate: " + "; ".join(fails))
-    if not abs(out["lum_ratio"] - 1.0) <= GATE_LUM_TOL:
-        fail(f"accuracy gate: lum_ratio {out['lum_ratio']} not within 1 +- {GATE_LUM_TOL}")
-    if not (counts["hot_step"] == run["hot_iters"] > 0
-            and counts["row_gather"] == run["full_phases"]):
-        fail(f"accuracy gate: launches {counts} against {run['hot_iters']} hot iterations "
-             f"and {run['full_phases']} full phases")
+        fail(f"{label} gate: " + "; ".join(fails))
+    tol = GATE_LUM_TOL if sigmas is None else sigmas * out["lum_ratio_rel_sigma"]
+    if not abs(out["lum_ratio"] - 1.0) <= tol:
+        fail(f"{label} gate: lum_ratio {out['lum_ratio']} not within 1 +- {tol}")
+    bad = launch_failures(cfg, run, counts)
+    if bad or plain_steps[0]:
+        fail(f"{label} gate: {bad or ''} {plain_steps[0]} plain hot steps")
+    return counts
 
 
 def sharded_check(root, photon_n, ref=None):
@@ -812,6 +1071,7 @@ def sharded_check(root, photon_n, ref=None):
         spec, st = sim.run()
         counts = dict(hot_kernels.launches)
         backend = dist.get_backend()
+        sim_cfg = sim.cfg
     finally:
         dist.destroy_process_group()
         shutil.rmtree(rdv, ignore_errors=True)
@@ -847,13 +1107,59 @@ def sharded_check(root, photon_n, ref=None):
     moved = [k for k in keys if st_ref[k] != st[k]]
     if moved:
         fail(f"sharded: counts differ from Simulation's: {moved}")
-    if not (counts["hot_step"] == st["hot_iters"] > 0
-            and counts["row_gather"] == st["full_phases"]):
-        fail(f"sharded: launches {counts} against {st['hot_iters']} hot iterations and "
-             f"{st['full_phases']} full phases")
+    bad = launch_failures(sim_cfg, st, counts)
+    if bad:
+        fail(f"sharded: {bad}")
     if out.returncode == 0 or f"need {n_over} devices" not in out.stderr:
         fail(f"sharded: --devices {n_over} was not refused (rc {out.returncode}):\n"
              f"{out.stderr[-2000:]}")
+
+
+def f64_checks(root, args, usage, sass, ref32=None):
+    """Phase 12: float64 on the card.  (a) The float64 kernels against their
+    plain float64 versions (:func:`kernel_checks` on a float64
+    ``Simulation`` of the smoke cell); (b) that ``Simulation``, the shipped
+    profile in float64 with phase 8's waves and cascade step cap, end to
+    end (:func:`drive`, its phases clocked) beside ``ref32`` ((stats, phase
+    clocks) of phase 8's float32 run of the same setup; run here when
+    None); (c) the accuracy gate at reference semantics in float64
+    (``F64_GATE_ARGS``); (d) the command line in float64 under reference
+    semantics on the 64x32 torus.  Returns the kernel records, each with
+    the launches of its path's run."""
+    import torch
+
+    from grmonty_tpu_torch.tools import validate_accuracy
+
+    over = dict(emit_chunk=RESUME_CHUNK, tail_stall_steps=RESUME_TAIL_STALL)
+    t0 = time.monotonic()
+    sim = make_simulation(root, args.resume_photon_n, dtype=torch.float64, **over)
+    recs = {rec["name"]: rec for rec in kernel_checks(sim, usage, sass, args.ref_stall_steps)}
+    t_kernels = time.monotonic() - t0
+    if ref32 is None:
+        sim32 = make_simulation(root, args.resume_photon_n, **over)
+        with phase_clocks() as clocks:
+            _, st32 = sim32.run()
+        ref32 = (st32, clock_summary(clocks, st32["device_s"]))
+        del sim32
+    t0 = time.monotonic()
+    stats, counts = drive(sim, "shipped_f64", clocks=True)
+    for name in ("hot_step_f64", "row_gather_f64"):
+        recs[name]["launches"] = counts[name]
+    st32, phases32 = ref32
+    keys = ("device_s", "photon_rate_device", "hot_iters", "full_phases", "light_phases",
+            "n_recorded", "n_created")
+    print(json.dumps({"phase": "f64_vs_f32", "photon_n": args.resume_photon_n,
+                      **{k: [st32[k], stats[k]] for k in keys},
+                      "tail_stages": [[[st["pool"], st["iters"], st["device_s"]]
+                                       for st in s["tail_stages"]] for s in (st32, stats)],
+                      "phases_f32": phases32, "kernel_checks_s": t_kernels,
+                      "run_s": time.monotonic() - t0}))
+    del sim
+    counts = accuracy_check(root, F64_GATE_ARGS, "accuracy_f64", sigmas=F64_GATE_SIGMAS)
+    recs["hot_step_ref_f64"]["launches"] = counts["hot_step_ref_f64"]
+    cli_check(root, F64_CLI_PHOTON_N, extra=F64_CLI_ARGS,
+              dump=validate_accuracy._torus(64, 32), label="cli_f64")
+    return list(recs.values())
 
 
 def main():
@@ -870,6 +1176,12 @@ def main():
                          "times that commit's probe kernels the same way")
     ap.add_argument("--sharded-only", action="store_true",
                     help="phases 1, 2 and 11 alone, then the card line")
+    ap.add_argument("--ab-hot-step", metavar="DIR", default=None,
+                    help="phases 1 and 2, then this checkout's float32 hot step against "
+                         "the one of the checkout at DIR, in turns; then the card line")
+    ap.add_argument("--f64-only", action="store_true",
+                    help="phases 1, 2 and 12 alone (with the float32 run of phase 12b's "
+                         "setup), then the card line and the kernels line")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
@@ -915,6 +1227,16 @@ def main():
         sharded_check(root, args.resume_photon_n)
         print(card)
         return
+    if args.ab_hot_step:
+        ab_hot_step(root, make_simulation(root, args.photon_n), args.ab_hot_step, usage,
+                    args.ref_stall_steps)
+        print(card)
+        return
+    if args.f64_only:
+        recs = f64_checks(root, args, usage, sass)
+        print(card)
+        print(json.dumps({"kernels": recs}))
+        return
 
     t0 = time.monotonic()
     sim = make_simulation(root, args.photon_n)
@@ -944,10 +1266,12 @@ def main():
     for name in ROWSUMS:
         kernels[name]["probe_torch_ms"] = probes["probe_vmem_gather"]["torch_ms"]
 
-    ref = resume_check(root, args.resume_photon_n)
+    ref, phases32 = resume_check(root, args.resume_photon_n)
     cli_check(root, args.resume_photon_n)
     accuracy_check(root)
     sharded_check(root, args.resume_photon_n, ref)
+    kernels.update((rec["name"], rec)
+                   for rec in f64_checks(root, args, usage, sass, (ref[1], phases32)))
 
     print(card)
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -12,9 +12,11 @@ The run is the shipped profile (``profiles.bench_config`` and
 reference semantics (``reference_config``, ``reference_sim_kwargs``): that
 one switch stands in for the JAX flags ``--grow_cap``, ``--detach``,
 ``--no-cdf_sampler`` and ``--period``.  It runs on the CUDA card unless
-``--device cpu`` asks for the CPU; the card runs float32 only, as its
-hand-written kernels do.  ``--backend cpu`` tracks with the native scalar
-tracker instead of the engine.  ``--devices N`` (N > 1) shards the photon
+``--device cpu`` asks for the CPU, in float32 (the shipped profile's dtype,
+the default) or with ``--dtype float64`` in double precision (the JAX
+package's parity dtype), on the card through the float64 instantiations
+of the hand-written kernels.  ``--backend cpu`` tracks with the native
+scalar tracker instead of the engine.  ``--devices N`` (N > 1) shards the photon
 plan over N ranks (``parallel/sharding.py``): N cards under NCCL, or with
 ``--device cpu`` N CPU processes under gloo; rank 0 writes the spectrum.
 """
@@ -47,7 +49,8 @@ def build_parser():
                    "events, the cumulative bias, raw corner rows, rejection emission in "
                    "plan order) instead of the shipped profile")
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "float64"],
-                   help="transport dtype; float64 only with --device cpu")
+                   help="transport dtype (float64: the reference's double precision, on "
+                   "either device)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run (default: the CUDA card)")
     p.add_argument("--backend", choices=("accel", "cpu"), default="accel",
@@ -79,12 +82,8 @@ def main(argv=None):
 
     device = torch.device(args.device)
     dtype = torch.float32 if args.dtype == "float32" else torch.float64
-    if device.type == "cuda":
-        if dtype != torch.float32:
-            raise SystemExit("--dtype float64 runs only with --device cpu: the CUDA "
-                             "kernels are float32")
-        if not torch.cuda.is_available():
-            raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")
     if args.backend == "cpu" and args.checkpoint:
         raise SystemExit("--checkpoint applies to the engine only (a --backend cpu run "
                          "restarts by running again)")

@@ -1,6 +1,6 @@
 // The hot step of the transport engine, one hand-written kernel for Hopper
-// (sm_90a): hot_step_kernel<kRef>, one thread per photon lane, computing
-// engine.hot_step_plain.
+// (sm_90a): hot_step_kernel<kRef, T>, one thread per photon lane, computing
+// engine.hot_step_plain in float (T = float) or double (T = double).
 //
 // It replaces the Pallas kernels grmonty_tpu/transport/hotstep_pallas.py:104
 // `kernel_a` (body engine.hot_phase_a) and hotstep_pallas.py:152 `kernel_b`
@@ -13,8 +13,8 @@
 //      the error-proportional control and the grown-step optical-depth
 //      cap), the pend/arrival bookkeeping, the stop test with Russian
 //      roulette and the bilinear cell z;
-//   2. the corner row at z: 44 derived floats from hot_tab, or (kRef) 32
-//      raw floats from corner_rows;
+//   2. the corner row at z: 44 derived values from hot_tab, or (kRef) 32
+//      raw values from corner_rows;
 //   3. phase B: the blend (raw rows through the metric pair), nu, the sin
 //      pitch angle, the Chebyshev hotcross alpha_scatt, the Kirchhoff
 //      alpha_abs with the Chebyshev K2, dtau, the biased scatter decision
@@ -27,51 +27,63 @@
 // It writes every pool field once; a lane that rolls back reads its
 // pre-step state from the inputs again.
 //
-// What bounds it on an H100 80GB HBM3 at 700 W: the pool's 65,536 lanes
-// are 2,048 warps, 15.5 an SM, one wave filling a quarter of the warp
+// What bounds it on an H100 80GB HBM3 at 700 W (float): the pool's 65,536
+// lanes are 2,048 warps, 15.5 an SM, one wave filling a quarter of the warp
 // slots.  A lane moves about 370 B (shipped) or 270 B (reference), rows
 // included: 7.3 and 5.3 us at 3.35 TB/s; it issues about 3,800 float32
 // operations, each multiply and add on its own under -fmad=false, 7.4 us at
 // the 33.5 T instructions/s of the float32 pipes.  It took 24.5 us
 // (shipped) and 20.7 us (reference), bound by instruction issue and latency
 // at that occupancy; in one run beside the three launches it replaces, 26.0
-// and 22.3 us against their 32.6 and 37.3 us (PERF.md).
+// and 22.3 us against their 32.6 and 37.3 us (PERF.md).  In double a lane
+// moves twice the bytes (14.6 and 10.6 us) and the float64 pipes issue at
+// half the float32 rate.
 //
 // What the design does about what held the three launches back:
 //   1. The hotcross sum's 1,271 coefficients: the block stages the 41x31
-//      surface in shared memory, each row padded to 32 floats, and a lane
-//      reads a row as eight broadcast LDS.128: 328 loads a lane, not 1,271
-//      LDS.  Constant-bank operands with both loops unrolled load nothing
-//      but make 6,928 instructions a warp and took 52 us (shipped, against
+//      surface in shared memory, each row padded to 32 values, and a lane
+//      reads a row as 16-byte broadcast loads (eight LDS.128 in float,
+//      sixteen in double): 328 loads a lane in float, not 1,271 LDS.
+//      Constant-bank operands with both loops unrolled load nothing but
+//      make 6,928 instructions a warp and took 52 us (shipped float, against
 //      26 us for this route in the same run); the rolled loop over constant
 //      memory took 39 us, scalar LDS 29 us.
-//   2. Occupancy: 112 (shipped) and 106 (reference) registers, no spills,
-//      __launch_bounds__(256, 2): the whole pool is resident in one wave.
+//   2. Occupancy.  Float: 112 (shipped) and 106 (reference) registers, no
+//      spills, __launch_bounds__(256, 2): the whole pool is resident in one
+//      wave.  Double: a double takes two registers, so under the float
+//      kernel's cap of 128 it would spill; it runs 128-thread blocks under
+//      __launch_bounds__(128, 2), which lifts the cap to 255 and keeps the
+//      block's shared memory (the staged surface and four warps' row
+//      stages) small enough for several blocks an SM.
 //   3. Three launches become one: no per-lane arrays between the phases and
 //      no gathered (N, 32) rows.  The warp fetches its 32 rows together:
-//      neighbouring lanes load one row's float4s into shared memory (at a
-//      pitch of an odd number of float4s, so that a quarter warp's reads
-//      hit distinct banks), then each lane reads its own; 1.2 us faster
-//      than each lane loading its own row.
+//      neighbouring lanes load one row's 16-byte units into shared memory
+//      (at a pitch of an odd number of units, so that a quarter warp's
+//      reads hit distinct banks, in either type), then each lane reads its
+//      own; 1.2 us faster than each lane loading its own row (float).
 //   4. The epilogue's ~25 torch launches (clamp, capture, six census sums)
 //      are part of the kernel.
 //
 // Numerics: the arithmetic mirrors the plain torch versions operation by
-// operation (same association order, float32, constants folded in double
-// first where the Python expression folds them).  PyTorch on the card
-// divides a tensor by a Python scalar as a multiply by the scalar's float
-// reciprocal, and a scalar by a tensor as the tensor's reciprocal times the
-// scalar; the kernel uses the same two forms (the inv_* constants), so that
-// phase A's rounding matches op for op.  The hotcross sum keeps the order
-// of each variant (shipped: s_ix = sum_j c[ix, j] T_j(ty), then
-// sum_ix T_ix(tx) s_ix; reference: u_j = sum_ix T_ix(tx) c[ix, j] as fused
-// multiply-adds, then sum_j u_j T_j(ty)).  The build must not use
-// --use_fast_math: the commit gate and the step controller test
-// isfinite(err), which fast math folds to true, and flushing denormals
-// would zero the fluid-frame frequency of the lowest-energy photons.
+// operation in the kernel's type T (same association order, constants
+// folded in double first where the Python expression folds them, then
+// rounded to T; every literal is T(x) and every function the T overload of
+// namespace fm, so that the double instantiation has no float step).
+// PyTorch on the card divides a tensor by a Python scalar as a multiply by
+// the scalar's reciprocal in the tensor's type, and a scalar by a tensor as
+// the tensor's reciprocal times the scalar; the kernel uses the same two
+// forms (the inv_* constants, read from PyTorch per type), so that phase
+// A's rounding matches op for op.  The hotcross sum keeps the order of each
+// variant (shipped: s_ix = sum_j c[ix, j] T_j(ty), then sum_ix T_ix(tx)
+// s_ix; reference: u_j = sum_ix T_ix(tx) c[ix, j] as fused multiply-adds,
+// then sum_j u_j T_j(ty)).  The build must not use --use_fast_math: the
+// commit gate and the step controller test isfinite(err), which fast math
+// folds to true, and flushing denormals would zero the fluid-frame
+// frequency of the lowest-energy photons.
 //
-// Interface: plain C entry points for ctypes.  Each takes an array of
-// device pointers in the order of HotPtrs (the Python wrapper in
+// Interface: plain C entry points for ctypes, hot_step and hot_step_ref
+// (float) and hot_step_f64 and hot_step_ref_f64 (double).  Each takes an
+// array of device pointers in the order of HotPtrs (the Python wrapper in
 // transport/hot_kernels.py lists the same order and checks the counts), an
 // array of double scalars in the order of HotScal, the lane count and the
 // CUDA stream, and returns cudaGetLastError() after the launch.
@@ -93,13 +105,73 @@ constexpr double HPL_D = 6.6260693e-27;
 constexpr double EE_D = 4.80320680e-10;
 constexpr double SIGMA_T_D = 0.665245873e-24;
 
-__device__ __forceinline__ float jmax(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+// The math of the kernel's type: each function the float or the double
+// operation, chosen by overload, never by promotion.
+namespace fm {
+__device__ __forceinline__ float exp(float x) { return expf(x); }
+__device__ __forceinline__ double exp(double x) { return ::exp(x); }
+__device__ __forceinline__ float log(float x) { return logf(x); }
+__device__ __forceinline__ double log(double x) { return ::log(x); }
+__device__ __forceinline__ float log10(float x) { return log10f(x); }
+__device__ __forceinline__ double log10(double x) { return ::log10(x); }
+__device__ __forceinline__ float log1p(float x) { return log1pf(x); }
+__device__ __forceinline__ double log1p(double x) { return ::log1p(x); }
+__device__ __forceinline__ float sin(float x) { return sinf(x); }
+__device__ __forceinline__ double sin(double x) { return ::sin(x); }
+__device__ __forceinline__ float cos(float x) { return cosf(x); }
+__device__ __forceinline__ double cos(double x) { return ::cos(x); }
+__device__ __forceinline__ float sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt(double x) { return ::sqrt(x); }
+__device__ __forceinline__ float rsqrt(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrt(double x) { return ::rsqrt(x); }
+__device__ __forceinline__ float fabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double fabs(double x) { return ::fabs(x); }
+__device__ __forceinline__ float floor(float x) { return floorf(x); }
+__device__ __forceinline__ double floor(double x) { return ::floor(x); }
+__device__ __forceinline__ float fmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double fmax(double a, double b) { return ::fmax(a, b); }
+__device__ __forceinline__ float fmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double fmin(double a, double b) { return ::fmin(a, b); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float qnan(float) { return __int_as_float(0x7fc00000); }
+__device__ __forceinline__ double qnan(double) {
+  return __longlong_as_double(0x7ff8000000000000ll);
 }
-__device__ __forceinline__ float jmin(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}  // namespace fm
+
+// A 16-byte unit of T (one LDS.128 / LDG.128) and the values it holds.
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  using type = float4;
+  static constexpr int n = 4;
+  static __device__ __forceinline__ void unpack(const float4 &v, float *c) {
+    c[0] = v.x;
+    c[1] = v.y;
+    c[2] = v.z;
+    c[3] = v.w;
+  }
+};
+template <> struct Vec16<double> {
+  using type = double2;
+  static constexpr int n = 2;
+  static __device__ __forceinline__ void unpack(const double2 &v, double *c) {
+    c[0] = v.x;
+    c[1] = v.y;
+  }
+};
+
+// torch.maximum / torch.minimum: NaN if either operand is NaN.
+template <typename T>
+__device__ __forceinline__ T jmax(T a, T b) {
+  return (a != a || b != b) ? fm::qnan(a) : fm::fmax(a, b);
 }
-__device__ __forceinline__ float jclip(float x, float lo, float hi) {
+template <typename T>
+__device__ __forceinline__ T jmin(T a, T b) {
+  return (a != a || b != b) ? fm::qnan(a) : fm::fmin(a, b);
+}
+template <typename T>
+__device__ __forceinline__ T jclip(T x, T lo, T hi) {
   return jmin(jmax(x, lo), hi);
 }
 
@@ -114,128 +186,129 @@ struct AScal {  // order = hot_kernels._A_SCAL
 };
 constexpr int A_NSCAL = sizeof(AScal) / sizeof(double);
 
-// Per-launch float constants, folded in double on the host side of the
+// Per-launch constants of type T, folded in double on the host side of the
 // launch exactly as the Python expressions fold their float literals.
+template <typename T>
 struct AConst {
-  float a, a2, a3, a4, neg_a, neg_a2, neg_2a, r_0, two_pi, pi, half_1mh,
+  T a, a2, a3, a4, neg_a, neg_a2, neg_2a, r_0, two_pi, pi, half_1mh,
       one_mh, neg2pipi_1mh, x_start1, x_start2, x_stop2, dx1, dx2, x1_min,
       half_dtk, weight_min, shrink_floor, grow_cap, grow_tau_cap, step_ctrl,
       inv_dx1, inv_dx2, inv_e_tol, inv_e_drift_tol;
   int n1, n2, fp_iters;
 };
 
-__device__ __forceinline__ void connection(float x1, float x2, const AConst &C,
-                                           float *c) {
-  const float r1 = expf(x1);
-  const float r2 = r1 * r1, r3 = r2 * r1, r4 = r3 * r1;
-  const float sx = sinf(C.two_pi * x2);
-  const float cx = cosf(C.two_pi * x2);
-  const float th = C.pi * x2 + C.half_1mh * sx;
-  const float dth = C.pi * (1.0f + C.one_mh * cx);
-  const float d2th = C.neg2pipi_1mh * sx;
-  const float dth2 = dth * dth;
-  const float sth = sinf(th), cth = cosf(th);
-  const float sth2 = sth * sth, sth4 = sth2 * sth2;
-  const float cth2 = cth * cth, cth4 = cth2 * cth2;
-  const float s2th = 2.0f * sth * cth;
-  const float c2th = 2.0f * cth2 - 1.0f;
-  const float r1sth2 = r1 * sth2;
-  const float a = C.a, a2 = C.a2, a3 = C.a3, a4 = C.a4;
-  const float a2sth2 = a2 * sth2, a2cth2 = a2 * cth2, a4cth4 = a4 * cth4;
-  const float rho2 = r2 + a2cth2;
-  const float rho22 = rho2 * rho2, rho23 = rho22 * rho2;
-  const float ir2 = 1.0f / rho2;
-  const float ir22 = ir2 * ir2, ir23 = ir22 * ir2;
-  const float ir23_dth = ir23 / dth;
-  const float fac1 = r2 - a2cth2;
-  const float f1r3 = fac1 * ir23;
-  const float fac2 = a2 + 2.0f * r2 + a2 * c2th;
-  const float fac3 = a2 + r1 * (r1 - 2.0f);
+template <typename T>
+__device__ __forceinline__ void connection(T x1, T x2, const AConst<T> &C, T *c) {
+  const T r1 = fm::exp(x1);
+  const T r2 = r1 * r1, r3 = r2 * r1, r4 = r3 * r1;
+  const T sx = fm::sin(C.two_pi * x2);
+  const T cx = fm::cos(C.two_pi * x2);
+  const T th = C.pi * x2 + C.half_1mh * sx;
+  const T dth = C.pi * (T(1.0) + C.one_mh * cx);
+  const T d2th = C.neg2pipi_1mh * sx;
+  const T dth2 = dth * dth;
+  const T sth = fm::sin(th), cth = fm::cos(th);
+  const T sth2 = sth * sth, sth4 = sth2 * sth2;
+  const T cth2 = cth * cth, cth4 = cth2 * cth2;
+  const T s2th = T(2.0) * sth * cth;
+  const T c2th = T(2.0) * cth2 - T(1.0);
+  const T r1sth2 = r1 * sth2;
+  const T a = C.a, a2 = C.a2, a3 = C.a3, a4 = C.a4;
+  const T a2sth2 = a2 * sth2, a2cth2 = a2 * cth2, a4cth4 = a4 * cth4;
+  const T rho2 = r2 + a2cth2;
+  const T rho22 = rho2 * rho2, rho23 = rho22 * rho2;
+  const T ir2 = T(1.0) / rho2;
+  const T ir22 = ir2 * ir2, ir23 = ir22 * ir2;
+  const T ir23_dth = ir23 / dth;
+  const T fac1 = r2 - a2cth2;
+  const T f1r3 = fac1 * ir23;
+  const T fac2 = a2 + T(2.0) * r2 + a2 * c2th;
+  const T fac3 = a2 + r1 * (r1 - T(2.0));
 
-  c[0] = 2.0f * r1 * f1r3;
-  c[1] = r1 * (2.0f * r1 + rho2) * f1r3;
+  c[0] = T(2.0) * r1 * f1r3;
+  c[1] = r1 * (T(2.0) * r1 + rho2) * f1r3;
   c[2] = C.neg_a2 * r1 * s2th * dth * ir22;
   c[3] = C.neg_2a * r1sth2 * f1r3;
-  c[4] = 2.0f * r2 * (r4 + r1 * fac1 - a4cth4) * ir23;
+  c[4] = T(2.0) * r2 * (r4 + r1 * fac1 - a4cth4) * ir23;
   c[5] = C.neg_a2 * r2 * s2th * dth * ir22;
-  c[6] = a * r1 * (-r1 * (r3 + 2.0f * fac1) + a4cth4) * sth2 * ir23;
-  c[7] = -2.0f * r2 * dth2 * ir2;
+  c[6] = a * r1 * (-r1 * (r3 + T(2.0) * fac1) + a4cth4) * sth2 * ir23;
+  c[7] = T(-2.0) * r2 * dth2 * ir2;
   c[8] = a3 * r1sth2 * s2th * dth * ir22;
-  c[9] = 2.0f * r1sth2 * (-r1 * rho22 + a2sth2 * fac1) * ir23;
+  c[9] = T(2.0) * r1sth2 * (-r1 * rho22 + a2sth2 * fac1) * ir23;
 
   c[10] = fac3 * fac1 / (r1 * rho23);
-  c[11] = fac1 * (-2.0f * r1 + a2sth2) * ir23;
-  c[12] = 0.0f;
+  c[11] = fac1 * (T(-2.0) * r1 + a2sth2) * ir23;
+  c[12] = T(0.0);
   c[13] = C.neg_a * sth2 * fac3 * fac1 / (r1 * rho23);
-  c[14] = (r4 * (r1 - 2.0f) * (1.0f + r1) +
-           a2 * (a2 * r1 * (1.0f + 3.0f * r1) * cth4 + a4cth4 * cth2 +
-                 r3 * sth2 + r1 * cth2 * (2.0f * r1 + 3.0f * r3 - a2sth2))) *
+  c[14] = (r4 * (r1 - T(2.0)) * (T(1.0) + r1) +
+           a2 * (a2 * r1 * (T(1.0) + T(3.0) * r1) * cth4 + a4cth4 * cth2 +
+                 r3 * sth2 + r1 * cth2 * (T(2.0) * r1 + T(3.0) * r3 - a2sth2))) *
           ir23;
   c[15] = C.neg_a2 * dth * s2th / fac2;
   c[16] = a * sth2 *
-          (a4 * r1 * cth4 + r2 * (2.0f * r1 + r3 - a2sth2) +
-           a2cth2 * (2.0f * r1 * (r2 - 1.0f) + a2sth2)) *
+          (a4 * r1 * cth4 + r2 * (T(2.0) * r1 + r3 - a2sth2) +
+           a2cth2 * (T(2.0) * r1 * (r2 - T(1.0)) + a2sth2)) *
           ir23;
   c[17] = -fac3 * dth2 * ir2;
-  c[18] = 0.0f;
+  c[18] = T(0.0);
   c[19] = -fac3 * sth2 * (r1 * rho22 - a2 * fac1 * sth2) / (r1 * rho23);
 
-  const float c200 = C.neg_a2 * r1 * s2th * ir23_dth;
+  const T c200 = C.neg_a2 * r1 * s2th * ir23_dth;
   c[20] = c200;
   c[21] = r1 * c200;
-  c[22] = 0.0f;
+  c[22] = T(0.0);
   c[23] = a * r1 * (a2 + r2) * s2th * ir23_dth;
   c[24] = r2 * c200;
   c[25] = r2 * ir2;
   c[26] = (a * r1 * cth * sth *
-           (r3 * (2.0f + r1) +
-            a2 * (2.0f * r1 * (1.0f + r1) * cth2 + a2 * cth4 + 2.0f * r1sth2))) *
+           (r3 * (T(2.0) + r1) +
+            a2 * (T(2.0) * r1 * (T(1.0) + r1) * cth2 + a2 * cth4 + T(2.0) * r1sth2))) *
           ir23_dth;
   c[27] = C.neg_a2 * cth * sth * dth * ir2 + d2th / dth;
-  c[28] = 0.0f;
+  c[28] = T(0.0);
   c[29] = (-cth * sth *
-           (rho23 + a2sth2 * rho2 * (r1 * (4.0f + r1) + a2cth2) +
-            2.0f * r1 * a4 * sth4) *
+           (rho23 + a2sth2 * rho2 * (r1 * (T(4.0) + r1) + a2cth2) +
+            T(2.0) * r1 * a4 * sth4) *
            ir23_dth);
 
-  const float c300 = a * f1r3;
+  const T c300 = a * f1r3;
   c[30] = c300;
   c[31] = r1 * c300;
   c[32] = C.neg_2a * r1 * cth * dth / (sth * rho22);
   c[33] = -a2sth2 * f1r3;
   c[34] = a * r2 * f1r3;
-  c[35] = C.neg_2a * r1 * (a2 + 2.0f * r1 * (2.0f + r1) + a2 * c2th) * cth *
+  c[35] = C.neg_2a * r1 * (a2 + T(2.0) * r1 * (T(2.0) + r1) + a2 * c2th) * cth *
           dth / (sth * fac2 * fac2);
   c[36] = r1 * (r1 * rho22 - a2sth2 * fac1) * ir23;
   c[37] = C.neg_a * r1 * dth2 * ir2;
-  c[38] = dth * (0.25f * fac2 * fac2 * cth / sth + a2 * r1 * s2th) * ir22;
+  c[38] = dth * (T(0.25) * fac2 * fac2 * cth / sth + a2 * r1 * s2th) * ir22;
   c[39] = (C.neg_a * r1sth2 * rho22 + a3 * sth4 * fac1) * ir23;
 }
 
-__device__ __forceinline__ void geodesic_rhs(const float *c, const float *k,
-                                             float *dk) {
-  const float q[10] = {k[0] * k[0],        2.0f * k[0] * k[1],
-                       2.0f * k[0] * k[2], 2.0f * k[0] * k[3],
-                       k[1] * k[1],        2.0f * k[1] * k[2],
-                       2.0f * k[1] * k[3], k[2] * k[2],
-                       2.0f * k[2] * k[3], k[3] * k[3]};
+template <typename T>
+__device__ __forceinline__ void geodesic_rhs(const T *c, const T *k, T *dk) {
+  const T q[10] = {k[0] * k[0],          T(2.0) * k[0] * k[1],
+                   T(2.0) * k[0] * k[2], T(2.0) * k[0] * k[3],
+                   k[1] * k[1],          T(2.0) * k[1] * k[2],
+                   T(2.0) * k[1] * k[3], k[2] * k[2],
+                   T(2.0) * k[2] * k[3], k[3] * k[3]};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    float s = c[10 * i] * q[0];
+    T s = c[10 * i] * q[0];
 #pragma unroll
     for (int j = 1; j < 10; ++j) s = s + c[10 * i + j] * q[j];
     dk[i] = -s;
   }
 }
 
-__device__ __forceinline__ float step_size(float x1, float x2, float k1,
-                                           float k2, float k3, float x2_stop) {
-  const float eps = (float)EPS_D, se = 0.04f;
-  const float dl1 = se * x1 / (fabsf(k1) + eps);
-  const float dl2 = se * jmin(x2, x2_stop - x2) / (fabsf(k2) + eps);
-  const float dl3 = (1.0f / (fabsf(k3) + eps)) * se;
-  return 1.0f / (1.0f / (fabsf(dl1) + eps) + 1.0f / (fabsf(dl2) + eps) +
-                 1.0f / (fabsf(dl3) + eps));
+template <typename T>
+__device__ __forceinline__ T step_size(T x1, T x2, T k1, T k2, T k3, T x2_stop) {
+  const T eps = T(EPS_D), se = T(0.04);
+  const T dl1 = se * x1 / (fm::fabs(k1) + eps);
+  const T dl2 = se * jmin(x2, x2_stop - x2) / (fm::fabs(k2) + eps);
+  const T dl3 = (T(1.0) / (fm::fabs(k3) + eps)) * se;
+  return T(1.0) / (T(1.0) / (fm::fabs(dl1) + eps) + T(1.0) / (fm::fabs(dl2) + eps) +
+                   T(1.0) / (fm::fabs(dl3) + eps));
 }
 
 // ---------------------------------------------------------------------------
@@ -255,104 +328,107 @@ struct BScal {  // order = hot_kernels._B_SCAL
 };
 constexpr int B_NSCAL = sizeof(BScal) / sizeof(double);
 
+template <typename T>
 struct BConst {
-  float x_start1, x_start2, x_stop1, x_stop2, dx1, dx2, b_unit, half_dtk,
+  T x_start1, x_start2, x_stop1, x_stop2, dx1, dx2, b_unit, half_dtk,
       weight_min, tau_cap, hc_xlo, hc_xhi, hc_xsum, hc_xdiff, hc_ylo, hc_yhi,
       hc_ysum, hc_ydiff, k2_lo, k2_hi, k2_sum, k2_diff, inv_dx1, inv_dx2,
       inv_b_unit, inv_hpl, inv_mecc, inv_hc_xdiff, inv_hc_ydiff, inv_k2_diff,
       inv_cl, inv_24, inv_2pimecl, inv_weight_min, inv_tp_over_te;
-  float k2c[K2_N];
+  T k2c[K2_N];
   int n1, n2, stall_steps;
   // raw rows only: the metric pair and the primitives' units
-  float a, a2, neg_a, r_0, two_pi, pi, half_1mh, one_mh, n_e_unit, theta_e_unit;
+  T a, a2, neg_a, r_0, two_pi, pi, half_1mh, one_mh, n_e_unit, theta_e_unit;
 };
 
-__device__ __forceinline__ float hc_klein_nishina(float w) {
-  const float series = 1.0f - 2.0f * w;
-  const float ws = jmax(w, 1.0e-6f);
-  const float full =
-      0.75f * ((1.0f / (ws * ws)) * 2.0f +
-               (1.0f / (2.0f * ws) - (1.0f + ws) / (ws * ws * ws)) *
-                   log1pf(2.0f * ws) +
-               (1.0f + ws) / ((1.0f + 2.0f * ws) * (1.0f + 2.0f * ws)));
-  return (w < 1.0e-3f) ? series : full;
+template <typename T>
+__device__ __forceinline__ T hc_klein_nishina(T w) {
+  const T series = T(1.0) - T(2.0) * w;
+  const T ws = jmax(w, T(1.0e-6));
+  const T full =
+      T(0.75) * ((T(1.0) / (ws * ws)) * T(2.0) +
+                 (T(1.0) / (T(2.0) * ws) - (T(1.0) + ws) / (ws * ws * ws)) *
+                     fm::log1p(T(2.0) * ws) +
+                 (T(1.0) + ws) / ((T(1.0) + T(2.0) * ws) * (T(1.0) + T(2.0) * ws)));
+  return (w < T(1.0e-3)) ? series : full;
 }
 
-__device__ __forceinline__ float k2_eval(float te, const BConst &C) {
-  const float l_t = jclip(logf(jmax(te, 0.3f)), C.k2_lo, C.k2_hi);
-  const float t = (2.0f * l_t - C.k2_sum) * C.inv_k2_diff;
-  const float t2 = 2.0f * t;
-  float b1 = 0.0f, b2 = 0.0f;
+template <typename T>
+__device__ __forceinline__ T k2_eval(T te, const BConst<T> &C) {
+  const T l_t = jclip(fm::log(jmax(te, T(0.3))), C.k2_lo, C.k2_hi);
+  const T t = (T(2.0) * l_t - C.k2_sum) * C.inv_k2_diff;
+  const T t2 = T(2.0) * t;
+  T b1 = T(0.0), b2 = T(0.0);
 #pragma unroll
   for (int k = K2_N - 1; k > 0; --k) {
-    const float nb = C.k2c[k] + t2 * b1 - b2;
+    const T nb = C.k2c[k] + t2 * b1 - b2;
     b2 = b1;
     b1 = nb;
   }
-  const float interp = expf(C.k2c[0] + t * b1 - b2);
-  const float out = (te > 100.0f) ? 2.0f * te * te : interp;
-  return (te < 0.3f) ? 0.0f : out;
+  const T interp = fm::exp(C.k2c[0] + t * b1 - b2);
+  const T out = (te > T(100.0)) ? T(2.0) * te * te : interp;
+  return (te < T(0.3)) ? T(0.0) : out;
 }
 
-__device__ __forceinline__ float b_nu(float nu, float te, const BConst &C) {
-  const float x = (float)HPL_D * nu /
-                  ((float)(ME_D * CL_D * CL_D) * te + (float)EPS_D);
-  const float pref = ((float)(2.0 * HPL_D) * nu) * (nu * C.inv_cl) * (nu * C.inv_cl);
-  const float series =
-      pref / (x * C.inv_24 * (24.0f + x * (12.0f + x * (4.0f + x))) +
-              (float)EPS_D);
-  const float full = pref / (expf(jmin(x, 80.0f)) - 1.0f + (float)EPS_D);
-  return (x < 1.0e-3f) ? series : full;
+template <typename T>
+__device__ __forceinline__ T b_nu(T nu, T te, const BConst<T> &C) {
+  const T x = T(HPL_D) * nu / (T(ME_D * CL_D * CL_D) * te + T(EPS_D));
+  const T pref = (T(2.0 * HPL_D) * nu) * (nu * C.inv_cl) * (nu * C.inv_cl);
+  const T series =
+      pref / (x * C.inv_24 * (T(24.0) + x * (T(12.0) + x * (T(4.0) + x))) + T(EPS_D));
+  const T full = pref / (fm::exp(jmin(x, T(80.0))) - T(1.0) + T(EPS_D));
+  return (x < T(1.0e-3)) ? series : full;
 }
 
-__device__ __forceinline__ float synch(float nu, float n_e, float te, float b,
-                                       float sin_th, float k2, const BConst &C) {
-  const float nu_c = (float)EE_D * b * C.inv_2pimecl;
-  const float nu_s = (float)(2.0 / 9.0) * nu_c * te * te * sin_th;
-  const float x = nu / (nu_s + (float)EPS_D);
-  const float xp = expf(logf(jmax(x, 1e-37f)) * (float)(1.0 / 3.0));
-  const float xx = sqrtf(x) + (float)1.88774862536 * sqrtf(xp);
-  const float f = xx * xx;
-  const float val =
-      (float)(1.4142135623730951 * PI_D * EE_D * EE_D / (3.0 * CL_D)) * n_e *
-      nu_s / (k2 + (float)EPS_D) * f * expf(-xp);
-  const bool bad = (te < 0.3f) || (nu > 1.0e12f * nu_s) || (k2 <= 0.0f);
-  return bad ? 0.0f : val;
+template <typename T>
+__device__ __forceinline__ T synch(T nu, T n_e, T te, T b, T sin_th, T k2,
+                                   const BConst<T> &C) {
+  const T nu_c = T(EE_D) * b * C.inv_2pimecl;
+  const T nu_s = T(2.0 / 9.0) * nu_c * te * te * sin_th;
+  const T x = nu / (nu_s + T(EPS_D));
+  const T xp = fm::exp(fm::log(jmax(x, T(1e-37))) * T(1.0 / 3.0));
+  const T xx = fm::sqrt(x) + T(1.88774862536) * fm::sqrt(xp);
+  const T f = xx * xx;
+  const T val = T(1.4142135623730951 * PI_D * EE_D * EE_D / (3.0 * CL_D)) * n_e * nu_s /
+                (k2 + T(EPS_D)) * f * fm::exp(-xp);
+  const bool bad = (te < T(0.3)) || (nu > T(1.0e12) * nu_s) || (k2 <= T(0.0));
+  return bad ? T(0.0) : val;
 }
 
 // The covariant and contravariant MKS metric at (x1, x2) (geometry.gcov_c,
 // gcon_c): g = (g00, g01, g03, g11, g13, g22, g33), gc = (gc00, gc01, gc11,
 // gc13, gc22, gc33).
-__device__ __forceinline__ void metric_pair(float x1, float x2, const BConst &C,
-                                            float *g, float *gc) {
-  const float eps = (float)EPS_D;
-  const float r = expf(x1) + C.r_0;
-  const float th = C.pi * x2 + C.half_1mh * sinf(C.two_pi * x2);
-  const float sth = fabsf(sinf(th)) + eps;
-  const float cth = cosf(th);
-  const float s2 = sth * sth;
-  const float rho2 = r * r + C.a2 * cth * cth;
-  const float tworr = 2.0f * r / rho2;
-  const float rfac = r - C.r_0;
-  const float hfac = C.pi * (1.0f + C.one_mh * cosf(C.two_pi * x2));
-  g[0] = -1.0f + tworr;
+template <typename T>
+__device__ __forceinline__ void metric_pair(T x1, T x2, const BConst<T> &C, T *g, T *gc) {
+  const T eps = T(EPS_D);
+  const T r = fm::exp(x1) + C.r_0;
+  const T th = C.pi * x2 + C.half_1mh * fm::sin(C.two_pi * x2);
+  const T sth = fm::fabs(fm::sin(th)) + eps;
+  const T cth = fm::cos(th);
+  const T s2 = sth * sth;
+  const T rho2 = r * r + C.a2 * cth * cth;
+  const T tworr = T(2.0) * r / rho2;
+  const T rfac = r - C.r_0;
+  const T hfac = C.pi * (T(1.0) + C.one_mh * fm::cos(C.two_pi * x2));
+  g[0] = T(-1.0) + tworr;
   g[1] = tworr * rfac;
   g[2] = C.neg_a * s2 * tworr;
-  g[3] = (1.0f + tworr) * rfac * rfac;
-  g[4] = C.neg_a * s2 * (1.0f + tworr) * rfac;
+  g[3] = (T(1.0) + tworr) * rfac * rfac;
+  g[4] = C.neg_a * s2 * (T(1.0) + tworr) * rfac;
   g[5] = rho2 * hfac * hfac;
-  g[6] = s2 * (rho2 + C.a2 * s2 * (1.0f + tworr));
-  const float irho2 = 1.0f / (r * r + C.a2 * cth * cth);
-  gc[0] = -1.0f - 2.0f * r * irho2;
-  gc[1] = 2.0f * irho2;
-  gc[2] = irho2 * (r * (r - 2.0f) + C.a2) / (r * r);
+  g[6] = s2 * (rho2 + C.a2 * s2 * (T(1.0) + tworr));
+  const T irho2 = T(1.0) / (r * r + C.a2 * cth * cth);
+  gc[0] = T(-1.0) - T(2.0) * r * irho2;
+  gc[1] = T(2.0) * irho2;
+  gc[2] = irho2 * (r * (r - T(2.0)) + C.a2) / (r * r);
   gc[3] = C.a * irho2 / r;
   gc[4] = irho2 / (hfac * hfac);
   gc[5] = irho2 / (sth * sth);
 }
 
 // v_mu = g_{mu nu} v^nu (geometry.lower_c)
-__device__ __forceinline__ void lower(const float *g, const float *v, float *out) {
+template <typename T>
+__device__ __forceinline__ void lower(const T *g, const T *v, T *out) {
   out[0] = g[0] * v[0] + g[1] * v[1] + g[2] * v[3];
   out[1] = g[1] * v[0] + g[3] * v[1] + g[4] * v[3];
   out[2] = g[5] * v[2];
@@ -360,43 +436,53 @@ __device__ __forceinline__ void lower(const float *g, const float *v, float *out
 }
 
 // u_mu, b_mu and |B| from the blended primitives (fluid._four_vectors_c)
-__device__ __forceinline__ void four_vectors(const float *pr, const float *g,
-                                             const float *gc, const BConst &C,
-                                             float *u_cov, float *b_cov,
-                                             float *b_mag) {
-  const float v1 = pr[2], v2 = pr[3], v3 = pr[4];
-  const float b1 = pr[5], b2 = pr[6], b3 = pr[7];
-  const float v_dot_v = g[3] * v1 * v1 + g[5] * v2 * v2 + g[6] * v3 * v3 +
-                        2.0f * g[4] * v1 * v3;
-  const float v_fac = sqrtf(-1.0f / gc[0] * (1.0f + fabsf(v_dot_v)));
-  const float u0 = -v_fac * gc[0];
-  const float u1 = v1 - v_fac * gc[1];
-  const float u_con[4] = {u0, u1, v2, v3};
+template <typename T>
+__device__ __forceinline__ void four_vectors(const T *pr, const T *g, const T *gc,
+                                             const BConst<T> &C, T *u_cov, T *b_cov,
+                                             T *b_mag) {
+  const T v1 = pr[2], v2 = pr[3], v3 = pr[4];
+  const T b1 = pr[5], b2 = pr[6], b3 = pr[7];
+  const T v_dot_v = g[3] * v1 * v1 + g[5] * v2 * v2 + g[6] * v3 * v3 +
+                    T(2.0) * g[4] * v1 * v3;
+  const T v_fac = fm::sqrt(T(-1.0) / gc[0] * (T(1.0) + fm::fabs(v_dot_v)));
+  const T u0 = -v_fac * gc[0];
+  const T u1 = v1 - v_fac * gc[1];
+  const T u_con[4] = {u0, u1, v2, v3};
   lower(g, u_con, u_cov);
-  const float u_dot_bp = u_cov[1] * b1 + u_cov[2] * b2 + u_cov[3] * b3;
-  const float b_con[4] = {u_dot_bp, (b1 + u1 * u_dot_bp) / u0,
-                          (b2 + v2 * u_dot_bp) / u0, (b3 + v3 * u_dot_bp) / u0};
+  const T u_dot_bp = u_cov[1] * b1 + u_cov[2] * b2 + u_cov[3] * b3;
+  const T b_con[4] = {u_dot_bp, (b1 + u1 * u_dot_bp) / u0, (b2 + v2 * u_dot_bp) / u0,
+                      (b3 + v3 * u_dot_bp) / u0};
   lower(g, b_con, b_cov);
-  const float bsq = b_con[0] * b_cov[0] + b_con[1] * b_cov[1] +
-                    b_con[2] * b_cov[2] + b_con[3] * b_cov[3];
-  *b_mag = sqrtf(fabsf(bsq)) * C.b_unit;
+  const T bsq = b_con[0] * b_cov[0] + b_con[1] * b_cov[1] + b_con[2] * b_cov[2] +
+                b_con[3] * b_cov[3];
+  *b_mag = fm::sqrt(fm::fabs(bsq)) * C.b_unit;
 }
 
 // ---------------------------------------------------------------------------
 // the fused hot step
 // ---------------------------------------------------------------------------
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+// The launch of each type: float, 256-thread blocks at two an SM at least
+// (registers capped at 128); double, 128-thread blocks (registers capped at
+// 255: a double takes two).
+template <typename T> struct Launch;
+template <> struct Launch<float> { static constexpr int threads = 256, min_blocks = 2; };
+template <> struct Launch<double> { static constexpr int threads = 128, min_blocks = 2; };
+
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int HC_PITCH = 32;  // a staged coefficient row: 31 floats and a pad
-constexpr int HC_F4 = HC_NX * HC_PITCH / 4;  // float4s of the staged surface
+constexpr int HC_PITCH = 32;  // a staged coefficient row: 31 values and a pad
+// 16-byte units of the staged surface
+template <typename T>
+__host__ __device__ constexpr int hc_units() {
+  return HC_NX * HC_PITCH * (int)sizeof(T) / 16;
+}
 
 // T_ix(tx) by the recurrence, ix = 0, 1, 2, ... in turn.
-__device__ __forceinline__ float cheb_next(int ix, float tx, float &tm1, float &tm2) {
-  if (ix == 0) return 1.0f;
+template <typename T>
+__device__ __forceinline__ T cheb_next(int ix, T tx, T &tm1, T &tm2) {
+  if (ix == 0) return T(1.0);
   if (ix == 1) return tx;
-  const float t = 2.0f * tx * tm1 - tm2;
+  const T t = T(2.0) * tx * tm1 - tm2;
   tm2 = tm1;
   tm1 = t;
   return t;
@@ -404,73 +490,70 @@ __device__ __forceinline__ float cheb_next(int ix, float tx, float &tm1, float &
 
 // sigma_hot(w, theta_e) [cm^2] from the Chebyshev surface
 // (cheb.hotcross_eval), its rows staged in shared memory at hs (HC_PITCH
-// floats a row), each read as eight broadcast float4 loads.  kPlainOrder =
+// values a row), each read as 16-byte broadcast loads.  kPlainOrder =
 // false (the derived variant, as the shipped profile was measured): s_ix =
 // sum_j c[ix, j] T_j(ty), then sum_ix T_ix(tx) s_ix.  kPlainOrder = true
 // (the raw variant): the order of the plain version, u_j = sum_ix T_ix(tx)
 // c[ix, j] as one fused multiply-add chain in ix order (each row's dot
-// product of the float32 matrix product), then sum_j u_j T_j(ty), T_j
-// built after the sum so that it holds no registers across it.
-template <bool kPlainOrder>
-__device__ __forceinline__ float hotcross(float w, float te, const BConst &C,
-                                          const float4 *hs) {
-  const float l_w = jclip(log10f(jmax(w, 1e-30f)), C.hc_xlo, C.hc_xhi);
-  const float l_t = jclip(log10f(jmax(te, 1e-30f)), C.hc_ylo, C.hc_yhi);
-  const float tx = (2.0f * l_w - C.hc_xsum) * C.inv_hc_xdiff;
-  const float ty = (2.0f * l_t - C.hc_ysum) * C.inv_hc_ydiff;
-  float acc = 0.0f, tm2 = 1.0f, tm1 = tx;
-  float u[HC_NY], by[HC_NY];
+// product of the matrix product), then sum_j u_j T_j(ty), T_j built after
+// the sum so that it holds no registers across it.
+template <bool kPlainOrder, typename T>
+__device__ __forceinline__ T hotcross(T w, T te, const BConst<T> &C,
+                                      const typename Vec16<T>::type *hs) {
+  constexpr int E = Vec16<T>::n;
+  const T l_w = jclip(fm::log10(jmax(w, T(1e-30))), C.hc_xlo, C.hc_xhi);
+  const T l_t = jclip(fm::log10(jmax(te, T(1e-30))), C.hc_ylo, C.hc_yhi);
+  const T tx = (T(2.0) * l_w - C.hc_xsum) * C.inv_hc_xdiff;
+  const T ty = (T(2.0) * l_t - C.hc_ysum) * C.inv_hc_ydiff;
+  T acc = T(0.0), tm2 = T(1.0), tm1 = tx;
+  T u[HC_NY], by[HC_NY];
   if constexpr (kPlainOrder) {
 #pragma unroll
-    for (int j = 0; j < HC_NY; ++j) u[j] = 0.0f;
+    for (int j = 0; j < HC_NY; ++j) u[j] = T(0.0);
   } else {
-    by[0] = 1.0f;
+    by[0] = T(1.0);
     by[1] = ty;
 #pragma unroll
-    for (int j = 2; j < HC_NY; ++j) by[j] = 2.0f * ty * by[j - 1] - by[j - 2];
+    for (int j = 2; j < HC_NY; ++j) by[j] = T(2.0) * ty * by[j - 1] - by[j - 2];
   }
 #pragma unroll 1
   for (int ix = 0; ix < HC_NX; ++ix) {
-    const float t = cheb_next(ix, tx, tm1, tm2);
-    float c[HC_PITCH];
+    const T t = cheb_next(ix, tx, tm1, tm2);
+    T c[HC_PITCH];
 #pragma unroll
-    for (int q = 0; q < HC_PITCH / 4; ++q) {
-      const float4 v = hs[ix * (HC_PITCH / 4) + q];
-      c[4 * q] = v.x;
-      c[4 * q + 1] = v.y;
-      c[4 * q + 2] = v.z;
-      c[4 * q + 3] = v.w;
-    }
+    for (int q = 0; q < HC_PITCH / E; ++q)
+      Vec16<T>::unpack(hs[ix * (HC_PITCH / E) + q], c + E * q);
     if constexpr (kPlainOrder) {
 #pragma unroll
-      for (int j = 0; j < HC_NY; ++j) u[j] = __fmaf_rn(t, c[j], u[j]);
+      for (int j = 0; j < HC_NY; ++j) u[j] = fm::fma_rn(t, c[j], u[j]);
     } else {
-      float s = 0.0f;
+      T s = T(0.0);
 #pragma unroll
       for (int j = 0; j < HC_NY; ++j) s += c[j] * by[j];
       acc += t * s;
     }
   }
   if constexpr (kPlainOrder) {
-    float bm2 = 1.0f, bm1 = ty;
+    T bm2 = T(1.0), bm1 = ty;
 #pragma unroll
     for (int j = 0; j < HC_NY; ++j) acc += u[j] * cheb_next(j, ty, bm1, bm2);
   }
-  const float interp = expf(acc * (float)2.302585092994046);
-  const float cold = hc_klein_nishina(w) * (float)SIGMA_T_D;
-  const float out = (te < 1.0e-4f) ? cold : interp;
-  return (w * te < 1.0e-6f) ? (float)SIGMA_T_D : out;
+  const T interp = fm::exp(acc * T(2.302585092994046));
+  const T cold = hc_klein_nishina(w) * T(SIGMA_T_D);
+  const T out = (te < T(1.0e-4)) ? cold : interp;
+  return (w * te < T(1.0e-6)) ? T(SIGMA_T_D) : out;
 }
 
-// A lane's corner row, the W floats at table[z * W], into row[], fetched by
+// A lane's corner row, the W values at table[z * W], into row[], fetched by
 // the warp: its 32 rows are staged in shared memory (`stage`, 32 rows at a
-// pitch of an odd number of float4s), neighbouring lanes loading one row's
-// float4s, then each lane reads its own.
-template <int W>
-__device__ __forceinline__ void fetch_row(const float *table, int z, int lane,
-                                          float4 *stage, float *row) {
-  constexpr int NQ = W / 4, PITCH = NQ | 1;
-  const float4 *tab = reinterpret_cast<const float4 *>(table);
+// pitch of an odd number of 16-byte units), neighbouring lanes loading one
+// row's units, then each lane reads its own.
+template <int W, typename T>
+__device__ __forceinline__ void fetch_row(const T *table, int z, int lane,
+                                          typename Vec16<T>::type *stage, T *row) {
+  using V = typename Vec16<T>::type;
+  constexpr int E = Vec16<T>::n, NQ = W / E, PITCH = NQ | 1;
+  const V *tab = reinterpret_cast<const V *>(table);
 #pragma unroll
   for (int it = 0; it < NQ; ++it) {
     const int idx = it * 32 + lane;
@@ -480,52 +563,48 @@ __device__ __forceinline__ void fetch_row(const float *table, int z, int lane,
   }
   __syncwarp();
 #pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const float4 v = stage[lane * PITCH + q];
-    row[4 * q] = v.x;
-    row[4 * q + 1] = v.y;
-    row[4 * q + 2] = v.z;
-    row[4 * q + 3] = v.w;
-  }
+  for (int q = 0; q < NQ; ++q) Vec16<T>::unpack(stage[lane * PITCH + q], row + E * q);
 }
 
+template <typename T>
 struct HotPtrs {  // order = hot_kernels._HOT_PTRS
   // the pre-step pool
-  const float *x0, *x1, *x2, *x3, *k0, *k1, *k2, *k3, *d0, *d1, *d2, *d3;
-  const float *e_0_s, *dl_shrink, *pend_dl;
+  const T *x0, *x1, *x2, *x3, *k0, *k1, *k2, *k3, *d0, *d1, *d2, *d3;
+  const T *e_0_s, *dl_shrink, *pend_dl;
   const u8 *pend_push, *at_event, *alive;
-  const float *w;
+  const T *w;
   const u8 *record_pending;
-  const float *alpha_scatti, *alpha_absi, *bi, *tau_abs, *tau_scatt;
+  const T *alpha_scatti, *alpha_absi, *bi, *tau_abs, *tau_scatt;
   const u8 *interacting;
-  const float *sec_w;
+  const T *sec_w;
   const int32_t *n_step;
   const u8 *occupied;
-  // the step's uniforms, the bias scale (one float), the corner table and
+  // the step's uniforms, the bias scale (one value), the corner table and
   // the (41, 31) hotcross surface
-  const float *u_roul, *u_x1, *bias_scale, *table, *hc;
+  const T *u_roul, *u_x1, *bias_scale, *table, *hc;
   // the census counters (int64 scalars), added to in place
   unsigned long long *ls_iters, *ls_slots, *ls_occupied, *ls_moving, *ls_committed,
       *ls_parked, *n_hc_clamp;
   // the post-step pool
-  float *ox0, *ox1, *ox2, *ox3, *ok0, *ok1, *ok2, *ok3, *od0, *od1, *od2, *od3;
-  float *oe_0_s, *odl_shrink, *opend_dl;
+  T *ox0, *ox1, *ox2, *ox3, *ok0, *ok1, *ok2, *ok3, *od0, *od1, *od2, *od3;
+  T *oe_0_s, *odl_shrink, *opend_dl;
   u8 *opend_push, *oat_event, *oalive;
-  float *ow;
+  T *ow;
   u8 *orecord_pending;
-  float *oalpha_scatti, *oalpha_absi, *obi, *otau_abs, *otau_scatt;
+  T *oalpha_scatti, *oalpha_absi, *obi, *otau_abs, *otau_scatt;
   u8 *ointeracting;
-  float *osec_w;
+  T *osec_w;
   int32_t *on_step;
   // the shipped profile only: the detached-event registers in and out, and
   // occupied out (reference semantics pass the pointers before ev_x0)
-  const float *ev_x0, *ev_x1, *ev_x2, *ev_x3, *ev_k0, *ev_k1, *ev_k2, *ev_k3, *ev_w;
+  const T *ev_x0, *ev_x1, *ev_x2, *ev_x3, *ev_k0, *ev_k1, *ev_k2, *ev_k3, *ev_w;
   const u8 *ev_pending;
-  float *oev_x0, *oev_x1, *oev_x2, *oev_x3, *oev_k0, *oev_k1, *oev_k2, *oev_k3, *oev_w;
+  T *oev_x0, *oev_x1, *oev_x2, *oev_x3, *oev_k0, *oev_k1, *oev_k2, *oev_k3, *oev_w;
   u8 *oev_pending, *ooccupied;
 };
-constexpr int HOT_NPTRS = sizeof(HotPtrs) / sizeof(void *);
-constexpr int HOT_REF_NPTRS = offsetof(HotPtrs, ev_x0) / sizeof(void *);
+constexpr int HOT_NPTRS = sizeof(HotPtrs<float>) / sizeof(void *);
+constexpr int HOT_REF_NPTRS = offsetof(HotPtrs<float>, ev_x0) / sizeof(void *);
+static_assert(sizeof(HotPtrs<double>) == sizeof(HotPtrs<float>), "one pointer layout");
 
 struct HotScal {  // order = hot_kernels._HOT_SCAL
   AScal a;
@@ -540,96 +619,98 @@ constexpr int HOT_NSCAL = sizeof(HotScal) / sizeof(double);
 // ladder, the raw 32-wide row from corner_rows through the metric pair, no
 // clamp, no capture).  Lanes at or past n compute lane n - 1 and store
 // nothing, so that every lane of a warp reaches its shuffles and ballots.
-template <bool kRef>
+template <bool kRef, typename T>
 __host__ __device__ constexpr int smem_bytes() {  // the staged surface, the warps' row stages
-  return 16 * (HC_F4 + WARPS * 32 * (((kRef ? RAW_W : ROW_W) / 4) | 1));
+  constexpr int units = (kRef ? RAW_W : ROW_W) * (int)sizeof(T) / 16;
+  return 16 * (hc_units<T>() + Launch<T>::threads / 32 * 32 * (units | 1));
 }
 
-template <bool kRef>
-__global__ void __launch_bounds__(THREADS, 2)
-    hot_step_kernel(const HotPtrs P, const AConst CA, const BConst CB, int n) {
+template <bool kRef, typename T>
+__global__ void __launch_bounds__(Launch<T>::threads, Launch<T>::min_blocks)
+    hot_step_kernel(const HotPtrs<T> P, const AConst<T> CA, const BConst<T> CB, int n) {
+  using V = typename Vec16<T>::type;
+  constexpr int THREADS = Launch<T>::threads;
   constexpr int W = kRef ? RAW_W : ROW_W, M = kRef ? RAW_NC : NC;
-  constexpr int PITCH = (W / 4) | 1;
-  extern __shared__ float4 smem[];  // smem_bytes<kRef>()
+  constexpr int PITCH = (W / Vec16<T>::n) | 1;
+  extern __shared__ float4 smem[];  // smem_bytes<kRef, T>()
   __shared__ unsigned census[5];
-  const float4 *hs = smem;
-  float4 *stage = smem + HC_F4;
+  const V *hs = reinterpret_cast<const V *>(smem);
+  V *stage = reinterpret_cast<V *>(smem) + hc_units<T>();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i0 = blockIdx.x * THREADS + threadIdx.x;
   const bool valid = i0 < n;
   const int i = valid ? i0 : n - 1;
-  const float eps = (float)EPS_D;
+  const T eps = T(EPS_D);
   if (threadIdx.x < 5) census[threadIdx.x] = 0u;
   for (int t = threadIdx.x; t < HC_NX * HC_PITCH; t += THREADS) {
     const int ix = t / HC_PITCH, j = t - ix * HC_PITCH;
-    reinterpret_cast<float *>(smem)[t] = j < HC_NY ? __ldg(P.hc + ix * HC_NY + j) : 0.0f;
+    reinterpret_cast<T *>(smem)[t] = j < HC_NY ? __ldg(P.hc + ix * HC_NY + j) : T(0.0);
   }
   __syncthreads();
 
   // ---- phase A (engine.hot_phase_a) ----
-  float x[4] = {P.x0[i], P.x1[i], P.x2[i], P.x3[i]};
-  float k[4] = {P.k0[i], P.k1[i], P.k2[i], P.k3[i]};
-  float dk[4] = {P.d0[i], P.d1[i], P.d2[i], P.d3[i]};
-  const float e_0_s = P.e_0_s[i], dl_shrink = P.dl_shrink[i];
-  const float pend_dl = P.pend_dl[i], w = P.w[i];
+  T x[4] = {P.x0[i], P.x1[i], P.x2[i], P.x3[i]};
+  T k[4] = {P.k0[i], P.k1[i], P.k2[i], P.k3[i]};
+  T dk[4] = {P.d0[i], P.d1[i], P.d2[i], P.d3[i]};
+  const T e_0_s = P.e_0_s[i], dl_shrink = P.dl_shrink[i];
+  const T pend_dl = P.pend_dl[i], w = P.w[i];
   const bool pend_push = P.pend_push[i], at_event = P.at_event[i];
   const bool alive = P.alive[i], record_pending = P.record_pending[i];
-  const float alpha_scatti = P.alpha_scatti[i], alpha_absi = P.alpha_absi[i];
-  const float bi = P.bi[i];
+  const T alpha_scatti = P.alpha_scatti[i], alpha_absi = P.alpha_absi[i];
+  const T bi = P.bi[i];
 
   const bool moving = alive && !at_event;
-  const float dl_full =
+  const T dl_full =
       pend_push ? pend_dl : step_size(x[1], x[2], k[1], k[2], k[3], CA.x_stop2);
-  float seg = dl_full * dl_shrink;
+  T seg = dl_full * dl_shrink;
   if (pend_push) seg = jmin(seg, dl_full);
   if (!kRef && !pend_push) {  // cap the biased scattering depth a grown step carries
-    const float seg_tau =
-        (1.0f / (CA.half_dtk * alpha_scatti * bi + eps)) * CA.grow_tau_cap;
+    const T seg_tau = (T(1.0) / (CA.half_dtk * alpha_scatti * bi + eps)) * CA.grow_tau_cap;
     seg = jmin(seg, jmax(seg_tau, dl_full));
   }
   const bool at_floor = dl_shrink <= CA.shrink_floor;
   const bool act = moving && !(x[1] < CA.x_start1);
 
   // one implicit-midpoint attempt (harm_model.cpp:1217-1289)
-  const float dl_2 = 0.5f * seg;
-  float k_half[4], k_pred[4], x_new[4];
+  const T dl_2 = T(0.5) * seg;
+  T k_half[4], k_pred[4], x_new[4];
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
     k_half[m] = k[m] + dk[m] * dl_2;
     k_pred[m] = k_half[m] + dk[m] * dl_2;
     x_new[m] = x[m] + k_half[m] * seg;
   }
-  float conn[40];
+  T conn[40];
   connection(x_new[1], x_new[2], CA, conn);
   // metric row 0 at x_new
-  const float r = expf(x_new[1]) + CA.r_0;
-  const float th = CA.pi * x_new[2] + CA.half_1mh * sinf(CA.two_pi * x_new[2]);
-  const float sth = fabsf(sinf(th)) + eps;
-  const float cth = cosf(th);
-  const float rho2 = r * r + CA.a2 * cth * cth;
-  const float tworr = 2.0f * r / rho2;
-  const float g00 = -1.0f + tworr;
-  const float g01 = tworr * (r - CA.r_0);
-  const float g03 = CA.neg_a * sth * sth * tworr;
+  const T r = fm::exp(x_new[1]) + CA.r_0;
+  const T th = CA.pi * x_new[2] + CA.half_1mh * fm::sin(CA.two_pi * x_new[2]);
+  const T sth = fm::fabs(fm::sin(th)) + eps;
+  const T cth = fm::cos(th);
+  const T rho2 = r * r + CA.a2 * cth * cth;
+  const T tworr = T(2.0) * r / rho2;
+  const T g00 = T(-1.0) + tworr;
+  const T g01 = tworr * (r - CA.r_0);
+  const T g03 = CA.neg_a * sth * sth * tworr;
 
-  float err = 0.0f;
-  float dk_new[4] = {dk[0], dk[1], dk[2], dk[3]};
+  T err = T(0.0);
+  T dk_new[4] = {dk[0], dk[1], dk[2], dk[3]};
   for (int it = 0; it < CA.fp_iters; ++it) {
     geodesic_rhs(conn, k_pred, dk_new);
-    float k_next[4];
+    T k_next[4];
 #pragma unroll
     for (int m = 0; m < 4; ++m) k_next[m] = k_half[m] + dl_2 * dk_new[m];
-    const float kscale = fabsf(k_next[0]) + fabsf(k_next[1]) +
-                         fabsf(k_next[2]) + fabsf(k_next[3]) + eps;
-    err = (fabsf(k_pred[0] - k_next[0]) + fabsf(k_pred[1] - k_next[1]) +
-           fabsf(k_pred[2] - k_next[2]) + fabsf(k_pred[3] - k_next[3])) /
+    const T kscale = fm::fabs(k_next[0]) + fm::fabs(k_next[1]) + fm::fabs(k_next[2]) +
+                     fm::fabs(k_next[3]) + eps;
+    err = (fm::fabs(k_pred[0] - k_next[0]) + fm::fabs(k_pred[1] - k_next[1]) +
+           fm::fabs(k_pred[2] - k_next[2]) + fm::fabs(k_pred[3] - k_next[3])) /
           kscale;
 #pragma unroll
     for (int m = 0; m < 4; ++m) k_pred[m] = k_next[m];
   }
-  const float e_1 = -(k_pred[0] * g00 + k_pred[1] * g01 + k_pred[3] * g03);
-  const float err_e = fabsf((e_1 - e_0_s) / (e_0_s + eps));
-  const bool bad = (err_e > 1.0e-4f) || (err > 1.0e-3f) || !isfinite(err);
+  const T e_1 = -(k_pred[0] * g00 + k_pred[1] * g01 + k_pred[3] * g03);
+  const T err_e = fm::fabs((e_1 - e_0_s) / (e_0_s + eps));
+  const bool bad = (err_e > T(1.0e-4)) || (err > T(1.0e-3)) || !isfinite(err);
   const bool commit = act && (!bad || at_floor);
   if (commit) {
 #pragma unroll
@@ -639,81 +720,80 @@ __global__ void __launch_bounds__(THREADS, 2)
       dk[m] = dk_new[m];
     }
   }
-  const float e0sn = commit ? e_1 : e_0_s;
-  const float err_r = jmax(err * CA.inv_e_tol, err_e * CA.inv_e_drift_tol);
+  const T e0sn = commit ? e_1 : e_0_s;
+  const T err_r = jmax(err * CA.inv_e_tol, err_e * CA.inv_e_drift_tol);
 
-  float dl_shrink_n;
+  T dl_shrink_n;
   if constexpr (kRef) {  // halve a failed attempt, else double
-    dl_shrink_n = (act && !commit) ? jmax(dl_shrink * 0.5f, CA.shrink_floor)
-                                   : jmin(dl_shrink * 2.0f, CA.grow_cap);
+    dl_shrink_n = (act && !commit) ? jmax(dl_shrink * T(0.5), CA.shrink_floor)
+                                   : jmin(dl_shrink * T(2.0), CA.grow_cap);
   } else {  // error-proportional step control: fac = safety / sqrt(err), clamped
-    float err_eff = isfinite(err_r) ? err_r : 1.0e12f;
-    if (!act) err_eff = 1.0e-12f;  // idle lanes re-grow
-    const float fac =
-        jclip(CA.step_ctrl * rsqrtf(jmax(err_eff, 1.0e-12f)), 0.25f, 2.0f);
+    T err_eff = isfinite(err_r) ? err_r : T(1.0e12);
+    if (!act) err_eff = T(1.0e-12);  // idle lanes re-grow
+    const T fac =
+        jclip(CA.step_ctrl * fm::rsqrt(jmax(err_eff, T(1.0e-12))), T(0.25), T(2.0));
     dl_shrink_n = jclip(dl_shrink * fac, CA.shrink_floor, CA.grow_cap);
   }
 
-  const float pend_rem = (pend_push && commit) ? pend_dl - seg : pend_dl;
-  const bool arrived = moving && pend_push && commit && (pend_rem <= 0.0f);
+  const T pend_rem = (pend_push && commit) ? pend_dl - seg : pend_dl;
+  const bool arrived = moving && pend_push && commit && (pend_rem <= T(0.0));
 
   // stop criterion + roulette (harm_model.cpp:1589-1616)
   const bool checkable = (moving && commit && !arrived) || (moving && !act);
   const bool horizon = x[1] < CA.x1_min;
-  const bool escaped = x[1] > (float)4.605170185988092;  // ln R_MAX
+  const bool escaped = x[1] > T(4.605170185988092);  // ln R_MAX
   const bool small = w < CA.weight_min;
-  const bool win = P.u_roul[i] <= (float)(1.0 / 1.0e4);
-  const float w_roul = win ? w * 1.0e4f : 0.0f;
-  const float w_a = (checkable && small && !horizon) ? w_roul : w;
+  const bool win = P.u_roul[i] <= T(1.0 / 1.0e4);
+  const T w_roul = win ? w * T(1.0e4) : T(0.0);
+  const T w_a = (checkable && small && !horizon) ? w_roul : w;
   const bool killed_inside = checkable && small && !horizon && !escaped && !win;
   const bool stopped = checkable && (horizon || escaped || killed_inside);
   const bool record = checkable && escaped && !horizon;
   const bool pend_push_a = pend_push && !arrived, at_event_a = at_event || arrived;
   const bool alive_a = alive && !stopped;
-  const bool grown = !pend_push && (dl_shrink > 1.0f);
+  const bool grown = !pend_push && (dl_shrink > T(1.0));
 
   // bilinear cell (harm_model.cpp:1406-1434)
-  const float fia = floorf((x[1] - CA.x_start1) * CA.inv_dx1 - 0.5f);
-  const float fja = floorf((x[2] - CA.x_start2) * CA.inv_dx2 - 0.5f);
-  const int ii = (int)fminf(fmaxf(fia, 0.0f), (float)(CA.n1 - 2));
-  const int jj = (int)fminf(fmaxf(fja, 0.0f), (float)(CA.n2 - 2));
+  const T fia = fm::floor((x[1] - CA.x_start1) * CA.inv_dx1 - T(0.5));
+  const T fja = fm::floor((x[2] - CA.x_start2) * CA.inv_dx2 - T(0.5));
+  const int ii = (int)fm::fmin(fm::fmax(fia, T(0.0)), T(CA.n1 - 2));
+  const int jj = (int)fm::fmin(fm::fmax(fja, T(0.0)), T(CA.n2 - 2));
   const int z = ii * CA.n2 + jj;
 
   // ---- the corner row at z: derived (fluid.blend_derived) or raw (fluid.blend_raw) ----
-  float row[W];
+  T row[W];
   fetch_row<W>(P.table, z, lane, stage + warp * 32 * PITCH, row);
 
   // ---- phase B (engine.hot_phase_b) ----
   bool inter = moving && commit && !pend_push && !stopped;
-  const float x1 = x[1], x2 = x[2];
-  const bool inside = (x1 >= CB.x_start1) && (x1 <= CB.x_stop1) &&
-                      (x2 >= CB.x_start2) && (x2 <= CB.x_stop2);
-  const float fi = floorf((x1 - CB.x_start1) * CB.inv_dx1 - 0.5f);
-  const float fj = floorf((x2 - CB.x_start2) * CB.inv_dx2 - 0.5f);
-  const float ci = fminf(fmaxf(fi, 0.0f), (float)(CB.n1 - 2));
-  const float cj = fminf(fmaxf(fj, 0.0f), (float)(CB.n2 - 2));
-  float del_i = (x1 - ((ci + 0.5f) * CB.dx1 + CB.x_start1)) * CB.inv_dx1;
-  float del_j = (x2 - ((cj + 0.5f) * CB.dx2 + CB.x_start2)) * CB.inv_dx2;
-  del_i = (fi < 0.0f) ? 0.0f : ((fi > (float)(CB.n1 - 2)) ? 1.0f : del_i);
-  del_j = (fj < 0.0f) ? 0.0f : ((fj > (float)(CB.n2 - 2)) ? 1.0f : del_j);
-  const float c00 = (1.0f - del_i) * (1.0f - del_j);
-  const float c01 = (1.0f - del_i) * del_j;
-  const float c10 = del_i * (1.0f - del_j);
-  const float c11 = del_i * del_j;
-  float pr[M];
+  const T x1 = x[1], x2 = x[2];
+  const bool inside = (x1 >= CB.x_start1) && (x1 <= CB.x_stop1) && (x2 >= CB.x_start2) &&
+                      (x2 <= CB.x_stop2);
+  const T fi = fm::floor((x1 - CB.x_start1) * CB.inv_dx1 - T(0.5));
+  const T fj = fm::floor((x2 - CB.x_start2) * CB.inv_dx2 - T(0.5));
+  const T ci = fm::fmin(fm::fmax(fi, T(0.0)), T(CB.n1 - 2));
+  const T cj = fm::fmin(fm::fmax(fj, T(0.0)), T(CB.n2 - 2));
+  T del_i = (x1 - ((ci + T(0.5)) * CB.dx1 + CB.x_start1)) * CB.inv_dx1;
+  T del_j = (x2 - ((cj + T(0.5)) * CB.dx2 + CB.x_start2)) * CB.inv_dx2;
+  del_i = (fi < T(0.0)) ? T(0.0) : ((fi > T(CB.n1 - 2)) ? T(1.0) : del_i);
+  del_j = (fj < T(0.0)) ? T(0.0) : ((fj > T(CB.n2 - 2)) ? T(1.0) : del_j);
+  const T c00 = (T(1.0) - del_i) * (T(1.0) - del_j);
+  const T c01 = (T(1.0) - del_i) * del_j;
+  const T c10 = del_i * (T(1.0) - del_j);
+  const T c11 = del_i * del_j;
+  T pr[M];
 #pragma unroll
   for (int m = 0; m < M; ++m)
-    pr[m] = row[m] * c00 + row[M + m] * c01 + row[2 * M + m] * c10 +
-            row[3 * M + m] * c11;
-  float n_e, te, b_mag, u_cov[4], b_cov[4];
+    pr[m] = row[m] * c00 + row[M + m] * c01 + row[2 * M + m] * c10 + row[3 * M + m] * c11;
+  T n_e, te, b_mag, u_cov[4], b_cov[4];
   if constexpr (kRef) {
-    n_e = inside ? pr[0] * CB.n_e_unit : 0.0f;
+    n_e = inside ? pr[0] * CB.n_e_unit : T(0.0);
     te = pr[1] / pr[0] * CB.theta_e_unit;
-    float g[7], gc[6];
+    T g[7], gc[6];
     metric_pair(x1, x2, CB, g, gc);
     four_vectors(pr, g, gc, CB, u_cov, b_cov, &b_mag);
   } else {
-    n_e = inside ? pr[0] : 0.0f;
+    n_e = inside ? pr[0] : T(0.0);
     te = pr[1] / pr[0];
     b_mag = pr[2];
 #pragma unroll
@@ -724,61 +804,56 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 
   // kinematics (radiation.kinematics_sin_c)
-  const float k_u = k[0] * u_cov[0] + k[1] * u_cov[1] + k[2] * u_cov[2] + k[3] * u_cov[3];
-  const float k_b = k[0] * b_cov[0] + k[1] * b_cov[1] + k[2] * b_cov[2] + k[3] * b_cov[3];
-  const float mu =
-      jclip(k_b / (fabsf(k_u) * b_mag * CB.inv_b_unit + eps), -1.0f, 1.0f);
-  const float sin_th = (b_mag == 0.0f) ? 1.0f : sqrtf(1.0f - mu * mu);
-  const float nu = -k_u * (float)ME_D * (float)CL_D * (float)CL_D * CB.inv_hpl;
+  const T k_u = k[0] * u_cov[0] + k[1] * u_cov[1] + k[2] * u_cov[2] + k[3] * u_cov[3];
+  const T k_b = k[0] * b_cov[0] + k[1] * b_cov[1] + k[2] * b_cov[2] + k[3] * b_cov[3];
+  const T mu = jclip(k_b / (fm::fabs(k_u) * b_mag * CB.inv_b_unit + eps), T(-1.0), T(1.0));
+  const T sin_th = (b_mag == T(0.0)) ? T(1.0) : fm::sqrt(T(1.0) - mu * mu);
+  const T nu = -k_u * T(ME_D) * T(CL_D) * T(CL_D) * CB.inv_hpl;
 
-  const bool bound = n_e == 0.0f;
-  const float nu_safe = fabsf(nu) + eps;
-  const float e_g = (float)HPL_D * nu_safe * CB.inv_mecc;
-  const float a_scf = nu_safe * hotcross<kRef>(e_g, te, CB, hs) * n_e;
-  const bool hc_thomson = e_g * te < 1.0e-6f, hc_cold = te < 1.0e-4f;
+  const bool bound = n_e == T(0.0);
+  const T nu_safe = fm::fabs(nu) + eps;
+  const T e_g = T(HPL_D) * nu_safe * CB.inv_mecc;
+  const T a_scf = nu_safe * hotcross<kRef>(e_g, te, CB, hs) * n_e;
+  const bool hc_thomson = e_g * te < T(1.0e-6), hc_cold = te < T(1.0e-4);
   const bool hc_hit = !hc_thomson && !hc_cold &&
-                      ((e_g <= 1.0e-12f) || (e_g >= 1.0e6f) || (te <= 1.0e-4f) ||
-                       (te >= 1.0e4f)) &&
-                      (n_e > 0.0f);
-  const float j = synch(nu_safe, n_e, te, b_mag, sin_th, k2_eval(te, CB), CB);
-  const float a_abf = nu_safe * j / (b_nu(nu_safe, te, CB) + eps);
-  const float cap = 0.5f * w_a * CB.inv_weight_min;
-  const float bf =
-      jmin(jmax(P.bias_scale[0] * te * te, 3.0f), cap) * CB.inv_tp_over_te;
+                      ((e_g <= T(1.0e-12)) || (e_g >= T(1.0e6)) || (te <= T(1.0e-4)) ||
+                       (te >= T(1.0e4))) &&
+                      (n_e > T(0.0));
+  const T j = synch(nu_safe, n_e, te, b_mag, sin_th, k2_eval(te, CB), CB);
+  const T a_abf = nu_safe * j / (b_nu(nu_safe, te, CB) + eps);
+  const T cap = T(0.5) * w_a * CB.inv_weight_min;
+  const T bf = jmin(jmax(P.bias_scale[0] * te * te, T(3.0)), cap) * CB.inv_tp_over_te;
 
-  const bool dead_branch = bound || (nu < 0.0f);
+  const bool dead_branch = bound || (nu < T(0.0));
   // vacuum -> matter entry rollback of grown steps
   bool entry_roll = false;
   if constexpr (!kRef) {
-    entry_roll = inter && grown && !dead_branch && (alpha_scatti <= 0.0f) &&
-                 (alpha_absi <= 0.0f) && (n_e > 0.0f);
+    entry_roll = inter && grown && !dead_branch && (alpha_scatti <= T(0.0)) &&
+                 (alpha_absi <= T(0.0)) && (n_e > T(0.0));
     inter = inter && !entry_roll;
   }
 
-  const float half = CB.half_dtk * seg;
-  const float d_tau_scatt =
-      dead_branch ? alpha_scatti * half : (alpha_scatti + a_scf) * half;
-  const float d_tau_abs =
-      dead_branch ? alpha_absi * half : (alpha_absi + a_abf) * half;
-  const float bias = dead_branch ? 0.0f : 0.5f * (bi + bf);
+  const T half = CB.half_dtk * seg;
+  const T d_tau_scatt = dead_branch ? alpha_scatti * half : (alpha_scatti + a_scf) * half;
+  const T d_tau_abs = dead_branch ? alpha_absi * half : (alpha_absi + a_abf) * half;
+  const T bias = dead_branch ? T(0.0) : T(0.5) * (bi + bf);
 
-  const float alpha_scatti_b = inter ? (dead_branch ? 0.0f : a_scf) : alpha_scatti;
-  const float alpha_absi_b = inter ? (dead_branch ? 0.0f : a_abf) : alpha_absi;
-  const float bi_b = inter ? (dead_branch ? 0.0f : bf) : bi;
+  const T alpha_scatti_b = inter ? (dead_branch ? T(0.0) : a_scf) : alpha_scatti;
+  const T alpha_absi_b = inter ? (dead_branch ? T(0.0) : a_abf) : alpha_absi;
+  const T bi_b = inter ? (dead_branch ? T(0.0) : bf) : bi;
 
-  const float x1r = -logf(P.u_x1[i] + 1e-30f);
-  const float sec_w_new = w_a / jmax(bias, eps);
+  const T x1r = -fm::log(P.u_x1[i] + T(1e-30));
+  const T sec_w_new = w_a / jmax(bias, eps);
   const bool scatter = inter && (bias * d_tau_scatt > x1r) && (sec_w_new > CB.weight_min);
-  const float frac = scatter ? x1r / (bias * d_tau_scatt + eps) : 1.0f;
-  const float d_tau_abs_eff = d_tau_abs * frac;
-  const float d_tau_scatt_eff = d_tau_scatt * frac;
-  const bool absorbed = inter && (d_tau_abs_eff > 100.0f);
-  const float d_tau = d_tau_abs_eff + d_tau_scatt_eff;
-  const float decay =
-      (d_tau < 1.0e-3f)
-          ? 1.0f - d_tau * CB.inv_24 *
-                       (24.0f - d_tau * (12.0f - d_tau * (4.0f - d_tau)))
-          : expf(-jmin(d_tau, 200.0f));
+  const T frac = scatter ? x1r / (bias * d_tau_scatt + eps) : T(1.0);
+  const T d_tau_abs_eff = d_tau_abs * frac;
+  const T d_tau_scatt_eff = d_tau_scatt * frac;
+  const bool absorbed = inter && (d_tau_abs_eff > T(100.0));
+  const T d_tau = d_tau_abs_eff + d_tau_scatt_eff;
+  const T decay =
+      (d_tau < T(1.0e-3))
+          ? T(1.0) - d_tau * CB.inv_24 * (T(24.0) - d_tau * (T(12.0) - d_tau * (T(4.0) - d_tau)))
+          : fm::exp(-jmin(d_tau, T(200.0)));
   const bool live = inter && !absorbed;
   const bool roll = scatter && !absorbed;
   const bool roll_any = roll || entry_roll;
@@ -787,7 +862,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   const bool over = moving && (n_step_n > CB.stall_steps);
 
   // the scatter or entry rollback restores the pre-step state, read again
-  float xo[4], ko[4], dko[4], e0so;
+  T xo[4], ko[4], dko[4], e0so;
   if (roll_any) {
     xo[0] = P.x0[i]; xo[1] = P.x1[i]; xo[2] = P.x2[i]; xo[3] = P.x3[i];
     ko[0] = P.k0[i]; ko[1] = P.k1[i]; ko[2] = P.k2[i]; ko[3] = P.k3[i];
@@ -802,30 +877,30 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
     e0so = e0sn;
   }
-  const float sec_w_b = roll ? sec_w_new : P.sec_w[i];
+  const T sec_w_b = roll ? sec_w_new : P.sec_w[i];
   const bool alive_b = alive_a && !absorbed && !over;
-  const float w_b = live ? w_a * decay : w_a;
+  const T w_b = live ? w_a * decay : w_a;
   const bool hc_clamp = hc_hit && inter;
 
   // ---- the epilogue: dl_shrink clamp, detached-event capture (engine._capture_events) ----
-  float dl_shrink_o = dl_shrink_n, w_o = w_b;
-  float alpha_scatti_o = alpha_scatti_b, alpha_absi_o = alpha_absi_b, bi_o = bi_b;
+  T dl_shrink_o = dl_shrink_n, w_o = w_b;
+  T alpha_scatti_o = alpha_scatti_b, alpha_absi_o = alpha_absi_b, bi_o = bi_b;
   bool at_event_o = at_event_a, alive_o = alive_b, occupied_o = P.occupied[i];
   if constexpr (!kRef) {
     const bool tau_over = inter && (jmax(d_tau_scatt, d_tau_abs) > CB.tau_cap);
-    if (tau_over || entry_roll) dl_shrink_o = jmin(dl_shrink_n, 1.0f);
+    if (tau_over || entry_roll) dl_shrink_o = jmin(dl_shrink_n, T(1.0));
     const bool ev_pending = P.ev_pending[i];
-    const bool pdie = arrived && ((ko[0] > 1.0e5f) || (ko[0] < 0.0f) || isnan(ko[0]) ||
+    const bool pdie = arrived && ((ko[0] > T(1.0e5)) || (ko[0] < T(0.0)) || isnan(ko[0]) ||
                                   isnan(ko[1]) || isnan(ko[3]));
     const bool capt = arrived && !ev_pending && !pdie;
-    const bool neg = nu < 0.0f;
+    const bool neg = nu < T(0.0);
     at_event_o = at_event_a && !capt && !pdie;
     alive_o = alive_b && !pdie;
     occupied_o = occupied_o && !(pdie && !ev_pending);
-    w_o = pdie ? 0.0f : w_b;
+    w_o = pdie ? T(0.0) : w_b;
     if (capt) {
-      alpha_scatti_o = neg ? 0.0f : a_scf;
-      alpha_absi_o = neg ? 0.0f : a_abf;
+      alpha_scatti_o = neg ? T(0.0) : a_scf;
+      alpha_absi_o = neg ? T(0.0) : a_abf;
       bi_o = bf;
     }
     if (valid) {
@@ -858,11 +933,11 @@ __global__ void __launch_bounds__(THREADS, 2)
     P.oalpha_scatti[i] = alpha_scatti_o;
     P.oalpha_absi[i] = alpha_absi_o;
     P.obi[i] = bi_o;
-    const float tau_abs = P.tau_abs[i], tau_scatt = P.tau_scatt[i];
+    const T tau_abs = P.tau_abs[i], tau_scatt = P.tau_scatt[i];
     P.otau_abs[i] = live ? tau_abs + d_tau_abs_eff : tau_abs;
     P.otau_scatt[i] = live ? tau_scatt + d_tau_scatt_eff : tau_scatt;
     P.ointeracting[i] =
-        inter ? ((alpha_scatti_b > 0.0f) || (alpha_absi_b > 0.0f) || (n_e > 0.0f))
+        inter ? ((alpha_scatti_b > T(0.0)) || (alpha_absi_b > T(0.0)) || (n_e > T(0.0)))
               : (bool)P.interacting[i];
     P.osec_w[i] = sec_w_b;
     P.on_step[i] = n_step_n;
@@ -899,96 +974,98 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-AConst make_aconst(const AScal &S) {
-  AConst C;
-  C.a = (float)S.a;
-  C.a2 = (float)(S.a * S.a);
-  C.a3 = (float)(S.a * S.a * S.a);
-  C.a4 = (float)(S.a * S.a * S.a * S.a);
-  C.neg_a = (float)(-S.a);
-  C.neg_a2 = (float)(-(S.a * S.a));
-  C.neg_2a = (float)(-2.0 * S.a);
-  C.r_0 = (float)S.r_0;
-  C.two_pi = (float)(2.0 * PI_D);
-  C.pi = (float)PI_D;
-  C.half_1mh = (float)(0.5 * (1.0 - S.h_slope));
-  C.one_mh = (float)(1.0 - S.h_slope);
-  C.neg2pipi_1mh = (float)(-2.0 * PI_D * PI_D * (1.0 - S.h_slope));
-  C.x_start1 = (float)S.x_start1;
-  C.x_start2 = (float)S.x_start2;
-  C.x_stop2 = (float)S.x_stop2;
-  C.dx1 = (float)S.dx1;
-  C.dx2 = (float)S.dx2;
-  C.inv_dx1 = (float)S.inv_dx1;
-  C.inv_dx2 = (float)S.inv_dx2;
-  C.inv_e_tol = (float)S.inv_e_tol;
-  C.inv_e_drift_tol = (float)S.inv_e_drift_tol;
-  C.x1_min = (float)S.x1_min;
-  C.half_dtk = (float)(0.5 * S.d_tau_k);
-  C.weight_min = (float)S.weight_min;
-  C.shrink_floor = (float)S.shrink_floor;
-  C.grow_cap = (float)S.grow_cap;
-  C.grow_tau_cap = (float)S.grow_tau_cap;
-  C.step_ctrl = (float)S.step_ctrl;
+template <typename T>
+AConst<T> make_aconst(const AScal &S) {
+  AConst<T> C;
+  C.a = (T)S.a;
+  C.a2 = (T)(S.a * S.a);
+  C.a3 = (T)(S.a * S.a * S.a);
+  C.a4 = (T)(S.a * S.a * S.a * S.a);
+  C.neg_a = (T)(-S.a);
+  C.neg_a2 = (T)(-(S.a * S.a));
+  C.neg_2a = (T)(-2.0 * S.a);
+  C.r_0 = (T)S.r_0;
+  C.two_pi = (T)(2.0 * PI_D);
+  C.pi = (T)PI_D;
+  C.half_1mh = (T)(0.5 * (1.0 - S.h_slope));
+  C.one_mh = (T)(1.0 - S.h_slope);
+  C.neg2pipi_1mh = (T)(-2.0 * PI_D * PI_D * (1.0 - S.h_slope));
+  C.x_start1 = (T)S.x_start1;
+  C.x_start2 = (T)S.x_start2;
+  C.x_stop2 = (T)S.x_stop2;
+  C.dx1 = (T)S.dx1;
+  C.dx2 = (T)S.dx2;
+  C.inv_dx1 = (T)S.inv_dx1;
+  C.inv_dx2 = (T)S.inv_dx2;
+  C.inv_e_tol = (T)S.inv_e_tol;
+  C.inv_e_drift_tol = (T)S.inv_e_drift_tol;
+  C.x1_min = (T)S.x1_min;
+  C.half_dtk = (T)(0.5 * S.d_tau_k);
+  C.weight_min = (T)S.weight_min;
+  C.shrink_floor = (T)S.shrink_floor;
+  C.grow_cap = (T)S.grow_cap;
+  C.grow_tau_cap = (T)S.grow_tau_cap;
+  C.step_ctrl = (T)S.step_ctrl;
   C.n1 = (int)S.n1;
   C.n2 = (int)S.n2;
   C.fp_iters = (int)S.fp_iters;
   return C;
 }
 
-BConst make_bconst(const BScal &S) {
-  BConst C;
-  C.x_start1 = (float)S.x_start1;
-  C.x_start2 = (float)S.x_start2;
-  C.x_stop1 = (float)S.x_stop1;
-  C.x_stop2 = (float)S.x_stop2;
-  C.dx1 = (float)S.dx1;
-  C.dx2 = (float)S.dx2;
-  C.b_unit = (float)S.b_unit;
-  C.half_dtk = (float)(0.5 * S.d_tau_k);
-  C.weight_min = (float)S.weight_min;
-  C.tau_cap = (float)S.tau_cap;
-  C.hc_xlo = (float)S.hc_xlo;
-  C.hc_xhi = (float)S.hc_xhi;
-  C.hc_xsum = (float)(S.hc_xhi + S.hc_xlo);
-  C.hc_xdiff = (float)(S.hc_xhi - S.hc_xlo);
-  C.hc_ylo = (float)S.hc_ylo;
-  C.hc_yhi = (float)S.hc_yhi;
-  C.hc_ysum = (float)(S.hc_yhi + S.hc_ylo);
-  C.hc_ydiff = (float)(S.hc_yhi - S.hc_ylo);
-  C.k2_lo = (float)S.k2_lo;
-  C.k2_hi = (float)S.k2_hi;
-  C.k2_sum = (float)(S.k2_hi + S.k2_lo);
-  C.k2_diff = (float)(S.k2_hi - S.k2_lo);
-  C.inv_dx1 = (float)S.inv_dx1;
-  C.inv_dx2 = (float)S.inv_dx2;
-  C.inv_b_unit = (float)S.inv_b_unit;
-  C.inv_hpl = (float)S.inv_hpl;
-  C.inv_mecc = (float)S.inv_mecc;
-  C.inv_hc_xdiff = (float)S.inv_hc_xdiff;
-  C.inv_hc_ydiff = (float)S.inv_hc_ydiff;
-  C.inv_k2_diff = (float)S.inv_k2_diff;
-  C.inv_cl = (float)S.inv_cl;
-  C.inv_24 = (float)S.inv_24;
-  C.inv_2pimecl = (float)S.inv_2pimecl;
-  C.inv_weight_min = (float)S.inv_weight_min;
-  C.inv_tp_over_te = (float)S.inv_tp_over_te;
-  for (int q = 0; q < K2_N; ++q) C.k2c[q] = (float)S.k2c[q];
+template <typename T>
+BConst<T> make_bconst(const BScal &S) {
+  BConst<T> C;
+  C.x_start1 = (T)S.x_start1;
+  C.x_start2 = (T)S.x_start2;
+  C.x_stop1 = (T)S.x_stop1;
+  C.x_stop2 = (T)S.x_stop2;
+  C.dx1 = (T)S.dx1;
+  C.dx2 = (T)S.dx2;
+  C.b_unit = (T)S.b_unit;
+  C.half_dtk = (T)(0.5 * S.d_tau_k);
+  C.weight_min = (T)S.weight_min;
+  C.tau_cap = (T)S.tau_cap;
+  C.hc_xlo = (T)S.hc_xlo;
+  C.hc_xhi = (T)S.hc_xhi;
+  C.hc_xsum = (T)(S.hc_xhi + S.hc_xlo);
+  C.hc_xdiff = (T)(S.hc_xhi - S.hc_xlo);
+  C.hc_ylo = (T)S.hc_ylo;
+  C.hc_yhi = (T)S.hc_yhi;
+  C.hc_ysum = (T)(S.hc_yhi + S.hc_ylo);
+  C.hc_ydiff = (T)(S.hc_yhi - S.hc_ylo);
+  C.k2_lo = (T)S.k2_lo;
+  C.k2_hi = (T)S.k2_hi;
+  C.k2_sum = (T)(S.k2_hi + S.k2_lo);
+  C.k2_diff = (T)(S.k2_hi - S.k2_lo);
+  C.inv_dx1 = (T)S.inv_dx1;
+  C.inv_dx2 = (T)S.inv_dx2;
+  C.inv_b_unit = (T)S.inv_b_unit;
+  C.inv_hpl = (T)S.inv_hpl;
+  C.inv_mecc = (T)S.inv_mecc;
+  C.inv_hc_xdiff = (T)S.inv_hc_xdiff;
+  C.inv_hc_ydiff = (T)S.inv_hc_ydiff;
+  C.inv_k2_diff = (T)S.inv_k2_diff;
+  C.inv_cl = (T)S.inv_cl;
+  C.inv_24 = (T)S.inv_24;
+  C.inv_2pimecl = (T)S.inv_2pimecl;
+  C.inv_weight_min = (T)S.inv_weight_min;
+  C.inv_tp_over_te = (T)S.inv_tp_over_te;
+  for (int q = 0; q < K2_N; ++q) C.k2c[q] = (T)S.k2c[q];
   C.n1 = (int)S.n1;
   C.n2 = (int)S.n2;
   C.stall_steps = (int)S.stall_steps;
   return C;
 }
 
-template <bool kRef>
+template <bool kRef, typename T>
 int launch_hot(void **ptrs, const double *scal, int n, void *stream) {
-  HotPtrs P;
-  memset(&P, 0, sizeof(HotPtrs));
+  HotPtrs<T> P;
+  memset(&P, 0, sizeof(HotPtrs<T>));
   memcpy(&P, ptrs, (kRef ? HOT_REF_NPTRS : HOT_NPTRS) * sizeof(void *));
   HotScal S;
   memcpy(&S, scal, sizeof(HotScal));
-  const AConst CA = make_aconst(S.a);
-  BConst CB = make_bconst(S.b);
+  const AConst<T> CA = make_aconst<T>(S.a);
+  BConst<T> CB = make_bconst<T>(S.b);
   // the raw rows' metric pair and primitives' units (the derived rows read none)
   CB.a = CA.a;
   CB.a2 = CA.a2;
@@ -998,19 +1075,20 @@ int launch_hot(void **ptrs, const double *scal, int n, void *stream) {
   CB.pi = CA.pi;
   CB.half_1mh = CA.half_1mh;
   CB.one_mh = CA.one_mh;
-  CB.n_e_unit = (float)S.n_e_unit;
-  CB.theta_e_unit = (float)S.theta_e_unit;
-  constexpr int smem = smem_bytes<kRef>();
+  CB.n_e_unit = (T)S.n_e_unit;
+  CB.theta_e_unit = (T)S.theta_e_unit;
+  constexpr int threads = Launch<T>::threads;
+  constexpr int smem = smem_bytes<kRef, T>();
   static bool sized = false;  // dynamic shared memory above 48 KB is asked for once
   if (!sized) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        hot_step_kernel<kRef>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        hot_step_kernel<kRef, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (rc != cudaSuccess) return (int)rc;
     sized = true;
   }
   if (n > 0) {
-    hot_step_kernel<kRef><<<(n + THREADS - 1) / THREADS, THREADS, smem,
-                            (cudaStream_t)stream>>>(P, CA, CB, n);
+    hot_step_kernel<kRef, T><<<(n + threads - 1) / threads, threads, smem,
+                               (cudaStream_t)stream>>>(P, CA, CB, n);
   }
   return (int)cudaGetLastError();
 }
@@ -1023,13 +1101,25 @@ int hot_step_nptrs() { return HOT_NPTRS; }
 int hot_step_nscal() { return HOT_NSCAL; }
 int hot_step_ref_nptrs() { return HOT_REF_NPTRS; }
 int hot_step_ref_nscal() { return HOT_NSCAL; }
+int hot_step_f64_nptrs() { return HOT_NPTRS; }
+int hot_step_f64_nscal() { return HOT_NSCAL; }
+int hot_step_ref_f64_nptrs() { return HOT_REF_NPTRS; }
+int hot_step_ref_f64_nscal() { return HOT_NSCAL; }
 
 int hot_step_launch(void **ptrs, const double *scal, int n, void *stream) {
-  return launch_hot<false>(ptrs, scal, n, stream);
+  return launch_hot<false, float>(ptrs, scal, n, stream);
 }
 
 int hot_step_ref_launch(void **ptrs, const double *scal, int n, void *stream) {
-  return launch_hot<true>(ptrs, scal, n, stream);
+  return launch_hot<true, float>(ptrs, scal, n, stream);
+}
+
+int hot_step_f64_launch(void **ptrs, const double *scal, int n, void *stream) {
+  return launch_hot<false, double>(ptrs, scal, n, stream);
+}
+
+int hot_step_ref_f64_launch(void **ptrs, const double *scal, int n, void *stream) {
+  return launch_hot<true, double>(ptrs, scal, n, stream);
 }
 
 }  // extern "C"

@@ -2,6 +2,8 @@
 
     python -m grmonty_tpu_torch.tools.validate_accuracy --bench-profile \\
         --photons 20000 --mass-unit 4e19 --freeze-bias 0.0025 --oracle-reps 5
+    python -m grmonty_tpu_torch.tools.validate_accuracy --reference \\
+        --photons 10000 --freeze-bias 0.0025 --oracle-reps 5
     python -m grmonty_tpu_torch.tools.validate_accuracy --device cpu --photons 200
 
 Port of ``tools/validate_accuracy.py``.  On the n1 x n2 synthetic torus
@@ -33,7 +35,12 @@ census.
 Profile: with ``--bench-profile`` the shipped one as the JAX tool runs it,
 ``profiles.bench_config(pool=1024)`` in float32 with a 16,384-row ring and
 the tail cascade of ``profiles.bench_sim_kwargs``; without it the same
-profile in float64, which only ``--device cpu`` takes.
+profile in float64.  With ``--reference``, reference semantics in float64
+(``profiles.reference_config(pool=1024)`` with the same ring and the tail
+of ``profiles.reference_sim_kwargs``, which overrides nothing): the
+counterpart of the JAX tool's default run, reference semantics in float64.
+Every profile runs on the card (float64 through the kernels' float64
+instantiations) or, with ``--device cpu``, on the CPU.
 
 Hard gates, each exiting non-zero: ``chi2_sec_gen_per_dof < 5`` under
 ``--freeze-bias`` (both trackers' bias normalization pinned to
@@ -97,8 +104,11 @@ def parse_args(argv=None):
                          "gate runs against their median with MAD variance")
     ap.add_argument("--save-spec", default=None,
                     help="also save both spectra (6, 200, 16) to this .npz")
-    ap.add_argument("--bench-profile", action="store_true",
-                    help="the shipped profile in float32 (else float64, --device cpu)")
+    profile = ap.add_mutually_exclusive_group()
+    profile.add_argument("--bench-profile", action="store_true",
+                         help="the shipped profile in float32 (else float64)")
+    profile.add_argument("--reference", action="store_true",
+                         help="reference semantics in float64 (the JAX tool's default run)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -299,12 +309,15 @@ def _config(args):
     from grmonty_tpu_torch.transport import profiles
 
     dtype = torch.float32 if args.bench_profile else torch.float64
-    if dtype == torch.float64 and torch.device(args.device).type != "cpu":
-        raise SystemExit("validate_accuracy: float64 (no --bench-profile) runs on "
-                         "--device cpu only; the card's kernels are float32")
-    cfg = profiles.bench_config(pool=POOL, dtype=dtype)._replace(sec_cap=SEC_CAP)
-    kw = profiles.bench_sim_kwargs(POOL)
-    tail = dict(tail_grow_cap=kw["tail_grow_cap"], tail_stall_steps=kw["tail_stall_steps"])
+    if args.reference:
+        cfg = profiles.reference_config(pool=POOL, dtype=dtype)
+        kw = profiles.reference_sim_kwargs(POOL)
+    else:
+        cfg = profiles.bench_config(pool=POOL, dtype=dtype)
+        kw = profiles.bench_sim_kwargs(POOL)
+    cfg = cfg._replace(sec_cap=SEC_CAP)
+    tail = dict(tail_grow_cap=kw.get("tail_grow_cap"),
+                tail_stall_steps=kw.get("tail_stall_steps"))
     if args.freeze_bias > 0.0:
         cfg = cfg._replace(bias_fixed_tau=args.freeze_bias, bias_fixed_avg=args.freeze_avg)
     return cfg, tail
@@ -463,6 +476,7 @@ def run(args):
         "step_ctrl": engine.STEP_CTRL,
         "stall_steps": cfg.stall_steps, "tail_grow_cap": tail["tail_grow_cap"],
         "tail_stall_steps": tail["tail_stall_steps"], "bench_profile": bool(args.bench_profile),
+        "reference": bool(cfg.reference),
     }
     out["device"] = _device_record(device)
     engines = [sim.engine, *sim._tail_engines.values()]

@@ -476,11 +476,13 @@ class Simulation:
         return self._drain_spec(state)
 
     # -- checkpoints ----------------------------------------------------------
-    SETUP_FIELDS = ("photon_n", "n_pool", "emit_chunk", "reference")
+    SETUP_FIELDS = ("photon_n", "n_pool", "emit_chunk", "reference", "dtype")
 
     def _setup(self):
-        """The run setup a checkpoint must match (``SETUP_FIELDS``)."""
-        return (self.photon_n, self.cfg.n_pool, self.emit_chunk, int(self.cfg.reference))
+        """The run setup a checkpoint must match (``SETUP_FIELDS``; the
+        engine dtype as its bits, 32 or 64)."""
+        return (self.photon_n, self.cfg.n_pool, self.emit_chunk, int(self.cfg.reference),
+                torch.finfo(self.cfg.dtype).bits)
 
     def save_checkpoint(self, path, waves_done, state):
         """Write a resume point atomically (a temporary file, then

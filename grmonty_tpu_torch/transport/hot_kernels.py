@@ -4,7 +4,8 @@
 ``hot_step_kernel``, in two compile-time variants: ``hot_step`` (the
 shipped profile: derived 44-wide corner rows, the error-proportional step
 control, the detached-event capture) and ``hot_step_ref`` (reference
-semantics: the ladder, raw 32-wide rows through the metric pair).  It
+semantics: the ladder, raw 32-wide rows through the metric pair), each in
+float32 and in float64 (``hot_step_f64``, ``hot_step_ref_f64``).  It
 replaces the TPU kernels ``grmonty_tpu/transport/hotstep_pallas.py:104``
 (``kernel_a``, body ``engine.hot_phase_a``) and ``hotstep_pallas.py:152``
 (``kernel_b``, body ``engine.hot_phase_b``) and the corner-row gather
@@ -13,19 +14,22 @@ phase B, the ``dl_shrink`` clamp, the capture and the lane-slot census.
 
 ``csrc/row_gather.cu`` replaces ``grmonty_tpu/ops/gather.py:63``
 (``_gather_kernel``): ``out[n, :] = table[idx[n], :]``, the raw corner-row
-gather of the event phase and of the reference fresh-lane init.
+gather of the event phase and of the reference fresh-lane init, in float32
+(``row_gather``) and float64 (``row_gather_f64``).
 
 ``csrc/gather_probe.cu`` replaces the eight Pallas kernels of the gather
 probes under ``tools/``: :func:`gather_rowsum` (``table[idx].sum(1)`` by
-four strategies) and :func:`row_gather_rowloop` (the row copy); the probes
-that drive them are ``grmonty_tpu_torch/tools/``.
+four strategies) and :func:`row_gather_rowloop` (the row copy), float32
+only, as the JAX probes' tables are; the probes that drive them are
+``grmonty_tpu_torch/tools/``.
 
 The headers of the ``.cu`` files say what bounds each kernel on the card.
 
 :func:`hot_step`, :func:`row_gather`, :func:`gather_rowsum` and
 :func:`row_gather_rowloop` take their plain versions' arguments.  On CPU
 tensors they call the plain versions (``engine.hot_step_plain`` /
-indexing); on CUDA tensors they launch the kernel, or raise.  ``launches``
+indexing); on CUDA tensors they launch the kernel of the tensors' dtype
+(:func:`entry_point`), or raise.  ``launches``
 counts kernel launches only; a launch captured into a CUDA graph counts
 once, its replays not at all.
 
@@ -62,9 +66,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel launches on CUDA tensors, per kernel (the plain path counts nothing).
-launches = {"hot_step": 0, "hot_step_ref": 0, "row_gather": 0, "gather_rowsum_coop": 0,
+launches = {"hot_step": 0, "hot_step_ref": 0, "row_gather": 0, "hot_step_f64": 0,
+            "hot_step_ref_f64": 0, "row_gather_f64": 0, "gather_rowsum_coop": 0,
             "gather_rowsum_persistent": 0, "gather_rowsum_rowloop": 0,
             "gather_rowsum_smem": 0, "row_gather_rowloop": 0}
+# The dtypes the hot step and the row gather have kernels for, and the
+# suffix of their entry points: the float32 kernels keep their names.
+DTYPE_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
 # The strategies of gather_rowsum, each its own entry point gather_rowsum_<s>.
 ROWSUM_STRATEGIES = ("coop", "persistent", "rowloop", "smem")
 # The widest row of row_gather_rowloop: one row must fit one of the row
@@ -81,6 +89,20 @@ SMEM_STAGE_ROWS = 32
 def reset_launches():
     for name in launches:
         launches[name] = 0
+
+
+def entry_point(kernel, dtype, reference=False):
+    """The entry point that runs ``kernel`` ("hot_step" or "row_gather")
+    on tensors of ``dtype``: the hot step's reference variant under
+    ``reference``, the float64 instantiation for float64.  Raises a
+    ValueError for a dtype that has no kernel."""
+    if kernel not in ("hot_step", "row_gather"):
+        raise ValueError(f"no entry point for kernel {kernel!r}")
+    if dtype not in DTYPE_SUFFIX:
+        raise ValueError(f"{kernel}: no kernel for {dtype} (only "
+                         f"{', '.join(str(d) for d in DTYPE_SUFFIX)})")
+    base = "hot_step_ref" if kernel == "hot_step" and reference else kernel
+    return base + DTYPE_SUFFIX[dtype]
 
 
 # Scalar orders of the C structs AScal and BScal.
@@ -113,6 +135,9 @@ _HOT_NSCAL = len(_A_SCAL) + len(_B_SCAL_HEAD) + _K2_N + 2
 _ABI = {"hot_step": (len(_HOT_PTRS), _HOT_NSCAL),
         "hot_step_ref": (len(_HOT_REF_PTRS), _HOT_NSCAL),
         "row_gather": (3, 1),
+        "hot_step_f64": (len(_HOT_PTRS), _HOT_NSCAL),
+        "hot_step_ref_f64": (len(_HOT_REF_PTRS), _HOT_NSCAL),
+        "row_gather_f64": (3, 1),
         # the row sums take W; "smem" also the rows of a stage (smem_stage_rows)
         **{f"gather_rowsum_{s}": (3, 2 if s == "smem" else 1) for s in ROWSUM_STRATEGIES},
         "row_gather_rowloop": (3, 1)}
@@ -199,13 +224,16 @@ def build():
     return _Build.paths, _Build.seconds, _Build.log
 
 
-def _check_lanes(what, tensors, dtypes, n, dev):
-    """Each tensor a contiguous (n,) tensor of its dtype on dev."""
-    for t, dt in zip(tensors, dtypes, strict=True):
+def _check_lanes(what, tensors, dtypes, n, dev, names=None):
+    """Each tensor a contiguous (n,) tensor of its dtype on dev; ``names``
+    (one per tensor) name the field that fails."""
+    for j, (t, dt) in enumerate(zip(tensors, dtypes, strict=True)):
         if (t.device != dev or t.dtype != dt or t.dim() != 1 or t.shape[0] != n
                 or not t.is_contiguous()):
-            raise ValueError(f"{what}: expected contiguous ({n},) {dt} tensors on {dev}, "
-                             f"got {t.dtype} {tuple(t.shape)} stride {t.stride()} on {t.device}")
+            field = "" if names is None else f" {names[j]}"
+            raise ValueError(f"{what}{field}: expected a contiguous ({n},) {dt} tensor on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} stride {t.stride()} "
+                             f"on {t.device}")
 
 
 def _launch(name, ptr_tensors, scal, n, device):
@@ -225,14 +253,15 @@ def _launch(name, ptr_tensors, scal, n, device):
 _RECIP = {}
 
 
-def _recip(c, device):
-    """The float32 multiplier PyTorch uses for ``tensor / c`` on ``device``:
-    on the card it divides a float32 tensor by a Python scalar as a multiply
-    by the scalar's reciprocal.  Read from PyTorch itself, once per value,
-    so the kernels round each such division exactly as the plain versions."""
-    key = (float(c), str(device))
+def _recip(c, device, dtype=torch.float32):
+    """The multiplier PyTorch uses for ``tensor / c`` on a ``dtype`` tensor
+    on ``device``: on the card it divides a tensor by a Python scalar as a
+    multiply by the scalar's reciprocal in the tensor's type.  Read from
+    PyTorch itself, once per value and dtype, so the kernels round each
+    such division exactly as the plain versions."""
+    key = (float(c), str(device), dtype)
     if key not in _RECIP:
-        one = torch.ones((), dtype=torch.float32, device=device)
+        one = torch.ones((), dtype=dtype, device=device)
         _RECIP[key] = float((one / float(c)).item())
     return _RECIP[key]
 
@@ -243,19 +272,22 @@ def _cuda_device(t):
     return t.device
 
 
-_SCAL_HELD = {}  # (ids of mc and tables, cfg, device) -> (mc, tables, ctypes scalars)
+_SCAL_HELD = {}  # (ids of mc and tables, cfg, device, dtype) -> (mc, tables, ctypes scalars)
 
 
 def hot_step(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg):
     """One hot iteration: on CPU tensors the plain version
     (``engine.hot_step_plain``), on CUDA tensors one launch of the fused
-    kernel of ``csrc/hot_step.cu`` (``hot_step``, or ``hot_step_ref`` under
-    ``cfg.reference``), or raise.  ``pool``: the pre-step ``engine.Pool``
-    (float32); ``u_roul``/``u_x1``: (N,) uniforms; ``bias_scale``: a 0-d
-    float32 tensor; ``tables``: the ``engine.EngineTables``.  Returns the
-    post-step (pool, counters).  On the card the census counters are added
-    to in place (integer atomics) and returned; the pool's fields are new
-    tensors, views of three allocations.  No host sync."""
+    kernel of ``csrc/hot_step.cu`` that :func:`entry_point` names for
+    ``cfg.reference`` and the pool's dtype (``hot_step`` /
+    ``hot_step_ref`` in float32, ``hot_step_f64`` / ``hot_step_ref_f64``
+    in float64), or raise.  ``pool``: the pre-step ``engine.Pool``;
+    ``u_roul``/``u_x1``: (N,) uniforms; ``bias_scale``: a 0-d tensor;
+    ``tables``: the ``engine.EngineTables``, all floats in the pool's
+    dtype.  Returns the post-step (pool, counters).  On the card the census
+    counters are added to in place (integer atomics) and returned; the
+    pool's fields are new tensors, views of three allocations.  No host
+    sync."""
     if pool.w.device.type == "cpu":
         return engine.hot_step_plain(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg)
     dev = _cuda_device(pool.w)
@@ -263,9 +295,10 @@ def hot_step(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg):
     if n == 0:
         raise ValueError("hot_step: empty pool")
     ref = cfg.reference
-    f32, b8, i32 = torch.float32, torch.bool, torch.int32
+    dt, b8, i32 = pool.w.dtype, torch.bool, torch.int32
+    name = entry_point("hot_step", dt, ref)
     nf, nb = (22, 5) if ref else (31, 7)
-    fo = torch.empty((nf, n), dtype=f32, device=dev).unbind(0)
+    fo = torch.empty((nf, n), dtype=dt, device=dev).unbind(0)
     bo = torch.empty((nb, n), dtype=b8, device=dev).unbind(0)
     new = dict(x=fo[0:4], k=fo[4:8], dkdlam=fo[8:12], e_0_s=fo[12], dl_shrink=fo[13],
                pend_dl=fo[14], pend_push=bo[0], at_event=bo[1], alive=bo[2], w=fo[15],
@@ -277,28 +310,30 @@ def hot_step(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg):
                    occupied=bo[6])
     q = pool._replace(**new)
     ins = _pool_cols(pool) + [pool.occupied, u_roul, u_x1] + ([] if ref else _ev_cols(pool))
-    want = ([t.dtype for t in _pool_cols(q)] + [b8, f32, f32]
+    want = ([t.dtype for t in _pool_cols(q)] + [b8, dt, dt]
             + ([] if ref else [t.dtype for t in _ev_cols(q)]))
-    _check_lanes("hot_step", ins, want, n, dev)
+    _check_lanes("hot_step", ins, want, n, dev,
+                 names=_POOL_IN + ["u_roul", "u_x1"] + ([] if ref else _EV))
     table = tables.corner_rows if ref else tables.hot_tab
-    _check_rows(table, 32 if ref else 44, dev, "corner table")
+    _check_rows(table, 32 if ref else 44, dev, "corner table", dt)
     if table.shape[0] < mc.n1 * mc.n2:
         raise ValueError(f"corner table: {table.shape[0]} rows for {mc.n1}x{mc.n2} cells")
     hc = tables.hc_coeffs
-    if (hc.dtype != f32 or tuple(hc.shape) != (41, 31) or not hc.is_contiguous()
+    if (hc.dtype != dt or tuple(hc.shape) != (41, 31) or not hc.is_contiguous()
             or hc.device != dev):
-        raise ValueError(f"hotcross coefficients: expected float32 (41, 31) on {dev}")
-    if bias_scale.dtype != f32 or bias_scale.numel() != 1 or bias_scale.device != dev:
-        raise ValueError(f"bias_scale: expected a float32 scalar tensor on {dev}")
-    census = [getattr(counters, name) for name in CENSUS]
+        raise ValueError(f"hotcross coefficients: expected {dt} (41, 31) on {dev}, got "
+                         f"{hc.dtype} {tuple(hc.shape)} on {hc.device}")
+    if bias_scale.dtype != dt or bias_scale.numel() != 1 or bias_scale.device != dev:
+        raise ValueError(f"bias_scale: expected a {dt} scalar tensor on {dev}, got "
+                         f"{bias_scale.dtype} on {bias_scale.device}")
+    census = [getattr(counters, c) for c in CENSUS]
     if any(c.dtype != torch.int64 or c.dim() != 0 or c.device != dev for c in census):
         raise ValueError(f"hot_step: census counters must be int64 scalars on {dev}")
-    name = "hot_step_ref" if ref else "hot_step"
     ptrs = (_pool_cols(pool) + [pool.occupied, u_roul, u_x1, bias_scale, table, hc] + census
             + _pool_cols(q))
     if not ref:
         ptrs += _ev_cols(pool) + _ev_cols(q) + [q.occupied]
-    _launch(name, ptrs, _hot_scalars(mc, tables, cfg, dev), n, dev)
+    _launch(name, ptrs, _hot_scalars(mc, tables, cfg, dev, dt), n, dev)
     return q, counters
 
 
@@ -313,14 +348,15 @@ def _ev_cols(p):
     return [*p.ev_x, *p.ev_k, p.ev_w, p.ev_pending]
 
 
-def _hot_scalars(mc, tables, cfg, dev):
+def _hot_scalars(mc, tables, cfg, dev, dtype=torch.float32):
     """The fused kernel's scalars as a ctypes array, built once per (mc,
-    tables, cfg, device)."""
-    key = (id(mc), id(tables), cfg, str(dev))
+    tables, cfg, device, dtype): the reciprocals (``_recip``) are those of
+    ``dtype``."""
+    key = (id(mc), id(tables), cfg, str(dev), dtype)
     held = _SCAL_HELD.get(key)
     if held is None or held[0] is not mc or held[1] is not tables:
-        scal = (_a_scalars(mc, cfg.grow_cap, dev)
-                + _b_scalars(mc, cfg.stall_steps, tables.k2_coeffs, dev)
+        scal = (_a_scalars(mc, cfg.grow_cap, dev, dtype)
+                + _b_scalars(mc, cfg.stall_steps, tables.k2_coeffs, dev, dtype)
                 + [mc.n_e_unit, mc.theta_e_unit])
         if len(_SCAL_HELD) >= 8:
             _SCAL_HELD.clear()
@@ -329,26 +365,28 @@ def _hot_scalars(mc, tables, cfg, dev):
     return held[2]
 
 
-def _a_scalars(mc, grow_cap, dev):
-    """Phase A's scalars (``_A_SCAL`` order)."""
+def _a_scalars(mc, grow_cap, dev, dtype=torch.float32):
+    """Phase A's scalars (``_A_SCAL`` order), the reciprocals of ``dtype``."""
     scal = [mc.a, mc.h_slope, mc.r_0, mc.x_start[1], mc.x_start[2], mc.x_stop[2],
             mc.dx[1], mc.dx[2], mc.n1, mc.n2, mc.x1_min, mc.d_tau_k, engine.FP_ITERS,
             engine.WEIGHT_MIN, engine.SHRINK_FLOOR, grow_cap, engine.GROW_TAU_CAP,
             engine.STEP_CTRL]
-    return scal + [_recip(c, dev) for c in (mc.dx[1], mc.dx[2], consts.E_TOL,
-                                            consts.E_DRIFT_TOL)]
+    return scal + [_recip(c, dev, dtype) for c in (mc.dx[1], mc.dx[2], consts.E_TOL,
+                                                   consts.E_DRIFT_TOL)]
 
 
 def row_gather(table, idx):
     """``table[idx]``: rows of a (Z, W) table at (N,) int32 indices in
     [0, Z) (not checked: the TPU kernel's PROMISE_IN_BOUNDS).  The plain
     version on CPU tensors, the kernel of ``csrc/row_gather.cu`` on CUDA
-    tensors (float32, contiguous, W a multiple of 4); no host sync."""
+    tensors (``row_gather`` in float32, ``row_gather_f64`` in float64;
+    contiguous, W a whole number of 16-byte units); no host sync."""
     if table.device.type == "cpu":
         return table[idx.long()]
-    dev, n, w = _gather_args(table, idx, "row gather")
-    out = torch.empty((n, w), dtype=torch.float32, device=dev)
-    _launch("row_gather", [table, idx, out], [w], n, dev)
+    name = entry_point("row_gather", table.dtype)
+    dev, n, w = _gather_args(table, idx, "row gather", table.dtype)
+    out = torch.empty((n, w), dtype=table.dtype, device=dev)
+    _launch(name, [table, idx, out], [w], n, dev)
     return out
 
 
@@ -446,36 +484,39 @@ def row_gather_rowloop(table, idx):
     return out
 
 
-def _gather_args(table, idx, what):
-    """(device, N, W) of a gather's CUDA table (Z, W) and int32 indices (N,)."""
+def _gather_args(table, idx, what, dtype=torch.float32):
+    """(device, N, W) of a gather's CUDA ``dtype`` table (Z, W), its rows a
+    whole number of 16-byte units, and int32 indices (N,)."""
     dev = _cuda_device(table)
-    if table.dim() != 2 or table.shape[1] % 4:
-        raise ValueError(f"{what}: expected a (Z, W) table with W % 4 == 0, got "
+    per_unit = 16 // dtype.itemsize
+    if table.dim() != 2 or table.shape[1] % per_unit:
+        raise ValueError(f"{what}: expected a (Z, W) table with W % {per_unit} == 0, got "
                          f"{tuple(table.shape)}")
     n = idx.shape[0]
-    _check_rows(table, table.shape[1], dev, f"{what} table")
+    _check_rows(table, table.shape[1], dev, f"{what} table", dtype)
     _check_lanes(f"{what} indices", [idx], [torch.int32], n, dev)
     return dev, n, table.shape[1]
 
 
-def _check_rows(t, width, dev, what):
-    """A contiguous, 16-byte aligned float32 (Z, width) tensor on dev."""
-    if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != width
+def _check_rows(t, width, dev, what, dtype=torch.float32):
+    """A contiguous, 16-byte aligned ``dtype`` (Z, width) tensor on dev."""
+    if (t.dtype != dtype or t.dim() != 2 or t.shape[1] != width
             or not t.is_contiguous() or t.device != dev or t.data_ptr() % 16):
-        raise ValueError(f"{what}: expected a contiguous, 16-byte aligned float32 "
+        raise ValueError(f"{what}: expected a contiguous, 16-byte aligned {dtype} "
                          f"(Z, {width}) tensor on {dev}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _b_scalars(mc, stall_steps, k2_coeffs, dev):
-    """Phase B's scalars (``_B_SCAL_HEAD`` order, then the K2 series)."""
+def _b_scalars(mc, stall_steps, k2_coeffs, dev, dtype=torch.float32):
+    """Phase B's scalars (``_B_SCAL_HEAD`` order, then the K2 series), the
+    reciprocals of ``dtype``."""
     if len(k2_coeffs) != _K2_N:
         raise ValueError(f"k2 coefficients: expected {_K2_N}, got {len(k2_coeffs)}")
     scal = [mc.x_start[1], mc.x_start[2], mc.x_stop[1], mc.x_stop[2], mc.dx[1],
             mc.dx[2], mc.n1, mc.n2, mc.b_unit, mc.d_tau_k, engine.WEIGHT_MIN, stall_steps,
             engine.GROW_TAU_CAP, tables_mod.HC_XLO, tables_mod.HC_XHI,
             tables_mod.HC_YLO, tables_mod.HC_YHI, tables_mod.K2_LO, tables_mod.K2_HI]
-    scal += [_recip(c, dev) for c in (
+    scal += [_recip(c, dev, dtype) for c in (
         mc.dx[1], mc.dx[2], mc.b_unit, consts.HPL, consts.ME * consts.CL * consts.CL,
         tables_mod.HC_XHI - tables_mod.HC_XLO, tables_mod.HC_YHI - tables_mod.HC_YLO,
         tables_mod.K2_HI - tables_mod.K2_LO, consts.CL, 24.0,
@@ -635,10 +676,19 @@ def _flat(out):
 # normal numbers can sum to nearly zero, so no relative tolerance fits
 # them: each index may differ by rowsum_slack, W * 2^-23 * sum_j |row_j|
 # (twice the worst-case error of either order), passed as compare's slack.
+# The float64 hot step is held 10^7 tighter than the float32 one: rtol 1e-11
+# is 100 times the worst relative difference its float64 instantiations
+# showed against the plain float64 version on the card (1.1e-13 on w,
+# 1e-13 on alpha_scatti: the hotcross sum's order against the float64
+# matrix product; phase A equal bit for bit), atol 1e-30 (the physics' EPS:
+# no field differed where the plain value is zero), every mask equal.
 KERNEL_TOLERANCE = {
     "hot_step": dict(rtol=1e-4, atol=1e-6, mask_frac=1e-3),
     "hot_step_ref": dict(rtol=1e-4, atol=1e-6, mask_frac=1e-3),
     "row_gather": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
+    "hot_step_f64": dict(rtol=1e-11, atol=1e-30, mask_frac=0.0),
+    "hot_step_ref_f64": dict(rtol=1e-11, atol=1e-30, mask_frac=0.0),
+    "row_gather_f64": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
     **{f"gather_rowsum_{s}": dict(rtol=0.0, atol=0.0, mask_frac=0.0)
        for s in ROWSUM_STRATEGIES},
     "row_gather_rowloop": dict(rtol=0.0, atol=0.0, mask_frac=0.0),

@@ -17,7 +17,9 @@ against the JAX package's, on the 64x32 synthetic torus (CPU).
 (d) The tracker's hooks ``probe``, ``sample_electron`` and
     ``sample_scattered``, port against JAX, bit for bit.
 (e) The port's gate end to end on the CPU at a tiny size: exit 0, the JAX
-    tool's keys, no hotcross clamp.
+    tool's keys, no hotcross clamp; and with ``--reference`` (reference
+    semantics in float64) its hard gates; the profiles ``_config`` gives,
+    float64 on the card among them.
 (f) :func:`compare` on seeded synthetic spectra: a distorted secondary
     shape trips the kappa^g gate, the undistorted one passes, and a clamp
     fails its gate.
@@ -235,14 +237,50 @@ def test_port_gate_end_to_end_on_the_cpu(jax_run, tmp_path):
     assert 0.5 < got["lum_ratio"] < 2.0 and got["dof"] > 0
 
 
-def test_float64_gate_refuses_the_card():
-    with pytest.raises(SystemExit, match="cpu only"):
-        va._config(va.parse_args(["--device", "cuda"]))
+def test_reference_gate_passes_its_hard_gates_on_the_cpu(tmp_path):
+    """``--reference`` (reference semantics in float64, the JAX tool's
+    default run) against the native oracle at a tiny size: exit 0, so every
+    hard gate passes; the run was reference semantics in float64."""
+    va._torus(64, 32)
+    out_json = tmp_path / "gate.json"
+    cmd = [sys.executable, "-m", "grmonty_tpu_torch.tools.validate_accuracy", "--device", "cpu",
+           "--reference", "--photons", "150", "--oracle-reps", "3",
+           "--freeze-bias", str(FREEZE[0]), "--json", str(out_json)]
+    out = subprocess.run(cmd, cwd=ROOT, env=_env(), capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    with open(out_json) as f:
+        got = json.load(f)
+    conf = got["engine_config"]
+    assert conf["reference"] is True and conf["dtype"] == "float64"
+    assert conf["grow_cap"] == 1.0 and conf["refill_period"] == 0
+    assert not va.gate_failures(got) and got["n_hc_clamp_engine"] == 0
+    assert got["origin_decomp"]["chi2_sec_gen_per_dof"] < va.GEN_GATE
+    assert got["n_engine"] == got["n_oracle"] == 150 and got["engine_run"]["hot_iters"] > 0
+    assert 0.5 < got["lum_ratio"] < 2.0 and got["dof"] > 0
+
+
+def test_gate_config_takes_float64_and_reference_semantics_on_the_card():
+    cfg, tail = va._config(va.parse_args(["--device", "cuda"]))
+    assert cfg == profiles.bench_config(pool=va.POOL, dtype=torch.float64)._replace(
+        sec_cap=va.SEC_CAP)
+    assert tail == {"tail_grow_cap": 16.0, "tail_stall_steps": 50000}
     cfg, tail = va._config(va.parse_args(["--device", "cuda", "--bench-profile",
                                           "--freeze-bias", "0.025"]))
     assert cfg.dtype == torch.float32 and cfg.n_pool == va.POOL and cfg.sec_cap == va.SEC_CAP
     assert (cfg.bias_fixed_tau, cfg.bias_fixed_avg) == (0.025, 2.6)
     assert tail == {"tail_grow_cap": 16.0, "tail_stall_steps": 50000}
+    # --reference: reference_config's fields in float64 (the tool's ring), the
+    # tail of reference_sim_kwargs (no overrides), the frozen bias applied
+    cfg, tail = va._config(va.parse_args(["--device", "cuda", "--reference",
+                                          "--freeze-bias", "0.0025"]))
+    want = profiles.reference_config(pool=va.POOL, dtype=torch.float64)
+    assert cfg == want._replace(sec_cap=va.SEC_CAP, bias_fixed_tau=0.0025, bias_fixed_avg=2.6)
+    kw = profiles.reference_sim_kwargs(va.POOL)
+    assert tail == {k: kw.get(k) for k in ("tail_grow_cap", "tail_stall_steps")}
+    assert tail == {"tail_grow_cap": None, "tail_stall_steps": None}
+    with pytest.raises(SystemExit):
+        va.parse_args(["--reference", "--bench-profile"])
 
 
 def _synthetic(rng, sec_scale=None):

@@ -114,3 +114,30 @@ def test_checkpoint_round_trips_state_spectrum_and_generator(dump, tmp_path):
         assert flat_got[name].dtype == ref.dtype and torch.equal(flat_got[name], ref), name
     assert int(state.pool.occupied.sum()) > 0 and isinstance(got.pool, engine.Pool)
     assert torch.equal(torch.rand(5, generator=other.gen, dtype=torch.float64), u_ref)
+
+
+def test_checkpoint_refuses_another_dtype(dump, tmp_path):
+    """A float32 checkpoint resumed into a float64 run (the same setup
+    otherwise) is refused before any state loads: the file names the dtype
+    in its setup, and the sharded run's rank files carry the same fields."""
+    from grmonty_tpu_torch.parallel import sharding
+
+    ck = str(tmp_path / "f32.npz")
+    f32 = profiles.bench_config(pool=256, dtype=torch.float32)._replace(
+        m_period=8, sec_cap=4096, stall_steps=5000)
+    sim = _make_sim(dump, config=f32)
+    sim.save_checkpoint(ck, 1, sim.engine.fresh_state())
+    assert sim.checkpoint_setup(ck)[-1] == 32
+    other = _make_sim(dump)
+    gen_before = other.gen.get_state()
+    refused = r"different run setup: .*/dtype \(.*, 32\) != \(.*, 64\)"
+    with pytest.raises(ValueError, match=refused):
+        other.load_checkpoint(ck)
+    assert torch.equal(other.gen.get_state(), gen_before)
+    with pytest.raises(ValueError, match=refused):
+        other.run(checkpoint_path=ck)
+    assert not other.spec_acc.any() and other.pilot is None
+    assert os.path.exists(ck)
+    assert sharding.ShardedSimulation.SETUP_FIELDS == (
+        driver.Simulation.SETUP_FIELDS + ("world_size", "rank"))
+    assert "dtype" in sharding.ShardedSimulation.SETUP_FIELDS

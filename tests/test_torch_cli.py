@@ -4,8 +4,8 @@ It keeps the reference's five flags with the JAX command line's defaults,
 writes the reference's 200 x 37 spectrum with ``--device cpu`` (the engine,
 and ``--backend cpu``, the native tracker, under ``--profile_dir``'s
 profiler), deletes its ``--checkpoint``
-after a completed run, and refuses float64 on the card and a checkpoint of
-the native tracker.
+after a completed run, takes float64 on the card (it stops only where no
+card is found), and refuses a checkpoint of the native tracker.
 """
 
 import os
@@ -87,9 +87,12 @@ def test_checkpoint_flag_runs_and_cleans_up(dump, tmp_path):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--dtype", "float64"], "float64 runs only with --device cpu"),
+    # float64 on the default device (the card) passes the dtype check and
+    # stops only at the missing card
+    (["--dtype", "float64"], "^no CUDA device"),
     (["--device", "cpu", "--backend", "cpu", "--checkpoint", "x"], "--checkpoint applies"),
 ])
-def test_refusals(dump, tmp_path, extra, message):
+def test_refusals(dump, tmp_path, monkeypatch, extra, message):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match=message):
         cli.main([*extra, *_small(dump, str(tmp_path / "spectrum"))])

@@ -52,20 +52,22 @@ def test_row_gather_raises_on_a_tensor_neither_on_cpu_nor_on_the_card():
 
 
 @pytest.mark.cuda
-def test_row_gather_matches_indexing_on_the_card():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_row_gather_matches_indexing_on_the_card(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
     dev, z, w, n = torch.device("cuda"), 65536, 32, 65536
     rng = np.random.default_rng(5)
-    table = torch.as_tensor(rng.standard_normal((z, w)).astype(np.float32), device=dev)
+    table = torch.as_tensor(rng.standard_normal((z, w)), dtype=dtype, device=dev)
     idx_np = rng.integers(0, z, n).astype(np.int32)
     idx_np[:2] = (0, z - 1)
     idx = torch.as_tensor(idx_np, device=dev)
-    n0 = hot_kernels.launches["row_gather"]
+    name = hot_kernels.entry_point("row_gather", dtype)
+    n0 = hot_kernels.launches[name]
     got = hot_kernels.row_gather(table, idx)
     torch.cuda.synchronize()
-    assert hot_kernels.launches["row_gather"] == n0 + 1
-    assert torch.equal(got, table[idx.long()])
+    assert hot_kernels.launches[name] == n0 + 1
+    assert got.dtype == dtype and torch.equal(got, table[idx.long()])
 
 
 @pytest.mark.parametrize("name", [tables.HOTCROSS_FILE, tables.JNU_FILE, tables.THETA_Q_FILE])

@@ -269,20 +269,84 @@ def test_weight_slack_scales_with_the_steps_optical_depth(setup, semantics):
     assert hot_kernels.compare(ref, tau, **tol, slack=slack)[3]
 
 
+def test_entry_point_follows_semantics_and_dtype():
+    ep, f32, f64 = hot_kernels.entry_point, torch.float32, torch.float64
+    names = [ep("hot_step", dt, ref) for dt in (f32, f64) for ref in (False, True)]
+    assert names == ["hot_step", "hot_step_ref", "hot_step_f64", "hot_step_ref_f64"]
+    assert (ep("row_gather", f32), ep("row_gather", f64)) == ("row_gather", "row_gather_f64")
+    assert ep("row_gather", f64, reference=True) == "row_gather_f64"
+    for name in names + ["row_gather", "row_gather_f64"]:
+        assert name in hot_kernels.launches and name in hot_kernels._ABI
+        assert name in hot_kernels.KERNEL_TOLERANCE
+    for dt in (torch.float16, torch.bfloat16, torch.int32):
+        with pytest.raises(ValueError, match="no kernel"):
+            ep("hot_step", dt)
+        with pytest.raises(ValueError, match="no kernel"):
+            ep("row_gather", dt)
+    with pytest.raises(ValueError):
+        ep("gather_rowsum", f32)
+
+
+def test_float64_tolerance_is_far_tighter_than_float32():
+    for name in ("hot_step", "hot_step_ref"):
+        t32, t64 = (hot_kernels.KERNEL_TOLERANCE[n] for n in (name, f"{name}_f64"))
+        for key in ("rtol", "atol", "mask_frac"):
+            assert t64[key] <= 1e-4 * t32[key], (name, key)
+    assert hot_kernels.KERNEL_TOLERANCE["row_gather_f64"] == dict(rtol=0.0, atol=0.0,
+                                                                  mask_frac=0.0)
+
+
+@pytest.mark.parametrize("c", [3.0, 0.1, 24.0, 2.99792458e10, 1.0e-3])
+def test_recip_is_read_per_dtype(c):
+    """``tensor / c`` multiplies by the reciprocal in the tensor's type:
+    float32's is the float32 quotient, float64's the double one, each kept
+    under its own key."""
+    r32 = hot_kernels._recip(c, "cpu", torch.float32)
+    r64 = hot_kernels._recip(c, "cpu", torch.float64)
+    assert r64 == 1.0 / c
+    assert r32 == float(np.float32(1.0) / np.float32(c))
+    assert hot_kernels._recip(c, "cpu", torch.float32) == r32
+    assert hot_kernels._recip(c, "cpu") == r32  # float32 unless asked
+
+
+def test_float64_scalars_carry_float64_reciprocals(setup):
+    from grmonty_tpu_torch import consts
+
+    mc, tabs = setup
+    cs = (mc.dx[1], mc.dx[2], consts.E_TOL, consts.E_DRIFT_TOL)
+    a64 = hot_kernels._a_scalars(mc, 8.0, "cpu", torch.float64)
+    a32 = hot_kernels._a_scalars(mc, 8.0, "cpu", torch.float32)
+    assert a64[-4:] == [1.0 / c for c in cs]
+    assert a32[-4:] == [float(np.float32(1.0) / np.float32(c)) for c in cs]
+    assert a64[:-4] == a32[:-4]
+    b64 = hot_kernels._b_scalars(mc, 100, tabs.k2_coeffs, "cpu", torch.float64)
+    assert b64[hot_kernels._B_SCAL_HEAD.index("inv_24")] == 1.0 / 24.0
+    assert b64[hot_kernels._B_SCAL_HEAD.index("inv_cl")] == 1.0 / consts.CL
+    b32 = hot_kernels._b_scalars(mc, 100, tabs.k2_coeffs, "cpu", torch.float32)
+    assert b32[hot_kernels._B_SCAL_HEAD.index("inv_24")] == float(np.float32(1.0) / 24)
+    cfg = _config("shipped", torch.float64)._replace(grow_cap=8.0, stall_steps=100)
+    s64 = list(hot_kernels._hot_scalars(mc, tabs, cfg, "cpu", torch.float64))
+    s32 = list(hot_kernels._hot_scalars(mc, tabs, cfg, "cpu", torch.float32))
+    assert len(s64) == len(s32) == hot_kernels._HOT_NSCAL
+    assert s64 == a64 + b64 + [mc.n_e_unit, mc.theta_e_unit]
+    assert s32 == a32 + b32 + [mc.n_e_unit, mc.theta_e_unit]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("semantics", SEMANTICS)
-def test_fused_kernel_matches_plain_on_the_card(setup, semantics):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_fused_kernel_matches_plain_on_the_card(setup, semantics, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
     mc, tabs = setup
     n, dev = 65536, torch.device("cuda")
-    cfg = _config(semantics, torch.float32, n)
+    cfg = _config(semantics, dtype, n)
     lanes = _lanes(mc, cfg, n, seed=11)
-    name = "hot_step_ref" if cfg.reference else "hot_step"
+    name = hot_kernels.entry_point("hot_step", dtype, cfg.reference)
     n0 = hot_kernels.launches[name]
-    args, tables = _inputs(lanes, tabs, torch.float32, dev)
+    args, tables = _inputs(lanes, tabs, dtype, dev)
     ref = engine.hot_step_plain(*args, mc, tables, cfg)
-    got = hot_kernels.hot_step(*_inputs(lanes, tabs, torch.float32, dev)[0], mc, tables, cfg)
+    got = hot_kernels.hot_step(*_inputs(lanes, tabs, dtype, dev)[0], mc, tables, cfg)
     torch.cuda.synchronize()
     assert hot_kernels.launches[name] == n0 + 1
     (ref_f, ref_c), (got_f, got_c) = (hot_kernels.step_outputs(*ref, cfg.reference),
