@@ -29,11 +29,14 @@ Phases, each of which exits non-zero on failure:
    (``bound_ms``: the bytes the call must move at 3.35 TB/s or its
    operations at the card's rate for their type, 67 TFLOP/s in float32 and
    33.5 in float64, the larger; ``bound_by`` says which); for the hot
-   step also its registers and spills (``ptxas``) and the shared-memory
-   loads in its SASS (``lds``, by cuobjdump), and on a line of its own the
-   weight's worst lane and an estimate of the float32 issue floor.  The
-   hot step is checked and timed the same way at the tail cascade's
-   widths, N = 4,096 and 512 (``kernel check hot_step@4096: ...``).  Every
+   step also its registers and spills (``ptxas``), the shared-memory
+   loads in its SASS (``lds``, by cuobjdump) and the instance the width
+   launches (``group``: threads a lane, ``threads`` a block,
+   ``blocks_per_sm``), and on a line of its own the weight's worst lane
+   and an estimate of the float32 issue floor.  The hot step is checked
+   and timed the same way at the tail cascade's widths, N = 4,096 and 512
+   (``kernel check hot_step@4096: ...``; float64 also at the accuracy
+   gate's 1,024).  Every
    run of phases 5-12 must launch exactly what its path runs
    (``path_launches``: the hot step of its dtype and semantics once per hot
    iteration, the row gather of its dtype once per full phase and, under
@@ -78,8 +81,10 @@ Phases, each of which exits non-zero on failure:
    ``Simulation``.  The uninterrupted run's phases are clocked by CUDA
    events (``profile_slice.clock_phases``) for phase 12b.  The resumed
    spectrum must match the uninterrupted one to rtol 1e-6 (float atomics
-   sum it on the card), every count exactly, and the checkpoint must be
-   gone;
+   sum it on the card), every count exactly (the full and light phases
+   among them), the checkpoint must be gone, the resumed ``device_s`` must
+   be the sum of its two parts' device windows (to rel 1e-9) and its
+   ``elapsed_s`` at least the interrupted part's wall seconds;
 9. the command line, ``python -m grmonty_tpu_torch`` on the card in a
    subprocess at ``--resume-photon-n`` photons and the cells' pool of
    65,536 (``CLI_POOL``): exit 0, a 200 x 37 spectrum file, and a kernel
@@ -112,7 +117,7 @@ Phases, each of which exits non-zero on failure:
    per-dump tables on the card) are printed; the numbers go on one line
    (``{"phase": "sharded", ...}``);
 12. float64 on the card: (a) phase 4's checks in float64 (``hot_step_f64``,
-   ``hot_step_ref_f64`` at N = 65,536, 4,096 and 512, ``row_gather_f64``
+   ``hot_step_ref_f64`` at N = 65,536, 4,096, 1,024 and 512, ``row_gather_f64``
    bitwise), on the tables of a float64 ``Simulation`` of the cell; (b)
    that ``Simulation`` end to end, the shipped profile at
    ``--resume-photon-n`` photons with phase 8's waves and cascade step cap,
@@ -130,9 +135,13 @@ prints the card line and the kernels line (no result line); a copy of it
 placed in another commit's checkout times that commit's probe kernels
 the same way, which is how two versions are compared in one call.  With
 ``--sharded-only`` it runs phases 1, 2 and 11 and prints the card line
-(no kernels line, no result line); with ``--f64-only`` phases 1, 2 and 12
-(and phase 12b's float32 run of the same setup in place of phase 8's) and
-prints the card line and the kernels line (no result line).
+(no kernels line, no result line); with ``--ab-hot-step DIR`` phases 1
+and 2, then this checkout's hot step against the one of the checkout at
+DIR in turns (float32 at 65,536 lanes with both SASS listings compared,
+float64 at ``AB_F64_WIDTHS``), then the card line; with ``--f64-only``
+phases 1, 2 and 12 (and phase 12b's float32 run of the same setup in
+place of phase 8's) and prints the card line and the kernels line (no
+result line).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result line.
@@ -153,6 +162,10 @@ import time
 REF_LUMINOSITY = 12694.3  # JAX engine, 256x256 torus, M=4e19, seed 123
 N_CHECK = 65536
 TAIL_CHECKS = (4096, 512)  # the tail cascade's narrower pools
+# Float64 also at the accuracy gate's pool of 1,024 lanes (phase 12c).
+TAIL_CHECKS_F64 = (4096, 1024, 512)
+# --ab-hot-step's float64 widths: the pool, the cascade's and the gate's.
+AB_F64_WIDTHS = (N_CHECK, 4096, 1024, 512)
 RESUME_PHOTON_N = 2e4
 RESUME_CHUNK = 1 << 16
 # The resume phase's step cap in the tail cascade, cut from the shipped
@@ -376,7 +389,8 @@ def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None
            "device_ms": cuda_ms(kern, queued=True),
            "library_ms": None if library is None else cuda_ms(library),
            "library_device_ms": None if library is None else cuda_ms(library, queued=True),
-           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved_bytes, "n": n}
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved_bytes, "n": n,
+           "group": None, "threads": None, "blocks_per_sm": None}
     rec.update(extra or {})
     print(f"kernel check {rec['name']}{'' if n == N_CHECK else f'@{n}'}: {json.dumps(rec)}")
     if fails:
@@ -391,7 +405,9 @@ def kernel_dtype(name):
 
 def ptxas_usage(log):
     """{kernel function: registers and spill bytes} from nvcc's -Xptxas -v
-    output."""
+    output: the first properties line after an entry function is its own
+    (those of the functions it calls, such as the trigonometric slow path,
+    follow)."""
     usage, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -400,7 +416,7 @@ def ptxas_usage(log):
             usage[fn] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and fn:
+        if m and fn and "spill_stores" not in usage[fn]:
             usage[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
@@ -439,22 +455,29 @@ def sass_counts(path):
 
 
 def hot_step_variant(fn):
-    """(reference, type) of a mangled hot_step_kernel instantiation, the
-    type None for the float-only kernels before the float64 ones."""
-    m = re.search(r"hot_step_kernelILb([01])E(?:([fd])E)?", fn)
-    return None if m is None else (m.group(1) == "1", {"f": "float", "d": "double"}.get(
-        m.group(2)))
+    """(reference, type, group, threads) of a mangled hot_step_kernel
+    instantiation: the type "float" for the float-only kernels before the
+    float64 ones; the group (threads a lane) 1 and the threads a block None
+    for those before the group instances."""
+    m = re.search(r"hot_step_kernelILb([01])E(?:([fd])(?:Li(\d+)E)?(?:Li(\d+)E)?E)?", fn)
+    if m is None:
+        return None
+    return (m.group(1) == "1", {"f": "float", "d": "double"}.get(m.group(2), "float"),
+            int(m.group(3) or 1), m.group(4) and int(m.group(4)))
 
 
-def ab_hot_step(root, sim, other, usage, ref_stall_steps, turns=2):
-    """``--ab-hot-step``: this checkout's float32 hot step against the one of
-    the checkout at ``other`` (its ``csrc/hot_step.cu`` built with this
-    build's flags; its C interface is the same, so this wrapper launches
-    it on the same arguments), on phase 4's lanes at N_CHECK: each side's
-    worst errors against the plain version and census, its device time in
-    turns (this, other, other, this, ``turns`` times), its ptxas registers
-    and spills, and whether the two SASS listings of each variant are
-    identical.  Prints one line per variant; fails if the census differs."""
+def ab_hot_step(root, sims, other, usage, ref_stall_steps, turns=2):
+    """``--ab-hot-step``: this checkout's hot step against the one of the
+    checkout at ``other`` (its ``csrc/hot_step.cu`` built with this build's
+    flags; its C interface is the same, so this wrapper launches it on the
+    same arguments), each variant in float32 at N_CHECK lanes and in float64
+    at AB_F64_WIDTHS, on phase 4's lanes (``sims``: a float32 and a float64
+    ``Simulation`` of the cell): each side's worst errors against the plain
+    version and census, its device time in turns (this, other, other, this,
+    ``turns`` times), its ptxas registers and spills, this side's group and
+    blocks an SM, and whether the two SASS listings of each float32 variant
+    are identical.  Prints one line per variant and width; fails if a census
+    differs."""
     import ctypes
 
     import torch
@@ -469,68 +492,75 @@ def ab_hot_step(root, sim, other, usage, ref_stall_steps, turns=2):
                          capture_output=True, text=True)
     if out.returncode != 0:
         fail(f"ab: nvcc failed for {src}:\n{out.stdout}{out.stderr}")
-    other_usage = ptxas_usage(out.stdout + out.stderr)
+    other_usage = {hot_step_variant(f): v for f, v in ptxas_usage(out.stdout + out.stderr).items()
+                   if hot_step_variant(f)}
+    this_usage = {hot_step_variant(f): v for f, v in usage.items() if hot_step_variant(f)}
     lib = ctypes.CDLL(lib_path)
     mine_sass = {hot_step_variant(f): v for path in hot_kernels._Build.paths
                  for f, v in sass_listing(path).items() if hot_step_variant(f)}
     other_sass = {hot_step_variant(f): v for f, v in sass_listing(lib_path).items()
                   if hot_step_variant(f)}
-    mc, tabs, dev, f32 = sim.mc, sim.tables, sim.device, torch.float32
-    for reference in (False, True):
-        name = hot_kernels.entry_point("hot_step", f32, reference)
-        theirs = getattr(lib, f"{name}_launch")
-        theirs.argtypes = hot_kernels._Build.fns[name].argtypes
-        theirs.restype = ctypes.c_int
-        fns = {"this": hot_kernels._Build.fns[name], "other": theirs}
-        cfg = (profiles.reference_config(pool=N_CHECK, dtype=f32, stall_steps=ref_stall_steps)
-               if reference else sim.cfg._replace(n_pool=N_CHECK))
-        lanes = hot_kernels.synthetic_lanes(mc, N_CHECK, 2024, cfg.stall_steps, reference,
-                                            events=True)
-        pool, counters, u_roul, u_x1, bias = hot_kernels.synthetic_step(lanes, f32, dev)
+    for sim in sims:
+        mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, sim.cfg.dtype
+        for reference in (False, True):
+            name = hot_kernels.entry_point("hot_step", dt, reference)
+            theirs = getattr(lib, f"{name}_launch")
+            theirs.argtypes = hot_kernels._Build.fns[name].argtypes
+            theirs.restype = ctypes.c_int
+            fns = {"this": hot_kernels._Build.fns[name], "other": theirs}
+            for n in (N_CHECK,) if dt == torch.float32 else AB_F64_WIDTHS:
+                cfg = (profiles.reference_config(pool=n, dtype=dt, stall_steps=ref_stall_steps)
+                       if reference else sim.cfg._replace(n_pool=n))
+                lanes = hot_kernels.synthetic_lanes(mc, n, 2024, cfg.stall_steps, reference,
+                                                    events=True)
+                pool, counters, u_roul, u_x1, bias = hot_kernels.synthetic_step(lanes, dt, dev)
 
-        def step(fn, c=None):
-            if c is None:
-                c = counters._replace(**{k: getattr(counters, k).clone()
-                                         for k in hot_kernels.CENSUS})
-            return fn(pool, c, u_roul, u_x1, bias, mc, tabs, cfg)
+                def step(fn, c=None):
+                    if c is None:
+                        c = counters._replace(**{k: getattr(counters, k).clone()
+                                                 for k in hot_kernels.CENSUS})
+                    return fn(pool, c, u_roul, u_x1, bias, mc, tabs, cfg)
 
-        ref_f, ref_c = hot_kernels.step_outputs(*step(engine.hot_step_plain), reference)
-        slack = hot_kernels.weight_slack(pool, ref_f, hot_kernels.KERNEL_TOLERANCE[name]["rtol"])
-        rec = {"name": name, "n": N_CHECK, "device_ms": {"this": [], "other": []}}
-        try:
-            for side, fn in fns.items():
-                hot_kernels._Build.fns[name] = fn
-                got_f, got_c = hot_kernels.step_outputs(*step(hot_kernels.hot_step), reference)
-                torch.cuda.synchronize()
-                err, rel, mask, fails = hot_kernels.compare(
-                    ref_f, got_f, **hot_kernels.KERNEL_TOLERANCE[name], slack=slack)
-                rec[side] = {"max_abs_err": err, "max_rel_err": rel, "mask_mismatch": mask,
-                             "fails": fails, "census_equal": got_c == ref_c}
-            # timed as phase 4 times it: the census added to one set of
-            # counters, no copies between the launches
-            kc = counters._replace(**{k: getattr(counters, k).clone()
-                                      for k in hot_kernels.CENSUS})
-            for _ in range(turns):
-                for side in ("this", "other", "other", "this"):
-                    hot_kernels._Build.fns[name] = fns[side]
-                    rec["device_ms"][side].append(
-                        cuda_ms(lambda: step(hot_kernels.hot_step, kc), queued=True))
-        finally:
-            hot_kernels._Build.fns[name] = fns["this"]
-        key = (reference, "float")
-        rec["ptxas"] = {"this": next((v for f, v in usage.items()
-                                      if hot_step_variant(f) == key), None),
-                        "other": next((v for f, v in other_usage.items()
-                                       if hot_step_variant(f) in (key, (reference, None))),
-                                      None)}
-        theirs_sass = other_sass.get(key, other_sass.get((reference, None)))
-        rec["sass_identical"] = theirs_sass is not None and mine_sass.get(key) == theirs_sass
-        rec["sass_instructions"] = {"this": len(mine_sass.get(key, [])),
-                                    "other": len(theirs_sass or [])}
-        print(f"ab {name}: {json.dumps(rec)}")
-        if not (rec["this"]["census_equal"] and rec["other"]["census_equal"]):
-            fail(f"ab {name}: a census differs from the plain version's")
-
+                ref_f, ref_c = hot_kernels.step_outputs(*step(engine.hot_step_plain), reference)
+                slack = hot_kernels.weight_slack(pool, ref_f,
+                                                 hot_kernels.KERNEL_TOLERANCE[name]["rtol"])
+                shape = hot_kernels.hot_step_shape(name, n)
+                rec = {"name": name, "n": n, **shape, "device_ms": {"this": [], "other": []}}
+                try:
+                    for side, fn in fns.items():
+                        hot_kernels._Build.fns[name] = fn
+                        got_f, got_c = hot_kernels.step_outputs(*step(hot_kernels.hot_step),
+                                                                reference)
+                        torch.cuda.synchronize()
+                        err, rel, mask, fails = hot_kernels.compare(
+                            ref_f, got_f, **hot_kernels.KERNEL_TOLERANCE[name], slack=slack)
+                        rec[side] = {"max_abs_err": err, "max_rel_err": rel,
+                                     "mask_mismatch": mask, "fails": fails,
+                                     "census_equal": got_c == ref_c}
+                    # timed as phase 4 times it: the census added to one set of
+                    # counters, no copies between the launches
+                    kc = counters._replace(**{k: getattr(counters, k).clone()
+                                              for k in hot_kernels.CENSUS})
+                    for _ in range(turns):
+                        for side in ("this", "other", "other", "this"):
+                            hot_kernels._Build.fns[name] = fns[side]
+                            rec["device_ms"][side].append(
+                                cuda_ms(lambda: step(hot_kernels.hot_step, kc), queued=True))
+                finally:
+                    hot_kernels._Build.fns[name] = fns["this"]
+                typ = "double" if dt == torch.float64 else "float"
+                key = (reference, typ, shape["group"], shape["threads"])
+                # the other checkout holds one instance of each variant and type
+                theirs_key = next((k for k in other_sass if k[:2] == key[:2]), None)
+                rec["ptxas"] = {"this": this_usage.get(key), "other": other_usage.get(theirs_key)}
+                theirs_sass = other_sass.get(theirs_key)
+                mine = mine_sass.get(key)
+                rec["sass_identical"] = theirs_sass is not None and mine == theirs_sass
+                rec["sass_instructions"] = {"this": len(mine or []),
+                                            "other": len(theirs_sass or [])}
+                print(f"ab {name}@{n}: {json.dumps(rec)}")
+                if not (rec["this"]["census_equal"] and rec["other"]["census_equal"]):
+                    fail(f"ab {name}@{n}: a census differs from the plain version's")
 
 
 def hot_step_checks(sim, usage, sass, ref_stall_steps, n=N_CHECK):
@@ -590,15 +620,19 @@ def hot_step_checks(sim, usage, sass, ref_stall_steps, n=N_CHECK):
               f"{float(hot_kernels.step_d_tau(pool, ref_f)[i])}; issue floor (estimate, "
               f"OPS_PER_LANE) {1e3 * OPS_PER_LANE[name] * n / ISSUE_PER_S[kernel_dtype(name)]}"
               " ms")
-        rec = time_kernel(name, ref_f, got_f, plain, kern, moved, slack=slack, n=n)
+        # the instance this width launches: hot_step_kernel<reference, type, group, threads>
+        shape = hot_kernels.hot_step_shape(name, n)
+        inst = (reference, "double" if dt == torch.float64 else "float", shape["group"],
+                shape["threads"])
+        rec = time_kernel(name, ref_f, got_f, plain, kern, moved, slack=slack, n=n,
+                          extra=shape)
         rec["census"] = got_c
-        # the mangled instantiation hot_step_kernel<reference, float or double>
-        inst = f"hot_step_kernelILb{int(reference)}E{'d' if dt == torch.float64 else 'f'}E"
-        rec["ptxas"] = next((v for f, v in usage.items() if inst in f), None)
+        rec["ptxas"] = next((v for f, v in usage.items() if hot_step_variant(f) == inst), None)
         rec["lds"], rec["sass_instructions"] = next(
-            (v for f, v in sass.items() if inst in f), (None, None))
-        print(f"  {name}@{n}: census {got_c}; ptxas {rec['ptxas']}; {rec['lds']} LDS in "
-              f"{rec['sass_instructions']} instructions")
+            (v for f, v in sass.items() if hot_step_variant(f) == inst), (None, None))
+        print(f"  {name}@{n}: census {got_c}; group {shape['group']}, {shape['threads']}-thread "
+              f"blocks, {shape['blocks_per_sm']} an SM; ptxas {rec['ptxas']}; {rec['lds']} LDS "
+              f"in {rec['sass_instructions']} instructions")
         out.append(rec)
     return out
 
@@ -613,7 +647,7 @@ def kernel_checks(sim, usage, sass, ref_stall_steps):
     from grmonty_tpu_torch.transport import hot_kernels
 
     out = hot_step_checks(sim, usage, sass, ref_stall_steps)
-    for n in TAIL_CHECKS:
+    for n in TAIL_CHECKS_F64 if sim.cfg.dtype == torch.float64 else TAIL_CHECKS:
         hot_step_checks(sim, usage, sass, ref_stall_steps, n=n)
     # the row gather on the raw corner table, indices 0 and Z-1 included
     table = sim.tables.corner_rows
@@ -908,22 +942,39 @@ def resume_check(root, photon_n):
         return wave(*a, **kw)
 
     crashing._run_wave = fail_after_two
+    t_crash = time.monotonic()
     try:
         crashing.run(checkpoint_path=ck)
         fail("resume: the injected failure did not stop the run")
     except InjectedFailure:
         pass
+    crashed_s = time.monotonic() - t_crash
     if not os.path.exists(ck):
         fail("resume: no checkpoint after the failure")
-    spec_res, st_res = sim().run(checkpoint_path=ck)
+    resumed, windows = sim(), []
+    timed = resumed._timed_run
+
+    def own_windows(*a, **kw):  # the resumed part's own device windows
+        state, secs = timed(*a, **kw)
+        windows.append(secs)
+        return state, secs
+
+    resumed._timed_run = own_windows
+    spec_res, st_res = resumed.run(checkpoint_path=ck)
+    # the resumed device window: the interrupted part's (its two waves)
+    # and the resumed part's own
+    parts_s = crashing.device_s + sum(windows)
     with np.errstate(invalid="ignore", divide="ignore"):
         rel = np.abs(spec_res - spec_ref) / np.abs(spec_ref)
     max_rel = float(np.nanmax(np.where(spec_ref == spec_res, 0.0, rel)))
     counts = ("n_recorded", "n_scatt_recorded", "n_tracked", "hot_iters", "n_stall_killed",
-              "n_secondary_dropped")
+              "n_secondary_dropped", "full_phases", "light_phases")
     result = {"phase": "resume", "photon_n": photon_n, "waves": st_ref["waves"],
               "max_rel_spec_diff": max_rel, "seconds": time.monotonic() - t0,
-              **{k: [st_ref[k], st_res[k]] for k in counts}}
+              **{k: [st_ref[k], st_res[k]] for k in counts},
+              "device_s": [st_ref["device_s"], st_res["device_s"], crashing.device_s,
+                           sum(windows)],
+              "elapsed_s": [st_ref["elapsed_s"], st_res["elapsed_s"], crashed_s]}
     print(json.dumps(result))
     if st_ref["waves"] <= 3:
         fail(f"resume: {st_ref['waves']} waves, too few to fail after the second")
@@ -934,6 +985,13 @@ def resume_check(root, photon_n):
         fail(f"resume: counts moved across the resume: {moved}")
     if os.path.exists(ck):
         fail("resume: the completed run left its checkpoint")
+    if not (crashing.device_s > 0.0 and math.isclose(st_res["device_s"], parts_s,
+                                                     rel_tol=1e-9)):
+        fail(f"resume: device_s {st_res['device_s']} is not the sum of its parts, "
+             f"{crashing.device_s} before the failure and {sum(windows)} after")
+    if not st_res["elapsed_s"] >= crashed_s:
+        fail(f"resume: elapsed_s {st_res['elapsed_s']} is below the interrupted part's "
+             f"{crashed_s}")
     return ref, phases_ref
 
 
@@ -1177,8 +1235,9 @@ def main():
     ap.add_argument("--sharded-only", action="store_true",
                     help="phases 1, 2 and 11 alone, then the card line")
     ap.add_argument("--ab-hot-step", metavar="DIR", default=None,
-                    help="phases 1 and 2, then this checkout's float32 hot step against "
-                         "the one of the checkout at DIR, in turns; then the card line")
+                    help="phases 1 and 2, then this checkout's hot step (float32 and "
+                         "float64) against the one of the checkout at DIR, in turns; then "
+                         "the card line")
     ap.add_argument("--f64-only", action="store_true",
                     help="phases 1, 2 and 12 alone (with the float32 run of phase 12b's "
                          "setup), then the card line and the kernels line")
@@ -1228,8 +1287,9 @@ def main():
         print(card)
         return
     if args.ab_hot_step:
-        ab_hot_step(root, make_simulation(root, args.photon_n), args.ab_hot_step, usage,
-                    args.ref_stall_steps)
+        sims = [make_simulation(root, args.photon_n, dtype=dt)
+                for dt in (torch.float32, torch.float64)]
+        ab_hot_step(root, sims, args.ab_hot_step, usage, args.ref_stall_steps)
         print(card)
         return
     if args.f64_only:

@@ -1,12 +1,13 @@
 // The hot step of the transport engine, one hand-written kernel for Hopper
-// (sm_90a): hot_step_kernel<kRef, T>, one thread per photon lane, computing
-// engine.hot_step_plain in float (T = float) or double (T = double).
+// (sm_90a): hot_step_kernel<kRef, T, G, THREADS>, G threads per photon lane
+// in blocks of THREADS, computing engine.hot_step_plain in float (T =
+// float) or double (T = double).
 //
 // It replaces the Pallas kernels grmonty_tpu/transport/hotstep_pallas.py:104
 // `kernel_a` (body engine.hot_phase_a) and hotstep_pallas.py:152 `kernel_b`
 // (body engine.hot_phase_b), and under reference semantics the corner-row
 // gather between them (grmonty_tpu/ops/gather.py:63 `_gather_kernel`).  In
-// one launch each thread runs, for its lane:
+// one launch each lane runs:
 //   1. phase A: the step size, one implicit-midpoint Kerr push with the
 //      closed-form 40-term connection and FP_ITERS fixed-point rounds, the
 //      commit gate, the step control (kRef: the halve/double ladder; else
@@ -24,46 +25,66 @@
 //      capture (engine._capture_events); the lane-slot census and the
 //      hotcross clamp count as warp ballots, a block sum and one 64-bit
 //      integer atomic per counter and block, exact in any order.
-// It writes every pool field once; a lane that rolls back reads its
-// pre-step state from the inputs again.
+// It writes every pool field once (double: the pushed state, then the
+// pre-step state over it on a lane that rolls back, read again from the
+// inputs).
 //
-// What bounds it on an H100 80GB HBM3 at 700 W (float): the pool's 65,536
-// lanes are 2,048 warps, 15.5 an SM, one wave filling a quarter of the warp
-// slots.  A lane moves about 370 B (shipped) or 270 B (reference), rows
-// included: 7.3 and 5.3 us at 3.35 TB/s; it issues about 3,800 float32
-// operations, each multiply and add on its own under -fmad=false, 7.4 us at
-// the 33.5 T instructions/s of the float32 pipes.  It took 24.5 us
-// (shipped) and 20.7 us (reference), bound by instruction issue and latency
-// at that occupancy; in one run beside the three launches it replaces, 26.0
-// and 22.3 us against their 32.6 and 37.3 us (PERF.md).  In double a lane
-// moves twice the bytes (14.6 and 10.6 us) and the float64 pipes issue at
-// half the float32 rate.
+// Float (one thread a lane, 256-thread blocks).  What bounds it on an H100
+// 80GB HBM3 at 700 W: the pool's 65,536 lanes are 2,048 warps, 15.5 an SM,
+// one wave filling a quarter of the warp slots.  A lane moves about 370 B
+// (shipped) or 270 B (reference), rows included: 7.3 and 5.3 us at 3.35
+// TB/s; it issues about 3,800 float32 operations, each multiply and add on
+// its own under -fmad=false, 7.4 us at the 33.5 T instructions/s of the
+// float32 pipes.  It takes 24.2 us (shipped) and 20.6 us (reference),
+// bound by instruction issue and latency at that occupancy.  What the
+// design does: (1) the block stages the 41x31 hotcross surface in shared
+// memory, rows padded to 32, read as 16-byte broadcast loads (eight LDS.128
+// a row); (2) 112 / 106 registers, no spills, __launch_bounds__(256, 2): the
+// whole pool resident in one wave; (3) one launch for the three TPU
+// kernels, the warp fetching its 32 corner rows through a shared-memory
+// stage at an odd pitch; (4) the epilogue's ~25 torch launches inside.
 //
-// What the design does about what held the three launches back:
-//   1. The hotcross sum's 1,271 coefficients: the block stages the 41x31
-//      surface in shared memory, each row padded to 32 values, and a lane
-//      reads a row as 16-byte broadcast loads (eight LDS.128 in float,
-//      sixteen in double): 328 loads a lane in float, not 1,271 LDS.
-//      Constant-bank operands with both loops unrolled load nothing but
-//      make 6,928 instructions a warp and took 52 us (shipped float, against
-//      26 us for this route in the same run); the rolled loop over constant
-//      memory took 39 us, scalar LDS 29 us.
-//   2. Occupancy.  Float: 112 (shipped) and 106 (reference) registers, no
-//      spills, __launch_bounds__(256, 2): the whole pool is resident in one
-//      wave.  Double: a double takes two registers, so under the float
-//      kernel's cap of 128 it would spill; it runs 128-thread blocks under
-//      __launch_bounds__(128, 2), which lifts the cap to 255 and keeps the
-//      block's shared memory (the staged surface and four warps' row
-//      stages) small enough for several blocks an SM.
-//   3. Three launches become one: no per-lane arrays between the phases and
-//      no gathered (N, 32) rows.  The warp fetches its 32 rows together:
-//      neighbouring lanes load one row's 16-byte units into shared memory
-//      (at a pitch of an odd number of units, so that a quarter warp's
-//      reads hit distinct banks, in either type), then each lane reads its
-//      own; 1.2 us faster than each lane loading its own row (float).
-//   4. The epilogue's ~25 torch launches (clamp, capture, six census sums)
-//      are part of the kernel.
-//
+// Double.  What bounds it (same card): a lane moves twice the bytes (14.1
+// and 10.2 us at 65,536 lanes) and its chain of dependent double
+// operations, transcendentals and divisions is long: one lane alone takes
+// about 12 us (a 1-lane launch, 15 us with the launch).  A clock64
+// breakdown (tools/clock_hot_step.py) of the float64 kernel before this
+// design (one warp at 512 lanes, 41,500 cycles) put 16,900 cycles in the
+// hotcross sum (41 serial rows of 31 additions in the shipped order), 4,700
+// in the shipped epilogue's stores (ten loads each behind a store that may
+// alias it), 4,300 in the connection, 4,000 in K2, synch and b_nu and 2,000
+// in the surface's staging; and at 206 registers two 128-thread blocks an
+// SM ran the pool in two waves.  What the design does:
+//   1. The hotcross sum in double is the column form for both variants
+//      (u_j = sum_ix T_ix(tx) c[ix, j], then sum_j u_j T_j(ty)).  At one
+//      thread a lane the warp computes its 32 lanes' u_j as one matrix
+//      product on the FP64 tensor cores (hotcross_mma: 176 m8n8k4 products
+//      a warp, its lanes' T_ix(tx) in a swizzled table in shared memory).
+//      In narrow pools a lane's group of G = 8 threads splits the columns,
+//      4 fused multiply-add chains a thread, its partial sums added by
+//      shuffles (hotcross_group).
+//   2. The launch follows the pool (hot_shape): up to 2,048 lanes (the
+//      cascade's 512, the gate's 1,024) eight threads a lane in 128-thread
+//      blocks; up to 32,768 one thread a lane in 64-thread blocks, four or
+//      more an SM, the launch spread over the SMs; beyond, 256-thread
+//      blocks at two an SM and at most 128 registers, the 65,536 lanes in
+//      one wave.  The crossovers were measured (PERF.md).
+//   3. Registers at one thread a lane: the connection's 40 terms live in
+//      shared memory (LaneSlots), the push reads its pre-step state and
+//      the lane's fields again rather than holding them through the
+//      connection and the fixed-point rounds, metric row 0 and (reference)
+//      the metric pair reuse the connection's transcendentals, and the
+//      pushed state and the event capture are stored before phase B.
+//   4. The surface is copied by cp.async at entry behind phase A; each
+//      thread arrives on a shared-memory barrier once its copies land, and
+//      a warp waits on it only just before the hotcross sum.
+//   5. The stores' pass-through inputs are read before the first store.
+// Measured (PERF.md, same card, in turns with the previous kernel): 42.5 /
+// 32.5 us at 65,536 lanes (from 64.8 / 46.4), 15.3 / 14.9 us at 512 (from
+// 23.6 / 19.5); at 65,536 lanes the reference variant's hotcross sum is
+// 11,600 of a warp's 59,700 cycles, the rest spread over the double
+// connection, rounds, metric pair, K2 and synch.
+
 // Numerics: the arithmetic mirrors the plain torch versions operation by
 // operation in the kernel's type T (same association order, constants
 // folded in double first where the Python expression folds them, then
@@ -73,10 +94,12 @@
 // the scalar's reciprocal in the tensor's type, and a scalar by a tensor as
 // the tensor's reciprocal times the scalar; the kernel uses the same two
 // forms (the inv_* constants, read from PyTorch per type), so that phase
-// A's rounding matches op for op.  The hotcross sum keeps the order of each
-// variant (shipped: s_ix = sum_j c[ix, j] T_j(ty), then sum_ix T_ix(tx)
-// s_ix; reference: u_j = sum_ix T_ix(tx) c[ix, j] as fused multiply-adds,
-// then sum_j u_j T_j(ty)).  The build must not use --use_fast_math: the
+// A's rounding matches op for op.  In float the hotcross sum keeps the order
+// of each variant (shipped: s_ix = sum_j c[ix, j] T_j(ty), then sum_ix
+// T_ix(tx) s_ix; reference: u_j = sum_ix T_ix(tx) c[ix, j] as fused
+// multiply-adds, then sum_j u_j T_j(ty)); in double it is reassociated (the
+// column form, the tensor cores' or the group's partial sums), which moves
+// it by about 1e-16 relative.  The build must not use --use_fast_math: the
 // commit gate and the step controller test isfinite(err), which fast math
 // folds to true, and flushing denormals would zero the fluid-frame
 // frequency of the lowest-energy photons.
@@ -86,7 +109,9 @@
 // array of device pointers in the order of HotPtrs (the Python wrapper in
 // transport/hot_kernels.py lists the same order and checks the counts), an
 // array of double scalars in the order of HotScal, the lane count and the
-// CUDA stream, and returns cudaGetLastError() after the launch.
+// CUDA stream, and returns cudaGetLastError() after the launch; each picks
+// its instance from the lane count (hot_shape), and <entry>_group,
+// <entry>_threads and <entry>_blocks_per_sm give that instance's shape.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -197,8 +222,43 @@ struct AConst {
   int n1, n2, fp_iters;
 };
 
+// A lane's connection coefficients c[m] in shared memory, at a stride of 32
+// values (the warp's lanes side by side, so that a warp's access to one m
+// hits every bank once): the double push keeps them there, not in 80
+// registers, across its fixed-point rounds.
 template <typename T>
-__device__ __forceinline__ void connection(T x1, T x2, const AConst<T> &C, T *c) {
+struct LaneSlots {
+  T *p;
+  __device__ __forceinline__ T &operator[](int m) const { return p[m * 32]; }
+};
+
+// Where the push keeps its connection: registers (float) or the lane's
+// slots in shared memory (double).
+template <bool kShared, typename T>
+__device__ __forceinline__ auto conn_slots(T *regs, T *slots) {
+  if constexpr (kShared)
+    return LaneSlots<T>{slots};
+  else
+    return regs;
+}
+
+// The lane's field at i read again past the push in double (by __ldg, which
+// the compiler does not merge with the first read), so that it holds no
+// register through the push; in float the value held.
+template <bool kAgain, typename T>
+__device__ __forceinline__ T again(const T *p, int i, T held) {
+  if constexpr (kAgain)
+    return __ldg(p + i);
+  else
+    return held;
+}
+
+// The 40 Christoffel terms at (x1, x2) into c; with `keep`, also its
+// transcendentals exp(x1), sin(2 pi x2), cos(2 pi x2), sin(th) and cos(th),
+// from which metric row 0 and the metric pair at (x1, x2) follow.
+template <typename T, typename Out>
+__device__ __forceinline__ void connection(T x1, T x2, const AConst<T> &C, Out c,
+                                           T *keep = nullptr) {
   const T r1 = fm::exp(x1);
   const T r2 = r1 * r1, r3 = r2 * r1, r4 = r3 * r1;
   const T sx = fm::sin(C.two_pi * x2);
@@ -283,10 +343,17 @@ __device__ __forceinline__ void connection(T x1, T x2, const AConst<T> &C, T *c)
   c[37] = C.neg_a * r1 * dth2 * ir2;
   c[38] = dth * (T(0.25) * fac2 * fac2 * cth / sth + a2 * r1 * s2th) * ir22;
   c[39] = (C.neg_a * r1sth2 * rho22 + a3 * sth4 * fac1) * ir23;
+  if (keep) {
+    keep[0] = r1;
+    keep[1] = sx;
+    keep[2] = cx;
+    keep[3] = sth;
+    keep[4] = cth;
+  }
 }
 
-template <typename T>
-__device__ __forceinline__ void geodesic_rhs(const T *c, const T *k, T *dk) {
+template <typename T, typename In>
+__device__ __forceinline__ void geodesic_rhs(const In &c, const T *k, T *dk) {
   const T q[10] = {k[0] * k[0],          T(2.0) * k[0] * k[1],
                    T(2.0) * k[0] * k[2], T(2.0) * k[0] * k[3],
                    k[1] * k[1],          T(2.0) * k[1] * k[2],
@@ -397,19 +464,21 @@ __device__ __forceinline__ T synch(T nu, T n_e, T te, T b, T sin_th, T k2,
 
 // The covariant and contravariant MKS metric at (x1, x2) (geometry.gcov_c,
 // gcon_c): g = (g00, g01, g03, g11, g13, g22, g33), gc = (gc00, gc01, gc11,
-// gc13, gc22, gc33).
+// gc13, gc22, gc33); with `keep`, from the transcendentals that connection()
+// kept at (x1, x2).
 template <typename T>
-__device__ __forceinline__ void metric_pair(T x1, T x2, const BConst<T> &C, T *g, T *gc) {
+__device__ __forceinline__ void metric_pair(T x1, T x2, const BConst<T> &C, T *g, T *gc,
+                                            const T *keep = nullptr) {
   const T eps = T(EPS_D);
-  const T r = fm::exp(x1) + C.r_0;
-  const T th = C.pi * x2 + C.half_1mh * fm::sin(C.two_pi * x2);
-  const T sth = fm::fabs(fm::sin(th)) + eps;
-  const T cth = fm::cos(th);
+  const T r = (keep ? keep[0] : fm::exp(x1)) + C.r_0;
+  const T th = C.pi * x2 + C.half_1mh * (keep ? keep[1] : fm::sin(C.two_pi * x2));
+  const T sth = fm::fabs(keep ? keep[3] : fm::sin(th)) + eps;
+  const T cth = keep ? keep[4] : fm::cos(th);
   const T s2 = sth * sth;
   const T rho2 = r * r + C.a2 * cth * cth;
   const T tworr = T(2.0) * r / rho2;
   const T rfac = r - C.r_0;
-  const T hfac = C.pi * (T(1.0) + C.one_mh * fm::cos(C.two_pi * x2));
+  const T hfac = C.pi * (T(1.0) + C.one_mh * (keep ? keep[2] : fm::cos(C.two_pi * x2)));
   g[0] = T(-1.0) + tworr;
   g[1] = tworr * rfac;
   g[2] = C.neg_a * s2 * tworr;
@@ -462,19 +531,23 @@ __device__ __forceinline__ void four_vectors(const T *pr, const T *g, const T *g
 // the fused hot step
 // ---------------------------------------------------------------------------
 
-// The launch of each type: float, 256-thread blocks at two an SM at least
-// (registers capped at 128); double, 128-thread blocks (registers capped at
-// 255: a double takes two).
-template <typename T> struct Launch;
-template <> struct Launch<float> { static constexpr int threads = 256, min_blocks = 2; };
-template <> struct Launch<double> { static constexpr int threads = 128, min_blocks = 2; };
+// The least blocks an SM of an instance in blocks of THREADS, which caps
+// its registers: two of 256 threads (at most 128 registers: float, and
+// double at the pool's width, whose 65,536 lanes then run in one wave);
+// two of 128 or four of 64 (up to 255: double's narrower pools).
+__host__ __device__ constexpr int min_blocks(int threads) { return threads >= 128 ? 2 : 4; }
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int HC_PITCH = 32;  // a staged coefficient row: 31 values and a pad
+// Double stages the surface as HC_ROWS_D rows (three of zeros, so that the
+// matrix products' k runs in steps of 4) of HC_PITCH_D values (31, then
+// zeros; 36 = 4 mod 16, so that a warp's operand loads hit distinct banks),
+// then one unit for the barrier its copies arrive on.
+constexpr int HC_ROWS_D = 44, HC_PITCH_D = 36, HC_SURF_UNITS_D = HC_ROWS_D * HC_PITCH_D / 2;
 // 16-byte units of the staged surface
 template <typename T>
 __host__ __device__ constexpr int hc_units() {
-  return HC_NX * HC_PITCH * (int)sizeof(T) / 16;
+  return sizeof(T) == 8 ? HC_SURF_UNITS_D + 1 : HC_NX * HC_PITCH * (int)sizeof(T) / 16;
 }
 
 // T_ix(tx) by the recurrence, ix = 0, 1, 2, ... in turn.
@@ -542,6 +615,151 @@ __device__ __forceinline__ T hotcross(T w, T te, const BConst<T> &C,
   const T cold = hc_klein_nishina(w) * T(SIGMA_T_D);
   const T out = (te < T(1.0e-4)) ? cold : interp;
   return (w * te < T(1.0e-6)) ? T(SIGMA_T_D) : out;
+}
+
+// sigma_hot from the Chebyshev sum acc (double): the Klein-Nishina cold
+// limit only on the lanes that take it, the Thomson limit.
+__device__ __forceinline__ double hotcross_out(double acc, double w, double te) {
+  const double interp = fm::exp(acc * 2.302585092994046);
+  double out = interp;
+  if (te < 1.0e-4) out = hc_klein_nishina(w) * SIGMA_T_D;
+  return (w * te < 1.0e-6) ? SIGMA_T_D : out;
+}
+
+// One m8n8k4 product of doubles on the tensor cores, d += a b, a warp's
+// fragments (PTX mma.m8n8k4 .f64: a = A[lane / 4][lane % 4], b = B[lane %
+// 4][lane / 4], d = D[lane / 4][2 (lane % 4) + 0, 1]).
+__device__ __forceinline__ void dmma(double &d0, double &d1, double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+               : "+d"(d0), "+d"(d1)
+               : "d"(a), "d"(b));
+}
+
+// The double hotcross at one thread a lane, the warp's 32 lanes together:
+// u_j = sum_ix T_ix(tx) c[ix, j] for all of them as one matrix product on
+// the tensor cores, U^T (32 columns x 32 lanes) = C^T (32 x 44) T^T (44 x 32
+// lanes), in 4 x 4 tiles of 8 x 8 over 11 steps of k = 4: 176 products a
+// warp where the lanes' own sums take 1,271 fused multiply-adds each.  Each
+// lane writes its T_ix(tx), ix < 44, into its row of `tt` (the warp's
+// region, 44 values a lane), the products read them as B (without bank
+// conflicts), the staged surface (HC_PITCH_D) as A, and each tile of 8
+// lanes' u_j overwrites those lanes' rows once their last B is read; then
+// each lane sums u_j T_j(ty) in j order (the reference variant's).
+__device__ __forceinline__ double hotcross_mma(double w, double te, const BConst<double> &C,
+                                               const double *hs, double *tt, int lane) {
+  const double l_w = jclip(fm::log10(jmax(w, 1e-30)), C.hc_xlo, C.hc_xhi);
+  const double l_t = jclip(fm::log10(jmax(te, 1e-30)), C.hc_ylo, C.hc_yhi);
+  const double tx = (2.0 * l_w - C.hc_xsum) * C.inv_hc_xdiff;
+  const double ty = (2.0 * l_t - C.hc_ysum) * C.inv_hc_ydiff;
+  double *row = tt + lane * HC_ROWS_D;
+  __syncwarp();  // every lane's row read from the stage before the table lands on it
+  {
+    double tm2 = 1.0, tm1 = tx;
+#pragma unroll
+    for (int ix = 0; ix < HC_ROWS_D; ++ix) row[ix] = cheb_next(ix, tx, tm1, tm2);
+  }
+  __syncwarp();
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll 1
+  for (int nt = 0; nt < 4; ++nt) {  // the tile's lanes: 8 nt + [0, 8)
+    double d[4][2] = {};  // tile mt: the columns 8 mt + [0, 8)
+#pragma unroll
+    for (int ks = 0; ks < HC_ROWS_D / 4; ++ks) {
+      const double b = tt[(8 * nt + g) * HC_ROWS_D + 4 * ks + q];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        dmma(d[mt][0], d[mt][1], hs[(4 * ks + q) * HC_PITCH_D + 8 * mt + g], b);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {  // lanes 8 nt + 2 q + (0, 1), column 8 mt + g
+      tt[(8 * nt + 2 * q) * HC_ROWS_D + 8 * mt + g] = d[mt][0];
+      tt[(8 * nt + 2 * q + 1) * HC_ROWS_D + 8 * mt + g] = d[mt][1];
+    }
+  }
+  __syncwarp();
+  double acc = 0.0, bm2 = 1.0, bm1 = ty;
+#pragma unroll
+  for (int j = 0; j < HC_NY; ++j) acc += row[j] * cheb_next(j, ty, bm1, bm2);
+  return hotcross_out(acc, w, te);
+}
+
+// The double hotcross at G > 1 threads a lane: u_j = sum_ix T_ix(tx)
+// c[ix, j] as one fused multiply-add chain in ix order, then sum_j u_j
+// T_j(ty), with the columns split over the lane's group: thread `sub` takes
+// the 32 / G columns from sub * 32 / G (the pad column's coefficients are
+// zeros), every row's loads in flight at once, and the group's partial sums
+// are added by butterfly shuffles in a fixed order, so that every thread of
+// the group holds the same total.
+template <int G>
+__device__ __forceinline__ double hotcross_group(double w, double te, const BConst<double> &C,
+                                                 const double2 *hs, int sub) {
+  static_assert(G > 1 && HC_PITCH % (2 * G) == 0, "an even share of the columns a thread");
+  constexpr int COLS = HC_PITCH / G;
+  const double l_w = jclip(fm::log10(jmax(w, 1e-30)), C.hc_xlo, C.hc_xhi);
+  const double l_t = jclip(fm::log10(jmax(te, 1e-30)), C.hc_ylo, C.hc_yhi);
+  const double tx = (2.0 * l_w - C.hc_xsum) * C.inv_hc_xdiff;
+  const double ty = (2.0 * l_t - C.hc_ysum) * C.inv_hc_ydiff;
+  double ty_j[COLS], u[COLS];  // T_j(ty) and u_j of this thread's columns
+  {
+    double bm2 = 1.0, bm1 = ty;
+#pragma unroll
+    for (int j = 0; j < HC_PITCH; ++j) {
+      const double t = cheb_next(j, ty, bm1, bm2);
+      if (j / COLS == sub) ty_j[j % COLS] = t;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < COLS; ++k) u[k] = 0.0;
+  double tm2 = 1.0, tm1 = tx;
+#pragma unroll
+  for (int ix = 0; ix < HC_NX; ++ix) {
+    const double t = cheb_next(ix, tx, tm1, tm2);
+    double c[COLS];
+#pragma unroll
+    for (int q = 0; q < COLS / 2; ++q)
+      Vec16<double>::unpack(hs[ix * (HC_PITCH_D / 2) + sub * (COLS / 2) + q], c + 2 * q);
+#pragma unroll
+    for (int k = 0; k < COLS; ++k) u[k] = fm::fma_rn(t, c[k], u[k]);
+  }
+  double acc = 0.0;
+#pragma unroll
+  for (int k = 0; k < COLS; ++k) acc += u[k] * ty_j[k];
+#pragma unroll
+  for (int s = 1; s < G; s <<= 1) acc += __shfl_xor_sync(FULL, acc, s);
+  return hotcross_out(acc, w, te);
+}
+
+// A copy of 8 bytes from global into shared memory that runs behind the
+// thread (cp.async; `zero`: 8 zero bytes, nothing read), the thread's
+// arrival on a shared-memory barrier once its copies have landed, and the
+// wait for the barrier's first phase: a warp that reaches the wait after
+// every copy landed passes at once, whatever the other warps are doing.
+__device__ __forceinline__ void cp_async8(void *dst, const void *src, bool zero) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(zero ? 0 : 8)
+               : "memory");
+}
+__device__ __forceinline__ void barrier_init(unsigned long long *bar, int count) {
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(b), "r"(count) : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(unsigned long long *bar) {
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(b) : "memory");
+}
+__device__ __forceinline__ void barrier_wait(unsigned long long *bar) {
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b)
+        : "memory");
+  } while (!done);
 }
 
 // A lane's corner row, the W values at table[z * W], into row[], fetched by
@@ -613,40 +831,68 @@ struct HotScal {  // order = hot_kernels._HOT_SCAL
 };
 constexpr int HOT_NSCAL = sizeof(HotScal) / sizeof(double);
 
+// A warp's region of shared memory after the staged surface, in 16-byte
+// units: its 32 row stages (at an odd pitch), in double also the 40
+// connection coefficients of its lanes (LaneSlots), which it holds first.
+template <bool kRef, typename T>
+__host__ __device__ constexpr int warp_units() {
+  constexpr int units = ((kRef ? RAW_W : ROW_W) * (int)sizeof(T) / 16 | 1) * 32;
+  // double: the connection's 40 values a lane, then the hotcross's 44
+  constexpr int held = sizeof(T) == 8 ? HC_ROWS_D * 32 * 8 / 16 : 0;
+  return units > held ? units : held;
+}
+
 // kRef = false: the shipped profile (kernel A's step control and optical
 // depth cap, the derived 44-wide row from hot_tab, the dl_shrink clamp and
 // the detached-event capture); kRef = true: reference semantics (the
 // ladder, the raw 32-wide row from corner_rows through the metric pair, no
-// clamp, no capture).  Lanes at or past n compute lane n - 1 and store
+// clamp, no capture).  G threads share a lane (G > 1 in double only): they
+// run it alike, but for their share of the hotcross sum, and the first of
+// them stores and counts.  Lanes at or past n compute lane n - 1 and store
 // nothing, so that every lane of a warp reaches its shuffles and ballots.
-template <bool kRef, typename T>
-__host__ __device__ constexpr int smem_bytes() {  // the staged surface, the warps' row stages
-  constexpr int units = (kRef ? RAW_W : ROW_W) * (int)sizeof(T) / 16;
-  return 16 * (hc_units<T>() + Launch<T>::threads / 32 * 32 * (units | 1));
+template <bool kRef, typename T, int THREADS>
+__host__ __device__ constexpr int smem_bytes() {  // the staged surface, the warps' regions
+  return 16 * (hc_units<T>() + THREADS / 32 * warp_units<kRef, T>());
 }
 
-template <bool kRef, typename T>
-__global__ void __launch_bounds__(Launch<T>::threads, Launch<T>::min_blocks)
+template <bool kRef, typename T, int G, int THREADS>
+__global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
     hot_step_kernel(const HotPtrs<T> P, const AConst<T> CA, const BConst<T> CB, int n) {
   using V = typename Vec16<T>::type;
-  constexpr int THREADS = Launch<T>::threads;
+  constexpr bool kD = sizeof(T) == 8;
   constexpr int W = kRef ? RAW_W : ROW_W, M = kRef ? RAW_NC : NC;
-  constexpr int PITCH = (W / Vec16<T>::n) | 1;
-  extern __shared__ float4 smem[];  // smem_bytes<kRef, T>()
+  constexpr int WPITCH = warp_units<kRef, T>() / 32;  // a warp's region, 32 rows of this
+  extern __shared__ float4 smem[];  // smem_bytes<kRef, T, THREADS>()
   __shared__ unsigned census[5];
   const V *hs = reinterpret_cast<const V *>(smem);
   V *stage = reinterpret_cast<V *>(smem) + hc_units<T>();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int i0 = blockIdx.x * THREADS + threadIdx.x;
-  const bool valid = i0 < n;
-  const int i = valid ? i0 : n - 1;
+  const int i0 = blockIdx.x * (THREADS / G) + threadIdx.x / G;
+  const int sub = threadIdx.x % G;  // this thread's place in its lane's group
+  const bool valid = i0 < n && sub == 0;  // the thread that stores and counts
+  const int i = i0 < n ? i0 : n - 1;
   const T eps = T(EPS_D);
   if (threadIdx.x < 5) census[threadIdx.x] = 0u;
-  for (int t = threadIdx.x; t < HC_NX * HC_PITCH; t += THREADS) {
-    const int ix = t / HC_PITCH, j = t - ix * HC_PITCH;
-    reinterpret_cast<T *>(smem)[t] = j < HC_NY ? __ldg(P.hc + ix * HC_NY + j) : T(0.0);
+  // double: the surface's copies run behind phase A; each thread arrives on
+  // the barrier after the surface once its own have landed
+  unsigned long long *const hc_bar = reinterpret_cast<unsigned long long *>(
+      reinterpret_cast<V *>(smem) + HC_SURF_UNITS_D);
+  if constexpr (kD) {
+    if (threadIdx.x == 0) barrier_init(hc_bar, THREADS);
+    __syncthreads();
+    for (int t = threadIdx.x; t < HC_ROWS_D * HC_PITCH_D; t += THREADS) {
+      const int ix = t / HC_PITCH_D, j = t - ix * HC_PITCH_D;
+      const bool pad = ix >= HC_NX || j >= HC_NY;
+      cp_async8(reinterpret_cast<T *>(smem) + t, P.hc + (pad ? 0 : ix * HC_NY + j), pad);
+    }
+    cp_async_arrive(hc_bar);
+  } else {
+    for (int t = threadIdx.x; t < HC_NX * HC_PITCH; t += THREADS) {
+      const int ix = t / HC_PITCH, j = t - ix * HC_PITCH;
+      reinterpret_cast<T *>(smem)[t] = j < HC_NY ? __ldg(P.hc + ix * HC_NY + j) : T(0.0);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // ---- phase A (engine.hot_phase_a) ----
   T x[4] = {P.x0[i], P.x1[i], P.x2[i], P.x3[i]};
@@ -674,24 +920,48 @@ __global__ void __launch_bounds__(Launch<T>::threads, Launch<T>::min_blocks)
   // one implicit-midpoint attempt (harm_model.cpp:1217-1289)
   const T dl_2 = T(0.5) * seg;
   T k_half[4], k_pred[4], x_new[4];
+  if constexpr (kD) {  // the midpoint's (x1, x2) alone before the connection
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    k_half[m] = k[m] + dk[m] * dl_2;
-    k_pred[m] = k_half[m] + dk[m] * dl_2;
-    x_new[m] = x[m] + k_half[m] * seg;
+    for (int m = 1; m < 3; ++m) x_new[m] = x[m] + (k[m] + dk[m] * dl_2) * seg;
+  } else {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      k_half[m] = k[m] + dk[m] * dl_2;
+      k_pred[m] = k_half[m] + dk[m] * dl_2;
+      x_new[m] = x[m] + k_half[m] * seg;
+    }
   }
-  T conn[40];
-  connection(x_new[1], x_new[2], CA, conn);
-  // metric row 0 at x_new
-  const T r = fm::exp(x_new[1]) + CA.r_0;
-  const T th = CA.pi * x_new[2] + CA.half_1mh * fm::sin(CA.two_pi * x_new[2]);
-  const T sth = fm::fabs(fm::sin(th)) + eps;
-  const T cth = fm::cos(th);
-  const T rho2 = r * r + CA.a2 * cth * cth;
-  const T tworr = T(2.0) * r / rho2;
-  const T g00 = T(-1.0) + tworr;
-  const T g01 = tworr * (r - CA.r_0);
-  const T g03 = CA.neg_a * sth * sth * tworr;
+  T conn_regs[kD ? 1 : 40];
+  const auto conn = conn_slots<kD>(
+      conn_regs, reinterpret_cast<T *>(stage + warp * 32 * WPITCH) + lane);
+  T keep[5];  // double: the connection's transcendentals at x_new
+  connection(x_new[1], x_new[2], CA, conn, kD ? keep : nullptr);
+  if constexpr (kD) {  // the rest of the push from the pre-step state read again
+    const T *const xs[4] = {P.x0, P.x1, P.x2, P.x3}, *const ks[4] = {P.k0, P.k1, P.k2, P.k3};
+    const T *const ds[4] = {P.d0, P.d1, P.d2, P.d3};
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      x[m] = __ldg(xs[m] + i);
+      k[m] = __ldg(ks[m] + i);
+      dk[m] = __ldg(ds[m] + i);
+      k_half[m] = k[m] + dk[m] * dl_2;
+      k_pred[m] = k_half[m] + dk[m] * dl_2;
+      x_new[m] = x[m] + k_half[m] * seg;
+    }
+  }
+  // metric row 0 at x_new (double: after the push, from the connection's values)
+  T g00, g01, g03;
+  if constexpr (!kD) {
+    const T r = fm::exp(x_new[1]) + CA.r_0;
+    const T th = CA.pi * x_new[2] + CA.half_1mh * fm::sin(CA.two_pi * x_new[2]);
+    const T sth = fm::fabs(fm::sin(th)) + eps;
+    const T cth = fm::cos(th);
+    const T rho2 = r * r + CA.a2 * cth * cth;
+    const T tworr = T(2.0) * r / rho2;
+    g00 = T(-1.0) + tworr;
+    g01 = tworr * (r - CA.r_0);
+    g03 = CA.neg_a * sth * sth * tworr;
+  }
 
   T err = T(0.0);
   T dk_new[4] = {dk[0], dk[1], dk[2], dk[3]};
@@ -708,11 +978,38 @@ __global__ void __launch_bounds__(Launch<T>::threads, Launch<T>::min_blocks)
 #pragma unroll
     for (int m = 0; m < 4; ++m) k_pred[m] = k_next[m];
   }
+  if constexpr (kD) {
+    const T r = keep[0] + CA.r_0;
+    const T sth = fm::fabs(keep[3]) + eps;
+    const T cth = keep[4];
+    const T rho2 = r * r + CA.a2 * cth * cth;
+    const T tworr = T(2.0) * r / rho2;
+    g00 = T(-1.0) + tworr;
+    g01 = tworr * (r - CA.r_0);
+    g03 = CA.neg_a * sth * sth * tworr;
+  }
+  // the lane's fields past the push
+  const T e_0_s_p = again<kD>(P.e_0_s, i, e_0_s);
+  const T dl_shrink_p = again<kD>(P.dl_shrink, i, dl_shrink);
+  const T pend_dl_p = again<kD>(P.pend_dl, i, pend_dl), w_p = again<kD>(P.w, i, w);
+  const T alpha_scatti_p = again<kD>(P.alpha_scatti, i, alpha_scatti);
+  const T alpha_absi_p = again<kD>(P.alpha_absi, i, alpha_absi), bi_p = again<kD>(P.bi, i, bi);
+  const bool record_pending_p = again<kD>(P.record_pending, i, (u8)record_pending);
+  const T sec_w_p = kD ? P.sec_w[i] : T(0.0);  // float reads it at its use
   const T e_1 = -(k_pred[0] * g00 + k_pred[1] * g01 + k_pred[3] * g03);
-  const T err_e = fm::fabs((e_1 - e_0_s) / (e_0_s + eps));
+  const T err_e = fm::fabs((e_1 - e_0_s_p) / (e_0_s_p + eps));
   const bool bad = (err_e > T(1.0e-4)) || (err > T(1.0e-3)) || !isfinite(err);
   const bool commit = act && (!bad || at_floor);
-  if (commit) {
+  if constexpr (kD) {  // the pre-step state read again, not held through the push
+    const T *const xs[4] = {P.x0, P.x1, P.x2, P.x3}, *const ks[4] = {P.k0, P.k1, P.k2, P.k3};
+    const T *const ds[4] = {P.d0, P.d1, P.d2, P.d3};
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      x[m] = commit ? x_new[m] : __ldg(xs[m] + i);
+      k[m] = commit ? k_pred[m] : __ldg(ks[m] + i);
+      dk[m] = commit ? dk_new[m] : __ldg(ds[m] + i);
+    }
+  } else if (commit) {
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       x[m] = x_new[m];
@@ -720,38 +1017,38 @@ __global__ void __launch_bounds__(Launch<T>::threads, Launch<T>::min_blocks)
       dk[m] = dk_new[m];
     }
   }
-  const T e0sn = commit ? e_1 : e_0_s;
+  const T e0sn = commit ? e_1 : e_0_s_p;
   const T err_r = jmax(err * CA.inv_e_tol, err_e * CA.inv_e_drift_tol);
 
   T dl_shrink_n;
   if constexpr (kRef) {  // halve a failed attempt, else double
-    dl_shrink_n = (act && !commit) ? jmax(dl_shrink * T(0.5), CA.shrink_floor)
-                                   : jmin(dl_shrink * T(2.0), CA.grow_cap);
+    dl_shrink_n = (act && !commit) ? jmax(dl_shrink_p * T(0.5), CA.shrink_floor)
+                                   : jmin(dl_shrink_p * T(2.0), CA.grow_cap);
   } else {  // error-proportional step control: fac = safety / sqrt(err), clamped
     T err_eff = isfinite(err_r) ? err_r : T(1.0e12);
     if (!act) err_eff = T(1.0e-12);  // idle lanes re-grow
     const T fac =
         jclip(CA.step_ctrl * fm::rsqrt(jmax(err_eff, T(1.0e-12))), T(0.25), T(2.0));
-    dl_shrink_n = jclip(dl_shrink * fac, CA.shrink_floor, CA.grow_cap);
+    dl_shrink_n = jclip(dl_shrink_p * fac, CA.shrink_floor, CA.grow_cap);
   }
 
-  const T pend_rem = (pend_push && commit) ? pend_dl - seg : pend_dl;
+  const T pend_rem = (pend_push && commit) ? pend_dl_p - seg : pend_dl_p;
   const bool arrived = moving && pend_push && commit && (pend_rem <= T(0.0));
 
   // stop criterion + roulette (harm_model.cpp:1589-1616)
   const bool checkable = (moving && commit && !arrived) || (moving && !act);
   const bool horizon = x[1] < CA.x1_min;
   const bool escaped = x[1] > T(4.605170185988092);  // ln R_MAX
-  const bool small = w < CA.weight_min;
+  const bool small = w_p < CA.weight_min;
   const bool win = P.u_roul[i] <= T(1.0 / 1.0e4);
-  const T w_roul = win ? w * T(1.0e4) : T(0.0);
-  const T w_a = (checkable && small && !horizon) ? w_roul : w;
+  const T w_roul = win ? w_p * T(1.0e4) : T(0.0);
+  const T w_a = (checkable && small && !horizon) ? w_roul : w_p;
   const bool killed_inside = checkable && small && !horizon && !escaped && !win;
   const bool stopped = checkable && (horizon || escaped || killed_inside);
   const bool record = checkable && escaped && !horizon;
   const bool pend_push_a = pend_push && !arrived, at_event_a = at_event || arrived;
   const bool alive_a = alive && !stopped;
-  const bool grown = !pend_push && (dl_shrink > T(1.0));
+  const bool grown = !pend_push && (dl_shrink_p > T(1.0));
 
   // bilinear cell (harm_model.cpp:1406-1434)
   const T fia = fm::floor((x[1] - CA.x_start1) * CA.inv_dx1 - T(0.5));
@@ -760,9 +1057,44 @@ __global__ void __launch_bounds__(Launch<T>::threads, Launch<T>::min_blocks)
   const int jj = (int)fm::fmin(fm::fmax(fja, T(0.0)), T(CA.n2 - 2));
   const int z = ii * CA.n2 + jj;
 
+  // Double stores the pushed state now (a rollback below writes the
+  // pre-step state over it) and, in the shipped profile, the detached-event
+  // capture, which reads nothing of phase B (an arriving lane neither
+  // scatters nor rolls back): none of it holds registers through phase B.
+  // The registers the capture passes on are read before the first store (a
+  // load after a store that may alias it waits for it).
+  bool ev_pending_a = false, pdie_a = false, capt_a = false;
+  if constexpr (kD) {
+    T ev[9];
+    if constexpr (!kRef) {
+      ev_pending_a = P.ev_pending[i];
+      pdie_a = arrived && ((k[0] > T(1.0e5)) || (k[0] < T(0.0)) || isnan(k[0]) ||
+                           isnan(k[1]) || isnan(k[3]));
+      capt_a = arrived && !ev_pending_a && !pdie_a;
+      const T *const evs[9] = {P.ev_x0, P.ev_x1, P.ev_x2, P.ev_x3, P.ev_k0,
+                               P.ev_k1, P.ev_k2, P.ev_k3, P.ev_w};
+      const T took[9] = {x[0], x[1], x[2], x[3], k[0], k[1], k[2], k[3], sec_w_p};
+#pragma unroll
+      for (int m = 0; m < 9; ++m) ev[m] = capt_a ? took[m] : evs[m][i];
+    }
+    if (valid) {
+      P.ox0[i] = x[0]; P.ox1[i] = x[1]; P.ox2[i] = x[2]; P.ox3[i] = x[3];
+      P.ok0[i] = k[0]; P.ok1[i] = k[1]; P.ok2[i] = k[2]; P.ok3[i] = k[3];
+      P.od0[i] = dk[0]; P.od1[i] = dk[1]; P.od2[i] = dk[2]; P.od3[i] = dk[3];
+      P.oe_0_s[i] = e0sn;
+      if constexpr (!kRef) {
+        P.oev_x0[i] = ev[0]; P.oev_x1[i] = ev[1]; P.oev_x2[i] = ev[2]; P.oev_x3[i] = ev[3];
+        P.oev_k0[i] = ev[4]; P.oev_k1[i] = ev[5]; P.oev_k2[i] = ev[6]; P.oev_k3[i] = ev[7];
+        P.oev_w[i] = ev[8];
+        P.oev_pending[i] = ev_pending_a || capt_a;
+      }
+    }
+  }
+
   // ---- the corner row at z: derived (fluid.blend_derived) or raw (fluid.blend_raw) ----
   T row[W];
-  fetch_row<W>(P.table, z, lane, stage + warp * 32 * PITCH, row);
+  if constexpr (kD) __syncwarp();  // every lane's connection read before the rows land on it
+  fetch_row<W>(P.table, z, lane, stage + warp * 32 * WPITCH, row);
 
   // ---- phase B (engine.hot_phase_b) ----
   bool inter = moving && commit && !pend_push && !stopped;
@@ -790,7 +1122,10 @@ __global__ void __launch_bounds__(Launch<T>::threads, Launch<T>::min_blocks)
     n_e = inside ? pr[0] * CB.n_e_unit : T(0.0);
     te = pr[1] / pr[0] * CB.theta_e_unit;
     T g[7], gc[6];
-    metric_pair(x1, x2, CB, g, gc);
+    // double: from the connection's transcendentals at x_new, which equal
+    // those at x on every lane whose push committed; phase B's values count
+    // on those lanes alone (an uncommitted lane does not interact)
+    metric_pair(x1, x2, CB, g, gc, kD ? keep : nullptr);
     four_vectors(pr, g, gc, CB, u_cov, b_cov, &b_mag);
   } else {
     n_e = inside ? pr[0] : T(0.0);
@@ -813,7 +1148,18 @@ __global__ void __launch_bounds__(Launch<T>::threads, Launch<T>::min_blocks)
   const bool bound = n_e == T(0.0);
   const T nu_safe = fm::fabs(nu) + eps;
   const T e_g = T(HPL_D) * nu_safe * CB.inv_mecc;
-  const T a_scf = nu_safe * hotcross<kRef>(e_g, te, CB, hs) * n_e;
+  T sigma;
+  if constexpr (kD) {
+    barrier_wait(hc_bar);
+    if constexpr (G == 1)
+      sigma = hotcross_mma(e_g, te, CB, reinterpret_cast<const T *>(smem),
+                           reinterpret_cast<T *>(stage + warp * 32 * WPITCH), lane);
+    else
+      sigma = hotcross_group<G>(e_g, te, CB, hs, sub);
+  } else {
+    sigma = hotcross<kRef>(e_g, te, CB, hs);
+  }
+  const T a_scf = nu_safe * sigma * n_e;
   const bool hc_thomson = e_g * te < T(1.0e-6), hc_cold = te < T(1.0e-4);
   const bool hc_hit = !hc_thomson && !hc_cold &&
                       ((e_g <= T(1.0e-12)) || (e_g >= T(1.0e6)) || (te <= T(1.0e-4)) ||
@@ -828,19 +1174,20 @@ __global__ void __launch_bounds__(Launch<T>::threads, Launch<T>::min_blocks)
   // vacuum -> matter entry rollback of grown steps
   bool entry_roll = false;
   if constexpr (!kRef) {
-    entry_roll = inter && grown && !dead_branch && (alpha_scatti <= T(0.0)) &&
-                 (alpha_absi <= T(0.0)) && (n_e > T(0.0));
+    entry_roll = inter && grown && !dead_branch && (alpha_scatti_p <= T(0.0)) &&
+                 (alpha_absi_p <= T(0.0)) && (n_e > T(0.0));
     inter = inter && !entry_roll;
   }
 
   const T half = CB.half_dtk * seg;
-  const T d_tau_scatt = dead_branch ? alpha_scatti * half : (alpha_scatti + a_scf) * half;
-  const T d_tau_abs = dead_branch ? alpha_absi * half : (alpha_absi + a_abf) * half;
-  const T bias = dead_branch ? T(0.0) : T(0.5) * (bi + bf);
+  const T d_tau_scatt =
+      dead_branch ? alpha_scatti_p * half : (alpha_scatti_p + a_scf) * half;
+  const T d_tau_abs = dead_branch ? alpha_absi_p * half : (alpha_absi_p + a_abf) * half;
+  const T bias = dead_branch ? T(0.0) : T(0.5) * (bi_p + bf);
 
-  const T alpha_scatti_b = inter ? (dead_branch ? T(0.0) : a_scf) : alpha_scatti;
-  const T alpha_absi_b = inter ? (dead_branch ? T(0.0) : a_abf) : alpha_absi;
-  const T bi_b = inter ? (dead_branch ? T(0.0) : bf) : bi;
+  const T alpha_scatti_b = inter ? (dead_branch ? T(0.0) : a_scf) : alpha_scatti_p;
+  const T alpha_absi_b = inter ? (dead_branch ? T(0.0) : a_abf) : alpha_absi_p;
+  const T bi_b = inter ? (dead_branch ? T(0.0) : bf) : bi_p;
 
   const T x1r = -fm::log(P.u_x1[i] + T(1e-30));
   const T sec_w_new = w_a / jmax(bias, eps);
@@ -868,7 +1215,7 @@ __global__ void __launch_bounds__(Launch<T>::threads, Launch<T>::min_blocks)
     ko[0] = P.k0[i]; ko[1] = P.k1[i]; ko[2] = P.k2[i]; ko[3] = P.k3[i];
     dko[0] = P.d0[i]; dko[1] = P.d1[i]; dko[2] = P.d2[i]; dko[3] = P.d3[i];
     e0so = P.e_0_s[i];
-  } else {
+  } else if constexpr (!kD) {  // double stored these after phase A
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       xo[m] = x[m];
@@ -877,22 +1224,39 @@ __global__ void __launch_bounds__(Launch<T>::threads, Launch<T>::min_blocks)
     }
     e0so = e0sn;
   }
-  const T sec_w_b = roll ? sec_w_new : P.sec_w[i];
+  const T sec_w_b = roll ? sec_w_new : (kD ? sec_w_p : P.sec_w[i]);
   const bool alive_b = alive_a && !absorbed && !over;
   const T w_b = live ? w_a * decay : w_a;
   const bool hc_clamp = hc_hit && inter;
 
   // ---- the epilogue: dl_shrink clamp, detached-event capture (engine._capture_events) ----
+  // In double the inputs that the stores pass on are read before the first
+  // store, in one round trip: a load after a store that may alias it waits
+  // for it, one round trip each.
+  T tau_abs_in, tau_scatt_in;
+  bool interacting_in;
+  if constexpr (kD) {
+    tau_abs_in = P.tau_abs[i];
+    tau_scatt_in = P.tau_scatt[i];
+    interacting_in = P.interacting[i];
+  }
   T dl_shrink_o = dl_shrink_n, w_o = w_b;
   T alpha_scatti_o = alpha_scatti_b, alpha_absi_o = alpha_absi_b, bi_o = bi_b;
   bool at_event_o = at_event_a, alive_o = alive_b, occupied_o = P.occupied[i];
   if constexpr (!kRef) {
     const bool tau_over = inter && (jmax(d_tau_scatt, d_tau_abs) > CB.tau_cap);
     if (tau_over || entry_roll) dl_shrink_o = jmin(dl_shrink_n, T(1.0));
-    const bool ev_pending = P.ev_pending[i];
-    const bool pdie = arrived && ((ko[0] > T(1.0e5)) || (ko[0] < T(0.0)) || isnan(ko[0]) ||
-                                  isnan(ko[1]) || isnan(ko[3]));
-    const bool capt = arrived && !ev_pending && !pdie;
+    bool ev_pending, pdie, capt;
+    if constexpr (kD) {
+      ev_pending = ev_pending_a;
+      pdie = pdie_a;
+      capt = capt_a;
+    } else {
+      ev_pending = P.ev_pending[i];
+      pdie = arrived && ((ko[0] > T(1.0e5)) || (ko[0] < T(0.0)) || isnan(ko[0]) ||
+                         isnan(ko[1]) || isnan(ko[3]));
+      capt = arrived && !ev_pending && !pdie;
+    }
     const bool neg = nu < T(0.0);
     at_event_o = at_event_a && !capt && !pdie;
     alive_o = alive_b && !pdie;
@@ -904,41 +1268,46 @@ __global__ void __launch_bounds__(Launch<T>::threads, Launch<T>::min_blocks)
       bi_o = bf;
     }
     if (valid) {
-      P.oev_x0[i] = capt ? xo[0] : P.ev_x0[i];
-      P.oev_x1[i] = capt ? xo[1] : P.ev_x1[i];
-      P.oev_x2[i] = capt ? xo[2] : P.ev_x2[i];
-      P.oev_x3[i] = capt ? xo[3] : P.ev_x3[i];
-      P.oev_k0[i] = capt ? ko[0] : P.ev_k0[i];
-      P.oev_k1[i] = capt ? ko[1] : P.ev_k1[i];
-      P.oev_k2[i] = capt ? ko[2] : P.ev_k2[i];
-      P.oev_k3[i] = capt ? ko[3] : P.ev_k3[i];
-      P.oev_w[i] = capt ? sec_w_b : P.ev_w[i];
-      P.oev_pending[i] = ev_pending || capt;
+      if constexpr (!kD) {
+        P.oev_x0[i] = capt ? xo[0] : P.ev_x0[i];
+        P.oev_x1[i] = capt ? xo[1] : P.ev_x1[i];
+        P.oev_x2[i] = capt ? xo[2] : P.ev_x2[i];
+        P.oev_x3[i] = capt ? xo[3] : P.ev_x3[i];
+        P.oev_k0[i] = capt ? ko[0] : P.ev_k0[i];
+        P.oev_k1[i] = capt ? ko[1] : P.ev_k1[i];
+        P.oev_k2[i] = capt ? ko[2] : P.ev_k2[i];
+        P.oev_k3[i] = capt ? ko[3] : P.ev_k3[i];
+        P.oev_w[i] = capt ? sec_w_b : P.ev_w[i];
+        P.oev_pending[i] = ev_pending || capt;
+      }
       P.ooccupied[i] = occupied_o;
     }
   }
 
-  if (valid) {
+  if (valid && (!kD || roll_any)) {  // double stored the pushed state after phase A
     P.ox0[i] = xo[0]; P.ox1[i] = xo[1]; P.ox2[i] = xo[2]; P.ox3[i] = xo[3];
     P.ok0[i] = ko[0]; P.ok1[i] = ko[1]; P.ok2[i] = ko[2]; P.ok3[i] = ko[3];
     P.od0[i] = dko[0]; P.od1[i] = dko[1]; P.od2[i] = dko[2]; P.od3[i] = dko[3];
     P.oe_0_s[i] = e0so;
+  }
+  if (valid) {
     P.odl_shrink[i] = dl_shrink_o;
     P.opend_dl[i] = roll ? seg * frac : pend_rem;
     P.opend_push[i] = pend_push_a || roll;
     P.oat_event[i] = at_event_o;
     P.oalive[i] = alive_o;
     P.ow[i] = w_o;
-    P.orecord_pending[i] = record_pending || record;
+    P.orecord_pending[i] = record_pending_p || record;
     P.oalpha_scatti[i] = alpha_scatti_o;
     P.oalpha_absi[i] = alpha_absi_o;
     P.obi[i] = bi_o;
-    const T tau_abs = P.tau_abs[i], tau_scatt = P.tau_scatt[i];
+    const T tau_abs = kD ? tau_abs_in : P.tau_abs[i];
+    const T tau_scatt = kD ? tau_scatt_in : P.tau_scatt[i];
     P.otau_abs[i] = live ? tau_abs + d_tau_abs_eff : tau_abs;
     P.otau_scatt[i] = live ? tau_scatt + d_tau_scatt_eff : tau_scatt;
     P.ointeracting[i] =
         inter ? ((alpha_scatti_b > T(0.0)) || (alpha_absi_b > T(0.0)) || (n_e > T(0.0)))
-              : (bool)P.interacting[i];
+              : (kD ? interacting_in : (bool)P.interacting[i]);
     P.osec_w[i] = sec_w_b;
     P.on_step[i] = n_step_n;
   }
@@ -1057,8 +1426,35 @@ BConst<T> make_bconst(const BScal &S) {
   return C;
 }
 
-template <bool kRef, typename T>
-int launch_hot(void **ptrs, const double *scal, int n, void *stream) {
+// The instance a launch of n lanes runs: its threads a lane (G) and its
+// block.  Float: one shape.  Double: up to F64_GROUP_MAX_N lanes (the
+// cascade's 512, the gate's 1,024) F64_GROUP threads a lane in 128-thread
+// blocks; up to F64_NARROW_MAX_N one thread a lane in 64-thread blocks
+// (four an SM, the launch spread over the SMs); beyond, the pool's width,
+// 256-thread blocks at most 128 registers, 65,536 lanes in one wave.
+constexpr int F64_GROUP = 8, F64_GROUP_MAX_N = 2048, F64_NARROW_MAX_N = 32768;
+struct Shape {
+  int group, threads;
+};
+template <typename T>
+Shape hot_shape(int n) {
+  if (sizeof(T) == 8 && n <= F64_GROUP_MAX_N) return {F64_GROUP, 128};
+  if (sizeof(T) == 8 && n <= F64_NARROW_MAX_N) return {1, 64};
+  return {1, 256};
+}
+
+// Asks once for the instance's dynamic shared memory (above 48 KB).
+template <bool kRef, typename T, int G, int THREADS>
+cudaError_t prepare() {
+  static cudaError_t rc = cudaFuncSetAttribute(
+      hot_step_kernel<kRef, T, G, THREADS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<kRef, T, THREADS>());
+  return rc;
+}
+
+// One launch of the instance with G threads a lane in blocks of THREADS.
+template <bool kRef, typename T, int G, int THREADS>
+int launch_hot_g(void **ptrs, const double *scal, int n, void *stream) {
   HotPtrs<T> P;
   memset(&P, 0, sizeof(HotPtrs<T>));
   memcpy(&P, ptrs, (kRef ? HOT_REF_NPTRS : HOT_NPTRS) * sizeof(void *));
@@ -1077,20 +1473,48 @@ int launch_hot(void **ptrs, const double *scal, int n, void *stream) {
   CB.one_mh = CA.one_mh;
   CB.n_e_unit = (T)S.n_e_unit;
   CB.theta_e_unit = (T)S.theta_e_unit;
-  constexpr int threads = Launch<T>::threads;
-  constexpr int smem = smem_bytes<kRef, T>();
-  static bool sized = false;  // dynamic shared memory above 48 KB is asked for once
-  if (!sized) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        hot_step_kernel<kRef, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return (int)rc;
-    sized = true;
-  }
+  constexpr int lanes = THREADS / G;
+  const cudaError_t rc = prepare<kRef, T, G, THREADS>();
+  if (rc != cudaSuccess) return (int)rc;
   if (n > 0) {
-    hot_step_kernel<kRef, T><<<(n + threads - 1) / threads, threads, smem,
-                               (cudaStream_t)stream>>>(P, CA, CB, n);
+    hot_step_kernel<kRef, T, G, THREADS><<<(n + lanes - 1) / lanes, THREADS,
+                                          smem_bytes<kRef, T, THREADS>(),
+                                          (cudaStream_t)stream>>>(P, CA, CB, n);
   }
   return (int)cudaGetLastError();
+}
+
+// The blocks an SM holds of an instance, or minus a CUDA error.
+template <bool kRef, typename T, int G, int THREADS>
+int blocks_per_sm_g() {
+  int blocks = 0;
+  cudaError_t rc = prepare<kRef, T, G, THREADS>();
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, hot_step_kernel<kRef, T, G, THREADS>, THREADS, smem_bytes<kRef, T, THREADS>());
+  return rc == cudaSuccess ? blocks : -(int)rc;
+}
+
+// A launch of n lanes and the blocks an SM of its instance (what = 0, 1).
+template <bool kRef, typename T>
+int hot_step_at(int n, int what, void **ptrs = nullptr, const double *scal = nullptr,
+                void *stream = nullptr) {
+  const Shape s = hot_shape<T>(n);
+  if constexpr (sizeof(T) == 8) {
+    if (s.group > 1)
+      return what ? blocks_per_sm_g<kRef, T, F64_GROUP, 128>()
+                  : launch_hot_g<kRef, T, F64_GROUP, 128>(ptrs, scal, n, stream);
+    if (s.threads == 64)
+      return what ? blocks_per_sm_g<kRef, T, 1, 64>()
+                  : launch_hot_g<kRef, T, 1, 64>(ptrs, scal, n, stream);
+  }
+  return what ? blocks_per_sm_g<kRef, T, 1, 256>()
+              : launch_hot_g<kRef, T, 1, 256>(ptrs, scal, n, stream);
+}
+
+template <bool kRef, typename T>
+int launch_hot(void **ptrs, const double *scal, int n, void *stream) {
+  return hot_step_at<kRef, T>(n, 0, ptrs, scal, stream);
 }
 
 }  // namespace
@@ -1121,5 +1545,20 @@ int hot_step_f64_launch(void **ptrs, const double *scal, int n, void *stream) {
 int hot_step_ref_f64_launch(void **ptrs, const double *scal, int n, void *stream) {
   return launch_hot<true, double>(ptrs, scal, n, stream);
 }
+
+// The instance each entry point runs at n lanes: its threads a lane (the
+// group), its threads a block and its blocks an SM.
+int hot_step_group(int n) { return hot_shape<float>(n).group; }
+int hot_step_ref_group(int n) { return hot_shape<float>(n).group; }
+int hot_step_f64_group(int n) { return hot_shape<double>(n).group; }
+int hot_step_ref_f64_group(int n) { return hot_shape<double>(n).group; }
+int hot_step_threads(int n) { return hot_shape<float>(n).threads; }
+int hot_step_ref_threads(int n) { return hot_shape<float>(n).threads; }
+int hot_step_f64_threads(int n) { return hot_shape<double>(n).threads; }
+int hot_step_ref_f64_threads(int n) { return hot_shape<double>(n).threads; }
+int hot_step_blocks_per_sm(int n) { return hot_step_at<false, float>(n, 1); }
+int hot_step_ref_blocks_per_sm(int n) { return hot_step_at<true, float>(n, 1); }
+int hot_step_f64_blocks_per_sm(int n) { return hot_step_at<false, double>(n, 1); }
+int hot_step_ref_f64_blocks_per_sm(int n) { return hot_step_at<true, double>(n, 1); }
 
 }  // extern "C"

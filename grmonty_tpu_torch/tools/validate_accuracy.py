@@ -48,6 +48,13 @@ freeze_bias * (freeze_avg + 2); a live-bias count comparison measures how
 two feedback trajectories diverge, and is only printed), and
 ``n_hc_clamp_engine == 0``.
 
+``--oracle-npz`` caches the oracle's spectra with the regime they were
+run in (``ORACLE_FIELDS``: the sample's photons, photon_n, seed, mass
+unit, torus, semantics, dtype and device, and the oracle's frozen bias,
+replicates and tracker).  A file is reused only on an exact match of every
+field; any other file, one written before the fields were recorded among
+them, stops the tool with the field named.
+
 Left behind from the JAX tool: its TPU-era engine knobs (``--grow-cap``,
 ``--grow-rate``, ``--detached``, ``--derived-fluid``, ``--refill-period``,
 ``--bias-ema``, the ``GRMONTY_*`` overrides: the port's profile fixes
@@ -90,8 +97,9 @@ def parse_args(argv=None):
     ap.add_argument("--json", default=None, help="write the result here")
     ap.add_argument("--group", type=int, default=10, help="energy bins per chi^2 group")
     ap.add_argument("--oracle-npz", default=None,
-                    help="load the oracle's spectra from here if the file exists (the same "
-                         "dump, photons and seed), else run the oracle and save them here")
+                    help="load the oracle's spectra from here if the file exists (it must "
+                         "record this run's regime, ORACLE_FIELDS, exactly), else run the "
+                         "oracle and save them here with the regime")
     ap.add_argument("--freeze-bias", type=float, default=0.0,
                     help="pin both trackers' bias normalization to this max_tau (with "
                          "--freeze-avg); enables the hard count gate")
@@ -389,6 +397,59 @@ def run_engine(sim, rows, engine_seed):
     return spec, counts, time.time() - t0
 
 
+# What the oracle's side of the gate depends on, recorded in an --oracle-npz
+# file and matched exactly before the file is reused: the sample (its
+# photons, the emission's photon_n, seed and mass unit, the torus, the
+# semantics and dtype it is sampled in, and the device whose generator draws
+# it) and the oracle's own runs (the frozen bias pair, 0 and 0 when live, the
+# replicates and the tracker).
+ORACLE_FIELDS = ("n_photons", "photon_n", "seed", "mass_unit", "freeze_bias", "freeze_avg",
+                 "oracle_reps", "oracle", "n1", "n2", "reference", "dtype", "device")
+
+
+def oracle_regime(args, n_photons):
+    """{field: value} of ``ORACLE_FIELDS`` for a run of ``args`` on
+    ``n_photons`` photons."""
+    import torch
+
+    frozen = args.freeze_bias > 0.0
+    return dict(n_photons=int(n_photons), photon_n=int(args.photon_n), seed=int(args.seed),
+                mass_unit=float(args.mass_unit),
+                freeze_bias=float(args.freeze_bias) if frozen else 0.0,
+                freeze_avg=float(args.freeze_avg) if frozen else 0.0,
+                oracle_reps=max(1, int(args.oracle_reps)), oracle=args.oracle,
+                n1=int(args.n1), n2=int(args.n2), reference=bool(args.reference),
+                dtype="float32" if args.bench_profile else "float64",
+                device=torch.device(args.device).type)
+
+
+def save_oracle(path, regime, spec, specs, counts, seconds):
+    """Write the oracle's mean spectrum, replicates, counters and seconds
+    to ``path`` with its ``regime`` (:func:`oracle_regime`)."""
+    np.savez(path, spec=spec, specs=specs, n_recorded=counts["n_recorded"],
+             max_tau_scatt=counts["max_tau_scatt"], seconds=seconds, **regime)
+
+
+def load_oracle(path, regime):
+    """(mean spectrum, replicates, counters, seconds) from
+    :func:`save_oracle`'s file at ``path``; raises ``SystemExit`` naming
+    the first field of ``regime`` that the file does not record or records
+    with another value."""
+    with np.load(path, allow_pickle=False) as dat:
+        for field, want in regime.items():
+            if field not in dat.files:
+                raise SystemExit(f"validate_accuracy: {path} records no {field} (written "
+                                 "before the oracle's regime was recorded); remove it to "
+                                 "run the oracle again")
+            got = dat[field].item()
+            if got != want:
+                raise SystemExit(f"validate_accuracy: {path} was run with {field} = {got!r}, "
+                                 f"this run has {field} = {want!r}")
+        counts = dict(n_photons=regime["n_photons"], n_recorded=int(dat["n_recorded"]),
+                      max_tau_scatt=float(dat["max_tau_scatt"]))
+        return dat["spec"], dat["specs"], counts, float(dat["seconds"])
+
+
 def run_oracle(sim, rows, seed, reps, bias_fixed, oracle="native"):
     """The oracle on the sample (float64, unscaled weights), once per
     replicate (seeds seed + 1 ... seed + reps): the native tracker's
@@ -444,25 +505,21 @@ def run(args):
     n = min(args.photons, plan.total)
     rows = sim.emit_rows(0, n)
     bias_fixed = (args.freeze_bias, args.freeze_avg) if args.freeze_bias > 0.0 else None
+    regime = oracle_regime(args, n)
+    # a cached oracle of another regime stops the tool before the engine runs
+    cached = (load_oracle(args.oracle_npz, regime)
+              if args.oracle_npz and os.path.exists(args.oracle_npz) else None)
 
     spec_e, eng, t_eng = run_engine(
         sim, rows, args.seed + 2 if args.engine_seed is None else args.engine_seed)
 
-    if args.oracle_npz and os.path.exists(args.oracle_npz):
-        dat = np.load(args.oracle_npz)
-        if int(dat["n_photons"]) != n:
-            raise SystemExit(f"validate_accuracy: {args.oracle_npz} holds "
-                             f"{int(dat['n_photons'])} photons, this run {n}")
-        so, so_reps, t_orc = dat["spec"], dat["specs"], float(dat["seconds"])
-        orc = dict(n_photons=n, n_recorded=int(dat["n_recorded"]),
-                   max_tau_scatt=float(dat["max_tau_scatt"]))
+    if cached is not None:
+        so, so_reps, orc, t_orc = cached
     else:
         so, so_reps, orc, t_orc = run_oracle(sim, rows, args.seed, args.oracle_reps,
                                              bias_fixed, args.oracle)
         if args.oracle_npz:
-            np.savez(args.oracle_npz, spec=so, specs=so_reps, n_recorded=orc["n_recorded"],
-                     seconds=t_orc, n_photons=n, seed=args.seed, mass_unit=args.mass_unit,
-                     max_tau_scatt=orc["max_tau_scatt"])
+            save_oracle(args.oracle_npz, regime, so, so_reps, orc, t_orc)
 
     out = compare(spec_e, so, so_reps, eng, orc, group=args.group)
     out.update(engine_s=t_eng, oracle_s=t_orc, mass_unit=args.mass_unit, oracle=args.oracle,

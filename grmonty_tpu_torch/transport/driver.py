@@ -24,6 +24,8 @@ runs on one explicit ``device``:
   accumulates on the host in float64 after every wave and stage;
 * with a ``checkpoint_path`` the run saves a resume point after the pilot
   and after each wave and resumes from it (:meth:`Simulation.save_checkpoint`);
+  the point carries the run's clocks (wall seconds, ``device_s``) and the
+  engines' phase counts, so a resumed run reports the whole run's;
 * :meth:`Simulation.run_native_cpu` tracks the whole plan with the native
   scalar tracker instead of the engine.
 
@@ -275,6 +277,9 @@ class Simulation:
         self._total = 0
         self.spec_acc = np.zeros((engine_mod.N_BINS + 1, engine_mod.N_SPEC_CHAN))
         self.device_s = None  # CUDA-event window of the engine runs (CUDA only)
+        # the run's wall clock: its start in this process, and the seconds of
+        # its earlier parts that a resumed checkpoint carries
+        self._t_run, self._resumed_s = time.monotonic(), 0.0
         # The pilot's (n_recorded, n_scatt_rec), injected into the counters
         # and debited from the run's: its spectrum is dropped.
         self._warm_counts = None
@@ -484,15 +489,26 @@ class Simulation:
         return (self.photon_n, self.cfg.n_pool, self.emit_chunk, int(self.cfg.reference),
                 torch.finfo(self.cfg.dtype).bits)
 
+    def _elapsed(self):
+        """The run's wall seconds so far, its resumed parts included."""
+        return self._resumed_s + (time.monotonic() - self._t_run)
+
     def save_checkpoint(self, path, waves_done, state):
         """Write a resume point atomically (a temporary file, then
         ``os.replace``): every tensor of the engine ``state`` (on the CPU),
         the host spectrum, the generator's state (one generator serves
-        emission and engine, so it covers every draw so far) and the setup
-        it belongs to, with the pilot's baseline."""
+        emission and engine, so it covers every draw so far), the run's
+        clocks (wall seconds and ``device_s``, NaN off the card) and its
+        engines' full and light phases, and the setup it belongs to, with
+        the pilot's baseline."""
         payload = {k: v.detach().cpu().numpy() for k, v in _flat_state(state).items()}
         payload["spec_acc"] = self.spec_acc
         payload["gen_state"] = self.gen.get_state().numpy()
+        payload["clocks"] = np.asarray(
+            [self._elapsed(), math.nan if self.device_s is None else self.device_s], np.float64)
+        engines = [self.engine, *self._tail_engines.values()]
+        payload["phases"] = np.asarray([sum(e.phases[p] for e in engines)
+                                        for p in ("full", "light")], np.int64)
         w_rec, w_scatt = self._warm_counts or (0, 0)
         payload["meta"] = np.asarray([waves_done, *self._setup(), w_rec, w_scatt, state.it],
                                      np.int64)
@@ -509,8 +525,10 @@ class Simulation:
 
     def load_checkpoint(self, path):
         """Restore (waves_done, state) from :meth:`save_checkpoint`'s file,
-        with the host spectrum, the generator and the pilot's baseline;
-        raises ``ValueError`` for a file of another run setup."""
+        with the host spectrum, the generator, the pilot's baseline, the
+        run's clocks and the phase counts (into the wave engine, the only
+        one a resume point follows); raises ``ValueError`` for a file of
+        another run setup."""
         n = len(self._setup())
         with np.load(path, allow_pickle=False) as dat:
             meta = [int(v) for v in dat["meta"]]
@@ -523,6 +541,12 @@ class Simulation:
             state = _unflat_state(dat, it, self.device)
             self.spec_acc = dat["spec_acc"].astype(np.float64)
             self.gen.set_state(torch.as_tensor(dat["gen_state"]))
+            elapsed, device_s = (float(v) for v in dat["clocks"])
+            full, light = (int(v) for v in dat["phases"])
+        self._resumed_s = elapsed
+        if self.device.type == "cuda":
+            self.device_s = device_s if math.isfinite(device_s) else 0.0
+        self.engine.phases = {"full": full, "light": light}
         self._warm_counts = (w_rec, w_scatt) if (w_rec or w_scatt) else None
         return meta[0], state
 
@@ -538,8 +562,9 @@ class Simulation:
         With ``checkpoint_path`` a resume point is written after the pilot
         and every ``checkpoint_every`` waves, and deleted when the run
         completes; if the file exists, the run resumes from it, skipping
-        the pilot and the waves it holds."""
-        t0 = time.monotonic()
+        the pilot and the waves it holds; a resumed run's clocks and phase
+        counts cover the whole run."""
+        self._t_run, self._resumed_s = time.monotonic(), 0.0
         plan = self.plan()
         state = self.engine.fresh_state()
         for eng in self._tail_engines.values():
@@ -570,7 +595,7 @@ class Simulation:
         state = self._drain_tail(state)
         if checkpoint_path and os.path.exists(checkpoint_path):
             os.remove(checkpoint_path)
-        elapsed = time.monotonic() - t0
+        elapsed = self._elapsed()
 
         engines = [self.engine, *self._tail_engines.values()]
         stats = {

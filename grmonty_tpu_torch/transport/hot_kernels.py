@@ -5,7 +5,10 @@
 shipped profile: derived 44-wide corner rows, the error-proportional step
 control, the detached-event capture) and ``hot_step_ref`` (reference
 semantics: the ladder, raw 32-wide rows through the metric pair), each in
-float32 and in float64 (``hot_step_f64``, ``hot_step_ref_f64``).  It
+float32 and in float64 (``hot_step_f64``, ``hot_step_ref_f64``); each entry
+point picks its instance from the lane count (:func:`hot_step_shape`: in
+float64 a group of threads a lane in the narrow pools, one thread a lane
+beyond).  It
 replaces the TPU kernels ``grmonty_tpu/transport/hotstep_pallas.py:104``
 (``kernel_a``, body ``engine.hot_phase_a``) and ``hotstep_pallas.py:152``
 (``kernel_b``, body ``engine.hot_phase_b``) and the corner-row gather
@@ -143,10 +146,15 @@ _ABI = {"hot_step": (len(_HOT_PTRS), _HOT_NSCAL),
         "row_gather_rowloop": (3, 1)}
 
 
-# The row counts of csrc/gather_probe.cu's tilings (int w -> int rows), by
-# _Build attribute.
-_ROW_COUNTS = {"pass_rows": "gather_rowsum_persistent_pass_rows",
-               "wave_rows": "gather_rowsum_rowloop_wave_rows"}
+# The hot step's entry points.
+HOT_STEPS = ("hot_step", "hot_step_ref", "hot_step_f64", "hot_step_ref_f64")
+# The libraries' int -> int functions: the row counts of csrc/gather_probe.cu's
+# tilings (w -> rows) and the launch shape of each hot-step entry point at n
+# lanes (csrc/hot_step.cu: the threads a lane, the threads a block, the
+# blocks an SM of the instance it runs).
+HOT_SHAPE = ("group", "threads", "blocks_per_sm")
+_INT_FNS = ("gather_rowsum_persistent_pass_rows", "gather_rowsum_rowloop_wave_rows",
+            *(f"{h}_{what}" for h in HOT_STEPS for what in HOT_SHAPE))
 
 
 class _Build:
@@ -154,8 +162,7 @@ class _Build:
     (one per process)."""
 
     fns = None  # kernel name -> ctypes function
-    pass_rows = None  # gather_rowsum_persistent_pass_rows
-    wave_rows = None  # gather_rowsum_rowloop_wave_rows
+    int_fns = {}  # _INT_FNS name -> ctypes function
     paths = []
     seconds = 0.0
     log = ""
@@ -195,7 +202,7 @@ def build():
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}) for {path}:\n{out}")
         os.replace(tmp, path)
-    fns = {}
+    fns, int_fns = {}, {}
     for path in paths:
         lib = ctypes.CDLL(path)
         for name, (n_ptrs, n_scal) in _ABI.items():
@@ -210,16 +217,15 @@ def build():
                 raise RuntimeError(f"{name}: library takes {got} pointers/scalars, "
                                    f"the wrapper passes {(n_ptrs, n_scal)}")
             fns[name] = fn
-        for attr, sym in _ROW_COUNTS.items():
+        for sym in _INT_FNS:
             if hasattr(lib, sym):
                 fn = getattr(lib, sym)
                 fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-                setattr(_Build, attr, fn)
-    missing = sorted(set(_ABI) - set(fns)) + [
-        sym for attr, sym in _ROW_COUNTS.items() if getattr(_Build, attr) is None]
+                int_fns[sym] = fn
+    missing = sorted(set(_ABI) - set(fns)) + [sym for sym in _INT_FNS if sym not in int_fns]
     if missing:
         raise RuntimeError(f"no entry point for {missing} in {paths}")
-    _Build.fns, _Build.paths = fns, paths
+    _Build.fns, _Build.int_fns, _Build.paths = fns, int_fns, paths
     _Build.seconds, _Build.log = time.monotonic() - t0, "".join(out for *_, out in log)
     return _Build.paths, _Build.seconds, _Build.log
 
@@ -439,11 +445,7 @@ def persistent_pass_rows(w):
     row width ``w`` on the current CUDA device: its one-wave grid's threads
     over the lanes a row takes.  The kernel walks N rows in ceil(N / this)
     passes (when N is smaller, its grid is)."""
-    build()
-    rows = _Build.pass_rows(int(w))
-    if rows <= 0:
-        raise RuntimeError(f"gather_rowsum_persistent_pass_rows({w}): CUDA error {-rows}")
-    return rows
+    return _int_fn("gather_rowsum_persistent_pass_rows", w)
 
 
 def rowloop_step_rows(w):
@@ -461,11 +463,27 @@ def rowloop_wave_rows(w):
     on the current CUDA device when each warp of its one-wave grid walks one
     step (:func:`rowloop_step_rows` rows): N up to this takes one step a
     warp, beyond it each warp walks ceil(steps / warps)."""
+    return _int_fn("gather_rowsum_rowloop_wave_rows", w)
+
+
+def hot_step_shape(name, n):
+    """The instance a launch of the hot step's entry point ``name``
+    (``HOT_STEPS``) on ``n`` lanes runs, {``HOT_SHAPE``: int}: its threads a
+    lane (``group``: 1 in float32; in float64 more than 1 in the narrow
+    pools of the cascade and the gate, 1 beyond), its threads a block and
+    the blocks an SM holds on the current CUDA device."""
+    return {what: _int_fn(f"{name}_{what}", n) for what in HOT_SHAPE}
+
+
+
+def _int_fn(sym, v):
+    """One of the libraries' int -> int functions (``_INT_FNS``) at ``v``;
+    a value at or below 0 is minus a CUDA error."""
     build()
-    rows = _Build.wave_rows(int(w))
-    if rows <= 0:
-        raise RuntimeError(f"gather_rowsum_rowloop_wave_rows({w}): CUDA error {-rows}")
-    return rows
+    out = _Build.int_fns[sym](int(v))
+    if out <= 0:
+        raise RuntimeError(f"{sym}({v}): CUDA error {-out}")
+    return out
 
 
 def row_gather_rowloop(table, idx):

@@ -23,6 +23,10 @@ against the JAX package's, on the 64x32 synthetic torus (CPU).
 (f) :func:`compare` on seeded synthetic spectra: a distorted secondary
     shape trips the kappa^g gate, the undistorted one passes, and a clamp
     fails its gate.
+(g) The ``--oracle-npz`` cache: a file written in one regime stops the
+    tool (``SystemExit`` naming the field) under another, before the engine
+    runs, for every field of ``ORACLE_FIELDS``; a file without the fields
+    is refused too; only an exact match is reused.
 """
 
 import json
@@ -337,3 +341,72 @@ def test_compare_trips_the_generation_gate_on_a_distorted_shape(distorted):
         assert gen < va.GEN_GATE and va.gate_failures(out) == []
         out["n_hc_clamp_engine"] = 3
         assert va.gate_failures(out) == ["hotcross clamp path reached 3 times"]
+
+
+# (g) the oracle cache: a regime and, per field, an argument that changes it
+CACHE_BASE = ["--device", "cpu", "--photons", "6", "--oracle-reps", "3",
+              "--freeze-bias", str(FREEZE[0])]
+CACHE_CHANGES = {
+    "n_photons": ["--photons", "5"], "photon_n": ["--photon-n", "2001"],
+    "seed": ["--seed", "124"], "mass_unit": ["--mass-unit", "4e18"],
+    "freeze_bias": ["--freeze-bias", "0.025"], "freeze_avg": ["--freeze-avg", "2.5"],
+    "oracle_reps": ["--oracle-reps", "5"], "oracle": ["--oracle", "python"],
+    "n1": ["--n1", "32"], "n2": ["--n2", "16"], "reference": ["--reference"],
+    "dtype": ["--bench-profile"], "device": ["--device", "cuda"],
+}
+
+
+def _cache(path, argv):
+    """Write a cache with fake spectra for the regime of ``argv`` at 6
+    photons; returns what was written."""
+    args = va.parse_args(argv)
+    spec = np.random.default_rng(3).random((4, 2))
+    specs, counts = np.stack([spec, 2.0 * spec]), dict(n_recorded=17, max_tau_scatt=0.5)
+    va.save_oracle(str(path), va.oracle_regime(args, args.photons), spec, specs, counts, 1.5)
+    return spec, specs
+
+
+def test_oracle_regime_records_every_field():
+    regime = va.oracle_regime(va.parse_args(CACHE_BASE), 6)
+    assert tuple(regime) == va.ORACLE_FIELDS == tuple(CACHE_CHANGES)
+    live = va.oracle_regime(va.parse_args(["--device", "cpu"]), 6)
+    assert (live["freeze_bias"], live["freeze_avg"]) == (0.0, 0.0)
+
+
+@pytest.mark.parametrize("field", list(CACHE_CHANGES))
+def test_oracle_cache_of_another_regime_is_refused(tmp_path, field):
+    path = tmp_path / "oracle.npz"
+    _cache(path, CACHE_BASE)
+    args = va.parse_args(CACHE_BASE + CACHE_CHANGES[field])
+    with pytest.raises(SystemExit, match=f"with {field} = .*, this run has {field} = "):
+        va.load_oracle(str(path), va.oracle_regime(args, args.photons))
+
+
+def test_oracle_cache_is_reused_on_an_exact_match(tmp_path):
+    path = tmp_path / "oracle.npz"
+    spec, specs = _cache(path, CACHE_BASE)
+    args = va.parse_args(CACHE_BASE)
+    got_spec, got_specs, counts, secs = va.load_oracle(str(path), va.oracle_regime(args, 6))
+    assert np.array_equal(got_spec, spec) and np.array_equal(got_specs, specs)
+    assert counts == dict(n_photons=6, n_recorded=17, max_tau_scatt=0.5) and secs == 1.5
+
+
+@pytest.mark.parametrize("change", [["--seed", "124"], ["--mass-unit", "4e18"],
+                                    ["--freeze-bias", "0.025"], None],
+                         ids=["seed", "mass_unit", "freeze_bias", "no_fields"])
+def test_gate_stops_on_a_cache_of_another_regime(tmp_path, change, monkeypatch):
+    """The tool itself (``run``) refuses a cache written under another seed,
+    mass unit or frozen bias, and one written without the regime's fields,
+    before its engine runs."""
+    path = tmp_path / "oracle.npz"
+    if change is None:  # the fields an older file held
+        np.savez(path, spec=np.zeros(2), specs=np.zeros((3, 2)), n_recorded=1, seconds=1.0,
+                 n_photons=6, seed=123, mass_unit=4e19, max_tau_scatt=0.1)
+        field, argv = "photon_n", CACHE_BASE
+    else:
+        _cache(path, CACHE_BASE)
+        field, argv = change[0].strip("-").replace("-", "_"), CACHE_BASE + change
+    monkeypatch.setattr(va, "run_engine", lambda *a: pytest.fail("the engine ran"))
+    match = "records no photon_n" if change is None else f"with {field} = "
+    with pytest.raises(SystemExit, match=match):
+        va.run(va.parse_args(argv + ["--oracle-npz", str(path)]))

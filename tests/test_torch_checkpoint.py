@@ -4,12 +4,16 @@ A run interrupted between waves resumes from the disk checkpoint in a new
 ``Simulation`` and reproduces the uninterrupted run: the spectrum to rtol
 1e-6 (on the card the spectrum sums with float atomics; on the CPU it
 agrees to every bit), the counts exactly, and the completed run deletes the
-checkpoint.  A checkpoint of another run setup is refused, and one save and
-load restores every tensor of the state, the host spectrum and the
+checkpoint.  The resumed run's phase counts (``full_phases``,
+``light_phases``) and ``hot_iters`` equal the uninterrupted run's, and its
+``elapsed_s`` covers the interrupted part too: the checkpoint carries the
+run's clocks.  A checkpoint of another run setup is refused, and one save
+and load restores every tensor of the state, the host spectrum and the
 generator.
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -50,11 +54,15 @@ class _Boom(Exception):
     pass
 
 
-def test_resume_reproduces_uninterrupted_run(dump, tmp_path):
+@pytest.fixture(scope="module")
+def resumed(dump, tmp_path_factory):
+    """The uninterrupted run, the run that crashes after its second wave
+    (its wall seconds and the checkpoint's clocks) and the resumed run, as a
+    dict."""
     spec_ref, stats_ref = _make_sim(dump).run()
     assert stats_ref["waves"] >= 4  # the ramp: the crash lands inside it
 
-    ck = str(tmp_path / "resume.npz")
+    ck = str(tmp_path_factory.mktemp("resume") / "resume.npz")
     sim2 = _make_sim(dump)
     orig = sim2._run_wave
     calls = []
@@ -66,18 +74,48 @@ def test_resume_reproduces_uninterrupted_run(dump, tmp_path):
         return orig(*a, **kw)
 
     sim2._run_wave = crashing
+    t0 = time.monotonic()
     with pytest.raises(_Boom):
         sim2.run(checkpoint_path=ck)
+    interrupted_s = time.monotonic() - t0
     assert os.path.exists(ck), "the checkpoint must survive the crash"
+    with np.load(ck) as dat:
+        clocks, phases = dat["clocks"].copy(), dat["phases"].copy()
 
     sim3 = _make_sim(dump)  # a fresh process stands in
     spec_res, stats_res = sim3.run(checkpoint_path=ck)
+    return dict(spec_ref=spec_ref, stats_ref=stats_ref, spec_res=spec_res,
+                stats_res=stats_res, ck=ck, interrupted_s=interrupted_s, clocks=clocks,
+                phases=phases, crashed=sim2)
+
+
+def test_resume_reproduces_uninterrupted_run(resumed):
+    spec_ref, stats_ref = resumed["spec_ref"], resumed["stats_ref"]
+    spec_res, stats_res, ck = resumed["spec_res"], resumed["stats_res"], resumed["ck"]
     np.testing.assert_allclose(spec_res, spec_ref, rtol=1e-6, atol=0)
     for key in ("n_recorded", "n_scatt_recorded", "n_tracked", "hot_iters",
                 "n_secondary_dropped", "n_stall_killed"):
         assert stats_res[key] == stats_ref[key], key
     assert stats_res["pilot"] is None and stats_ref["pilot"]["photons"] == 128
     assert not os.path.exists(ck), "a completed run must delete the checkpoint"
+
+
+def test_resume_carries_the_runs_clocks_and_phase_counts(resumed):
+    """The random stream replays bit for bit, so the resumed run's phase
+    counts and hot iterations equal the uninterrupted run's exactly; its
+    wall seconds include the interrupted part's (the checkpoint's clocks,
+    written after the second wave, just before the crash)."""
+    ref, res = resumed["stats_ref"], resumed["stats_res"]
+    for key in ("full_phases", "light_phases", "hot_iters"):
+        assert res[key] == ref[key], key
+    assert ref["full_phases"] > 0 and ref["light_phases"] > 0
+    crashed = resumed["crashed"].engine.phases
+    assert list(resumed["phases"]) == [crashed["full"], crashed["light"]]
+    assert 0.0 < resumed["clocks"][0] <= resumed["interrupted_s"]
+    assert np.isnan(resumed["clocks"][1])  # no device window on the CPU
+    assert res["elapsed_s"] >= resumed["interrupted_s"]
+    assert res["elapsed_s"] > resumed["clocks"][0]
+    assert res["device_s"] is None and res["photon_rate"] == res["n_created"] / res["elapsed_s"]
 
 
 def test_checkpoint_refuses_mismatched_setup(dump, tmp_path):

@@ -16,7 +16,12 @@ conditioning as in tests/test_torch_hot.py); each census count, a count of
 such masks, within 0.1% of the lanes.  On the card the kernel is held to
 the plain version on every lane under ``hot_kernels.KERNEL_TOLERANCE`` (the
 weight within ``hot_kernels.weight_slack`` besides) and its census counters
-exactly.
+exactly: float32 at 65,536 lanes; float64 at 65,536, 4,096, 1,024, 513 and
+1 lanes and on each side of every width where the instance changes
+(``hot_kernels.hot_step_shape``: the group of threads a lane up to one
+width, the narrow one-thread-a-lane blocks up to another), so that a group
+instance with a partial last block, a block of one lane and each
+one-thread-a-lane instance are all held to the plain version.
 
 JAX is imported inside the tests that compare with it, so that the card
 test runs on a machine with only the port's dependencies:
@@ -339,20 +344,65 @@ def test_fused_kernel_matches_plain_on_the_card(setup, semantics, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
     mc, tabs = setup
-    n, dev = 65536, torch.device("cuda")
-    cfg = _config(semantics, dtype, n)
-    lanes = _lanes(mc, cfg, n, seed=11)
-    name = hot_kernels.entry_point("hot_step", dtype, cfg.reference)
-    n0 = hot_kernels.launches[name]
-    args, tables = _inputs(lanes, tabs, dtype, dev)
-    ref = engine.hot_step_plain(*args, mc, tables, cfg)
-    got = hot_kernels.hot_step(*_inputs(lanes, tabs, dtype, dev)[0], mc, tables, cfg)
-    torch.cuda.synchronize()
-    assert hot_kernels.launches[name] == n0 + 1
-    (ref_f, ref_c), (got_f, got_c) = (hot_kernels.step_outputs(*ref, cfg.reference),
-                                      hot_kernels.step_outputs(*got, cfg.reference))
-    tol = hot_kernels.KERNEL_TOLERANCE[name]
-    slack = hot_kernels.weight_slack(args[0], ref_f, tol["rtol"])
-    _, _, _, fails = hot_kernels.compare(ref_f, got_f, **tol, slack=slack)
-    assert not fails, f"{name}: {fails}"
-    assert got_c == ref_c
+    dev = torch.device("cuda")
+    name = hot_kernels.entry_point("hot_step", dtype, semantics == "reference")
+    widths = [65536]
+    if dtype == torch.float64:
+        widths += [4096, 1024, 513, 1]
+        for edge in _shape_edges(name):
+            widths += [edge, edge + 1]
+    for n in widths:
+        cfg = _config(semantics, dtype, n)
+        lanes = _lanes(mc, cfg, n, seed=11)
+        n0 = hot_kernels.launches[name]
+        args, tables = _inputs(lanes, tabs, dtype, dev)
+        ref = engine.hot_step_plain(*args, mc, tables, cfg)
+        got = hot_kernels.hot_step(*_inputs(lanes, tabs, dtype, dev)[0], mc, tables, cfg)
+        torch.cuda.synchronize()
+        assert hot_kernels.launches[name] == n0 + 1
+        (ref_f, ref_c), (got_f, got_c) = (hot_kernels.step_outputs(*ref, cfg.reference),
+                                          hot_kernels.step_outputs(*got, cfg.reference))
+        tol = hot_kernels.KERNEL_TOLERANCE[name]
+        slack = hot_kernels.weight_slack(args[0], ref_f, tol["rtol"])
+        _, _, _, fails = hot_kernels.compare(ref_f, got_f, **tol, slack=slack)
+        shape = hot_kernels.hot_step_shape(name, n)
+        assert not fails, f"{name} at {n} lanes ({shape}): {fails}"
+        assert got_c == ref_c, (n, shape)
+
+
+def _shape_edges(name, widest=65536):
+    """The widths n in [1, widest) after which a launch of ``name`` runs
+    another instance (group, threads a block): each the last width of an
+    interval of one shape, found by bisection (the shapes run in intervals
+    of n)."""
+    shape = lambda n: tuple(hot_kernels.hot_step_shape(name, n)[k]  # noqa: E731
+                            for k in ("group", "threads"))
+    edges, lo = [], 1
+    while shape(lo) != shape(widest):
+        first, hi = shape(lo), widest  # shape(lo) == first != shape(hi)
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if shape(mid) == first else (lo, mid)
+        edges.append(lo)
+        lo = hi
+    assert len(edges) >= 1 and shape(1)[0] > 1 and shape(widest)[0] == 1, edges
+    return edges
+
+
+def test_clock_stamps_find_every_anchor():
+    """``tools/clock_hot_step`` stamps the kernel at lines it must find:
+    every segment's stamp (the double kernel's surface wait among them) and
+    the counters' read-out land in the source, and a source without an
+    anchor raises."""
+    import os
+
+    from grmonty_tpu_torch.tools import clock_hot_step
+
+    with open(os.path.join(hot_kernels.CSRC_DIR, "hot_step.cu")) as f:
+        src = f.read()
+    out = clock_hot_step.stamped(src)
+    for k in range(len(clock_hot_step.SEGMENTS)):
+        assert f"STAMP({k}, " in out, k
+    assert "clk_read" in out and "g_clk[15]" in out
+    with pytest.raises(ValueError, match="no anchor"):
+        clock_hot_step.stamped(src.replace("  // ---- the census", "  // the census"))

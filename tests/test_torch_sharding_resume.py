@@ -6,7 +6,8 @@ the 64x32 torus.
   resume at world size 4 is refused on every rank before any collective
   and leaves them; the resume at world size 2 reproduces the uninterrupted
   run (the spectrum to rtol 1e-6, on the CPU to every bit, the counts
-  exactly) and deletes them.
+  exactly, the phase counts that the rank files carry among them) and
+  deletes them.
 * ``python -m grmonty_tpu_torch --devices 2 --device cpu`` runs two gloo
   ranks and writes the reference's 200 x 37 spectrum; ``--backend cpu``,
   ``--checkpoint`` and ``--profile_dir`` with ``--devices 2`` are refused
@@ -65,7 +66,7 @@ def test_sharded_resume_reproduces_the_uninterrupted_run(dump, tmp_path):
     spec, stats = sharding.run_sharded(dump, 2, "cpu", checkpoint_path=ck, **_kwargs())
     np.testing.assert_allclose(spec, spec_ref, rtol=1e-6, atol=0)
     for key in ("n_created", "n_recorded", "n_scatt_recorded", "n_tracked", "hot_iters",
-                "n_secondary_dropped", "n_stall_killed"):
+                "n_secondary_dropped", "n_stall_killed", "full_phases", "light_phases"):
         assert stats[key] == stats_ref[key], key
     assert stats["pilot"] is None and stats_ref["pilot"]["photons"] == 128
     assert not glob.glob(ck + ".rank*"), "a completed run must delete the checkpoints"
