@@ -128,7 +128,28 @@ Phases, each of which exits non-zero on failure:
    luminosity ratio within 3 of the tool's sigmas, one ``hot_step_ref_f64``
    launch per hot iteration; (d) ``python -m grmonty_tpu_torch --dtype
    float64 --reference`` on the 64x32 torus at ``--photon_n`` 200
-   (``F64_CLI_PHOTON_N``), as phase 9.
+   (``F64_CLI_PHOTON_N``), as phase 9;
+13. the scatter-chain distribution probe
+   (``grmonty_tpu_torch.tools.probe_scatter_dist``) on the card at its full
+   ``PROBE_N`` of 40,000 photons a cell over its 3 x 3 grid of (theta_e,
+   k0): the engine's deferring samplers in float64 against the native
+   tracker's scalar ones, one line a cell (``scatter cell: {...}``) and one
+   summary (``{"phase": "scatter_dist", ...}``); every photon must accept
+   within the probe's 64 phases, and ``mean_ratio`` and ``q99_ratio`` must
+   lie within 1 +- ``SCATTER_TOL``, or within ``SCATTER_SIGMAS`` of their
+   Monte Carlo errors (``probe_scatter_dist.ratio_errors``) where those are
+   wider, in every cell;
+14. the deep-tau replay harness (``grmonty_tpu_torch.tools.replay_deep_tau
+   --bench-profile``) at M = 4e20, its photons cut from 2,000 to
+   ``REPLAY_PHOTONS``, with every launch count set to 0 just before: the
+   traced run and its nominal-step rerun must launch exactly what their
+   path runs (``path_launches`` over both runs; no plain hot step), the
+   captured ``mt_*`` must be a birth state (a positive weight, a finite
+   wave vector with k^0 > 0, plasma at the birth position; its null
+   residual is printed, not held: secondaries born near r = 27 M on the
+   64x32 torus carry non-null wave vectors in the JAX engine too), and the
+   three replays through the native tracker must have run
+   (``{"phase": "replay", ...}``).
 
 With ``--probe-kernels-only`` the script runs phases 1, 2 and 7a and
 prints the card line and the kernels line (no result line); a copy of it
@@ -265,6 +286,20 @@ F64_GATE_SIGMAS = 3.0
 # iterations (376 s on an H100 80GB HBM3 at 700 W, PERF.md).
 F64_CLI_ARGS = ["--dtype", "float64", "--reference", "--pool", "1024"]
 F64_CLI_PHOTON_N = 200
+# Phase 13: the scatter-chain probe's bar, the JAX tool's finding on the
+# same grid at the same 40,000 photons a cell ("within 1-4%", ACCURACY.md),
+# widened to SCATTER_SIGMAS Monte Carlo errors where those are wider: the
+# q99 ratio's error is about 2% at 40,000, and the JAX chain itself reads
+# 1.0569 and 1.0574 on (2, 1e-3) at two of ten seeds (PERF.md).
+SCATTER_N = 40000
+SCATTER_TOL = 0.05
+SCATTER_SIGMAS = 3.0
+# Phase 14: the replay harness's photons, cut from the JAX run's 2,000
+# (REPLAY_r5_M4e20.json; REPLAY_torch_M4e20.json holds the port's run at
+# 2,000) to 200: at 500 the nominal-step rerun drained for 291,152
+# iterations and the two runs took 501 s; at 200, 70 s (an H100 80GB HBM3
+# at 700 W, PERF.md).
+REPLAY_PHOTONS = 200
 
 
 def fail(msg):
@@ -550,8 +585,11 @@ def ab_hot_step(root, sims, other, usage, ref_stall_steps, turns=2):
                     hot_kernels._Build.fns[name] = fns["this"]
                 typ = "double" if dt == torch.float64 else "float"
                 key = (reference, typ, shape["group"], shape["threads"])
-                # the other checkout holds one instance of each variant and type
-                theirs_key = next((k for k in other_sass if k[:2] == key[:2]), None)
+                # the same instance in the other checkout, or its one instance of
+                # the variant and type where it builds a single one (an older
+                # hot_step.cu)
+                theirs_key = key if key in other_sass else next(
+                    (k for k in other_sass if k[:2] == key[:2]), None)
                 rec["ptxas"] = {"this": this_usage.get(key), "other": other_usage.get(theirs_key)}
                 theirs_sass = other_sass.get(theirs_key)
                 mine = mine_sass.get(key)
@@ -1220,6 +1258,83 @@ def f64_checks(root, args, usage, sass, ref32=None):
     return list(recs.values())
 
 
+def scatter_dist_check():
+    """Phase 13: the scatter-chain probe on the card at SCATTER_N photons a
+    cell; every cell's mean and q99 ratios within 1 +- SCATTER_TOL, or
+    within SCATTER_SIGMAS of their Monte Carlo errors where wider."""
+    import torch
+
+    from grmonty_tpu_torch.tools import probe_scatter_dist
+
+    t0 = time.monotonic()
+    cells, errors = probe_scatter_dist.measure(
+        SCATTER_N, torch.device("cuda"), out=lambda line: print(f"scatter cell: {line}"))
+    keys = ("mean_ratio", "q99_ratio")
+    # each ratio's distance from 1 in units of its bar
+    over = [{k: abs(c[k] - 1.0) / max(SCATTER_TOL, SCATTER_SIGMAS * err[k]) for k in keys}
+            for c, err in zip(cells, errors)]
+    print(json.dumps({"phase": "scatter_dist", "n": SCATTER_N, "cells": len(cells),
+                      **{f"worst_{k}": max((c[k] for c in cells), key=lambda v: abs(v - 1.0))
+                         for k in keys},
+                      **{f"{k}_errors": [e[k] for e in errors] for k in keys},
+                      "worst_of_bar": max(max(o.values()) for o in over), "tol": SCATTER_TOL,
+                      "sigmas": SCATTER_SIGMAS, "seconds": time.monotonic() - t0}))
+    for c, err, o in zip(cells, errors, over):
+        where = f"theta_e {c['theta_e']}, k0 {c['k0']}"
+        if c["engine"]["n"] != SCATTER_N:
+            fail(f"scatter_dist: {SCATTER_N - c['engine']['n']} photons never accepted "
+                 f"at {where}")
+        for k in keys:
+            if not o[k] <= 1.0:
+                fail(f"scatter_dist: {k} {c[k]} not within 1 +- max({SCATTER_TOL}, "
+                     f"{SCATTER_SIGMAS} x {err[k]}) at {where}")
+
+
+def replay_check(root):
+    """Phase 14: the deep-tau replay harness on the card, its launches
+    counted (:func:`path_launches` over its two engine runs; no plain hot
+    step), its captured birth state and its replays checked."""
+    import io
+
+    from grmonty_tpu_torch.tools import replay_deep_tau
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    args = replay_deep_tau.parse_args(
+        ["--bench-profile", "--photons", str(REPLAY_PHOTONS), "--mass-unit", "4e20",
+         "--json", os.path.join(root, ".cache", "chip_smoke_replay.json")])
+    cfg, _ = replay_deep_tau.config(args)
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()), counting_plain_steps() as plain_steps:
+        hot_kernels.reset_launches()
+        out = replay_deep_tau.run(args)
+        counts = dict(hot_kernels.launches)
+    runs = out["runs"]
+    total = {k: sum(r[k] for r in runs.values())
+             for k in ("hot_iters", "full_phases", "light_phases")}
+    line = {"phase": "replay", "photons": out["photons"], "mass_unit": out["mass_unit"],
+            **{k: out.get(k) for k in (
+                "engine_max_tau", "engine_max_tau_nominal_steps", "replay_max_tau",
+                "tau_ratio_engine_over_replay", "mt_birth_x", "mt_birth_k", "mt_birth_w",
+                "mt_birth_nsc0", "mt_birth_null_residual", "mt_birth_n_e", "verdict", "engine_s",
+                "engine_nominal_s")},
+            "replays": out["replays"], "runs": runs, "launches": counts,
+            "plain_steps": plain_steps[0], "seconds": time.monotonic() - t0}
+    print(json.dumps(line))
+    bad = launch_failures(cfg, total, counts)
+    if bad or plain_steps[0]:
+        fail(f"replay: {bad or ''} {plain_steps[0]} plain hot steps")
+    if "nominal" not in runs:
+        fail("replay: the shipped profile grows its steps, but no nominal-step run ran")
+    x, k = out["mt_birth_x"], out["mt_birth_k"]
+    if not (out["mt_birth_w"] > 0.0 and all(map(math.isfinite, x + k)) and k[0] > 0.0
+            and out["mt_birth_n_e"] > 0.0):
+        fail(f"replay: mt_* is not a birth state: x {x} k {k} w {out['mt_birth_w']}, "
+             f"n_e {out['mt_birth_n_e']}")
+    reps = out["replays"]
+    if len(reps) != 3 or not all(math.isfinite(r["replay_max_tau"]) for r in reps):
+        fail(f"replay: the replays did not run: {reps}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--photon-n", type=float, default=1e5, help="shipped path")
@@ -1332,6 +1447,8 @@ def main():
     sharded_check(root, args.resume_photon_n, ref)
     kernels.update((rec["name"], rec)
                    for rec in f64_checks(root, args, usage, sass, (ref[1], phases32)))
+    scatter_dist_check()
+    replay_check(root)
 
     print(card)
     print(json.dumps({"kernels": list(kernels.values())}))

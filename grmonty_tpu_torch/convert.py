@@ -10,8 +10,9 @@ run from the same state:
 * :func:`from_jax_engine_tables`: the JAX ``engine.EngineTables`` -> the
   port's (the Chebyshev coefficients and the two corner tables);
 * :func:`from_jax_state`: an ``engine.State`` -> the port's ``State`` (the
-  pool, the counters, the secondary ring and the spectrum; the JAX RNG key
-  has no counterpart and is dropped);
+  pool, the counters, the secondary ring and the spectrum, the birth-state
+  trace's fields included; the JAX RNG key has no counterpart and is
+  dropped);
 * :func:`from_jax_config`: an ``engine.EngineConfig`` at the shipped
   profile's physics or at reference semantics -> the port's.
 """
@@ -63,6 +64,7 @@ def from_jax_engine_tables(tabs, dtype=torch.float64, device="cpu"):
 
 
 _POOL_4 = ("x", "k", "dkdlam", "ev_x", "ev_k")
+_POOL_BIRTH = ("bx", "bk", "bw")
 _POOL_INT = ("n_scatt", "nsc0", "n_step", "ev_tries")
 _POOL_BOOL = ("ev_pending", "occupied", "alive", "interacting", "pend_push",
               "at_event", "record_pending")
@@ -71,11 +73,19 @@ _POOL_BOOL = ("ev_pending", "occupied", "alive", "interacting", "pend_push",
 def from_jax_pool(p, dtype, device="cpu"):
     """A JAX ``Pool`` as the port's ``Pool``.  Without detached events the
     JAX pool's shadow registers are empty; the port's are then zeros and
-    ``ev_pending`` False."""
+    ``ev_pending`` False.  The birth-state fields are carried as they are:
+    with the trace off (JAX ``()`` and a (0,) ``bw``) each is the port's
+    ``()``."""
     out = {}
     n = np.asarray(p.w).shape[0]
     for name in engine.Pool._fields:
         v = getattr(p, name)
+        if name in _POOL_BIRTH:
+            if name == "bw":
+                out[name] = _t(v, device, dtype) if np.asarray(v).size else ()
+            else:
+                out[name] = tuple(_t(c, device, dtype) for c in v)
+            continue
         if name in _POOL_4 and len(v) == 0:
             v = tuple(np.zeros(n) for _ in range(4))
         elif name in ("ev_w", "ev_pending") and np.asarray(v).size == 0:
@@ -92,8 +102,9 @@ def from_jax_pool(p, dtype, device="cpu"):
 
 
 def from_jax_counters(c, dtype, device="cpu"):
-    """JAX ``Counters`` as the port's (the trace-birth fields are dropped)."""
-    float_fields = ("max_tau_scatt", "avg_ema", "w_stall")
+    """JAX ``Counters`` as the port's, the birth-state capture (``mt_*``)
+    included."""
+    float_fields = ("max_tau_scatt", "avg_ema", "w_stall", "mt_bx", "mt_bk", "mt_bw")
     return engine.Counters(**{
         name: _t(getattr(c, name), device, dtype if name in float_fields else torch.int64)
         for name in engine.Counters._fields})
@@ -127,7 +138,8 @@ def from_jax_config(cfg):
         n_pool=cfg.n_pool, m_period=cfg.m_period, sec_cap=cfg.sec_cap,
         tail_exit=cfg.tail_exit, stall_steps=cfg.stall_steps, ev_k=cfg.ev_k,
         refill_k=cfg.refill_k, light_k=cfg.light_k, refill_period=cfg.refill_period,
-        grow_cap=cfg.grow_cap, dtype=dtype, reference=reference)
+        grow_cap=cfg.grow_cap, dtype=dtype, reference=reference,
+        trace_birth=cfg.trace_birth)
 
 
 def from_jax_state(state, dtype=torch.float64, device="cpu"):

@@ -48,6 +48,7 @@ import glob
 import logging
 import os
 import pickle
+import re
 import shutil
 import tempfile
 import time
@@ -60,11 +61,14 @@ from grmonty_tpu_torch.transport import engine as engine_mod
 
 log = logging.getLogger(__name__)
 
-# Counters that take the max over ranks; the others are summed.
+# Counters that take the max over ranks; the birth-trace capture, which
+# passes through from the local counters (the trace is single-device:
+# ShardedSimulation refuses it, so they are zeros); the others are summed.
 MAX_FIELDS = ("max_tau_scatt", "avg_ema")
 FLOAT_SUM_FIELDS = ("w_stall",)
+LOCAL_FIELDS = ("mt_bx", "mt_bk", "mt_bw", "mt_nsc0")
 INT_FIELDS = tuple(f for f in engine_mod.Counters._fields
-                   if f not in MAX_FIELDS + FLOAT_SUM_FIELDS)
+                   if f not in MAX_FIELDS + FLOAT_SUM_FIELDS + LOCAL_FIELDS)
 
 
 def check_devices(world_size, device_type):
@@ -99,7 +103,8 @@ def comm_device():
 def reduce_counters(counters, int_sums=(), float_maxes=()):
     """All-reduce the engine ``Counters`` over the process group: every
     field summed, except ``max_tau_scatt`` and ``avg_ema`` (max), the
-    float ``w_stall`` summed in float64.  ``int_sums`` are summed and
+    float ``w_stall`` summed in float64 and the ``mt_*`` fields, this
+    rank's own (``LOCAL_FIELDS``).  ``int_sums`` are summed and
     ``float_maxes`` maxed along.  Returns (the reduced Counters on the
     counters' device and dtypes, the sums, the maxes)."""
     dev = comm_device()
@@ -119,7 +124,8 @@ def reduce_counters(counters, int_sums=(), float_maxes=()):
     out = engine_mod.Counters(**{
         f: torch.tensor(vals[f], dtype=getattr(counters, f).dtype,
                         device=getattr(counters, f).device)
-        for f in engine_mod.Counters._fields})
+        for f in engine_mod.Counters._fields if f not in LOCAL_FIELDS},
+        **{f: getattr(counters, f) for f in LOCAL_FIELDS})
     return out, ints[len(INT_FIELDS):], maxes[len(MAX_FIELDS):]
 
 
@@ -128,9 +134,15 @@ class ShardedSimulation(driver_mod.Simulation):
     group: rank r runs its share of the plan on ``cuda:r`` (``device``
     "cuda") or on the CPU, and ``run`` returns the reduced spectrum and
     stats on every rank.  ``emit_chunk`` is the chunk of the whole run,
-    split evenly over the ranks; ``config`` sizes each rank's pool."""
+    split evenly over the ranks; ``config`` sizes each rank's pool.  The
+    birth-state trace is single-device: ``config.trace_birth`` raises
+    ``ValueError``."""
 
-    def __init__(self, dump_path, *args, device="cuda", emit_chunk=1 << 20, **kwargs):
+    def __init__(self, dump_path, *args, device="cuda", emit_chunk=1 << 20, config=None,
+                 **kwargs):
+        if config is not None and config.trace_birth:
+            raise ValueError("trace_birth is a single-device diagnostic; ShardedSimulation "
+                             "runs without it")
         if not dist.is_initialized():
             raise RuntimeError("ShardedSimulation needs an initialized torch.distributed "
                                "process group (see run_ranks)")
@@ -142,7 +154,7 @@ class ShardedSimulation(driver_mod.Simulation):
             torch.cuda.set_device(device)
         self.emit_chunk_total = emit_chunk
         self.reduce_s = None
-        super().__init__(dump_path, *args, device=device,
+        super().__init__(dump_path, *args, device=device, config=config,
                          emit_chunk=-(-emit_chunk // self.world_size), **kwargs)
 
     # -- the plan and the share ---------------------------------------------
@@ -189,7 +201,9 @@ class ShardedSimulation(driver_mod.Simulation):
     def _check_resume(self, path):
         """Refuse, on every rank alike, a resume whose per-rank files are
         of another world size or incomplete."""
-        files = sorted(glob.glob(glob.escape(path) + ".rank*"))
+        # the rank files alone: not a save left unfinished (<file>.tmp)
+        files = sorted(f for f in glob.glob(glob.escape(path) + ".rank*")
+                       if re.fullmatch(r"\.rank\d+", f[len(path):]))
         if not files:
             return
         worlds = {self.checkpoint_setup(f)[-2] for f in files}
@@ -208,6 +222,7 @@ class ShardedSimulation(driver_mod.Simulation):
         returns (the whole run's spectrum, its stats) on every rank."""
         if checkpoint_path:
             self._check_resume(checkpoint_path)
+            dist.barrier()  # no rank saves or deletes its file before all have checked
         _, stats = super().run(checkpoint_path=(self._rank_path(checkpoint_path)
                                                 if checkpoint_path else None),
                                checkpoint_every=checkpoint_every)

@@ -151,7 +151,8 @@ def wave_list(total, chunk, n_pool, wave_tail_exit):
 
 def _map_pool(fn, *pools):
     """``fn`` over every (N,) lane tensor of ``pools``, field by field (the
-    4-vector fields component by component); returns a ``Pool``."""
+    4-vector fields component by component; a field that is off, the empty
+    tuple, stays so); returns a ``Pool``."""
     out = {}
     for name in engine_mod.Pool._fields:
         vals = [getattr(p, name) for p in pools]
@@ -216,8 +217,9 @@ def _unflat_state(dat, it, device):
     for name in engine_mod.Pool._fields:
         if f"pool.{name}" in dat:
             pool[name] = t(f"pool.{name}")
-        else:
-            pool[name] = tuple(t(f"pool.{name}.{i}") for i in range(4))
+        else:  # a tuple field: 4 components, or none when it is off
+            pool[name] = tuple(t(f"pool.{name}.{i}") for i in range(4)
+                               if f"pool.{name}.{i}" in dat)
     return engine_mod.State(
         pool=engine_mod.Pool(**pool), spec=t("spec"),
         counters=engine_mod.Counters(**{name: t(f"counters.{name}")
@@ -481,13 +483,13 @@ class Simulation:
         return self._drain_spec(state)
 
     # -- checkpoints ----------------------------------------------------------
-    SETUP_FIELDS = ("photon_n", "n_pool", "emit_chunk", "reference", "dtype")
+    SETUP_FIELDS = ("photon_n", "n_pool", "emit_chunk", "reference", "trace_birth", "dtype")
 
     def _setup(self):
         """The run setup a checkpoint must match (``SETUP_FIELDS``; the
         engine dtype as its bits, 32 or 64)."""
         return (self.photon_n, self.cfg.n_pool, self.emit_chunk, int(self.cfg.reference),
-                torch.finfo(self.cfg.dtype).bits)
+                int(self.cfg.trace_birth), torch.finfo(self.cfg.dtype).bits)
 
     def _elapsed(self):
         """The run's wall seconds so far, its resumed parts included."""

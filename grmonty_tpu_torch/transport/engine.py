@@ -16,13 +16,15 @@ Photons are an SoA pool of (N,) tensors stepped in lockstep:
   photons and refills free lanes; every ``m_period`` iterations the **full
   phase** also runs the deferred scattering events;
 * :meth:`Engine.run` loops those blocks on the host, reading the exit
-  condition once per ``m_period`` block.
+  condition once per ``m_period`` block (and logging its progress every
+  ``PROGRESS_ITERS`` iterations of a long run).
 
 RNG: one ``torch.Generator`` per engine; every draw site takes a whole
 batch from it.  The hot phases take their uniforms as arguments, so the
 kernels and the plain versions are comparable on identical inputs.
 """
 
+import logging
 import typing
 
 import numpy as np
@@ -45,10 +47,13 @@ SHRINK_FLOOR = float(2.0 ** (-consts.MAX_HALVING_DEPTH))
 EV_HALVE = 16  # halve the event sampler's theta_e every this many defers
 EV_FORCE = 32  # force-accept the event sampler's draw at this many defers
 MAX_OUTER = 50_000_000  # safety cap on hot iterations per run()
+PROGRESS_ITERS = 1 << 16  # a long run() logs its progress every this many iterations
 # Photon weights are scaled into float32 range; the spectrum is unscaled
 # at report time (driver.unscale_spectrum).
 WEIGHT_SCALE = 1.0e-25
 WEIGHT_MIN = consts.WEIGHT_MIN * WEIGHT_SCALE
+
+log = logging.getLogger(__name__)
 
 # The shipped profile's physics (grmonty_tpu/transport/profiles.py), fixed
 # here: see ``EngineConfig`` in grmonty_tpu/transport/engine.py for each
@@ -96,6 +101,13 @@ class EngineConfig(typing.NamedTuple):
     # runs use the live feedback.
     bias_fixed_tau: float = 0.0
     bias_fixed_avg: float = 2.0
+    # A diagnostic, off in production: carry each lane's birth state (x, k,
+    # w at load: Pool.bx/bk/bw) and capture, at record time, the birth
+    # state of the photon holding the max_tau_scatt ratchet (Counters.mt_*),
+    # for the deep-tau replay harness (grmonty_tpu_torch.tools.
+    # replay_deep_tau), which replays it through the native tracker's
+    # nominal steps.  It draws no random number and changes no other field.
+    trace_birth: bool = False
 
 
 class EngineTables(typing.NamedTuple):
@@ -130,6 +142,9 @@ class Pool(typing.NamedTuple):
     pend_dl: torch.Tensor  # remaining re-push length of a decided scatter
     dl_shrink: torch.Tensor  # per-lane adaptive step factor
     sec_w: torch.Tensor  # secondary weight frozen at decision time
+    bx: tuple  # 4 x (N,) birth position (EngineConfig.trace_birth; else ())
+    bk: tuple  # 4 x (N,) birth wave vector (trace_birth; else ())
+    bw: torch.Tensor  # (N,) birth weight (trace_birth; else ())
     ev_x: tuple  # detached-event shadow registers: position,
     ev_k: tuple  # parent momentum,
     ev_w: torch.Tensor  # secondary weight,
@@ -173,6 +188,12 @@ class Counters(typing.NamedTuple):
     n_ev_soft: torch.Tensor
     n_ev_forced: torch.Tensor
     n_hc_clamp: torch.Tensor
+    # The birth state of the recorded photon holding the max_tau_scatt
+    # ratchet (EngineConfig.trace_birth; zeros otherwise), engine dtype:
+    mt_bx: torch.Tensor  # (4,) birth position
+    mt_bk: torch.Tensor  # (4,) birth wave vector
+    mt_bw: torch.Tensor  # birth weight
+    mt_nsc0: torch.Tensor  # int64 birth generation
 
 
 class State(typing.NamedTuple):
@@ -192,7 +213,7 @@ def where4(m, a, b):
     return tuple(torch.where(m, ai, bi) for ai, bi in zip(a, b))
 
 
-def empty_pool(n, dtype, device):
+def empty_pool(n, dtype, device, trace_birth=False):
     def z():
         return torch.zeros(n, dtype=dtype, device=device)
 
@@ -210,6 +231,8 @@ def empty_pool(n, dtype, device):
         tau_abs=z(), tau_scatt=z(), n_e_0=z(), theta_e_0=z(), b_0=z(), e_0=z(),
         e_0_s=z(), alpha_scatti=z(), alpha_absi=z(), bi=z(), pend_dl=z(),
         dl_shrink=torch.ones(n, dtype=dtype, device=device), sec_w=z(),
+        bx=z4() if trace_birth else (), bk=z4() if trace_birth else (),
+        bw=z() if trace_birth else (),
         ev_x=z4(), ev_k=z4(), ev_w=z(), ev_pending=zb(),
         n_scatt=zi(), nsc0=zi(), n_step=zi(), ev_tries=zi(),
         occupied=zb(), alive=zb(), interacting=zb(), pend_push=zb(),
@@ -232,6 +255,8 @@ def init_counters(max_tau_scatt_init, dtype, device):
         ls_committed=zi(), ls_parked=zi(),
         avg_ema=zf(), ema_scatt_mark=zi(), ema_rec_mark=zi(),
         n_stall=zi(), w_stall=zf(), n_ev_soft=zi(), n_ev_forced=zi(), n_hc_clamp=zi(),
+        mt_bx=torch.zeros(4, dtype=dtype, device=device),
+        mt_bk=torch.zeros(4, dtype=dtype, device=device), mt_bw=zf(), mt_nsc0=zi(),
     )
 
 
@@ -578,7 +603,7 @@ class Engine:
         c, dt, dev = self.cfg, self.dt, self.device
         self.phases = {"full": 0, "light": 0}
         return State(
-            pool=empty_pool(c.n_pool, dt, dev),
+            pool=empty_pool(c.n_pool, dt, dev, trace_birth=c.trace_birth),
             spec=torch.zeros((N_BINS + 1, N_SPEC_CHAN), dtype=dt, device=dev),
             counters=init_counters(self.mc.max_tau_scatt0, dt, dev),
             sec=SecBuf(rows=torch.zeros((c.sec_cap, ROW_WIDTH), dtype=dt, device=dev),
@@ -698,6 +723,24 @@ class Engine:
             w * e0_g, we * we, (nsc0_g > 0).to(dt), nsc0_g.to(dt)], dim=-1)
         vals = torch.where(ok[:, None], vals, 0.0)
         spec = spec.index_add(0, idx, vals)
+
+        if self.cfg.trace_birth:
+            # when this batch advances the ratchet, capture the advancing
+            # photon's birth state (against the pre-update ratchet; invalid
+            # lanes read -1, as in the JAX engine)
+            bcols = take_cols(gi, [*p.bx, *p.bk, p.bw])
+            tvals = torch.where(valid, tsc_g, -1.0)
+            am = torch.argmax(tvals)
+            better = tvals[am] > counters.max_tau_scatt
+
+            def sel(new, cur):
+                return torch.where(better, new, cur)
+
+            counters = counters._replace(
+                mt_bx=sel(torch.stack([c[am] for c in bcols[0:4]]), counters.mt_bx),
+                mt_bk=sel(torch.stack([c[am] for c in bcols[4:8]]), counters.mt_bk),
+                mt_bw=sel(bcols[8][am], counters.mt_bw),
+                mt_nsc0=sel(nsc0_g[am].to(torch.int64), counters.mt_nsc0))
 
         counters = counters._replace(
             n_recorded=counters.n_recorded + ok.sum(),
@@ -884,8 +927,15 @@ class Engine:
             (p.bi, keep(torch.where(inside, b0, zero), bi_c)),
             (p.interacting, keep(inside, int_c)),
         ])
-        return p._replace(dkdlam=tuple(news[:4]), alpha_scatti=news[4],
-                          alpha_absi=news[5], bi=news[6], interacting=news[7])
+        p = p._replace(dkdlam=tuple(news[:4]), alpha_scatti=news[4],
+                       alpha_absi=news[5], bi=news[6], interacting=news[7])
+        if self.cfg.trace_birth:
+            # the freshly loaded lanes' (x, k, w) are their birth state
+            bcur = take_cols(gi, [*p.bx, *p.bk, p.bw])
+            bnews = put_cols(sidx, [(dst, keep(new, cur)) for dst, new, cur in zip(
+                [*p.bx, *p.bk, p.bw], [x0g, x1g, x2g, x3g, *kg, wg], bcur)])
+            p = p._replace(bx=tuple(bnews[0:4]), bk=tuple(bnews[4:8]), bw=bnews[8])
+        return p
 
     def _poison_sweep(self, p: Pool) -> Pool:
         """NaN insurance: poisoned lanes die unrecorded."""
@@ -961,12 +1011,16 @@ class Engine:
         n_super = max(1, cfg.m_period)
         rp = cfg.refill_period if cfg.refill_period > 0 else n_super
         blocks = [rp] * (n_super // rp) + ([n_super % rp] if n_super % rp else [])
-        it0 = state.it
+        it0, next_log = state.it, PROGRESS_ITERS
         while state.it - it0 < MAX_OUTER:
             occ, pos, sec = torch.stack([state.pool.occupied.sum(), state.backlog_pos,
                                          state.sec.count]).tolist()
             if not (occ > te or pos < nv or sec > 0):
                 break
+            if state.it - it0 >= next_log:
+                log.info("engine run: %d hot iterations, %d lanes occupied, %d secondaries "
+                         "queued", state.it - it0, occ, sec)
+                next_log += PROGRESS_ITERS
             state = self.periodic_phase(state, backlog_rows, nv)
             for bi_, nb in enumerate(blocks):
                 if bi_:

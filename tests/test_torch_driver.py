@@ -15,7 +15,7 @@
 * The tail cascade: ``tail_gather`` / ``tail_merge`` equal the ``gather`` /
   ``merge`` of JAX ``Simulation._drain_jits`` field by field on a seeded
   JAX pool of 1,024 lanes carried in with ``convert.from_jax_pool``, at
-  n_t = 512.
+  n_t = 512, with the birth-state trace's fields off and on.
 
 * The kernel build: a CPU ``Simulation`` builds nothing and reports
   ``compile_s`` 0.0; a CUDA one has its kernels loaded before ``run()``
@@ -199,9 +199,10 @@ def test_wave_list_matches_jax(jx, total, chunk):
     assert sum(n for _, n, _ in seen) == total
 
 
-def _jax_pool(jx, n, seed):
-    """A JAX pool with detached events, every field seeded at random, about
-    60% of the lanes occupied."""
+def _jax_pool(jx, n, seed, trace_birth=False):
+    """A JAX pool with detached events (and with ``trace_birth`` the birth
+    fields), every field seeded at random, about 60% of the lanes
+    occupied."""
     jnp = jx.jnp
     rng = np.random.default_rng(seed)
 
@@ -213,7 +214,8 @@ def _jax_pool(jx, n, seed):
             return jnp.asarray(rng.integers(0, 1000, a.shape).astype(a.dtype))
         return jnp.asarray(rng.standard_normal(a.shape).astype(a.dtype))
 
-    return jx.jax.tree.map(fill, jx.engine.empty_pool(n, jnp.float64, detached_events=True))
+    return jx.jax.tree.map(fill, jx.engine.empty_pool(n, jnp.float64, detached_events=True,
+                                                      trace_birth=trace_birth))
 
 
 def _assert_pools_equal(got, ref, what):
@@ -224,12 +226,20 @@ def _assert_pools_equal(got, ref, what):
 
 
 def test_tail_gather_and_merge_match_jax(jx):
+    """Without the birth trace (its fields empty) and with it (carried
+    through the gather and the merge like every lane field)."""
+    for trace_birth in (False, True):
+        _tail_gather_and_merge(jx, trace_birth)
+
+
+def _tail_gather_and_merge(jx, trace_birth):
     jnp = jx.jnp
     n_pool, n_t = 1024, 512
     stand_in = types.SimpleNamespace(
         cfg=types.SimpleNamespace(n_pool=n_pool, detached_events=True), _drain_fns={})
     gather, merge, _ = jx.driver.Simulation._drain_jits(stand_in, n_t)
-    jpool = _jax_pool(jx, n_pool, 11)
+    jpool = _jax_pool(jx, n_pool, 11, trace_birth)
+    assert len(convert.from_jax_pool(jpool, torch.float64).bx) == (4 if trace_birth else 0)
     assert int(jpool.occupied.sum()) > n_t  # the gather must truncate
     j_small, j_wide = gather(jpool)
     small, wide = driver.tail_gather(convert.from_jax_pool(jpool, torch.float64), n_t)

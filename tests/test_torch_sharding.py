@@ -20,7 +20,7 @@ on the 64x32 torus.
   chi^2/dof 1.32 (2 ranks) and 1.05 (4 ranks), 0.70 for one device.
 * The reduce's rules on synthetic per-rank counters (4 gloo ranks): every
   counter summed, ``max_tau_scatt`` and ``avg_ema`` the max, ``w_stall``
-  summed in float64.
+  summed in float64, the birth-trace capture (``mt_*``) rank 0's own.
 
 The ranks are started by the package (``sharding.run_ranks``: spawned
 processes, one torch thread each), never by this module, so they import
@@ -164,8 +164,10 @@ def test_reduce_rules_on_synthetic_counters():
         vals = {f: int(rng.integers(0, 1 << 40)) for f in sharding.INT_FIELDS}
         vals.update({f: float(rng.uniform(0.0, 1.0)) for f in sharding.MAX_FIELDS})
         vals["w_stall"] = float(rng.uniform(0.0, 1e3))
+        vals.update(mt_bx=rng.uniform(size=4), mt_bk=rng.uniform(size=4),
+                    mt_bw=float(rng.uniform()), mt_nsc0=int(rng.integers(0, 9)))
         c = engine.Counters(**{
-            f: torch.tensor(vals[f], dtype=(torch.int64 if f in sharding.INT_FIELDS
+            f: torch.tensor(vals[f], dtype=(torch.int64 if f in sharding.INT_FIELDS + ("mt_nsc0",)
                                              else torch.float32))
             for f in engine.Counters._fields})
         extra_i, extra_f = [int(v) for v in rng.integers(0, 1000, 3)], [float(rng.uniform())]
@@ -178,6 +180,8 @@ def test_reduce_rules_on_synthetic_counters():
     for f in sharding.MAX_FIELDS:
         assert float(getattr(got, f)) == max(float(getattr(c, f)) for c, _, _ in per_rank), f
         assert getattr(got, f).dtype == torch.float32
+    for f in sharding.LOCAL_FIELDS:  # rank 0's result: rank 0's capture
+        assert torch.equal(getattr(got, f), getattr(per_rank[0][0], f)), f
     want = sum(float(c.w_stall) for c, _, _ in per_rank)
     assert float(got.w_stall) == pytest.approx(want, rel=1e-6)  # float64 sum, float32 out
     assert sums == [sum(x[0][i] for x in floats) for i in range(3)]
