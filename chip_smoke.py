@@ -36,12 +36,29 @@ Phases, each of which exits non-zero on failure:
    and an estimate of the float32 issue floor.  The hot step is checked
    and timed the same way at the tail cascade's widths, N = 4,096 and 512
    (``kernel check hot_step@4096: ...``; float64 also at the accuracy
-   gate's 1,024).  Every
-   run of phases 5-12 must launch exactly what its path runs
+   gate's 1,024).  The event kernel (``scatter_event``, the scatter event
+   of every full phase) on synthetic event lanes
+   (``hot_kernels.synthetic_events``: seeded positions and null wave
+   vectors through the engine's own fluid, guard, inactive, halved and
+   forced lanes) at the event phase's widths, N = 16,384 and 512, against
+   the plain ``scattering.scatter_event_c`` drawing from
+   ``draws.PhiloxDraws`` under the kernel's key
+   (``hot_kernels.compare_event``: masks and round counts equal on every
+   active lane but where an acceptance test sat within a few ulps of its
+   threshold, each such lane printed, at most one in 10,000; floats on the
+   lanes made and sampled within rtol 1e-4 of the lane's scale); its
+   ``plain_ms`` is the plain version drawing from a ``torch.Generator``,
+   as the event phase ran before the kernel, its ``bound_ms`` counts the
+   rounds its lanes ran (``event_ops``); the chain kernel
+   (``scatter_chain``) the same way at the scatter-chain probe's 40,000
+   lanes over its (theta_e, k0) grid; the generator's raw words
+   (``philox_words``) bitwise against the plain version and against
+   ``numpy.random.Philox``.  Every
+   run of phases 5-12 and 14 must launch exactly what its path runs
    (``path_launches``: the hot step of its dtype and semantics once per hot
    iteration, the row gather of its dtype once per full phase and, under
-   reference semantics, once per fresh-lane init, no other entry point) and
-   no plain hot step;
+   reference semantics, once per fresh-lane init, the event kernel of its
+   dtype once per full phase, no other entry point) and no plain hot step;
 5. the shipped profile end to end at M = 4e19, seed 123, float32, pool
    65,536, the JAX driver's whole schedule: the pilot (8,192 photons on the
    host tracker; its seconds and counters printed), the waves (the first
@@ -49,7 +66,8 @@ Phases, each of which exits non-zero on failure:
    device window printed); every hot step of every engine must be one
    launch of ``hot_step`` and the row gather must run once per full phase
    of every engine (its event samplers) and nowhere else, the cascade must
-   end with the pool empty, the spectrum must be finite with a photon
+   end with the pool empty, every full phase's scatter event must be one
+   launch of ``scatter_event``, the spectrum must be finite with a photon
    count equal to ``n_recorded`` (the pilot's records debited), no
    secondary may be dropped, and the luminosity must lie within 10% of the
    JAX engine's 12694.3 on the same torus and seed;
@@ -118,7 +136,9 @@ Phases, each of which exits non-zero on failure:
    (``{"phase": "sharded", ...}``);
 12. float64 on the card: (a) phase 4's checks in float64 (``hot_step_f64``,
    ``hot_step_ref_f64`` at N = 65,536, 4,096, 1,024 and 512, ``row_gather_f64``
-   bitwise), on the tables of a float64 ``Simulation`` of the cell; (b)
+   bitwise, ``scatter_event_f64`` at 16,384, 1,024 and 512 within rtol
+   1e-11, ``scatter_chain_f64``), on the tables of a float64 ``Simulation``
+   of the cell; (b)
    that ``Simulation`` end to end, the shipped profile at
    ``--resume-photon-n`` photons with phase 8's waves and cascade step cap,
    under phase 5's checks (``"path": "shipped_f64"``), its phases clocked,
@@ -132,8 +152,10 @@ Phases, each of which exits non-zero on failure:
 13. the scatter-chain distribution probe
    (``grmonty_tpu_torch.tools.probe_scatter_dist``) on the card at its full
    ``PROBE_N`` of 40,000 photons a cell over its 3 x 3 grid of (theta_e,
-   k0): the engine's deferring samplers in float64 against the native
-   tracker's scalar ones, one line a cell (``scatter cell: {...}``) and one
+   k0): the engine's deferring samplers in float64, each phase one launch
+   of the chain kernel ``scatter_chain_f64`` (the launch counts set to 0
+   just before; it must have launched), against the native tracker's
+   scalar ones, one line a cell (``scatter cell: {...}``) and one
    summary (``{"phase": "scatter_dist", ...}``); every photon must accept
    within the probe's 64 phases, and ``mean_ratio`` and ``q99_ratio`` must
    lie within 1 +- ``SCATTER_TOL``, or within ``SCATTER_SIGMAS`` of their
@@ -224,6 +246,27 @@ ISSUE_PER_S = {dt: ops / 2 for dt, ops in OPS_PER_S.items()}
 # gathers do no arithmetic; a row sum of width w does w - 1 additions
 # (W_PROBE here; the w = 216 checks pass their own).
 W_PROBE = 32
+# The event kernel's checks: the event phase's compacted widths (ev_k at the
+# pool of 65,536, and the cascade's and the gate's), and the chain kernel's
+# lanes, the scatter-chain probe's photons a cell.
+EVENT_WIDTHS = {"float32": (16384, 512), "float64": (16384, 1024, 512)}
+CHAIN_N = 40000
+# The event kernels' work, counted by hand from csrc/scatter_event.cu, as
+# float operations (every add, multiply, compare-select, division, square
+# root and transcendental as one) and 32-bit integer instructions: a Philox
+# block is 260 (per round two 64-bit low products, 3 each, two high
+# products, 6 each, two three-way 64-bit XORs, 2 each, the key's two 64-bit
+# adds, 2 each), counted at the float32 rate (the card's integer pipes run
+# at half of it, so the bound stays a least time).  Every lane: 690 (the
+# field trial vector, the tetrad's four normalisations and six projections,
+# the frames and the masks); a lane that samples: 335 and two Philox blocks
+# (the mixture's weights, the two directions, the two boosts, the
+# Klein-Nishina set-up); an electron round: 133 and three blocks; a round
+# of the second loop: 11 (Thomson's; a Klein-Nishina round is 21) and one
+# block.  The chain kernel does no tetrad.
+EVENT_OPS = {"lane": 690, "sampled": 335, "electron_round": 133, "second_round": 11}
+PHILOX_BLOCK_INT_OPS = 260
+EVENT_BLOCKS = {"sampled": 2, "electron_round": 3, "second_round": 1}
 PROBE_BLK = 8192  # probe_pallas_gather's default blk (PROBE_BLK) for dsB
 ROWSUMS = tuple(f"gather_rowsum_{s}" for s in ("coop", "persistent", "rowloop", "smem"))
 OPS_PER_LANE = {"hot_step": 3800, "hot_step_ref": 3840, "row_gather": 0,
@@ -243,6 +286,13 @@ TOLERANCE = {
     **{name: "|kernel - plain| <= w * 2^-23 * sum_j |table[idx, j]| on every index"
        for name in ROWSUMS},
     "row_gather_rowloop": "bitwise equal",
+    **{name: ("against the plain version on draws.PhiloxDraws under the same key: masks and "
+              "round counts equal on every active lane but where an acceptance test sat "
+              "within 16 ulps of its threshold, at most one lane in 10,000; floats on the "
+              f"lanes made and sampled within rtol {rtol} of the lane's scale")
+       for name, rtol in (("scatter_event", "1e-4"), ("scatter_event_f64", "1e-11"),
+                          ("scatter_chain", "1e-4"), ("scatter_chain_f64", "1e-11"))},
+    "philox_words": "bitwise equal to the plain version and to numpy.random.Philox",
 }
 SOURCES = {"hot_step": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:104, "
                         "grmonty_tpu/transport/hotstep_pallas.py:152"),
@@ -258,9 +308,15 @@ SOURCES = {"hot_step": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:
            "gather_rowsum_rowloop": ("gather_probe.cu", "tools/probe_gather.py:133"),
            "gather_rowsum_smem": ("gather_probe.cu", "tools/probe_pallas_gather.py:125"),
            "row_gather_rowloop": ("gather_probe.cu", "tools/probe_vmem_gather.py:178")}
+# The event kernels replace no TPU kernel: the JAX event phase is XLA.
+EVENT_SOURCE = ("scatter_event.cu", "no TPU kernel: XLA process_scatters, "
+                "grmonty_tpu/transport/engine.py:2036; grmonty_tpu/ops/scattering.py:125")
+SOURCES.update({name: EVENT_SOURCE for name in ("scatter_event", "scatter_chain",
+                                                "philox_words")})
 # The float64 instantiations replace what their float32 kernels replace.
 SOURCES.update({f"{name}_f64": SOURCES[name]
-                for name in ("hot_step", "hot_step_ref", "row_gather")})
+                for name in ("hot_step", "hot_step_ref", "row_gather", "scatter_event",
+                             "scatter_chain")})
 # Phase 7's probes, by module name under grmonty_tpu_torch/tools.
 PROBES = ("probe_gather", "probe_pallas_gather", "probe_vmem_gather")
 # Phase 10: the accuracy gate at the setup of the tracked shipped bar
@@ -705,7 +761,154 @@ def kernel_checks(sim, usage, sass, ref_stall_steps):
              + torch.unique(idx).numel() * table.shape[1] * table.element_size())
     out.append(time_kernel(name, {"rows": ref_g}, {"rows": got_g}, plain_g, kern_g,
                            moved, library=library_g))
+    return out + event_checks(sim, usage)
+
+
+def event_ops(rounds_el, rounds_sc, n, chain=False):
+    """(float operations, 32-bit integer instructions) of an event kernel's
+    launch on ``n`` lanes whose loops ran ``rounds_el`` and ``rounds_sc``
+    rounds (EVENT_OPS; a lane with 0 electron rounds sampled nothing)."""
+    sampled = int((rounds_el > 0).sum())
+    r_el, r_sc = int(rounds_el.sum()), int(rounds_sc.sum())
+    counts = {"lane": 0 if chain else n, "sampled": sampled, "electron_round": r_el,
+              "second_round": r_sc}
+    flops = sum(EVENT_OPS[k] * v for k, v in counts.items())
+    int_ops = PHILOX_BLOCK_INT_OPS * sum(EVENT_BLOCKS.get(k, 0) * v for k, v in counts.items())
+    return flops, int_ops
+
+
+def event_ops_equiv(flops, int_ops, dtype):
+    """The operations at ``dtype``'s rate that take as long as ``flops``
+    float operations at that rate and ``int_ops`` integer instructions at
+    the float32 rate: what :func:`bound` takes for an event kernel."""
+    return flops + int_ops * OPS_PER_S[dtype] / FP32_OPS_PER_S
+
+
+def event_checks(sim, usage):
+    """Phase 4c (and 12a): the event kernel of ``sim``'s dtype against its
+    plain version at EVENT_WIDTHS on synthetic event lanes, the chain
+    kernel at CHAIN_N lanes over the scatter-chain probe's grid, and (in
+    float32) the generator's raw words.  Returns the records at the event
+    phase's full width and the chain's and philox_words' records; prints
+    the others."""
+    import torch
+
+    from grmonty_tpu_torch.ops import draws, scattering
+    from grmonty_tpu_torch.tools import probe_scatter_dist
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    eng, mc, dev = sim.engine, sim.mc, sim.device
+    dtn = "float64" if sim.cfg.dtype == torch.float64 else "float32"
+    out = []
+
+    def gen_of(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def check(name, n, res_plain, res_kern, margin, active, plain, kern, moved, ops, extra):
+        rec, fails, rows = hot_kernels.compare_event(name, res_plain, res_kern, margin, active)
+        for row in rows:
+            print(f"  {name}@{n}: a lane near a threshold differs: {json.dumps(row)}")
+        flops, int_ops = ops
+        inst = ("scatter_chain_kernelI" if "chain" in name else "scatter_event_kernelI") + (
+            "dE" if dtn == "float64" else "fE")
+        fn = next((f for f in usage if inst in f), None)
+        rec.update(extra, flops=flops, int_ops=int_ops, ptxas=usage.get(fn),
+                   rounds=[int(res_kern.rounds_el.sum()), int(res_kern.rounds_sc.sum())])
+        full = time_kernel(name, {}, {}, plain, kern, moved, n=n, extra=rec,
+                           ops=event_ops_equiv(flops, int_ops, dtn))
+        print(f"  {name}@{n}: {flops} float operations, {int_ops} integer instructions; "
+              f"ptxas {rec['ptxas']}")
+        if fails:
+            fail(f"{name}@{n} disagrees with its plain version: " + "; ".join(fails))
+        return full
+
+    name = hot_kernels.entry_point("scatter_event", sim.cfg.dtype)
+    for n in EVENT_WIDTHS[dtn]:
+        _, k, fl, g7, active, force, _ = hot_kernels.synthetic_events(eng, n, 2026)
+        key = torch.tensor([0x5EED0000 + n, 0xC0FFEE], dtype=torch.int64, device=dev)
+        src = draws.PhiloxDraws(key, margins=True)
+        ref = scattering.scatter_event_c(src, k, fl, g7, mc.b_unit, active=active, force=force)
+        got = hot_kernels.scatter_event(k, fl, g7, mc.b_unit, active, force, key=key)
+        torch.cuda.synchronize()
+        gen = gen_of(n)
+        plain = lambda: scattering.scatter_event_c(  # noqa: E731
+            gen, k, fl, g7, mc.b_unit, active=active, force=force)
+        kern = lambda: hot_kernels.scatter_event(  # noqa: E731
+            k, fl, g7, mc.b_unit, active, force, key=key)
+        moved = nbytes(k, fl.u_con, fl.b_con, fl.b, fl.theta_e, g7, active, force, key,
+                       got)
+        guard = {"parent_die": int((got.parent_die & active).sum()),
+                 "inactive": int((~active).sum()), "forced": int(force.sum()),
+                 "deferred": int((active & ~got.sampled).sum())}
+        rec = check(name, n, ref, got, src.margin, active, plain, kern, moved,
+                    event_ops(got.rounds_el, got.rounds_sc, n),
+                    {"lanes": guard, "library_ms": None, "library_device_ms": None})
+        if n == EVENT_WIDTHS[dtn][0]:
+            out.append(rec)
+
+    # the chain kernel at the probe's photons, over its grid of cells
+    name = hot_kernels.entry_point("scatter_chain", sim.cfg.dtype)
+    cells = [(t, k0) for t in probe_scatter_dist.THETAS for k0 in probe_scatter_dist.K0S]
+    cell = torch.arange(CHAIN_N, device=dev) % len(cells)
+    th = torch.tensor([c[0] for c in cells], dtype=sim.cfg.dtype, device=dev)[cell]
+    k0 = torch.tensor([c[1] for c in cells], dtype=sim.cfg.dtype, device=dev)[cell]
+    k_tet = (k0, k0.clone(), torch.zeros_like(k0), torch.zeros_like(k0))
+    key = torch.tensor([0x5EED, 0xC4A1], dtype=torch.int64, device=dev)
+    src = draws.PhiloxDraws(key, margins=True)
+    ref = scattering.scatter_chain_c(src, k_tet, th)
+    got = hot_kernels.scatter_chain(k_tet, th, key=key)
+    torch.cuda.synchronize()
+    gen = gen_of(7)
+    moved = nbytes(k_tet, th, key, got) + CHAIN_N  # + force
+    out.append(check(name, CHAIN_N, ref, got, src.margin, None,
+                     lambda: scattering.scatter_chain_c(gen, k_tet, th),
+                     lambda: hot_kernels.scatter_chain(k_tet, th, key=key), moved,
+                     event_ops(got.rounds_el, got.rounds_sc, CHAIN_N, chain=True),
+                     {"cells": len(cells), "library_ms": None, "library_device_ms": None,
+                      # phase 13 launches the float64 chain; no phase the float32 one
+                      "launches": None}))
+
+    if dtn == "float32":
+        out.append(philox_check(dev))
     return out
+
+
+def philox_check(dev):
+    """The generator's raw words at seeded counters, bitwise against the
+    plain version and against numpy.random.Philox (its first four words at
+    counter c are the words at c + 1)."""
+    import numpy as np
+    import torch
+
+    from grmonty_tpu_torch.ops import draws
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    n = 65536
+    rng = np.random.default_rng(2027)
+    ctr_np = rng.integers(0, 2**63 - 1, (n, 4), dtype=np.int64)
+    ctr_np[:4] = [[1, 0, 0, 0], [0, 1, 0, 0], [2**62, 3, 4, 5], [7, 2**40, 0, 1]]
+    key_np = np.array([0x0123456789ABCDEF, 0x7EDCBA9876543210], dtype=np.int64)
+    ctr, key = torch.as_tensor(ctr_np, device=dev), torch.as_tensor(key_np, device=dev)
+    got = hot_kernels.philox_words(ctr, key)
+    plain = draws.philox_words(ctr, key)  # the plain version, on the card
+    torch.cuda.synchronize()
+    if not torch.equal(got, plain):
+        fail("philox_words is not bitwise equal to its plain version")
+    for i in range(64):
+        c = sum(int(w) << (64 * j) for j, w in enumerate(ctr_np[i].view(np.uint64))) - 1
+        bg = np.random.Philox(key=key_np.view(np.uint64), counter=np.array(
+            [(c >> (64 * j)) & (2**64 - 1) for j in range(4)], dtype=np.uint64))
+        if not np.array_equal(bg.random_raw(4), got[i].cpu().numpy().view(np.uint64)):
+            fail(f"philox_words differs from numpy.random.Philox at counter {ctr_np[i]}")
+    # 260 integer instructions a block at the float32 rate; 64 bytes a counter
+    rec = time_kernel("philox_words", {}, {}, lambda: draws.philox_words(ctr, key),
+                      lambda: hot_kernels.philox_words(ctr, key), nbytes(ctr, key, got),
+                      ops=PHILOX_BLOCK_INT_OPS * n, n=n,
+                      extra={"library_ms": None, "library_device_ms": None,
+                             "launches": None, "numpy_counters": 64})
+    return rec
 
 
 def probe_kernel_checks():
@@ -821,14 +1024,16 @@ def path_launches(cfg, stats):
     hot step of its dtype and semantics once per hot iteration of every
     engine, the row gather of its dtype once in each full phase's event
     samplers and, under reference semantics, once in each phase's
-    fresh-lane init; every other entry point never."""
+    fresh-lane init, the event kernel of its dtype once in each full phase;
+    every other entry point never."""
     from grmonty_tpu_torch.transport import hot_kernels
 
     hot = hot_kernels.entry_point("hot_step", cfg.dtype, cfg.reference)
     gather = hot_kernels.entry_point("row_gather", cfg.dtype)
+    event = hot_kernels.entry_point("scatter_event", cfg.dtype)
     gathers = stats["full_phases"] + (stats["full_phases"] + stats["light_phases"]
                                       if cfg.reference else 0)
-    want = {hot: stats["hot_iters"], gather: gathers}
+    want = {hot: stats["hot_iters"], gather: gathers, event: stats["full_phases"]}
     return {name: want.get(name, 0) for name in hot_kernels.launches}
 
 
@@ -863,20 +1068,19 @@ def counting_plain_steps():
 
 @contextlib.contextmanager
 def phase_clocks():
-    """The engine's phases bracketed by CUDA events for the run inside
-    (``profile_slice.clock_phases``, which synchronises nothing); yields
+    """The engine's phases and the event kernel's wrapper bracketed by CUDA
+    events for the run inside (``profile_slice.clock_phases``, which
+    synchronises nothing); yields
     {phase: [(event, event)]}, read by :func:`clock_summary`."""
     import profile_slice
     from grmonty_tpu_torch.transport import engine
 
-    saved = {name: getattr(engine.Engine, name) for name in profile_slice.PHASES}
-    clocks = {name: [] for name in profile_slice.PHASES}
-    profile_slice.clock_phases(engine.Engine, clocks)
+    clocks = {name: [] for name in profile_slice.PHASES + profile_slice.WRAPPERS}
+    saved = profile_slice.clock_phases(engine.Engine, clocks)
     try:
         yield clocks
     finally:
-        for name, fn in saved.items():
-            setattr(engine.Engine, name, fn)
+        profile_slice.restore_phases(engine.Engine, saved)
 
 
 def clock_summary(clocks, device_s):
@@ -1239,7 +1443,7 @@ def f64_checks(root, args, usage, sass, ref32=None):
         del sim32
     t0 = time.monotonic()
     stats, counts = drive(sim, "shipped_f64", clocks=True)
-    for name in ("hot_step_f64", "row_gather_f64"):
+    for name in ("hot_step_f64", "row_gather_f64", "scatter_event_f64"):
         recs[name]["launches"] = counts[name]
     st32, phases32 = ref32
     keys = ("device_s", "photon_rate_device", "hot_iters", "full_phases", "light_phases",
@@ -1260,15 +1464,20 @@ def f64_checks(root, args, usage, sass, ref32=None):
 
 def scatter_dist_check():
     """Phase 13: the scatter-chain probe on the card at SCATTER_N photons a
-    cell; every cell's mean and q99 ratios within 1 +- SCATTER_TOL, or
-    within SCATTER_SIGMAS of their Monte Carlo errors where wider."""
+    cell, its chain the kernel ``scatter_chain_f64`` (launch counts set to 0
+    just before; it must have launched); every cell's mean and q99 ratios
+    within 1 +- SCATTER_TOL, or within SCATTER_SIGMAS of their Monte Carlo
+    errors where wider.  Returns the launch counts."""
     import torch
 
     from grmonty_tpu_torch.tools import probe_scatter_dist
+    from grmonty_tpu_torch.transport import hot_kernels
 
     t0 = time.monotonic()
+    hot_kernels.reset_launches()
     cells, errors = probe_scatter_dist.measure(
         SCATTER_N, torch.device("cuda"), out=lambda line: print(f"scatter cell: {line}"))
+    counts = dict(hot_kernels.launches)
     keys = ("mean_ratio", "q99_ratio")
     # each ratio's distance from 1 in units of its bar
     over = [{k: abs(c[k] - 1.0) / max(SCATTER_TOL, SCATTER_SIGMAS * err[k]) for k in keys}
@@ -1278,7 +1487,10 @@ def scatter_dist_check():
                          for k in keys},
                       **{f"{k}_errors": [e[k] for e in errors] for k in keys},
                       "worst_of_bar": max(max(o.values()) for o in over), "tol": SCATTER_TOL,
-                      "sigmas": SCATTER_SIGMAS, "seconds": time.monotonic() - t0}))
+                      "sigmas": SCATTER_SIGMAS, "launches": counts,
+                      "seconds": time.monotonic() - t0}))
+    if counts["scatter_chain_f64"] < 1:
+        fail(f"scatter_dist: the chain never launched scatter_chain_f64 ({counts})")
     for c, err, o in zip(cells, errors, over):
         where = f"theta_e {c['theta_e']}, k0 {c['k0']}"
         if c["engine"]["n"] != SCATTER_N:
@@ -1288,6 +1500,7 @@ def scatter_dist_check():
             if not o[k] <= 1.0:
                 fail(f"scatter_dist: {k} {c[k]} not within 1 +- max({SCATTER_TOL}, "
                      f"{SCATTER_SIGMAS} x {err[k]}) at {where}")
+    return counts
 
 
 def replay_check(root):
@@ -1422,7 +1635,8 @@ def main():
                                                           args.ref_stall_steps)}
 
     _, counts = drive(sim, "shipped")
-    kernels["hot_step"]["launches"] = counts["hot_step"]
+    for name in ("hot_step", "scatter_event"):
+        kernels[name]["launches"] = counts[name]
     del sim
 
     ref_sim = make_simulation(root, args.ref_photon_n, reference=True,
@@ -1447,7 +1661,7 @@ def main():
     sharded_check(root, args.resume_photon_n, ref)
     kernels.update((rec["name"], rec)
                    for rec in f64_checks(root, args, usage, sass, (ref[1], phases32)))
-    scatter_dist_check()
+    kernels["scatter_chain_f64"]["launches"] = scatter_dist_check()["scatter_chain_f64"]
     replay_check(root)
 
     print(card)

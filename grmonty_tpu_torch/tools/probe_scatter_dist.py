@@ -10,14 +10,16 @@ vector (k0, k0, 0, 0) scatter through the complete chain (electron draw ->
 boost -> Klein-Nishina energy -> angle -> boost back), and the
 amplification A = k'_tet[0] / k0 is compared:
 
-* :func:`engine_chain`: the engine's samplers, ``ops.proba.
-  sample_electron_distr_p_c`` then ``ops.scattering.
-  sample_scattered_photon_c``, with their round caps, in float64 on
-  ``device`` from one ``torch.Generator``; a lane whose draw was not
-  accepted within the caps redraws in the next of up to 64 phases, as a
-  deferred scatter event does in the engine's event phase (without its
-  theta_e halving or forcing, which the engine applies only after 16 and
-  32 defers);
+* :func:`engine_chain`: the engine's samplers with their round caps
+  (``hot_kernels.scatter_chain``: on the card one launch of the
+  ``scatter_chain_f64`` kernel of ``csrc/scatter_event.cu`` a phase, its
+  Philox key drawn from one ``torch.Generator``; on the CPU the plain
+  ``ops.proba.sample_electron_distr_p_c`` then ``ops.scattering.
+  sample_scattered_photon_c`` from that generator), in float64 on
+  ``device``; a lane whose draw was not accepted within the caps redraws
+  in the next of up to 64 phases, as a deferred scatter event does in the
+  engine's event phase (without its theta_e halving or forcing, which the
+  engine applies only after 16 and 32 defers);
 * :func:`oracle_chain`: the native tracker's scalar samplers
   (``NativeTracker.sample_electron`` / ``sample_scattered``), the
   transcriptions of the reference's nested rejection loops.
@@ -29,8 +31,7 @@ P(A > 10) is at most 1e-4), and :func:`ratio_errors` the Monte Carlo
 standard errors of the first two.  :func:`main` runs on the card only
 (with no CUDA device it exits 2), prints one JSON line per cell and writes
 ``{"cells": [...], "ratio_errors": [...], "card": ..., "n": ...,
-"seconds": ...}`` to ``argv[1]`` when given.  The samplers are PyTorch
-ops: no hand-written kernel runs here.
+"seconds": ...}`` to ``argv[1]`` when given.
 """
 
 import json
@@ -42,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from grmonty_tpu_torch.ops import proba, scattering
+from grmonty_tpu_torch.transport import hot_kernels
 
 THETAS = (2.0, 8.0, 20.0)
 K0S = (1e-6, 1e-3, 1e-1)
@@ -66,11 +67,10 @@ def engine_chain(theta_e, k0, n, seed, device="cpu"):
     out = np.zeros(n)
     done = np.zeros(n, bool)
     for _ in range(PHASES):
-        p_el, ok_el = proba.sample_electron_distr_p_c(gen, k_tet, th)
-        k_p, ok_kn = scattering.sample_scattered_photon_c(gen, k_tet, p_el)
-        ok = (ok_el & ok_kn).cpu().numpy()
+        res = hot_kernels.scatter_chain(k_tet, th, gen=gen)
+        ok = (res.ok_el & res.ok_kn).cpu().numpy()
         take = ok & ~done
-        out[take] = k_p[0].cpu().numpy()[take]
+        out[take] = res.k_tet_p[0].cpu().numpy()[take]
         done |= take
         if done.all():
             break

@@ -487,6 +487,22 @@ def run_oracle(sim, rows, seed, reps, bias_fixed, oracle="native"):
     return specs.mean(0), specs, counts, time.time() - t0
 
 
+def gate_sample(args):
+    """(``Simulation``, the emitted sample's rows) of a run of ``args``: the
+    first ``--photons`` photons of the plan on the n1 x n2 torus."""
+    import torch
+
+    from grmonty_tpu_torch.transport import driver
+
+    cfg, tail = _config(args)
+    sim = driver.Simulation(_torus(args.n1, args.n2), photon_n=args.photon_n,
+                            mass_unit=args.mass_unit, seed=args.seed, config=cfg,
+                            device=torch.device(args.device), emit_chunk=4096, warmup=PILOT,
+                            **tail)
+    plan = sim.plan()
+    return sim, sim.emit_rows(0, min(args.photons, plan.total))
+
+
 def run(args):
     """The gate: the engine and the oracle on one sample, :func:`compare`,
     the result printed (and written to ``--json``, the spectra to
@@ -494,16 +510,12 @@ def run(args):
     caller's (:func:`gate_failures`)."""
     import torch
 
-    from grmonty_tpu_torch.transport import driver, engine
+    from grmonty_tpu_torch.transport import engine
 
     device = torch.device(args.device)
     cfg, tail = _config(args)
-    sim = driver.Simulation(_torus(args.n1, args.n2), photon_n=args.photon_n,
-                            mass_unit=args.mass_unit, seed=args.seed, config=cfg,
-                            device=device, emit_chunk=4096, warmup=PILOT, **tail)
-    plan = sim.plan()
-    n = min(args.photons, plan.total)
-    rows = sim.emit_rows(0, n)
+    sim, rows = gate_sample(args)
+    n = rows.shape[0]
     bias_fixed = (args.freeze_bias, args.freeze_avg) if args.freeze_bias > 0.0 else None
     regime = oracle_regime(args, n)
     # a cached oracle of another regime stops the tool before the engine runs

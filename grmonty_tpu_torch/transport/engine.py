@@ -14,7 +14,10 @@ Photons are an SoA pool of (N,) tensors stepped in lockstep:
   corner rows, reference semantics the raw 32-wide rows;
 * every ``refill_period`` iterations a **light phase** records escaped
   photons and refills free lanes; every ``m_period`` iterations the **full
-  phase** also runs the deferred scattering events;
+  phase** also runs the deferred scattering events, the event itself on
+  CUDA tensors as one hand-written kernel (``hot_kernels.scatter_event``,
+  its own Philox stream a lane under a key drawn from the generator), on
+  CPU tensors as the plain ``scattering.scatter_event_c``;
 * :meth:`Engine.run` loops those blocks on the host, reading the exit
   condition once per ``m_period`` block (and logging its progress every
   ``PROGRESS_ITERS`` iterations of a long run).
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from grmonty_tpu_torch import consts
-from grmonty_tpu_torch.ops import fluid, geometry, radiation, scattering
+from grmonty_tpu_torch.ops import fluid, geometry, radiation
 from grmonty_tpu_torch.ops import hotcross as hc_mod
 
 N_SPEC_CHAN = 16  # 13 reference channels + sum((w*e)^2), secondary count,
@@ -760,7 +763,10 @@ class Engine:
         """Run deferred scatter events (compacted) and pack the secondaries
         into the ring.  Sampler lanes that did not accept within their round
         caps stay pending and retry next phase; the sampler theta_e halves
-        every ``EV_HALVE`` defers and the draw is forced at ``EV_FORCE``."""
+        every ``EV_HALVE`` defers and the draw is forced at ``EV_FORCE``.
+        The event is ``hot_kernels.scatter_event``."""
+        from grmonty_tpu_torch.transport import hot_kernels
+
         mc, dt = self.mc, self.dt
         valid, gi, sidx = compact_idx(p.ev_pending | p.at_event, self.ev_k)
         # never sample more events than the ring has room for, unless the
@@ -791,8 +797,9 @@ class Engine:
         g7, fl = self.eval_fluid_xy(xg[1], xg[2])
         fl_s = fl._replace(theta_e=fl.theta_e * torch.exp2(
             -(tries_g // EV_HALVE).to(dt)))
-        res = scattering.scatter_event_c(self.gen, kg, fl_s, g7, mc.b_unit,
-                                         active=valid, force=force_g)
+        # one launch of the event kernel on the card, the plain version here
+        res = hot_kernels.scatter_event(kg, fl_s, g7, mc.b_unit, active=valid, force=force_g,
+                                        gen=self.gen)
 
         defer_g = valid & ~(res.sampled | res.parent_die)
         valid = valid & ~defer_g

@@ -26,6 +26,17 @@ four strategies) and :func:`row_gather_rowloop` (the row copy), float32
 only, as the JAX probes' tables are; the probes that drive them are
 ``grmonty_tpu_torch/tools/``.
 
+``csrc/scatter_event.cu`` holds the event phase's scatter event as one
+kernel, one thread a lane (:func:`scatter_event`: ``scatter_event`` /
+``scatter_event_f64``): the tetrad, the electron, Klein-Nishina and
+Thomson rejection loops with the lane's own Philox stream, the boosts and
+the secondary's wave vector, which ``ops.scattering.scatter_event_c``
+computes as batched torch ops; :func:`scatter_chain` (``scatter_chain`` /
+``scatter_chain_f64``) runs its samplers alone for the scatter-chain
+probe, and :func:`philox_words` writes the generator's raw words.  No TPU
+kernel does this: the JAX package's event phase is XLA
+(``grmonty_tpu/transport/engine.py:2036``).
+
 The headers of the ``.cu`` files say what bounds each kernel on the card.
 
 :func:`hot_step`, :func:`row_gather`, :func:`gather_rowsum` and
@@ -50,12 +61,13 @@ import os
 import shutil
 import subprocess
 import time
+import typing
 
 import numpy as np
 import torch
 
 from grmonty_tpu_torch import consts
-from grmonty_tpu_torch.ops import geometry
+from grmonty_tpu_torch.ops import draws, geometry, scattering
 from grmonty_tpu_torch.transport import engine
 from grmonty_tpu_torch.utils import tables as tables_mod
 
@@ -72,7 +84,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launches = {"hot_step": 0, "hot_step_ref": 0, "row_gather": 0, "hot_step_f64": 0,
             "hot_step_ref_f64": 0, "row_gather_f64": 0, "gather_rowsum_coop": 0,
             "gather_rowsum_persistent": 0, "gather_rowsum_rowloop": 0,
-            "gather_rowsum_smem": 0, "row_gather_rowloop": 0}
+            "gather_rowsum_smem": 0, "row_gather_rowloop": 0, "scatter_event": 0,
+            "scatter_event_f64": 0, "scatter_chain": 0, "scatter_chain_f64": 0,
+            "philox_words": 0}
 # The dtypes the hot step and the row gather have kernels for, and the
 # suffix of their entry points: the float32 kernels keep their names.
 DTYPE_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
@@ -95,11 +109,11 @@ def reset_launches():
 
 
 def entry_point(kernel, dtype, reference=False):
-    """The entry point that runs ``kernel`` ("hot_step" or "row_gather")
-    on tensors of ``dtype``: the hot step's reference variant under
-    ``reference``, the float64 instantiation for float64.  Raises a
-    ValueError for a dtype that has no kernel."""
-    if kernel not in ("hot_step", "row_gather"):
+    """The entry point that runs ``kernel`` ("hot_step", "row_gather",
+    "scatter_event" or "scatter_chain") on tensors of ``dtype``: the hot
+    step's reference variant under ``reference``, the float64 instantiation
+    for float64.  Raises a ValueError for a dtype that has no kernel."""
+    if kernel not in ("hot_step", "row_gather", "scatter_event", "scatter_chain"):
         raise ValueError(f"no entry point for kernel {kernel!r}")
     if dtype not in DTYPE_SUFFIX:
         raise ValueError(f"{kernel}: no kernel for {dtype} (only "
@@ -143,7 +157,14 @@ _ABI = {"hot_step": (len(_HOT_PTRS), _HOT_NSCAL),
         "row_gather_f64": (3, 1),
         # the row sums take W; "smem" also the rows of a stage (smem_stage_rows)
         **{f"gather_rowsum_{s}": (3, 2 if s == "smem" else 1) for s in ROWSUM_STRATEGIES},
-        "row_gather_rowloop": (3, 1)}
+        "row_gather_rowloop": (3, 1),
+        # the event: k, u_con, b_con, b, theta_e, g7, active, force, key; the
+        # masks, k_sec, e_sec, l_sec, the rounds; the scalar 1 / b_unit
+        **{f"scatter_event{x}": (35, 1) for x in DTYPE_SUFFIX.values()},
+        # the chain: k_tet, theta_e, force, key; p_el, k_tet_p, ok_el, ok_kn,
+        # the rounds
+        **{f"scatter_chain{x}": (19, 0) for x in DTYPE_SUFFIX.values()},
+        "philox_words": (3, 0)}
 
 
 # The hot step's entry points.
@@ -393,6 +414,106 @@ def row_gather(table, idx):
     dev, n, w = _gather_args(table, idx, "row gather", table.dtype)
     out = torch.empty((n, w), dtype=table.dtype, device=dev)
     _launch(name, [table, idx, out], [w], n, dev)
+    return out
+
+
+def draw_key(gen, device):
+    """Two key words for the event kernel's Philox, drawn from ``gen`` on
+    ``device`` as an int64 tensor that stays there (nothing is read on the
+    host; the generator's state advances as any draw's)."""
+    return torch.randint(0, 2**63 - 1, (2,), generator=gen, dtype=torch.int64, device=device)
+
+
+def scatter_event(k, fl, g7, b_unit, active=None, force=None, gen=None, key=None):
+    """The scatter event of ``ops.scattering.scatter_event_c``: on CPU
+    tensors that plain version, drawing from ``gen`` (a ``torch.Generator``)
+    or, given ``key`` (two int64 words), from ``draws.PhiloxDraws(key)``; on
+    CUDA tensors one launch of ``scatter_event`` (float32) or
+    ``scatter_event_f64`` (:func:`entry_point`) under ``key``, or under two
+    words drawn from ``gen`` (:func:`draw_key`), or raise.  ``k``, ``g7``
+    and ``fl``'s ``u_con``, ``b_con``, ``b``, ``theta_e``: (N,) tensors of
+    one dtype; ``active``/``force``: (N,) bool (all active, none forced
+    when None).  Returns a ``ScatterResultC`` with the rounds each lane's
+    loops ran (0 on guarded lanes).  On the card a guarded lane (inactive,
+    doomed parent, invalid frame) skips its samplers: its ``k_sec``,
+    ``e_sec`` and ``l_sec`` are 0, and on an inactive lane ``made`` only
+    says whether the frame was valid.  No host sync."""
+    if (gen is None) == (key is None):
+        raise ValueError("scatter_event: give exactly one of gen and key")
+    if k[0].device.type == "cpu":
+        src = gen if key is None else draws.PhiloxDraws(key)
+        return scattering.scatter_event_c(src, k, fl, g7, b_unit, active=active, force=force)
+    dev, dt, n = _cuda_device(k[0]), k[0].dtype, k[0].shape[0]
+    name = entry_point("scatter_event", dt)
+    b8 = torch.bool
+    active = torch.ones(n, dtype=b8, device=dev) if active is None else active
+    force = torch.zeros(n, dtype=b8, device=dev) if force is None else force
+    ins = [t.contiguous() for t in (*k, *fl.u_con, *fl.b_con, fl.b, fl.theta_e, *g7)]
+    _check_lanes(name, ins + [active, force], [dt] * len(ins) + [b8, b8], n, dev,
+                 names=[f"k{i}" for i in range(4)] + [f"u_con{i}" for i in range(4)]
+                 + [f"b_con{i}" for i in range(4)] + ["b", "theta_e"]
+                 + [f"g7[{i}]" for i in range(7)] + ["active", "force"])
+    key = _event_key(gen, key, dev)
+    bo = torch.empty((3, n), dtype=b8, device=dev)
+    fo = torch.empty((6, n), dtype=dt, device=dev)
+    io = torch.empty((2, n), dtype=torch.int32, device=dev)
+    _launch(name, ins + [active, force, key, *bo, *fo, *io], [_recip(b_unit, dev, dt)], n, dev)
+    return scattering.ScatterResultC(bo[0], bo[1], tuple(fo[:4]), fo[4], fo[5], bo[2], io[0],
+                                     io[1])
+
+
+def scatter_chain(k_tet, theta_e, force=None, gen=None, key=None):
+    """The electron draw and the scattered photon of tetrad-frame wave
+    vectors ``k_tet`` (4-tuple of (N,)) off electrons at ``theta_e`` (N,)
+    (``ops.scattering.scatter_chain_c``, the scatter-chain probe's chain):
+    the plain version on CPU tensors (drawing from ``gen`` or
+    ``PhiloxDraws(key)``), on CUDA tensors one launch of ``scatter_chain``
+    / ``scatter_chain_f64`` under ``key`` or two words drawn from ``gen``,
+    or raise.  Returns a ``ChainResult``; no host sync."""
+    if (gen is None) == (key is None):
+        raise ValueError("scatter_chain: give exactly one of gen and key")
+    if theta_e.device.type == "cpu":
+        src = gen if key is None else draws.PhiloxDraws(key)
+        return scattering.scatter_chain_c(src, k_tet, theta_e, force=force)
+    dev, dt, n = _cuda_device(theta_e), theta_e.dtype, theta_e.shape[0]
+    name = entry_point("scatter_chain", dt)
+    force = torch.zeros(n, dtype=torch.bool, device=dev) if force is None else force
+    ins = [t.contiguous() for t in (*k_tet, theta_e)]
+    _check_lanes(name, ins + [force], [dt] * 5 + [torch.bool], n, dev,
+                 names=[f"k_tet{i}" for i in range(4)] + ["theta_e", "force"])
+    key = _event_key(gen, key, dev)
+    fo = torch.empty((8, n), dtype=dt, device=dev)
+    bo = torch.empty((2, n), dtype=torch.bool, device=dev)
+    io = torch.empty((2, n), dtype=torch.int32, device=dev)
+    _launch(name, ins + [force, key, *fo, *bo, *io], [], n, dev)
+    return scattering.ChainResult(tuple(fo[:4]), tuple(fo[4:]), bo[0], bo[1], io[0], io[1])
+
+
+def _event_key(gen, key, dev):
+    """The event kernels' key on ``dev``: ``key`` checked, or drawn from ``gen``."""
+    if key is None:
+        return draw_key(gen, dev)
+    if key.dtype != torch.int64 or tuple(key.shape) != (2,) or key.device != dev:
+        raise ValueError(f"key: expected an int64 (2,) tensor on {dev}, got {key.dtype} "
+                         f"{tuple(key.shape)} on {key.device}")
+    return key.contiguous()
+
+
+def philox_words(ctr, key):
+    """The raw words of the event kernels' Philox4x64-10 for an (N, 4)
+    int64 tensor of counters under ``key`` (int64 (2,)), as an (N, 4) int64
+    tensor holding the unsigned words' bits: the plain version
+    (``draws.philox_words``) on CPU tensors, the kernel on CUDA tensors;
+    no host sync."""
+    if ctr.dim() != 2 or ctr.shape[1] != 4 or ctr.dtype != torch.int64:
+        raise ValueError(f"philox_words: expected (N, 4) int64 counters, got {ctr.dtype} "
+                         f"{tuple(ctr.shape)}")
+    if ctr.device.type == "cpu":
+        return draws.philox_words(ctr, key)
+    dev = _cuda_device(ctr)
+    key = _event_key(None, key, dev)
+    out = torch.empty_like(ctr)
+    _launch("philox_words", [ctr.contiguous(), key, out], [], ctr.shape[0], dev)
     return out
 
 
@@ -776,3 +897,158 @@ def compare(ref, got, rtol, atol, mask_frac, slack=None):
                          + ("" if extra is None else " plus the slack")
                          + f"; worst lane {i}: {float(b64[i])} against {float(a64[i])}")
     return max_err, max_rel, worst, fails
+
+
+# ---------------------------------------------------------------------------
+# the event kernels' checks: synthetic event lanes and the comparison
+# ---------------------------------------------------------------------------
+
+# The event kernel is held to its plain version on PhiloxDraws under the
+# same key, lane by lane.  Both round each operation alike (csrc/
+# scatter_event.cu), so masks and round counts must be equal on every active
+# lane; a lane may differ only where one of its acceptance tests sat within
+# EVENT_NEAR_ULPS ulps of its threshold (PhiloxDraws' margins), at most one
+# lane in EVENT_DIFF_PER lanes.  Floats are compared on the active lanes
+# that both sides made and sampled, each within rtol of the lane's own scale
+# (event_slack): the secondary's wave vector's components near 0 cancel.
+EVENT_NEAR_ULPS = 16
+EVENT_DIFF_PER = 10000
+KERNEL_TOLERANCE.update({
+    "scatter_event": dict(rtol=1e-4, atol=0.0, mask_frac=0.0),
+    "scatter_event_f64": dict(rtol=1e-11, atol=0.0, mask_frac=0.0),
+    "scatter_chain": dict(rtol=1e-4, atol=0.0, mask_frac=0.0),
+    "scatter_chain_f64": dict(rtol=1e-11, atol=0.0, mask_frac=0.0),
+    "philox_words": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
+})
+EVENT_MASKS = ("parent_die", "made", "sampled", "rounds_el", "rounds_sc")
+CHAIN_MASKS = ("ok_el", "ok_kn", "rounds_el", "rounds_sc")
+
+
+class EventLanes(typing.NamedTuple):
+    """Synthetic event lanes: what ``Engine.process_scatters`` passes to
+    :func:`scatter_event` (``k``, ``fl`` with its theta_e halved at
+    ``tries // EV_HALVE``, ``g7``, ``active``, ``force``), and the lanes'
+    positions ``x`` and defer counts ``tries``."""
+    x: tuple
+    k: tuple
+    fl: object
+    g7: tuple
+    active: torch.Tensor
+    force: torch.Tensor
+    tries: torch.Tensor
+
+
+def synthetic_events(eng, n, seed):
+    """Random event lanes (:class:`EventLanes`), from ``seed``, through the
+    engine ``eng``'s own fluid (``eval_fluid_xy``) in its dtype on its
+    device.
+
+    Positions span the grid and the vacuum beyond it; wave vectors are null
+    and future-directed at energies 1e-10 ... 0.3, so that cold lanes run
+    the Thomson loop and hot ones the Klein-Nishina loop, some to its cap.
+    Guard lanes: k^0 negative, above 1e5 or NaN and k^1 NaN (doomed
+    parents), spacelike wave vectors (some with a negative tetrad energy:
+    invalid frames), 10% inactive.  The defer counts put 5% of the lanes at
+    a halved theta_e and 5% at a forced draw."""
+    mc, dt, dev = eng.mc, eng.dt, eng.device
+    rng = np.random.default_rng(seed)
+    kind = rng.random(n)
+    x1 = rng.uniform(mc.x_start[1] + 0.01, mc.x_stop[1] - 0.01, n)
+    x1 = np.where(kind < 0.05, rng.uniform(mc.x_stop[1], mc.x_stop[1] + 0.5, n), x1)
+    x2 = rng.uniform(0.01, 0.99, n)
+    g7, fl = eng.eval_fluid_xy(torch.as_tensor(x1, dtype=dt, device=dev),
+                               torch.as_tensor(x2, dtype=dt, device=dev))
+    g00, g01, g03, g11, g13, g22, g33 = (c.double().cpu().numpy() for c in g7)
+    c = rng.normal(size=(3, n))
+    c /= np.linalg.norm(c, axis=0)
+    r = np.exp(x1)
+    k1, k2, k3 = c[0] / r, c[1] / (np.pi * r), c[2] / r
+    # the future-directed root of g_mn k^m k^n = 0 for k^0
+    b = g01 * k1 + g03 * k3
+    cc = g11 * k1 * k1 + 2.0 * g13 * k1 * k3 + g22 * k2 * k2 + g33 * k3 * k3
+    k0 = (-b - np.sqrt(np.maximum(b * b - g00 * cc, 0.0))) / g00
+    e = 10.0 ** rng.uniform(-10.0, -0.5, n)
+    k = [e * k0, e * k1, e * k2, e * k3]
+    guard = rng.random(n)
+    k[0] = np.where(guard < 0.02, -k[0], k[0])
+    k[0] = np.where((guard >= 0.02) & (guard < 0.03), 2.0e5, k[0])
+    k[0] = np.where((guard >= 0.03) & (guard < 0.035), np.nan, k[0])
+    k[1] = np.where((guard >= 0.035) & (guard < 0.04), np.nan, k[1])
+    k[0] = np.where((guard >= 0.04) & (guard < 0.06), 1e-3 * k[0], k[0])
+    tries = np.where(kind < 0.9, 0, rng.integers(1, 16, n))
+    tries = np.where((kind >= 0.9) & (kind < 0.95), rng.integers(16, 32, n), tries)
+    tries = np.where(kind >= 0.95, rng.integers(32, 40, n), tries)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    tries = t(tries.astype(np.int32))
+    theta = fl.theta_e * torch.exp2(-(tries // engine.EV_HALVE).to(dt))
+    active = t(rng.random(n) < 0.9)
+    x = (t(np.zeros(n)).to(dt), t(x1).to(dt), t(x2).to(dt), t(np.zeros(n)).to(dt))
+    return EventLanes(x, tuple(t(v).to(dt) for v in k), fl._replace(theta_e=theta), g7, active,
+                      active & (tries >= engine.EV_FORCE), tries)
+
+
+def event_slack(ref, names, rtol):
+    """Each float field's slack per lane: ``rtol`` times the lane's scale,
+    the sum of the magnitudes of ``names``' fields of ``ref`` (float64)."""
+    flat = _flat(ref)
+    scale = sum(flat[nm].double().abs() for nm in names)
+    return rtol * torch.nan_to_num(scale, nan=0.0, posinf=0.0)
+
+
+def compare_event(name, ref, got, margin, active=None):
+    """Hold the event kernel ``name``'s result ``got`` against the plain
+    version's ``ref`` (each a ``ScatterResultC`` or a ``ChainResult``),
+    with ``margin`` the plain version's per-lane margins
+    (``PhiloxDraws(margins=True)``), on the ``active`` lanes (all when
+    None).  Returns (record, failures, the differing lanes as dicts): the
+    record's ``max_abs_err``, ``max_rel_err``, ``mask_mismatch`` and counts
+    of the lanes compared."""
+    ref, got = ref._asdict(), got._asdict()
+    chain = name.startswith("scatter_chain")
+    masks = CHAIN_MASKS if chain else EVENT_MASKS
+    tol = KERNEL_TOLERANCE[name]
+    dt = _flat(ref)["k_tet_p0" if chain else "e_sec"].dtype
+    n = next(iter(_flat(ref).values())).shape[0]
+    dev = margin.device
+    active = torch.ones(n, dtype=torch.bool, device=dev) if active is None else active
+    differ = torch.zeros(n, dtype=torch.bool, device=dev)
+    for m in masks:
+        differ |= ref[m].to(dev) != got[m].to(dev)
+    differ &= active
+    near = margin <= EVENT_NEAR_ULPS * torch.finfo(dt).eps
+    lanes = torch.nonzero(differ).flatten().tolist()
+    rows = [{"lane": i, "margin": float(margin[i]),
+             **{m: [_num(ref[m][i]), _num(got[m][i])] for m in masks}} for i in lanes]
+    fails = []
+    if lanes and not bool(near[differ].all()):
+        fails.append(f"{int((differ & ~near).sum())} lanes differ in a mask or a round count "
+                     f"with no acceptance test within {EVENT_NEAR_ULPS} ulps")
+    if len(lanes) > n // EVENT_DIFF_PER:
+        fails.append(f"{len(lanes)} lanes differ in a mask or a round count (at most "
+                     f"{n // EVENT_DIFF_PER} at {n} lanes)")
+    if chain:
+        sel = active & ref["ok_el"] & ref["ok_kn"] & ~differ
+        groups = {"p_el": ("p_el0", "p_el1", "p_el2", "p_el3"),
+                  "k_tet_p": ("k_tet_p0", "k_tet_p1", "k_tet_p2", "k_tet_p3")}
+    else:
+        sel = active & ref["made"] & ref["sampled"] & ~differ
+        groups = {"k_sec": ("k_sec0", "k_sec1", "k_sec2", "k_sec3"),
+                  "e_sec": ("e_sec", "l_sec"), "l_sec": ("e_sec", "l_sec")}
+    pick = lambda out: {k: (tuple(c[sel] for c in v) if isinstance(v, tuple) else v[sel])  # noqa: E731
+                        for k, v in out.items() if k in groups}
+    ref_f, got_f = pick(ref), pick(got)
+    slack = {}
+    for field, names in groups.items():
+        s = event_slack(ref_f, names, tol["rtol"])
+        for sub in ((field,) if field in ("e_sec", "l_sec") else names):
+            slack[sub] = s
+    err, rel, _, ffails = compare(ref_f, got_f, 0.0, 0.0, 0.0, slack=slack)
+    rec = {"max_abs_err": err, "max_rel_err": rel, "mask_mismatch": len(lanes) / max(n, 1),
+           "lanes_compared": int(sel.sum()), "lanes_active": int(active.sum()),
+           "lanes_differing": len(lanes)}
+    return rec, fails + ffails, rows
+
+
+def _num(v):
+    v = v.item()
+    return bool(v) if isinstance(v, bool) else v

@@ -16,8 +16,9 @@ clocks and device window are not the run's.
 
 1. **Phase clocks over the whole run** (default).  Every call of the engine's phases
    (``hot_step``, ``periodic_phase``, ``light_phase`` and, inside them,
-   ``process_scatters`` and ``init_fresh``) is bracketed by two CUDA
-   events on the current stream.  Nothing is synchronised, so the run is
+   ``process_scatters`` and ``init_fresh``) and of the event kernel's
+   wrapper (``hot_kernels.scatter_event``, inside ``process_scatters``) is
+   bracketed by two CUDA events on the current stream.  Nothing is synchronised, so the run is
    not stretched; the stream time between a phase's two events is the
    time the stream spent on that phase's work, waiting for its launches
    included, so the phases split the engine's device window (nested
@@ -50,32 +51,52 @@ import time
 import chip_smoke
 
 PHASES = ("hot_step", "periodic_phase", "light_phase", "process_scatters", "init_fresh")
+# the kernels' wrappers clocked as phases (hot_kernels functions, each nested
+# in one of PHASES: scatter_event in process_scatters)
+WRAPPERS = ("scatter_event",)
 PHOTON_N = 100_000
 REF_PHOTON_N = 50_000
 # device kernels whose time the trace windows report, by name
-TRACED = {"hot_step_ms": "hot_step_kernel", "row_gather_ms": "row_gather_kernel"}
+TRACED = {"hot_step_ms": "hot_step_kernel", "row_gather_ms": "row_gather_kernel",
+          "scatter_event_ms": "scatter_event_kernel"}
 WAVE_AT = 64  # trace the first wave from this hot iteration
 TRACE_ITERS = 64  # hot iterations per trace window
 ONE_STEP_AT = WAVE_AT + TRACE_ITERS + 1  # trace this hot iteration alone
 
 
 def clock_phases(engine_cls, clocks):
-    """Bracket each phase method of ``engine_cls`` with CUDA events."""
+    """Bracket each phase method of ``engine_cls`` (PHASES) and each wrapper
+    of ``hot_kernels`` (WRAPPERS) with CUDA events; ``clocks`` has a list
+    for each name.  Returns {name: what it replaced}, for
+    :func:`restore_phases`."""
     import torch
 
-    for name in PHASES:
-        fn = getattr(engine_cls, name)
+    from grmonty_tpu_torch.transport import hot_kernels
 
-        def timed(self, *a, _fn=fn, _name=name, **kw):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = _fn(self, *a, **kw)
-            e1.record()
-            clocks[_name].append((e0, e1))
-            return out
+    saved = {}
+    for owner, names in ((engine_cls, PHASES), (hot_kernels, WRAPPERS)):
+        for name in names:
+            fn = saved[name] = getattr(owner, name)
 
-        setattr(engine_cls, name, timed)
+            def timed(*a, _fn=fn, _name=name, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = _fn(*a, **kw)
+                e1.record()
+                clocks[_name].append((e0, e1))
+                return out
+
+            setattr(owner, name, timed)
+    return saved
+
+
+def restore_phases(engine_cls, saved):
+    """Undo :func:`clock_phases`."""
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    for name, fn in saved.items():
+        setattr(engine_cls if name in PHASES else hot_kernels, name, fn)
 
 
 def busy_ms(prof):
@@ -161,7 +182,7 @@ def main():
     photon_n = REF_PHOTON_N if args.reference else PHOTON_N
     sim = chip_smoke.make_simulation(root, photon_n, reference=args.reference)
 
-    clocks = {name: [] for name in PHASES}
+    clocks = {name: [] for name in PHASES + WRAPPERS}
     win = Windows(TRACE_ITERS)
     if args.trace:
         hot = engine.Engine.hot_step

@@ -410,3 +410,23 @@ def test_gate_stops_on_a_cache_of_another_regime(tmp_path, change, monkeypatch):
     match = "records no photon_n" if change is None else f"with {field} = "
     with pytest.raises(SystemExit, match=match):
         va.run(va.parse_args(argv + ["--oracle-npz", str(path)]))
+
+
+def test_oracle_spread_runs_the_gates_replicates(capsys):
+    """``tools/oracle_spread.py`` at its defaults tracks the gate's own
+    sample at the gate's replicate seeds: its per-seed secondaries equal
+    those of ``validate_accuracy.run_oracle``'s replicates."""
+    from grmonty_tpu_torch.tools import oracle_spread
+
+    argv = ["--device", "cpu", "--reference", "--photons", "150", "--freeze-bias",
+            str(FREEZE[0])]
+    oracle_spread.main(argv + ["--n-seeds", "3"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    runs, summary = lines[:-1], lines[-1]
+    args = va.parse_args(argv)
+    sim, rows = va.gate_sample(args)
+    _, specs, _, _ = va.run_oracle(sim, rows, args.seed, 3, (args.freeze_bias, args.freeze_avg))
+    assert [r["seed"] for r in runs] == [args.seed + 1, args.seed + 2, args.seed + 3]
+    assert [r["n_sec"] for r in runs] == [float(sp[..., 14].sum()) for sp in specs]
+    assert summary["photons"] == 150 and summary["seeds"] == [args.seed + 1, args.seed + 3]
+    assert summary["n_sec_min"] <= summary["n_sec_median"] <= summary["n_sec_max"]
