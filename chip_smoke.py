@@ -53,19 +53,34 @@ Phases, each of which exits non-zero on failure:
    (``scatter_chain``) the same way at the scatter-chain probe's 40,000
    lanes over its (theta_e, k0) grid; the generator's raw words
    (``philox_words``) bitwise against the plain version and against
-   ``numpy.random.Philox``.  Every
+   ``numpy.random.Philox``.  The track start (``fresh_init``,
+   ``fresh_init_ref``: all of ``Engine.init_fresh``) on synthetic pools
+   (``hot_kernels.synthetic_fresh``: phase 4's lane states, a compacted
+   fresh set with lanes not valid and padded slots; the birth state
+   untraced, as the main path runs, then traced, as phase 14 runs) at the
+   (pool, fresh-set) widths of its path (``hot_kernels.FRESH_WIDTHS``) against
+   ``engine.init_fresh_plain`` (``hot_kernels.compare_fresh``: dk/dlambda,
+   interacting and the birth state bit for bit, every lane outside the
+   valid fresh set unchanged bit for bit, the opacities and the bias within
+   the hot step's tolerance); the event phase's fluid (``event_fluid``) on
+   synthetic event lanes at the event phase's widths
+   (``hot_kernels.EVENT_FLUID_WIDTHS``) against ``engine.event_fluid_plain``, every
+   output within the hot step's tolerance.  Each of these records gives its
+   registers and spills.  Every
    run of phases 5-12 and 14 must launch exactly what its path runs
    (``path_launches``: the hot step of its dtype and semantics once per hot
-   iteration, the row gather of its dtype once per full phase and, under
-   reference semantics, once per fresh-lane init, the event kernel of its
-   dtype once per full phase, no other entry point) and no plain hot step;
+   iteration, the row gather, the event fluid and the event kernel of its
+   dtype once per full phase, the track start of its dtype and semantics
+   once per full and light phase, no other entry point) and no plain hot
+   step, track start or event fluid;
 5. the shipped profile end to end at M = 4e19, seed 123, float32, pool
    65,536, the JAX driver's whole schedule: the pilot (8,192 photons on the
    host tracker; its seconds and counters printed), the waves (the first
    chunk ramped), the tail cascade (each stage's width, iterations and
    device window printed); every hot step of every engine must be one
-   launch of ``hot_step`` and the row gather must run once per full phase
-   of every engine (its event samplers) and nowhere else, the cascade must
+   launch of ``hot_step``, the row gather and ``event_fluid`` must run once
+   per full phase of every engine (its events' rows and fluid) and nowhere
+   else, ``fresh_init`` once per full and light phase, the cascade must
    end with the pool empty, every full phase's scatter event must be one
    launch of ``scatter_event``, the spectrum must be finite with a photon
    count equal to ``n_recorded`` (the pilot's records debited), no
@@ -74,9 +89,10 @@ Phases, each of which exits non-zero on failure:
 6. reference semantics end to end on the same cell (``--ref-photon-n``
    photons, ``profiles.reference_config`` with its step cap cut to
    ``--ref-stall-steps``, the same schedule): every hot step must be one
-   launch of ``hot_step_ref`` and the row gather must run once per full
-   phase and once per fresh-lane init (one in each full and light phase),
-   with the same checks of the schedule, the spectrum and the luminosity;
+   launch of ``hot_step_ref``, the row gather must run once per full
+   phase (the track start ``fresh_init_ref`` fetches its raw rows itself,
+   once in each full and light phase), with the same checks of the
+   schedule, the spectrum and the luminosity;
 7. the gather probes (``grmonty_tpu_torch/tools/``): (a) the five kernels
    of ``csrc/gather_probe.cu`` against their plain versions at N = Z =
    65,536 and w = 32 and 216 (where the table outgrows L2 and 54 float4s
@@ -137,7 +153,9 @@ Phases, each of which exits non-zero on failure:
 12. float64 on the card: (a) phase 4's checks in float64 (``hot_step_f64``,
    ``hot_step_ref_f64`` at N = 65,536, 4,096, 1,024 and 512, ``row_gather_f64``
    bitwise, ``scatter_event_f64`` at 16,384, 1,024 and 512 within rtol
-   1e-11, ``scatter_chain_f64``), on the tables of a float64 ``Simulation``
+   1e-11, ``scatter_chain_f64``, ``fresh_init_f64``, ``fresh_init_ref_f64``
+   and ``event_fluid_f64`` within rtol 1e-11), on the tables of a float64
+   ``Simulation``
    of the cell; (b)
    that ``Simulation`` end to end, the shipped profile at
    ``--resume-photon-n`` photons with phase 8's waves and cascade step cap,
@@ -267,6 +285,17 @@ CHAIN_N = 40000
 EVENT_OPS = {"lane": 690, "sampled": 335, "electron_round": 133, "second_round": 11}
 PHILOX_BLOCK_INT_OPS = 260
 EVENT_BLOCKS = {"sampled": 2, "electron_round": 3, "second_round": 1}
+# Their operations, counted by hand from csrc/physics.cuh as OPS_PER_LANE
+# is: a fresh lane 3,510 (shipped: the connection 255, the geodesic
+# right-hand side 96, the cell and the blend 100, the kinematics 26, the
+# hotcross 2,860 (its sum 2,542), K2, synch and B_nu 160, the bias and the
+# selects 11), 3,600 under reference semantics (the raw blend and its metric
+# pair and four-vectors instead of the derived blend); an event lane 3,240
+# (the raw blend, metric pair and four-vectors, kinematics, hotcross, K2,
+# synch, B_nu, bias, the halved theta_e).  A lane that only keeps its
+# values does none.
+FRESH_OPS = {False: 3510, True: 3600}
+EVENT_FLUID_OPS = 3240
 PROBE_BLK = 8192  # probe_pallas_gather's default blk (PROBE_BLK) for dsB
 ROWSUMS = tuple(f"gather_rowsum_{s}" for s in ("coop", "persistent", "rowloop", "smem"))
 OPS_PER_LANE = {"hot_step": 3800, "hot_step_ref": 3840, "row_gather": 0,
@@ -293,6 +322,16 @@ TOLERANCE = {
        for name, rtol in (("scatter_event", "1e-4"), ("scatter_event_f64", "1e-11"),
                           ("scatter_chain", "1e-4"), ("scatter_chain_f64", "1e-11"))},
     "philox_words": "bitwise equal to the plain version and to numpy.random.Philox",
+    **{name: ("dk/dlambda, interacting and the birth state bitwise equal on the valid fresh "
+              "lanes, every other lane's fields bitwise unchanged; alpha_scatti, alpha_absi "
+              f"and bi within rtol {rtol} atol {atol} on the valid fresh lanes")
+       for name, rtol, atol in (("fresh_init", "1e-4", "1e-6"), ("fresh_init_ref", "1e-4", "1e-6"),
+                                ("fresh_init_f64", "1e-11", "1e-30"),
+                                ("fresh_init_ref_f64", "1e-11", "1e-30"))},
+    **{name: f"every output within rtol {rtol} atol {atol} on every lane (NaN where the plain "
+             "version's is NaN)"
+       for name, rtol, atol in (("event_fluid", "1e-4", "1e-6"),
+                                ("event_fluid_f64", "1e-11", "1e-30"))},
 }
 SOURCES = {"hot_step": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:104, "
                         "grmonty_tpu/transport/hotstep_pallas.py:152"),
@@ -313,10 +352,16 @@ EVENT_SOURCE = ("scatter_event.cu", "no TPU kernel: XLA process_scatters, "
                 "grmonty_tpu/transport/engine.py:2036; grmonty_tpu/ops/scattering.py:125")
 SOURCES.update({name: EVENT_SOURCE for name in ("scatter_event", "scatter_chain",
                                                 "philox_words")})
+# Nor do the track start and the event fluid: the JAX engine's are XLA.
+SOURCES.update({name: ("fresh_init.cu", "no TPU kernel: XLA init_fresh, "
+                       "grmonty_tpu/transport/engine.py:2320")
+                for name in ("fresh_init", "fresh_init_ref")})
+SOURCES["event_fluid"] = ("event_fluid.cu", "no TPU kernel: XLA process_scatters, "
+                          "grmonty_tpu/transport/engine.py:2036")
 # The float64 instantiations replace what their float32 kernels replace.
 SOURCES.update({f"{name}_f64": SOURCES[name]
                 for name in ("hot_step", "hot_step_ref", "row_gather", "scatter_event",
-                             "scatter_chain")})
+                             "scatter_chain", "fresh_init", "fresh_init_ref", "event_fluid")})
 # Phase 7's probes, by module name under grmonty_tpu_torch/tools.
 PROBES = ("probe_gather", "probe_pallas_gather", "probe_vmem_gather")
 # Phase 10: the accuracy gate at the setup of the tracked shipped bar
@@ -458,9 +503,10 @@ def make_simulation(root, photon_n, reference=False, stall_steps=REF_STALL_STEPS
 
 
 def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None,
-                slack=None, n=N_CHECK, extra=None):
+                slack=None, n=N_CHECK, extra=None, nan_equal=False):
     """Hold ``got`` against ``ref`` under the kernel's tolerance (plus
-    ``slack`` per lane where given), time plain, kernel, kernel, plain (one
+    ``slack`` per lane where given; ``nan_equal`` as ``hot_kernels.compare``
+    takes it), time plain, kernel, kernel, plain (one
     pair of each per call, averaged), the kernel's device time and the
     library call, and return the record, updated by ``extra``; ``ops`` is
     the call's work, ``OPS_PER_LANE`` over ``n`` lanes unless given, in
@@ -468,7 +514,7 @@ def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None
     from grmonty_tpu_torch.transport import hot_kernels
 
     err, rel, mask, fails = hot_kernels.compare(ref, got, **hot_kernels.KERNEL_TOLERANCE[name],
-                                                slack=slack)
+                                                slack=slack, nan_equal=nan_equal)
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
     ops = OPS_PER_LANE[name] * n if ops is None else ops
     bound_ms, bound_by = bound(moved_bytes, ops, kernel_dtype(name))
@@ -761,7 +807,109 @@ def kernel_checks(sim, usage, sass, ref_stall_steps):
              + torch.unique(idx).numel() * table.shape[1] * table.element_size())
     out.append(time_kernel(name, {"rows": ref_g}, {"rows": got_g}, plain_g, kern_g,
                            moved, library=library_g))
-    return out + event_checks(sim, usage)
+    return out + event_checks(sim, usage) + fresh_checks(sim, usage) + event_fluid_checks(
+        sim, usage)
+
+
+def fresh_checks(sim, usage):
+    """Phase 4d (and 12a): the track start of each semantics in ``sim``'s
+    dtype against ``engine.init_fresh_plain`` at its path's
+    ``hot_kernels.FRESH_WIDTHS`` on synthetic pools
+    (``hot_kernels.synthetic_fresh``), held by ``hot_kernels.compare_fresh``:
+    at each width with the birth state untraced, as phases 5, 6, 10 and 12
+    run it, then traced, as phase 14 runs it (``name+trace``).  Returns
+    each semantics' untraced record at its first width; prints the
+    others."""
+    import torch
+
+    from grmonty_tpu_torch.ops import fluid
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, sim.cfg.dtype
+    out = []
+    for reference in (False, True):
+        name = hot_kernels.entry_point("fresh_init", dt, reference)
+        table = tabs.corner_rows if reference else tabs.hot_tab
+        inst = f"fresh_init_kernelILb{int(reference)}E{'d' if dt == torch.float64 else 'f'}E"
+        ptx = next((v for f, v in usage.items() if inst in f), None)
+        for j, (n, k) in enumerate(hot_kernels.FRESH_WIDTHS[reference]):
+            for trace in (False, True):
+                pool, fresh, den, cfg = hot_kernels.synthetic_fresh(
+                    mc, n, k, 2031 + k, dt, dev, reference=reference, trace_birth=trace)
+                def plain():
+                    return engine.init_fresh_plain(pool, fresh, den, mc, tabs, cfg)
+
+                def kern():
+                    return hot_kernels.fresh_init(pool, fresh, den, mc, tabs, cfg)
+
+                ref, got = plain(), kern()
+                torch.cuda.synchronize()
+                rec, fails = hot_kernels.compare_fresh(name, pool, fresh, ref, got)
+                valid, sidx = fresh
+                lanes = sidx[valid]
+                # the bytes: a kept lane reads and writes its fields once, a
+                # valid fresh lane writes them and reads its x1, x2, k and w
+                # (traced, x0 and x3 too); the rows the fresh lanes' cells
+                # touch, the fresh set, the surface, the denominator
+                kept = [getattr(pool, f) for f in hot_kernels.FRESH_FIELDS + ("bx", "bk", "bw")]
+                fresh_n = rec["lanes_fresh"]
+                cells = torch.unique(fluid.cell_index_c(pool.x[1][lanes], pool.x[2][lanes], mc))
+                moved = ((2 * n - fresh_n) * nbytes(kept) // n
+                         + nbytes(valid, sidx, tabs.hc_coeffs, den)
+                         + fresh_n * (9 if trace else 7) * pool.w.element_size()
+                         + cells.numel() * table.shape[1] * table.element_size())
+                extra = {**rec, "k": k, "trace_birth": trace, "ptxas": ptx, "library_ms": None,
+                         "library_device_ms": None}
+                label = f"{name}{'+trace' if trace else ''}"
+                if n == N_CHECK and (j or trace):  # time_kernel adds "@n" to the others' names
+                    extra["name"] = f"{label}@{n}x{k}"
+                elif trace:
+                    extra["name"] = label
+                full = time_kernel(name, {}, {}, plain, kern, moved,
+                                   ops=FRESH_OPS[reference] * fresh_n, n=n, extra=extra)
+                print(f"  {label}@{n}x{k}: {fresh_n} fresh lanes ({rec['lanes_plasma']} in "
+                      f"plasma) of {k} slots on {n}; bi bitwise {rec['bi_bitwise']}; ptxas {ptx}")
+                if fails:
+                    fail(f"{label}@{n}x{k} disagrees with its plain version: " + "; ".join(fails))
+                if j == 0 and not trace:
+                    out.append(full)
+    return out
+
+
+def event_fluid_checks(sim, usage):
+    """Phase 4e (and 12a): the event fluid in ``sim``'s dtype against
+    ``engine.event_fluid_plain`` at ``hot_kernels.EVENT_FLUID_WIDTHS`` on synthetic event
+    lanes (``hot_kernels.synthetic_event_fluid``), every output within the
+    kernel's tolerance.  Returns the record at the first width; prints the
+    others."""
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    mc, tabs, dt = sim.mc, sim.tables, sim.cfg.dtype
+    name = hot_kernels.entry_point("event_fluid", dt)
+    inst = f"event_fluid_kernelI{'d' if dt == torch.float64 else 'f'}E"
+    ptx = next((v for f, v in usage.items() if inst in f), None)
+    out = []
+    for j, n in enumerate(hot_kernels.EVENT_FLUID_WIDTHS):
+        args = hot_kernels.synthetic_event_fluid(sim.engine, n, 2032 + n)
+        plain = lambda: engine.event_fluid_plain(*args, mc, tabs)  # noqa: E731
+        kern = lambda: hot_kernels.event_fluid(*args, mc, tabs)  # noqa: E731
+        ref = hot_kernels.event_fluid_outputs(plain())
+        got = hot_kernels.event_fluid_outputs(kern())
+        torch.cuda.synchronize()
+        bitwise = sorted(f for f in ref if bool(hot_kernels._same_bits(ref[f], got[f]).all()))
+        moved = nbytes(args, tabs.hc_coeffs, ref)
+        # the synthetic guard lanes' NaN wave vectors give NaN on both sides
+        rec = time_kernel(name, ref, got, plain, kern, moved, ops=EVENT_FLUID_OPS * n, n=n,
+                          nan_equal=True,
+                          extra={"ptxas": ptx, "library_ms": None, "library_device_ms": None,
+                                 "bitwise_fields": len(bitwise), "fields": len(ref)})
+        print(f"  {name}@{n}: {len(bitwise)} of {len(ref)} outputs bitwise "
+              f"(not: {sorted(set(ref) - set(bitwise))}); ptxas {ptx}")
+        if j == 0:
+            out.append(rec)
+    return out
 
 
 def event_ops(rounds_el, rounds_sc, n, chain=False):
@@ -1022,18 +1170,19 @@ def path_launches(cfg, stats):
     """{entry point: launches} that a run of ``cfg`` with the counters
     ``stats`` (hot_iters, full_phases, light_phases) must show: the fused
     hot step of its dtype and semantics once per hot iteration of every
-    engine, the row gather of its dtype once in each full phase's event
-    samplers and, under reference semantics, once in each phase's
-    fresh-lane init, the event kernel of its dtype once in each full phase;
-    every other entry point never."""
+    engine; the row gather, the event fluid and the event kernel of its
+    dtype once in each full phase (the events' rows, their fluid, the
+    events); the track start of its dtype and semantics once in each full
+    and light phase (under reference semantics it fetches its raw rows
+    itself); every other entry point never."""
     from grmonty_tpu_torch.transport import hot_kernels
 
-    hot = hot_kernels.entry_point("hot_step", cfg.dtype, cfg.reference)
-    gather = hot_kernels.entry_point("row_gather", cfg.dtype)
-    event = hot_kernels.entry_point("scatter_event", cfg.dtype)
-    gathers = stats["full_phases"] + (stats["full_phases"] + stats["light_phases"]
-                                      if cfg.reference else 0)
-    want = {hot: stats["hot_iters"], gather: gathers, event: stats["full_phases"]}
+    dt, ref, full = cfg.dtype, cfg.reference, stats["full_phases"]
+    want = {hot_kernels.entry_point("hot_step", dt, ref): stats["hot_iters"],
+            hot_kernels.entry_point("row_gather", dt): full,
+            hot_kernels.entry_point("event_fluid", dt): full,
+            hot_kernels.entry_point("scatter_event", dt): full,
+            hot_kernels.entry_point("fresh_init", dt, ref): full + stats["light_phases"]}
     return {name: want.get(name, 0) for name in hot_kernels.launches}
 
 
@@ -1047,23 +1196,33 @@ def launch_failures(cfg, stats, counts):
             f"{stats['full_phases']} full and {stats['light_phases']} light phases)")
 
 
+# The plain versions that a run on the card must not call: the hot step's,
+# the track start's and the event fluid's.
+PLAIN_FNS = ("hot_step_plain", "init_fresh_plain", "event_fluid_plain")
+
+
 @contextlib.contextmanager
 def counting_plain_steps():
-    """Count the calls of the plain hot step (``engine.hot_step_plain``)
-    made inside: a run on the card must make none."""
+    """Count the calls of each plain version of ``PLAIN_FNS`` made inside
+    ({name: calls}): a run on the card must make none."""
     from grmonty_tpu_torch.transport import engine
 
-    plain, calls = engine.hot_step_plain, [0]
+    saved = {name: getattr(engine, name) for name in PLAIN_FNS}
+    calls = dict.fromkeys(PLAIN_FNS, 0)
 
-    def counted(*a, **kw):
-        calls[0] += 1
-        return plain(*a, **kw)
+    def counting(name):
+        def counted(*a, **kw):
+            calls[name] += 1
+            return saved[name](*a, **kw)
+        return counted
 
-    engine.hot_step_plain = counted
+    for name in PLAIN_FNS:
+        setattr(engine, name, counting(name))
     try:
         yield calls
     finally:
-        engine.hot_step_plain = plain
+        for name, fn in saved.items():
+            setattr(engine, name, fn)
 
 
 @contextlib.contextmanager
@@ -1096,7 +1255,7 @@ def clock_summary(clocks, device_s):
 def drive(sim, label, clocks=False):
     """Run ``sim`` with every launch count set to 0 just before, check its
     schedule, its spectrum, its luminosity and its launches
-    (:func:`path_launches`; no plain hot step), print its result line (with
+    (:func:`path_launches`; no plain version called), print its result line (with
     ``clocks``, also the phase clocks of :func:`phase_clocks`); returns
     (stats, counts)."""
     import torch
@@ -1130,7 +1289,7 @@ def drive(sim, label, clocks=False):
         "waves": stats["waves"], "pilot_host_s": stats["pilot"] and stats["pilot"]["host_s"],
         "tail_stages": [[st["pool"], st["iters"], st["device_s"]] for st in stats["tail_stages"]],
         "util_waves": stats.get("util_waves"), "dtype": str(sim.cfg.dtype).removeprefix("torch."),
-        "plain_steps": plain_steps[0],
+        "plain_steps": plain_steps["hot_step_plain"], "plain_calls": plain_steps,
     }
     if clocks:
         result["phases"] = clock_summary(clocked, stats["device_s"])
@@ -1145,8 +1304,8 @@ def drive(sim, label, clocks=False):
     if not (math.isfinite(lum) and abs(lum / REF_LUMINOSITY - 1.0) <= 0.10):
         fail(f"{label}: luminosity {lum} not within 10% of {REF_LUMINOSITY}")
     bad = launch_failures(sim.cfg, stats, counts)
-    if bad or plain_steps[0]:
-        fail(f"{label}: {bad or ''} {plain_steps[0]} plain hot steps")
+    if bad or any(plain_steps.values()):
+        fail(f"{label}: {bad or ''} plain calls {plain_steps}")
     return stats, counts
 
 
@@ -1308,7 +1467,8 @@ def accuracy_check(root, gate_args=GATE_ARGS, label="accuracy", sigmas=None):
             "device_s": run["device_s"], "hot_iters": run["hot_iters"],
             "full_phases": run["full_phases"], "light_phases": run["light_phases"],
             "tail_stages": run["tail_stages"], "launches": counts,
-            "plain_steps": plain_steps[0], "seconds": time.monotonic() - t0}
+            "plain_steps": plain_steps["hot_step_plain"], "plain_calls": plain_steps,
+            "seconds": time.monotonic() - t0}
     print(json.dumps(line))
     fails = validate_accuracy.gate_failures(out)
     if fails:
@@ -1317,8 +1477,8 @@ def accuracy_check(root, gate_args=GATE_ARGS, label="accuracy", sigmas=None):
     if not abs(out["lum_ratio"] - 1.0) <= tol:
         fail(f"{label} gate: lum_ratio {out['lum_ratio']} not within 1 +- {tol}")
     bad = launch_failures(cfg, run, counts)
-    if bad or plain_steps[0]:
-        fail(f"{label} gate: {bad or ''} {plain_steps[0]} plain hot steps")
+    if bad or any(plain_steps.values()):
+        fail(f"{label} gate: {bad or ''} plain calls {plain_steps}")
     return counts
 
 
@@ -1443,7 +1603,8 @@ def f64_checks(root, args, usage, sass, ref32=None):
         del sim32
     t0 = time.monotonic()
     stats, counts = drive(sim, "shipped_f64", clocks=True)
-    for name in ("hot_step_f64", "row_gather_f64", "scatter_event_f64"):
+    for name in ("hot_step_f64", "row_gather_f64", "scatter_event_f64", "fresh_init_f64",
+                 "event_fluid_f64"):
         recs[name]["launches"] = counts[name]
     st32, phases32 = ref32
     keys = ("device_s", "photon_rate_device", "hot_iters", "full_phases", "light_phases",
@@ -1456,7 +1617,8 @@ def f64_checks(root, args, usage, sass, ref32=None):
                       "run_s": time.monotonic() - t0}))
     del sim
     counts = accuracy_check(root, F64_GATE_ARGS, "accuracy_f64", sigmas=F64_GATE_SIGMAS)
-    recs["hot_step_ref_f64"]["launches"] = counts["hot_step_ref_f64"]
+    for name in ("hot_step_ref_f64", "fresh_init_ref_f64"):
+        recs[name]["launches"] = counts[name]
     cli_check(root, F64_CLI_PHOTON_N, extra=F64_CLI_ARGS,
               dump=validate_accuracy._torus(64, 32), label="cli_f64")
     return list(recs.values())
@@ -1531,11 +1693,12 @@ def replay_check(root):
                 "mt_birth_nsc0", "mt_birth_null_residual", "mt_birth_n_e", "verdict", "engine_s",
                 "engine_nominal_s")},
             "replays": out["replays"], "runs": runs, "launches": counts,
-            "plain_steps": plain_steps[0], "seconds": time.monotonic() - t0}
+            "plain_steps": plain_steps["hot_step_plain"], "plain_calls": plain_steps,
+            "seconds": time.monotonic() - t0}
     print(json.dumps(line))
     bad = launch_failures(cfg, total, counts)
-    if bad or plain_steps[0]:
-        fail(f"replay: {bad or ''} {plain_steps[0]} plain hot steps")
+    if bad or any(plain_steps.values()):
+        fail(f"replay: {bad or ''} plain calls {plain_steps}")
     if "nominal" not in runs:
         fail("replay: the shipped profile grows its steps, but no nominal-step run ran")
     x, k = out["mt_birth_x"], out["mt_birth_k"]
@@ -1635,14 +1798,14 @@ def main():
                                                           args.ref_stall_steps)}
 
     _, counts = drive(sim, "shipped")
-    for name in ("hot_step", "scatter_event"):
+    for name in ("hot_step", "scatter_event", "fresh_init", "event_fluid"):
         kernels[name]["launches"] = counts[name]
     del sim
 
     ref_sim = make_simulation(root, args.ref_photon_n, reference=True,
                               stall_steps=args.ref_stall_steps)
     _, counts = drive(ref_sim, "reference")
-    for name in ("hot_step_ref", "row_gather"):
+    for name in ("hot_step_ref", "row_gather", "fresh_init_ref"):
         kernels[name]["launches"] = counts[name]
     del ref_sim
 

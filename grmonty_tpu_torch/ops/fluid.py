@@ -232,13 +232,18 @@ def bilinear_weights(del_i, del_j):
             del_i * (1.0 - del_j), del_i * del_j)
 
 
+def cell_index_c(x1, x2, mc):
+    """The corner tables' row z = i * n2 + j (int64) of the cell at (x1, x2)."""
+    i, j, _, _ = geometry.x_to_ij_c(x1, x2, mc.x_start, mc.dx, (mc.n1, mc.n2))
+    return i * mc.n2 + j
+
+
 def get_fluid_params_c(x1, x2, corner_rows, mc, g7=None, gather_fn=None):
     """Bilinear fluid state at (x1, x2) from one row gather of the raw
     corner table (harm_model.cpp:595-671).  ``gather_fn``: ``(table, idx)
     -> rows`` for the gather, taking int32 indices (the engine passes
     ``hot_kernels.row_gather``); plain indexing when None."""
-    i, j, _, _ = geometry.x_to_ij_c(x1, x2, mc.x_start, mc.dx, (mc.n1, mc.n2))
-    z = i * mc.n2 + j
+    z = cell_index_c(x1, x2, mc)
     rows = corner_rows[z] if gather_fn is None else gather_fn(corner_rows, z.to(torch.int32))
     if g7 is None:
         g7 = geometry.gcov_c(x1, x2, mc.a, mc.h_slope, mc.r_0)

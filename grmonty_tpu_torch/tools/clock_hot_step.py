@@ -106,8 +106,10 @@ def main(argv=None):
     so = cu[:-3] + ".so"
     with open(cu, "w") as f:
         f.write(src)
-    out = subprocess.run(["nvcc", *hot_kernels.NVCC_FLAGS, "-o", so, cu], capture_output=True,
-                         text=True)
+    # the stamped copy includes the shared headers beside its source
+    out = subprocess.run(["nvcc", *hot_kernels.NVCC_FLAGS, "-I",
+                          os.path.dirname(os.path.abspath(src_path)), "-o", so, cu],
+                         capture_output=True, text=True)
     if out.returncode:
         raise RuntimeError(f"nvcc failed:\n{out.stdout}{out.stderr}")
     lib = ctypes.CDLL(so)

@@ -17,8 +17,8 @@ phase B, the ``dl_shrink`` clamp, the capture and the lane-slot census.
 
 ``csrc/row_gather.cu`` replaces ``grmonty_tpu/ops/gather.py:63``
 (``_gather_kernel``): ``out[n, :] = table[idx[n], :]``, the raw corner-row
-gather of the event phase and of the reference fresh-lane init, in float32
-(``row_gather``) and float64 (``row_gather_f64``).
+gather of the event phase, in float32 (``row_gather``) and float64
+(``row_gather_f64``).
 
 ``csrc/gather_probe.cu`` replaces the eight Pallas kernels of the gather
 probes under ``tools/``: :func:`gather_rowsum` (``table[idx].sum(1)`` by
@@ -37,6 +37,16 @@ probe, and :func:`philox_words` writes the generator's raw words.  No TPU
 kernel does this: the JAX package's event phase is XLA
 (``grmonty_tpu/transport/engine.py:2036``).
 
+``csrc/fresh_init.cu`` holds the track start of freshly loaded lanes
+(:func:`fresh_init`: ``fresh_init`` / ``fresh_init_ref`` and their
+``_f64`` instantiations; ``engine.init_fresh_plain``) and
+``csrc/event_fluid.cu`` the event phase's fluid, opacities and bias
+(:func:`event_fluid`: ``event_fluid`` / ``event_fluid_f64``;
+``engine.event_fluid_plain``), each one launch where the plain versions
+are hundreds of torch operations; the JAX package runs both as XLA
+(``grmonty_tpu/transport/engine.py:2320`` and ``:2036``).  They and the hot
+step share the device physics of ``csrc/physics.cuh``.
+
 The headers of the ``.cu`` files say what bounds each kernel on the card.
 
 :func:`hot_step`, :func:`row_gather`, :func:`gather_rowsum` and
@@ -49,7 +59,7 @@ once, its replays not at all.
 
 Build: ``nvcc`` compiles each ``csrc/*.cu`` into its own shared library
 with a plain C interface under ``build/grmonty_tpu_torch/`` (keyed by a
-hash of the source and the flags, all sources at once in parallel, at
+hash of the source, the shared headers ``csrc/*.cuh`` and the flags, all sources at once in parallel, at
 first use) and ``ctypes`` loads them.
 """
 
@@ -67,7 +77,7 @@ import numpy as np
 import torch
 
 from grmonty_tpu_torch import consts
-from grmonty_tpu_torch.ops import draws, geometry, scattering
+from grmonty_tpu_torch.ops import draws, fluid, geometry, scattering
 from grmonty_tpu_torch.transport import engine
 from grmonty_tpu_torch.utils import tables as tables_mod
 
@@ -86,7 +96,8 @@ launches = {"hot_step": 0, "hot_step_ref": 0, "row_gather": 0, "hot_step_f64": 0
             "gather_rowsum_persistent": 0, "gather_rowsum_rowloop": 0,
             "gather_rowsum_smem": 0, "row_gather_rowloop": 0, "scatter_event": 0,
             "scatter_event_f64": 0, "scatter_chain": 0, "scatter_chain_f64": 0,
-            "philox_words": 0}
+            "philox_words": 0, "fresh_init": 0, "fresh_init_ref": 0, "fresh_init_f64": 0,
+            "fresh_init_ref_f64": 0, "event_fluid": 0, "event_fluid_f64": 0}
 # The dtypes the hot step and the row gather have kernels for, and the
 # suffix of their entry points: the float32 kernels keep their names.
 DTYPE_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
@@ -110,15 +121,17 @@ def reset_launches():
 
 def entry_point(kernel, dtype, reference=False):
     """The entry point that runs ``kernel`` ("hot_step", "row_gather",
-    "scatter_event" or "scatter_chain") on tensors of ``dtype``: the hot
-    step's reference variant under ``reference``, the float64 instantiation
-    for float64.  Raises a ValueError for a dtype that has no kernel."""
-    if kernel not in ("hot_step", "row_gather", "scatter_event", "scatter_chain"):
+    "scatter_event", "scatter_chain", "fresh_init" or "event_fluid") on
+    tensors of ``dtype``: the reference variant of the hot step and of the
+    track start under ``reference``, the float64 instantiation for float64.
+    Raises a ValueError for a dtype that has no kernel."""
+    if kernel not in ("hot_step", "row_gather", "scatter_event", "scatter_chain",
+                      "fresh_init", "event_fluid"):
         raise ValueError(f"no entry point for kernel {kernel!r}")
     if dtype not in DTYPE_SUFFIX:
         raise ValueError(f"{kernel}: no kernel for {dtype} (only "
                          f"{', '.join(str(d) for d in DTYPE_SUFFIX)})")
-    base = "hot_step_ref" if kernel == "hot_step" and reference else kernel
+    base = kernel + "_ref" if kernel in ("hot_step", "fresh_init") and reference else kernel
     return base + DTYPE_SUFFIX[dtype]
 
 
@@ -148,6 +161,20 @@ _HOT_REF_PTRS = (_POOL_IN + ["u_roul", "u_x1", "bias_scale", "table", "hc"] + CE
                  + ["o" + f for f in _POOL_IN[:-1]])
 _HOT_PTRS = _HOT_REF_PTRS + _EV + ["o" + f for f in _EV] + ["ooccupied"]
 _HOT_NSCAL = len(_A_SCAL) + len(_B_SCAL_HEAD) + _K2_N + 2
+# The track start (the C struct FreshPtrs): the pool's fields it reads, the
+# fresh set, the bias's denominator, the corner table, the hotcross surface,
+# the new fields, the birth state in and out (null when the trace is off).
+# Its scalars: the hot step's, then the fresh set's width.
+_FRESH_IN = "x0 x1 x2 x3 k0 k1 k2 k3 w d0 d1 d2 d3 alpha_scatti alpha_absi bi interacting".split()
+_FRESH_OUT = "d0 d1 d2 d3 alpha_scatti alpha_absi bi interacting".split()
+_BIRTH = "bx0 bx1 bx2 bx3 bk0 bk1 bk2 bk3 bw".split()
+_FRESH_PTRS = (_FRESH_IN + ["valid", "sidx", "bias_den", "table", "hc"]
+               + ["o" + f for f in _FRESH_OUT] + _BIRTH + ["o" + f for f in _BIRTH])
+# The event phase's fluid (FluidPtrs): the raw rows, the lanes' inputs, the
+# bias's denominator, the surface, then its 30 outputs (EventFluid's
+# fields flattened); its scalars the hot step's, then EV_HALVE.
+_FLUID_IN = "rows x1 x2 k0 k1 k2 k3 w tries bias_den hc".split()
+_FLUID_OUT = 30
 # (pointers, scalars) each entry point takes
 _ABI = {"hot_step": (len(_HOT_PTRS), _HOT_NSCAL),
         "hot_step_ref": (len(_HOT_REF_PTRS), _HOT_NSCAL),
@@ -164,7 +191,11 @@ _ABI = {"hot_step": (len(_HOT_PTRS), _HOT_NSCAL),
         # the chain: k_tet, theta_e, force, key; p_el, k_tet_p, ok_el, ok_kn,
         # the rounds
         **{f"scatter_chain{x}": (19, 0) for x in DTYPE_SUFFIX.values()},
-        "philox_words": (3, 0)}
+        "philox_words": (3, 0),
+        **{f"fresh_init{r}{x}": (len(_FRESH_PTRS), _HOT_NSCAL + 1)
+           for r in ("", "_ref") for x in DTYPE_SUFFIX.values()},
+        **{f"event_fluid{x}": (len(_FLUID_IN) + _FLUID_OUT, _HOT_NSCAL + 1)
+           for x in DTYPE_SUFFIX.values()}}
 
 
 # The hot step's entry points.
@@ -204,8 +235,13 @@ def build():
     t0 = time.monotonic()
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     paths, jobs = [], []
+    headers = b""
+    for hdr in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(hdr, "rb") as f:
+            headers += f.read()
     for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))):
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h.update(headers)
         with open(src, "rb") as f:
             h.update(f.read())
         stem = os.path.splitext(os.path.basename(src))[0]
@@ -264,10 +300,14 @@ def _check_lanes(what, tensors, dtypes, n, dev, names=None):
 
 
 def _launch(name, ptr_tensors, scal, n, device):
+    """Launch entry point ``name`` on ``n`` lanes: the tensors' device
+    pointers (None passes a null pointer), the scalars (a ctypes array or a
+    list of numbers), the current stream of ``device``."""
     build()
     if n == 0:
         return  # no lanes: nothing to launch
-    ptrs = (ctypes.c_void_p * len(ptr_tensors))(*[t.data_ptr() for t in ptr_tensors])
+    ptrs = (ctypes.c_void_p * len(ptr_tensors))(
+        *[None if t is None else t.data_ptr() for t in ptr_tensors])
     sc = scal if isinstance(scal, ctypes.Array) else (ctypes.c_double * len(scal))(
         *[float(v) for v in scal])
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -300,6 +340,14 @@ def _cuda_device(t):
 
 
 _SCAL_HELD = {}  # (ids of mc and tables, cfg, device, dtype) -> (mc, tables, ctypes scalars)
+
+
+def _check_hc(hc, dt, dev):
+    """The (41, 31) hotcross surface: contiguous, of ``dt``, on ``dev``."""
+    if (hc.dtype != dt or tuple(hc.shape) != (41, 31) or not hc.is_contiguous()
+            or hc.device != dev):
+        raise ValueError(f"hotcross coefficients: expected {dt} (41, 31) on {dev}, got "
+                         f"{hc.dtype} {tuple(hc.shape)} on {hc.device}")
 
 
 def hot_step(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg):
@@ -346,10 +394,7 @@ def hot_step(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg):
     if table.shape[0] < mc.n1 * mc.n2:
         raise ValueError(f"corner table: {table.shape[0]} rows for {mc.n1}x{mc.n2} cells")
     hc = tables.hc_coeffs
-    if (hc.dtype != dt or tuple(hc.shape) != (41, 31) or not hc.is_contiguous()
-            or hc.device != dev):
-        raise ValueError(f"hotcross coefficients: expected {dt} (41, 31) on {dev}, got "
-                         f"{hc.dtype} {tuple(hc.shape)} on {hc.device}")
+    _check_hc(hc, dt, dev)
     if bias_scale.dtype != dt or bias_scale.numel() != 1 or bias_scale.device != dev:
         raise ValueError(f"bias_scale: expected a {dt} scalar tensor on {dev}, got "
                          f"{bias_scale.dtype} on {bias_scale.device}")
@@ -515,6 +560,90 @@ def philox_words(ctr, key):
     out = torch.empty_like(ctr)
     _launch("philox_words", [ctr.contiguous(), key, out], [], ctr.shape[0], dev)
     return out
+
+
+def _den_on(bias_den, dev, dt):
+    """The bias's 0-d denominator as the kernels read it: one value of the
+    pool's dtype on ``dev`` (a float64 denominator, the frozen-bias mode's,
+    rounds into float32 as the plain division's type promotion rounds it)."""
+    if bias_den.numel() != 1 or bias_den.device != dev:
+        raise ValueError(f"bias_den: expected a scalar tensor on {dev}, got "
+                         f"{tuple(bias_den.shape)} on {bias_den.device}")
+    return bias_den.reshape(()).to(dt).contiguous()
+
+
+def fresh_init(pool, fresh, bias_den, mc, tables, cfg):
+    """The track start of refill's freshly loaded lanes (dk/dlambda, the
+    opacities, the bias and ``interacting``; the birth state under
+    ``cfg.trace_birth``): on CPU tensors the plain version
+    (``engine.init_fresh_plain``), on CUDA tensors one launch of the kernel
+    of ``csrc/fresh_init.cu`` that :func:`entry_point` names for
+    ``cfg.reference`` and the pool's dtype (``fresh_init`` /
+    ``fresh_init_ref``, ``_f64`` in float64), or raise.  ``fresh`` =
+    (valid (K,) bool, sidx (K,) int64 ascending, padded with the pool's
+    width), ``bias_den`` the 0-d bias_norm * max_tau * (avg + 2).  Returns
+    the pool with the start's fields new tensors and every other field the
+    old one; no host sync."""
+    if pool.w.device.type == "cpu":
+        return engine.init_fresh_plain(pool, fresh, bias_den, mc, tables, cfg)
+    dev, dt, n = _cuda_device(pool.w), pool.w.dtype, pool.w.shape[0]
+    name = entry_point("fresh_init", dt, cfg.reference)
+    valid, sidx = fresh
+    k = valid.shape[0]
+    ins = [*pool.x, *pool.k, pool.w, *pool.dkdlam, pool.alpha_scatti, pool.alpha_absi, pool.bi,
+           pool.interacting]
+    birth = [*pool.bx, *pool.bk, pool.bw] if cfg.trace_birth else []
+    _check_lanes(name, ins + birth, [dt] * 16 + [torch.bool] + [dt] * len(birth), n, dev,
+                 names=_FRESH_IN + _BIRTH[:len(birth)])
+    _check_lanes(f"{name} fresh set", [valid, sidx], [torch.bool, torch.int64], k, dev,
+                 names=["valid", "sidx"])
+    table = tables.corner_rows if cfg.reference else tables.hot_tab
+    _check_rows(table, 32 if cfg.reference else 44, dev, "corner table", dt)
+    if table.shape[0] < mc.n1 * mc.n2:
+        raise ValueError(f"corner table: {table.shape[0]} rows for {mc.n1}x{mc.n2} cells")
+    _check_hc(tables.hc_coeffs, dt, dev)
+    fo = torch.empty((7, n), dtype=dt, device=dev).unbind(0)
+    inter = torch.empty(n, dtype=torch.bool, device=dev)
+    bo = list(torch.empty((9, n), dtype=dt, device=dev).unbind(0)) if birth else [None] * 9
+    ptrs = (ins + [valid, sidx, _den_on(bias_den, dev, dt), table, tables.hc_coeffs]
+            + list(fo) + [inter] + (birth or [None] * 9) + bo)
+    scal = list(_hot_scalars(mc, tables, cfg, dev, dt)) + [k]
+    _launch(name, ptrs, scal, n, dev)
+    new = dict(dkdlam=tuple(fo[0:4]), alpha_scatti=fo[4], alpha_absi=fo[5], bi=fo[6],
+               interacting=inter)
+    if birth:
+        new.update(bx=tuple(bo[0:4]), bk=tuple(bo[4:8]), bw=bo[8])
+    return pool._replace(**new)
+
+
+def event_fluid(rows, x1, x2, k, w, tries, bias_den, mc, tables):
+    """The event phase's fluid, opacities and bias at its compacted lanes
+    (``engine.EventFluid``): on CPU tensors the plain version
+    (``engine.event_fluid_plain``), on CUDA tensors one launch of
+    ``event_fluid`` (float32) or ``event_fluid_f64`` of
+    ``csrc/event_fluid.cu``, or raise.  ``rows``: the (N, 32) raw corner
+    rows at (x1, x2); ``k`` a 4-tuple of (N,); ``tries`` (N,) int32;
+    ``bias_den`` the 0-d bias_norm * max_tau * (avg + 2).  No host sync."""
+    if rows.device.type == "cpu":
+        return engine.event_fluid_plain(rows, x1, x2, k, w, tries, bias_den, mc, tables)
+    dev, dt, n = _cuda_device(rows), rows.dtype, rows.shape[0]
+    name = entry_point("event_fluid", dt)
+    ins = [t.contiguous() for t in (x1, x2, *k, w)]
+    _check_lanes(name, ins + [tries], [dt] * 7 + [torch.int32], n, dev,
+                 names=_FLUID_IN[1:9])
+    _check_rows(rows, 32, dev, "event rows", dt)
+    if rows.shape[0] != n:
+        raise ValueError(f"event rows: {rows.shape[0]} rows for {n} lanes")
+    _check_hc(tables.hc_coeffs, dt, dev)
+    out = torch.empty((_FLUID_OUT, n), dtype=dt, device=dev).unbind(0)
+    # the hot step's scalars (phase A's step knobs, which this kernel does
+    # not read, at their defaults), then EV_HALVE
+    scal = list(_hot_scalars(mc, tables, engine.EngineConfig(), dev, dt)) + [engine.EV_HALVE]
+    _launch(name, [rows] + ins + [tries, _den_on(bias_den, dev, dt), tables.hc_coeffs]
+            + list(out), scal, n, dev)
+    fl = fluid.FluidC(out[7], out[8], out[9], tuple(out[10:14]), tuple(out[14:18]),
+                      tuple(out[18:22]), tuple(out[22:26]))
+    return engine.EventFluid(tuple(out[0:7]), fl, out[26], out[27], out[28], out[29])
 
 
 def plain_rowsum(table, idx):
@@ -856,13 +985,14 @@ def rowsum_slack(table, idx):
     return table.shape[1] * 2.0 ** -23 * plain_rowsum(table.abs().double(), idx)
 
 
-def compare(ref, got, rtol, atol, mask_frac, slack=None):
+def compare(ref, got, rtol, atol, mask_frac, slack=None, nan_equal=False):
     """Hold a phase's outputs ``got`` against ``ref`` (dicts as the phases
     return them) on every lane: each mask and integer field differs on at
     most ``mask_frac`` of the lanes, and each float field agrees to
     ``rtol``/``atol``, plus ``slack`` where given: a tensor of the lanes,
     or a dict of such tensors by field name (NaN only where ``ref`` is
-    NaN).  Returns
+    NaN).  A NaN fails, on either side, unless ``nan_equal`` lets a lane
+    pass where both are NaN (the event fluid's guard lanes).  Returns
     (max_abs_err, max_rel_err, worst mask mismatch fraction, failures);
     the relative error is taken against max(|ref|, atol/rtol), or |ref|
     when rtol is 0."""
@@ -891,6 +1021,8 @@ def compare(ref, got, rtol, atol, mask_frac, slack=None):
         if extra is not None:
             allowed = allowed + extra.to(a64.device)
         bad = ~(diff <= allowed)
+        if nan_equal:
+            bad &= ~both_nan
         if bool(bad.any()):
             i = int(torch.argmax(torch.nan_to_num(diff - allowed, nan=math.inf)))
             fails.append(f"{name}: {int(bad.sum())} lanes beyond rtol {rtol} atol {atol}"
@@ -1052,3 +1184,128 @@ def compare_event(name, ref, got, margin, active=None):
 def _num(v):
     v = v.item()
     return bool(v) if isinstance(v, bool) else v
+
+
+# ---------------------------------------------------------------------------
+# the track start's and the event fluid's checks: synthetic inputs and the
+# comparison
+# ---------------------------------------------------------------------------
+
+# The track start and the event fluid are held to their plain versions on
+# every lane at the hot step's tolerance, as their hotcross sum runs in the
+# hot step's reference order, not the plain matrix product's; the track
+# start's dk/dlambda, interacting and birth state must be equal bit for bit
+# (the connection and the blend round as the plain versions), and every
+# lane outside the valid fresh set must keep each of its values bit for bit.
+KERNEL_TOLERANCE.update({
+    **{f"fresh_init{r}": dict(rtol=1e-4, atol=1e-6, mask_frac=0.0) for r in ("", "_ref")},
+    **{f"fresh_init{r}_f64": dict(rtol=1e-11, atol=1e-30, mask_frac=0.0)
+       for r in ("", "_ref")},
+    "event_fluid": dict(rtol=1e-4, atol=1e-6, mask_frac=0.0),
+    "event_fluid_f64": dict(rtol=1e-11, atol=1e-30, mask_frac=0.0),
+})
+# the track start's fields, those it must write bit for bit among them
+FRESH_FIELDS = ("dkdlam", "alpha_scatti", "alpha_absi", "bi", "interacting")
+FRESH_EXACT = ("dkdlam", "interacting", "bx", "bk", "bw")
+# The widths the checks hold them at: the (pool lanes, fresh-set width) of
+# each semantics' track starts on its path (by ``reference``: the wave
+# engine's full phase (refill_k) and, shipped, its light phase (light_k),
+# the cascade's engines and the gates' pool of 1,024), the first the kernels
+# line's; the event phase's compacted widths (ev_k at the pool of 65,536,
+# the cascade's and the gate's).
+FRESH_WIDTHS = {False: ((65536, 32768), (65536, 12288), (4096, 4096), (1024, 1024), (512, 512)),
+                True: ((65536, 16384), (4096, 4096), (1024, 1024), (512, 512))}
+EVENT_FLUID_WIDTHS = (16384, 4096, 1024, 512)
+
+
+def synthetic_fresh(mc, n, k, seed, dtype, device, reference=False, trace_birth=True):
+    """(pool, fresh, bias_den, cfg) of one track start: the pool of
+    :func:`synthetic_step` on ``n`` lanes (positions on the grid, in the
+    vacuum beyond it and at its polar edges, weights that reach both ends
+    of the bias clamp), with distinct birth fields under ``trace_birth``
+    (drawn apart, so that the fresh set does not depend on it);
+    the fresh set ``k`` slots wide, ascending, its last sixteenth (at least
+    one slot) padded with ``n`` and a tenth of its lanes not valid;
+    ``bias_den`` the initial bias_norm * max_tau * 2; ``cfg`` the
+    semantics' config at ``n`` lanes."""
+    lanes = synthetic_lanes(mc, n, seed, consts.MAX_N_STEP, reference, events=True)
+    pool = synthetic_step(lanes, dtype, device)[0]
+    rng, brng = np.random.default_rng([seed, 3]), np.random.default_rng([seed, 5])
+
+    def col():
+        return torch.as_tensor(brng.uniform(-2.0, 2.0, n), dtype=dtype, device=device)
+
+    if trace_birth:
+        pool = pool._replace(bx=tuple(col() for _ in range(4)), bk=tuple(col() for _ in range(4)),
+                             bw=col())
+    m = min(n, k - max(1, k // 16))
+    sidx = np.full(k, n, dtype=np.int64)
+    sidx[:m] = np.sort(rng.choice(n, size=m, replace=False))
+    valid = (sidx < n) & (rng.random(k) < 0.9)
+    cfg = engine.EngineConfig(n_pool=n, dtype=dtype, reference=reference,
+                              trace_birth=trace_birth)
+    fresh = (torch.as_tensor(valid, device=device), torch.as_tensor(sidx, device=device))
+    den = torch.tensor(mc.bias_norm * mc.max_tau_scatt0 * 2.0, dtype=dtype, device=device)
+    return pool, fresh, den, cfg
+
+
+def _same_bits(a, b):
+    """Per element: equal, or both NaN."""
+    eq = a == b
+    return eq | (torch.isnan(a) & torch.isnan(b)) if a.dtype.is_floating_point else eq
+
+
+def compare_fresh(name, pool, fresh, ref, got):
+    """Hold the track start ``got`` (a pool) against the plain version's
+    ``ref`` on the pool ``pool`` and the fresh set ``fresh``: the lanes of
+    the valid fresh set within ``KERNEL_TOLERANCE[name]`` and with
+    ``FRESH_EXACT`` bit for bit, every other lane keeping each field bit for
+    bit.  Returns (record, failures)."""
+    valid, sidx = fresh
+    n = pool.w.shape[0]
+    touched = torch.zeros(n + 1, dtype=torch.bool, device=sidx.device)
+    touched[sidx[valid]] = True
+    touched = touched[:n]
+    fields = FRESH_FIELDS + (("bx", "bk", "bw") if len(pool.bw) else ())
+    ref_f, got_f = _flat({f: getattr(ref, f) for f in fields}), _flat(
+        {f: getattr(got, f) for f in fields})
+    fails, kept_ok = [], True
+    for f, a in ref_f.items():
+        same = _same_bits(a, got_f[f])
+        if not bool(same[~touched].all()):
+            kept_ok = False
+            fails.append(f"{f}: {int((~same & ~touched).sum())} lanes outside the fresh set "
+                         "changed")
+        if f.rstrip("0123") in FRESH_EXACT and not bool(same[touched].all()):
+            fails.append(f"{f}: {int((~same & touched).sum())} fresh lanes not bit for bit")
+    tol = KERNEL_TOLERANCE[name]
+    sel = {f: ref_f[f][touched] for f in ("alpha_scatti", "alpha_absi", "bi")}
+    err, rel, _, tfails = compare(sel, {f: got_f[f][touched] for f in sel}, **tol)
+    mism = float((ref.interacting != got.interacting).double().mean())
+    rec = {"max_abs_err": err, "max_rel_err": rel, "mask_mismatch": mism,
+           "lanes": n, "slots": int(valid.shape[0]), "lanes_fresh": int(touched.sum()),
+           "lanes_plasma": int(ref.interacting[touched].sum()), "kept_bitwise": kept_ok,
+           "bi_bitwise": bool(_same_bits(ref.bi, got.bi).all())}
+    return rec, fails + tfails
+
+
+def synthetic_event_fluid(eng, n, seed):
+    """The event fluid's inputs (rows, x1, x2, k, w, tries, bias_den) on
+    ``n`` lanes of :func:`synthetic_events` through the engine ``eng`` (its
+    dtype, device and corner table; the rows by plain indexing), weights
+    that reach both ends of the bias clamp, the initial bias_norm *
+    max_tau * 2."""
+    ev = synthetic_events(eng, n, seed)
+    mc, dt, dev = eng.mc, eng.dt, eng.device
+    rows = eng.tables.corner_rows[fluid.cell_index_c(ev.x[1], ev.x[2], mc)]
+    rng = np.random.default_rng([seed, 4])
+    w = torch.as_tensor(engine.WEIGHT_MIN * 10.0 ** rng.uniform(-1.0, 6.0, n), dtype=dt,
+                        device=dev)
+    den = torch.tensor(mc.bias_norm * mc.max_tau_scatt0 * 2.0, dtype=dt, device=dev)
+    return rows, ev.x[1], ev.x[2], ev.k, w, ev.tries, den
+
+
+def event_fluid_outputs(ev):
+    """{name: (N,) tensor} of an ``engine.EventFluid``."""
+    return _flat({"g7": ev.g7, **ev.fl._asdict(), "theta_s": ev.theta_s, "a_sc": ev.a_sc,
+                  "a_ab": ev.a_ab, "bias": ev.bias})

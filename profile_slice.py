@@ -16,8 +16,9 @@ clocks and device window are not the run's.
 
 1. **Phase clocks over the whole run** (default).  Every call of the engine's phases
    (``hot_step``, ``periodic_phase``, ``light_phase`` and, inside them,
-   ``process_scatters`` and ``init_fresh``) and of the event kernel's
-   wrapper (``hot_kernels.scatter_event``, inside ``process_scatters``) is
+   ``process_scatters`` and ``init_fresh``) and of the kernels' wrappers
+   inside them (``hot_kernels.scatter_event`` and ``event_fluid`` inside
+   ``process_scatters``, ``fresh_init`` inside ``init_fresh``) is
    bracketed by two CUDA events on the current stream.  Nothing is synchronised, so the run is
    not stretched; the stream time between a phase's two events is the
    time the stream spent on that phase's work, waiting for its launches
@@ -52,13 +53,15 @@ import chip_smoke
 
 PHASES = ("hot_step", "periodic_phase", "light_phase", "process_scatters", "init_fresh")
 # the kernels' wrappers clocked as phases (hot_kernels functions, each nested
-# in one of PHASES: scatter_event in process_scatters)
-WRAPPERS = ("scatter_event",)
+# in one of PHASES: scatter_event and event_fluid in process_scatters,
+# fresh_init in init_fresh)
+WRAPPERS = ("scatter_event", "event_fluid", "fresh_init")
 PHOTON_N = 100_000
 REF_PHOTON_N = 50_000
 # device kernels whose time the trace windows report, by name
 TRACED = {"hot_step_ms": "hot_step_kernel", "row_gather_ms": "row_gather_kernel",
-          "scatter_event_ms": "scatter_event_kernel"}
+          "scatter_event_ms": "scatter_event_kernel", "event_fluid_ms": "event_fluid_kernel",
+          "fresh_init_ms": "fresh_init_kernel"}
 WAVE_AT = 64  # trace the first wave from this hot iteration
 TRACE_ITERS = 64  # hot iterations per trace window
 ONE_STEP_AT = WAVE_AT + TRACE_ITERS + 1  # trace this hot iteration alone

@@ -1,0 +1,348 @@
+"""The track start of freshly loaded lanes (``hot_kernels.fresh_init``,
+``engine.init_fresh_plain``) and the event phase's fluid, opacities and bias
+(``hot_kernels.event_fluid``, ``engine.event_fluid_plain``), on the 64x32
+torus.
+
+* Against JAX, float64 (CPU): a JAX engine of each semantics, with the
+  birth-state trace off and on, runs two light phases (record, free,
+  refill, the fresh-lane init: no random draw) from a fresh state, with
+  zero-weight photons in the backlog (loaded, not valid; a NaN photon is
+  not among them, because the JAX refill's one-hot transpose spreads a NaN
+  over the whole row, its load flag too, so that JAX never loads it); each
+  state is carried into the port (``convert.from_jax_state``) and the
+  port's light phase agrees with JAX's on every pool field and counter to
+  rtol 1e-10, the masks and integers exactly.
+* ``engine.event_fluid_plain`` on seeded positions, null wave vectors,
+  weights and defer counts equals the JAX engine's composition of
+  ``grmonty_tpu.ops`` (``geometry.gcov_c``, ``fluid.get_fluid_params_c``,
+  ``radiation.kinematics_sin_c``, ``alpha_inv_scatt_c``,
+  ``alpha_inv_abs_sin_c``, its ``bias_func`` and the halved theta_e) in
+  float64 to rtol 1e-10 (and atol 1e-300: XLA on the CPU flushes the
+  denormal opacities of a few lanes to zero).
+* On CPU tensors both wrappers are their plain versions bit for bit, the
+  engine's phases call each once, and the card checks' comparisons
+  (``hot_kernels.compare_fresh`` / ``compare``) pass a plain result and
+  catch a changed kept lane.
+* On the card (``cuda`` tests, ``python -m pytest --noconftest -m cuda
+  tests/test_torch_fresh_init.py``): each kernel against its plain version
+  at the path's widths in float32 and float64 and, for the track start, in
+  both semantics with the birth state traced: dk/dlambda, interacting and
+  the birth state bit for bit, every lane outside the valid fresh set
+  unchanged, the opacities and the bias (and every event-fluid output) at
+  ``hot_kernels.KERNEL_TOLERANCE``.  JAX is imported inside fixtures, so
+  these run where JAX is missing.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from grmonty_tpu_torch import convert
+from grmonty_tpu_torch.models import harm, torus
+from grmonty_tpu_torch.ops import fluid
+from grmonty_tpu_torch.transport import driver, engine, hot_kernels, profiles
+
+POOL = 256
+RTOL = 1e-10
+DENORMAL = 1e-300  # below it XLA on the CPU flushes results to zero
+BAD_ROWS = (2, 5)  # backlog rows given zero weight: loaded, not valid
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Pools of a few hundred lanes: intra-op threads only add overhead, and
+    the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def dump(tmp_path_factory):
+    path = tmp_path_factory.mktemp("dumps") / "torus_dump"
+    torus.write_torus_dump(str(path), n1=64, n2=32)
+    return str(path)
+
+
+def _close(got, ref, what):
+    got, ref = np.asarray(got), np.asarray(ref)
+    if ref.dtype.kind in "bi":
+        assert np.array_equal(got.astype(ref.dtype), ref), what
+        return
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=0.0, err_msg=what)
+
+
+def _assert_states_close(got, ref):
+    for name in engine.Pool._fields:
+        g, r = getattr(got.pool, name), getattr(ref.pool, name)
+        assert isinstance(g, tuple) == isinstance(r, tuple), name
+        pairs = list(zip(g, r, strict=True)) if isinstance(g, tuple) else [(g, r)]
+        for i, (gc, rc) in enumerate(pairs):
+            _close(gc.numpy(), rc.numpy(), f"pool.{name}[{i}]")
+    for name in engine.Counters._fields:
+        _close(getattr(got.counters, name).numpy(), getattr(ref.counters, name).numpy(),
+               f"counters.{name}")
+    _close(got.spec.numpy(), ref.spec.numpy(), "spec")
+
+
+@pytest.fixture(scope="module", params=[(False, False), (False, True), (True, False),
+                                        (True, True)],
+                ids=["shipped", "shipped-trace", "reference", "reference-trace"])
+def jax_side(request, dump):
+    """A JAX engine of one semantics (float64, POOL lanes, the trace off or
+    on), its jitted light phase, a fresh state and a backlog with two
+    zero-weight photons; the port's engine of the same config on the same
+    tables."""
+    import jax
+    import jax.numpy as jnp
+    from jax import random
+
+    from grmonty_tpu.transport import driver as jdriver
+    from grmonty_tpu.transport import engine as jengine
+
+    reference, trace = request.param
+    physics = convert._REFERENCE if reference else convert._SHIPPED
+    jcfg = jengine.EngineConfig(
+        n_pool=POOL, m_period=16, sec_cap=4 * POOL, ev_k=POOL // 4, refill_k=POOL // 2,
+        light_k=POOL // 4, refill_period=4, trace_birth=trace, dtype=jnp.float64,
+        **({} if reference else {"grow_cap": 8.0}), **physics)
+    pcfg = convert.from_jax_config(jcfg)
+    assert pcfg.reference == reference and pcfg.trace_birth == trace
+    jsim = jdriver.Simulation(dump, photon_n=2000, mass_unit=4e19, config=jcfg,
+                              cdf_sampler=True, emit_stride=True, warmup=0)
+    backlog = np.array(jsim.emit_packed(jsim.plan(), 0, 4 * POOL))
+    backlog[list(BAD_ROWS), engine.ROW_W] = 0.0
+    eng = jsim.engine
+    mc = fluid.make_model_consts(harm.read_dump(dump, 4e19))
+    port = engine.Engine(mc, pcfg, convert.from_jax_engine_tables(jsim._engine_tabs),
+                         torch.device("cpu"), torch.Generator())
+    return dict(light=jax.jit(eng["light_phase"]), fresh=eng["fresh_state"](random.PRNGKey(3)),
+                backlog=jnp.asarray(backlog), port=port)
+
+
+def test_light_phase_matches_jax(jax_side):
+    """Two light phases: the first loads light_k lanes into an empty pool
+    (two of them invalid), the second the next light_k beside lanes that
+    keep their start; each of the port's agrees with JAX's from the same
+    state."""
+    light, port = jax_side["light"], jax_side["port"]
+    backlog = torch.as_tensor(np.array(jax_side["backlog"]))
+    s0 = jax_side["fresh"]
+    s1 = light(s0, jax_side["backlog"])
+    s2 = light(s1, jax_side["backlog"])
+    got1 = port.light_phase(convert.from_jax_state(s0), backlog)
+    _assert_states_close(got1, convert.from_jax_state(s1))
+    got2 = port.light_phase(convert.from_jax_state(s1), backlog)
+    _assert_states_close(got2, convert.from_jax_state(s2))
+    # the invalid photons were loaded and dropped; the rest interact or not
+    occ = got1.pool.occupied
+    assert int(occ.sum()) == port.light_k - len(BAD_ROWS)
+    assert int(got2.pool.occupied.sum()) == 2 * port.light_k - len(BAD_ROWS)
+    assert 0 < int((got2.pool.interacting & got2.pool.occupied).sum())
+    assert bool((got2.pool.dkdlam[1][occ] != 0.0).all())
+
+
+@pytest.fixture(scope="module")
+def cpu_sim(dump):
+    cfg = engine.EngineConfig(n_pool=1024, m_period=8, sec_cap=1024, dtype=torch.float64)
+    return driver.Simulation(dump, photon_n=100, mass_unit=4e19, config=cfg, device="cpu",
+                             emit_chunk=256, warmup=0)
+
+
+def test_event_fluid_plain_matches_the_jax_composition(cpu_sim, dump):
+    import jax.numpy as jnp
+
+    from grmonty_tpu import consts as jconsts
+    from grmonty_tpu.models import harm as jharm
+    from grmonty_tpu.ops import fluid as jfluid
+    from grmonty_tpu.ops import geometry as jgeo
+    from grmonty_tpu.ops import radiation as jrad
+
+    eng = cpu_sim.engine
+    rows, x1, x2, k, w, tries, den = hot_kernels.synthetic_event_fluid(eng, 2048, 41)
+    got = hot_kernels.event_fluid_outputs(engine.event_fluid_plain(
+        rows, x1, x2, k, w, tries, den, eng.mc, eng.tables))
+
+    mc = jfluid.make_model_consts(jharm.read_dump(dump, 4e19))
+    j = lambda t: jnp.asarray(t.numpy())  # noqa: E731
+    jx1, jx2, jk, jw = j(x1), j(x2), tuple(j(c) for c in k), j(w)
+    g7 = jgeo.gcov_c(jx1, jx2, mc.a, mc.h_slope, mc.r_0)
+    fl = jfluid.get_fluid_params_c(jx1, jx2, j(eng.tables.corner_rows), mc, g7=g7)
+    sin_th, nu = jrad.kinematics_sin_c(jk, fl.u_cov, fl.b_cov, fl.b, mc.b_unit)
+    nu_safe = jnp.abs(nu) + jconsts.EPS
+    hc, k2 = j(eng.tables.hc_coeffs), jnp.asarray(eng.tables.k2_coeffs)
+    a_sc = jrad.alpha_inv_scatt_c(nu_safe, fl.theta_e, fl.n_e, hc)
+    a_ab = jrad.alpha_inv_abs_sin_c(nu_safe, fl.theta_e, fl.n_e, fl.b, sin_th, k2)
+    bias = jnp.minimum(jnp.maximum(100.0 * fl.theta_e * fl.theta_e / float(den),
+                                   jconsts.TP_OVER_TE),
+                       0.5 * jw / engine.WEIGHT_MIN) / jconsts.TP_OVER_TE
+    neg = nu < 0.0
+    want = hot_kernels._flat({
+        "g7": g7, "n_e": fl.n_e, "theta_e": fl.theta_e, "b": fl.b, "u_con": fl.u_con,
+        "u_cov": fl.u_cov, "b_con": fl.b_con, "b_cov": fl.b_cov,
+        "theta_s": fl.theta_e * jnp.exp2(-(j(tries) // engine.EV_HALVE).astype(jnp.float64)),
+        "a_sc": jnp.where(neg, 0.0, a_sc), "a_ab": jnp.where(neg, 0.0, a_ab), "bias": bias})
+    assert set(want) == set(got)
+    for name, ref in want.items():
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(ref), rtol=RTOL,
+                                   atol=DENORMAL, err_msg=name)
+    # the inputs reach every branch: vacuum, plasma, negative frequencies,
+    # halved theta_e, the bias's cap and its free range
+    assert int((got["n_e"] == 0.0).sum()) > 0 and int((got["n_e"] > 0.0).sum()) > 1000
+    assert int((np.asarray(nu) < 0.0).sum()) > 0
+    assert int((got["theta_s"] < got["theta_e"]).sum()) > 0
+    assert int((got["bias"] < 1.0).sum()) > 0 and int((got["bias"] > 1.0).sum()) > 0
+
+
+def _same(a, b):
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return bool(torch.equal(a, b) or (a.dtype.is_floating_point and torch.allclose(
+            a, b, rtol=0.0, atol=0.0, equal_nan=True)))
+    return a == b
+
+
+@pytest.mark.parametrize("reference", [False, True], ids=["shipped", "reference"])
+def test_fresh_init_wrapper_is_the_plain_version_on_the_cpu(cpu_sim, reference):
+    mc, tabs = cpu_sim.mc, cpu_sim.tables
+    pool, fresh, den, cfg = hot_kernels.synthetic_fresh(mc, 600, 256, 9, torch.float64, "cpu",
+                                                        reference=reference)
+    got = hot_kernels.fresh_init(pool, fresh, den, mc, tabs, cfg)
+    want = engine.init_fresh_plain(pool, fresh, den, mc, tabs, cfg)
+    for f in engine.Pool._fields:
+        assert _same(getattr(got, f), getattr(want, f)), f
+    # the card check's comparison passes it and sees what the start wrote
+    rec, fails = hot_kernels.compare_fresh("fresh_init_f64", pool, fresh, want, got)
+    assert not fails and rec["kept_bitwise"] and rec["bi_bitwise"]
+    assert 0 < rec["lanes_plasma"] < rec["lanes_fresh"] < fresh[1].shape[0]
+    # a changed lane outside the fresh set, or a changed dk/dlambda, fails it
+    touched = torch.zeros(600, dtype=torch.bool)
+    touched[fresh[1][fresh[0]]] = True
+    kept = int(torch.nonzero(~touched)[0])
+    bad = got._replace(alpha_absi=got.alpha_absi.clone())
+    bad.alpha_absi[kept] += 1.0
+    assert hot_kernels.compare_fresh("fresh_init_f64", pool, fresh, want, bad)[1]
+    lane = int(fresh[1][fresh[0]][0])
+    bad = got._replace(dkdlam=(got.dkdlam[0].clone(),) + got.dkdlam[1:])
+    bad.dkdlam[0][lane] = torch.nextafter(bad.dkdlam[0][lane], torch.tensor(np.inf).double())
+    assert hot_kernels.compare_fresh("fresh_init_f64", pool, fresh, want, bad)[1]
+
+
+def test_event_fluid_wrapper_is_the_plain_version_on_the_cpu(cpu_sim):
+    eng = cpu_sim.engine
+    args = hot_kernels.synthetic_event_fluid(eng, 700, 5)
+    got = hot_kernels.event_fluid(*args, eng.mc, eng.tables)
+    want = engine.event_fluid_plain(*args, eng.mc, eng.tables)
+    assert _same(tuple(got), tuple(want))
+    ref = hot_kernels.event_fluid_outputs(want)
+    assert not hot_kernels.compare(ref, hot_kernels.event_fluid_outputs(got),
+                                   **hot_kernels.KERNEL_TOLERANCE["event_fluid_f64"],
+                                   nan_equal=True)[3]
+    with pytest.raises(ValueError):
+        hot_kernels.entry_point("event_fluid", torch.float16)
+    assert hot_kernels.entry_point("fresh_init", torch.float64, True) == "fresh_init_ref_f64"
+    assert hot_kernels.entry_point("event_fluid", torch.float32, True) == "event_fluid"
+
+
+def test_the_engine_runs_both_through_their_wrappers(cpu_sim, monkeypatch):
+    """A full phase calls event_fluid once (after one row gather of the
+    events' rows) and fresh_init once; each equals a run whose wrappers are
+    replaced by the plain versions."""
+    sim = cpu_sim
+    eng = sim.engine
+    sim.plan()
+    backlog = sim.emit_rows(0, 1024)
+    state = eng.fresh_state()
+    for _ in range(3):  # load lanes and run them to events
+        state = eng.periodic_phase(state, backlog)
+        for _ in range(8):
+            state = eng.hot_step(state)
+    calls = {"fresh_init": 0, "event_fluid": 0}
+    wrapped = {name: getattr(hot_kernels, name) for name in calls}
+
+    def counting(name):
+        def fn(*a, **kw):
+            calls[name] += 1
+            return wrapped[name](*a, **kw)
+        return fn
+
+    for name in calls:
+        monkeypatch.setattr(hot_kernels, name, counting(name))
+    gen_state = eng.gen.get_state()
+    got = eng.periodic_phase(state, backlog)
+    assert calls == {"fresh_init": 1, "event_fluid": 1}
+    monkeypatch.setattr(hot_kernels, "fresh_init", engine.init_fresh_plain)
+    monkeypatch.setattr(hot_kernels, "event_fluid", engine.event_fluid_plain)
+    eng.gen.set_state(gen_state)
+    want = eng.periodic_phase(state, backlog)
+    for f in engine.Pool._fields:
+        assert _same(getattr(got.pool, f), getattr(want.pool, f)), f
+    assert _same(tuple(got.counters), tuple(want.counters))
+
+
+# ---------------------------------------------------------------------------
+# the card
+# ---------------------------------------------------------------------------
+
+# the track starts' (pool lanes, fresh-set width) on either semantics' path,
+# held in both semantics; the event phase's compacted widths
+FRESH_WIDTHS = sorted(set(hot_kernels.FRESH_WIDTHS[False]) | set(hot_kernels.FRESH_WIDTHS[True]),
+                      reverse=True)
+EVENT_WIDTHS = hot_kernels.EVENT_FLUID_WIDTHS
+
+
+@pytest.fixture(scope="module")
+def card_sims(dump):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    return {dt: driver.Simulation(dump, photon_n=100, mass_unit=4e19, device="cuda",
+                                  config=profiles.bench_config(pool=1024, dtype=dt),
+                                  emit_chunk=256, warmup=0)
+            for dt in (torch.float32, torch.float64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("reference", [False, True], ids=["shipped", "reference"])
+@pytest.mark.parametrize("n,k", FRESH_WIDTHS, ids=[f"{n}x{k}" for n, k in FRESH_WIDTHS])
+def test_fresh_init_kernel_matches_plain_on_the_card(card_sims, dtype, reference, n, k):
+    sim = card_sims[dtype]
+    pool, fresh, den, cfg = hot_kernels.synthetic_fresh(sim.mc, n, k, 2030 + k, dtype, "cuda",
+                                                        reference=reference)
+    name = hot_kernels.entry_point("fresh_init", dtype, reference)
+    want = engine.init_fresh_plain(pool, fresh, den, sim.mc, sim.tables, cfg)
+    before = dict(hot_kernels.launches)
+    got = hot_kernels.fresh_init(pool, fresh, den, sim.mc, sim.tables, cfg)
+    torch.cuda.synchronize()
+    assert hot_kernels.launches[name] == before[name] + 1
+    assert sum(hot_kernels.launches.values()) == sum(before.values()) + 1
+    rec, fails = hot_kernels.compare_fresh(name, pool, fresh, want, got)
+    assert not fails, (fails, rec)
+    assert rec["lanes_plasma"] > 0
+    # the trace off: no birth state in, none out
+    off = cfg._replace(trace_birth=False)
+    bare = pool._replace(bx=(), bk=(), bw=())
+    got = hot_kernels.fresh_init(bare, fresh, den, sim.mc, sim.tables, off)
+    assert got.bx == () and got.bw == ()
+    assert not hot_kernels.compare_fresh(
+        name, bare, fresh, engine.init_fresh_plain(bare, fresh, den, sim.mc, sim.tables, off),
+        got)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", EVENT_WIDTHS)
+def test_event_fluid_kernel_matches_plain_on_the_card(card_sims, dtype, n):
+    sim = card_sims[dtype]
+    args = hot_kernels.synthetic_event_fluid(sim.engine, n, 3030 + n)
+    name = hot_kernels.entry_point("event_fluid", dtype)
+    want = hot_kernels.event_fluid_outputs(engine.event_fluid_plain(*args, sim.mc, sim.tables))
+    before = hot_kernels.launches[name]
+    got = hot_kernels.event_fluid_outputs(hot_kernels.event_fluid(*args, sim.mc, sim.tables))
+    torch.cuda.synchronize()
+    assert hot_kernels.launches[name] == before + 1
+    err, rel, mask, fails = hot_kernels.compare(want, got, **hot_kernels.KERNEL_TOLERANCE[name],
+                                                nan_equal=True)
+    assert not fails, fails
