@@ -72,7 +72,13 @@ Phases, each of which exits non-zero on failure:
    iteration, the row gather, the event fluid and the event kernel of its
    dtype once per full phase, the track start of its dtype and semantics
    once per full and light phase, no other entry point) and no plain hot
-   step, track start or event fluid;
+   step, track start or event fluid.  Phases 5-14 run the engine as it
+   ships: each engine's block (the full phase, the hot steps, each light
+   phase and its hot steps) captured once into a CUDA graph and replayed
+   once per block, the launches credited per replay; each path's line
+   gives its replays, blocks, ms per body and ``capture_s``
+   (``graph_summary``), and phases 5, 6 and 12b fail unless every block
+   was one replay;
 5. the shipped profile end to end at M = 4e19, seed 123, float32, pool
    65,536, the JAX driver's whole schedule: the pilot (8,192 photons on the
    host tracker; its seconds and counters printed), the waves (the first
@@ -112,8 +118,7 @@ Phases, each of which exits non-zero on failure:
    with 65,536-photon waves (the ramp and several whole waves) and the
    cascade's step cap cut to ``RESUME_TAIL_STALL``, three times: uninterrupted; with a checkpoint and a failure injected after its
    second wave (in this phase only); resumed from the checkpoint in a fresh
-   ``Simulation``.  The uninterrupted run's phases are clocked by CUDA
-   events (``profile_slice.clock_phases``) for phase 12b.  The resumed
+   ``Simulation``.  The resumed
    spectrum must match the uninterrupted one to rtol 1e-6 (float atomics
    sum it on the card), every count exactly (the full and light phases
    among them), the checkpoint must be gone, the resumed ``device_s`` must
@@ -159,7 +164,7 @@ Phases, each of which exits non-zero on failure:
    of the cell; (b)
    that ``Simulation`` end to end, the shipped profile at
    ``--resume-photon-n`` photons with phase 8's waves and cascade step cap,
-   under phase 5's checks (``"path": "shipped_f64"``), its phases clocked,
+   under phase 5's checks (``"path": "shipped_f64"``),
    and one line (``{"phase": "f64_vs_f32", ...}``) with its window, rate
    and counts beside phase 8's float32 run; (c) the accuracy gate at
    reference semantics in float64 (``F64_GATE_ARGS``): its hard gates, the
@@ -189,7 +194,20 @@ Phases, each of which exits non-zero on failure:
    residual is printed, not held: secondaries born near r = 27 M on the
    64x32 torus carry non-null wave vectors in the JAX engine too), and the
    three replays through the native tracker must have run
-   (``{"phase": "replay", ...}``).
+   (``{"phase": "replay", ...}``);
+15. the graph against its plain version (run after phase 6): each path in
+   float32 and float64 (``GRAPH_RUNS``), a wave of ``GRAPH_PHOTON_N``
+   photons and the whole cascade at the path's setup (pool 65,536; the
+   pilot cut to ``GRAPH_WARMUP`` photons, the step caps to
+   ``RESUME_TAIL_STALL``), run twice on the same seed: graphed, and with
+   ``graphed=False`` (the block issued op by op).  The state handed to the
+   cascade and the final state must agree bit for bit (pool, ring,
+   counters), the spectrum to rtol 1e-6 (float atomics sum it), the launch
+   and phase counts exactly; the graphed run must replay one graph a block
+   and report a capture.  One line a path (``graph run: {...}``: both
+   runs' device windows, rates, ms per body and per hot iteration, the
+   replays, ``capture_s``), then ``{"phase": "graph", ...}`` with the
+   card's name and power limit.
 
 With ``--probe-kernels-only`` the script runs phases 1, 2 and 7a and
 prints the card line and the kernels line (no result line); a copy of it
@@ -1188,12 +1206,16 @@ def path_launches(cfg, stats):
 
 def launch_failures(cfg, stats, counts):
     """What is wrong with a run's launch ``counts`` against
-    :func:`path_launches` (empty when they match and a hot step ran)."""
+    :func:`path_launches` (empty when they match and a hot step ran), or
+    with its replays: on the card every block is one replay of its
+    engine's graph, so ``stats["replays"]`` equals the full phases."""
     want = path_launches(cfg, stats)
-    if counts == want and stats["hot_iters"] > 0:
-        return ""
-    return (f"launches {counts} against {want} ({stats['hot_iters']} hot iterations, "
-            f"{stats['full_phases']} full and {stats['light_phases']} light phases)")
+    bad = "" if counts == want and stats["hot_iters"] > 0 else (
+        f"launches {counts} against {want} ({stats['hot_iters']} hot iterations, "
+        f"{stats['full_phases']} full and {stats['light_phases']} light phases)")
+    if stats["replays"] != stats["full_phases"]:
+        bad += f" {stats['replays']} graph replays for {stats['full_phases']} blocks"
+    return bad
 
 
 # The plain versions that a run on the card must not call: the hot step's,
@@ -1225,46 +1247,27 @@ def counting_plain_steps():
             setattr(engine, name, fn)
 
 
-@contextlib.contextmanager
-def phase_clocks():
-    """The engine's phases and the event kernel's wrapper bracketed by CUDA
-    events for the run inside (``profile_slice.clock_phases``, which
-    synchronises nothing); yields
-    {phase: [(event, event)]}, read by :func:`clock_summary`."""
-    import profile_slice
-    from grmonty_tpu_torch.transport import engine
-
-    clocks = {name: [] for name in profile_slice.PHASES + profile_slice.WRAPPERS}
-    saved = profile_slice.clock_phases(engine.Engine, clocks)
-    try:
-        yield clocks
-    finally:
-        profile_slice.restore_phases(engine.Engine, saved)
+def graph_summary(stats):
+    """The run's blocks as its graphs ran them: {replays, blocks (one full
+    phase each), ms_per_body (device window over blocks), capture_s}."""
+    blocks = stats["full_phases"]
+    return {"replays": stats["replays"], "blocks": blocks,
+            "ms_per_body": 1e3 * stats["device_s"] / max(1, blocks),
+            "capture_s": stats["capture_s"]}
 
 
-def clock_summary(clocks, device_s):
-    """{phase: {calls, ms, ms_per_call, share of the device window}}."""
-    out = {}
-    for name, pairs in clocks.items():
-        ms = sum(e0.elapsed_time(e1) for e0, e1 in pairs)
-        out[name] = {"calls": len(pairs), "ms": ms, "ms_per_call": ms / max(1, len(pairs)),
-                     "share": ms / (1e3 * device_s)}
-    return out
-
-
-def drive(sim, label, clocks=False):
+def drive(sim, label):
     """Run ``sim`` with every launch count set to 0 just before, check its
-    schedule, its spectrum, its luminosity and its launches
-    (:func:`path_launches`; no plain version called), print its result line (with
-    ``clocks``, also the phase clocks of :func:`phase_clocks`); returns
-    (stats, counts)."""
+    schedule, its spectrum, its luminosity, its launches
+    (:func:`path_launches`; no plain version called) and that every block
+    was one replay of its engine's graph, print its result line (with
+    :func:`graph_summary`); returns (stats, counts)."""
     import torch
 
     from grmonty_tpu_torch.transport import hot_kernels
 
     root = os.path.dirname(os.path.abspath(__file__))
-    with (phase_clocks() if clocks else contextlib.nullcontext()) as clocked, \
-            counting_plain_steps() as plain_steps:
+    with counting_plain_steps() as plain_steps:
         hot_kernels.reset_launches()
         spec, stats = sim.run()
         counts = dict(hot_kernels.launches)
@@ -1291,8 +1294,7 @@ def drive(sim, label, clocks=False):
         "util_waves": stats.get("util_waves"), "dtype": str(sim.cfg.dtype).removeprefix("torch."),
         "plain_steps": plain_steps["hot_step_plain"], "plain_calls": plain_steps,
     }
-    if clocks:
-        result["phases"] = clock_summary(clocked, stats["device_s"])
+    result["graph"] = graph_summary(stats)
     print(json.dumps(result))
     check_schedule(sim, stats, label)
     if not bool(torch.isfinite(torch.as_tensor(spec)).all()):
@@ -1314,10 +1316,9 @@ class InjectedFailure(Exception):
 
 
 def resume_check(root, photon_n):
-    """Phase 8: an uninterrupted run (its phases clocked,
-    :func:`phase_clocks`), a run that fails after its second wave with a
-    checkpoint, and its resumption in a fresh ``Simulation``.  Returns
-    ((spectrum, stats) of the uninterrupted run, its phase clocks)."""
+    """Phase 8: an uninterrupted run, a run that fails after its second wave
+    with a checkpoint, and its resumption in a fresh ``Simulation``.
+    Returns (spectrum, stats) of the uninterrupted run."""
     import numpy as np
 
     ck = os.path.join(root, ".cache", "chip_smoke_resume.npz")
@@ -1329,10 +1330,8 @@ def resume_check(root, photon_n):
                                tail_stall_steps=RESUME_TAIL_STALL)
 
     t0 = time.monotonic()
-    with phase_clocks() as clocks:
-        spec_ref, st_ref = sim().run()
+    spec_ref, st_ref = sim().run()
     ref = (spec_ref, st_ref)
-    phases_ref = clock_summary(clocks, st_ref["device_s"])
     crashing = sim()
     wave, done = crashing._run_wave, []
 
@@ -1375,7 +1374,8 @@ def resume_check(root, photon_n):
               **{k: [st_ref[k], st_res[k]] for k in counts},
               "device_s": [st_ref["device_s"], st_res["device_s"], crashing.device_s,
                            sum(windows)],
-              "elapsed_s": [st_ref["elapsed_s"], st_res["elapsed_s"], crashed_s]}
+              "elapsed_s": [st_ref["elapsed_s"], st_res["elapsed_s"], crashed_s],
+              "graph": graph_summary(st_ref)}
     print(json.dumps(result))
     if st_ref["waves"] <= 3:
         fail(f"resume: {st_ref['waves']} waves, too few to fail after the second")
@@ -1393,7 +1393,7 @@ def resume_check(root, photon_n):
     if not st_res["elapsed_s"] >= crashed_s:
         fail(f"resume: elapsed_s {st_res['elapsed_s']} is below the interrupted part's "
              f"{crashed_s}")
-    return ref, phases_ref
+    return ref
 
 
 def cli_check(root, photon_n, extra=None, dump=None, label="cli"):
@@ -1466,7 +1466,7 @@ def accuracy_check(root, gate_args=GATE_ARGS, label="accuracy", sigmas=None):
             "engine_s": out["engine_s"], "oracle_s": out["oracle_s"],
             "device_s": run["device_s"], "hot_iters": run["hot_iters"],
             "full_phases": run["full_phases"], "light_phases": run["light_phases"],
-            "tail_stages": run["tail_stages"], "launches": counts,
+            "replays": run["replays"], "tail_stages": run["tail_stages"], "launches": counts,
             "plain_steps": plain_steps["hot_step_plain"], "plain_calls": plain_steps,
             "seconds": time.monotonic() - t0}
     print(json.dumps(line))
@@ -1548,7 +1548,8 @@ def sharded_check(root, photon_n, ref=None):
         rel = np.abs(spec - spec_ref) / np.abs(spec_ref)
     max_rel = float(np.nanmax(np.where(spec_ref == spec, 0.0, rel)))
     keys = ("n_created", "n_recorded", "n_scatt_recorded", "n_tracked", "hot_iters",
-            "full_phases", "light_phases", "waves", "n_stall_killed", "n_secondary_dropped")
+            "full_phases", "light_phases", "replays", "waves", "n_stall_killed",
+            "n_secondary_dropped")
     result = {"phase": "sharded", "backend": backend, "world_size": st["n_devices"],
               "photon_n": photon_n, "max_rel_spec_diff": max_rel,
               **{k: [st_ref[k], st[k]] for k in keys},
@@ -1580,9 +1581,8 @@ def f64_checks(root, args, usage, sass, ref32=None):
     plain float64 versions (:func:`kernel_checks` on a float64
     ``Simulation`` of the smoke cell); (b) that ``Simulation``, the shipped
     profile in float64 with phase 8's waves and cascade step cap, end to
-    end (:func:`drive`, its phases clocked) beside ``ref32`` ((stats, phase
-    clocks) of phase 8's float32 run of the same setup; run here when
-    None); (c) the accuracy gate at reference semantics in float64
+    end (:func:`drive`) beside ``ref32`` (the stats of phase 8's float32
+    run of the same setup; run here when None); (c) the accuracy gate at reference semantics in float64
     (``F64_GATE_ARGS``); (d) the command line in float64 under reference
     semantics on the 64x32 torus.  Returns the kernel records, each with
     the launches of its path's run."""
@@ -1597,23 +1597,22 @@ def f64_checks(root, args, usage, sass, ref32=None):
     t_kernels = time.monotonic() - t0
     if ref32 is None:
         sim32 = make_simulation(root, args.resume_photon_n, **over)
-        with phase_clocks() as clocks:
-            _, st32 = sim32.run()
-        ref32 = (st32, clock_summary(clocks, st32["device_s"]))
+        _, ref32 = sim32.run()
         del sim32
     t0 = time.monotonic()
-    stats, counts = drive(sim, "shipped_f64", clocks=True)
+    stats, counts = drive(sim, "shipped_f64")
     for name in ("hot_step_f64", "row_gather_f64", "scatter_event_f64", "fresh_init_f64",
                  "event_fluid_f64"):
         recs[name]["launches"] = counts[name]
-    st32, phases32 = ref32
+    st32 = ref32
     keys = ("device_s", "photon_rate_device", "hot_iters", "full_phases", "light_phases",
             "n_recorded", "n_created")
     print(json.dumps({"phase": "f64_vs_f32", "photon_n": args.resume_photon_n,
                       **{k: [st32[k], stats[k]] for k in keys},
                       "tail_stages": [[[st["pool"], st["iters"], st["device_s"]]
                                        for st in s["tail_stages"]] for s in (st32, stats)],
-                      "phases_f32": phases32, "kernel_checks_s": t_kernels,
+                      "graph": [graph_summary(s) for s in (st32, stats)],
+                      "kernel_checks_s": t_kernels,
                       "run_s": time.monotonic() - t0}))
     del sim
     counts = accuracy_check(root, F64_GATE_ARGS, "accuracy_f64", sigmas=F64_GATE_SIGMAS)
@@ -1622,6 +1621,96 @@ def f64_checks(root, args, usage, sass, ref32=None):
     cli_check(root, F64_CLI_PHOTON_N, extra=F64_CLI_ARGS,
               dump=validate_accuracy._torus(64, 32), label="cli_f64")
     return list(recs.values())
+
+
+GRAPH_PHOTON_N = 2e4  # phase 15's photons (one wave)
+GRAPH_WARMUP = 2048  # and its pilot
+GRAPH_RUNS = (("shipped", False, "float32"), ("reference", True, "float32"),
+              ("shipped_f64", False, "float64"), ("reference_f64", True, "float64"))
+
+
+def graph_check(root, card):
+    """Phase 15: each path, float32 and float64, run twice on the same seed:
+    every engine's block replayed from its CUDA graph, and issued op by op
+    (``graphed=False``, the plain version of the graph).  A wave of
+    ``GRAPH_PHOTON_N`` photons and the whole cascade at the path's setup
+    (pool 65,536; the pilot and the step caps cut to ``GRAPH_WARMUP`` and
+    ``RESUME_TAIL_STALL``).  The state handed to the cascade and the final
+    state must agree bit for bit (pool, ring, counters), the spectrum to
+    rtol 1e-6 (float atomics sum it), the launch and phase counts exactly,
+    and the graphed run must replay one graph per block.  One line with
+    each run's device window, ms per body and ``capture_s`` and the card's
+    name and power limit."""
+    import numpy as np
+    import torch
+
+    from grmonty_tpu_torch.transport import driver, engine, hot_kernels
+
+    def bits(t):
+        if t.is_floating_point():
+            return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+        return t
+
+    t0 = time.monotonic()
+    out = []
+    for label, reference, dt in GRAPH_RUNS:
+        runs = {}
+        for graphed in (True, False):
+            sim = make_simulation(root, GRAPH_PHOTON_N, reference=reference,
+                                  stall_steps=RESUME_TAIL_STALL, dtype=getattr(torch, dt),
+                                  warmup=GRAPH_WARMUP, tail_stall_steps=RESUME_TAIL_STALL,
+                                  graphed=graphed)
+            handed, drain = [], sim._drain_tail
+
+            def keep_and_drain(state, _drain=drain, _handed=handed):
+                _handed.append(engine.clone_state(state))
+                return _drain(state)
+
+            sim._drain_tail = keep_and_drain
+            hot_kernels.reset_launches()
+            spec, stats = sim.run()
+            runs[graphed] = (spec, stats, handed[0], sim.state, dict(hot_kernels.launches))
+            cfg = sim.cfg
+            del sim
+        (spec_g, st_g, hand_g, end_g, launches_g), (spec_e, st_e, hand_e, end_e, launches_e) = (
+            runs[True], runs[False])
+        differ = [f"{when}.{name}"
+                  for when, got, want in (("handed", hand_g, hand_e), ("final", end_g, end_e))
+                  for name, g, w in zip(driver._flat_state(want), engine.state_tensors(got),
+                                        engine.state_tensors(want), strict=True)
+                  if name != "spec" and not torch.equal(bits(g), bits(w))]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            rel = np.abs(spec_g - spec_e) / np.abs(spec_e)
+        max_rel = float(np.nanmax(np.where(spec_e == spec_g, 0.0, rel)))
+        keys = ("hot_iters", "full_phases", "light_phases", "n_recorded", "n_created")
+        rec = {"path": label, "photon_n": GRAPH_PHOTON_N,
+               **{k: [st_g[k], st_e[k]] for k in keys + ("device_s", "photon_rate_device")},
+               "ms_per_body": [graph_summary(s)["ms_per_body"] for s in (st_g, st_e)],
+               "ms_per_hot_iter": [1e3 * s["device_s"] / max(1, s["hot_iters"])
+                                   for s in (st_g, st_e)],
+               "replays": [st_g["replays"], st_e["replays"]],
+               "capture_s": st_g["capture_s"], "max_rel_spec_diff": max_rel,
+               "state_differs": differ}
+        out.append(rec)
+        print(f"graph run: {json.dumps(rec)}")
+        if differ:
+            fail(f"graph {label}: the graphed run's state differs from the eager one's: "
+                 f"{differ[:8]}")
+        if not np.allclose(spec_g, spec_e, rtol=1e-6, atol=0.0):
+            fail(f"graph {label}: the spectra differ by {max_rel} relative")
+        moved = [k for k in keys if st_g[k] != st_e[k]]
+        if moved or launches_g != launches_e:
+            fail(f"graph {label}: counts differ: {moved}, launches {launches_g} against "
+                 f"{launches_e}")
+        bad = launch_failures(cfg, st_g, launches_g)
+        if bad:
+            fail(f"graph {label}: {bad}")
+        if not (st_g["replays"] == st_g["full_phases"] > 0 and st_e["replays"] == 0
+                and st_g["capture_s"] > 0.0):
+            fail(f"graph {label}: replays {rec['replays']} for {st_g['full_phases']} blocks, "
+                 f"capture_s {st_g['capture_s']}")
+    print(json.dumps({"phase": "graph", "card": card, "runs": out,
+                      "seconds": time.monotonic() - t0}))
 
 
 def scatter_dist_check():
@@ -1685,7 +1774,7 @@ def replay_check(root):
         counts = dict(hot_kernels.launches)
     runs = out["runs"]
     total = {k: sum(r[k] for r in runs.values())
-             for k in ("hot_iters", "full_phases", "light_phases")}
+             for k in ("hot_iters", "full_phases", "light_phases", "replays")}
     line = {"phase": "replay", "photons": out["photons"], "mass_unit": out["mass_unit"],
             **{k: out.get(k) for k in (
                 "engine_max_tau", "engine_max_tau_nominal_steps", "replay_max_tau",
@@ -1808,6 +1897,7 @@ def main():
     for name in ("hot_step_ref", "row_gather", "fresh_init_ref"):
         kernels[name]["launches"] = counts[name]
     del ref_sim
+    graph_check(root, card)
 
     kernels.update((rec["name"], rec) for rec in probe_kernel_checks())
     probes, counts = run_probes()
@@ -1818,12 +1908,12 @@ def main():
     for name in ROWSUMS:
         kernels[name]["probe_torch_ms"] = probes["probe_vmem_gather"]["torch_ms"]
 
-    ref, phases32 = resume_check(root, args.resume_photon_n)
+    ref = resume_check(root, args.resume_photon_n)
     cli_check(root, args.resume_photon_n)
     accuracy_check(root)
     sharded_check(root, args.resume_photon_n, ref)
     kernels.update((rec["name"], rec)
-                   for rec in f64_checks(root, args, usage, sass, (ref[1], phases32)))
+                   for rec in f64_checks(root, args, usage, sass, ref[1]))
     kernels["scatter_chain_f64"]["launches"] = scatter_dist_check()["scatter_chain_f64"]
     replay_check(root)
 

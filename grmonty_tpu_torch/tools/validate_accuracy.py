@@ -553,6 +553,7 @@ def run(args):
                          "compile_s": sim.compile_s,
                          "full_phases": sum(e.phases["full"] for e in engines),
                          "light_phases": sum(e.phases["light"] for e in engines),
+                         "replays": sum(e.replays for e in engines),
                          "tail_stages": [[st["pool"], st["iters"]] for st in sim.tail_stages],
                          "pilot": sim.pilot}
     print(json.dumps(out, indent=2))

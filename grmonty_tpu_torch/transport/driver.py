@@ -33,7 +33,10 @@ One ``torch.Generator`` on the device, seeded from ``seed``, serves the
 whole run.  The engine's time is clocked by CUDA events on a CUDA device
 (``device_s``) next to the wall clock.  On a CUDA device the kernels are
 built (or loaded) when the ``Simulation`` is made, outside every device
-window, and the seconds that took are reported as ``compile_s``.
+window, and the seconds that took are reported as ``compile_s``; each
+engine's block is captured into a CUDA graph before its first device window
+(``Engine.capture``, ``capture_s``) and replayed once per block
+(``replays``), unless the ``Simulation`` is made with ``graphed=False``.
 """
 
 from __future__ import annotations
@@ -239,8 +242,12 @@ class Simulation:
                  warmup: int = 1024,
                  wave_tail_exit: int | None = None,
                  tail_grow_cap: float | None = None,
-                 tail_stall_steps: int | None = None):
+                 tail_stall_steps: int | None = None,
+                 graphed: bool | None = None):
         self.device = torch.device(device)
+        # every engine's block a CUDA graph (Engine's graphed: on the card
+        # unless False)
+        self.graphed = graphed
         # the seconds this Simulation spent building or loading the kernels:
         # 0.0 on the CPU and where the process already holds them
         self.compile_s = 0.0
@@ -267,7 +274,7 @@ class Simulation:
         self.tables = build_engine_tables(self.host, self.mc, self.cfg.dtype)
         self.engine = engine_mod.Engine(
             self.mc, self.cfg._replace(tail_exit=self._wave_tail_exit), self.tables,
-            self.device, self.gen)
+            self.device, self.gen, graphed=graphed)
         self._zone_tabs = self._zone_tables(self.cfg.dtype)
         self._zone_tabs64 = None  # float64 zone tables of the pilot, made at first use
         self._sampler_tabs = emission.SamplerTables(
@@ -279,6 +286,7 @@ class Simulation:
         self._total = 0
         self.spec_acc = np.zeros((engine_mod.N_BINS + 1, engine_mod.N_SPEC_CHAN))
         self.device_s = None  # CUDA-event window of the engine runs (CUDA only)
+        self.capture_s = 0.0  # the engines' warm-ups and captures in this run
         # the run's wall clock: its start in this process, and the seconds of
         # its earlier parts that a resumed checkpoint carries
         self._t_run, self._resumed_s = time.monotonic(), 0.0
@@ -359,10 +367,13 @@ class Simulation:
         return state._replace(spec=torch.zeros_like(state.spec))
 
     def _timed_run(self, eng, state, backlog, tail_exit=None, n_valid=None):
-        """engine.run with its device window added to ``device_s``; returns
-        (state, the window's seconds, None off the card)."""
+        """engine.run with its device window added to ``device_s``, the
+        engine's capture (at its first run) before the window and added to
+        ``capture_s``; returns (state, the window's seconds, None off the
+        card)."""
         if self.device.type != "cuda":
             return eng.run(state, backlog, tail_exit=tail_exit, n_valid=n_valid), None
+        self.capture_s += eng.capture(state, backlog, n_valid)
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -447,7 +458,8 @@ class Simulation:
                 stall_steps=(self.tail_stall_steps if self.tail_stall_steps is not None
                              else self.cfg.stall_steps))
             self._tail_engines[key] = engine_mod.Engine(self.mc, cfg, self.tables,
-                                                        self.device, self.gen)
+                                                        self.device, self.gen,
+                                                        graphed=self.graphed)
         return self._tail_engines[key]
 
     def _drain_tail(self, state):
@@ -571,10 +583,13 @@ class Simulation:
         state = self.engine.fresh_state()
         for eng in self._tail_engines.values():
             eng.phases = {"full": 0, "light": 0}
+            eng.replays = 0
         self.device_s = 0.0 if self.device.type == "cuda" else None
+        self.capture_s = 0.0
         self.spec_acc = np.zeros_like(self.spec_acc)
         self._warm_counts, self.pilot, self.tail_stages = None, None, []
         waves = self._waves(plan.total)
+        self.engine.reserve_backlog(max((n for _, n, _ in waves), default=1))
         resume = None
         if checkpoint_path and os.path.exists(checkpoint_path):
             resume, state = self.load_checkpoint(checkpoint_path)
@@ -609,6 +624,8 @@ class Simulation:
             "tail_stages": self.tail_stages,
             "elapsed_s": elapsed,
             "compile_s": self.compile_s,
+            "capture_s": self.capture_s,
+            "replays": sum(e.replays for e in engines),
             "photon_rate": plan.total / max(elapsed, 1e-9),
             "device_s": self.device_s,
             "photon_rate_device": (plan.total / self.device_s if self.device_s else None),

@@ -24,7 +24,12 @@ Photons are an SoA pool of (N,) tensors stepped in lockstep:
   :func:`init_fresh_plain` on the CPU;
 * :meth:`Engine.run` loops those blocks on the host, reading the exit
   condition once per ``m_period`` block (and logging its progress every
-  ``PROGRESS_ITERS`` iterations of a long run).
+  ``PROGRESS_ITERS`` iterations of a long run).  A block (the JAX engine's
+  ``lax.while_loop`` body: the full phase, the hot steps, each light phase
+  and its hot steps) runs in place on a state the engine owns, with a
+  static backlog buffer and a device ``n_valid``, so nothing in it reads
+  the host; on the card (``graphed``) it is captured once into a CUDA
+  graph and replayed once per block, elsewhere it runs eagerly.
 
 RNG: one ``torch.Generator`` per engine; every draw site takes a whole
 batch from it.  The hot phases take their uniforms as arguments, so the
@@ -32,6 +37,7 @@ kernels and the plain versions are comparable on identical inputs.
 """
 
 import logging
+import time
 import typing
 
 import numpy as np
@@ -218,6 +224,45 @@ def isnan4(v):
 
 def where4(m, a, b):
     return tuple(torch.where(m, ai, bi) for ai, bi in zip(a, b))
+
+
+def state_tensors(state: State):
+    """Every tensor of ``state`` in a fixed order: the pool's fields (a
+    4-vector field's components; a field that is off, the empty tuple,
+    none), the spectrum, the counters, the ring and ``backlog_pos``."""
+    out = []
+    for v in (*state.pool, state.spec, *state.counters, *state.sec, state.backlog_pos):
+        out.extend(v if isinstance(v, tuple) else (v,))
+    return out
+
+
+def clone_state(state: State) -> State:
+    """``state`` with every tensor copied into a contiguous tensor of its own."""
+    def c(v):
+        if isinstance(v, tuple):
+            return tuple(c(t) for t in v)
+        return v.clone(memory_format=torch.contiguous_format)
+
+    return State(pool=Pool(*(c(v) for v in state.pool)), spec=c(state.spec),
+                 counters=Counters(*(c(v) for v in state.counters)),
+                 sec=SecBuf(*(c(v) for v in state.sec)), backlog_pos=c(state.backlog_pos),
+                 it=state.it)
+
+
+def assign_state(dst: State, src: State):
+    """Copy every tensor of ``src`` into ``dst``'s, in place (shapes must
+    match).  A source that is another field's destination is copied aside
+    first, so that no field reads a value already overwritten."""
+    pairs = list(zip(state_tensors(dst), state_tensors(src), strict=True))
+    for d, s in pairs:
+        if d.shape != s.shape:
+            raise ValueError(f"state field of shape {tuple(s.shape)} into {tuple(d.shape)}")
+    held = {d.data_ptr() for d, _ in pairs}
+    pairs = [(d, s.clone() if s.data_ptr() in held and s.data_ptr() != d.data_ptr() else s)
+             for d, s in pairs]
+    for d, s in pairs:
+        if s is not d:
+            d.copy_(s)
 
 
 def empty_pool(n, dtype, device, trace_birth=False):
@@ -699,22 +744,49 @@ def event_fluid_plain(rows, x1, x2, k, w, tries, bias_den, mc, tables: EngineTab
 class Engine:
     """The transport engine of one dump (the counterpart of the JAX
     ``make_engine`` closure).  ``gen``: the run's ``torch.Generator``, on
-    ``device``."""
+    ``device``.  ``graphed`` (a CUDA device only; the default there):
+    :meth:`run` replays one CUDA graph of the block per block, captured at
+    the first run (:meth:`capture`); else it issues the block's operations
+    one by one, which the phase clocks of ``profile_slice.py`` need."""
 
-    def __init__(self, mc, cfg: EngineConfig, tables: EngineTables, device, gen):
+    def __init__(self, mc, cfg: EngineConfig, tables: EngineTables, device, gen,
+                 graphed=None):
         self.mc, self.cfg, self.tables = mc, cfg, tables
-        self.device, self.gen = device, gen
+        self.device, self.gen = torch.device(device), gen
+        cuda = self.device.type == "cuda"
+        self.graphed = cuda if graphed is None else bool(graphed)
+        if self.graphed and not cuda:
+            raise ValueError(f"graphed: a CUDA graph needs a CUDA device, not {self.device}")
         self.dt = cfg.dtype
         n = cfg.n_pool
         self.ev_k = min(n, cfg.ev_k) if cfg.ev_k else min(n, max(256, n // 8))
         self.rf_k = min(n, cfg.refill_k) if cfg.refill_k else self.ev_k
         self.light_k = min(n, cfg.light_k if cfg.light_k else min(self.ev_k, self.rf_k))
         self.phases = {"full": 0, "light": 0}  # calls since fresh_state, on the host
+        # the frozen-bias mode's denominator (see _bias_denom), built once
+        self._bias_fixed = (
+            torch.tensor(cfg.bias_fixed_tau * (cfg.bias_fixed_avg + 2.0), dtype=torch.float64,
+                         device=self.device) if cfg.bias_fixed_tau > 0.0 else None)
+        # One block: the full phase, then per entry a light phase (but the
+        # first) and that many hot steps.
+        self.n_super = max(1, cfg.m_period)
+        rp = cfg.refill_period if cfg.refill_period > 0 else self.n_super
+        self.blocks = [rp] * (self.n_super // rp) + ([self.n_super % rp] if self.n_super % rp
+                                                     else [])
+        # What the block runs on, made at the first run: the engine's own
+        # state, a backlog buffer of at least backlog_cap rows
+        # (reserve_backlog), the valid rows' count on the device; the graph
+        # and what one replay adds to the launch and phase counts.
+        self.backlog_cap = 1
+        self._state = self._backlog = self._graph = self._credit = None
+        self._n_valid = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.replays = 0  # graph replays since fresh_state
 
     # -- state ------------------------------------------------------------
     def fresh_state(self) -> State:
         c, dt, dev = self.cfg, self.dt, self.device
         self.phases = {"full": 0, "light": 0}
+        self.replays = 0
         return State(
             pool=empty_pool(c.n_pool, dt, dev, trace_birth=c.trace_birth),
             spec=torch.zeros((N_BINS + 1, N_SPEC_CHAN), dtype=dt, device=dev),
@@ -736,9 +808,8 @@ class Engine:
         bias_fixed_tau * (bias_fixed_avg + 2), a float64 0-d tensor, so that
         the bias and its scale round once into the engine dtype, as the JAX
         engine's Python constant does."""
-        if self.cfg.bias_fixed_tau > 0.0:
-            return torch.tensor(self.cfg.bias_fixed_tau * (self.cfg.bias_fixed_avg + 2.0),
-                                dtype=torch.float64, device=self.device)
+        if self._bias_fixed is not None:
+            return self._bias_fixed
         if self.cfg.reference:
             avg = counters.n_scatt_rec.to(self.dt) / (counters.n_recorded.to(self.dt) + 1.0)
         else:
@@ -824,20 +895,21 @@ class Engine:
         if self.cfg.trace_birth:
             # when this batch advances the ratchet, capture the advancing
             # photon's birth state (against the pre-update ratchet; invalid
-            # lanes read -1, as in the JAX engine)
+            # lanes read -1, as in the JAX engine; the lane is selected on
+            # the device, never read on the host)
             bcols = take_cols(gi, [*p.bx, *p.bk, p.bw])
             tvals = torch.where(valid, tsc_g, -1.0)
-            am = torch.argmax(tvals)
-            better = tvals[am] > counters.max_tau_scatt
+            am = torch.argmax(tvals).reshape(1)
+            better = tvals.index_select(0, am)[0] > counters.max_tau_scatt
+            birth = torch.stack(bcols).index_select(1, am)[:, 0]
 
             def sel(new, cur):
                 return torch.where(better, new, cur)
 
             counters = counters._replace(
-                mt_bx=sel(torch.stack([c[am] for c in bcols[0:4]]), counters.mt_bx),
-                mt_bk=sel(torch.stack([c[am] for c in bcols[4:8]]), counters.mt_bk),
-                mt_bw=sel(bcols[8][am], counters.mt_bw),
-                mt_nsc0=sel(nsc0_g[am].to(torch.int64), counters.mt_nsc0))
+                mt_bx=sel(birth[0:4], counters.mt_bx), mt_bk=sel(birth[4:8], counters.mt_bk),
+                mt_bw=sel(birth[8], counters.mt_bw),
+                mt_nsc0=sel(nsc0_g.index_select(0, am)[0].to(torch.int64), counters.mt_nsc0))
 
         counters = counters._replace(
             n_recorded=counters.n_recorded + ok.sum(),
@@ -1073,33 +1145,141 @@ class Engine:
         return state._replace(pool=p, spec=spec, counters=counters, sec=sec,
                               backlog_pos=backlog_pos)
 
-    def run(self, state: State, backlog_rows, tail_exit=None, n_valid=None) -> State:
-        """Run full/light/hot blocks until the backlog and the ring are spent
-        and at most ``tail_exit`` lanes remain occupied (the exit condition
-        is read on the host once per m_period block), then flush the
-        pending records."""
-        cfg = self.cfg
-        te = cfg.tail_exit if tail_exit is None else tail_exit
+    # -- the block and the run ---------------------------------------------------
+    def reserve_backlog(self, rows):
+        """Size the static backlog buffer for waves of up to ``rows`` rows (a
+        run handed more raises); a buffer already made smaller is dropped
+        with its graph, and both are made again at the next run."""
+        self.backlog_cap = max(1, int(rows))
+        if self._backlog is not None and self._backlog.shape[0] < self.backlog_cap:
+            self._backlog = self._graph = None
+
+    def _load(self, state: State, backlog_rows, n_valid):
+        """Copy the caller's ``state`` and backlog into the block's own
+        tensors (made at the first call) and set the valid rows' count."""
+        n = backlog_rows.shape[0]
+        if self._backlog is None:
+            self._backlog = torch.zeros((max(n, self.backlog_cap), ROW_WIDTH), dtype=self.dt,
+                                        device=self.device)
+        if n > self._backlog.shape[0]:
+            raise ValueError(f"a backlog of {n} rows for a buffer of {self._backlog.shape[0]} "
+                             "(Engine.reserve_backlog)")
+        if not 0 <= n_valid <= n:
+            raise ValueError(f"n_valid {n_valid} outside [0, {n}]")
+        if self._state is None:
+            self._state = clone_state(state)
+        else:
+            assign_state(self._state, state)
+        self._backlog[:n].copy_(backlog_rows)
+        self._n_valid.fill_(n_valid)
+
+    def _body(self):
+        """One block on the engine's own state, in place: the full phase,
+        then the hot steps, each light phase and its hot steps (the JAX
+        engine's while-loop body).  It reads nothing on the host and makes
+        no tensor from host data, so that it can be captured."""
+        st = self._state
+        state = self.periodic_phase(st, self._backlog, self._n_valid)
+        for bi_, nb in enumerate(self.blocks):
+            if bi_:
+                state = self.light_phase(state, self._backlog, self._n_valid)
+            for _ in range(nb):
+                state = self.hot_step(state)
+        assign_state(st, state)
+
+    def _counting(self, fn):
+        """Run ``fn`` and return what it added to the kernels' launch counts
+        and to the phase counts, ({name: n}, {phase: n}), leaving both as
+        they were."""
+        from grmonty_tpu_torch.transport import hot_kernels
+
+        phases0 = dict(self.phases)
+        try:
+            launched = hot_kernels.launches_during(fn)
+        finally:
+            phased = {k: v - phases0[k] for k, v in self.phases.items() if v != phases0[k]}
+            self.phases.update(phases0)
+        return launched, phased
+
+    def capture(self, state: State, backlog_rows, n_valid=None):
+        """Capture the block into a CUDA graph at a graphed engine's first
+        run (else do nothing): one eager block on a side stream loads every
+        kernel and fills the wrappers' caches, then the capture records one
+        block with the run's generator registered.  The launch and phase
+        counts, the generator and the engine's copy of ``state`` are left as
+        they were found; what one block adds to the counts is kept and
+        credited once per replay.  Returns the seconds it took.  A capture
+        that fails raises."""
+        if not self.graphed or self._graph is not None:
+            return 0.0
+        t0 = time.monotonic()
         nv = backlog_rows.shape[0] if n_valid is None else n_valid
-        n_super = max(1, cfg.m_period)
-        rp = cfg.refill_period if cfg.refill_period > 0 else n_super
-        blocks = [rp] * (n_super // rp) + ([n_super % rp] if n_super % rp else [])
-        it0, next_log = state.it, PROGRESS_ITERS
-        while state.it - it0 < MAX_OUTER:
-            occ, pos, sec = torch.stack([state.pool.occupied.sum(), state.backlog_pos,
-                                         state.sec.count]).tolist()
+        self._load(state, backlog_rows, nv)
+        gen_state = self.gen.get_state()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._counting(self._body)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.gen)
+        # thread_local: another thread's CUDA calls (a process group's
+        # watchdog) stay legal while this thread captures
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            credit = self._counting(self._body)
+        self.gen.set_state(gen_state)
+        self._load(state, backlog_rows, nv)
+        torch.cuda.synchronize(self.device)
+        self._graph, self._credit = graph, credit
+        return time.monotonic() - t0
+
+    def _replay(self):
+        """One block: the graph's replay, its launches and phases credited."""
+        from grmonty_tpu_torch.transport import hot_kernels
+
+        self._graph.replay()
+        launched, phased = self._credit
+        hot_kernels.credit(launched)
+        for k, v in phased.items():
+            self.phases[k] += v
+        self.replays += 1
+
+    def _exit_counts(self):
+        """(occupied lanes, backlog position, queued secondaries): the one
+        host read of a block."""
+        st = self._state
+        return torch.stack([st.pool.occupied.sum(), st.backlog_pos, st.sec.count]).tolist()
+
+    def run(self, state: State, backlog_rows, tail_exit=None, n_valid=None) -> State:
+        """Run blocks until the backlog and the ring are spent and at most
+        ``tail_exit`` lanes remain occupied (the exit condition is read on
+        the host once per block), then flush the pending records.  The
+        block runs on the engine's copy of ``state`` and ``backlog_rows``'s
+        first ``n_valid`` rows (all when None): replayed from its graph when
+        graphed (captured here at the first run, unless :meth:`capture` ran
+        first), else issued op by op.  Returns a state of tensors of its
+        own, which no later run overwrites."""
+        te = self.cfg.tail_exit if tail_exit is None else tail_exit
+        nv = backlog_rows.shape[0] if n_valid is None else n_valid
+        self.capture(state, backlog_rows, nv)
+        self._load(state, backlog_rows, nv)
+        it0 = it = state.it
+        next_log = PROGRESS_ITERS
+        while it - it0 < MAX_OUTER:
+            occ, pos, sec = self._exit_counts()
             if not (occ > te or pos < nv or sec > 0):
                 break
-            if state.it - it0 >= next_log:
+            if it - it0 >= next_log:
                 log.info("engine run: %d hot iterations, %d lanes occupied, %d secondaries "
-                         "queued", state.it - it0, occ, sec)
+                         "queued", it - it0, occ, sec)
                 next_log += PROGRESS_ITERS
-            state = self.periodic_phase(state, backlog_rows, nv)
-            for bi_, nb in enumerate(blocks):
-                if bi_:
-                    state = self.light_phase(state, backlog_rows, nv)
-                for _ in range(nb):
-                    state = self.hot_step(state)
+            if self.graphed:
+                self._replay()
+            else:
+                self._body()
+            it += self.n_super
+        state = clone_state(self._state)._replace(it=it)
         # final flush of pending records; a record_pending lane still holding
         # an unconsumed detached event records on a later phase
         spec, counters, p = state.spec, state.counters, state.pool

@@ -54,8 +54,11 @@ The headers of the ``.cu`` files say what bounds each kernel on the card.
 tensors they call the plain versions (``engine.hot_step_plain`` /
 indexing); on CUDA tensors they launch the kernel of the tensors' dtype
 (:func:`entry_point`), or raise.  ``launches``
-counts kernel launches only; a launch captured into a CUDA graph counts
-once, its replays not at all.
+counts kernel launches only; a launch captured into a CUDA graph passes
+the wrapper once, at the capture, and its replays not at all: the probes'
+chained links count their captures, and the engine's graph takes what its
+capture adds (:func:`launches_during`) off the counts and credits it once
+per replay (:func:`credit`), so that its counts read what an eager run's do.
 
 Build: ``nvcc`` compiles each ``csrc/*.cu`` into its own shared library
 with a plain C interface under ``build/grmonty_tpu_torch/`` (keyed by a
@@ -117,6 +120,25 @@ SMEM_STAGE_ROWS = 32
 def reset_launches():
     for name in launches:
         launches[name] = 0
+
+
+def launches_during(fn):
+    """Run ``fn`` and return what it added to ``launches`` ({name: n}),
+    leaving the counts as they were."""
+    before = dict(launches)
+    try:
+        fn()
+    finally:
+        added = {k: v - before[k] for k, v in launches.items() if v != before[k]}
+        launches.update(before)
+    return added
+
+
+def credit(added):
+    """Add ``added`` ({name: n}, :func:`launches_during`) to ``launches``:
+    the launches of one replay of a captured graph."""
+    for k, v in added.items():
+        launches[k] += v
 
 
 def entry_point(kernel, dtype, reference=False):

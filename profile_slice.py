@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
 """Where the port's time goes in the smoke cell, on one CUDA card.
 
-    python3 profile_slice.py            # phase clocks
+    python3 profile_slice.py            # graph clocks, then phase clocks
     python3 profile_slice.py --trace    # trace windows
     python3 profile_slice.py --reference [--trace]   # reference semantics
 
 Runs a cell of ``chip_smoke.py`` (256x256 torus, M = 4e19, seed 123,
 float32, pool 65,536: the shipped profile at 1e5 photons, or with
 ``--reference`` reference semantics at 5e4 photons and ``chip_smoke.py``'s
-step cap) once, through the driver's whole schedule (the host pilot, the
-waves, the tail cascade), and measures one of two things.  Run them in
-separate processes: once ``torch.profiler`` has traced a window, every
-later kernel launch of the process costs more, so a traced run's phase
-clocks and device window are not the run's.
+step cap) through the driver's whole schedule (the host pilot, the waves,
+the tail cascade), and measures one of two things.  Run them in separate
+processes: once ``torch.profiler`` has traced a window, every later kernel
+launch of the process costs more, so a traced run's clocks and device
+window are not the run's.
 
-1. **Phase clocks over the whole run** (default).  Every call of the engine's phases
+1. **Graph clocks, then phase clocks, over the whole run** (default).  The
+   run as it ships, every engine's block replayed from its CUDA graph:
+   each replay bracketed by two CUDA events on the current stream (the
+   stream's time for the block, ``replay_ms``; the stream's idle time from
+   one replay's end to the next one's start in the same run, ``gap_ms``:
+   the exit check's read, the host's turn and the launch), the exit check's
+   host seconds (``exit_check_ms``, waiting for the block included), the
+   warm-ups' and captures' seconds (``capture_s``).  Then the same cell in
+   a second ``Simulation`` with ``graphed=False`` (the block issued op by
+   op, as before the graph), whose phases are clocked: every call of the engine's phases
    (``hot_step``, ``periodic_phase``, ``light_phase`` and, inside them,
    ``process_scatters`` and ``init_fresh``) and of the kernels' wrappers
    inside them (``hot_kernels.scatter_event`` and ``event_fluid`` inside
@@ -23,19 +32,19 @@ clocks and device window are not the run's.
    not stretched; the stream time between a phase's two events is the
    time the stream spent on that phase's work, waiting for its launches
    included, so the phases split the engine's device window (nested
-   phases are also counted inside their parents).  Beside them: the
+   phases are also counted inside their parents).  Beside both: the
    pilot's host seconds (it runs before the first wave, on the host
    tracker, outside the device window), and the window of the waves and of
    each cascade stage (width, hot iterations, CUDA-event seconds).
-2. **Device busy share in trace windows** (``--trace``).  ``torch.profiler``
-   traces 64 hot iterations twice: in the waves from hot iteration 64 on
-   (full pool; the ramp's first waves), and in the first stage of the tail
-   cascade 64 iterations after it starts.  The busy time is the union of
-   the device activity intervals
-   (kernels, copies, sets) in the window; the window is timed by CUDA
-   events with the profiler on.  The share holds for those iterations
-   only, not for the run.  One more window holds a single hot step of the
-   first wave (``one_hot_step``): the names of its device activities.
+2. **Device busy share in trace windows** (``--trace``), on the graphed
+   run.  ``torch.profiler`` traces the replays of 64 hot iterations twice:
+   in the waves from hot iteration 64 on (full pool; the ramp's first
+   waves), and in the first stage of the tail cascade from its 64th
+   iteration.  The busy time is the union of the device activity
+   intervals (kernels, copies, sets) in the window; the window is timed by
+   CUDA events with the profiler on.  The share holds for those iterations
+   only, not for the run.  One more window holds a single replay of the
+   first wave (``one_body``): the names of its device activities.
 
 Prints the card's name and power limit and one JSON object; with
 ``--trace`` the profiler's table of the device's kernels goes to
@@ -64,7 +73,7 @@ TRACED = {"hot_step_ms": "hot_step_kernel", "row_gather_ms": "row_gather_kernel"
           "fresh_init_ms": "fresh_init_kernel"}
 WAVE_AT = 64  # trace the first wave from this hot iteration
 TRACE_ITERS = 64  # hot iterations per trace window
-ONE_STEP_AT = WAVE_AT + TRACE_ITERS + 1  # trace this hot iteration alone
+ONE_BODY_AT = WAVE_AT + TRACE_ITERS  # trace the replay from this hot iteration alone
 
 
 def clock_phases(engine_cls, clocks):
@@ -121,30 +130,32 @@ def busy_ms(prof):
 
 
 class Windows:
-    """Starts and stops ``torch.profiler`` around hot iterations."""
+    """Starts and stops ``torch.profiler`` around the replays of an engine's
+    hot iterations: ``name`` is "wave" for the wave engine's, "drain" for
+    the cascade's, ``it`` the engine's hot iterations before (or after) the
+    replay."""
 
     def __init__(self, iters):
-        self.iters, self.start_at, self.results = iters, {"wave": WAVE_AT}, {}
-        self.live, self.last_it, self.table = None, 0, ""
+        self.iters, self.results = iters, {}
+        self.live, self.table = None, ""
 
-    def before(self, it):
+    def before(self, name, it):
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        for name, at in self.start_at.items():
-            if self.live is None and it == at and name not in self.results:
-                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-                prof.start()
-                e0 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                self.live = (name, it, prof, e0)
+        if self.live is None and it >= WAVE_AT and name not in self.results:
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.start()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            self.live = (name, it, prof, e0)
 
     def after(self, it):
         import torch
 
         if self.live is None or it < self.live[1] + self.iters:
             return
-        name, _, prof, e0 = self.live
+        name, it0, prof, e0 = self.live
         e1 = torch.cuda.Event(enable_timing=True)
         e1.record()
         e1.synchronize()
@@ -152,7 +163,7 @@ class Windows:
         window = e0.elapsed_time(e1)
         busy, n_dev = busy_ms(prof)
         self.results[name] = {
-            "iters": self.iters, "window_ms": window, "busy_ms": busy,
+            "iters": it - it0, "window_ms": window, "busy_ms": busy,
             "busy_share": busy / window, "device_activities": n_dev}
         for key, kernel in TRACED.items():
             self.results[name][key] = sum(
@@ -164,9 +175,87 @@ class Windows:
         self.live = None
 
 
+def clock_replays(engine_cls, clocks):
+    """Bracket each graph replay of ``engine_cls`` with CUDA events
+    (``clocks["replay"]``: (the engine run's number, event, event)) and time
+    each exit check on the host (``clocks["exit_check"]``: seconds).
+    Returns what they replaced, for :func:`restore_replays`."""
+    import torch
+
+    saved = {"_replay": engine_cls._replay, "_exit_counts": engine_cls._exit_counts,
+             "run": engine_cls.run}
+    runs = [0]
+
+    def run(self, *a, **kw):
+        runs[0] += 1
+        return saved["run"](self, *a, **kw)
+
+    def replay(self):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        saved["_replay"](self)
+        e1.record()
+        clocks["replay"].append((runs[0], e0, e1))
+
+    def exit_counts(self):
+        t0 = time.perf_counter()
+        out = saved["_exit_counts"](self)
+        clocks["exit_check"].append(time.perf_counter() - t0)
+        return out
+
+    engine_cls._replay, engine_cls._exit_counts, engine_cls.run = replay, exit_counts, run
+    return saved
+
+
+def restore_replays(engine_cls, saved):
+    """Undo :func:`clock_replays`."""
+    for name, fn in saved.items():
+        setattr(engine_cls, name, fn)
+
+
+def replay_summary(clocks, window_ms):
+    """{replays, replay_ms (mean), replay_share (of the window), gap_ms (the
+    mean idle time between two replays of one engine run), exit_checks,
+    exit_check_ms (mean host ms)}."""
+    pairs = clocks["replay"]
+    replay_ms = [e0.elapsed_time(e1) for _, e0, e1 in pairs]
+    gaps = [a[2].elapsed_time(b[1]) for a, b in zip(pairs, pairs[1:]) if a[0] == b[0]]
+    exits = clocks["exit_check"]
+    return {"replays": len(pairs), "replay_ms": sum(replay_ms) / max(1, len(pairs)),
+            "replay_share": sum(replay_ms) / window_ms,
+            "gap_ms": sum(gaps) / max(1, len(gaps)), "gaps": len(gaps),
+            "exit_checks": len(exits), "exit_check_ms": 1e3 * sum(exits) / max(1, len(exits))}
+
+
+def run_cell(root, photon_n, reference, graphed):
+    """One run of the cell; returns (stats, wall seconds, the run's summary)."""
+    import torch
+
+    sim = chip_smoke.make_simulation(root, photon_n, reference=reference, graphed=graphed)
+    t0 = time.monotonic()
+    _, stats = sim.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    window_ms = stats["device_s"] * 1e3
+    stages = [{"pool": st["pool"], "iters": st["iters"], "device_ms": st["device_s"] * 1e3}
+              for st in stats["tail_stages"]]
+    out = {"graphed": sim.engine.graphed, "n_created": stats["n_created"],
+           "hot_iters": stats["hot_iters"], "full_phases": stats["full_phases"],
+           "light_phases": stats["light_phases"], "device_window_ms": window_ms,
+           "ms_per_hot_iter": window_ms / max(1, stats["hot_iters"]),
+           "ms_per_body": window_ms / max(1, stats["full_phases"]),
+           "wall_s": wall, "rate_device": stats["photon_rate_device"],
+           "capture_s": stats["capture_s"], "replays": stats["replays"],
+           "pilot_host_s": stats["pilot"]["host_s"], "waves": stats["waves"],
+           "waves_device_ms": window_ms - sum(st["device_ms"] for st in stages),
+           "tail_stages": stages}
+    return stats, out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--trace", action="store_true", help="trace windows, not phase clocks")
+    ap.add_argument("--trace", action="store_true", help="trace windows, not clocks")
     ap.add_argument("--reference", action="store_true", help="the reference-semantics cell")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
@@ -178,75 +267,55 @@ def main():
               file=sys.stderr)
         sys.exit(2)
     root = os.path.dirname(os.path.abspath(__file__))
-    from grmonty_tpu_torch.transport import driver, engine, hot_kernels
+    from grmonty_tpu_torch.transport import engine, hot_kernels
 
     card = chip_smoke.card_line()
     hot_kernels.build()
     photon_n = REF_PHOTON_N if args.reference else PHOTON_N
-    sim = chip_smoke.make_simulation(root, photon_n, reference=args.reference)
+    result = {"mode": "trace" if args.trace else "clocks",
+              "path": "reference" if args.reference else "shipped", "photon_n": photon_n}
 
-    clocks = {name: [] for name in PHASES + WRAPPERS}
-    win = Windows(TRACE_ITERS)
     if args.trace:
-        hot = engine.Engine.hot_step
-        drain = driver.Simulation._drain_tail
+        win = Windows(TRACE_ITERS)
+        replay = engine.Engine._replay
+        waves = []  # the wave engine: the first engine that replays
 
-        def traced_hot_step(self, state, *a, **kw):
-            if (state.it == ONE_STEP_AT and win.live is None
-                    and "one_hot_step" not in win.results):
-                return one_hot_step(self, state, *a, **kw)
-            win.before(state.it)
-            state = hot(self, state, *a, **kw)
-            win.last_it = state.it
-            win.after(state.it)
-            return state
+        def traced_replay(self):
+            waves[:] = waves or [self]
+            name = "wave" if self is waves[0] else "drain"
+            it = self.replays * self.n_super
+            if (name == "wave" and it >= ONE_BODY_AT and win.live is None
+                    and "one_body" not in win.results):
+                return one_body(self)
+            win.before(name, it)
+            replay(self)
+            if win.live is not None and win.live[0] == name:
+                win.after(it + self.n_super)
 
-        def one_hot_step(self, state, *a, **kw):
-            """Trace one hot step after a marker kernel (a tracer can miss
-            the first launches of its window), and keep the device
-            activities that start after the marker, in order."""
+        def one_body(self):
+            """Trace one replay after a marker kernel (a tracer can miss the
+            first launches of its window; the block has fills of its own, so
+            the marker is a GPU sleep), and keep the device activities that
+            start after the marker, in order."""
             from torch.profiler import ProfilerActivity, profile
 
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                torch.full((1,), 7.0, device=self.device)
+                torch.cuda._sleep(1 << 10)
                 torch.cuda.synchronize()
-                state = hot(self, state, *a, **kw)
+                replay(self)
                 torch.cuda.synchronize()
             dev = sorted(((e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
                           if e.device_type() == torch.autograd.DeviceType.CUDA))
-            mark = max((t for t, name in dev if "fill" in name.lower()), default=None)
-            win.results["one_hot_step"] = {
-                "iteration": ONE_STEP_AT, "marker_seen": mark is not None,
-                "device_activities": [name for t, name in dev if mark is None or t > mark]}
-            win.last_it = state.it
-            return state
+            mark = max((t for t, name in dev if "spin" in name.lower()), default=None)
+            names = [name for t, name in dev if mark is None or t > mark]
+            win.results["one_body"] = {
+                "iteration": self.replays * self.n_super, "marker_seen": mark is not None,
+                "device_activities": len(names),
+                "kernels": {n: names.count(n) for n in sorted(set(names))}}
 
-        def traced_drain_tail(self, state):
-            win.start_at["drain"] = WAVE_AT  # a stage counts its iterations from 0
-            return drain(self, state)
-
-        engine.Engine.hot_step = traced_hot_step
-        driver.Simulation._drain_tail = traced_drain_tail
-    else:
-        clock_phases(engine.Engine, clocks)
-
-    t0 = time.monotonic()
-    _, stats = sim.run()
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    window_ms = stats["device_s"] * 1e3
-    stages = [{"pool": st["pool"], "iters": st["iters"], "device_ms": st["device_s"] * 1e3}
-              for st in stats["tail_stages"]]
-    result = {"mode": "trace" if args.trace else "clocks",
-              "path": "reference" if args.reference else "shipped",
-              "photon_n": photon_n, "n_created": stats["n_created"],
-              "hot_iters": stats["hot_iters"], "device_window_ms": window_ms,
-              "wall_s": wall, "rate_device": stats["photon_rate_device"],
-              "pilot_host_s": stats["pilot"]["host_s"], "waves": stats["waves"],
-              "waves_device_ms": window_ms - sum(st["device_ms"] for st in stages),
-              "tail_stages": stages}
-    if args.trace:
+        engine.Engine._replay = traced_replay
+        _, result["run"] = run_cell(root, photon_n, args.reference, graphed=True)
         out_dir = os.path.join(root, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)
         table = "profile_kernels_reference.txt" if args.reference else "profile_kernels.txt"
@@ -254,13 +323,30 @@ def main():
             f.write(win.table)
         result["trace_windows"] = win.results
     else:
+        clocks = {"replay": [], "exit_check": []}
+        saved = clock_replays(engine.Engine, clocks)
+        try:
+            _, graphed = run_cell(root, photon_n, args.reference, graphed=True)
+        finally:
+            restore_replays(engine.Engine, saved)
+        graphed.update(replay_summary(clocks, graphed["device_window_ms"]))
+        result["graphed"] = graphed
+
+        clocks = {name: [] for name in PHASES + WRAPPERS}
+        saved = clock_phases(engine.Engine, clocks)
+        try:
+            _, eager = run_cell(root, photon_n, args.reference, graphed=False)
+        finally:
+            restore_phases(engine.Engine, saved)
+        window_ms = eager["device_window_ms"]
         phases = {}
         for name, pairs in clocks.items():
             ms = sum(e0.elapsed_time(e1) for e0, e1 in pairs)
             phases[name] = {"calls": len(pairs), "ms": ms,
                             "ms_per_call": ms / max(1, len(pairs)), "share": ms / window_ms}
         top = sum(phases[n]["ms"] for n in ("hot_step", "periodic_phase", "light_phase"))
-        result.update(phases=phases, outside_phases_share=1.0 - top / window_ms)
+        eager.update(phases=phases, outside_phases_share=1.0 - top / window_ms)
+        result["eager"] = eager
     print(card)
     print(json.dumps(result))
 
