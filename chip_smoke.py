@@ -18,7 +18,14 @@ Phases, each of which exits non-zero on failure:
    step cap) against ``engine.hot_step_plain``, on every lane within the
    Pallas-vs-XLA parity contract (``hot_kernels.KERNEL_TOLERANCE``, the
    weight also within ``hot_kernels.weight_slack``) and with the census
-   counters exactly equal; the row gather on the raw corner table at
+   counters exactly equal; each also in its drawing instance
+   (``hot_step_draw``, ``hot_step_ref_draw``: the uniforms drawn inside the
+   kernel from the lane's Philox stream, under a seeded key at one step of
+   a block) against the plain version on ``draws.hot_uniforms`` under the
+   same key and step, within the same tolerance with the census exactly,
+   phase A's own fields (``hot_kernels.PHASE_A_FIELDS``) equal on every
+   lane, and every field bit for bit the explicit instance's on those
+   uniforms (``hot_draw_check``); the row gather on the raw corner table at
    seeded indices, bitwise equal to ``table[idx]``.  Each with the time per call of kernel
    and plain when the host calls them back to back (``ms``, ``plain_ms``,
    CUDA events), the kernel's device time per launch (``device_ms``:
@@ -68,11 +75,15 @@ Phases, each of which exits non-zero on failure:
    output within the hot step's tolerance.  Each of these records gives its
    registers and spills.  Every
    run of phases 5-12 and 14 must launch exactly what its path runs
-   (``path_launches``: the hot step of its dtype and semantics once per hot
-   iteration, the row gather, the event fluid and the event kernel of its
-   dtype once per full phase, the track start of its dtype and semantics
-   once per full and light phase, no other entry point) and no plain hot
-   step, track start or event fluid.  Phases 5-14 run the engine as it
+   (``path_launches``: the drawing hot step of its dtype and semantics once
+   per hot iteration, the row gather, the event fluid and the event kernel
+   of its dtype once per full phase, the track start of its dtype and
+   semantics once per full and light phase, no other entry point), no plain
+   hot step, track start or event fluid, and no ``torch.rand`` inside a
+   block (``counting_plain_steps``: it raises there, and the path lines
+   count its calls as ``plain_calls["torch.rand_in_block"]``, 0).  The
+   kernels line's explicit hot-step records carry ``launches`` null: the
+   engine's blocks run the drawing instances.  Phases 5-14 run the engine as it
    ships: each engine's block (the full phase, the hot steps, each light
    phase and its hot steps) captured once into a CUDA graph and replayed
    once per block, the launches credited per replay; each path's line
@@ -84,7 +95,7 @@ Phases, each of which exits non-zero on failure:
    host tracker; its seconds and counters printed), the waves (the first
    chunk ramped), the tail cascade (each stage's width, iterations and
    device window printed); every hot step of every engine must be one
-   launch of ``hot_step``, the row gather and ``event_fluid`` must run once
+   launch of ``hot_step_draw``, the row gather and ``event_fluid`` must run once
    per full phase of every engine (its events' rows and fluid) and nowhere
    else, ``fresh_init`` once per full and light phase, the cascade must
    end with the pool empty, every full phase's scatter event must be one
@@ -95,7 +106,7 @@ Phases, each of which exits non-zero on failure:
 6. reference semantics end to end on the same cell (``--ref-photon-n``
    photons, ``profiles.reference_config`` with its step cap cut to
    ``--ref-stall-steps``, the same schedule): every hot step must be one
-   launch of ``hot_step_ref``, the row gather must run once per full
+   launch of ``hot_step_ref_draw``, the row gather must run once per full
    phase (the track start ``fresh_init_ref`` fetches its raw rows itself,
    once in each full and light phase), with the same checks of the
    schedule, the spectrum and the luminosity;
@@ -137,7 +148,7 @@ Phases, each of which exits non-zero on failure:
    the native tracker on the host.  It must pass the gate's hard gates
    (``chi2_sec_gen_per_dof`` < 5, no hotcross clamp), its luminosity ratio
    must lie within 1 +- 0.10, every hot step of its engines must be one
-   launch of ``hot_step`` and the row gather must run once per full
+   launch of ``hot_step_draw`` and the row gather must run once per full
    phase; its numbers are printed on one line (``{"phase": "accuracy",
    ...}``);
 11. the sharded path and the native dump parser on the 256x256 torus:
@@ -149,14 +160,15 @@ Phases, each of which exits non-zero on failure:
    the same seed (the ``Simulation`` run is phase 8's uninterrupted one):
    every count equal and the spectrum within rtol 1e-6, with
    the launch counts set to 0 just before the sharded run (one
-   ``hot_step`` launch per hot iteration, one row gather per full phase);
+   ``hot_step_draw`` launch per hot iteration, one row gather per full phase);
    ``python -m grmonty_tpu_torch --devices N`` with one rank more than the
    machine has cards must exit non-zero with "need N devices".  The
    set-up seconds of each ``Simulation`` made here (the dump read and the
    per-dump tables on the card) are printed; the numbers go on one line
    (``{"phase": "sharded", ...}``);
 12. float64 on the card: (a) phase 4's checks in float64 (``hot_step_f64``,
-   ``hot_step_ref_f64`` at N = 65,536, 4,096, 1,024 and 512, ``row_gather_f64``
+   ``hot_step_ref_f64`` and their drawing instances at N = 65,536, 4,096,
+   1,024 and 512, ``row_gather_f64``
    bitwise, ``scatter_event_f64`` at 16,384, 1,024 and 512 within rtol
    1e-11, ``scatter_chain_f64``, ``fresh_init_f64``, ``fresh_init_ref_f64``
    and ``event_fluid_f64`` within rtol 1e-11), on the tables of a float64
@@ -168,7 +180,7 @@ Phases, each of which exits non-zero on failure:
    and one line (``{"phase": "f64_vs_f32", ...}``) with its window, rate
    and counts beside phase 8's float32 run; (c) the accuracy gate at
    reference semantics in float64 (``F64_GATE_ARGS``): its hard gates, the
-   luminosity ratio within 3 of the tool's sigmas, one ``hot_step_ref_f64``
+   luminosity ratio within 3 of the tool's sigmas, one ``hot_step_ref_f64_draw``
    launch per hot iteration; (d) ``python -m grmonty_tpu_torch --dtype
    float64 --reference`` on the 64x32 torus at ``--photon_n`` 200
    (``F64_CLI_PHOTON_N``), as phase 9;
@@ -207,7 +219,9 @@ Phases, each of which exits non-zero on failure:
    and report a capture.  One line a path (``graph run: {...}``: both
    runs' device windows, rates, ms per body and per hot iteration, the
    replays, ``capture_s``), then ``{"phase": "graph", ...}`` with the
-   card's name and power limit.
+   card's name and power limit.  Neither run may call a plain version or
+   ``torch.rand`` inside a block (the eager run issues every block through
+   ``Engine._body``).
 
 With ``--probe-kernels-only`` the script runs phases 1, 2 and 7a and
 prints the card line and the kernels line (no result line); a copy of it
@@ -319,6 +333,11 @@ ROWSUMS = tuple(f"gather_rowsum_{s}" for s in ("coop", "persistent", "rowloop", 
 OPS_PER_LANE = {"hot_step": 3800, "hot_step_ref": 3840, "row_gather": 0,
                 "hot_step_f64": 3800, "hot_step_ref_f64": 3840, "row_gather_f64": 0,
                 **{name: W_PROBE - 1 for name in ROWSUMS}, "row_gather_rowloop": 0}
+# the drawing instances: the step's float operations (and one Philox block
+# a lane, counted where they are checked)
+OPS_PER_LANE.update({f"{name}_draw": OPS_PER_LANE[name]
+                     for name in ("hot_step", "hot_step_ref", "hot_step_f64",
+                                  "hot_step_ref_f64")})
 TOLERANCE = {
     "hot_step": "masks and integers differ on at most 0.1% of lanes; floats within "
                 "rtol 1e-4 atol 1e-6 on every lane; census counters exactly equal",
@@ -333,6 +352,10 @@ TOLERANCE = {
     **{name: "|kernel - plain| <= w * 2^-23 * sum_j |table[idx, j]| on every index"
        for name in ROWSUMS},
     "row_gather_rowloop": "bitwise equal",
+    **{f"{name}_draw": (f"against engine.hot_step_plain on draws.hot_uniforms under the same key "
+                        f"and step: as {name}; phase A's own fields equal on every lane; every "
+                        f"field bit for bit {name}'s on those uniforms")
+       for name in ("hot_step", "hot_step_ref", "hot_step_f64", "hot_step_ref_f64")},
     **{name: ("against the plain version on draws.PhiloxDraws under the same key: masks and "
               "round counts equal on every active lane but where an acceptance test sat "
               "within 16 ulps of its threshold, at most one lane in 10,000; floats on the "
@@ -376,10 +399,13 @@ SOURCES.update({name: ("fresh_init.cu", "no TPU kernel: XLA init_fresh, "
                 for name in ("fresh_init", "fresh_init_ref")})
 SOURCES["event_fluid"] = ("event_fluid.cu", "no TPU kernel: XLA process_scatters, "
                           "grmonty_tpu/transport/engine.py:2036")
-# The float64 instantiations replace what their float32 kernels replace.
+# The float64 instantiations replace what their float32 kernels replace, and
+# each hot step's drawing instance what the hot step replaces.
 SOURCES.update({f"{name}_f64": SOURCES[name]
                 for name in ("hot_step", "hot_step_ref", "row_gather", "scatter_event",
                              "scatter_chain", "fresh_init", "fresh_init_ref", "event_fluid")})
+SOURCES.update({f"{name}_draw": SOURCES[name]
+                for name in ("hot_step", "hot_step_ref", "hot_step_f64", "hot_step_ref_f64")})
 # Phase 7's probes, by module name under grmonty_tpu_torch/tools.
 PROBES = ("probe_gather", "probe_pallas_gather", "probe_vmem_gather")
 # Phase 10: the accuracy gate at the setup of the tracked shipped bar
@@ -610,15 +636,17 @@ def sass_counts(path):
 
 
 def hot_step_variant(fn):
-    """(reference, type, group, threads) of a mangled hot_step_kernel
+    """(reference, type, group, threads, draw) of a mangled hot_step_kernel
     instantiation: the type "float" for the float-only kernels before the
     float64 ones; the group (threads a lane) 1 and the threads a block None
-    for those before the group instances."""
-    m = re.search(r"hot_step_kernelILb([01])E(?:([fd])(?:Li(\d+)E)?(?:Li(\d+)E)?E)?", fn)
+    for those before the group instances; ``draw`` whether the instance
+    draws its uniforms (False for those before the drawing instances)."""
+    m = re.search(r"hot_step_kernelILb([01])E(?:([fd])(?:Li(\d+)E)?(?:Li(\d+)E)?(?:Lb([01])E)?E)?",
+                  fn)
     if m is None:
         return None
     return (m.group(1) == "1", {"f": "float", "d": "double"}.get(m.group(2), "float"),
-            int(m.group(3) or 1), m.group(4) and int(m.group(4)))
+            int(m.group(3) or 1), m.group(4) and int(m.group(4)), m.group(5) == "1")
 
 
 def ab_hot_step(root, sims, other, usage, ref_stall_steps, turns=2):
@@ -704,7 +732,7 @@ def ab_hot_step(root, sims, other, usage, ref_stall_steps, turns=2):
                 finally:
                     hot_kernels._Build.fns[name] = fns["this"]
                 typ = "double" if dt == torch.float64 else "float"
-                key = (reference, typ, shape["group"], shape["threads"])
+                key = (reference, typ, shape["group"], shape["threads"], False)
                 # the same instance in the other checkout, or its one instance of
                 # the variant and type where it builds a single one (an older
                 # hot_step.cu)
@@ -726,8 +754,9 @@ def hot_step_checks(sim, usage, sass, ref_stall_steps, n=N_CHECK):
     dtype, against its plain version at ``n`` lanes of synthetic state
     drawn at the path's step cap (the shipped ``sim.cfg``'s,
     ``ref_stall_steps`` under reference semantics), its census counters
-    exactly; ``usage``/``sass``: the build's ptxas and SASS counts by
-    kernel function."""
+    exactly; then its drawing instance (:func:`hot_draw_check`) on the same
+    state.  ``usage``/``sass``: the build's ptxas and SASS counts by kernel
+    function.  Returns the records of both instances."""
     import torch
 
     from grmonty_tpu_torch.transport import engine, hot_kernels, profiles
@@ -778,21 +807,102 @@ def hot_step_checks(sim, usage, sass, ref_stall_steps, n=N_CHECK):
               f"{float(hot_kernels.step_d_tau(pool, ref_f)[i])}; issue floor (estimate, "
               f"OPS_PER_LANE) {1e3 * OPS_PER_LANE[name] * n / ISSUE_PER_S[kernel_dtype(name)]}"
               " ms")
-        # the instance this width launches: hot_step_kernel<reference, type, group, threads>
-        shape = hot_kernels.hot_step_shape(name, n)
-        inst = (reference, "double" if dt == torch.float64 else "float", shape["group"],
-                shape["threads"])
         rec = time_kernel(name, ref_f, got_f, plain, kern, moved, slack=slack, n=n,
-                          extra=shape)
+                          extra=hot_instance(name, n, reference, dt, usage, sass))
         rec["census"] = got_c
-        rec["ptxas"] = next((v for f, v in usage.items() if hot_step_variant(f) == inst), None)
-        rec["lds"], rec["sass_instructions"] = next(
-            (v for f, v in sass.items() if hot_step_variant(f) == inst), (None, None))
-        print(f"  {name}@{n}: census {got_c}; group {shape['group']}, {shape['threads']}-thread "
-              f"blocks, {shape['blocks_per_sm']} an SM; ptxas {rec['ptxas']}; {rec['lds']} LDS "
+        print(f"  {name}@{n}: census {got_c}; group {rec['group']}, {rec['threads']}-thread "
+              f"blocks, {rec['blocks_per_sm']} an SM; ptxas {rec['ptxas']}; {rec['lds']} LDS "
               f"in {rec['sass_instructions']} instructions")
+        # the explicit instance runs outside the engine's blocks only
+        rec["launches"] = None
         out.append(rec)
+        out.append(hot_draw_check(sim, cfg, pool, counters, bias, usage, sass,
+                                  moved - nbytes(u_roul, u_x1), rec["device_ms"]))
     return out
+
+
+def hot_instance(name, n, reference, dt, usage, sass, draw=False):
+    """The instance a launch of ``name`` at ``n`` lanes runs
+    (hot_step_kernel<reference, type, group, threads, draw>): its shape
+    (``hot_kernels.hot_step_shape``), its ptxas registers and spills, its
+    shared-memory loads and instructions in the SASS."""
+    import torch
+
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    shape = hot_kernels.hot_step_shape(name, n)
+    inst = (reference, "double" if dt == torch.float64 else "float", shape["group"],
+            shape["threads"], draw)
+    lds, n_ins = next((v for f, v in sass.items() if hot_step_variant(f) == inst), (None, None))
+    return {**shape, "ptxas": next((v for f, v in usage.items() if hot_step_variant(f) == inst),
+                                   None), "lds": lds, "sass_instructions": n_ins}
+
+
+def hot_draw_check(sim, cfg, pool, counters, bias, usage, sass, moved, explicit_device_ms):
+    """The hot step's drawing instance (``hot_kernels.hot_step_drawn``) at
+    ``cfg``'s semantics and width on the pool ``pool``, under a seeded key
+    at the block's step 5: against its plain version (``draws.hot_uniforms``
+    under the same key and step, then ``engine.hot_step_plain``) within the
+    kernel's tolerance with the census exactly; phase A's own fields
+    (``hot_kernels.PHASE_A_FIELDS``) equal on every lane; and every field
+    bit for bit the explicit instance's on those uniforms.  ``moved``: the
+    explicit launch's bytes without its two uniform arrays;
+    ``explicit_device_ms``: its device time, printed beside this one's.
+    Returns the record (``<entry>_draw``)."""
+    import torch
+
+    from grmonty_tpu_torch.ops import draws
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, cfg.dtype
+    reference, n, step_i = cfg.reference, cfg.n_pool, 5
+    name = hot_kernels.entry_point("hot_step", dt, reference, draw=True)
+    key = torch.tensor([0x407D4A00 + n, 0x5EED5], dtype=torch.int64, device=dev)
+
+    def fresh():
+        return counters._replace(**{c: getattr(counters, c).clone() for c in hot_kernels.CENSUS})
+
+    def plain():
+        u_roul, u_x1 = draws.hot_uniforms(key, step_i, n, dt)
+        return engine.hot_step_plain(pool, counters, u_roul, u_x1, bias, mc, tabs, cfg)
+
+    u_roul, u_x1 = draws.hot_uniforms(key, step_i, n, dt)
+    ref_f, ref_c = hot_kernels.step_outputs(*plain(), reference)
+    got_f, got_c = hot_kernels.step_outputs(
+        *hot_kernels.hot_step_drawn(pool, fresh(), key, step_i, bias, mc, tabs, cfg), reference)
+    exp_f, _ = hot_kernels.step_outputs(
+        *hot_kernels.hot_step(pool, fresh(), u_roul, u_x1, bias, mc, tabs, cfg), reference)
+    torch.cuda.synchronize()
+    if got_c != ref_c:
+        fail(f"{name}@{n}: census {got_c} != the plain version's {ref_c}")
+    a_fields = hot_kernels.PHASE_A_FIELDS[reference]
+    a_differ = {f: int((ref_f[f] != got_f[f]).sum()) for f in a_fields}
+    if any(a_differ.values()):
+        fail(f"{name}@{n}: phase A's own fields differ from the plain version's: {a_differ}")
+    flat_got, flat_exp = hot_kernels._flat(got_f), hot_kernels._flat(exp_f)
+    not_bitwise = sorted(f for f in flat_got
+                         if not bool(hot_kernels._same_bits(flat_got[f], flat_exp[f]).all()))
+    if not_bitwise:
+        fail(f"{name}@{n}: not bit for bit the explicit instance's on the same uniforms: "
+             f"{not_bitwise}")
+    kc = fresh()
+
+    def kern():
+        return hot_kernels.hot_step_drawn(pool, kc, key, step_i, bias, mc, tabs, cfg)
+
+    slack = hot_kernels.weight_slack(pool, ref_f, hot_kernels.KERNEL_TOLERANCE[name]["rtol"])
+    # the operations: the step's, and one Philox block a lane at the
+    # float32 rate
+    ops = event_ops_equiv(OPS_PER_LANE[name] * n, PHILOX_BLOCK_INT_OPS * n, kernel_dtype(name))
+    rec = time_kernel(name, ref_f, got_f, plain, kern, moved + nbytes(key), slack=slack, n=n,
+                      ops=ops, extra={**hot_instance(name, n, reference, dt, usage, sass, True),
+                                      "step": step_i, "phase_a_fields": list(a_fields),
+                                      "bitwise_vs_explicit": True})
+    rec["census"] = got_c
+    print(f"  {name}@{n}: device {rec['device_ms'] * 1e3:.2f} us a launch against the explicit "
+          f"instance's {explicit_device_ms * 1e3:.2f}; ptxas {rec['ptxas']}; group "
+          f"{rec['group']}, {rec['blocks_per_sm']} blocks an SM")
+    return rec
 
 
 def kernel_checks(sim, usage, sass, ref_stall_steps):
@@ -1187,7 +1297,8 @@ def check_schedule(sim, stats, label):
 def path_launches(cfg, stats):
     """{entry point: launches} that a run of ``cfg`` with the counters
     ``stats`` (hot_iters, full_phases, light_phases) must show: the fused
-    hot step of its dtype and semantics once per hot iteration of every
+    hot step of its dtype and semantics, its drawing instance (every hot
+    iteration runs inside a block), once per hot iteration of every
     engine; the row gather, the event fluid and the event kernel of its
     dtype once in each full phase (the events' rows, their fluid, the
     events); the track start of its dtype and semantics once in each full
@@ -1196,7 +1307,7 @@ def path_launches(cfg, stats):
     from grmonty_tpu_torch.transport import hot_kernels
 
     dt, ref, full = cfg.dtype, cfg.reference, stats["full_phases"]
-    want = {hot_kernels.entry_point("hot_step", dt, ref): stats["hot_iters"],
+    want = {hot_kernels.entry_point("hot_step", dt, ref, draw=True): stats["hot_iters"],
             hot_kernels.entry_point("row_gather", dt): full,
             hot_kernels.entry_point("event_fluid", dt): full,
             hot_kernels.entry_point("scatter_event", dt): full,
@@ -1221,16 +1332,25 @@ def launch_failures(cfg, stats, counts):
 # The plain versions that a run on the card must not call: the hot step's,
 # the track start's and the event fluid's.
 PLAIN_FNS = ("hot_step_plain", "init_fresh_plain", "event_fluid_plain")
+# and what a block on the card must not call: it draws its hot steps'
+# uniforms inside their kernel
+RAND_IN_BLOCK = "torch.rand_in_block"
 
 
 @contextlib.contextmanager
 def counting_plain_steps():
     """Count the calls of each plain version of ``PLAIN_FNS`` made inside
-    ({name: calls}): a run on the card must make none."""
+    ({name: calls}), and the calls of ``torch.rand`` inside an engine's
+    block (``Engine._body``, at its capture and in every eager block;
+    ``RAND_IN_BLOCK``), each of which raises: a run on the card must make
+    none."""
+    import torch
+
     from grmonty_tpu_torch.transport import engine
 
     saved = {name: getattr(engine, name) for name in PLAIN_FNS}
-    calls = dict.fromkeys(PLAIN_FNS, 0)
+    body = engine.Engine._body
+    calls = dict.fromkeys(PLAIN_FNS + (RAND_IN_BLOCK,), 0)
 
     def counting(name):
         def counted(*a, **kw):
@@ -1238,13 +1358,27 @@ def counting_plain_steps():
             return saved[name](*a, **kw)
         return counted
 
+    def refuse(*a, **kw):
+        calls[RAND_IN_BLOCK] += 1
+        raise RuntimeError("torch.rand inside a block on the card")
+
+    def guarded_body(self):
+        rand = torch.rand
+        torch.rand = refuse
+        try:
+            body(self)
+        finally:
+            torch.rand = rand
+
     for name in PLAIN_FNS:
         setattr(engine, name, counting(name))
+    engine.Engine._body = guarded_body
     try:
         yield calls
     finally:
         for name, fn in saved.items():
             setattr(engine, name, fn)
+        engine.Engine._body = body
 
 
 def graph_summary(stats):
@@ -1601,7 +1735,7 @@ def f64_checks(root, args, usage, sass, ref32=None):
         del sim32
     t0 = time.monotonic()
     stats, counts = drive(sim, "shipped_f64")
-    for name in ("hot_step_f64", "row_gather_f64", "scatter_event_f64", "fresh_init_f64",
+    for name in ("hot_step_f64_draw", "row_gather_f64", "scatter_event_f64", "fresh_init_f64",
                  "event_fluid_f64"):
         recs[name]["launches"] = counts[name]
     st32 = ref32
@@ -1616,7 +1750,7 @@ def f64_checks(root, args, usage, sass, ref32=None):
                       "run_s": time.monotonic() - t0}))
     del sim
     counts = accuracy_check(root, F64_GATE_ARGS, "accuracy_f64", sigmas=F64_GATE_SIGMAS)
-    for name in ("hot_step_ref_f64", "fresh_init_ref_f64"):
+    for name in ("hot_step_ref_f64_draw", "fresh_init_ref_f64"):
         recs[name]["launches"] = counts[name]
     cli_check(root, F64_CLI_PHOTON_N, extra=F64_CLI_ARGS,
               dump=validate_accuracy._torus(64, 32), label="cli_f64")
@@ -1667,8 +1801,11 @@ def graph_check(root, card):
                 return _drain(state)
 
             sim._drain_tail = keep_and_drain
-            hot_kernels.reset_launches()
-            spec, stats = sim.run()
+            with counting_plain_steps() as plain_calls:
+                hot_kernels.reset_launches()
+                spec, stats = sim.run()
+            if any(plain_calls.values()):
+                fail(f"graph {label}: plain calls {plain_calls} (graphed {graphed})")
             runs[graphed] = (spec, stats, handed[0], sim.state, dict(hot_kernels.launches))
             cfg = sim.cfg
             del sim
@@ -1887,14 +2024,14 @@ def main():
                                                           args.ref_stall_steps)}
 
     _, counts = drive(sim, "shipped")
-    for name in ("hot_step", "scatter_event", "fresh_init", "event_fluid"):
+    for name in ("hot_step_draw", "scatter_event", "fresh_init", "event_fluid"):
         kernels[name]["launches"] = counts[name]
     del sim
 
     ref_sim = make_simulation(root, args.ref_photon_n, reference=True,
                               stall_steps=args.ref_stall_steps)
     _, counts = drive(ref_sim, "reference")
-    for name in ("hot_step_ref", "row_gather", "fresh_init_ref"):
+    for name in ("hot_step_ref_draw", "row_gather", "fresh_init_ref"):
         kernels[name]["launches"] = counts[name]
     del ref_sim
     graph_check(root, card)

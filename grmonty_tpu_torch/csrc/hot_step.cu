@@ -1,7 +1,7 @@
 // The hot step of the transport engine, one hand-written kernel for Hopper
-// (sm_90a): hot_step_kernel<kRef, T, G, THREADS>, G threads per photon lane
-// in blocks of THREADS, computing engine.hot_step_plain in float (T =
-// float) or double (T = double).
+// (sm_90a): hot_step_kernel<kRef, T, G, THREADS, kDraw>, G threads per
+// photon lane in blocks of THREADS, computing engine.hot_step_plain in float
+// (T = float) or double (T = double).
 //
 // It replaces the Pallas kernels grmonty_tpu/transport/hotstep_pallas.py:104
 // `kernel_a` (body engine.hot_phase_a) and hotstep_pallas.py:152 `kernel_b`
@@ -28,6 +28,21 @@
 // It writes every pool field once (double: the pushed state, then the
 // pre-step state over it on a lane that rolls back, read again from the
 // inputs).
+//
+// The step's two uniforms, the roulette's u_roul and the optical depth's
+// u_x1: the instance kDraw = false reads them from the caller's (N,)
+// tensors; kDraw = true (the engine's block on the card) draws them itself,
+// slots 0 and 1 of the lane's Philox4x64-10 block at the counter (lane,
+// S_HOT, step, 0) under the block's key (physics.cuh's philox; each word
+// made a uniform as torch.rand makes one, unif), so that a hot iteration is
+// one launch.  The key is two int64 words the engine draws from the run's
+// generator once a block (hot_kernels.draw_key), the step the iteration's
+// index in the block, a launch scalar; ops/draws.py hot_uniforms is the
+// plain version of the draws.  Every thread of a lane's group computes the
+// same block.  The drawing costs one Philox block a lane, about 260 integer
+// instructions, drawn at the stop test so that only u_x1 is held through
+// the row fetch and phase B: measured within a microsecond of the explicit
+// instance at every width, with no new spills (PERF.md).
 //
 // Float (one thread a lane, 256-thread blocks).  What bounds it on an H100
 // 80GB HBM3 at 700 W: the pool's 65,536 lanes are 2,048 warps, 15.5 an SM,
@@ -105,13 +120,16 @@
 // frequency of the lowest-energy photons.
 //
 // Interface: plain C entry points for ctypes, hot_step and hot_step_ref
-// (float) and hot_step_f64 and hot_step_ref_f64 (double).  Each takes an
-// array of device pointers in the order of HotPtrs (the Python wrapper in
-// transport/hot_kernels.py lists the same order and checks the counts), an
-// array of double scalars in the order of HotScal, the lane count and the
-// CUDA stream, and returns cudaGetLastError() after the launch; each picks
-// its instance from the lane count (hot_shape), and <entry>_group,
-// <entry>_threads and <entry>_blocks_per_sm give that instance's shape.
+// (float) and hot_step_f64 and hot_step_ref_f64 (double), and each of them
+// with _draw after its name for the instance that draws its uniforms.  Each
+// takes an array of device pointers in the order of HotPtrs (the Python
+// wrapper in transport/hot_kernels.py lists the same order and checks the
+// counts; a drawing entry passes the key in u_roul's place and null in
+// u_x1's), an array of double scalars in the order of HotScal (a drawing
+// entry then the step), the lane count and the CUDA stream, and returns
+// cudaGetLastError() after the launch; each picks its instance from the
+// lane count (hot_shape), and <entry>_group, <entry>_threads and
+// <entry>_blocks_per_sm give that instance's shape.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -374,9 +392,14 @@ struct HotPtrs {  // order = hot_kernels._HOT_PTRS
   const T *sec_w;
   const int32_t *n_step;
   const u8 *occupied;
-  // the step's uniforms, the bias scale (one value), the corner table and
-  // the (41, 31) hotcross surface
-  const T *u_roul, *u_x1, *bias_scale, *table, *hc;
+  // the step's uniforms (a drawing instance: the key's two words in
+  // u_roul's place, u_x1 unused), the bias scale (one value), the corner
+  // table and the (41, 31) hotcross surface
+  union {
+    const T *u_roul;
+    const unsigned long long *key;
+  };
+  const T *u_x1, *bias_scale, *table, *hc;
   // the census counters (int64 scalars), added to in place
   unsigned long long *ls_iters, *ls_slots, *ls_occupied, *ls_moving, *ls_committed,
       *ls_parked, *n_hc_clamp;
@@ -421,14 +444,17 @@ __host__ __device__ constexpr int warp_units() {
 // run it alike, but for their share of the hotcross sum, and the first of
 // them stores and counts.  Lanes at or past n compute lane n - 1 and store
 // nothing, so that every lane of a warp reaches its shuffles and ballots.
+// kDraw: the uniforms drawn from the lane's Philox block at (lane, S_HOT,
+// step, 0) under P.key (`step` is read by this instance alone).
 template <bool kRef, typename T, int THREADS>
 __host__ __device__ constexpr int smem_bytes() {  // the staged surface, the warps' regions
   return 16 * (hc_units<T>() + THREADS / 32 * warp_units<kRef, T>());
 }
 
-template <bool kRef, typename T, int G, int THREADS>
+template <bool kRef, typename T, int G, int THREADS, bool kDraw>
 __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
-    hot_step_kernel(const HotPtrs<T> P, const AConst<T> CA, const BConst<T> CB, int n) {
+    hot_step_kernel(const HotPtrs<T> P, const AConst<T> CA, const BConst<T> CB, int n,
+                    unsigned long long step) {
   using V = typename Vec16<T>::type;
   constexpr bool kD = sizeof(T) == 8;
   constexpr int W = kRef ? RAW_W : ROW_W, M = kRef ? RAW_NC : NC;
@@ -611,7 +637,15 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
   const bool horizon = x[1] < CA.x1_min;
   const bool escaped = x[1] > T(4.605170185988092);  // ln R_MAX
   const bool small = w_p < CA.weight_min;
-  const bool win = P.u_roul[i] <= T(1.0 / 1.0e4);
+  bool win;
+  T u_x1_drawn;  // kDraw: the optical-depth uniform, held to phase B
+  if constexpr (kDraw) {
+    const Words u = philox((uint64_t)i, S_HOT, step, 0, __ldg(P.key), __ldg(P.key + 1));
+    win = unif<T>(u.v[0]) <= T(1.0 / 1.0e4);
+    u_x1_drawn = unif<T>(u.v[1]);
+  } else {
+    win = P.u_roul[i] <= T(1.0 / 1.0e4);
+  }
   const T w_roul = win ? w_p * T(1.0e4) : T(0.0);
   const T w_a = (checkable && small && !horizon) ? w_roul : w_p;
   const bool killed_inside = checkable && small && !horizon && !escaped && !win;
@@ -744,7 +778,12 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
   const T alpha_absi_b = inter ? (dead_branch ? T(0.0) : a_abf) : alpha_absi_p;
   const T bi_b = inter ? (dead_branch ? T(0.0) : bf) : bi_p;
 
-  const T x1r = -fm::log(P.u_x1[i] + T(1e-30));
+  T u_x1;
+  if constexpr (kDraw)
+    u_x1 = u_x1_drawn;
+  else
+    u_x1 = P.u_x1[i];
+  const T x1r = -fm::log(u_x1 + T(1e-30));
   const T sec_w_new = w_a / jmax(bias, eps);
   const bool scatter = inter && (bias * d_tau_scatt > x1r) && (sec_w_new > CB.weight_min);
   const T frac = scatter ? x1r / (bias * d_tau_scatt + eps) : T(1.0);
@@ -917,16 +956,17 @@ Shape hot_shape(int n) {
 }
 
 // Asks once for the instance's dynamic shared memory (above 48 KB).
-template <bool kRef, typename T, int G, int THREADS>
+template <bool kRef, typename T, int G, int THREADS, bool kDraw>
 cudaError_t prepare() {
   static cudaError_t rc = cudaFuncSetAttribute(
-      hot_step_kernel<kRef, T, G, THREADS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      hot_step_kernel<kRef, T, G, THREADS, kDraw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes<kRef, T, THREADS>());
   return rc;
 }
 
-// One launch of the instance with G threads a lane in blocks of THREADS.
-template <bool kRef, typename T, int G, int THREADS>
+// One launch of the instance with G threads a lane in blocks of THREADS (a
+// drawing instance reads the step after the HotScal scalars).
+template <bool kRef, typename T, int G, int THREADS, bool kDraw>
 int launch_hot_g(void **ptrs, const double *scal, int n, void *stream) {
   HotPtrs<T> P;
   memset(&P, 0, sizeof(HotPtrs<T>));
@@ -934,92 +974,81 @@ int launch_hot_g(void **ptrs, const double *scal, int n, void *stream) {
   AConst<T> CA;
   BConst<T> CB;
   make_consts<T>(scal, CA, CB);
+  const unsigned long long step = kDraw ? (unsigned long long)scal[HOT_NSCAL] : 0ull;
   constexpr int lanes = THREADS / G;
-  const cudaError_t rc = prepare<kRef, T, G, THREADS>();
+  const cudaError_t rc = prepare<kRef, T, G, THREADS, kDraw>();
   if (rc != cudaSuccess) return (int)rc;
   if (n > 0) {
-    hot_step_kernel<kRef, T, G, THREADS><<<(n + lanes - 1) / lanes, THREADS,
-                                          smem_bytes<kRef, T, THREADS>(),
-                                          (cudaStream_t)stream>>>(P, CA, CB, n);
+    hot_step_kernel<kRef, T, G, THREADS, kDraw><<<(n + lanes - 1) / lanes, THREADS,
+                                                 smem_bytes<kRef, T, THREADS>(),
+                                                 (cudaStream_t)stream>>>(P, CA, CB, n, step);
   }
   return (int)cudaGetLastError();
 }
 
 // The blocks an SM holds of an instance, or minus a CUDA error.
-template <bool kRef, typename T, int G, int THREADS>
+template <bool kRef, typename T, int G, int THREADS, bool kDraw>
 int blocks_per_sm_g() {
   int blocks = 0;
-  cudaError_t rc = prepare<kRef, T, G, THREADS>();
+  cudaError_t rc = prepare<kRef, T, G, THREADS, kDraw>();
   if (rc == cudaSuccess)
     rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, hot_step_kernel<kRef, T, G, THREADS>, THREADS, smem_bytes<kRef, T, THREADS>());
+        &blocks, hot_step_kernel<kRef, T, G, THREADS, kDraw>, THREADS,
+        smem_bytes<kRef, T, THREADS>());
   return rc == cudaSuccess ? blocks : -(int)rc;
 }
 
 // A launch of n lanes and the blocks an SM of its instance (what = 0, 1).
-template <bool kRef, typename T>
+template <bool kRef, typename T, bool kDraw>
 int hot_step_at(int n, int what, void **ptrs = nullptr, const double *scal = nullptr,
                 void *stream = nullptr) {
   const Shape s = hot_shape<T>(n);
   if constexpr (sizeof(T) == 8) {
     if (s.group > 1)
-      return what ? blocks_per_sm_g<kRef, T, F64_GROUP, 128>()
-                  : launch_hot_g<kRef, T, F64_GROUP, 128>(ptrs, scal, n, stream);
+      return what ? blocks_per_sm_g<kRef, T, F64_GROUP, 128, kDraw>()
+                  : launch_hot_g<kRef, T, F64_GROUP, 128, kDraw>(ptrs, scal, n, stream);
     if (s.threads == 64)
-      return what ? blocks_per_sm_g<kRef, T, 1, 64>()
-                  : launch_hot_g<kRef, T, 1, 64>(ptrs, scal, n, stream);
+      return what ? blocks_per_sm_g<kRef, T, 1, 64, kDraw>()
+                  : launch_hot_g<kRef, T, 1, 64, kDraw>(ptrs, scal, n, stream);
   }
-  return what ? blocks_per_sm_g<kRef, T, 1, 256>()
-              : launch_hot_g<kRef, T, 1, 256>(ptrs, scal, n, stream);
+  return what ? blocks_per_sm_g<kRef, T, 1, 256, kDraw>()
+              : launch_hot_g<kRef, T, 1, 256, kDraw>(ptrs, scal, n, stream);
 }
 
-template <bool kRef, typename T>
+template <bool kRef, typename T, bool kDraw>
 int launch_hot(void **ptrs, const double *scal, int n, void *stream) {
-  return hot_step_at<kRef, T>(n, 0, ptrs, scal, stream);
+  return hot_step_at<kRef, T, kDraw>(n, 0, ptrs, scal, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int hot_step_nptrs() { return HOT_NPTRS; }
-int hot_step_nscal() { return HOT_NSCAL; }
-int hot_step_ref_nptrs() { return HOT_REF_NPTRS; }
-int hot_step_ref_nscal() { return HOT_NSCAL; }
-int hot_step_f64_nptrs() { return HOT_NPTRS; }
-int hot_step_f64_nscal() { return HOT_NSCAL; }
-int hot_step_ref_f64_nptrs() { return HOT_REF_NPTRS; }
-int hot_step_ref_f64_nscal() { return HOT_NSCAL; }
+// The entry points: <name>_nptrs, _nscal and _launch, and the shape of the
+// instance each runs at n lanes (its threads a lane, its threads a block,
+// its blocks an SM); <name>_draw draws its uniforms (one scalar more, the
+// step).
+#define HOT_ENTRY(name, kRef, T)                                                         \
+  int name##_nptrs() { return kRef ? HOT_REF_NPTRS : HOT_NPTRS; }                        \
+  int name##_nscal() { return HOT_NSCAL; }                                               \
+  int name##_launch(void **ptrs, const double *scal, int n, void *stream) {             \
+    return launch_hot<kRef, T, false>(ptrs, scal, n, stream);                            \
+  }                                                                                      \
+  int name##_group(int n) { return hot_shape<T>(n).group; }                              \
+  int name##_threads(int n) { return hot_shape<T>(n).threads; }                          \
+  int name##_blocks_per_sm(int n) { return hot_step_at<kRef, T, false>(n, 1); }          \
+  int name##_draw_nptrs() { return kRef ? HOT_REF_NPTRS : HOT_NPTRS; }                   \
+  int name##_draw_nscal() { return HOT_NSCAL + 1; }                                      \
+  int name##_draw_launch(void **ptrs, const double *scal, int n, void *stream) {        \
+    return launch_hot<kRef, T, true>(ptrs, scal, n, stream);                             \
+  }                                                                                      \
+  int name##_draw_group(int n) { return hot_shape<T>(n).group; }                         \
+  int name##_draw_threads(int n) { return hot_shape<T>(n).threads; }                     \
+  int name##_draw_blocks_per_sm(int n) { return hot_step_at<kRef, T, true>(n, 1); }
 
-int hot_step_launch(void **ptrs, const double *scal, int n, void *stream) {
-  return launch_hot<false, float>(ptrs, scal, n, stream);
-}
-
-int hot_step_ref_launch(void **ptrs, const double *scal, int n, void *stream) {
-  return launch_hot<true, float>(ptrs, scal, n, stream);
-}
-
-int hot_step_f64_launch(void **ptrs, const double *scal, int n, void *stream) {
-  return launch_hot<false, double>(ptrs, scal, n, stream);
-}
-
-int hot_step_ref_f64_launch(void **ptrs, const double *scal, int n, void *stream) {
-  return launch_hot<true, double>(ptrs, scal, n, stream);
-}
-
-// The instance each entry point runs at n lanes: its threads a lane (the
-// group), its threads a block and its blocks an SM.
-int hot_step_group(int n) { return hot_shape<float>(n).group; }
-int hot_step_ref_group(int n) { return hot_shape<float>(n).group; }
-int hot_step_f64_group(int n) { return hot_shape<double>(n).group; }
-int hot_step_ref_f64_group(int n) { return hot_shape<double>(n).group; }
-int hot_step_threads(int n) { return hot_shape<float>(n).threads; }
-int hot_step_ref_threads(int n) { return hot_shape<float>(n).threads; }
-int hot_step_f64_threads(int n) { return hot_shape<double>(n).threads; }
-int hot_step_ref_f64_threads(int n) { return hot_shape<double>(n).threads; }
-int hot_step_blocks_per_sm(int n) { return hot_step_at<false, float>(n, 1); }
-int hot_step_ref_blocks_per_sm(int n) { return hot_step_at<true, float>(n, 1); }
-int hot_step_f64_blocks_per_sm(int n) { return hot_step_at<false, double>(n, 1); }
-int hot_step_ref_f64_blocks_per_sm(int n) { return hot_step_at<true, double>(n, 1); }
+HOT_ENTRY(hot_step, false, float)
+HOT_ENTRY(hot_step_ref, true, float)
+HOT_ENTRY(hot_step_f64, false, double)
+HOT_ENTRY(hot_step_ref_f64, true, double)
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 // The transport's device physics, shared by the hand-written kernels of
 // this directory: hot_step.cu (the fused hot step), fresh_init.cu (the
-// track start of freshly loaded lanes) and event_fluid.cu (the event
-// phase's fluid, opacities and bias).
+// track start of freshly loaded lanes), event_fluid.cu (the event phase's
+// fluid, opacities and bias) and scatter_event.cu (the event itself).
 //
 // Each function is the plain torch version's arithmetic operation by
 // operation in the kernel's type T (float or double), as hot_step.cu's
@@ -21,7 +21,11 @@
 //   - the kinematics (radiation.kinematics_sin_c), the Chebyshev hotcross
 //     (cheb.hotcross_eval, scalar form), K2, synch and B_nu
 //     (alpha_abs: radiation.alpha_inv_abs_sin_c) and the bias clamp
-//     (engine.bias_func).
+//     (engine.bias_func);
+//   - the lanes' random numbers: Philox4x64-10 (philox), a word as a
+//     uniform (unif) and the samplers of the counter's second word
+//     (ops/draws.py, whose PhiloxDraws and hot_uniforms are their plain
+//     versions).
 
 #pragma once
 
@@ -682,6 +686,53 @@ __device__ __forceinline__ T hotcross(T w, T te, const BConst<T> &C,
   const T cold = hc_klein_nishina(w) * T(SIGMA_T_D);
   const T out = (te < T(1.0e-4)) ? cold : interp;
   return (w * te < T(1.0e-6)) ? T(SIGMA_T_D) : out;
+}
+
+// ---------------------------------------------------------------------------
+// the lanes' random numbers
+// ---------------------------------------------------------------------------
+
+// The samplers of the counter's second word (ops/draws.py): the event's
+// (scatter_event.cu) and the hot step's two uniforms (hot_step.cu).
+constexpr uint64_t S_ELECTRON = 0, S_ELECTRON_DIR = 1, S_KLEIN_NISHINA = 2, S_THOMSON = 3,
+                   S_SCATTER_DIR = 4, S_HOT = 5;
+
+constexpr uint64_t PHILOX_M0 = 0xD2E7470EE14C6C93ull, PHILOX_M1 = 0xCA5A826395121157ull;
+constexpr uint64_t PHILOX_W0 = 0x9E3779B97F4A7C15ull, PHILOX_W1 = 0xBB67AE8584CAA73Bull;
+
+struct Words {
+  uint64_t v[4];
+};
+
+// Philox4x64-10 of the counter (c0, c1, c2, c3) under the key (k0, k1).
+__device__ __forceinline__ Words philox(uint64_t c0, uint64_t c1, uint64_t c2, uint64_t c3,
+                                        uint64_t k0, uint64_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += PHILOX_W0;
+      k1 += PHILOX_W1;
+    }
+    const uint64_t hi0 = __umul64hi(PHILOX_M0, c0), lo0 = PHILOX_M0 * c0;
+    const uint64_t hi1 = __umul64hi(PHILOX_M1, c2), lo1 = PHILOX_M1 * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+  }
+  return Words{{c0, c1, c2, c3}};
+}
+
+// a word as torch.rand makes a uniform: the top 24 or 53 bits
+template <typename T>
+__device__ __forceinline__ T unif(uint64_t w);
+template <>
+__device__ __forceinline__ float unif<float>(uint64_t w) {
+  return (float)(uint32_t)(w >> 40) * 0x1p-24f;
+}
+template <>
+__device__ __forceinline__ double unif<double>(uint64_t w) {
+  return (double)(w >> 11) * 0x1p-53;
 }
 
 }  // namespace

@@ -58,63 +58,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// the device physics shared with the other kernels: the math of the type
+// (fm), EPS_D and PI_D, the covariant lowering, and the lanes' random
+// numbers (philox, unif, the samplers' ids)
+#include "physics.cuh"
+
 namespace {
 
-constexpr double PI_D = 3.14159265358979323846;
 // math.sqrt(math.pi) / 4.0 and 3.0 * math.sqrt(math.pi), as Python rounds
 // them (the plain version's scalars)
 constexpr double SQRT_PI_OVER_4_D = 0x1.c5bf891b4ef6ap-2;
 constexpr double THREE_SQRT_PI_D = 0x1.544fa6d47b390p+2;
-constexpr double EPS_D = 1.0e-30;
 constexpr int THREADS = 128;
 
 constexpr int CAP_ELECTRON = 16;
 constexpr int CAP_KN = 128;
 constexpr int CAP_THOMSON = 16;
 
-// the samplers of the counter's second word (ops/draws.py)
-constexpr uint64_t S_ELECTRON = 0, S_ELECTRON_DIR = 1, S_KLEIN_NISHINA = 2, S_THOMSON = 3,
-                   S_SCATTER_DIR = 4;
-
-constexpr uint64_t PHILOX_M0 = 0xD2E7470EE14C6C93ull, PHILOX_M1 = 0xCA5A826395121157ull;
-constexpr uint64_t PHILOX_W0 = 0x9E3779B97F4A7C15ull, PHILOX_W1 = 0xBB67AE8584CAA73Bull;
-
-struct Words {
-  uint64_t v[4];
-};
-
-// Philox4x64-10 of the counter (c0, c1, c2, c3) under the key (k0, k1).
-__device__ __forceinline__ Words philox(uint64_t c0, uint64_t c1, uint64_t c2, uint64_t c3,
-                                        uint64_t k0, uint64_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += PHILOX_W0;
-      k1 += PHILOX_W1;
-    }
-    const uint64_t hi0 = __umul64hi(PHILOX_M0, c0), lo0 = PHILOX_M0 * c0;
-    const uint64_t hi1 = __umul64hi(PHILOX_M1, c2), lo1 = PHILOX_M1 * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-  }
-  return Words{{c0, c1, c2, c3}};
-}
-
 namespace fm {
-__device__ __forceinline__ float log(float x) { return logf(x); }
-__device__ __forceinline__ double log(double x) { return ::log(x); }
-__device__ __forceinline__ float log1p(float x) { return log1pf(x); }
-__device__ __forceinline__ double log1p(double x) { return ::log1p(x); }
-__device__ __forceinline__ float sin(float x) { return sinf(x); }
-__device__ __forceinline__ double sin(double x) { return ::sin(x); }
-__device__ __forceinline__ float cos(float x) { return cosf(x); }
-__device__ __forceinline__ double cos(double x) { return ::cos(x); }
-__device__ __forceinline__ float sqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sqrt(double x) { return ::sqrt(x); }
-__device__ __forceinline__ float fabs(float x) { return fabsf(x); }
-__device__ __forceinline__ double fabs(double x) { return ::fabs(x); }
 __device__ __forceinline__ bool isnan(float x) { return ::isnan(x); }
 __device__ __forceinline__ bool isnan(double x) { return ::isnan(x); }
 }  // namespace fm
@@ -142,18 +103,6 @@ __device__ __forceinline__ T clamp(T x, T lo, T hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// a word as torch.rand makes a uniform: the top 24 or 53 bits
-template <typename T>
-__device__ __forceinline__ T unif(uint64_t w);
-template <>
-__device__ __forceinline__ float unif<float>(uint64_t w) {
-  return (float)(uint32_t)(w >> 40) * 0x1p-24f;
-}
-template <>
-__device__ __forceinline__ double unif<double>(uint64_t w) {
-  return (double)(w >> 11) * 0x1p-53;
-}
-
 // A lane's generator: its key and its lane index.
 struct Lane {
   uint64_t k0, k1, lane;
@@ -177,14 +126,6 @@ __device__ __forceinline__ T dot_cov(const T g[7], const T u[4], const T v[4]) {
   return g[0] * u[0] * v[0] + g[1] * (u[0] * v[1] + u[1] * v[0]) +
          g[2] * (u[0] * v[3] + u[3] * v[0]) + g[3] * u[1] * v[1] +
          g[4] * (u[1] * v[3] + u[3] * v[1]) + g[5] * u[2] * v[2] + g[6] * u[3] * v[3];
-}
-
-template <typename T>
-__device__ __forceinline__ void lower(const T g[7], const T v[4], T out[4]) {
-  out[0] = g[0] * v[0] + g[1] * v[1] + g[2] * v[3];
-  out[1] = g[1] * v[0] + g[3] * v[1] + g[4] * v[3];
-  out[2] = g[5] * v[2];
-  out[3] = g[2] * v[0] + g[4] * v[1] + g[6] * v[3];
 }
 
 template <typename T>

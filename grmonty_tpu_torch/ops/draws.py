@@ -10,7 +10,9 @@ The samplers of :mod:`grmonty_tpu_torch.ops.proba` and
   key, each lane's numbers a function of (key, lane, sampler, round,
   block) alone.  It is the plain PyTorch version of the generator inside
   ``csrc/scatter_event.cu``, word for word: the card check runs the plain
-  samplers on it and the kernel under the same key.
+  samplers on it and the kernel under the same key.  :func:`hot_uniforms`
+  is the plain version of the hot step's own draws (``csrc/hot_step.cu``'s
+  drawing instance) from the same generator.
 
 The counter of a Philox block is the four 64-bit words (lane, sampler,
 round, block); its four output words are slots 4 * block ... 4 * block + 3
@@ -24,7 +26,10 @@ of that round.  Per lane and sampler:
 * ``KLEIN_NISHINA`` (round r < 128): slot 0 the tentative energy, 1 the
   envelope test;
 * ``THOMSON`` (round r < 16): slot 0 the cosine, 1 the test;
-* ``SCATTER_DIR`` (round 0): as ``ELECTRON_DIR``, for the scattered photon.
+* ``SCATTER_DIR`` (round 0): as ``ELECTRON_DIR``, for the scattered photon;
+* ``HOT`` (the round is the hot iteration's index in its block, block 0):
+  slot 0 the roulette's uniform ``u_roul``, slot 1 the optical depth's
+  ``u_x1`` (:func:`hot_uniforms`).
 
 A word becomes a uniform in [0, 1) as ``torch.rand`` makes one: its top 24
 bits times 2^-24 in float32, its top 53 bits times 2^-53 in float64; a
@@ -43,7 +48,7 @@ import torch
 
 PI = math.pi
 
-ELECTRON, ELECTRON_DIR, KLEIN_NISHINA, THOMSON, SCATTER_DIR = range(5)
+ELECTRON, ELECTRON_DIR, KLEIN_NISHINA, THOMSON, SCATTER_DIR, HOT = range(6)
 
 PHILOX_M = (0xD2E7470EE14C6C93, 0xCA5A826395121157)
 PHILOX_W = (0x9E3779B97F4A7C15, 0xBB67AE8584CAA73B)
@@ -129,6 +134,23 @@ def uniform_from_limbs(w, dtype):
         top = (w[3] << 37) | (w[2] << 21) | (w[1] << 5) | (w[0] >> 11)
         return top.to(torch.float64) * 2.0 ** -53
     raise ValueError(f"no uniforms for {dtype}")
+
+
+def hot_uniforms(key, step, n, dtype, device=None):
+    """The hot step's two uniforms (u_roul, u_x1) of lanes 0 ... n-1 at the
+    iteration ``step`` of a block under ``key`` (two ints, or an int64
+    tensor of two words): slots 0 and 1 of the Philox block at the counter
+    (lane, ``HOT``, step, 0), each made a uniform of ``dtype`` as
+    :func:`uniform_from_limbs` makes one; (n,) tensors on ``device`` (the
+    key's, or the CPU).  The plain version of the draws of the hot step's
+    drawing instance."""
+    if device is None:
+        device = key.device if isinstance(key, torch.Tensor) else torch.device("cpu")
+    lane = torch.arange(n, dtype=torch.int64, device=device)
+    ctr = [_word_limbs(lane, lane), _word_limbs(HOT, lane), _word_limbs(step, lane),
+           _word_limbs(0, lane)]
+    w = philox_limbs(ctr, key_pair(key))
+    return uniform_from_limbs(w[0], dtype), uniform_from_limbs(w[1], dtype)
 
 
 def box_muller(u1, u2):

@@ -9,9 +9,11 @@ Photons are an SoA pool of (N,) tensors stepped in lockstep:
   index), the corner row at the new cell, phase B (fluid blend, opacities,
   scatter decision, weight decay), the detached-event capture and the
   lane-slot census — on CUDA tensors as one hand-written kernel
-  (``hot_kernels.hot_step``), on CPU tensors as the plain
-  :func:`hot_step_plain`.  The shipped profile blends the derived 44-wide
-  corner rows, reference semantics the raw 32-wide rows;
+  (``hot_kernels.hot_step``; inside a block its drawing instance,
+  ``hot_kernels.hot_step_drawn``, which draws its own uniforms), on CPU
+  tensors as the plain :func:`hot_step_plain`.  The shipped profile blends
+  the derived 44-wide corner rows, reference semantics the raw 32-wide
+  rows;
 * every ``refill_period`` iterations a **light phase** records escaped
   photons and refills free lanes; every ``m_period`` iterations the **full
   phase** also runs the deferred scattering events, the event itself on
@@ -33,7 +35,14 @@ Photons are an SoA pool of (N,) tensors stepped in lockstep:
 
 RNG: one ``torch.Generator`` per engine; every draw site takes a whole
 batch from it.  The hot phases take their uniforms as arguments, so the
-kernels and the plain versions are comparable on identical inputs.
+kernels and the plain versions are comparable on identical inputs.  On the
+card a block's hot steps draw nothing from the generator but one key: each
+launch of the drawing hot step (``hot_kernels.hot_step_drawn``) draws its
+two uniforms a lane from the lane's Philox stream under that key at the
+step's index in the block (``draws.hot_uniforms`` is the plain version);
+on the CPU they are ``torch.rand`` batches, as the event phase's draws are.
+A block also computes the bias scale once after each phase
+(:meth:`Engine._bias_scale`): no hot step changes what it reads.
 """
 
 import logging
@@ -826,6 +835,11 @@ class Engine:
         return bias_func(theta_e, w, self._bias_den(counters))
 
     def _bias_scale(self, counters):
+        """The hot step's bias scale 100 / (bias_norm * max_tau * (avg + 2)),
+        a 0-d tensor of the engine dtype.  Its inputs (max_tau_scatt,
+        n_scatt_rec, n_recorded, avg_ema) change in the phases alone
+        (:meth:`spectrum_add`, the EMA fold of :meth:`periodic_phase`), so a
+        block computes it once after each phase."""
         return (100.0 / self._bias_den(counters)).to(self.dt)
 
     def eval_fluid_xy(self, x1, x2):
@@ -839,21 +853,36 @@ class Engine:
                                             gather_fn=hot_kernels.row_gather)
 
     # -- the hot iteration ----------------------------------------------------
-    def hot_step(self, state: State, u_roul=None, u_x1=None) -> State:
+    def hot_step(self, state: State, u_roul=None, u_x1=None, bias_scale=None, key=None,
+                 step=0) -> State:
         """One hot iteration (``hot_kernels.hot_step``: one fused kernel on
         the card, :func:`hot_step_plain` on the CPU).  ``u_roul``/``u_x1``:
         the roulette and optical-depth uniforms, drawn from the run's
-        generator when None."""
+        generator when None; ``bias_scale``: the 0-d bias scale, computed
+        from the counters (:meth:`_bias_scale`) when None.  ``key`` (a
+        block's two Philox key words, :meth:`_body` on the card): the
+        uniforms are drawn inside the kernel at the block's iteration
+        ``step`` instead (``hot_kernels.hot_step_drawn``), and ``u_roul`` and
+        ``u_x1`` must be None."""
         from grmonty_tpu_torch.transport import hot_kernels
 
+        if bias_scale is None:
+            bias_scale = self._bias_scale(state.counters)
+        if key is not None:
+            if u_roul is not None or u_x1 is not None:
+                raise ValueError("hot_step: a key draws the uniforms; pass no u_roul or u_x1")
+            p, counters = hot_kernels.hot_step_drawn(
+                state.pool, state.counters, key, step, bias_scale, self.mc, self.tables,
+                self.cfg)
+            return state._replace(pool=p, counters=counters, it=state.it + 1)
         n = self.cfg.n_pool
         if u_roul is None:
             u_roul = self._uniform(n)
         if u_x1 is None:
             u_x1 = self._uniform(n)
         p, counters = hot_kernels.hot_step(
-            state.pool, state.counters, u_roul, u_x1, self._bias_scale(state.counters),
-            self.mc, self.tables, self.cfg)
+            state.pool, state.counters, u_roul, u_x1, bias_scale, self.mc, self.tables,
+            self.cfg)
         return state._replace(pool=p, counters=counters, it=state.it + 1)
 
     # -- periodic phase -------------------------------------------------------
@@ -1176,15 +1205,28 @@ class Engine:
     def _body(self):
         """One block on the engine's own state, in place: the full phase,
         then the hot steps, each light phase and its hot steps (the JAX
-        engine's while-loop body).  It reads nothing on the host and makes
-        no tensor from host data, so that it can be captured."""
+        engine's while-loop body).  The bias scale is computed once after
+        each phase and passed to the hot steps that follow it.  On the card
+        the block draws one key (``hot_kernels.draw_key``) and each hot step
+        draws its uniforms inside its one launch at its index in the block;
+        on the CPU each draws them from the generator.  It reads nothing on
+        the host and makes no tensor from host data, so that it can be
+        captured."""
+        from grmonty_tpu_torch.transport import hot_kernels
+
         st = self._state
         state = self.periodic_phase(st, self._backlog, self._n_valid)
+        scale = self._bias_scale(state.counters)
+        key = (hot_kernels.draw_key(self.gen, self.device) if self.device.type == "cuda"
+               else None)
+        step = 0
         for bi_, nb in enumerate(self.blocks):
             if bi_:
                 state = self.light_phase(state, self._backlog, self._n_valid)
+                scale = self._bias_scale(state.counters)
             for _ in range(nb):
-                state = self.hot_step(state)
+                state = self.hot_step(state, bias_scale=scale, key=key, step=step)
+                step += 1
         assign_state(st, state)
 
     def _counting(self, fn):

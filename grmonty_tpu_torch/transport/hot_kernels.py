@@ -14,6 +14,11 @@ replaces the TPU kernels ``grmonty_tpu/transport/hotstep_pallas.py:104``
 (``kernel_b``, body ``engine.hot_phase_b``) and the corner-row gather
 between them, and computes ``engine.hot_step_plain``: phase A, the row,
 phase B, the ``dl_shrink`` clamp, the capture and the lane-slot census.
+Each entry point has a drawing instance, ``<entry>_draw``
+(:func:`hot_step_drawn`), which draws the step's two uniforms itself from
+the lane's Philox stream under a key and the step's index in the block
+(``draws.hot_uniforms`` is the plain version of those draws): the engine's
+block on the card runs it, so that a hot iteration is one launch.
 
 ``csrc/row_gather.cu`` replaces ``grmonty_tpu/ops/gather.py:63``
 (``_gather_kernel``): ``out[n, :] = table[idx[n], :]``, the raw corner-row
@@ -95,7 +100,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Kernel launches on CUDA tensors, per kernel (the plain path counts nothing).
 launches = {"hot_step": 0, "hot_step_ref": 0, "row_gather": 0, "hot_step_f64": 0,
-            "hot_step_ref_f64": 0, "row_gather_f64": 0, "gather_rowsum_coop": 0,
+            "hot_step_ref_f64": 0, "row_gather_f64": 0, "hot_step_draw": 0,
+            "hot_step_ref_draw": 0, "hot_step_f64_draw": 0, "hot_step_ref_f64_draw": 0,
+            "gather_rowsum_coop": 0,
             "gather_rowsum_persistent": 0, "gather_rowsum_rowloop": 0,
             "gather_rowsum_smem": 0, "row_gather_rowloop": 0, "scatter_event": 0,
             "scatter_event_f64": 0, "scatter_chain": 0, "scatter_chain_f64": 0,
@@ -141,20 +148,23 @@ def credit(added):
         launches[k] += v
 
 
-def entry_point(kernel, dtype, reference=False):
+def entry_point(kernel, dtype, reference=False, draw=False):
     """The entry point that runs ``kernel`` ("hot_step", "row_gather",
     "scatter_event", "scatter_chain", "fresh_init" or "event_fluid") on
     tensors of ``dtype``: the reference variant of the hot step and of the
-    track start under ``reference``, the float64 instantiation for float64.
-    Raises a ValueError for a dtype that has no kernel."""
+    track start under ``reference``, the float64 instantiation for float64,
+    and under ``draw`` the hot step's drawing instance (``_draw``).  Raises
+    a ValueError for a dtype that has no kernel."""
     if kernel not in ("hot_step", "row_gather", "scatter_event", "scatter_chain",
                       "fresh_init", "event_fluid"):
         raise ValueError(f"no entry point for kernel {kernel!r}")
+    if draw and kernel != "hot_step":
+        raise ValueError(f"{kernel}: only the hot step has a drawing instance")
     if dtype not in DTYPE_SUFFIX:
         raise ValueError(f"{kernel}: no kernel for {dtype} (only "
                          f"{', '.join(str(d) for d in DTYPE_SUFFIX)})")
     base = kernel + "_ref" if kernel in ("hot_step", "fresh_init") and reference else kernel
-    return base + DTYPE_SUFFIX[dtype]
+    return base + DTYPE_SUFFIX[dtype] + ("_draw" if draw else "")
 
 
 # Scalar orders of the C structs AScal and BScal.
@@ -168,11 +178,12 @@ _B_SCAL_HEAD = ("x_start1 x_start2 x_stop1 x_stop2 dx1 dx2 n1 n2 b_unit d_tau_k 
                 "inv_weight_min inv_tp_over_te").split()
 _K2_N = 25
 # The fused hot step (the C structs HotPtrs and HotScal): the pre-step pool,
-# the uniforms, the bias scale, the corner table, the hotcross surface, the
+# the uniforms (a drawing instance: the key in u_roul's place, null in
+# u_x1's), the bias scale, the corner table, the hotcross surface, the
 # census counters, the post-step pool; then, for the shipped profile only,
 # the detached-event registers in and out and ``occupied`` out.  Its
 # scalars are phase A's, phase B's, then the primitives' units of the raw
-# rows.
+# rows (a drawing instance: then the step's index in the block).
 _POOL_IN = ("x0 x1 x2 x3 k0 k1 k2 k3 d0 d1 d2 d3 e_0_s dl_shrink pend_dl pend_push "
             "at_event alive w record_pending alpha_scatti alpha_absi bi tau_abs "
             "tau_scatt interacting sec_w n_step occupied").split()
@@ -198,11 +209,10 @@ _FRESH_PTRS = (_FRESH_IN + ["valid", "sidx", "bias_den", "table", "hc"]
 _FLUID_IN = "rows x1 x2 k0 k1 k2 k3 w tries bias_den hc".split()
 _FLUID_OUT = 30
 # (pointers, scalars) each entry point takes
-_ABI = {"hot_step": (len(_HOT_PTRS), _HOT_NSCAL),
-        "hot_step_ref": (len(_HOT_REF_PTRS), _HOT_NSCAL),
+_ABI = {**{f"hot_step{r}{x}{d}": (len(_HOT_REF_PTRS if r else _HOT_PTRS),
+                                   _HOT_NSCAL + (1 if d else 0))
+           for r in ("", "_ref") for x in DTYPE_SUFFIX.values() for d in ("", "_draw")},
         "row_gather": (3, 1),
-        "hot_step_f64": (len(_HOT_PTRS), _HOT_NSCAL),
-        "hot_step_ref_f64": (len(_HOT_REF_PTRS), _HOT_NSCAL),
         "row_gather_f64": (3, 1),
         # the row sums take W; "smem" also the rows of a stage (smem_stage_rows)
         **{f"gather_rowsum_{s}": (3, 2 if s == "smem" else 1) for s in ROWSUM_STRATEGIES},
@@ -220,15 +230,16 @@ _ABI = {"hot_step": (len(_HOT_PTRS), _HOT_NSCAL),
            for x in DTYPE_SUFFIX.values()}}
 
 
-# The hot step's entry points.
+# The hot step's entry points, and their drawing instances.
 HOT_STEPS = ("hot_step", "hot_step_ref", "hot_step_f64", "hot_step_ref_f64")
+HOT_DRAWS = tuple(f"{h}_draw" for h in HOT_STEPS)
 # The libraries' int -> int functions: the row counts of csrc/gather_probe.cu's
 # tilings (w -> rows) and the launch shape of each hot-step entry point at n
 # lanes (csrc/hot_step.cu: the threads a lane, the threads a block, the
 # blocks an SM of the instance it runs).
 HOT_SHAPE = ("group", "threads", "blocks_per_sm")
 _INT_FNS = ("gather_rowsum_persistent_pass_rows", "gather_rowsum_rowloop_wave_rows",
-            *(f"{h}_{what}" for h in HOT_STEPS for what in HOT_SHAPE))
+            *(f"{h}_{what}" for h in HOT_STEPS + HOT_DRAWS for what in HOT_SHAPE))
 
 
 class _Build:
@@ -387,13 +398,46 @@ def hot_step(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg):
     sync."""
     if pool.w.device.type == "cpu":
         return engine.hot_step_plain(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg)
+    dev, dt, n = _cuda_device(pool.w), pool.w.dtype, pool.w.shape[0]
+    _check_lanes("hot_step", [u_roul, u_x1], [dt, dt], n, dev, names=["u_roul", "u_x1"])
+    return _hot_launch(entry_point("hot_step", dt, cfg.reference), pool, counters,
+                       [u_roul, u_x1], bias_scale, mc, tables, cfg,
+                       _hot_scalars(mc, tables, cfg, dev, dt))
+
+
+def hot_step_drawn(pool, counters, key, step, bias_scale, mc, tables, cfg):
+    """One hot iteration whose two uniforms come from the lane's own Philox
+    stream: (u_roul, u_x1) = ``draws.hot_uniforms(key, step, N, dtype)``,
+    slots 0 and 1 of the block at the counter (lane, ``draws.HOT``,
+    ``step``, 0) under ``key`` (int64 (2,), :func:`draw_key`).  On CPU
+    tensors the plain version on those uniforms (``engine.hot_step_plain``),
+    on CUDA tensors one launch of the drawing instance of the fused kernel
+    (:func:`entry_point` with ``draw=True``: ``hot_step_draw`` ...
+    ``hot_step_ref_f64_draw``), which draws them itself, or raise.
+    ``step``: the iteration's index in its block, an int in [0, 2^53).
+    Otherwise as :func:`hot_step`; no host sync on the card."""
+    if not (isinstance(step, int) and 0 <= step < 2**53):
+        raise ValueError(f"hot_step_drawn: step must be an int in [0, 2^53), got {step!r}")
+    dt, n = pool.w.dtype, pool.w.shape[0]
+    if pool.w.device.type == "cpu":
+        u_roul, u_x1 = draws.hot_uniforms(key, step, n, dt, device=pool.w.device)
+        return engine.hot_step_plain(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg)
     dev = _cuda_device(pool.w)
-    n = pool.w.shape[0]
+    key = _event_key(None, key, dev)
+    return _hot_launch(entry_point("hot_step", dt, cfg.reference, draw=True), pool, counters,
+                       [key, None], bias_scale, mc, tables, cfg,
+                       [*_hot_scalars(mc, tables, cfg, dev, dt), step])
+
+
+def _hot_launch(name, pool, counters, uniforms, bias_scale, mc, tables, cfg, scal):
+    """Launch the hot step's entry point ``name`` on the pool (its inputs
+    checked), ``uniforms`` in the pointer slots of u_roul and u_x1 and the
+    scalars ``scal``; returns the post-step (pool, counters)."""
+    dev, n = pool.w.device, pool.w.shape[0]
     if n == 0:
         raise ValueError("hot_step: empty pool")
     ref = cfg.reference
     dt, b8, i32 = pool.w.dtype, torch.bool, torch.int32
-    name = entry_point("hot_step", dt, ref)
     nf, nb = (22, 5) if ref else (31, 7)
     fo = torch.empty((nf, n), dtype=dt, device=dev).unbind(0)
     bo = torch.empty((nb, n), dtype=b8, device=dev).unbind(0)
@@ -406,11 +450,10 @@ def hot_step(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg):
         new.update(ev_x=fo[22:26], ev_k=fo[26:30], ev_w=fo[30], ev_pending=bo[5],
                    occupied=bo[6])
     q = pool._replace(**new)
-    ins = _pool_cols(pool) + [pool.occupied, u_roul, u_x1] + ([] if ref else _ev_cols(pool))
-    want = ([t.dtype for t in _pool_cols(q)] + [b8, dt, dt]
+    ins = _pool_cols(pool) + [pool.occupied] + ([] if ref else _ev_cols(pool))
+    want = ([t.dtype for t in _pool_cols(q)] + [b8]
             + ([] if ref else [t.dtype for t in _ev_cols(q)]))
-    _check_lanes("hot_step", ins, want, n, dev,
-                 names=_POOL_IN + ["u_roul", "u_x1"] + ([] if ref else _EV))
+    _check_lanes("hot_step", ins, want, n, dev, names=_POOL_IN + ([] if ref else _EV))
     table = tables.corner_rows if ref else tables.hot_tab
     _check_rows(table, 32 if ref else 44, dev, "corner table", dt)
     if table.shape[0] < mc.n1 * mc.n2:
@@ -423,11 +466,11 @@ def hot_step(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg):
     census = [getattr(counters, c) for c in CENSUS]
     if any(c.dtype != torch.int64 or c.dim() != 0 or c.device != dev for c in census):
         raise ValueError(f"hot_step: census counters must be int64 scalars on {dev}")
-    ptrs = (_pool_cols(pool) + [pool.occupied, u_roul, u_x1, bias_scale, table, hc] + census
+    ptrs = (_pool_cols(pool) + [pool.occupied, *uniforms, bias_scale, table, hc] + census
             + _pool_cols(q))
     if not ref:
         ptrs += _ev_cols(pool) + _ev_cols(q) + [q.occupied]
-    _launch(name, ptrs, _hot_scalars(mc, tables, cfg, dev, dt), n, dev)
+    _launch(name, ptrs, scal, n, dev)
     return q, counters
 
 
@@ -485,9 +528,10 @@ def row_gather(table, idx):
 
 
 def draw_key(gen, device):
-    """Two key words for the event kernel's Philox, drawn from ``gen`` on
-    ``device`` as an int64 tensor that stays there (nothing is read on the
-    host; the generator's state advances as any draw's)."""
+    """Two key words for the event kernels' and the drawing hot step's
+    Philox, drawn from ``gen`` on ``device`` as an int64 tensor that stays
+    there (nothing is read on the host; the generator's state advances as
+    any draw's)."""
     return torch.randint(0, 2**63 - 1, (2,), generator=gen, dtype=torch.int64, device=device)
 
 
@@ -909,6 +953,12 @@ STEP_FIELDS = tuple(("x k dkdlam e_0_s dl_shrink pend_dl pend_push at_event w al
                      "record_pending tau_abs tau_scatt alpha_scatti alpha_absi bi "
                      "interacting sec_w n_step").split())
 EVENT_FIELDS = ("ev_x", "ev_k", "ev_w", "ev_pending", "occupied")
+# The fields of a hot step's output that phase A alone writes (kernel A's,
+# which the card holds to the plain version on every lane): under reference
+# semantics phase B and the epilogue pass at_event and dl_shrink through,
+# in the shipped profile the clamp and the capture may change them.
+PHASE_A_FIELDS = {False: ("record_pending",),
+                  True: ("record_pending", "at_event", "dl_shrink")}
 
 
 def synthetic_step(lanes, dtype, device):
@@ -983,6 +1033,9 @@ KERNEL_TOLERANCE = {
        for s in ROWSUM_STRATEGIES},
     "row_gather_rowloop": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
 }
+# The drawing instances are held as the instances that take their uniforms,
+# against the plain version on draws.hot_uniforms under the same key and step.
+KERNEL_TOLERANCE.update({f"{h}_draw": KERNEL_TOLERANCE[h] for h in HOT_STEPS})
 
 
 def step_d_tau(pool, ref):

@@ -4,6 +4,7 @@
     python3 profile_slice.py            # graph clocks, then phase clocks
     python3 profile_slice.py --trace    # trace windows
     python3 profile_slice.py --reference [--trace]   # reference semantics
+    python3 profile_slice.py [--reference] --graph-only   # graph clocks alone
 
 Runs a cell of ``chip_smoke.py`` (256x256 torus, M = 4e19, seed 123,
 float32, pool 65,536: the shipped profile at 1e5 photons, or with
@@ -35,7 +36,11 @@ window are not the run's.
    phases are also counted inside their parents).  Beside both: the
    pilot's host seconds (it runs before the first wave, on the host
    tracker, outside the device window), and the window of the waves and of
-   each cascade stage (width, hot iterations, CUDA-event seconds).
+   each cascade stage (width, hot iterations, CUDA-event seconds, ms per
+   hot iteration).  ``--graph-only`` stops after the graph clocks (the
+   turns of two versions in one call, where the eager run's minutes buy
+   nothing: a copy of this script placed in another commit's checkout runs
+   that commit's cell the same way).
 2. **Device busy share in trace windows** (``--trace``), on the graphed
    run.  ``torch.profiler`` traces the replays of 64 hot iterations twice:
    in the waves from hot iteration 64 on (full pool; the ramp's first
@@ -238,7 +243,8 @@ def run_cell(root, photon_n, reference, graphed):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     window_ms = stats["device_s"] * 1e3
-    stages = [{"pool": st["pool"], "iters": st["iters"], "device_ms": st["device_s"] * 1e3}
+    stages = [{"pool": st["pool"], "iters": st["iters"], "device_ms": st["device_s"] * 1e3,
+               "ms_per_hot_iter": st["device_s"] * 1e3 / max(1, st["iters"])}
               for st in stats["tail_stages"]]
     out = {"graphed": sim.engine.graphed, "n_created": stats["n_created"],
            "hot_iters": stats["hot_iters"], "full_phases": stats["full_phases"],
@@ -257,6 +263,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true", help="trace windows, not clocks")
     ap.add_argument("--reference", action="store_true", help="the reference-semantics cell")
+    ap.add_argument("--graph-only", action="store_true",
+                    help="the graph clocks alone, without the eager run's phase clocks")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
@@ -331,6 +339,10 @@ def main():
             restore_replays(engine.Engine, saved)
         graphed.update(replay_summary(clocks, graphed["device_window_ms"]))
         result["graphed"] = graphed
+        if args.graph_only:
+            print(card)
+            print(json.dumps(result))
+            return
 
         clocks = {name: [] for name in PHASES + WRAPPERS}
         saved = clock_phases(engine.Engine, clocks)

@@ -215,7 +215,7 @@ def test_trace_changes_nothing_else_on_the_card(dump):
     for name in engine.Counters._fields:
         if name not in MT:
             assert torch.equal(getattr(c0, name), getattr(c1, name)), name
-    assert n0 == n1 and n0["hot_step"] == st0["hot_iters"] > 0
+    assert n0 == n1 and n0["hot_step_draw"] == st0["hot_iters"] > 0
     assert all(not bool(getattr(c0, name).any()) for name in MT)
     print(f"mt_bw {float(c1.mt_bw)} mt_nsc0 {int(c1.mt_nsc0)} max_tau {float(c1.max_tau_scatt)}")
 
