@@ -47,29 +47,35 @@ Phases, each of which exits non-zero on failure:
    of every full phase) on synthetic event lanes
    (``hot_kernels.synthetic_events``: seeded positions and null wave
    vectors through the engine's own fluid, guard, inactive, halved and
-   forced lanes) at the event phase's widths, N = 16,384 and 512, against
-   the plain ``scattering.scatter_event_c`` drawing from
+   forced lanes) at the event phase's widths, N = 16,384, 4,096, 1,024 and 512,
+   against the plain ``scattering.scatter_event_c`` drawing from
    ``draws.PhiloxDraws`` under the kernel's key
-   (``hot_kernels.compare_event``: masks and round counts equal on every
-   active lane but where an acceptance test sat within a few ulps of its
-   threshold, each such lane printed, at most one in 10,000; floats on the
-   lanes made and sampled within rtol 1e-4 of the lane's scale); its
-   ``plain_ms`` is the plain version drawing from a ``torch.Generator``,
-   as the event phase ran before the kernel, its ``bound_ms`` counts the
-   rounds its lanes ran (``event_ops``); the chain kernel
-   (``scatter_chain``) the same way at the scatter-chain probe's 40,000
-   lanes over its (theta_e, k0) grid; the generator's raw words
+   (``hot_kernels.compare_event``): masks and round counts equal on every
+   active lane and floats on the lanes made and sampled bit for bit (a
+   lane that differs is printed and fails the check); each record gives
+   the lanes a warp of the instance the width runs (``lanes``, and
+   ``group`` = 32 / lanes); its ``plain_ms`` is the plain version drawing
+   from a ``torch.Generator``, as the event phase ran before the kernel,
+   its ``bound_ms`` counts the rounds its lanes ran (``event_ops``); the
+   chain kernel (``scatter_chain``) at the scatter-chain probe's 40,000
+   lanes over its (theta_e, k0) grid, held as the event was before
+   (masks and round counts equal but where an acceptance test sat within
+   a few ulps of its threshold, at most one lane in 10,000; floats within
+   rtol 1e-4 of the lane's scale); the generator's raw words
    (``philox_words``) bitwise against the plain version and against
-   ``numpy.random.Philox``.  The track start (``fresh_init``,
-   ``fresh_init_ref``: all of ``Engine.init_fresh``) on synthetic pools
-   (``hot_kernels.synthetic_fresh``: phase 4's lane states, a compacted
-   fresh set with lanes not valid and padded slots; the birth state
-   untraced, as the main path runs, then traced, as phase 14 runs) at the
-   (pool, fresh-set) widths of its path (``hot_kernels.FRESH_WIDTHS``) against
-   ``engine.init_fresh_plain`` (``hot_kernels.compare_fresh``: dk/dlambda,
-   interacting and the birth state bit for bit, every lane outside the
-   valid fresh set unchanged bit for bit, the opacities and the bias within
-   the hot step's tolerance); the event phase's fluid (``event_fluid``) on
+   ``numpy.random.Philox``.  The load and track start (``fresh_init``,
+   ``fresh_init_ref``: refill's row moves and all of
+   ``Engine.init_fresh``, in place) on synthetic pools and refill slots
+   (``hot_kernels.synthetic_fresh``: phase 4's lane states, slots from a
+   partly filled ring and a backlog that runs out, rows with a NaN or a
+   zero weight, padding slots; the birth state untraced, as the main path
+   runs, then traced, as phase 14 runs) at the (pool, slots) widths of its
+   path (``hot_kernels.FRESH_WIDTHS``), on a copy of the pool, against
+   ``engine.init_fresh_plain`` (``hot_kernels.compare_fresh``: every
+   loaded field, dk/dlambda, interacting and the birth state bit for bit,
+   every lane outside the loaded slots unchanged bit for bit, the
+   opacities and the bias within the hot step's tolerance; ``group`` the
+   threads a slot); the event phase's fluid (``event_fluid``) on
    synthetic event lanes at the event phase's widths
    (``hot_kernels.EVENT_FLUID_WIDTHS``) against ``engine.event_fluid_plain``, every
    output within the hot step's tolerance.  Each of these records gives its
@@ -79,7 +85,7 @@ Phases, each of which exits non-zero on failure:
    per hot iteration, the row gather, the event fluid and the event kernel
    of its dtype once per full phase, the track start of its dtype and
    semantics once per full and light phase, no other entry point), no plain
-   hot step, track start or event fluid, and no ``torch.rand`` inside a
+   hot step, load, track start or event fluid, and no ``torch.rand`` inside a
    block (``counting_plain_steps``: it raises there, and the path lines
    count its calls as ``plain_calls["torch.rand_in_block"]``, 0).  The
    kernels line's explicit hot-step records carry ``launches`` null: the
@@ -231,7 +237,12 @@ the same way, which is how two versions are compared in one call.  With
 (no kernels line, no result line); with ``--ab-hot-step DIR`` phases 1
 and 2, then this checkout's hot step against the one of the checkout at
 DIR in turns (float32 at 65,536 lanes with both SASS listings compared,
-float64 at ``AB_F64_WIDTHS``), then the card line; with ``--f64-only``
+float64 at ``AB_F64_WIDTHS``), then the card line; with
+``--ab-phase-kernels DIR`` phases 1 and 2, then this checkout's event
+kernel and load and track start against those of the checkout at DIR in
+turns (``ab_phase_kernels``: each at its path's widths in both dtypes,
+the parent's track start with refill's row moves as torch ops, every
+output bit for bit the parent's), then the card line; with ``--f64-only``
 phases 1, 2 and 12 (and phase 12b's float32 run of the same setup in
 place of phase 8's) and prints the card line and the kernels line (no
 result line).
@@ -299,7 +310,7 @@ W_PROBE = 32
 # The event kernel's checks: the event phase's compacted widths (ev_k at the
 # pool of 65,536, and the cascade's and the gate's), and the chain kernel's
 # lanes, the scatter-chain probe's photons a cell.
-EVENT_WIDTHS = {"float32": (16384, 512), "float64": (16384, 1024, 512)}
+EVENT_WIDTHS = (16384, 4096, 1024, 512)
 CHAIN_N = 40000
 # The event kernels' work, counted by hand from csrc/scatter_event.cu, as
 # float operations (every add, multiply, compare-select, division, square
@@ -357,15 +368,19 @@ TOLERANCE = {
                         f"field bit for bit {name}'s on those uniforms")
        for name in ("hot_step", "hot_step_ref", "hot_step_f64", "hot_step_ref_f64")},
     **{name: ("against the plain version on draws.PhiloxDraws under the same key: masks and "
-              "round counts equal on every active lane but where an acceptance test sat "
+              "round counts equal on every active lane, floats on the lanes made and sampled "
+              "bit for bit")
+       for name in ("scatter_event", "scatter_event_f64")},
+    **{name: ("against the plain version on draws.PhiloxDraws under the same key: masks and "
+              "round counts equal on every lane but where an acceptance test sat "
               "within 16 ulps of its threshold, at most one lane in 10,000; floats on the "
-              f"lanes made and sampled within rtol {rtol} of the lane's scale")
-       for name, rtol in (("scatter_event", "1e-4"), ("scatter_event_f64", "1e-11"),
-                          ("scatter_chain", "1e-4"), ("scatter_chain_f64", "1e-11"))},
+              f"lanes accepted within rtol {rtol} of the lane's scale")
+       for name, rtol in (("scatter_chain", "1e-4"), ("scatter_chain_f64", "1e-11"))},
     "philox_words": "bitwise equal to the plain version and to numpy.random.Philox",
-    **{name: ("dk/dlambda, interacting and the birth state bitwise equal on the valid fresh "
-              "lanes, every other lane's fields bitwise unchanged; alpha_scatti, alpha_absi "
-              f"and bi within rtol {rtol} atol {atol} on the valid fresh lanes")
+    **{name: ("on a copy of the pool, updated in place: every loaded field, dk/dlambda, "
+              "interacting and the birth state bitwise equal on the loaded lanes, every other "
+              "lane's fields bitwise unchanged; alpha_scatti, alpha_absi and bi within rtol "
+              f"{rtol} atol {atol} on the started lanes")
        for name, rtol, atol in (("fresh_init", "1e-4", "1e-6"), ("fresh_init_ref", "1e-4", "1e-6"),
                                 ("fresh_init_f64", "1e-11", "1e-30"),
                                 ("fresh_init_ref_f64", "1e-11", "1e-30"))},
@@ -667,18 +682,9 @@ def ab_hot_step(root, sims, other, usage, ref_stall_steps, turns=2):
 
     from grmonty_tpu_torch.transport import engine, hot_kernels, profiles
 
-    src = os.path.join(other, "grmonty_tpu_torch", "csrc", "hot_step.cu")
-    lib_path = os.path.join(root, "build", "grmonty_tpu_torch", "ab_other_hot_step.so")
-    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    out = subprocess.run([nvcc, *hot_kernels.NVCC_FLAGS, "-o", lib_path, src],
-                         capture_output=True, text=True)
-    if out.returncode != 0:
-        fail(f"ab: nvcc failed for {src}:\n{out.stdout}{out.stderr}")
-    other_usage = {hot_step_variant(f): v for f, v in ptxas_usage(out.stdout + out.stderr).items()
-                   if hot_step_variant(f)}
+    lib, usage_other, lib_path = build_other(root, other, "hot_step")
+    other_usage = {hot_step_variant(f): v for f, v in usage_other.items() if hot_step_variant(f)}
     this_usage = {hot_step_variant(f): v for f, v in usage.items() if hot_step_variant(f)}
-    lib = ctypes.CDLL(lib_path)
     mine_sass = {hot_step_variant(f): v for path in hot_kernels._Build.paths
                  for f, v in sass_listing(path).items() if hot_step_variant(f)}
     other_sass = {hot_step_variant(f): v for f, v in sass_listing(lib_path).items()
@@ -747,6 +753,151 @@ def ab_hot_step(root, sims, other, usage, ref_stall_steps, turns=2):
                 print(f"ab {name}@{n}: {json.dumps(rec)}")
                 if not (rec["this"]["census_equal"] and rec["other"]["census_equal"]):
                     fail(f"ab {name}@{n}: a census differs from the plain version's")
+
+
+# --ab-phase-kernels: the event's lanes a warp and the track start's
+# threads a slot that each side is timed at besides the width's own
+AB_EVENT_LANES = (32, 8, 1)
+AB_FRESH_GROUPS = (1, 4, 8)
+AB_REPS = 10  # the parent's load and start is some 60 launches a call
+
+
+def build_other(root, other, stem):
+    """Build the checkout ``other``'s ``csrc/<stem>.cu`` with this build's
+    flags (and its own headers) into build/grmonty_tpu_torch/; returns the
+    loaded library, {kernel function: ptxas registers and spills} and the
+    library's path."""
+    import ctypes
+
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    src = os.path.join(other, "grmonty_tpu_torch", "csrc", f"{stem}.cu")
+    lib_path = os.path.join(root, "build", "grmonty_tpu_torch", f"ab_other_{stem}.so")
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    out = subprocess.run([nvcc, *hot_kernels.NVCC_FLAGS, "-I", os.path.dirname(src), "-o",
+                          lib_path, src], capture_output=True, text=True)
+    if out.returncode != 0:
+        fail(f"ab: nvcc failed for {src}:\n{out.stdout}{out.stderr}")
+    return ctypes.CDLL(lib_path), ptxas_usage(out.stdout + out.stderr), lib_path
+
+
+def ab_phase_kernels(root, sims, other, usage, turns=2):
+    """``--ab-phase-kernels``: this checkout's event kernel and load and
+    track start against those of the checkout at ``other`` (its
+    ``csrc/scatter_event.cu`` and ``csrc/fresh_init.cu`` built with this
+    build's flags), in float32 and float64 (``sims``), by device time a
+    call in turns (this, other, this's other shapes, other, this; ``turns``
+    times).  The event at EVENT_WIDTHS on phase 4's synthetic events, this
+    side at the width's own lanes a warp and at each of AB_EVENT_LANES,
+    every output bit for bit the other's.  The load and start at each
+    semantics' FRESH_WIDTHS on phase 4's synthetic pools (untraced), this
+    side one launch in place (the width's threads a slot and each of
+    AB_FRESH_GROUPS), the other side refill's row moves as the torch ops
+    they were (``engine.refill_load_plain``) and then its kernel on the
+    fresh set they leave, every field bit for bit the other's.  Prints one
+    line per kernel and width; fails where an output differs."""
+    import ctypes
+
+    import torch
+
+    from grmonty_tpu_torch.tools import clock_phase_kernels
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    ev_lib, ev_usage, _ = build_other(root, other, "scatter_event")
+    fr_lib, fr_usage, _ = build_other(root, other, "fresh_init")
+
+    def fn_of(lib, name):
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = hot_kernels._Build.fns[name].argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    def turns_of(sides):
+        ms = {k: [] for k in sides}
+        order = ["this", "other"] + [k for k in sides if k not in ("this", "other")]
+        for _ in range(turns):
+            for k in order + ["other", "this"]:
+                ms[k].append(cuda_ms(sides[k], reps=AB_REPS, queued=True))
+        return ms
+
+    for sim in sims:
+        mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, sim.cfg.dtype
+        typ = "d" if dt == torch.float64 else "f"
+        name = hot_kernels.entry_point("scatter_event", dt)
+        theirs = fn_of(ev_lib, name)
+        ours = hot_kernels._Build.fns[name]
+        for n in EVENT_WIDTHS:
+            _, k, fl, g7, active, force, _ = hot_kernels.synthetic_events(sim.engine, n, 2026)
+            key = torch.tensor([0x5EED0000 + n, 0xC0FFEE], dtype=torch.int64, device=dev)
+
+            def event(lanes=None, fn=ours):
+                hot_kernels._Build.fns[name] = fn
+                try:
+                    return hot_kernels.scatter_event(k, fl, g7, mc.b_unit, active, force,
+                                                     key=key, lanes=lanes)
+                finally:
+                    hot_kernels._Build.fns[name] = ours
+
+            want = event(fn=theirs)
+            sides = {"this": event, "other": lambda: event(fn=theirs),
+                     **{f"lanes{L}": (lambda L=L: event(L)) for L in AB_EVENT_LANES}}
+            differ = {}
+            for side, fn in sides.items():
+                got = fn()
+                torch.cuda.synchronize()
+                bad = torch.zeros(n, dtype=torch.bool, device=dev)
+                for f, a in hot_kernels._flat(want._asdict()).items():
+                    bad |= ~hot_kernels._same_bits(a, hot_kernels._flat(got._asdict())[f])
+                differ[side] = int(bad.sum())
+            rec = {"name": name, "n": n, **hot_kernels.event_shape(name, n),
+                   "rounds": [int(want.rounds_el.sum()), int(want.rounds_sc.sum()),
+                              int(want.rounds_el.max()), int(want.rounds_sc.max())],
+                   "lanes_differing": differ, "device_ms": turns_of(sides),
+                   "ptxas": {side: {f: v for f, v in use.items()
+                                    if f"scatter_event_kernelI{typ}" in f}
+                             for side, use in (("this", usage), ("other", ev_usage))}}
+            print(f"ab {name}@{n}: {json.dumps(rec)}")
+            if any(differ.values()):
+                fail(f"ab {name}@{n}: outputs differ from the other checkout's: {differ}")
+
+        for reference in (False, True):
+            name = hot_kernels.entry_point("fresh_init", dt, reference)
+            theirs = fn_of(fr_lib, name)
+            for n, k in hot_kernels.FRESH_WIDTHS[reference]:
+                pool, load, den, cfg = hot_kernels.synthetic_fresh(
+                    mc, n, k, 2031 + k, dt, dev, reference=reference, trace_birth=False)
+                work = engine.clone_pool(pool)
+
+                def other_side():
+                    return clock_phase_kernels.launch_before_fold(theirs, pool, load, den, mc,
+                                                                  tabs, cfg)
+
+                def this_side(group=None):
+                    return hot_kernels.fresh_init(work, load, den, mc, tabs, cfg, group=group)
+
+                want = other_side()
+                sides = {"this": this_side, "other": other_side,
+                         **{f"group{g}": (lambda g=g: this_side(g)) for g in AB_FRESH_GROUPS}}
+                differ = {}
+                for side, fn in sides.items():
+                    got = fn()
+                    torch.cuda.synchronize()
+                    flat_w, flat_g = (hot_kernels._flat(p._asdict()) for p in (want, got))
+                    differ[side] = {f: int((~hot_kernels._same_bits(a, flat_g[f])).sum())
+                                    for f, a in flat_w.items()
+                                    if not bool(hot_kernels._same_bits(a, flat_g[f]).all())}
+                loaded, started = hot_kernels.fresh_lanes(pool, load)
+                rec = {"name": name, "n": n, "k": k, **hot_kernels.fresh_shape(name, k),
+                       "lanes_loaded": int(loaded.sum()), "lanes_fresh": int(started.sum()),
+                       "fields_differing": differ, "device_ms": turns_of(sides),
+                       "ptxas": {side: {f: v for f, v in use.items()
+                                        if f"fresh_init_kernelILb{int(reference)}E{typ}" in f}
+                                 for side, use in (("this", usage), ("other", fr_usage))}}
+                print(f"ab {name}@{n}x{k}: {json.dumps(rec)}")
+                if any(differ.values()):
+                    fail(f"ab {name}@{n}x{k}: outputs differ from the other checkout's: "
+                         f"{differ}")
 
 
 def hot_step_checks(sim, usage, sass, ref_stall_steps, n=N_CHECK):
@@ -939,18 +1090,41 @@ def kernel_checks(sim, usage, sass, ref_stall_steps):
         sim, usage)
 
 
-def fresh_checks(sim, usage):
-    """Phase 4d (and 12a): the track start of each semantics in ``sim``'s
-    dtype against ``engine.init_fresh_plain`` at its path's
-    ``hot_kernels.FRESH_WIDTHS`` on synthetic pools
-    (``hot_kernels.synthetic_fresh``), held by ``hot_kernels.compare_fresh``:
-    at each width with the birth state untraced, as phases 5, 6, 10 and 12
-    run it, then traced, as phase 14 runs it (``name+trace``).  Returns
-    each semantics' untraced record at its first width; prints the
-    others."""
+def fresh_moved_bytes(pool, load, ref, table, tabs, den, mc, trace):
+    """The bytes a load and start on ``pool`` must move, each once: every
+    slot's lane and load flag; a loaded slot's source, its index and its
+    row, and the 32 fields it writes; a started lane's 8 start fields (17
+    traced) and the corner rows its cell touches (``ref``: the plain
+    result); the surface and the denominator."""
     import torch
 
     from grmonty_tpu_torch.ops import fluid
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    t = pool.w.element_size()
+    loaded, started = hot_kernels.fresh_lanes(pool, load)
+    n_loaded, n_started = int(loaded.sum()), int(started.sum())
+    cells = torch.unique(fluid.cell_index_c(ref.x[1][started], ref.x[2][started], mc))
+    return (load.sidx.shape[0] * (8 + 1) + n_loaded * (1 + 8 + 16 * t + 23 * t + 4 * 4 + 5)
+            + n_started * ((7 + (9 if trace else 0)) * t + 1)
+            + cells.numel() * table.shape[1] * table.element_size()
+            + nbytes(tabs.hc_coeffs, den))
+
+
+def fresh_checks(sim, usage):
+    """Phase 4d (and 12a): the load and track start of each semantics in
+    ``sim``'s dtype against ``engine.init_fresh_plain`` at its path's
+    ``hot_kernels.FRESH_WIDTHS`` on synthetic pools and refill slots
+    (``hot_kernels.synthetic_fresh``), held by ``hot_kernels.compare_fresh``
+    (every loaded field, dk/dlambda, interacting and the birth state
+    bitwise, the lanes outside the loaded slots bitwise as they were, the
+    opacities and the bias at the hot step's tolerance): at each width with
+    the birth state untraced, as phases 5, 6, 10 and 12 run it, then
+    traced, as phase 14 runs it (``name+trace``).  The kernel updates a copy
+    of the pool in place.  Returns each semantics' untraced record at its
+    first width; prints the others."""
+    import torch
+
     from grmonty_tpu_torch.transport import engine, hot_kernels
 
     mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, sim.cfg.dtype
@@ -958,45 +1132,41 @@ def fresh_checks(sim, usage):
     for reference in (False, True):
         name = hot_kernels.entry_point("fresh_init", dt, reference)
         table = tabs.corner_rows if reference else tabs.hot_tab
-        inst = f"fresh_init_kernelILb{int(reference)}E{'d' if dt == torch.float64 else 'f'}E"
-        ptx = next((v for f, v in usage.items() if inst in f), None)
         for j, (n, k) in enumerate(hot_kernels.FRESH_WIDTHS[reference]):
+            group = hot_kernels.fresh_shape(name, k)["group"]
+            inst = (f"fresh_init_kernelILb{int(reference)}E{'d' if dt == torch.float64 else 'f'}"
+                    f"Li{group}E")
+            ptx = next((v for f, v in usage.items() if inst in f), None)
             for trace in (False, True):
-                pool, fresh, den, cfg = hot_kernels.synthetic_fresh(
+                pool, load, den, cfg = hot_kernels.synthetic_fresh(
                     mc, n, k, 2031 + k, dt, dev, reference=reference, trace_birth=trace)
+                work = engine.clone_pool(pool)
+
                 def plain():
-                    return engine.init_fresh_plain(pool, fresh, den, mc, tabs, cfg)
+                    return engine.init_fresh_plain(pool, load, den, mc, tabs, cfg)
 
                 def kern():
-                    return hot_kernels.fresh_init(pool, fresh, den, mc, tabs, cfg)
+                    return hot_kernels.fresh_init(work, load, den, mc, tabs, cfg)
 
                 ref, got = plain(), kern()
                 torch.cuda.synchronize()
-                rec, fails = hot_kernels.compare_fresh(name, pool, fresh, ref, got)
-                valid, sidx = fresh
-                lanes = sidx[valid]
-                # the bytes: a kept lane reads and writes its fields once, a
-                # valid fresh lane writes them and reads its x1, x2, k and w
-                # (traced, x0 and x3 too); the rows the fresh lanes' cells
-                # touch, the fresh set, the surface, the denominator
-                kept = [getattr(pool, f) for f in hot_kernels.FRESH_FIELDS + ("bx", "bk", "bw")]
-                fresh_n = rec["lanes_fresh"]
-                cells = torch.unique(fluid.cell_index_c(pool.x[1][lanes], pool.x[2][lanes], mc))
-                moved = ((2 * n - fresh_n) * nbytes(kept) // n
-                         + nbytes(valid, sidx, tabs.hc_coeffs, den)
-                         + fresh_n * (9 if trace else 7) * pool.w.element_size()
-                         + cells.numel() * table.shape[1] * table.element_size())
+                rec, fails = hot_kernels.compare_fresh(name, pool, load, ref, got)
+                if got is not work:
+                    fails.append("the kernel's pool is not the one it was given")
+                moved = fresh_moved_bytes(pool, load, ref, table, tabs, den, mc, trace)
                 extra = {**rec, "k": k, "trace_birth": trace, "ptxas": ptx, "library_ms": None,
-                         "library_device_ms": None}
+                         "library_device_ms": None, "group": group}
                 label = f"{name}{'+trace' if trace else ''}"
                 if n == N_CHECK and (j or trace):  # time_kernel adds "@n" to the others' names
                     extra["name"] = f"{label}@{n}x{k}"
                 elif trace:
                     extra["name"] = label
                 full = time_kernel(name, {}, {}, plain, kern, moved,
-                                   ops=FRESH_OPS[reference] * fresh_n, n=n, extra=extra)
-                print(f"  {label}@{n}x{k}: {fresh_n} fresh lanes ({rec['lanes_plasma']} in "
-                      f"plasma) of {k} slots on {n}; bi bitwise {rec['bi_bitwise']}; ptxas {ptx}")
+                                   ops=FRESH_OPS[reference] * rec["lanes_fresh"], n=n,
+                                   extra=extra)
+                print(f"  {label}@{n}x{k}: {rec['lanes_loaded']} loaded lanes, "
+                      f"{rec['lanes_fresh']} started ({rec['lanes_plasma']} in plasma) of {k} "
+                      f"slots on {n}; group {group}; bi bitwise {rec['bi_bitwise']}; ptxas {ptx}")
                 if fails:
                     fail(f"{label}@{n}x{k} disagrees with its plain version: " + "; ".join(fails))
                 if j == 0 and not trace:
@@ -1087,8 +1257,9 @@ def event_checks(sim, usage):
         for row in rows:
             print(f"  {name}@{n}: a lane near a threshold differs: {json.dumps(row)}")
         flops, int_ops = ops
-        inst = ("scatter_chain_kernelI" if "chain" in name else "scatter_event_kernelI") + (
-            "dE" if dtn == "float64" else "fE")
+        typ = "d" if dtn == "float64" else "f"
+        inst = (f"scatter_chain_kernelI{typ}E" if "chain" in name else
+                f"scatter_event_kernelI{typ}Li{extra['lanes']}E")
         fn = next((f for f in usage if inst in f), None)
         rec.update(extra, flops=flops, int_ops=int_ops, ptxas=usage.get(fn),
                    rounds=[int(res_kern.rounds_el.sum()), int(res_kern.rounds_sc.sum())])
@@ -1101,7 +1272,7 @@ def event_checks(sim, usage):
         return full
 
     name = hot_kernels.entry_point("scatter_event", sim.cfg.dtype)
-    for n in EVENT_WIDTHS[dtn]:
+    for n in EVENT_WIDTHS:
         _, k, fl, g7, active, force, _ = hot_kernels.synthetic_events(eng, n, 2026)
         key = torch.tensor([0x5EED0000 + n, 0xC0FFEE], dtype=torch.int64, device=dev)
         src = draws.PhiloxDraws(key, margins=True)
@@ -1120,8 +1291,12 @@ def event_checks(sim, usage):
                  "deferred": int((active & ~got.sampled).sum())}
         rec = check(name, n, ref, got, src.margin, active, plain, kern, moved,
                     event_ops(got.rounds_el, got.rounds_sc, n),
-                    {"lanes": guard, "library_ms": None, "library_device_ms": None})
-        if n == EVENT_WIDTHS[dtn][0]:
+                    {"guards": guard, "library_ms": None, "library_device_ms": None,
+                     **hot_kernels.event_shape(name, n)})
+        if rec["lanes_differing"] or rec["max_abs_err"] != 0.0:
+            fail(f"{name}@{n} is not bit for bit the plain event on PhiloxDraws: "
+                 f"{rec['lanes_differing']} lanes differ, max_abs_err {rec['max_abs_err']}")
+        if n == EVENT_WIDTHS[0]:
             out.append(rec)
 
     # the chain kernel at the probe's photons, over its grid of cells
@@ -1144,7 +1319,7 @@ def event_checks(sim, usage):
                      event_ops(got.rounds_el, got.rounds_sc, CHAIN_N, chain=True),
                      {"cells": len(cells), "library_ms": None, "library_device_ms": None,
                       # phase 13 launches the float64 chain; no phase the float32 one
-                      "launches": None}))
+                      "launches": None, "lanes": 32, "group": 1}))
 
     if dtn == "float32":
         out.append(philox_check(dev))
@@ -1330,8 +1505,8 @@ def launch_failures(cfg, stats, counts):
 
 
 # The plain versions that a run on the card must not call: the hot step's,
-# the track start's and the event fluid's.
-PLAIN_FNS = ("hot_step_plain", "init_fresh_plain", "event_fluid_plain")
+# the load's and the track start's, and the event fluid's.
+PLAIN_FNS = ("hot_step_plain", "init_fresh_plain", "refill_load_plain", "event_fluid_plain")
 # and what a block on the card must not call: it draws its hot steps'
 # uniforms inside their kernel
 RAND_IN_BLOCK = "torch.rand_in_block"
@@ -1955,6 +2130,10 @@ def main():
                     help="phases 1 and 2, then this checkout's hot step (float32 and "
                          "float64) against the one of the checkout at DIR, in turns; then "
                          "the card line")
+    ap.add_argument("--ab-phase-kernels", metavar="DIR", default=None,
+                    help="phases 1 and 2, then this checkout's event kernel and load and "
+                         "track start (float32 and float64) against those of the checkout "
+                         "at DIR, in turns; then the card line")
     ap.add_argument("--f64-only", action="store_true",
                     help="phases 1, 2 and 12 alone (with the float32 run of phase 12b's "
                          "setup), then the card line and the kernels line")
@@ -2007,6 +2186,12 @@ def main():
         sims = [make_simulation(root, args.photon_n, dtype=dt)
                 for dt in (torch.float32, torch.float64)]
         ab_hot_step(root, sims, args.ab_hot_step, usage, args.ref_stall_steps)
+        print(card)
+        return
+    if args.ab_phase_kernels:
+        sims = [make_simulation(root, args.photon_n, dtype=dt)
+                for dt in (torch.float32, torch.float64)]
+        ab_phase_kernels(root, sims, args.ab_phase_kernels, usage)
         print(card)
         return
     if args.f64_only:

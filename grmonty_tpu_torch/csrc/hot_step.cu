@@ -325,38 +325,6 @@ __device__ __forceinline__ double hotcross_group(double w, double te, const BCon
   return hotcross_out(acc, w, te);
 }
 
-// A copy of 8 bytes from global into shared memory that runs behind the
-// thread (cp.async; `zero`: 8 zero bytes, nothing read), the thread's
-// arrival on a shared-memory barrier once its copies have landed, and the
-// wait for the barrier's first phase: a warp that reaches the wait after
-// every copy landed passes at once, whatever the other warps are doing.
-__device__ __forceinline__ void cp_async8(void *dst, const void *src, bool zero) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
-               "r"(zero ? 0 : 8)
-               : "memory");
-}
-__device__ __forceinline__ void barrier_init(unsigned long long *bar, int count) {
-  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
-  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(b), "r"(count) : "memory");
-}
-__device__ __forceinline__ void cp_async_arrive(unsigned long long *bar) {
-  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(b) : "memory");
-}
-__device__ __forceinline__ void barrier_wait(unsigned long long *bar) {
-  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(b)
-        : "memory");
-  } while (!done);
-}
-
 // A lane's corner row, the W values at table[z * W], into row[], fetched by
 // the warp: its 32 rows are staged in shared memory (`stage`, 32 rows at a
 // pitch of an odd number of 16-byte units), neighbouring lanes loading one

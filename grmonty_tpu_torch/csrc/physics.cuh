@@ -22,6 +22,8 @@
 //     (cheb.hotcross_eval, scalar form), K2, synch and B_nu
 //     (alpha_abs: radiation.alpha_inv_abs_sin_c) and the bias clamp
 //     (engine.bias_func);
+//   - the staging of a table in shared memory by cp.async, its copies'
+//     arrival on a shared-memory barrier and the wait for it;
 //   - the lanes' random numbers: Philox4x64-10 (philox), a word as a
 //     uniform (unif) and the samplers of the counter's second word
 //     (ops/draws.py, whose PhiloxDraws and hot_uniforms are their plain
@@ -686,6 +688,48 @@ __device__ __forceinline__ T hotcross(T w, T te, const BConst<T> &C,
   const T cold = hc_klein_nishina(w) * T(SIGMA_T_D);
   const T out = (te < T(1.0e-4)) ? cold : interp;
   return (w * te < T(1.0e-6)) ? T(SIGMA_T_D) : out;
+}
+
+// ---------------------------------------------------------------------------
+// staging in shared memory behind the thread (hot_step.cu, fresh_init.cu)
+// ---------------------------------------------------------------------------
+
+// A copy of 8 (or 4) bytes from global into shared memory that runs behind
+// the thread (cp.async; `zero`: zero bytes, nothing read), the thread's
+// arrival on a shared-memory barrier once its copies have landed, and the
+// wait for the barrier's first phase: a warp that reaches the wait after
+// every copy landed passes at once, whatever the other warps are doing.
+__device__ __forceinline__ void cp_async8(void *dst, const void *src, bool zero) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(zero ? 0 : 8)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void *dst, const void *src, bool zero) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(zero ? 0 : 4)
+               : "memory");
+}
+__device__ __forceinline__ void barrier_init(unsigned long long *bar, int count) {
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(b), "r"(count) : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(unsigned long long *bar) {
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(b) : "memory");
+}
+__device__ __forceinline__ void barrier_wait(unsigned long long *bar) {
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b)
+        : "memory");
+  } while (!done);
 }
 
 // ---------------------------------------------------------------------------

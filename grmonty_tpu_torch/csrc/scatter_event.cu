@@ -1,6 +1,7 @@
 // The scatter event of the transport engine's event phase, hand-written for
-// Hopper (sm_90a): one thread a lane, each lane's whole Compton event with
-// its own random numbers, in float (T = float) or double (T = double).
+// Hopper (sm_90a): each lane's whole Compton event with its own random
+// numbers, a warp's threads sharing its lanes' rejection rounds, in float
+// (T = float) or double (T = double).
 //
 // No TPU kernel does this: in the JAX package the event is XLA, the
 // rejection samplers lax.while_loops inside the compiled full phase
@@ -46,10 +47,29 @@
 // (about 140 B in float, 250 B in double: 0.7 and 1.2 us at 16,384 lanes at
 // 3.35 TB/s); its work is the rounds it runs, about 60 operations and three
 // Philox blocks an electron round, 30 and one block a Klein-Nishina round
-// (chip_smoke.py counts them from the round counts).  A lane's rounds vary
-// from 1 to 144, so a warp runs at the pace of its slowest lane; this first
-// version does nothing about that (the rounds are returned for the bound).
+// (chip_smoke.py counts them from the round counts).  A lane runs 1 to 144
+// rounds, and one thread a lane ran each warp at the pace of its slowest
+// lane (37 us at 512 lanes against a 0.02 us bound, PERF.md).
 //
+// Design: the rounds are independent and addressed by the counter, so any
+// thread can run any round of any lane, and a round's acceptance depends on
+// its own draws and the lane's inputs alone.  A warp holds L lanes (32, 8
+// or 1 by the launch's width, event_lanes); thread t computes lane t % L's
+// tetrad and the work between the loops (the same bits as the lane's
+// owner, thread t % L).  Each loop runs in passes (warp_rounds): the
+// threads are dealt over the lanes still sampling, each runs one round and
+// fetches what it needs from the owner by shuffles, a ballot finds each
+// lane's lowest accepted round and a shuffle hands its values to the lane.
+// That is the round the sequential loop stops at, so the outputs and the
+// round counts are those of one thread a lane, bit for bit; `force` (round
+// CAP - 1 accepts) and Thomson's "no accept keeps cos 0" are rules of the
+// round and of the lane, as there.  A lane that accepted gives its threads
+// to the others; the warp's passes follow its lanes' total rounds over 32,
+// not its slowest lane's.  Measured (PERF.md, in turns with one thread a
+// lane on an H100): 20.2 / 43.8 us at 16,384 lanes, 15.6 / 40.3 at 4,096,
+// 12.5 / 37.5 at 1,024, 11.2 / 37.5 at 512 in float; the narrow widths'
+// floor is one lane's chain, its tetrad alone about 5,500 cycles.
+
 // Interface: plain C entry points for ctypes, as hot_step.cu: an array of
 // device pointers in the order the wrapper (transport/hot_kernels.py) lists,
 // an array of double scalars, the lane count and the CUDA stream; each
@@ -242,120 +262,263 @@ __device__ __forceinline__ void dir_about_axis(T ax, T ay, T az, T c_th, T s_th,
   d[2] = c_th * v0z + s_th * (cp * v1z + sp * v2z);
 }
 
-// sample_electron_distr_p_c for one lane: p, ok and the rounds it ran
+// ---- the rounds of a warp's lanes ------------------------------------------
+//
+// A warp holds L lanes (L = 32: one a thread; L < 32: thread t computes lane
+// t % L, the same bits as its owner, thread t % L < L).  A rejection loop's
+// rounds are independent and addressed by the counter (lane, sampler, round,
+// block), so a pass deals the warp's 32 threads over the lanes still
+// sampling: with m of them live, thread t runs round base + t / m of the
+// (t % m)-th live lane, and each lane takes its lowest accepted round, which
+// is the round the sequential loop stops at.  A lane that accepted, hit its
+// cap or samples nothing gives its threads to the others.
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// The place of the j-th set bit (from 0) of a mask with more than j of them.
+__device__ __forceinline__ int nth_set_bit(unsigned mask, int j) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) {
+    const unsigned lo = mask & ((1u << w) - 1u);
+    const int c = __popc(lo);
+    if (j >= c) {
+      j -= c;
+      mask >>= w;
+      pos += w;
+    } else {
+      mask = lo;
+    }
+  }
+  return pos;
+}
+
+// The threads of a pass that run rounds of owner o's lane, `live` the
+// owners still sampling: t = j, j + m, j + 2m, ... for its rank j among m.
+__device__ __forceinline__ unsigned lane_workers(unsigned live, int o) {
+  const int m = __popc(live);
+  const int j = __popc(live & ((1u << o) - 1u));
+  unsigned p = 1u;
+  for (int s = m; s < 32; s <<= 1) p |= p << s;
+  return p << j;
+}
+
+// One rejection loop over the warp's lanes.  `sampling`: whether this
+// thread's lane runs the loop (the same in all threads of a lane); `cap` its
+// rounds at most.  eval(src, r, work, v) runs round r of the lane of owner
+// thread src when `work` (fetching what the round needs from src by
+// shuffles, which every thread reaches) and returns whether it accepts,
+// with the round's NV values in v.  On return, for a sampling lane: whether
+// a round accepted, `val` that round's values (else left as given) and
+// `rounds` the rounds the sequential loop would have run.
+template <int L, int NV, typename T, typename Eval>
+__device__ __forceinline__ bool warp_rounds(bool sampling, int cap, int &rounds, T (&val)[NV],
+                                            Eval eval) {
+  constexpr unsigned OWNERS = L == 32 ? FULL : (1u << L) - 1u;
+  const int t = threadIdx.x & 31, own = t % L;
+  int base = 0;
+  bool acc = false;
+  unsigned live = __ballot_sync(FULL, sampling) & OWNERS;
+  while (live) {
+    const int m = __popc(live);
+    const int src = nth_set_bit(live, t % m);
+    const int r = __shfl_sync(FULL, base, src) + t / m;
+    const int src_cap = __shfl_sync(FULL, cap, src);
+    T v[NV] = {};
+    const bool a = eval(src, r, r < src_cap, v);
+    const unsigned wk = lane_workers(live, own);
+    const int win = __ffs(__ballot_sync(FULL, a) & wk) - 1;
+    const int from = win >= 0 ? win : t;
+    T got[NV];
+#pragma unroll
+    for (int q = 0; q < NV; ++q) got[q] = __shfl_sync(FULL, v[q], from);
+    const int r_win = __shfl_sync(FULL, r, from);
+    if (sampling) {
+      if (win >= 0) {
+        acc = true;
+        sampling = false;
+        rounds = r_win + 1;
+#pragma unroll
+        for (int q = 0; q < NV; ++q) val[q] = got[q];
+      } else {
+        base = min(base + __popc(wk), cap);
+        if (base >= cap) {
+          sampling = false;
+          rounds = cap;
+        }
+      }
+    }
+    live = __ballot_sync(FULL, sampling) & OWNERS;
+  }
+  return acc;
+}
+
+// ---- the lanes' rounds and samplers (ops/proba.py, ops/scattering.py) -------
+
+// What a lane's electron rounds read (sample_electron_distr_p_c): theta_e,
+// the mixture's weights and k_tet^0, computed once by the lane's thread.
 template <typename T>
-__device__ void electron(const Lane &rng, const T k[4], T th, bool force, T p[4], bool &ok,
-                         int &rounds) {
+struct ElConst {
+  T th, sq, c1, c2, c3, k0;
+};
+
+template <typename T>
+__device__ __forceinline__ ElConst<T> electron_consts(T k0, T th) {
   const T pi_3 = T(SQRT_PI_OVER_4_D);
   const T sq = fm::sqrt(T(0.5) * th);
   const T pi_4 = sq * T(0.5);
   const T pi_5 = T(THREE_SQRT_PI_D) * th * T(0.125);
   const T pi_6 = th * sq;
   const T s3 = pi_3 + pi_4 + pi_5 + pi_6;
-  const T c1 = pi_3 / s3, c2 = (pi_3 + pi_4) / s3, c3 = (pi_3 + pi_4 + pi_5) / s3;
-  T gamma = T(1), beta = T(0), mu = T(0);
-  bool acc = false;
-  int r = 0;
-  while (r < CAP_ELECTRON) {
-    const Words a = rng.block(S_ELECTRON, r, 0), b = rng.block(S_ELECTRON, r, 1),
-                c = rng.block(S_ELECTRON, r, 2);
-    const T x1 = unif<T>(a.v[0]);
-    const int dof = x1 < c1 ? 3 : (x1 < c2 ? 4 : (x1 < c3 ? 5 : 6));
-    T n[6];
-    box_muller(unif<T>(a.v[1]), unif<T>(a.v[2]), n[0], n[1]);
-    box_muller(unif<T>(a.v[3]), unif<T>(b.v[0]), n[2], n[3]);
-    box_muller(unif<T>(b.v[1]), unif<T>(b.v[2]), n[4], n[5]);
-    T y2 = n[0] * n[0];
-#pragma unroll
-    for (int i = 1; i < 6; ++i) y2 = y2 + (i < dof ? n[i] * n[i] : T(0));
-    const T y = fm::sqrt(y2 * T(0.5));
-    const T num = fm::sqrt(T(1) + T(0.5) * th * y * y);
-    const T den = T(1) + y * sq;
-    const bool accept_y = unif<T>(b.v[3]) < num / den;
-    const T g = y * y * th + T(1);
-    const T bn = fm::sqrt(T(1) - T(1) / (g * g));
-    const T det = T(1) + T(2) * bn + bn * bn - T(4) * bn * unif<T>(c.v[0]);
-    const T m = clamp((T(1) - fm::sqrt(det)) / (bn + T(1e-30)), T(-1), T(1));
-    const T k_eff = g * (T(1) - bn * m) * k[0];
-    const bool accept_kn = unif<T>(c.v[1]) < sigma_kn_total(k_eff);
-    ++r;
-    if ((accept_y && accept_kn) || (r >= CAP_ELECTRON && force)) {
-      gamma = g;
-      beta = bn;
-      mu = m;
-      acc = true;
-      break;
-    }
-  }
-  rounds = r;
-  ok = acc;
-  const Words d = rng.block(S_ELECTRON_DIR, 0, 0);
-  const T s_th = fm::sqrt(T(1) - mu * mu);
-  const T phi = unif<T>(d.v[0]) * T(2) * T(PI_D);
-  T dir[3];
-  dir_about_axis(k[1], k[2], k[3], mu, s_th, phi, unif<T>(d.v[1]), unif<T>(d.v[2]), dir);
-  const T gb = gamma * beta;
-  p[0] = gamma;
-  p[1] = gb * dir[0];
-  p[2] = gb * dir[1];
-  p[3] = gb * dir[2];
+  return {th, sq, pi_3 / s3, (pi_3 + pi_4) / s3, (pi_3 + pi_4 + pi_5) / s3, k0};
 }
 
-// sample_scattered_photon_c for one lane: k_tet_p, ok and the rounds of the
-// loop it ran (Klein-Nishina where hot, else Thomson)
+// Round r of a lane's electron loop: whether it accepts (round CAP - 1
+// under `force` always does) and its gamma, beta, mu.
 template <typename T>
-__device__ void scattered(const Lane &rng, const T k_tet[4], const T p[4], bool force,
-                          T k_out[4], bool &ok, int &rounds) {
-  T ke[4];
-  boost(k_tet, p, ke);
-  const T ke0 = ke[0];
-  const bool hot = ke0 > T(1.0e-4);
-  T k0p, c_th;
-  ok = true;
-  int r = 0;
+__device__ __forceinline__ bool electron_round(const Lane &rng, const ElConst<T> &C, int r,
+                                               bool force, T (&v)[3]) {
+  const Words a = rng.block(S_ELECTRON, r, 0), b = rng.block(S_ELECTRON, r, 1),
+              c = rng.block(S_ELECTRON, r, 2);
+  const T x1 = unif<T>(a.v[0]);
+  const int dof = x1 < C.c1 ? 3 : (x1 < C.c2 ? 4 : (x1 < C.c3 ? 5 : 6));
+  T n[6];
+  box_muller(unif<T>(a.v[1]), unif<T>(a.v[2]), n[0], n[1]);
+  box_muller(unif<T>(a.v[3]), unif<T>(b.v[0]), n[2], n[3]);
+  box_muller(unif<T>(b.v[1]), unif<T>(b.v[2]), n[4], n[5]);
+  T y2 = n[0] * n[0];
+#pragma unroll
+  for (int i = 1; i < 6; ++i) y2 = y2 + (i < dof ? n[i] * n[i] : T(0));
+  const T y = fm::sqrt(y2 * T(0.5));
+  const T num = fm::sqrt(T(1) + T(0.5) * C.th * y * y);
+  const T den = T(1) + y * C.sq;
+  const bool accept_y = unif<T>(b.v[3]) < num / den;
+  const T g = y * y * C.th + T(1);
+  const T bn = fm::sqrt(T(1) - T(1) / (g * g));
+  const T det = T(1) + T(2) * bn + bn * bn - T(4) * bn * unif<T>(c.v[0]);
+  const T m = clamp((T(1) - fm::sqrt(det)) / (bn + T(1e-30)), T(-1), T(1));
+  const T k_eff = g * (T(1) - bn * m) * C.k0;
+  const bool accept_kn = unif<T>(c.v[1]) < sigma_kn_total(k_eff);
+  v[0] = g;
+  v[1] = bn;
+  v[2] = m;
+  return (accept_y && accept_kn) || (r == CAP_ELECTRON - 1 && force);
+}
+
+// What a hot lane's Klein-Nishina rounds read (sample_scattered_photon_c).
+template <typename T>
+struct KnConst {
+  T k0, k0pmin, envelope;
+};
+
+// Round r of a lane's second loop: Klein-Nishina where hot (the tentative
+// k0'; round CAP_KN - 1 under `force` always accepts), else Thomson (the
+// cosine); whether it accepts.
+template <typename T>
+__device__ __forceinline__ bool second_round(const Lane &rng, bool hot, const KnConst<T> &C, int r,
+                                             bool force, T (&v)[1]) {
+  const Words w = rng.block(hot ? S_KLEIN_NISHINA : S_THOMSON, r, 0);
   if (hot) {
-    const T k0 = clamp_min(ke0, T(1.0e-4));
-    const T k0pmin = k0 / (T(1) + T(2) * k0);
-    const T envelope =
-        T(2) * (T(1) + T(2) * k0 + T(2) * k0 * k0) / (k0 * k0 * (T(1) + T(2) * k0));
-    k0p = k0;
-    bool acc = false;
-    while (r < CAP_KN) {
-      const Words w = rng.block(S_KLEIN_NISHINA, r, 0);
-      const T tent = k0pmin + (k0 - k0pmin) * unif<T>(w.v[0]);
-      const T x1 = envelope * unif<T>(w.v[1]);
-      ++r;
-      if (x1 < klein_nishina(k0, tent) || (r >= CAP_KN && force)) {
-        k0p = tent;
-        acc = true;
-        break;
-      }
-    }
-    ok = acc;
-    c_th = T(1) - T(1) / k0p + T(1) / k0;
-  } else {
-    k0p = ke0;
-    c_th = T(0);
-    while (r < CAP_THOMSON) {
-      const Words w = rng.block(S_THOMSON, r, 0);
-      const T x1 = T(2) * unif<T>(w.v[0]) - T(1);
-      const T x2 = T(0.75) * unif<T>(w.v[1]);
-      ++r;
-      if (x2 < T(0.375) * (T(1) + x1 * x1)) {
-        c_th = x1;
-        break;
-      }
+    const T tent = C.k0pmin + (C.k0 - C.k0pmin) * unif<T>(w.v[0]);
+    const T x1 = C.envelope * unif<T>(w.v[1]);
+    v[0] = tent;
+    return x1 < klein_nishina(C.k0, tent) || (r == CAP_KN - 1 && force);
+  }
+  const T x1 = T(2) * unif<T>(w.v[0]) - T(1);
+  const T x2 = T(0.75) * unif<T>(w.v[1]);
+  v[0] = x1;
+  return x2 < T(0.375) * (T(1) + x1 * x1);
+}
+
+// The samplers of the warp's lanes (sample_electron_distr_p_c, then
+// sample_scattered_photon_c), every thread of the warp taking part: on a
+// lane that samples (`go`) the electron p, the scattered k_out, whether
+// each loop accepted and the rounds each ran; elsewhere ok_el = ok_sc =
+// true, k_out = 0 and no rounds.  `lane` is the lane's counter index.
+template <int L, typename T>
+__device__ __forceinline__ void sample_lanes(uint64_t key0, uint64_t key1, int lane,
+                                             const T k_tet[4], T th, bool force, bool go, T p[4],
+                                             bool &ok_el, int &rounds_el, T k_out[4],
+                                             bool &ok_sc, int &rounds_sc) {
+  // the electron loop: 16 rounds at most
+  const ElConst<T> ec = electron_consts(k_tet[0], th);
+  T el[3] = {T(1), T(0), T(0)};  // gamma, beta, mu where no round accepts
+  rounds_el = 0;
+  const bool acc_el = warp_rounds<L>(go, CAP_ELECTRON, rounds_el, el,
+                                     [&](int src, int r, bool work, T (&v)[3]) {
+    const ElConst<T> c{__shfl_sync(FULL, ec.th, src), __shfl_sync(FULL, ec.sq, src),
+                       __shfl_sync(FULL, ec.c1, src), __shfl_sync(FULL, ec.c2, src),
+                       __shfl_sync(FULL, ec.c3, src), __shfl_sync(FULL, ec.k0, src)};
+    const int ln = __shfl_sync(FULL, lane, src);
+    const bool f = __shfl_sync(FULL, (int)force, src) != 0;
+    return work && electron_round(Lane{key0, key1, (uint64_t)ln}, c, r, f, v);
+  });
+  ok_el = acc_el || !go;
+
+  // the electron's direction about the photon, the photon in its frame
+  const Lane rng{key0, key1, (uint64_t)lane};
+  T ke[4] = {T(0), T(0), T(0), T(0)};
+  KnConst<T> kc{T(0), T(0), T(0)};
+  bool hot = false;
+  if (go) {
+    const T gamma = el[0], beta = el[1], mu = el[2];
+    const Words d = rng.block(S_ELECTRON_DIR, 0, 0);
+    const T s_th = fm::sqrt(T(1) - mu * mu);
+    const T phi = unif<T>(d.v[0]) * T(2) * T(PI_D);
+    T dir[3];
+    dir_about_axis(k_tet[1], k_tet[2], k_tet[3], mu, s_th, phi, unif<T>(d.v[1]),
+                   unif<T>(d.v[2]), dir);
+    const T gb = gamma * beta;
+    p[0] = gamma;
+    p[1] = gb * dir[0];
+    p[2] = gb * dir[1];
+    p[3] = gb * dir[2];
+    boost(k_tet, p, ke);
+    hot = ke[0] > T(1.0e-4);
+    if (hot) {
+      const T k0 = clamp_min(ke[0], T(1.0e-4));
+      kc = {k0, k0 / (T(1) + T(2) * k0),
+            T(2) * (T(1) + T(2) * k0 + T(2) * k0 * k0) / (k0 * k0 * (T(1) + T(2) * k0))};
     }
   }
-  rounds = r;
-  const T s_th = fm::sqrt(fm::fabs(T(1) - c_th * c_th));
-  const Words d = rng.block(S_SCATTER_DIR, 0, 0);
-  const T phi = T(2.0 * PI_D) * unif<T>(d.v[0]);
-  T dir[3];
-  dir_about_axis(ke[1], ke[2], ke[3], c_th, s_th, phi, unif<T>(d.v[1]), unif<T>(d.v[2]), dir);
-  const T kpe[4] = {k0p, k0p * dir[0], k0p * dir[1], k0p * dir[2]};
-  const T p_rev[4] = {p[0], -p[1], -p[2], -p[3]};
-  boost(kpe, p_rev, k_out);
+
+  // the second loop: Klein-Nishina (128 rounds) where hot, else Thomson (16)
+  T sc[1] = {T(0)};
+  rounds_sc = 0;
+  const bool acc_sc = warp_rounds<L>(go, hot ? CAP_KN : CAP_THOMSON, rounds_sc, sc,
+                                     [&](int src, int r, bool work, T (&v)[1]) {
+    const KnConst<T> c{__shfl_sync(FULL, kc.k0, src), __shfl_sync(FULL, kc.k0pmin, src),
+                       __shfl_sync(FULL, kc.envelope, src)};
+    const int ln = __shfl_sync(FULL, lane, src);
+    const bool h = __shfl_sync(FULL, (int)hot, src) != 0;
+    const bool f = __shfl_sync(FULL, (int)force, src) != 0;
+    return work && second_round(Lane{key0, key1, (uint64_t)ln}, h, c, r, f, v);
+  });
+
+  // the scattered direction and the boost back
+  ok_sc = true;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) k_out[j] = T(0);
+  if (go) {
+    T k0p, c_th;
+    if (hot) {  // a lane that never accepts keeps k0' = k0
+      k0p = acc_sc ? sc[0] : kc.k0;
+      ok_sc = acc_sc;
+      c_th = T(1) - T(1) / k0p + T(1) / kc.k0;
+    } else {  // a lane that never accepts keeps cos 0
+      k0p = ke[0];
+      c_th = acc_sc ? sc[0] : T(0);
+    }
+    const T s_th = fm::sqrt(fm::fabs(T(1) - c_th * c_th));
+    const Words d = rng.block(S_SCATTER_DIR, 0, 0);
+    const T phi = T(2.0 * PI_D) * unif<T>(d.v[0]);
+    T dir[3];
+    dir_about_axis(ke[1], ke[2], ke[3], c_th, s_th, phi, unif<T>(d.v[1]), unif<T>(d.v[2]),
+                   dir);
+    const T kpe[4] = {k0p, k0p * dir[0], k0p * dir[1], k0p * dir[2]};
+    const T p_rev[4] = {p[0], -p[1], -p[2], -p[3]};
+    boost(kpe, p_rev, k_out);
+  }
 }
 
 // ---- the kernels ------------------------------------------------------------
@@ -366,16 +529,27 @@ struct Ptrs {
   void *p[NPTRS];
 };
 
+// The lanes a warp and a block of an instance of L lanes a warp, and a
+// thread's lane: blocks of THREADS, warp w's lanes (block's first + w) L +
+// [0, L), thread t computing lane t % L of its warp's, storing if t < L.
+template <int L>
+__device__ __forceinline__ int warp_lane(int &t) {
+  t = threadIdx.x & 31;
+  return (blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5)) * L + t % L;
+}
+
 // scatter_event: pointers k0..3, u_con0..3, b_con0..3, b, theta_e, g7[7],
 // active, force, key[2]; then parent_die, made, sampled (u8), k_sec0..3,
-// e_sec, l_sec (T), rounds_el, rounds_sc (int32).  Scalar: 1 / b_unit.
+// e_sec, l_sec (T), rounds_el, rounds_sc (int32).  Scalars: 1 / b_unit,
+// then the lanes a warp (below 1: by the width, event_lanes).
 constexpr int EVENT_NPTRS = 24 + 11;
 
-template <typename T>
+template <typename T, int L>
 __global__ void __launch_bounds__(THREADS)
     scatter_event_kernel(const Ptrs<EVENT_NPTRS> ptrs, T inv_b_unit, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  int t;
+  const int i0 = warp_lane<L>(t);
+  const int i = i0 < n ? i0 : n - 1;  // past n: lane n - 1's work, no store
   auto in = [&](int j) { return ((const T *)ptrs.p[j])[i]; };
   const T k[4] = {in(0), in(1), in(2), in(3)};
   const T u_con[4] = {in(4), in(5), in(6), in(7)};
@@ -405,15 +579,12 @@ __global__ void __launch_bounds__(THREADS)
   const bool invalid_frame = k_tet[0] > T(1.0e5) || k_tet[0] < T(0) || fm::isnan(k_tet[1]);
   const bool guard = invalid_frame || parent_die || !active;
 
-  T k_tet_p[4] = {T(0), T(0), T(0), T(0)};
-  bool ok_el = true, ok_kn = true;
-  int rounds_el = 0, rounds_sc = 0;
-  if (!guard) {
-    const Lane rng{(uint64_t)key[0], (uint64_t)key[1], (uint64_t)i};
-    T p[4];
-    electron(rng, k_tet, clamp_min(theta_e, T(1e-4)), force, p, ok_el, rounds_el);
-    scattered(rng, k_tet, p, force, k_tet_p, ok_kn, rounds_sc);
-  }
+  T p[4], k_tet_p[4];
+  bool ok_el, ok_kn;
+  int rounds_el, rounds_sc;
+  sample_lanes<L>((uint64_t)key[0], (uint64_t)key[1], i, k_tet, clamp_min(theta_e, T(1e-4)),
+                  force, !guard && i0 < n, p, ok_el, rounds_el, k_tet_p, ok_kn, rounds_sc);
+  if (i0 >= n || t >= L) return;
   T k_sec[4], tmp[4];
   tetrad_to_coordinate(e_con, k_tet_p, k_sec);
   const T flip[4] = {-k_tet_p[0], k_tet_p[1], k_tet_p[2], k_tet_p[3]};
@@ -431,25 +602,27 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // scatter_chain: pointers k_tet0..3, theta_e, force, key[2]; then p_el0..3,
-// k_tet_p0..3 (T), ok_el, ok_kn (u8), rounds_el, rounds_sc (int32).
+// k_tet_p0..3 (T), ok_el, ok_kn (u8), rounds_el, rounds_sc (int32).  Its
+// lanes run as the event kernel's at 32 lanes a warp.
 constexpr int CHAIN_NPTRS = 7 + 12;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     scatter_chain_kernel(const Ptrs<CHAIN_NPTRS> ptrs, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  int t;
+  const int i0 = warp_lane<32>(t);
+  const int i = i0 < n ? i0 : n - 1;
   auto in = [&](int j) { return ((const T *)ptrs.p[j])[i]; };
   const T k_tet[4] = {in(0), in(1), in(2), in(3)};
   const T theta_e = in(4);
   const bool force = ((const uint8_t *)ptrs.p[5])[i] != 0;
   const int64_t *key = (const int64_t *)ptrs.p[6];
-  const Lane rng{(uint64_t)key[0], (uint64_t)key[1], (uint64_t)i};
   T p[4], k_out[4];
   bool ok_el, ok_kn;
   int rounds_el, rounds_sc;
-  electron(rng, k_tet, theta_e, force, p, ok_el, rounds_el);
-  scattered(rng, k_tet, p, force, k_out, ok_kn, rounds_sc);
+  sample_lanes<32>((uint64_t)key[0], (uint64_t)key[1], i, k_tet, theta_e, force, i0 < n, p,
+                   ok_el, rounds_el, k_out, ok_kn, rounds_sc);
+  if (i0 >= n) return;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     ((T *)ptrs.p[7 + j])[i] = p[j];
@@ -473,7 +646,15 @@ __global__ void __launch_bounds__(THREADS)
   for (int j = 0; j < 4; ++j) out[4 * (int64_t)i + j] = (int64_t)w.v[j];
 }
 
-inline unsigned blocks_for(int n) { return (unsigned)((n + THREADS - 1) / THREADS); }
+// The lanes a warp of the event kernel's instance at n lanes: one a thread
+// where the launch fills the card; fewer where it does not, down to one
+// lane a warp (its 16 electron rounds in one pass) at the cascade's and the
+// gate's sets (measured, PERF.md).
+inline int event_lanes(int n) { return n > 4096 ? 32 : (n > 1024 ? 8 : 1); }
+
+inline unsigned blocks_for(int n, int lanes_a_block) {
+  return (unsigned)((n + lanes_a_block - 1) / lanes_a_block);
+}
 
 template <int NPTRS>
 Ptrs<NPTRS> gather_ptrs(void **ptrs) {
@@ -482,18 +663,31 @@ Ptrs<NPTRS> gather_ptrs(void **ptrs) {
   return out;
 }
 
+template <typename T, int L>
+void launch_event_at(void **ptrs, T inv_b_unit, int n, cudaStream_t stream) {
+  scatter_event_kernel<T, L><<<blocks_for(n, THREADS / 32 * L), THREADS, 0, stream>>>(
+      gather_ptrs<EVENT_NPTRS>(ptrs), inv_b_unit, n);
+}
+
 template <typename T>
 int launch_event(void **ptrs, const double *scal, int n, void *stream) {
-  if (n > 0)
-    scatter_event_kernel<T><<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        gather_ptrs<EVENT_NPTRS>(ptrs), (T)scal[0], n);
+  if (n <= 0) return (int)cudaGetLastError();
+  const int lanes = scal[1] >= 1.0 ? (int)scal[1] : event_lanes(n);
+  const T inv = (T)scal[0];
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (lanes) {
+    case 32: launch_event_at<T, 32>(ptrs, inv, n, s); break;
+    case 8: launch_event_at<T, 8>(ptrs, inv, n, s); break;
+    case 1: launch_event_at<T, 1>(ptrs, inv, n, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_chain(void **ptrs, int n, void *stream) {
   if (n > 0)
-    scatter_chain_kernel<T><<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+    scatter_chain_kernel<T><<<blocks_for(n, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
         gather_ptrs<CHAIN_NPTRS>(ptrs), n);
   return (int)cudaGetLastError();
 }
@@ -503,15 +697,17 @@ int launch_chain(void **ptrs, int n, void *stream) {
 extern "C" {
 
 int scatter_event_nptrs() { return EVENT_NPTRS; }
-int scatter_event_nscal() { return 1; }
+int scatter_event_nscal() { return 2; }
 int scatter_event_f64_nptrs() { return EVENT_NPTRS; }
-int scatter_event_f64_nscal() { return 1; }
+int scatter_event_f64_nscal() { return 2; }
 int scatter_chain_nptrs() { return CHAIN_NPTRS; }
 int scatter_chain_nscal() { return 0; }
 int scatter_chain_f64_nptrs() { return CHAIN_NPTRS; }
 int scatter_chain_f64_nscal() { return 0; }
 int philox_words_nptrs() { return 3; }
 int philox_words_nscal() { return 0; }
+int scatter_event_lanes(int n) { return event_lanes(n); }
+int scatter_event_f64_lanes(int n) { return event_lanes(n); }
 
 int scatter_event_launch(void **ptrs, const double *scal, int n, void *stream) {
   return launch_event<float>(ptrs, scal, n, stream);
@@ -531,7 +727,7 @@ int scatter_chain_f64_launch(void **ptrs, const double *, int n, void *stream) {
 
 int philox_words_launch(void **ptrs, const double *, int n, void *stream) {
   if (n > 0)
-    philox_words_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+    philox_words_kernel<<<blocks_for(n, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
         (const int64_t *)ptrs[0], (const int64_t *)ptrs[1], (int64_t *)ptrs[2], n);
   return (int)cudaGetLastError();
 }

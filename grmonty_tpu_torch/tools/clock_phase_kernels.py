@@ -1,0 +1,259 @@
+"""Where a warp's time goes in the event kernel and the track start (card only).
+
+    python3 -m grmonty_tpu_torch.tools.clock_phase_kernels [--dir CHECKOUT]
+        [--dtype float32] [--event-widths 16384,512] [--fresh-widths ...]
+
+Writes copies of ``csrc/scatter_event.cu`` and ``csrc/fresh_init.cu`` (or
+those of the checkout ``--dir``, e.g. the parent's from ``git archive``)
+with ``clock64()`` stamps between the kernels' segments into
+``build/grmonty_tpu_torch/``, builds them with the port's nvcc flags and
+the headers beside each source, and runs them on the synthetic inputs of
+``chip_smoke.py``'s kernel checks on the 256x256 torus: the event kernel
+through ``hot_kernels.scatter_event`` on ``hot_kernels.synthetic_events``
+(seed 2026), the track start on ``hot_kernels.synthetic_fresh`` (seed 2031
++ K) in both semantics, untraced.  Lane 0 of every warp that reaches a
+stamp adds the cycles since its previous stamp to that segment's sum and
+counts itself; each stamp first waits for a value the segment computed,
+so the compiler cannot move the segment's work across it.  The card's
+line, then one JSON line per (kernel, width): each segment's mean cycles
+over the warps that reached it, and the warps, over 20 launches.  Exits
+2 without a card.
+
+Each stamp has anchors in the current sources and in those of the kernels
+before them (one thread a lane; the track start over the pool's lanes,
+copying the kept ones, which took (valid, sidx) and wrote new outputs):
+the first anchor found is used, and a source with none raises.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+
+EVENT_SEGMENTS = ("tetrad+k_tet", "electron rounds", "electron direction+boost",
+                  "KN/Thomson rounds", "scattered direction+boost back+stores")
+FRESH_SEGMENTS = ("search/slots", "staging", "copy/load", "connection+dk", "row fetch+blend",
+                  "kinematics", "surface wait", "hotcross", "k2+synch+b_nu", "bias+stores")
+# (alternative (pattern, replacement)s) of each stamp, in the kernel's order;
+# STAMP(k, v) closes segment k
+_EVENT_STAMPS = [
+    [(r"(  const int i = blockIdx\.x \* blockDim\.x \+ threadIdx\.x;\n  if \(i >= n\) return;\n)"
+      r"(  auto in = )", "\\g<1>  CLK_START();\n\\g<2>"),
+     (r"(  const int i0 = warp_lane<L>\(t\);\n)", "\\g<1>  CLK_START();\n")],
+    [(r"  const bool guard = invalid_frame \|\| parent_die \|\| !active;\n",
+      "\\g<0>  STAMP(0, k_tet[0] + k_tet[3] + e_con[3][3] + e_cov[3][3]);\n")],
+    [(r"  rounds = r;\n  ok = acc;\n", "\\g<0>  STAMP(1, gamma + beta + mu);\n"),
+     (r"  ok_el = acc_el \|\| !go;\n", "\\g<0>  STAMP(1, el[0] + el[1] + el[2]);\n")],
+    [(r"  ok = true;\n  int r = 0;\n", "\\g<0>  STAMP(2, ke0 + p[0] + p[3]);\n"),
+     (r"  // the second loop: Klein-Nishina", "  STAMP(2, ke[0] + p[0] + kc.k0);\n\\g<0>")],
+    [(r"  rounds = r;\n  const T s_th = fm::sqrt\(fm::fabs", "  STAMP(3, c_th + k0p);\n\\g<0>"),
+     (r"  // the scattered direction and the boost back", "  STAMP(3, sc[0]);\n\\g<0>")],
+    [(r"(  \(\(int32_t \*\)ptrs\.p\[34\]\)\[i\] = rounds_sc;\n)\}",
+      "\\g<1>  STAMP(4, 0.0);\n  CLK_WARP();\n}")],
+]
+_FRESH_STAMPS = [
+    [(r"(  const int i = blockIdx\.x \* FRESH_THREADS \+ threadIdx\.x;\n)",
+      "\\g<1>  CLK_START();\n"),
+     (r"(  const int s0 = blockIdx\.x \* \(FRESH_THREADS / G\) \+ threadIdx\.x / G;\n)",
+      "\\g<1>  CLK_START();\n")],
+    [(r"  const bool fresh = slot >= 0 && P\.valid\[slot\];\n", "\\g<0>  STAMP(0, slot);\n"),
+     (r"  const bool load = lane < n && P\.load\[s\];\n", "\\g<0>  STAMP(0, (double)lane);\n")],
+    [(r"(    __syncthreads\(\);\n  \}\n)(  if \(i >= n\) return;\n)",
+      "\\g<1>  STAMP(1, 0.0);\n\\g<2>"),
+     (r"  cp_async_arrive\(&hc_bar\);\n", "\\g<0>  STAMP(1, 0.0);\n")],
+    [(r"(  const T x1 = P\.x1\[i\], x2 = P\.x2\[i\], w = P\.w\[i\];\n)",
+      "  STAMP(2, 0.0);\n\\g<1>"),
+     (r"  // the start\n", "  STAMP(2, row[0] + row[15]);\n\\g<0>")],
+    [(r"    geodesic_rhs\(conn, kk, dk\);\n  \}\n", "\\g<0>  STAMP(3, dk[0] + dk[3]);\n")],
+    [(r"  // the opacities \(Engine\.eval_alphas\) and the bias",
+      "  STAMP(4, n_e + te + b_mag + u_cov[0] + b_cov[3]);\n\\g<0>")],
+    [(r"  const T e_g = T\(HPL_D\) \* nu_safe \* CB\.inv_mecc;\n",
+      "\\g<0>  STAMP(5, e_g + sin_th);\n")],
+    [(r"(  barrier_wait\(&hc_bar\);\n)(  const int first)", "\\g<1>  STAMP(6, 0.0);\n\\g<2>"),
+     (r"(  const bool trace = P\.obw != nullptr;\n)", "\\g<1>")],
+    [(r"  const T a_sc = [^\n]*\n", "\\g<0>  STAMP(7, a_sc);\n")],
+    [(r"  const T a_ab = [^\n]*\n", "\\g<0>  STAMP(8, a_ab);\n")],
+    [(r"(    P\.o?bw\[i\] = w;\n  \}\n)\}", "\\g<1>  STAMP(9, 0.0);\n  CLK_WARP();\n}")],
+]
+_HEAD = """
+__device__ unsigned long long g_clk[16], g_cnt[16];
+__shared__ long long clk_prev[1024];
+#define CLK_START() (clk_prev[threadIdx.x] = clock64())
+#define STAMP(k, v) do { asm volatile("" :: "d"((double)(v)) : "memory"); \\
+  long long t_ = clock64(); \\
+  if ((threadIdx.x & 31) == 0) { \\
+    atomicAdd(&g_clk[k], (unsigned long long)(t_ - clk_prev[threadIdx.x])); \\
+    atomicAdd(&g_cnt[k], 1ull); } \\
+  clk_prev[threadIdx.x] = clock64(); } while (0)
+#define CLK_WARP() do { if ((threadIdx.x & 31) == 0) atomicAdd(&g_clk[15], 1ull); } while (0)
+"""
+_TAIL = """
+extern "C" int clk_read(unsigned long long *out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_clk, sizeof(g_clk));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out + 16, g_cnt, sizeof(g_cnt));
+  return (int)e;
+}
+extern "C" int clk_reset() {
+  unsigned long long z[16] = {0};
+  cudaError_t e = cudaMemcpyToSymbol(g_clk, z, sizeof(z));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_cnt, z, sizeof(z));
+  return (int)e;
+}
+"""
+STAMPS = {"scatter_event": _EVENT_STAMPS, "fresh_init": _FRESH_STAMPS}
+SEGMENTS = {"scatter_event": EVENT_SEGMENTS, "fresh_init": FRESH_SEGMENTS}
+
+
+def stamped(src, kernel):
+    """The source ``src`` of ``kernel`` ("scatter_event" or "fresh_init")
+    with the clock stamps in."""
+    src = src.replace('#include "physics.cuh"\n', '#include "physics.cuh"\n' + _HEAD, 1)
+    for alternatives in STAMPS[kernel]:
+        for pattern, repl in alternatives:
+            src, n = re.subn(pattern, repl, src, count=1)
+            if n == 1:
+                break
+        else:
+            raise ValueError(f"clock_phase_kernels: no anchor {alternatives[0][0]!r} in the "
+                             f"{kernel} source")
+    return src + _TAIL
+
+
+def _build(src_path, kernel, nvcc_flags, build_dir):
+    """Build the stamped copy of ``src_path``; returns the loaded library."""
+    with open(src_path) as f:
+        src = stamped(f.read(), kernel)
+    os.makedirs(build_dir, exist_ok=True)
+    cu = os.path.join(build_dir, f"clock_{kernel}.cu")
+    so = cu[:-3] + ".so"
+    with open(cu, "w") as f:
+        f.write(src)
+    out = subprocess.run(["nvcc", *nvcc_flags, "-I", os.path.dirname(os.path.abspath(src_path)),
+                          "-o", so, cu], capture_output=True, text=True)
+    if out.returncode:
+        raise RuntimeError(f"nvcc failed:\n{out.stdout}{out.stderr}")
+    return ctypes.CDLL(so)
+
+
+def _clocked(lib, segments, launch):
+    """Run ``launch`` once, then 20 times between a reset and a read of
+    the counters: {segment: mean cycles over the warps that reached it},
+    with the warps."""
+    import torch
+
+    buf = (ctypes.c_ulonglong * 32)()
+    launch()
+    torch.cuda.synchronize()
+    lib.clk_reset()
+    for _ in range(20):
+        launch()
+    torch.cuda.synchronize()
+    lib.clk_read(buf)
+    cycles = {s: (buf[k] / buf[16 + k] if buf[16 + k] else None)
+              for k, s in enumerate(segments)}
+    return {"cycles": cycles, "warps": {s: buf[16 + k] // 20 for k, s in enumerate(segments)},
+            "warps_stored": buf[15] // 20}
+
+
+def launch_before_fold(fn, pool, load, den, mc, tabs, cfg):
+    """The track start as it was before it took refill's row moves, on
+    ``load``: the moves as torch ops (``engine.refill_load_plain``), then
+    one launch of that kernel's entry point ``fn`` (a ctypes function) on
+    the fresh set (valid, sidx) they leave, its start fields into new
+    outputs, the birth state off.  Returns the pool it leaves."""
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    p1, (valid, sidx) = engine.refill_load_plain(pool, load)
+    n, dt, dev = p1.w.shape[0], p1.w.dtype, p1.w.device
+    table = tabs.corner_rows if cfg.reference else tabs.hot_tab
+    fo = torch.empty((7, n), dtype=dt, device=dev)
+    inter = torch.empty(n, dtype=torch.bool, device=dev)
+    tensors = ([*p1.x, *p1.k, p1.w, *p1.dkdlam, p1.alpha_scatti, p1.alpha_absi, p1.bi,
+                p1.interacting, valid, sidx, hot_kernels._den_on(den, dev, dt), table,
+                tabs.hc_coeffs, *fo, inter] + [None] * 18)
+    ptrs = (ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr()
+                                             for t in tensors])
+    scal = list(hot_kernels._hot_scalars(mc, tabs, cfg, dev, dt)) + [sidx.shape[0]]
+    sc = (ctypes.c_double * len(scal))(*[float(v) for v in scal])
+    rc = fn(ptrs, sc, n, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"the track start's launch failed: CUDA error {rc}")
+    return p1._replace(dkdlam=tuple(fo[0:4]), alpha_scatti=fo[4], alpha_absi=fo[5], bi=fo[6],
+                       interacting=inter)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dir", default=None, help="the checkout whose kernels to stamp")
+    ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
+    ap.add_argument("--event-widths", default="16384,512")
+    ap.add_argument("--fresh-widths", default="65536x32768,65536x16384,65536x12288,4096x4096,"
+                                              "512x512")
+    args = ap.parse_args(argv)
+    import torch
+
+    from grmonty_tpu_torch.tools import card, require_cuda, validate_accuracy
+    from grmonty_tpu_torch.transport import driver, engine, hot_kernels, profiles
+
+    require_cuda("clock_phase_kernels")
+    print(card(), flush=True)
+    hot_kernels.build()
+    csrc = (os.path.join(args.dir, "grmonty_tpu_torch", "csrc") if args.dir
+            else hot_kernels.CSRC_DIR)
+    dt = getattr(torch, args.dtype)
+    sim = driver.Simulation(validate_accuracy._torus(256, 256), photon_n=20000,
+                            mass_unit=4.0e19, seed=123, device="cuda",
+                            config=profiles.bench_config(pool=65536, dtype=dt))
+    mc, tabs, dev = sim.mc, sim.tables, sim.device
+    build_dir = hot_kernels.BUILD_DIR
+
+    lib = _build(os.path.join(csrc, "scatter_event.cu"), "scatter_event",
+                 hot_kernels.NVCC_FLAGS, build_dir)
+    name = hot_kernels.entry_point("scatter_event", dt)
+    ours = hot_kernels._Build.fns[name]
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes, fn.restype = ours.argtypes, ctypes.c_int
+    for n in (int(w) for w in args.event_widths.split(",")):
+        _, k, fl, g7, active, force, _ = hot_kernels.synthetic_events(sim.engine, n, 2026)
+        key = torch.tensor([0x5EED0000 + n, 0xC0FFEE], dtype=torch.int64, device=dev)
+        try:
+            hot_kernels._Build.fns[name] = fn
+            rec = _clocked(lib, EVENT_SEGMENTS, lambda: hot_kernels.scatter_event(
+                k, fl, g7, mc.b_unit, active, force, key=key))
+        finally:
+            hot_kernels._Build.fns[name] = ours
+        print(json.dumps({"name": name, "n": n, "source": csrc, **rec}), flush=True)
+
+    lib = _build(os.path.join(csrc, "fresh_init.cu"), "fresh_init", hot_kernels.NVCC_FLAGS,
+                 build_dir)
+    for reference in (False, True):
+        name = hot_kernels.entry_point("fresh_init", dt, reference)
+        ours = hot_kernels._Build.fns[name]
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes, fn.restype = ours.argtypes, ctypes.c_int
+        old = getattr(lib, f"{name}_nptrs")() != hot_kernels._ABI[name][0]
+        for width in args.fresh_widths.split(","):
+            n, k = (int(v) for v in width.split("x"))
+            pool, load, den, cfg = hot_kernels.synthetic_fresh(
+                mc, n, k, 2031 + k, dt, dev, reference=reference, trace_birth=False)
+            work = engine.clone_pool(pool)
+            if old:
+                launch = lambda: launch_before_fold(fn, pool, load, den, mc, tabs, cfg)  # noqa: E731
+            else:
+                def launch():
+                    hot_kernels._Build.fns[name] = fn
+                    try:
+                        hot_kernels.fresh_init(work, load, den, mc, tabs, cfg)
+                    finally:
+                        hot_kernels._Build.fns[name] = ours
+            rec = _clocked(lib, FRESH_SEGMENTS, launch)
+            print(json.dumps({"name": name, "n": n, "k": k, "source": csrc, "before_fold": old,
+                              **rec}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -32,7 +32,8 @@ only, as the JAX probes' tables are; the probes that drive them are
 ``grmonty_tpu_torch/tools/``.
 
 ``csrc/scatter_event.cu`` holds the event phase's scatter event as one
-kernel, one thread a lane (:func:`scatter_event`: ``scatter_event`` /
+kernel, a warp's threads sharing its lanes' rejection rounds
+(:func:`scatter_event`: ``scatter_event`` /
 ``scatter_event_f64``): the tetrad, the electron, Klein-Nishina and
 Thomson rejection loops with the lane's own Philox stream, the boosts and
 the secondary's wave vector, which ``ops.scattering.scatter_event_c``
@@ -42,9 +43,10 @@ probe, and :func:`philox_words` writes the generator's raw words.  No TPU
 kernel does this: the JAX package's event phase is XLA
 (``grmonty_tpu/transport/engine.py:2036``).
 
-``csrc/fresh_init.cu`` holds the track start of freshly loaded lanes
-(:func:`fresh_init`: ``fresh_init`` / ``fresh_init_ref`` and their
-``_f64`` instantiations; ``engine.init_fresh_plain``) and
+``csrc/fresh_init.cu`` holds refill's row moves and the track start of
+the lanes they fill, in place on the pool (:func:`fresh_init`:
+``fresh_init`` / ``fresh_init_ref`` and their ``_f64`` instantiations;
+``engine.init_fresh_plain`` on an ``engine.FreshLoad``) and
 ``csrc/event_fluid.cu`` the event phase's fluid, opacities and bias
 (:func:`event_fluid`: ``event_fluid`` / ``event_fluid_f64``;
 ``engine.event_fluid_plain``), each one launch where the plain versions
@@ -194,15 +196,21 @@ _HOT_REF_PTRS = (_POOL_IN + ["u_roul", "u_x1", "bias_scale", "table", "hc"] + CE
                  + ["o" + f for f in _POOL_IN[:-1]])
 _HOT_PTRS = _HOT_REF_PTRS + _EV + ["o" + f for f in _EV] + ["ooccupied"]
 _HOT_NSCAL = len(_A_SCAL) + len(_B_SCAL_HEAD) + _K2_N + 2
-# The track start (the C struct FreshPtrs): the pool's fields it reads, the
-# fresh set, the bias's denominator, the corner table, the hotcross surface,
-# the new fields, the birth state in and out (null when the trace is off).
-# Its scalars: the hot step's, then the fresh set's width.
-_FRESH_IN = "x0 x1 x2 x3 k0 k1 k2 k3 w d0 d1 d2 d3 alpha_scatti alpha_absi bi interacting".split()
-_FRESH_OUT = "d0 d1 d2 d3 alpha_scatti alpha_absi bi interacting".split()
+# The load and track start (the C struct FreshPtrs): the pool's fields the
+# load writes, those the start writes, the birth state (null when the trace
+# is off), all updated in place; refill's slots (engine.FreshLoad): the
+# lanes, the load flags, the sources and their rows; the bias's
+# denominator, the corner table, the hotcross surface.  Its scalars: the
+# hot step's, then the slots and the threads a slot (below 1: by the
+# width).
+_FRESH_LOAD = ("x0 x1 x2 x3 k0 k1 k2 k3 w e l n_e_0 theta_e_0 b_0 e_0 e_0_s x1i x2i tau_abs "
+               "tau_scatt pend_dl dl_shrink sec_w n_scatt nsc0 n_step ev_tries occupied alive "
+               "pend_push at_event record_pending").split()
+_FRESH_START = "d0 d1 d2 d3 alpha_scatti alpha_absi bi interacting".split()
 _BIRTH = "bx0 bx1 bx2 bx3 bk0 bk1 bk2 bk3 bw".split()
-_FRESH_PTRS = (_FRESH_IN + ["valid", "sidx", "bias_den", "table", "hc"]
-               + ["o" + f for f in _FRESH_OUT] + _BIRTH + ["o" + f for f in _BIRTH])
+_FRESH_SLOTS = "sidx load from_sec sec_idx bl_idx sec_rows backlog_rows".split()
+_FRESH_PTRS = (_FRESH_LOAD + _FRESH_START + _BIRTH + _FRESH_SLOTS
+               + ["bias_den", "table", "hc"])
 # The event phase's fluid (FluidPtrs): the raw rows, the lanes' inputs, the
 # bias's denominator, the surface, then its 30 outputs (EventFluid's
 # fields flattened); its scalars the hot step's, then EV_HALVE.
@@ -218,28 +226,34 @@ _ABI = {**{f"hot_step{r}{x}{d}": (len(_HOT_REF_PTRS if r else _HOT_PTRS),
         **{f"gather_rowsum_{s}": (3, 2 if s == "smem" else 1) for s in ROWSUM_STRATEGIES},
         "row_gather_rowloop": (3, 1),
         # the event: k, u_con, b_con, b, theta_e, g7, active, force, key; the
-        # masks, k_sec, e_sec, l_sec, the rounds; the scalar 1 / b_unit
-        **{f"scatter_event{x}": (35, 1) for x in DTYPE_SUFFIX.values()},
+        # masks, k_sec, e_sec, l_sec, the rounds; the scalars 1 / b_unit and
+        # the lanes a warp (0: by the width)
+        **{f"scatter_event{x}": (35, 2) for x in DTYPE_SUFFIX.values()},
         # the chain: k_tet, theta_e, force, key; p_el, k_tet_p, ok_el, ok_kn,
         # the rounds
         **{f"scatter_chain{x}": (19, 0) for x in DTYPE_SUFFIX.values()},
         "philox_words": (3, 0),
-        **{f"fresh_init{r}{x}": (len(_FRESH_PTRS), _HOT_NSCAL + 1)
+        **{f"fresh_init{r}{x}": (len(_FRESH_PTRS), _HOT_NSCAL + 2)
            for r in ("", "_ref") for x in DTYPE_SUFFIX.values()},
         **{f"event_fluid{x}": (len(_FLUID_IN) + _FLUID_OUT, _HOT_NSCAL + 1)
            for x in DTYPE_SUFFIX.values()}}
 
 
-# The hot step's entry points, and their drawing instances.
+# The hot step's entry points, and their drawing instances; the track
+# start's and the event's.
 HOT_STEPS = ("hot_step", "hot_step_ref", "hot_step_f64", "hot_step_ref_f64")
+FRESH_INITS = ("fresh_init", "fresh_init_ref", "fresh_init_f64", "fresh_init_ref_f64")
+SCATTER_EVENTS = ("scatter_event", "scatter_event_f64")
 HOT_DRAWS = tuple(f"{h}_draw" for h in HOT_STEPS)
 # The libraries' int -> int functions: the row counts of csrc/gather_probe.cu's
-# tilings (w -> rows) and the launch shape of each hot-step entry point at n
+# tilings (w -> rows), the launch shape of each hot-step entry point at n
 # lanes (csrc/hot_step.cu: the threads a lane, the threads a block, the
-# blocks an SM of the instance it runs).
+# blocks an SM of the instance it runs), the track start's threads a slot
+# at K slots and the event's lanes a warp at n lanes.
 HOT_SHAPE = ("group", "threads", "blocks_per_sm")
 _INT_FNS = ("gather_rowsum_persistent_pass_rows", "gather_rowsum_rowloop_wave_rows",
-            *(f"{h}_{what}" for h in HOT_STEPS + HOT_DRAWS for what in HOT_SHAPE))
+            *(f"{h}_{what}" for h in HOT_STEPS + HOT_DRAWS for what in HOT_SHAPE),
+            *(f"{f}_group" for f in FRESH_INITS), *(f"{e}_lanes" for e in SCATTER_EVENTS))
 
 
 class _Build:
@@ -535,7 +549,8 @@ def draw_key(gen, device):
     return torch.randint(0, 2**63 - 1, (2,), generator=gen, dtype=torch.int64, device=device)
 
 
-def scatter_event(k, fl, g7, b_unit, active=None, force=None, gen=None, key=None):
+def scatter_event(k, fl, g7, b_unit, active=None, force=None, gen=None, key=None,
+                  lanes=None):
     """The scatter event of ``ops.scattering.scatter_event_c``: on CPU
     tensors that plain version, drawing from ``gen`` (a ``torch.Generator``)
     or, given ``key`` (two int64 words), from ``draws.PhiloxDraws(key)``; on
@@ -548,7 +563,8 @@ def scatter_event(k, fl, g7, b_unit, active=None, force=None, gen=None, key=None
     loops ran (0 on guarded lanes).  On the card a guarded lane (inactive,
     doomed parent, invalid frame) skips its samplers: its ``k_sec``,
     ``e_sec`` and ``l_sec`` are 0, and on an inactive lane ``made`` only
-    says whether the frame was valid.  No host sync."""
+    says whether the frame was valid; ``lanes``: the lanes a warp (32, 8
+    or 1; None: :func:`event_shape` picks by the width).  No host sync."""
     if (gen is None) == (key is None):
         raise ValueError("scatter_event: give exactly one of gen and key")
     if k[0].device.type == "cpu":
@@ -568,7 +584,8 @@ def scatter_event(k, fl, g7, b_unit, active=None, force=None, gen=None, key=None
     bo = torch.empty((3, n), dtype=b8, device=dev)
     fo = torch.empty((6, n), dtype=dt, device=dev)
     io = torch.empty((2, n), dtype=torch.int32, device=dev)
-    _launch(name, ins + [active, force, key, *bo, *fo, *io], [_recip(b_unit, dev, dt)], n, dev)
+    _launch(name, ins + [active, force, key, *bo, *fo, *io],
+            [_recip(b_unit, dev, dt), lanes or 0], n, dev)
     return scattering.ScatterResultC(bo[0], bo[1], tuple(fo[:4]), fo[4], fo[5], bo[2], io[0],
                                      io[1])
 
@@ -638,48 +655,68 @@ def _den_on(bias_den, dev, dt):
     return bias_den.reshape(()).to(dt).contiguous()
 
 
-def fresh_init(pool, fresh, bias_den, mc, tables, cfg):
-    """The track start of refill's freshly loaded lanes (dk/dlambda, the
-    opacities, the bias and ``interacting``; the birth state under
-    ``cfg.trace_birth``): on CPU tensors the plain version
-    (``engine.init_fresh_plain``), on CUDA tensors one launch of the kernel
-    of ``csrc/fresh_init.cu`` that :func:`entry_point` names for
-    ``cfg.reference`` and the pool's dtype (``fresh_init`` /
-    ``fresh_init_ref``, ``_f64`` in float64), or raise.  ``fresh`` =
-    (valid (K,) bool, sidx (K,) int64 ascending, padded with the pool's
-    width), ``bias_den`` the 0-d bias_norm * max_tau * (avg + 2).  Returns
-    the pool with the start's fields new tensors and every other field the
-    old one; no host sync."""
+def fresh_init(pool, load, bias_den, mc, tables, cfg, group=None):
+    """Refill's row moves and the track start of the lanes they fill
+    (``engine.FreshLoad`` ``load``: the rows' fields, then dk/dlambda, the
+    opacities, the bias and ``interacting`` of the valid ones; the birth
+    state under ``cfg.trace_birth``): on CPU tensors the plain version
+    (``engine.init_fresh_plain``, which returns a new pool); on CUDA
+    tensors one launch of the kernel of ``csrc/fresh_init.cu`` that
+    :func:`entry_point` names for ``cfg.reference`` and the pool's dtype
+    (``fresh_init`` / ``fresh_init_ref``, ``_f64`` in float64), which
+    updates ``pool``'s tensors in place and returns ``pool``, or raise.
+    ``bias_den``: the 0-d bias_norm * max_tau * (avg + 2); ``group``: the
+    threads a slot (None: :func:`fresh_shape` picks by the width).  No
+    host sync."""
     if pool.w.device.type == "cpu":
-        return engine.init_fresh_plain(pool, fresh, bias_den, mc, tables, cfg)
+        return engine.init_fresh_plain(pool, load, bias_den, mc, tables, cfg)
+    if not isinstance(load, engine.FreshLoad):
+        raise ValueError("fresh_init on the card takes refill's slots (engine.FreshLoad)")
     dev, dt, n = _cuda_device(pool.w), pool.w.dtype, pool.w.shape[0]
     name = entry_point("fresh_init", dt, cfg.reference)
-    valid, sidx = fresh
-    k = valid.shape[0]
-    ins = [*pool.x, *pool.k, pool.w, *pool.dkdlam, pool.alpha_scatti, pool.alpha_absi, pool.bi,
-           pool.interacting]
+    k = load.sidx.shape[0]
+    i32, b8 = torch.int32, torch.bool
+    fields = [*pool.x, *pool.k, pool.w, pool.e, pool.l, pool.n_e_0, pool.theta_e_0, pool.b_0,
+              pool.e_0, pool.e_0_s, pool.x1i, pool.x2i, pool.tau_abs, pool.tau_scatt,
+              pool.pend_dl, pool.dl_shrink, pool.sec_w, pool.n_scatt, pool.nsc0, pool.n_step,
+              pool.ev_tries, pool.occupied, pool.alive, pool.pend_push, pool.at_event,
+              pool.record_pending, *pool.dkdlam, pool.alpha_scatti, pool.alpha_absi, pool.bi,
+              pool.interacting]
     birth = [*pool.bx, *pool.bk, pool.bw] if cfg.trace_birth else []
-    _check_lanes(name, ins + birth, [dt] * 16 + [torch.bool] + [dt] * len(birth), n, dev,
-                 names=_FRESH_IN + _BIRTH[:len(birth)])
-    _check_lanes(f"{name} fresh set", [valid, sidx], [torch.bool, torch.int64], k, dev,
-                 names=["valid", "sidx"])
+    types = [dt] * 23 + [i32] * 4 + [b8] * 5 + [dt] * 7 + [b8] + [dt] * len(birth)
+    _check_lanes(name, fields + birth, types, n, dev,
+                 names=_FRESH_LOAD + _FRESH_START + _BIRTH[:len(birth)])
+    if len({t.data_ptr() for t in fields + birth}) != len(fields + birth):
+        raise ValueError(f"{name}: two of the pool's fields share memory (updated in place)")
+    _check_lanes(f"{name} slots", [load.sidx, load.load, load.from_sec, load.sec_idx,
+                                   load.bl_idx], [torch.int64, b8, b8, torch.int64, torch.int64],
+                 k, dev, names=_FRESH_SLOTS[:5])
+    _check_rows(load.sec_rows, engine.ROW_WIDTH, dev, "ring rows", dt)
+    _check_rows(load.backlog_rows, engine.ROW_WIDTH, dev, "backlog rows", dt)
     table = tables.corner_rows if cfg.reference else tables.hot_tab
     _check_rows(table, 32 if cfg.reference else 44, dev, "corner table", dt)
     if table.shape[0] < mc.n1 * mc.n2:
         raise ValueError(f"corner table: {table.shape[0]} rows for {mc.n1}x{mc.n2} cells")
     _check_hc(tables.hc_coeffs, dt, dev)
-    fo = torch.empty((7, n), dtype=dt, device=dev).unbind(0)
-    inter = torch.empty(n, dtype=torch.bool, device=dev)
-    bo = list(torch.empty((9, n), dtype=dt, device=dev).unbind(0)) if birth else [None] * 9
-    ptrs = (ins + [valid, sidx, _den_on(bias_den, dev, dt), table, tables.hc_coeffs]
-            + list(fo) + [inter] + (birth or [None] * 9) + bo)
-    scal = list(_hot_scalars(mc, tables, cfg, dev, dt)) + [k]
+    ptrs = (fields + (birth or [None] * 9) + list(load[:5]) + [load.sec_rows, load.backlog_rows]
+            + [_den_on(bias_den, dev, dt), table, tables.hc_coeffs])
+    scal = list(_hot_scalars(mc, tables, cfg, dev, dt)) + [k, group or 0]
     _launch(name, ptrs, scal, n, dev)
-    new = dict(dkdlam=tuple(fo[0:4]), alpha_scatti=fo[4], alpha_absi=fo[5], bi=fo[6],
-               interacting=inter)
-    if birth:
-        new.update(bx=tuple(bo[0:4]), bk=tuple(bo[4:8]), bw=bo[8])
-    return pool._replace(**new)
+    return pool
+
+
+def fresh_shape(name, k):
+    """The threads a slot (``group``) of the track start's entry point
+    ``name`` (``FRESH_INITS``) at ``k`` slots."""
+    return {"group": _int_fn(f"{name}_group", k)}
+
+
+def event_shape(name, n):
+    """The lanes a warp of the event kernel's entry point ``name``
+    (``SCATTER_EVENTS``) at ``n`` lanes, and the threads a lane that gives
+    at the first pass (``group``)."""
+    lanes = _int_fn(f"{name}_lanes", n)
+    return {"lanes": lanes, "group": 32 // lanes}
 
 
 def event_fluid(rows, x1, x2, k, w, tries, bias_den, mc, tables):
@@ -1268,10 +1305,11 @@ def _num(v):
 
 # The track start and the event fluid are held to their plain versions on
 # every lane at the hot step's tolerance, as their hotcross sum runs in the
-# hot step's reference order, not the plain matrix product's; the track
-# start's dk/dlambda, interacting and birth state must be equal bit for bit
-# (the connection and the blend round as the plain versions), and every
-# lane outside the valid fresh set must keep each of its values bit for bit.
+# hot step's reference order, not the plain matrix product's; every other
+# field of a lane the track start loads (the row's fields, dk/dlambda,
+# interacting, the birth state) must be equal bit for bit (the connection
+# and the blend round as the plain versions), and every lane outside the
+# loaded slots must keep each of its values bit for bit.
 KERNEL_TOLERANCE.update({
     **{f"fresh_init{r}": dict(rtol=1e-4, atol=1e-6, mask_frac=0.0) for r in ("", "_ref")},
     **{f"fresh_init{r}_f64": dict(rtol=1e-11, atol=1e-30, mask_frac=0.0)
@@ -1279,9 +1317,9 @@ KERNEL_TOLERANCE.update({
     "event_fluid": dict(rtol=1e-4, atol=1e-6, mask_frac=0.0),
     "event_fluid_f64": dict(rtol=1e-11, atol=1e-30, mask_frac=0.0),
 })
-# the track start's fields, those it must write bit for bit among them
-FRESH_FIELDS = ("dkdlam", "alpha_scatti", "alpha_absi", "bi", "interacting")
-FRESH_EXACT = ("dkdlam", "interacting", "bx", "bk", "bw")
+# the track start's fields held within the tolerance (every other field of
+# a loaded lane bit for bit)
+FRESH_TOL = ("alpha_scatti", "alpha_absi", "bi")
 # The widths the checks hold them at: the (pool lanes, fresh-set width) of
 # each semantics' track starts on its path (by ``reference``: the wave
 # engine's full phase (refill_k) and, shipped, its light phase (light_k),
@@ -1294,34 +1332,64 @@ EVENT_FLUID_WIDTHS = (16384, 4096, 1024, 512)
 
 
 def synthetic_fresh(mc, n, k, seed, dtype, device, reference=False, trace_birth=True):
-    """(pool, fresh, bias_den, cfg) of one track start: the pool of
-    :func:`synthetic_step` on ``n`` lanes (positions on the grid, in the
-    vacuum beyond it and at its polar edges, weights that reach both ends
-    of the bias clamp), with distinct birth fields under ``trace_birth``
-    (drawn apart, so that the fresh set does not depend on it);
-    the fresh set ``k`` slots wide, ascending, its last sixteenth (at least
-    one slot) padded with ``n`` and a tenth of its lanes not valid;
-    ``bias_den`` the initial bias_norm * max_tau * 2; ``cfg`` the
-    semantics' config at ``n`` lanes."""
+    """(pool, load, bias_den, cfg) of one load and track start on ``n``
+    lanes: the pool of :func:`synthetic_step`, the fields it leaves at zero
+    drawn apart (so that a write into a wrong lane shows), distinct birth
+    fields under ``trace_birth``; refill's slots ``load``
+    (``engine.FreshLoad``) ``k`` wide: their lanes ascending and free, the
+    last sixteenth (at least one slot) padded with ``n``; the first quarter
+    of the slots loading from a ring of k // 2 rows (LIFO, partly filled),
+    the rest from a backlog that runs out before the last of them; the
+    rows' photons those of another synthetic pool (positions on the grid,
+    in the vacuum beyond it and at its polar edges, weights that reach both
+    ends of the bias clamp), one in twenty with a NaN in x or k and one in
+    twenty at zero weight (loaded, not started); ``bias_den`` the initial
+    bias_norm * max_tau * 2; ``cfg`` the semantics' config at ``n`` lanes."""
     lanes = synthetic_lanes(mc, n, seed, consts.MAX_N_STEP, reference, events=True)
     pool = synthetic_step(lanes, dtype, device)[0]
     rng, brng = np.random.default_rng([seed, 3]), np.random.default_rng([seed, 5])
 
-    def col():
-        return torch.as_tensor(brng.uniform(-2.0, 2.0, n), dtype=dtype, device=device)
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, device=device).to(dt)
 
+    def col():
+        return t(brng.uniform(-2.0, 2.0, n))
+
+    def ints():
+        return t(brng.integers(0, 9, n), torch.int32)
+
+    pool = pool._replace(e=col(), l=col(), n_e_0=col(), theta_e_0=col(), b_0=col(), e_0=col(),
+                         x1i=col(), x2i=col(), n_scatt=ints(), nsc0=ints(), ev_tries=ints())
     if trace_birth:
         pool = pool._replace(bx=tuple(col() for _ in range(4)), bk=tuple(col() for _ in range(4)),
                              bw=col())
     m = min(n, k - max(1, k // 16))
     sidx = np.full(k, n, dtype=np.int64)
     sidx[:m] = np.sort(rng.choice(n, size=m, replace=False))
-    valid = (sidx < n) & (rng.random(k) < 0.9)
+    occupied = pool.occupied.cpu().numpy().copy()
+    occupied[sidx[:m]] = False
+    valid, rank = sidx < n, np.arange(k)
+    s_cap, n_sec, pos = max(1, k // 2), k // 4, k // 8
+    n_valid = pos + max(0, m - n_sec - max(1, k // 10))
+    from_sec = valid & (rank < n_sec)
+    bl = pos + np.maximum(rank - n_sec, 0)
+    from_bl = valid & (rank >= n_sec) & (bl < n_valid)
+    # the rows: the photons of another synthetic pool, packed as the ring's
+    r_n = s_cap + k
+    r_lanes = synthetic_lanes(mc, r_n, seed + 7, consts.MAX_N_STEP, reference)
+    rows = np.stack([*r_lanes["x"], *r_lanes["k"], r_lanes["w"],
+                     *rng.uniform(0.1, 2.0, (6, r_n)), rng.integers(0, 5, r_n)], axis=1)
+    kind = rng.random(r_n)
+    rows[kind < 0.05, rng.integers(0, 8)] = np.nan
+    rows[(kind >= 0.05) & (kind < 0.1), engine.ROW_W] = 0.0
+    load = engine.FreshLoad(
+        t(sidx, torch.int64), t(from_sec | from_bl, torch.bool), t(from_sec, torch.bool),
+        t(np.clip(n_sec - 1 - rank, 0, s_cap - 1), torch.int64),
+        t(np.clip(bl, 0, k - 1), torch.int64), t(rows[:s_cap]), t(rows[s_cap:]))
     cfg = engine.EngineConfig(n_pool=n, dtype=dtype, reference=reference,
                               trace_birth=trace_birth)
-    fresh = (torch.as_tensor(valid, device=device), torch.as_tensor(sidx, device=device))
     den = torch.tensor(mc.bias_norm * mc.max_tau_scatt0 * 2.0, dtype=dtype, device=device)
-    return pool, fresh, den, cfg
+    return pool._replace(occupied=t(occupied, torch.bool)), load, den, cfg
 
 
 def _same_bits(a, b):
@@ -1330,36 +1398,48 @@ def _same_bits(a, b):
     return eq | (torch.isnan(a) & torch.isnan(b)) if a.dtype.is_floating_point else eq
 
 
-def compare_fresh(name, pool, fresh, ref, got):
-    """Hold the track start ``got`` (a pool) against the plain version's
-    ``ref`` on the pool ``pool`` and the fresh set ``fresh``: the lanes of
-    the valid fresh set within ``KERNEL_TOLERANCE[name]`` and with
-    ``FRESH_EXACT`` bit for bit, every other lane keeping each field bit for
-    bit.  Returns (record, failures)."""
-    valid, sidx = fresh
+def fresh_lanes(pool, load):
+    """(loaded, started): (N,) masks of the lanes that refill's slots
+    ``load`` fill on ``pool`` and of those whose start runs."""
     n = pool.w.shape[0]
-    touched = torch.zeros(n + 1, dtype=torch.bool, device=sidx.device)
-    touched[sidx[valid]] = True
-    touched = touched[:n]
-    fields = FRESH_FIELDS + (("bx", "bk", "bw") if len(pool.bw) else ())
-    ref_f, got_f = _flat({f: getattr(ref, f) for f in fields}), _flat(
-        {f: getattr(got, f) for f in fields})
+    valid, sidx = engine.refill_load_plain(pool, load)[1]
+
+    def lanes(mask):
+        out = torch.zeros(n + 1, dtype=torch.bool, device=sidx.device)
+        out[sidx[mask]] = True
+        return out[:n]
+
+    return lanes(load.load), lanes(valid)
+
+
+def compare_fresh(name, pool, load, ref, got):
+    """Hold the load and start ``got`` (a pool) against the plain version's
+    ``ref`` on the pool before them, ``pool``, and refill's slots
+    ``load``: every field of the loaded lanes bit for bit but the
+    opacities and the bias of the started lanes, which are held within
+    ``KERNEL_TOLERANCE[name]``; every lane outside the loaded slots keeping
+    each of the pool's values bit for bit.  Returns (record, failures)."""
+    n = pool.w.shape[0]
+    loaded, started = fresh_lanes(pool, load)
+    before, ref_f, got_f = (_flat(p._asdict()) for p in (pool, ref, got))
     fails, kept_ok = [], True
     for f, a in ref_f.items():
-        same = _same_bits(a, got_f[f])
-        if not bool(same[~touched].all()):
+        moved = ~_same_bits(before[f], got_f[f]) & ~loaded
+        if bool(moved.any()):
             kept_ok = False
-            fails.append(f"{f}: {int((~same & ~touched).sum())} lanes outside the fresh set "
-                         "changed")
-        if f.rstrip("0123") in FRESH_EXACT and not bool(same[touched].all()):
-            fails.append(f"{f}: {int((~same & touched).sum())} fresh lanes not bit for bit")
-    tol = KERNEL_TOLERANCE[name]
-    sel = {f: ref_f[f][touched] for f in ("alpha_scatti", "alpha_absi", "bi")}
-    err, rel, _, tfails = compare(sel, {f: got_f[f][touched] for f in sel}, **tol)
+            fails.append(f"{f}: {int(moved.sum())} lanes outside the loaded slots changed")
+        exact = loaded & ~started if f in FRESH_TOL else loaded
+        differ = ~_same_bits(a, got_f[f]) & exact
+        if bool(differ.any()):
+            fails.append(f"{f}: {int(differ.sum())} loaded lanes not bit for bit")
+    sel = {f: ref_f[f][started] for f in FRESH_TOL}
+    err, rel, _, tfails = compare(sel, {f: got_f[f][started] for f in sel},
+                                  **KERNEL_TOLERANCE[name])
     mism = float((ref.interacting != got.interacting).double().mean())
     rec = {"max_abs_err": err, "max_rel_err": rel, "mask_mismatch": mism,
-           "lanes": n, "slots": int(valid.shape[0]), "lanes_fresh": int(touched.sum()),
-           "lanes_plasma": int(ref.interacting[touched].sum()), "kept_bitwise": kept_ok,
+           "lanes": n, "slots": int(load.sidx.shape[0]), "lanes_loaded": int(loaded.sum()),
+           "lanes_fresh": int(started.sum()),
+           "lanes_plasma": int(ref.interacting[started].sum()), "kept_bitwise": kept_ok,
            "bi_bitwise": bool(_same_bits(ref.bi, got.bi).all())}
     return rec, fails + tfails
 

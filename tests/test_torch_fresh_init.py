@@ -207,27 +207,166 @@ def _same(a, b):
 @pytest.mark.parametrize("reference", [False, True], ids=["shipped", "reference"])
 def test_fresh_init_wrapper_is_the_plain_version_on_the_cpu(cpu_sim, reference):
     mc, tabs = cpu_sim.mc, cpu_sim.tables
-    pool, fresh, den, cfg = hot_kernels.synthetic_fresh(mc, 600, 256, 9, torch.float64, "cpu",
-                                                        reference=reference)
-    got = hot_kernels.fresh_init(pool, fresh, den, mc, tabs, cfg)
-    want = engine.init_fresh_plain(pool, fresh, den, mc, tabs, cfg)
+    pool, load, den, cfg = hot_kernels.synthetic_fresh(mc, 600, 256, 9, torch.float64, "cpu",
+                                                       reference=reference)
+    got = hot_kernels.fresh_init(pool, load, den, mc, tabs, cfg)
+    want = engine.init_fresh_plain(pool, load, den, mc, tabs, cfg)
     for f in engine.Pool._fields:
         assert _same(getattr(got, f), getattr(want, f)), f
-    # the card check's comparison passes it and sees what the start wrote
-    rec, fails = hot_kernels.compare_fresh("fresh_init_f64", pool, fresh, want, got)
+    # the card check's comparison passes it and sees what the load and start wrote
+    rec, fails = hot_kernels.compare_fresh("fresh_init_f64", pool, load, want, got)
     assert not fails and rec["kept_bitwise"] and rec["bi_bitwise"]
-    assert 0 < rec["lanes_plasma"] < rec["lanes_fresh"] < fresh[1].shape[0]
-    # a changed lane outside the fresh set, or a changed dk/dlambda, fails it
-    touched = torch.zeros(600, dtype=torch.bool)
-    touched[fresh[1][fresh[0]]] = True
-    kept = int(torch.nonzero(~touched)[0])
+    assert 0 < rec["lanes_plasma"] < rec["lanes_fresh"] < rec["lanes_loaded"] < 256
+    # a changed lane outside the loaded slots, a changed dk/dlambda or a
+    # changed loaded field fails it
+    loaded, started = hot_kernels.fresh_lanes(pool, load)
+    kept = int(torch.nonzero(~loaded)[0])
     bad = got._replace(alpha_absi=got.alpha_absi.clone())
     bad.alpha_absi[kept] += 1.0
-    assert hot_kernels.compare_fresh("fresh_init_f64", pool, fresh, want, bad)[1]
-    lane = int(fresh[1][fresh[0]][0])
+    assert hot_kernels.compare_fresh("fresh_init_f64", pool, load, want, bad)[1]
+    lane = int(torch.nonzero(started)[0])
+    up = torch.tensor(np.inf).double()
     bad = got._replace(dkdlam=(got.dkdlam[0].clone(),) + got.dkdlam[1:])
-    bad.dkdlam[0][lane] = torch.nextafter(bad.dkdlam[0][lane], torch.tensor(np.inf).double())
-    assert hot_kernels.compare_fresh("fresh_init_f64", pool, fresh, want, bad)[1]
+    bad.dkdlam[0][lane] = torch.nextafter(bad.dkdlam[0][lane], up)
+    assert hot_kernels.compare_fresh("fresh_init_f64", pool, load, want, bad)[1]
+    lane = int(torch.nonzero(loaded & ~started)[0])
+    bad = got._replace(e_0=got.e_0.clone())
+    bad.e_0[lane] = torch.nextafter(bad.e_0[lane], up)
+    assert hot_kernels.compare_fresh("fresh_init_f64", pool, load, want, bad)[1]
+
+
+def _refill_before(eng, p, sec, backlog_rows, backlog_pos, counters, n_valid, width=None,
+                   use_sec=True):
+    """``Engine.refill`` as it was before its row moves went into the track
+    start (one function: the sources, the staged rows and their moves),
+    returning (pool, sec, backlog_pos, counters, (valid, sidx))."""
+    n, dt = eng.cfg.n_pool, eng.dt
+    t_total = backlog_rows.shape[0]
+    k_w = eng.rf_k if width is None else width
+    valid_g, gi_g, sidx_g = engine.compact_idx(~p.occupied, k_w)
+    rank_g = torch.arange(k_w, device=eng.device)
+    n_sec = sec.count if use_sec else torch.zeros_like(sec.count)
+    from_sec_g = valid_g & (rank_g < n_sec)
+    sec_idx_g = torch.clamp(n_sec - 1 - rank_g, 0, sec.rows.shape[0] - 1)
+    bl_idx_g = backlog_pos + torch.clamp(rank_g - n_sec, min=0)
+    from_bl_g = valid_g & (rank_g >= n_sec) & (bl_idx_g < n_valid)
+    bl_idx_g = torch.clamp(bl_idx_g, 0, t_total - 1)
+    load_g = from_sec_g | from_bl_g
+
+    rows_g = torch.where(from_sec_g[:, None], sec.rows[sec_idx_g], backlog_rows[bl_idx_g])
+    stag = torch.zeros((n + 1, engine.ROW_WIDTH + 1), dtype=dt, device=eng.device)
+    stag[sidx_g] = torch.cat([rows_g, load_g[:, None].to(dt)], dim=1)
+    rows = stag[:n].T.contiguous()
+    load = rows[engine.ROW_WIDTH] > 0.5
+
+    x_new = tuple(rows[m] for m in range(0, 4))
+    k_new = tuple(rows[m] for m in range(4, 8))
+    w, e = rows[engine.ROW_W], rows[engine.ROW_E]
+    ok = load & ~(engine.isnan4(x_new) | engine.isnan4(k_new) | (w == 0.0))
+    zero = torch.zeros_like(w)
+    nsc_row = rows[engine.ROW_NSCATT].to(torch.int32)
+
+    def pick(row, cur):
+        return torch.where(load, row, cur)
+
+    p = p._replace(
+        x=engine.where4(load, x_new, p.x), k=engine.where4(load, k_new, p.k),
+        w=pick(w, p.w), e=pick(e, p.e), l=pick(rows[engine.ROW_L], p.l),
+        n_e_0=pick(rows[engine.ROW_NE0], p.n_e_0),
+        theta_e_0=pick(rows[engine.ROW_THETAE0], p.theta_e_0),
+        b_0=pick(rows[engine.ROW_B0], p.b_0), e_0=pick(rows[engine.ROW_E0], p.e_0),
+        e_0_s=pick(e, p.e_0_s), x1i=pick(x_new[1], p.x1i), x2i=pick(x_new[2], p.x2i),
+        tau_abs=pick(zero, p.tau_abs), tau_scatt=pick(zero, p.tau_scatt),
+        n_scatt=pick(nsc_row, p.n_scatt), nsc0=pick(nsc_row, p.nsc0),
+        n_step=pick(torch.zeros_like(p.n_step), p.n_step),
+        ev_tries=pick(torch.zeros_like(p.ev_tries), p.ev_tries),
+        pend_dl=pick(zero, p.pend_dl), dl_shrink=pick(torch.ones_like(w), p.dl_shrink),
+        sec_w=pick(zero, p.sec_w),
+        occupied=p.occupied | ok, alive=p.alive | ok,
+        pend_push=p.pend_push & ~load, at_event=p.at_event & ~load,
+        record_pending=p.record_pending & ~load,
+    )
+    n_from_bl = from_bl_g.sum()
+    sec = sec._replace(count=sec.count - from_sec_g.sum())
+    counters = counters._replace(n_created=counters.n_created + n_from_bl)
+    bad_g = torch.any(torch.isnan(rows_g[:, 0:8]), dim=1) | (rows_g[:, engine.ROW_W] == 0.0)
+    return p, sec, backlog_pos + n_from_bl, counters, (load_g & ~bad_g, sidx_g)
+
+
+@pytest.fixture(scope="module")
+def refill_sims(dump):
+    """A CPU engine of each semantics (float64, 512 lanes, refill slots 384,
+    ring 96), with the birth trace off and on."""
+    out = {}
+    for reference in (False, True):
+        for trace in (False, True):
+            cfg = (profiles.reference_config(pool=512, dtype=torch.float64) if reference
+                   else profiles.bench_config(pool=512, dtype=torch.float64))
+            cfg = cfg._replace(refill_k=384, sec_cap=96, trace_birth=trace)
+            out[reference, trace] = driver.Simulation(dump, photon_n=100, mass_unit=4e19,
+                                                      config=cfg, device="cpu",
+                                                      emit_chunk=256, warmup=0)
+    return out
+
+
+@pytest.mark.parametrize("trace", [False, True], ids=["untraced", "traced"])
+@pytest.mark.parametrize("reference", [False, True], ids=["shipped", "reference"])
+@pytest.mark.parametrize("sources", ["ring", "backlog", "both"])
+def test_split_refill_equals_the_refill_before_it(refill_sims, reference, trace, sources):
+    """Engine.refill (the sources) with the load and start of
+    init_fresh_plain equals the refill that moved the rows itself followed
+    by the start, bit for bit: every pool field, the ring, the backlog
+    position and the counters.  The pool has 400 free lanes for 384 slots
+    (or 300: padding slots); the ring is partly filled (a NaN row and a
+    zero-weight row among its photons), the backlog has a NaN row and a
+    zero-weight row and runs out before the slots."""
+    sim = refill_sims[reference, trace]
+    eng = sim.engine
+    n, dt = eng.cfg.n_pool, eng.dt
+    rng = np.random.default_rng([7, reference, trace])
+    sim.plan()
+    backlog = sim.emit_rows(0, 256)
+    backlog[3, 5] = float("nan")
+    backlog[6, engine.ROW_W] = 0.0
+    ring = sim.emit_rows(256, 96).flip(0).contiguous()
+    ring[:, engine.ROW_NSCATT] = torch.as_tensor(rng.integers(1, 4, 96), dtype=dt)
+    ring[1, 2] = float("nan")
+    ring[4, engine.ROW_W] = 0.0
+    free = 300 if sources == "backlog" else 400
+    state = eng.fresh_state()
+    occupied = torch.ones(n, dtype=torch.bool)
+    occupied[torch.as_tensor(rng.choice(n, free, replace=False))] = False
+    pool = state.pool._replace(
+        occupied=occupied, alive=torch.as_tensor(rng.random(n) < 0.5),
+        pend_push=torch.as_tensor(rng.random(n) < 0.3),
+        at_event=torch.as_tensor(rng.random(n) < 0.3),
+        record_pending=torch.as_tensor(rng.random(n) < 0.3),
+        w=torch.as_tensor(rng.uniform(1.0, 2.0, n), dtype=dt),
+        tau_abs=torch.as_tensor(rng.random(n), dtype=dt),
+        n_step=torch.as_tensor(rng.integers(1, 9, n).astype(np.int32)))
+    n_sec = {"ring": 96, "backlog": 0, "both": 40}[sources]
+    sec = state.sec._replace(count=torch.tensor(n_sec))
+    sec = sec._replace(rows=ring.clone())
+    pos, n_valid = torch.tensor(2), 2 if sources == "ring" else 250
+    counters = state.counters._replace(n_created=torch.tensor(5))
+    den = eng._bias_den(counters)
+
+    p0, sec0, pos0, c0, fresh = _refill_before(eng, pool, sec, backlog, pos, counters, n_valid)
+    want = engine.init_fresh_plain(p0, fresh, den, eng.mc, eng.tables, eng.cfg)
+    sec1, pos1, c1, load = eng.refill(sec, pool.occupied, backlog, pos, counters, n_valid)
+    got = hot_kernels.fresh_init(pool, load, den, eng.mc, eng.tables, eng.cfg)
+    for f in engine.Pool._fields:
+        assert _same(getattr(got, f), getattr(want, f)), f
+    assert _same(tuple(sec1), tuple(sec0)) and _same(pos1, pos0)
+    assert _same(tuple(c1), tuple(c0))
+    # the sources reached what the test set up: both kinds of rows, a bad
+    # row from each source used, slots past the sources and padding slots
+    loaded, started = hot_kernels.fresh_lanes(pool, load)
+    assert int((load.load & load.from_sec).sum()) == min(n_sec, 384)
+    assert int((load.load & ~load.from_sec).sum()) == min(n_valid - 2, 384 - n_sec)
+    assert int(loaded.sum()) - int(started.sum()) >= {"ring": 2, "backlog": 2, "both": 4}[sources]
+    assert bool((load.sidx == n).any()) == (sources == "backlog")
+    assert int((got.interacting & started).sum()) > 0
 
 
 def test_event_fluid_wrapper_is_the_plain_version_on_the_cpu(cpu_sim):
@@ -309,26 +448,66 @@ def card_sims(dump):
 @pytest.mark.parametrize("n,k", FRESH_WIDTHS, ids=[f"{n}x{k}" for n, k in FRESH_WIDTHS])
 def test_fresh_init_kernel_matches_plain_on_the_card(card_sims, dtype, reference, n, k):
     sim = card_sims[dtype]
-    pool, fresh, den, cfg = hot_kernels.synthetic_fresh(sim.mc, n, k, 2030 + k, dtype, "cuda",
-                                                        reference=reference)
+    pool, load, den, cfg = hot_kernels.synthetic_fresh(sim.mc, n, k, 2030 + k, dtype, "cuda",
+                                                       reference=reference)
     name = hot_kernels.entry_point("fresh_init", dtype, reference)
-    want = engine.init_fresh_plain(pool, fresh, den, sim.mc, sim.tables, cfg)
+    want = engine.init_fresh_plain(pool, load, den, sim.mc, sim.tables, cfg)
+    work = engine.clone_pool(pool)
     before = dict(hot_kernels.launches)
-    got = hot_kernels.fresh_init(pool, fresh, den, sim.mc, sim.tables, cfg)
+    got = hot_kernels.fresh_init(work, load, den, sim.mc, sim.tables, cfg)
     torch.cuda.synchronize()
     assert hot_kernels.launches[name] == before[name] + 1
     assert sum(hot_kernels.launches.values()) == sum(before.values()) + 1
-    rec, fails = hot_kernels.compare_fresh(name, pool, fresh, want, got)
+    rec, fails = hot_kernels.compare_fresh(name, pool, load, want, got)
     assert not fails, (fails, rec)
-    assert rec["lanes_plasma"] > 0
+    assert rec["lanes_plasma"] > 0 and rec["lanes_loaded"] > rec["lanes_fresh"]
     # the trace off: no birth state in, none out
     off = cfg._replace(trace_birth=False)
-    bare = pool._replace(bx=(), bk=(), bw=())
-    got = hot_kernels.fresh_init(bare, fresh, den, sim.mc, sim.tables, off)
+    bare = engine.clone_pool(pool)._replace(bx=(), bk=(), bw=())
+    got = hot_kernels.fresh_init(engine.clone_pool(bare), load, den, sim.mc, sim.tables, off)
     assert got.bx == () and got.bw == ()
     assert not hot_kernels.compare_fresh(
-        name, bare, fresh, engine.init_fresh_plain(bare, fresh, den, sim.mc, sim.tables, off),
+        name, bare, load, engine.init_fresh_plain(bare, load, den, sim.mc, sim.tables, off),
         got)[1]
+
+
+# the sets on both sides of each change of the threads a slot
+# (csrc/fresh_init.cu fresh_group: 8 up to 1,024 slots, 4 up to 4,096)
+GROUP_EDGES = ((2048, 1024), (2048, 1025), (8192, 4096), (8192, 4097))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("reference", [False, True], ids=["shipped", "reference"])
+@pytest.mark.parametrize("n,k", GROUP_EDGES, ids=[f"{n}x{k}" for n, k in GROUP_EDGES])
+def test_fresh_init_updates_the_pool_in_place(card_sims, dtype, reference, n, k):
+    """The kernel writes the loaded lanes of the pool it is given and
+    nothing else: the same tensors come back, every lane outside the loaded
+    slots (padding slots too) keeps its bits, and every threads-a-slot
+    instance writes the same bits as the width's own (the hotcross sum in
+    one order), within the tolerance of the plain version."""
+    sim = card_sims[dtype]
+    pool, load, den, cfg = hot_kernels.synthetic_fresh(sim.mc, n, k, 4040 + k, dtype, "cuda",
+                                                       reference=reference)
+    name = hot_kernels.entry_point("fresh_init", dtype, reference)
+    want = engine.init_fresh_plain(pool, load, den, sim.mc, sim.tables, cfg)
+    assert bool((load.sidx == n).any())
+    outs = {}
+    for group in (None, 1, 4, 8):
+        work = engine.clone_pool(pool)
+        tensors = hot_kernels._flat(work._asdict())
+        got = hot_kernels.fresh_init(work, load, den, sim.mc, sim.tables, cfg, group=group)
+        torch.cuda.synchronize()
+        assert got is work
+        assert all(t is tensors[f] for f, t in hot_kernels._flat(got._asdict()).items())
+        rec, fails = hot_kernels.compare_fresh(name, pool, load, want, got)
+        assert not fails and rec["kept_bitwise"], (group, fails)
+        outs[group] = hot_kernels._flat(got._asdict())
+    shape = hot_kernels.fresh_shape(name, k)["group"]
+    assert shape == (8 if k <= 1024 else 4 if k <= 4096 else 1)
+    for group in (1, 4, 8):
+        for f, a in outs[None].items():
+            assert bool(hot_kernels._same_bits(a, outs[group][f]).all()), (group, f)
 
 
 @pytest.mark.cuda

@@ -30,7 +30,7 @@ import pytest
 import torch
 
 from grmonty_tpu_torch.models import torus
-from grmonty_tpu_torch.ops import draws, fluid, geometry, proba, scattering
+from grmonty_tpu_torch.ops import draws, fluid, geometry, proba, scattering, tetrads
 from grmonty_tpu_torch.transport import driver, engine, hot_kernels
 
 Z = 5.0
@@ -373,6 +373,42 @@ def test_event_kernel_matches_plain_on_the_card(card_sims, dtype, n):
     assert all(_same(getattr(one, f), getattr(two, f)) for f in one._fields)
 
 
+# the event phase's widths, and both sides of each change of the lanes a
+# warp (csrc/scatter_event.cu event_lanes: 1 up to 1,024 lanes, 8 up to 4,096)
+EVENT_EDGES = (512, 1024, 1025, 4096, 4097, 16384)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", EVENT_EDGES)
+def test_event_kernel_is_the_plain_event_bit_for_bit_at_every_deal(card_sims, dtype, n):
+    """At every lanes-a-warp instance (the width's own, 32, 8 and 1) the
+    kernel's masks and round counts equal the plain event's on PhiloxDraws
+    on every active lane, its floats on the made and sampled lanes bit for
+    bit, and every output is the same bits as the width's own instance."""
+    sim = card_sims[dtype]
+    ev = hot_kernels.synthetic_events(sim.engine, n, 2026)
+    key = torch.tensor([0x5EED0000 + n, 0xC0FFEE], dtype=torch.int64, device="cuda")
+    src = draws.PhiloxDraws(key, margins=True)
+    ref = scattering.scatter_event_c(src, ev.k, ev.fl, ev.g7, sim.mc.b_unit, active=ev.active,
+                                     force=ev.force)
+    name = hot_kernels.entry_point("scatter_event", dtype)
+    outs = {}
+    for lanes in (None, 32, 8, 1):
+        got = hot_kernels.scatter_event(ev.k, ev.fl, ev.g7, sim.mc.b_unit, ev.active, ev.force,
+                                        key=key, lanes=lanes)
+        torch.cuda.synchronize()
+        rec, fails, rows = hot_kernels.compare_event(name, ref, got, src.margin, ev.active)
+        assert not fails, (lanes, fails, rows)
+        assert rec["lanes_differing"] == 0 and rec["max_abs_err"] == 0.0, (lanes, rec)
+        outs[lanes] = hot_kernels._flat(got._asdict())
+    shape = hot_kernels.event_shape(name, n)
+    assert shape["lanes"] == (32 if n > 4096 else 8 if n > 1024 else 1)
+    for lanes in (32, 8, 1):
+        for f, a in outs[None].items():
+            assert bool(hot_kernels._same_bits(a, outs[lanes][f]).all()), (lanes, f)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_chain_kernel_matches_plain_on_the_card(card_sims, dtype):
@@ -406,3 +442,235 @@ def test_philox_words_bitwise_on_the_card():
         for c, row in zip(ctr[:16].view(np.uint64), got[:16].cpu().numpy().view(np.uint64)):
             np.testing.assert_array_equal(row, _numpy_words(key, c))
     assert os.path.exists(hot_kernels.CSRC_DIR)
+
+
+# ---------------------------------------------------------------------------
+# the card kernel's round selection, emulated on the CPU
+# ---------------------------------------------------------------------------
+#
+# csrc/scatter_event.cu runs each rejection loop in passes over a warp's L
+# lanes: the warp's 32 threads are dealt over the lanes still sampling
+# (thread t runs round base + t // m of the (t % m)-th of the m live lanes),
+# and each lane takes its lowest accepted round.  The emulation below
+# evaluates the dealt (lane, round) pairs of every pass with the plain
+# samplers' own per-round arithmetic (a draw source that gives each
+# element its lane's words at its dealt round, the samplers at cap 1) and
+# must pick the rounds, values and round counts of the sequential loops.
+
+class _DealtDraws(draws.PhiloxDraws):
+    """Philox draws for a batch of (lane, round) elements: a looping
+    sampler's round ``it`` gives element e the words of (lane[e], sampler,
+    rnd[e], block), a direction those of (lane[e], sampler, 0, 0); ``gap``
+    keeps the last test's outcome (``accepted``: u < threshold)."""
+
+    def __init__(self, key, lane, rnd):
+        super().__init__(key)
+        self.lane, self.rnd = lane, rnd
+        self.accepted = None
+
+    def _words(self, sampler, rnd, block, like, chunk=1):
+        looping = sampler in (draws.ELECTRON, draws.KLEIN_NISHINA, draws.THOMSON)
+        r = self.rnd if looping else torch.zeros_like(self.lane)
+        ctr = [draws._word_limbs(v, self.lane) for v in (self.lane, sampler, r, block)]
+        return draws.philox_limbs(ctr, self.key)
+
+    def gap(self, u, thr, live):
+        self.accepted = u < thr
+
+
+def _passes(go, cap, evaluate, lanes_a_warp, deal=True):
+    """The passes of one loop over warps of ``lanes_a_warp`` lanes: each
+    pass the 32 threads of a warp are dealt over its lanes still sampling
+    (``deal``), or each lane keeps its 32 // lanes_a_warp threads; a lane
+    stops at its lowest accepted round or at its cap (``cap`` (N,)).
+    ``evaluate(lane, rnd)`` -> (accepted (E,), values (E, ...)) for
+    element pairs.  Returns (accepted, rounds, values, passes), the values
+    of each lane's accepted round (else of its last round run)."""
+    n = go.shape[0]
+    base = [0] * n
+    sampling = go.tolist()
+    rounds, acc, vals = [0] * n, [False] * n, [None] * n
+    passes = 0
+    while any(sampling):
+        passes += 1
+        pairs = []
+        for w0 in range(0, n, lanes_a_warp):
+            own = range(w0, min(w0 + lanes_a_warp, n))
+            live = [o for o in own if sampling[o]]
+            if not live:
+                continue
+            for t in range(32):
+                if deal:
+                    src, off = live[t % len(live)], t // len(live)
+                else:
+                    src = w0 + t // (32 // lanes_a_warp)
+                    off = t % (32 // lanes_a_warp)
+                    if src >= n or not sampling[src]:
+                        continue
+                if base[src] + off < int(cap[src]):
+                    pairs.append((src, base[src] + off))
+        lane = torch.tensor([p[0] for p in pairs])
+        rnd = torch.tensor([p[1] for p in pairs])
+        ok, v = evaluate(lane, rnd)
+        order = sorted(range(len(pairs)), key=lambda e: pairs[e])
+        ran = {}
+        for e in order:
+            src, r = pairs[e]
+            ran[src] = ran.get(src, 0) + 1
+            if sampling[src] and bool(ok[e]):
+                sampling[src], acc[src], rounds[src], vals[src] = False, True, r + 1, v[e]
+            elif sampling[src]:
+                vals[src] = v[e]
+        for src, cnt in ran.items():
+            if sampling[src]:
+                base[src] = min(base[src] + cnt, int(cap[src]))
+                if base[src] >= int(cap[src]):
+                    sampling[src], rounds[src] = False, int(cap[src])
+    return torch.tensor(acc), torch.tensor(rounds, dtype=torch.int32), vals, passes
+
+
+def _chain_lanes(n, seed, dtype):
+    """Tetrad-frame photons of energies 1e-8 ... 300 (cold lanes run the
+    Thomson loop, hot ones Klein-Nishina; at the top the electron loop
+    rarely accepts and forced lanes take their cap), theta_e 0.05 ... 20,
+    a fifth forced and a sixth not sampling (guarded or inactive)."""
+    rng = np.random.default_rng(seed)
+    k0 = torch.as_tensor(10.0 ** rng.uniform(-8.0, 2.5, n), dtype=dtype)
+    d = rng.normal(size=(3, n))
+    d /= np.linalg.norm(d, axis=0)
+    k_tet = (k0, *(k0 * torch.as_tensor(c, dtype=dtype) for c in d))
+    theta = torch.as_tensor(10.0 ** rng.uniform(-1.3, 1.3, n), dtype=dtype)
+    force = torch.as_tensor(rng.random(n) < 0.2)
+    go = torch.as_tensor(rng.random(n) >= 1.0 / 6.0)
+    return k_tet, theta, force, go
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("warp", [(32, True), (8, True), (4, True), (1, True), (32, False),
+                                  (16, False), (4, False), (1, False)],
+                         ids=["deal32", "deal8", "deal4", "deal1", "g1", "g2", "g8", "g32"])
+def test_round_passes_pick_the_sequential_rounds(dtype, warp):
+    """The electron, Klein-Nishina and Thomson loops run in passes (the
+    kernel's deal over L lanes a warp, or fixed groups of G = 32 / L
+    threads) pick, on every sampling lane, the round the sequential plain
+    loop stops at: the same values bit for bit and the same round counts,
+    forced lanes at the cap included; lanes that do not sample run none."""
+    lanes_a_warp, deal = warp
+    n, key = 352, (0x5EED, 0xC0FFEE)
+    k_tet, th, force, go = _chain_lanes(n, 2027, dtype)
+    seq = draws.PhiloxDraws(key)
+    p_seq, ok_seq = proba.sample_electron_distr_p_c(seq, k_tet, th, force=force)
+    r_seq = seq.rounds["electron"]
+
+    def rep(v, lane):
+        return tuple(c[lane] for c in v) if isinstance(v, tuple) else v[lane]
+
+    def electron(lane, rnd):
+        src = _DealtDraws(key, lane, rnd)
+        f = rep(force, lane) & (rnd == proba._ELECTRON_CAP_DEFER - 1)
+        p, ok = proba.sample_electron_distr_p_c(src, rep(k_tet, lane), rep(th, lane), force=f,
+                                                cap=1)
+        return ok, list(zip(*p))
+
+    cap = torch.full((n,), proba._ELECTRON_CAP_DEFER)
+    ok, rounds, vals, passes_el = _passes(go, cap, electron, lanes_a_warp, deal)
+    assert torch.equal(ok[go], ok_seq[go]) and torch.equal(rounds[go], r_seq[go])
+    assert bool((rounds[~go] == 0).all())
+    for i in torch.nonzero(go).flatten().tolist():
+        assert all(_same(a, b[i]) for a, b in zip(vals[i], p_seq)), i
+    # forced lanes at the cap, lanes that never accepted, lanes past a pass
+    assert int((go & force & ok & (r_seq == proba._ELECTRON_CAP_DEFER)).sum()) > 0
+    assert int((go & ~ok_seq).sum()) > 0 and passes_el >= 1
+    assert int((go & (r_seq > 32 // lanes_a_warp)).sum()) > 0 or lanes_a_warp < 4
+
+    # the second loop on the sequential electron: Klein-Nishina where hot
+    ke = tetrads.boost_c(k_tet, p_seq)
+    hot = ke[0] > 1.0e-4
+    k0 = torch.clamp(ke[0], min=1.0e-4)
+    seq = draws.PhiloxDraws(key)
+    k0p_seq, okkn_seq = proba.sample_klein_nishina_c(seq, k0, force=force)
+    rkn_seq = seq.rounds["klein_nishina"]
+    seq = draws.PhiloxDraws(key)
+    cth_seq = proba.sample_thomson(seq, ke[0])
+    rth_seq = seq.rounds["thomson"]
+
+    def second(lane, rnd):
+        src = _DealtDraws(key, lane, rnd)
+        h = hot[lane]
+        f = force[lane] & (rnd == proba._KN_CAP_DEFER - 1)
+        k0p, ok_kn = proba.sample_klein_nishina_c(src, k0[lane], force=f, cap=1)
+        src = _DealtDraws(key, lane, rnd)
+        c_th = proba.sample_thomson(src, ke[0][lane], cap=1)
+        return torch.where(h, ok_kn, src.accepted), torch.where(h, k0p, c_th)
+
+    cap = torch.where(hot, proba._KN_CAP_DEFER, proba._THOMSON_CAP)
+    ok, rounds, vals, _ = _passes(go, cap, second, lanes_a_warp, deal)
+    sel = go & hot
+    assert torch.equal(ok[sel], okkn_seq[sel]) and torch.equal(rounds[sel], rkn_seq[sel])
+    assert torch.equal(rounds[go & ~hot], rth_seq[go & ~hot])
+    for i in torch.nonzero(go).flatten().tolist():
+        if bool(hot[i]):
+            want = k0p_seq[i] if bool(ok[i]) else k0[i]
+        else:
+            want = cth_seq[i]
+            assert bool(ok[i]) == bool(cth_seq[i] != 0.0) or float(vals[i]) == 0.0
+        got = vals[i] if bool(ok[i]) else (k0[i] if bool(hot[i]) else torch.zeros((), dtype=dtype))
+        assert _same(got, want), i
+    assert int((go & hot).sum()) > 0 and int((go & ~hot).sum()) > 0
+    assert int((go & hot & (rkn_seq > 1)).sum()) > 0
+    # the rounds the whole chain reports are these
+    chain = scattering.scatter_chain_c(draws.PhiloxDraws(key), k_tet, th, force=force)
+    assert torch.equal(chain.rounds_el[go], r_seq[go])
+    assert torch.equal(chain.rounds_sc[go], torch.where(hot, rkn_seq, rth_seq)[go])
+
+
+def test_round_passes_keep_the_lane_rules():
+    """The pass selection on a made-up acceptance table: lanes that never
+    accept (a Thomson lane keeps cos 0: no value taken), lanes that accept
+    only at their cap (a forced lane), lanes of caps 16 and 128 side by
+    side in a warp, and lanes that do not sample, under every deal: each
+    takes its lowest accepted round, or its cap."""
+    n = 96
+    rng = np.random.default_rng(5)
+    cap = torch.as_tensor(np.where(rng.random(n) < 0.5, 128, 16))
+    table = torch.as_tensor(rng.random((n, 128)) < 0.05)
+    never = torch.arange(n) % 7 == 0
+    at_cap = torch.arange(n) % 7 == 1
+    table[never] = False
+    table[at_cap] = False
+    table[at_cap, cap[at_cap] - 1] = True
+    go = torch.arange(n) % 11 != 3
+    first = torch.where(table.any(1), table.float().argmax(1), -1)
+    first = torch.where(first >= cap, -1, first)
+
+    def evaluate(lane, rnd):
+        return table[lane, rnd], [float(r) for r in rnd]
+
+    for lanes_a_warp in (32, 8, 4, 1):
+        for deal in (True, False):
+            ok, rounds, vals, _ = _passes(go, cap, evaluate, lanes_a_warp, deal)
+            want_ok = go & (first >= 0)
+            assert torch.equal(ok, want_ok)
+            want_r = torch.where(first >= 0, first + 1, cap).to(torch.int32)
+            assert torch.equal(rounds[go], want_r[go]) and bool((rounds[~go] == 0).all())
+            assert all(vals[i] == float(first[i]) for i in torch.nonzero(want_ok).flatten())
+            assert not bool(ok[never].any()) and bool((rounds[never & go] == cap[never & go]).all())
+
+
+@pytest.mark.parametrize("kernel", ["scatter_event", "fresh_init"])
+def test_phase_clock_stamps_find_every_anchor(kernel):
+    """``tools/clock_phase_kernels`` stamps the event kernel and the track
+    start at lines it must find: every segment's stamp (the track start's
+    surface wait among them), the clock's start and the warps' count land
+    in the source, and a source without an anchor raises."""
+    from grmonty_tpu_torch.tools import clock_phase_kernels as clock
+
+    with open(os.path.join(hot_kernels.CSRC_DIR, f"{kernel}.cu")) as f:
+        src = f.read()
+    out = clock.stamped(src, kernel)
+    for k in range(len(clock.SEGMENTS[kernel])):
+        assert f"STAMP({k}, " in out, k
+    assert out.count("CLK_START();") == 1 and "CLK_WARP();" in out and "clk_read" in out
+    with pytest.raises(ValueError, match="no anchor"):
+        clock.stamped(src.replace("rounds_sc;\n}", "rounds_sc;\n }").replace(
+            "P.bw[i] = w;\n  }\n}", "P.bw[i] = w;\n  }\n }"), kernel)
