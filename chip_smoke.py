@@ -78,16 +78,39 @@ Phases, each of which exits non-zero on failure:
    threads a slot); the event phase's fluid (``event_fluid``) on
    synthetic event lanes at the event phase's widths
    (``hot_kernels.EVENT_FLUID_WIDTHS``) against ``engine.event_fluid_plain``, every
-   output within the hot step's tolerance.  Each of these records gives its
-   registers and spills.  Every
+   output within the hot step's tolerance.  The whole event phase
+   (``event_phase``: the events' rows, fluid, opacities and bias, the
+   event, the outcome, the staged secondaries, in place on the pool) and
+   the ring's pack (``compact_rows``) at the path's (pool, compacted width)
+   (``hot_kernels.EVENT_PHASE_WIDTHS``: 65,536 x 8,192, 4,096 x 512, 512 x
+   256) on synthetic pools (``hot_kernels.synthetic_event_pool``: parked,
+   shadow-register, deferred, forced, doomed and unmagnetised lanes,
+   outside the plasma too) against an open ring, a ring with room for half
+   the set and a wedged one, on a copy of the pool, against
+   ``engine.event_phase_plain`` on ``draws.PhiloxDraws`` under the kernel's
+   key and ``engine.pack_rows_plain`` (``hot_kernels.compare_event_phase``:
+   every pool field, the staged rows, the counters and the ring bit for
+   bit, the refreshed opacities and bias at the event fluid's tolerance;
+   ``bound_ms`` counts the event fluid's work and the rounds the events
+   ran; ``parts_device_ms`` times the three launches it replaced, the row
+   gather, the event fluid and the event alone, on the same events); the
+   compaction (``compact``, float32 only: it takes a mask) at
+   ``COMPACT_WIDTHS`` on seeded masks, bit for bit ``engine.compact_idx``
+   (the sort), timed beside the sort (``sort_ms``), ``torch.nonzero``
+   (``nonzero_ms``) and ``torch.nonzero_static`` (``library_ms``).  Each
+   of these records gives its registers and spills.  Every
    run of phases 5-12 and 14 must launch exactly what its path runs
    (``path_launches``: the drawing hot step of its dtype and semantics once
-   per hot iteration, the row gather, the event fluid and the event kernel
-   of its dtype once per full phase, the track start of its dtype and
-   semantics once per full and light phase, no other entry point), no plain
-   hot step, load, track start or event fluid, and no ``torch.rand`` inside a
-   block (``counting_plain_steps``: it raises there, and the path lines
-   count its calls as ``plain_calls["torch.rand_in_block"]``, 0).  The
+   per hot iteration, the event phase and the ring's pack of its dtype once
+   per full phase, the compaction at least three times a full phase and
+   twice a light one, the track start of its dtype and semantics once per
+   full and light phase, no other entry point: the row gather, the event
+   fluid and the event kernel stay off the path), no plain hot step, load,
+   track start, event fluid, event phase, pack or sort-based compaction, no
+   ``torch.sort`` at all (``plain_calls["torch.sort"]``, 0), and no
+   ``torch.rand`` inside a block (``counting_plain_steps``: it raises
+   there, and the path lines count its calls as
+   ``plain_calls["torch.rand_in_block"]``, 0).  The
    kernels line's explicit hot-step records carry ``launches`` null: the
    engine's blocks run the drawing instances.  Phases 5-14 run the engine as it
    ships: each engine's block (the full phase, the hot steps, each light
@@ -101,21 +124,21 @@ Phases, each of which exits non-zero on failure:
    host tracker; its seconds and counters printed), the waves (the first
    chunk ramped), the tail cascade (each stage's width, iterations and
    device window printed); every hot step of every engine must be one
-   launch of ``hot_step_draw``, the row gather and ``event_fluid`` must run once
-   per full phase of every engine (its events' rows and fluid) and nowhere
-   else, ``fresh_init`` once per full and light phase, the cascade must
-   end with the pool empty, every full phase's scatter event must be one
-   launch of ``scatter_event``, the spectrum must be finite with a photon
+   launch of ``hot_step_draw``, every full phase's events one launch of
+   ``event_phase`` and their secondaries' pack one of ``compact_rows`` (the
+   row gather, ``event_fluid`` and ``scatter_event`` none), every
+   compaction one of ``compact``, ``fresh_init`` once per full and light
+   phase, the cascade must end with the pool empty, the spectrum must be finite with a photon
    count equal to ``n_recorded`` (the pilot's records debited), no
    secondary may be dropped, and the luminosity must lie within 10% of the
    JAX engine's 12694.3 on the same torus and seed;
 6. reference semantics end to end on the same cell (``--ref-photon-n``
    photons, ``profiles.reference_config`` with its step cap cut to
    ``--ref-stall-steps``, the same schedule): every hot step must be one
-   launch of ``hot_step_ref_draw``, the row gather must run once per full
-   phase (the track start ``fresh_init_ref`` fetches its raw rows itself,
-   once in each full and light phase), with the same checks of the
-   schedule, the spectrum and the luminosity;
+   launch of ``hot_step_ref_draw``, the event phase, the pack and the
+   compaction run as in phase 5 (the track start ``fresh_init_ref``
+   fetches its raw rows itself, once in each full and light phase), with
+   the same checks of the schedule, the spectrum and the luminosity;
 7. the gather probes (``grmonty_tpu_torch/tools/``): (a) the five kernels
    of ``csrc/gather_probe.cu`` against their plain versions at N = Z =
    65,536 and w = 32 and 216 (where the table outgrows L2 and 54 float4s
@@ -154,7 +177,7 @@ Phases, each of which exits non-zero on failure:
    the native tracker on the host.  It must pass the gate's hard gates
    (``chi2_sec_gen_per_dof`` < 5, no hotcross clamp), its luminosity ratio
    must lie within 1 +- 0.10, every hot step of its engines must be one
-   launch of ``hot_step_draw`` and the row gather must run once per full
+   launch of ``hot_step_draw`` and the event phase one launch a full
    phase; its numbers are printed on one line (``{"phase": "accuracy",
    ...}``);
 11. the sharded path and the native dump parser on the 256x256 torus:
@@ -166,7 +189,7 @@ Phases, each of which exits non-zero on failure:
    the same seed (the ``Simulation`` run is phase 8's uninterrupted one):
    every count equal and the spectrum within rtol 1e-6, with
    the launch counts set to 0 just before the sharded run (one
-   ``hot_step_draw`` launch per hot iteration, one row gather per full phase);
+   ``hot_step_draw`` launch per hot iteration, one event phase per full phase);
    ``python -m grmonty_tpu_torch --devices N`` with one rank more than the
    machine has cards must exit non-zero with "need N devices".  The
    set-up seconds of each ``Simulation`` made here (the dump read and the
@@ -177,7 +200,8 @@ Phases, each of which exits non-zero on failure:
    1,024 and 512, ``row_gather_f64``
    bitwise, ``scatter_event_f64`` at 16,384, 1,024 and 512 within rtol
    1e-11, ``scatter_chain_f64``, ``fresh_init_f64``, ``fresh_init_ref_f64``
-   and ``event_fluid_f64`` within rtol 1e-11), on the tables of a float64
+   and ``event_fluid_f64`` within rtol 1e-11, ``event_phase_f64`` and
+   ``compact_rows_f64`` as phase 4's), on the tables of a float64
    ``Simulation``
    of the cell; (b)
    that ``Simulation`` end to end, the shipped profile at
@@ -339,6 +363,14 @@ EVENT_BLOCKS = {"sampled": 2, "electron_round": 3, "second_round": 1}
 # values does none.
 FRESH_OPS = {False: 3510, True: 3600}
 EVENT_FLUID_OPS = 3240
+# The compaction's checks: each pool width of the path and the k its
+# compactions take there (the events' and the records' ev_k, the light and
+# the full phase's refill widths), on seeded masks of these densities.
+COMPACT_WIDTHS = {65536: (8192, 12288, 32768), 4096: (512, 4096), 512: (256, 512)}
+COMPACT_DENSITIES = (0.0, 0.02, 0.3, 1.0)
+# The ring that the event phase's kernels line records run against (the
+# other two are checked and printed).
+EVENT_PHASE_RING = "room"
 PROBE_BLK = 8192  # probe_pallas_gather's default blk (PROBE_BLK) for dsB
 ROWSUMS = tuple(f"gather_rowsum_{s}" for s in ("coop", "persistent", "rowloop", "smem"))
 OPS_PER_LANE = {"hot_step": 3800, "hot_step_ref": 3840, "row_gather": 0,
@@ -388,6 +420,16 @@ TOLERANCE = {
              "version's is NaN)"
        for name, rtol, atol in (("event_fluid", "1e-4", "1e-6"),
                                 ("event_fluid_f64", "1e-11", "1e-30"))},
+    **{name: ("against the plain version on draws.PhiloxDraws under the same key, on a copy of "
+              "the pool, in every ring (open, room for half the set, wedged): every pool field, "
+              "the make flags, the staged rows that make one, the counters and the ring after "
+              f"the pack bit for bit; alpha_scatti, alpha_absi and bi within rtol {rtol} atol "
+              f"{atol} on every lane")
+       for name, rtol, atol in (("event_phase", "1e-4", "1e-6"),
+                                ("event_phase_f64", "1e-11", "1e-30"))},
+    "compact": "valid, gi and sidx bitwise equal to engine.compact_idx (the sort)",
+    **{name: ("the ring's rows, count and n_sec_drop bitwise equal to engine.pack_rows_plain "
+              "(the cumsum pack)") for name in ("compact_rows", "compact_rows_f64")},
 }
 SOURCES = {"hot_step": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:104, "
                         "grmonty_tpu/transport/hotstep_pallas.py:152"),
@@ -414,11 +456,20 @@ SOURCES.update({name: ("fresh_init.cu", "no TPU kernel: XLA init_fresh, "
                 for name in ("fresh_init", "fresh_init_ref")})
 SOURCES["event_fluid"] = ("event_fluid.cu", "no TPU kernel: XLA process_scatters, "
                           "grmonty_tpu/transport/engine.py:2036")
+# Nor do the whole event phase and the compaction: the JAX engine's are XLA
+# (compact_idx a sort, the ring's pack a cumsum and a scatter).
+SOURCES["event_phase"] = ("scatter_event.cu", "no TPU kernel: XLA process_scatters, "
+                          "grmonty_tpu/transport/engine.py:2036")
+SOURCES["compact"] = ("compact.cu", "no TPU kernel: XLA compact_idx (a sort), "
+                      "grmonty_tpu/transport/engine.py:1956")
+SOURCES["compact_rows"] = ("compact.cu", "no TPU kernel: XLA process_scatters' pack (a cumsum "
+                           "and a scatter), grmonty_tpu/transport/engine.py:2036")
 # The float64 instantiations replace what their float32 kernels replace, and
 # each hot step's drawing instance what the hot step replaces.
 SOURCES.update({f"{name}_f64": SOURCES[name]
                 for name in ("hot_step", "hot_step_ref", "row_gather", "scatter_event",
-                             "scatter_chain", "fresh_init", "fresh_init_ref", "event_fluid")})
+                             "scatter_chain", "fresh_init", "fresh_init_ref", "event_fluid",
+                             "event_phase", "compact_rows")})
 SOURCES.update({f"{name}_draw": SOURCES[name]
                 for name in ("hot_step", "hot_step_ref", "hot_step_f64", "hot_step_ref_f64")})
 # Phase 7's probes, by module name under grmonty_tpu_torch/tools.
@@ -474,13 +525,15 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=REPS, queued=False):
+def cuda_ms(fn, reps=REPS, queued=False, or_none=False):
     """Mean milliseconds per call of ``fn`` by CUDA events, after a warm-up;
     the host's launch pace is part of the time.  ``queued``: the calls are
     enqueued while the stream runs a GPU sleep, so the events time the
     device's work alone; the sleep is lengthened until it outlasts the
-    enqueueing.  ``fn`` must launch few kernels: the device queues about a
-    thousand launches, and the host blocks beyond that."""
+    enqueueing (``or_none``: None where it never does, as for a call that
+    reads the device on the host; else the check fails).  ``fn`` must
+    launch few kernels: the device queues about a thousand launches, and
+    the host blocks beyond that."""
     import torch
 
     fn()
@@ -500,6 +553,8 @@ def cuda_ms(fn, reps=REPS, queued=False):
         if covered or not queued:
             return t0.elapsed_time(t1) / reps
         cycles *= 4
+    if or_none:
+        return None
     fail("the GPU sleep never outlasted the enqueueing of the timed calls")
 
 
@@ -584,7 +639,8 @@ def time_kernel(name, ref, got, plain, kern, moved_bytes, library=None, ops=None
            "ms": 0.5 * (k1 + k2), "plain_ms": 0.5 * (p1 + p2),
            "device_ms": cuda_ms(kern, queued=True),
            "library_ms": None if library is None else cuda_ms(library),
-           "library_device_ms": None if library is None else cuda_ms(library, queued=True),
+           "library_device_ms": (None if library is None
+                                 else cuda_ms(library, queued=True, or_none=True)),
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved_bytes, "n": n,
            "group": None, "threads": None, "blocks_per_sm": None}
     rec.update(extra or {})
@@ -1086,8 +1142,11 @@ def kernel_checks(sim, usage, sass, ref_stall_steps):
              + torch.unique(idx).numel() * table.shape[1] * table.element_size())
     out.append(time_kernel(name, {"rows": ref_g}, {"rows": got_g}, plain_g, kern_g,
                            moved, library=library_g))
-    return out + event_checks(sim, usage) + fresh_checks(sim, usage) + event_fluid_checks(
-        sim, usage)
+    out += event_checks(sim, usage) + fresh_checks(sim, usage) + event_fluid_checks(sim, usage)
+    out += event_phase_checks(sim, usage)
+    if sim.cfg.dtype == torch.float32:  # the compaction takes masks: one dtype
+        out += compact_checks(sim.device)
+    return out
 
 
 def fresh_moved_bytes(pool, load, ref, table, tabs, den, mc, trace):
@@ -1207,6 +1266,226 @@ def event_fluid_checks(sim, usage):
               f"(not: {sorted(set(ref) - set(bitwise))}); ptxas {ptx}")
         if j == 0:
             out.append(rec)
+    return out
+
+
+def event_phase_moved_bytes(pool, sel, on, res, stage, mc, extra):
+    """The bytes an event phase must move, each once: every slot's valid
+    flag, lane and make flag; an event's position and wave vector (x1, x2,
+    k), weight, defer count and shadow flag read and its defer count
+    written, a run event's at_event or ev_pending flag; the raw corner rows
+    of the events' cells; a surviving parent's three opacities and bias, a
+    doomed parent's weight and two flags; a secondary's six inputs and its
+    16-wide row; ``extra`` (the surface, the key, the scalars)."""
+    import torch
+
+    from grmonty_tpu_torch.ops import fluid
+
+    t = pool.w.element_size()
+    _, gi, _ = sel
+    lanes = gi[on]
+    reg = pool.ev_pending[lanes]
+    x1 = torch.where(reg, pool.ev_x[1][lanes], pool.x[1][lanes])
+    x2 = torch.where(reg, pool.ev_x[2][lanes], pool.x[2][lanes])
+    cells = torch.unique(fluid.cell_index_c(x1, x2, mc)).numel()
+    ran = on & (res.sampled | res.parent_die)
+    n_on, n_ran = int(on.sum()), int(ran.sum())
+    reg_all = torch.zeros_like(on)
+    reg_all[on] = reg
+    n_surv = int((ran & ~res.parent_die & ~reg_all).sum())
+    n_die = int((ran & res.parent_die & ~reg_all).sum())
+    n_make = int(stage.make.sum())
+    k = on.shape[0]
+    return (k * 10 + n_on * (7 * t + 9) + n_ran + cells * 32 * t + n_surv * 3 * t
+            + n_die * (t + 2) + n_make * (22 * t + 4) + nbytes(*extra))
+
+
+@contextlib.contextmanager
+def captured_events():
+    """Keep each result of ``scattering.scatter_event_c`` made inside (the
+    plain event phase's event: its rounds count the bound's work)."""
+    from grmonty_tpu_torch.ops import scattering
+
+    plain, kept = scattering.scatter_event_c, []
+
+    def keep(*a, **kw):
+        kept.append(plain(*a, **kw))
+        return kept[-1]
+
+    scattering.scatter_event_c = keep
+    try:
+        yield kept
+    finally:
+        scattering.scatter_event_c = plain
+
+
+def event_parts(pool, sel, on, den, mc, tabs, key):
+    """The three launches the event phase replaced (the row gather, the
+    event fluid, the event alone), on its events' inputs as the parent's
+    torch ops gathered them: a function that launches them, for their
+    device time beside the event phase's on the same events."""
+    import torch
+
+    from grmonty_tpu_torch.ops import fluid
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    _, gi, _ = sel
+    reg = pool.ev_pending[gi] & on
+    x = engine.where4(reg, tuple(c[gi] for c in pool.ev_x), tuple(c[gi] for c in pool.x))
+    k = engine.where4(reg, tuple(c[gi] for c in pool.ev_k), tuple(c[gi] for c in pool.k))
+    w, tries = pool.w[gi], pool.ev_tries[gi]
+    force = on & (tries >= engine.EV_FORCE)
+    idx = fluid.cell_index_c(x[1], x[2], mc).to(torch.int32)
+
+    def parts():
+        ev = hot_kernels.event_fluid(hot_kernels.row_gather(tabs.corner_rows, idx), x[1], x[2],
+                                     k, w, tries, den, mc, tabs)
+        return hot_kernels.scatter_event(k, ev.fl._replace(theta_e=ev.theta_s), ev.g7, mc.b_unit,
+                                         active=on, force=force, key=key)
+
+    return parts
+
+
+def event_phase_checks(sim, usage):
+    """Phase 4f (and 12a): the whole event phase in ``sim``'s dtype against
+    ``engine.event_phase_plain`` on ``draws.PhiloxDraws`` under the same key,
+    then the ring's pack (``compact_rows``) against
+    ``engine.pack_rows_plain``, at ``hot_kernels.EVENT_PHASE_WIDTHS`` on
+    synthetic pools (``hot_kernels.synthetic_event_pool``) against every
+    ring (``hot_kernels.EVENT_RINGS``), held by
+    ``hot_kernels.compare_event_phase`` (the pool, the staged rows, the
+    counters and the ring bit for bit, the refreshed opacities and bias at
+    the event fluid's tolerance).  The kernel updates a copy of the pool.
+    Returns the event phase's and the pack's records at the first width and
+    ``EVENT_PHASE_RING``; prints the others."""
+    import torch
+
+    from grmonty_tpu_torch.ops import draws
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    eng, mc, tabs, dev, dt = sim.engine, sim.mc, sim.tables, sim.device, sim.cfg.dtype
+    dtn = kernel_dtype(hot_kernels.entry_point("event_phase", dt))
+    name = hot_kernels.entry_point("event_phase", dt)
+    rows_name = hot_kernels.entry_point("compact_rows", dt)
+    typ = "d" if dt == torch.float64 else "f"
+    out = []
+    for j, (n, k) in enumerate(hot_kernels.EVENT_PHASE_WIDTHS):
+        shape = hot_kernels.event_shape(name, k)
+        inst = f"event_phase_kernelI{typ}Li{shape['lanes']}E"
+        ptx = usage.get(next((f for f in usage if inst in f), None))
+        for ring in hot_kernels.EVENT_RINGS:
+            pool, sec, counters, den = hot_kernels.synthetic_event_pool(eng, n, k, 2040 + k, ring)
+            sel, room, wedged = engine.event_set(pool, sec, k)
+            key = torch.tensor([0x5EED0000 + k, 0xE7E27], dtype=torch.int64, device=dev)
+            with captured_events() as kept:
+                rp, rc, rs = engine.event_phase_plain(pool, counters, sel, room, wedged, den, mc,
+                                                      tabs, draws.PhiloxDraws(key))
+            res = kept[0]
+            rsec, rc = engine.pack_rows_plain(rs, sec, rc)
+            work = engine.clone_pool(pool)
+            wsec = engine.SecBuf(*(t.clone() for t in sec))
+            wc = engine.Counters(*(t.clone() for t in counters))
+            gp, gc, gs = hot_kernels.event_phase(work, wc, sel, room, wedged, den, mc, tabs,
+                                                 key=key)
+            gsec, gc = hot_kernels.compact_rows(gs, wsec, gc)
+            torch.cuda.synchronize()
+            rec, fails = hot_kernels.compare_event_phase(name, (rp, rc, rs, rsec),
+                                                         (gp, gc, gs, gsec))
+            if gp is not work or gsec.rows is not wsec.rows:
+                fails.append("the kernels' pool or ring is not the one they were given")
+            on = sel[0] & ((torch.arange(k, device=dev) < room) | wedged)
+            label = f"{name}@{n}x{k}:{ring}"
+            print(f"  {label}: {int(on.sum())} events of {k} slots, {rec['made']} secondaries, "
+                  f"ring {int(sec.count)} -> {int(gsec.count)} of {sec.rows.shape[0]}, "
+                  f"dropped {int(gc.n_sec_drop - counters.n_sec_drop)}, bitwise among "
+                  f"{list(hot_kernels.EVENT_PHASE_TOL)}: {rec['bitwise_tol_fields']}; "
+                  f"lanes a warp {shape['lanes']}; ptxas {ptx}")
+            if fails:
+                fail(f"{label} disagrees with its plain version: " + "; ".join(fails))
+            if ring != EVENT_PHASE_RING:
+                continue
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(k)
+            plain = lambda: engine.event_phase_plain(  # noqa: E731
+                pool, counters, sel, room, wedged, den, mc, tabs, gen)
+            kern = lambda: hot_kernels.event_phase(  # noqa: E731
+                work, wc, sel, room, wedged, den, mc, tabs, key=key)
+            extra_b = (tabs.hc_coeffs, den, key, room, wedged)
+            moved = event_phase_moved_bytes(pool, sel, on, res, rs, mc, extra_b)
+            flops, int_ops = event_ops(res.rounds_el[on], res.rounds_sc[on], int(on.sum()))
+            ops = EVENT_FLUID_OPS * int(on.sum()) + event_ops_equiv(flops, int_ops, dtn)
+            parts = event_parts(pool, sel, on, den, mc, tabs, key)
+            extra = {**rec, "ptxas": ptx, "library_ms": None, "library_device_ms": None,
+                     "k": k, "ring": ring, "events": int(on.sum()), **shape,
+                     "parts_ms": cuda_ms(parts), "parts_device_ms": cuda_ms(parts, queued=True)}
+            if j:
+                extra["name"] = f"{name}@{n}x{k}"
+            full = time_kernel(name, {}, {}, plain, kern, moved, ops=ops, n=n, extra=extra)
+            # the pack, timed on a ring that holds every timed call's rows
+            tsec = engine.SecBuf(torch.empty((256 * k, engine.ROW_WIDTH), dtype=dt, device=dev),
+                                 torch.zeros((), dtype=torch.int64, device=dev))
+            tc = engine.Counters(*(t.clone() for t in counters))
+            made = int(rs.make.sum())
+            rows_rec = time_kernel(
+                rows_name, {}, {}, lambda: engine.pack_rows_plain(rs, sec, counters),
+                lambda: hot_kernels.compact_rows(gs, tsec, tc),
+                k + 2 * made * engine.ROW_WIDTH * pool.w.element_size() + 24, ops=k, n=n,
+                extra={"library_ms": None, "library_device_ms": None, "k": k, "made": made,
+                       "max_abs_err": 0.0, "max_rel_err": 0.0, "mask_mismatch": 0.0,
+                       **({"name": f"{rows_name}@{n}x{k}"} if j else {})})
+            if j == 0:
+                out += [full, rows_rec]
+    return out
+
+
+def compact_checks(dev):
+    """Phase 4g: the compaction (mask mode) against ``engine.compact_idx``
+    (the sort) at each pool width of the path and the k its compactions
+    take there (``COMPACT_WIDTHS``), on seeded masks of
+    ``COMPACT_DENSITIES``, bit for bit.  Times it at the density 0.3 beside
+    the sort (``sort_ms``), ``torch.nonzero`` (``nonzero_ms``, which reads
+    the count on the host) and, as ``library_ms``, the one call that
+    computes the same padded indices, ``torch.nonzero_static``.  Returns
+    the record at (65,536, 8,192); prints the others."""
+    import numpy as np
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    out = []
+    for n, ks in COMPACT_WIDTHS.items():
+        rng = np.random.default_rng(n)
+        for density in COMPACT_DENSITIES:
+            mask = torch.as_tensor(rng.random(n) < density, device=dev)
+            for k in ks:
+                got, want = hot_kernels.compact(mask, k), engine.compact_idx(mask, k)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    fail(f"compact@{n}: k {k} at density {density} is not bitwise the sort")
+        mask = torch.as_tensor(rng.random(n) < 0.3, device=dev)
+        for j, k in enumerate(ks):
+            def library(m=mask, kk=k, nn=n):
+                return torch.nonzero_static(m, size=kk, fill_value=nn)
+
+            try:
+                library()
+            except (RuntimeError, NotImplementedError) as e:  # not on this build's card
+                print(f"  compact@{n}: no torch.nonzero_static on the card ({e})")
+                library = None
+            extra = {"k": k, "densities": list(COMPACT_DENSITIES),
+                     "sort_ms": cuda_ms(lambda m=mask, kk=k: engine.compact_idx(m, kk)),
+                     "sort_device_ms": cuda_ms(lambda m=mask, kk=k: engine.compact_idx(m, kk),
+                                               queued=True),
+                     "nonzero_ms": cuda_ms(lambda m=mask: torch.nonzero(m)),
+                     "max_abs_err": 0.0, "max_rel_err": 0.0, "mask_mismatch": 0.0}
+            if (n, j) != (N_CHECK, 0):
+                extra["name"] = f"compact@{n}k{k}"
+            rec = time_kernel("compact", {}, {},
+                              lambda m=mask, kk=k: engine.compact_idx(m, kk),
+                              lambda m=mask, kk=k: hot_kernels.compact(m, kk),
+                              n + 17 * k, library=library, ops=n, n=n, extra=extra)
+            if (n, j) == (N_CHECK, 0):
+                out.append(rec)
     return out
 
 
@@ -1474,29 +1753,43 @@ def path_launches(cfg, stats):
     ``stats`` (hot_iters, full_phases, light_phases) must show: the fused
     hot step of its dtype and semantics, its drawing instance (every hot
     iteration runs inside a block), once per hot iteration of every
-    engine; the row gather, the event fluid and the event kernel of its
-    dtype once in each full phase (the events' rows, their fluid, the
-    events); the track start of its dtype and semantics once in each full
-    and light phase (under reference semantics it fetches its raw rows
-    itself); every other entry point never."""
+    engine; the event phase and the ring's pack of its dtype once in each
+    full phase; the track start of its dtype and semantics once in each
+    full and light phase (under reference semantics it fetches its raw
+    rows itself); the compaction at least three times a full phase (the
+    events, the records, the refill) and twice a light one (the
+    ``COMPACT_MORE`` of :func:`launch_failures`: the runs' last records and
+    the cascade's gathers and merges compact too); every other entry point
+    (the row gather, the event fluid and the event kernel among them, off
+    the path since the event phase is one kernel) never."""
     from grmonty_tpu_torch.transport import hot_kernels
 
     dt, ref, full = cfg.dtype, cfg.reference, stats["full_phases"]
     want = {hot_kernels.entry_point("hot_step", dt, ref, draw=True): stats["hot_iters"],
-            hot_kernels.entry_point("row_gather", dt): full,
-            hot_kernels.entry_point("event_fluid", dt): full,
-            hot_kernels.entry_point("scatter_event", dt): full,
+            hot_kernels.entry_point("event_phase", dt): full,
+            hot_kernels.entry_point("compact_rows", dt): full,
+            "compact": 3 * full + 2 * stats["light_phases"],
             hot_kernels.entry_point("fresh_init", dt, ref): full + stats["light_phases"]}
     return {name: want.get(name, 0) for name in hot_kernels.launches}
 
 
+# the entry points whose path_launches count is a least count
+COMPACT_MORE = ("compact",)
+# the kernels that the event phase's one kernel took off the path (float32
+# names; their float64 instantiations too)
+OFF_PATH = ("row_gather", "event_fluid", "scatter_event")
+
+
 def launch_failures(cfg, stats, counts):
     """What is wrong with a run's launch ``counts`` against
-    :func:`path_launches` (empty when they match and a hot step ran), or
-    with its replays: on the card every block is one replay of its
-    engine's graph, so ``stats["replays"]`` equals the full phases."""
+    :func:`path_launches` (empty when they match, ``COMPACT_MORE`` at or
+    above its count, and a hot step ran), or with its replays: on the card
+    every block is one replay of its engine's graph, so
+    ``stats["replays"]`` equals the full phases."""
     want = path_launches(cfg, stats)
-    bad = "" if counts == want and stats["hot_iters"] > 0 else (
+    exact = all(counts[k] == v if k not in COMPACT_MORE else counts[k] >= v
+                for k, v in want.items()) and set(counts) == set(want)
+    bad = "" if exact and stats["hot_iters"] > 0 else (
         f"launches {counts} against {want} ({stats['hot_iters']} hot iterations, "
         f"{stats['full_phases']} full and {stats['light_phases']} light phases)")
     if stats["replays"] != stats["full_phases"]:
@@ -1505,27 +1798,36 @@ def launch_failures(cfg, stats, counts):
 
 
 # The plain versions that a run on the card must not call: the hot step's,
-# the load's and the track start's, and the event fluid's.
-PLAIN_FNS = ("hot_step_plain", "init_fresh_plain", "refill_load_plain", "event_fluid_plain")
+# the load's and the track start's, the event fluid's, the event phase's,
+# the ring's pack and the compaction (the sort).
+PLAIN_FNS = ("hot_step_plain", "init_fresh_plain", "refill_load_plain", "event_fluid_plain",
+             "event_phase_plain", "pack_rows_plain", "compact_idx")
 # and what a block on the card must not call: it draws its hot steps'
 # uniforms inside their kernel
 RAND_IN_BLOCK = "torch.rand_in_block"
+# nor any part of the run: the compactions scan in their kernel
+SORT = "torch.sort"
 
 
 @contextlib.contextmanager
 def counting_plain_steps():
     """Count the calls of each plain version of ``PLAIN_FNS`` made inside
-    ({name: calls}), and the calls of ``torch.rand`` inside an engine's
-    block (``Engine._body``, at its capture and in every eager block;
-    ``RAND_IN_BLOCK``), each of which raises: a run on the card must make
-    none."""
+    ({name: calls}), of ``torch.sort`` (``SORT``), and of ``torch.rand``
+    inside an engine's block (``Engine._body``, at its capture and in every
+    eager block; ``RAND_IN_BLOCK``), which raises: a run on the card must
+    make none."""
     import torch
 
     from grmonty_tpu_torch.transport import engine
 
     saved = {name: getattr(engine, name) for name in PLAIN_FNS}
     body = engine.Engine._body
-    calls = dict.fromkeys(PLAIN_FNS + (RAND_IN_BLOCK,), 0)
+    sort = torch.sort
+    calls = dict.fromkeys(PLAIN_FNS + (RAND_IN_BLOCK, SORT), 0)
+
+    def counted_sort(*a, **kw):
+        calls[SORT] += 1
+        return sort(*a, **kw)
 
     def counting(name):
         def counted(*a, **kw):
@@ -1548,12 +1850,14 @@ def counting_plain_steps():
     for name in PLAIN_FNS:
         setattr(engine, name, counting(name))
     engine.Engine._body = guarded_body
+    torch.sort = counted_sort
     try:
         yield calls
     finally:
         for name, fn in saved.items():
             setattr(engine, name, fn)
         engine.Engine._body = body
+        torch.sort = sort
 
 
 def graph_summary(stats):
@@ -1910,9 +2214,10 @@ def f64_checks(root, args, usage, sass, ref32=None):
         del sim32
     t0 = time.monotonic()
     stats, counts = drive(sim, "shipped_f64")
-    for name in ("hot_step_f64_draw", "row_gather_f64", "scatter_event_f64", "fresh_init_f64",
-                 "event_fluid_f64"):
+    for name in ("hot_step_f64_draw", "fresh_init_f64", "event_phase_f64", "compact_rows_f64"):
         recs[name]["launches"] = counts[name]
+    for name in OFF_PATH:
+        recs[f"{name}_f64"]["launches"] = None
     st32 = ref32
     keys = ("device_s", "photon_rate_device", "hot_iters", "full_phases", "light_phases",
             "n_recorded", "n_created")
@@ -2209,14 +2514,18 @@ def main():
                                                           args.ref_stall_steps)}
 
     _, counts = drive(sim, "shipped")
-    for name in ("hot_step_draw", "scatter_event", "fresh_init", "event_fluid"):
+    for name in ("hot_step_draw", "fresh_init", "event_phase", "compact_rows", "compact"):
         kernels[name]["launches"] = counts[name]
+    # off the path since the event phase is one kernel (the counts, 0, are
+    # on the path lines): checks of the fused kernel's parts
+    for name in OFF_PATH:
+        kernels[name]["launches"] = None
     del sim
 
     ref_sim = make_simulation(root, args.ref_photon_n, reference=True,
                               stall_steps=args.ref_stall_steps)
     _, counts = drive(ref_sim, "reference")
-    for name in ("hot_step_ref_draw", "row_gather", "fresh_init_ref"):
+    for name in ("hot_step_ref_draw", "fresh_init_ref"):
         kernels[name]["launches"] = counts[name]
     del ref_sim
     graph_check(root, card)

@@ -18,8 +18,9 @@
 //     (harm_model.cpp:1026-1039): alpha_scatt and alpha_abs, each 0 where
 //     the fluid-frame frequency is negative, and the bias
 //     (engine.bias_func).
-// scatter_event.cu's kernel consumes these; the compaction, the row moves
-// and the secondaries' packing stay torch operations.
+// scatter_event.cu's event kernel consumes these.  On the engine's path
+// scatter_event.cu's event_phase kernel does this work itself (this kernel
+// and the event alone stay as checks of its parts).
 //
 // Design: one thread a lane, 128-thread blocks; each block stages the
 // (41, 31) hotcross surface in shared memory (rows padded to 32), and each

@@ -34,14 +34,14 @@
 // kept lane into new outputs: 4.2 MB at 65,536 lanes).  G threads take a
 // slot (fresh_group: 8 at the narrow sets of the cascade and the gate, 1
 // at the wide ones); they compute the same bits but for the hotcross sum,
-// whose 31 columns they split (hotcross_cols: each forms its columns' u_j
-// over ix in the fused order, then the sum of u_j T_j runs in j order over
-// a gather by shuffles, so the opacities are those of one thread a slot,
-// bit for bit), and the first of them stores.  A block with no loaded
-// slot exits at once; the others stage the (41, 31) hotcross surface in
-// shared memory (rows padded to 32) by cp.async at entry, behind the
-// row's loads, the connection and the blend, and wait on it only before
-// the sum.  A loaded lane reads its row and its corner row by 16-byte
+// whose 31 columns they split (physics.cuh's hotcross_cols: each forms its
+// columns' u_j over ix in the fused order, then the sum of u_j T_j runs in
+// j order over a gather by shuffles, so the opacities are those of one
+// thread a slot, bit for bit), and the first of them stores.  A block with
+// no loaded slot exits at once; the others stage the (41, 31) hotcross
+// surface in shared memory (rows padded to 32) by cp.async at entry,
+// behind the row's loads, the connection and the blend, and wait on it
+// only before the sum.  A loaded lane reads its row and its corner row by 16-byte
 // loads.  Measured (PERF.md, on an H100, against the kernel before it with
 // refill's row moves as torch ops, in turns): 14.0 / 268.5 us at 32,768
 // slots, 7.7 / 184.8 at 512 in float (that kernel alone: 20.3 and 13.1).
@@ -111,50 +111,6 @@ constexpr int FRESH_NSCAL = HOT_NSCAL + 2;
 // The threads a slot at K slots: the sets of the cascade's narrow pools and
 // the gate's spread over more threads.
 inline int fresh_group(int k) { return k <= 1024 ? 8 : (k <= 4096 ? 4 : 1); }
-
-// sigma_hot as hotcross<true> (physics.cuh) computes it, bit for bit, with
-// the 32 staged columns (31 and the pad) split over the slot's G threads:
-// thread `sub` forms u_j = sum_ix T_ix(tx) c[ix, j] for its 32 / G columns
-// in ix order, then each thread gathers u_0 ... u_30 in order from their
-// threads (`group`: the mask of the slot's threads, `first` the first of
-// them) and sums u_j T_j(ty) in j order.
-template <int G, typename T>
-__device__ __forceinline__ T hotcross_cols(T w, T te, const BConst<T> &C,
-                                           const typename Vec16<T>::type *hs, int sub,
-                                           unsigned group, int first) {
-  if constexpr (G == 1) {
-    return hotcross<true>(w, te, C, hs);
-  } else {
-    constexpr int E = Vec16<T>::n, COLS = HC_PITCH / G;
-    static_assert(COLS % E == 0, "whole 16-byte units of columns a thread");
-    const T l_w = jclip(fm::log10(jmax(w, T(1e-30))), C.hc_xlo, C.hc_xhi);
-    const T l_t = jclip(fm::log10(jmax(te, T(1e-30))), C.hc_ylo, C.hc_yhi);
-    const T tx = (T(2.0) * l_w - C.hc_xsum) * C.inv_hc_xdiff;
-    const T ty = (T(2.0) * l_t - C.hc_ysum) * C.inv_hc_ydiff;
-    T u[COLS];
-#pragma unroll
-    for (int q = 0; q < COLS; ++q) u[q] = T(0.0);
-    T tm2 = T(1.0), tm1 = tx;
-#pragma unroll
-    for (int ix = 0; ix < HC_NX; ++ix) {  // unrolled: a few columns hold few registers
-      const T t = cheb_next(ix, tx, tm1, tm2);
-      T c[COLS];
-#pragma unroll
-      for (int q = 0; q < COLS / E; ++q)
-        Vec16<T>::unpack(hs[ix * (HC_PITCH / E) + sub * (COLS / E) + q], c + E * q);
-#pragma unroll
-      for (int q = 0; q < COLS; ++q) u[q] = fm::fma_rn(t, c[q], u[q]);
-    }
-    T acc = T(0.0), bm2 = T(1.0), bm1 = ty;
-#pragma unroll
-    for (int j = 0; j < HC_NY; ++j)
-      acc += __shfl_sync(group, u[j % COLS], first + j / COLS) * cheb_next(j, ty, bm1, bm2);
-    const T interp = fm::exp(acc * T(2.302585092994046));
-    const T cold = hc_klein_nishina(w) * T(SIGMA_T_D);
-    const T out = (te < T(1.0e-4)) ? cold : interp;
-    return (w * te < T(1.0e-6)) ? T(SIGMA_T_D) : out;
-  }
-}
 
 template <bool kRef, typename T, int G>
 __global__ void __launch_bounds__(FRESH_THREADS)
@@ -279,7 +235,7 @@ __global__ void __launch_bounds__(FRESH_THREADS)
   barrier_wait(&hc_bar);
   const int first = (threadIdx.x & 31) & ~(G - 1);
   const unsigned group = G == 32 ? FULL : ((1u << G) - 1u) << first;
-  const T a_sc = nu_safe * hotcross_cols<G>(e_g, te, CB, hs, sub, group, first) * n_e;
+  const T a_sc = nu_safe * hotcross_cols<G>(e_g, te, CB, hs, sub, group, first, 1) * n_e;
   const T a_ab = alpha_abs(nu_safe, n_e, te, b_mag, sin_th, CB);
   const T b0 = bias_clamp(w, CB, [&] { return T(100.0) * te * te / P.bias_den[0]; });
   const bool plasma = n_e > T(0.0);

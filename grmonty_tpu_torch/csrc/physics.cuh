@@ -1,7 +1,8 @@
 // The transport's device physics, shared by the hand-written kernels of
 // this directory: hot_step.cu (the fused hot step), fresh_init.cu (the
 // track start of freshly loaded lanes), event_fluid.cu (the event phase's
-// fluid, opacities and bias) and scatter_event.cu (the event itself).
+// fluid, opacities and bias) and scatter_event.cu (the event itself, and
+// the whole event phase in one kernel).
 //
 // Each function is the plain torch version's arithmetic operation by
 // operation in the kernel's type T (float or double), as hot_step.cu's
@@ -19,7 +20,8 @@
 //     in_grid, cell_of, blend_row, derived_fluid, raw_scalars, and the raw rows'
 //     metric pair and four-vectors (metric_pair, four_vectors);
 //   - the kinematics (radiation.kinematics_sin_c), the Chebyshev hotcross
-//     (cheb.hotcross_eval, scalar form), K2, synch and B_nu
+//     (cheb.hotcross_eval, scalar form; hotcross_cols: its columns split
+//     over a lane's threads, the same bits), K2, synch and B_nu
 //     (alpha_abs: radiation.alpha_inv_abs_sin_c) and the bias clamp
 //     (engine.bias_func);
 //   - the staging of a table in shared memory by cp.async, its copies'
@@ -688,6 +690,52 @@ __device__ __forceinline__ T hotcross(T w, T te, const BConst<T> &C,
   const T cold = hc_klein_nishina(w) * T(SIGMA_T_D);
   const T out = (te < T(1.0e-4)) ? cold : interp;
   return (w * te < T(1.0e-6)) ? T(SIGMA_T_D) : out;
+}
+
+// sigma_hot as hotcross<true> computes it, bit for bit, with the 32 staged
+// columns (31 and the pad) split over a lane's G threads (fresh_init.cu,
+// the event phase of scatter_event.cu): thread `sub` forms u_j = sum_ix
+// T_ix(tx) c[ix, j] for its 32 / G columns in ix order, then each thread
+// gathers u_0 ... u_30 in order from their threads and sums u_j T_j(ty) in j
+// order.  The group's threads are first, first + stride, ... (`group` their
+// mask), thread first + q stride holding sub = q.
+template <int G, typename T>
+__device__ __forceinline__ T hotcross_cols(T w, T te, const BConst<T> &C,
+                                           const typename Vec16<T>::type *hs, int sub,
+                                           unsigned group, int first, int stride) {
+  if constexpr (G == 1) {
+    return hotcross<true>(w, te, C, hs);
+  } else {
+    constexpr int E = Vec16<T>::n, COLS = HC_PITCH / G;
+    static_assert(COLS % E == 0, "whole 16-byte units of columns a thread");
+    const T l_w = jclip(fm::log10(jmax(w, T(1e-30))), C.hc_xlo, C.hc_xhi);
+    const T l_t = jclip(fm::log10(jmax(te, T(1e-30))), C.hc_ylo, C.hc_yhi);
+    const T tx = (T(2.0) * l_w - C.hc_xsum) * C.inv_hc_xdiff;
+    const T ty = (T(2.0) * l_t - C.hc_ysum) * C.inv_hc_ydiff;
+    T u[COLS];
+#pragma unroll
+    for (int q = 0; q < COLS; ++q) u[q] = T(0.0);
+    T tm2 = T(1.0), tm1 = tx;
+#pragma unroll
+    for (int ix = 0; ix < HC_NX; ++ix) {  // unrolled: a few columns hold few registers
+      const T t = cheb_next(ix, tx, tm1, tm2);
+      T c[COLS];
+#pragma unroll
+      for (int q = 0; q < COLS / E; ++q)
+        Vec16<T>::unpack(hs[ix * (HC_PITCH / E) + sub * (COLS / E) + q], c + E * q);
+#pragma unroll
+      for (int q = 0; q < COLS; ++q) u[q] = fm::fma_rn(t, c[q], u[q]);
+    }
+    T acc = T(0.0), bm2 = T(1.0), bm1 = ty;
+#pragma unroll
+    for (int j = 0; j < HC_NY; ++j)
+      acc += __shfl_sync(group, u[j % COLS], first + (j / COLS) * stride) *
+             cheb_next(j, ty, bm1, bm2);
+    const T interp = fm::exp(acc * T(2.302585092994046));
+    const T cold = hc_klein_nishina(w) * T(SIGMA_T_D);
+    const T out = (te < T(1.0e-4)) ? cold : interp;
+    return (w * te < T(1.0e-6)) ? T(SIGMA_T_D) : out;
+  }
 }
 
 // ---------------------------------------------------------------------------

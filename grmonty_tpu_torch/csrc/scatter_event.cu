@@ -25,6 +25,11 @@
 // scatter_chain runs step 2 alone from a tetrad-frame k and theta_e (the
 // scatter-chain probe's chain); philox_words writes the generator's raw
 // words for given counters (the known-answer check against numpy).
+// event_phase runs the whole event phase between its compaction and the
+// ring in one launch, in place on the pool (event_fluid.cu's work, this
+// event, the outcome; the section before its kernel says how): on the
+// engine's path it replaces the row gather, event_fluid and this kernel
+// alone, which stay as checks of its parts.
 //
 // Random numbers: Philox4x64-10 (Salmon et al. 2011; numpy.random.Philox is
 // the same generator) under a 128-bit key that the wrapper draws from the
@@ -646,6 +651,242 @@ __global__ void __launch_bounds__(THREADS)
   for (int j = 0; j < 4; ++j) out[4 * (int64_t)i + j] = (int64_t)w.v[j];
 }
 
+// ---- the whole event phase in one kernel ------------------------------------
+//
+// event_phase_kernel<T, L>: all of Engine.process_scatters between the
+// compaction and the ring (engine.event_phase_plain), in place on the pool.
+// Slot s of the compacted set (valid, sidx; K wide) runs where it is valid
+// and within the ring's room (s < room) or the ring is wedged, on lane i =
+// sidx[s]:
+//   - the prologue (event_fluid.cu's work): the lane's position and wave
+//     vector, its shadow registers' where they hold an event; its raw corner
+//     row at its cell, fetched here by 16-byte loads; the metric pair, the
+//     fluid and its four-vectors (fluid.blend_raw); the post-event opacities
+//     at the parent's k and the bias; the samplers' theta_e, halved every
+//     EV_HALVE defers;
+//   - the event: scatter_event_kernel's, dealt over the warp's threads as
+//     there (L lanes a warp), the lane's Philox counter its slot s;
+//   - the epilogue: a deferred event (no accept within the caps) retries
+//     next phase (ev_tries + 1); the others reset ev_tries and clear at_event
+//     (or ev_pending for a shadow-register event); a doomed parent dies
+//     (w, alive, occupied cleared); a surviving parent takes the refreshed
+//     opacities and bias.  Each slot's 16-wide secondary row goes to the
+//     staging buffer (K, 16) where it makes one (`make`, written for every
+//     slot), and n_ev_soft and n_ev_forced take one atomic add a warp.
+// The ring's pack is the next launch (compact.cu, rows mode).
+//
+// At L < 32 the 32 / L threads of a lane split the hotcross sum's columns
+// (hotcross_cols, G = min(32 / L, 8) of them: the same bits as one thread).
+// Every thread of a lane loads the lane's inputs; only the lane's owner
+// (thread t < L) stores, after the warp's shuffles, which every thread's
+// loads precede.  Each valid slot's lane is its own (sidx ascending), so no
+// two slots touch one lane; an invalid slot reads nothing of the pool.
+// What the epilogue reads of the prologue (the refreshed opacities, the
+// bias, |B|) waits in shared memory across the event, a slot a thread, so
+// that the samplers run in the registers the event kernel alone had.
+
+typedef unsigned char u8;
+
+template <typename T>
+struct PhasePtrs {  // order = hot_kernels._PHASE_PTRS
+  // the pool, read at the events' lanes
+  const T *x0, *x1, *x2, *x3, *k0, *k1, *k2, *k3;
+  const T *ev_x0, *ev_x1, *ev_x2, *ev_x3, *ev_k0, *ev_k1, *ev_k2, *ev_k3, *ev_w;
+  const T *sec_w, *n_e_0, *theta_e_0, *e_0;
+  const int32_t *n_scatt;
+  // and updated in place there
+  T *w, *alpha_scatti, *alpha_absi, *bi;
+  int32_t *ev_tries;
+  u8 *alive, *occupied, *at_event, *ev_pending;
+  // the compacted set (K), the ring's room (int64) and whether it is wedged
+  const u8 *valid;
+  const int64_t *sidx, *room;
+  const u8 *wedged;
+  // the key, the bias's denominator (one value), the raw corner table, the
+  // (41, 31) hotcross surface
+  const int64_t *key;
+  const T *bias_den, *table, *hc;
+  // the staged secondaries (K, 16) and their flags (K); the counters
+  T *rows;
+  u8 *make;
+  int64_t *n_ev_soft, *n_ev_forced;
+};
+constexpr int PHASE_NPTRS = sizeof(PhasePtrs<float>) / sizeof(void *);
+static_assert(sizeof(PhasePtrs<double>) == sizeof(PhasePtrs<float>), "one pointer layout");
+// the hot step's scalars, then EV_HALVE, EV_FORCE and the lanes a warp (below
+// 1: by the width, event_lanes)
+constexpr int PHASE_NSCAL = HOT_NSCAL + 3;
+constexpr int STAGE_W = 16;  // a staged secondary's row (engine.ROW_WIDTH)
+constexpr int STASH = 4;  // the prologue's results the epilogue reads
+
+template <typename T, int L>
+__global__ void __launch_bounds__(THREADS)
+    event_phase_kernel(const PhasePtrs<T> P, const BConst<T> CB, int ev_halve, int ev_force,
+                       int k) {
+  using V = typename Vec16<T>::type;
+  constexpr int E = Vec16<T>::n;
+  // the threads a lane that split the hotcross columns
+  constexpr int G = 32 / L < 8 ? 32 / L : 8;
+  __shared__ V hs[HC_NX * HC_PITCH / E];  // the hotcross surface, rows of HC_PITCH
+  __shared__ unsigned long long hc_bar;   // its copies' barrier
+  int t;
+  const int s0 = warp_lane<L>(t);
+  const int s = s0 < k ? s0 : k - 1;
+  const bool on = s0 < k && P.valid[s] && ((int64_t)s < *P.room || *P.wedged);
+  if (!__syncthreads_or(on)) {  // no event in the block: its slots make nothing
+    if (t < L && s0 < k) P.make[s] = 0;
+    return;
+  }
+  // the surface's copies run behind the lane's loads, the blend and the metric
+  if (threadIdx.x == 0) barrier_init(&hc_bar, THREADS);
+  __syncthreads();
+  for (int q = threadIdx.x; q < HC_NX * HC_PITCH; q += THREADS) {
+    const int ix = q / HC_PITCH, j = q - ix * HC_PITCH;
+    const bool pad = j >= HC_NY;
+    T *dst = reinterpret_cast<T *>(hs) + q;
+    const T *src = P.hc + (pad ? 0 : ix * HC_NY + j);
+    if constexpr (sizeof(T) == 8)
+      cp_async8(dst, src, pad);
+    else
+      cp_async4(dst, src, pad);
+  }
+  cp_async_arrive(&hc_bar);
+
+  // the event: the shadow registers' where they hold one
+  const int i = on ? (int)P.sidx[s] : 0;
+  const bool reg = on && P.ev_pending[i];
+  auto at = [&](const T *r, const T *p) { return on ? (reg ? r[i] : p[i]) : T(0.0); };
+  const T x1 = at(P.ev_x1, P.x1), x2 = at(P.ev_x2, P.x2);
+  const T kk[4] = {at(P.ev_k0, P.k0), at(P.ev_k1, P.k1), at(P.ev_k2, P.k2), at(P.ev_k3, P.k3)};
+  const T w = on ? P.w[i] : T(0.0);
+  const int tries = on ? P.ev_tries[i] : 0;
+
+  // the fluid at the event (fluid.blend_raw on the cell's raw corner row)
+  T row[RAW_W];
+  if (on) {
+    const V *src =
+        reinterpret_cast<const V *>(P.table) + (size_t)cell_of(x1, x2, CB) * (RAW_W / E);
+#pragma unroll
+    for (int q = 0; q < RAW_W / E; ++q) Vec16<T>::unpack(__ldg(src + q), row + E * q);
+  } else {
+#pragma unroll
+    for (int q = 0; q < RAW_W; ++q) row[q] = T(0.0);
+  }
+  const bool inside = in_grid(x1, x2, CB);
+  T n_e, te, b_mag, g[7], u_con[4], u_cov[4], b_con[4], b_cov[4];
+  {
+    T pr[RAW_NC], gc[6];
+    blend_row<RAW_NC>(x1, x2, row, CB, pr);
+    raw_scalars(pr, inside, CB, n_e, te);
+    metric_pair(x1, x2, CB, g, gc);
+    four_vectors(pr, g, gc, CB, u_cov, b_cov, &b_mag, u_con, b_con);
+  }
+  // the post-event refresh (Engine.eval_alphas at the parent's k) and the bias
+  T sin_th, nu;
+  kinematics(kk, u_cov, b_cov, b_mag, CB, sin_th, nu);
+  const T nu_safe = fm::fabs(nu) + T(EPS_D);
+  const T e_g = T(HPL_D) * nu_safe * CB.inv_mecc;
+  barrier_wait(&hc_bar);
+  // this thread's place among its lane's G column threads: lane t % L's
+  // threads are t % L + L q; group q / G's G of them split the columns
+  const int sub = (t / L) % G, first = t - sub * L;
+  unsigned group = 0u;
+#pragma unroll
+  for (int q = 0; q < G; ++q) group |= 1u << (first + q * L);
+  const T a_sc = nu_safe * hotcross_cols<G>(e_g, te, CB, hs, sub, group, first, L) * n_e;
+  const T a_ab = alpha_abs(nu_safe, n_e, te, b_mag, sin_th, CB);
+  const T bias = bias_clamp(w, CB, [&] { return T(100.0) * te * te / P.bias_den[0]; });
+  const T theta_s = te * fm::exp2(-T(tries / ev_halve));
+  // what the epilogue reads of the prologue waits in shared memory across
+  // the event, a slot a thread (volatile: stored and loaded again), so that
+  // it holds no registers through the samplers
+  __shared__ T stash[STASH][THREADS];
+  volatile T *keep = &stash[0][threadIdx.x];
+  keep[0 * THREADS] = nu < T(0.0) ? T(0.0) : a_sc;
+  keep[1 * THREADS] = nu < T(0.0) ? T(0.0) : a_ab;
+  keep[2 * THREADS] = bias;
+  keep[3 * THREADS] = b_mag;
+  const bool plasma = n_e > T(0.0);
+
+  // the event (scatter_event_kernel on these inputs)
+  const bool force = on && tries >= ev_force;
+  const bool parent_die = kk[0] > T(1.0e5) || kk[0] < T(0) || fm::isnan(kk[0]) ||
+                          fm::isnan(kk[1]) || fm::isnan(kk[3]);
+  const T b_code = b_mag * CB.inv_b_unit;
+  const bool mag = b_mag > T(0);
+  const T inv_b = T(1) / clamp_min(b_code, T(1e-30));
+  T trial[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) trial[j] = mag ? b_con[j] * inv_b : T(j == 1 ? 1 : 0);
+  T e_con[4][4], e_cov[4][4];
+  make_tetrad(u_con, trial, g, e_con, e_cov);
+  T k_tet[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    k_tet[m] = e_cov[m][0] * kk[0] + e_cov[m][1] * kk[1] + e_cov[m][2] * kk[2] +
+               e_cov[m][3] * kk[3];
+  const bool invalid_frame = k_tet[0] > T(1.0e5) || k_tet[0] < T(0) || fm::isnan(k_tet[1]);
+  const bool guard = invalid_frame || parent_die || !on;
+  T p[4], k_tet_p[4];
+  bool ok_el, ok_kn;
+  int rounds_el, rounds_sc;
+  sample_lanes<L>((uint64_t)P.key[0], (uint64_t)P.key[1], s, k_tet,
+                  clamp_min(theta_s, T(1e-4)), force, !guard && s0 < k, p, ok_el, rounds_el,
+                  k_tet_p, ok_kn, rounds_sc);
+
+  // the outcome: an event that no round accepted waits for the next phase
+  const bool sampled = (ok_el && ok_kn) || guard;
+  const bool ran = on && (sampled || parent_die);
+  const bool own = t < L && s0 < k;
+  const unsigned soft = __ballot_sync(FULL, own && ran && tries >= ev_halve);
+  const unsigned forced = __ballot_sync(FULL, own && ran && force);
+  if (t == 0 && soft)
+    atomicAdd(reinterpret_cast<unsigned long long *>(P.n_ev_soft),
+              (unsigned long long)__popc(soft));
+  if (t == 0 && forced)
+    atomicAdd(reinterpret_cast<unsigned long long *>(P.n_ev_forced),
+              (unsigned long long)__popc(forced));
+  if (!own) return;
+  T k_sec[4], tmp[4];
+  tetrad_to_coordinate(e_con, k_tet_p, k_sec);
+  const T flip[4] = {-k_tet_p[0], k_tet_p[1], k_tet_p[2], k_tet_p[3]};
+  tetrad_to_coordinate(e_cov, flip, tmp);
+  const bool made = !(parent_die || invalid_frame || fm::isnan(k_sec[1]));
+  const bool make = ran && made && plasma && !parent_die;
+  P.make[s] = make;
+  if (!on) return;
+  if (ran && !parent_die && !reg) {  // a surviving parent (harm_model.cpp:1026-1039)
+    P.alpha_scatti[i] = keep[0 * THREADS];
+    P.alpha_absi[i] = keep[1 * THREADS];
+    P.bi[i] = keep[2 * THREADS];
+  }
+  if (ran && parent_die && !reg) {
+    P.w[i] = T(0.0);
+    P.alive[i] = 0;
+    P.occupied[i] = 0;
+  }
+  P.ev_tries[i] = ran ? 0 : tries + 1;
+  if (ran && reg) P.ev_pending[i] = 0;
+  if (ran && !reg) P.at_event[i] = 0;
+  if (make) {  // the secondary's row (engine.ROW_*), born at the event
+    T *r = P.rows + (size_t)s * STAGE_W;
+    r[0] = at(P.ev_x0, P.x0);
+    r[1] = x1;
+    r[2] = x2;
+    r[3] = at(P.ev_x3, P.x3);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r[4 + j] = k_sec[j];
+    r[8] = at(P.ev_w, P.sec_w);
+    r[9] = -tmp[0];
+    r[10] = tmp[3];
+    r[11] = P.n_e_0[i];
+    r[12] = P.theta_e_0[i];
+    r[13] = keep[3 * THREADS];
+    r[14] = P.e_0[i];
+    r[15] = (T)(P.n_scatt[i] + 1);
+  }
+}
+
 // The lanes a warp of the event kernel's instance at n lanes: one a thread
 // where the launch fills the card; fewer where it does not, down to one
 // lane a warp (its 16 electron rounds in one pass) at the cascade's and the
@@ -684,6 +925,35 @@ int launch_event(void **ptrs, const double *scal, int n, void *stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, int L>
+void launch_phase_at(const PhasePtrs<T> &P, const BConst<T> &CB, int ev_halve, int ev_force,
+                     int k, cudaStream_t stream) {
+  event_phase_kernel<T, L><<<blocks_for(k, THREADS / 32 * L), THREADS, 0, stream>>>(
+      P, CB, ev_halve, ev_force, k);
+}
+
+// event_phase: pointers in the order of PhasePtrs, the scalars PHASE_NSCAL,
+// k the compacted width K.
+template <typename T>
+int launch_phase(void **ptrs, const double *scal, int k, void *stream) {
+  if (k <= 0) return (int)cudaGetLastError();
+  PhasePtrs<T> P;
+  memcpy(&P, ptrs, sizeof(PhasePtrs<T>));
+  AConst<T> CA;
+  BConst<T> CB;
+  make_consts<T>(scal, CA, CB);
+  const int ev_halve = (int)scal[HOT_NSCAL], ev_force = (int)scal[HOT_NSCAL + 1];
+  const int lanes = scal[HOT_NSCAL + 2] >= 1.0 ? (int)scal[HOT_NSCAL + 2] : event_lanes(k);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (lanes) {
+    case 32: launch_phase_at<T, 32>(P, CB, ev_halve, ev_force, k, s); break;
+    case 8: launch_phase_at<T, 8>(P, CB, ev_halve, ev_force, k, s); break;
+    case 1: launch_phase_at<T, 1>(P, CB, ev_halve, ev_force, k, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_chain(void **ptrs, int n, void *stream) {
   if (n > 0)
@@ -708,6 +978,12 @@ int philox_words_nptrs() { return 3; }
 int philox_words_nscal() { return 0; }
 int scatter_event_lanes(int n) { return event_lanes(n); }
 int scatter_event_f64_lanes(int n) { return event_lanes(n); }
+int event_phase_nptrs() { return PHASE_NPTRS; }
+int event_phase_nscal() { return PHASE_NSCAL; }
+int event_phase_f64_nptrs() { return PHASE_NPTRS; }
+int event_phase_f64_nscal() { return PHASE_NSCAL; }
+int event_phase_lanes(int k) { return event_lanes(k); }
+int event_phase_f64_lanes(int k) { return event_lanes(k); }
 
 int scatter_event_launch(void **ptrs, const double *scal, int n, void *stream) {
   return launch_event<float>(ptrs, scal, n, stream);
@@ -715,6 +991,14 @@ int scatter_event_launch(void **ptrs, const double *scal, int n, void *stream) {
 
 int scatter_event_f64_launch(void **ptrs, const double *scal, int n, void *stream) {
   return launch_event<double>(ptrs, scal, n, stream);
+}
+
+int event_phase_launch(void **ptrs, const double *scal, int k, void *stream) {
+  return launch_phase<float>(ptrs, scal, k, stream);
+}
+
+int event_phase_f64_launch(void **ptrs, const double *scal, int k, void *stream) {
+  return launch_phase<double>(ptrs, scal, k, stream);
 }
 
 int scatter_chain_launch(void **ptrs, const double *, int n, void *stream) {

@@ -172,7 +172,7 @@ def tail_gather(pool, n_t):
     pool's padding lanes copy the last lane and are masked: not occupied,
     alive, pend_push, at_event, record_pending or ev_pending."""
     occ = pool.occupied
-    valid, gi, _ = engine_mod.compact_idx(occ, n_t)
+    valid, gi, _ = hot_kernels.compact(occ, n_t)
     take = occ & (torch.cumsum(occ.to(torch.int64), 0) <= n_t)
     small = _map_pool(lambda a: a[gi], pool)
     small = small._replace(**{name: getattr(small, name) & valid for name in (
@@ -186,7 +186,7 @@ def tail_merge(wide, small):
     ``wide``, in order; returns the merged wide pool."""
     n_t = small.occupied.shape[0]
     n_pool = wide.occupied.shape[0]
-    _, _, free_idx = engine_mod.compact_idx(~wide.occupied, n_t)
+    _, _, free_idx = hot_kernels.compact(~wide.occupied, n_t)
     occ = small.occupied
     lrank = torch.cumsum(occ.to(torch.int64), 0) - 1
     dest = torch.where(occ, free_idx[torch.clamp(torch.where(occ, lrank, 0), max=n_t - 1)],

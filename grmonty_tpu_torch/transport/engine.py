@@ -16,16 +16,20 @@ Photons are an SoA pool of (N,) tensors stepped in lockstep:
   rows;
 * every ``refill_period`` iterations a **light phase** records escaped
   photons and refills free lanes; every ``m_period`` iterations the **full
-  phase** also runs the deferred scattering events, the event itself on
-  CUDA tensors as one hand-written kernel (``hot_kernels.scatter_event``,
-  its own Philox stream a lane under a key drawn from the generator), on
-  CPU tensors as the plain ``scattering.scatter_event_c``; the events'
-  fluid, opacities and bias (``hot_kernels.event_fluid``) and each
-  refill's row moves with the track start of the lanes they fill
-  (``hot_kernels.fresh_init``; :meth:`Engine.refill` keeps the compaction
-  and the slots' sources, a :class:`FreshLoad`) are one kernel each on the
-  card, the track start in place on the pool, :func:`event_fluid_plain`
-  and :func:`init_fresh_plain` on the CPU;
+  phase** also runs the deferred scattering events.  On CUDA tensors each
+  compaction of the pool's lanes is one hand-written kernel
+  (``hot_kernels.compact``, an order-preserving scan), the whole event
+  phase between its compaction and the ring another, in place on the pool
+  (``hot_kernels.event_phase``: the events' rows, fluid, opacities and
+  bias, the event with its own Philox stream a lane under a key drawn from
+  the generator, the outcome, the secondaries staged), the ring's pack a
+  third (``hot_kernels.compact_rows``), and each refill's row moves with
+  the track start of the lanes they fill (``hot_kernels.fresh_init``;
+  :meth:`Engine.refill` keeps the compaction and the slots' sources, a
+  :class:`FreshLoad`) a fourth, in place on the pool; on CPU tensors the
+  plain :func:`compact_idx` (a sort), :func:`event_phase_plain` (the plain
+  event ``scattering.scatter_event_c`` drawing from the generator),
+  :func:`pack_rows_plain` and :func:`init_fresh_plain`;
 * :meth:`Engine.run` loops those blocks on the host, reading the exit
   condition once per ``m_period`` block (and logging its progress every
   ``PROGRESS_ITERS`` iterations of a long run).  A block (the JAX engine's
@@ -47,6 +51,7 @@ A block also computes the bias scale once after each phase
 (:meth:`Engine._bias_scale`): no hot step changes what it reads.
 """
 
+import gc
 import logging
 import time
 import typing
@@ -55,7 +60,7 @@ import numpy as np
 import torch
 
 from grmonty_tpu_torch import consts
-from grmonty_tpu_torch.ops import fluid, geometry, radiation
+from grmonty_tpu_torch.ops import fluid, geometry, radiation, scattering
 from grmonty_tpu_torch.ops import hotcross as hc_mod
 
 N_SPEC_CHAN = 16  # 13 reference channels + sum((w*e)^2), secondary count,
@@ -627,7 +632,9 @@ def hot_step_plain(p: Pool, counters: Counters, u_roul, u_x1, bias_scale, mc,
 def compact_idx(mask, k):
     """First-k lane indices where mask, ascending, k-padded: returns
     (valid, gi, sidx) — validity, gather indices clamped for reads, and
-    scatter indices equal to n for the padding (see :func:`put`)."""
+    scatter indices equal to n for the padding (see :func:`put`).  The
+    plain version of ``csrc/compact.cu``'s mask mode (one sort, as the JAX
+    engine's); the engine calls ``hot_kernels.compact``."""
     n = mask.shape[0]
     lane = torch.arange(n, device=mask.device)
     idx = torch.sort(torch.where(mask, lane, n)).values[:k]
@@ -823,6 +830,122 @@ def event_fluid_plain(rows, x1, x2, k, w, tries, bias_den, mc, tables: EngineTab
                       torch.where(neg, zero, a_abf), bias_func(fl.theta_e, w, bias_den))
 
 
+class EventStage(typing.NamedTuple):
+    """The event phase's secondaries before the ring's pack, one a slot of
+    its compacted set (:func:`event_phase_plain`)."""
+
+    rows: torch.Tensor  # (K, ROW_WIDTH) the secondary born at the slot's event
+    make: torch.Tensor  # (K,) bool: whether the slot made one
+
+
+def event_set(p: Pool, sec: SecBuf, k):
+    """What the event phase runs on (:meth:`Engine.process_scatters`): the
+    first ``k`` lanes holding an event (``hot_kernels.compact``: (valid, gi,
+    sidx)), the ring's free rows ``room`` and whether it is ``wedged`` (0-d
+    int64 and bool).  Never sample more events than the ring has room for,
+    unless it is full and no lane is free (then overflow drops and counts)."""
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    sel = hot_kernels.compact(p.ev_pending | p.at_event, k)
+    room = torch.clamp(sec.rows.shape[0] - sec.count, min=0)
+    return sel, room, (room == 0) & p.occupied.all()
+
+
+def event_phase_plain(p: Pool, counters, sel, room, wedged, bias_den, mc,
+                      tables: EngineTables, src):
+    """The event phase between the compaction and the ring (the plain
+    version of ``csrc/scatter_event.cu``'s event_phase_kernel).  ``sel``:
+    the compacted set (valid, gi, sidx) of the lanes holding an event, of
+    which the first ``room`` run (0-d int64: the ring's free rows) unless
+    the ring is ``wedged`` (0-d bool: full, and no lane free; then overflow
+    drops and counts); ``bias_den`` as :func:`bias_func` takes it; ``src``
+    the events' draws (a ``torch.Generator``, or ``draws.PhiloxDraws``).
+    Each runs its shadow registers' event where they hold one, else the
+    parked one: the raw corner row at its cell, the fluid, opacities and
+    bias (:func:`event_fluid_plain`), the scatter event
+    (``scattering.scatter_event_c``); sampler lanes that did not accept
+    within their round caps stay pending and retry next phase (the sampler
+    theta_e halves every ``EV_HALVE`` defers and the draw is forced at
+    ``EV_FORCE``), doomed parents die, surviving parents take the
+    post-event opacities and bias.  Returns (pool, counters, stage): the
+    counters with n_ev_soft and n_ev_forced added to, and the
+    :class:`EventStage` of the secondaries' rows."""
+    valid, gi, sidx = sel
+    rank_e = torch.arange(valid.shape[0], device=valid.device)
+    valid = valid & ((rank_e < room) | wedged)
+
+    cols = take_cols(gi, [*p.x, *p.k, p.sec_w, p.w, p.ev_tries,
+                          p.n_e_0, p.theta_e_0, p.e_0, p.n_scatt,
+                          p.alive, p.occupied, p.at_event,
+                          p.alpha_scatti, p.alpha_absi, p.bi,
+                          p.ev_pending, *p.ev_x, *p.ev_k, p.ev_w])
+    (x0g, x1g, x2g, x3g, k0g, k1g, k2g, k3g, secw_g, wg, tries_g,
+     ne0_g, te0_g, e0_g, nsc_g, alive_g, occ_g, atev_g,
+     asc_g, aab_g, bi_g, evp_g) = cols[:22]
+    evx, evk, evw_g = cols[22:26], cols[26:30], cols[30]
+
+    # a lane whose shadow registers hold an event runs that event
+    reg_g = evp_g & valid
+    xg = where4(reg_g, evx, (x0g, x1g, x2g, x3g))
+    kg = where4(reg_g, evk, (k0g, k1g, k2g, k3g))
+    secw_g = torch.where(reg_g, evw_g, secw_g)
+    force_g = valid & (tries_g >= EV_FORCE)
+
+    rows = tables.corner_rows[fluid.cell_index_c(xg[1], xg[2], mc)]
+    ev = event_fluid_plain(rows, xg[1], xg[2], kg, wg, tries_g, bias_den, mc, tables)
+    g7, fl = ev.g7, ev.fl
+    res = scattering.scatter_event_c(src, kg, fl._replace(theta_e=ev.theta_s), g7, mc.b_unit,
+                                     active=valid, force=force_g)
+
+    defer_g = valid & ~(res.sampled | res.parent_die)
+    valid = valid & ~defer_g
+    parent_die = valid & res.parent_die & ~reg_g
+    make = valid & res.made & (fl.n_e > 0.0) & ~res.parent_die
+
+    # post-event opacity refresh of surviving parents (:1026-1039)
+    surv = valid & ~res.parent_die & ~reg_g
+    zero = torch.zeros_like(wg)
+    news = put_cols(sidx, [
+        (p.alpha_scatti, torch.where(surv, ev.a_sc, asc_g)),
+        (p.alpha_absi, torch.where(surv, ev.a_ab, aab_g)),
+        (p.bi, torch.where(surv, ev.bias, bi_g)),
+        (p.w, torch.where(parent_die, zero, wg)),
+        (p.ev_tries, torch.where(defer_g, tries_g + 1,
+                                 torch.where(valid, 0, tries_g)).to(torch.int32)),
+        (p.alive, alive_g & ~parent_die),
+        (p.occupied, occ_g & ~parent_die),
+        (p.at_event, atev_g & ~(valid & ~reg_g)),
+        (p.ev_pending, evp_g & ~(valid & reg_g)),
+    ])
+    p = p._replace(**dict(zip(
+        ("alpha_scatti", "alpha_absi", "bi", "w", "ev_tries", "alive",
+         "occupied", "at_event", "ev_pending"), news)))
+    new_rows = torch.stack([
+        *xg, *res.k_sec, secw_g, res.e_sec, res.l_sec, ne0_g, te0_g, fl.b,
+        e0_g, (nsc_g + 1).to(wg.dtype)], dim=-1)
+    counters = counters._replace(
+        n_ev_soft=counters.n_ev_soft + (valid & (tries_g >= EV_HALVE)).sum(),
+        n_ev_forced=counters.n_ev_forced + (valid & force_g).sum(),
+    )
+    return p, counters, EventStage(new_rows, make)
+
+
+def pack_rows_plain(stage: EventStage, sec: SecBuf, counters):
+    """Pack the staged secondaries that ``stage`` makes into the ring at
+    count + their rank among them (the slots' order, which refill's LIFO
+    reads back), as far as the ring holds them; the rest are dropped and
+    counted in n_sec_drop (the plain version of ``csrc/compact.cu``'s rows
+    mode).  Returns (sec, counters)."""
+    sec_cap = sec.rows.shape[0]
+    rank = torch.cumsum(stage.make.to(torch.int64), 0) - 1
+    pos = sec.count + rank
+    fits = stage.make & (pos < sec_cap)
+    slot = torch.where(fits, pos, sec_cap)
+    sec = SecBuf(rows=put(sec.rows, slot, stage.rows), count=sec.count + fits.sum())
+    counters = counters._replace(n_sec_drop=counters.n_sec_drop + (stage.make & ~fits).sum())
+    return sec, counters
+
+
 class Engine:
     """The transport engine of one dump (the counterpart of the JAX
     ``make_engine`` closure).  ``gen``: the run's ``torch.Generator``, on
@@ -962,11 +1085,13 @@ class Engine:
     def spectrum_add(self, spec, counters, p: Pool, width=None):
         """Record up to ``width`` escaped lanes (harm_model.cpp:1291-1335);
         NaN-poisoned pending lanes are freed unrecorded."""
+        from grmonty_tpu_torch.transport import hot_kernels
+
         mc, dt = self.mc, self.dt
         bad = p.record_pending & (torch.isnan(p.w) | torch.isnan(p.e))
         # a lane holding an unconsumed event records after it is consumed
         rec = p.record_pending & ~bad & ~p.ev_pending
-        valid, gi, sidx = compact_idx(rec, self.ev_k if width is None else width)
+        valid, gi, sidx = hot_kernels.compact(rec, self.ev_k if width is None else width)
 
         (x2g, x3g, w, e, nsc, nsc0_g, x1ig, x2ig, tabs_g, tsc_g, ne0_g,
          te0_g, b0_g, e0_g, occ_g, rp_g) = take_cols(
@@ -1029,89 +1154,18 @@ class Engine:
 
     def process_scatters(self, p: Pool, sec: SecBuf, counters):
         """Run deferred scatter events (compacted) and pack the secondaries
-        into the ring.  Sampler lanes that did not accept within their round
-        caps stay pending and retry next phase; the sampler theta_e halves
-        every ``EV_HALVE`` defers and the draw is forced at ``EV_FORCE``.
-        The events' raw corner rows are one ``hot_kernels.row_gather``, their
-        fluid, opacities and bias ``hot_kernels.event_fluid``, the event
-        ``hot_kernels.scatter_event``."""
+        into the ring (:func:`event_phase_plain`, :func:`pack_rows_plain`).
+        On the card three launches: the compaction
+        (``hot_kernels.compact``), the whole event phase in place on the
+        pool (``hot_kernels.event_phase``) and the ring's pack
+        (``hot_kernels.compact_rows``)."""
         from grmonty_tpu_torch.transport import hot_kernels
 
-        mc, dt = self.mc, self.dt
-        valid, gi, sidx = compact_idx(p.ev_pending | p.at_event, self.ev_k)
-        # never sample more events than the ring has room for, unless the
-        # ring is full and no lane is free (then overflow drops and counts)
-        sec_cap = sec.rows.shape[0]
-        room = torch.clamp(sec_cap - sec.count, min=0)
-        rank_e = torch.arange(self.ev_k, device=self.device)
-        wedged = (room == 0) & ~torch.any(~p.occupied)
-        valid = valid & ((rank_e < room) | wedged)
-
-        cols = take_cols(gi, [*p.x, *p.k, p.sec_w, p.w, p.ev_tries,
-                              p.n_e_0, p.theta_e_0, p.e_0, p.n_scatt,
-                              p.alive, p.occupied, p.at_event,
-                              p.alpha_scatti, p.alpha_absi, p.bi,
-                              p.ev_pending, *p.ev_x, *p.ev_k, p.ev_w])
-        (x0g, x1g, x2g, x3g, k0g, k1g, k2g, k3g, secw_g, wg, tries_g,
-         ne0_g, te0_g, e0_g, nsc_g, alive_g, occ_g, atev_g,
-         asc_g, aab_g, bi_g, evp_g) = cols[:22]
-        evx, evk, evw_g = cols[22:26], cols[26:30], cols[30]
-
-        # a lane whose shadow registers hold an event runs that event
-        reg_g = evp_g & valid
-        xg = where4(reg_g, evx, (x0g, x1g, x2g, x3g))
-        kg = where4(reg_g, evk, (k0g, k1g, k2g, k3g))
-        secw_g = torch.where(reg_g, evw_g, secw_g)
-        force_g = valid & (tries_g >= EV_FORCE)
-
-        rows = hot_kernels.row_gather(self.tables.corner_rows,
-                                      fluid.cell_index_c(xg[1], xg[2], mc).to(torch.int32))
-        # one launch each of the fluid kernel and the event kernel on the
-        # card, the plain versions here
-        ev = hot_kernels.event_fluid(rows, xg[1], xg[2], kg, wg, tries_g,
-                                     self._bias_den(counters), mc, self.tables)
-        g7, fl = ev.g7, ev.fl
-        res = hot_kernels.scatter_event(kg, fl._replace(theta_e=ev.theta_s), g7, mc.b_unit,
-                                        active=valid, force=force_g, gen=self.gen)
-
-        defer_g = valid & ~(res.sampled | res.parent_die)
-        valid = valid & ~defer_g
-        parent_die = valid & res.parent_die & ~reg_g
-        make = valid & res.made & (fl.n_e > 0.0) & ~res.parent_die
-
-        # post-event opacity refresh of surviving parents (:1026-1039)
-        surv = valid & ~res.parent_die & ~reg_g
-        zero = torch.zeros_like(wg)
-        news = put_cols(sidx, [
-            (p.alpha_scatti, torch.where(surv, ev.a_sc, asc_g)),
-            (p.alpha_absi, torch.where(surv, ev.a_ab, aab_g)),
-            (p.bi, torch.where(surv, ev.bias, bi_g)),
-            (p.w, torch.where(parent_die, zero, wg)),
-            (p.ev_tries, torch.where(defer_g, tries_g + 1,
-                                     torch.where(valid, 0, tries_g)).to(torch.int32)),
-            (p.alive, alive_g & ~parent_die),
-            (p.occupied, occ_g & ~parent_die),
-            (p.at_event, atev_g & ~(valid & ~reg_g)),
-            (p.ev_pending, evp_g & ~(valid & reg_g)),
-        ])
-        p = p._replace(**dict(zip(
-            ("alpha_scatti", "alpha_absi", "bi", "w", "ev_tries", "alive",
-             "occupied", "at_event", "ev_pending"), news)))
-
-        # pack secondaries at count + prefix rank
-        rank = torch.cumsum(make.to(torch.int64), 0) - 1
-        pos = sec.count + rank
-        fits = make & (pos < sec_cap)
-        slot = torch.where(fits, pos, sec_cap)
-        new_rows = torch.stack([
-            *xg, *res.k_sec, secw_g, res.e_sec, res.l_sec, ne0_g, te0_g, fl.b,
-            e0_g, (nsc_g + 1).to(dt)], dim=-1)
-        sec = SecBuf(rows=put(sec.rows, slot, new_rows), count=sec.count + fits.sum())
-        counters = counters._replace(
-            n_sec_drop=counters.n_sec_drop + (make & ~fits).sum(),
-            n_ev_soft=counters.n_ev_soft + (valid & (tries_g >= EV_HALVE)).sum(),
-            n_ev_forced=counters.n_ev_forced + (valid & force_g).sum(),
-        )
+        sel, room, wedged = event_set(p, sec, self.ev_k)
+        p, counters, stage = hot_kernels.event_phase(
+            p, counters, sel, room, wedged, self._bias_den(counters), self.mc, self.tables,
+            gen=self.gen)
+        sec, counters = hot_kernels.compact_rows(stage, sec, counters)
         return p, sec, counters
 
     def refill(self, sec: SecBuf, occupied, backlog_rows, backlog_pos, counters, n_valid,
@@ -1121,9 +1175,11 @@ class Engine:
         ring's count and the backlog position past what the slots take, the
         created count, and the :class:`FreshLoad` that :meth:`init_fresh`
         loads and starts."""
+        from grmonty_tpu_torch.transport import hot_kernels
+
         t_total = backlog_rows.shape[0]
         k_w = self.rf_k if width is None else width
-        valid_g, _, sidx_g = compact_idx(~occupied, k_w)
+        valid_g, _, sidx_g = hot_kernels.compact(~occupied, k_w)
         rank_g = torch.arange(k_w, device=self.device)
         n_sec = sec.count if use_sec else torch.zeros_like(sec.count)
         from_sec_g = valid_g & (rank_g < n_sec)
@@ -1287,8 +1343,9 @@ class Engine:
         block with the run's generator registered.  The launch and phase
         counts, the generator and the engine's copy of ``state`` are left as
         they were found; what one block adds to the counts is kept and
-        credited once per replay.  Returns the seconds it took.  A capture
-        that fails raises."""
+        credited once per replay.  The garbage collector is off during the
+        capture.  Returns the seconds it took.  A capture that fails
+        raises."""
         if not self.graphed or self._graph is not None:
             return 0.0
         t0 = time.monotonic()
@@ -1303,10 +1360,20 @@ class Engine:
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.gen)
-        # thread_local: another thread's CUDA calls (a process group's
-        # watchdog) stay legal while this thread captures
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            credit = self._counting(self._body)
+        # No collection inside the capture: another engine's graph left in a
+        # reference cycle and collected there would be destroyed inside it,
+        # which the driver refuses and which invalidates the capture.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # thread_local: another thread's CUDA calls (a process group's
+            # watchdog) stay legal while this thread captures
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                credit = self._counting(self._body)
+        finally:
+            if collecting:
+                gc.enable()
         self.gen.set_state(gen_state)
         self._load(state, backlog_rows, nv)
         torch.cuda.synchronize(self.device)

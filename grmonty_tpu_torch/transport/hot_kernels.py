@@ -43,6 +43,18 @@ probe, and :func:`philox_words` writes the generator's raw words.  No TPU
 kernel does this: the JAX package's event phase is XLA
 (``grmonty_tpu/transport/engine.py:2036``).
 
+The same file holds the whole event phase between its compaction and the
+ring as one kernel, in place on the pool (:func:`event_phase`:
+``event_phase`` / ``event_phase_f64``; ``engine.event_phase_plain``): the
+events' raw corner rows, fluid, opacities and bias, the event, the
+outcome, the secondaries' rows staged; ``csrc/compact.cu`` the pool's
+order-preserving compaction (:func:`compact`: ``compact``, one block's
+scan; ``engine.compact_idx``, the sort) and the ring's pack of the staged
+rows (:func:`compact_rows`: ``compact_rows`` / ``compact_rows_f64``;
+``engine.pack_rows_plain``).  The event alone, the event fluid and the
+row gather stay as checks of the event phase's parts, off the engine's
+path.
+
 ``csrc/fresh_init.cu`` holds refill's row moves and the track start of
 the lanes they fill, in place on the pool (:func:`fresh_init`:
 ``fresh_init`` / ``fresh_init_ref`` and their ``_f64`` instantiations;
@@ -56,8 +68,9 @@ step share the device physics of ``csrc/physics.cuh``.
 
 The headers of the ``.cu`` files say what bounds each kernel on the card.
 
-:func:`hot_step`, :func:`row_gather`, :func:`gather_rowsum` and
-:func:`row_gather_rowloop` take their plain versions' arguments.  On CPU
+:func:`hot_step`, :func:`row_gather`, :func:`gather_rowsum`,
+:func:`row_gather_rowloop` and :func:`compact` take their plain versions'
+arguments.  On CPU
 tensors they call the plain versions (``engine.hot_step_plain`` /
 indexing); on CUDA tensors they launch the kernel of the tensors' dtype
 (:func:`entry_point`), or raise.  ``launches``
@@ -109,7 +122,9 @@ launches = {"hot_step": 0, "hot_step_ref": 0, "row_gather": 0, "hot_step_f64": 0
             "gather_rowsum_smem": 0, "row_gather_rowloop": 0, "scatter_event": 0,
             "scatter_event_f64": 0, "scatter_chain": 0, "scatter_chain_f64": 0,
             "philox_words": 0, "fresh_init": 0, "fresh_init_ref": 0, "fresh_init_f64": 0,
-            "fresh_init_ref_f64": 0, "event_fluid": 0, "event_fluid_f64": 0}
+            "fresh_init_ref_f64": 0, "event_fluid": 0, "event_fluid_f64": 0,
+            "event_phase": 0, "event_phase_f64": 0, "compact": 0, "compact_rows": 0,
+            "compact_rows_f64": 0}
 # The dtypes the hot step and the row gather have kernels for, and the
 # suffix of their entry points: the float32 kernels keep their names.
 DTYPE_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
@@ -152,19 +167,23 @@ def credit(added):
 
 def entry_point(kernel, dtype, reference=False, draw=False):
     """The entry point that runs ``kernel`` ("hot_step", "row_gather",
-    "scatter_event", "scatter_chain", "fresh_init" or "event_fluid") on
-    tensors of ``dtype``: the reference variant of the hot step and of the
-    track start under ``reference``, the float64 instantiation for float64,
-    and under ``draw`` the hot step's drawing instance (``_draw``).  Raises
-    a ValueError for a dtype that has no kernel."""
+    "scatter_event", "scatter_chain", "fresh_init", "event_fluid",
+    "event_phase", "compact_rows" or "compact") on tensors of ``dtype``: the
+    reference variant of the hot step and of the track start under
+    ``reference``, the float64 instantiation for float64 (the compaction of
+    a mask has one entry point, "compact", for every dtype), and under
+    ``draw`` the hot step's drawing instance (``_draw``).  Raises a
+    ValueError for a dtype that has no kernel."""
     if kernel not in ("hot_step", "row_gather", "scatter_event", "scatter_chain",
-                      "fresh_init", "event_fluid"):
+                      "fresh_init", "event_fluid", "event_phase", "compact_rows", "compact"):
         raise ValueError(f"no entry point for kernel {kernel!r}")
     if draw and kernel != "hot_step":
         raise ValueError(f"{kernel}: only the hot step has a drawing instance")
     if dtype not in DTYPE_SUFFIX:
         raise ValueError(f"{kernel}: no kernel for {dtype} (only "
                          f"{', '.join(str(d) for d in DTYPE_SUFFIX)})")
+    if kernel == "compact":
+        return kernel
     base = kernel + "_ref" if kernel in ("hot_step", "fresh_init") and reference else kernel
     return base + DTYPE_SUFFIX[dtype] + ("_draw" if draw else "")
 
@@ -216,6 +235,18 @@ _FRESH_PTRS = (_FRESH_LOAD + _FRESH_START + _BIRTH + _FRESH_SLOTS
 # fields flattened); its scalars the hot step's, then EV_HALVE.
 _FLUID_IN = "rows x1 x2 k0 k1 k2 k3 w tries bias_den hc".split()
 _FLUID_OUT = 30
+# The whole event phase (PhasePtrs of csrc/scatter_event.cu): the pool's
+# fields it reads at the events' lanes, those it updates there in place, the
+# compacted set, the ring's room and wedged flag, the key, the bias's
+# denominator, the raw corner table and the surface, the staged rows and
+# their flags, the two counters.  Its scalars: the hot step's, then
+# EV_HALVE, EV_FORCE and the lanes a warp (below 1: by the width).
+_PHASE_READ = ("x0 x1 x2 x3 k0 k1 k2 k3 ev_x0 ev_x1 ev_x2 ev_x3 ev_k0 ev_k1 ev_k2 ev_k3 ev_w "
+               "sec_w n_e_0 theta_e_0 e_0 n_scatt").split()
+_PHASE_WRITE = "w alpha_scatti alpha_absi bi ev_tries alive occupied at_event ev_pending".split()
+_PHASE_PTRS = (_PHASE_READ + _PHASE_WRITE
+               + "valid sidx room wedged key bias_den table hc rows make n_ev_soft n_ev_forced"
+               .split())
 # (pointers, scalars) each entry point takes
 _ABI = {**{f"hot_step{r}{x}{d}": (len(_HOT_REF_PTRS if r else _HOT_PTRS),
                                    _HOT_NSCAL + (1 if d else 0))
@@ -236,7 +267,13 @@ _ABI = {**{f"hot_step{r}{x}{d}": (len(_HOT_REF_PTRS if r else _HOT_PTRS),
         **{f"fresh_init{r}{x}": (len(_FRESH_PTRS), _HOT_NSCAL + 2)
            for r in ("", "_ref") for x in DTYPE_SUFFIX.values()},
         **{f"event_fluid{x}": (len(_FLUID_IN) + _FLUID_OUT, _HOT_NSCAL + 1)
-           for x in DTYPE_SUFFIX.values()}}
+           for x in DTYPE_SUFFIX.values()},
+        **{f"event_phase{x}": (len(_PHASE_PTRS), _HOT_NSCAL + 3) for x in DTYPE_SUFFIX.values()},
+        # the mask, valid, gi, sidx; the scalar k.  Rows mode: the flags, the
+        # staged rows, the ring, its count, n_sec_drop; the scalar the ring's
+        # capacity
+        "compact": (4, 1),
+        **{f"compact_rows{x}": (5, 1) for x in DTYPE_SUFFIX.values()}}
 
 
 # The hot step's entry points, and their drawing instances; the track
@@ -244,6 +281,7 @@ _ABI = {**{f"hot_step{r}{x}{d}": (len(_HOT_REF_PTRS if r else _HOT_PTRS),
 HOT_STEPS = ("hot_step", "hot_step_ref", "hot_step_f64", "hot_step_ref_f64")
 FRESH_INITS = ("fresh_init", "fresh_init_ref", "fresh_init_f64", "fresh_init_ref_f64")
 SCATTER_EVENTS = ("scatter_event", "scatter_event_f64")
+EVENT_PHASES = ("event_phase", "event_phase_f64")
 HOT_DRAWS = tuple(f"{h}_draw" for h in HOT_STEPS)
 # The libraries' int -> int functions: the row counts of csrc/gather_probe.cu's
 # tilings (w -> rows), the launch shape of each hot-step entry point at n
@@ -253,7 +291,8 @@ HOT_DRAWS = tuple(f"{h}_draw" for h in HOT_STEPS)
 HOT_SHAPE = ("group", "threads", "blocks_per_sm")
 _INT_FNS = ("gather_rowsum_persistent_pass_rows", "gather_rowsum_rowloop_wave_rows",
             *(f"{h}_{what}" for h in HOT_STEPS + HOT_DRAWS for what in HOT_SHAPE),
-            *(f"{f}_group" for f in FRESH_INITS), *(f"{e}_lanes" for e in SCATTER_EVENTS))
+            *(f"{f}_group" for f in FRESH_INITS),
+            *(f"{e}_lanes" for e in SCATTER_EVENTS + EVENT_PHASES))
 
 
 class _Build:
@@ -712,9 +751,9 @@ def fresh_shape(name, k):
 
 
 def event_shape(name, n):
-    """The lanes a warp of the event kernel's entry point ``name``
-    (``SCATTER_EVENTS``) at ``n`` lanes, and the threads a lane that gives
-    at the first pass (``group``)."""
+    """The lanes a warp of the event kernel's or the event phase's entry
+    point ``name`` (``SCATTER_EVENTS``, ``EVENT_PHASES``) at ``n`` lanes,
+    and the threads a lane that gives at the first pass (``group``)."""
     lanes = _int_fn(f"{name}_lanes", n)
     return {"lanes": lanes, "group": 32 // lanes}
 
@@ -747,6 +786,123 @@ def event_fluid(rows, x1, x2, k, w, tries, bias_den, mc, tables):
     fl = fluid.FluidC(out[7], out[8], out[9], tuple(out[10:14]), tuple(out[14:18]),
                       tuple(out[18:22]), tuple(out[22:26]))
     return engine.EventFluid(tuple(out[0:7]), fl, out[26], out[27], out[28], out[29])
+
+
+def compact(mask, k):
+    """The first ``k`` lanes where ``mask`` (N,) bool is set, ascending,
+    padded: (valid, gi, sidx), each (k,), as ``engine.compact_idx`` gives
+    them (gi clamped to N - 1 and sidx N on the pad).  On CPU tensors that
+    plain version (the sort), on CUDA tensors one launch of ``compact``
+    (``csrc/compact.cu``: one block's scan), or raise.  0 <= k <= N on
+    either device.  No host sync."""
+    n = mask.shape[0]
+    if not (isinstance(k, int) and 0 <= k <= n):
+        raise ValueError(f"compact: k must be an int in [0, {n}], got {k!r}")
+    if mask.device.type == "cpu":
+        return engine.compact_idx(mask, k)
+    dev = _cuda_device(mask)
+    _check_lanes("compact", [mask], [torch.bool], n, dev, names=["mask"])
+    valid = torch.empty(k, dtype=torch.bool, device=dev)
+    gi, sidx = torch.empty((2, k), dtype=torch.int64, device=dev).unbind(0)
+    _launch("compact", [mask, valid, gi, sidx], [k], n, dev)
+    return valid, gi, sidx
+
+
+def _check_scalar(what, t, dt, dev):
+    if t.dtype != dt or t.dim() != 0 or t.device != dev:
+        raise ValueError(f"{what}: expected a {dt} 0-d tensor on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def event_phase(pool, counters, sel, room, wedged, bias_den, mc, tables, gen=None, key=None,
+                lanes=None):
+    """The event phase between the compaction and the ring
+    (``engine.event_phase_plain``): the compacted set ``sel`` = (valid, gi,
+    sidx) of the lanes holding an event, cut to the ring's ``room`` unless
+    ``wedged`` (0-d int64 and bool), runs its events: their raw corner rows,
+    fluid, opacities and bias, the scatter event, the outcome on the pool,
+    the secondaries' rows staged (``engine.EventStage``) and n_ev_soft and
+    n_ev_forced counted.  On CPU tensors the plain version, drawing from
+    ``gen`` or, given ``key``, from ``draws.PhiloxDraws(key)``, which
+    returns a new pool and counters; on CUDA tensors one launch of
+    ``event_phase`` (float32) or ``event_phase_f64`` of
+    ``csrc/scatter_event.cu`` under ``key`` or two words drawn from ``gen``
+    (:func:`draw_key`), which updates the pool's w, alpha_scatti,
+    alpha_absi, bi, ev_tries, alive, occupied, at_event and ev_pending and
+    the two counters in place and returns them, or raise.  ``bias_den``:
+    the 0-d bias_norm * max_tau * (avg + 2); ``lanes``: the lanes a warp
+    (None: :func:`event_shape` picks by the width).  Returns (pool,
+    counters, stage).  No host sync."""
+    if (gen is None) == (key is None):
+        raise ValueError("event_phase: give exactly one of gen and key")
+    if pool.w.device.type == "cpu":
+        src = gen if key is None else draws.PhiloxDraws(key)
+        return engine.event_phase_plain(pool, counters, sel, room, wedged, bias_den, mc, tables,
+                                        src)
+    dev, dt, n = _cuda_device(pool.w), pool.w.dtype, pool.w.shape[0]
+    name = entry_point("event_phase", dt)
+    valid, _, sidx = sel
+    k = valid.shape[0]
+    i32, b8 = torch.int32, torch.bool
+    read = [*pool.x, *pool.k, *pool.ev_x, *pool.ev_k, pool.ev_w, pool.sec_w, pool.n_e_0,
+            pool.theta_e_0, pool.e_0, pool.n_scatt]
+    write = [pool.w, pool.alpha_scatti, pool.alpha_absi, pool.bi, pool.ev_tries, pool.alive,
+             pool.occupied, pool.at_event, pool.ev_pending]
+    _check_lanes(name, read + write, [dt] * 21 + [i32] + [dt] * 4 + [i32] + [b8] * 4, n, dev,
+                 names=_PHASE_READ + _PHASE_WRITE)
+    held = [t.data_ptr() for t in write]
+    if len(set(held)) != len(held) or set(held) & {t.data_ptr() for t in read}:
+        raise ValueError(f"{name}: a field it updates in place shares memory with another")
+    _check_lanes(f"{name} set", [valid, sidx], [b8, torch.int64], k, dev, names=["valid", "sidx"])
+    _check_scalar(f"{name} room", room, torch.int64, dev)
+    _check_scalar(f"{name} wedged", wedged, b8, dev)
+    for c in ("n_ev_soft", "n_ev_forced"):
+        _check_scalar(f"{name} {c}", getattr(counters, c), torch.int64, dev)
+    table = tables.corner_rows
+    _check_rows(table, 32, dev, "corner table", dt)
+    if table.shape[0] < mc.n1 * mc.n2:
+        raise ValueError(f"corner table: {table.shape[0]} rows for {mc.n1}x{mc.n2} cells")
+    _check_hc(tables.hc_coeffs, dt, dev)
+    stage = engine.EventStage(torch.empty((k, engine.ROW_WIDTH), dtype=dt, device=dev),
+                              torch.empty(k, dtype=b8, device=dev))
+    ptrs = (read + write + [valid, sidx, room.contiguous(), wedged.contiguous(),
+                            _event_key(gen, key, dev), _den_on(bias_den, dev, dt), table,
+                            tables.hc_coeffs, stage.rows, stage.make, counters.n_ev_soft,
+                            counters.n_ev_forced])
+    # the hot step's scalars (phase A's step knobs, which this kernel does not
+    # read, at their defaults), then EV_HALVE, EV_FORCE and the lanes a warp
+    scal = list(_hot_scalars(mc, tables, engine.EngineConfig(), dev, dt)) + [
+        engine.EV_HALVE, engine.EV_FORCE, lanes or 0]
+    _launch(name, ptrs, scal, k, dev)
+    return pool, counters, stage
+
+
+def compact_rows(stage, sec, counters):
+    """Pack the event phase's staged secondaries into the ring in slot
+    order (``engine.pack_rows_plain``): the r-th row of ``stage`` (an
+    ``engine.EventStage``) that makes one goes to ``sec.rows[sec.count +
+    r]`` while that is below the ring's capacity; the count takes the rows
+    kept, ``counters.n_sec_drop`` the rows dropped.  On CPU tensors the
+    plain version (a cumsum and a scatter; new tensors), on CUDA tensors
+    one launch of ``compact_rows`` / ``compact_rows_f64``
+    (``csrc/compact.cu``), which updates ``sec.rows``, ``sec.count`` and
+    ``counters.n_sec_drop`` in place and returns them, or raise.  Returns
+    (sec, counters).  No host sync."""
+    if sec.rows.device.type == "cpu":
+        return engine.pack_rows_plain(stage, sec, counters)
+    dev, dt = _cuda_device(sec.rows), sec.rows.dtype
+    name = entry_point("compact_rows", dt)
+    k = stage.make.shape[0]
+    _check_lanes(name, [stage.make], [torch.bool], k, dev, names=["make"])
+    _check_rows(stage.rows, engine.ROW_WIDTH, dev, "staged rows", dt)
+    _check_rows(sec.rows, engine.ROW_WIDTH, dev, "ring rows", dt)
+    if stage.rows.shape[0] != k:
+        raise ValueError(f"{name}: {stage.rows.shape[0]} staged rows for {k} flags")
+    _check_scalar(f"{name} count", sec.count, torch.int64, dev)
+    _check_scalar(f"{name} n_sec_drop", counters.n_sec_drop, torch.int64, dev)
+    _launch(name, [stage.make, stage.rows, sec.rows, sec.count, counters.n_sec_drop],
+            [sec.rows.shape[0]], k, dev)
+    return sec, counters
 
 
 def plain_rowsum(table, idx):
@@ -1464,3 +1620,128 @@ def event_fluid_outputs(ev):
     """{name: (N,) tensor} of an ``engine.EventFluid``."""
     return _flat({"g7": ev.g7, **ev.fl._asdict(), "theta_s": ev.theta_s, "a_sc": ev.a_sc,
                   "a_ab": ev.a_ab, "bias": ev.bias})
+
+
+# ---------------------------------------------------------------------------
+# the event phase's and the compaction's checks: synthetic pools and the
+# comparison
+# ---------------------------------------------------------------------------
+
+# The event phase is held to its plain version on PhiloxDraws under the same
+# key: every field of the pool, the staged rows where a slot makes one, the
+# flags and the counters bit for bit, but the refreshed opacities and bias,
+# which run the event fluid's hotcross order and are held to its tolerance;
+# the ring after the pack bit for bit.  The compaction is exact.
+KERNEL_TOLERANCE.update({
+    "event_phase": KERNEL_TOLERANCE["event_fluid"],
+    "event_phase_f64": KERNEL_TOLERANCE["event_fluid_f64"],
+    "compact": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
+    "compact_rows": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
+    "compact_rows_f64": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
+})
+# the pool's fields held within the tolerance (every other field bit for bit)
+EVENT_PHASE_TOL = ("alpha_scatti", "alpha_absi", "bi")
+# The (pool lanes, compacted width) of the event phase on the path: ev_k at
+# the pool of 65,536 and at the cascade's 4,096 and 512 (and the gate's
+# pool of 1,024 runs 256, as the 512-lane one does).
+EVENT_PHASE_WIDTHS = ((65536, 8192), (4096, 512), (512, 256))
+# The rings a synthetic event phase runs against: room for every event;
+# room for half the compacted set (the rest wait); full with no lane free
+# (every event runs, its secondary drops).
+EVENT_RINGS = ("open", "room", "wedged")
+
+
+def synthetic_event_pool(eng, n, k, seed, ring="room"):
+    """(pool, sec, counters, bias_den) of one event phase on ``n`` lanes
+    and a compacted width ``k``, from ``seed``, through the engine ``eng``
+    (its dtype, device and tables; :func:`synthetic_events`): lanes parked
+    at their event, lanes whose shadow registers hold one (the registers'
+    position and wave vector another synthetic set's), lanes with both and
+    lanes with none; defer counts at a plain draw, at a halved theta_e and
+    at a forced one; wave vectors 1,000 times harder on two lanes in five,
+    whose electron loop often ends at its cap (the event waits a phase);
+    doomed parents, lanes outside the plasma, weights that
+    reach both ends of the bias clamp; fields that the phase only keeps
+    drawn apart, so that a write into a wrong lane shows.  ``ring`` (one of
+    ``EVENT_RINGS``): "open" leaves the ring room for every event, "room"
+    for half of ``k`` (the rest wait), "wedged" fills it and every lane (all
+    run, their secondaries drop).  The counters start at small nonzero
+    values."""
+    if ring not in EVENT_RINGS:
+        raise ValueError(f"synthetic_event_pool: ring {ring!r} not in {EVENT_RINGS}")
+    mc, dt, dev = eng.mc, eng.dt, eng.device
+    a, b = synthetic_events(eng, n, seed), synthetic_events(eng, n, seed + 1)
+    rng = np.random.default_rng([seed, 6])
+    u = rng.random((3, n))
+
+    def t(v, d=dt):
+        return torch.as_tensor(v, device=dev).to(d)
+
+    def col(lo, hi):
+        return t(rng.uniform(lo, hi, n))
+
+    def weights():
+        return t(engine.WEIGHT_MIN * 10.0 ** rng.uniform(-1.0, 6.0, n))
+
+    at_event, pending = u[0] < 0.45, (u[0] >= 0.3) & (u[0] < 0.65)
+    occupied = np.ones(n, bool) if ring == "wedged" else (u[1] < 0.9) | at_event | pending
+    # hard photons: their electron loop often ends at its cap and the event waits
+    boost = t(np.where(rng.random(n) < 0.4, 1000.0, 1.0))
+    pool = engine.empty_pool(n, dt, dev)._replace(
+        x=(col(0.0, 100.0), a.x[1], a.x[2], col(0.0, 2.0 * np.pi)),
+        k=tuple(c * boost for c in a.k),
+        ev_x=(col(0.0, 100.0), b.x[1], b.x[2], col(0.0, 2.0 * np.pi)),
+        ev_k=tuple(c * boost for c in b.k),
+        w=weights(), sec_w=weights(), ev_w=weights(), n_e_0=col(1.0, 2.0),
+        theta_e_0=col(1.0, 5.0), e_0=col(1.0, 2.0), alpha_scatti=col(0.5, 1.0),
+        alpha_absi=col(0.5, 1.0), bi=col(1.0, 2.0),
+        n_scatt=t(rng.integers(0, 6, n), torch.int32), ev_tries=a.tries.clone(),
+        at_event=t(at_event, torch.bool), ev_pending=t(pending, torch.bool),
+        occupied=t(occupied, torch.bool), alive=t(occupied & (u[2] < 0.95), torch.bool))
+    cap = 2 * k
+    count = {"open": 3, "room": cap - k // 2, "wedged": cap}[ring]
+    sec = engine.SecBuf(rows=t(rng.uniform(-1.0, 1.0, (cap, engine.ROW_WIDTH))),
+                        count=torch.tensor(count, dtype=torch.int64, device=dev))
+    start = dict(n_ev_soft=5, n_ev_forced=2, n_sec_drop=1)
+    counters = engine.init_counters(1.0, dt, dev)._replace(**{
+        c: torch.tensor(v, dtype=torch.int64, device=dev) for c, v in start.items()})
+    den = torch.tensor(mc.bias_norm * mc.max_tau_scatt0 * 2.0, dtype=dt, device=dev)
+    return pool, sec, counters, den
+
+
+def compare_event_phase(name, ref, got):
+    """Hold the event phase ``got`` against the plain version's ``ref``,
+    each (pool, counters, stage, sec) after the phase and the ring's pack:
+    every pool field, the flags, the staged rows of the slots that make one,
+    the counters and the ring (rows and count) bit for bit, but
+    ``EVENT_PHASE_TOL``, held within ``KERNEL_TOLERANCE[name]``.  Returns
+    (record, failures)."""
+    (rp, rc, rs, rsec), (gp, gc, gs, gsec) = ref, got
+    ref_f, got_f = _flat(rp._asdict()), _flat(gp._asdict())
+    fails = []
+    for f, a in ref_f.items():
+        if f in EVENT_PHASE_TOL:
+            continue
+        differ = ~_same_bits(a, got_f[f].to(a.device))
+        if bool(differ.any()):
+            fails.append(f"pool.{f}: {int(differ.sum())} lanes not bit for bit")
+    make = rs.make
+    if not torch.equal(make, gs.make.to(make.device)):
+        fails.append(f"make: {int((make != gs.make).sum())} slots differ")
+    rows_same = bool(_same_bits(rs.rows[make], gs.rows.to(make.device)[make]).all())
+    if not rows_same:
+        fails.append("staged rows: not bit for bit")
+    for c in engine.Counters._fields:
+        if not torch.equal(getattr(rc, c), getattr(gc, c).to(getattr(rc, c).device)):
+            fails.append(f"counters.{c}: {getattr(gc, c).tolist()} against "
+                         f"{getattr(rc, c).tolist()}")
+    if not (torch.equal(rsec.count, gsec.count)
+            and bool(_same_bits(rsec.rows, gsec.rows.to(rsec.rows.device)).all())):
+        fails.append(f"ring: count {int(gsec.count)} against {int(rsec.count)}, or its rows")
+    sel = {f: ref_f[f] for f in EVENT_PHASE_TOL}
+    err, rel, _, tfails = compare(sel, {f: got_f[f] for f in sel}, **KERNEL_TOLERANCE[name])
+    rec = {"max_abs_err": err, "max_rel_err": rel, "mask_mismatch": 0.0 if not fails else None,
+           "slots": int(make.shape[0]), "made": int(make.sum()),
+           "bitwise_tol_fields": sorted(f for f in EVENT_PHASE_TOL
+                                        if bool(_same_bits(ref_f[f], got_f[f]).all()))}
+    return rec, fails + tfails

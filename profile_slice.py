@@ -24,16 +24,18 @@ window are not the run's.
    host seconds (``exit_check_ms``, waiting for the block included), the
    warm-ups' and captures' seconds (``capture_s``).  Then the same cell in
    a second ``Simulation`` with ``graphed=False`` (the block issued op by
-   op, as before the graph), whose phases are clocked: every call of the engine's phases
-   (``hot_step``, ``periodic_phase``, ``light_phase`` and, inside them,
-   ``process_scatters`` and ``init_fresh``) and of the kernels' wrappers
-   inside them (``hot_kernels.scatter_event`` and ``event_fluid`` inside
-   ``process_scatters``, ``fresh_init`` inside ``init_fresh``) is
-   bracketed by two CUDA events on the current stream.  Nothing is synchronised, so the run is
-   not stretched; the stream time between a phase's two events is the
-   time the stream spent on that phase's work, waiting for its launches
-   included, so the phases split the engine's device window (nested
-   phases are also counted inside their parents).  Beside both: the
+   op, as before the graph), whose phases are clocked: every call of the
+   engine's phases (``hot_step``, ``periodic_phase``, ``light_phase`` and, inside them,
+   ``process_scatters``, ``spectrum_add``, ``refill`` and ``init_fresh``)
+   and of the kernels' wrappers inside them (``hot_kernels.event_phase``
+   and ``compact_rows`` inside ``process_scatters``, ``compact`` inside
+   it, ``spectrum_add`` and ``refill``, ``fresh_init`` inside
+   ``init_fresh``) is bracketed by two CUDA events on the current stream.
+   Nothing is synchronised, so the run is not stretched; the stream time
+   between a phase's two events is the time the stream spent on that
+   phase's work, waiting for its launches included, so the phases split
+   the engine's device window (nested phases are also counted inside their
+   parents).  Beside both: the
    pilot's host seconds (it runs before the first wave, on the host
    tracker, outside the device window), and the window of the waves and of
    each cascade stage (width, hot iterations, CUDA-event seconds, ms per
@@ -65,16 +67,17 @@ import time
 
 import chip_smoke
 
-PHASES = ("hot_step", "periodic_phase", "light_phase", "process_scatters", "init_fresh")
+PHASES = ("hot_step", "periodic_phase", "light_phase", "process_scatters", "spectrum_add",
+          "refill", "init_fresh")
 # the kernels' wrappers clocked as phases (hot_kernels functions, each nested
-# in one of PHASES: scatter_event and event_fluid in process_scatters,
-# fresh_init in init_fresh)
-WRAPPERS = ("scatter_event", "event_fluid", "fresh_init")
+# in one of PHASES: event_phase and compact_rows in process_scatters, compact
+# in it, spectrum_add and refill, fresh_init in init_fresh)
+WRAPPERS = ("event_phase", "compact_rows", "compact", "fresh_init")
 PHOTON_N = 100_000
 REF_PHOTON_N = 50_000
 # device kernels whose time the trace windows report, by name
-TRACED = {"hot_step_ms": "hot_step_kernel", "row_gather_ms": "row_gather_kernel",
-          "scatter_event_ms": "scatter_event_kernel", "event_fluid_ms": "event_fluid_kernel",
+TRACED = {"hot_step_ms": "hot_step_kernel", "event_phase_ms": "event_phase_kernel",
+          "compact_ms": "compact_kernel", "compact_rows_ms": "compact_rows_kernel",
           "fresh_init_ms": "fresh_init_kernel"}
 WAVE_AT = 64  # trace the first wave from this hot iteration
 TRACE_ITERS = 64  # hot iterations per trace window

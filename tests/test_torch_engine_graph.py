@@ -32,12 +32,14 @@ leaves the run's state, the generator and the counts as it found them.
 """
 
 import contextlib
+import gc
 import types
 
 import pytest
 import torch
 
 from grmonty_tpu_torch.models import torus
+from grmonty_tpu_torch.ops import scattering
 from grmonty_tpu_torch.transport import driver, engine, hot_kernels, profiles
 
 POOL = 256
@@ -230,13 +232,13 @@ def test_block_reads_nothing_on_the_host(dump, reference, dtype, options, monkey
             raise AssertionError(f"the block called {name}: a host read")
         return refused
 
-    event = hot_kernels.scatter_event
+    event = scattering.scatter_event_c
 
     def plain_event(*a, **kw):  # the card runs its loops in one kernel
         with _patched(originals):
             return event(*a, **kw)
 
-    monkeypatch.setattr(hot_kernels, "scatter_event", plain_event)
+    monkeypatch.setattr(scattering, "scatter_event_c", plain_event)
     before = engine.clone_state(eng._state)
     with _patched({name: refuse(name) for _, name in BANNED}):
         eng._body()
@@ -249,7 +251,8 @@ def _counting_wrappers(monkeypatch, cfg):
     """Count each kernel wrapper's call as one launch of its entry point, as
     the wrappers count on the card (the plain path counts nothing)."""
     dt, ref = cfg.dtype, cfg.reference
-    for kernel in ("hot_step", "row_gather", "event_fluid", "scatter_event", "fresh_init"):
+    for kernel in ("hot_step", "row_gather", "event_fluid", "scatter_event", "fresh_init",
+                   "event_phase", "compact", "compact_rows"):
         name = hot_kernels.entry_point(kernel, dt, ref)
         fn = getattr(hot_kernels, kernel)
 
@@ -330,6 +333,28 @@ def test_graphed_run_equals_the_eager_run_on_the_card(dump, reference, dtype, op
     assert torch.equal(gen_g, gen_e)
     assert launches_g == launches_e and phases_g == phases_e
     assert sum(replays) == sum(p["full"] for p in phases_g) > 0
+
+
+@pytest.mark.cuda
+def test_capture_holds_the_collector_off(dump, monkeypatch):
+    """The garbage collector is off while a block is captured, and on again
+    after: a graph of another engine left in a reference cycle and collected
+    inside the capture would be destroyed there and invalidate it."""
+    _card()
+    sim = _sim(dump, False, torch.float32, device="cuda")
+    rows = _rows(sim)
+    seen = []
+    body = engine.Engine._body
+
+    def watched(self):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        body(self)
+
+    monkeypatch.setattr(engine.Engine, "_body", watched)
+    assert gc.isenabled()
+    sim.engine.run(sim.engine.fresh_state(), rows[0], tail_exit=0)
+    assert seen == [False] and gc.isenabled()
 
 
 @pytest.mark.cuda

@@ -386,9 +386,9 @@ def test_event_fluid_wrapper_is_the_plain_version_on_the_cpu(cpu_sim):
 
 
 def test_the_engine_runs_both_through_their_wrappers(cpu_sim, monkeypatch):
-    """A full phase calls event_fluid once (after one row gather of the
-    events' rows) and fresh_init once; each equals a run whose wrappers are
-    replaced by the plain versions."""
+    """A full phase calls the event phase once (which runs the event fluid
+    on one row gather of the events' rows) and fresh_init once; each equals
+    a run whose wrappers are replaced by the plain versions."""
     sim = cpu_sim
     eng = sim.engine
     sim.plan()
@@ -398,7 +398,7 @@ def test_the_engine_runs_both_through_their_wrappers(cpu_sim, monkeypatch):
         state = eng.periodic_phase(state, backlog)
         for _ in range(8):
             state = eng.hot_step(state)
-    calls = {"fresh_init": 0, "event_fluid": 0}
+    calls = {"fresh_init": 0, "event_phase": 0}
     wrapped = {name: getattr(hot_kernels, name) for name in calls}
 
     def counting(name):
@@ -411,9 +411,10 @@ def test_the_engine_runs_both_through_their_wrappers(cpu_sim, monkeypatch):
         monkeypatch.setattr(hot_kernels, name, counting(name))
     gen_state = eng.gen.get_state()
     got = eng.periodic_phase(state, backlog)
-    assert calls == {"fresh_init": 1, "event_fluid": 1}
+    assert calls == {"fresh_init": 1, "event_phase": 1}
     monkeypatch.setattr(hot_kernels, "fresh_init", engine.init_fresh_plain)
-    monkeypatch.setattr(hot_kernels, "event_fluid", engine.event_fluid_plain)
+    monkeypatch.setattr(hot_kernels, "event_phase",
+                        lambda *a, gen, **kw: engine.event_phase_plain(*a, src=gen))
     eng.gen.set_state(gen_state)
     want = eng.periodic_phase(state, backlog)
     for f in engine.Pool._fields:

@@ -262,29 +262,33 @@ def _same(a, b):
 
 
 def test_process_scatters_through_the_wrapper_equals_the_plain_call(cpu_sim, monkeypatch):
+    """The full phase's events run through one call of the event phase's
+    wrapper, whose event draws from the engine's generator: the same pool,
+    ring and counters, and the same draws, as the plain event phase on that
+    generator."""
     eng = cpu_sim.engine
     pool, sec, counters = _event_pool(eng, 21)
     eng.gen.manual_seed(4)
     state = eng.gen.get_state()
     calls = []
-    wrapper = hot_kernels.scatter_event
+    wrapper = hot_kernels.event_phase
 
     def counted(*a, **kw):
         calls.append(1)
         return wrapper(*a, **kw)
 
-    monkeypatch.setattr(hot_kernels, "scatter_event", counted)
+    monkeypatch.setattr(hot_kernels, "event_phase", counted)
     got = eng.process_scatters(pool, sec, counters)
     after = eng.gen.get_state()
     assert calls == [1]
 
     eng.gen.set_state(state)
 
-    def plain(k, fl, g7, b_unit, active=None, force=None, gen=None, key=None):
+    def plain(p, c, sel, room, wedged, den, mc, tables, gen=None, key=None):
         assert key is None and gen is eng.gen
-        return scattering.scatter_event_c(gen, k, fl, g7, b_unit, active=active, force=force)
+        return engine.event_phase_plain(p, c, sel, room, wedged, den, mc, tables, gen)
 
-    monkeypatch.setattr(hot_kernels, "scatter_event", plain)
+    monkeypatch.setattr(hot_kernels, "event_phase", plain)
     want = eng.process_scatters(pool, sec, counters)
     assert torch.equal(eng.gen.get_state(), after)
     for a, b in zip(got, want, strict=True):
