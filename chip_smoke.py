@@ -82,11 +82,13 @@ Phases, each of which exits non-zero on failure:
    (``event_phase``: the events' rows, fluid, opacities and bias, the
    event, the outcome, the staged secondaries, in place on the pool) and
    the ring's pack (``compact_rows``) at the path's (pool, compacted width)
-   (``hot_kernels.EVENT_PHASE_WIDTHS``: 65,536 x 8,192, 4,096 x 512, 512 x
-   256) on synthetic pools (``hot_kernels.synthetic_event_pool``: parked,
-   shadow-register, deferred, forced, doomed and unmagnetised lanes,
-   outside the plasma too) against an open ring, a ring with room for half
-   the set and a wedged one, on a copy of the pool, against
+   (``hot_kernels.EVENT_PHASE_WIDTHS``: the path's 65,536 x 16,384, 4,096 x
+   4,096 and 512 x 512, and 65,536 x 8,192, 4,096 x 512, 512 x 256; the
+   kernels line's record at the first) on synthetic pools
+   (``hot_kernels.synthetic_event_pool``: parked, shadow-register,
+   deferred, forced, doomed and unmagnetised lanes, outside the plasma
+   too) against an open ring, a ring with room for half the set and a
+   wedged one, on a copy of the pool, against
    ``engine.event_phase_plain`` on ``draws.PhiloxDraws`` under the kernel's
    key and ``engine.pack_rows_plain`` (``hot_kernels.compare_event_phase``:
    every pool field, the staged rows, the counters and the ring bit for
@@ -95,8 +97,9 @@ Phases, each of which exits non-zero on failure:
    ran; ``parts_device_ms`` times the three launches it replaced, the row
    gather, the event fluid and the event alone, on the same events); the
    compaction (``compact``, float32 only: it takes a mask) at
-   ``COMPACT_WIDTHS`` on seeded masks, bit for bit ``engine.compact_idx``
-   (the sort), timed beside the sort (``sort_ms``), ``torch.nonzero``
+   ``COMPACT_WIDTHS`` on seeded masks of every density of
+   ``COMPACT_DENSITIES``, bit for bit ``engine.compact_idx`` (the sort),
+   each timed beside the sort (``sort_ms``), ``torch.nonzero``
    (``nonzero_ms``) and ``torch.nonzero_static`` (``library_ms``).  Each
    of these records gives its registers and spills.  Every
    run of phases 5-12 and 14 must launch exactly what its path runs
@@ -266,7 +269,13 @@ float64 at ``AB_F64_WIDTHS``), then the card line; with
 kernel and load and track start against those of the checkout at DIR in
 turns (``ab_phase_kernels``: each at its path's widths in both dtypes,
 the parent's track start with refill's row moves as torch ops, every
-output bit for bit the parent's), then the card line; with ``--f64-only``
+output bit for bit the parent's), then the card line; with ``--ab-wide DIR`` phases
+1 and 2, then this checkout's event phase and compaction against those of
+the checkout at DIR in turns (``ab_wide``: the event phase at its widths
+and the path's event counts in both dtypes, at each lanes a warp; the
+compaction at every width and density beside
+``torch.nonzero_static``; every output bit for bit the other's), then the
+card line; with ``--f64-only``
 phases 1, 2 and 12 (and phase 12b's float32 run of the same setup in
 place of phase 8's) and prints the card line and the kernels line (no
 result line).
@@ -364,9 +373,17 @@ EVENT_BLOCKS = {"sampled": 2, "electron_round": 3, "second_round": 1}
 FRESH_OPS = {False: 3510, True: 3600}
 EVENT_FLUID_OPS = 3240
 # The compaction's checks: each pool width of the path and the k its
-# compactions take there (the events' and the records' ev_k, the light and
-# the full phase's refill widths), on seeded masks of these densities.
-COMPACT_WIDTHS = {65536: (8192, 12288, 32768), 4096: (512, 4096), 512: (256, 512)}
+# compactions take there (transport/profiles.py:25-26,45; engine.py): at
+# 65,536 lanes the event set (Engine.process_scatters -> engine.event_set)
+# and a full phase's record (Engine.spectrum_add) at ev_k = 16,384, the
+# light phases' record and refill at light_k = 12,288 (Engine.light_phase,
+# shipped profile), a full phase's refill (Engine.refill) at refill_k =
+# 32,768 (shipped; 16,384 under reference semantics), and 8,192, the
+# engine's default n // 8, which no profile runs; at the cascade's 4,096
+# and 512 lanes the whole pool (min(pool, ev_k)) and 512 and 256.  The
+# kernels line's record is the first width's at density 0.3.  On seeded
+# masks of these densities.
+COMPACT_WIDTHS = {65536: (16384, 12288, 32768, 8192), 4096: (4096, 512), 512: (512, 256)}
 COMPACT_DENSITIES = (0.0, 0.02, 0.3, 1.0)
 # The ring that the event phase's kernels line records run against (the
 # other two are checked and printed).
@@ -838,6 +855,137 @@ def build_other(root, other, stem):
     return ctypes.CDLL(lib_path), ptxas_usage(out.stdout + out.stderr), lib_path
 
 
+def turns_of(sides, turns):
+    """{side: device ms a call, one value a turn} of the A/B ``sides`` ({name:
+    function}, with "this" and "other"), in turns: this, other, the other
+    sides, other, this; ``turns`` times."""
+    ms = {k: [] for k in sides}
+    order = ["this", "other"] + [k for k in sides if k not in ("this", "other")]
+    for _ in range(turns):
+        for k in order + ["other", "this"]:
+            ms[k].append(cuda_ms(sides[k], reps=AB_REPS, queued=True))
+    return ms
+
+
+# --ab-wide: the event phase's lanes a warp tried beside the width's own, and
+# its event counts beside the room ring's k / 2 (the path's full phases at
+# pool 65,536, from profile_slice.py --trace)
+AB_PHASE_LANES = (1, 8, 32)
+AB_PHASE_EVENTS = {65536: (11000, 13000, 16384)}
+
+
+def ab_wide(root, sims, other, usage, turns=2):
+    """``--ab-wide``: this checkout's event phase and compaction against
+    those of the checkout at ``other`` (its ``csrc/scatter_event.cu`` and
+    ``csrc/compact.cu`` built with this build's flags), by device time a
+    call in turns (this, other, this's other shapes, other, this; ``turns``
+    times).  The event phase in float32 and float64 (``sims``) at
+    ``hot_kernels.EVENT_PHASE_WIDTHS`` on the room ring, and at
+    ``AB_PHASE_EVENTS``' counts, each side in place on its own copy of the
+    pool (the same states call by call: every side gives the same bits), this
+    side also at each of ``AB_PHASE_LANES``; every output bit for bit the
+    other's on a fresh copy.  The compaction at
+    ``COMPACT_WIDTHS`` and ``COMPACT_DENSITIES``, bit for bit the other's,
+    beside ``torch.nonzero_static`` in the same turns.  Prints one line per
+    kernel and width; fails where an output differs."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    ev_lib, ev_usage, _ = build_other(root, other, "scatter_event")
+    cp_lib, cp_usage, _ = build_other(root, other, "compact")
+
+    def swapped(lib, name, fn):
+        """``fn`` run with the other checkout's entry point ``name``."""
+        ours = hot_kernels._Build.fns[name]
+        theirs = getattr(lib, f"{name}_launch")
+        theirs.argtypes, theirs.restype = ours.argtypes, ctypes.c_int
+
+        def call(*a, **kw):
+            hot_kernels._Build.fns[name] = theirs
+            try:
+                return fn(*a, **kw)
+            finally:
+                hot_kernels._Build.fns[name] = ours
+        return call
+
+    for sim in sims:
+        mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, sim.cfg.dtype
+        typ = "d" if dt == torch.float64 else "f"
+        name = hot_kernels.entry_point("event_phase", dt)
+        cases = [(n, k, None) for n, k in hot_kernels.EVENT_PHASE_WIDTHS]
+        cases += [(n, k, e) for n, k in hot_kernels.EVENT_PHASE_WIDTHS
+                  for e in AB_PHASE_EVENTS.get(n, ()) if k == max(
+                      kk for nn, kk in hot_kernels.EVENT_PHASE_WIDTHS if nn == n)]
+        for n, k, events in cases:
+            pool, sec, counters, den = hot_kernels.synthetic_event_pool(
+                sim.engine, n, k, 2040 + k, "room", events=events)
+            sel, room, wedged = engine.event_set(pool, sec, k)
+            key = torch.tensor([0x5EED0000 + k, 0xE7E27], dtype=torch.int64, device=dev)
+
+            def side(fn, lanes=None):
+                work = engine.clone_pool(pool)
+                wc = engine.Counters(*(t.clone() for t in counters))
+
+                def run():
+                    return fn(work, wc, sel, room, wedged, den, mc, tabs, key=key, lanes=lanes)
+                return run
+
+            ours = hot_kernels.event_phase
+            specs = {"this": (ours, {}), "other": (swapped(ev_lib, name, ours), {}),
+                     **{f"lanes{L}": (ours, {"lanes": L}) for L in AB_PHASE_LANES}}
+            sides = {label: side(fn, **kw) for label, (fn, kw) in specs.items()}
+            outs = {label: side(fn, **kw)() for label, (fn, kw) in specs.items()}
+            torch.cuda.synchronize()
+            want = outs["other"]
+            differ = {}
+            for label, got in outs.items():
+                a, b = (hot_kernels._flat({**o[0]._asdict(), **o[1]._asdict(),
+                                           "rows": o[2].rows[o[2].make], "make": o[2].make})
+                        for o in (want, got))
+                differ[label] = sorted(f for f, v in a.items()
+                                       if v.shape != b[f].shape
+                                       or not bool(hot_kernels._same_bits(v, b[f]).all()))
+            on = sel[0] & ((torch.arange(k, device=dev) < room) | wedged)
+            rec = {"name": name, "n": n, "k": k, "events": int(on.sum()),
+                   **hot_kernels.event_shape(name, k),
+                   "fields_differing": differ, "device_ms": turns_of(sides, turns),
+                   "ptxas": {s_: {f: v for f, v in use.items()
+                                  if f"event_phase_kernelI{typ}" in f}
+                             for s_, use in (("this", usage), ("other", ev_usage))}}
+            print(f"ab {name}@{n}x{k}e{int(on.sum())}: {json.dumps(rec)}")
+            if any(differ.values()):
+                fail(f"ab {name}@{n}x{k}: outputs differ from the other checkout's: {differ}")
+
+    dev = sims[0].device
+    for n, ks in COMPACT_WIDTHS.items():
+        rng = np.random.default_rng(n)
+        for density in COMPACT_DENSITIES:
+            mask = torch.as_tensor(rng.random(n) < density, device=dev)
+            for k in ks:
+                def this(m=mask, kk=k):
+                    return hot_kernels.compact(m, kk)
+
+                sides = {"this": this, "other": swapped(cp_lib, "compact", this),
+                         "nonzero_static": lambda m=mask, kk=k, nn=n: torch.nonzero_static(
+                             m, size=kk, fill_value=nn)}
+                got, want = sides["this"](), sides["other"]()
+                torch.cuda.synchronize()
+                same = all(torch.equal(g, w) for g, w in zip(got, want))
+                rec = {"name": "compact", "n": n, "k": k, "density": density,
+                       "set": int(mask.sum()), "same_bits": same,
+                       "device_ms": turns_of(sides, turns),
+                       "ptxas": {s_: {f: v for f, v in use.items() if "compact" in f
+                                      and "rows" not in f}
+                                 for s_, use in (("this", usage), ("other", cp_usage))}}
+                print(f"ab compact@{n}k{k}d{density}: {json.dumps(rec)}")
+                if not same:
+                    fail(f"ab compact@{n}k{k}d{density}: differs from the other checkout's")
+
+
 def ab_phase_kernels(root, sims, other, usage, turns=2):
     """``--ab-phase-kernels``: this checkout's event kernel and load and
     track start against those of the checkout at ``other`` (its
@@ -868,14 +1016,6 @@ def ab_phase_kernels(root, sims, other, usage, turns=2):
         fn.argtypes = hot_kernels._Build.fns[name].argtypes
         fn.restype = ctypes.c_int
         return fn
-
-    def turns_of(sides):
-        ms = {k: [] for k in sides}
-        order = ["this", "other"] + [k for k in sides if k not in ("this", "other")]
-        for _ in range(turns):
-            for k in order + ["other", "this"]:
-                ms[k].append(cuda_ms(sides[k], reps=AB_REPS, queued=True))
-        return ms
 
     for sim in sims:
         mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, sim.cfg.dtype
@@ -909,7 +1049,7 @@ def ab_phase_kernels(root, sims, other, usage, turns=2):
             rec = {"name": name, "n": n, **hot_kernels.event_shape(name, n),
                    "rounds": [int(want.rounds_el.sum()), int(want.rounds_sc.sum()),
                               int(want.rounds_el.max()), int(want.rounds_sc.max())],
-                   "lanes_differing": differ, "device_ms": turns_of(sides),
+                   "lanes_differing": differ, "device_ms": turns_of(sides, turns),
                    "ptxas": {side: {f: v for f, v in use.items()
                                     if f"scatter_event_kernelI{typ}" in f}
                              for side, use in (("this", usage), ("other", ev_usage))}}
@@ -946,7 +1086,7 @@ def ab_phase_kernels(root, sims, other, usage, turns=2):
                 loaded, started = hot_kernels.fresh_lanes(pool, load)
                 rec = {"name": name, "n": n, "k": k, **hot_kernels.fresh_shape(name, k),
                        "lanes_loaded": int(loaded.sum()), "lanes_fresh": int(started.sum()),
-                       "fields_differing": differ, "device_ms": turns_of(sides),
+                       "fields_differing": differ, "device_ms": turns_of(sides, turns),
                        "ptxas": {side: {f: v for f, v in use.items()
                                         if f"fresh_init_kernelILb{int(reference)}E{typ}" in f}
                                  for side, use in (("this", usage), ("other", fr_usage))}}
@@ -1442,11 +1582,12 @@ def compact_checks(dev):
     """Phase 4g: the compaction (mask mode) against ``engine.compact_idx``
     (the sort) at each pool width of the path and the k its compactions
     take there (``COMPACT_WIDTHS``), on seeded masks of
-    ``COMPACT_DENSITIES``, bit for bit.  Times it at the density 0.3 beside
-    the sort (``sort_ms``), ``torch.nonzero`` (``nonzero_ms``, which reads
-    the count on the host) and, as ``library_ms``, the one call that
-    computes the same padded indices, ``torch.nonzero_static``.  Returns
-    the record at (65,536, 8,192); prints the others."""
+    ``COMPACT_DENSITIES``, bit for bit.  Times it at every width and
+    density beside the sort (``sort_ms``), ``torch.nonzero``
+    (``nonzero_ms``, which reads the count on the host) and, as
+    ``library_ms``, the one call that computes the same padded indices,
+    ``torch.nonzero_static``.  Returns the record at 65,536 lanes, the
+    first k and the density 0.3; prints the others."""
     import numpy as np
     import torch
 
@@ -1457,35 +1598,36 @@ def compact_checks(dev):
         rng = np.random.default_rng(n)
         for density in COMPACT_DENSITIES:
             mask = torch.as_tensor(rng.random(n) < density, device=dev)
-            for k in ks:
+            for j, k in enumerate(ks):
                 got, want = hot_kernels.compact(mask, k), engine.compact_idx(mask, k)
                 torch.cuda.synchronize()
                 if not all(torch.equal(g, w) for g, w in zip(got, want)):
                     fail(f"compact@{n}: k {k} at density {density} is not bitwise the sort")
-        mask = torch.as_tensor(rng.random(n) < 0.3, device=dev)
-        for j, k in enumerate(ks):
-            def library(m=mask, kk=k, nn=n):
-                return torch.nonzero_static(m, size=kk, fill_value=nn)
 
-            try:
-                library()
-            except (RuntimeError, NotImplementedError) as e:  # not on this build's card
-                print(f"  compact@{n}: no torch.nonzero_static on the card ({e})")
-                library = None
-            extra = {"k": k, "densities": list(COMPACT_DENSITIES),
-                     "sort_ms": cuda_ms(lambda m=mask, kk=k: engine.compact_idx(m, kk)),
-                     "sort_device_ms": cuda_ms(lambda m=mask, kk=k: engine.compact_idx(m, kk),
-                                               queued=True),
-                     "nonzero_ms": cuda_ms(lambda m=mask: torch.nonzero(m)),
-                     "max_abs_err": 0.0, "max_rel_err": 0.0, "mask_mismatch": 0.0}
-            if (n, j) != (N_CHECK, 0):
-                extra["name"] = f"compact@{n}k{k}"
-            rec = time_kernel("compact", {}, {},
-                              lambda m=mask, kk=k: engine.compact_idx(m, kk),
-                              lambda m=mask, kk=k: hot_kernels.compact(m, kk),
-                              n + 17 * k, library=library, ops=n, n=n, extra=extra)
-            if (n, j) == (N_CHECK, 0):
-                out.append(rec)
+                def library(m=mask, kk=k, nn=n):
+                    return torch.nonzero_static(m, size=kk, fill_value=nn)
+
+                try:
+                    library()
+                except (RuntimeError, NotImplementedError) as e:  # not on this build's card
+                    print(f"  compact@{n}: no torch.nonzero_static on the card ({e})")
+                    library = None
+                first = (n, j, density) == (N_CHECK, 0, 0.3)
+                extra = {"k": k, "density": density, "set": int(mask.sum()),
+                         "blocks": -(-n // hot_kernels.COMPACT_TILE),
+                         "sort_ms": cuda_ms(lambda m=mask, kk=k: engine.compact_idx(m, kk)),
+                         "sort_device_ms": cuda_ms(lambda m=mask, kk=k: engine.compact_idx(m, kk),
+                                                   queued=True),
+                         "nonzero_ms": cuda_ms(lambda m=mask: torch.nonzero(m)),
+                         "max_abs_err": 0.0, "max_rel_err": 0.0, "mask_mismatch": 0.0}
+                if not first:
+                    extra["name"] = f"compact@{n}k{k}d{density}"
+                rec = time_kernel("compact", {}, {},
+                                  lambda m=mask, kk=k: engine.compact_idx(m, kk),
+                                  lambda m=mask, kk=k: hot_kernels.compact(m, kk),
+                                  n + 17 * k, library=library, ops=n, n=n, extra=extra)
+                if first:
+                    out.append(rec)
     return out
 
 
@@ -2439,6 +2581,10 @@ def main():
                     help="phases 1 and 2, then this checkout's event kernel and load and "
                          "track start (float32 and float64) against those of the checkout "
                          "at DIR, in turns; then the card line")
+    ap.add_argument("--ab-wide", metavar="DIR", default=None,
+                    help="phases 1 and 2, then this checkout's event phase (float32 and "
+                         "float64) and compaction against those of the checkout at DIR, in "
+                         "turns; then the card line")
     ap.add_argument("--f64-only", action="store_true",
                     help="phases 1, 2 and 12 alone (with the float32 run of phase 12b's "
                          "setup), then the card line and the kernels line")
@@ -2497,6 +2643,12 @@ def main():
         sims = [make_simulation(root, args.photon_n, dtype=dt)
                 for dt in (torch.float32, torch.float64)]
         ab_phase_kernels(root, sims, args.ab_phase_kernels, usage)
+        print(card)
+        return
+    if args.ab_wide:
+        sims = [make_simulation(root, args.photon_n, dtype=dt)
+                for dt in (torch.float32, torch.float64)]
+        ab_wide(root, sims, args.ab_wide, usage)
         print(card)
         return
     if args.f64_only:

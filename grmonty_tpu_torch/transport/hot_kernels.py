@@ -793,8 +793,8 @@ def compact(mask, k):
     padded: (valid, gi, sidx), each (k,), as ``engine.compact_idx`` gives
     them (gi clamped to N - 1 and sidx N on the pad).  On CPU tensors that
     plain version (the sort), on CUDA tensors one launch of ``compact``
-    (``csrc/compact.cu``: one block's scan), or raise.  0 <= k <= N on
-    either device.  No host sync."""
+    (``csrc/compact.cu``: the mask's tiles over blocks), or raise.  0 <= k
+    <= N on either device.  No host sync."""
     n = mask.shape[0]
     if not (isinstance(k, int) and 0 <= k <= n):
         raise ValueError(f"compact: k must be an int in [0, {n}], got {k!r}")
@@ -806,6 +806,11 @@ def compact(mask, k):
     gi, sidx = torch.empty((2, k), dtype=torch.int64, device=dev).unbind(0)
     _launch("compact", [mask, valid, gi, sidx], [k], n, dev)
     return valid, gi, sidx
+
+
+# The mask mode's tile (csrc/compact.cu TILE): a block's bytes of the mask,
+# 16 a thread of 256 (one block of 1,024 threads of 4 at N up to a tile).
+COMPACT_TILE = 4096
 
 
 def _check_scalar(what, t, dt, dev):
@@ -1641,17 +1646,20 @@ KERNEL_TOLERANCE.update({
 })
 # the pool's fields held within the tolerance (every other field bit for bit)
 EVENT_PHASE_TOL = ("alpha_scatti", "alpha_absi", "bi")
-# The (pool lanes, compacted width) of the event phase on the path: ev_k at
-# the pool of 65,536 and at the cascade's 4,096 and 512 (and the gate's
-# pool of 1,024 runs 256, as the 512-lane one does).
-EVENT_PHASE_WIDTHS = ((65536, 8192), (4096, 512), (512, 256))
+# The (pool lanes, compacted width) of the event phase: the path's ev_k at
+# the pool of 65,536 and at the cascade's 4,096 and 512 (both profiles'
+# min(pool, 16,384), transport/profiles.py), first the one the kernels line
+# records; then the engine's default width n // 8 at 65,536 and the narrow
+# sets (the gate's pool of 1,024 runs 256, as the 512-lane one does).
+EVENT_PHASE_WIDTHS = ((65536, 16384), (4096, 4096), (512, 512), (65536, 8192), (4096, 512),
+                      (512, 256))
 # The rings a synthetic event phase runs against: room for every event;
 # room for half the compacted set (the rest wait); full with no lane free
 # (every event runs, its secondary drops).
 EVENT_RINGS = ("open", "room", "wedged")
 
 
-def synthetic_event_pool(eng, n, k, seed, ring="room"):
+def synthetic_event_pool(eng, n, k, seed, ring="room", events=None):
     """(pool, sec, counters, bias_den) of one event phase on ``n`` lanes
     and a compacted width ``k``, from ``seed``, through the engine ``eng``
     (its dtype, device and tables; :func:`synthetic_events`): lanes parked
@@ -1665,10 +1673,14 @@ def synthetic_event_pool(eng, n, k, seed, ring="room"):
     drawn apart, so that a write into a wrong lane shows.  ``ring`` (one of
     ``EVENT_RINGS``): "open" leaves the ring room for every event, "room"
     for half of ``k`` (the rest wait), "wedged" fills it and every lane (all
-    run, their secondaries drop).  The counters start at small nonzero
-    values."""
+    run, their secondaries drop); ``events`` (with "room" only) sets the
+    ring's room, and so the events that run, in place of half of ``k``.
+    The counters start at small nonzero values."""
     if ring not in EVENT_RINGS:
         raise ValueError(f"synthetic_event_pool: ring {ring!r} not in {EVENT_RINGS}")
+    if events is not None and not (ring == "room" and 0 <= events <= 2 * k):
+        raise ValueError(f"synthetic_event_pool: events {events!r} needs the room ring and "
+                         f"0 <= events <= {2 * k}")
     mc, dt, dev = eng.mc, eng.dt, eng.device
     a, b = synthetic_events(eng, n, seed), synthetic_events(eng, n, seed + 1)
     rng = np.random.default_rng([seed, 6])
@@ -1699,7 +1711,8 @@ def synthetic_event_pool(eng, n, k, seed, ring="room"):
         at_event=t(at_event, torch.bool), ev_pending=t(pending, torch.bool),
         occupied=t(occupied, torch.bool), alive=t(occupied & (u[2] < 0.95), torch.bool))
     cap = 2 * k
-    count = {"open": 3, "room": cap - k // 2, "wedged": cap}[ring]
+    room = k // 2 if events is None else events
+    count = {"open": 3, "room": cap - room, "wedged": cap}[ring]
     sec = engine.SecBuf(rows=t(rng.uniform(-1.0, 1.0, (cap, engine.ROW_WIDTH))),
                         count=torch.tensor(count, dtype=torch.int64, device=dev))
     start = dict(n_ev_soft=5, n_ev_forced=2, n_sec_drop=1)

@@ -2,7 +2,7 @@
 """Where the port's time goes in the smoke cell, on one CUDA card.
 
     python3 profile_slice.py            # graph clocks, then phase clocks
-    python3 profile_slice.py --trace    # trace windows
+    python3 profile_slice.py --trace    # the census, then trace windows
     python3 profile_slice.py --reference [--trace]   # reference semantics
     python3 profile_slice.py [--reference] --graph-only   # graph clocks alone
 
@@ -43,8 +43,23 @@ window are not the run's.
    turns of two versions in one call, where the eager run's minutes buy
    nothing: a copy of this script placed in another commit's checkout runs
    that commit's cell the same way).
-2. **Device busy share in trace windows** (``--trace``), on the graphed
-   run.  ``torch.profiler`` traces the replays of 64 hot iterations twice:
+2. **The census, then the device busy share in trace windows**
+   (``--trace``).  The census is the cell's eager run (``graphed=False``,
+   before the profiler starts) with each launch of ``compact`` and of the
+   event phase (``event_phase``, ``event_phase_f64``) timed alone: a GPU
+   sleep, a CUDA event, the launch, a CUDA event, so that the first event
+   is stamped when the launch is already queued (the pair's own floor,
+   sleep and two events with no launch, is measured and reported as
+   ``event_pair_us``).  Each launch is kept with its engine (the wave
+   engine, or the cascade stage by its pool), its role (the event set, the
+   record, the refill), its pool width n, its compacted width k and its
+   count, computed on the card and read after the run: the mask's set
+   lanes for ``compact``, for the event phase the events that ran (valid
+   and within the ring's room, or all valid where the ring is wedged).
+   Summaries by (engine, role, n, k) and a histogram of the events per
+   full phase by engine go into the JSON; each launch's line into
+   ``chiprun_out/census_<path>.json``.  Then the trace windows, on the
+   graphed run.  ``torch.profiler`` traces the replays of 64 hot iterations twice:
    in the waves from hot iteration 64 on (full pool; the ramp's first
    waves), and in the first stage of the tail cascade from its 64th
    iteration.  The busy time is the union of the device activity
@@ -75,10 +90,17 @@ PHASES = ("hot_step", "periodic_phase", "light_phase", "process_scatters", "spec
 WRAPPERS = ("event_phase", "compact_rows", "compact", "fresh_init")
 PHOTON_N = 100_000
 REF_PHOTON_N = 50_000
-# device kernels whose time the trace windows report, by name
-TRACED = {"hot_step_ms": "hot_step_kernel", "event_phase_ms": "event_phase_kernel",
-          "compact_ms": "compact_kernel", "compact_rows_ms": "compact_rows_kernel",
-          "fresh_init_ms": "fresh_init_kernel"}
+# device kernels whose time the trace windows report, by names (the mask
+# compaction's kernel is compact_tiles_kernel, compact_kernel before)
+TRACED = {"hot_step_ms": ("hot_step_kernel",), "event_phase_ms": ("event_phase_kernel",),
+          "compact_ms": ("compact_kernel", "compact_tiles_kernel"),
+          "compact_rows_ms": ("compact_rows_kernel",), "fresh_init_ms": ("fresh_init_kernel",)}
+# the launches the census times one by one, and the GPU sleep queued before
+# each (~66 us at 1.98 GHz: longer than the host takes to queue the launch)
+CENSUS = ("compact", "event_phase", "event_phase_f64")
+CENSUS_SLEEP = 1 << 17
+# the census's histogram of events per full phase: the bins' lower edges
+EVENT_BINS = (0, 128, 512, 1024, 2048, 4096, 6144, 8192, 12288, 16384)
 WAVE_AT = 64  # trace the first wave from this hot iteration
 TRACE_ITERS = 64  # hot iterations per trace window
 ONE_BODY_AT = WAVE_AT + TRACE_ITERS  # trace the replay from this hot iteration alone
@@ -173,11 +195,16 @@ class Windows:
         self.results[name] = {
             "iters": it - it0, "window_ms": window, "busy_ms": busy,
             "busy_share": busy / window, "device_activities": n_dev}
-        for key, kernel in TRACED.items():
-            self.results[name][key] = sum(
-                e.duration_ns() for e in prof.profiler.kineto_results.events()
-                if e.device_type() == torch.autograd.DeviceType.CUDA
-                and kernel in e.name()) / 1e6
+        dev = sorted((e.start_ns(), e.duration_ns(), e.name())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == torch.autograd.DeviceType.CUDA)
+        for key, kernels in TRACED.items():
+            us = [d / 1e3 for _, d, n in dev if any(kernel in n for kernel in kernels)]
+            self.results[name][key] = sum(us) / 1e3
+            # each launch's device time in the window, in order (a body's
+            # compactions run in its phases' order: the event set, the
+            # record, the refill, then each light phase's record and refill)
+            self.results[name][key[:-3] + "_us"] = us
         self.table += (f"== {name} window ==\n" + prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=25) + "\n")
         self.live = None
@@ -236,6 +263,94 @@ def replay_summary(clocks, window_ms):
             "exit_checks": len(exits), "exit_check_ms": 1e3 * sum(exits) / max(1, len(exits))}
 
 
+def census(root, photon_n, reference):
+    """The eager run's launches of ``CENSUS``, each timed alone (see the
+    module's docstring): returns (summary, the launches' records)."""
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    recs, engines, at = [], {}, {"engine": None, "role": None}
+    launch, run, event_set = hot_kernels._launch, engine.Engine.run, engine.event_set
+    spectrum_add, refill = engine.Engine.spectrum_add, engine.Engine.refill
+    slot = hot_kernels._PHASE_PTRS.index
+
+    def timed_launch(name, ptr_tensors, scal, n, device):
+        if name not in CENSUS or n == 0:
+            return launch(name, ptr_tensors, scal, n, device)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(CENSUS_SLEEP)
+        e0.record()
+        launch(name, ptr_tensors, scal, n, device)
+        e1.record()
+        if name == "compact":
+            pool_n, k, count = ptr_tensors[0].shape[0], int(scal[0]), ptr_tensors[0].sum()
+        else:
+            valid, room, wedged = (ptr_tensors[slot(f)] for f in ("valid", "room", "wedged"))
+            pool_n, k = ptr_tensors[0].shape[0], n
+            count = (valid & ((torch.arange(k, device=valid.device) < room) | wedged)).sum()
+        recs.append((at["engine"], at["role"], name, pool_n, k, count, e0, e1))
+
+    def in_role(fn, role):
+        def wrapped(*a, **kw):
+            at["role"] = role
+            try:
+                return fn(*a, **kw)
+            finally:
+                at["role"] = None
+        return wrapped
+
+    def labelled_run(self, *a, **kw):
+        engines.setdefault(id(self), "wave" if not engines else f"stage{self.cfg.n_pool}")
+        at["engine"] = engines[id(self)]
+        return run(self, *a, **kw)
+
+    hot_kernels._launch, engine.Engine.run = timed_launch, labelled_run
+    engine.event_set = in_role(event_set, "events")
+    engine.Engine.spectrum_add = in_role(spectrum_add, "record")
+    engine.Engine.refill = in_role(refill, "refill")
+    try:
+        _, out = run_cell(root, photon_n, reference, graphed=False)
+    finally:
+        hot_kernels._launch, engine.Engine.run, engine.event_set = launch, run, event_set
+        engine.Engine.spectrum_add, engine.Engine.refill = spectrum_add, refill
+    torch.cuda.synchronize()
+    floor = []
+    for _ in range(200):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(CENSUS_SLEEP)
+        e0.record()
+        e1.record()
+        floor.append((e0, e1))
+    torch.cuda.synchronize()
+    counts = torch.stack([r[5] for r in recs]).tolist() if recs else []
+    lines = [{"engine": e, "role": role, "name": name, "n": n, "k": k, "count": c,
+              "us": 1e3 * e0.elapsed_time(e1)}
+             for (e, role, name, n, k, _, e0, e1), c in zip(recs, counts)]
+    groups = {}
+    for ln in lines:
+        groups.setdefault((ln["engine"], ln["role"], ln["name"], ln["n"], ln["k"]), []).append(ln)
+    summary = []
+    for (e, role, name, n, k), g in groups.items():
+        us, c = sorted(x["us"] for x in g), [x["count"] for x in g]
+        summary.append({"engine": e, "role": role, "name": name, "n": n, "k": k,
+                        "launches": len(g), "us_mean": sum(us) / len(us),
+                        "us_median": us[len(us) // 2], "us_min": us[0], "us_max": us[-1],
+                        "count_mean": sum(c) / len(c), "count_min": min(c),
+                        "count_max": max(c), "count_at_k": sum(x >= k for x in c)})
+    hist = {}
+    for ln in lines:
+        if ln["name"] != "compact":
+            h = hist.setdefault(f"{ln['engine']}@{ln['n']}x{ln['k']}", [0] * len(EVENT_BINS))
+            h[max(j for j, lo in enumerate(EVENT_BINS) if ln["count"] >= lo)] += 1
+    return {"event_pair_us": 1e3 * sum(a.elapsed_time(b) for a, b in floor) / len(floor),
+            "hot_iters": out["hot_iters"], "full_phases": out["full_phases"],
+            "light_phases": out["light_phases"], "groups": summary,
+            "events_per_full_phase": {"bins": list(EVENT_BINS), **hist}}, lines
+
+
 def run_cell(root, photon_n, reference, graphed):
     """One run of the cell; returns (stats, wall seconds, the run's summary)."""
     import torch
@@ -287,6 +402,11 @@ def main():
               "path": "reference" if args.reference else "shipped", "photon_n": photon_n}
 
     if args.trace:
+        result["census"], lines = census(root, photon_n, args.reference)
+        out_dir = os.path.join(root, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"census_{result['path']}.json"), "w") as f:
+            json.dump(lines, f)
         win = Windows(TRACE_ITERS)
         replay = engine.Engine._replay
         waves = []  # the wave engine: the first engine that replays

@@ -378,7 +378,7 @@ def test_event_phase_kernel_matches_plain_on_the_card(card_sims, dtype, n, k, ri
 def test_every_lanes_a_warp_instance_gives_the_same_bits(card_sims, dtype):
     sim = card_sims[dtype]
     name = hot_kernels.entry_point("event_phase", dtype)
-    for n, k in ((4096, 1024), (4096, 1025), (65536, 4096), (65536, 4097)):
+    for n, k in ((4096, 1024), (4096, 1025), (65536, 4096), (65536, 4097), (65536, 16384)):
         outs = [_card_phase(sim, n, k, 70, "room", lanes=lanes) for lanes in (None, 32, 8, 1)]
         for ref, got, _ in outs:
             assert not hot_kernels.compare_event_phase(name, ref, got)[1], (n, k)
