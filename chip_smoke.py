@@ -41,10 +41,13 @@ Phases, each of which exits non-zero on failure:
    launches (``group``: threads a lane, ``threads`` a block,
    ``blocks_per_sm``), and on a line of its own the weight's worst lane
    and an estimate of the float32 issue floor.  The hot step is checked
-   and timed the same way at the tail cascade's widths, N = 4,096 and 512
-   (``kernel check hot_step@4096: ...``; float64 also at the accuracy
-   gate's 1,024).  The event kernel (``scatter_event``, the scatter event
-   of every full phase) on synthetic event lanes
+   and timed the same way, in both dtypes, at the tail cascade's widths
+   and the accuracy gate's, N = 4,096, 1,024 and 512 (``kernel check
+   hot_step@4096: ...``); each hot-step record of the kernels line lists
+   every width's instance (``instances``: its group, threads, blocks an
+   SM, registers and spills, device time and bound).  The event kernel
+   (``scatter_event``, the scatter event of every full phase) on synthetic
+   event lanes
    (``hot_kernels.synthetic_events``: seeded positions and null wave
    vectors through the engine's own fluid, guard, inactive, halved and
    forced lanes) at the event phase's widths, N = 16,384, 4,096, 1,024 and 512,
@@ -263,8 +266,10 @@ the same way, which is how two versions are compared in one call.  With
 ``--sharded-only`` it runs phases 1, 2 and 11 and prints the card line
 (no kernels line, no result line); with ``--ab-hot-step DIR`` phases 1
 and 2, then this checkout's hot step against the one of the checkout at
-DIR in turns (float32 at 65,536 lanes with both SASS listings compared,
-float64 at ``AB_F64_WIDTHS``), then the card line; with
+DIR in turns (``ab_hot_step``: both dtypes, variants and instances at
+``AB_WIDTHS``, every output and census bit for bit the other's, the float64
+instances' SASS and that of the kernels of ``fresh_init.cu`` and
+``scatter_event.cu`` identical to the other's), then the card line; with
 ``--ab-phase-kernels DIR`` phases 1 and 2, then this checkout's event
 kernel and load and track start against those of the checkout at DIR in
 turns (``ab_phase_kernels``: each at its path's widths in both dtypes,
@@ -298,11 +303,11 @@ import time
 
 REF_LUMINOSITY = 12694.3  # JAX engine, 256x256 torus, M=4e19, seed 123
 N_CHECK = 65536
-TAIL_CHECKS = (4096, 512)  # the tail cascade's narrower pools
-# Float64 also at the accuracy gate's pool of 1,024 lanes (phase 12c).
-TAIL_CHECKS_F64 = (4096, 1024, 512)
-# --ab-hot-step's float64 widths: the pool, the cascade's and the gate's.
-AB_F64_WIDTHS = (N_CHECK, 4096, 1024, 512)
+# the tail cascade's narrower pools and the accuracy gate's pool of 1,024
+# lanes (phases 10 and 12c)
+TAIL_CHECKS = (4096, 1024, 512)
+# --ab-hot-step's widths: the pool, the cascade's and the gate's.
+AB_WIDTHS = (N_CHECK, *TAIL_CHECKS)
 RESUME_PHOTON_N = 2e4
 RESUME_CHUNK = 1 << 16
 # The resume phase's step cap in the tail cascade, cut from the shipped
@@ -737,95 +742,175 @@ def hot_step_variant(fn):
             int(m.group(3) or 1), m.group(4) and int(m.group(4)), m.group(5) == "1")
 
 
+def bit_diff(a, b):
+    """(N,) mask of the elements of ``a`` and ``b`` whose bits differ."""
+    import torch
+
+    if a.dtype.is_floating_point:
+        iv = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return a.view(iv) != b.view(iv)
+    return a != b
+
+
+def anon(text):
+    """``text`` with each translation unit's anonymous namespace, whose
+    mangled name hashes the source's path, named alike."""
+    return re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "_anon_", text)
+
+
 def ab_hot_step(root, sims, other, usage, ref_stall_steps, turns=2):
     """``--ab-hot-step``: this checkout's hot step against the one of the
     checkout at ``other`` (its ``csrc/hot_step.cu`` built with this build's
     flags; its C interface is the same, so this wrapper launches it on the
-    same arguments), each variant in float32 at N_CHECK lanes and in float64
-    at AB_F64_WIDTHS, on phase 4's lanes (``sims``: a float32 and a float64
-    ``Simulation`` of the cell): each side's worst errors against the plain
-    version and census, its device time in turns (this, other, other, this,
-    ``turns`` times), its ptxas registers and spills, this side's group and
-    blocks an SM, and whether the two SASS listings of each float32 variant
-    are identical.  Prints one line per variant and width; fails if a census
+    same arguments), each variant and dtype at AB_WIDTHS in both instances
+    (explicit, and drawing under a seeded key at the block's step 5), on
+    phase 4's lanes (``sims``: a float32 and a float64 ``Simulation`` of the
+    cell): each side's worst errors against the plain version and its
+    census; every pool field and census counter of this side against the
+    other's on the same inputs, bit for bit (the fields and lanes that
+    differ printed, with the worst relative difference); the device time in
+    turns (this, other, other, this, ``turns`` times); each side's ptxas
+    registers and spills, this side's group, threads and blocks an SM; and
+    whether each float64 instance's SASS is identical to the other's.  Then
+    the SASS of every kernel of the other checkout's ``fresh_init.cu`` and
+    ``scatter_event.cu`` (the track start, the event, the chain, the event
+    phase), built the same way, against this build's.  Prints one line per
+    variant, instance and width; fails if a census differs from the plain
+    version's, after all lines if an output or a census differs from the
+    other side's or a float64 hot step's or another kernel's SASS
     differs."""
     import ctypes
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
+    from grmonty_tpu_torch.ops import draws
     from grmonty_tpu_torch.transport import engine, hot_kernels, profiles
 
-    lib, usage_other, lib_path = build_other(root, other, "hot_step")
+    with ThreadPoolExecutor(3) as ex:
+        built = dict(zip(AB_SASS_STEMS, ex.map(lambda stem: build_other(root, other, stem),
+                                               AB_SASS_STEMS)))
+    lib, usage_other, lib_path = built["hot_step"]
     other_usage = {hot_step_variant(f): v for f, v in usage_other.items() if hot_step_variant(f)}
     this_usage = {hot_step_variant(f): v for f, v in usage.items() if hot_step_variant(f)}
-    mine_sass = {hot_step_variant(f): v for path in hot_kernels._Build.paths
-                 for f, v in sass_listing(path).items() if hot_step_variant(f)}
+    mine_all = {f: v for path in hot_kernels._Build.paths for f, v in sass_listing(path).items()}
+    mine_sass = {hot_step_variant(f): v for f, v in mine_all.items() if hot_step_variant(f)}
     other_sass = {hot_step_variant(f): v for f, v in sass_listing(lib_path).items()
                   if hot_step_variant(f)}
+    problems = []
     for sim in sims:
         mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, sim.cfg.dtype
+        typ = "double" if dt == torch.float64 else "float"
         for reference in (False, True):
-            name = hot_kernels.entry_point("hot_step", dt, reference)
-            theirs = getattr(lib, f"{name}_launch")
-            theirs.argtypes = hot_kernels._Build.fns[name].argtypes
-            theirs.restype = ctypes.c_int
-            fns = {"this": hot_kernels._Build.fns[name], "other": theirs}
-            for n in (N_CHECK,) if dt == torch.float32 else AB_F64_WIDTHS:
-                cfg = (profiles.reference_config(pool=n, dtype=dt, stall_steps=ref_stall_steps)
-                       if reference else sim.cfg._replace(n_pool=n))
-                lanes = hot_kernels.synthetic_lanes(mc, n, 2024, cfg.stall_steps, reference,
-                                                    events=True)
-                pool, counters, u_roul, u_x1, bias = hot_kernels.synthetic_step(lanes, dt, dev)
+            for draw in (False, True):
+                name = hot_kernels.entry_point("hot_step", dt, reference, draw=draw)
+                theirs = getattr(lib, f"{name}_launch")
+                theirs.argtypes = hot_kernels._Build.fns[name].argtypes
+                theirs.restype = ctypes.c_int
+                fns = {"this": hot_kernels._Build.fns[name], "other": theirs}
+                for n in AB_WIDTHS:
+                    cfg = (profiles.reference_config(pool=n, dtype=dt,
+                                                     stall_steps=ref_stall_steps)
+                           if reference else sim.cfg._replace(n_pool=n))
+                    lanes = hot_kernels.synthetic_lanes(mc, n, 2024, cfg.stall_steps,
+                                                        reference, events=True)
+                    pool, counters, u_roul, u_x1, bias = hot_kernels.synthetic_step(
+                        lanes, dt, dev)
+                    key = torch.tensor([0x407D4A00 + n, 0x5EED5], dtype=torch.int64,
+                                       device=dev)
+                    if draw:
+                        u_roul, u_x1 = draws.hot_uniforms(key, 5, n, dt)
 
-                def step(fn, c=None):
-                    if c is None:
-                        c = counters._replace(**{k: getattr(counters, k).clone()
-                                                 for k in hot_kernels.CENSUS})
-                    return fn(pool, c, u_roul, u_x1, bias, mc, tabs, cfg)
+                    def step(fn, c=None):
+                        if c is None:
+                            c = counters._replace(**{k: getattr(counters, k).clone()
+                                                     for k in hot_kernels.CENSUS})
+                        if fn is engine.hot_step_plain or not draw:
+                            return fn(pool, c, u_roul, u_x1, bias, mc, tabs, cfg)
+                        return hot_kernels.hot_step_drawn(pool, c, key, 5, bias, mc, tabs,
+                                                          cfg)
 
-                ref_f, ref_c = hot_kernels.step_outputs(*step(engine.hot_step_plain), reference)
-                slack = hot_kernels.weight_slack(pool, ref_f,
-                                                 hot_kernels.KERNEL_TOLERANCE[name]["rtol"])
-                shape = hot_kernels.hot_step_shape(name, n)
-                rec = {"name": name, "n": n, **shape, "device_ms": {"this": [], "other": []}}
-                try:
-                    for side, fn in fns.items():
-                        hot_kernels._Build.fns[name] = fn
-                        got_f, got_c = hot_kernels.step_outputs(*step(hot_kernels.hot_step),
-                                                                reference)
-                        torch.cuda.synchronize()
-                        err, rel, mask, fails = hot_kernels.compare(
-                            ref_f, got_f, **hot_kernels.KERNEL_TOLERANCE[name], slack=slack)
-                        rec[side] = {"max_abs_err": err, "max_rel_err": rel,
-                                     "mask_mismatch": mask, "fails": fails,
-                                     "census_equal": got_c == ref_c}
-                    # timed as phase 4 times it: the census added to one set of
-                    # counters, no copies between the launches
-                    kc = counters._replace(**{k: getattr(counters, k).clone()
-                                              for k in hot_kernels.CENSUS})
-                    for _ in range(turns):
-                        for side in ("this", "other", "other", "this"):
-                            hot_kernels._Build.fns[name] = fns[side]
-                            rec["device_ms"][side].append(
-                                cuda_ms(lambda: step(hot_kernels.hot_step, kc), queued=True))
-                finally:
-                    hot_kernels._Build.fns[name] = fns["this"]
-                typ = "double" if dt == torch.float64 else "float"
-                key = (reference, typ, shape["group"], shape["threads"], False)
-                # the same instance in the other checkout, or its one instance of
-                # the variant and type where it builds a single one (an older
-                # hot_step.cu)
-                theirs_key = key if key in other_sass else next(
-                    (k for k in other_sass if k[:2] == key[:2]), None)
-                rec["ptxas"] = {"this": this_usage.get(key), "other": other_usage.get(theirs_key)}
-                theirs_sass = other_sass.get(theirs_key)
-                mine = mine_sass.get(key)
-                rec["sass_identical"] = theirs_sass is not None and mine == theirs_sass
-                rec["sass_instructions"] = {"this": len(mine or []),
-                                            "other": len(theirs_sass or [])}
-                print(f"ab {name}@{n}: {json.dumps(rec)}")
-                if not (rec["this"]["census_equal"] and rec["other"]["census_equal"]):
-                    fail(f"ab {name}@{n}: a census differs from the plain version's")
+                    ref_f, ref_c = hot_kernels.step_outputs(*step(engine.hot_step_plain),
+                                                            reference)
+                    slack = hot_kernels.weight_slack(pool, ref_f,
+                                                     hot_kernels.KERNEL_TOLERANCE[name]["rtol"])
+                    shape = hot_kernels.hot_step_shape(name, n)
+                    rec = {"name": name, "n": n, **shape,
+                           "device_ms": {"this": [], "other": []}}
+                    got = {}
+                    launch = hot_kernels.hot_step_drawn if draw else hot_kernels.hot_step
+                    try:
+                        for side, fn in fns.items():
+                            hot_kernels._Build.fns[name] = fn
+                            got[side] = hot_kernels.step_outputs(*step(launch), reference)
+                            torch.cuda.synchronize()
+                            err, rel, mask, fails = hot_kernels.compare(
+                                ref_f, got[side][0], **hot_kernels.KERNEL_TOLERANCE[name],
+                                slack=slack)
+                            rec[side] = {"max_abs_err": err, "max_rel_err": rel,
+                                         "mask_mismatch": mask, "fails": fails,
+                                         "census_equal": got[side][1] == ref_c}
+                        # timed as phase 4 times it: the census added to one set
+                        # of counters, no copies between the launches
+                        kc = counters._replace(**{k: getattr(counters, k).clone()
+                                                  for k in hot_kernels.CENSUS})
+                        for _ in range(turns):
+                            for side in ("this", "other", "other", "this"):
+                                hot_kernels._Build.fns[name] = fns[side]
+                                rec["device_ms"][side].append(
+                                    cuda_ms(lambda: step(launch, kc), queued=True))
+                    finally:
+                        hot_kernels._Build.fns[name] = fns["this"]
+                    mine_f, theirs_f = (hot_kernels._flat(got[s][0]) for s in ("this", "other"))
+                    differ = {}
+                    for f in mine_f:
+                        d = bit_diff(mine_f[f], theirs_f[f])
+                        if bool(d.any()):
+                            a, b = mine_f[f][d].double(), theirs_f[f][d].double()
+                            worst = float(((a - b).abs() / b.abs()).nan_to_num(
+                                nan=float("inf")).max())
+                            differ[f] = {"lanes": int(d.sum()),
+                                         "first": torch.nonzero(d)[:8, 0].tolist(),
+                                         "worst_rel": worst}
+                    rec["bitwise_vs_other"] = not differ
+                    rec["differ"] = differ
+                    rec["census_vs_other"] = got["this"][1] == got["other"][1]
+                    key_i = (reference, typ, shape["group"], shape["threads"], draw)
+                    # the same instance in the other checkout, or its one
+                    # instance of the variant, type and drawing where it builds a
+                    # single one
+                    theirs_key = key_i if key_i in other_sass else next(
+                        (k for k in other_sass if k[:2] == key_i[:2] and k[4] == draw), None)
+                    rec["ptxas"] = {"this": this_usage.get(key_i),
+                                    "other": other_usage.get(theirs_key)}
+                    theirs_sass, mine = other_sass.get(theirs_key), mine_sass.get(key_i)
+                    rec["sass_identical"] = theirs_sass is not None and mine == theirs_sass
+                    rec["sass_instructions"] = {"this": len(mine or []),
+                                                "other": len(theirs_sass or [])}
+                    print(f"ab {name}@{n}: {json.dumps(rec)}")
+                    if not (rec["this"]["census_equal"] and rec["other"]["census_equal"]):
+                        fail(f"ab {name}@{n}: a census differs from the plain version's")
+                    if differ or not rec["census_vs_other"]:
+                        problems.append(f"{name}@{n}: fields {sorted(differ)}, census "
+                                        f"{'equal' if rec['census_vs_other'] else 'differs'}")
+                    if typ == "double" and not rec["sass_identical"]:
+                        problems.append(f"{name}@{n}: the float64 SASS differs")
+    mine_anon = {anon(f): [anon(ins) for ins in v] for f, v in mine_all.items()}
+    for stem in AB_SASS_STEMS[1:]:
+        same = {anon(f): mine_anon.get(anon(f)) == [anon(ins) for ins in v]
+                for f, v in sass_listing(built[stem][2]).items()}
+        print(f"ab sass {stem}: "
+              + json.dumps({"functions": len(same), "identical": sum(same.values())}))
+        if not same or not all(same.values()):
+            problems.append(f"{stem}: SASS of {sorted(f for f, ok in same.items() if not ok)}")
+    if problems:
+        fail("ab: " + "; ".join(problems))
+
+
+# --ab-hot-step: the sources built from the other checkout: the hot step's,
+# then those whose kernels' SASS must not move (the track start, the event,
+# the chain and the event phase include the shared csrc/physics.cuh)
+AB_SASS_STEMS = ("hot_step", "fresh_init", "scatter_event")
 
 
 # --ab-phase-kernels: the event's lanes a warp and the track start's
@@ -1096,6 +1181,10 @@ def ab_phase_kernels(root, sims, other, usage, turns=2):
                          f"{differ}")
 
 
+# what the kernels line keeps of each width's hot-step instance
+HOT_INSTANCE_KEYS = ("group", "threads", "blocks_per_sm", "ptxas", "device_ms", "bound_ms")
+
+
 def hot_step_checks(sim, usage, sass, ref_stall_steps, n=N_CHECK):
     """Phase 4a (and 12a): the hot step of each semantics, in ``sim``'s
     dtype, against its plain version at ``n`` lanes of synthetic state
@@ -1255,15 +1344,19 @@ def hot_draw_check(sim, cfg, pool, counters, bias, usage, sass, moved, explicit_
 def kernel_checks(sim, usage, sass, ref_stall_steps):
     """Phase 4 (and 12a): every kernel of the path in ``sim``'s dtype vs its
     plain version at N_CHECK lanes (the records returned), and the hot step
-    at the cascade's widths (printed)."""
+    at the cascade's and the gate's widths (printed, and kept in each
+    hot-step record's ``instances``)."""
     import numpy as np
     import torch
 
     from grmonty_tpu_torch.transport import hot_kernels
 
     out = hot_step_checks(sim, usage, sass, ref_stall_steps)
-    for n in TAIL_CHECKS_F64 if sim.cfg.dtype == torch.float64 else TAIL_CHECKS:
-        hot_step_checks(sim, usage, sass, ref_stall_steps, n=n)
+    tails = [rec for n in TAIL_CHECKS
+             for rec in hot_step_checks(sim, usage, sass, ref_stall_steps, n=n)]
+    for rec in out:
+        rec["instances"] = {r["n"]: {k: r[k] for k in HOT_INSTANCE_KEYS}
+                            for r in [rec] + tails if r["name"] == rec["name"]}
     # the row gather on the raw corner table, indices 0 and Z-1 included
     table = sim.tables.corner_rows
     z_n = table.shape[0]

@@ -44,20 +44,42 @@
 // the row fetch and phase B: measured within a microsecond of the explicit
 // instance at every width, with no new spills (PERF.md).
 //
-// Float (one thread a lane, 256-thread blocks).  What bounds it on an H100
-// 80GB HBM3 at 700 W: the pool's 65,536 lanes are 2,048 warps, 15.5 an SM,
-// one wave filling a quarter of the warp slots.  A lane moves about 370 B
-// (shipped) or 270 B (reference), rows included: 7.3 and 5.3 us at 3.35
-// TB/s; it issues about 3,800 float32 operations, each multiply and add on
-// its own under -fmad=false, 7.4 us at the 33.5 T instructions/s of the
-// float32 pipes.  It takes 24.2 us (shipped) and 20.6 us (reference),
-// bound by instruction issue and latency at that occupancy.  What the
-// design does: (1) the block stages the 41x31 hotcross surface in shared
-// memory, rows padded to 32, read as 16-byte broadcast loads (eight LDS.128
-// a row); (2) 112 / 106 registers, no spills, __launch_bounds__(256, 2): the
-// whole pool resident in one wave; (3) one launch for the three TPU
-// kernels, the warp fetching its 32 corner rows through a shared-memory
-// stage at an odd pitch; (4) the epilogue's ~25 torch launches inside.
+// Float.  What bounds it on an H100 80GB HBM3 at 700 W.  At the pool's
+// 65,536 lanes (one thread a lane: 2,048 warps, 15.5 an SM, one wave
+// filling a quarter of the warp slots) a lane moves about 370 B (shipped) or
+// 270 B (reference), rows included: 7.3 and 5.3 us at 3.35 TB/s; it issues
+// about 3,800 float32 operations, each multiply and add on its own under
+// -fmad=false, 7.4 us at the 33.5 T instructions/s of the float32 pipes;
+// the launch is bound by issue and latency at that occupancy.  A narrow
+// launch (the cascade's 512 and 4,096 lanes, the gate's 1,024) is one lane's
+// chain: at one thread a lane in 256-thread blocks 512 lanes ran on 2 of the
+// 132 SMs in 17.6 us (shipped) and 14.9 (reference), one lane alone in 16.1
+// / 13.8, and a clock64 breakdown (tools/clock_hot_step.py) put 37% / 30%
+// of a warp's cycles in the lane's hotcross sum and 15% (shipped) in the
+// epilogue's stores, the capture's input loads each behind a store that
+// may alias it.  What the design does:
+//   1. The launch follows the pool (hot_shape): up to 4,096 lanes eight
+//      threads a lane, up to 16,384 two, in 128-thread blocks spread over
+//      the SMs; beyond, one thread a lane in 256-thread blocks, at most 128
+//      registers (__launch_bounds__(256, 2)), the pool in one wave.
+//   2. A lane's group splits the hotcross sum in its variant's own order,
+//      the same bits: the reference variant's columns (hotcross_cols), the
+//      shipped variant's rows (hotcross_rows, the rows staged 36 values
+//      apart); the warp fetches its 32 / G lanes' corner rows alone.
+//   3. The surface (41 rows, 16-byte broadcast loads at one thread a lane)
+//      is copied by cp.async behind the lane's loads and phase A, and a
+//      warp waits on the barrier only just before the hotcross sum.
+//   4. Metric row 0 and (reference) the metric pair reuse the connection's
+//      transcendentals, and the epilogue's pass-through inputs are read
+//      before the first store.
+//   5. One launch for the three TPU kernels, the warp fetching its corner
+//      rows through a shared-memory stage at an odd pitch, and the
+//      epilogue's ~25 torch launches inside.
+// Measured (PERF.md, same card, in turns with the previous kernel, the same
+// bits), the drawing instance: 17.8 -> 9.6 us (shipped) and 15.0 -> 9.7
+// (reference) at 512 lanes, 17.9 -> 10.8 and 15.1 -> 10.9 at 4,096, 24.0 ->
+// 22.0 and 20.6 -> 19.2 at 65,536; at 512 lanes a warp's chain is 14,700
+// cycles (31,200 before), no segment of it above 17%.
 //
 // Double.  What bounds it (same card): a lane moves twice the bytes (14.1
 // and 10.2 us at 65,536 lanes) and its chain of dependent double
@@ -180,6 +202,22 @@ __device__ __forceinline__ T again(const T *p, int i, T held) {
     return held;
 }
 
+// Metric row 0 (g00, g01, g03) at the connection's point, from the
+// transcendentals it kept there.
+template <typename T>
+__device__ __forceinline__ void metric_row0(const T *keep, const AConst<T> &CA, T &g00, T &g01,
+                                            T &g03) {
+  const T eps = T(EPS_D);
+  const T r = keep[0] + CA.r_0;
+  const T sth = fm::fabs(keep[3]) + eps;
+  const T cth = keep[4];
+  const T rho2 = r * r + CA.a2 * cth * cth;
+  const T tworr = T(2.0) * r / rho2;
+  g00 = T(-1.0) + tworr;
+  g01 = tworr * (r - CA.r_0);
+  g03 = CA.neg_a * sth * sth * tworr;
+}
+
 template <typename T>
 __device__ __forceinline__ T step_size(T x1, T x2, T k1, T k2, T k3, T x2_stop) {
   const T eps = T(EPS_D), se = T(0.04);
@@ -206,10 +244,22 @@ constexpr unsigned FULL = 0xffffffffu;
 // zeros; 36 = 4 mod 16, so that a warp's operand loads hit distinct banks),
 // then one unit for the barrier its copies arrive on.
 constexpr int HC_ROWS_D = 44, HC_PITCH_D = 36, HC_SURF_UNITS_D = HC_ROWS_D * HC_PITCH_D / 2;
-// 16-byte units of the staged surface
-template <typename T>
+// Float stages it as HC_NX rows of HC_PITCH values (31, then a zero), or of
+// HC_PITCH_RF in the shipped variant's row deal over a group (G > 1), then
+// the barrier's unit.
+constexpr int HC_PITCH_RF = 36;
+template <bool kRef, typename T, int G>
+__host__ __device__ constexpr int hc_pitch() {
+  return sizeof(T) == 8 ? HC_PITCH_D : (!kRef && G > 1) ? HC_PITCH_RF : HC_PITCH;
+}
+// 16-byte units of the staged surface, and with the barrier's
+template <bool kRef, typename T, int G>
+__host__ __device__ constexpr int hc_surf_units() {
+  return sizeof(T) == 8 ? HC_SURF_UNITS_D : HC_NX * hc_pitch<kRef, T, G>() * (int)sizeof(T) / 16;
+}
+template <bool kRef, typename T, int G>
 __host__ __device__ constexpr int hc_units() {
-  return sizeof(T) == 8 ? HC_SURF_UNITS_D + 1 : HC_NX * HC_PITCH * (int)sizeof(T) / 16;
+  return hc_surf_units<kRef, T, G>() + 1;
 }
 
 // sigma_hot from the Chebyshev sum acc (double): the Klein-Nishina cold
@@ -326,25 +376,40 @@ __device__ __forceinline__ double hotcross_group(double w, double te, const BCon
 }
 
 // A lane's corner row, the W values at table[z * W], into row[], fetched by
-// the warp: its 32 rows are staged in shared memory (`stage`, 32 rows at a
-// pitch of an odd number of 16-byte units), neighbouring lanes loading one
-// row's units, then each lane reads its own.
-template <int W, typename T>
+// the warp: its rows are staged in shared memory (`stage`, up to 32 rows at
+// a pitch of an odd number of 16-byte units), neighbouring threads loading
+// one row's units, then each thread reads its own.  At G threads a lane the
+// warp holds 32 / G lanes and fetches their rows alone.
+template <int W, int G, typename T>
 __device__ __forceinline__ void fetch_row(const T *table, int z, int lane,
                                           typename Vec16<T>::type *stage, T *row) {
   using V = typename Vec16<T>::type;
   constexpr int E = Vec16<T>::n, NQ = W / E, PITCH = NQ | 1;
   const V *tab = reinterpret_cast<const V *>(table);
+  if constexpr (G == 1) {
 #pragma unroll
-  for (int it = 0; it < NQ; ++it) {
-    const int idx = it * 32 + lane;
-    const int r = idx / NQ, q = idx - r * NQ;
-    const int zr = __shfl_sync(FULL, z, r);
-    stage[r * PITCH + q] = __ldg(tab + (size_t)zr * NQ + q);
+    for (int it = 0; it < NQ; ++it) {
+      const int idx = it * 32 + lane;
+      const int r = idx / NQ, q = idx - r * NQ;
+      const int zr = __shfl_sync(FULL, z, r);
+      stage[r * PITCH + q] = __ldg(tab + (size_t)zr * NQ + q);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) Vec16<T>::unpack(stage[lane * PITCH + q], row + E * q);
+  } else {
+    constexpr int UNITS = 32 / G * NQ;  // the warp's lanes' rows, in 16-byte units
+#pragma unroll
+    for (int it = 0; it < (UNITS + 31) / 32; ++it) {
+      const int idx = it * 32 + lane;
+      const int r = idx / NQ, q = idx - r * NQ;
+      const int zr = __shfl_sync(FULL, z, r * G);  // the row of the warp's lane r
+      if (UNITS % 32 == 0 || idx < UNITS) stage[r * PITCH + q] = __ldg(tab + (size_t)zr * NQ + q);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) Vec16<T>::unpack(stage[lane / G * PITCH + q], row + E * q);
   }
-  __syncwarp();
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) Vec16<T>::unpack(stage[lane * PITCH + q], row + E * q);
 }
 
 template <typename T>
@@ -408,15 +473,16 @@ __host__ __device__ constexpr int warp_units() {
 // depth cap, the derived 44-wide row from hot_tab, the dl_shrink clamp and
 // the detached-event capture); kRef = true: reference semantics (the
 // ladder, the raw 32-wide row from corner_rows through the metric pair, no
-// clamp, no capture).  G threads share a lane (G > 1 in double only): they
-// run it alike, but for their share of the hotcross sum, and the first of
-// them stores and counts.  Lanes at or past n compute lane n - 1 and store
+// clamp, no capture).  G threads share a lane: they run it alike, but for
+// their share of the hotcross sum (and, in float, of the warp's row
+// fetch), and the first of them stores and counts; every thread of a group
+// draws the same Philox block.  Lanes at or past n compute lane n - 1 and store
 // nothing, so that every lane of a warp reaches its shuffles and ballots.
 // kDraw: the uniforms drawn from the lane's Philox block at (lane, S_HOT,
 // step, 0) under P.key (`step` is read by this instance alone).
-template <bool kRef, typename T, int THREADS>
+template <bool kRef, typename T, int G, int THREADS>
 __host__ __device__ constexpr int smem_bytes() {  // the staged surface, the warps' regions
-  return 16 * (hc_units<T>() + THREADS / 32 * warp_units<kRef, T>());
+  return 16 * (hc_units<kRef, T, G>() + THREADS / 32 * warp_units<kRef, T>());
 }
 
 template <bool kRef, typename T, int G, int THREADS, bool kDraw>
@@ -427,10 +493,10 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
   constexpr bool kD = sizeof(T) == 8;
   constexpr int W = kRef ? RAW_W : ROW_W, M = kRef ? RAW_NC : NC;
   constexpr int WPITCH = warp_units<kRef, T>() / 32;  // a warp's region, 32 rows of this
-  extern __shared__ float4 smem[];  // smem_bytes<kRef, T, THREADS>()
+  extern __shared__ float4 smem[];  // smem_bytes<kRef, T, G, THREADS>()
   __shared__ unsigned census[5];
   const V *hs = reinterpret_cast<const V *>(smem);
-  V *stage = reinterpret_cast<V *>(smem) + hc_units<T>();
+  V *stage = reinterpret_cast<V *>(smem) + hc_units<kRef, T, G>();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i0 = blockIdx.x * (THREADS / G) + threadIdx.x / G;
   const int sub = threadIdx.x % G;  // this thread's place in its lane's group
@@ -438,10 +504,11 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
   const int i = i0 < n ? i0 : n - 1;
   const T eps = T(EPS_D);
   if (threadIdx.x < 5) census[threadIdx.x] = 0u;
-  // double: the surface's copies run behind phase A; each thread arrives on
-  // the barrier after the surface once its own have landed
+  // the surface's copies run behind phase A (double: issued at entry;
+  // float: behind the lane's loads); each thread arrives on the barrier
+  // after the surface once its own have landed
   unsigned long long *const hc_bar = reinterpret_cast<unsigned long long *>(
-      reinterpret_cast<V *>(smem) + HC_SURF_UNITS_D);
+      reinterpret_cast<V *>(smem) + hc_surf_units<kRef, T, G>());
   if constexpr (kD) {
     if (threadIdx.x == 0) barrier_init(hc_bar, THREADS);
     __syncthreads();
@@ -451,12 +518,6 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
       cp_async8(reinterpret_cast<T *>(smem) + t, P.hc + (pad ? 0 : ix * HC_NY + j), pad);
     }
     cp_async_arrive(hc_bar);
-  } else {
-    for (int t = threadIdx.x; t < HC_NX * HC_PITCH; t += THREADS) {
-      const int ix = t / HC_PITCH, j = t - ix * HC_PITCH;
-      reinterpret_cast<T *>(smem)[t] = j < HC_NY ? __ldg(P.hc + ix * HC_NY + j) : T(0.0);
-    }
-    __syncthreads();
   }
 
   // ---- phase A (engine.hot_phase_a) ----
@@ -469,6 +530,17 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
   const bool alive = P.alive[i], record_pending = P.record_pending[i];
   const T alpha_scatti = P.alpha_scatti[i], alpha_absi = P.alpha_absi[i];
   const T bi = P.bi[i];
+  if constexpr (!kD) {
+    if (threadIdx.x == 0) barrier_init(hc_bar, THREADS);
+    __syncthreads();
+    constexpr int PITCH = hc_pitch<kRef, T, G>();
+    for (int t = threadIdx.x; t < HC_NX * PITCH; t += THREADS) {
+      const int ix = t / PITCH, j = t - ix * PITCH;
+      const bool pad = j >= HC_NY;
+      cp_async4(reinterpret_cast<T *>(smem) + t, P.hc + (pad ? 0 : ix * HC_NY + j), pad);
+    }
+    cp_async_arrive(hc_bar);
+  }
 
   const bool moving = alive && !at_event;
   const T dl_full =
@@ -499,8 +571,8 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
   T conn_regs[kD ? 1 : 40];
   const auto conn = conn_slots<kD>(
       conn_regs, reinterpret_cast<T *>(stage + warp * 32 * WPITCH) + lane);
-  T keep[5];  // double: the connection's transcendentals at x_new
-  connection(x_new[1], x_new[2], CA, conn, kD ? keep : nullptr);
+  T keep[5];  // the connection's transcendentals at x_new
+  connection(x_new[1], x_new[2], CA, conn, keep);
   if constexpr (kD) {  // the rest of the push from the pre-step state read again
     const T *const xs[4] = {P.x0, P.x1, P.x2, P.x3}, *const ks[4] = {P.k0, P.k1, P.k2, P.k3};
     const T *const ds[4] = {P.d0, P.d1, P.d2, P.d3};
@@ -514,20 +586,10 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
       x_new[m] = x[m] + k_half[m] * seg;
     }
   }
-  // metric row 0 at x_new (double: after the push, from the connection's values)
+  // metric row 0 at x_new from the connection's values: float beside the
+  // rounds, double after them (so that it holds no registers through them)
   T g00, g01, g03;
-  if constexpr (!kD) {
-    const T r = fm::exp(x_new[1]) + CA.r_0;
-    const T th = CA.pi * x_new[2] + CA.half_1mh * fm::sin(CA.two_pi * x_new[2]);
-    const T sth = fm::fabs(fm::sin(th)) + eps;
-    const T cth = fm::cos(th);
-    const T rho2 = r * r + CA.a2 * cth * cth;
-    const T tworr = T(2.0) * r / rho2;
-    g00 = T(-1.0) + tworr;
-    g01 = tworr * (r - CA.r_0);
-    g03 = CA.neg_a * sth * sth * tworr;
-  }
-
+  if constexpr (!kD) metric_row0(keep, CA, g00, g01, g03);
   T err = T(0.0);
   T dk_new[4] = {dk[0], dk[1], dk[2], dk[3]};
   for (int it = 0; it < CA.fp_iters; ++it) {
@@ -543,16 +605,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 #pragma unroll
     for (int m = 0; m < 4; ++m) k_pred[m] = k_next[m];
   }
-  if constexpr (kD) {
-    const T r = keep[0] + CA.r_0;
-    const T sth = fm::fabs(keep[3]) + eps;
-    const T cth = keep[4];
-    const T rho2 = r * r + CA.a2 * cth * cth;
-    const T tworr = T(2.0) * r / rho2;
-    g00 = T(-1.0) + tworr;
-    g01 = tworr * (r - CA.r_0);
-    g03 = CA.neg_a * sth * sth * tworr;
-  }
+  if constexpr (kD) metric_row0(keep, CA, g00, g01, g03);
   // the lane's fields past the push
   const T e_0_s_p = again<kD>(P.e_0_s, i, e_0_s);
   const T dl_shrink_p = again<kD>(P.dl_shrink, i, dl_shrink);
@@ -667,7 +720,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
   // ---- the corner row at z: derived (fluid.blend_derived) or raw (fluid.blend_raw) ----
   T row[W];
   if constexpr (kD) __syncwarp();  // every lane's connection read before the rows land on it
-  fetch_row<W>(P.table, z, lane, stage + warp * 32 * WPITCH, row);
+  fetch_row<W, kD ? 1 : G>(P.table, z, lane, stage + warp * 32 * WPITCH, row);
 
   // ---- phase B (engine.hot_phase_b) ----
   bool inter = moving && commit && !pend_push && !stopped;
@@ -684,10 +737,10 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
     n_e = inside ? pr[0] * CB.n_e_unit : T(0.0);
     te = pr[1] / pr[0] * CB.theta_e_unit;
     T g[7], gc[6];
-    // double: from the connection's transcendentals at x_new, which equal
-    // those at x on every lane whose push committed; phase B's values count
-    // on those lanes alone (an uncommitted lane does not interact)
-    metric_pair(x1, x2, CB, g, gc, kD ? keep : nullptr);
+    // from the connection's transcendentals at x_new, which equal those at
+    // x on every lane whose push committed; phase B's values count on those
+    // lanes alone (an uncommitted lane does not interact)
+    metric_pair(x1, x2, CB, g, gc, keep);
     four_vectors(pr, g, gc, CB, u_cov, b_cov, &b_mag);
   } else {
     n_e = inside ? pr[0] : T(0.0);
@@ -708,15 +761,17 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
   const T nu_safe = fm::fabs(nu) + eps;
   const T e_g = T(HPL_D) * nu_safe * CB.inv_mecc;
   T sigma;
+  barrier_wait(hc_bar);
   if constexpr (kD) {
-    barrier_wait(hc_bar);
     if constexpr (G == 1)
       sigma = hotcross_mma(e_g, te, CB, reinterpret_cast<const T *>(smem),
                            reinterpret_cast<T *>(stage + warp * 32 * WPITCH), lane);
     else
       sigma = hotcross_group<G>(e_g, te, CB, hs, sub);
-  } else {
-    sigma = hotcross<kRef>(e_g, te, CB, hs);
+  } else if constexpr (kRef) {  // the plain order's columns over the group
+    sigma = hotcross_cols<G>(e_g, te, CB, hs, sub, FULL, lane - sub, 1);
+  } else {  // the row form's rows over the group
+    sigma = hotcross_rows<G, hc_pitch<kRef, T, G>()>(e_g, te, CB, hs, sub, FULL, lane - sub, 1);
   }
   const T a_scf = nu_safe * sigma * n_e;
   const bool hc_thomson = e_g * te < T(1.0e-6), hc_cold = te < T(1.0e-4);
@@ -792,12 +847,12 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
   const bool hc_clamp = hc_hit && inter;
 
   // ---- the epilogue: dl_shrink clamp, detached-event capture (engine._capture_events) ----
-  // In double the inputs that the stores pass on are read before the first
-  // store, in one round trip: a load after a store that may alias it waits
-  // for it, one round trip each.
+  // The inputs that the stores pass on are read before the first store, in
+  // one round trip: a load after a store that may alias it waits for it,
+  // one round trip each.
   T tau_abs_in, tau_scatt_in;
   bool interacting_in;
-  if constexpr (kD) {
+  {
     tau_abs_in = P.tau_abs[i];
     tau_scatt_in = P.tau_scatt[i];
     interacting_in = P.interacting[i];
@@ -809,11 +864,16 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
     const bool tau_over = inter && (jmax(d_tau_scatt, d_tau_abs) > CB.tau_cap);
     if (tau_over || entry_roll) dl_shrink_o = jmin(dl_shrink_n, T(1.0));
     bool ev_pending, pdie, capt;
+    T ev_in[kD ? 1 : 9];  // float: the registers the capture passes on
     if constexpr (kD) {
       ev_pending = ev_pending_a;
       pdie = pdie_a;
       capt = capt_a;
     } else {
+      const T *const evs[9] = {P.ev_x0, P.ev_x1, P.ev_x2, P.ev_x3, P.ev_k0,
+                               P.ev_k1, P.ev_k2, P.ev_k3, P.ev_w};
+#pragma unroll
+      for (int m = 0; m < 9; ++m) ev_in[m] = evs[m][i];
       ev_pending = P.ev_pending[i];
       pdie = arrived && ((ko[0] > T(1.0e5)) || (ko[0] < T(0.0)) || isnan(ko[0]) ||
                          isnan(ko[1]) || isnan(ko[3]));
@@ -831,15 +891,15 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
     }
     if (valid) {
       if constexpr (!kD) {
-        P.oev_x0[i] = capt ? xo[0] : P.ev_x0[i];
-        P.oev_x1[i] = capt ? xo[1] : P.ev_x1[i];
-        P.oev_x2[i] = capt ? xo[2] : P.ev_x2[i];
-        P.oev_x3[i] = capt ? xo[3] : P.ev_x3[i];
-        P.oev_k0[i] = capt ? ko[0] : P.ev_k0[i];
-        P.oev_k1[i] = capt ? ko[1] : P.ev_k1[i];
-        P.oev_k2[i] = capt ? ko[2] : P.ev_k2[i];
-        P.oev_k3[i] = capt ? ko[3] : P.ev_k3[i];
-        P.oev_w[i] = capt ? sec_w_b : P.ev_w[i];
+        P.oev_x0[i] = capt ? xo[0] : ev_in[0];
+        P.oev_x1[i] = capt ? xo[1] : ev_in[1];
+        P.oev_x2[i] = capt ? xo[2] : ev_in[2];
+        P.oev_x3[i] = capt ? xo[3] : ev_in[3];
+        P.oev_k0[i] = capt ? ko[0] : ev_in[4];
+        P.oev_k1[i] = capt ? ko[1] : ev_in[5];
+        P.oev_k2[i] = capt ? ko[2] : ev_in[6];
+        P.oev_k3[i] = capt ? ko[3] : ev_in[7];
+        P.oev_w[i] = capt ? sec_w_b : ev_in[8];
         P.oev_pending[i] = ev_pending || capt;
       }
       P.ooccupied[i] = occupied_o;
@@ -863,13 +923,13 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
     P.oalpha_scatti[i] = alpha_scatti_o;
     P.oalpha_absi[i] = alpha_absi_o;
     P.obi[i] = bi_o;
-    const T tau_abs = kD ? tau_abs_in : P.tau_abs[i];
-    const T tau_scatt = kD ? tau_scatt_in : P.tau_scatt[i];
+    const T tau_abs = tau_abs_in;
+    const T tau_scatt = tau_scatt_in;
     P.otau_abs[i] = live ? tau_abs + d_tau_abs_eff : tau_abs;
     P.otau_scatt[i] = live ? tau_scatt + d_tau_scatt_eff : tau_scatt;
     P.ointeracting[i] =
         inter ? ((alpha_scatti_b > T(0.0)) || (alpha_absi_b > T(0.0)) || (n_e > T(0.0)))
-              : (kD ? interacting_in : (bool)P.interacting[i]);
+              : interacting_in;
     P.osec_w[i] = sec_w_b;
     P.on_step[i] = n_step_n;
   }
@@ -907,11 +967,19 @@ __global__ void __launch_bounds__(THREADS, min_blocks(THREADS))
 
 
 // The instance a launch of n lanes runs: its threads a lane (G) and its
-// block.  Float: one shape.  Double: up to F64_GROUP_MAX_N lanes (the
-// cascade's 512, the gate's 1,024) F64_GROUP threads a lane in 128-thread
-// blocks; up to F64_NARROW_MAX_N one thread a lane in 64-thread blocks
-// (four an SM, the launch spread over the SMs); beyond, the pool's width,
+// block.  Float: up to F32_GROUP_MAX_N lanes (the cascade's 512 and 4,096,
+// the gate's 1,024) F32_GROUP threads a lane, up to F32_MID_MAX_N
+// F32_MID_GROUP, each in F32_GROUP_THREADS-thread blocks, the launch
+// spread over the SMs; beyond, the pool's width, one thread a lane in
 // 256-thread blocks at most 128 registers, 65,536 lanes in one wave.
+// Double: up to F64_GROUP_MAX_N lanes (the cascade's 512, the gate's 1,024)
+// F64_GROUP threads a lane in 128-thread blocks; up to F64_NARROW_MAX_N one
+// thread a lane in 64-thread blocks (four an SM, the launch spread over the
+// SMs); beyond, as float.  The groups, blocks and crossovers were measured
+// (PERF.md: tools/sweep_hot_shape.py, every group of 1, 2, 4 and 8 in
+// blocks of 32 to 256 threads at 512 to 65,536 lanes).
+constexpr int F32_GROUP = 8, F32_GROUP_MAX_N = 4096, F32_MID_GROUP = 2, F32_MID_MAX_N = 16384,
+              F32_GROUP_THREADS = 128;
 constexpr int F64_GROUP = 8, F64_GROUP_MAX_N = 2048, F64_NARROW_MAX_N = 32768;
 struct Shape {
   int group, threads;
@@ -920,6 +988,8 @@ template <typename T>
 Shape hot_shape(int n) {
   if (sizeof(T) == 8 && n <= F64_GROUP_MAX_N) return {F64_GROUP, 128};
   if (sizeof(T) == 8 && n <= F64_NARROW_MAX_N) return {1, 64};
+  if (sizeof(T) == 4 && n <= F32_GROUP_MAX_N) return {F32_GROUP, F32_GROUP_THREADS};
+  if (sizeof(T) == 4 && n <= F32_MID_MAX_N) return {F32_MID_GROUP, F32_GROUP_THREADS};
   return {1, 256};
 }
 
@@ -928,7 +998,7 @@ template <bool kRef, typename T, int G, int THREADS, bool kDraw>
 cudaError_t prepare() {
   static cudaError_t rc = cudaFuncSetAttribute(
       hot_step_kernel<kRef, T, G, THREADS, kDraw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<kRef, T, THREADS>());
+      smem_bytes<kRef, T, G, THREADS>());
   return rc;
 }
 
@@ -948,7 +1018,7 @@ int launch_hot_g(void **ptrs, const double *scal, int n, void *stream) {
   if (rc != cudaSuccess) return (int)rc;
   if (n > 0) {
     hot_step_kernel<kRef, T, G, THREADS, kDraw><<<(n + lanes - 1) / lanes, THREADS,
-                                                 smem_bytes<kRef, T, THREADS>(),
+                                                 smem_bytes<kRef, T, G, THREADS>(),
                                                  (cudaStream_t)stream>>>(P, CA, CB, n, step);
   }
   return (int)cudaGetLastError();
@@ -962,7 +1032,7 @@ int blocks_per_sm_g() {
   if (rc == cudaSuccess)
     rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, hot_step_kernel<kRef, T, G, THREADS, kDraw>, THREADS,
-        smem_bytes<kRef, T, THREADS>());
+        smem_bytes<kRef, T, G, THREADS>());
   return rc == cudaSuccess ? blocks : -(int)rc;
 }
 
@@ -971,6 +1041,7 @@ template <bool kRef, typename T, bool kDraw>
 int hot_step_at(int n, int what, void **ptrs = nullptr, const double *scal = nullptr,
                 void *stream = nullptr) {
   const Shape s = hot_shape<T>(n);
+  constexpr int TH = F32_GROUP_THREADS;
   if constexpr (sizeof(T) == 8) {
     if (s.group > 1)
       return what ? blocks_per_sm_g<kRef, T, F64_GROUP, 128, kDraw>()
@@ -978,6 +1049,13 @@ int hot_step_at(int n, int what, void **ptrs = nullptr, const double *scal = nul
     if (s.threads == 64)
       return what ? blocks_per_sm_g<kRef, T, 1, 64, kDraw>()
                   : launch_hot_g<kRef, T, 1, 64, kDraw>(ptrs, scal, n, stream);
+  } else {
+    if (s.group == F32_GROUP)
+      return what ? blocks_per_sm_g<kRef, T, F32_GROUP, TH, kDraw>()
+                  : launch_hot_g<kRef, T, F32_GROUP, TH, kDraw>(ptrs, scal, n, stream);
+    if (s.group == F32_MID_GROUP)
+      return what ? blocks_per_sm_g<kRef, T, F32_MID_GROUP, TH, kDraw>()
+                  : launch_hot_g<kRef, T, F32_MID_GROUP, TH, kDraw>(ptrs, scal, n, stream);
   }
   return what ? blocks_per_sm_g<kRef, T, 1, 256, kDraw>()
               : launch_hot_g<kRef, T, 1, 256, kDraw>(ptrs, scal, n, stream);
@@ -1014,9 +1092,13 @@ extern "C" {
   int name##_draw_threads(int n) { return hot_shape<T>(n).threads; }                     \
   int name##_draw_blocks_per_sm(int n) { return hot_step_at<kRef, T, true>(n, 1); }
 
+// tools/sweep_hot_shape.py includes this file with HOT_STEP_SWEEP defined and
+// builds its own float instances, without these
+#ifndef HOT_STEP_SWEEP
 HOT_ENTRY(hot_step, false, float)
 HOT_ENTRY(hot_step_ref, true, float)
 HOT_ENTRY(hot_step_f64, false, double)
 HOT_ENTRY(hot_step_ref_f64, true, double)
+#endif
 
 }  // extern "C"

@@ -20,8 +20,9 @@
 //     in_grid, cell_of, blend_row, derived_fluid, raw_scalars, and the raw rows'
 //     metric pair and four-vectors (metric_pair, four_vectors);
 //   - the kinematics (radiation.kinematics_sin_c), the Chebyshev hotcross
-//     (cheb.hotcross_eval, scalar form; hotcross_cols: its columns split
-//     over a lane's threads, the same bits), K2, synch and B_nu
+//     (cheb.hotcross_eval, scalar form in two orders; hotcross_cols and
+//     hotcross_rows: each order split over a lane's threads, by columns or
+//     by rows, the same bits), K2, synch and B_nu
 //     (alpha_abs: radiation.alpha_inv_abs_sin_c) and the bias clamp
 //     (engine.bias_func);
 //   - the staging of a table in shared memory by cp.async, its copies'
@@ -731,6 +732,67 @@ __device__ __forceinline__ T hotcross_cols(T w, T te, const BConst<T> &C,
     for (int j = 0; j < HC_NY; ++j)
       acc += __shfl_sync(group, u[j % COLS], first + (j / COLS) * stride) *
              cheb_next(j, ty, bm1, bm2);
+    const T interp = fm::exp(acc * T(2.302585092994046));
+    const T cold = hc_klein_nishina(w) * T(SIGMA_T_D);
+    const T out = (te < T(1.0e-4)) ? cold : interp;
+    return (w * te < T(1.0e-6)) ? T(SIGMA_T_D) : out;
+  }
+}
+
+// sigma_hot as hotcross<false> computes it, bit for bit, with the 41 rows
+// dealt over a lane's G threads (the float hot step's shipped variant):
+// thread `sub` takes the rows sub, sub + G, ... (the first 41 % G threads one
+// more), forms each row's T_ix(tx) s_ix, s_ix = sum_j c[ix, j] T_j(ty) in j
+// order, and every thread then adds the 41 products in ix order, each
+// gathered from its thread by a shuffle.  The staged rows are PITCH values
+// apart (36 keeps the group's loads of one column unit, on G rows at once,
+// off each other's banks).  The group's threads are as hotcross_cols's.
+template <int G, int PITCH, typename T>
+__device__ __forceinline__ T hotcross_rows(T w, T te, const BConst<T> &C,
+                                           const typename Vec16<T>::type *hs, int sub,
+                                           unsigned group, int first, int stride) {
+  if constexpr (G == 1) {
+    static_assert(PITCH == HC_PITCH, "one thread a lane reads the rows at HC_PITCH");
+    return hotcross<false>(w, te, C, hs);
+  } else {
+    constexpr int E = Vec16<T>::n, R = (HC_NX + G - 1) / G;
+    static_assert(PITCH % E == 0 && PITCH >= HC_PITCH, "whole 16-byte units a row");
+    const T l_w = jclip(fm::log10(jmax(w, T(1e-30))), C.hc_xlo, C.hc_xhi);
+    const T l_t = jclip(fm::log10(jmax(te, T(1e-30))), C.hc_ylo, C.hc_yhi);
+    const T tx = (T(2.0) * l_w - C.hc_xsum) * C.inv_hc_xdiff;
+    const T ty = (T(2.0) * l_t - C.hc_ysum) * C.inv_hc_ydiff;
+    T by[HC_NY];
+    by[0] = T(1.0);
+    by[1] = ty;
+#pragma unroll
+    for (int j = 2; j < HC_NY; ++j) by[j] = T(2.0) * ty * by[j - 1] - by[j - 2];
+    T t_own[R];  // T_ix(tx) of this thread's rows, by the recurrence over all 41
+#pragma unroll
+    for (int r = 0; r < R; ++r) t_own[r] = T(0.0);
+    {
+      T tm2 = T(1.0), tm1 = tx;
+#pragma unroll
+      for (int ix = 0; ix < HC_NX; ++ix) {
+        const T t = cheb_next(ix, tx, tm1, tm2);
+        if (ix % G == sub) t_own[ix / G] = t;
+      }
+    }
+    T p[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int ix = sub + r * G < HC_NX ? sub + r * G : HC_NX - 1;  // past the last: unused
+      T c[HC_PITCH];
+#pragma unroll
+      for (int q = 0; q < HC_PITCH / E; ++q) Vec16<T>::unpack(hs[ix * (PITCH / E) + q], c + E * q);
+      T s = T(0.0);
+#pragma unroll
+      for (int j = 0; j < HC_NY; ++j) s += c[j] * by[j];
+      p[r] = t_own[r] * s;
+    }
+    T acc = T(0.0);
+#pragma unroll
+    for (int ix = 0; ix < HC_NX; ++ix)
+      acc += __shfl_sync(group, p[ix / G], first + (ix % G) * stride);
     const T interp = fm::exp(acc * T(2.302585092994046));
     const T cold = hc_klein_nishina(w) * T(SIGMA_T_D);
     const T out = (te < T(1.0e-4)) ? cold : interp;

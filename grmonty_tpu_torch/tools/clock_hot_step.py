@@ -12,8 +12,12 @@ the 256x256 torus.  Lane 0 of every warp adds the cycles of each segment
 to a device counter; each stamp first waits for a value the segment
 computed, so the compiler cannot move the segment's work across it.  The
 card's line, then one JSON line per (variant, width): the mean cycles a
-warp of each segment and in all, over 20 launches.  Exits 2 without a
-card.
+warp of each segment and in all, over 20 launches; the instance the width
+runs in the source (its ``<entry>_group``, ``_threads`` and
+``_blocks_per_sm``); and the device microseconds a launch of the source
+built unstamped, explicit and drawing (``device_us``: launches queued
+behind a GPU sleep, so that the host's launch cost is hidden; a width of 1
+gives a lane's chain with the launch).  Exits 2 without a card.
 
 The stamps' anchors are lines both the float64 redesign and the kernel
 before it hold; a source without one of them raises.
@@ -29,7 +33,7 @@ import subprocess
 SEGMENTS = ("staging", "loads", "connection", "rounds+control+cell", "row fetch",
             "blend+kinematics", "hotcross", "k2+synch+b_nu", "rest of phase B", "stores",
             "census", "surface wait")
-_WAIT = 11  # the double kernel's wait for the staged surface, where it has one
+_WAIT = 11  # the wait for the staged surface (float32: since the cp.async staging)
 # (pattern, replacement) of each stamp, in the order of the kernel
 _STAMPS = [
     (r"  if \(threadIdx\.x < 5\) census\[threadIdx\.x\] = 0u;\n",
@@ -43,7 +47,7 @@ _STAMPS = [
     (r"  // ---- the corner row at z",
      "  STAMP(3, (double)z + dl_shrink_n + x[0] + k[0] + dk[0] + e0sn + w_a + pend_rem);\n"
      "\\g<0>"),
-    (r"  fetch_row<W>\([^\n]*\n", "\\g<0>  STAMP(4, row[0] + row[W - 1]);\n"),
+    (r"  fetch_row<W[^(]*\([^\n]*\n", "\\g<0>  STAMP(4, row[0] + row[W - 1]);\n"),
     (r"  const T e_g = T\(HPL_D\) \* nu_safe \* CB\.inv_mecc;\n",
      "\\g<0>  STAMP(5, e_g + te + n_e + sin_th + b_mag);\n"),
     (r"  const T a_scf = [^\n]*\n", "\\g<0>  STAMP(6, a_scf);\n"),
@@ -79,9 +83,33 @@ def stamped(src):
         src, n = re.subn(pattern, repl, src, count=1)
         if n != 1:
             raise ValueError(f"clock_hot_step: no anchor {pattern!r} in the source")
-    src = re.sub(r"(    barrier_wait\(hc_bar\);\n)", f"\\g<1>    STAMP({_WAIT}, 0.0);\n", src,
-                 count=1)
+    src = re.sub(r"( *)(barrier_wait\(hc_bar\);\n)", f"\\g<1>\\g<2>\\g<1>STAMP({_WAIT}, 0.0);\n",
+                 src, count=1)
     return src + _TAIL
+
+
+def device_us(fn, reps=50):
+    """Device microseconds a call of ``fn`` (a few launches), its calls
+    queued behind a GPU sleep that outlasts their enqueueing."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 26
+    for _ in range(4):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        covered = not t0.query()
+        t1.synchronize()
+        if covered:
+            return 1e3 * t0.elapsed_time(t1) / reps
+        cycles *= 4
+    raise RuntimeError("clock_hot_step: the GPU sleep never outlasted the launches")
 
 
 def main(argv=None):
@@ -106,13 +134,18 @@ def main(argv=None):
     so = cu[:-3] + ".so"
     with open(cu, "w") as f:
         f.write(src)
-    # the stamped copy includes the shared headers beside its source
-    out = subprocess.run(["nvcc", *hot_kernels.NVCC_FLAGS, "-I",
-                          os.path.dirname(os.path.abspath(src_path)), "-o", so, cu],
-                         capture_output=True, text=True)
-    if out.returncode:
-        raise RuntimeError(f"nvcc failed:\n{out.stdout}{out.stderr}")
-    lib = ctypes.CDLL(so)
+    # the stamped copy includes the shared headers beside its source; the
+    # source itself is built too, unstamped, for its device times and shapes
+    plain_so = cu[:-3] + "_plain.so"
+    procs = [subprocess.Popen(["nvcc", *hot_kernels.NVCC_FLAGS, "-I",
+                               os.path.dirname(os.path.abspath(src_path)), "-o", o, c],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for o, c in ((so, cu), (plain_so, src_path))]
+    for proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed:\n{log}")
+    lib, plain = ctypes.CDLL(so), ctypes.CDLL(plain_so)
     buf = (ctypes.c_ulonglong * 16)()
     dt = getattr(torch, args.dtype)
     sim = driver.Simulation(validate_accuracy._torus(256, 256), photon_n=20000,
@@ -124,6 +157,11 @@ def main(argv=None):
         ours = hot_kernels._Build.fns[name]
         stamped_fn = getattr(lib, f"{name}_launch")
         stamped_fn.argtypes, stamped_fn.restype = ours.argtypes, ctypes.c_int
+        sides = {}  # the source's own unstamped entry points, explicit and drawing
+        for inst in (name, f"{name}_draw"):
+            sides[inst] = getattr(plain, f"{inst}_launch")
+            sides[inst].argtypes = hot_kernels._Build.fns[inst].argtypes
+            sides[inst].restype = ctypes.c_int
         for n in (int(w) for w in args.widths.split(",")):
             # the reference path's cut step cap, as chip_smoke.py's checks draw them
             cfg = (profiles.reference_config(pool=n, dtype=dt, stall_steps=50000)
@@ -146,6 +184,21 @@ def main(argv=None):
             warps = buf[15]
             rec["cycles"] = {s: buf[k] / warps for k, s in enumerate(SEGMENTS)}
             rec["total_cycles"] = sum(rec["cycles"].values())
+            for what in hot_kernels.HOT_SHAPE:
+                fn = getattr(plain, f"{name}_{what}")
+                fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+                rec[what] = fn(n)
+            key = torch.tensor([0x407D4A00 + n, 0x5EED5], dtype=torch.int64, device=dev)
+            saved = {inst: hot_kernels._Build.fns[inst] for inst in sides}
+            try:
+                hot_kernels._Build.fns.update(sides)
+                rec["device_us"] = {
+                    "explicit": device_us(lambda: hot_kernels.hot_step(
+                        pool, counters, u_roul, u_x1, bias, mc, tabs, cfg)),
+                    "draw": device_us(lambda: hot_kernels.hot_step_drawn(
+                        pool, counters, key, 5, bias, mc, tabs, cfg))}
+            finally:
+                hot_kernels._Build.fns.update(saved)
             print(json.dumps(rec), flush=True)
 
 

@@ -7,8 +7,8 @@ control, the detached-event capture) and ``hot_step_ref`` (reference
 semantics: the ladder, raw 32-wide rows through the metric pair), each in
 float32 and in float64 (``hot_step_f64``, ``hot_step_ref_f64``); each entry
 point picks its instance from the lane count (:func:`hot_step_shape`: in
-float64 a group of threads a lane in the narrow pools, one thread a lane
-beyond).  It
+both dtypes a group of threads a lane in the narrow pools, one thread a lane
+at the pool's width).  It
 replaces the TPU kernels ``grmonty_tpu/transport/hotstep_pallas.py:104``
 (``kernel_a``, body ``engine.hot_phase_a``) and ``hotstep_pallas.py:152``
 (``kernel_b``, body ``engine.hot_phase_b``) and the corner-row gather
@@ -982,11 +982,33 @@ def rowloop_wave_rows(w):
 
 def hot_step_shape(name, n):
     """The instance a launch of the hot step's entry point ``name``
-    (``HOT_STEPS``) on ``n`` lanes runs, {``HOT_SHAPE``: int}: its threads a
-    lane (``group``: 1 in float32; in float64 more than 1 in the narrow
-    pools of the cascade and the gate, 1 beyond), its threads a block and
-    the blocks an SM holds on the current CUDA device."""
+    (``HOT_STEPS`` or ``HOT_DRAWS``) on ``n`` lanes runs, {``HOT_SHAPE``:
+    int}: its threads a lane (``group``: in float32 8 up to 4,096 lanes, the
+    cascade's and the gate's pools, 2 up to 16,384, 1 beyond; in float64 8
+    up to 2,048, 1 beyond), its threads a block (float32: 128 in a group,
+    256 beyond; float64: 128, 64 up to 32,768, 256 beyond) and the blocks an
+    SM holds on the current CUDA device."""
     return {what: _int_fn(f"{name}_{what}", n) for what in HOT_SHAPE}
+
+
+def hot_step_shape_edges(name, widest=65536):
+    """The widths n in [1, ``widest``) after which a launch of ``name``
+    runs another instance (group, threads a block): each the last width of
+    an interval of one shape, found by bisection (the shapes run in
+    intervals of n); the card tests hold each side of each."""
+    def shape(n):
+        s = hot_step_shape(name, n)
+        return s["group"], s["threads"]
+
+    edges, lo = [], 1
+    while shape(lo) != shape(widest):
+        first, hi = shape(lo), widest  # shape(lo) == first != shape(hi)
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if shape(mid) == first else (lo, mid)
+        edges.append(lo)
+        lo = hi
+    return edges
 
 
 

@@ -57,7 +57,9 @@ window are not the run's.
    lanes for ``compact``, for the event phase the events that ran (valid
    and within the ring's room, or all valid where the ring is wedged).
    Summaries by (engine, role, n, k) and a histogram of the events per
-   full phase by engine go into the JSON; each launch's line into
+   full phase by engine go into the JSON, with the hot step's launches
+   counted by engine, entry point and width (``hot_steps``, not timed);
+   each timed launch's line into
    ``chiprun_out/census_<path>.json``.  Then the trace windows, on the
    graphed run.  ``torch.profiler`` traces the replays of 64 hot iterations twice:
    in the waves from hot iteration 64 on (full pool; the ramp's first
@@ -270,12 +272,15 @@ def census(root, photon_n, reference):
 
     from grmonty_tpu_torch.transport import engine, hot_kernels
 
-    recs, engines, at = [], {}, {"engine": None, "role": None}
+    recs, engines, at, hot = [], {}, {"engine": None, "role": None}, {}
     launch, run, event_set = hot_kernels._launch, engine.Engine.run, engine.event_set
     spectrum_add, refill = engine.Engine.spectrum_add, engine.Engine.refill
     slot = hot_kernels._PHASE_PTRS.index
 
     def timed_launch(name, ptr_tensors, scal, n, device):
+        if name in hot_kernels.HOT_STEPS + hot_kernels.HOT_DRAWS:
+            key = (at["engine"], name, n)
+            hot[key] = hot.get(key, 0) + 1
         if name not in CENSUS or n == 0:
             return launch(name, ptr_tensors, scal, n, device)
         e0 = torch.cuda.Event(enable_timing=True)
@@ -348,6 +353,8 @@ def census(root, photon_n, reference):
     return {"event_pair_us": 1e3 * sum(a.elapsed_time(b) for a, b in floor) / len(floor),
             "hot_iters": out["hot_iters"], "full_phases": out["full_phases"],
             "light_phases": out["light_phases"], "groups": summary,
+            "hot_steps": [{"engine": e, "name": name, "n": n, "launches": c}
+                          for (e, name, n), c in hot.items()],
             "events_per_full_phase": {"bins": list(EVENT_BINS), **hist}}, lines
 
 

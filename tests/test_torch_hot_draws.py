@@ -19,8 +19,9 @@ hot step changes what it reads.  Here:
 * the wrapper of the drawing instance takes the plain version on the CPU;
 * on the card (marker ``cuda``): the drawing kernel against
   ``engine.hot_step_plain`` on ``hot_uniforms`` under the same key and
-  step, at every instance's width, and bit for bit the explicit kernel's on
-  those uniforms.  This file imports no JAX:
+  step, in both dtypes at 65,536, 4,096, 1,024, 512, 513 and 1 lanes and on
+  each side of every width where the instance changes, and bit for bit the
+  explicit kernel's on those uniforms.  This file imports no JAX:
   ``python -m pytest --noconftest -m cuda tests/test_torch_hot_draws.py``.
 """
 
@@ -273,7 +274,10 @@ def test_drawing_kernel_matches_plain_on_the_card(setup, semantics, dtype):
     _card()
     mc, tabs = setup
     dev = torch.device("cuda")
-    widths = [65536, 4096, 512] + ([1024, 513, 1] if dtype == torch.float64 else [])
+    name = hot_kernels.entry_point("hot_step", dtype, semantics == "reference", draw=True)
+    widths = [65536, 4096, 1024, 512, 513, 1]
+    for edge in hot_kernels.hot_step_shape_edges(name):
+        widths += [edge, edge + 1]
     tables = tabs._replace(**{f: getattr(tabs, f).to(dev, dtype).contiguous()
                               for f in ("hc_coeffs", "corner_rows", "hot_tab")})
     for n in widths:

@@ -16,11 +16,11 @@ conditioning as in tests/test_torch_hot.py); each census count, a count of
 such masks, within 0.1% of the lanes.  On the card the kernel is held to
 the plain version on every lane under ``hot_kernels.KERNEL_TOLERANCE`` (the
 weight within ``hot_kernels.weight_slack`` besides) and its census counters
-exactly: float32 at 65,536 lanes; float64 at 65,536, 4,096, 1,024, 513 and
+exactly, in float32 and in float64, at 65,536, 4,096, 1,024, 512, 513 and
 1 lanes and on each side of every width where the instance changes
-(``hot_kernels.hot_step_shape``: the group of threads a lane up to one
-width, the narrow one-thread-a-lane blocks up to another), so that a group
-instance with a partial last block, a block of one lane and each
+(``hot_kernels.hot_step_shape`` of the dtype: the group of threads a lane up
+to one width, the narrow one-thread-a-lane blocks up to another), so that a
+group instance with a partial last block, a block of one lane and each
 one-thread-a-lane instance are all held to the plain version.
 
 JAX is imported inside the tests that compare with it, so that the card
@@ -346,11 +346,9 @@ def test_fused_kernel_matches_plain_on_the_card(setup, semantics, dtype):
     mc, tabs = setup
     dev = torch.device("cuda")
     name = hot_kernels.entry_point("hot_step", dtype, semantics == "reference")
-    widths = [65536]
-    if dtype == torch.float64:
-        widths += [4096, 1024, 513, 1]
-        for edge in _shape_edges(name):
-            widths += [edge, edge + 1]
+    widths = [65536, 4096, 1024, 512, 513, 1]
+    for edge in _shape_edges(name):
+        widths += [edge, edge + 1]
     for n in widths:
         cfg = _config(semantics, dtype, n)
         lanes = _lanes(mc, cfg, n, seed=11)
@@ -371,29 +369,19 @@ def test_fused_kernel_matches_plain_on_the_card(setup, semantics, dtype):
 
 
 def _shape_edges(name, widest=65536):
-    """The widths n in [1, widest) after which a launch of ``name`` runs
-    another instance (group, threads a block): each the last width of an
-    interval of one shape, found by bisection (the shapes run in intervals
-    of n)."""
-    shape = lambda n: tuple(hot_kernels.hot_step_shape(name, n)[k]  # noqa: E731
-                            for k in ("group", "threads"))
-    edges, lo = [], 1
-    while shape(lo) != shape(widest):
-        first, hi = shape(lo), widest  # shape(lo) == first != shape(hi)
-        while hi - lo > 1:
-            mid = (lo + hi) // 2
-            lo, hi = (mid, hi) if shape(mid) == first else (lo, mid)
-        edges.append(lo)
-        lo = hi
-    assert len(edges) >= 1 and shape(1)[0] > 1 and shape(widest)[0] == 1, edges
+    """``hot_kernels.hot_step_shape_edges``: a group of threads a lane at
+    one lane, one thread a lane at the pool's width, at least one edge."""
+    edges = hot_kernels.hot_step_shape_edges(name, widest)
+    first, last = (hot_kernels.hot_step_shape(name, n)["group"] for n in (1, widest))
+    assert len(edges) >= 1 and first > 1 and last == 1, edges
     return edges
 
 
 def test_clock_stamps_find_every_anchor():
     """``tools/clock_hot_step`` stamps the kernel at lines it must find:
-    every segment's stamp (the double kernel's surface wait among them) and
-    the counters' read-out land in the source, and a source without an
-    anchor raises."""
+    every segment's stamp (the surface wait, which every instance of both
+    dtypes reaches, among them) and the counters' read-out land in the
+    source, and a source without an anchor raises."""
     import os
 
     from grmonty_tpu_torch.tools import clock_hot_step
@@ -403,6 +391,80 @@ def test_clock_stamps_find_every_anchor():
     out = clock_hot_step.stamped(src)
     for k in range(len(clock_hot_step.SEGMENTS)):
         assert f"STAMP({k}, " in out, k
+    # the surface wait at the kernel's top level, which every instance of
+    # both dtypes reaches: float32 stamps it too
+    assert f"\n  barrier_wait(hc_bar);\n  STAMP({clock_hot_step._WAIT}, 0.0);\n" in out
     assert "clk_read" in out and "g_clk[15]" in out
     with pytest.raises(ValueError, match="no anchor"):
         clock_hot_step.stamped(src.replace("  // ---- the census", "  // the census"))
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_ab_matches_kernels_across_checkouts():
+    """``chip_smoke.py --ab-hot-step`` matches a kernel of two checkouts by
+    its name with the anonymous namespace's mangled name, which hashes the
+    source's path, named alike (and only that), and compares outputs by
+    their bits (-0.0 is not 0.0; NaN is NaN)."""
+    cs = _chip_smoke()
+    ours = ("_ZN46_GLOBAL__N__32540f45_13_fresh_init_cu_bb2114d917fresh_init_kernel"
+            "ILb0EdLi1EEEvNS_9FreshPtrsIT0_EE")
+    theirs = ours.replace("32540f45", "0f0e1d2c").replace("bb2114d9", "0a1b2c3d")
+    assert cs.anon(ours) == cs.anon(theirs) != ours
+    assert cs.anon(ours.replace("ILb0E", "ILb1E")) != cs.anon(theirs)
+    a = torch.tensor([0.0, -0.0, float("nan"), 1.0])
+    assert cs.bit_diff(a, a.clone()).tolist() == [False] * 4
+    b = torch.tensor([-0.0, -0.0, float("nan"), 1.0])
+    assert cs.bit_diff(a, b).tolist() == [True, False, False, False]
+    assert cs.bit_diff(a.double(), b.double()).tolist() == [True, False, False, False]
+
+
+def test_sweep_reads_each_instance_registers():
+    """``tools/sweep_hot_shape`` reads the registers and spills of each
+    float32 sweep instance (variant, group, threads) from ptxas's output."""
+    from grmonty_tpu_torch.tools import sweep_hot_shape
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115hot_step_kernelILb0EfLi8E"
+        "Li128ELb0EEEvNS_7HotPtrsIT0_EE' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_115hot_step_kernelILb0EfLi8E",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 120 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115hot_step_kernelILb1EfLi2E"
+        "Li32ELb0EEEvNS_7HotPtrsIT0_EE' for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 255 registers",
+    ])
+    got = sweep_hot_shape.ptxas(log)
+    assert got == {(False, 8, 128): {"spill_stores": 0, "spill_loads": 0, "registers": 120},
+                   (True, 2, 32): {"spill_stores": 4, "spill_loads": 8, "registers": 255}}
+
+
+def test_sweep_source_reaches_the_launch_templates():
+    """The sweep's generated source includes the kernel's file with the
+    port's entry points left out and calls its launch templates as they are
+    declared there."""
+    import os
+    import re
+
+    from grmonty_tpu_torch.tools import sweep_hot_shape
+
+    with open(os.path.join(hot_kernels.CSRC_DIR, "hot_step.cu")) as f:
+        src = f.read()
+    wrapper = sweep_hot_shape.WRAPPER.replace("@SRC@", "hot_step.cu").replace("@G@", "8")
+    assert wrapper.startswith("\n#define HOT_STEP_SWEEP\n#include \"hot_step.cu\"")
+    assert re.search(r"#ifndef HOT_STEP_SWEEP\nHOT_ENTRY\(hot_step, false, float\)", src)
+    for fn in ("launch_hot_g", "blocks_per_sm_g"):
+        assert re.search(r"template <bool kRef, typename T, int G, int THREADS, bool kDraw>\n"
+                         rf"(cudaError_t|int) {fn}\(", src), fn
+        assert f"{fn}<kRef, float, SWEEP_G, TH, false>(" in wrapper
