@@ -940,23 +940,31 @@ def build_other(root, other, stem):
     return ctypes.CDLL(lib_path), ptxas_usage(out.stdout + out.stderr), lib_path
 
 
-def turns_of(sides, turns):
+def turns_of(sides, turns, before=None, host_paced=()):
     """{side: device ms a call, one value a turn} of the A/B ``sides`` ({name:
     function}, with "this" and "other"), in turns: this, other, the other
-    sides, other, this; ``turns`` times."""
+    sides, other, this; ``turns`` times.  ``before``: a function of the side's
+    name run before each timing (outside it: a side that updates its inputs
+    in place starts each timing from the same state); the sides in
+    ``host_paced`` (a call that reads the device on the host) are timed
+    back to back, the host's pace included."""
     ms = {k: [] for k in sides}
     order = ["this", "other"] + [k for k in sides if k not in ("this", "other")]
     for _ in range(turns):
         for k in order + ["other", "this"]:
-            ms[k].append(cuda_ms(sides[k], reps=AB_REPS, queued=True))
+            if before is not None:
+                before(k)
+            ms[k].append(cuda_ms(sides[k], reps=AB_REPS, queued=k not in host_paced))
     return ms
 
 
-# --ab-wide: the event phase's lanes a warp tried beside the width's own, and
-# its event counts beside the room ring's k / 2 (the path's full phases at
-# pool 65,536, from profile_slice.py --trace)
-AB_PHASE_LANES = (1, 8, 32)
+# --ab-wide: the event phase's event counts beside the room ring's k / 2
+# (the path's full phases at pool 65,536, from profile_slice.py --trace); the
+# pack's slot counts (the path's compacted widths) with the rows they make
+# (the wave's events a phase and all slots, the synthetic record's 6,489, the
+# cascade's one event and half its slots)
 AB_PHASE_EVENTS = {65536: (11000, 13000, 16384)}
+AB_ROWS = {16384: (6489, 11000, 13000, 16384), 4096: (1, 2048), 512: (1, 256)}
 
 
 def ab_wide(root, sims, other, usage, turns=2):
@@ -968,11 +976,14 @@ def ab_wide(root, sims, other, usage, turns=2):
     ``hot_kernels.EVENT_PHASE_WIDTHS`` on the room ring, and at
     ``AB_PHASE_EVENTS``' counts, each side in place on its own copy of the
     pool (the same states call by call: every side gives the same bits), this
-    side also at each of ``AB_PHASE_LANES``; every output bit for bit the
-    other's on a fresh copy.  The compaction at
+    side also at each of its dtype's ``hot_kernels.EVENT_PHASE_LANES``
+    instances; every output bit for bit the
+    other's on a fresh copy, each timing starting from the pool as made.  The compaction at
     ``COMPACT_WIDTHS`` and ``COMPACT_DENSITIES``, bit for bit the other's,
-    beside ``torch.nonzero_static`` in the same turns.  Prints one line per
-    kernel and width; fails where an output differs."""
+    beside ``torch.nonzero_static`` in the same turns.  The ring's pack at
+    ``AB_ROWS`` in both dtypes against a ring with room for every row and
+    one with room for half (:func:`ab_rows`).  Prints one line per kernel
+    and width; fails where an output differs."""
     import ctypes
 
     import numpy as np
@@ -1011,19 +1022,32 @@ def ab_wide(root, sims, other, usage, turns=2):
             sel, room, wedged = engine.event_set(pool, sec, k)
             key = torch.tensor([0x5EED0000 + k, 0xE7E27], dtype=torch.int64, device=dev)
 
-            def side(fn, lanes=None):
+            works = {}
+
+            def side(label, fn, **kw):
                 work = engine.clone_pool(pool)
                 wc = engine.Counters(*(t.clone() for t in counters))
+                works[label] = (work, wc)
 
                 def run():
-                    return fn(work, wc, sel, room, wedged, den, mc, tabs, key=key, lanes=lanes)
+                    return fn(work, wc, sel, room, wedged, den, mc, tabs, key=key, **kw)
                 return run
+
+            def restore(label):
+                work, wc = works[label]
+                for dst, src in zip(hot_kernels._flat(work._asdict()).values(),
+                                    hot_kernels._flat(pool._asdict()).values()):
+                    if dst is not None:
+                        dst.copy_(src)
+                for dst, src in zip(wc, counters):
+                    dst.copy_(src)
 
             ours = hot_kernels.event_phase
             specs = {"this": (ours, {}), "other": (swapped(ev_lib, name, ours), {}),
-                     **{f"lanes{L}": (ours, {"lanes": L}) for L in AB_PHASE_LANES}}
-            sides = {label: side(fn, **kw) for label, (fn, kw) in specs.items()}
-            outs = {label: side(fn, **kw)() for label, (fn, kw) in specs.items()}
+                     **{f"lanes{L}": (ours, {"lanes": L})
+                        for L in hot_kernels.EVENT_PHASE_LANES[dt]}}
+            outs = {label: side(label, fn, **kw)() for label, (fn, kw) in specs.items()}
+            sides = {label: side(label, fn, **kw) for label, (fn, kw) in specs.items()}
             torch.cuda.synchronize()
             want = outs["other"]
             differ = {}
@@ -1037,7 +1061,8 @@ def ab_wide(root, sims, other, usage, turns=2):
             on = sel[0] & ((torch.arange(k, device=dev) < room) | wedged)
             rec = {"name": name, "n": n, "k": k, "events": int(on.sum()),
                    **hot_kernels.event_shape(name, k),
-                   "fields_differing": differ, "device_ms": turns_of(sides, turns),
+                   "fields_differing": differ,
+                   "device_ms": turns_of(sides, turns, before=restore),
                    "ptxas": {s_: {f: v for f, v in use.items()
                                   if f"event_phase_kernelI{typ}" in f}
                              for s_, use in (("this", usage), ("other", ev_usage))}}
@@ -1069,6 +1094,62 @@ def ab_wide(root, sims, other, usage, turns=2):
                 print(f"ab compact@{n}k{k}d{density}: {json.dumps(rec)}")
                 if not same:
                     fail(f"ab compact@{n}k{k}d{density}: differs from the other checkout's")
+    for sim in sims:
+        ab_rows(sim.cfg.dtype, dev, cp_lib, cp_usage, usage, swapped, turns)
+
+
+def ab_rows(dt, dev, cp_lib, cp_usage, usage, swapped, turns):
+    """The ring's pack in ``dt`` against the other checkout's (``cp_lib``) at
+    ``AB_ROWS``, on a ring with room for every flagged row and on one with
+    room for half of them: every ring row, the count and n_sec_drop bit for
+    bit the other's and the plain pack's; then timed in turns (this, other,
+    ``stage.rows[stage.make]`` host paced, other, this), each timing on a
+    ring that holds its calls' rows (the count restored before each
+    timing).  Prints one line a case; fails where an output differs."""
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    name = hot_kernels.entry_point("compact_rows", dt)
+    ours = hot_kernels.compact_rows
+    ticket = hot_kernels.rows_ticket(dev)
+    for k, mades in AB_ROWS.items():
+        for made in mades:
+            for room in sorted({made + 3, max(0, made // 2)}):
+                stage, sec, counters = hot_kernels.synthetic_rows(k, made, room, dt, dev, 2050)
+                rsec, rc = engine.pack_rows_plain(stage, sec, counters)
+                outs = {}
+                for label, fn in (("this", ours), ("other", swapped(cp_lib, name, ours))):
+                    wsec = engine.SecBuf(*(t.clone() for t in sec))
+                    wc = engine.Counters(*(t.clone() for t in counters))
+                    outs[label] = fn(stage, wsec, wc, ticket)
+                torch.cuda.synchronize()
+                differ = {label: [f for f, a, b in (("rows", o[0].rows, rsec.rows),
+                                                   ("count", o[0].count, rsec.count),
+                                                   ("n_sec_drop", o[1].n_sec_drop,
+                                                    rc.n_sec_drop))
+                                  if not bool(hot_kernels._same_bits(a, b).all())]
+                          for label, o in outs.items()}
+                big = engine.SecBuf(torch.empty((256 * k + 2 * k, engine.ROW_WIDTH), dtype=dt,
+                                                device=dev),
+                                    torch.zeros((), dtype=torch.int64, device=dev))
+                tc = engine.Counters(*(t.clone() for t in counters))
+
+                def call(fn):
+                    return lambda: fn(stage, big, tc, ticket)
+
+                sides = {"this": call(ours), "other": call(swapped(cp_lib, name, ours)),
+                         "rows[make]": lambda: stage.rows[stage.make]}
+                rec = {"name": name, "k": k, "made": made, "room": room,
+                       **hot_kernels.rows_shape(name, k), "fields_differing": differ,
+                       "device_ms": turns_of(sides, turns,
+                                             before=lambda _: big.count.fill_(2 * k - room),
+                                             host_paced=("rows[make]",)),
+                       "ptxas": {s_: {f: v for f, v in use.items() if "compact_rows" in f}
+                                 for s_, use in (("this", usage), ("other", cp_usage))}}
+                print(f"ab {name}@{k}m{made}r{room}: {json.dumps(rec)}")
+                if any(differ.values()):
+                    fail(f"ab {name}@{k}m{made}r{room}: differs from the plain pack: {differ}")
 
 
 def ab_phase_kernels(root, sims, other, usage, turns=2):
@@ -1082,9 +1163,11 @@ def ab_phase_kernels(root, sims, other, usage, turns=2):
     every output bit for bit the other's.  The load and start at each
     semantics' FRESH_WIDTHS on phase 4's synthetic pools (untraced), this
     side one launch in place (the width's threads a slot and each of
-    AB_FRESH_GROUPS), the other side refill's row moves as the torch ops
-    they were (``engine.refill_load_plain``) and then its kernel on the
-    fresh set they leave, every field bit for bit the other's.  Prints one
+    AB_FRESH_GROUPS), the other side one launch in place on its own copy
+    where its start has this one's interface, else (a start from before it
+    took refill's row moves) those moves as the torch ops they were
+    (``engine.refill_load_plain``) and then its kernel on the fresh set
+    they leave, every field bit for bit the other's.  Prints one
     line per kernel and width; fails where an output differs."""
     import ctypes
 
@@ -1145,14 +1228,25 @@ def ab_phase_kernels(root, sims, other, usage, turns=2):
         for reference in (False, True):
             name = hot_kernels.entry_point("fresh_init", dt, reference)
             theirs = fn_of(fr_lib, name)
+            # the other's start has this one's interface (refill's row moves
+            # folded in) or is the start before the fold
+            folded = (getattr(fr_lib, f"{name}_nptrs")(),
+                      getattr(fr_lib, f"{name}_nscal")()) == hot_kernels._ABI[name]
             for n, k in hot_kernels.FRESH_WIDTHS[reference]:
                 pool, load, den, cfg = hot_kernels.synthetic_fresh(
                     mc, n, k, 2031 + k, dt, dev, reference=reference, trace_birth=False)
-                work = engine.clone_pool(pool)
+                work, o_work = engine.clone_pool(pool), engine.clone_pool(pool)
 
                 def other_side():
-                    return clock_phase_kernels.launch_before_fold(theirs, pool, load, den, mc,
-                                                                  tabs, cfg)
+                    if not folded:
+                        return clock_phase_kernels.launch_before_fold(theirs, pool, load, den,
+                                                                      mc, tabs, cfg)
+                    ours_fn = hot_kernels._Build.fns[name]
+                    hot_kernels._Build.fns[name] = theirs
+                    try:
+                        return hot_kernels.fresh_init(o_work, load, den, mc, tabs, cfg)
+                    finally:
+                        hot_kernels._Build.fns[name] = ours_fn
 
                 def this_side(group=None):
                     return hot_kernels.fresh_init(work, load, den, mc, tabs, cfg, group=group)
@@ -1601,10 +1695,11 @@ def event_phase_checks(sim, usage):
     name = hot_kernels.entry_point("event_phase", dt)
     rows_name = hot_kernels.entry_point("compact_rows", dt)
     typ = "d" if dt == torch.float64 else "f"
+    ticket = hot_kernels.rows_ticket(dev)
     out = []
     for j, (n, k) in enumerate(hot_kernels.EVENT_PHASE_WIDTHS):
         shape = hot_kernels.event_shape(name, k)
-        inst = f"event_phase_kernelI{typ}Li{shape['lanes']}E"
+        inst = f"event_phase_kernelI{typ}Li{shape['lanes']}EE"
         ptx = usage.get(next((f for f in usage if inst in f), None))
         for ring in hot_kernels.EVENT_RINGS:
             pool, sec, counters, den = hot_kernels.synthetic_event_pool(eng, n, k, 2040 + k, ring)
@@ -1620,7 +1715,7 @@ def event_phase_checks(sim, usage):
             wc = engine.Counters(*(t.clone() for t in counters))
             gp, gc, gs = hot_kernels.event_phase(work, wc, sel, room, wedged, den, mc, tabs,
                                                  key=key)
-            gsec, gc = hot_kernels.compact_rows(gs, wsec, gc)
+            gsec, gc = hot_kernels.compact_rows(gs, wsec, gc, ticket)
             torch.cuda.synchronize()
             rec, fails = hot_kernels.compare_event_phase(name, (rp, rc, rs, rsec),
                                                          (gp, gc, gs, gsec))
@@ -1659,11 +1754,14 @@ def event_phase_checks(sim, usage):
                                  torch.zeros((), dtype=torch.int64, device=dev))
             tc = engine.Counters(*(t.clone() for t in counters))
             made = int(rs.make.sum())
+            # the library call: stage.rows[stage.make], the flagged rows in
+            # order (no ring, no cap, no count; it reads the count on the host)
             rows_rec = time_kernel(
                 rows_name, {}, {}, lambda: engine.pack_rows_plain(rs, sec, counters),
-                lambda: hot_kernels.compact_rows(gs, tsec, tc),
-                k + 2 * made * engine.ROW_WIDTH * pool.w.element_size() + 24, ops=k, n=n,
-                extra={"library_ms": None, "library_device_ms": None, "k": k, "made": made,
+                lambda: hot_kernels.compact_rows(gs, tsec, tc, ticket),
+                k + 2 * made * engine.ROW_WIDTH * pool.w.element_size() + 24,
+                library=lambda: gs.rows[gs.make], ops=k, n=n,
+                extra={"k": k, "made": made, **hot_kernels.rows_shape(rows_name, k),
                        "max_abs_err": 0.0, "max_rel_err": 0.0, "mask_mismatch": 0.0,
                        **({"name": f"{rows_name}@{n}x{k}"} if j else {})})
             if j == 0:

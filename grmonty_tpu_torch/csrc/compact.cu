@@ -1,8 +1,8 @@
 // The pool's order-preserving compaction, hand-written for Hopper (sm_90a):
 // a bool mask's first k set lanes in ascending order, its tiles spread over
-// the card's SMs (compact_tiles_kernel), or one block of 1,024 threads that
-// packs the flagged rows of the event phase's staging buffer into the
-// secondary ring in slot order (compact_rows_kernel<T>, float or double).
+// the card's SMs (compact_tiles_kernel), and the pack of the event phase's
+// flagged staged rows into the secondary ring in slot order, its tiles of
+// slots spread the same way (compact_rows_kernel<T, NT>, float or double).
 //
 // No TPU kernel does this: the JAX engine's compact_idx is one XLA sort of
 // the keys where(mask, lane, n) (grmonty_tpu/transport/engine.py:1956-1975),
@@ -52,21 +52,32 @@
 // writes 17 B a slot (0.19 us at k = 32,768 at 3.35 TB/s); the launch, the
 // dependent L2 pass of the count and the block's barriers set its time.
 //
-// Rows mode, design: every width on the path (K <= 16,384 slots) is one
-// block.  Thread t owns a contiguous run of the flags of C bytes (C the
-// bytes a thread rounded up to whole 16-byte units) and counts its set bytes
-// by 16-byte loads (byte loads where the run is short or unaligned); a
-// block-wide exclusive scan by warp shuffles (each warp's inclusive scan,
-// the warps' totals scanned by warp 0 through shared memory) gives each
-// thread the rank of its first set flag; it then walks its run again and
-// puts each flagged row whose rank is below the ring's room into shared
-// memory at its rank, 8,192 ranks a pass, and the block copies the pass
-// out with a row's 16-byte units in consecutive threads.
+// Rows mode, design: the mask mode's redundant counting over tiles of NT
+// slots, one flag a thread (rows_threads: 128-slot tiles above 512 slots,
+// 128 blocks at the wave's 16,384; one block up to 512, the cascade's 512
+// and the gate's 256, which needs no ticket).  Every block counts
+// the flags before its tile and in all from L2 (16 KB at K = 16,384, eight
+// 16-byte loads in flight a thread), ranks its tile's flags by ballots and
+// the warps' counts, stages the slots of its flagged rows whose rank is
+// below the ring's room in shared memory by rank, and copies them with a
+// row's 16-byte units in consecutive threads to ring[count + rank].  The
+// hazard is the count, which every block reads and which only the kept
+// rows' total may update: each block's thread 0 reads it first, and after
+// its copies takes a ticket (one atomic add on a word that the ring's
+// owner allocates beside its count, zero between launches); the block
+// that takes the last ticket knows every block has read the count, writes
+// the count and n_drop and resets the ticket to 0, so a replayed CUDA graph
+// finds it at zero.  The launch reads nothing on the host.  What bounds it
+// on an H100 80GB HBM3: the flags once and the kept rows read and written
+// once (64 B a row in float: 0.25 us at 13,000 rows at 3.35 TB/s); the
+// launch, the count's dependent L2 pass and the ticket set its time.  The
+// one block of 1,024 threads before it took 14.1 us at 6,489 rows
+// of 16,384 slots and 30 us on the path's 13,000.
 //
 // Interface: plain C entry points for ctypes, as the other kernels: compact
 // (pointers mask, valid, gi, sidx; scalar k; the lane count N),
 // compact_rows and compact_rows_f64 (pointers make, rows, ring, count,
-// n_drop; scalar the ring's capacity; the slot count K), each with its
+// n_drop, ticket; scalar the ring's capacity; the slot count K), each with its
 // <entry>_nptrs and _nscal; each returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -76,122 +87,8 @@ typedef unsigned char u8;
 
 namespace {
 
-constexpr int CT = 1024;  // the block
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int ROW = 16;  // a staged or ring row (engine.ROW_WIDTH)
-
-// The set bytes (nonzero) of a 16-byte unit.
-__device__ __forceinline__ int set_bytes(uint4 v) {
-  int c = 0;
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    unsigned b = w[q] | (w[q] >> 4);
-    b |= b >> 2;
-    b |= b >> 1;
-    c += __popc(b & 0x01010101u);
-  }
-  return c;
-}
-
-// Thread t's run of the flags [lo, hi) and whether it reads it by 16-byte
-// units: C bytes a thread, whole units of 16.
-struct Run {
-  int lo, hi;
-  bool vec;
-};
-
-__device__ __forceinline__ Run run_of(const u8 *flags, int n) {
-  const int c = (((n + CT - 1) / CT) + 15) & ~15;
-  const int lo = min((int)threadIdx.x * c, n), hi = min(lo + c, n);
-  return {lo, hi, ((uintptr_t)(flags + lo) & 15) == 0 && ((hi - lo) & 15) == 0};
-}
-
-// Call f(j) for each set flag j of the run, in ascending order, until f
-// returns false.
-template <typename F>
-__device__ __forceinline__ void each_set(const u8 *flags, const Run &r, F f) {
-  if (r.vec) {
-    for (int q = r.lo; q < r.hi; q += 16) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4 *>(flags + q));
-      const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int b = 0; b < 16; ++b)
-        if ((w[b >> 2] >> (8 * (b & 3))) & 0xffu)
-          if (!f(q + b)) return;
-    }
-  } else {
-    for (int j = r.lo; j < r.hi; ++j)
-      if (flags[j])
-        if (!f(j)) return;
-  }
-}
-
-// The run's set flags.
-__device__ __forceinline__ int count_set(const u8 *flags, const Run &r) {
-  int c = 0;
-  if (r.vec) {
-    for (int q = r.lo; q < r.hi; q += 16)
-      c += set_bytes(__ldg(reinterpret_cast<const uint4 *>(flags + q)));
-  } else {
-    for (int j = r.lo; j < r.hi; ++j) c += flags[j] != 0;
-  }
-  return c;
-}
-
-// The block's exclusive scan of c: this thread's offset, and the total.
-__device__ __forceinline__ int block_scan(int c, int &total) {
-  __shared__ int warp_sum[CT / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = c;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(FULL, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_sum[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int v = warp_sum[lane];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(FULL, v, d);
-      if (lane >= d) v += y;
-    }
-    warp_sum[lane] = v;  // inclusive over the warps
-  }
-  __syncthreads();
-  total = warp_sum[CT / 32 - 1];
-  return x - c + (warp ? warp_sum[warp - 1] : 0);
-}
-
-// The ranks staged a pass: 32 KB of indices in shared memory.
-constexpr int CHUNK = 8192;
-
-// For each pass of CHUNK ranks below `limit`: the run's set flags whose rank
-// falls in the pass go to shared memory at their rank (this thread's first
-// set flag has rank `rank0`, its `cnt` of them ranks on from there), then
-// every thread of the block calls out(base, end, at): ranks [base, end),
-// the flag of rank base + q at at[q].  The writes that follow run over
-// consecutive ranks in consecutive threads.
-template <typename F>
-__device__ __forceinline__ void by_rank(const u8 *flags, const Run &r, int rank0, int cnt,
-                                        int limit, F out) {
-  __shared__ int at[CHUNK];
-  for (int base = 0; base < limit; base += CHUNK) {
-    const int end = min(base + CHUNK, limit);
-    if (rank0 < end && rank0 + cnt > base) {
-      int rank = rank0;
-      each_set(flags, r, [&](int j) {
-        if (rank >= base) at[rank - base] = j;
-        return ++rank < end;
-      });
-    }
-    __syncthreads();
-    out(base, end, at);
-    __syncthreads();
-  }
-}
 
 // ---- mask mode: the tiles over blocks ----
 
@@ -352,41 +249,103 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(CT)
+// ---- rows mode: the slots' tiles over blocks ----
+
+// Block b of NT threads owns the flags [b NT, (b + 1) NT), one a thread,
+// and (with more than one block) counts the whole flags, eight 16-byte
+// units a thread at a time.
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT)
     compact_rows_kernel(const u8 *__restrict__ make, const T *__restrict__ rows, int k,
-                        T *__restrict__ ring, int64_t *count, int64_t cap, int64_t *n_drop) {
-  using V = uint4;  // rows and ring 16-byte aligned; a row is ROW * sizeof(T) / 16 units
-  constexpr int U = ROW * sizeof(T) / 16;
-  const int64_t c0 = *count;  // read by every thread before the scan's barriers
-  const int64_t room = cap > c0 ? cap - c0 : 0;
-  const Run r = run_of(make, k);
-  const int cnt = count_set(make, r);
-  int total;
-  const int rank0 = block_scan(cnt, total);
-  const int kept = total < room ? total : (int)room;
-  const V *src = reinterpret_cast<const V *>(rows);
-  V *dst = reinterpret_cast<V *>(ring + (size_t)c0 * ROW);
-  // unit u of the row of rank q in thread q U + u of the pass: whole rows in
-  // consecutive threads
-  by_rank(make, r, rank0, cnt, kept, [&](int base, int end, const int *at) {
-    for (int e = (int)threadIdx.x; e < (end - base) * U; e += CT) {
-      const int q = e / U, u = e - q * U;
-      dst[(size_t)(base + q) * U + u] = __ldg(src + (size_t)at[q] * U + u);
-    }
-  });
-  if (threadIdx.x == 0) {
-    *count = c0 + kept;
-    *n_drop += total - kept;
+                        T *__restrict__ ring, int64_t *count, int64_t cap, int64_t *n_drop,
+                        unsigned *ticket) {
+  static_assert(NT % 32 == 0 && NT % 16 == 0, "whole warps and 16-byte units a tile");
+  using V = uint4;  // rows and ring 16-byte aligned; a row is U units
+  constexpr int U = ROW * sizeof(T) / 16, W = NT / 32;
+  __shared__ int at[NT];  // the tile's kept rows' slots by rank within it
+  __shared__ int w_before[W], w_all[W], w_tile[W];
+  __shared__ int64_t c0_s;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int j = (int)blockIdx.x * NT + t;
+  if (t == 0) c0_s = *count;  // read before this block's ticket
+  const bool f = j < k && make[j] != 0;
+  int before = 0, all = 0;  // one block: its tile is every flag, nothing before it
+  unsigned own = 0u;
+  if (gridDim.x > 1 && ((uintptr_t)make & 15) == 0)
+    count_units<NT, 16, 8, true>(make, k, (int)blockIdx.x * (NT / 16), -1, before, all, own);
+  else if (gridDim.x > 1)
+    count_units<NT, 16, 8, false>(make, k, (int)blockIdx.x * (NT / 16), -1, before, all, own);
+  const unsigned bal = __ballot_sync(FULL, f);
+  before = __reduce_add_sync(FULL, before);
+  all = __reduce_add_sync(FULL, all);
+  if (lane == 0) {
+    w_before[warp] = before;
+    w_all[warp] = all;
+    w_tile[warp] = __popc(bal);
   }
+  __syncthreads();
+  int base = 0, total = 0, rank = __popc(bal & ((1u << lane) - 1u)), tile = 0;
+#pragma unroll
+  for (int q = 0; q < W; ++q) {
+    base += w_before[q];
+    total += w_all[q];
+    rank += q < warp ? w_tile[q] : 0;
+    tile += w_tile[q];
+  }
+  if (gridDim.x == 1) total = tile;
+  const int64_t c0 = c0_s;
+  const int64_t room = cap > c0 ? cap - c0 : 0;
+  const int kept = total < room ? total : (int)room;
+  const int keep = min(tile, max(kept - base, 0));  // the tile's kept rows
+  if (keep > 0) {
+    if (f && rank < keep) at[rank] = j;
+    __syncthreads();
+    // unit u of the row of rank q in thread q U + u of a pass: whole rows in
+    // consecutive threads
+    const V *src = reinterpret_cast<const V *>(rows);
+    V *dst = reinterpret_cast<V *>(ring) + (size_t)(c0 + base) * U;
+    for (int e = t; e < keep * U; e += NT) {
+      const int q = e / U, u = e - q * U;
+      dst[(size_t)q * U + u] = __ldg(src + (size_t)at[q] * U + u);
+    }
+  }
+  if (t == 0) {  // one block: it read the count; else the last to take a ticket
+    bool last = gridDim.x == 1;
+    if (!last) {
+      __threadfence();
+      last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+      if (last) *ticket = 0u;
+    }
+    if (last) {  // every block has read the count
+      *count = c0 + kept;
+      *n_drop += total - kept;
+    }
+  }
+}
+
+// The threads a block (and slots a tile) of the pack at K slots: one block
+// up to 512 slots (no ticket), 128-slot tiles beyond.
+inline int rows_threads(int k) { return k > 512 ? 128 : (k > 256 ? 512 : (k > 128 ? 256 : 128)); }
+
+template <typename T, int NT>
+void launch_rows_at(void **ptrs, int64_t cap, int k, cudaStream_t s) {
+  compact_rows_kernel<T, NT><<<(k + NT - 1) / NT, NT, 0, s>>>(
+      (const u8 *)ptrs[0], (const T *)ptrs[1], k, (T *)ptrs[2], (int64_t *)ptrs[3], cap,
+      (int64_t *)ptrs[4], (unsigned *)ptrs[5]);
 }
 
 template <typename T>
 int launch_rows(void **ptrs, const double *scal, int k, void *stream) {
-  if (k > 0)
-    compact_rows_kernel<T><<<1, CT, 0, (cudaStream_t)stream>>>(
-        (const u8 *)ptrs[0], (const T *)ptrs[1], k, (T *)ptrs[2], (int64_t *)ptrs[3],
-        (int64_t)scal[0], (int64_t *)ptrs[4]);
+  if (k > 0) {
+    const int64_t cap = (int64_t)scal[0];
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (rows_threads(k)) {
+      case 128: launch_rows_at<T, 128>(ptrs, cap, k, s); break;
+      case 256: launch_rows_at<T, 256>(ptrs, cap, k, s); break;
+      case 512: launch_rows_at<T, 512>(ptrs, cap, k, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   return (int)cudaGetLastError();
 }
 
@@ -396,10 +355,12 @@ extern "C" {
 
 int compact_nptrs() { return 4; }
 int compact_nscal() { return 1; }
-int compact_rows_nptrs() { return 5; }
+int compact_rows_nptrs() { return 6; }
 int compact_rows_nscal() { return 1; }
-int compact_rows_f64_nptrs() { return 5; }
+int compact_rows_f64_nptrs() { return 6; }
 int compact_rows_f64_nscal() { return 1; }
+int compact_rows_threads(int k) { return rows_threads(k); }
+int compact_rows_f64_threads(int k) { return rows_threads(k); }
 
 int compact_launch(void **ptrs, const double *scal, int n, void *stream) {
   const int k = (int)scal[0];

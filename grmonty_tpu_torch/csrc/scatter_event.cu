@@ -675,15 +675,31 @@ __global__ void __launch_bounds__(THREADS)
 //     slot), and n_ev_soft and n_ev_forced take one atomic add a warp.
 // The ring's pack is the next launch (compact.cu, rows mode).
 //
-// At L < 32 the 32 / L threads of a lane split the hotcross sum's columns
-// (hotcross_cols, G = min(32 / L, 8) of them: the same bits as one thread).
-// Every thread of a lane loads the lane's inputs; only the lane's owner
-// (thread t < L) stores, after the warp's shuffles, which every thread's
-// loads precede.  Each valid slot's lane is its own (sidx ascending), so no
-// two slots touch one lane; an invalid slot reads nothing of the pool.
-// What the epilogue reads of the prologue (the refreshed opacities, the
-// bias, |B|) waits in shared memory across the event, a slot a thread, so
-// that the samplers run in the registers the event kernel alone had.
+// Shape: a pair of warps holds L lanes by type and width (phase_lanes:
+// 16, 4 or 1 in float, 32, 8, 4 or 1 in double; the sweep of PERF.md, which
+// also measured L = 32 and 8 in float, 16 in double and one warp a group of
+// lanes, and kept the pair at every width).  At L < 32 the 32 / L
+// threads of a lane split the
+// hotcross sum's columns (hotcross_cols, G = min(32 / L, 8) of them: the same
+// bits as one thread) and deal its rejection rounds.  A warp's divergent
+// branches run one after the other, so the lane's two independent branches
+// after its four-vectors go to two warps of a pair: the fluid warp computes
+// kinematics, the hotcross sum, alpha_abs and the bias and reads the
+// secondary's inputs from the pool, puts them in shared memory and arrives
+// at the pair's named barrier; the owner warp computes the tetrad, k_tet and
+// the samplers, waits at the barrier and stores.  Both compute the lane's
+// loads, its row's blend, the metric pair and the four-vectors.  A lane's
+// reads come in three dependent rounds: the slot's flag, lane and the
+// ring's room; the lane's fields (the shadow registers' and the pool's
+// both, picked after) and the secondary's; its corner row, with the metric
+// pair computed while the row is on its way.  Only the lane's owner (thread
+// t < L of the owner warp) stores, after the warp's shuffles, which every
+// thread's loads precede.  Each valid slot's lane is its own (sidx
+// ascending), so no two slots touch one lane; an invalid slot reads lane 0
+// and stores nothing there.  What the epilogue reads (the refreshed
+// opacities, the bias, |B| and the secondary's pool fields) waits in
+// shared memory across the event, a slot an owner thread, so that the
+// samplers run in the registers the event kernel alone had.
 
 typedef unsigned char u8;
 
@@ -714,10 +730,32 @@ struct PhasePtrs {  // order = hot_kernels._PHASE_PTRS
 constexpr int PHASE_NPTRS = sizeof(PhasePtrs<float>) / sizeof(void *);
 static_assert(sizeof(PhasePtrs<double>) == sizeof(PhasePtrs<float>), "one pointer layout");
 // the hot step's scalars, then EV_HALVE, EV_FORCE and the lanes a warp (below
-// 1: by the width, event_lanes)
+// 1: by the width, phase_lanes)
 constexpr int PHASE_NSCAL = HOT_NSCAL + 3;
 constexpr int STAGE_W = 16;  // a staged secondary's row (engine.ROW_WIDTH)
-constexpr int STASH = 4;  // the prologue's results the epilogue reads
+constexpr int STASH = 11;  // what the epilogue reads of the prologue and the pool
+
+// A pair's named barrier (ids 1, 2, ...: 0 is __syncthreads'): the fluid
+// warp arrives once its opacities are in shared memory, the owner warp
+// waits there before it reads them.
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
+// A thread's slot in an event-phase instance of L lanes a warp: blocks of
+// THREADS, warps 2p and 2p + 1 holding pair p's lanes (block's first + p) L
+// + [0, L), the first (the owner warp) running the event and the second (the
+// fluid warp) the opacities.  Thread t of a warp computes lane t % L.
+constexpr int PAIRS = THREADS / 64;  // a block's pairs of warps
+
+template <int L>
+__device__ __forceinline__ int phase_lane(int &t) {
+  t = threadIdx.x & 31;
+  return (blockIdx.x * PAIRS + (threadIdx.x >> 6)) * L + t % L;
+}
 
 template <typename T, int L>
 __global__ void __launch_bounds__(THREADS)
@@ -730,14 +768,65 @@ __global__ void __launch_bounds__(THREADS)
   __shared__ V hs[HC_NX * HC_PITCH / E];  // the hotcross surface, rows of HC_PITCH
   __shared__ unsigned long long hc_bar;   // its copies' barrier
   int t;
-  const int s0 = warp_lane<L>(t);
+  const int s0 = phase_lane<L>(t);
   const int s = s0 < k ? s0 : k - 1;
-  const bool on = s0 < k && P.valid[s] && ((int64_t)s < *P.room || *P.wedged);
+  // the pair's second warp computes the opacities and the bias
+  const bool fluid_warp = (threadIdx.x >> 5) & 1;
+  const int pair = threadIdx.x >> 6;
+  // the slot's flag, lane and the ring's room, loaded together
+  const bool valid = P.valid[s];
+  const int64_t lane = P.sidx[s], room = *P.room;
+  const bool wedged = *P.wedged;
+  const bool on = s0 < k && valid && ((int64_t)s < room || wedged);
   if (!__syncthreads_or(on)) {  // no event in the block: its slots make nothing
-    if (t < L && s0 < k) P.make[s] = 0;
+    if (!fluid_warp && t < L && s0 < k) P.make[s] = 0;
     return;
   }
-  // the surface's copies run behind the lane's loads, the blend and the metric
+  // the event: the shadow registers' where they hold one; both sides' loads
+  // in flight with the flag's, then the corner row's, ahead of the
+  // surface's staging
+  const int i = on ? (int)lane : 0;
+  const bool reg = on && P.ev_pending[i];
+  auto at = [&](const T *r, const T *p) {
+    const T a = r[i], b = p[i];
+    return on ? (reg ? a : b) : T(0.0);
+  };
+  const T x1 = at(P.ev_x1, P.x1), x2 = at(P.ev_x2, P.x2);
+  const T kk[4] = {at(P.ev_k0, P.k0), at(P.ev_k1, P.k1), at(P.ev_k2, P.k2), at(P.ev_k3, P.k3)};
+  const T w = on ? P.w[i] : T(0.0);
+  const int tries = on ? P.ev_tries[i] : 0;
+  // the fluid at the event (fluid.blend_raw on the cell's raw corner row)
+  T row[RAW_W];
+  if (on) {
+    const V *src =
+        reinterpret_cast<const V *>(P.table) + (size_t)cell_of(x1, x2, CB) * (RAW_W / E);
+#pragma unroll
+    for (int q = 0; q < RAW_W / E; ++q) Vec16<T>::unpack(__ldg(src + q), row + E * q);
+  } else {
+#pragma unroll
+    for (int q = 0; q < RAW_W; ++q) row[q] = T(0.0);
+  }
+  // the metric pair (x1 and x2 alone) while the row is on its way
+  T g[7], gc[6];
+  metric_pair(x1, x2, CB, g, gc);
+  // what the epilogue reads waits in shared memory across the event, a slot
+  // an owner thread (volatile: stored and loaded again), so that it holds no
+  // registers through the samplers: the opacities, the bias and |B| of the
+  // prologue, and the secondary's inputs from the pool, loaded here; a fluid
+  // warp's thread fills its owner's (the thread 32 before it), the owner
+  // warp only |B|
+  __shared__ T stash[STASH][THREADS];
+  volatile T *keep = &stash[0][threadIdx.x - (fluid_warp ? 32 : 0)];
+  if (fluid_warp) {
+    keep[4 * THREADS] = at(P.ev_x0, P.x0);
+    keep[5 * THREADS] = at(P.ev_x3, P.x3);
+    keep[6 * THREADS] = at(P.ev_w, P.sec_w);
+    keep[7 * THREADS] = P.n_e_0[i];
+    keep[8 * THREADS] = P.theta_e_0[i];
+    keep[9 * THREADS] = P.e_0[i];
+    keep[10 * THREADS] = (T)(P.n_scatt[i] + 1);
+  }
+  // the surface's copies run behind the row's loads, the blend and the metric
   if (threadIdx.x == 0) barrier_init(&hc_bar, THREADS);
   __syncthreads();
   for (int q = threadIdx.x; q < HC_NX * HC_PITCH; q += THREADS) {
@@ -752,60 +841,38 @@ __global__ void __launch_bounds__(THREADS)
   }
   cp_async_arrive(&hc_bar);
 
-  // the event: the shadow registers' where they hold one
-  const int i = on ? (int)P.sidx[s] : 0;
-  const bool reg = on && P.ev_pending[i];
-  auto at = [&](const T *r, const T *p) { return on ? (reg ? r[i] : p[i]) : T(0.0); };
-  const T x1 = at(P.ev_x1, P.x1), x2 = at(P.ev_x2, P.x2);
-  const T kk[4] = {at(P.ev_k0, P.k0), at(P.ev_k1, P.k1), at(P.ev_k2, P.k2), at(P.ev_k3, P.k3)};
-  const T w = on ? P.w[i] : T(0.0);
-  const int tries = on ? P.ev_tries[i] : 0;
-
-  // the fluid at the event (fluid.blend_raw on the cell's raw corner row)
-  T row[RAW_W];
-  if (on) {
-    const V *src =
-        reinterpret_cast<const V *>(P.table) + (size_t)cell_of(x1, x2, CB) * (RAW_W / E);
-#pragma unroll
-    for (int q = 0; q < RAW_W / E; ++q) Vec16<T>::unpack(__ldg(src + q), row + E * q);
-  } else {
-#pragma unroll
-    for (int q = 0; q < RAW_W; ++q) row[q] = T(0.0);
-  }
   const bool inside = in_grid(x1, x2, CB);
-  T n_e, te, b_mag, g[7], u_con[4], u_cov[4], b_con[4], b_cov[4];
+  T n_e, te, b_mag, u_con[4], u_cov[4], b_con[4], b_cov[4];
   {
-    T pr[RAW_NC], gc[6];
+    T pr[RAW_NC];
     blend_row<RAW_NC>(x1, x2, row, CB, pr);
     raw_scalars(pr, inside, CB, n_e, te);
-    metric_pair(x1, x2, CB, g, gc);
     four_vectors(pr, g, gc, CB, u_cov, b_cov, &b_mag, u_con, b_con);
   }
-  // the post-event refresh (Engine.eval_alphas at the parent's k) and the bias
-  T sin_th, nu;
-  kinematics(kk, u_cov, b_cov, b_mag, CB, sin_th, nu);
-  const T nu_safe = fm::fabs(nu) + T(EPS_D);
-  const T e_g = T(HPL_D) * nu_safe * CB.inv_mecc;
-  barrier_wait(&hc_bar);
-  // this thread's place among its lane's G column threads: lane t % L's
-  // threads are t % L + L q; group q / G's G of them split the columns
-  const int sub = (t / L) % G, first = t - sub * L;
-  unsigned group = 0u;
+  if (fluid_warp) {
+    // the post-event refresh (Engine.eval_alphas at the parent's k) and the bias
+    T sin_th, nu;
+    kinematics(kk, u_cov, b_cov, b_mag, CB, sin_th, nu);
+    const T nu_safe = fm::fabs(nu) + T(EPS_D);
+    const T e_g = T(HPL_D) * nu_safe * CB.inv_mecc;
+    barrier_wait(&hc_bar);
+    // this thread's place among its lane's G column threads: lane t % L's
+    // threads are t % L + L q; group q / G's G of them split the columns
+    const int sub = (t / L) % G, first = t - sub * L;
+    unsigned group = 0u;
 #pragma unroll
-  for (int q = 0; q < G; ++q) group |= 1u << (first + q * L);
-  const T a_sc = nu_safe * hotcross_cols<G>(e_g, te, CB, hs, sub, group, first, L) * n_e;
-  const T a_ab = alpha_abs(nu_safe, n_e, te, b_mag, sin_th, CB);
-  const T bias = bias_clamp(w, CB, [&] { return T(100.0) * te * te / P.bias_den[0]; });
-  const T theta_s = te * fm::exp2(-T(tries / ev_halve));
-  // what the epilogue reads of the prologue waits in shared memory across
-  // the event, a slot a thread (volatile: stored and loaded again), so that
-  // it holds no registers through the samplers
-  __shared__ T stash[STASH][THREADS];
-  volatile T *keep = &stash[0][threadIdx.x];
-  keep[0 * THREADS] = nu < T(0.0) ? T(0.0) : a_sc;
-  keep[1 * THREADS] = nu < T(0.0) ? T(0.0) : a_ab;
-  keep[2 * THREADS] = bias;
+    for (int q = 0; q < G; ++q) group |= 1u << (first + q * L);
+    const T a_sc = nu_safe * hotcross_cols<G>(e_g, te, CB, hs, sub, group, first, L) * n_e;
+    const T a_ab = alpha_abs(nu_safe, n_e, te, b_mag, sin_th, CB);
+    const T bias = bias_clamp(w, CB, [&] { return T(100.0) * te * te / P.bias_den[0]; });
+    keep[0 * THREADS] = nu < T(0.0) ? T(0.0) : a_sc;
+    keep[1 * THREADS] = nu < T(0.0) ? T(0.0) : a_ab;
+    keep[2 * THREADS] = bias;
+    pair_arrive(1 + pair);  // the fluid warp's part is done
+    return;
+  }
   keep[3 * THREADS] = b_mag;
+  const T theta_s = te * fm::exp2(-T(tries / ev_halve));
   const bool plasma = n_e > T(0.0);
 
   // the event (scatter_event_kernel on these inputs)
@@ -833,6 +900,7 @@ __global__ void __launch_bounds__(THREADS)
   sample_lanes<L>((uint64_t)P.key[0], (uint64_t)P.key[1], s, k_tet,
                   clamp_min(theta_s, T(1e-4)), force, !guard && s0 < k, p, ok_el, rounds_el,
                   k_tet_p, ok_kn, rounds_sc);
+  pair_sync(1 + pair);  // the fluid warp's opacities are in
 
   // the outcome: an event that no round accepted waits for the next phase
   const bool sampled = (ok_el && ok_kn) || guard;
@@ -870,20 +938,20 @@ __global__ void __launch_bounds__(THREADS)
   if (ran && !reg) P.at_event[i] = 0;
   if (make) {  // the secondary's row (engine.ROW_*), born at the event
     T *r = P.rows + (size_t)s * STAGE_W;
-    r[0] = at(P.ev_x0, P.x0);
+    r[0] = keep[4 * THREADS];
     r[1] = x1;
     r[2] = x2;
-    r[3] = at(P.ev_x3, P.x3);
+    r[3] = keep[5 * THREADS];
 #pragma unroll
     for (int j = 0; j < 4; ++j) r[4 + j] = k_sec[j];
-    r[8] = at(P.ev_w, P.sec_w);
+    r[8] = keep[6 * THREADS];
     r[9] = -tmp[0];
     r[10] = tmp[3];
-    r[11] = P.n_e_0[i];
-    r[12] = P.theta_e_0[i];
+    r[11] = keep[7 * THREADS];
+    r[12] = keep[8 * THREADS];
     r[13] = keep[3 * THREADS];
-    r[14] = P.e_0[i];
-    r[15] = (T)(P.n_scatt[i] + 1);
+    r[14] = keep[9 * THREADS];
+    r[15] = keep[10 * THREADS];
   }
 }
 
@@ -925,11 +993,36 @@ int launch_event(void **ptrs, const double *scal, int n, void *stream) {
   return (int)cudaGetLastError();
 }
 
+// The event phase's lanes a warp at K slots, by type
+// (hot_kernels.EVENT_PHASE_SHAPES; measured, PERF.md): one lane to 1,024
+// slots, 4 beyond, 16 (float) and 8 then 32 (double) at the waves' widths.
+template <typename T>
+inline int phase_lanes(int k);
+template <>
+inline int phase_lanes<float>(int k) {
+  return k > 8192 ? 16 : (k > 1024 ? 4 : 1);
+}
+template <>
+inline int phase_lanes<double>(int k) {
+  return k > 8192 ? 32 : (k > 4096 ? 8 : (k > 1024 ? 4 : 1));
+}
+
+// The instances built: those phase_lanes selects for T.
 template <typename T, int L>
-void launch_phase_at(const PhasePtrs<T> &P, const BConst<T> &CB, int ev_halve, int ev_force,
+constexpr bool phase_instance =
+    L == 1 || L == 4 || (sizeof(T) == sizeof(float) ? L == 16 : L == 8 || L == 32);
+
+// False where L is no instance of T (nothing launched).
+template <typename T, int L>
+bool launch_phase_at(const PhasePtrs<T> &P, const BConst<T> &CB, int ev_halve, int ev_force,
                      int k, cudaStream_t stream) {
-  event_phase_kernel<T, L><<<blocks_for(k, THREADS / 32 * L), THREADS, 0, stream>>>(
-      P, CB, ev_halve, ev_force, k);
+  if constexpr (phase_instance<T, L>) {
+    event_phase_kernel<T, L><<<blocks_for(k, PAIRS * L), THREADS, 0, stream>>>(P, CB, ev_halve,
+                                                                              ev_force, k);
+    return true;
+  } else {
+    return false;
+  }
 }
 
 // event_phase: pointers in the order of PhasePtrs, the scalars PHASE_NSCAL,
@@ -943,15 +1036,17 @@ int launch_phase(void **ptrs, const double *scal, int k, void *stream) {
   BConst<T> CB;
   make_consts<T>(scal, CA, CB);
   const int ev_halve = (int)scal[HOT_NSCAL], ev_force = (int)scal[HOT_NSCAL + 1];
-  const int lanes = scal[HOT_NSCAL + 2] >= 1.0 ? (int)scal[HOT_NSCAL + 2] : event_lanes(k);
+  const int lanes = scal[HOT_NSCAL + 2] >= 1.0 ? (int)scal[HOT_NSCAL + 2] : phase_lanes<T>(k);
   const cudaStream_t s = (cudaStream_t)stream;
+  bool launched = false;
   switch (lanes) {
-    case 32: launch_phase_at<T, 32>(P, CB, ev_halve, ev_force, k, s); break;
-    case 8: launch_phase_at<T, 8>(P, CB, ev_halve, ev_force, k, s); break;
-    case 1: launch_phase_at<T, 1>(P, CB, ev_halve, ev_force, k, s); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 32: launched = launch_phase_at<T, 32>(P, CB, ev_halve, ev_force, k, s); break;
+    case 16: launched = launch_phase_at<T, 16>(P, CB, ev_halve, ev_force, k, s); break;
+    case 8: launched = launch_phase_at<T, 8>(P, CB, ev_halve, ev_force, k, s); break;
+    case 4: launched = launch_phase_at<T, 4>(P, CB, ev_halve, ev_force, k, s); break;
+    case 1: launched = launch_phase_at<T, 1>(P, CB, ev_halve, ev_force, k, s); break;
   }
-  return (int)cudaGetLastError();
+  return launched ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -982,8 +1077,8 @@ int event_phase_nptrs() { return PHASE_NPTRS; }
 int event_phase_nscal() { return PHASE_NSCAL; }
 int event_phase_f64_nptrs() { return PHASE_NPTRS; }
 int event_phase_f64_nscal() { return PHASE_NSCAL; }
-int event_phase_lanes(int k) { return event_lanes(k); }
-int event_phase_f64_lanes(int k) { return event_lanes(k); }
+int event_phase_lanes(int k) { return phase_lanes<float>(k); }
+int event_phase_f64_lanes(int k) { return phase_lanes<double>(k); }
 
 int scatter_event_launch(void **ptrs, const double *scal, int n, void *stream) {
   return launch_event<float>(ptrs, scal, n, stream);

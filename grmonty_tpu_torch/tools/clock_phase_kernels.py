@@ -1,7 +1,9 @@
-"""Where a warp's time goes in the event kernel and the track start (card only).
+"""Where a warp's time goes in the event kernel, the event phase and the
+track start (card only).
 
     python3 -m grmonty_tpu_torch.tools.clock_phase_kernels [--dir CHECKOUT]
-        [--dtype float32] [--event-widths 16384,512] [--fresh-widths ...]
+        [--dtype float32] [--event-widths 16384,512] [--phase-widths ...]
+        [--fresh-widths ...] [--kernels event_phase,...]
 
 Writes copies of ``csrc/scatter_event.cu`` and ``csrc/fresh_init.cu`` (or
 those of the checkout ``--dir``, e.g. the parent's from ``git archive``)
@@ -10,8 +12,12 @@ with ``clock64()`` stamps between the kernels' segments into
 the headers beside each source, and runs them on the synthetic inputs of
 ``chip_smoke.py``'s kernel checks on the 256x256 torus: the event kernel
 through ``hot_kernels.scatter_event`` on ``hot_kernels.synthetic_events``
-(seed 2026), the track start on ``hot_kernels.synthetic_fresh`` (seed 2031
-+ K) in both semantics, untraced.  Lane 0 of every warp that reaches a
+(seed 2026), the event phase through ``hot_kernels.event_phase`` on
+``hot_kernels.synthetic_event_pool`` (seed 2040 + K, the ring with room for
+the width's events: ``NxKeE`` is E events of K slots on N lanes, a fresh
+copy of the pool each launch), the track start on
+``hot_kernels.synthetic_fresh`` (seed 2031 + K) in both semantics,
+untraced.  Lane 0 of every warp that reaches a
 stamp adds the cycles since its previous stamp to that segment's sum and
 counts itself; each stamp first waits for a value the segment computed,
 so the compiler cannot move the segment's work across it.  The card's
@@ -21,8 +27,12 @@ over the warps that reached it, and the warps, over 20 launches.  Exits
 
 Each stamp has anchors in the current sources and in those of the kernels
 before them (one thread a lane; the track start over the pool's lanes,
-copying the kept ones, which took (valid, sidx) and wrote new outputs):
-the first anchor found is used, and a source with none raises.
+copying the kept ones, which took (valid, sidx) and wrote new outputs; the
+event phase with a lane's whole chain on each of its threads): the first
+anchor found is used, and a source with none raises.  Where a lane's
+threads split its chain, a segment that lane 0 of a warp does not run is
+counted by the warps whose lane 0 runs it, and each stamp counts the
+cycles since that thread's previous stamp.
 """
 
 import argparse
@@ -33,6 +43,10 @@ import re
 import subprocess
 
 EVENT_SEGMENTS = ("tetrad+k_tet", "electron rounds", "electron direction+boost",
+                  "KN/Thomson rounds", "scattered direction+boost back+stores")
+PHASE_SEGMENTS = ("pool loads+corner row", "blend+scalars", "metric pair",
+                  "four-vectors+kinematics", "surface wait", "hotcross", "alpha_abs+bias",
+                  "tetrad+k_tet", "electron rounds", "electron direction+boost",
                   "KN/Thomson rounds", "scattered direction+boost back+stores")
 FRESH_SEGMENTS = ("search/slots", "staging", "copy/load", "connection+dk", "row fetch+blend",
                   "kinematics", "surface wait", "hotcross", "k2+synch+b_nu", "bias+stores")
@@ -52,6 +66,27 @@ _EVENT_STAMPS = [
      (r"  // the scattered direction and the boost back", "  STAMP(3, sc[0]);\n\\g<0>")],
     [(r"(  \(\(int32_t \*\)ptrs\.p\[34\]\)\[i\] = rounds_sc;\n)\}",
       "\\g<1>  STAMP(4, 0.0);\n  CLK_WARP();\n}")],
+]
+_PHASE_STAMPS = [
+    [(r"(  const int s0 = (?:warp_lane|phase_lane)<L>\(t\);\n)",
+      "\\g<1>  CLK_START();\n")],
+    [(r"  const bool inside = in_grid\(x1, x2, CB\);\n",
+      "  STAMP(0, row[0] + row[RAW_W - 1] + kk[0] + kk[3] + w + x1 + x2);\n\\g<0>")],
+    [(r"    raw_scalars\(pr, inside, CB, n_e, te\);\n", "\\g<0>    STAMP(1, n_e + te);\n")],
+    [(r"( +)metric_pair\(x1, x2, CB, g, gc\);\n",
+      "\\g<0>\\g<1>STAMP(2, g[0] + g[6] + gc[0] + gc[5]);\n")],
+    [(r"( +)const T e_g = T\(HPL_D\) \* nu_safe \* CB\.inv_mecc;\n",
+      "\\g<0>\\g<1>STAMP(3, e_g + sin_th + u_con[0] + b_con[3] + b_mag);\n")],
+    [(r"( +)barrier_wait\(&hc_bar\);\n", "\\g<0>\\g<1>STAMP(4, 0.0);\n")],
+    [(r"( +)const T a_sc = [^\n]*\n", "\\g<0>\\g<1>STAMP(5, a_sc);\n")],
+    [(r"( +)const T bias = bias_clamp[^\n]*\n", "\\g<0>\\g<1>STAMP(6, a_ab + bias);\n")],
+    [(r"  const bool guard = invalid_frame \|\| parent_die \|\| !on;\n",
+      "\\g<0>  STAMP(7, k_tet[0] + k_tet[3] + e_con[3][3] + e_cov[3][3]);\n")],
+    [(r"  ok_el = acc_el \|\| !go;\n", "\\g<0>  STAMP(8, el[0] + el[1] + el[2]);\n")],
+    [(r"  // the second loop: Klein-Nishina", "  STAMP(9, ke[0] + p[0] + kc.k0);\n\\g<0>")],
+    [(r"  // the scattered direction and the boost back", "  STAMP(10, sc[0]);\n\\g<0>")],
+    [(r"(    r\[15\] = [^\n]*;\n  \}\n)\}",
+      "\\g<1>  STAMP(11, 0.0);\n  CLK_WARP();\n}")],
 ]
 _FRESH_STAMPS = [
     [(r"(  const int i = blockIdx\.x \* FRESH_THREADS \+ threadIdx\.x;\n)",
@@ -102,13 +137,18 @@ extern "C" int clk_reset() {
   return (int)e;
 }
 """
-STAMPS = {"scatter_event": _EVENT_STAMPS, "fresh_init": _FRESH_STAMPS}
-SEGMENTS = {"scatter_event": EVENT_SEGMENTS, "fresh_init": FRESH_SEGMENTS}
+STAMPS = {"scatter_event": _EVENT_STAMPS, "event_phase": _PHASE_STAMPS,
+          "fresh_init": _FRESH_STAMPS}
+SEGMENTS = {"scatter_event": EVENT_SEGMENTS, "event_phase": PHASE_SEGMENTS,
+            "fresh_init": FRESH_SEGMENTS}
+# the source file of each kernel
+SOURCES = {"scatter_event": "scatter_event.cu", "event_phase": "scatter_event.cu",
+           "fresh_init": "fresh_init.cu"}
 
 
 def stamped(src, kernel):
-    """The source ``src`` of ``kernel`` ("scatter_event" or "fresh_init")
-    with the clock stamps in."""
+    """The source ``src`` of ``kernel`` (one of ``STAMPS``) with the clock
+    stamps in."""
     src = src.replace('#include "physics.cuh"\n', '#include "physics.cuh"\n' + _HEAD, 1)
     for alternatives in STAMPS[kernel]:
         for pattern, repl in alternatives:
@@ -186,11 +226,65 @@ def launch_before_fold(fn, pool, load, den, mc, tabs, cfg):
                        interacting=inter)
 
 
+# the event phase's (pool lanes)x(slots)[e(events)]: the wave's width at the
+# path's 8,192-16,384 events a phase, the cascade's widths at half their
+# slots, and the 512-lane stage's one event a phase
+PHASE_WIDTHS = ("65536x16384e8192,65536x16384e12288,65536x16384e16384,4096x4096,512x512,"
+                "512x512e1")
+
+
+def phase_width(spec):
+    """(n, k, events or None) of a ``--phase-widths`` entry ``NxK[eE]``."""
+    nk, _, e = spec.partition("e")
+    n, k = (int(v) for v in nk.split("x"))
+    return n, k, int(e) if e else None
+
+
+def clock_event_phase(lib, sim, widths, csrc, **shape):
+    """Print one line per width of ``widths`` (``phase_width`` entries):
+    the stamped event phase of ``lib`` on the path's synthetic pool, at the
+    ``lanes`` of ``shape`` where given."""
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, sim.cfg.dtype
+    name = hot_kernels.entry_point("event_phase", dt)
+    ours = hot_kernels._Build.fns[name]
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes, fn.restype = ours.argtypes, ctypes.c_int
+    for n, k, events in widths:
+        pool, sec, counters, den = hot_kernels.synthetic_event_pool(
+            sim.engine, n, k, 2040 + k, "room", events=events)
+        sel, room, wedged = engine.event_set(pool, sec, k)
+        key = torch.tensor([0x5EED0000 + k, 0xE7E27], dtype=torch.int64, device=dev)
+        on = sel[0] & ((torch.arange(k, device=dev) < room) | wedged)
+
+        def launch():
+            work = engine.clone_pool(pool)
+            wc = engine.Counters(*(t.clone() for t in counters))
+            hot_kernels._Build.fns[name] = fn
+            try:
+                hot_kernels.event_phase(work, wc, sel, room, wedged, den, mc, tabs, key=key,
+                                        **shape)
+            finally:
+                hot_kernels._Build.fns[name] = ours
+        rec = _clocked(lib, PHASE_SEGMENTS, launch)
+        lanes = shape.get("lanes") or getattr(lib, f"{name}_lanes")(k)  # the source's own
+        print(json.dumps({"name": name, "n": n, "k": k, "events": int(on.sum()), "lanes": lanes,
+                          "source": csrc, **rec}), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dir", default=None, help="the checkout whose kernels to stamp")
     ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
+    ap.add_argument("--kernels", default="scatter_event,event_phase,fresh_init",
+                    help="the kernels to clock, of " + ",".join(STAMPS))
     ap.add_argument("--event-widths", default="16384,512")
+    ap.add_argument("--phase-widths", default=PHASE_WIDTHS)
+    ap.add_argument("--lanes", type=int, default=None,
+                    help="the event phase's lanes a warp (default: by the width)")
     ap.add_argument("--fresh-widths", default="65536x32768,65536x16384,65536x12288,4096x4096,"
                                               "512x512")
     args = ap.parse_args(argv)
@@ -211,13 +305,24 @@ def main(argv=None):
     mc, tabs, dev = sim.mc, sim.tables, sim.device
     build_dir = hot_kernels.BUILD_DIR
 
-    lib = _build(os.path.join(csrc, "scatter_event.cu"), "scatter_event",
-                 hot_kernels.NVCC_FLAGS, build_dir)
-    name = hot_kernels.entry_point("scatter_event", dt)
-    ours = hot_kernels._Build.fns[name]
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes, fn.restype = ours.argtypes, ctypes.c_int
-    for n in (int(w) for w in args.event_widths.split(",")):
+    kernels = args.kernels.split(",")
+    if "event_phase" in kernels:
+        lib = _build(os.path.join(csrc, SOURCES["event_phase"]), "event_phase",
+                     hot_kernels.NVCC_FLAGS, build_dir)
+        shape = {"lanes": args.lanes} if args.lanes else {}
+        clock_event_phase(lib, sim, [phase_width(w) for w in args.phase_widths.split(",")],
+                          csrc, **shape)
+    if "scatter_event" not in kernels:
+        widths = []
+    else:
+        lib = _build(os.path.join(csrc, SOURCES["scatter_event"]), "scatter_event",
+                     hot_kernels.NVCC_FLAGS, build_dir)
+        widths = [int(w) for w in args.event_widths.split(",")]
+        name = hot_kernels.entry_point("scatter_event", dt)
+        ours = hot_kernels._Build.fns[name]
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes, fn.restype = ours.argtypes, ctypes.c_int
+    for n in widths:
         _, k, fl, g7, active, force, _ = hot_kernels.synthetic_events(sim.engine, n, 2026)
         key = torch.tensor([0x5EED0000 + n, 0xC0FFEE], dtype=torch.int64, device=dev)
         try:
@@ -228,8 +333,10 @@ def main(argv=None):
             hot_kernels._Build.fns[name] = ours
         print(json.dumps({"name": name, "n": n, "source": csrc, **rec}), flush=True)
 
-    lib = _build(os.path.join(csrc, "fresh_init.cu"), "fresh_init", hot_kernels.NVCC_FLAGS,
-                 build_dir)
+    if "fresh_init" not in kernels:
+        return
+    lib = _build(os.path.join(csrc, SOURCES["fresh_init"]), "fresh_init",
+                 hot_kernels.NVCC_FLAGS, build_dir)
     for reference in (False, True):
         name = hot_kernels.entry_point("fresh_init", dt, reference)
         ours = hot_kernels._Build.fns[name]

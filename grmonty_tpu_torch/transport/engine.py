@@ -981,10 +981,13 @@ class Engine:
         # What the block runs on, made at the first run: the engine's own
         # state, a backlog buffer of at least backlog_cap rows
         # (reserve_backlog), the valid rows' count on the device; the graph
-        # and what one replay adds to the launch and phase counts.
+        # and what one replay adds to the launch and phase counts.  The
+        # ring's ticket (hot_kernels.rows_ticket), made here, outside any
+        # capture, for the ring's pack.
         self.backlog_cap = 1
         self._state = self._backlog = self._graph = self._credit = None
         self._n_valid = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._rows_ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
         self.replays = 0  # graph replays since fresh_state
 
     # -- state ------------------------------------------------------------
@@ -1165,7 +1168,7 @@ class Engine:
         p, counters, stage = hot_kernels.event_phase(
             p, counters, sel, room, wedged, self._bias_den(counters), self.mc, self.tables,
             gen=self.gen)
-        sec, counters = hot_kernels.compact_rows(stage, sec, counters)
+        sec, counters = hot_kernels.compact_rows(stage, sec, counters, self._rows_ticket)
         return p, sec, counters
 
     def refill(self, sec: SecBuf, occupied, backlog_rows, backlog_pos, counters, n_valid,

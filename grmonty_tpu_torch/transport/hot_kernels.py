@@ -270,10 +270,10 @@ _ABI = {**{f"hot_step{r}{x}{d}": (len(_HOT_REF_PTRS if r else _HOT_PTRS),
            for x in DTYPE_SUFFIX.values()},
         **{f"event_phase{x}": (len(_PHASE_PTRS), _HOT_NSCAL + 3) for x in DTYPE_SUFFIX.values()},
         # the mask, valid, gi, sidx; the scalar k.  Rows mode: the flags, the
-        # staged rows, the ring, its count, n_sec_drop; the scalar the ring's
-        # capacity
+        # staged rows, the ring, its count, n_sec_drop, the ticket; the
+        # scalar the ring's capacity
         "compact": (4, 1),
-        **{f"compact_rows{x}": (5, 1) for x in DTYPE_SUFFIX.values()}}
+        **{f"compact_rows{x}": (6, 1) for x in DTYPE_SUFFIX.values()}}
 
 
 # The hot step's entry points, and their drawing instances; the track
@@ -282,17 +282,20 @@ HOT_STEPS = ("hot_step", "hot_step_ref", "hot_step_f64", "hot_step_ref_f64")
 FRESH_INITS = ("fresh_init", "fresh_init_ref", "fresh_init_f64", "fresh_init_ref_f64")
 SCATTER_EVENTS = ("scatter_event", "scatter_event_f64")
 EVENT_PHASES = ("event_phase", "event_phase_f64")
+COMPACT_ROWS = ("compact_rows", "compact_rows_f64")
 HOT_DRAWS = tuple(f"{h}_draw" for h in HOT_STEPS)
 # The libraries' int -> int functions: the row counts of csrc/gather_probe.cu's
 # tilings (w -> rows), the launch shape of each hot-step entry point at n
 # lanes (csrc/hot_step.cu: the threads a lane, the threads a block, the
 # blocks an SM of the instance it runs), the track start's threads a slot
-# at K slots and the event's lanes a warp at n lanes.
+# at K slots, the event's lanes a warp at n lanes and the pack's threads a
+# block at K slots.
 HOT_SHAPE = ("group", "threads", "blocks_per_sm")
 _INT_FNS = ("gather_rowsum_persistent_pass_rows", "gather_rowsum_rowloop_wave_rows",
             *(f"{h}_{what}" for h in HOT_STEPS + HOT_DRAWS for what in HOT_SHAPE),
             *(f"{f}_group" for f in FRESH_INITS),
-            *(f"{e}_lanes" for e in SCATTER_EVENTS + EVENT_PHASES))
+            *(f"{e}_lanes" for e in SCATTER_EVENTS + EVENT_PHASES),
+            *(f"{c}_threads" for c in COMPACT_ROWS))
 
 
 class _Build:
@@ -750,6 +753,27 @@ def fresh_shape(name, k):
     return {"group": _int_fn(f"{name}_group", k)}
 
 
+# The event phase's lanes a warp (a pair of warps holds them) by its dtype
+# and compacted width K (csrc/scatter_event.cu phase_lanes, the same table;
+# the sweep of PERF.md): (the widest K of a band, the lanes a warp) in
+# ascending bands, the last unbounded (None).
+EVENT_PHASE_SHAPES = {torch.float32: ((1024, 1), (8192, 4), (None, 16)),
+                      torch.float64: ((1024, 1), (4096, 4), (8192, 8), (None, 32))}
+# the instances of csrc/scatter_event.cu (phase_instance): the table's
+EVENT_PHASE_LANES = {dt: tuple(sorted({lanes for _, lanes in bands}, reverse=True))
+                     for dt, bands in EVENT_PHASE_SHAPES.items()}
+
+
+def event_phase_shape(k, dtype=torch.float32):
+    """The event phase's shape at ``k`` slots in ``dtype`` from
+    ``EVENT_PHASE_SHAPES`` (no build): its lanes a warp and threads a lane
+    (``group``), as :func:`event_shape` reads them from the kernel."""
+    for top, lanes in EVENT_PHASE_SHAPES[dtype]:
+        if top is None or k <= top:
+            return {"lanes": lanes, "group": 32 // lanes}
+    raise AssertionError("EVENT_PHASE_SHAPES has no unbounded band")
+
+
 def event_shape(name, n):
     """The lanes a warp of the event kernel's or the event phase's entry
     point ``name`` (``SCATTER_EVENTS``, ``EVENT_PHASES``) at ``n`` lanes,
@@ -835,9 +859,10 @@ def event_phase(pool, counters, sel, room, wedged, bias_den, mc, tables, gen=Non
     (:func:`draw_key`), which updates the pool's w, alpha_scatti,
     alpha_absi, bi, ev_tries, alive, occupied, at_event and ev_pending and
     the two counters in place and returns them, or raise.  ``bias_den``:
-    the 0-d bias_norm * max_tau * (avg + 2); ``lanes``: the lanes a warp
-    (None: :func:`event_shape` picks by the width).  Returns (pool,
-    counters, stage).  No host sync."""
+    the 0-d bias_norm * max_tau * (avg + 2); ``lanes``: the lanes a warp,
+    one of ``EVENT_PHASE_LANES[dtype]`` (None: :func:`event_shape` picks by
+    the width).
+    Returns (pool, counters, stage).  No host sync."""
     if (gen is None) == (key is None):
         raise ValueError("event_phase: give exactly one of gen and key")
     if pool.w.device.type == "cpu":
@@ -882,7 +907,23 @@ def event_phase(pool, counters, sel, room, wedged, bias_den, mc, tables, gen=Non
     return pool, counters, stage
 
 
-def compact_rows(stage, sec, counters):
+def rows_ticket(device):
+    """A ring's ticket for :func:`compact_rows` (``csrc/compact.cu`` rows
+    mode): one int32 word at zero, which every pack into the ring takes and
+    leaves at zero.  The ring's owner allocates it beside the ring's count,
+    outside any CUDA graph's capture (a word made there is zeroed only
+    when the graph replays)."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def rows_shape(name, k):
+    """The threads a block (and slots a tile) of the pack's entry point
+    ``name`` (``COMPACT_ROWS``) at ``k`` slots, and its blocks."""
+    threads = _int_fn(f"{name}_threads", k)
+    return {"threads": threads, "blocks": -(-k // threads)}
+
+
+def compact_rows(stage, sec, counters, ticket=None):
     """Pack the event phase's staged secondaries into the ring in slot
     order (``engine.pack_rows_plain``): the r-th row of ``stage`` (an
     ``engine.EventStage``) that makes one goes to ``sec.rows[sec.count +
@@ -890,7 +931,10 @@ def compact_rows(stage, sec, counters):
     kept, ``counters.n_sec_drop`` the rows dropped.  On CPU tensors the
     plain version (a cumsum and a scatter; new tensors), on CUDA tensors
     one launch of ``compact_rows`` / ``compact_rows_f64``
-    (``csrc/compact.cu``), which updates ``sec.rows``, ``sec.count`` and
+    (``csrc/compact.cu``: tiles of the slots over blocks, the last block to
+    finish updating the count through the ring's ``ticket``, a
+    :func:`rows_ticket`, so packs into one ring run one at a time, as on
+    one stream), which updates ``sec.rows``, ``sec.count`` and
     ``counters.n_sec_drop`` in place and returns them, or raise.  Returns
     (sec, counters).  No host sync."""
     if sec.rows.device.type == "cpu":
@@ -905,7 +949,11 @@ def compact_rows(stage, sec, counters):
         raise ValueError(f"{name}: {stage.rows.shape[0]} staged rows for {k} flags")
     _check_scalar(f"{name} count", sec.count, torch.int64, dev)
     _check_scalar(f"{name} n_sec_drop", counters.n_sec_drop, torch.int64, dev)
-    _launch(name, [stage.make, stage.rows, sec.rows, sec.count, counters.n_sec_drop],
+    if ticket is None or ticket.dtype != torch.int32 or ticket.shape != (1,) \
+            or ticket.device != dev:
+        raise ValueError(f"{name}: expected the ring's ticket (rows_ticket) on {dev}, got "
+                         f"{None if ticket is None else (ticket.dtype, tuple(ticket.shape))}")
+    _launch(name, [stage.make, stage.rows, sec.rows, sec.count, counters.n_sec_drop, ticket],
             [sec.rows.shape[0]], k, dev)
     return sec, counters
 
@@ -1743,6 +1791,31 @@ def synthetic_event_pool(eng, n, k, seed, ring="room", events=None):
     den = torch.tensor(mc.bias_norm * mc.max_tau_scatt0 * 2.0, dtype=dt, device=dev)
     return pool, sec, counters, den
 
+
+
+def synthetic_rows(k, made, room, dtype, device, seed):
+    """(stage, sec, counters) of one ring's pack (:func:`compact_rows`):
+    ``k`` staged rows of ``dtype``, ``made`` of them flagged at seeded
+    slots (``made`` a count or a list of slots), a ring of 2 ``k`` + 8 rows
+    with room for ``room`` (its count the capacity less ``room``),
+    n_sec_drop 3."""
+    rng = np.random.default_rng([seed, k, room])
+    make = np.zeros(k, bool)
+    if isinstance(made, int):
+        make[rng.permutation(k)[:made]] = True
+    else:
+        make[made] = True
+    cap = 2 * k + 8
+
+    def rows(m):
+        return torch.as_tensor(rng.uniform(-1.0, 1.0, (m, engine.ROW_WIDTH)),
+                               device=device).to(dtype)
+
+    stage = engine.EventStage(rows(k), torch.as_tensor(make, device=device))
+    sec = engine.SecBuf(rows(cap), torch.tensor(cap - room, dtype=torch.int64, device=device))
+    counters = engine.init_counters(1.0, dtype, device)._replace(
+        n_sec_drop=torch.tensor(3, dtype=torch.int64, device=device))
+    return stage, sec, counters
 
 def compare_event_phase(name, ref, got):
     """Hold the event phase ``got`` against the plain version's ``ref``,

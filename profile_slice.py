@@ -64,7 +64,9 @@ window are not the run's.
    graphed run.  ``torch.profiler`` traces the replays of 64 hot iterations twice:
    in the waves from hot iteration 64 on (full pool; the ramp's first
    waves), and in the first stage of the tail cascade from its 64th
-   iteration.  The busy time is the union of the device activity
+   iteration, then in the 512-lane stage (``narrow``, unless that stage is
+   the first) over ``NARROW_ITERS`` = 512 hot iterations from its 64th, for
+   eight of its full phases.  The busy time is the union of the device activity
    intervals (kernels, copies, sets) in the window; the window is timed by
    CUDA events with the profiler on.  The share holds for those iterations
    only, not for the run.  One more window holds a single replay of the
@@ -105,6 +107,10 @@ CENSUS_SLEEP = 1 << 17
 EVENT_BINS = (0, 128, 512, 1024, 2048, 4096, 6144, 8192, 12288, 16384)
 WAVE_AT = 64  # trace the first wave from this hot iteration
 TRACE_ITERS = 64  # hot iterations per trace window
+# the 512-lane stage's window ("narrow"): long enough for eight of its full
+# phases (a full phase every 64 hot iterations in both profiles)
+NARROW_POOL = 512
+NARROW_ITERS = 512
 ONE_BODY_AT = WAVE_AT + TRACE_ITERS  # trace the replay from this hot iteration alone
 
 
@@ -167,8 +173,9 @@ class Windows:
     the cascade's, ``it`` the engine's hot iterations before (or after) the
     replay."""
 
-    def __init__(self, iters):
+    def __init__(self, iters, narrow_iters=NARROW_ITERS):
         self.iters, self.results = iters, {}
+        self.narrow_iters = narrow_iters
         self.live, self.table = None, ""
 
     def before(self, name, it):
@@ -185,7 +192,8 @@ class Windows:
     def after(self, it):
         import torch
 
-        if self.live is None or it < self.live[1] + self.iters:
+        if self.live is None or it < self.live[1] + (
+                self.narrow_iters if self.live[0] == "narrow" else self.iters):
             return
         name, it0, prof, e0 = self.live
         e1 = torch.cuda.Event(enable_timing=True)
@@ -384,12 +392,27 @@ def run_cell(root, photon_n, reference, graphed):
     return stats, out
 
 
+def force_phase_shape(hot_kernels, spec):
+    """Run ``hot_kernels.event_phase`` at the shapes of ``spec`` ("K:L,...":
+    at K slots L lanes a warp)."""
+    shapes = {int(k): int(lanes) for k, lanes in (item.split(":") for item in spec.split(","))}
+    phase = hot_kernels.event_phase
+
+    def shaped(pool, counters, sel, *a, **kw):
+        return phase(pool, counters, sel, *a, **{"lanes": shapes.get(sel[0].shape[0]), **kw})
+
+    hot_kernels.event_phase = shaped
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true", help="trace windows, not clocks")
     ap.add_argument("--reference", action="store_true", help="the reference-semantics cell")
     ap.add_argument("--graph-only", action="store_true",
                     help="the graph clocks alone, without the eager run's phase clocks")
+    ap.add_argument("--phase-shape", default=None, metavar="K:L,...",
+                    help="run the event phase at K slots with L lanes a warp (the shape "
+                         "sweep; the other widths their own)")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
@@ -404,6 +427,8 @@ def main():
 
     card = chip_smoke.card_line()
     hot_kernels.build()
+    if args.phase_shape:
+        force_phase_shape(hot_kernels, args.phase_shape)
     photon_n = REF_PHOTON_N if args.reference else PHOTON_N
     result = {"mode": "trace" if args.trace else "clocks",
               "path": "reference" if args.reference else "shipped", "photon_n": photon_n}
@@ -420,7 +445,8 @@ def main():
 
         def traced_replay(self):
             waves[:] = waves or [self]
-            name = "wave" if self is waves[0] else "drain"
+            name = ("wave" if self is waves[0] else "narrow"
+                    if self.cfg.n_pool == NARROW_POOL and "drain" in win.results else "drain")
             it = self.replays * self.n_super
             if (name == "wave" and it >= ONE_BODY_AT and win.live is None
                     and "one_body" not in win.results):

@@ -1,6 +1,8 @@
 """The pool's compaction spread over the card's SMs (``hot_kernels.compact``,
 ``csrc/compact.cu``'s mask mode: 4 KB tiles over the blocks, every block
-counting the whole mask).
+counting the whole mask), and the ring's pack spread the same way
+(``hot_kernels.compact_rows``, rows mode: tiles of 128 slots, the last
+block to take the ticket updating the count; one block up to 512).
 
 * CPU: the Python model of the launch's partition
   (``compact_tiles``: each block's tile, its ranks and its
@@ -16,6 +18,13 @@ counting the whole mask).
   twice on the same inputs give the same bits as each other and as the
   eager launches.  JAX is imported inside the CPU tests, so the card tests
   run where JAX is missing.
+* The pack, CPU: the Python model of its tiles and count update
+  (``compact_rows_tiles``) against ``engine.pack_rows_plain`` at the tile
+  edges and at no room, some room and ample room, every kept row written
+  by one block and no other ring row touched.  On the card: the kernel bit
+  for bit the plain pack at K = 1, 256, 511, 512, 4,096, 16,384, 16,385 and
+  32,768 in both dtypes (every threads-a-block instance), and a CUDA
+  graph of it replayed twice (the ticket back at zero each time).
 """
 
 import numpy as np
@@ -138,6 +147,81 @@ def test_each_block_writes_its_own_tile_and_share_of_the_pad():
     assert torch.equal(writer[total:], ((pad - total) % (256 * blocks)) // 256)
 
 
+def compact_rows_tiles(stage, sec, counters, threads=128):
+    """The Python model of ``compact_rows`` on the card: blocks of
+    ``threads`` slots, each counting the flags before its tile and in all,
+    the kept rows min(total, room) of the ring's room, each block writing
+    its tile's flagged rows of rank below that at count + rank; the last
+    block sets the count and n_sec_drop.  Returns (ring rows, count,
+    n_sec_drop, the block that wrote each ring row or -1); raises where two
+    blocks write one row."""
+    make = stage.make.cpu()
+    k, cap = make.shape[0], sec.rows.shape[0]
+    c0 = int(sec.count)
+    room = max(cap - c0, 0)
+    total = int(make.sum())
+    kept = min(total, room)
+    rows = sec.rows.cpu().clone()
+    writer = torch.full((cap,), -1, dtype=torch.int64)
+    for b in range(-(-k // threads)):
+        lo, hi = b * threads, min(k, (b + 1) * threads)
+        base = int(make[:lo].sum())
+        slots = torch.nonzero(make[lo:hi]).flatten() + lo
+        keep = min(slots.numel(), max(kept - base, 0))
+        at = c0 + base + torch.arange(keep)
+        if bool((writer[at] >= 0).any()):
+            raise AssertionError(f"block {b}: a ring row written twice")
+        writer[at] = b
+        rows[at] = stage.rows.cpu()[slots[:keep]]
+    return rows, c0 + kept, int(counters.n_sec_drop) + total - kept, writer
+
+
+ROWS_KS = (1, 127, 128, 129, 511, 512, 513, 4096, 16385)
+
+
+@pytest.mark.parametrize("threads", [128, 256, 512])
+@pytest.mark.parametrize("k", ROWS_KS)
+def test_the_packs_tiles_equal_the_plain_pack(k, threads):
+    """Every room case: none, one row, part of the flagged rows, all of them
+    and more; flags at the tiles' edges, in the last tile only and
+    everywhere."""
+    edges = [j for j in range(k) if j % threads in (0, threads - 1)] + [k - 1]
+    for made in (0, max(1, k // 3), k, sorted(set(edges)), [k - 1]):
+        count = made if isinstance(made, int) else len(made)
+        for room in sorted({0, 1, count // 2, max(0, count - 1), count, count + 5}):
+            stage, sec, counters = hot_kernels.synthetic_rows(k, made, room, torch.float64,
+                                                              "cpu", 7)
+            rows, c, drop, writer = compact_rows_tiles(stage, sec, counters, threads)
+            rsec, rc = engine.pack_rows_plain(stage, sec, counters)
+            assert torch.equal(rows, rsec.rows), (made, room)
+            assert c == int(rsec.count) and drop == int(rc.n_sec_drop), (made, room)
+            kept = min(count, room)
+            c0 = int(sec.count)
+            assert bool((writer[c0:c0 + kept] >= 0).all()), (made, room)
+            assert int((writer >= 0).sum()) == kept, (made, room)
+
+
+def test_a_wedged_ring_drops_every_row_and_writes_none():
+    stage, sec, counters = hot_kernels.synthetic_rows(4096, 1500, 0, torch.float32, "cpu", 9)
+    rows, c, drop, writer = compact_rows_tiles(stage, sec, counters)
+    assert torch.equal(rows, sec.rows) and c == int(sec.count)
+    assert drop == int(counters.n_sec_drop) + 1500 and not bool((writer >= 0).any())
+    # a count past the capacity (no room) drops them too, as the plain pack
+    over = engine.SecBuf(sec.rows, sec.count + 5)
+    rsec, rc = engine.pack_rows_plain(stage, over, counters)
+    rows, c, drop, _ = compact_rows_tiles(stage, over, counters)
+    assert torch.equal(rows, rsec.rows) and c == int(rsec.count) == int(over.count)
+    assert drop == int(rc.n_sec_drop)
+
+
+def test_on_the_cpu_the_pack_is_the_plain_pack():
+    stage, sec, counters = hot_kernels.synthetic_rows(512, 200, 150, torch.float32, "cpu", 11)
+    got = hot_kernels.compact_rows(stage, sec, counters)
+    want = engine.pack_rows_plain(stage, sec, counters)
+    assert torch.equal(got[0].rows, want[0].rows) and torch.equal(got[0].count, want[0].count)
+    assert torch.equal(got[1].n_sec_drop, want[1].n_sec_drop)
+
+
 # ---------------------------------------------------------------------------
 # the card
 # ---------------------------------------------------------------------------
@@ -255,3 +339,76 @@ def test_compact_and_event_phase_replay_from_a_graph(card_sims, dtype):
         replays.append(snap(out))
     for a, b, c in zip(replays[0], replays[1], eager, strict=True):
         assert bool(hot_kernels._same_bits(a, b).all() & hot_kernels._same_bits(a, c).all())
+
+
+def _pack_on_card(stage, sec, counters, ticket):
+    wsec = engine.SecBuf(*(t.clone() for t in sec))
+    wc = engine.Counters(*(t.clone() for t in counters))
+    gsec, gc = hot_kernels.compact_rows(stage, wsec, wc, ticket)
+    assert gsec.rows is wsec.rows and gc.n_sec_drop is wc.n_sec_drop
+    return gsec, gc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("k", [1, 256, 511, 512, 4096, 16384, 16385, 32768])
+def test_compact_rows_matches_the_plain_pack_on_the_card(k, dtype):
+    """At each of the pack's shapes (one block of 128, 256 and 512 threads;
+    128-slot tiles) and its edges, one ticket for every pack."""
+    _card()
+    name = hot_kernels.entry_point("compact_rows", dtype)
+    ticket = hot_kernels.rows_ticket("cuda")
+    for made in (0, 1, k // 3, (4 * k) // 5, k):
+        for room in sorted({0, made // 2, made + 3}):
+            stage, sec, counters = hot_kernels.synthetic_rows(k, made, room, dtype, "cuda", 13)
+            rsec, rc = engine.pack_rows_plain(stage, sec, counters)
+            before = hot_kernels.launches[name]
+            gsec, gc = _pack_on_card(stage, sec, counters, ticket)
+            torch.cuda.synchronize()
+            assert hot_kernels.launches[name] == before + 1
+            assert bool(hot_kernels._same_bits(gsec.rows, rsec.rows).all()), (made, room)
+            assert torch.equal(gsec.count, rsec.count), (made, room)
+            assert torch.equal(gc.n_sec_drop, rc.n_sec_drop), (made, room)
+            assert int(ticket[0]) == 0, (made, room)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_compact_rows_replays_from_a_graph(dtype):
+    """The pack captured in a CUDA graph and replayed twice on the same ring
+    (its count and n_sec_drop restored between the replays) gives the plain
+    pack's bits each time: the ticket is back at zero after every launch."""
+    import gc
+
+    _card()
+    stage, sec, counters = hot_kernels.synthetic_rows(16384, 13000, 14000, dtype, "cuda", 17)
+    rsec, rc = engine.pack_rows_plain(stage, sec, counters)
+    work = engine.SecBuf(*(t.clone() for t in sec))
+    wc = engine.Counters(*(t.clone() for t in counters))
+    ticket = hot_kernels.rows_ticket("cuda")  # outside the capture
+
+    def restore():
+        work.rows.copy_(sec.rows)
+        work.count.copy_(sec.count)
+        wc.n_sec_drop.copy_(counters.n_sec_drop)
+
+    restore()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        hot_kernels.compact_rows(stage, work, wc, ticket)  # warm-up on a side stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            hot_kernels.compact_rows(stage, work, wc, ticket)
+    finally:
+        gc.enable()
+    for _ in range(2):
+        restore()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert bool(hot_kernels._same_bits(work.rows, rsec.rows).all())
+        assert torch.equal(work.count, rsec.count) and torch.equal(wc.n_sec_drop, rc.n_sec_drop)
+        assert int(ticket[0]) == 0

@@ -21,10 +21,13 @@
   at the path's widths in both dtypes (``hot_kernels.compare_event_phase``:
   the pool, the staged rows, the counters and the ring bit for bit, the
   refreshed opacities and bias at the event fluid's tolerance; the
-  compaction bit for bit); every lanes-a-warp instance the same bits; the
+  compaction bit for bit); every lanes-a-warp instance (the shape
+  table's, by dtype) the same bits; the kernel against its plain version
+  at each side of every edge of its shape table; the
   wrapper's refusal of fields that share memory; the graphed block bit for
   bit the eager one.  JAX is imported inside the tests, so these run where
-  JAX is missing.
+  JAX is missing.  CPU: the shape table itself (``EVENT_PHASE_SHAPES``) and
+  ``tools/clock_phase_kernels``' anchors in this and the previous source.
 """
 
 import numpy as np
@@ -236,6 +239,69 @@ def test_compact_equals_the_jax_sort(n, where):
     assert got[0].dtype == torch.bool and got[1].dtype == got[2].dtype == torch.int64
 
 
+def _shape_edges(dtype):
+    """(k below, k above) of each edge of the event phase's shape table."""
+    return [(top, top + 1) for top, _ in hot_kernels.EVENT_PHASE_SHAPES[dtype] if top is not None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_the_event_phase_shape_table(dtype):
+    """Bands in ascending order, the last unbounded; every shape an
+    instance of the kernel; a band's shape on both sides of its edges, and
+    another across each edge; one lane a warp at the cascade's 512 and the
+    gate's 256 slots, more at the waves' 16,384."""
+    table = hot_kernels.EVENT_PHASE_SHAPES[dtype]
+    tops = [top for top, _ in table]
+    assert tops[-1] is None and tops[:-1] == sorted(tops[:-1]) and len(set(tops)) == len(tops)
+    assert all(lanes in (32, 16, 8, 4, 1) for _, lanes in table)  # the launch's cases
+    bands = [0] + tops[:-1]
+    for (lo, (top, lanes)) in zip(bands, table):
+        for k in (lo + 1, top if top is not None else lo + 100000):
+            assert hot_kernels.event_phase_shape(k, dtype) == {"lanes": lanes,
+                                                               "group": 32 // lanes}, k
+    for below, above in _shape_edges(dtype):
+        assert (hot_kernels.event_phase_shape(below, dtype)
+                != hot_kernels.event_phase_shape(above, dtype))
+    for k in (256, 512):
+        assert hot_kernels.event_phase_shape(k, dtype)["lanes"] == 1, k
+    assert hot_kernels.event_phase_shape(16384, dtype)["lanes"] > 1
+
+
+# The lines of the event phase before its redesign onto pairs of warps that
+# the clock's alternative anchors match (one thread a lane; the epilogue's pool reads
+# after the samplers), as this source's counterparts
+_PARENT_LINES = {
+    "  const int s0 = phase_lane<L>(t);\n": "  const int s0 = warp_lane<L>(t);\n",
+    "    r[15] = keep[10 * THREADS];\n": "    r[15] = (T)(P.n_scatt[i] + 1);\n",
+    "  metric_pair(x1, x2, CB, g, gc);\n": "    metric_pair(x1, x2, CB, g, gc);\n",
+}
+
+
+def test_event_phase_clock_stamps_find_every_anchor():
+    """``tools/clock_phase_kernels`` stamps the event phase at lines it must
+    find in this source and in the one before the redesign (its forms of
+    the lines that moved): every segment's stamp once, the clock's start
+    and the warps' count; a source without an anchor raises."""
+    import os
+
+    from grmonty_tpu_torch.tools import clock_phase_kernels as clock
+
+    with open(os.path.join(hot_kernels.CSRC_DIR, clock.SOURCES["event_phase"])) as f:
+        src = f.read()
+    before = src
+    for now, then in _PARENT_LINES.items():
+        assert src.count(now) == 1, now
+        before = before.replace(now, then)
+    for text in (src, before):
+        out = clock.stamped(text, "event_phase")
+        for k in range(len(clock.PHASE_SEGMENTS)):
+            assert out.count(f"STAMP({k}, ") == 1, k
+        assert out.count("CLK_START();") == 1 and "CLK_WARP();" in out and "clk_read" in out
+    with pytest.raises(ValueError, match="no anchor"):
+        clock.stamped(src.replace("barrier_wait(&hc_bar);", "barrier_wait( &hc_bar);"),
+                      "event_phase")
+
+
 def test_wrappers_check_their_arguments(cpu_sims):
     eng = cpu_sims[torch.float64].engine
     pool, sec, counters, den = hot_kernels.synthetic_event_pool(eng, POOL, EV_K, 33, "room")
@@ -351,7 +417,7 @@ def _card_phase(sim, n, k, seed, ring, lanes=None):
     before = dict(hot_kernels.launches)
     gp, gc, gs = hot_kernels.event_phase(work, wc, sel, room, wedged, den, sim.mc, sim.tables,
                                          key=key, lanes=lanes)
-    gsec, gc = hot_kernels.compact_rows(gs, wsec, gc)
+    gsec, gc = hot_kernels.compact_rows(gs, wsec, gc, hot_kernels.rows_ticket("cuda"))
     torch.cuda.synchronize()
     added = {k_: v - before[k_] for k_, v in hot_kernels.launches.items() if v != before[k_]}
     assert gp is work and gsec.rows is wsec.rows and gc.n_sec_drop is wc.n_sec_drop
@@ -379,7 +445,8 @@ def test_every_lanes_a_warp_instance_gives_the_same_bits(card_sims, dtype):
     sim = card_sims[dtype]
     name = hot_kernels.entry_point("event_phase", dtype)
     for n, k in ((4096, 1024), (4096, 1025), (65536, 4096), (65536, 4097), (65536, 16384)):
-        outs = [_card_phase(sim, n, k, 70, "room", lanes=lanes) for lanes in (None, 32, 8, 1)]
+        outs = [_card_phase(sim, n, k, 70, "room", lanes=lanes)
+                for lanes in (None,) + hot_kernels.EVENT_PHASE_LANES[dtype]]
         for ref, got, _ in outs:
             assert not hot_kernels.compare_event_phase(name, ref, got)[1], (n, k)
         base = outs[0][1]
@@ -387,6 +454,23 @@ def test_every_lanes_a_warp_instance_gives_the_same_bits(card_sims, dtype):
             assert not hot_kernels.compare_event_phase(name, base, got)[1]
             for f in hot_kernels.EVENT_PHASE_TOL:
                 assert torch.equal(getattr(base[0], f), getattr(got[0], f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_event_phase_matches_plain_at_each_side_of_the_shape_edges(card_sims, dtype):
+    """At each side of every edge of ``EVENT_PHASE_SHAPES`` the kernel runs
+    the table's shape (``event_shape`` reads the library's) and matches its
+    plain version."""
+    sim = card_sims[dtype]
+    name = hot_kernels.entry_point("event_phase", dtype)
+    for ks in _shape_edges(dtype):
+        for k in ks:
+            shape = hot_kernels.event_shape(name, k)
+            assert shape == hot_kernels.event_phase_shape(k, dtype), k
+            ref, got, _ = _card_phase(sim, max(4 * k, 4096), k, 80 + k, "room")
+            rec, fails = hot_kernels.compare_event_phase(name, ref, got)
+            assert not fails, (k, shape, fails)
 
 
 @pytest.mark.cuda
