@@ -66,18 +66,22 @@ Phases, each of which exits non-zero on failure:
    a few ulps of its threshold, at most one lane in 10,000; floats within
    rtol 1e-4 of the lane's scale); the generator's raw words
    (``philox_words``) bitwise against the plain version and against
-   ``numpy.random.Philox``.  The load and track start (``fresh_init``,
-   ``fresh_init_ref``: refill's row moves and all of
-   ``Engine.init_fresh``, in place) on synthetic pools and refill slots
-   (``hot_kernels.synthetic_fresh``: phase 4's lane states, slots from a
+   ``numpy.random.Philox``.  Refill's sources, load and track start
+   (``fresh_init``, ``fresh_init_ref`` through ``refill_fresh``: each
+   slot's source, the ring's count, the backlog position and n_created,
+   refill's row moves and all of ``engine.init_fresh_plain``, in place)
+   on synthetic pools and refill slots
+   (``hot_kernels.synthetic_refill``: phase 4's lane states, slots from a
    partly filled ring and a backlog that runs out, rows with a NaN or a
    zero weight, padding slots; the birth state untraced, as the main path
    runs, then traced, as phase 14 runs) at the (pool, slots) widths of its
-   path (``hot_kernels.FRESH_WIDTHS``), on a copy of the pool, against
+   path (``hot_kernels.FRESH_WIDTHS``), on a copy of the pool and of the
+   three counts, against ``engine.refill_sources_plain`` and
    ``engine.init_fresh_plain`` (``hot_kernels.compare_fresh``: every
    loaded field, dk/dlambda, interacting and the birth state bit for bit,
    every lane outside the loaded slots unchanged bit for bit, the
-   opacities and the bias within the hot step's tolerance; ``group`` the
+   opacities and the bias within the hot step's tolerance, the three
+   counts exactly; ``group`` the
    threads a slot); the event phase's fluid (``event_fluid``) on
    synthetic event lanes at the event phase's widths
    (``hot_kernels.EVENT_FLUID_WIDTHS``) against ``engine.event_fluid_plain``, every
@@ -103,16 +107,31 @@ Phases, each of which exits non-zero on failure:
    ``COMPACT_WIDTHS`` on seeded masks of every density of
    ``COMPACT_DENSITIES``, bit for bit ``engine.compact_idx`` (the sort),
    each timed beside the sort (``sort_ms``), ``torch.nonzero``
-   (``nonzero_ms``) and ``torch.nonzero_static`` (``library_ms``).  Each
+   (``nonzero_ms``) and ``torch.nonzero_static`` (``library_ms``), and of
+   the clear lanes (refill's inverted mask) at the first width.  The
+   phases' record (``record_phase``: the poison sweep, the record into the
+   spectrum and the frees with their census, in place) at the path's
+   (pool, width) (``hot_kernels.RECORD_WIDTHS``) on synthetic pools
+   (``hot_kernels.synthetic_record``), every stage at once as a light
+   phase runs it, the sweep alone, the full phase's record and frees, and
+   the last records' record alone at the first width, traced too, against
+   ``engine.record_phase_plain`` (``hot_kernels.compare_record``: every
+   flag, count, the ratchet and the capture bit for bit, the spectrum and
+   w_stall within their sums' slack).  Each kernel is timed on
+   copies of what it updates, a fresh one a call, so that every timed call
+   does the same work (warm: the read-only fields stay in L2).  Each
    of these records gives its registers and spills.  Every
    run of phases 5-12 and 14 must launch exactly what its path runs
    (``path_launches``: the drawing hot step of its dtype and semantics once
    per hot iteration, the event phase and the ring's pack of its dtype once
-   per full phase, the compaction at least three times a full phase and
-   twice a light one, the track start of its dtype and semantics once per
-   full and light phase, no other entry point: the row gather, the event
-   fluid and the event kernel stay off the path), no plain hot step, load,
-   track start, event fluid, event phase, pack or sort-based compaction, no
+   per full phase, the compaction at least twice a full phase and once a
+   light one, the record's kernels exactly as each engine's phases and
+   closing flushes launch them at its pool's width (one or two a call),
+   the track start of its dtype and semantics once per full and light
+   phase, no other entry point: the row
+   gather, the event fluid and the event kernel stay off the path), no
+   plain hot step, load, track start, event fluid, event phase, pack,
+   record, refill sources or sort-based compaction, no
    ``torch.sort`` at all (``plain_calls["torch.sort"]``, 0), and no
    ``torch.rand`` inside a block (``counting_plain_steps``: it raises
    there, and the path lines count its calls as
@@ -271,10 +290,11 @@ DIR in turns (``ab_hot_step``: both dtypes, variants and instances at
 instances' SASS and that of the kernels of ``fresh_init.cu`` and
 ``scatter_event.cu`` identical to the other's), then the card line; with
 ``--ab-phase-kernels DIR`` phases 1 and 2, then this checkout's event
-kernel and load and track start against those of the checkout at DIR in
-turns (``ab_phase_kernels``: each at its path's widths in both dtypes,
-the parent's track start with refill's row moves as torch ops, every
-output bit for bit the parent's), then the card line; with ``--ab-wide DIR`` phases
+kernel and refill's sources, load and track start against those of the
+checkout at DIR in turns (``ab_phase_kernels``: each at its path's widths
+in both dtypes, a parent's track start that took its sources as tensors
+after those sources as torch ops, every output bit for bit the
+parent's), then the card line; with ``--ab-wide DIR`` phases
 1 and 2, then this checkout's event phase and compaction against those of
 the checkout at DIR in turns (``ab_wide``: the event phase at its widths
 and the path's event counts in both dtypes, at each lanes a warp; the
@@ -380,9 +400,9 @@ EVENT_FLUID_OPS = 3240
 # The compaction's checks: each pool width of the path and the k its
 # compactions take there (transport/profiles.py:25-26,45; engine.py): at
 # 65,536 lanes the event set (Engine.process_scatters -> engine.event_set)
-# and a full phase's record (Engine.spectrum_add) at ev_k = 16,384, the
-# light phases' record and refill at light_k = 12,288 (Engine.light_phase,
-# shipped profile), a full phase's refill (Engine.refill) at refill_k =
+# at ev_k = 16,384, the light phases' refill at light_k = 12,288
+# (Engine.light_phase, shipped profile), a full phase's refill
+# (Engine.refill_slots, inverted: the free lanes) at refill_k =
 # 32,768 (shipped; 16,384 under reference semantics), and 8,192, the
 # engine's default n // 8, which no profile runs; at the cascade's 4,096
 # and 512 lanes the whole pool (min(pool, ev_k)) and 512 and 256.  The
@@ -403,6 +423,8 @@ OPS_PER_LANE = {"hot_step": 3800, "hot_step_ref": 3840, "row_gather": 0,
 OPS_PER_LANE.update({f"{name}_draw": OPS_PER_LANE[name]
                      for name in ("hot_step", "hot_step_ref", "hot_step_f64",
                                   "hot_step_ref_f64")})
+# the records of the phases' record
+RECORD_NAMES = ("record_phase", "record_phase_f64")
 TOLERANCE = {
     "hot_step": "masks and integers differ on at most 0.1% of lanes; floats within "
                 "rtol 1e-4 atol 1e-6 on every lane; census counters exactly equal",
@@ -431,10 +453,12 @@ TOLERANCE = {
               f"lanes accepted within rtol {rtol} of the lane's scale")
        for name, rtol in (("scatter_chain", "1e-4"), ("scatter_chain_f64", "1e-11"))},
     "philox_words": "bitwise equal to the plain version and to numpy.random.Philox",
-    **{name: ("on a copy of the pool, updated in place: every loaded field, dk/dlambda, "
-              "interacting and the birth state bitwise equal on the loaded lanes, every other "
-              "lane's fields bitwise unchanged; alpha_scatti, alpha_absi and bi within rtol "
-              f"{rtol} atol {atol} on the started lanes")
+    **{name: ("against engine.refill_sources_plain and engine.init_fresh_plain, on a copy of "
+              "the pool, updated in place: every loaded field, dk/dlambda, interacting and the "
+              "birth state bitwise equal on the loaded lanes, every other lane's fields bitwise "
+              f"unchanged; alpha_scatti, alpha_absi and bi within rtol {rtol} atol {atol} on the "
+              "started lanes; the ring's count, backlog_pos and n_created exactly equal, the "
+              "ticket back at 0")
        for name, rtol, atol in (("fresh_init", "1e-4", "1e-6"), ("fresh_init_ref", "1e-4", "1e-6"),
                                 ("fresh_init_f64", "1e-11", "1e-30"),
                                 ("fresh_init_ref_f64", "1e-11", "1e-30"))},
@@ -450,6 +474,11 @@ TOLERANCE = {
        for name, rtol, atol in (("event_phase", "1e-4", "1e-6"),
                                 ("event_phase_f64", "1e-11", "1e-30"))},
     "compact": "valid, gi and sidx bitwise equal to engine.compact_idx (the sort)",
+    **{name: ("on copies of the pool, the spectrum and the counters, updated in place: every "
+              "pool field and every counter but w_stall (the chosen lanes' counts, "
+              "max_tau_scatt, the birth capture) bitwise equal to engine.record_phase_plain; "
+              "each spectrum entry and w_stall within (m + 1) eps |plain|, m the entry's adds "
+              "(the atomics add in another order)") for name in RECORD_NAMES},
     **{name: ("the ring's rows, count and n_sec_drop bitwise equal to engine.pack_rows_plain "
               "(the cumsum pack)") for name in ("compact_rows", "compact_rows_f64")},
 }
@@ -472,8 +501,10 @@ EVENT_SOURCE = ("scatter_event.cu", "no TPU kernel: XLA process_scatters, "
                 "grmonty_tpu/transport/engine.py:2036; grmonty_tpu/ops/scattering.py:125")
 SOURCES.update({name: EVENT_SOURCE for name in ("scatter_event", "scatter_chain",
                                                 "philox_words")})
-# Nor do the track start and the event fluid: the JAX engine's are XLA.
-SOURCES.update({name: ("fresh_init.cu", "no TPU kernel: XLA init_fresh, "
+# Nor do refill and the track start and the event fluid: the JAX engine's
+# are XLA.
+SOURCES.update({name: ("fresh_init.cu", "no TPU kernel: XLA refill and init_fresh, "
+                       "grmonty_tpu/transport/engine.py:2204, "
                        "grmonty_tpu/transport/engine.py:2320")
                 for name in ("fresh_init", "fresh_init_ref")})
 SOURCES["event_fluid"] = ("event_fluid.cu", "no TPU kernel: XLA process_scatters, "
@@ -486,12 +517,17 @@ SOURCES["compact"] = ("compact.cu", "no TPU kernel: XLA compact_idx (a sort), "
                       "grmonty_tpu/transport/engine.py:1956")
 SOURCES["compact_rows"] = ("compact.cu", "no TPU kernel: XLA process_scatters' pack (a cumsum "
                            "and a scatter), grmonty_tpu/transport/engine.py:2036")
+# Nor does the record: the JAX engine's is XLA.
+SOURCES["record_phase"] = ("record.cu", "no TPU kernel: XLA spectrum_add, _poison_sweep and "
+                           "_record_free_refill, grmonty_tpu/transport/engine.py:1819, "
+                           "grmonty_tpu/transport/engine.py:2395, "
+                           "grmonty_tpu/transport/engine.py:2410")
 # The float64 instantiations replace what their float32 kernels replace, and
 # each hot step's drawing instance what the hot step replaces.
 SOURCES.update({f"{name}_f64": SOURCES[name]
                 for name in ("hot_step", "hot_step_ref", "row_gather", "scatter_event",
                              "scatter_chain", "fresh_init", "fresh_init_ref", "event_fluid",
-                             "event_phase", "compact_rows")})
+                             "event_phase", "compact_rows", "record_phase")})
 SOURCES.update({f"{name}_draw": SOURCES[name]
                 for name in ("hot_step", "hot_step_ref", "hot_step_f64", "hot_step_ref_f64")})
 # Phase 7's probes, by module name under grmonty_tpu_torch/tools.
@@ -916,8 +952,7 @@ AB_SASS_STEMS = ("hot_step", "fresh_init", "scatter_event")
 # --ab-phase-kernels: the event's lanes a warp and the track start's
 # threads a slot that each side is timed at besides the width's own
 AB_EVENT_LANES = (32, 8, 1)
-AB_FRESH_GROUPS = (1, 4, 8)
-AB_REPS = 10  # the parent's load and start is some 60 launches a call
+AB_REPS = 10  # the parent's sources and start are some 20 launches a call
 
 
 def build_other(root, other, stem):
@@ -1160,14 +1195,14 @@ def ab_phase_kernels(root, sims, other, usage, turns=2):
     call in turns (this, other, this's other shapes, other, this; ``turns``
     times).  The event at EVENT_WIDTHS on phase 4's synthetic events, this
     side at the width's own lanes a warp and at each of AB_EVENT_LANES,
-    every output bit for bit the other's.  The load and start at each
-    semantics' FRESH_WIDTHS on phase 4's synthetic pools (untraced), this
-    side one launch in place (the width's threads a slot and each of
-    AB_FRESH_GROUPS), the other side one launch in place on its own copy
-    where its start has this one's interface, else (a start from before it
-    took refill's row moves) those moves as the torch ops they were
-    (``engine.refill_load_plain``) and then its kernel on the fresh set
-    they leave, every field bit for bit the other's.  Prints one
+    every output bit for bit the other's.  Refill's sources, load and start
+    at each semantics' FRESH_WIDTHS on phase 4's synthetic pools and slots
+    (untraced), this side one launch in place (``refill_fresh``, on copies
+    of the three counts, one a call), the other side one launch in place
+    on its own copy where its start has this one's interface, else (a
+    start from before it worked out the sources) those sources as the
+    torch ops they were (``engine.refill_sources_plain``) and then its
+    kernel, every field bit for bit the other's.  Prints one
     line per kernel and width; fails where an output differs."""
     import ctypes
 
@@ -1225,35 +1260,47 @@ def ab_phase_kernels(root, sims, other, usage, turns=2):
             if any(differ.values()):
                 fail(f"ab {name}@{n}: outputs differ from the other checkout's: {differ}")
 
+        ticket = hot_kernels.fresh_ticket(dev)
         for reference in (False, True):
             name = hot_kernels.entry_point("fresh_init", dt, reference)
             theirs = fn_of(fr_lib, name)
-            # the other's start has this one's interface (refill's row moves
-            # folded in) or is the start before the fold
-            folded = (getattr(fr_lib, f"{name}_nptrs")(),
-                      getattr(fr_lib, f"{name}_nscal")()) == hot_kernels._ABI[name]
+            # the other's start has this one's interface, or is the start
+            # before it worked out refill's sources (the sources mode)
+            abi = (getattr(fr_lib, f"{name}_nptrs")(), getattr(fr_lib, f"{name}_nscal")())
+            if abi not in (hot_kernels._ABI[name], clock_phase_kernels.sources_mode_abi()):
+                fail(f"ab {name}: the other checkout's start takes {abi} (pointers, scalars), "
+                     "neither this one's nor the sources mode's")
+            same = abi == hot_kernels._ABI[name]
             for n, k in hot_kernels.FRESH_WIDTHS[reference]:
-                pool, load, den, cfg = hot_kernels.synthetic_fresh(
+                pool, slots, counters, den, cfg = hot_kernels.synthetic_refill(
                     mc, n, k, 2031 + k, dt, dev, reference=reference, trace_birth=False)
                 work, o_work = engine.clone_pool(pool), engine.clone_pool(pool)
 
+                def scalars():
+                    return (slots._replace(sec=engine.SecBuf(slots.sec.rows,
+                                                             slots.sec.count.clone()),
+                                           backlog_pos=slots.backlog_pos.clone()),
+                            counters._replace(n_created=counters.n_created.clone()))
+
+                mine, yours = Copies(scalars), Copies(scalars)
+
                 def other_side():
-                    if not folded:
-                        return clock_phase_kernels.launch_before_fold(theirs, pool, load, den,
-                                                                      mc, tabs, cfg)
+                    if not same:
+                        return clock_phase_kernels.launch_sources_mode(
+                            theirs, o_work, slots, counters, den, mc, tabs, cfg)
                     ours_fn = hot_kernels._Build.fns[name]
                     hot_kernels._Build.fns[name] = theirs
                     try:
-                        return hot_kernels.fresh_init(o_work, load, den, mc, tabs, cfg)
+                        return hot_kernels.refill_fresh(o_work, *yours(), den, mc, tabs, cfg,
+                                                        ticket)[0]
                     finally:
                         hot_kernels._Build.fns[name] = ours_fn
 
-                def this_side(group=None):
-                    return hot_kernels.fresh_init(work, load, den, mc, tabs, cfg, group=group)
+                def this_side():
+                    return hot_kernels.refill_fresh(work, *mine(), den, mc, tabs, cfg, ticket)[0]
 
                 want = other_side()
-                sides = {"this": this_side, "other": other_side,
-                         **{f"group{g}": (lambda g=g: this_side(g)) for g in AB_FRESH_GROUPS}}
+                sides = {"this": this_side, "other": other_side}
                 differ = {}
                 for side, fn in sides.items():
                     got = fn()
@@ -1262,8 +1309,10 @@ def ab_phase_kernels(root, sims, other, usage, turns=2):
                     differ[side] = {f: int((~hot_kernels._same_bits(a, flat_g[f])).sum())
                                     for f, a in flat_w.items()
                                     if not bool(hot_kernels._same_bits(a, flat_g[f]).all())}
+                load = engine.refill_sources_plain(slots, counters)[3]
                 loaded, started = hot_kernels.fresh_lanes(pool, load)
                 rec = {"name": name, "n": n, "k": k, **hot_kernels.fresh_shape(name, k),
+                       "sources_mode": not same,
                        "lanes_loaded": int(loaded.sum()), "lanes_fresh": int(started.sum()),
                        "fields_differing": differ, "device_ms": turns_of(sides, turns),
                        "ptxas": {side: {f: v for f, v in use.items()
@@ -1473,15 +1522,18 @@ def kernel_checks(sim, usage, sass, ref_stall_steps):
     out += event_phase_checks(sim, usage)
     if sim.cfg.dtype == torch.float32:  # the compaction takes masks: one dtype
         out += compact_checks(sim.device)
+    out += record_checks(sim, usage)
     return out
 
 
 def fresh_moved_bytes(pool, load, ref, table, tabs, den, mc, trace):
-    """The bytes a load and start on ``pool`` must move, each once: every
-    slot's lane and load flag; a loaded slot's source, its index and its
-    row, and the 32 fields it writes; a started lane's 8 start fields (17
-    traced) and the corner rows its cell touches (``ref``: the plain
-    result); the surface and the denominator."""
+    """The bytes refill's sources, load and start on ``pool`` must move,
+    each once (``load``: the sources, ``engine.refill_sources_plain``):
+    every slot's lane and valid flag; the ring's count, the backlog
+    position and n_created, read and written; a loaded slot's row and the
+    32 fields it writes; a started lane's 8 start fields (17 traced) and
+    the corner rows its cell touches (``ref``: the plain result); the
+    surface and the denominator."""
     import torch
 
     from grmonty_tpu_torch.ops import fluid
@@ -1491,73 +1543,10 @@ def fresh_moved_bytes(pool, load, ref, table, tabs, den, mc, trace):
     loaded, started = hot_kernels.fresh_lanes(pool, load)
     n_loaded, n_started = int(loaded.sum()), int(started.sum())
     cells = torch.unique(fluid.cell_index_c(ref.x[1][started], ref.x[2][started], mc))
-    return (load.sidx.shape[0] * (8 + 1) + n_loaded * (1 + 8 + 16 * t + 23 * t + 4 * 4 + 5)
+    return (load.sidx.shape[0] * (8 + 1) + 3 * 2 * 8 + n_loaded * (16 * t + 23 * t + 4 * 4 + 5)
             + n_started * ((7 + (9 if trace else 0)) * t + 1)
             + cells.numel() * table.shape[1] * table.element_size()
             + nbytes(tabs.hc_coeffs, den))
-
-
-def fresh_checks(sim, usage):
-    """Phase 4d (and 12a): the load and track start of each semantics in
-    ``sim``'s dtype against ``engine.init_fresh_plain`` at its path's
-    ``hot_kernels.FRESH_WIDTHS`` on synthetic pools and refill slots
-    (``hot_kernels.synthetic_fresh``), held by ``hot_kernels.compare_fresh``
-    (every loaded field, dk/dlambda, interacting and the birth state
-    bitwise, the lanes outside the loaded slots bitwise as they were, the
-    opacities and the bias at the hot step's tolerance): at each width with
-    the birth state untraced, as phases 5, 6, 10 and 12 run it, then
-    traced, as phase 14 runs it (``name+trace``).  The kernel updates a copy
-    of the pool in place.  Returns each semantics' untraced record at its
-    first width; prints the others."""
-    import torch
-
-    from grmonty_tpu_torch.transport import engine, hot_kernels
-
-    mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, sim.cfg.dtype
-    out = []
-    for reference in (False, True):
-        name = hot_kernels.entry_point("fresh_init", dt, reference)
-        table = tabs.corner_rows if reference else tabs.hot_tab
-        for j, (n, k) in enumerate(hot_kernels.FRESH_WIDTHS[reference]):
-            group = hot_kernels.fresh_shape(name, k)["group"]
-            inst = (f"fresh_init_kernelILb{int(reference)}E{'d' if dt == torch.float64 else 'f'}"
-                    f"Li{group}E")
-            ptx = next((v for f, v in usage.items() if inst in f), None)
-            for trace in (False, True):
-                pool, load, den, cfg = hot_kernels.synthetic_fresh(
-                    mc, n, k, 2031 + k, dt, dev, reference=reference, trace_birth=trace)
-                work = engine.clone_pool(pool)
-
-                def plain():
-                    return engine.init_fresh_plain(pool, load, den, mc, tabs, cfg)
-
-                def kern():
-                    return hot_kernels.fresh_init(work, load, den, mc, tabs, cfg)
-
-                ref, got = plain(), kern()
-                torch.cuda.synchronize()
-                rec, fails = hot_kernels.compare_fresh(name, pool, load, ref, got)
-                if got is not work:
-                    fails.append("the kernel's pool is not the one it was given")
-                moved = fresh_moved_bytes(pool, load, ref, table, tabs, den, mc, trace)
-                extra = {**rec, "k": k, "trace_birth": trace, "ptxas": ptx, "library_ms": None,
-                         "library_device_ms": None, "group": group}
-                label = f"{name}{'+trace' if trace else ''}"
-                if n == N_CHECK and (j or trace):  # time_kernel adds "@n" to the others' names
-                    extra["name"] = f"{label}@{n}x{k}"
-                elif trace:
-                    extra["name"] = label
-                full = time_kernel(name, {}, {}, plain, kern, moved,
-                                   ops=FRESH_OPS[reference] * rec["lanes_fresh"], n=n,
-                                   extra=extra)
-                print(f"  {label}@{n}x{k}: {rec['lanes_loaded']} loaded lanes, "
-                      f"{rec['lanes_fresh']} started ({rec['lanes_plasma']} in plasma) of {k} "
-                      f"slots on {n}; group {group}; bi bitwise {rec['bi_bitwise']}; ptxas {ptx}")
-                if fails:
-                    fail(f"{label}@{n}x{k} disagrees with its plain version: " + "; ".join(fails))
-                if j == 0 and not trace:
-                    out.append(full)
-    return out
 
 
 def event_fluid_checks(sim, usage):
@@ -1822,6 +1811,211 @@ def compact_checks(dev):
     return out
 
 
+class Copies:
+    """A kernel's inputs that it updates in place, ``COPIES`` fresh copies
+    made before the timing (``make``), handed out one a call, so that every
+    timed call of the kernel does the same work."""
+
+    def __init__(self, make):
+        self.copies, self.at = [make() for _ in range(COPIES)], 0
+
+    def __call__(self):
+        self.at = (self.at + 1) % len(self.copies)
+        return self.copies[self.at]
+
+
+# the copies a timed kernel takes: more than time_kernel's calls of it
+# (two host-paced timings and a queued one, each a warm-up and up to four
+# rounds of REPS calls)
+COPIES = 4 + 6 * REPS
+
+
+def record_moved_bytes(pool, spec, counters, ref, width, sweep, record, free, trace):
+    """The bytes a record on ``pool`` must move, each once (``ref``: the
+    plain result from ``spec`` and ``counters``): every lane's four flags
+    it reads; under ``sweep`` the occupied lanes' x, k and w; under
+    ``record`` the pending lanes' w and e, the recorded lanes' ten other
+    fields and two counts (traced, the captured lane's birth state), the
+    spectrum rows they add to, read and written; under ``free`` the freed
+    lanes' steps and the stalled lanes' weight; each flag that changes,
+    written."""
+    import torch
+
+    from grmonty_tpu_torch.transport import engine
+
+    t, n = pool.w.element_size(), pool.w.shape[0]
+    p0 = engine.poison_sweep_plain(pool) if sweep else pool
+    p1 = ref[0]
+    out = 4 * n + (int(pool.occupied.sum()) * 9 * t if sweep else 0)
+    if record:
+        eligible = p0.record_pending & ~p0.ev_pending & ~torch.isnan(p0.w) & ~torch.isnan(p0.e)
+        bins = int((ref[1] != spec).any(dim=1).sum())
+        out += (int(p0.record_pending.sum()) * 2 * t
+                + min(width, int(eligible.sum())) * (10 * t + 8) + bins * 32 * t
+                + (9 * t if trace else 0))
+    if free:
+        out += (int((p0.occupied & ~p1.occupied).sum()) * 4
+                + int(ref[2].n_stall - counters.n_stall) * t)
+    for f in ("alive", "occupied", "record_pending", "at_event", "ev_pending"):
+        out += int((getattr(pool, f) != getattr(p1, f)).sum())
+    return out
+
+
+def record_checks(sim, usage):
+    """Phase 4h (and 12a): the record of ``sim``'s dtype against
+    ``engine.record_phase_plain`` at ``hot_kernels.RECORD_WIDTHS`` on
+    synthetic pools (``hot_kernels.synthetic_record``), every stage at once
+    (a light phase's call), then at the first width the sweep alone, the
+    full phase's record and frees, and the last records' record alone, and
+    every stage traced (``record_phase+trace``), each on copies of what it
+    updates (:class:`Copies`), held by ``hot_kernels.compare_record``.
+    Returns the light phase's record at the first width; prints the
+    others."""
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    mc, dev, dt = sim.mc, sim.device, sim.cfg.dtype
+    name = hot_kernels.entry_point("record_phase", dt)
+    ptx = {f: v for f, v in usage.items() if "record_" in f
+           and ("Id" if dt == torch.float64 else "If") in f}
+    ticket = hot_kernels.record_ticket(dev)
+    modes = {"light": (True, True, True), "sweep": (True, False, False),
+             "full": (False, True, True), "flush": (False, True, False)}
+    out = []
+    for j, (n, k) in enumerate(hot_kernels.RECORD_WIDTHS):
+        runs = [(label, False) for label in modes] + [("light", True)] if j == 0 else [
+            ("light", False)]
+        for label, trace in runs:
+            sweep, record, free = modes[label]
+            pool, spec, counters, cfg = hot_kernels.synthetic_record(
+                mc, n, k, 4242 + n + k, dt, dev, trace_birth=trace)
+            mode = dict(sweep=sweep, record=record, free=free)
+
+            def plain():
+                return engine.record_phase_plain(pool, spec, counters, k, mc, cfg, **mode)
+
+            copies = Copies(lambda: hot_kernels.clone_record(pool, spec, counters))
+
+            def kern():
+                return hot_kernels.record_phase(*copies(), k, mc, cfg, ticket, **mode)
+
+            ref = plain()
+            got = hot_kernels.record_phase(*hot_kernels.clone_record(pool, spec, counters),
+                                           k, mc, cfg, ticket, **mode)
+            torch.cuda.synchronize()
+            rec, fails = hot_kernels.compare_record(pool, spec, counters, ref, got)
+            if int(ticket) != 0:
+                fails.append(f"the ticket is {int(ticket)}, not 0")
+            moved = record_moved_bytes(pool, spec, counters, ref, k, sweep, record, free,
+                                       trace)
+            label_n = f"{name}{'' if label == 'light' else '.' + label}" + (
+                "+trace" if trace else "")
+            extra = {**rec, "k": k, "mode": label, "trace_birth": trace, "ptxas": ptx,
+                     "launches_a_call": 1 + (n > 1024 and (sweep or record)
+                                             and (record or free)),
+                     "library_ms": None, "library_device_ms": None}
+            if (j, label, trace) != (0, "light", False):
+                extra["name"] = f"{label_n}@{n}x{k}"
+            full = time_kernel(name, {}, {}, plain, kern, moved, ops=0, n=n, extra=extra)
+            print(f"  {label_n}@{n}x{k}: {rec['pending']} pending, {rec['recorded']} "
+                  f"recorded in bins, {rec['freed']} freed, {rec['stalled']} stalled, "
+                  f"captured {rec['captured']}; spectrum err {rec['max_rel_err']:.3g} "
+                  f"(bitwise {rec['spec_bitwise']})")
+            if fails:
+                fail(f"{label_n}@{n}x{k} disagrees with its plain version: "
+                     + "; ".join(fails))
+            if (j, label, trace) == (0, "light", False):
+                out.append(full)
+    return out
+
+
+def fresh_checks(sim, usage):
+    """Phase 4d (and 12a): refill's sources, load and track start of each
+    semantics in ``sim``'s dtype (``hot_kernels.refill_fresh``) against
+    ``engine.refill_sources_plain`` and ``engine.init_fresh_plain`` at its
+    path's ``hot_kernels.FRESH_WIDTHS`` on synthetic pools and refill slots
+    (``hot_kernels.synthetic_refill``), held by
+    ``hot_kernels.compare_fresh`` (every loaded field, dk/dlambda,
+    interacting and the birth state bitwise, the lanes outside the loaded
+    slots bitwise as they were, the opacities and the bias at the hot
+    step's tolerance) and the ring's count, the backlog position and
+    n_created exactly: at each width with the birth state untraced, as
+    phases 5, 6, 10 and 12 run it, then traced, as phase 14 runs it
+    (``name+trace``).  The kernel updates a copy of the pool in place and
+    copies of the three counts, one a call (:class:`Copies`).  Returns
+    each semantics' untraced record at its first width; prints the
+    others."""
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, sim.cfg.dtype
+    ticket = hot_kernels.fresh_ticket(dev)
+    out = []
+    for reference in (False, True):
+        name = hot_kernels.entry_point("fresh_init", dt, reference)
+        table = tabs.corner_rows if reference else tabs.hot_tab
+        for j, (n, k) in enumerate(hot_kernels.FRESH_WIDTHS[reference]):
+            group = hot_kernels.fresh_shape(name, k)["group"]
+            inst = (f"fresh_init_kernelILb{int(reference)}E{'d' if dt == torch.float64 else 'f'}"
+                    f"Li{group}E")
+            ptx = next((v for f, v in usage.items() if inst in f), None)
+            for trace in (False, True):
+                pool, slots, counters, den, cfg = hot_kernels.synthetic_refill(
+                    mc, n, k, 2031 + k, dt, dev, reference=reference, trace_birth=trace)
+                work = engine.clone_pool(pool)
+
+                def plain():
+                    sec, pos, c, load = engine.refill_sources_plain(slots, counters)
+                    return engine.init_fresh_plain(pool, load, den, mc, tabs, cfg), sec, pos, c
+
+                def scalars():
+                    return (slots._replace(sec=engine.SecBuf(slots.sec.rows,
+                                                             slots.sec.count.clone()),
+                                           backlog_pos=slots.backlog_pos.clone()),
+                            counters._replace(n_created=counters.n_created.clone()))
+
+                copies = Copies(scalars)
+
+                def kern():
+                    sl, c = copies()
+                    return hot_kernels.refill_fresh(work, sl, c, den, mc, tabs, cfg, ticket)
+
+                ref = plain()
+                sl, c = scalars()
+                mine = engine.clone_pool(pool)
+                got = hot_kernels.refill_fresh(mine, sl, c, den, mc, tabs, cfg, ticket)
+                torch.cuda.synchronize()
+                load = engine.refill_sources_plain(slots, counters)[3]
+                rec, fails = hot_kernels.compare_fresh(name, pool, load, ref[0], got[0])
+                if got[0] is not mine:
+                    fails.append("the kernel's pool is not the one it was given")
+                counts = [int(v) for v in (got[1].count, got[2], got[3].n_created)]
+                want = [int(v) for v in (ref[1].count, ref[2], ref[3].n_created)]
+                if counts != want:
+                    fails.append(f"count, backlog_pos, n_created {counts} against {want}")
+                if bool(ticket.any()):
+                    fails.append(f"the ticket is {ticket.tolist()}, not zeros")
+                moved = fresh_moved_bytes(pool, load, ref[0], table, tabs, den, mc, trace)
+                label = f"{name}{'+trace' if trace else ''}"
+                extra = {**rec, "k": k, "counts": counts, "trace_birth": trace, "ptxas": ptx,
+                         "group": group, "library_ms": None, "library_device_ms": None,
+                         "name": label if j == 0 else f"{label}@{n}x{k}"}
+                full = time_kernel(name, {}, {}, plain, kern, moved,
+                                   ops=FRESH_OPS[reference] * rec["lanes_fresh"], n=n,
+                                   extra=extra)
+                print(f"  {label}@{n}x{k}: {rec['lanes_loaded']} loaded lanes, "
+                      f"{rec['lanes_fresh']} started ({rec['lanes_plasma']} in plasma) of {k} "
+                      f"slots on {n}; counts {counts}; group {group}; bi bitwise "
+                      f"{rec['bi_bitwise']}; ptxas {ptx}")
+                if fails:
+                    fail(f"{label}@{n}x{k} disagrees with its plain version: " + "; ".join(fails))
+                if j == 0 and not trace:
+                    out.append(full)
+    return out
+
+
 def event_ops(rounds_el, rounds_sc, n, chain=False):
     """(float operations, 32-bit integer instructions) of an event kernel's
     launch on ``n`` lanes whose loops ran ``rounds_el`` and ``rounds_sc``
@@ -2083,25 +2277,39 @@ def check_schedule(sim, stats, label):
 
 def path_launches(cfg, stats):
     """{entry point: launches} that a run of ``cfg`` with the counters
-    ``stats`` (hot_iters, full_phases, light_phases) must show: the fused
-    hot step of its dtype and semantics, its drawing instance (every hot
-    iteration runs inside a block), once per hot iteration of every
-    engine; the event phase and the ring's pack of its dtype once in each
-    full phase; the track start of its dtype and semantics once in each
-    full and light phase (under reference semantics it fetches its raw
-    rows itself); the compaction at least three times a full phase (the
-    events, the records, the refill) and twice a light one (the
-    ``COMPACT_MORE`` of :func:`launch_failures`: the runs' last records and
-    the cascade's gathers and merges compact too); every other entry point
-    (the row gather, the event fluid and the event kernel among them, off
-    the path since the event phase is one kernel) never."""
+    ``stats`` (hot_iters, full_phases, light_phases, engine_phases) must
+    show: the fused hot step of its dtype and semantics, its drawing
+    instance (every hot iteration runs inside a block), once per hot
+    iteration of every engine; the event phase and the ring's pack of its
+    dtype once in each full phase; the track start of its dtype and
+    semantics once in each full and light phase (under reference semantics
+    it fetches its raw rows itself); the record's kernels of its dtype,
+    each engine's by its pool's width (``hot_kernels.record_launches``):
+    the sweep alone and the record with the frees in each full phase, the
+    three at once in each light phase, the record alone in each closing
+    flush; the compaction at least twice a full phase (the events, the
+    refill) and once a light one (the ``COMPACT_MORE`` of
+    :func:`launch_failures`: the cascade's gathers and merges compact too);
+    every other entry point (the row gather, the event fluid and the event
+    kernel among them, off the path since the event phase is one kernel)
+    never."""
     from grmonty_tpu_torch.transport import hot_kernels
 
     dt, ref, full = cfg.dtype, cfg.reference, stats["full_phases"]
+    sweep, rec, free = (hot_kernels.RECORD_SWEEP, hot_kernels.RECORD_RECORD,
+                        hot_kernels.RECORD_FREE)
+
+    def launched(n, mode):
+        return hot_kernels.record_launches(n, mode)
+
+    records = sum(f * (launched(n, sweep) + launched(n, rec | free))
+                  + li * launched(n, sweep | rec | free) + fl * launched(n, rec)
+                  for n, f, li, fl in stats["engine_phases"])
     want = {hot_kernels.entry_point("hot_step", dt, ref, draw=True): stats["hot_iters"],
             hot_kernels.entry_point("event_phase", dt): full,
             hot_kernels.entry_point("compact_rows", dt): full,
-            "compact": 3 * full + 2 * stats["light_phases"],
+            "compact": 2 * full + stats["light_phases"],
+            hot_kernels.entry_point("record_phase", dt): records,
             hot_kernels.entry_point("fresh_init", dt, ref): full + stats["light_phases"]}
     return {name: want.get(name, 0) for name in hot_kernels.launches}
 
@@ -2132,9 +2340,11 @@ def launch_failures(cfg, stats, counts):
 
 # The plain versions that a run on the card must not call: the hot step's,
 # the load's and the track start's, the event fluid's, the event phase's,
-# the ring's pack and the compaction (the sort).
+# the ring's pack, the compaction (the sort), the record's and refill's
+# sources.
 PLAIN_FNS = ("hot_step_plain", "init_fresh_plain", "refill_load_plain", "event_fluid_plain",
-             "event_phase_plain", "pack_rows_plain", "compact_idx")
+             "event_phase_plain", "pack_rows_plain", "compact_idx", "record_phase_plain",
+             "refill_sources_plain")
 # and what a block on the card must not call: it draws its hot steps'
 # uniforms inside their kernel
 RAND_IN_BLOCK = "torch.rand_in_block"
@@ -2547,7 +2757,8 @@ def f64_checks(root, args, usage, sass, ref32=None):
         del sim32
     t0 = time.monotonic()
     stats, counts = drive(sim, "shipped_f64")
-    for name in ("hot_step_f64_draw", "fresh_init_f64", "event_phase_f64", "compact_rows_f64"):
+    for name in ("hot_step_f64_draw", "fresh_init_f64", "event_phase_f64", "compact_rows_f64",
+                 "record_phase_f64"):
         recs[name]["launches"] = counts[name]
     for name in OFF_PATH:
         recs[f"{name}_f64"]["launches"] = None
@@ -2725,6 +2936,7 @@ def replay_check(root):
     runs = out["runs"]
     total = {k: sum(r[k] for r in runs.values())
              for k in ("hot_iters", "full_phases", "light_phases", "replays")}
+    total["engine_phases"] = [e for r in runs.values() for e in r["engine_phases"]]
     line = {"phase": "replay", "photons": out["photons"], "mass_unit": out["mass_unit"],
             **{k: out.get(k) for k in (
                 "engine_max_tau", "engine_max_tau_nominal_steps", "replay_max_tau",
@@ -2857,7 +3069,8 @@ def main():
                                                           args.ref_stall_steps)}
 
     _, counts = drive(sim, "shipped")
-    for name in ("hot_step_draw", "fresh_init", "event_phase", "compact_rows", "compact"):
+    for name in ("hot_step_draw", "fresh_init", "event_phase", "compact_rows", "compact",
+                 "record_phase"):
         kernels[name]["launches"] = counts[name]
     # off the path since the event phase is one kernel (the counts, 0, are
     # on the path lines): checks of the fused kernel's parts

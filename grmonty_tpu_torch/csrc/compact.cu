@@ -14,7 +14,8 @@
 //   - compact (mask mode): mask (N,) bool -> valid (k,) bool, gi (k,) int64
 //     and sidx (k,) int64: the r-th set lane for r below the set count
 //     (valid, gi = sidx = the lane), then the pad (not valid, gi = N - 1,
-//     sidx = N), bit for bit what the sort gives;
+//     sidx = N), bit for bit what the sort gives; inverted, the same of the
+//     clear lanes (refill's free lanes from the occupied mask);
 //   - compact_rows (rows mode): the staged rows (K, 16) and their flags
 //     make (K,) -> the r-th flagged row into ring[count + r] where count + r
 //     < cap; count += the rows kept, n_drop += the rows dropped.  The ring's
@@ -75,7 +76,8 @@
 // of 16,384 slots and 30 us on the path's 13,000.
 //
 // Interface: plain C entry points for ctypes, as the other kernels: compact
-// (pointers mask, valid, gi, sidx; scalar k; the lane count N),
+// (pointers mask, valid, gi, sidx; scalars k and whether inverted; the lane
+// count N),
 // compact_rows and compact_rows_f64 (pointers make, rows, ring, count,
 // n_drop, ticket; scalar the ring's capacity; the slot count K), each with its
 // <entry>_nptrs and _nscal; each returns cudaGetLastError().
@@ -120,23 +122,28 @@ template <> struct Unit<16> {
   }
 };
 
-// The set bytes of unit u (bytes [UB u, UB u + UB) of the n) by byte loads.
+// The set bytes of unit u (bytes [UB u, UB u + UB) of the n) by byte loads
+// (under inv, the clear bytes).
 template <int UB>
-__device__ __forceinline__ unsigned byte_bits(const u8 *mask, int n, int u) {
+__device__ __forceinline__ unsigned byte_bits(const u8 *mask, int n, int u, bool inv) {
   unsigned bits = 0u;
-  for (int j = 0; j < UB && UB * u + j < n; ++j) bits |= (unsigned)(mask[UB * u + j] != 0) << j;
+  for (int j = 0; j < UB && UB * u + j < n; ++j)
+    bits |= (unsigned)((mask[UB * u + j] != 0) != inv) << j;
   return bits;
 }
 
 // Thread t's units t, t + NT, ... of the mask: the set lanes before unit
-// `first` and in all, and unit `mine`'s set bytes.  kVec: the mask is
-// aligned to UB bytes, its whole units read by UB-byte loads AH at a time
-// (the last, partial unit by bytes); else every unit by bytes.
+// `first` and in all, and unit `mine`'s set bytes (under inv, the clear
+// lanes).  kVec: the mask is aligned to UB bytes, its whole units read by
+// UB-byte loads AH at a time (the last, partial unit by bytes); else every
+// unit by bytes.
 template <int NT, int UB, int AH, bool kVec>
 __device__ __forceinline__ void count_units(const u8 *mask, int n, int first, int mine,
-                                            int &before, int &all, unsigned &own) {
+                                            int &before, int &all, unsigned &own,
+                                            bool inv = false) {
   using U = Unit<UB>;
   const int units = (n + UB - 1) / UB, whole = n / UB;
+  const unsigned flip = inv ? (UB == 32 ? FULL : (1u << UB) - 1u) : 0u;
   for (int u0 = (int)threadIdx.x; u0 < units; u0 += AH * NT) {
     unsigned bits[AH];
     if constexpr (kVec) {
@@ -150,13 +157,14 @@ __device__ __forceinline__ void count_units(const u8 *mask, int n, int first, in
 #pragma unroll
       for (int q = 0; q < AH; ++q) {
         const int u = u0 + q * NT;
-        bits[q] = u < whole ? U::bits(v[q]) : (u < units ? byte_bits<UB>(mask, n, u) : 0u);
+        bits[q] = u < whole ? U::bits(v[q]) ^ flip
+                            : (u < units ? byte_bits<UB>(mask, n, u, inv) : 0u);
       }
     } else {
 #pragma unroll
       for (int q = 0; q < AH; ++q) {
         const int u = u0 + q * NT;
-        bits[q] = u < units ? byte_bits<UB>(mask, n, u) : 0u;
+        bits[q] = u < units ? byte_bits<UB>(mask, n, u, inv) : 0u;
       }
     }
 #pragma unroll
@@ -171,11 +179,12 @@ __device__ __forceinline__ void count_units(const u8 *mask, int n, int first, in
 
 // Block b of NT threads owns the mask's bytes [b TILE, (b + 1) TILE), a unit
 // of UB bytes a thread (NT UB = TILE), and counts the whole mask AH units a
-// thread at a time.
+// thread at a time; under inv it compacts the mask's clear lanes.
 template <int NT, int UB, int AH>
 __global__ void __launch_bounds__(NT)
-    compact_tiles_kernel(const u8 *__restrict__ mask, int n, int k, u8 *__restrict__ valid,
-                         int64_t *__restrict__ gi, int64_t *__restrict__ sidx) {
+    compact_tiles_kernel(const u8 *__restrict__ mask, int n, int k, bool inv,
+                         u8 *__restrict__ valid, int64_t *__restrict__ gi,
+                         int64_t *__restrict__ sidx) {
   static_assert(NT * UB == TILE, "a thread's unit of the block's tile");
   constexpr int W = NT / 32;
   __shared__ int at[TILE];  // the tile's set lanes by rank within it
@@ -187,9 +196,9 @@ __global__ void __launch_bounds__(NT)
   int before = 0, all = 0;
   unsigned own = 0u;
   if (((uintptr_t)mask & (UB - 1)) == 0)
-    count_units<NT, UB, AH, true>(mask, n, first, first + t, before, all, own);
+    count_units<NT, UB, AH, true>(mask, n, first, first + t, before, all, own, inv);
   else
-    count_units<NT, UB, AH, false>(mask, n, first, first + t, before, all, own);
+    count_units<NT, UB, AH, false>(mask, n, first, first + t, before, all, own, inv);
   // the tile's ranks: each warp's inclusive scan, the sums through shared memory
   const int c = __popc(own);
   int x = c;
@@ -354,7 +363,7 @@ int launch_rows(void **ptrs, const double *scal, int k, void *stream) {
 extern "C" {
 
 int compact_nptrs() { return 4; }
-int compact_nscal() { return 1; }
+int compact_nscal() { return 2; }
 int compact_rows_nptrs() { return 6; }
 int compact_rows_nscal() { return 1; }
 int compact_rows_f64_nptrs() { return 6; }
@@ -364,16 +373,17 @@ int compact_rows_f64_threads(int k) { return rows_threads(k); }
 
 int compact_launch(void **ptrs, const double *scal, int n, void *stream) {
   const int k = (int)scal[0];
+  const bool inv = scal[1] != 0.0;
   if (n > 0 && k > 0) {
     const u8 *mask = (const u8 *)ptrs[0];
     u8 *valid = (u8 *)ptrs[1];
     int64_t *gi = (int64_t *)ptrs[2], *sidx = (int64_t *)ptrs[3];
     const cudaStream_t s = (cudaStream_t)stream;
     if (n <= TILE)  // one block: 1,024 threads of 4 bytes, one load each
-      compact_tiles_kernel<1024, 4, 1><<<1, 1024, 0, s>>>(mask, n, k, valid, gi, sidx);
+      compact_tiles_kernel<1024, 4, 1><<<1, 1024, 0, s>>>(mask, n, k, inv, valid, gi, sidx);
     else  // 256 threads of 16 bytes a block, 16 loads in flight a thread
-      compact_tiles_kernel<256, 16, 16><<<(n + TILE - 1) / TILE, 256, 0, s>>>(mask, n, k, valid,
-                                                                           gi, sidx);
+      compact_tiles_kernel<256, 16, 16><<<(n + TILE - 1) / TILE, 256, 0, s>>>(mask, n, k, inv,
+                                                                           valid, gi, sidx);
   }
   return (int)cudaGetLastError();
 }

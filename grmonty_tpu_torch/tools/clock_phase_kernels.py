@@ -15,20 +15,22 @@ through ``hot_kernels.scatter_event`` on ``hot_kernels.synthetic_events``
 (seed 2026), the event phase through ``hot_kernels.event_phase`` on
 ``hot_kernels.synthetic_event_pool`` (seed 2040 + K, the ring with room for
 the width's events: ``NxKeE`` is E events of K slots on N lanes, a fresh
-copy of the pool each launch), the track start on
-``hot_kernels.synthetic_fresh`` (seed 2031 + K) in both semantics,
-untraced.  Lane 0 of every warp that reaches a
-stamp adds the cycles since its previous stamp to that segment's sum and
-counts itself; each stamp first waits for a value the segment computed,
+copy of the pool each launch), refill's sources and the track start
+through ``hot_kernels.refill_fresh`` on ``hot_kernels.synthetic_refill``
+(seed 2031 + K) in both semantics, untraced (a checkout's start that took
+its sources as tensors after those sources as torch ops:
+``launch_sources_mode``).  Lane 0 of every warp that reaches a stamp adds
+the cycles since its previous stamp to that segment's sum and counts
+itself; each stamp first waits for a value the segment computed,
 so the compiler cannot move the segment's work across it.  The card's
 line, then one JSON line per (kernel, width): each segment's mean cycles
 over the warps that reached it, and the warps, over 20 launches.  Exits
 2 without a card.
 
 Each stamp has anchors in the current sources and in those of the kernels
-before them (one thread a lane; the track start over the pool's lanes,
-copying the kept ones, which took (valid, sidx) and wrote new outputs; the
-event phase with a lane's whole chain on each of its threads): the first
+before them (one thread a lane; the track start that took refill's
+sources as tensors; the event phase with a lane's whole chain on each of
+its threads): the first
 anchor found is used, and a source with none raises.  Where a lane's
 threads split its chain, a segment that lane 0 of a warp does not run is
 counted by the warps whose lane 0 runs it, and each stamp counts the
@@ -89,28 +91,23 @@ _PHASE_STAMPS = [
       "\\g<1>  STAMP(11, 0.0);\n  CLK_WARP();\n}")],
 ]
 _FRESH_STAMPS = [
-    [(r"(  const int i = blockIdx\.x \* FRESH_THREADS \+ threadIdx\.x;\n)",
-      "\\g<1>  CLK_START();\n"),
-     (r"(  const int s0 = blockIdx\.x \* \(FRESH_THREADS / G\) \+ threadIdx\.x / G;\n)",
+    [(r"(  const int s0 = blockIdx\.x \* \(FRESH_THREADS / G\) \+ threadIdx\.x / G;\n)",
       "\\g<1>  CLK_START();\n")],
-    [(r"  const bool fresh = slot >= 0 && P\.valid\[slot\];\n", "\\g<0>  STAMP(0, slot);\n"),
-     (r"  const bool load = lane < n && P\.load\[s\];\n", "\\g<0>  STAMP(0, (double)lane);\n")],
-    [(r"(    __syncthreads\(\);\n  \}\n)(  if \(i >= n\) return;\n)",
-      "\\g<1>  STAMP(1, 0.0);\n\\g<2>"),
-     (r"  cp_async_arrive\(&hc_bar\);\n", "\\g<0>  STAMP(1, 0.0);\n")],
-    [(r"(  const T x1 = P\.x1\[i\], x2 = P\.x2\[i\], w = P\.w\[i\];\n)",
-      "  STAMP(2, 0.0);\n\\g<1>"),
-     (r"  // the start\n", "  STAMP(2, row[0] + row[15]);\n\\g<0>")],
+    [(r"  const bool load = lane < n && P\.load\[s\];\n", "\\g<0>  STAMP(0, (double)lane);\n"),
+     # since the kernel works out the sources: the slot's source known (its
+     # ticket taken)
+     (r"  if \(!__syncthreads_or\(load\)\) return;\n", "  STAMP(0, (double)lane);\n\\g<0>")],
+    [(r"  cp_async_arrive\(&hc_bar\);\n", "\\g<0>  STAMP(1, 0.0);\n")],
+    [(r"  // the start\n", "  STAMP(2, row[0] + row[15]);\n\\g<0>")],
     [(r"    geodesic_rhs\(conn, kk, dk\);\n  \}\n", "\\g<0>  STAMP(3, dk[0] + dk[3]);\n")],
     [(r"  // the opacities \(Engine\.eval_alphas\) and the bias",
       "  STAMP(4, n_e + te + b_mag + u_cov[0] + b_cov[3]);\n\\g<0>")],
     [(r"  const T e_g = T\(HPL_D\) \* nu_safe \* CB\.inv_mecc;\n",
       "\\g<0>  STAMP(5, e_g + sin_th);\n")],
-    [(r"(  barrier_wait\(&hc_bar\);\n)(  const int first)", "\\g<1>  STAMP(6, 0.0);\n\\g<2>"),
-     (r"(  const bool trace = P\.obw != nullptr;\n)", "\\g<1>")],
+    [(r"(  barrier_wait\(&hc_bar\);\n)(  const int first)", "\\g<1>  STAMP(6, 0.0);\n\\g<2>")],
     [(r"  const T a_sc = [^\n]*\n", "\\g<0>  STAMP(7, a_sc);\n")],
     [(r"  const T a_ab = [^\n]*\n", "\\g<0>  STAMP(8, a_ab);\n")],
-    [(r"(    P\.o?bw\[i\] = w;\n  \}\n)\}", "\\g<1>  STAMP(9, 0.0);\n  CLK_WARP();\n}")],
+    [(r"(    P\.bw\[i\] = w;\n  \}\n)\}", "\\g<1>  STAMP(9, 0.0);\n  CLK_WARP();\n}")],
 ]
 _HEAD = """
 __device__ unsigned long long g_clk[16], g_cnt[16];
@@ -197,33 +194,43 @@ def _clocked(lib, segments, launch):
             "warps_stored": buf[15] // 20}
 
 
-def launch_before_fold(fn, pool, load, den, mc, tabs, cfg):
-    """The track start as it was before it took refill's row moves, on
-    ``load``: the moves as torch ops (``engine.refill_load_plain``), then
-    one launch of that kernel's entry point ``fn`` (a ctypes function) on
-    the fresh set (valid, sidx) they leave, its start fields into new
-    outputs, the birth state off.  Returns the pool it leaves."""
+def sources_mode_abi():
+    """(pointers, scalars) of a track start built before it worked out
+    refill's sources, which took them as tensors (an ``engine.FreshLoad``):
+    the pool's fields, the birth state, the slots' lane, load flag, source
+    and indices, the ring's and the backlog's rows, the bias's denominator,
+    the corner table and the surface; the hot step's scalars, the slots and
+    the threads a slot (0: by the width)."""
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    fields = hot_kernels._FRESH_LOAD + hot_kernels._FRESH_START + hot_kernels._BIRTH
+    return len(fields) + 10, hot_kernels._HOT_NSCAL + 2
+
+
+def launch_sources_mode(fn, pool, slots, counters, den, mc, tabs, cfg):
+    """The track start as it was before it worked out refill's sources
+    (:func:`sources_mode_abi`), on refill's ``slots``: the sources as torch
+    ops (``engine.refill_sources_plain``), then one launch of that kernel's
+    entry point ``fn`` (a ctypes function) in place on ``pool``, the birth
+    state off.  Returns the pool."""
     import torch
 
     from grmonty_tpu_torch.transport import engine, hot_kernels
 
-    p1, (valid, sidx) = engine.refill_load_plain(pool, load)
-    n, dt, dev = p1.w.shape[0], p1.w.dtype, p1.w.device
+    load = engine.refill_sources_plain(slots, counters)[3]
+    n, dt, dev = pool.w.shape[0], pool.w.dtype, pool.w.device
     table = tabs.corner_rows if cfg.reference else tabs.hot_tab
-    fo = torch.empty((7, n), dtype=dt, device=dev)
-    inter = torch.empty(n, dtype=torch.bool, device=dev)
-    tensors = ([*p1.x, *p1.k, p1.w, *p1.dkdlam, p1.alpha_scatti, p1.alpha_absi, p1.bi,
-                p1.interacting, valid, sidx, hot_kernels._den_on(den, dev, dt), table,
-                tabs.hc_coeffs, *fo, inter] + [None] * 18)
+    tensors = (hot_kernels.fresh_fields(pool) + [None] * 9
+               + [*load[:5], load.sec_rows, load.backlog_rows,
+                  hot_kernels._den_on(den, dev, dt), table, tabs.hc_coeffs])
     ptrs = (ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr()
                                              for t in tensors])
-    scal = list(hot_kernels._hot_scalars(mc, tabs, cfg, dev, dt)) + [sidx.shape[0]]
+    scal = list(hot_kernels._hot_scalars(mc, tabs, cfg, dev, dt)) + [load.sidx.shape[0], 0]
     sc = (ctypes.c_double * len(scal))(*[float(v) for v in scal])
     rc = fn(ptrs, sc, n, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"the track start's launch failed: CUDA error {rc}")
-    return p1._replace(dkdlam=tuple(fo[0:4]), alpha_scatti=fo[4], alpha_absi=fo[5], bi=fo[6],
-                       interacting=inter)
+    return pool
 
 
 # the event phase's (pool lanes)x(slots)[e(events)]: the wave's width at the
@@ -337,28 +344,39 @@ def main(argv=None):
         return
     lib = _build(os.path.join(csrc, SOURCES["fresh_init"]), "fresh_init",
                  hot_kernels.NVCC_FLAGS, build_dir)
+    ticket = hot_kernels.fresh_ticket(dev)
     for reference in (False, True):
         name = hot_kernels.entry_point("fresh_init", dt, reference)
         ours = hot_kernels._Build.fns[name]
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes, fn.restype = ours.argtypes, ctypes.c_int
-        old = getattr(lib, f"{name}_nptrs")() != hot_kernels._ABI[name][0]
+        abi = (getattr(lib, f"{name}_nptrs")(), getattr(lib, f"{name}_nscal")())
+        if abi not in (hot_kernels._ABI[name], sources_mode_abi()):
+            raise ValueError(f"clock_phase_kernels: {name} of {csrc} takes {abi} (pointers, "
+                             "scalars), neither this checkout's nor the sources mode's")
+        old = abi != hot_kernels._ABI[name]
         for width in args.fresh_widths.split(","):
             n, k = (int(v) for v in width.split("x"))
-            pool, load, den, cfg = hot_kernels.synthetic_fresh(
+            pool, slots, counters, den, cfg = hot_kernels.synthetic_refill(
                 mc, n, k, 2031 + k, dt, dev, reference=reference, trace_birth=False)
             work = engine.clone_pool(pool)
             if old:
-                launch = lambda: launch_before_fold(fn, pool, load, den, mc, tabs, cfg)  # noqa: E731
+                launch = lambda: launch_sources_mode(  # noqa: E731
+                    fn, work, slots, counters, den, mc, tabs, cfg)
             else:
                 def launch():
+                    # the counts the launch takes its sources from, as made
+                    sl = slots._replace(sec=engine.SecBuf(slots.sec.rows,
+                                                          slots.sec.count.clone()),
+                                        backlog_pos=slots.backlog_pos.clone())
+                    c = counters._replace(n_created=counters.n_created.clone())
                     hot_kernels._Build.fns[name] = fn
                     try:
-                        hot_kernels.fresh_init(work, load, den, mc, tabs, cfg)
+                        hot_kernels.refill_fresh(work, sl, c, den, mc, tabs, cfg, ticket)
                     finally:
                         hot_kernels._Build.fns[name] = ours
             rec = _clocked(lib, FRESH_SEGMENTS, launch)
-            print(json.dumps({"name": name, "n": n, "k": k, "source": csrc, "before_fold": old,
+            print(json.dumps({"name": name, "n": n, "k": k, "source": csrc, "sources_mode": old,
                               **rec}), flush=True)
 
 

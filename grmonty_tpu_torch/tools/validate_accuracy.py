@@ -510,7 +510,7 @@ def run(args):
     caller's (:func:`gate_failures`)."""
     import torch
 
-    from grmonty_tpu_torch.transport import engine
+    from grmonty_tpu_torch.transport import driver, engine
 
     device = torch.device(args.device)
     cfg, tail = _config(args)
@@ -553,6 +553,7 @@ def run(args):
                          "compile_s": sim.compile_s,
                          "full_phases": sum(e.phases["full"] for e in engines),
                          "light_phases": sum(e.phases["light"] for e in engines),
+                         "engine_phases": driver.engine_phases(engines),
                          "replays": sum(e.replays for e in engines),
                          "tail_stages": [[st["pool"], st["iters"]] for st in sim.tail_stages],
                          "pilot": sim.pilot}

@@ -130,6 +130,14 @@ def warm_counters(counters, n_recorded, n_scatt_rec, max_tau_scatt, avg):
         ema_scatt_mark=i64(n_scatt_rec), ema_rec_mark=i64(n_recorded))
 
 
+def engine_phases(engines):
+    """[pool lanes, full phases, light phases, closing flushes] of each
+    engine (``Engine.phases``, ``Engine.flushes``): the record's calls on
+    the card, each one or two launches by the pool's width.  A run resumed
+    from a checkpoint counts the flushes it ran itself."""
+    return [[e.cfg.n_pool, e.phases["full"], e.phases["light"], e.flushes] for e in engines]
+
+
 def wave_list(total, chunk, n_pool, wave_tail_exit):
     """The run's waves as (first plan photon, photons, exit occupancy).
 
@@ -583,6 +591,7 @@ class Simulation:
         state = self.engine.fresh_state()
         for eng in self._tail_engines.values():
             eng.phases = {"full": 0, "light": 0}
+            eng.flushes = 0
             eng.replays = 0
         self.device_s = 0.0 if self.device.type == "cuda" else None
         self.capture_s = 0.0
@@ -619,6 +628,7 @@ class Simulation:
             "n_created": plan.total,
             "full_phases": sum(e.phases["full"] for e in engines),
             "light_phases": sum(e.phases["light"] for e in engines),
+            "engine_phases": engine_phases(engines),
             "waves": len(waves),
             "pilot": self.pilot,
             "tail_stages": self.tail_stages,

@@ -55,10 +55,11 @@ rows (:func:`compact_rows`: ``compact_rows`` / ``compact_rows_f64``;
 row gather stay as checks of the event phase's parts, off the engine's
 path.
 
-``csrc/fresh_init.cu`` holds refill's row moves and the track start of
-the lanes they fill, in place on the pool (:func:`fresh_init`:
-``fresh_init`` / ``fresh_init_ref`` and their ``_f64`` instantiations;
-``engine.init_fresh_plain`` on an ``engine.FreshLoad``) and
+``csrc/fresh_init.cu`` holds refill's sources, row moves and the track
+start of the lanes they fill, in place on the pool, with the ring's count,
+the backlog position and n_created (:func:`refill_fresh`: ``fresh_init`` /
+``fresh_init_ref`` and their ``_f64`` instantiations;
+``engine.refill_sources_plain`` then ``engine.init_fresh_plain``), and
 ``csrc/event_fluid.cu`` the event phase's fluid, opacities and bias
 (:func:`event_fluid`: ``event_fluid`` / ``event_fluid_f64``;
 ``engine.event_fluid_plain``), each one launch where the plain versions
@@ -66,11 +67,18 @@ are hundreds of torch operations; the JAX package runs both as XLA
 (``grmonty_tpu/transport/engine.py:2320`` and ``:2036``).  They and the hot
 step share the device physics of ``csrc/physics.cuh``.
 
+``csrc/record.cu`` holds the phases' upkeep of the pool: the poison
+sweep, the record of the escaped lanes into the spectrum and the counters,
+and the frees with their census, in place (:func:`record_phase`:
+``record_phase`` / ``record_phase_f64``; ``engine.record_phase_plain``),
+where the JAX engine runs XLA (``grmonty_tpu/transport/engine.py:1819``,
+``:2395``, ``:2410``).
+
 The headers of the ``.cu`` files say what bounds each kernel on the card.
 
 :func:`hot_step`, :func:`row_gather`, :func:`gather_rowsum`,
-:func:`row_gather_rowloop` and :func:`compact` take their plain versions'
-arguments.  On CPU
+:func:`row_gather_rowloop`, :func:`compact` and :func:`record_phase` take
+their plain versions' arguments.  On CPU
 tensors they call the plain versions (``engine.hot_step_plain`` /
 indexing); on CUDA tensors they launch the kernel of the tensors' dtype
 (:func:`entry_point`), or raise.  ``launches``
@@ -124,7 +132,7 @@ launches = {"hot_step": 0, "hot_step_ref": 0, "row_gather": 0, "hot_step_f64": 0
             "philox_words": 0, "fresh_init": 0, "fresh_init_ref": 0, "fresh_init_f64": 0,
             "fresh_init_ref_f64": 0, "event_fluid": 0, "event_fluid_f64": 0,
             "event_phase": 0, "event_phase_f64": 0, "compact": 0, "compact_rows": 0,
-            "compact_rows_f64": 0}
+            "compact_rows_f64": 0, "record_phase": 0, "record_phase_f64": 0}
 # The dtypes the hot step and the row gather have kernels for, and the
 # suffix of their entry points: the float32 kernels keep their names.
 DTYPE_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
@@ -168,14 +176,16 @@ def credit(added):
 def entry_point(kernel, dtype, reference=False, draw=False):
     """The entry point that runs ``kernel`` ("hot_step", "row_gather",
     "scatter_event", "scatter_chain", "fresh_init", "event_fluid",
-    "event_phase", "compact_rows" or "compact") on tensors of ``dtype``: the
+    "event_phase", "compact_rows", "record_phase" or "compact") on tensors
+    of ``dtype``: the
     reference variant of the hot step and of the track start under
     ``reference``, the float64 instantiation for float64 (the compaction of
     a mask has one entry point, "compact", for every dtype), and under
     ``draw`` the hot step's drawing instance (``_draw``).  Raises a
     ValueError for a dtype that has no kernel."""
     if kernel not in ("hot_step", "row_gather", "scatter_event", "scatter_chain",
-                      "fresh_init", "event_fluid", "event_phase", "compact_rows", "compact"):
+                      "fresh_init", "event_fluid", "event_phase", "compact_rows",
+                      "record_phase", "compact"):
         raise ValueError(f"no entry point for kernel {kernel!r}")
     if draw and kernel != "hot_step":
         raise ValueError(f"{kernel}: only the hot step has a drawing instance")
@@ -217,19 +227,22 @@ _HOT_PTRS = _HOT_REF_PTRS + _EV + ["o" + f for f in _EV] + ["ooccupied"]
 _HOT_NSCAL = len(_A_SCAL) + len(_B_SCAL_HEAD) + _K2_N + 2
 # The load and track start (the C struct FreshPtrs): the pool's fields the
 # load writes, those the start writes, the birth state (null when the trace
-# is off), all updated in place; refill's slots (engine.FreshLoad): the
-# lanes, the load flags, the sources and their rows; the bias's
-# denominator, the corner table, the hotcross surface.  Its scalars: the
-# hot step's, then the slots and the threads a slot (below 1: by the
-# width).
+# is off), all updated in place; refill's slots (engine.RefillSlots): the
+# compaction's valid flags and lanes, the ring's and the backlog's rows;
+# the bias's denominator, the corner table, the hotcross surface; the
+# ring's count, the backlog position, its valid rows (null where they come
+# as a scalar), n_created, the ticket.  Its scalars: the hot step's, then
+# the slots, the backlog's valid rows (where its pointer is null), the
+# ring's and the backlog's rows.
 _FRESH_LOAD = ("x0 x1 x2 x3 k0 k1 k2 k3 w e l n_e_0 theta_e_0 b_0 e_0 e_0_s x1i x2i tau_abs "
                "tau_scatt pend_dl dl_shrink sec_w n_scatt nsc0 n_step ev_tries occupied alive "
                "pend_push at_event record_pending").split()
 _FRESH_START = "d0 d1 d2 d3 alpha_scatti alpha_absi bi interacting".split()
 _BIRTH = "bx0 bx1 bx2 bx3 bk0 bk1 bk2 bk3 bw".split()
-_FRESH_SLOTS = "sidx load from_sec sec_idx bl_idx sec_rows backlog_rows".split()
-_FRESH_PTRS = (_FRESH_LOAD + _FRESH_START + _BIRTH + _FRESH_SLOTS
-               + ["bias_den", "table", "hc"])
+_FRESH_PTRS = (_FRESH_LOAD + _FRESH_START + _BIRTH
+               + "valid sidx sec_rows backlog_rows bias_den table hc sec_count backlog_pos "
+                 "n_valid n_created ticket".split())
+_FRESH_NSCAL = _HOT_NSCAL + 4
 # The event phase's fluid (FluidPtrs): the raw rows, the lanes' inputs, the
 # bias's denominator, the surface, then its 30 outputs (EventFluid's
 # fields flattened); its scalars the hot step's, then EV_HALVE.
@@ -247,6 +260,22 @@ _PHASE_WRITE = "w alpha_scatti alpha_absi bi ev_tries alive occupied at_event ev
 _PHASE_PTRS = (_PHASE_READ + _PHASE_WRITE
                + "valid sidx room wedged key bias_den table hc rows make n_ev_soft n_ev_forced"
                .split())
+# The record (RecordPtrs of csrc/record.cu): the pool's fields it reads,
+# the flags it updates in place, the birth state (null when the trace is
+# off), the spectrum and the counters it adds to, the ticket and the
+# scratch.  Its scalars (RecordScal): the width, the mode's bits, the step
+# cap, the bins' counts, and the bins' constants as the plain version's
+# torch operations take them on the card.
+_RECORD_READ = ("x0 x1 x2 x3 k0 k1 k2 k3 w e x1i x2i tau_abs tau_scatt n_e_0 theta_e_0 b_0 e_0 "
+                "n_scatt nsc0 n_step").split()
+_RECORD_FLAGS = "alive occupied record_pending at_event ev_pending".split()
+_RECORD_COUNTERS = ("n_recorded n_scatt_rec max_tau_scatt n_retired n_steps_retired n_stall "
+                    "w_stall mt_bx mt_bk mt_bw mt_nsc0").split()
+_RECORD_PTRS = (_RECORD_READ + _RECORD_FLAGS + _BIRTH + ["spec"] + _RECORD_COUNTERS
+                + ["ticket", "scratch"])
+_RECORD_SCAL = "k mode stall_steps n_th n_e mid x_stop2 inv_dx2 l_e_0 inv_d_l_e".split()
+# the record's stages (the mode's bits)
+RECORD_SWEEP, RECORD_RECORD, RECORD_FREE = 1, 2, 4
 # (pointers, scalars) each entry point takes
 _ABI = {**{f"hot_step{r}{x}{d}": (len(_HOT_REF_PTRS if r else _HOT_PTRS),
                                    _HOT_NSCAL + (1 if d else 0))
@@ -264,16 +293,18 @@ _ABI = {**{f"hot_step{r}{x}{d}": (len(_HOT_REF_PTRS if r else _HOT_PTRS),
         # the rounds
         **{f"scatter_chain{x}": (19, 0) for x in DTYPE_SUFFIX.values()},
         "philox_words": (3, 0),
-        **{f"fresh_init{r}{x}": (len(_FRESH_PTRS), _HOT_NSCAL + 2)
+        **{f"fresh_init{r}{x}": (len(_FRESH_PTRS), _FRESH_NSCAL)
            for r in ("", "_ref") for x in DTYPE_SUFFIX.values()},
         **{f"event_fluid{x}": (len(_FLUID_IN) + _FLUID_OUT, _HOT_NSCAL + 1)
            for x in DTYPE_SUFFIX.values()},
         **{f"event_phase{x}": (len(_PHASE_PTRS), _HOT_NSCAL + 3) for x in DTYPE_SUFFIX.values()},
-        # the mask, valid, gi, sidx; the scalar k.  Rows mode: the flags, the
-        # staged rows, the ring, its count, n_sec_drop, the ticket; the
-        # scalar the ring's capacity
-        "compact": (4, 1),
-        **{f"compact_rows{x}": (6, 1) for x in DTYPE_SUFFIX.values()}}
+        # the mask, valid, gi, sidx; the scalars k and whether inverted.
+        # Rows mode: the flags, the staged rows, the ring, its count,
+        # n_sec_drop, the ticket; the scalar the ring's capacity
+        "compact": (4, 2),
+        **{f"compact_rows{x}": (6, 1) for x in DTYPE_SUFFIX.values()},
+        **{f"record_phase{x}": (len(_RECORD_PTRS), len(_RECORD_SCAL))
+           for x in DTYPE_SUFFIX.values()}}
 
 
 # The hot step's entry points, and their drawing instances; the track
@@ -283,19 +314,24 @@ FRESH_INITS = ("fresh_init", "fresh_init_ref", "fresh_init_f64", "fresh_init_ref
 SCATTER_EVENTS = ("scatter_event", "scatter_event_f64")
 EVENT_PHASES = ("event_phase", "event_phase_f64")
 COMPACT_ROWS = ("compact_rows", "compact_rows_f64")
+RECORD_PHASES = ("record_phase", "record_phase_f64")
 HOT_DRAWS = tuple(f"{h}_draw" for h in HOT_STEPS)
 # The libraries' int -> int functions: the row counts of csrc/gather_probe.cu's
 # tilings (w -> rows), the launch shape of each hot-step entry point at n
 # lanes (csrc/hot_step.cu: the threads a lane, the threads a block, the
 # blocks an SM of the instance it runs), the track start's threads a slot
-# at K slots, the event's lanes a warp at n lanes and the pack's threads a
-# block at K slots.
+# at K slots, the event's lanes a warp at n lanes, the pack's threads a
+# block at K slots and the record's scratch bytes at n lanes; and one
+# (int, int) -> int function, the kernels a record launches at (n lanes, its
+# mode).
 HOT_SHAPE = ("group", "threads", "blocks_per_sm")
 _INT_FNS = ("gather_rowsum_persistent_pass_rows", "gather_rowsum_rowloop_wave_rows",
             *(f"{h}_{what}" for h in HOT_STEPS + HOT_DRAWS for what in HOT_SHAPE),
             *(f"{f}_group" for f in FRESH_INITS),
             *(f"{e}_lanes" for e in SCATTER_EVENTS + EVENT_PHASES),
-            *(f"{c}_threads" for c in COMPACT_ROWS))
+            *(f"{c}_threads" for c in COMPACT_ROWS), "record_phase_scratch",
+            "record_phase_launches")
+_INT_ARGS = {"record_phase_launches": 2}
 
 
 class _Build:
@@ -366,7 +402,8 @@ def build():
         for sym in _INT_FNS:
             if hasattr(lib, sym):
                 fn = getattr(lib, sym)
-                fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+                fn.argtypes = [ctypes.c_int] * _INT_ARGS.get(sym, 1)
+                fn.restype = ctypes.c_int
                 int_fns[sym] = fn
     missing = sorted(set(_ABI) - set(fns)) + [sym for sym in _INT_FNS if sym not in int_fns]
     if missing:
@@ -388,10 +425,11 @@ def _check_lanes(what, tensors, dtypes, n, dev, names=None):
                              f"on {t.device}")
 
 
-def _launch(name, ptr_tensors, scal, n, device):
+def _launch(name, ptr_tensors, scal, n, device, kernels=1):
     """Launch entry point ``name`` on ``n`` lanes: the tensors' device
     pointers (None passes a null pointer), the scalars (a ctypes array or a
-    list of numbers), the current stream of ``device``."""
+    list of numbers), the current stream of ``device``; ``kernels``: the
+    kernels the entry point launches, which its count adds."""
     build()
     if n == 0:
         return  # no lanes: nothing to launch
@@ -403,7 +441,7 @@ def _launch(name, ptr_tensors, scal, n, device):
     rc = _Build.fns[name](ptrs, sc, n, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    launches[name] += 1
+    launches[name] += kernels
 
 
 _RECIP = {}
@@ -697,54 +735,86 @@ def _den_on(bias_den, dev, dt):
     return bias_den.reshape(()).to(dt).contiguous()
 
 
-def fresh_init(pool, load, bias_den, mc, tables, cfg, group=None):
-    """Refill's row moves and the track start of the lanes they fill
-    (``engine.FreshLoad`` ``load``: the rows' fields, then dk/dlambda, the
-    opacities, the bias and ``interacting`` of the valid ones; the birth
-    state under ``cfg.trace_birth``): on CPU tensors the plain version
-    (``engine.init_fresh_plain``, which returns a new pool); on CUDA
+def fresh_ticket(device):
+    """The refill's ticket for :func:`refill_fresh`: three int32 words at
+    zero (the ticket, the slots taken from the ring and from the backlog),
+    which every launch takes and leaves at zero.  The engine allocates it
+    outside any CUDA graph's capture."""
+    return torch.zeros(3, dtype=torch.int32, device=device)
+
+
+def fresh_fields(pool):
+    """The pool's fields that the load and the track start write, in the
+    order of their pointers (``_FRESH_LOAD``, ``_FRESH_START``)."""
+    return [*pool.x, *pool.k, pool.w, pool.e, pool.l, pool.n_e_0, pool.theta_e_0, pool.b_0,
+            pool.e_0, pool.e_0_s, pool.x1i, pool.x2i, pool.tau_abs, pool.tau_scatt,
+            pool.pend_dl, pool.dl_shrink, pool.sec_w, pool.n_scatt, pool.nsc0, pool.n_step,
+            pool.ev_tries, pool.occupied, pool.alive, pool.pend_push, pool.at_event,
+            pool.record_pending, *pool.dkdlam, pool.alpha_scatti, pool.alpha_absi, pool.bi,
+            pool.interacting]
+
+
+def refill_fresh(pool, slots, counters, bias_den, mc, tables, cfg, ticket):
+    """Refill's slots (``engine.RefillSlots``: the compaction of the free
+    lanes, the ring, the backlog, its position and valid rows): each slot's
+    source, the ring's count, the backlog position and n_created past what
+    the slots take (``engine.refill_sources_plain``), then the load and
+    track start of the lanes they fill (``engine.init_fresh_plain``: the
+    rows' fields, then dk/dlambda, the opacities, the bias and
+    ``interacting`` of the valid ones; the birth state under
+    ``cfg.trace_birth``).  ``bias_den``: the 0-d bias_norm * max_tau * (avg
+    + 2).  On CPU tensors those plain versions (new tensors); on CUDA
     tensors one launch of the kernel of ``csrc/fresh_init.cu`` that
     :func:`entry_point` names for ``cfg.reference`` and the pool's dtype
-    (``fresh_init`` / ``fresh_init_ref``, ``_f64`` in float64), which
-    updates ``pool``'s tensors in place and returns ``pool``, or raise.
-    ``bias_den``: the 0-d bias_norm * max_tau * (avg + 2); ``group``: the
-    threads a slot (None: :func:`fresh_shape` picks by the width).  No
-    host sync."""
+    (``fresh_init`` / ``fresh_init_ref``, ``_f64`` in float64; the threads
+    a slot by the width, :func:`fresh_shape`): each slot works out its
+    source from the values before the launch, and the last block to take
+    ``ticket`` (a :func:`fresh_ticket`) updates ``slots.sec.count``,
+    ``slots.backlog_pos`` and ``counters.n_created`` in place; the pool is
+    updated in place; or raise.  Returns (pool, sec, backlog_pos,
+    counters).  No host sync."""
     if pool.w.device.type == "cpu":
-        return engine.init_fresh_plain(pool, load, bias_den, mc, tables, cfg)
-    if not isinstance(load, engine.FreshLoad):
-        raise ValueError("fresh_init on the card takes refill's slots (engine.FreshLoad)")
+        sec, pos, counters, load = engine.refill_sources_plain(slots, counters)
+        return engine.init_fresh_plain(pool, load, bias_den, mc, tables, cfg), sec, pos, counters
     dev, dt, n = _cuda_device(pool.w), pool.w.dtype, pool.w.shape[0]
     name = entry_point("fresh_init", dt, cfg.reference)
-    k = load.sidx.shape[0]
+    k = slots.valid.shape[0]
+    _check_lanes(f"{name} slots", [slots.valid, slots.sidx], [torch.bool, torch.int64], k, dev,
+                 names=["valid", "sidx"])
+    for what, t in (("ring count", slots.sec.count), ("backlog_pos", slots.backlog_pos),
+                    ("n_created", counters.n_created)):
+        _check_scalar(f"{name} {what}", t, torch.int64, dev)
+    n_valid = slots.n_valid
+    held = isinstance(n_valid, torch.Tensor)
+    if held:
+        _check_scalar(f"{name} n_valid", n_valid, torch.int64, dev)
+    if ticket.dtype != torch.int32 or ticket.shape != (3,) or ticket.device != dev:
+        raise ValueError(f"{name}: expected the refill's ticket (fresh_ticket) on {dev}, got "
+                         f"{ticket.dtype} {tuple(ticket.shape)} on {ticket.device}")
     i32, b8 = torch.int32, torch.bool
-    fields = [*pool.x, *pool.k, pool.w, pool.e, pool.l, pool.n_e_0, pool.theta_e_0, pool.b_0,
-              pool.e_0, pool.e_0_s, pool.x1i, pool.x2i, pool.tau_abs, pool.tau_scatt,
-              pool.pend_dl, pool.dl_shrink, pool.sec_w, pool.n_scatt, pool.nsc0, pool.n_step,
-              pool.ev_tries, pool.occupied, pool.alive, pool.pend_push, pool.at_event,
-              pool.record_pending, *pool.dkdlam, pool.alpha_scatti, pool.alpha_absi, pool.bi,
-              pool.interacting]
+    fields = fresh_fields(pool)
     birth = [*pool.bx, *pool.bk, pool.bw] if cfg.trace_birth else []
     types = [dt] * 23 + [i32] * 4 + [b8] * 5 + [dt] * 7 + [b8] + [dt] * len(birth)
     _check_lanes(name, fields + birth, types, n, dev,
                  names=_FRESH_LOAD + _FRESH_START + _BIRTH[:len(birth)])
     if len({t.data_ptr() for t in fields + birth}) != len(fields + birth):
         raise ValueError(f"{name}: two of the pool's fields share memory (updated in place)")
-    _check_lanes(f"{name} slots", [load.sidx, load.load, load.from_sec, load.sec_idx,
-                                   load.bl_idx], [torch.int64, b8, b8, torch.int64, torch.int64],
-                 k, dev, names=_FRESH_SLOTS[:5])
-    _check_rows(load.sec_rows, engine.ROW_WIDTH, dev, "ring rows", dt)
-    _check_rows(load.backlog_rows, engine.ROW_WIDTH, dev, "backlog rows", dt)
+    sec_rows, backlog_rows = slots.sec.rows, slots.backlog_rows
+    _check_rows(sec_rows, engine.ROW_WIDTH, dev, "ring rows", dt)
+    _check_rows(backlog_rows, engine.ROW_WIDTH, dev, "backlog rows", dt)
     table = tables.corner_rows if cfg.reference else tables.hot_tab
     _check_rows(table, 32 if cfg.reference else 44, dev, "corner table", dt)
     if table.shape[0] < mc.n1 * mc.n2:
         raise ValueError(f"corner table: {table.shape[0]} rows for {mc.n1}x{mc.n2} cells")
     _check_hc(tables.hc_coeffs, dt, dev)
-    ptrs = (fields + (birth or [None] * 9) + list(load[:5]) + [load.sec_rows, load.backlog_rows]
-            + [_den_on(bias_den, dev, dt), table, tables.hc_coeffs])
-    scal = list(_hot_scalars(mc, tables, cfg, dev, dt)) + [k, group or 0]
+    ptrs = (fields + (birth or [None] * 9)
+            + [slots.valid, slots.sidx, sec_rows, backlog_rows, _den_on(bias_den, dev, dt),
+               table, tables.hc_coeffs, slots.sec.count, slots.backlog_pos,
+               n_valid if held else None, counters.n_created, ticket])
+    scal = (list(_hot_scalars(mc, tables, cfg, dev, dt))
+            + [k, 0 if held else int(n_valid), sec_rows.shape[0], backlog_rows.shape[0]])
     _launch(name, ptrs, scal, n, dev)
-    return pool
+    return pool, slots.sec, slots.backlog_pos, counters
 
 
 def fresh_shape(name, k):
@@ -812,23 +882,24 @@ def event_fluid(rows, x1, x2, k, w, tries, bias_den, mc, tables):
     return engine.EventFluid(tuple(out[0:7]), fl, out[26], out[27], out[28], out[29])
 
 
-def compact(mask, k):
-    """The first ``k`` lanes where ``mask`` (N,) bool is set, ascending,
-    padded: (valid, gi, sidx), each (k,), as ``engine.compact_idx`` gives
-    them (gi clamped to N - 1 and sidx N on the pad).  On CPU tensors that
-    plain version (the sort), on CUDA tensors one launch of ``compact``
+def compact(mask, k, invert=False):
+    """The first ``k`` lanes where ``mask`` (N,) bool is set (clear, under
+    ``invert``), ascending, padded: (valid, gi, sidx), each (k,), as
+    ``engine.compact_idx`` gives them (gi clamped to N - 1 and sidx N on the
+    pad).  On CPU tensors that plain version (the sort, of ``~mask`` under
+    ``invert``), on CUDA tensors one launch of ``compact``
     (``csrc/compact.cu``: the mask's tiles over blocks), or raise.  0 <= k
     <= N on either device.  No host sync."""
     n = mask.shape[0]
     if not (isinstance(k, int) and 0 <= k <= n):
         raise ValueError(f"compact: k must be an int in [0, {n}], got {k!r}")
     if mask.device.type == "cpu":
-        return engine.compact_idx(mask, k)
+        return engine.compact_idx(~mask if invert else mask, k)
     dev = _cuda_device(mask)
     _check_lanes("compact", [mask], [torch.bool], n, dev, names=["mask"])
     valid = torch.empty(k, dtype=torch.bool, device=dev)
     gi, sidx = torch.empty((2, k), dtype=torch.int64, device=dev).unbind(0)
-    _launch("compact", [mask, valid, gi, sidx], [k], n, dev)
+    _launch("compact", [mask, valid, gi, sidx], [k, int(invert)], n, dev)
     return valid, gi, sidx
 
 
@@ -958,6 +1029,90 @@ def compact_rows(stage, sec, counters, ticket=None):
     return sec, counters
 
 
+def record_ticket(device):
+    """The record's ticket for :func:`record_phase`: one int32 word at zero,
+    which every call over more than one tile of lanes takes and leaves at
+    zero.  The engine allocates it outside any CUDA graph's capture."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _record_scalars(mc, width, mode, stall_steps, dev, dt):
+    """The record's scalars (``_RECORD_SCAL``): the bins' divisions by a
+    Python scalar are multiplies by PyTorch's reciprocal (:func:`_recip`)."""
+    dx2 = (mc.x_stop[2] - mc.x_start[2]) / (2.0 * consts.N_TH_BINS)
+    mid = 0.5 * (mc.x_start[2] + mc.x_stop[2])
+    return [width, mode, stall_steps, consts.N_TH_BINS, consts.N_E_BINS, mid, mc.x_stop[2],
+            _recip(dx2, dev, dt), consts.spectrum.L_E_0, _recip(consts.spectrum.D_L_E, dev, dt)]
+
+
+def record_phase(pool, spec, counters, width, mc, cfg, ticket=None, sweep=True, record=True,
+                 free=True):
+    """The phases' upkeep of the pool (``engine.record_phase_plain``): under
+    ``sweep`` the poison sweep, under ``record`` the record of up to
+    ``width`` escaped lanes into ``spec`` and the counters, under ``free``
+    the frees and their census.  On CPU tensors the plain version (new
+    tensors); on CUDA tensors ``record_phase`` / ``record_phase_f64`` of
+    ``csrc/record.cu`` (one launch up to one tile of lanes, else two: the
+    sweep and the tiles' counts, then the record; the sweep alone one
+    launch; ``launches`` counts each, :func:`record_launches`), which
+    updates the pool's flags (alive, occupied, record_pending, at_event,
+    ev_pending), ``spec`` and the counters in
+    place through ``ticket`` (a :func:`record_ticket`) and returns them, or
+    raise.  Returns (pool, spec, counters).  No host sync."""
+    if not (sweep or record or free):
+        raise ValueError("record_phase: no stage to run")
+    n = pool.w.shape[0]
+    if record and not (isinstance(width, int) and 0 < width <= n):
+        raise ValueError(f"record_phase: width must be an int in [1, {n}], got {width!r}")
+    if pool.w.device.type == "cpu":
+        return engine.record_phase_plain(pool, spec, counters, width, mc, cfg, sweep=sweep,
+                                         record=record, free=free)
+    dev, dt = _cuda_device(pool.w), pool.w.dtype
+    name = entry_point("record_phase", dt)
+    i32, b8 = torch.int32, torch.bool
+    read = [*pool.x, *pool.k, pool.w, pool.e, pool.x1i, pool.x2i, pool.tau_abs, pool.tau_scatt,
+            pool.n_e_0, pool.theta_e_0, pool.b_0, pool.e_0, pool.n_scatt, pool.nsc0,
+            pool.n_step]
+    flags = [pool.alive, pool.occupied, pool.record_pending, pool.at_event, pool.ev_pending]
+    birth = [*pool.bx, *pool.bk, pool.bw] if cfg.trace_birth else []
+    _check_lanes(name, read + flags + birth, [dt] * 18 + [i32] * 3 + [b8] * 5 + [dt] * len(birth),
+                 n, dev, names=_RECORD_READ + _RECORD_FLAGS + _BIRTH[:len(birth)])
+    held = [t.data_ptr() for t in flags]
+    if len(set(held)) != len(held):
+        raise ValueError(f"{name}: two of the flags it updates in place share memory")
+    if (spec.dtype != dt or tuple(spec.shape) != (engine.N_BINS + 1, engine.N_SPEC_CHAN)
+            or not spec.is_contiguous() or spec.device != dev):
+        raise ValueError(f"{name}: expected a contiguous {dt} spectrum "
+                         f"({engine.N_BINS + 1}, {engine.N_SPEC_CHAN}) on {dev}, got "
+                         f"{spec.dtype} {tuple(spec.shape)} on {spec.device}")
+    cs = [getattr(counters, c) for c in _RECORD_COUNTERS]
+    for c, t in zip(_RECORD_COUNTERS, cs):
+        want = (4,) if c in ("mt_bx", "mt_bk") else ()
+        typ = dt if c in ("max_tau_scatt", "w_stall", "mt_bx", "mt_bk", "mt_bw") else torch.int64
+        if t.dtype != typ or tuple(t.shape) != want or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} {c}: expected a {typ} {want} tensor on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if ticket is None or ticket.dtype != torch.int32 or ticket.shape != (1,) \
+            or ticket.device != dev:
+        raise ValueError(f"{name}: expected the record's ticket (record_ticket) on {dev}, got "
+                         f"{None if ticket is None else (ticket.dtype, tuple(ticket.shape))}")
+    mode = sweep * RECORD_SWEEP + record * RECORD_RECORD + free * RECORD_FREE
+    scratch = torch.empty(max(1, _int_fn("record_phase_scratch", n)), dtype=torch.uint8,
+                          device=dev)
+    _launch(name, read + flags + (birth or [None] * 9) + [spec] + cs + [ticket, scratch],
+            _record_scalars(mc, width if record else 1, mode, cfg.stall_steps, dev, dt), n, dev,
+            kernels=record_launches(n, mode))
+    return pool, spec, counters
+
+
+def record_launches(n, mode):
+    """The kernels a :func:`record_phase` call on ``n`` lanes launches in
+    ``mode`` (``RECORD_SWEEP``, ``RECORD_RECORD``, ``RECORD_FREE`` added):
+    two where it ranks or sweeps before the record or the frees above one
+    tile, else one (``csrc/record.cu`` count_first)."""
+    return _int_fn("record_phase_launches", n, mode)
+
+
 def plain_rowsum(table, idx):
     """The plain version of :func:`gather_rowsum`: ``table[idx].sum(1)``."""
     return table[idx.long()].sum(dim=1)
@@ -1060,13 +1215,13 @@ def hot_step_shape_edges(name, widest=65536):
 
 
 
-def _int_fn(sym, v):
-    """One of the libraries' int -> int functions (``_INT_FNS``) at ``v``;
-    a value at or below 0 is minus a CUDA error."""
+def _int_fn(sym, *v):
+    """One of the libraries' int functions (``_INT_FNS``) at ``v``; a value
+    at or below 0 is minus a CUDA error."""
     build()
-    out = _Build.int_fns[sym](int(v))
+    out = _Build.int_fns[sym](*(int(a) for a in v))
     if out <= 0:
-        raise RuntimeError(f"{sym}({v}): CUDA error {-out}")
+        raise RuntimeError(f"{sym}{v}: CUDA error {-out}")
     return out
 
 
@@ -1673,6 +1828,174 @@ def compare_fresh(name, pool, load, ref, got):
            "lanes_plasma": int(ref.interacting[started].sum()), "kept_bitwise": kept_ok,
            "bi_bitwise": bool(_same_bits(ref.bi, got.bi).all())}
     return rec, fails + tfails
+
+
+# The record's widths on the path: (pool lanes, width) of the wave engine's
+# full phase (ev_k) and light phase (light_k) and of the cascade's engines
+# (the width their pools), each also cut below its recording lanes.
+RECORD_WIDTHS = ((65536, 16384), (65536, 12288), (4096, 4096), (4096, 512), (512, 512),
+                 (512, 64))
+# The step cap of the synthetic record's pools.
+RECORD_STALL = 1000
+
+
+def synthetic_record(mc, n, k, seed, dtype, device, reference=False, trace_birth=True,
+                     nan_tau=False):
+    """(pool, spec, counters, cfg) of one record on ``n`` lanes at width
+    ``k``: nine in ten lanes occupied, a third of those pending a record
+    (more than ``k`` at the wave's widths), one in ten holding an event,
+    half alive; positions on the grid and beyond its polar edges, energies
+    below, across and above the spectrum's bins (a few under the log's
+    clamp); one lane in a hundred poisoned (a NaN in x, k or w), one pending
+    lane in a hundred with a NaN energy and one unoccupied with a NaN
+    weight; steps on both sides of the step cap ``RECORD_STALL``; the
+    ratchet at the pending lanes' 99th percentile of tau_scatt (a NaN
+    tau_scatt on the first lane that records under ``nan_tau``); a
+    spectrum and counters already filled."""
+    rng = np.random.default_rng([seed, 11])
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), device=device).to(dt)
+
+    occupied = rng.random(n) < 0.9
+    pending = occupied & (rng.random(n) < 0.35)
+    span2 = mc.x_stop[2] - mc.x_start[2]
+    x = [rng.uniform(0.0, 100.0, n), rng.uniform(mc.x_start[1], mc.x_stop[1], n),
+         rng.uniform(mc.x_start[2] - 0.05 * span2, mc.x_stop[2] + 0.05 * span2, n),
+         rng.uniform(0.0, 2.0 * math.pi, n)]
+    kv = [rng.normal(0.0, 1.0, n) for _ in range(4)]
+    w = rng.uniform(0.5, 2.0, n)
+    top = consts.spectrum.L_E_0 + consts.spectrum.D_L_E * consts.N_E_BINS
+    e = np.exp(rng.uniform(consts.spectrum.L_E_0 - 2.0, top + 2.0, n))
+    e[rng.random(n) < 0.01] = 1e-35
+    poison = rng.random(n) < 0.01
+    for lane in np.flatnonzero(poison):
+        (x + kv + [w])[rng.integers(0, 9)][lane] = np.nan
+    e[pending & (rng.random(n) < 0.01)] = np.nan
+    unocc = np.flatnonzero(~occupied)
+    if unocc.size:
+        w[unocc[0]] = np.nan
+        pending[unocc[0]] = True
+    tsc = rng.exponential(0.5, n)
+    alive, at_event, ev_pending = (rng.random(n) < q for q in (0.5, 0.1, 0.1))
+    if nan_tau:  # on the first lane that records
+        tsc[np.flatnonzero(pending & ~ev_pending & ~poison & np.isfinite(e)
+                           & np.isfinite(w))[0]] = np.nan
+    pool = engine.empty_pool(n, dtype, device, trace_birth)._replace(
+        x=tuple(t(v) for v in x), k=tuple(t(v) for v in kv), w=t(w), e=t(e),
+        x1i=t(rng.uniform(0.5, 3.0, n)), x2i=t(rng.uniform(0.0, 1.0, n)),
+        tau_abs=t(rng.exponential(0.5, n)), tau_scatt=t(tsc),
+        n_e_0=t(rng.uniform(0.1, 2.0, n)), theta_e_0=t(rng.uniform(0.1, 2.0, n)),
+        b_0=t(rng.uniform(0.1, 2.0, n)), e_0=t(rng.uniform(0.1, 2.0, n)),
+        n_scatt=t(rng.integers(0, 5, n), torch.int32),
+        nsc0=t(rng.integers(0, 5, n) * (rng.random(n) < 0.5), torch.int32),
+        n_step=t(rng.integers(0, RECORD_STALL + RECORD_STALL // 5, n), torch.int32),
+        occupied=t(occupied, torch.bool), alive=t(alive, torch.bool),
+        record_pending=t(pending, torch.bool), at_event=t(at_event, torch.bool),
+        ev_pending=t(ev_pending, torch.bool))
+    if trace_birth:
+        pool = pool._replace(bx=tuple(t(rng.uniform(-2.0, 2.0, n)) for _ in range(4)),
+                             bk=tuple(t(rng.uniform(-2.0, 2.0, n)) for _ in range(4)),
+                             bw=t(rng.uniform(0.5, 2.0, n)))
+    finite = tsc[pending & np.isfinite(tsc)]
+    counters = engine.init_counters(
+        float(np.quantile(finite, 0.99)) if finite.size else 1.0, dtype, device)
+    counters = counters._replace(
+        n_recorded=t(int(rng.integers(0, 1000)), torch.int64),
+        n_scatt_rec=t(int(rng.integers(0, 1000)), torch.int64),
+        n_retired=t(int(rng.integers(0, 1000)), torch.int64),
+        n_steps_retired=t(int(rng.integers(0, 10**6)), torch.int64),
+        n_stall=t(3, torch.int64), w_stall=t(0.5), mt_bx=t(rng.uniform(-1.0, 1.0, 4)),
+        mt_bk=t(rng.uniform(-1.0, 1.0, 4)), mt_bw=t(0.25), mt_nsc0=t(7, torch.int64))
+    spec = t(rng.uniform(0.0, 1.0, (engine.N_BINS + 1, engine.N_SPEC_CHAN)))
+    cfg = engine.EngineConfig(n_pool=n, dtype=dtype, reference=reference,
+                              stall_steps=RECORD_STALL, trace_birth=trace_birth)
+    return pool, spec, counters, cfg
+
+
+def clone_record(pool, spec, counters):
+    """Copies of a record's inputs, for a kernel that updates them in place."""
+    return (engine.clone_pool(pool), spec.clone(),
+            engine.Counters(*(c.clone() for c in counters)))
+
+
+def sum_slack(before, after, count):
+    """The tolerance of a sum of ``count`` nonnegative terms added into
+    ``before`` in another order, elementwise: (count + 1) eps |after|, the
+    first-order bound of any order's rounding."""
+    eps = torch.finfo(after.dtype).eps
+    return (count + 1.0) * eps * torch.abs(after) + torch.finfo(after.dtype).tiny
+
+
+def compare_record(pool, spec, counters, ref, got):
+    """Hold a record's outputs ``got`` = (pool, spec, counters) against the
+    plain version's ``ref`` on its inputs (``pool``, ``spec``,
+    ``counters``): every pool field (the flags, and the rest untouched),
+    every counter but w_stall (the chosen lanes' counts, the ratchet, the
+    trace's capture) bit for bit; the spectrum and w_stall, sums of
+    nonnegative terms that the kernel adds in another order (atomics), within
+    :func:`sum_slack` of their adds (a bin's count of adds is its channel 2,
+    a recorded lane's 1.0).  Returns (record, failures)."""
+    fails = []
+    ref_f, got_f = (_flat(p._asdict()) for p in (ref[0], got[0]))
+    for f, a in ref_f.items():
+        differ = ~_same_bits(a, got_f[f])
+        if bool(differ.any()):
+            fails.append(f"{f}: {int(differ.sum())} lanes not bit for bit")
+    for f in engine.Counters._fields:
+        a, b = getattr(ref[2], f), getattr(got[2], f)
+        if f == "w_stall":
+            adds = (ref[2].n_stall - counters.n_stall).to(a.dtype)
+            if bool(torch.abs(a - b) > sum_slack(counters.w_stall, a, adds)):
+                fails.append(f"w_stall {float(b)} against {float(a)}")
+        elif not bool(_same_bits(a, b).all()):
+            fails.append(f"{f}: {b.tolist()} against {a.tolist()}")
+    adds = (ref[1][:, 2:3] - spec[:, 2:3]).round()
+    err = torch.abs(ref[1] - got[1])
+    over = err > sum_slack(spec, ref[1], adds)
+    if bool(over.any()):
+        fails.append(f"spec: {int(over.sum())} entries beyond their sums' slack")
+    rel = err / torch.clamp(torch.abs(ref[1]), min=torch.finfo(ref[1].dtype).tiny)
+    rec = {"lanes": pool.w.shape[0],
+           "pending": int(pool.record_pending.sum()),
+           "recorded": int(ref[2].n_recorded - counters.n_recorded),
+           "freed": int(ref[2].n_retired - counters.n_retired),
+           "stalled": int(ref[2].n_stall - counters.n_stall),
+           "captured": not bool(torch.equal(ref[2].mt_bx, counters.mt_bx)),
+           "ratchet_moved": not bool(_same_bits(ref[2].max_tau_scatt,
+                                                counters.max_tau_scatt).all()),
+           "max_abs_err": float(err.max()), "max_rel_err": float(rel.max()),
+           "max_adds": int(adds.max()), "spec_bitwise": bool(torch.equal(ref[1], got[1]))}
+    return rec, fails
+
+
+# The record is held by compare_record (the kernels line's compare finds
+# nothing to hold).
+KERNEL_TOLERANCE.update({name: dict(rtol=0.0, atol=0.0, mask_frac=0.0)
+                         for name in RECORD_PHASES})
+
+
+def synthetic_refill(mc, n, k, seed, dtype, device, reference=False, trace_birth=True):
+    """(pool, slots, counters, bias_den, cfg) of one refill in the slots
+    mode: :func:`synthetic_fresh`'s pool, rows and bias, its slots' lanes
+    (valid where not padded), its ring's count, backlog position and valid
+    rows (the values from which its sources come:
+    ``engine.refill_sources_plain`` on these slots gives its ``load``)."""
+    pool, load, den, cfg = synthetic_fresh(mc, n, k, seed, dtype, device, reference,
+                                           trace_birth)
+    m = min(n, k - max(1, k // 16))
+    n_sec, pos = k // 4, k // 8
+    n_valid = pos + max(0, m - n_sec - max(1, k // 10))
+
+    def i64(v):
+        return torch.tensor(v, dtype=torch.int64, device=device)
+
+    slots = engine.RefillSlots(
+        load.sidx < n, load.sidx, engine.SecBuf(load.sec_rows, i64(n_sec)), load.backlog_rows,
+        i64(pos), i64(n_valid))
+    counters = engine.init_counters(mc.max_tau_scatt0, dtype, device)._replace(
+        n_created=i64(11))
+    return pool, slots, counters, den, cfg
 
 
 def synthetic_event_fluid(eng, n, seed):

@@ -26,11 +26,13 @@ window are not the run's.
    a second ``Simulation`` with ``graphed=False`` (the block issued op by
    op, as before the graph), whose phases are clocked: every call of the
    engine's phases (``hot_step``, ``periodic_phase``, ``light_phase`` and, inside them,
-   ``process_scatters``, ``spectrum_add``, ``refill`` and ``init_fresh``)
-   and of the kernels' wrappers inside them (``hot_kernels.event_phase``
-   and ``compact_rows`` inside ``process_scatters``, ``compact`` inside
-   it, ``spectrum_add`` and ``refill``, ``fresh_init`` inside
-   ``init_fresh``) is bracketed by two CUDA events on the current stream.
+   ``process_scatters`` and ``refill_slots``) and of the kernels' wrappers
+   inside them (``hot_kernels.event_phase`` and ``compact_rows`` inside
+   ``process_scatters``, ``compact`` inside it and ``refill_slots``,
+   ``record_phase`` (the sweep, the record and the frees) and
+   ``refill_fresh`` (refill's sources, the load and the track start) inside
+   the full and light phases) is bracketed by two CUDA events on the
+   current stream.
    Nothing is synchronised, so the run is not stretched; the stream time
    between a phase's two events is the time the stream spent on that
    phase's work, waiting for its launches included, so the phases split
@@ -45,17 +47,22 @@ window are not the run's.
    that commit's cell the same way).
 2. **The census, then the device busy share in trace windows**
    (``--trace``).  The census is the cell's eager run (``graphed=False``,
-   before the profiler starts) with each launch of ``compact`` and of the
-   event phase (``event_phase``, ``event_phase_f64``) timed alone: a GPU
+   before the profiler starts) with each launch of ``compact``, of the
+   event phase (``event_phase``, ``event_phase_f64``), of the record
+   (``record_phase``, ``_f64``: a call, its one or two kernels) and of the
+   track start (``fresh_init`` ...) timed alone: a GPU
    sleep, a CUDA event, the launch, a CUDA event, so that the first event
    is stamped when the launch is already queued (the pair's own floor,
    sleep and two events with no launch, is measured and reported as
    ``event_pair_us``).  Each launch is kept with its engine (the wave
-   engine, or the cascade stage by its pool), its role (the event set, the
-   record, the refill), its pool width n, its compacted width k and its
+   engine, or the cascade stage by its pool), its role (the event set; the
+   sweep or the record, by the record's mode; the refill: its compaction
+   and its track start), its pool width n, its compacted width k and its
    count, computed on the card and read after the run: the mask's set
-   lanes for ``compact``, for the event phase the events that ran (valid
-   and within the ring's room, or all valid where the ring is wedged).
+   lanes for ``compact`` (clear lanes, inverted), for the event phase the
+   events that ran (valid and within the ring's room, or all valid where
+   the ring is wedged), for the record the pending lanes before it, for
+   the track start its valid slots.
    Summaries by (engine, role, n, k) and a histogram of the events per
    full phase by engine go into the JSON, with the hot step's launches
    counted by engine, entry point and width (``hot_steps``, not timed);
@@ -86,22 +93,24 @@ import time
 
 import chip_smoke
 
-PHASES = ("hot_step", "periodic_phase", "light_phase", "process_scatters", "spectrum_add",
-          "refill", "init_fresh")
+PHASES = ("hot_step", "periodic_phase", "light_phase", "process_scatters", "refill_slots")
 # the kernels' wrappers clocked as phases (hot_kernels functions, each nested
 # in one of PHASES: event_phase and compact_rows in process_scatters, compact
-# in it, spectrum_add and refill, fresh_init in init_fresh)
-WRAPPERS = ("event_phase", "compact_rows", "compact", "fresh_init")
+# in it and in refill_slots, record_phase and refill_fresh in the full and
+# light phases)
+WRAPPERS = ("event_phase", "compact_rows", "compact", "record_phase", "refill_fresh")
 PHOTON_N = 100_000
 REF_PHOTON_N = 50_000
 # device kernels whose time the trace windows report, by names (the mask
 # compaction's kernel is compact_tiles_kernel, compact_kernel before)
 TRACED = {"hot_step_ms": ("hot_step_kernel",), "event_phase_ms": ("event_phase_kernel",),
           "compact_ms": ("compact_kernel", "compact_tiles_kernel"),
-          "compact_rows_ms": ("compact_rows_kernel",), "fresh_init_ms": ("fresh_init_kernel",)}
+          "compact_rows_ms": ("compact_rows_kernel",), "fresh_init_ms": ("fresh_init_kernel",),
+          "record_phase_ms": ("record_count_kernel", "record_phase_kernel")}
 # the launches the census times one by one, and the GPU sleep queued before
 # each (~66 us at 1.98 GHz: longer than the host takes to queue the launch)
-CENSUS = ("compact", "event_phase", "event_phase_f64")
+CENSUS = ("compact", "event_phase", "event_phase_f64", "record_phase", "record_phase_f64",
+          "fresh_init", "fresh_init_ref", "fresh_init_f64", "fresh_init_ref_f64")
 CENSUS_SLEEP = 1 << 17
 # the census's histogram of events per full phase: the bins' lower edges
 EVENT_BINS = (0, 128, 512, 1024, 2048, 4096, 6144, 8192, 12288, 16384)
@@ -282,7 +291,7 @@ def census(root, photon_n, reference):
 
     recs, engines, at, hot = [], {}, {"engine": None, "role": None}, {}
     launch, run, event_set = hot_kernels._launch, engine.Engine.run, engine.event_set
-    spectrum_add, refill = engine.Engine.spectrum_add, engine.Engine.refill
+    refill_slots = engine.Engine.refill_slots
     slot = hot_kernels._PHASE_PTRS.index
 
     def timed_launch(name, ptr_tensors, scal, n, device):
@@ -291,19 +300,32 @@ def census(root, photon_n, reference):
             hot[key] = hot.get(key, 0) + 1
         if name not in CENSUS or n == 0:
             return launch(name, ptr_tensors, scal, n, device)
+        # the count, queued before the launch (the record updates its flags
+        # in place)
+        role = at["role"]
+        if name == "compact":
+            mask = ptr_tensors[0]
+            pool_n, k = mask.shape[0], int(scal[0])
+            count = (~mask if scal[1] else mask).sum()
+        elif name.startswith("record_phase"):
+            pool_n, k = n, int(scal[0])
+            count = ptr_tensors[hot_kernels._RECORD_PTRS.index("record_pending")].sum()
+            role = "sweep" if int(scal[1]) == hot_kernels.RECORD_SWEEP else "record"
+        elif name.startswith("fresh_init"):
+            valid = ptr_tensors[hot_kernels._FRESH_PTRS.index("valid")]
+            pool_n, k, role = n, valid.shape[0], "refill"
+            count = valid.sum()
+        else:
+            valid, room, wedged = (ptr_tensors[slot(f)] for f in ("valid", "room", "wedged"))
+            pool_n, k = ptr_tensors[0].shape[0], n
+            count = (valid & ((torch.arange(k, device=valid.device) < room) | wedged)).sum()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(CENSUS_SLEEP)
         e0.record()
         launch(name, ptr_tensors, scal, n, device)
         e1.record()
-        if name == "compact":
-            pool_n, k, count = ptr_tensors[0].shape[0], int(scal[0]), ptr_tensors[0].sum()
-        else:
-            valid, room, wedged = (ptr_tensors[slot(f)] for f in ("valid", "room", "wedged"))
-            pool_n, k = ptr_tensors[0].shape[0], n
-            count = (valid & ((torch.arange(k, device=valid.device) < room) | wedged)).sum()
-        recs.append((at["engine"], at["role"], name, pool_n, k, count, e0, e1))
+        recs.append((at["engine"], role, name, pool_n, k, count, e0, e1))
 
     def in_role(fn, role):
         def wrapped(*a, **kw):
@@ -321,13 +343,12 @@ def census(root, photon_n, reference):
 
     hot_kernels._launch, engine.Engine.run = timed_launch, labelled_run
     engine.event_set = in_role(event_set, "events")
-    engine.Engine.spectrum_add = in_role(spectrum_add, "record")
-    engine.Engine.refill = in_role(refill, "refill")
+    engine.Engine.refill_slots = in_role(refill_slots, "refill")
     try:
         _, out = run_cell(root, photon_n, reference, graphed=False)
     finally:
         hot_kernels._launch, engine.Engine.run, engine.event_set = launch, run, event_set
-        engine.Engine.spectrum_add, engine.Engine.refill = spectrum_add, refill
+        engine.Engine.refill_slots = refill_slots
     torch.cuda.synchronize()
     floor = []
     for _ in range(200):
@@ -355,7 +376,7 @@ def census(root, photon_n, reference):
                         "count_max": max(c), "count_at_k": sum(x >= k for x in c)})
     hist = {}
     for ln in lines:
-        if ln["name"] != "compact":
+        if ln["name"].startswith("event_phase"):
             h = hist.setdefault(f"{ln['engine']}@{ln['n']}x{ln['k']}", [0] * len(EVENT_BINS))
             h[max(j for j, lo in enumerate(EVENT_BINS) if ln["count"] >= lo)] += 1
     return {"event_pair_us": 1e3 * sum(a.elapsed_time(b) for a, b in floor) / len(floor),

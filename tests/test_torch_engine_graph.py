@@ -251,16 +251,18 @@ def _counting_wrappers(monkeypatch, cfg):
     """Count each kernel wrapper's call as one launch of its entry point, as
     the wrappers count on the card (the plain path counts nothing)."""
     dt, ref = cfg.dtype, cfg.reference
-    for kernel in ("hot_step", "row_gather", "event_fluid", "scatter_event", "fresh_init",
-                   "event_phase", "compact", "compact_rows"):
+    for wrapper, kernel in (("hot_step", "hot_step"), ("row_gather", "row_gather"),
+                            ("event_fluid", "event_fluid"), ("scatter_event", "scatter_event"),
+                            ("refill_fresh", "fresh_init"), ("event_phase", "event_phase"),
+                            ("compact", "compact"), ("compact_rows", "compact_rows")):
         name = hot_kernels.entry_point(kernel, dt, ref)
-        fn = getattr(hot_kernels, kernel)
+        fn = getattr(hot_kernels, wrapper)
 
         def counted(*a, _fn=fn, _name=name, **kw):
             hot_kernels.launches[_name] += 1
             return _fn(*a, **kw)
 
-        monkeypatch.setattr(hot_kernels, kernel, counted)
+        monkeypatch.setattr(hot_kernels, wrapper, counted)
 
 
 @pytest.mark.parametrize("reference,dtype", CASES, ids=IDS)

@@ -14,8 +14,9 @@
   order are the same.  ``compact``'s wrapper equals the JAX engine's
   formulation (``jax.lax.sort`` of ``where(mask, iota, n)``) on seeded
   masks at N = 512, 4,096 and 65,536 with k below, at and above the set
-  count.  The port's light phase, whose record and refill compact through
-  the wrapper, matches JAX's from the same state.
+  count.  The port's light phase, whose refill compacts through the
+  wrapper (and whose record ranks its lanes in ``record_phase``), matches
+  JAX's from the same state.
 * On the card (``cuda`` tests, ``python -m pytest --noconftest -m cuda
   tests/test_torch_event_phase.py``): each kernel against its plain version
   at the path's widths in both dtypes (``hot_kernels.compare_event_phase``:
@@ -358,12 +359,13 @@ def jax_light(request, dump):
 
 def test_light_phase_through_compact_matches_jax(jax_light, monkeypatch):
     """Two light phases from a fresh state: each of the port's, whose record
-    and refill compact through ``hot_kernels.compact`` (two calls a phase),
-    agrees with JAX's from the same state to rtol 1e-10, masks and integers
-    exactly."""
+    runs through ``hot_kernels.record_phase`` (which ranks its lanes
+    itself) and whose refill compacts through ``hot_kernels.compact`` (one
+    call each a phase), agrees with JAX's from the same state to rtol
+    1e-10, masks and integers exactly."""
     light, port = jax_light["light"], jax_light["port"]
     backlog = torch.as_tensor(np.array(jax_light["backlog"]))
-    calls = _counted(monkeypatch, ("compact",))
+    calls = _counted(monkeypatch, ("compact", "record_phase"))
     s0 = jax_light["fresh"]
     s1 = light(s0, jax_light["backlog"])
     s2 = light(s1, jax_light["backlog"])
@@ -377,7 +379,7 @@ def test_light_phase_through_compact_matches_jax(jax_light, monkeypatch):
                                            err_msg=name)
             else:
                 assert np.array_equal(g.numpy(), w.numpy().astype(g.numpy().dtype)), name
-    assert calls == {"compact": 4}
+    assert calls == {"compact": 2, "record_phase": 2}
     assert int(got.pool.occupied.sum()) == 2 * port.light_k
 
 
@@ -533,6 +535,14 @@ def test_graphed_block_equals_the_eager_one(dump, dtype, reference):
     assert lg == le and tg["hot_iters"] == te["hot_iters"] > 0
     assert lg[hot_kernels.entry_point("event_phase", dtype)] == tg["full_phases"]
     assert lg[hot_kernels.entry_point("compact_rows", dtype)] == tg["full_phases"]
-    assert lg["compact"] >= 3 * tg["full_phases"] + 2 * tg["light_phases"]
+    assert lg["compact"] >= 2 * tg["full_phases"] + tg["light_phases"]
+    sweep, rec, free = (hot_kernels.RECORD_SWEEP, hot_kernels.RECORD_RECORD,
+                        hot_kernels.RECORD_FREE)
+    kernels = sum(f * (hot_kernels.record_launches(n, sweep) + hot_kernels.record_launches(
+                  n, rec | free)) + li * hot_kernels.record_launches(n, sweep | rec | free)
+                  + fl * hot_kernels.record_launches(n, rec)
+                  for n, f, li, fl in tg["engine_phases"])
+    assert lg[hot_kernels.entry_point("record_phase", dtype)] == kernels
+    assert kernels >= 2 * tg["full_phases"] + tg["light_phases"]
     for off in ("row_gather", "event_fluid", "scatter_event"):
         assert lg[hot_kernels.entry_point(off, dtype)] == 0, off

@@ -1,4 +1,5 @@
-"""The track start of freshly loaded lanes (``hot_kernels.fresh_init``,
+"""Refill's sources and the track start of freshly loaded lanes
+(``hot_kernels.refill_fresh``; ``engine.refill_sources_plain``,
 ``engine.init_fresh_plain``) and the event phase's fluid, opacities and bias
 (``hot_kernels.event_fluid``, ``engine.event_fluid_plain``), on the 64x32
 torus.
@@ -26,10 +27,11 @@ torus.
 * On the card (``cuda`` tests, ``python -m pytest --noconftest -m cuda
   tests/test_torch_fresh_init.py``): each kernel against its plain version
   at the path's widths in float32 and float64 and, for the track start, in
-  both semantics with the birth state traced: dk/dlambda, interacting and
-  the birth state bit for bit, every lane outside the valid fresh set
-  unchanged, the opacities and the bias (and every event-fluid output) at
-  ``hot_kernels.KERNEL_TOLERANCE``.  JAX is imported inside fixtures, so
+  both semantics with the birth state traced, on synthetic refill slots:
+  the ring's count, the backlog position and n_created exactly,
+  dk/dlambda, interacting and the birth state bit for bit, every lane
+  outside the valid fresh set unchanged, the opacities and the bias (and
+  every event-fluid output) at ``hot_kernels.KERNEL_TOLERANCE``.  JAX is imported inside fixtures, so
   these run where JAX is missing.
 """
 
@@ -207,12 +209,15 @@ def _same(a, b):
 @pytest.mark.parametrize("reference", [False, True], ids=["shipped", "reference"])
 def test_fresh_init_wrapper_is_the_plain_version_on_the_cpu(cpu_sim, reference):
     mc, tabs = cpu_sim.mc, cpu_sim.tables
-    pool, load, den, cfg = hot_kernels.synthetic_fresh(mc, 600, 256, 9, torch.float64, "cpu",
-                                                       reference=reference)
-    got = hot_kernels.fresh_init(pool, load, den, mc, tabs, cfg)
+    pool, slots, counters, den, cfg = hot_kernels.synthetic_refill(
+        mc, 600, 256, 9, torch.float64, "cpu", reference=reference)
+    got, sec, pos, c = hot_kernels.refill_fresh(pool, slots, counters, den, mc, tabs, cfg,
+                                                hot_kernels.fresh_ticket("cpu"))
+    sec0, pos0, c0, load = engine.refill_sources_plain(slots, counters)
     want = engine.init_fresh_plain(pool, load, den, mc, tabs, cfg)
     for f in engine.Pool._fields:
         assert _same(getattr(got, f), getattr(want, f)), f
+    assert _same((tuple(sec), pos, tuple(c)), (tuple(sec0), pos0, tuple(c0)))
     # the card check's comparison passes it and sees what the load and start wrote
     rec, fails = hot_kernels.compare_fresh("fresh_init_f64", pool, load, want, got)
     assert not fails and rec["kept_bitwise"] and rec["bi_bitwise"]
@@ -313,9 +318,9 @@ def refill_sims(dump):
 @pytest.mark.parametrize("reference", [False, True], ids=["shipped", "reference"])
 @pytest.mark.parametrize("sources", ["ring", "backlog", "both"])
 def test_split_refill_equals_the_refill_before_it(refill_sims, reference, trace, sources):
-    """Engine.refill (the sources) with the load and start of
-    init_fresh_plain equals the refill that moved the rows itself followed
-    by the start, bit for bit: every pool field, the ring, the backlog
+    """Refill's slots (``Engine.refill_slots``) through ``refill_fresh`` (the
+    sources, then the load and start of init_fresh_plain) equal the refill
+    that moved the rows itself followed by the start, bit for bit: every pool field, the ring, the backlog
     position and the counters.  The pool has 400 free lanes for 384 slots
     (or 300: padding slots); the ring is partly filled (a NaN row and a
     zero-weight row among its photons), the backlog has a NaN row and a
@@ -353,8 +358,10 @@ def test_split_refill_equals_the_refill_before_it(refill_sims, reference, trace,
 
     p0, sec0, pos0, c0, fresh = _refill_before(eng, pool, sec, backlog, pos, counters, n_valid)
     want = engine.init_fresh_plain(p0, fresh, den, eng.mc, eng.tables, eng.cfg)
-    sec1, pos1, c1, load = eng.refill(sec, pool.occupied, backlog, pos, counters, n_valid)
-    got = hot_kernels.fresh_init(pool, load, den, eng.mc, eng.tables, eng.cfg)
+    slots = eng.refill_slots(sec, pool.occupied, backlog, pos, n_valid)
+    got, sec1, pos1, c1 = hot_kernels.refill_fresh(pool, slots, counters, den, eng.mc,
+                                                   eng.tables, eng.cfg, eng._fresh_ticket)
+    load = engine.refill_sources_plain(slots, counters)[3]
     for f in engine.Pool._fields:
         assert _same(getattr(got, f), getattr(want, f)), f
     assert _same(tuple(sec1), tuple(sec0)) and _same(pos1, pos0)
@@ -387,7 +394,7 @@ def test_event_fluid_wrapper_is_the_plain_version_on_the_cpu(cpu_sim):
 
 def test_the_engine_runs_both_through_their_wrappers(cpu_sim, monkeypatch):
     """A full phase calls the event phase once (which runs the event fluid
-    on one row gather of the events' rows) and fresh_init once; each equals
+    on one row gather of the events' rows) and refill_fresh once; each equals
     a run whose wrappers are replaced by the plain versions."""
     sim = cpu_sim
     eng = sim.engine
@@ -398,7 +405,7 @@ def test_the_engine_runs_both_through_their_wrappers(cpu_sim, monkeypatch):
         state = eng.periodic_phase(state, backlog)
         for _ in range(8):
             state = eng.hot_step(state)
-    calls = {"fresh_init": 0, "event_phase": 0}
+    calls = {"refill_fresh": 0, "event_phase": 0}
     wrapped = {name: getattr(hot_kernels, name) for name in calls}
 
     def counting(name):
@@ -411,8 +418,13 @@ def test_the_engine_runs_both_through_their_wrappers(cpu_sim, monkeypatch):
         monkeypatch.setattr(hot_kernels, name, counting(name))
     gen_state = eng.gen.get_state()
     got = eng.periodic_phase(state, backlog)
-    assert calls == {"fresh_init": 1, "event_phase": 1}
-    monkeypatch.setattr(hot_kernels, "fresh_init", engine.init_fresh_plain)
+    assert calls == {"refill_fresh": 1, "event_phase": 1}
+
+    def fresh_plain(p, slots, counters, den, mc, tables, cfg, ticket):
+        sec, pos, counters, load = engine.refill_sources_plain(slots, counters)
+        return engine.init_fresh_plain(p, load, den, mc, tables, cfg), sec, pos, counters
+
+    monkeypatch.setattr(hot_kernels, "refill_fresh", fresh_plain)
     monkeypatch.setattr(hot_kernels, "event_phase",
                         lambda *a, gen, **kw: engine.event_phase_plain(*a, src=gen))
     eng.gen.set_state(gen_state)
@@ -443,33 +455,50 @@ def card_sims(dump):
             for dt in (torch.float32, torch.float64)}
 
 
+def _refill_on_card(sim, n, k, seed, dtype, reference, trace_birth=True):
+    """Synthetic refill slots on the card (``hot_kernels.synthetic_refill``),
+    the plain result (``engine.refill_sources_plain``, then
+    ``engine.init_fresh_plain``) and the slots' load."""
+    pool, slots, counters, den, cfg = hot_kernels.synthetic_refill(
+        sim.mc, n, k, seed, dtype, "cuda", reference=reference, trace_birth=trace_birth)
+    sec, pos, c, load = engine.refill_sources_plain(slots, counters)
+    want = engine.init_fresh_plain(pool, load, den, sim.mc, sim.tables, cfg)
+    return pool, slots, counters, den, cfg, (want, sec, pos, c), load
+
+
+def _counts(sec, pos, counters):
+    return [int(sec.count), int(pos), int(counters.n_created)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("reference", [False, True], ids=["shipped", "reference"])
 @pytest.mark.parametrize("n,k", FRESH_WIDTHS, ids=[f"{n}x{k}" for n, k in FRESH_WIDTHS])
 def test_fresh_init_kernel_matches_plain_on_the_card(card_sims, dtype, reference, n, k):
     sim = card_sims[dtype]
-    pool, load, den, cfg = hot_kernels.synthetic_fresh(sim.mc, n, k, 2030 + k, dtype, "cuda",
-                                                       reference=reference)
+    pool, slots, counters, den, cfg, ref, load = _refill_on_card(sim, n, k, 2030 + k, dtype,
+                                                                 reference)
     name = hot_kernels.entry_point("fresh_init", dtype, reference)
-    want = engine.init_fresh_plain(pool, load, den, sim.mc, sim.tables, cfg)
+    ticket = hot_kernels.fresh_ticket("cuda")
     work = engine.clone_pool(pool)
     before = dict(hot_kernels.launches)
-    got = hot_kernels.fresh_init(work, load, den, sim.mc, sim.tables, cfg)
+    got = hot_kernels.refill_fresh(work, slots, counters, den, sim.mc, sim.tables, cfg, ticket)
     torch.cuda.synchronize()
     assert hot_kernels.launches[name] == before[name] + 1
     assert sum(hot_kernels.launches.values()) == sum(before.values()) + 1
-    rec, fails = hot_kernels.compare_fresh(name, pool, load, want, got)
+    rec, fails = hot_kernels.compare_fresh(name, pool, load, ref[0], got[0])
     assert not fails, (fails, rec)
     assert rec["lanes_plasma"] > 0 and rec["lanes_loaded"] > rec["lanes_fresh"]
+    assert _counts(*got[1:]) == _counts(*ref[1:]) and not bool(ticket.any())
     # the trace off: no birth state in, none out
-    off = cfg._replace(trace_birth=False)
-    bare = engine.clone_pool(pool)._replace(bx=(), bk=(), bw=())
-    got = hot_kernels.fresh_init(engine.clone_pool(bare), load, den, sim.mc, sim.tables, off)
-    assert got.bx == () and got.bw == ()
-    assert not hot_kernels.compare_fresh(
-        name, bare, load, engine.init_fresh_plain(bare, load, den, sim.mc, sim.tables, off),
-        got)[1]
+    pool, slots, counters, den, off, ref, load = _refill_on_card(sim, n, k, 2030 + k, dtype,
+                                                                 reference, trace_birth=False)
+    assert pool.bx == () and pool.bw == ()
+    got = hot_kernels.refill_fresh(engine.clone_pool(pool), slots, counters, den, sim.mc,
+                                   sim.tables, off, ticket)
+    assert got[0].bx == () and got[0].bw == ()
+    assert not hot_kernels.compare_fresh(name, pool, load, ref[0], got[0])[1]
+    assert _counts(*got[1:]) == _counts(*ref[1:])
 
 
 # the sets on both sides of each change of the threads a slot
@@ -482,33 +511,40 @@ GROUP_EDGES = ((2048, 1024), (2048, 1025), (8192, 4096), (8192, 4097))
 @pytest.mark.parametrize("reference", [False, True], ids=["shipped", "reference"])
 @pytest.mark.parametrize("n,k", GROUP_EDGES, ids=[f"{n}x{k}" for n, k in GROUP_EDGES])
 def test_fresh_init_updates_the_pool_in_place(card_sims, dtype, reference, n, k):
-    """The kernel writes the loaded lanes of the pool it is given and
-    nothing else: the same tensors come back, every lane outside the loaded
-    slots (padding slots too) keeps its bits, and every threads-a-slot
-    instance writes the same bits as the width's own (the hotcross sum in
-    one order), within the tolerance of the plain version."""
+    """The kernel writes the loaded lanes of the pool it is given and the
+    three counts and nothing else: the same tensors come back, every lane
+    outside the loaded slots (padding slots too) keeps its bits, within the
+    tolerance of the plain version, on both sides of each change of the
+    threads a slot; a second launch from the same counts writes the same
+    bits."""
     sim = card_sims[dtype]
-    pool, load, den, cfg = hot_kernels.synthetic_fresh(sim.mc, n, k, 4040 + k, dtype, "cuda",
-                                                       reference=reference)
+    pool, slots, counters, den, cfg, ref, load = _refill_on_card(sim, n, k, 4040 + k, dtype,
+                                                                 reference)
     name = hot_kernels.entry_point("fresh_init", dtype, reference)
-    want = engine.init_fresh_plain(pool, load, den, sim.mc, sim.tables, cfg)
-    assert bool((load.sidx == n).any())
-    outs = {}
-    for group in (None, 1, 4, 8):
+    assert bool((slots.sidx == n).any())
+    shape = hot_kernels.fresh_shape(name, k)["group"]
+    assert shape == (8 if k <= 1024 else 4 if k <= 4096 else 1)
+    ticket = hot_kernels.fresh_ticket("cuda")
+    outs = []
+    for _ in range(2):
         work = engine.clone_pool(pool)
         tensors = hot_kernels._flat(work._asdict())
-        got = hot_kernels.fresh_init(work, load, den, sim.mc, sim.tables, cfg, group=group)
+        sl = slots._replace(sec=slots.sec._replace(count=slots.sec.count.clone()),
+                            backlog_pos=slots.backlog_pos.clone())
+        c = counters._replace(n_created=counters.n_created.clone())
+        held = (sl.sec.count, sl.backlog_pos, c.n_created)
+        got, sec, pos, c1 = hot_kernels.refill_fresh(work, sl, c, den, sim.mc, sim.tables, cfg,
+                                                     ticket)
         torch.cuda.synchronize()
         assert got is work
         assert all(t is tensors[f] for f, t in hot_kernels._flat(got._asdict()).items())
-        rec, fails = hot_kernels.compare_fresh(name, pool, load, want, got)
-        assert not fails and rec["kept_bitwise"], (group, fails)
-        outs[group] = hot_kernels._flat(got._asdict())
-    shape = hot_kernels.fresh_shape(name, k)["group"]
-    assert shape == (8 if k <= 1024 else 4 if k <= 4096 else 1)
-    for group in (1, 4, 8):
-        for f, a in outs[None].items():
-            assert bool(hot_kernels._same_bits(a, outs[group][f]).all()), (group, f)
+        assert all(a is b for a, b in zip((sec.count, pos, c1.n_created), held))
+        assert _counts(sec, pos, c1) == _counts(*ref[1:]) and not bool(ticket.any())
+        rec, fails = hot_kernels.compare_fresh(name, pool, load, ref[0], got)
+        assert not fails and rec["kept_bitwise"], fails
+        outs.append(hot_kernels._flat(got._asdict()))
+    for f, a in outs[0].items():
+        assert bool(hot_kernels._same_bits(a, outs[1][f]).all()), f
 
 
 @pytest.mark.cuda
