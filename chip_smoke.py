@@ -110,14 +110,19 @@ Phases, each of which exits non-zero on failure:
    (``nonzero_ms``) and ``torch.nonzero_static`` (``library_ms``), and of
    the clear lanes (refill's inverted mask) at the first width.  The
    phases' record (``record_phase``: the poison sweep, the record into the
-   spectrum and the frees with their census, in place) at the path's
-   (pool, width) (``hot_kernels.RECORD_WIDTHS``) on synthetic pools
+   spectrum, the frees with their census, the full phase's EMA fold and
+   the bias's terms, in place, one launch a call) at the path's (pool,
+   width) (``hot_kernels.RECORD_WIDTHS``) on synthetic pools
    (``hot_kernels.synthetic_record``), every stage at once as a light
-   phase runs it, the sweep alone, the full phase's record and frees, and
-   the last records' record alone at the first width, traced too, against
-   ``engine.record_phase_plain`` (``hot_kernels.compare_record``: every
-   flag, count, the ratchet and the capture bit for bit, the spectrum and
-   w_stall within their sums' slack).  Each kernel is timed on
+   phase runs it, the sweep alone, the full phase's record, frees and
+   fold, and the last records' record alone at the first width, traced
+   too, against ``engine.record_phase_plain`` and
+   ``engine.bias_terms_plain`` (``hot_kernels.compare_record``: every
+   flag, count, the ratchet, the capture, the fold and the three terms bit
+   for bit, the spectrum and w_stall within their sums' slack, the scratch
+   at rest after), and at every width the terms in every mode under the
+   shipped EMA, the reference's cumulative average and the frozen bias
+   (none written).  Each kernel is timed on
    copies of what it updates, a fresh one a call, so that every timed call
    does the same work (warm: the read-only fields stay in L2).  Each
    of these records gives its registers and spills.  Every
@@ -125,8 +130,8 @@ Phases, each of which exits non-zero on failure:
    (``path_launches``: the drawing hot step of its dtype and semantics once
    per hot iteration, the event phase and the ring's pack of its dtype once
    per full phase, the compaction at least twice a full phase and once a
-   light one, the record's kernels exactly as each engine's phases and
-   closing flushes launch them at its pool's width (one or two a call),
+   light one, the record exactly once a call of each engine's phases and
+   closing flushes (``hot_kernels.record_launches``, one a call),
    the track start of its dtype and semantics once per full and light
    phase, no other entry point: the row
    gather, the event fluid and the event kernel stay off the path), no
@@ -290,11 +295,13 @@ DIR in turns (``ab_hot_step``: both dtypes, variants and instances at
 instances' SASS and that of the kernels of ``fresh_init.cu`` and
 ``scatter_event.cu`` identical to the other's), then the card line; with
 ``--ab-phase-kernels DIR`` phases 1 and 2, then this checkout's event
-kernel and refill's sources, load and track start against those of the
-checkout at DIR in turns (``ab_phase_kernels``: each at its path's widths
-in both dtypes, a parent's track start that took its sources as tensors
-after those sources as torch ops, every output bit for bit the
-parent's), then the card line; with ``--ab-wide DIR`` phases
+kernel, refill's sources, load and track start and the record against
+those of the checkout at DIR in turns (``ab_phase_kernels``: each at its
+path's widths in both dtypes, a parent's track start that took its
+sources as tensors after those sources as torch ops, a parent's record
+from before the bias's terms launched with its own pointers and scratch;
+every output bit for bit the parent's,
+the record's flags, counts, ratchet and capture), then the card line; with ``--ab-wide DIR`` phases
 1 and 2, then this checkout's event phase and compaction against those of
 the checkout at DIR in turns (``ab_wide``: the event phase at its widths
 and the path's event counts in both dtypes, at each lanes a warp; the
@@ -1188,10 +1195,11 @@ def ab_rows(dt, dev, cp_lib, cp_usage, usage, swapped, turns):
 
 
 def ab_phase_kernels(root, sims, other, usage, turns=2):
-    """``--ab-phase-kernels``: this checkout's event kernel and load and
-    track start against those of the checkout at ``other`` (its
-    ``csrc/scatter_event.cu`` and ``csrc/fresh_init.cu`` built with this
-    build's flags), in float32 and float64 (``sims``), by device time a
+    """``--ab-phase-kernels``: this checkout's event kernel, load and
+    track start and record (:func:`ab_record`) against those of the
+    checkout at ``other`` (its ``csrc/scatter_event.cu``,
+    ``csrc/fresh_init.cu`` and ``csrc/record.cu`` built with this build's
+    flags), in float32 and float64 (``sims``), by device time a
     call in turns (this, other, this's other shapes, other, this; ``turns``
     times).  The event at EVENT_WIDTHS on phase 4's synthetic events, this
     side at the width's own lanes a warp and at each of AB_EVENT_LANES,
@@ -1321,6 +1329,112 @@ def ab_phase_kernels(root, sims, other, usage, turns=2):
                 print(f"ab {name}@{n}x{k}: {json.dumps(rec)}")
                 if any(differ.values()):
                     fail(f"ab {name}@{n}x{k}: outputs differ from the other checkout's: "
+                         f"{differ}")
+    ab_record(root, sims, other, usage, turns)
+
+
+def ab_record(root, sims, other, usage, turns=2):
+    """``--ab-phase-kernels``' record: this checkout's against the record of
+    the checkout at ``other`` (its ``csrc/record.cu`` built with this
+    build's flags), in float32 and float64 (``sims``), at
+    ``hot_kernels.RECORD_WIDTHS`` (every mode of ``RECORD_MODES`` at the
+    first width, a light phase's call at the others) on synthetic pools,
+    by device time a call in turns (this, other, other, this; ``turns``
+    times), each call on a fresh copy of the pool, the spectrum and the
+    counters (:class:`Copies`).  This side runs as the engine does (the
+    bias's terms written, the full phase's EMA fold); the other one its
+    own record, through this wrapper where it takes this interface, else
+    launched with its own pointers, ticket and scratch (a record from
+    before the terms: the counters it knew, two launches above one tile).
+    Every flag, count, the ratchet and the capture bit for bit the
+    other's; prints one line per width and mode; fails where they
+    differ."""
+    import ctypes
+
+    import torch
+
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    lib, o_usage, _ = build_other(root, other, "record")
+    lib.record_phase_scratch.argtypes = [ctypes.c_int]
+    lib.record_phase_scratch.restype = ctypes.c_int
+    for sim in sims:
+        mc, dev, dt = sim.mc, sim.device, sim.cfg.dtype
+        typ = "d" if dt == torch.float64 else "f"
+        name = hot_kernels.entry_point("record_phase", dt)
+        ours = hot_kernels._Build.fns[name]
+        theirs = getattr(lib, f"{name}_launch")
+        theirs.argtypes, theirs.restype = ours.argtypes, ctypes.c_int
+        abi = (getattr(lib, f"{name}_nptrs")(), getattr(lib, f"{name}_nscal")())
+        same = abi == hot_kernels._ABI[name]
+        old_counters = hot_kernels._RECORD_COUNTERS[:11]  # the counters before the terms
+        for j, (n, k) in enumerate(hot_kernels.RECORD_WIDTHS):
+            ticket, o_ticket = hot_kernels.record_ticket(dev, n), (
+                hot_kernels.record_ticket(dev, n) if same
+                else torch.zeros(1, dtype=torch.int32, device=dev))
+            o_scratch = None if same else torch.zeros(lib.record_phase_scratch(n),
+                                                      dtype=torch.uint8, device=dev)
+            for label in RECORD_MODES if j == 0 else ("light",):
+                sweep, record, free = RECORD_MODES[label]
+                mode = dict(sweep=sweep, record=record, free=free)
+                fold = label == "full"
+                pool, spec, counters, cfg = hot_kernels.synthetic_record(
+                    mc, n, k, 4545 + n + k, dt, dev, trace_birth=False)
+                bias = hot_kernels.record_bias(dt, dev)
+
+                def fresh():
+                    return hot_kernels.clone_record(pool, spec, counters)
+
+                def this(work):
+                    return hot_kernels.record_phase(*work, k, mc, cfg, ticket, bias=bias,
+                                                    fold=fold, **mode)
+
+                def that(work):
+                    if same:
+                        hot_kernels._Build.fns[name] = theirs
+                        try:
+                            return hot_kernels.record_phase(*work, k, mc, cfg, o_ticket,
+                                                            bias=bias, fold=fold, **mode)
+                        finally:
+                            hot_kernels._Build.fns[name] = ours
+                    p, sp, c = work
+                    ptrs = [*p.x, *p.k, p.w, p.e, p.x1i, p.x2i, p.tau_abs, p.tau_scatt,
+                            p.n_e_0, p.theta_e_0, p.b_0, p.e_0, p.n_scatt, p.nsc0, p.n_step,
+                            p.alive, p.occupied, p.record_pending, p.at_event, p.ev_pending,
+                            *[None] * 9, sp, *[getattr(c, f) for f in old_counters],
+                            o_ticket, o_scratch]
+                    bits = (sweep * hot_kernels.RECORD_SWEEP + record * hot_kernels.RECORD_RECORD
+                            + free * hot_kernels.RECORD_FREE)
+                    scal = hot_kernels._record_scalars(mc, k if record else 1, bits,
+                                                       cfg.stall_steps, dev, dt)[:abi[1]]
+                    arr = (ctypes.c_void_p * len(ptrs))(
+                        *[None if t is None else t.data_ptr() for t in ptrs])
+                    rc = theirs(arr, (ctypes.c_double * len(scal))(*map(float, scal)), n,
+                                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+                    if rc != 0:
+                        fail(f"ab {name}: the other checkout's record failed: CUDA error {rc}")
+                    return work
+
+                outs = {"this": this(fresh()), "other": that(fresh())}
+                torch.cuda.synchronize()
+                flat = {side: hot_kernels._flat({**o[0]._asdict(),
+                                                 **{f: getattr(o[2], f) for f in old_counters
+                                                    if f != "w_stall"}})
+                        for side, o in outs.items()}
+                differ = sorted(f for f, a in flat["other"].items()
+                                if not bool(hot_kernels._same_bits(a, flat["this"][f]).all()))
+                sides = {"this": (lambda c=Copies(fresh): this(c())),
+                         "other": (lambda c=Copies(fresh): that(c()))}
+                rec = {"name": name, "n": n, "k": k, "mode": label, "other_interface": same,
+                       "pending": int(pool.record_pending.sum()),
+                       "recorded": int(outs["other"][2].n_recorded - counters.n_recorded),
+                       "fields_differing": differ, "device_ms": turns_of(sides, turns),
+                       "ptxas": {side: {f: v for f, v in use.items()
+                                        if "record_" in f and f"I{typ}" in f}
+                                 for side, use in (("this", usage), ("other", o_usage))}}
+                print(f"ab {name}.{label}@{n}x{k}: {json.dumps(rec)}")
+                if differ:
+                    fail(f"ab {name}.{label}@{n}x{k}: differs from the other checkout's: "
                          f"{differ}")
 
 
@@ -1861,59 +1975,147 @@ def record_moved_bytes(pool, spec, counters, ref, width, sweep, record, free, tr
     return out
 
 
-def record_checks(sim, usage):
-    """Phase 4h (and 12a): the record of ``sim``'s dtype against
-    ``engine.record_phase_plain`` at ``hot_kernels.RECORD_WIDTHS`` on
-    synthetic pools (``hot_kernels.synthetic_record``), every stage at once
-    (a light phase's call), then at the first width the sweep alone, the
-    full phase's record and frees, and the last records' record alone, and
-    every stage traced (``record_phase+trace``), each on copies of what it
-    updates (:class:`Copies`), held by ``hot_kernels.compare_record``.
-    Returns the light phase's record at the first width; prints the
-    others."""
+# The path's record calls (PERF.md, row 12: the census of profile_slice.py
+# --trace): (pool, width, pending lanes a call) at the shipped wave, on the
+# reference path's wave and in the 512-lane stage.
+RECORD_PATH_COUNTS = ((65536, 12288, 4000), (65536, 16384, 11100), (512, 512, 2))
+
+
+def record_path_bounds(mc, dev, dt):
+    """The record's bound and time at the path's own counts
+    (``RECORD_PATH_COUNTS``): a light phase's call on a synthetic pool whose
+    pending lanes are cut to the count (the first ones in lane order), its
+    bytes by :func:`record_moved_bytes` at the card's memory rate, and the
+    kernel's device ms a call (two queued timings, each call on a fresh
+    copy, the bias's terms written).  Returns one record a count."""
     import torch
 
-    from grmonty_tpu_torch.transport import engine, hot_kernels
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    out = []
+    for n, k, pending in RECORD_PATH_COUNTS:
+        pool, spec, counters, cfg = hot_kernels.synthetic_record(mc, n, k, 4646 + n, dt, dev,
+                                                                 trace_birth=False)
+        rp = pool.record_pending
+        keep = torch.cumsum(rp.to(torch.int64), 0) <= pending
+        pool = pool._replace(record_pending=rp & keep)
+        ref = hot_kernels.record_plain(pool, spec, counters, k, mc, cfg)[0]
+        moved = record_moved_bytes(pool, spec, counters, ref, k, True, True, True, False)
+        bound_ms, bound_by = bound(moved, 0, kernel_dtype(
+            hot_kernels.entry_point("record_phase", dt)))
+        copies = Copies(lambda: hot_kernels.clone_record(pool, spec, counters))
+        ticket, bias = hot_kernels.record_ticket(dev, n), hot_kernels.record_bias(dt, dev)
+
+        def call():
+            hot_kernels.record_phase(*copies(), k, mc, cfg, ticket, bias=bias)
+        out.append({"n": n, "k": k, "pending": int(pool.record_pending.sum()),
+                    "recorded": int(ref[2].n_recorded - counters.n_recorded), "bytes": moved,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "device_ms": [cuda_ms(call, queued=True) for _ in range(2)]})
+    return out
+
+
+RECORD_MODES = {"light": (True, True, True), "sweep": (True, False, False),
+                "full": (False, True, True), "flush": (False, True, False)}
+# the bias's semantics the record's terms are held in: the shipped EMA, the
+# reference's cumulative average, the frozen bias (no terms written)
+RECORD_SEMANTICS = ("shipped", "reference", "frozen")
+
+
+def record_terms_checks(mc, dev, dt, n, k, seed):
+    """The record's bias terms at (n, k): every mode of ``RECORD_MODES`` in
+    each of ``RECORD_SEMANTICS`` (the full phase's with the EMA fold but
+    under reference semantics), one call on copies of a synthetic pool,
+    against ``hot_kernels.record_plain`` by ``compare_record`` with the
+    terms bit for bit; under the frozen bias no term passed and the
+    buffers left as they were.  Returns the failures."""
+    import torch
+
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    fails = []
+    ticket = hot_kernels.record_ticket(dev, n)
+    for sem in RECORD_SEMANTICS:
+        pool, spec, counters, cfg = hot_kernels.synthetic_record(
+            mc, n, k, seed, dt, dev, reference=sem == "reference")
+        for label, (sweep, record, free) in RECORD_MODES.items():
+            fold = label == "full" and sem != "reference"
+            mode = dict(sweep=sweep, record=record, free=free, fold=fold)
+            ref, terms = hot_kernels.record_plain(pool, spec, counters, k, mc, cfg, **mode)
+            bias = hot_kernels.record_bias(dt, dev)
+            got = hot_kernels.record_phase(*hot_kernels.clone_record(pool, spec, counters), k,
+                                           mc, cfg, ticket,
+                                           bias=None if sem == "frozen" else bias, **mode)
+            torch.cuda.synchronize()
+            _, bad = hot_kernels.compare_record(
+                pool, spec, counters, ref, got,
+                terms=None if sem == "frozen" else (terms, bias))
+            if sem == "frozen" and not all(bool(torch.isnan(t)) for t in bias):
+                bad.append("a term written under the frozen bias")
+            if not hot_kernels.record_at_rest(ticket, n):
+                bad.append("the scratch not at rest")
+            fails += [f"{sem} {label}@{n}x{k}: {b}" for b in bad]
+    return fails
+
+
+def record_checks(sim, usage):
+    """Phase 4h (and 12a): the record of ``sim``'s dtype against
+    ``engine.record_phase_plain`` and ``engine.bias_terms_plain``
+    (``hot_kernels.record_plain``) at ``hot_kernels.RECORD_WIDTHS`` on
+    synthetic pools (``hot_kernels.synthetic_record``), every stage at once
+    (a light phase's call), then at the first width the sweep alone, the
+    full phase's record, frees and EMA fold, and the last records' record
+    alone, and every stage traced (``record_phase+trace``), each on copies
+    of what it updates (:class:`Copies`), held by
+    ``hot_kernels.compare_record`` with the bias's terms bit for bit and the
+    scratch at rest after; then at every width the terms in every mode and
+    semantics (:func:`record_terms_checks`).  Returns the light phase's
+    record at the first width; prints the others."""
+    import torch
+
+    from grmonty_tpu_torch.transport import hot_kernels
 
     mc, dev, dt = sim.mc, sim.device, sim.cfg.dtype
     name = hot_kernels.entry_point("record_phase", dt)
     ptx = {f: v for f, v in usage.items() if "record_" in f
            and ("Id" if dt == torch.float64 else "If") in f}
-    ticket = hot_kernels.record_ticket(dev)
-    modes = {"light": (True, True, True), "sweep": (True, False, False),
-             "full": (False, True, True), "flush": (False, True, False)}
     out = []
     for j, (n, k) in enumerate(hot_kernels.RECORD_WIDTHS):
-        runs = [(label, False) for label in modes] + [("light", True)] if j == 0 else [
+        ticket = hot_kernels.record_ticket(dev, n)
+        runs = [(label, False) for label in RECORD_MODES] + [("light", True)] if j == 0 else [
             ("light", False)]
         for label, trace in runs:
-            sweep, record, free = modes[label]
+            sweep, record, free = RECORD_MODES[label]
             pool, spec, counters, cfg = hot_kernels.synthetic_record(
                 mc, n, k, 4242 + n + k, dt, dev, trace_birth=trace)
-            mode = dict(sweep=sweep, record=record, free=free)
+            mode = dict(sweep=sweep, record=record, free=free, fold=label == "full")
+            bias = hot_kernels.record_bias(dt, dev)
 
             def plain():
-                return engine.record_phase_plain(pool, spec, counters, k, mc, cfg, **mode)
+                return hot_kernels.record_plain(pool, spec, counters, k, mc, cfg, **mode)
 
             copies = Copies(lambda: hot_kernels.clone_record(pool, spec, counters))
 
             def kern():
-                return hot_kernels.record_phase(*copies(), k, mc, cfg, ticket, **mode)
+                return hot_kernels.record_phase(*copies(), k, mc, cfg, ticket, bias=bias,
+                                                **mode)
 
-            ref = plain()
+            ref, terms = plain()
             got = hot_kernels.record_phase(*hot_kernels.clone_record(pool, spec, counters),
-                                           k, mc, cfg, ticket, **mode)
+                                           k, mc, cfg, ticket, bias=bias, **mode)
             torch.cuda.synchronize()
-            rec, fails = hot_kernels.compare_record(pool, spec, counters, ref, got)
-            if int(ticket) != 0:
-                fails.append(f"the ticket is {int(ticket)}, not 0")
+            rec, fails = hot_kernels.compare_record(pool, spec, counters, ref, got,
+                                                    terms=(terms, bias))
+            if not hot_kernels.record_at_rest(ticket, n):
+                fails.append("the scratch is not at rest after the call")
             moved = record_moved_bytes(pool, spec, counters, ref, k, sweep, record, free,
                                        trace)
             label_n = f"{name}{'' if label == 'light' else '.' + label}" + (
                 "+trace" if trace else "")
             extra = {**rec, "k": k, "mode": label, "trace_birth": trace, "ptxas": ptx,
-                     "launches_a_call": 1 + (n > 1024 and (sweep or record)
-                                             and (record or free)),
+                     "launches_a_call": hot_kernels.record_launches(
+                         sweep * hot_kernels.RECORD_SWEEP + record * hot_kernels.RECORD_RECORD
+                         + free * hot_kernels.RECORD_FREE),
                      "library_ms": None, "library_device_ms": None}
             if (j, label, trace) != (0, "light", False):
                 extra["name"] = f"{label_n}@{n}x{k}"
@@ -1927,6 +2129,13 @@ def record_checks(sim, usage):
                      + "; ".join(fails))
             if (j, label, trace) == (0, "light", False):
                 out.append(full)
+        fails = record_terms_checks(mc, dev, dt, n, k, 4343 + n + k)
+        print(f"  {name} bias terms@{n}x{k}: {len(RECORD_SEMANTICS)} semantics x "
+              f"{len(RECORD_MODES)} modes, {len(fails)} failing")
+        if fails:
+            fail(f"{name}: the bias's terms disagree with the plain terms: " + "; ".join(fails))
+    for rec in record_path_bounds(mc, dev, dt):
+        print(f"  {name} bound at the path's counts: {json.dumps(rec)}")
     return out
 
 
@@ -2283,11 +2492,11 @@ def path_launches(cfg, stats):
     iteration of every engine; the event phase and the ring's pack of its
     dtype once in each full phase; the track start of its dtype and
     semantics once in each full and light phase (under reference semantics
-    it fetches its raw rows itself); the record's kernels of its dtype,
-    each engine's by its pool's width (``hot_kernels.record_launches``):
-    the sweep alone and the record with the frees in each full phase, the
-    three at once in each light phase, the record alone in each closing
-    flush; the compaction at least twice a full phase (the events, the
+    it fetches its raw rows itself); the record of its dtype, one launch a
+    call (``hot_kernels.record_launches``): the sweep alone
+    and the record with the frees in each full phase, the three at once in
+    each light phase, the record alone in each closing flush; the
+    compaction at least twice a full phase (the events, the
     refill) and once a light one (the ``COMPACT_MORE`` of
     :func:`launch_failures`: the cascade's gathers and merges compact too);
     every other entry point (the row gather, the event fluid and the event
@@ -2299,12 +2508,15 @@ def path_launches(cfg, stats):
     sweep, rec, free = (hot_kernels.RECORD_SWEEP, hot_kernels.RECORD_RECORD,
                         hot_kernels.RECORD_FREE)
 
-    def launched(n, mode):
-        return hot_kernels.record_launches(n, mode)
+    def launched(mode):
+        one = hot_kernels.record_launches(mode)
+        if one != 1:
+            fail(f"the record launches {one} kernels a call in mode {mode}, not 1")
+        return one
 
-    records = sum(f * (launched(n, sweep) + launched(n, rec | free))
-                  + li * launched(n, sweep | rec | free) + fl * launched(n, rec)
-                  for n, f, li, fl in stats["engine_phases"])
+    records = sum(f * (launched(sweep) + launched(rec | free))
+                  + li * launched(sweep | rec | free) + fl * launched(rec)
+                  for _, f, li, fl in stats["engine_phases"])
     want = {hot_kernels.entry_point("hot_step", dt, ref, draw=True): stats["hot_iters"],
             hot_kernels.entry_point("event_phase", dt): full,
             hot_kernels.entry_point("compact_rows", dt): full,
@@ -2981,9 +3193,9 @@ def main():
                          "float64) against the one of the checkout at DIR, in turns; then "
                          "the card line")
     ap.add_argument("--ab-phase-kernels", metavar="DIR", default=None,
-                    help="phases 1 and 2, then this checkout's event kernel and load and "
-                         "track start (float32 and float64) against those of the checkout "
-                         "at DIR, in turns; then the card line")
+                    help="phases 1 and 2, then this checkout's event kernel, load and "
+                         "track start and record (float32 and float64) against those of "
+                         "the checkout at DIR, in turns; then the card line")
     ap.add_argument("--ab-wide", metavar="DIR", default=None,
                     help="phases 1 and 2, then this checkout's event phase (float32 and "
                          "float64) and compaction against those of the checkout at DIR, in "

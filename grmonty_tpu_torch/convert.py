@@ -118,8 +118,9 @@ _REFERENCE = dict(fp_iters=engine.FP_ITERS, step_ctrl=0.0, grow_rate=2.0, grow_c
 
 
 def from_jax_config(cfg):
-    """A JAX ``EngineConfig`` as the port's: its widths, and
-    ``reference=True`` where its physics knobs hold reference semantics
+    """A JAX ``EngineConfig`` as the port's: its widths, the frozen-bias
+    mode's constants, and ``reference=True`` where its physics knobs hold
+    reference semantics
     (the JAX defaults).  Raises where they hold neither that nor the
     shipped profile's physics, which the port has no switch for."""
     def holds(values):
@@ -139,6 +140,7 @@ def from_jax_config(cfg):
         tail_exit=cfg.tail_exit, stall_steps=cfg.stall_steps, ev_k=cfg.ev_k,
         refill_k=cfg.refill_k, light_k=cfg.light_k, refill_period=cfg.refill_period,
         grow_cap=cfg.grow_cap, dtype=dtype, reference=reference,
+        bias_fixed_tau=cfg.bias_fixed_tau, bias_fixed_avg=cfg.bias_fixed_avg,
         trace_birth=cfg.trace_birth)
 
 

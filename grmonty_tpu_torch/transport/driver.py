@@ -133,7 +133,7 @@ def warm_counters(counters, n_recorded, n_scatt_rec, max_tau_scatt, avg):
 def engine_phases(engines):
     """[pool lanes, full phases, light phases, closing flushes] of each
     engine (``Engine.phases``, ``Engine.flushes``): the record's calls on
-    the card, each one or two launches by the pool's width.  A run resumed
+    the card, each one launch.  A run resumed
     from a checkpoint counts the flushes it ran itself."""
     return [[e.cfg.n_pool, e.phases["full"], e.phases["light"], e.flushes] for e in engines]
 

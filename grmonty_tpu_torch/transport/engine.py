@@ -23,10 +23,11 @@ Photons are an SoA pool of (N,) tensors stepped in lockstep:
   (``hot_kernels.event_phase``: the events' rows, fluid, opacities and
   bias, the event with its own Philox stream a lane under a key drawn from
   the generator, the outcome, the secondaries staged), the ring's pack a
-  third (``hot_kernels.compact_rows``), each phase's poison sweep, record
-  and frees a fourth (``hot_kernels.record_phase``: two launches above
-  one tile of lanes; the full phase's sweep its own launch, before the
-  event set), and each refill's slots' sources and row moves with the
+  third (``hot_kernels.compact_rows``), each phase's poison sweep, record,
+  frees, the full phase's EMA fold and the bias's terms a fourth
+  (``hot_kernels.record_phase``: one launch a call; the full phase's sweep
+  its own, before the event set), and each refill's slots' sources and
+  row moves with the
   track start of the lanes they fill a fifth
   (``hot_kernels.refill_fresh``, after the compaction of the free lanes),
   in place on the pool, the spectrum and the counters; on CPU tensors the
@@ -51,8 +52,10 @@ launch of the drawing hot step (``hot_kernels.hot_step_drawn``) draws its
 two uniforms a lane from the lane's Philox stream under that key at the
 step's index in the block (``draws.hot_uniforms`` is the plain version);
 on the CPU they are ``torch.rand`` batches, as the event phase's draws are.
-A block also computes the bias scale once after each phase
-(:meth:`Engine._bias_scale`): no hot step changes what it reads.
+A block's phases and hot steps read the bias's terms (:class:`BiasTerms`:
+the denominators and the scale) from tensors of the engine's own, which
+each phase's record writes in place (:func:`bias_terms_plain` is their
+plain version): no hot step changes what they are made from.
 """
 
 import gc
@@ -681,7 +684,7 @@ def eval_alphas(k, fl, mc, tables: EngineTables):
 
 def bias_func(theta_e, w, bias_den):
     """Scattering bias (harm_model.cpp:1391-1404); ``bias_den``: the 0-d
-    tensor bias_norm * max_tau * (avg + 2) (``Engine._bias_den``)."""
+    tensor bias_norm * max_tau * (avg + 2) (:func:`bias_terms_plain`)."""
     cap = 0.5 * w / WEIGHT_MIN
     bias = 100.0 * theta_e * theta_e / bias_den
     bias = torch.clamp(bias, min=consts.TP_OVER_TE)
@@ -1115,6 +1118,57 @@ def record_phase_plain(p: Pool, spec, counters, width, mc, cfg: EngineConfig, sw
     return p, spec, counters
 
 
+class BiasTerms(typing.NamedTuple):
+    """The bias's terms after a phase's record (0-d tensors): the
+    denominators bias_norm * max_tau * (avg + 2) that refill's track start
+    reads (after the record, before the full phase's EMA fold) and that
+    the event phase reads (after the fold), and the hot steps' scale
+    100 / ``event_den`` in the engine dtype."""
+
+    refill_den: torch.Tensor
+    event_den: torch.Tensor
+    scale: torch.Tensor
+
+
+def bias_terms_plain(counters, bias_norm, dt, reference, fold=False, fixed=None):
+    """The bias's terms from ``counters`` (the plain version of the record
+    kernel's last block, ``csrc/record.cu``; ``Engine._bias_den`` and
+    ``_bias_scale`` read it): under ``fold`` first the full phase's EMA
+    fold (grmonty_tpu/transport/engine.py:2462-2475: the since-last-phase
+    marginal scatters over records into ``avg_ema`` at weight ``BIAS_EMA``,
+    a window with no records leaving it; the marks copies of the counts,
+    which the record adds to in place on the card), then the denominator
+    bias_norm * max_tau * (avg + 2) (:1226-1250; avg the cumulative
+    n_scatt_rec / (n_recorded + 1) under ``reference``, else ``avg_ema``)
+    before and after the fold and the scale 100 / den in ``dt``
+    (:1443-1445).  ``fixed``: the frozen-bias mode's float64 0-d
+    max_tau * (avg + 2), which both denominators take in place of the
+    counters' (float64), the scale rounded once into ``dt``.  Returns
+    (counters, :class:`BiasTerms`)."""
+    folded = counters
+    if fold:
+        d_s = (counters.n_scatt_rec - counters.ema_scatt_mark).to(dt)
+        d_r = (counters.n_recorded - counters.ema_rec_mark).to(dt)
+        a = torch.where(d_r > 0.0, BIAS_EMA, 0.0).to(dt)
+        folded = counters._replace(
+            avg_ema=(1.0 - a) * counters.avg_ema + a * d_s / torch.clamp(d_r, min=1.0),
+            ema_scatt_mark=counters.n_scatt_rec.clone(),
+            ema_rec_mark=counters.n_recorded.clone())
+    if fixed is not None:
+        den = bias_norm * fixed
+        return folded, BiasTerms(den, den, (100.0 / den).to(dt))
+
+    def den_of(c):
+        if reference:
+            avg = c.n_scatt_rec.to(dt) / (c.n_recorded.to(dt) + 1.0)
+        else:
+            avg = c.avg_ema
+        return bias_norm * (c.max_tau_scatt * (avg + 2.0))
+
+    den = den_of(folded)
+    return folded, BiasTerms(den_of(counters) if fold else den, den, (100.0 / den).to(dt))
+
+
 class Engine:
     """The transport engine of one dump (the counterpart of the JAX
     ``make_engine`` closure).  ``gen``: the run's ``torch.Generator``, on
@@ -1125,6 +1179,8 @@ class Engine:
 
     def __init__(self, mc, cfg: EngineConfig, tables: EngineTables, device, gen,
                  graphed=None):
+        from grmonty_tpu_torch.transport import hot_kernels
+
         self.mc, self.cfg, self.tables = mc, cfg, tables
         self.device, self.gen = torch.device(device), gen
         cuda = self.device.type == "cuda"
@@ -1138,10 +1194,22 @@ class Engine:
         self.light_k = min(n, cfg.light_k if cfg.light_k else min(self.ev_k, self.rf_k))
         self.phases = {"full": 0, "light": 0}  # calls since fresh_state, on the host
         self.flushes = 0  # Engine.run's closing records since fresh_state
-        # the frozen-bias mode's denominator (see _bias_denom), built once
+        # The bias's terms (BiasTerms), each 0-d tensor made here, outside
+        # any capture: under the live bias every record writes them in place
+        # (hot_kernels.record_phase's ``bias``) and the phases read them;
+        # under the frozen-bias mode they hold its constants, from the
+        # float64 max_tau * (avg + 2) built once here (bias_terms_plain's
+        # ``fixed``), and no record writes them.
         self._bias_fixed = (
             torch.tensor(cfg.bias_fixed_tau * (cfg.bias_fixed_avg + 2.0), dtype=torch.float64,
                          device=self.device) if cfg.bias_fixed_tau > 0.0 else None)
+        if self._bias_fixed is None:
+            self._bias = BiasTerms(*(torch.zeros((), dtype=self.dt, device=self.device)
+                                     for _ in BiasTerms._fields))
+        else:
+            self._bias = bias_terms_plain(None, mc.bias_norm, self.dt, cfg.reference,
+                                          fixed=self._bias_fixed)[1]
+        self._bias_out = self._bias if self._bias_fixed is None else None
         # One block: the full phase, then per entry a light phase (but the
         # first) and that many hot steps.
         self.n_super = max(1, cfg.m_period)
@@ -1153,14 +1221,14 @@ class Engine:
         # (reserve_backlog), the valid rows' count on the device; the graph
         # and what one replay adds to the launch and phase counts.  The
         # kernels' tickets, made here, outside any capture: the ring's for
-        # its pack (hot_kernels.rows_ticket), the record's
-        # (hot_kernels.record_ticket) and the refill's
-        # (hot_kernels.fresh_ticket).
+        # its pack (hot_kernels.rows_ticket), the record's with its tiles'
+        # status words and counters (hot_kernels.record_ticket) and the
+        # refill's (hot_kernels.fresh_ticket).
         self.backlog_cap = 1
         self._state = self._backlog = self._graph = self._credit = None
         self._n_valid = torch.zeros((), dtype=torch.int64, device=self.device)
         self._rows_ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
-        self._record_ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self._record_ticket = hot_kernels.record_ticket(self.device, n)
         self._fresh_ticket = torch.zeros(3, dtype=torch.int32, device=self.device)
         self.replays = 0  # graph replays since fresh_state
 
@@ -1184,25 +1252,21 @@ class Engine:
         return torch.rand(n, generator=self.gen, dtype=self.dt, device=self.device)
 
     # -- physics helpers ----------------------------------------------------
-    def _bias_denom(self, counters):
-        """max_tau * (avg + 2): the average scatter count per record is the
-        cumulative ratio under reference semantics, else the windowed mean
-        (BIAS_EMA); under the frozen-bias mode the constants
+    def _bias_terms(self, counters, fold=False):
+        """(counters, :class:`BiasTerms`) from ``counters``
+        (:func:`bias_terms_plain`): the average scatter count per record is
+        the cumulative ratio under reference semantics, else the windowed
+        mean (BIAS_EMA); under the frozen-bias mode the constants
         bias_fixed_tau * (bias_fixed_avg + 2), a float64 0-d tensor, so that
         the bias and its scale round once into the engine dtype, as the JAX
         engine's Python constant does."""
-        if self._bias_fixed is not None:
-            return self._bias_fixed
-        if self.cfg.reference:
-            avg = counters.n_scatt_rec.to(self.dt) / (counters.n_recorded.to(self.dt) + 1.0)
-        else:
-            avg = counters.avg_ema
-        return counters.max_tau_scatt * (avg + 2.0)
+        return bias_terms_plain(counters, self.mc.bias_norm, self.dt, self.cfg.reference,
+                                fold=fold, fixed=self._bias_fixed)
 
     def _bias_den(self, counters):
         """The bias's denominator bias_norm * max_tau * (avg + 2), a 0-d
         tensor (float64 under the frozen-bias mode)."""
-        return self.mc.bias_norm * self._bias_denom(counters)
+        return self._bias_terms(counters)[1].event_den
 
     def bias_func(self, theta_e, w, counters):
         """Scattering bias (harm_model.cpp:1391-1404) from the counters."""
@@ -1211,10 +1275,11 @@ class Engine:
     def _bias_scale(self, counters):
         """The hot step's bias scale 100 / (bias_norm * max_tau * (avg + 2)),
         a 0-d tensor of the engine dtype.  Its inputs (max_tau_scatt,
-        n_scatt_rec, n_recorded, avg_ema) change in the phases alone
-        (:meth:`spectrum_add`, the EMA fold of :meth:`periodic_phase`), so a
-        block computes it once after each phase."""
-        return (100.0 / self._bias_den(counters)).to(self.dt)
+        n_scatt_rec, n_recorded, avg_ema) change in the phases' records
+        alone (the EMA fold is the full phase's record's), each of which
+        leaves it in the engine's bias terms, so a block reads it there
+        after each phase."""
+        return self._bias_terms(counters)[1].scale
 
     def eval_fluid_xy(self, x1, x2):
         """(g7, fluid state) at arbitrary positions from the raw corner
@@ -1264,28 +1329,29 @@ class Engine:
         """Record up to ``width`` (``ev_k`` when None) escaped lanes
         (harm_model.cpp:1291-1335); NaN-poisoned pending lanes are freed
         unrecorded (:func:`spectrum_add_plain`; on the card the record part
-        of ``hot_kernels.record_phase``, in place).  Returns (spec,
-        counters, pool)."""
+        of ``hot_kernels.record_phase``, in place), and the bias's terms
+        taken.  Returns (spec, counters, pool)."""
         from grmonty_tpu_torch.transport import hot_kernels
 
         p, spec, counters = hot_kernels.record_phase(
             p, spec, counters, self.ev_k if width is None else width, self.mc, self.cfg,
-            self._record_ticket, sweep=False, record=True, free=False)
+            self._record_ticket, sweep=False, record=True, free=False, bias=self._bias_out)
         return spec, counters, p
 
-    def process_scatters(self, p: Pool, sec: SecBuf, counters):
+    def process_scatters(self, p: Pool, sec: SecBuf, counters, bias_den):
         """Run deferred scatter events (compacted) and pack the secondaries
-        into the ring (:func:`event_phase_plain`, :func:`pack_rows_plain`).
-        On the card three launches: the compaction
-        (``hot_kernels.compact``), the whole event phase in place on the
-        pool (``hot_kernels.event_phase``) and the ring's pack
+        into the ring (:func:`event_phase_plain`, :func:`pack_rows_plain`),
+        at the bias's denominator ``bias_den`` (the full phase passes the
+        engine's bias terms' ``event_den``, which its sweep leaves).  On
+        the card three launches: the compaction (``hot_kernels.compact``),
+        the whole event phase in place on the pool
+        (``hot_kernels.event_phase``) and the ring's pack
         (``hot_kernels.compact_rows``)."""
         from grmonty_tpu_torch.transport import hot_kernels
 
         sel, room, wedged = event_set(p, sec, self.ev_k)
-        p, counters, stage = hot_kernels.event_phase(
-            p, counters, sel, room, wedged, self._bias_den(counters), self.mc, self.tables,
-            gen=self.gen)
+        p, counters, stage = hot_kernels.event_phase(p, counters, sel, room, wedged, bias_den,
+                                                     self.mc, self.tables, gen=self.gen)
         sec, counters = hot_kernels.compact_rows(stage, sec, counters, self._rows_ticket)
         return p, sec, counters
 
@@ -1301,29 +1367,32 @@ class Engine:
         return RefillSlots(valid, sidx, sec, backlog_rows, backlog_pos, n_valid)
 
     def _record_free_refill(self, p, spec, counters, sec, backlog_rows, backlog_pos,
-                            n_valid, width=None, sweep=False):
+                            n_valid, width=None, sweep=False, fold=False):
         """Record escaped lanes, free dead ones (after the poison sweep under
-        ``sweep``), reload from ring/backlog and start the loaded lanes: on
-        the card ``hot_kernels.record_phase`` (the sweep, the record and
-        the frees in place), the compaction of the free lanes and
+        ``sweep``; then the EMA fold under ``fold``), take the bias's terms,
+        reload from ring/backlog and start the loaded lanes: on the card
+        ``hot_kernels.record_phase`` (the sweep, the record, the frees, the
+        fold and the terms in place), the compaction of the free lanes and
         ``hot_kernels.refill_fresh`` (the slots' sources, the load and the
-        track start in place), with the bias's denominator read after the
-        record."""
+        track start in place), with the bias's denominator from after the
+        record, before the fold."""
         from grmonty_tpu_torch.transport import hot_kernels
 
         p, spec, counters = hot_kernels.record_phase(
             p, spec, counters, self.ev_k if width is None else width, self.mc, self.cfg,
-            self._record_ticket, sweep=sweep, record=True, free=True)
+            self._record_ticket, sweep=sweep, record=True, free=True, fold=fold,
+            bias=self._bias_out)
         slots = self.refill_slots(sec, p.occupied, backlog_rows, backlog_pos, n_valid,
                                   width=width)
         p, sec, backlog_pos, counters = hot_kernels.refill_fresh(
-            p, slots, counters, self._bias_den(counters), self.mc, self.tables, self.cfg,
+            p, slots, counters, self._bias.refill_den, self.mc, self.tables, self.cfg,
             self._fresh_ticket)
         return p, spec, counters, sec, backlog_pos
 
     def periodic_phase(self, state: State, backlog_rows, n_valid=None) -> State:
-        """The full phase: the poison sweep, scatter events, record, free,
-        refill, init, the bias's EMA fold."""
+        """The full phase: the poison sweep (which takes the bias's terms as
+        it finds the counters), scatter events, record, free, the bias's
+        EMA fold (shipped) and terms, refill, init."""
         from grmonty_tpu_torch.transport import hot_kernels
 
         if n_valid is None:
@@ -1332,21 +1401,11 @@ class Engine:
         # the sweep alone: it comes before the event set
         p, spec, counters = hot_kernels.record_phase(
             state.pool, state.spec, state.counters, self.ev_k, self.mc, self.cfg,
-            self._record_ticket, sweep=True, record=False, free=False)
-        p, sec, counters = self.process_scatters(p, state.sec, counters)
+            self._record_ticket, sweep=True, record=False, free=False, bias=self._bias_out)
+        p, sec, counters = self.process_scatters(p, state.sec, counters, self._bias.event_den)
         p, spec, counters, sec, backlog_pos = self._record_free_refill(
-            p, spec, counters, sec, backlog_rows, state.backlog_pos, n_valid)
-        if not self.cfg.reference:
-            # fold the since-last-phase marginal scatters/recorded into the
-            # EMA; the marks are copies, as the record adds to the counts in
-            # place on the card
-            d_s = (counters.n_scatt_rec - counters.ema_scatt_mark).to(self.dt)
-            d_r = (counters.n_recorded - counters.ema_rec_mark).to(self.dt)
-            a = torch.where(d_r > 0.0, BIAS_EMA, 0.0).to(self.dt)
-            counters = counters._replace(
-                avg_ema=(1.0 - a) * counters.avg_ema + a * d_s / torch.clamp(d_r, min=1.0),
-                ema_scatt_mark=counters.n_scatt_rec.clone(),
-                ema_rec_mark=counters.n_recorded.clone())
+            p, spec, counters, sec, backlog_rows, state.backlog_pos, n_valid,
+            fold=not self.cfg.reference)
         return state._replace(pool=p, spec=spec, counters=counters, sec=sec,
                               backlog_pos=backlog_pos)
 
@@ -1373,7 +1432,9 @@ class Engine:
 
     def _load(self, state: State, backlog_rows, n_valid):
         """Copy the caller's ``state`` and backlog into the block's own
-        tensors (made at the first call) and set the valid rows' count."""
+        tensors (made at the first call) and set the valid rows' count.
+        The bias's terms need no copy: the block's first launch, the full
+        phase's sweep, writes them from the counters it finds."""
         n = backlog_rows.shape[0]
         if self._backlog is None:
             self._backlog = torch.zeros((max(n, self.backlog_cap), ROW_WIDTH), dtype=self.dt,
@@ -1393,8 +1454,8 @@ class Engine:
     def _body(self):
         """One block on the engine's own state, in place: the full phase,
         then the hot steps, each light phase and its hot steps (the JAX
-        engine's while-loop body).  The bias scale is computed once after
-        each phase and passed to the hot steps that follow it.  On the card
+        engine's while-loop body).  The hot steps read the bias scale that
+        the last phase's record left in the engine's bias terms.  On the card
         the block draws one key (``hot_kernels.draw_key``) and each hot step
         draws its uniforms inside its one launch at its index in the block;
         on the CPU each draws them from the generator.  It reads nothing on
@@ -1404,14 +1465,13 @@ class Engine:
 
         st = self._state
         state = self.periodic_phase(st, self._backlog, self._n_valid)
-        scale = self._bias_scale(state.counters)
+        scale = self._bias.scale
         key = (hot_kernels.draw_key(self.gen, self.device) if self.device.type == "cuda"
                else None)
         step = 0
         for bi_, nb in enumerate(self.blocks):
             if bi_:
                 state = self.light_phase(state, self._backlog, self._n_valid)
-                scale = self._bias_scale(state.counters)
             for _ in range(nb):
                 state = self.hot_step(state, bias_scale=scale, key=key, step=step)
                 step += 1

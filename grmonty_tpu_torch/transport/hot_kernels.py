@@ -262,20 +262,26 @@ _PHASE_PTRS = (_PHASE_READ + _PHASE_WRITE
                .split())
 # The record (RecordPtrs of csrc/record.cu): the pool's fields it reads,
 # the flags it updates in place, the birth state (null when the trace is
-# off), the spectrum and the counters it adds to, the ticket and the
-# scratch.  Its scalars (RecordScal): the width, the mode's bits, the step
-# cap, the bins' counts, and the bins' constants as the plain version's
-# torch operations take them on the card.
+# off), the spectrum and the counters it adds to and folds, the bias's
+# terms it writes (null without) and the engine's scratch.  Its scalars
+# (RecordScal): the width, the mode's bits, the step cap, the bins'
+# counts, the bins' constants as the plain version's torch operations take
+# them on the card, the bias's norm and the EMA's weight.
 _RECORD_READ = ("x0 x1 x2 x3 k0 k1 k2 k3 w e x1i x2i tau_abs tau_scatt n_e_0 theta_e_0 b_0 e_0 "
                 "n_scatt nsc0 n_step").split()
 _RECORD_FLAGS = "alive occupied record_pending at_event ev_pending".split()
 _RECORD_COUNTERS = ("n_recorded n_scatt_rec max_tau_scatt n_retired n_steps_retired n_stall "
-                    "w_stall mt_bx mt_bk mt_bw mt_nsc0").split()
+                    "w_stall mt_bx mt_bk mt_bw mt_nsc0 avg_ema ema_scatt_mark "
+                    "ema_rec_mark").split()
 _RECORD_PTRS = (_RECORD_READ + _RECORD_FLAGS + _BIRTH + ["spec"] + _RECORD_COUNTERS
-                + ["ticket", "scratch"])
-_RECORD_SCAL = "k mode stall_steps n_th n_e mid x_stop2 inv_dx2 l_e_0 inv_d_l_e".split()
-# the record's stages (the mode's bits)
+                + list(engine.BiasTerms._fields) + ["scratch"])
+_RECORD_SCAL = "k mode stall_steps n_th n_e mid x_stop2 inv_dx2 l_e_0 inv_d_l_e bias_norm ema".split()
+# the record's stages (the mode's bits): the sweep, the record, the frees,
+# the EMA fold, the bias's terms written, the cumulative average in them
 RECORD_SWEEP, RECORD_RECORD, RECORD_FREE = 1, 2, 4
+RECORD_FOLD, RECORD_TERMS, RECORD_CUMUL = 8, 16, 32
+# the lanes a block of the record above one block (csrc/record.cu TILE)
+RECORD_TILE = 512
 # (pointers, scalars) each entry point takes
 _ABI = {**{f"hot_step{r}{x}{d}": (len(_HOT_REF_PTRS if r else _HOT_PTRS),
                                    _HOT_NSCAL + (1 if d else 0))
@@ -321,9 +327,8 @@ HOT_DRAWS = tuple(f"{h}_draw" for h in HOT_STEPS)
 # lanes (csrc/hot_step.cu: the threads a lane, the threads a block, the
 # blocks an SM of the instance it runs), the track start's threads a slot
 # at K slots, the event's lanes a warp at n lanes, the pack's threads a
-# block at K slots and the record's scratch bytes at n lanes; and one
-# (int, int) -> int function, the kernels a record launches at (n lanes, its
-# mode).
+# block at K slots, the record's scratch bytes at n lanes and the kernels
+# a record launches in a mode.
 HOT_SHAPE = ("group", "threads", "blocks_per_sm")
 _INT_FNS = ("gather_rowsum_persistent_pass_rows", "gather_rowsum_rowloop_wave_rows",
             *(f"{h}_{what}" for h in HOT_STEPS + HOT_DRAWS for what in HOT_SHAPE),
@@ -331,7 +336,6 @@ _INT_FNS = ("gather_rowsum_persistent_pass_rows", "gather_rowsum_rowloop_wave_ro
             *(f"{e}_lanes" for e in SCATTER_EVENTS + EVENT_PHASES),
             *(f"{c}_threads" for c in COMPACT_ROWS), "record_phase_scratch",
             "record_phase_launches")
-_INT_ARGS = {"record_phase_launches": 2}
 
 
 class _Build:
@@ -402,7 +406,7 @@ def build():
         for sym in _INT_FNS:
             if hasattr(lib, sym):
                 fn = getattr(lib, sym)
-                fn.argtypes = [ctypes.c_int] * _INT_ARGS.get(sym, 1)
+                fn.argtypes = [ctypes.c_int]
                 fn.restype = ctypes.c_int
                 int_fns[sym] = fn
     missing = sorted(set(_ABI) - set(fns)) + [sym for sym in _INT_FNS if sym not in int_fns]
@@ -1029,11 +1033,16 @@ def compact_rows(stage, sec, counters, ticket=None):
     return sec, counters
 
 
-def record_ticket(device):
-    """The record's ticket for :func:`record_phase`: one int32 word at zero,
-    which every call over more than one tile of lanes takes and leaves at
-    zero.  The engine allocates it outside any CUDA graph's capture."""
-    return torch.zeros(1, dtype=torch.int32, device=device)
+def record_ticket(device, n):
+    """The record's scratch for :func:`record_phase` on ``n`` lanes: bytes
+    at zero (on the card ``csrc/record.cu``'s record_phase_scratch: the
+    ticket, the tile counter and the tiles' status words, which every call
+    leaves at zero, and the blocks' counters; one byte elsewhere, where the
+    plain version runs).  The engine allocates it outside any CUDA graph's
+    capture."""
+    dev = torch.device(device)
+    size = _int_fn("record_phase_scratch", n) if dev.type == "cuda" else 1
+    return torch.zeros(size, dtype=torch.uint8, device=dev)
 
 
 def _record_scalars(mc, width, mode, stall_steps, dev, dt):
@@ -1042,32 +1051,46 @@ def _record_scalars(mc, width, mode, stall_steps, dev, dt):
     dx2 = (mc.x_stop[2] - mc.x_start[2]) / (2.0 * consts.N_TH_BINS)
     mid = 0.5 * (mc.x_start[2] + mc.x_stop[2])
     return [width, mode, stall_steps, consts.N_TH_BINS, consts.N_E_BINS, mid, mc.x_stop[2],
-            _recip(dx2, dev, dt), consts.spectrum.L_E_0, _recip(consts.spectrum.D_L_E, dev, dt)]
+            _recip(dx2, dev, dt), consts.spectrum.L_E_0, _recip(consts.spectrum.D_L_E, dev, dt),
+            mc.bias_norm, engine.BIAS_EMA]
 
 
 def record_phase(pool, spec, counters, width, mc, cfg, ticket=None, sweep=True, record=True,
-                 free=True):
-    """The phases' upkeep of the pool (``engine.record_phase_plain``): under
-    ``sweep`` the poison sweep, under ``record`` the record of up to
-    ``width`` escaped lanes into ``spec`` and the counters, under ``free``
-    the frees and their census.  On CPU tensors the plain version (new
-    tensors); on CUDA tensors ``record_phase`` / ``record_phase_f64`` of
-    ``csrc/record.cu`` (one launch up to one tile of lanes, else two: the
-    sweep and the tiles' counts, then the record; the sweep alone one
-    launch; ``launches`` counts each, :func:`record_launches`), which
-    updates the pool's flags (alive, occupied, record_pending, at_event,
-    ev_pending), ``spec`` and the counters in
-    place through ``ticket`` (a :func:`record_ticket`) and returns them, or
-    raise.  Returns (pool, spec, counters).  No host sync."""
+                 free=True, fold=False, bias=None):
+    """The phases' upkeep of the pool (``engine.record_phase_plain``, then
+    ``engine.bias_terms_plain``): under ``sweep`` the poison sweep, under
+    ``record`` the record of up to ``width`` escaped lanes into ``spec``
+    and the counters, under ``free`` the frees and their census, under
+    ``fold`` (with ``record``) the full phase's EMA fold; into ``bias`` (an
+    ``engine.BiasTerms`` of 0-d tensors of the pool's dtype, or None: the
+    frozen bias's constants, which nothing writes) the bias's terms from
+    the counters it leaves, under ``cfg.reference`` with the cumulative
+    average.  On CPU tensors the plain versions (new tensors; the terms
+    copied into ``bias``); on CUDA tensors one launch of ``record_phase`` /
+    ``record_phase_f64`` of ``csrc/record.cu`` (``launches`` counts it,
+    :func:`record_launches`), which updates the pool's flags (alive,
+    occupied, record_pending, at_event, ev_pending), ``spec``, the counters
+    and ``bias`` in place through ``ticket`` (a :func:`record_ticket` for
+    the pool's lanes) and returns them, or raise.  Returns (pool, spec,
+    counters).  No host sync."""
     if not (sweep or record or free):
         raise ValueError("record_phase: no stage to run")
+    if fold and not record:
+        raise ValueError("record_phase: the EMA fold comes with the record")
     n = pool.w.shape[0]
     if record and not (isinstance(width, int) and 0 < width <= n):
         raise ValueError(f"record_phase: width must be an int in [1, {n}], got {width!r}")
+    dt = pool.w.dtype
     if pool.w.device.type == "cpu":
-        return engine.record_phase_plain(pool, spec, counters, width, mc, cfg, sweep=sweep,
-                                         record=record, free=free)
-    dev, dt = _cuda_device(pool.w), pool.w.dtype
+        pool, spec, counters = engine.record_phase_plain(pool, spec, counters, width, mc, cfg,
+                                                         sweep=sweep, record=record, free=free)
+        if fold or bias is not None:
+            counters, terms = engine.bias_terms_plain(counters, mc.bias_norm, dt,
+                                                      cfg.reference, fold=fold)
+            for dst, src in zip(bias or (), terms):
+                dst.copy_(src)
+        return pool, spec, counters
+    dev = _cuda_device(pool.w)
     name = entry_point("record_phase", dt)
     i32, b8 = torch.int32, torch.bool
     read = [*pool.x, *pool.k, pool.w, pool.e, pool.x1i, pool.x2i, pool.tau_abs, pool.tau_scatt,
@@ -1081,36 +1104,50 @@ def record_phase(pool, spec, counters, width, mc, cfg, ticket=None, sweep=True, 
     if len(set(held)) != len(held):
         raise ValueError(f"{name}: two of the flags it updates in place share memory")
     if (spec.dtype != dt or tuple(spec.shape) != (engine.N_BINS + 1, engine.N_SPEC_CHAN)
-            or not spec.is_contiguous() or spec.device != dev):
-        raise ValueError(f"{name}: expected a contiguous {dt} spectrum "
+            or not spec.is_contiguous() or spec.device != dev or spec.data_ptr() % 16):
+        raise ValueError(f"{name}: expected a contiguous 16-byte aligned {dt} spectrum "
                          f"({engine.N_BINS + 1}, {engine.N_SPEC_CHAN}) on {dev}, got "
                          f"{spec.dtype} {tuple(spec.shape)} on {spec.device}")
     cs = [getattr(counters, c) for c in _RECORD_COUNTERS]
-    for c, t in zip(_RECORD_COUNTERS, cs):
+    terms = list(bias) if bias is not None else [None] * len(engine.BiasTerms._fields)
+    floats = ("max_tau_scatt", "w_stall", "mt_bx", "mt_bk", "mt_bw", "avg_ema")
+    for c, t in [*zip(_RECORD_COUNTERS, cs), *zip(engine.BiasTerms._fields, terms)]:
+        if t is None:
+            continue
         want = (4,) if c in ("mt_bx", "mt_bk") else ()
-        typ = dt if c in ("max_tau_scatt", "w_stall", "mt_bx", "mt_bk", "mt_bw") else torch.int64
+        typ = dt if c in floats + engine.BiasTerms._fields else torch.int64
         if t.dtype != typ or tuple(t.shape) != want or t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} {c}: expected a {typ} {want} tensor on {dev}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if ticket is None or ticket.dtype != torch.int32 or ticket.shape != (1,) \
-            or ticket.device != dev:
-        raise ValueError(f"{name}: expected the record's ticket (record_ticket) on {dev}, got "
+    held = [t.data_ptr() for t in terms if t is not None]
+    if len(set(held)) != len(held):
+        raise ValueError(f"{name}: two of the bias's terms share memory")
+    if (ticket is None or ticket.dtype != torch.uint8 or ticket.dim() != 1
+            or ticket.device != dev or ticket.numel() < _int_fn("record_phase_scratch", n)):
+        raise ValueError(f"{name}: expected the record's scratch (record_ticket) for {n} lanes "
+                         f"on {dev}, got "
                          f"{None if ticket is None else (ticket.dtype, tuple(ticket.shape))}")
-    mode = sweep * RECORD_SWEEP + record * RECORD_RECORD + free * RECORD_FREE
-    scratch = torch.empty(max(1, _int_fn("record_phase_scratch", n)), dtype=torch.uint8,
-                          device=dev)
-    _launch(name, read + flags + (birth or [None] * 9) + [spec] + cs + [ticket, scratch],
-            _record_scalars(mc, width if record else 1, mode, cfg.stall_steps, dev, dt), n, dev,
-            kernels=record_launches(n, mode))
+    mode = (sweep * RECORD_SWEEP + record * RECORD_RECORD + free * RECORD_FREE
+            + fold * RECORD_FOLD + (bias is not None) * RECORD_TERMS
+            + cfg.reference * RECORD_CUMUL)
+    _launch(name, read + flags + (birth or [None] * 9) + [spec] + cs + terms + [ticket],
+            _record_scalars(mc, width if record else 1, mode, cfg.stall_steps, dev, dt),
+            n, dev, kernels=record_launches(mode))
     return pool, spec, counters
 
 
-def record_launches(n, mode):
-    """The kernels a :func:`record_phase` call on ``n`` lanes launches in
-    ``mode`` (``RECORD_SWEEP``, ``RECORD_RECORD``, ``RECORD_FREE`` added):
-    two where it ranks or sweeps before the record or the frees above one
-    tile, else one (``csrc/record.cu`` count_first)."""
-    return _int_fn("record_phase_launches", n, mode)
+def record_at_rest(scratch, n):
+    """Whether a record's scratch for ``n`` lanes (:func:`record_ticket`)
+    is at rest: the ticket, the tile counter and every tile's status word
+    (tiles of ``RECORD_TILE`` lanes) at zero."""
+    return not bool(scratch[:8 + 8 * -(-n // RECORD_TILE)].any())
+
+
+def record_launches(mode):
+    """The kernels a :func:`record_phase` call launches in ``mode``
+    (``RECORD_SWEEP``, ``RECORD_RECORD``, ``RECORD_FREE`` added): one for
+    every mode (``csrc/record.cu``'s record_phase_launches)."""
+    return _int_fn("record_phase_launches", mode)
 
 
 def plain_rowsum(table, idx):
@@ -1908,6 +1945,11 @@ def synthetic_record(mc, n, k, seed, dtype, device, reference=False, trace_birth
         n_stall=t(3, torch.int64), w_stall=t(0.5), mt_bx=t(rng.uniform(-1.0, 1.0, 4)),
         mt_bk=t(rng.uniform(-1.0, 1.0, 4)), mt_bw=t(0.25), mt_nsc0=t(7, torch.int64))
     spec = t(rng.uniform(0.0, 1.0, (engine.N_BINS + 1, engine.N_SPEC_CHAN)))
+    # the EMA's average and its marks some scatters and records back
+    counters = counters._replace(
+        avg_ema=t(rng.uniform(0.5, 3.0)),
+        ema_scatt_mark=counters.n_scatt_rec - int(rng.integers(0, 200)),
+        ema_rec_mark=counters.n_recorded - int(rng.integers(0, 100)))
     cfg = engine.EngineConfig(n_pool=n, dtype=dtype, reference=reference,
                               stall_steps=RECORD_STALL, trace_birth=trace_birth)
     return pool, spec, counters, cfg
@@ -1919,6 +1961,22 @@ def clone_record(pool, spec, counters):
             engine.Counters(*(c.clone() for c in counters)))
 
 
+def record_bias(dtype, device):
+    """Bias terms for :func:`record_phase` to write: 0-d tensors of
+    ``dtype`` at NaN, so that a term left unwritten shows."""
+    return engine.BiasTerms(*(torch.full((), math.nan, dtype=dtype, device=device)
+                              for _ in engine.BiasTerms._fields))
+
+
+def record_plain(pool, spec, counters, width, mc, cfg, fold=False, **mode):
+    """The plain version of :func:`record_phase` with its bias terms:
+    ((pool, spec, counters), ``engine.BiasTerms``), the counters folded
+    under ``fold``."""
+    p, s, c = engine.record_phase_plain(pool, spec, counters, width, mc, cfg, **mode)
+    c, terms = engine.bias_terms_plain(c, mc.bias_norm, pool.w.dtype, cfg.reference, fold=fold)
+    return (p, s, c), terms
+
+
 def sum_slack(before, after, count):
     """The tolerance of a sum of ``count`` nonnegative terms added into
     ``before`` in another order, elementwise: (count + 1) eps |after|, the
@@ -1927,16 +1985,21 @@ def sum_slack(before, after, count):
     return (count + 1.0) * eps * torch.abs(after) + torch.finfo(after.dtype).tiny
 
 
-def compare_record(pool, spec, counters, ref, got):
+def compare_record(pool, spec, counters, ref, got, terms=None):
     """Hold a record's outputs ``got`` = (pool, spec, counters) against the
     plain version's ``ref`` on its inputs (``pool``, ``spec``,
     ``counters``): every pool field (the flags, and the rest untouched),
     every counter but w_stall (the chosen lanes' counts, the ratchet, the
-    trace's capture) bit for bit; the spectrum and w_stall, sums of
-    nonnegative terms that the kernel adds in another order (atomics), within
-    :func:`sum_slack` of their adds (a bin's count of adds is its channel 2,
-    a recorded lane's 1.0).  Returns (record, failures)."""
+    trace's capture, the EMA fold) bit for bit; the spectrum and w_stall,
+    sums of nonnegative terms that the kernel adds in another order
+    (atomics), within :func:`sum_slack` of their adds (a bin's count of
+    adds is its channel 2, a recorded lane's 1.0); ``terms`` = (the plain
+    ``engine.BiasTerms``, the written ones), each bit for bit.  Returns
+    (record, failures)."""
     fails = []
+    for f, a, b in zip(engine.BiasTerms._fields, *(terms or ((), ()))):
+        if a.dtype != b.dtype or not bool(_same_bits(a, b).all()):
+            fails.append(f"{f}: {b.tolist()} against {a.tolist()}")
     ref_f, got_f = (_flat(p._asdict()) for p in (ref[0], got[0]))
     for f, a in ref_f.items():
         differ = ~_same_bits(a, got_f[f])

@@ -49,7 +49,7 @@ window are not the run's.
    (``--trace``).  The census is the cell's eager run (``graphed=False``,
    before the profiler starts) with each launch of ``compact``, of the
    event phase (``event_phase``, ``event_phase_f64``), of the record
-   (``record_phase``, ``_f64``: a call, its one or two kernels) and of the
+   (``record_phase``, ``_f64``: a call, its one kernel) and of the
    track start (``fresh_init`` ...) timed alone: a GPU
    sleep, a CUDA event, the launch, a CUDA event, so that the first event
    is stamped when the launch is already queued (the pair's own floor,
@@ -102,7 +102,8 @@ WRAPPERS = ("event_phase", "compact_rows", "compact", "record_phase", "refill_fr
 PHOTON_N = 100_000
 REF_PHOTON_N = 50_000
 # device kernels whose time the trace windows report, by names (the mask
-# compaction's kernel is compact_tiles_kernel, compact_kernel before)
+# compaction's kernel is compact_tiles_kernel, compact_kernel before; the
+# record's one kernel record_phase_kernel, after record_count_kernel before)
 TRACED = {"hot_step_ms": ("hot_step_kernel",), "event_phase_ms": ("event_phase_kernel",),
           "compact_ms": ("compact_kernel", "compact_tiles_kernel"),
           "compact_rows_ms": ("compact_rows_kernel",), "fresh_init_ms": ("fresh_init_kernel",),
@@ -294,12 +295,12 @@ def census(root, photon_n, reference):
     refill_slots = engine.Engine.refill_slots
     slot = hot_kernels._PHASE_PTRS.index
 
-    def timed_launch(name, ptr_tensors, scal, n, device):
+    def timed_launch(name, ptr_tensors, scal, n, device, kernels=1):
         if name in hot_kernels.HOT_STEPS + hot_kernels.HOT_DRAWS:
             key = (at["engine"], name, n)
             hot[key] = hot.get(key, 0) + 1
         if name not in CENSUS or n == 0:
-            return launch(name, ptr_tensors, scal, n, device)
+            return launch(name, ptr_tensors, scal, n, device, kernels=kernels)
         # the count, queued before the launch (the record updates its flags
         # in place)
         role = at["role"]
@@ -310,7 +311,8 @@ def census(root, photon_n, reference):
         elif name.startswith("record_phase"):
             pool_n, k = n, int(scal[0])
             count = ptr_tensors[hot_kernels._RECORD_PTRS.index("record_pending")].sum()
-            role = "sweep" if int(scal[1]) == hot_kernels.RECORD_SWEEP else "record"
+            stages = hot_kernels.RECORD_RECORD | hot_kernels.RECORD_FREE
+            role = "record" if int(scal[1]) & stages else "sweep"
         elif name.startswith("fresh_init"):
             valid = ptr_tensors[hot_kernels._FRESH_PTRS.index("valid")]
             pool_n, k, role = n, valid.shape[0], "refill"
@@ -323,7 +325,7 @@ def census(root, photon_n, reference):
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(CENSUS_SLEEP)
         e0.record()
-        launch(name, ptr_tensors, scal, n, device)
+        launch(name, ptr_tensors, scal, n, device, kernels=kernels)
         e1.record()
         recs.append((at["engine"], role, name, pool_n, k, count, e0, e1))
 
@@ -401,6 +403,7 @@ def run_cell(root, photon_n, reference, graphed):
                "ms_per_hot_iter": st["device_s"] * 1e3 / max(1, st["iters"])}
               for st in stats["tail_stages"]]
     out = {"graphed": sim.engine.graphed, "n_created": stats["n_created"],
+           "n_recorded": stats["n_recorded"],
            "hot_iters": stats["hot_iters"], "full_phases": stats["full_phases"],
            "light_phases": stats["light_phases"], "device_window_ms": window_ms,
            "ms_per_hot_iter": window_ms / max(1, stats["hot_iters"]),

@@ -167,7 +167,7 @@ def test_process_scatters_equals_the_composition_it_replaces(cpu_sims, dtype, ri
     g1 = eng.gen.get_state()
     eng.gen.set_state(g0)
     calls = _counted(monkeypatch, ("compact", "event_phase", "compact_rows"))
-    got = eng.process_scatters(pool, sec, counters)
+    got = eng.process_scatters(pool, sec, counters, eng._bias_den(counters))
     assert calls == {"compact": 1, "event_phase": 1, "compact_rows": 1}
     assert torch.equal(eng.gen.get_state(), g1)
     for a, b in zip(got, want, strict=True):
@@ -538,10 +538,10 @@ def test_graphed_block_equals_the_eager_one(dump, dtype, reference):
     assert lg["compact"] >= 2 * tg["full_phases"] + tg["light_phases"]
     sweep, rec, free = (hot_kernels.RECORD_SWEEP, hot_kernels.RECORD_RECORD,
                         hot_kernels.RECORD_FREE)
-    kernels = sum(f * (hot_kernels.record_launches(n, sweep) + hot_kernels.record_launches(
-                  n, rec | free)) + li * hot_kernels.record_launches(n, sweep | rec | free)
-                  + fl * hot_kernels.record_launches(n, rec)
-                  for n, f, li, fl in tg["engine_phases"])
+    kernels = sum(f * (hot_kernels.record_launches(sweep) + hot_kernels.record_launches(
+                  rec | free)) + li * hot_kernels.record_launches(sweep | rec | free)
+                  + fl * hot_kernels.record_launches(rec)
+                  for _, f, li, fl in tg["engine_phases"])
     assert lg[hot_kernels.entry_point("record_phase", dtype)] == kernels
     assert kernels >= 2 * tg["full_phases"] + tg["light_phases"]
     for off in ("row_gather", "event_fluid", "scatter_event"):

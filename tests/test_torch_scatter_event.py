@@ -278,7 +278,7 @@ def test_process_scatters_through_the_wrapper_equals_the_plain_call(cpu_sim, mon
         return wrapper(*a, **kw)
 
     monkeypatch.setattr(hot_kernels, "event_phase", counted)
-    got = eng.process_scatters(pool, sec, counters)
+    got = eng.process_scatters(pool, sec, counters, eng._bias_den(counters))
     after = eng.gen.get_state()
     assert calls == [1]
 
@@ -289,7 +289,7 @@ def test_process_scatters_through_the_wrapper_equals_the_plain_call(cpu_sim, mon
         return engine.event_phase_plain(p, c, sel, room, wedged, den, mc, tables, gen)
 
     monkeypatch.setattr(hot_kernels, "event_phase", plain)
-    want = eng.process_scatters(pool, sec, counters)
+    want = eng.process_scatters(pool, sec, counters, eng._bias_den(counters))
     assert torch.equal(eng.gen.get_state(), after)
     for a, b in zip(got, want, strict=True):
         for f in a._fields:
