@@ -25,8 +25,14 @@ Phases, each of which exits non-zero on failure:
    same key and step, within the same tolerance with the census exactly,
    phase A's own fields (``hot_kernels.PHASE_A_FIELDS``) equal on every
    lane, and every field bit for bit the explicit instance's on those
-   uniforms (``hot_draw_check``); the row gather on the raw corner table at
-   seeded indices, bitwise equal to ``table[idx]``.  Each with the time per call of kernel
+   uniforms (``hot_draw_check``); the drawing instance's runs
+   (``hot_run_checks``, phase 4b: one launch of S = 4, 32 and 64 steps in
+   place at 65,536, 16,384, 4,096, 1,024 and 512 lanes, bit for bit S
+   launches of one step, census included; its device time a launch and a
+   step beside one step's launch and the run's bound, ``run check
+   <entry>@<n>x<S>`` lines, kept in the record's ``runs``); the row gather
+   on the raw corner table at seeded indices, bitwise equal to
+   ``table[idx]``.  Each with the time per call of kernel
    and plain when the host calls them back to back (``ms``, ``plain_ms``,
    CUDA events), the kernel's device time per launch (``device_ms``:
    launches queued behind a GPU sleep, so the host's launch cost is
@@ -128,15 +134,17 @@ Phases, each of which exits non-zero on failure:
    of these records gives its registers and spills.  Every
    run of phases 5-12 and 14 must launch exactly what its path runs
    (``path_launches``: the drawing hot step of its dtype and semantics once
-   per hot iteration, the event phase and the ring's pack of its dtype once
+   per full and light phase, a run of the block's hot steps each, its
+   launches' steps (``<entry>.steps``, ``hot_kernels.run_steps``) the hot
+   iterations, the event phase and the ring's pack of its dtype once
    per full phase, the compaction at least twice a full phase and once a
    light one, the record exactly once a call of each engine's phases and
    closing flushes (``hot_kernels.record_launches``, one a call),
    the track start of its dtype and semantics once per full and light
    phase, no other entry point: the row
    gather, the event fluid and the event kernel stay off the path), no
-   plain hot step, load, track start, event fluid, event phase, pack,
-   record, refill sources or sort-based compaction, no
+   plain hot step or run, load, track start, event fluid, event phase,
+   pack, record, refill sources or sort-based compaction, no
    ``torch.sort`` at all (``plain_calls["torch.sort"]``, 0), and no
    ``torch.rand`` inside a block (``counting_plain_steps``: it raises
    there, and the path lines count its calls as
@@ -153,8 +161,8 @@ Phases, each of which exits non-zero on failure:
    65,536, the JAX driver's whole schedule: the pilot (8,192 photons on the
    host tracker; its seconds and counters printed), the waves (the first
    chunk ramped), the tail cascade (each stage's width, iterations and
-   device window printed); every hot step of every engine must be one
-   launch of ``hot_step_draw``, every full phase's events one launch of
+   device window printed); every run of hot steps of every engine must be
+   one launch of ``hot_step_draw``, every full phase's events one launch of
    ``event_phase`` and their secondaries' pack one of ``compact_rows`` (the
    row gather, ``event_fluid`` and ``scatter_event`` none), every
    compaction one of ``compact``, ``fresh_init`` once per full and light
@@ -164,8 +172,8 @@ Phases, each of which exits non-zero on failure:
    JAX engine's 12694.3 on the same torus and seed;
 6. reference semantics end to end on the same cell (``--ref-photon-n``
    photons, ``profiles.reference_config`` with its step cap cut to
-   ``--ref-stall-steps``, the same schedule): every hot step must be one
-   launch of ``hot_step_ref_draw``, the event phase, the pack and the
+   ``--ref-stall-steps``, the same schedule): every run of hot steps must
+   be one launch of ``hot_step_ref_draw``, the event phase, the pack and the
    compaction run as in phase 5 (the track start ``fresh_init_ref``
    fetches its raw rows itself, once in each full and light phase), with
    the same checks of the schedule, the spectrum and the luminosity;
@@ -206,8 +214,8 @@ Phases, each of which exits non-zero on failure:
    every launch count set to 0 just before: the engine on the card against
    the native tracker on the host.  It must pass the gate's hard gates
    (``chi2_sec_gen_per_dof`` < 5, no hotcross clamp), its luminosity ratio
-   must lie within 1 +- 0.10, every hot step of its engines must be one
-   launch of ``hot_step_draw`` and the event phase one launch a full
+   must lie within 1 +- 0.10, every run of hot steps of its engines must
+   be one launch of ``hot_step_draw`` and the event phase one launch a full
    phase; its numbers are printed on one line (``{"phase": "accuracy",
    ...}``);
 11. the sharded path and the native dump parser on the 256x256 torus:
@@ -219,7 +227,7 @@ Phases, each of which exits non-zero on failure:
    the same seed (the ``Simulation`` run is phase 8's uninterrupted one):
    every count equal and the spectrum within rtol 1e-6, with
    the launch counts set to 0 just before the sharded run (one
-   ``hot_step_draw`` launch per hot iteration, one event phase per full phase);
+   ``hot_step_draw`` launch a run, one event phase per full phase);
    ``python -m grmonty_tpu_torch --devices N`` with one rank more than the
    machine has cards must exit non-zero with "need N devices".  The
    set-up seconds of each ``Simulation`` made here (the dump read and the
@@ -241,7 +249,7 @@ Phases, each of which exits non-zero on failure:
    and counts beside phase 8's float32 run; (c) the accuracy gate at
    reference semantics in float64 (``F64_GATE_ARGS``): its hard gates, the
    luminosity ratio within 3 of the tool's sigmas, one ``hot_step_ref_f64_draw``
-   launch per hot iteration; (d) ``python -m grmonty_tpu_torch --dtype
+   launch a run; (d) ``python -m grmonty_tpu_torch --dtype
    float64 --reference`` on the 64x32 torus at ``--photon_n`` 200
    (``F64_CLI_PHOTON_N``), as phase 9;
 13. the scatter-chain distribution probe
@@ -291,9 +299,11 @@ the same way, which is how two versions are compared in one call.  With
 (no kernels line, no result line); with ``--ab-hot-step DIR`` phases 1
 and 2, then this checkout's hot step against the one of the checkout at
 DIR in turns (``ab_hot_step``: both dtypes, variants and instances at
-``AB_WIDTHS``, every output and census bit for bit the other's, the float64
-instances' SASS and that of the kernels of ``fresh_init.cu`` and
-``scatter_event.cu`` identical to the other's), then the card line; with
+``AB_WIDTHS``, every output and census bit for bit the other's, the
+drawing instance also as this checkout's run of S steps against S of the
+other's launches (``ab_hot_run``), the SASS of the kernels of
+``fresh_init.cu`` and ``scatter_event.cu`` identical to the other's), then
+the card line; with
 ``--ab-phase-kernels DIR`` phases 1 and 2, then this checkout's event
 kernel, refill's sources, load and track start and the record against
 those of the checkout at DIR in turns (``ab_phase_kernels``: each at its
@@ -814,13 +824,15 @@ def ab_hot_step(root, sims, other, usage, ref_stall_steps, turns=2):
     differ printed, with the worst relative difference); the device time in
     turns (this, other, other, this, ``turns`` times); each side's ptxas
     registers and spills, this side's group, threads and blocks an SM; and
-    whether each float64 instance's SASS is identical to the other's.  Then
-    the SASS of every kernel of the other checkout's ``fresh_init.cu`` and
-    ``scatter_event.cu`` (the track start, the event, the chain, the event
-    phase), built the same way, against this build's.  Prints one line per
-    variant, instance and width; fails if a census differs from the plain
-    version's, after all lines if an output or a census differs from the
-    other side's or a float64 hot step's or another kernel's SASS
+    whether each instance's SASS is identical to the other's (reported: a
+    run's loop moves the hot step's).  The drawing instance also as a run
+    of S steps against S of the other's launches (:func:`ab_hot_run`).
+    Then the SASS of every kernel of the other checkout's ``fresh_init.cu``
+    and ``scatter_event.cu`` (the track start, the event, the chain, the
+    event phase), built the same way, against this build's.  Prints one
+    line per variant, instance and width; fails if a census differs from
+    the plain version's, after all lines if an output or a census of a step
+    or a run differs from the other side's or another kernel's SASS
     differs."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
@@ -936,8 +948,9 @@ def ab_hot_step(root, sims, other, usage, ref_stall_steps, turns=2):
                     if differ or not rec["census_vs_other"]:
                         problems.append(f"{name}@{n}: fields {sorted(differ)}, census "
                                         f"{'equal' if rec['census_vs_other'] else 'differs'}")
-                    if typ == "double" and not rec["sass_identical"]:
-                        problems.append(f"{name}@{n}: the float64 SASS differs")
+                    if draw:
+                        problems += ab_hot_run(name, fns, pool, counters, key, bias, mc, tabs,
+                                               cfg, turns)
     mine_anon = {anon(f): [anon(ins) for ins in v] for f, v in mine_all.items()}
     for stem in AB_SASS_STEMS[1:]:
         same = {anon(f): mine_anon.get(anon(f)) == [anon(ins) for ins in v]
@@ -954,6 +967,72 @@ def ab_hot_step(root, sims, other, usage, ref_stall_steps, turns=2):
 # then those whose kernels' SASS must not move (the track start, the event,
 # the chain and the event phase include the shared csrc/physics.cuh)
 AB_SASS_STEMS = ("hot_step", "fresh_init", "scatter_event")
+# --ab-hot-step's runs: this checkout's run of S steps against S of the
+# other's drawing launches (a run of 4 in a shipped wave body, 64 in a
+# cascade body)
+AB_RUN_STEPS = (4, 64)
+
+
+def ab_hot_run(name, fns, pool, counters, key, bias, mc, tabs, cfg, turns):
+    """``--ab-hot-step``'s runs of the drawing entry point ``name``: this
+    side's run of S steps (``hot_kernels.hot_run``, one launch in place)
+    against S launches of the other side's entry point (each
+    ``hot_kernels.hot_step_drawn``, into new tensors; an entry point from
+    before the run reads its step and ignores the steps) from the block's
+    step 5, at each S of AB_RUN_STEPS: every pool field and census counter
+    bit for bit, the device time of the run and of the S launches in turns
+    (this, other, other, this; ``turns`` times).  Prints a line each;
+    returns the problems."""
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    n, reference = pool.w.shape[0], cfg.reference
+
+    def copy():
+        return engine.clone_pool(pool), counters._replace(
+            **{c: getattr(counters, c).clone() for c in hot_kernels.CENSUS})
+
+    def chained(p, c, steps):
+        for j in range(steps):
+            p, c = hot_kernels.hot_step_drawn(p, c, key, 5 + j, bias, mc, tabs, cfg)
+        return p, c
+
+    problems = []
+    for steps in AB_RUN_STEPS:
+        try:
+            hot_kernels._Build.fns[name] = fns["other"]
+            theirs = chained(*copy(), steps)
+            hot_kernels._Build.fns[name] = fns["this"]
+            mine = hot_kernels.hot_run(*copy(), key, 5, steps, bias, mc, tabs, cfg)
+            torch.cuda.synchronize()
+            (mine_f, mine_c), (theirs_f, theirs_c) = (
+                hot_kernels.step_outputs(*side, reference) for side in (mine, theirs))
+            flat_m, flat_t = hot_kernels._flat(mine_f), hot_kernels._flat(theirs_f)
+            differ = sorted(f for f in flat_m if bool(bit_diff(flat_m[f], flat_t[f]).any()))
+            work, chain = copy(), copy()
+            sides = {"this": lambda: hot_kernels.hot_run(*work, key, 5, steps, bias, mc, tabs,
+                                                         cfg),
+                     "other": lambda: chained(*chain, steps)}
+            device_ms = {"this": [], "other": []}
+            for _ in range(turns):
+                for side in ("this", "other", "other", "this"):
+                    hot_kernels._Build.fns[name] = fns[side]
+                    device_ms[side].append(cuda_ms(sides[side], reps=RUN_REPS, queued=True))
+        finally:
+            hot_kernels._Build.fns[name] = fns["this"]
+        rec = {"name": f"{name}.run", "n": n, "steps": steps,
+               "device_us_launch": {k: [1e3 * v for v in vs] for k, vs in device_ms.items()},
+               "device_us_step": {k: 1e3 * sum(vs) / len(vs) / steps
+                                  for k, vs in device_ms.items()},
+               "bitwise_vs_other": not differ, "census_vs_other": mine_c == theirs_c,
+               "differ": differ}
+        print(f"ab run {name}@{n}x{steps}: {json.dumps(rec)}")
+        if differ or mine_c != theirs_c:
+            problems.append(f"{name}@{n}: a run of {steps} steps differs from {steps} of the "
+                            f"other's launches: fields {differ}, census "
+                            f"{'equal' if mine_c == theirs_c else 'differs'}")
+    return problems
 
 
 # --ab-phase-kernels: the event's lanes a warp and the track start's
@@ -1598,11 +1677,122 @@ def hot_draw_check(sim, cfg, pool, counters, bias, usage, sass, moved, explicit_
     return rec
 
 
+# Phase 4b's runs (and 12a's): every instance width of the drawing hot step
+# and the steps a run takes on the path (a shipped wave body's four runs of
+# 4, a reference wave body's run of 32, a cascade body's run of 64).
+RUN_WIDTHS = (N_CHECK, 16384, *TAIL_CHECKS)
+RUN_STEPS = (4, 32, 64)
+RUN_REPS = 4  # timed runs of the chained steps a call: few launches queued
+
+
+def step_cells(pool, mc):
+    """The bilinear cells of the pool's positions, as the hot step finds
+    the cell whose corner row it fetches (its pushed position, the pool's
+    after the step but on a lane that rolled back): the rows a step
+    reads, for a bound."""
+    import torch
+
+    ii = torch.floor((pool.x[1] - mc.x_start[1]) / mc.dx[1] - 0.5).clamp(0, mc.n1 - 2)
+    jj = torch.floor((pool.x[2] - mc.x_start[2]) / mc.dx[2] - 0.5).clamp(0, mc.n2 - 2)
+    return torch.unique((ii * mc.n2 + jj).long())
+
+
+def hot_run_checks(sim, usage, sass, ref_stall_steps):
+    """Phase 4b (and 12a): a run of the drawing hot step of each semantics
+    in ``sim``'s dtype (``hot_kernels.hot_run``: one launch of S steps, in
+    place) against S launches of one step each (``hot_kernels.hot_step_drawn``,
+    into new tensors) on phase 4's synthetic lanes under one key from the
+    block's step 5: every pool field and census counter bit for bit, at
+    every width of RUN_WIDTHS and S of RUN_STEPS (the run's tensors its
+    own, one launch of S steps counted).  Each timed on the card: the run's
+    device time a launch and a step, one step's launch, and the run's bound
+    (each lane's fields read and written once, the corner rows its S steps
+    touch, its operations and Philox blocks S times).  Returns {entry point:
+    {"<n>x<S>": record}}; fails on a differing bit."""
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels, profiles
+
+    mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, sim.cfg.dtype
+    out = {}
+    for reference in (False, True):
+        name = hot_kernels.entry_point("hot_step", dt, reference, draw=True)
+        table = tabs.corner_rows if reference else tabs.hot_tab
+        for n in RUN_WIDTHS:
+            cfg = (profiles.reference_config(pool=n, dtype=dt, stall_steps=ref_stall_steps)
+                   if reference else sim.cfg._replace(n_pool=n))
+            lanes = hot_kernels.synthetic_lanes(mc, n, 2024, cfg.stall_steps, reference,
+                                                events=True)
+            pool, counters, _, _, bias = hot_kernels.synthetic_step(lanes, dt, dev)
+            key = torch.tensor([0x407D4A00 + n, 0x5EED5], dtype=torch.int64, device=dev)
+
+            def copy():
+                return engine.clone_pool(pool), counters._replace(
+                    **{c: getattr(counters, c).clone() for c in hot_kernels.CENSUS})
+
+            for steps in RUN_STEPS:
+                want_p, want_c = copy()
+                cells = []  # the corner rows the steps fetch: each step's cells
+                for j in range(steps):
+                    want_p, want_c = hot_kernels.hot_step_drawn(want_p, want_c, key, 5 + j,
+                                                                bias, mc, tabs, cfg)
+                    cells.append(step_cells(want_p, mc))
+                cells = torch.unique(torch.cat(cells))
+                got_p, got_c = copy()
+                held = engine.pool_tensors(got_p)
+                n0, s0 = hot_kernels.launches[name], hot_kernels.run_steps[name]
+                back = hot_kernels.hot_run(got_p, got_c, key, 5, steps, bias, mc, tabs, cfg)
+                torch.cuda.synchronize()
+                in_place = (back[0] is got_p and all(
+                    a is b for a, b in zip(engine.pool_tensors(back[0]), held, strict=True))
+                    and hot_kernels.launches[name] == n0 + 1
+                    and hot_kernels.run_steps[name] == s0 + steps)
+                got_f, got_cen = hot_kernels.step_outputs(got_p, got_c, reference)
+                want_f, want_cen = hot_kernels.step_outputs(want_p, want_c, reference)
+                flat_got, flat_want = hot_kernels._flat(got_f), hot_kernels._flat(want_f)
+                differ = sorted(f for f in flat_got if not bool(
+                    hot_kernels._same_bits(flat_got[f], flat_want[f]).all()))
+                work = copy()
+                run_ms = cuda_ms(lambda: hot_kernels.hot_run(*work, key, 5, steps, bias, mc,
+                                                             tabs, cfg),
+                                 reps=RUN_REPS, queued=True)
+                one = copy()
+                step_ms = cuda_ms(lambda: hot_kernels.hot_step_drawn(*one, key, 5, bias, mc,
+                                                                     tabs, cfg), queued=True)
+                lane_bytes = nbytes(hot_kernels._pool_cols(pool), pool.occupied,
+                                    [] if reference else hot_kernels._ev_cols(pool))
+                moved = (2 * lane_bytes + 2 * nbytes([getattr(counters, c)
+                                                      for c in hot_kernels.CENSUS])
+                         + nbytes(key, bias, tabs.hc_coeffs)
+                         + cells.numel() * table.shape[1] * table.element_size())
+                ops = event_ops_equiv(OPS_PER_LANE[name] * n * steps,
+                                      PHILOX_BLOCK_INT_OPS * n * steps, kernel_dtype(name))
+                bound_ms, bound_by = bound(moved, ops, kernel_dtype(name))
+                rec = {"name": f"{name}.run", "n": n, "steps": steps,
+                       **hot_instance(name, n, reference, dt, usage, sass, True),
+                       "device_us_launch": 1e3 * run_ms, "device_us_step": 1e3 * run_ms / steps,
+                       "one_step_device_us": 1e3 * step_ms, "bound_us": 1e3 * bound_ms,
+                       "bound_by": bound_by, "bytes": moved, "cells": cells.numel(),
+                       "bitwise_vs_steps": not differ and got_cen == want_cen,
+                       "in_place": in_place}
+                print(f"run check {name}@{n}x{steps}: {json.dumps(rec)}")
+                if differ or got_cen != want_cen or not in_place:
+                    fail(f"{name}@{n}: a run of {steps} steps is not {steps} launches of one "
+                         f"step: fields {differ}, census {got_cen} against {want_cen}, in "
+                         f"place {in_place}")
+                out.setdefault(name, {})[f"{n}x{steps}"] = {
+                    k: rec[k] for k in ("device_us_launch", "device_us_step",
+                                        "one_step_device_us", "bound_us", "bound_by",
+                                        "group", "threads", "ptxas")}
+    return out
+
+
 def kernel_checks(sim, usage, sass, ref_stall_steps):
     """Phase 4 (and 12a): every kernel of the path in ``sim``'s dtype vs its
-    plain version at N_CHECK lanes (the records returned), and the hot step
+    plain version at N_CHECK lanes (the records returned), the hot step
     at the cascade's and the gate's widths (printed, and kept in each
-    hot-step record's ``instances``)."""
+    hot-step record's ``instances``), and the drawing hot step's runs
+    (:func:`hot_run_checks`, kept in its record's ``runs``)."""
     import numpy as np
     import torch
 
@@ -1611,9 +1801,12 @@ def kernel_checks(sim, usage, sass, ref_stall_steps):
     out = hot_step_checks(sim, usage, sass, ref_stall_steps)
     tails = [rec for n in TAIL_CHECKS
              for rec in hot_step_checks(sim, usage, sass, ref_stall_steps, n=n)]
+    runs = hot_run_checks(sim, usage, sass, ref_stall_steps)
     for rec in out:
         rec["instances"] = {r["n"]: {k: r[k] for k in HOT_INSTANCE_KEYS}
                             for r in [rec] + tails if r["name"] == rec["name"]}
+        if rec["name"] in runs:
+            rec["runs"] = runs[rec["name"]]
     # the row gather on the raw corner table, indices 0 and Z-1 included
     table = sim.tables.corner_rows
     z_n = table.shape[0]
@@ -2487,9 +2680,11 @@ def check_schedule(sim, stats, label):
 def path_launches(cfg, stats):
     """{entry point: launches} that a run of ``cfg`` with the counters
     ``stats`` (hot_iters, full_phases, light_phases, engine_phases) must
-    show: the fused hot step of its dtype and semantics, its drawing
-    instance (every hot iteration runs inside a block), once per hot
-    iteration of every engine; the event phase and the ring's pack of its
+    show (:func:`path_counts`): the fused hot step of its dtype and
+    semantics, its drawing instance (every hot iteration runs inside a
+    block, each of a block's runs of hot steps one launch), once in each
+    full and light phase of every engine, its launches running ``hot_iters``
+    steps (``<entry>.steps``); the event phase and the ring's pack of its
     dtype once in each full phase; the track start of its dtype and
     semantics once in each full and light phase (under reference semantics
     it fetches its raw rows itself); the record of its dtype, one launch a
@@ -2517,13 +2712,31 @@ def path_launches(cfg, stats):
     records = sum(f * (launched(sweep) + launched(rec | free))
                   + li * launched(sweep | rec | free) + fl * launched(rec)
                   for _, f, li, fl in stats["engine_phases"])
-    want = {hot_kernels.entry_point("hot_step", dt, ref, draw=True): stats["hot_iters"],
+    draw = hot_kernels.entry_point("hot_step", dt, ref, draw=True)
+    want = {draw: full + stats["light_phases"],
             hot_kernels.entry_point("event_phase", dt): full,
             hot_kernels.entry_point("compact_rows", dt): full,
             "compact": 2 * full + stats["light_phases"],
             hot_kernels.entry_point("record_phase", dt): records,
             hot_kernels.entry_point("fresh_init", dt, ref): full + stats["light_phases"]}
-    return {name: want.get(name, 0) for name in hot_kernels.launches}
+    out = {name: want.get(name, 0) for name in hot_kernels.launches}
+    out.update({f"{name}{STEPS}": stats["hot_iters"] if name == draw else 0
+                for name in hot_kernels.run_steps})
+    return out
+
+
+# the key of a drawing hot step's run steps in path_counts
+STEPS = ".steps"
+
+
+def path_counts():
+    """The counts a path's run is held to (:func:`path_launches`): the
+    kernels' launches and, under ``<entry>.steps``, the hot steps each
+    drawing hot step's launches ran (``hot_kernels.run_steps``)."""
+    from grmonty_tpu_torch.transport import hot_kernels
+
+    return {**hot_kernels.launches,
+            **{f"{name}{STEPS}": v for name, v in hot_kernels.run_steps.items()}}
 
 
 # the entry points whose path_launches count is a least count
@@ -2550,13 +2763,13 @@ def launch_failures(cfg, stats, counts):
     return bad
 
 
-# The plain versions that a run on the card must not call: the hot step's,
-# the load's and the track start's, the event fluid's, the event phase's,
+# The plain versions that a run on the card must not call: the hot step's
+# and its run's, the load's and the track start's, the event fluid's, the event phase's,
 # the ring's pack, the compaction (the sort), the record's and refill's
 # sources.
-PLAIN_FNS = ("hot_step_plain", "init_fresh_plain", "refill_load_plain", "event_fluid_plain",
-             "event_phase_plain", "pack_rows_plain", "compact_idx", "record_phase_plain",
-             "refill_sources_plain")
+PLAIN_FNS = ("hot_step_plain", "hot_run_plain", "init_fresh_plain", "refill_load_plain",
+             "event_fluid_plain", "event_phase_plain", "pack_rows_plain", "compact_idx",
+             "record_phase_plain", "refill_sources_plain")
 # and what a block on the card must not call: it draws its hot steps'
 # uniforms inside their kernel
 RAND_IN_BLOCK = "torch.rand_in_block"
@@ -2638,7 +2851,7 @@ def drive(sim, label):
     with counting_plain_steps() as plain_steps:
         hot_kernels.reset_launches()
         spec, stats = sim.run()
-        counts = dict(hot_kernels.launches)
+        counts = path_counts()
     rows = sim.report(os.path.join(root, ".cache", f"chip_smoke_spectrum_{label}"))
     lum = rows["luminosity"]
     n_ph = float(spec[:, 2].sum())
@@ -2816,7 +3029,7 @@ def accuracy_check(root, gate_args=GATE_ARGS, label="accuracy", sigmas=None):
     with contextlib.redirect_stdout(io.StringIO()), counting_plain_steps() as plain_steps:
         hot_kernels.reset_launches()
         out = validate_accuracy.run(args)
-        counts = dict(hot_kernels.launches)
+        counts = path_counts()
     decomp, run = out["origin_decomp"] or {}, out["engine_run"]
     line = {"phase": label, "photons": out["n_engine"], "mass_unit": out["mass_unit"],
             "reference": out["engine_config"]["reference"],
@@ -2897,7 +3110,7 @@ def sharded_check(root, photon_n, ref=None):
         setup_s.append(time.monotonic() - t0)
         hot_kernels.reset_launches()
         spec, st = sim.run()
-        counts = dict(hot_kernels.launches)
+        counts = path_counts()
         backend = dist.get_backend()
         sim_cfg = sim.cfg
     finally:
@@ -2972,6 +3185,7 @@ def f64_checks(root, args, usage, sass, ref32=None):
     for name in ("hot_step_f64_draw", "fresh_init_f64", "event_phase_f64", "compact_rows_f64",
                  "record_phase_f64"):
         recs[name]["launches"] = counts[name]
+    recs["hot_step_f64_draw"]["run_steps"] = counts["hot_step_f64_draw" + STEPS]
     for name in OFF_PATH:
         recs[f"{name}_f64"]["launches"] = None
     st32 = ref32
@@ -2988,6 +3202,7 @@ def f64_checks(root, args, usage, sass, ref32=None):
     counts = accuracy_check(root, F64_GATE_ARGS, "accuracy_f64", sigmas=F64_GATE_SIGMAS)
     for name in ("hot_step_ref_f64_draw", "fresh_init_ref_f64"):
         recs[name]["launches"] = counts[name]
+    recs["hot_step_ref_f64_draw"]["run_steps"] = counts["hot_step_ref_f64_draw" + STEPS]
     cli_check(root, F64_CLI_PHOTON_N, extra=F64_CLI_ARGS,
               dump=validate_accuracy._torus(64, 32), label="cli_f64")
     return list(recs.values())
@@ -3042,7 +3257,7 @@ def graph_check(root, card):
                 spec, stats = sim.run()
             if any(plain_calls.values()):
                 fail(f"graph {label}: plain calls {plain_calls} (graphed {graphed})")
-            runs[graphed] = (spec, stats, handed[0], sim.state, dict(hot_kernels.launches))
+            runs[graphed] = (spec, stats, handed[0], sim.state, path_counts())
             cfg = sim.cfg
             del sim
         (spec_g, st_g, hand_g, end_g, launches_g), (spec_e, st_e, hand_e, end_e, launches_e) = (
@@ -3101,7 +3316,7 @@ def scatter_dist_check():
     hot_kernels.reset_launches()
     cells, errors = probe_scatter_dist.measure(
         SCATTER_N, torch.device("cuda"), out=lambda line: print(f"scatter cell: {line}"))
-    counts = dict(hot_kernels.launches)
+    counts = path_counts()
     keys = ("mean_ratio", "q99_ratio")
     # each ratio's distance from 1 in units of its bar
     over = [{k: abs(c[k] - 1.0) / max(SCATTER_TOL, SCATTER_SIGMAS * err[k]) for k in keys}
@@ -3144,7 +3359,7 @@ def replay_check(root):
     with contextlib.redirect_stdout(io.StringIO()), counting_plain_steps() as plain_steps:
         hot_kernels.reset_launches()
         out = replay_deep_tau.run(args)
-        counts = dict(hot_kernels.launches)
+        counts = path_counts()
     runs = out["runs"]
     total = {k: sum(r[k] for r in runs.values())
              for k in ("hot_iters", "full_phases", "light_phases", "replays")}
@@ -3239,6 +3454,10 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
     usage = ptxas_usage(log)
+    print("hot step ptxas: " + json.dumps({
+        "{}/{}/G{}/T{}/{}".format("reference" if v[0] else "shipped", v[1], v[2], v[3],
+                                  "draw" if v[4] else "explicit"): u
+        for f, u in usage.items() for v in [hot_step_variant(f)] if v}))
     sass = {}
     for path in paths:
         sass.update(sass_counts(path))
@@ -3284,6 +3503,7 @@ def main():
     for name in ("hot_step_draw", "fresh_init", "event_phase", "compact_rows", "compact",
                  "record_phase"):
         kernels[name]["launches"] = counts[name]
+    kernels["hot_step_draw"]["run_steps"] = counts["hot_step_draw" + STEPS]
     # off the path since the event phase is one kernel (the counts, 0, are
     # on the path lines): checks of the fused kernel's parts
     for name in OFF_PATH:
@@ -3295,6 +3515,7 @@ def main():
     _, counts = drive(ref_sim, "reference")
     for name in ("hot_step_ref_draw", "fresh_init_ref"):
         kernels[name]["launches"] = counts[name]
+    kernels["hot_step_ref_draw"]["run_steps"] = counts["hot_step_ref_draw" + STEPS]
     del ref_sim
     graph_check(root, card)
 

@@ -20,7 +20,9 @@ behind a GPU sleep, so that the host's launch cost is hidden; a width of 1
 gives a lane's chain with the launch).  Exits 2 without a card.
 
 The stamps' anchors are lines both the float64 redesign and the kernel
-before it hold; a source without one of them raises.
+before it hold, at any indentation: a launch of several steps (a run,
+since the loop over the steps) adds each step's cycles to the segments
+inside the loop.  A source without one of them raises.
 """
 
 import argparse
@@ -55,7 +57,7 @@ _STAMPS = [
     (r"  // ---- the epilogue",
      "  STAMP(8, w_b + decay + (roll ? 1.0 : 0.0) + (alive_b ? 1.0 : 0.0));\n\\g<0>"),
     (r"  // ---- the census", "  STAMP(9, 0.0);\n\\g<0>"),
-    (r"(    atomicAdd\(P\.ls_slots, \(unsigned long long\)n\);\n  \}\n)\}",
+    (r"(    atomicAdd\(P\.ls_slots, [^\n]*\);\n  \}\n)\}",
      "\\g<1>  STAMP(10, 0.0);\n  if ((threadIdx.x & 31) == 0) atomicAdd(&g_clk[15], 1ull);\n}"),
 ]
 _HEAD = """

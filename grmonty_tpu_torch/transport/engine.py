@@ -9,9 +9,11 @@ Photons are an SoA pool of (N,) tensors stepped in lockstep:
   index), the corner row at the new cell, phase B (fluid blend, opacities,
   scatter decision, weight decay), the detached-event capture and the
   lane-slot census — on CUDA tensors as one hand-written kernel
-  (``hot_kernels.hot_step``; inside a block its drawing instance,
-  ``hot_kernels.hot_step_drawn``, which draws its own uniforms), on CPU
-  tensors as the plain :func:`hot_step_plain`.  The shipped profile blends
+  (``hot_kernels.hot_step``; inside a block its drawing instance, which
+  draws its own uniforms and runs each of the block's runs of hot steps
+  as one launch in place, ``hot_kernels.hot_run``: the JAX engine's
+  ``lax.fori_loop``), on CPU tensors as the plain :func:`hot_step_plain`
+  (:func:`hot_run_plain` the run's).  The shipped profile blends
   the derived 44-wide corner rows, reference semantics the raw 32-wide
   rows;
 * every ``refill_period`` iterations a **light phase** records escaped
@@ -48,10 +50,11 @@ RNG: one ``torch.Generator`` per engine; every draw site takes a whole
 batch from it.  The hot phases take their uniforms as arguments, so the
 kernels and the plain versions are comparable on identical inputs.  On the
 card a block's hot steps draw nothing from the generator but one key: each
-launch of the drawing hot step (``hot_kernels.hot_step_drawn``) draws its
-two uniforms a lane from the lane's Philox stream under that key at the
-step's index in the block (``draws.hot_uniforms`` is the plain version);
-on the CPU they are ``torch.rand`` batches, as the event phase's draws are.
+run of the drawing hot step (``hot_kernels.hot_run``, one launch) draws
+each step's two uniforms a lane from the lane's Philox stream under that
+key at the step's index in the block (``draws.hot_uniforms`` is the plain
+version); on the CPU they are ``torch.rand`` batches, as the event phase's
+draws are.
 A block's phases and hot steps read the bias's terms (:class:`BiasTerms`:
 the denominators and the scale) from tensors of the engine's own, which
 each phase's record writes in place (:func:`bias_terms_plain` is their
@@ -67,7 +70,7 @@ import numpy as np
 import torch
 
 from grmonty_tpu_torch import consts
-from grmonty_tpu_torch.ops import fluid, geometry, radiation, scattering
+from grmonty_tpu_torch.ops import draws, fluid, geometry, radiation, scattering
 from grmonty_tpu_torch.ops import hotcross as hc_mod
 
 N_SPEC_CHAN = 16  # 13 reference channels + sum((w*e)^2), secondary count,
@@ -249,14 +252,21 @@ def where4(m, a, b):
     return tuple(torch.where(m, ai, bi) for ai, bi in zip(a, b))
 
 
-def state_tensors(state: State):
-    """Every tensor of ``state`` in a fixed order: the pool's fields (a
-    4-vector field's components; a field that is off, the empty tuple,
-    none), the spectrum, the counters, the ring and ``backlog_pos``."""
+def pool_tensors(p: Pool):
+    """The pool's tensors in field order (a 4-vector field's components; a
+    field that is off, the empty tuple, none)."""
     out = []
-    for v in (*state.pool, state.spec, *state.counters, *state.sec, state.backlog_pos):
+    for v in p:
         out.extend(v if isinstance(v, tuple) else (v,))
     return out
+
+
+def state_tensors(state: State):
+    """Every tensor of ``state`` in a fixed order: the pool's
+    (:func:`pool_tensors`), the spectrum, the counters, the ring and
+    ``backlog_pos``."""
+    return pool_tensors(state.pool) + [state.spec, *state.counters, *state.sec,
+                                       state.backlog_pos]
 
 
 def _clone(v):
@@ -280,9 +290,16 @@ def clone_state(state: State) -> State:
 
 def assign_state(dst: State, src: State):
     """Copy every tensor of ``src`` into ``dst``'s, in place (shapes must
-    match).  A source that is another field's destination is copied aside
-    first, so that no field reads a value already overwritten."""
-    pairs = list(zip(state_tensors(dst), state_tensors(src), strict=True))
+    match; a tensor that is its destination is not copied).  A source that
+    is another field's destination is copied aside first, so that no field
+    reads a value already overwritten."""
+    assign_tensors(state_tensors(dst), state_tensors(src))
+
+
+def assign_tensors(dst, src):
+    """Copy each tensor of the list ``src`` into the one of ``dst`` at its
+    place, as :func:`assign_state` does."""
+    pairs = list(zip(dst, src, strict=True))
     for d, s in pairs:
         if d.shape != s.shape:
             raise ValueError(f"state field of shape {tuple(s.shape)} into {tuple(d.shape)}")
@@ -630,6 +647,23 @@ def hot_step_plain(p: Pool, counters: Counters, u_roul, u_x1, bias_scale, mc,
     counters = _util_counters(counters, q.occupied, A["moving"], A["commit"], q.at_event)
     counters = counters._replace(n_hc_clamp=counters.n_hc_clamp + B["hc_clamp"].sum())
     return q, counters
+
+
+def hot_run_plain(p: Pool, counters: Counters, key, step0, steps, bias_scale, mc,
+                  tables: EngineTables, cfg: EngineConfig):
+    """``steps`` hot iterations in place, the plain version of a run of the
+    drawing kernel (``hot_kernels.hot_run``; the JAX engine's
+    ``lax.fori_loop`` over ``hot_step``): step j is :func:`hot_step_plain`
+    on ``draws.hot_uniforms(key, step0 + j)``, its pool and census written
+    back into ``p``'s and ``counters``' own tensors.  Returns (p,
+    counters), the tensors it was given."""
+    n, dt = p.w.shape[0], p.w.dtype
+    held = pool_tensors(p) + list(counters)
+    for j in range(steps):
+        u_roul, u_x1 = draws.hot_uniforms(key, step0 + j, n, dt, device=p.w.device)
+        q, c = hot_step_plain(p, counters, u_roul, u_x1, bias_scale, mc, tables, cfg)
+        assign_tensors(held, pool_tensors(q) + list(c))
+    return p, counters
 
 
 # ---------------------------------------------------------------------------
@@ -1292,28 +1326,18 @@ class Engine:
                                             gather_fn=hot_kernels.row_gather)
 
     # -- the hot iteration ----------------------------------------------------
-    def hot_step(self, state: State, u_roul=None, u_x1=None, bias_scale=None, key=None,
-                 step=0) -> State:
+    def hot_step(self, state: State, u_roul=None, u_x1=None, bias_scale=None) -> State:
         """One hot iteration (``hot_kernels.hot_step``: one fused kernel on
         the card, :func:`hot_step_plain` on the CPU).  ``u_roul``/``u_x1``:
         the roulette and optical-depth uniforms, drawn from the run's
         generator when None; ``bias_scale``: the 0-d bias scale, computed
-        from the counters (:meth:`_bias_scale`) when None.  ``key`` (a
-        block's two Philox key words, :meth:`_body` on the card): the
-        uniforms are drawn inside the kernel at the block's iteration
-        ``step`` instead (``hot_kernels.hot_step_drawn``), and ``u_roul`` and
-        ``u_x1`` must be None."""
+        from the counters (:meth:`_bias_scale`) when None.  (A block on the
+        card runs its hot steps as runs that draw their own uniforms,
+        :meth:`hot_run`.)"""
         from grmonty_tpu_torch.transport import hot_kernels
 
         if bias_scale is None:
             bias_scale = self._bias_scale(state.counters)
-        if key is not None:
-            if u_roul is not None or u_x1 is not None:
-                raise ValueError("hot_step: a key draws the uniforms; pass no u_roul or u_x1")
-            p, counters = hot_kernels.hot_step_drawn(
-                state.pool, state.counters, key, step, bias_scale, self.mc, self.tables,
-                self.cfg)
-            return state._replace(pool=p, counters=counters, it=state.it + 1)
         n = self.cfg.n_pool
         if u_roul is None:
             u_roul = self._uniform(n)
@@ -1323,6 +1347,18 @@ class Engine:
             state.pool, state.counters, u_roul, u_x1, bias_scale, self.mc, self.tables,
             self.cfg)
         return state._replace(pool=p, counters=counters, it=state.it + 1)
+
+    def hot_run(self, state: State, steps, bias_scale, key, step0) -> State:
+        """``steps`` hot iterations as one run, in place on the state's pool
+        and census (``hot_kernels.hot_run``: one launch of the drawing
+        kernel on the card, :func:`hot_run_plain` on the CPU), the uniforms
+        of step j drawn under the block's ``key`` at its iteration ``step0 +
+        j``; ``bias_scale``: the 0-d bias scale."""
+        from grmonty_tpu_torch.transport import hot_kernels
+
+        p, counters = hot_kernels.hot_run(state.pool, state.counters, key, step0, steps,
+                                          bias_scale, self.mc, self.tables, self.cfg)
+        return state._replace(pool=p, counters=counters, it=state.it + steps)
 
     # -- periodic phase -------------------------------------------------------
     def spectrum_add(self, spec, counters, p: Pool, width=None):
@@ -1456,11 +1492,14 @@ class Engine:
         then the hot steps, each light phase and its hot steps (the JAX
         engine's while-loop body).  The hot steps read the bias scale that
         the last phase's record left in the engine's bias terms.  On the card
-        the block draws one key (``hot_kernels.draw_key``) and each hot step
-        draws its uniforms inside its one launch at its index in the block;
-        on the CPU each draws them from the generator.  It reads nothing on
-        the host and makes no tensor from host data, so that it can be
-        captured."""
+        the block draws one key (``hot_kernels.draw_key``) and each run of
+        hot steps (an entry of ``blocks``) is one launch in place
+        (:meth:`hot_run`), whose steps draw their uniforms at their indices
+        in the block; on the CPU each hot step draws them from the
+        generator.  It reads nothing on the host and makes no tensor from
+        host data, so that it can be captured.  What the phases and runs
+        did not write in place is copied into the state at the end
+        (``assign_state``)."""
         from grmonty_tpu_torch.transport import hot_kernels
 
         st = self._state
@@ -1472,9 +1511,12 @@ class Engine:
         for bi_, nb in enumerate(self.blocks):
             if bi_:
                 state = self.light_phase(state, self._backlog, self._n_valid)
-            for _ in range(nb):
-                state = self.hot_step(state, bias_scale=scale, key=key, step=step)
-                step += 1
+            if key is None:
+                for _ in range(nb):
+                    state = self.hot_step(state, bias_scale=scale)
+            else:
+                state = self.hot_run(state, nb, scale, key, step)
+            step += nb
         assign_state(st, state)
 
     def _counting(self, fn):

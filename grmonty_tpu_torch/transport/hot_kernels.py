@@ -17,8 +17,11 @@ phase B, the ``dl_shrink`` clamp, the capture and the lane-slot census.
 Each entry point has a drawing instance, ``<entry>_draw``
 (:func:`hot_step_drawn`), which draws the step's two uniforms itself from
 the lane's Philox stream under a key and the step's index in the block
-(``draws.hot_uniforms`` is the plain version of those draws): the engine's
-block on the card runs it, so that a hot iteration is one launch.
+(``draws.hot_uniforms`` is the plain version of those draws) and runs
+several steps of each lane in one launch, in place (:func:`hot_run`;
+``engine.hot_run_plain``, the JAX engine's ``lax.fori_loop`` over
+``hot_step``): the engine's block on the card runs each of its runs of hot
+steps as one launch.
 
 ``csrc/row_gather.cu`` replaces ``grmonty_tpu/ops/gather.py:63``
 (``_gather_kernel``): ``out[n, :] = table[idx[n], :]``, the raw corner-row
@@ -82,7 +85,8 @@ their plain versions' arguments.  On CPU
 tensors they call the plain versions (``engine.hot_step_plain`` /
 indexing); on CUDA tensors they launch the kernel of the tensors' dtype
 (:func:`entry_point`), or raise.  ``launches``
-counts kernel launches only; a launch captured into a CUDA graph passes
+counts kernel launches only, ``run_steps`` the hot steps the drawing
+instances' launches ran; a launch captured into a CUDA graph passes
 the wrapper once, at the capture, and its replays not at all: the probes'
 chained links count their captures, and the engine's graph takes what its
 capture adds (:func:`launches_during`) off the counts and credits it once
@@ -150,27 +154,33 @@ SMEM_STAGE_ROWS = 32
 
 
 def reset_launches():
-    for name in launches:
-        launches[name] = 0
+    """Set ``launches`` and ``run_steps`` to 0."""
+    for counts in _COUNTS.values():
+        for name in counts:
+            counts[name] = 0
 
 
 def launches_during(fn):
-    """Run ``fn`` and return what it added to ``launches`` ({name: n}),
-    leaving the counts as they were."""
-    before = dict(launches)
+    """Run ``fn`` and return what it added to ``launches`` and
+    ``run_steps`` ({("launches" or "run_steps", name): n}), leaving the
+    counts as they were."""
+    before = {what: dict(c) for what, c in _COUNTS.items()}
     try:
         fn()
     finally:
-        added = {k: v - before[k] for k, v in launches.items() if v != before[k]}
-        launches.update(before)
+        added = {(what, k): v - before[what][k] for what, c in _COUNTS.items()
+                 for k, v in c.items() if v != before[what][k]}
+        for what, c in _COUNTS.items():
+            c.update(before[what])
     return added
 
 
 def credit(added):
-    """Add ``added`` ({name: n}, :func:`launches_during`) to ``launches``:
-    the launches of one replay of a captured graph."""
-    for k, v in added.items():
-        launches[k] += v
+    """Add ``added`` (:func:`launches_during`) to ``launches`` and
+    ``run_steps``: the launches and steps of one replay of a captured
+    graph."""
+    for (what, k), v in added.items():
+        _COUNTS[what][k] += v
 
 
 def entry_point(kernel, dtype, reference=False, draw=False):
@@ -283,8 +293,9 @@ RECORD_FOLD, RECORD_TERMS, RECORD_CUMUL = 8, 16, 32
 # the lanes a block of the record above one block (csrc/record.cu TILE)
 RECORD_TILE = 512
 # (pointers, scalars) each entry point takes
+# (a drawing hot step: then its run's first step and its steps)
 _ABI = {**{f"hot_step{r}{x}{d}": (len(_HOT_REF_PTRS if r else _HOT_PTRS),
-                                   _HOT_NSCAL + (1 if d else 0))
+                                   _HOT_NSCAL + (2 if d else 0))
            for r in ("", "_ref") for x in DTYPE_SUFFIX.values() for d in ("", "_draw")},
         "row_gather": (3, 1),
         "row_gather_f64": (3, 1),
@@ -322,6 +333,13 @@ EVENT_PHASES = ("event_phase", "event_phase_f64")
 COMPACT_ROWS = ("compact_rows", "compact_rows_f64")
 RECORD_PHASES = ("record_phase", "record_phase_f64")
 HOT_DRAWS = tuple(f"{h}_draw" for h in HOT_STEPS)
+# Hot steps run by each drawing entry point's launches on CUDA tensors (a
+# run of hot_run its steps, hot_step_drawn one): the engine's hot
+# iterations on the card, counted on the host beside ``launches``.
+run_steps = dict.fromkeys(HOT_DRAWS, 0)
+_COUNTS = {"launches": launches, "run_steps": run_steps}
+# The most steps a run takes (the census sums a block's ballots in 32 bits).
+MAX_RUN_STEPS = 1 << 20
 # The libraries' int -> int functions: the row counts of csrc/gather_probe.cu's
 # tilings (w -> rows), the launch shape of each hot-step entry point at n
 # lanes (csrc/hot_step.cu: the threads a lane, the threads a block, the
@@ -511,47 +529,92 @@ def hot_step_drawn(pool, counters, key, step, bias_scale, mc, tables, cfg):
     tensors the plain version on those uniforms (``engine.hot_step_plain``),
     on CUDA tensors one launch of the drawing instance of the fused kernel
     (:func:`entry_point` with ``draw=True``: ``hot_step_draw`` ...
-    ``hot_step_ref_f64_draw``), which draws them itself, or raise.
-    ``step``: the iteration's index in its block, an int in [0, 2^53).
-    Otherwise as :func:`hot_step`; no host sync on the card."""
-    if not (isinstance(step, int) and 0 <= step < 2**53):
-        raise ValueError(f"hot_step_drawn: step must be an int in [0, 2^53), got {step!r}")
+    ``hot_step_ref_f64_draw``), a run of one step into new tensors, which
+    draws them itself, or raise.  ``step``: the iteration's index in its
+    block, an int in [0, 2^53).  Otherwise as :func:`hot_step`; no host
+    sync on the card."""
+    _check_step(step, 1)
     dt, n = pool.w.dtype, pool.w.shape[0]
     if pool.w.device.type == "cpu":
         u_roul, u_x1 = draws.hot_uniforms(key, step, n, dt, device=pool.w.device)
         return engine.hot_step_plain(pool, counters, u_roul, u_x1, bias_scale, mc, tables, cfg)
-    dev = _cuda_device(pool.w)
-    key = _event_key(None, key, dev)
-    return _hot_launch(entry_point("hot_step", dt, cfg.reference, draw=True), pool, counters,
-                       [key, None], bias_scale, mc, tables, cfg,
-                       [*_hot_scalars(mc, tables, cfg, dev, dt), step])
+    return _drawn_launch(pool, counters, key, step, 1, bias_scale, mc, tables, cfg,
+                         in_place=False)
 
 
-def _hot_launch(name, pool, counters, uniforms, bias_scale, mc, tables, cfg, scal):
+def hot_run(pool, counters, key, step0, steps, bias_scale, mc, tables, cfg):
+    """``steps`` hot iterations of the block's iterations ``step0`` ...
+    ``step0 + steps - 1``, in place (the JAX engine's ``lax.fori_loop``
+    over ``hot_step``, whose carry XLA updates in place): step j as
+    :func:`hot_step_drawn` at ``step0 + j``.  On CPU tensors the plain
+    version (``engine.hot_run_plain``); on CUDA tensors one launch of the
+    drawing instance of the fused kernel (:func:`entry_point` with
+    ``draw=True``), whose lanes load their state once, hold it across the
+    steps and store it once into the pool's own tensors, or raise.  The
+    census counters are added to in place.  ``steps``: an int in [1,
+    ``MAX_RUN_STEPS``]; ``step0 + steps`` at most 2^53.  Returns the
+    (pool, counters) it was given; no host sync on the card."""
+    _check_step(step0, steps)
+    if pool.w.device.type == "cpu":
+        return engine.hot_run_plain(pool, counters, key, step0, steps, bias_scale, mc, tables,
+                                    cfg)
+    return _drawn_launch(pool, counters, key, step0, steps, bias_scale, mc, tables, cfg,
+                         in_place=True)
+
+
+def _check_step(step0, steps):
+    if not (isinstance(step0, int) and isinstance(steps, int) and step0 >= 0
+            and 1 <= steps <= MAX_RUN_STEPS and step0 + steps <= 2**53):
+        raise ValueError(f"hot step: step must be an int in [0, 2^53) and steps in [1, "
+                         f"{MAX_RUN_STEPS}], got step {step0!r}, steps {steps!r}")
+
+
+def _drawn_launch(pool, counters, key, step0, steps, bias_scale, mc, tables, cfg, in_place):
+    """A launch of the drawing instance: ``steps`` steps from the block's
+    iteration ``step0``, into the pool's own tensors under ``in_place``;
+    counts the launch and its steps."""
+    dev, dt = _cuda_device(pool.w), pool.w.dtype
+    name = entry_point("hot_step", dt, cfg.reference, draw=True)
+    out = _hot_launch(name, pool, counters, [_event_key(None, key, dev), None], bias_scale, mc,
+                      tables, cfg, [*_hot_scalars(mc, tables, cfg, dev, dt), step0, steps],
+                      in_place=in_place)
+    run_steps[name] += steps
+    return out
+
+
+def _hot_launch(name, pool, counters, uniforms, bias_scale, mc, tables, cfg, scal,
+                in_place=False):
     """Launch the hot step's entry point ``name`` on the pool (its inputs
     checked), ``uniforms`` in the pointer slots of u_roul and u_x1 and the
-    scalars ``scal``; returns the post-step (pool, counters)."""
+    scalars ``scal``; returns the post-step (pool, counters): under
+    ``in_place`` the pool given (its fields, which the launch writes, must
+    not share memory), else new tensors, views of three allocations."""
     dev, n = pool.w.device, pool.w.shape[0]
     if n == 0:
         raise ValueError("hot_step: empty pool")
     ref = cfg.reference
     dt, b8, i32 = pool.w.dtype, torch.bool, torch.int32
-    nf, nb = (22, 5) if ref else (31, 7)
-    fo = torch.empty((nf, n), dtype=dt, device=dev).unbind(0)
-    bo = torch.empty((nb, n), dtype=b8, device=dev).unbind(0)
-    new = dict(x=fo[0:4], k=fo[4:8], dkdlam=fo[8:12], e_0_s=fo[12], dl_shrink=fo[13],
-               pend_dl=fo[14], pend_push=bo[0], at_event=bo[1], alive=bo[2], w=fo[15],
-               record_pending=bo[3], alpha_scatti=fo[16], alpha_absi=fo[17], bi=fo[18],
-               tau_abs=fo[19], tau_scatt=fo[20], interacting=bo[4], sec_w=fo[21],
-               n_step=torch.empty(n, dtype=i32, device=dev))
-    if not ref:
-        new.update(ev_x=fo[22:26], ev_k=fo[26:30], ev_w=fo[30], ev_pending=bo[5],
-                   occupied=bo[6])
-    q = pool._replace(**new)
+    if in_place:
+        q = pool
+    else:
+        nf, nb = (22, 5) if ref else (31, 7)
+        fo = torch.empty((nf, n), dtype=dt, device=dev).unbind(0)
+        bo = torch.empty((nb, n), dtype=b8, device=dev).unbind(0)
+        new = dict(x=fo[0:4], k=fo[4:8], dkdlam=fo[8:12], e_0_s=fo[12], dl_shrink=fo[13],
+                   pend_dl=fo[14], pend_push=bo[0], at_event=bo[1], alive=bo[2], w=fo[15],
+                   record_pending=bo[3], alpha_scatti=fo[16], alpha_absi=fo[17], bi=fo[18],
+                   tau_abs=fo[19], tau_scatt=fo[20], interacting=bo[4], sec_w=fo[21],
+                   n_step=torch.empty(n, dtype=i32, device=dev))
+        if not ref:
+            new.update(ev_x=fo[22:26], ev_k=fo[26:30], ev_w=fo[30], ev_pending=bo[5],
+                       occupied=bo[6])
+        q = pool._replace(**new)
     ins = _pool_cols(pool) + [pool.occupied] + ([] if ref else _ev_cols(pool))
     want = ([t.dtype for t in _pool_cols(q)] + [b8]
             + ([] if ref else [t.dtype for t in _ev_cols(q)]))
     _check_lanes("hot_step", ins, want, n, dev, names=_POOL_IN + ([] if ref else _EV))
+    if in_place and len({t.data_ptr() for t in ins}) != len(ins):
+        raise ValueError("hot_run: the pool's fields share memory; a run writes each in place")
     table = tables.corner_rows if ref else tables.hot_tab
     _check_rows(table, 32 if ref else 44, dev, "corner table", dt)
     if table.shape[0] < mc.n1 * mc.n2:

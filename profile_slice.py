@@ -25,7 +25,8 @@ window are not the run's.
    warm-ups' and captures' seconds (``capture_s``).  Then the same cell in
    a second ``Simulation`` with ``graphed=False`` (the block issued op by
    op, as before the graph), whose phases are clocked: every call of the
-   engine's phases (``hot_step``, ``periodic_phase``, ``light_phase`` and, inside them,
+   engine's phases (``hot_run``, a block's run of hot steps, one launch;
+   ``hot_step`` before the run; ``periodic_phase``, ``light_phase`` and, inside them,
    ``process_scatters`` and ``refill_slots``) and of the kernels' wrappers
    inside them (``hot_kernels.event_phase`` and ``compact_rows`` inside
    ``process_scatters``, ``compact`` inside it and ``refill_slots``,
@@ -65,7 +66,8 @@ window are not the run's.
    the track start its valid slots.
    Summaries by (engine, role, n, k) and a histogram of the events per
    full phase by engine go into the JSON, with the hot step's launches
-   counted by engine, entry point and width (``hot_steps``, not timed);
+   counted by engine, entry point, width and steps a launch (``hot_steps``,
+   not timed);
    each timed launch's line into
    ``chiprun_out/census_<path>.json``.  Then the trace windows, on the
    graphed run.  ``torch.profiler`` traces the replays of 64 hot iterations twice:
@@ -77,7 +79,9 @@ window are not the run's.
    intervals (kernels, copies, sets) in the window; the window is timed by
    CUDA events with the profiler on.  The share holds for those iterations
    only, not for the run.  One more window holds a single replay of the
-   first wave (``one_body``): the names of its device activities.
+   first wave (``one_body``): the names of its device activities, its
+   hot-step launches and its copies (``copies``: the activities named as a
+   copy, the block's closing copies among them) counted.
 
 Prints the card's name and power limit and one JSON object; with
 ``--trace`` the profiler's table of the device's kernels goes to
@@ -93,7 +97,11 @@ import time
 
 import chip_smoke
 
-PHASES = ("hot_step", "periodic_phase", "light_phase", "process_scatters", "refill_slots")
+# the engine's phases clocked (a checkout from before the run has no
+# hot_run, and a run on the card no hot_step: a name the engine lacks is
+# skipped)
+PHASES = ("hot_step", "hot_run", "periodic_phase", "light_phase", "process_scatters",
+          "refill_slots")
 # the kernels' wrappers clocked as phases (hot_kernels functions, each nested
 # in one of PHASES: event_phase and compact_rows in process_scatters, compact
 # in it and in refill_slots, record_phase and refill_fresh in the full and
@@ -104,7 +112,9 @@ REF_PHOTON_N = 50_000
 # device kernels whose time the trace windows report, by names (the mask
 # compaction's kernel is compact_tiles_kernel, compact_kernel before; the
 # record's one kernel record_phase_kernel, after record_count_kernel before)
-TRACED = {"hot_step_ms": ("hot_step_kernel",), "event_phase_ms": ("event_phase_kernel",),
+# (the hot step's launches: since the run, one a run of a block's hot steps,
+# ``hot_run_us`` each run's device time; before it, one a step)
+TRACED = {"hot_run_ms": ("hot_step_kernel",), "event_phase_ms": ("event_phase_kernel",),
           "compact_ms": ("compact_kernel", "compact_tiles_kernel"),
           "compact_rows_ms": ("compact_rows_kernel",), "fresh_init_ms": ("fresh_init_kernel",),
           "record_phase_ms": ("record_count_kernel", "record_phase_kernel")}
@@ -136,6 +146,8 @@ def clock_phases(engine_cls, clocks):
     saved = {}
     for owner, names in ((engine_cls, PHASES), (hot_kernels, WRAPPERS)):
         for name in names:
+            if not hasattr(owner, name):
+                continue
             fn = saved[name] = getattr(owner, name)
 
             def timed(*a, _fn=fn, _name=name, **kw):
@@ -297,7 +309,11 @@ def census(root, photon_n, reference):
 
     def timed_launch(name, ptr_tensors, scal, n, device, kernels=1):
         if name in hot_kernels.HOT_STEPS + hot_kernels.HOT_DRAWS:
-            key = (at["engine"], name, n)
+            # a drawing launch's steps (its scalar after the first step's,
+            # since the run)
+            at_steps = hot_kernels._HOT_NSCAL + 1
+            steps = int(scal[at_steps]) if len(scal) > at_steps else 1
+            key = (at["engine"], name, n, steps)
             hot[key] = hot.get(key, 0) + 1
         if name not in CENSUS or n == 0:
             return launch(name, ptr_tensors, scal, n, device, kernels=kernels)
@@ -384,8 +400,8 @@ def census(root, photon_n, reference):
     return {"event_pair_us": 1e3 * sum(a.elapsed_time(b) for a, b in floor) / len(floor),
             "hot_iters": out["hot_iters"], "full_phases": out["full_phases"],
             "light_phases": out["light_phases"], "groups": summary,
-            "hot_steps": [{"engine": e, "name": name, "n": n, "launches": c}
-                          for (e, name, n), c in hot.items()],
+            "hot_steps": [{"engine": e, "name": name, "n": n, "steps": s, "launches": c}
+                          for (e, name, n, s), c in hot.items()],
             "events_per_full_phase": {"bins": list(EVENT_BINS), **hist}}, lines
 
 
@@ -500,6 +516,8 @@ def main():
             win.results["one_body"] = {
                 "iteration": self.replays * self.n_super, "marker_seen": mark is not None,
                 "device_activities": len(names),
+                "hot_launches": sum("hot_step_kernel" in n for n in names),
+                "copies": sum("memcpy" in n.lower() or "copy" in n.lower() for n in names),
                 "kernels": {n: names.count(n) for n in sorted(set(names))}}
 
         engine.Engine._replay = traced_replay
@@ -536,7 +554,8 @@ def main():
             ms = sum(e0.elapsed_time(e1) for e0, e1 in pairs)
             phases[name] = {"calls": len(pairs), "ms": ms,
                             "ms_per_call": ms / max(1, len(pairs)), "share": ms / window_ms}
-        top = sum(phases[n]["ms"] for n in ("hot_step", "periodic_phase", "light_phase"))
+        top = sum(phases[n]["ms"]
+                  for n in ("hot_step", "hot_run", "periodic_phase", "light_phase"))
         eager.update(phases=phases, outside_phases_share=1.0 - top / window_ms)
         result["eager"] = eager
     print(card)

@@ -27,7 +27,8 @@ both semantics and both dtypes:
 
 The card tests (marker ``cuda``) hold the graphed run against the eager one
 on the card (pool, ring and counters bit for bit, the spectrum to rtol
-1e-6, which sums with float atomics there) and check that the capture
+1e-6, which sums with float atomics there; one drawing hot-step launch a
+run of hot steps, its steps the hot iterations) and check that the capture
 leaves the run's state, the generator and the counts as it found them.
 """
 
@@ -326,7 +327,8 @@ def test_graphed_run_equals_the_eager_run_on_the_card(dump, reference, dtype, op
         hot_kernels.reset_launches()
         out, gen = _scenario(sim, rows, lambda eng, *a, **kw: eng.run(*a, **kw))
         engines = [sim.engine, *sim._tail_engines.values()]
-        outs[graphed] = (out, gen, dict(hot_kernels.launches),
+        outs[graphed] = (out, gen, {**hot_kernels.launches, **{
+            f"{k}.steps": v for k, v in hot_kernels.run_steps.items()}},
                          [dict(e.phases) for e in engines], [e.replays for e in engines])
     (got, gen_g, launches_g, phases_g, replays), (want, gen_e, launches_e, phases_e, _) = (
         outs[True], outs[False])
@@ -335,6 +337,12 @@ def test_graphed_run_equals_the_eager_run_on_the_card(dump, reference, dtype, op
     assert torch.equal(gen_g, gen_e)
     assert launches_g == launches_e and phases_g == phases_e
     assert sum(replays) == sum(p["full"] for p in phases_g) > 0
+    # one drawing launch a run of hot steps (a full or light phase's), its
+    # steps the hot iterations: the second wave's state counts on from the
+    # first's, the stage's from 0
+    draw = hot_kernels.entry_point("hot_step", dtype, reference, draw=True)
+    assert launches_g[draw] == sum(p["full"] + p["light"] for p in phases_g)
+    assert launches_g[f"{draw}.steps"] == got[1].it + got[2].it
 
 
 @pytest.mark.cuda

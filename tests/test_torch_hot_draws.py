@@ -1,10 +1,10 @@
 """The hot step's own draws and its bias scale once a phase.
 
-On the card each hot iteration of a block is one launch: the kernel draws
-its two uniforms from the lane's Philox4x64-10 stream (``HOT`` in
-``ops/draws.py``), under a key the block draws once, at the iteration's
-index in the block; ``draws.hot_uniforms`` is the plain version of those
-draws.  And a block computes the bias scale once after each phase, since no
+On the card each run of a block's hot steps is one launch
+(tests/test_torch_hot_run.py): the kernel draws each step's two uniforms
+from the lane's Philox4x64-10 stream (``HOT`` in ``ops/draws.py``), under
+a key the block draws once, at the iteration's index in the block;
+``draws.hot_uniforms`` is the plain version of those draws.  And a block computes the bias scale once after each phase, since no
 hot step changes what it reads.  Here:
 
 * the uniforms: in [0, 1), with the moments of a uniform and a KS test at
@@ -168,8 +168,8 @@ def test_drawing_entry_points_are_known():
             name = hot_kernels.entry_point("hot_step", dt, ref, draw=True)
             assert name == hot_kernels.entry_point("hot_step", dt, ref) + "_draw"
             assert name in hot_kernels.HOT_DRAWS and name in hot_kernels.launches
-            n_ptrs, n_scal = hot_kernels._ABI[name]
-            assert (n_ptrs, n_scal - 1) == hot_kernels._ABI[name[:-len("_draw")]]
+            n_ptrs, n_scal = hot_kernels._ABI[name]  # the run's first step and its steps
+            assert (n_ptrs, n_scal - 2) == hot_kernels._ABI[name[:-len("_draw")]]
             assert hot_kernels.KERNEL_TOLERANCE[name] == hot_kernels.KERNEL_TOLERANCE[
                 name[:-len("_draw")]]
     with pytest.raises(ValueError, match="drawing"):

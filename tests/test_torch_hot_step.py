@@ -391,9 +391,9 @@ def test_clock_stamps_find_every_anchor():
     out = clock_hot_step.stamped(src)
     for k in range(len(clock_hot_step.SEGMENTS)):
         assert f"STAMP({k}, " in out, k
-    # the surface wait at the kernel's top level, which every instance of
-    # both dtypes reaches: float32 stamps it too
-    assert f"\n  barrier_wait(hc_bar);\n  STAMP({clock_hot_step._WAIT}, 0.0);\n" in out
+    # the surface wait at the top level of the step loop, which every
+    # instance of both dtypes reaches: float32 stamps it too
+    assert f"\n    barrier_wait(hc_bar);\n    STAMP({clock_hot_step._WAIT}, 0.0);\n" in out
     assert "clk_read" in out and "g_clk[15]" in out
     with pytest.raises(ValueError, match="no anchor"):
         clock_hot_step.stamped(src.replace("  // ---- the census", "  // the census"))

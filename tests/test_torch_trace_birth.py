@@ -209,13 +209,19 @@ def test_trace_changes_nothing_else_on_the_card(dump):
                                 device="cuda", warmup=0)
         hot_kernels.reset_launches()
         spec, stats = sim.run()
-        runs[traced] = (spec, stats, sim.state.counters, dict(hot_kernels.launches))
+        runs[traced] = (spec, stats, sim.state.counters, {
+            **hot_kernels.launches,
+            **{f"{k}_steps": v for k, v in hot_kernels.run_steps.items()}})
     (spec0, st0, c0, n0), (spec1, st1, c1, n1) = runs[False], runs[True]
     np.testing.assert_allclose(spec1, spec0, rtol=1e-6, atol=0.0)
     for name in engine.Counters._fields:
         if name not in MT:
             assert torch.equal(getattr(c0, name), getattr(c1, name)), name
-    assert n0 == n1 and n0["hot_step_draw"] == st0["hot_iters"] > 0
+    # one drawing launch a run of hot steps (one a full or light phase),
+    # its steps the hot iterations
+    assert n0 == n1
+    assert n0["hot_step_draw"] == st0["full_phases"] + st0["light_phases"] > 0
+    assert n0["hot_step_draw_steps"] == st0["hot_iters"] > 0
     assert all(not bool(getattr(c0, name).any()) for name in MT)
     print(f"mt_bw {float(c1.mt_bw)} mt_nsc0 {int(c1.mt_nsc0)} max_tau {float(c1.max_tau_scatt)}")
 
