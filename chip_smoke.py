@@ -141,7 +141,9 @@ Phases, each of which exits non-zero on failure:
    light one, the record exactly once a call of each engine's phases and
    closing flushes (``hot_kernels.record_launches``, one a call),
    the track start of its dtype and semantics once per full and light
-   phase, no other entry point: the row
+   phase, the exit test at each engine run's entry and once for each
+   block of each replay, its guard once for each block of each replay, no
+   other entry point: the row
    gather, the event fluid and the event kernel stay off the path), no
    plain hot step or run, load, track start, event fluid, event phase,
    pack, record, refill sources or sort-based compaction, no
@@ -152,11 +154,22 @@ Phases, each of which exits non-zero on failure:
    kernels line's explicit hot-step records carry ``launches`` null: the
    engine's blocks run the drawing instances.  Phases 5-14 run the engine as it
    ships: each engine's block (the full phase, the hot steps, each light
-   phase and its hot steps) captured once into a CUDA graph and replayed
-   once per block, the launches credited per replay; each path's line
-   gives its replays, blocks, ms per body and ``capture_s``
-   (``graph_summary``), and phases 5, 6 and 12b fail unless every block
-   was one replay;
+   phase and its hot steps) captured once into a CUDA graph, a replay
+   running ``engine.GRAPH_BODIES`` blocks, each under a conditional node
+   on the run's exit test, the host one replay ahead of the exit word it
+   reads; the launches credited by the blocks run and the replays; each
+   path's line gives its blocks, bodies, replays, skipped replays, engine
+   runs, ms per body and ``capture_s`` (``graph_summary``), and phases 5,
+   6, 10, 11, 12b, 14 and 15 fail unless the bodies equal the full
+   phases, the replays hold them and at most one replay a run ran none
+   (``launch_failures``).  The exit test (``exit_test``) at 65,536, 4,096,
+   1,024 and 512 lanes on seeded masks of every density and alignment at
+   each edge of the test, bit for bit ``engine.exit_test_plain``, both
+   values of go at every width, and the conditional nodes in a graph of two
+   blocks, the first's set from go by the guard (``exit_guard``), the
+   second's by the exit test between them, replayed at every go and every
+   outcome of the test against Python's ``if`` (phase 4h; ``exit_test@<n>``
+   lines);
 5. the shipped profile end to end at M = 4e19, seed 123, float32, pool
    65,536, the JAX driver's whole schedule: the pilot (8,192 photons on the
    host tracker; its seconds and counters printed), the waves (the first
@@ -498,6 +511,12 @@ TOLERANCE = {
               "(the atomics add in another order)") for name in RECORD_NAMES},
     **{name: ("the ring's rows, count and n_sec_drop bitwise equal to engine.pack_rows_plain "
               "(the cumsum pack)") for name in ("compact_rows", "compact_rows_f64")},
+    "exit_test": ("the word and go bitwise equal to engine.exit_test_plain at every density, "
+                  "alignment of the mask and edge of the test"),
+    "exit_guard": ("a graph replay of two blocks under their nodes (a count's adds), the first "
+                   "set by the guard from go, the second by the exit test between them: the "
+                   "count, word and go equal to Python's if around the plain test, at every go "
+                   "and outcome of the test"),
 }
 SOURCES = {"hot_step": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:104, "
                         "grmonty_tpu/transport/hotstep_pallas.py:152"),
@@ -539,6 +558,12 @@ SOURCES["record_phase"] = ("record.cu", "no TPU kernel: XLA spectrum_add, _poiso
                            "_record_free_refill, grmonty_tpu/transport/engine.py:1819, "
                            "grmonty_tpu/transport/engine.py:2395, "
                            "grmonty_tpu/transport/engine.py:2410")
+# Nor does the run's exit test: the JAX engine's is the cond of its
+# lax.while_loop, which XLA evaluates on the device.
+SOURCES["exit_test"] = ("exit_test.cu", "no TPU kernel: XLA's lax.while_loop cond of run, "
+                        "grmonty_tpu/transport/engine.py:2531")
+SOURCES["exit_guard"] = ("exit_test.cu", "no TPU kernel: XLA's lax.while_loop of run, which "
+                         "runs its body where cond holds, grmonty_tpu/transport/engine.py:2547")
 # The float64 instantiations replace what their float32 kernels replace, and
 # each hot step's drawing instance what the hot step replaces.
 SOURCES.update({f"{name}_f64": SOURCES[name]
@@ -1827,8 +1852,9 @@ def kernel_checks(sim, usage, sass, ref_stall_steps):
                            moved, library=library_g))
     out += event_checks(sim, usage) + fresh_checks(sim, usage) + event_fluid_checks(sim, usage)
     out += event_phase_checks(sim, usage)
-    if sim.cfg.dtype == torch.float32:  # the compaction takes masks: one dtype
-        out += compact_checks(sim.device)
+    if sim.cfg.dtype == torch.float32:  # the compaction and the exit test: one dtype
+        out += (compact_checks(sim.device) + exit_test_checks(sim.device)
+                + exit_guard_checks(sim.device))
     out += record_checks(sim, usage)
     return out
 
@@ -2116,6 +2142,159 @@ def compact_checks(dev):
                 if first:
                     out.append(rec)
     return out
+
+
+# Phase 4h: the exit test's widths (the wave's pool and the cascade's),
+# the mask's densities and its byte offsets from a 16-byte boundary
+EXIT_WIDTHS = (N_CHECK, *TAIL_CHECKS)
+EXIT_DENSITIES = (0.0, 0.003, 0.5, 1.0)
+EXIT_SHIFTS = (0, 1, 7, 15)
+
+
+def exit_edges(count, n_super):
+    """(tail_exit, backlog_pos, n_valid, sec_count, bodies, max_outer) at
+    the exit test's edges for a mask of ``count`` set lanes at ``n_super``
+    iterations a block: every term false (go clear); each term true alone
+    under the cap (5 * n_super < 6 * n_super: go set); every term true at
+    the cap (6 * n_super) and past it (go clear)."""
+    from grmonty_tpu_torch.transport import engine
+
+    cap = 6 * n_super
+    return ((count, 3, 3, 0, 0, engine.MAX_OUTER), (count - 1, 3, 3, 0, 5, cap),
+            (count, 2, 3, 0, 5, cap), (count, 3, 3, 1, 5, cap), (count - 1, 0, 9, 4, 6, cap),
+            (count, 0, 9, 4, 7, cap))
+
+
+def exit_test_checks(dev):
+    """Phase 4h: the exit test (``exit_test``) against
+    ``engine.exit_test_plain`` at ``EXIT_WIDTHS`` on seeded masks of
+    ``EXIT_DENSITIES`` at each offset of ``EXIT_SHIFTS`` and each edge of
+    :func:`exit_edges`, the word and go bit for bit, both values of go
+    coming out at every width; timed at each width on a mask of density 0.5
+    with go set (``bound_ms``: the mask's bytes and the words, one operation
+    a lane).  Returns the record at 65,536 lanes; prints the others
+    (``exit_test@<n>``)."""
+    import numpy as np
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    n_super = 16
+    out = []
+    for n in EXIT_WIDTHS:
+        rng = np.random.default_rng(n + 1)
+        timed, gos = None, set()
+        for density in EXIT_DENSITIES:
+            for shift in EXIT_SHIFTS:
+                base = torch.as_tensor(rng.random(n + 16) < density, device=dev)
+                occ = base[shift:shift + n]
+                for edge in exit_edges(int(occ.sum()), n_super):
+                    te, pos, nv, sec, bodies, cap = edge
+                    ins = [torch.tensor(v, dtype=torch.int64, device=dev)
+                           for v in (pos, sec, nv, te)]
+                    res = []
+                    for fn in (engine.exit_test_plain, hot_kernels.exit_test):
+                        word = torch.full((engine.EXIT_WORD,), -5, dtype=torch.int64,
+                                          device=dev)
+                        word[3] = bodies
+                        go = torch.zeros((), dtype=torch.bool, device=dev)
+                        fn(occ, *ins, word, go, n_super, cap)
+                        res.append({"word": word, "go": go})
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(res[0][k], res[1][k]) for k in ("word", "go")):
+                        fail(f"exit_test@{n}: density {density} offset {shift} edge {edge}: "
+                             f"{res[1]['word'].tolist()} against {res[0]['word'].tolist()}")
+                    gos.add(bool(res[0]["go"]))
+                    if density == 0.5 and shift == 0 and timed is None and bool(res[0]["go"]):
+                        timed = (occ, ins, bodies, cap, res)
+        if gos != {False, True}:
+            fail(f"exit_test@{n}: the edges gave go {sorted(gos)} alone")
+        occ, ins, bodies, cap, (ref, got) = timed
+        word = torch.zeros(engine.EXIT_WORD, dtype=torch.int64, device=dev)
+        go = torch.zeros((), dtype=torch.bool, device=dev)
+        extra = {"max_abs_err": 0.0, "max_rel_err": 0.0, "mask_mismatch": 0.0,
+                 "blocks": 1, "threads": 1024}
+        if n != N_CHECK:
+            extra["name"] = f"exit_test@{n}"
+        rec = time_kernel(
+            "exit_test", ref, got,
+            lambda: engine.exit_test_plain(occ, *ins, word, go, n_super, cap),
+            lambda: hot_kernels.exit_test(occ, *ins, word, go, n_super, cap),
+            nbytes(occ, ins, word, go) + nbytes(word, go), ops=n, n=n, extra=extra)
+        if n == N_CHECK:
+            out.append(rec)
+    return out
+
+
+def exit_guard_checks(dev):
+    """Phase 4h: the conditional nodes (``exit_guard``): a CUDA graph of
+    two blocks (one add each to a count) under their IF nodes, the first's
+    condition set from go at the replay's head (the guard's one launch), the
+    second's by the exit test between them (``exit_test`` with a handle);
+    replayed at go set and clear and the test's go set and clear, against
+    Python's ``if`` around the plain test (``engine.exit_test_plain``) on
+    the same inputs: the count, the word and go bit for bit.  Timed as one
+    replay with both set against the plain ``if``s (which read go on the
+    host).  Returns the record."""
+    import torch
+
+    from grmonty_tpu_torch.transport import engine, hot_kernels
+
+    n_super = 16
+    occ = torch.zeros(N_CHECK, dtype=torch.bool, device=dev)
+    occ[::3] = True
+    lanes = int(occ.sum())
+    pos, sec, nv = (torch.tensor(v, dtype=torch.int64, device=dev) for v in (3, 0, 3))
+    te = torch.tensor(0, dtype=torch.int64, device=dev)
+    word = torch.zeros(engine.EXIT_WORD, dtype=torch.int64, device=dev)
+    go = torch.zeros((), dtype=torch.bool, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    plain = {"word": torch.zeros_like(word), "go": torch.zeros_like(go),
+             "count": torch.zeros_like(count)}
+    capture, stream, pool = torch.cuda.Stream(dev), torch.cuda.Stream(dev), torch.cuda.MemPool()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=capture):
+        handles = [hot_kernels.exit_handle(dev) for _ in range(2)]
+        hot_kernels.exit_guard(handles[0], lambda: count.add_(1), stream, pool, go=go)
+        hot_kernels.exit_test(occ, pos, sec, nv, te, word, go, n_super, engine.MAX_OUTER,
+                              handle=handles[1])
+        hot_kernels.exit_guard(handles[1], lambda: count.add_(10), stream, pool)
+
+    def plain_blocks():
+        if bool(plain["go"]):
+            plain["count"].add_(1)
+        engine.exit_test_plain(occ, pos, sec, nv, te, plain["word"], plain["go"], n_super,
+                               engine.MAX_OUTER)
+        if bool(plain["go"]):
+            plain["count"].add_(10)
+
+    def start(first, tail_exit):
+        te.fill_(tail_exit)
+        for w, g, c in ((word, go, count), (plain["word"], plain["go"], plain["count"])):
+            w.zero_()
+            g.fill_(first)
+            c.zero_()
+
+    for first in (True, False):
+        for tail_exit in (lanes - 1, lanes):  # the test's go set, clear
+            start(first, tail_exit)
+            graph.replay()
+            plain_blocks()
+            torch.cuda.synchronize()
+            got = {"word": word, "go": go, "count": count}
+            if not all(torch.equal(got[k], plain[k]) for k in got):
+                fail(f"exit_guard: go {first}, tail_exit {tail_exit}: count {int(count)}, "
+                     f"word {word.tolist()} against the plain if's {int(plain['count'])}, "
+                     f"{plain['word'].tolist()}")
+    start(True, lanes - 1)
+    rec = time_kernel("exit_guard", {"count": plain["count"]}, {"count": count}, plain_blocks,
+                      graph.replay, nbytes(go, count) + nbytes(count), ops=1, n=1,
+                      extra={"max_abs_err": 0.0, "max_rel_err": 0.0, "mask_mismatch": 0.0,
+                             "blocks": 1, "threads": 1,
+                             "note": "ms and device_ms: one replay of the guard, two nodes, "
+                                     "the exit test between them and the blocks' two adds"})
+    torch.cuda.synchronize()
+    return [rec]
 
 
 class Copies:
@@ -2687,7 +2866,11 @@ def path_launches(cfg, stats):
     steps (``<entry>.steps``); the event phase and the ring's pack of its
     dtype once in each full phase; the track start of its dtype and
     semantics once in each full and light phase (under reference semantics
-    it fetches its raw rows itself); the record of its dtype, one launch a
+    it fetches its raw rows itself); the exit test at each engine run's
+    entry and then once a block (eager) or once for each of a graph
+    replay's ``engine.GRAPH_BODIES`` blocks, and the guard that sets the
+    condition of a replay's first block (``exit_guard``) once a replay;
+    the record of its dtype, one launch a
     call (``hot_kernels.record_launches``): the sweep alone
     and the record with the frees in each full phase, the three at once in
     each light phase, the record alone in each closing flush; the
@@ -2697,7 +2880,7 @@ def path_launches(cfg, stats):
     every other entry point (the row gather, the event fluid and the event
     kernel among them, off the path since the event phase is one kernel)
     never."""
-    from grmonty_tpu_torch.transport import hot_kernels
+    from grmonty_tpu_torch.transport import engine, hot_kernels
 
     dt, ref, full = cfg.dtype, cfg.reference, stats["full_phases"]
     sweep, rec, free = (hot_kernels.RECORD_SWEEP, hot_kernels.RECORD_RECORD,
@@ -2719,6 +2902,12 @@ def path_launches(cfg, stats):
             "compact": 2 * full + stats["light_phases"],
             hot_kernels.entry_point("record_phase", dt): records,
             hot_kernels.entry_point("fresh_init", dt, ref): full + stats["light_phases"]}
+    # the exit test at each run's entry, then after each block (eager) or
+    # after each of a replay's blocks; the first block's guard once a replay
+    graphed = stats["replays"] > 0
+    want["exit_test"] = stats["engine_runs"] + (engine.GRAPH_BODIES * stats["replays"]
+                                                if graphed else stats["bodies"])
+    want["exit_guard"] = stats["replays"]
     out = {name: want.get(name, 0) for name in hot_kernels.launches}
     out.update({f"{name}{STEPS}": stats["hot_iters"] if name == draw else 0
                 for name in hot_kernels.run_steps})
@@ -2749,17 +2938,25 @@ OFF_PATH = ("row_gather", "event_fluid", "scatter_event")
 def launch_failures(cfg, stats, counts):
     """What is wrong with a run's launch ``counts`` against
     :func:`path_launches` (empty when they match, ``COMPACT_MORE`` at or
-    above its count, and a hot step ran), or with its replays: on the card
-    every block is one replay of its engine's graph, so
-    ``stats["replays"]`` equals the full phases."""
+    above its count, and a hot step ran), or with its blocks: on the card
+    every block runs under a conditional node of its engine's graph, so
+    the blocks run (``stats["bodies"]``) equal the full phases, the replays
+    hold them (``engine.GRAPH_BODIES`` a replay), and at most one replay a
+    run (``skipped_replays``, against ``engine_runs``) ran none."""
+    from grmonty_tpu_torch.transport import engine
+
     want = path_launches(cfg, stats)
     exact = all(counts[k] == v if k not in COMPACT_MORE else counts[k] >= v
                 for k, v in want.items()) and set(counts) == set(want)
     bad = "" if exact and stats["hot_iters"] > 0 else (
         f"launches {counts} against {want} ({stats['hot_iters']} hot iterations, "
         f"{stats['full_phases']} full and {stats['light_phases']} light phases)")
-    if stats["replays"] != stats["full_phases"]:
-        bad += f" {stats['replays']} graph replays for {stats['full_phases']} blocks"
+    k, replays, skipped = engine.GRAPH_BODIES, stats["replays"], stats["skipped_replays"]
+    if (stats["bodies"] != stats["full_phases"] or not 0 < replays
+            or stats["bodies"] > k * (replays - skipped) or skipped > stats["engine_runs"]):
+        bad += (f" {stats['bodies']} blocks for {stats['full_phases']} full phases in "
+                f"{replays} graph replays of {k} ({skipped} with none) over "
+                f"{stats['engine_runs']} engine runs")
     return bad
 
 
@@ -2829,10 +3026,21 @@ def counting_plain_steps():
 
 
 def graph_summary(stats):
-    """The run's blocks as its graphs ran them: {replays, blocks (one full
-    phase each), ms_per_body (device window over blocks), capture_s}."""
+    """The run's blocks as its graphs ran them: {blocks (one full phase
+    each), bodies (the blocks the exit tests let run), replays,
+    skipped_replays (those that ran no block), engine_runs, graph_bodies
+    (``engine.GRAPH_BODIES``, blocks a replay), flushes, flush_reads (the
+    host reads of the runs' closing flushes, derived from the counted
+    flushes and runs by the loop's structure: one a flush and one a run to
+    find none left), ms_per_body (device window over blocks), capture_s}."""
+    from grmonty_tpu_torch.transport import engine
+
     blocks = stats["full_phases"]
-    return {"replays": stats["replays"], "blocks": blocks,
+    flushes = sum(e[3] for e in stats["engine_phases"])
+    return {"blocks": blocks, "bodies": stats["bodies"], "replays": stats["replays"],
+            "skipped_replays": stats["skipped_replays"], "engine_runs": stats["engine_runs"],
+            "graph_bodies": engine.GRAPH_BODIES, "flushes": flushes,
+            "flush_reads": flushes + stats["engine_runs"],
             "ms_per_body": 1e3 * stats["device_s"] / max(1, blocks),
             "capture_s": stats["capture_s"]}
 
@@ -3047,7 +3255,9 @@ def accuracy_check(root, gate_args=GATE_ARGS, label="accuracy", sigmas=None):
             "engine_s": out["engine_s"], "oracle_s": out["oracle_s"],
             "device_s": run["device_s"], "hot_iters": run["hot_iters"],
             "full_phases": run["full_phases"], "light_phases": run["light_phases"],
-            "replays": run["replays"], "tail_stages": run["tail_stages"], "launches": counts,
+            "replays": run["replays"], "bodies": run["bodies"],
+            "skipped_replays": run["skipped_replays"], "engine_runs": run["engine_runs"],
+            "tail_stages": run["tail_stages"], "launches": counts,
             "plain_steps": plain_steps["hot_step_plain"], "plain_calls": plain_steps,
             "seconds": time.monotonic() - t0}
     print(json.dumps(line))
@@ -3129,8 +3339,8 @@ def sharded_check(root, photon_n, ref=None):
         rel = np.abs(spec - spec_ref) / np.abs(spec_ref)
     max_rel = float(np.nanmax(np.where(spec_ref == spec, 0.0, rel)))
     keys = ("n_created", "n_recorded", "n_scatt_recorded", "n_tracked", "hot_iters",
-            "full_phases", "light_phases", "replays", "waves", "n_stall_killed",
-            "n_secondary_dropped")
+            "full_phases", "light_phases", "replays", "bodies", "skipped_replays", "waves",
+            "n_stall_killed", "n_secondary_dropped")
     result = {"phase": "sharded", "backend": backend, "world_size": st["n_devices"],
               "photon_n": photon_n, "max_rel_spec_diff": max_rel,
               **{k: [st_ref[k], st[k]] for k in keys},
@@ -3222,10 +3432,13 @@ def graph_check(root, card):
     (pool 65,536; the pilot and the step caps cut to ``GRAPH_WARMUP`` and
     ``RESUME_TAIL_STALL``).  The state handed to the cascade and the final
     state must agree bit for bit (pool, ring, counters), the spectrum to
-    rtol 1e-6 (float atomics sum it), the launch and phase counts exactly,
-    and the graphed run must replay one graph per block.  One line with
-    each run's device window, ms per body and ``capture_s`` and the card's
-    name and power limit."""
+    rtol 1e-6 (float atomics sum it), the launch and phase counts exactly
+    but the loop's own (the exit test and the conditional nodes' guards,
+    each run held to its :func:`path_launches`), and the graphed run must
+    run every block under a replay's conditional node
+    (:func:`launch_failures`).  One line with each run's device window, ms
+    per body, blocks, replays and skipped replays and ``capture_s`` and the
+    card's name and power limit."""
     import numpy as np
     import torch
 
@@ -3277,6 +3490,9 @@ def graph_check(root, card):
                "ms_per_hot_iter": [1e3 * s["device_s"] / max(1, s["hot_iters"])
                                    for s in (st_g, st_e)],
                "replays": [st_g["replays"], st_e["replays"]],
+               "bodies": [st_g["bodies"], st_e["bodies"]],
+               "skipped_replays": [st_g["skipped_replays"], st_e["skipped_replays"]],
+               "engine_runs": [st_g["engine_runs"], st_e["engine_runs"]],
                "capture_s": st_g["capture_s"], "max_rel_spec_diff": max_rel,
                "state_differs": differ}
         out.append(rec)
@@ -3286,17 +3502,25 @@ def graph_check(root, card):
                  f"{differ[:8]}")
         if not np.allclose(spec_g, spec_e, rtol=1e-6, atol=0.0):
             fail(f"graph {label}: the spectra differ by {max_rel} relative")
-        moved = [k for k in keys if st_g[k] != st_e[k]]
-        if moved or launches_g != launches_e:
+        # every launch but the loop's own: the exit test after each block
+        # (eager) or each of a replay's blocks, and the guard of each
+        # replay's first block (path_launches holds both runs to theirs)
+        loop = ("exit_test", "exit_guard")
+        moved = [k for k in keys + ("bodies", "engine_runs") if st_g[k] != st_e[k]]
+        if moved or any(launches_g[k] != launches_e[k] for k in launches_g if k not in loop):
             fail(f"graph {label}: counts differ: {moved}, launches {launches_g} against "
                  f"{launches_e}")
         bad = launch_failures(cfg, st_g, launches_g)
         if bad:
             fail(f"graph {label}: {bad}")
-        if not (st_g["replays"] == st_g["full_phases"] > 0 and st_e["replays"] == 0
+        want_e = path_launches(cfg, st_e)
+        if any(launches_e[k] != want_e[k] for k in loop):
+            fail(f"graph {label}: the eager run's loop launched "
+                 f"{[launches_e[k] for k in loop]}, not {[want_e[k] for k in loop]}")
+        if not (st_g["bodies"] == st_g["full_phases"] > 0 and st_e["replays"] == 0
                 and st_g["capture_s"] > 0.0):
-            fail(f"graph {label}: replays {rec['replays']} for {st_g['full_phases']} blocks, "
-                 f"capture_s {st_g['capture_s']}")
+            fail(f"graph {label}: {st_g['bodies']} blocks in replays {rec['replays']} for "
+                 f"{st_g['full_phases']} full phases, capture_s {st_g['capture_s']}")
     print(json.dumps({"phase": "graph", "card": card, "runs": out,
                       "seconds": time.monotonic() - t0}))
 
@@ -3362,7 +3586,8 @@ def replay_check(root):
         counts = path_counts()
     runs = out["runs"]
     total = {k: sum(r[k] for r in runs.values())
-             for k in ("hot_iters", "full_phases", "light_phases", "replays")}
+             for k in ("hot_iters", "full_phases", "light_phases", "replays", "bodies",
+                       "skipped_replays", "engine_runs")}
     total["engine_phases"] = [e for r in runs.values() for e in r["engine_phases"]]
     line = {"phase": "replay", "photons": out["photons"], "mass_unit": out["mass_unit"],
             **{k: out.get(k) for k in (
@@ -3501,7 +3726,7 @@ def main():
 
     _, counts = drive(sim, "shipped")
     for name in ("hot_step_draw", "fresh_init", "event_phase", "compact_rows", "compact",
-                 "record_phase"):
+                 "record_phase", "exit_test", "exit_guard"):
         kernels[name]["launches"] = counts[name]
     kernels["hot_step_draw"]["run_steps"] = counts["hot_step_draw" + STEPS]
     # off the path since the event phase is one kernel (the counts, 0, are

@@ -119,10 +119,12 @@ def main(argv=None):
     log.info("Done: %.0f photons/s; kernel build %.3g s", stats["photon_rate"],
              stats["compile_s"])
     if stats.get("device_s") is not None:
-        log.info("Engine: %d hot iterations, %d full and %d light phases, %d graph replays "
-                 "(capture %.3g s); device window %.6g s, %.6g photons/s",
+        log.info("Engine: %d hot iterations, %d full and %d light phases, %d blocks in %d "
+                 "graph replays (%d ran none; capture %.3g s); device window %.6g s, %.6g "
+                 "photons/s",
                  stats["hot_iters"], stats["full_phases"], stats["light_phases"],
-                 stats["replays"], stats["capture_s"], stats["device_s"],
+                 stats["bodies"], stats["replays"], stats["skipped_replays"],
+                 stats["capture_s"], stats["device_s"],
                  stats["photon_rate_device"])
     return 0
 

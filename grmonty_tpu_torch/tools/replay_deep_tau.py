@@ -103,7 +103,8 @@ def _run_record(sim, stats, seconds):
     """What a reader needs of one engine run: its counts, windows and grow
     caps."""
     keys = ("n_created", "n_recorded", "hot_iters", "full_phases", "light_phases",
-            "engine_phases", "replays", "device_s", "compile_s", "n_stall_killed", "n_secondary_dropped")
+            "engine_phases", "engine_runs", "bodies", "replays", "skipped_replays",
+            "device_s", "compile_s", "n_stall_killed", "n_secondary_dropped")
     tail = sim.tail_grow_cap if sim.tail_grow_cap is not None else sim.cfg.grow_cap
     return {**{k: stats[k] for k in keys}, "seconds": seconds,
             "grow_caps": {"wave": sim.cfg.grow_cap, "tail": tail}}

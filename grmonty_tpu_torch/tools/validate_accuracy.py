@@ -554,7 +554,7 @@ def run(args):
                          "full_phases": sum(e.phases["full"] for e in engines),
                          "light_phases": sum(e.phases["light"] for e in engines),
                          "engine_phases": driver.engine_phases(engines),
-                         "replays": sum(e.replays for e in engines),
+                         **driver.engine_loops(engines),
                          "tail_stages": [[st["pool"], st["iters"]] for st in sim.tail_stages],
                          "pilot": sim.pilot}
     print(json.dumps(out, indent=2))

@@ -35,8 +35,11 @@ whole run.  The engine's time is clocked by CUDA events on a CUDA device
 built (or loaded) when the ``Simulation`` is made, outside every device
 window, and the seconds that took are reported as ``compile_s``; each
 engine's block is captured into a CUDA graph before its first device window
-(``Engine.capture``, ``capture_s``) and replayed once per block
-(``replays``), unless the ``Simulation`` is made with ``graphed=False``.
+(``Engine.capture``, ``capture_s``) and replayed, each block under a
+conditional node on the run's exit test, the host reading each replay's
+exit word while the next replay runs (``replays``, ``bodies``, the blocks
+run, and ``skipped_replays``, one a run: :func:`engine_loops`), unless the
+``Simulation`` is made with ``graphed=False``.
 """
 
 from __future__ import annotations
@@ -128,6 +131,19 @@ def warm_counters(counters, n_recorded, n_scatt_rec, max_tau_scatt, avg):
         max_tau_scatt=torch.tensor(max_tau_scatt, dtype=dt, device=dev),
         avg_ema=torch.tensor(avg, dtype=dt, device=dev),
         ema_scatt_mark=i64(n_scatt_rec), ema_rec_mark=i64(n_recorded))
+
+
+def engine_loops(engines):
+    """The engines' runs of blocks since their counts were set to 0
+    (``Engine.runs``, ``bodies``, ``replays``, ``skipped``): the runs, the
+    blocks run, the graph replays (each of ``engine.GRAPH_BODIES`` guarded
+    blocks; 0 off the graph) and the replays that ran no
+    block (one a graphed run, issued while the host read the word that
+    ended it)."""
+    return {"engine_runs": sum(e.runs for e in engines),
+            "bodies": sum(e.bodies for e in engines),
+            "replays": sum(e.replays for e in engines),
+            "skipped_replays": sum(e.skipped for e in engines)}
 
 
 def engine_phases(engines):
@@ -592,7 +608,7 @@ class Simulation:
         for eng in self._tail_engines.values():
             eng.phases = {"full": 0, "light": 0}
             eng.flushes = 0
-            eng.replays = 0
+            eng.runs = eng.replays = eng.bodies = eng.skipped = 0
         self.device_s = 0.0 if self.device.type == "cuda" else None
         self.capture_s = 0.0
         self.spec_acc = np.zeros_like(self.spec_acc)
@@ -635,7 +651,7 @@ class Simulation:
             "elapsed_s": elapsed,
             "compile_s": self.compile_s,
             "capture_s": self.capture_s,
-            "replays": sum(e.replays for e in engines),
+            **engine_loops(engines),
             "photon_rate": plan.total / max(elapsed, 1e-9),
             "device_s": self.device_s,
             "photon_rate_device": (plan.total / self.device_s if self.device_s else None),

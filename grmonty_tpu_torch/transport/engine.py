@@ -37,14 +37,23 @@ Photons are an SoA pool of (N,) tensors stepped in lockstep:
   event ``scattering.scatter_event_c`` drawing from the generator),
   :func:`pack_rows_plain`, :func:`record_phase_plain`,
   :func:`refill_sources_plain` and :func:`init_fresh_plain`;
-* :meth:`Engine.run` loops those blocks on the host, reading the exit
-  condition once per ``m_period`` block (and logging its progress every
-  ``PROGRESS_ITERS`` iterations of a long run).  A block (the JAX engine's
-  ``lax.while_loop`` body: the full phase, the hot steps, each light phase
-  and its hot steps) runs in place on a state the engine owns, with a
-  static backlog buffer and a device ``n_valid``, so nothing in it reads
-  the host; on the card (``graphed``) it is captured once into a CUDA
-  graph and replayed once per block, elsewhere it runs eagerly.
+* :meth:`Engine.run` runs those blocks until the JAX engine's
+  ``lax.while_loop`` ``cond`` fails, the exit test computed on the device
+  at the run's entry and after every block (``hot_kernels.exit_test``,
+  plain :func:`exit_test_plain`, into an :class:`ExitWord`; the progress
+  logged every ``PROGRESS_ITERS`` iterations of a long run from the words).
+  A block (the while-loop's body: the full phase, the hot steps, each
+  light phase and its hot steps) runs in place on a state the engine owns,
+  with a static backlog buffer and a device ``n_valid`` and ``tail_exit``,
+  so nothing in it reads the host.  On the card (``graphed``) a replay of
+  one CUDA graph runs ``GRAPH_BODIES`` blocks, each under a conditional IF
+  node (``hot_kernels.exit_guard``) whose condition the test before it
+  sets (a replay's first block's from the word's ``go``, at the replay's
+  head) and followed by the test, and the host issues the next replay before it waits on the
+  last one's word (:func:`pipelined_loop`), so the card does not idle on
+  the host's read; one replay a run comes after the exit and runs no
+  block.  Elsewhere each block runs eagerly and the word is read after it
+  (:func:`host_loop`).
 
 RNG: one ``torch.Generator`` per engine; every draw site takes a whole
 batch from it.  The hot phases take their uniforms as arguments, so the
@@ -54,7 +63,10 @@ run of the drawing hot step (``hot_kernels.hot_run``, one launch) draws
 each step's two uniforms a lane from the lane's Philox stream under that
 key at the step's index in the block (``draws.hot_uniforms`` is the plain
 version); on the CPU they are ``torch.rand`` batches, as the event phase's
-draws are.
+draws are.  A graph replay advances the generator by all its blocks'
+draws, those of a block that did not run included; a graphed run sets the
+generator back to where its blocks' draws leave it
+(:func:`rewound_offset`), as an eager run leaves it.
 A block's phases and hot steps read the bias's terms (:class:`BiasTerms`:
 the denominators and the scale) from tensors of the engine's own, which
 each phase's record writes in place (:func:`bias_terms_plain` is their
@@ -1203,13 +1215,143 @@ def bias_terms_plain(counters, bias_norm, dt, reference, fold=False, fixed=None)
     return folded, BiasTerms(den_of(counters) if fold else den, den, (100.0 / den).to(dt))
 
 
+class ExitWord(typing.NamedTuple):
+    """The exit test's word as the host reads it: the occupied lanes, the
+    backlog position and the queued secondaries it found, the bodies the run
+    has run or is about to (``go`` added), and ``go``: whether the next block
+    runs."""
+
+    occ: int
+    pos: int
+    sec: int
+    bodies: int
+    go: int
+
+
+EXIT_WORD = len(ExitWord._fields)
+
+
+def exit_test_plain(occupied, backlog_pos, sec_count, n_valid, tail_exit, word, go, n_super,
+                    max_outer):
+    """The plain version of ``hot_kernels.exit_test``, the JAX engine's
+    while-loop ``cond`` (``grmonty_tpu/transport/engine.py``, ``run``) with
+    the cap on this run's iterations: ``go`` = (sum(occupied) >
+    ``tail_exit`` | ``backlog_pos`` < ``n_valid`` | ``sec_count`` > 0) &
+    (``word[3]`` * ``n_super`` < ``max_outer``); ``word`` (int64
+    (EXIT_WORD,)) becomes [occ, pos, sec, word[3] + go, go] and ``go`` (a
+    bool scalar) go, both in place.  Returns (word, go)."""
+    occ = occupied.sum()
+    bodies = word[3]
+    g = (((occ > tail_exit) | (backlog_pos < n_valid) | (sec_count > 0))
+         & (bodies * n_super < max_outer))
+    gi = g.to(torch.int64)
+    word.copy_(torch.stack([occ.to(torch.int64), backlog_pos, sec_count, bodies + gi, gi]))
+    go.copy_(g)
+    return word, go
+
+
+class RunLoop(typing.NamedTuple):
+    """What a run's loop of blocks did: the last exit word read (its
+    ``bodies`` the blocks the run ran), the graph replays issued and those
+    of them that ran no block."""
+
+    word: ExitWord
+    replays: int
+    skipped: int
+
+
+class _Progress:
+    """The progress log of a long run: at a word whose block runs, once
+    every ``PROGRESS_ITERS`` hot iterations of the run, the iterations done
+    before that block and the word's counts."""
+
+    def __init__(self, n_super):
+        self.n_super, self.next_log = n_super, PROGRESS_ITERS
+
+    def __call__(self, word: ExitWord):
+        done = (word.bodies - 1) * self.n_super
+        if word.go and done >= self.next_log:
+            log.info("engine run: %d hot iterations, %d lanes occupied, %d secondaries queued",
+                     done, word.occ, word.sec)
+            self.next_log += PROGRESS_ITERS
+        return word
+
+
+def host_loop(word: ExitWord, body, test, n_super) -> RunLoop:
+    """The plain version of :func:`pipelined_loop`: while ``word`` says the
+    next block runs, run it (``body()``) and take the exit test after it
+    (``test()``, which returns its word read on the host).  ``word``: the
+    test's word at the run's entry."""
+    progress = _Progress(n_super)
+    while progress(word).go:
+        body()
+        word = test()
+    return RunLoop(word, 0, 0)
+
+
+def pipelined_loop(entry, launch, read, n_super) -> RunLoop:
+    """The loop of a graphed run, the host one replay ahead of the word it
+    reads: ``launch()`` issues one replay (its blocks, each guarded by the
+    exit word's ``go`` and followed by the exit test) and the copy of its
+    last word to the host, and returns the copy's handle; ``read(handle)``
+    waits for that copy alone and returns its :class:`ExitWord`; ``entry``:
+    the handle of the word of the test at the run's entry.  Replay n + 1 is
+    issued before replay n's word is read, so the card runs on while the
+    host reads; the loop stops at the first word whose ``go`` is 0, and the
+    one replay issued after it runs no block (the state is left as the
+    word found it, so its every test finds the same)."""
+    progress = _Progress(n_super)
+    pending, replays, ran = entry, 0, 0
+    while True:
+        ahead = launch()
+        replays += 1
+        word = progress(read(pending))
+        if not word.go:
+            return RunLoop(word, replays, replays - ran)
+        ran += 1
+        pending = ahead
+
+
+def rewound_offset(offset, base, step, k, replays, bodies):
+    """The generator's offset after a graphed run, as an eager run of
+    ``bodies`` blocks leaves it: each replay advanced it from ``base`` by
+    the graph's whole increment, ``k`` blocks of ``step`` each, the blocks
+    that did not run included (``offset`` must say so, or this raises);
+    the blocks that ran drew at base + j * step, j = 0 ... bodies - 1."""
+    if offset - base != replays * k * step:
+        raise RuntimeError(f"the generator moved {offset - base} over {replays} replays of "
+                           f"{k} blocks of {step}")
+    return base + bodies * step
+
+
+def run_credit(body, replay, bodies, replays):
+    """What a graphed run adds to the launch and phase counts: ``body``
+    ({name: n}, {phase: n}, a block's) once a block run, ``replay`` (a
+    replay's own launches: its exit tests) once a replay."""
+    launched = {k: v * bodies for k, v in body[0].items()}
+    for k, v in replay[0].items():
+        launched[k] = launched.get(k, 0) + v * replays
+    phased = {k: v * bodies for k, v in body[1].items()}
+    for k, v in replay[1].items():
+        phased[k] = phased.get(k, 0) + v * replays
+    return launched, phased
+
+
+# The blocks one graph replay runs, each under its conditional node: 2
+# halves the gaps between replays that 1 leaves, and every run of the
+# reference window read shorter with 2 than with 1; 4 read no shorter
+# (PERF.md §6).
+GRAPH_BODIES = 2
+
+
 class Engine:
     """The transport engine of one dump (the counterpart of the JAX
     ``make_engine`` closure).  ``gen``: the run's ``torch.Generator``, on
     ``device``.  ``graphed`` (a CUDA device only; the default there):
-    :meth:`run` replays one CUDA graph of the block per block, captured at
-    the first run (:meth:`capture`); else it issues the block's operations
-    one by one, which the phase clocks of ``profile_slice.py`` need."""
+    :meth:`run` replays one CUDA graph of ``GRAPH_BODIES`` guarded blocks,
+    captured at the first run (:meth:`capture`), until the exit word says
+    stop; else it issues the block's operations one by one, which the phase
+    clocks of ``profile_slice.py`` need."""
 
     def __init__(self, mc, cfg: EngineConfig, tables: EngineTables, device, gen,
                  graphed=None):
@@ -1260,18 +1402,35 @@ class Engine:
         # refill's (hot_kernels.fresh_ticket).
         self.backlog_cap = 1
         self._state = self._backlog = self._graph = self._credit = None
+        self._body_stream = self._body_pool = None
         self._n_valid = torch.zeros((), dtype=torch.int64, device=self.device)
         self._rows_ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
         self._record_ticket = hot_kernels.record_ticket(self.device, n)
         self._fresh_ticket = torch.zeros(3, dtype=torch.int32, device=self.device)
+        # The exit test's inputs and outputs (hot_kernels.exit_test): the
+        # run's tail_exit on the device, the word (ExitWord) and go, the
+        # predicate of a replay's first block's node; on the card the host
+        # reads the word from two pinned slots, each with its event.
+        self._tail_exit = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._exit_word = torch.zeros(EXIT_WORD, dtype=torch.int64, device=self.device)
+        self._go = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._host_words = torch.zeros((2, EXIT_WORD), dtype=torch.int64, pin_memory=cuda)
+        self._word_events = (torch.cuda.Event(), torch.cuda.Event()) if cuda else None
+        # A replay's blocks (GRAPH_BODIES), and what one block advances the
+        # generator by (measured at the capture).
+        self.graph_bodies = GRAPH_BODIES
+        self._gen_step = None
+        self.runs = 0  # runs since fresh_state
         self.replays = 0  # graph replays since fresh_state
+        self.bodies = 0  # blocks run since fresh_state
+        self.skipped = 0  # graph replays that ran no block since fresh_state
 
     # -- state ------------------------------------------------------------
     def fresh_state(self) -> State:
         c, dt, dev = self.cfg, self.dt, self.device
         self.phases = {"full": 0, "light": 0}
         self.flushes = 0
-        self.replays = 0
+        self.runs = self.replays = self.bodies = self.skipped = 0
         return State(
             pool=empty_pool(c.n_pool, dt, dev, trace_birth=c.trace_birth),
             spec=torch.zeros((N_BINS + 1, N_SPEC_CHAN), dtype=dt, device=dev),
@@ -1464,13 +1623,15 @@ class Engine:
         with its graph, and both are made again at the next run."""
         self.backlog_cap = max(1, int(rows))
         if self._backlog is not None and self._backlog.shape[0] < self.backlog_cap:
-            self._backlog = self._graph = None
+            self._backlog = self._graph = self._body_stream = self._body_pool = None
 
-    def _load(self, state: State, backlog_rows, n_valid):
+    def _load(self, state: State, backlog_rows, n_valid, tail_exit=None):
         """Copy the caller's ``state`` and backlog into the block's own
-        tensors (made at the first call) and set the valid rows' count.
-        The bias's terms need no copy: the block's first launch, the full
-        phase's sweep, writes them from the counters it finds."""
+        tensors (made at the first call), set the valid rows' count and the
+        run's ``tail_exit`` (``cfg.tail_exit`` when None) on the device and
+        the exit word's body count to 0.  The bias's terms need no copy: the
+        block's first launch, the full phase's sweep, writes them from the
+        counters it finds."""
         n = backlog_rows.shape[0]
         if self._backlog is None:
             self._backlog = torch.zeros((max(n, self.backlog_cap), ROW_WIDTH), dtype=self.dt,
@@ -1486,6 +1647,21 @@ class Engine:
             assign_state(self._state, state)
         self._backlog[:n].copy_(backlog_rows)
         self._n_valid.fill_(n_valid)
+        self._tail_exit.fill_(self.cfg.tail_exit if tail_exit is None else tail_exit)
+        self._exit_word.zero_()
+
+    def _exit_test(self, handle=None):
+        """The exit test on the engine's own state, in place on the exit
+        word and ``go`` (``hot_kernels.exit_test``: one launch on the card,
+        :func:`exit_test_plain` on the CPU), and on ``handle``'s condition
+        where given (the next block's node in a capture); it reads nothing
+        on the host."""
+        from grmonty_tpu_torch.transport import hot_kernels
+
+        st = self._state
+        hot_kernels.exit_test(st.pool.occupied, st.backlog_pos, st.sec.count, self._n_valid,
+                              self._tail_exit, self._exit_word, self._go, self.n_super,
+                              MAX_OUTER, handle=handle)
 
     def _body(self):
         """One block on the engine's own state, in place: the full phase,
@@ -1533,30 +1709,83 @@ class Engine:
             self.phases.update(phases0)
         return launched, phased
 
+    def _guarded(self, guard, body=None, handles=None):
+        """A replay's blocks: ``graph_bodies`` times the block
+        (``body``, :meth:`_body` when None) under ``guard(self._go, body)``,
+        then the exit test after it, whose word guards the next block;
+        ``handles`` (the capture's, :meth:`_if_node`): the blocks'
+        conditional handles, the test after block i setting block i + 1's."""
+        for i in range(self.graph_bodies):
+            guard(self._go, body or self._body)
+            nxt = i + 1
+            self._exit_test(handles[nxt] if handles and nxt < len(handles) else None)
+
+    def _if_node(self):
+        """The guard of the capture and the blocks' conditional handles
+        (``hot_kernels.exit_handle``): each call of the guard captures the
+        function it is given under a conditional IF node on the next handle
+        (``hot_kernels.exit_guard``, the block's own stream and memory
+        pool), which a replay runs only where that handle's condition is
+        set: the first block's from its predicate at the replay's head, each
+        other block's by the exit test before it."""
+        from grmonty_tpu_torch.transport import hot_kernels
+
+        handles = [hot_kernels.exit_handle(self.device) for _ in range(self.graph_bodies)]
+        nodes = iter(enumerate(handles))
+
+        def guard(pred, fn):
+            i, handle = next(nodes)
+            hot_kernels.exit_guard(handle, fn, self._body_stream, self._body_pool,
+                                   go=pred if i == 0 else None)
+        return guard, handles
+
     def capture(self, state: State, backlog_rows, n_valid=None):
-        """Capture the block into a CUDA graph at a graphed engine's first
-        run (else do nothing): one eager block on a side stream loads every
-        kernel and fills the wrappers' caches, then the capture records one
-        block with the run's generator registered.  The launch and phase
-        counts, the generator and the engine's copy of ``state`` are left as
-        they were found; what one block adds to the counts is kept and
-        credited once per replay.  The garbage collector is off during the
-        capture.  Returns the seconds it took.  A capture that fails
-        raises."""
+        """Capture a replay into a CUDA graph at a graphed engine's first
+        run (else do nothing): ``graph_bodies`` blocks, each under a
+        conditional node on the exit word's ``go`` and followed by the exit
+        test (:meth:`_guarded`; the nodes :meth:`_if_node`).  One
+        eager block and exit test on a side
+        stream first load every kernel and fill the wrappers' caches and
+        measure what a block advances the generator by; then the capture
+        records the replay with the run's generator registered.  The launch
+        and phase counts, the generator and the engine's copy of ``state``
+        are left as they were found; what one block adds to the counts, and
+        what a replay adds besides its blocks (its exit tests), are kept and
+        credited by the blocks and replays a run ran.  The garbage collector
+        is off during the capture.  Returns the seconds it took.  A capture
+        that fails, or a conditional node that the CUDA runtime refuses,
+        raises: a graphed engine never falls back to the host loop."""
         if not self.graphed or self._graph is not None:
             return 0.0
         t0 = time.monotonic()
+        graph = torch.cuda.CUDAGraph()
+        # the capture's stream and the blocks' (torch hands out streams from
+        # a pool, so two asks can give one stream: the blocks' must not be
+        # the one capturing) and the blocks' memory pool, made outside the
+        # capture and kept with the graph: the pool holds what they allocate
+        capture_stream = torch.cuda.Stream(self.device)
+        self._body_stream = torch.cuda.Stream(self.device)
+        while self._body_stream.cuda_stream == capture_stream.cuda_stream:
+            self._body_stream = torch.cuda.Stream(self.device)
+        self._body_pool = torch.cuda.MemPool()
         nv = backlog_rows.shape[0] if n_valid is None else n_valid
         self._load(state, backlog_rows, nv)
         gen_state = self.gen.get_state()
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
+        offset0 = self.gen.get_offset()
         with torch.cuda.stream(side):
             self._counting(self._body)
+            step = self.gen.get_offset() - offset0
+            self._counting(self._exit_test)
         cur.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.gen)
+        bodies = []
+
+        def body():
+            bodies.append(self._counting(self._body))
+
         # No collection inside the capture: another engine's graph left in a
         # reference cycle and collected there would be destroyed inside it,
         # which the driver refuses and which invalidates the capture.
@@ -1566,63 +1795,111 @@ class Engine:
         try:
             # thread_local: another thread's CUDA calls (a process group's
             # watchdog) stay legal while this thread captures
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                credit = self._counting(self._body)
+            with torch.cuda.graph(graph, stream=capture_stream,
+                                  capture_error_mode="thread_local"):
+                guard, handles = self._if_node()
+                guards = self._counting(lambda: self._guarded(guard, body, handles))
         finally:
             if collecting:
                 gc.enable()
+        if len(bodies) != self.graph_bodies or any(b != bodies[0] for b in bodies):
+            raise RuntimeError(f"capture: {len(bodies)} blocks of {self.graph_bodies} captured, "
+                               f"counting {bodies}")
         self.gen.set_state(gen_state)
         self._load(state, backlog_rows, nv)
         torch.cuda.synchronize(self.device)
-        self._graph, self._credit = graph, credit
+        self._graph, self._credit, self._gen_step = graph, (bodies[0], guards), step
         return time.monotonic() - t0
 
     def _replay(self):
-        """One block: the graph's replay, its launches and phases credited."""
+        """One replay of the graph: its blocks run where their exit tests
+        say (what it launched is credited by :meth:`_run_replays`)."""
+        self._graph.replay()
+        self.replays += 1
+
+    def _word_handle(self, j):
+        """Copy the exit word into the host's slot ``j % 2`` behind the
+        work queued so far (pinned, without waiting on the card) and mark
+        it with that slot's event; returns the handle for :meth:`_read`."""
+        slot = self._host_words[j % 2]
+        slot.copy_(self._exit_word, non_blocking=True)
+        event = None
+        if self._word_events is not None:
+            event = self._word_events[j % 2]
+            event.record()
+        return slot, event
+
+    @staticmethod
+    def _read(handle):
+        """Wait for a word's copy (:meth:`_word_handle`) and read it."""
+        slot, event = handle
+        if event is not None:
+            event.synchronize()
+        return ExitWord(*slot.tolist())
+
+    def _gen_offset(self):
+        return self.gen.get_offset()
+
+    def _set_gen_offset(self, offset):
+        self.gen.set_offset(offset)
+
+    def _run_replays(self):
+        """The blocks of a graphed run (:func:`pipelined_loop`): the entry
+        test's word, then one replay ahead of each word read.  Credits the
+        blocks' launches and phases by the blocks run and the exit tests by
+        the replays (:func:`run_credit`), and rewinds the
+        generator to where an eager run of as many blocks leaves it
+        (:func:`rewound_offset`)."""
         from grmonty_tpu_torch.transport import hot_kernels
 
-        self._graph.replay()
-        launched, phased = self._credit
+        base = self._gen_offset()
+        issued = [0]
+
+        def launch():
+            self._replay()
+            issued[0] += 1
+            return self._word_handle(issued[0])
+
+        out = pipelined_loop(self._word_handle(0), launch, self._read, self.n_super)
+        self._set_gen_offset(rewound_offset(self._gen_offset(), base, self._gen_step,
+                                            self.graph_bodies, out.replays, out.word.bodies))
+        launched, phased = run_credit(*self._credit, out.word.bodies, out.replays)
         hot_kernels.credit(launched)
         for k, v in phased.items():
             self.phases[k] += v
-        self.replays += 1
+        self.skipped += out.skipped
+        return out
 
-    def _exit_counts(self):
-        """(occupied lanes, backlog position, queued secondaries): the one
-        host read of a block."""
-        st = self._state
-        return torch.stack([st.pool.occupied.sum(), st.backlog_pos, st.sec.count]).tolist()
+    def _test_and_read(self):
+        """The exit test after an eager block, its word read on the host."""
+        self._exit_test()
+        return ExitWord(*self._exit_word.tolist())
 
     def run(self, state: State, backlog_rows, tail_exit=None, n_valid=None) -> State:
         """Run blocks until the backlog and the ring are spent and at most
-        ``tail_exit`` lanes remain occupied (the exit condition is read on
-        the host once per block), then flush the pending records.  The
-        block runs on the engine's copy of ``state`` and ``backlog_rows``'s
-        first ``n_valid`` rows (all when None): replayed from its graph when
-        graphed (captured here at the first run, unless :meth:`capture` ran
-        first), else issued op by op.  Returns a state of tensors of its
-        own, which no later run overwrites."""
-        te = self.cfg.tail_exit if tail_exit is None else tail_exit
+        ``tail_exit`` lanes remain occupied, then flush the pending records.
+        The block runs on the engine's copy of ``state`` and
+        ``backlog_rows``'s first ``n_valid`` rows (all when None).  The exit
+        test (:meth:`_exit_test`) runs on the device at the entry and after
+        every block.  Graphed (captured here at the first run, unless
+        :meth:`capture` ran first), each replay's blocks run under
+        conditional nodes on its word, and the host reads each replay's word
+        while the next replay runs (:func:`pipelined_loop`); else each
+        block is issued op by op and the word read after it
+        (:func:`host_loop`).  Returns a state of tensors of its own, which
+        no later run overwrites."""
         nv = backlog_rows.shape[0] if n_valid is None else n_valid
         self.capture(state, backlog_rows, nv)
-        self._load(state, backlog_rows, nv)
-        it0 = it = state.it
-        next_log = PROGRESS_ITERS
-        while it - it0 < MAX_OUTER:
-            occ, pos, sec = self._exit_counts()
-            if not (occ > te or pos < nv or sec > 0):
-                break
-            if it - it0 >= next_log:
-                log.info("engine run: %d hot iterations, %d lanes occupied, %d secondaries "
-                         "queued", it - it0, occ, sec)
-                next_log += PROGRESS_ITERS
-            if self.graphed:
-                self._replay()
-            else:
-                self._body()
-            it += self.n_super
-        state = clone_state(self._state)._replace(it=it)
+        self._load(state, backlog_rows, nv, tail_exit)
+        self._exit_test()
+        if self.graphed:
+            out = self._run_replays()
+        else:
+            out = host_loop(ExitWord(*self._exit_word.tolist()), self._body,
+                            self._test_and_read, self.n_super)
+        self.runs += 1
+        self.bodies += out.word.bodies
+        state = clone_state(self._state)._replace(it=state.it + out.word.bodies * self.n_super)
         # final flush of pending records; a record_pending lane still holding
         # an unconsumed detached event records on a later phase
         spec, counters, p = state.spec, state.counters, state.pool

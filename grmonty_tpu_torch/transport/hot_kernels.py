@@ -77,6 +77,16 @@ and the frees with their census, in place (:func:`record_phase`:
 where the JAX engine runs XLA (``grmonty_tpu/transport/engine.py:1819``,
 ``:2395``, ``:2410``).
 
+``csrc/exit_test.cu`` holds the engine run's exit test (:func:`exit_test`;
+``engine.exit_test_plain``), the JAX engine's ``lax.while_loop`` ``cond``
+(XLA, ``grmonty_tpu/transport/engine.py:2531``): one block counts the
+occupied lanes and writes the exit word and ``go``, and inside a graph
+sets the condition of the next block's node; and the conditional IF node
+that guards each block of a graph replay (:func:`exit_guard`, on a handle
+of :func:`exit_handle`), built through the CUDA runtime on the graph
+PyTorch is capturing, with a one-thread kernel that sets the condition of
+a replay's first block from ``go``.
+
 The headers of the ``.cu`` files say what bounds each kernel on the card.
 
 :func:`hot_step`, :func:`row_gather`, :func:`gather_rowsum`,
@@ -136,7 +146,8 @@ launches = {"hot_step": 0, "hot_step_ref": 0, "row_gather": 0, "hot_step_f64": 0
             "philox_words": 0, "fresh_init": 0, "fresh_init_ref": 0, "fresh_init_f64": 0,
             "fresh_init_ref_f64": 0, "event_fluid": 0, "event_fluid_f64": 0,
             "event_phase": 0, "event_phase_f64": 0, "compact": 0, "compact_rows": 0,
-            "compact_rows_f64": 0, "record_phase": 0, "record_phase_f64": 0}
+            "compact_rows_f64": 0, "record_phase": 0, "record_phase_f64": 0, "exit_test": 0,
+            "exit_guard": 0}
 # The dtypes the hot step and the row gather have kernels for, and the
 # suffix of their entry points: the float32 kernels keep their names.
 DTYPE_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
@@ -321,7 +332,11 @@ _ABI = {**{f"hot_step{r}{x}{d}": (len(_HOT_REF_PTRS if r else _HOT_PTRS),
         "compact": (4, 2),
         **{f"compact_rows{x}": (6, 1) for x in DTYPE_SUFFIX.values()},
         **{f"record_phase{x}": (len(_RECORD_PTRS), len(_RECORD_SCAL))
-           for x in DTYPE_SUFFIX.values()}}
+           for x in DTYPE_SUFFIX.values()},
+        # the exit test: occupied, backlog_pos, sec_count, n_valid,
+        # tail_exit, the word, go, the conditional handle; the scalars
+        # n_super, max_outer and whether it sets the handle
+        "exit_test": (8, 3)}
 
 
 # The hot step's entry points, and their drawing instances; the track
@@ -356,12 +371,21 @@ _INT_FNS = ("gather_rowsum_persistent_pass_rows", "gather_rowsum_rowloop_wave_ro
             "record_phase_launches")
 
 
+# The conditional nodes' builders of csrc/exit_test.cu (exit_handle,
+# exit_guard): their arguments.
+_GUARD_FNS = {"exit_guard_handle": [ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)],
+              "exit_guard_begin": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
+                                   ctypes.c_void_p],
+              "exit_guard_end": [ctypes.c_void_p]}
+
+
 class _Build:
     """The loaded libraries, their entry points and how they were built
     (one per process)."""
 
     fns = None  # kernel name -> ctypes function
     int_fns = {}  # _INT_FNS name -> ctypes function
+    guard_fns = {}  # _GUARD_FNS name -> ctypes function
     paths = []
     seconds = 0.0
     log = ""
@@ -406,7 +430,7 @@ def build():
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}) for {path}:\n{out}")
         os.replace(tmp, path)
-    fns, int_fns = {}, {}
+    fns, int_fns, guard_fns = {}, {}, {}
     for path in paths:
         lib = ctypes.CDLL(path)
         for name, (n_ptrs, n_scal) in _ABI.items():
@@ -427,10 +451,18 @@ def build():
                 fn.argtypes = [ctypes.c_int]
                 fn.restype = ctypes.c_int
                 int_fns[sym] = fn
-    missing = sorted(set(_ABI) - set(fns)) + [sym for sym in _INT_FNS if sym not in int_fns]
+        for sym, argtypes in _GUARD_FNS.items():
+            if hasattr(lib, sym):
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                guard_fns[sym] = fn
+    missing = (sorted(set(_ABI) - set(fns)) + [sym for sym in _INT_FNS if sym not in int_fns]
+               + [sym for sym in _GUARD_FNS if sym not in guard_fns])
     if missing:
         raise RuntimeError(f"no entry point for {missing} in {paths}")
     _Build.fns, _Build.int_fns, _Build.paths = fns, int_fns, paths
+    _Build.guard_fns = guard_fns
     _Build.seconds, _Build.log = time.monotonic() - t0, "".join(out for *_, out in log)
     return _Build.paths, _Build.seconds, _Build.log
 
@@ -449,14 +481,14 @@ def _check_lanes(what, tensors, dtypes, n, dev, names=None):
 
 def _launch(name, ptr_tensors, scal, n, device, kernels=1):
     """Launch entry point ``name`` on ``n`` lanes: the tensors' device
-    pointers (None passes a null pointer), the scalars (a ctypes array or a
+    pointers (None passes a null pointer, an int its bits), the scalars (a ctypes array or a
     list of numbers), the current stream of ``device``; ``kernels``: the
     kernels the entry point launches, which its count adds."""
     build()
     if n == 0:
         return  # no lanes: nothing to launch
     ptrs = (ctypes.c_void_p * len(ptr_tensors))(
-        *[None if t is None else t.data_ptr() for t in ptr_tensors])
+        *[t if t is None or isinstance(t, int) else t.data_ptr() for t in ptr_tensors])
     sc = scal if isinstance(scal, ctypes.Array) else (ctypes.c_double * len(scal))(
         *[float(v) for v in scal])
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -1211,6 +1243,99 @@ def record_launches(mode):
     (``RECORD_SWEEP``, ``RECORD_RECORD``, ``RECORD_FREE`` added): one for
     every mode (``csrc/record.cu``'s record_phase_launches)."""
     return _int_fn("record_phase_launches", mode)
+
+
+def exit_test(occupied, backlog_pos, sec_count, n_valid, tail_exit, word, go, n_super,
+              max_outer, handle=None):
+    """The run's exit test (``engine.exit_test_plain``): whether the next
+    block runs, ``go`` = (occupied lanes > ``tail_exit`` or ``backlog_pos``
+    < ``n_valid`` or ``sec_count`` > 0) and ``word[3] * n_super <
+    max_outer``, written into ``word`` = [occ, pos, sec, bodies + go, go]
+    (int64 (``engine.EXIT_WORD``,)) and ``go`` (a bool scalar, the graph's
+    conditional node's predicate), in place.  ``occupied``: the (N,) bool
+    mask; the other four int64 scalars.  ``handle`` (:func:`exit_handle`,
+    inside a capture on the card): the conditional node whose condition the
+    test also sets to go.  On CPU tensors the plain version (no handle), on
+    CUDA tensors one launch of ``exit_test`` (``csrc/exit_test.cu``), or
+    raise.  Returns (word, go).  No host sync."""
+    if occupied.device.type == "cpu":
+        if handle is not None:
+            raise ValueError("exit_test: a conditional handle exists only on the card")
+        return engine.exit_test_plain(occupied, backlog_pos, sec_count, n_valid, tail_exit,
+                                      word, go, n_super, max_outer)
+    dev, n = _cuda_device(occupied), occupied.shape[0]
+    _check_lanes("exit_test", [occupied], [torch.bool], n, dev, names=["occupied"])
+    for what, t in (("backlog_pos", backlog_pos), ("sec_count", sec_count),
+                    ("n_valid", n_valid), ("tail_exit", tail_exit)):
+        _check_scalar(f"exit_test {what}", t, torch.int64, dev)
+    _check_scalar("exit_test go", go, torch.bool, dev)
+    if (word.dtype != torch.int64 or tuple(word.shape) != (engine.EXIT_WORD,)
+            or not word.is_contiguous() or word.device != dev):
+        raise ValueError(f"exit_test: expected a contiguous ({engine.EXIT_WORD},) int64 word "
+                         f"on {dev}, got {word.dtype} {tuple(word.shape)} on {word.device}")
+    if not (isinstance(n_super, int) and isinstance(max_outer, int) and n_super >= 1
+            and 0 <= max_outer < 2**53):
+        raise ValueError(f"exit_test: n_super {n_super!r} and max_outer {max_outer!r}")
+    _launch("exit_test", [occupied, backlog_pos, sec_count, n_valid, tail_exit, word, go,
+                          0 if handle is None else int(handle)],
+            [n_super, max_outer, handle is not None], n, dev)
+    return word, go
+
+
+def exit_handle(device):
+    """A conditional handle (its condition 0 at each launch unless a kernel
+    sets it) on the CUDA graph that ``device``'s current stream is
+    capturing: made before the exit test that sets it is captured
+    (:func:`exit_test`'s ``handle``), and given to the node that it guards
+    (:func:`exit_guard`).  Raises where the stream is not capturing."""
+    build()
+    out = ctypes.c_ulonglong(0)
+    rc = _Build.guard_fns["exit_guard_handle"](torch.cuda.current_stream(device).cuda_stream,
+                                               ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"exit_handle: no conditional handle ("
+                           f"{'the stream is not capturing' if rc < 0 else f'CUDA error {rc}'})")
+    return out.value
+
+
+def exit_guard(handle, fn, body_stream, pool, go=None):
+    """Capture ``fn()`` under a conditional IF node on ``handle``
+    (:func:`exit_handle`) into the CUDA graph that the current stream is
+    capturing: a replay runs what ``fn`` launched only where the handle's
+    condition is set when the node is reached.  The exit test captured
+    before the node sets it (:func:`exit_test`'s ``handle``); or, where
+    ``go`` (a bool CUDA scalar) is given, one launch of ``exit_guard_kernel``
+    (``csrc/exit_test.cu``) goes into the graph before the node and sets it
+    from ``go``: a replay's first block, since a condition does not carry
+    over from the graph's last launch.  ``fn`` runs with ``body_stream`` (a
+    ``torch.cuda.Stream`` other than the current one, not capturing) as the
+    current stream, capturing into the node's body, and its allocations
+    come from ``pool`` (a ``torch.cuda.MemPool`` that the graph's owner
+    keeps as long as the graph).  The plain version is Python's ``if``: a
+    graph exists only on the card.  Raises where the current stream is not
+    capturing or the CUDA runtime refuses the node."""
+    build()
+    dev = body_stream.device
+    if go is not None:
+        _check_scalar("exit_guard go", go, torch.bool, dev)
+    stream = torch.cuda.current_stream(dev)
+    if stream.cuda_stream == body_stream.cuda_stream:
+        raise ValueError("exit_guard: the body's stream is the stream capturing the graph")
+    rc = _Build.guard_fns["exit_guard_begin"](stream.cuda_stream, body_stream.cuda_stream,
+                                              int(handle),
+                                              None if go is None else go.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"exit_guard: the conditional node was refused ("
+                           f"{'the stream is not capturing' if rc < 0 else f'CUDA error {rc}'})")
+    if go is not None:
+        launches["exit_guard"] += 1
+    try:
+        with torch.cuda.stream(body_stream), torch.cuda.use_mem_pool(pool, dev):
+            fn()
+    finally:
+        rc = _Build.guard_fns["exit_guard_end"](body_stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"exit_guard: the capture of the node's body failed: CUDA error {rc}")
 
 
 def plain_rowsum(table, idx):
@@ -2162,6 +2287,8 @@ KERNEL_TOLERANCE.update({
     "compact": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
     "compact_rows": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
     "compact_rows_f64": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
+    "exit_test": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
+    "exit_guard": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
 })
 # the pool's fields held within the tolerance (every other field bit for bit)
 EVENT_PHASE_TOL = ("alpha_scatti", "alpha_absi", "bi")

@@ -5,6 +5,8 @@
     python3 profile_slice.py --trace    # the census, then trace windows
     python3 profile_slice.py --reference [--trace]   # reference semantics
     python3 profile_slice.py [--reference] --graph-only   # graph clocks alone
+    python3 profile_slice.py [--reference] --graph-only --graph-bodies 2   # 2 blocks a replay
+    python3 profile_slice.py [--reference] --whole-trace  # the whole run's idle share
 
 Runs a cell of ``chip_smoke.py`` (256x256 torus, M = 4e19, seed 123,
 float32, pool 65,536: the shipped profile at 1e5 photons, or with
@@ -16,13 +18,19 @@ launch of the process costs more, so a traced run's clocks and device
 window are not the run's.
 
 1. **Graph clocks, then phase clocks, over the whole run** (default).  The
-   run as it ships, every engine's block replayed from its CUDA graph:
+   run as it ships, every engine's blocks replayed from its CUDA graph:
    each replay bracketed by two CUDA events on the current stream (the
-   stream's time for the block, ``replay_ms``; the stream's idle time from
-   one replay's end to the next one's start in the same run, ``gap_ms``:
-   the exit check's read, the host's turn and the launch), the exit check's
-   host seconds (``exit_check_ms``, waiting for the block included), the
-   warm-ups' and captures' seconds (``capture_s``).  Then the same cell in
+   stream's time for the replay, ``replay_ms``; the stream's idle time from
+   one replay's end to the next one's start in the same run, ``gap_ms``
+   and its 99th percentile ``gap_p99_ms``, their sum over the window
+   ``gap_share``: the exit word's copy, the host's turn and the launch, or
+   before the device loop the exit check's read), the exit check's host
+   seconds (``exit_check_ms``: the wait for a replay's exit word, or
+   before the device loop the block's read), the warm-ups' and captures'
+   seconds (``capture_s``); the same by engine (``engines``: its runs,
+   bodies, replays, skipped replays, blocks a replay, capture seconds and
+   graph pool bytes: the allocator's segments of the graph's pools).
+   ``--graph-bodies K`` runs K blocks a replay.  Then the same cell in
    a second ``Simulation`` with ``graphed=False`` (the block issued op by
    op, as before the graph), whose phases are clocked: every call of the
    engine's phases (``hot_run``, a block's run of hot steps, one launch;
@@ -82,6 +90,11 @@ window are not the run's.
    first wave (``one_body``): the names of its device activities, its
    hot-step launches and its copies (``copies``: the activities named as a
    copy, the block's closing copies among them) counted.
+
+3. **The whole run's idle share** (``--whole-trace``): the graphed run
+   under ``torch.profiler`` from its start to its end, the device's busy
+   time (the union of its activity intervals) within each engine run over
+   those runs' time, the profiler's own cost included.
 
 Prints the card's name and power limit and one JSON object; with
 ``--trace`` the profiler's table of the device's kernels goes to
@@ -244,18 +257,41 @@ class Windows:
 
 def clock_replays(engine_cls, clocks):
     """Bracket each graph replay of ``engine_cls`` with CUDA events
-    (``clocks["replay"]``: (the engine run's number, event, event)) and time
-    each exit check on the host (``clocks["exit_check"]``: seconds).
-    Returns what they replaced, for :func:`restore_replays`."""
+    (``clocks["replay"]``: (the engine's label, the run's number, event,
+    event)), time each exit check on the host (``clocks["exit_check"]``:
+    seconds; the wait for a replay's exit word, ``Engine._read``, or in a
+    checkout from before the device loop the block's read,
+    ``Engine._exit_counts``), and keep each engine's capture (its seconds
+    and :func:`graph_pool_bytes`) and, after each run, its bodies, replays
+    and skipped replays
+    (``clocks["engines"]``).  Returns what they replaced, for
+    :func:`restore_replays`."""
     import torch
 
-    saved = {"_replay": engine_cls._replay, "_exit_counts": engine_cls._exit_counts,
-             "run": engine_cls.run}
-    runs = [0]
+    check = "_read" if hasattr(engine_cls, "_read") else "_exit_counts"
+    saved = {"_replay": engine_cls._replay, check: getattr(engine_cls, check),
+             "run": engine_cls.run, "capture": engine_cls.capture}
+    runs, labels = [0], {}
+
+    def label(self):
+        return labels.setdefault(id(self), "wave" if not labels else f"stage{self.cfg.n_pool}")
 
     def run(self, *a, **kw):
         runs[0] += 1
-        return saved["run"](self, *a, **kw)
+        out = saved["run"](self, *a, **kw)
+        rec = clocks["engines"].setdefault(label(self), {"runs": 0})
+        rec["runs"] += 1
+        rec.update(replays=self.replays, bodies=getattr(self, "bodies", self.replays),
+                   skipped=getattr(self, "skipped", 0),
+                   graph_bodies=getattr(self, "graph_bodies", 1))
+        return out
+
+    def capture(self, *a, **kw):
+        secs = saved["capture"](self, *a, **kw)
+        if secs:
+            rec = clocks["engines"].setdefault(label(self), {"runs": 0})
+            rec.update(capture_s=secs, graph_pool_bytes=graph_pool_bytes(self))
+        return secs
 
     def replay(self):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -263,36 +299,66 @@ def clock_replays(engine_cls, clocks):
         e0.record()
         saved["_replay"](self)
         e1.record()
-        clocks["replay"].append((runs[0], e0, e1))
+        clocks["replay"].append((label(self), runs[0], e0, e1))
 
-    def exit_counts(self):
+    def exit_check(*a, **kw):
         t0 = time.perf_counter()
-        out = saved["_exit_counts"](self)
+        out = saved[check](*a, **kw)
         clocks["exit_check"].append(time.perf_counter() - t0)
         return out
 
-    engine_cls._replay, engine_cls._exit_counts, engine_cls.run = replay, exit_counts, run
+    engine_cls._replay, engine_cls.run, engine_cls.capture = replay, run, capture
+    setattr(engine_cls, check, staticmethod(exit_check) if check == "_read" else exit_check)
     return saved
+
+
+def graph_pool_bytes(eng):
+    """The device memory an engine's graph holds: the segments of the
+    graph's private pool and, since the device loop, of its blocks' memory
+    pool (``Engine._body_pool``), from the caching allocator's snapshot."""
+    import torch
+
+    pools = {tuple(eng._graph.pool())}
+    body = getattr(eng, "_body_pool", None)
+    if body is not None:
+        pools.add(tuple(body.id))
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in pools)
 
 
 def restore_replays(engine_cls, saved):
     """Undo :func:`clock_replays`."""
     for name, fn in saved.items():
-        setattr(engine_cls, name, fn)
+        setattr(engine_cls, name, staticmethod(fn) if name == "_read" else fn)
+
+
+def _p99(xs):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(0.99 * len(xs)))] if xs else 0.0
 
 
 def replay_summary(clocks, window_ms):
-    """{replays, replay_ms (mean), replay_share (of the window), gap_ms (the
-    mean idle time between two replays of one engine run), exit_checks,
-    exit_check_ms (mean host ms)}."""
+    """Over the whole run: {replays, replay_ms (mean), replay_share (of the
+    window), gap_ms and gap_p99_ms (the idle time of the stream between two
+    replays of one engine run: mean and 99th percentile), gap_share (their
+    sum over the window), exit_checks, exit_check_ms (mean host ms)}, and
+    the same by engine (``engines``: its runs, bodies, replays and skipped
+    replays, blocks a replay, capture seconds and graph pool bytes)."""
     pairs = clocks["replay"]
-    replay_ms = [e0.elapsed_time(e1) for _, e0, e1 in pairs]
-    gaps = [a[2].elapsed_time(b[1]) for a, b in zip(pairs, pairs[1:]) if a[0] == b[0]]
+
+    def stats(sel):
+        ms = [e0.elapsed_time(e1) for _, _, e0, e1 in sel]
+        gaps = [a[3].elapsed_time(b[2]) for a, b in zip(sel, sel[1:]) if a[:2] == b[:2]]
+        return {"replays": len(sel), "replay_ms": sum(ms) / max(1, len(sel)),
+                "replay_share": sum(ms) / window_ms, "gap_ms": sum(gaps) / max(1, len(gaps)),
+                "gap_p99_ms": _p99(gaps), "gaps": len(gaps), "gap_share": sum(gaps) / window_ms}
+
     exits = clocks["exit_check"]
-    return {"replays": len(pairs), "replay_ms": sum(replay_ms) / max(1, len(pairs)),
-            "replay_share": sum(replay_ms) / window_ms,
-            "gap_ms": sum(gaps) / max(1, len(gaps)), "gaps": len(gaps),
-            "exit_checks": len(exits), "exit_check_ms": 1e3 * sum(exits) / max(1, len(exits))}
+    out = stats(pairs)
+    out.update(exit_checks=len(exits), exit_check_ms=1e3 * sum(exits) / max(1, len(exits)))
+    out["engines"] = {name: {**rec, **stats([p for p in pairs if p[0] == name])}
+                      for name, rec in clocks["engines"].items()}
+    return out
 
 
 def census(root, photon_n, reference):
@@ -405,6 +471,53 @@ def census(root, photon_n, reference):
             "events_per_full_phase": {"bins": list(EVENT_BINS), **hist}}, lines
 
 
+def whole_trace(root, photon_n, reference):
+    """The graphed run of the cell under ``torch.profiler`` from its start
+    to its end: the device's busy time (the union of its activity
+    intervals) within each engine run (a ``record_function`` range around
+    ``Engine.run``, whose end waits for its device work), over those
+    ranges' time: the whole run's idle share, the profiler's own cost
+    included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from grmonty_tpu_torch.transport import engine
+
+    run = engine.Engine.run
+
+    def marked(self, *a, **kw):
+        with record_function("engine_run"):
+            return run(self, *a, **kw)
+
+    engine.Engine.run = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, out = run_cell(root, photon_n, reference, graphed=True)
+    finally:
+        engine.Engine.run = run
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+                    if e.name() == "engine_run" and e.device_type() != cuda)
+    # the device's activities, but the range's own annotation, which the
+    # profiler also draws on the device from its first launch to its last
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+                   if e.device_type() == cuda and e.name() != "engine_run")
+    busy = 0
+    for a, b in ranges:
+        end = a
+        for s, t in spans:
+            s, t = max(s, end), min(t, b)
+            if t > s:
+                busy += t - s
+                end = t
+    total = sum(b - a for a, b in ranges)
+    return {"runs": len(ranges), "runs_ms": total / 1e6, "busy_ms": busy / 1e6,
+            "idle_share": 1.0 - busy / max(1, total), "device_activities": len(spans),
+            "device_window_ms": out["device_window_ms"], "hot_iters": out["hot_iters"],
+            "full_phases": out["full_phases"]}
+
+
 def run_cell(root, photon_n, reference, graphed):
     """One run of the cell; returns (stats, wall seconds, the run's summary)."""
     import torch
@@ -426,6 +539,8 @@ def run_cell(root, photon_n, reference, graphed):
            "ms_per_body": window_ms / max(1, stats["full_phases"]),
            "wall_s": wall, "rate_device": stats["photon_rate_device"],
            "capture_s": stats["capture_s"], "replays": stats["replays"],
+           "bodies": stats.get("bodies", stats["replays"]),
+           "skipped_replays": stats.get("skipped_replays", 0),
            "pilot_host_s": stats["pilot"]["host_s"], "waves": stats["waves"],
            "waves_device_ms": window_ms - sum(st["device_ms"] for st in stages),
            "tail_stages": stages}
@@ -453,6 +568,12 @@ def main():
     ap.add_argument("--phase-shape", default=None, metavar="K:L,...",
                     help="run the event phase at K slots with L lanes a warp (the shape "
                          "sweep; the other widths their own)")
+    ap.add_argument("--whole-trace", action="store_true",
+                    help="the graphed run under the profiler from start to end: the whole "
+                         "run's idle share")
+    ap.add_argument("--graph-bodies", type=int, default=None, metavar="K",
+                    help="blocks a graph replay (engine.GRAPH_BODIES; a checkout from before "
+                         "the device loop has none)")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
@@ -469,11 +590,16 @@ def main():
     hot_kernels.build()
     if args.phase_shape:
         force_phase_shape(hot_kernels, args.phase_shape)
+    if args.graph_bodies is not None:
+        engine.GRAPH_BODIES = args.graph_bodies
     photon_n = REF_PHOTON_N if args.reference else PHOTON_N
-    result = {"mode": "trace" if args.trace else "clocks",
-              "path": "reference" if args.reference else "shipped", "photon_n": photon_n}
+    result = {"mode": "whole_trace" if args.whole_trace else "trace" if args.trace else "clocks",
+              "path": "reference" if args.reference else "shipped", "photon_n": photon_n,
+              "graph_bodies": getattr(engine, "GRAPH_BODIES", None)}
 
-    if args.trace:
+    if args.whole_trace:
+        result["whole"] = whole_trace(root, photon_n, args.reference)
+    elif args.trace:
         result["census"], lines = census(root, photon_n, args.reference)
         out_dir = os.path.join(root, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)
@@ -529,7 +655,7 @@ def main():
             f.write(win.table)
         result["trace_windows"] = win.results
     else:
-        clocks = {"replay": [], "exit_check": []}
+        clocks = {"replay": [], "exit_check": [], "engines": {}}
         saved = clock_replays(engine.Engine, clocks)
         try:
             _, graphed = run_cell(root, photon_n, args.reference, graphed=True)

@@ -255,8 +255,9 @@ def _counting_wrappers(monkeypatch, cfg):
     for wrapper, kernel in (("hot_step", "hot_step"), ("row_gather", "row_gather"),
                             ("event_fluid", "event_fluid"), ("scatter_event", "scatter_event"),
                             ("refill_fresh", "fresh_init"), ("event_phase", "event_phase"),
-                            ("compact", "compact"), ("compact_rows", "compact_rows")):
-        name = hot_kernels.entry_point(kernel, dt, ref)
+                            ("compact", "compact"), ("compact_rows", "compact_rows"),
+                            ("exit_test", "exit_test")):
+        name = kernel if kernel == "exit_test" else hot_kernels.entry_point(kernel, dt, ref)
         fn = getattr(hot_kernels, wrapper)
 
         def counted(*a, _fn=fn, _name=name, **kw):
@@ -284,24 +285,51 @@ def test_replayed_blocks_count_what_the_eager_run_counts(dump, reference, dtype,
     want, launches, phases = counted_run(lambda state: None)
 
     def stand_in(state):
-        """A graph that replays the block and passes no Python counter; the
-        credit is one block's counts, taken as the capture takes them (the
-        generator and the state then restored)."""
+        """A graph that replays its blocks, each guarded by the exit word's
+        go and followed by the exit test, and passes no Python counter; the
+        credit is one block's counts and the replay's exit tests, taken as
+        the capture takes them (the generator and the state then restored).
+        The stand-in generator's offset moves a whole graph's draws a
+        replay, as a registered generator's does on the card."""
         g = sim.gen.get_state()
         eng._load(state, rows[0], WAVES[0])
-        eng._credit = eng._counting(eng._body)
+        body = eng._counting(eng._body)
         sim.gen.set_state(g)
         eng.graphed = True
-        eng._graph = types.SimpleNamespace(replay=lambda: eng._counting(eng._body))
+        eng._gen_step = STEP
+        eng._gen_offset = lambda: offset[0]
+        eng._set_gen_offset = lambda o: offset.__setitem__(0, o)
+        k = eng.graph_bodies
+        eng._credit = (body, ({("launches", "exit_test"): k, ("launches", "exit_guard"): 1},
+                              {}))
 
+        def replay():
+            offset[0] += eng.graph_bodies * STEP
+            eng._counting(lambda: eng._guarded(lambda go, fn: fn() if bool(go) else None))
+
+        eng._graph = types.SimpleNamespace(replay=replay)
+
+    STEP, offset = 4, [0]
     sim.gen.set_state(g0)
     try:
         got, launches_g, phases_g = counted_run(stand_in)
     finally:
         eng.graphed, eng._graph = False, None
+        del eng._gen_offset, eng._set_gen_offset
     _assert_same(got, want, "replayed")
-    blocks = want.it // M_PERIOD
-    assert eng.replays == blocks == BLOCKS
+    blocks, k = want.it // M_PERIOD, eng.graph_bodies
+    # the run stops at the cap, whose word the host reads while one more
+    # replay, which runs no block, is queued
+    assert eng.bodies == blocks == BLOCKS and eng.skipped == 1
+    assert eng.replays == -(-blocks // k) + 1
+    assert offset[0] == blocks * STEP
+    # every launch and phase as the eager run's, but the exit tests: one at
+    # the entry and one after each block there, one at the entry and one
+    # after each of a replay's blocks here, and the guard of a replay's
+    # first block
+    tests, tests_g = launches.pop("exit_test"), launches_g.pop("exit_test")
+    assert tests == 1 + blocks and tests_g == 1 + k * eng.replays
+    assert launches.pop("exit_guard") == 0 and launches_g.pop("exit_guard") == eng.replays
     assert launches_g == launches and phases_g == phases
     assert phases == {"full": blocks, "light": blocks * (len(eng.blocks) - 1)}
     assert launches[hot_kernels.entry_point("hot_step", dtype, reference)] == want.it
@@ -329,14 +357,23 @@ def test_graphed_run_equals_the_eager_run_on_the_card(dump, reference, dtype, op
         engines = [sim.engine, *sim._tail_engines.values()]
         outs[graphed] = (out, gen, {**hot_kernels.launches, **{
             f"{k}.steps": v for k, v in hot_kernels.run_steps.items()}},
-                         [dict(e.phases) for e in engines], [e.replays for e in engines])
-    (got, gen_g, launches_g, phases_g, replays), (want, gen_e, launches_e, phases_e, _) = (
+                         [dict(e.phases) for e in engines],
+                         [(e.replays, e.bodies, e.skipped) for e in engines])
+    (got, gen_g, launches_g, phases_g, runs_g), (want, gen_e, launches_e, phases_e, runs_e) = (
         outs[True], outs[False])
     for i, (g, w) in enumerate(zip(got, want)):
         _assert_same(g, w, f"run {i}", spec_rtol=1e-6)
     assert torch.equal(gen_g, gen_e)
+    # three runs (two waves, a stage): the exit test at each entry, then
+    # after each block (eager) or once a replay's block (graphed)
+    replays, bodies, skipped = (sum(r[j] for r in runs_g) for j in range(3))
+    assert launches_e.pop("exit_test") == 3 + bodies
+    assert launches_g.pop("exit_test") == 3 + replays * engine.GRAPH_BODIES
+    assert launches_g.pop("exit_guard") == replays
+    assert launches_e.pop("exit_guard") == 0
     assert launches_g == launches_e and phases_g == phases_e
-    assert sum(replays) == sum(p["full"] for p in phases_g) > 0
+    assert bodies == sum(r[1] for r in runs_e) == sum(p["full"] for p in phases_g) > 0
+    assert skipped == 3 and sum(r[0] + r[2] for r in runs_e) == 0
     # one drawing launch a run of hot steps (a full or light phase's), its
     # steps the hot iterations: the second wave's state counts on from the
     # first's, the stage's from 0
@@ -364,7 +401,7 @@ def test_capture_holds_the_collector_off(dump, monkeypatch):
     monkeypatch.setattr(engine.Engine, "_body", watched)
     assert gc.isenabled()
     sim.engine.run(sim.engine.fresh_state(), rows[0], tail_exit=0)
-    assert seen == [False] and gc.isenabled()
+    assert seen == [False] * sim.engine.graph_bodies and gc.isenabled()
 
 
 @pytest.mark.cuda
@@ -385,4 +422,6 @@ def test_capture_leaves_state_generator_and_counts_as_found(dump):
     assert dict(hot_kernels.launches) == launches0 and dict(eng.phases) == phases0
     _assert_same(eng._state._replace(it=before.it), before, "the engine's copy after the capture")
     _assert_same(state, before, "the caller's state after the capture")
-    assert eng._credit[1] == {"full": 1, "light": len(eng.blocks) - 1}
+    assert eng._credit[0][1] == {"full": 1, "light": len(eng.blocks) - 1}
+    k = eng.graph_bodies
+    assert eng._credit[1] == ({("launches", "exit_test"): k, ("launches", "exit_guard"): 1}, {})

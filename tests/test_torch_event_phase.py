@@ -532,7 +532,15 @@ def test_graphed_block_equals_the_eager_one(dump, dtype, reference):
         a.view(torch.int64 if a.element_size() == 8 else torch.int32),
         b.view(torch.int64 if b.element_size() == 8 else torch.int32))) for a, b in zip(xg, xe))
     np.testing.assert_allclose(sg, se, rtol=1e-6, atol=0.0)
+    # the loop's own launches: the exit test at each run's entry, then
+    # after each block (eager) or each of a replay's blocks; the guard of
+    # a replay's first block once a replay
+    k, runs = engine.GRAPH_BODIES, tg["engine_runs"]
+    assert (lg.pop("exit_test"), lg.pop("exit_guard")) == (runs + k * tg["replays"],
+                                                           tg["replays"])
+    assert (le.pop("exit_test"), le.pop("exit_guard")) == (runs + te["bodies"], 0)
     assert lg == le and tg["hot_iters"] == te["hot_iters"] > 0
+    assert tg["bodies"] == te["bodies"] == tg["full_phases"] and te["replays"] == 0
     assert lg[hot_kernels.entry_point("event_phase", dtype)] == tg["full_phases"]
     assert lg[hot_kernels.entry_point("compact_rows", dtype)] == tg["full_phases"]
     assert lg["compact"] >= 2 * tg["full_phases"] + tg["light_phases"]

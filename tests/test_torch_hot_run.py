@@ -355,8 +355,10 @@ def test_a_replayed_body_runs_one_launch_a_run_and_copies_no_pool_field(
     monkeypatch.setattr(engine, "assign_state", assign)
     assert not [name for name in copied if name.startswith("pool.")], copied
     eng._load(eng.fresh_state(), rows, rows.shape[0])
+    eng._exit_test()  # the run's entry test: the replay's blocks all run
     names = _traced(eng._replay)
+    assert int(eng._exit_word[3]) == 1 + eng.graph_bodies  # the blocks run, and the next
     runs = sum("hot_step_kernel" in name for name in names)
     copies = sum("memcpy" in name.lower() or "copy" in name.lower() for name in names)
-    assert runs == len(eng.blocks), (runs, eng.blocks)
-    assert copies == len(copied), (copies, copied, sorted(set(names)))
+    assert runs == eng.graph_bodies * len(eng.blocks), (runs, eng.blocks)
+    assert copies == eng.graph_bodies * len(copied), (copies, copied, sorted(set(names)))
