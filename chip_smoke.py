@@ -139,11 +139,11 @@ Phases, each of which exits non-zero on failure:
    iterations, the event phase and the ring's pack of its dtype once
    per full phase, the compaction at least twice a full phase and once a
    light one, the record exactly once a call of each engine's phases and
-   closing flushes (``hot_kernels.record_launches``, one a call),
-   the track start of its dtype and semantics once per full and light
-   phase, the exit test at each engine run's entry and once for each
-   block of each replay, its guard once for each block of each replay, no
-   other entry point: the row
+   closing flushes (one a run; ``hot_kernels.record_launches``, one a
+   call), the sweep once in each block slot of each replay (a block's
+   gated first launch), the track start of its dtype and semantics once
+   per full and light phase, the exit test at each engine run's entry and
+   at the end of each block run, no other entry point: the row
    gather, the event fluid and the event kernel stay off the path), no
    plain hot step or run, load, track start, event fluid, event phase,
    pack, record, refill sources or sort-based compaction, no
@@ -155,21 +155,26 @@ Phases, each of which exits non-zero on failure:
    engine's blocks run the drawing instances.  Phases 5-14 run the engine as it
    ships: each engine's block (the full phase, the hot steps, each light
    phase and its hot steps) captured once into a CUDA graph, a replay
-   running ``engine.GRAPH_BODIES`` blocks, each under a conditional node
-   on the run's exit test, the host one replay ahead of the exit word it
-   reads; the launches credited by the blocks run and the replays; each
+   running ``engine.GRAPH_BODIES`` blocks, each its sweep gated on the
+   exit word's go setting the condition of a conditional node that holds
+   the rest of the block, which ends with the exit test, the host one
+   replay ahead of the exit word it reads; the launches
+   credited by the blocks run and the replays; each
    path's line gives its blocks, bodies, replays, skipped replays, engine
    runs, ms per body and ``capture_s`` (``graph_summary``), and phases 5,
    6, 10, 11, 12b, 14 and 15 fail unless the bodies equal the full
    phases, the replays hold them and at most one replay a run ran none
-   (``launch_failures``).  The exit test (``exit_test``) at 65,536, 4,096,
-   1,024 and 512 lanes on seeded masks of every density and alignment at
-   each edge of the test, bit for bit ``engine.exit_test_plain``, both
-   values of go at every width, and the conditional nodes in a graph of two
-   blocks, the first's set from go by the guard (``exit_guard``), the
-   second's by the exit test between them, replayed at every go and every
-   outcome of the test against Python's ``if`` (phase 4h; ``exit_test@<n>``
-   lines);
+   (``launch_failures``), and one closing flush a run.  Phase 4h: the exit
+   test (``exit_test``) at 65,536, 4,096, 1,024 and 512 lanes on seeded
+   masks of every density and alignment at each edge of the test, bit for
+   bit ``engine.exit_test_plain``, both values of go at every width
+   (``exit_test@<n>`` lines); the gated sweep (``gated_sweep_checks``: nothing changed with go clear,
+   the ungated sweep's bits with go set, and in a graph the IF node's
+   condition set from go; ``gated sweep`` line, kept in the record's
+   ``gated_sweep``); and what a replay costs the card alone
+   (``replay_cost_check``: a graph of one empty IF node, of one IF node
+   whose body is not run, and of one one-element kernel; ``replay cost``
+   line, kept in ``exit_test``'s ``replay_cost``);
 5. the shipped profile end to end at M = 4e19, seed 123, float32, pool
    65,536, the JAX driver's whole schedule: the pilot (8,192 photons on the
    host tracker; its seconds and counters printed), the waves (the first
@@ -313,8 +318,8 @@ the same way, which is how two versions are compared in one call.  With
 and 2, then this checkout's hot step against the one of the checkout at
 DIR in turns (``ab_hot_step``: both dtypes, variants and instances at
 ``AB_WIDTHS``, every output and census bit for bit the other's, the
-drawing instance also as this checkout's run of S steps against S of the
-other's launches (``ab_hot_run``), the SASS of the kernels of
+drawing instance also as this checkout's run of S steps against the
+other's run, or S of its launches (``ab_hot_run``), the SASS of the kernels of
 ``fresh_init.cu`` and ``scatter_event.cu`` identical to the other's), then
 the card line; with
 ``--ab-phase-kernels DIR`` phases 1 and 2, then this checkout's event
@@ -513,10 +518,6 @@ TOLERANCE = {
               "(the cumsum pack)") for name in ("compact_rows", "compact_rows_f64")},
     "exit_test": ("the word and go bitwise equal to engine.exit_test_plain at every density, "
                   "alignment of the mask and edge of the test"),
-    "exit_guard": ("a graph replay of two blocks under their nodes (a count's adds), the first "
-                   "set by the guard from go, the second by the exit test between them: the "
-                   "count, word and go equal to Python's if around the plain test, at every go "
-                   "and outcome of the test"),
 }
 SOURCES = {"hot_step": ("hot_step.cu", "grmonty_tpu/transport/hotstep_pallas.py:104, "
                         "grmonty_tpu/transport/hotstep_pallas.py:152"),
@@ -562,8 +563,6 @@ SOURCES["record_phase"] = ("record.cu", "no TPU kernel: XLA spectrum_add, _poiso
 # lax.while_loop, which XLA evaluates on the device.
 SOURCES["exit_test"] = ("exit_test.cu", "no TPU kernel: XLA's lax.while_loop cond of run, "
                         "grmonty_tpu/transport/engine.py:2531")
-SOURCES["exit_guard"] = ("exit_test.cu", "no TPU kernel: XLA's lax.while_loop of run, which "
-                         "runs its body where cond holds, grmonty_tpu/transport/engine.py:2547")
 # The float64 instantiations replace what their float32 kernels replace, and
 # each hot step's drawing instance what the hot step replaces.
 SOURCES.update({f"{name}_f64": SOURCES[name]
@@ -820,6 +819,12 @@ def hot_step_variant(fn):
             int(m.group(3) or 1), m.group(4) and int(m.group(4)), m.group(5) == "1")
 
 
+def ptxas_label(v):
+    """The ``hot step ptxas:`` lines' name of a hot-step instance."""
+    return "{}/{}/G{}/T{}/{}".format("reference" if v[0] else "shipped", v[1], v[2], v[3],
+                                     "draw" if v[4] else "explicit")
+
+
 def bit_diff(a, b):
     """(N,) mask of the elements of ``a`` and ``b`` whose bits differ."""
     import torch
@@ -848,10 +853,13 @@ def ab_hot_step(root, sims, other, usage, ref_stall_steps, turns=2):
     other's on the same inputs, bit for bit (the fields and lanes that
     differ printed, with the worst relative difference); the device time in
     turns (this, other, other, this, ``turns`` times); each side's ptxas
-    registers and spills, this side's group, threads and blocks an SM; and
+    registers and spills (and a ``hot step ptxas:`` line with every
+    instance's beside the other's: a growth fails), this side's group,
+    threads and blocks an SM; and
     whether each instance's SASS is identical to the other's (reported: a
     run's loop moves the hot step's).  The drawing instance also as a run
-    of S steps against S of the other's launches (:func:`ab_hot_run`).
+    of S steps against the other's run, or S of its launches where it runs
+    no run (:func:`ab_hot_run`).
     Then the SASS of every kernel of the other checkout's ``fresh_init.cu``
     and ``scatter_event.cu`` (the track start, the event, the chain, the
     event phase), built the same way, against this build's.  Prints one
@@ -873,11 +881,21 @@ def ab_hot_step(root, sims, other, usage, ref_stall_steps, turns=2):
     lib, usage_other, lib_path = built["hot_step"]
     other_usage = {hot_step_variant(f): v for f, v in usage_other.items() if hot_step_variant(f)}
     this_usage = {hot_step_variant(f): v for f, v in usage.items() if hot_step_variant(f)}
+    # every instance's registers and spills beside the other's (a growth
+    # in either fails the comparison)
+    names = {ptxas_label(k): k for k in set(this_usage) | set(other_usage)}
+    print("hot step ptxas: " + json.dumps({
+        label: {"this": this_usage.get(k), "other": other_usage.get(k)}
+        for label, k in sorted(names.items())}))
+    grew = sorted(label for label, k in names.items()
+                  if k in this_usage and k in other_usage and any(
+                      this_usage[k].get(f, 0) > other_usage[k].get(f, 0)
+                      for f in ("registers", "spill_stores", "spill_loads")))
     mine_all = {f: v for path in hot_kernels._Build.paths for f, v in sass_listing(path).items()}
     mine_sass = {hot_step_variant(f): v for f, v in mine_all.items() if hot_step_variant(f)}
     other_sass = {hot_step_variant(f): v for f, v in sass_listing(lib_path).items()
                   if hot_step_variant(f)}
-    problems = []
+    problems = [f"ptxas: registers or spills grew in {grew}"] if grew else []
     for sim in sims:
         mc, tabs, dev, dt = sim.mc, sim.tables, sim.device, sim.cfg.dtype
         typ = "double" if dt == torch.float64 else "float"
@@ -974,8 +992,9 @@ def ab_hot_step(root, sims, other, usage, ref_stall_steps, turns=2):
                         problems.append(f"{name}@{n}: fields {sorted(differ)}, census "
                                         f"{'equal' if rec['census_vs_other'] else 'differs'}")
                     if draw:
-                        problems += ab_hot_run(name, fns, pool, counters, key, bias, mc, tabs,
-                                               cfg, turns)
+                        problems += ab_hot_run(
+                            name, fns, pool, counters, key, bias, mc, tabs, cfg, turns,
+                            getattr(lib, f"{name}_nscal")() >= hot_kernels._HOT_NSCAL + 2)
     mine_anon = {anon(f): [anon(ins) for ins in v] for f, v in mine_all.items()}
     for stem in AB_SASS_STEMS[1:]:
         same = {anon(f): mine_anon.get(anon(f)) == [anon(ins) for ins in v]
@@ -998,16 +1017,17 @@ AB_SASS_STEMS = ("hot_step", "fresh_init", "scatter_event")
 AB_RUN_STEPS = (4, 64)
 
 
-def ab_hot_run(name, fns, pool, counters, key, bias, mc, tabs, cfg, turns):
+def ab_hot_run(name, fns, pool, counters, key, bias, mc, tabs, cfg, turns, other_runs):
     """``--ab-hot-step``'s runs of the drawing entry point ``name``: this
     side's run of S steps (``hot_kernels.hot_run``, one launch in place)
-    against S launches of the other side's entry point (each
+    against the other side's run of S steps where its entry point runs
+    them (``other_runs``), else against S launches of it (each
     ``hot_kernels.hot_step_drawn``, into new tensors; an entry point from
     before the run reads its step and ignores the steps) from the block's
     step 5, at each S of AB_RUN_STEPS: every pool field and census counter
-    bit for bit, the device time of the run and of the S launches in turns
-    (this, other, other, this; ``turns`` times).  Prints a line each;
-    returns the problems."""
+    bit for bit, the device time of the runs (or of the S launches) in
+    turns (this, other, other, this; ``turns`` times).  Prints a line
+    each; returns the problems."""
     import torch
 
     from grmonty_tpu_torch.transport import engine, hot_kernels
@@ -1023,11 +1043,16 @@ def ab_hot_run(name, fns, pool, counters, key, bias, mc, tabs, cfg, turns):
             p, c = hot_kernels.hot_step_drawn(p, c, key, 5 + j, bias, mc, tabs, cfg)
         return p, c
 
+    def other(p, c, steps):
+        if other_runs:
+            return hot_kernels.hot_run(p, c, key, 5, steps, bias, mc, tabs, cfg)
+        return chained(p, c, steps)
+
     problems = []
     for steps in AB_RUN_STEPS:
         try:
             hot_kernels._Build.fns[name] = fns["other"]
-            theirs = chained(*copy(), steps)
+            theirs = other(*copy(), steps)
             hot_kernels._Build.fns[name] = fns["this"]
             mine = hot_kernels.hot_run(*copy(), key, 5, steps, bias, mc, tabs, cfg)
             torch.cuda.synchronize()
@@ -1038,7 +1063,7 @@ def ab_hot_run(name, fns, pool, counters, key, bias, mc, tabs, cfg, turns):
             work, chain = copy(), copy()
             sides = {"this": lambda: hot_kernels.hot_run(*work, key, 5, steps, bias, mc, tabs,
                                                          cfg),
-                     "other": lambda: chained(*chain, steps)}
+                     "other": lambda: other(*chain, steps)}
             device_ms = {"this": [], "other": []}
             for _ in range(turns):
                 for side in ("this", "other", "other", "this"):
@@ -1046,7 +1071,7 @@ def ab_hot_run(name, fns, pool, counters, key, bias, mc, tabs, cfg, turns):
                     device_ms[side].append(cuda_ms(sides[side], reps=RUN_REPS, queued=True))
         finally:
             hot_kernels._Build.fns[name] = fns["this"]
-        rec = {"name": f"{name}.run", "n": n, "steps": steps,
+        rec = {"name": f"{name}.run", "n": n, "steps": steps, "other_runs": other_runs,
                "device_us_launch": {k: [1e3 * v for v in vs] for k, vs in device_ms.items()},
                "device_us_step": {k: 1e3 * sum(vs) / len(vs) / steps
                                   for k, vs in device_ms.items()},
@@ -1054,8 +1079,8 @@ def ab_hot_run(name, fns, pool, counters, key, bias, mc, tabs, cfg, turns):
                "differ": differ}
         print(f"ab run {name}@{n}x{steps}: {json.dumps(rec)}")
         if differ or mine_c != theirs_c:
-            problems.append(f"{name}@{n}: a run of {steps} steps differs from {steps} of the "
-                            f"other's launches: fields {differ}, census "
+            problems.append(f"{name}@{n}: a run of {steps} steps differs from the other's: "
+                            f"fields {differ}, census "
                             f"{'equal' if mine_c == theirs_c else 'differs'}")
     return problems
 
@@ -1853,9 +1878,13 @@ def kernel_checks(sim, usage, sass, ref_stall_steps):
     out += event_checks(sim, usage) + fresh_checks(sim, usage) + event_fluid_checks(sim, usage)
     out += event_phase_checks(sim, usage)
     if sim.cfg.dtype == torch.float32:  # the compaction and the exit test: one dtype
-        out += (compact_checks(sim.device) + exit_test_checks(sim.device)
-                + exit_guard_checks(sim.device))
+        out += compact_checks(sim.device) + exit_test_checks(sim.device)
+        out[-1]["replay_cost"] = replay_cost_check(sim.device)
+    gated = gated_sweep_checks(sim)
     out += record_checks(sim, usage)
+    for rec in out:
+        if rec["name"] == hot_kernels.entry_point("record_phase", sim.cfg.dtype):
+            rec["gated_sweep"] = gated
     return out
 
 
@@ -2226,75 +2255,131 @@ def exit_test_checks(dev):
     return out
 
 
-def exit_guard_checks(dev):
-    """Phase 4h: the conditional nodes (``exit_guard``): a CUDA graph of
-    two blocks (one add each to a count) under their IF nodes, the first's
-    condition set from go at the replay's head (the guard's one launch), the
-    second's by the exit test between them (``exit_test`` with a handle);
-    replayed at go set and clear and the test's go set and clear, against
-    Python's ``if`` around the plain test (``engine.exit_test_plain``) on
-    the same inputs: the count, the word and go bit for bit.  Timed as one
-    replay with both set against the plain ``if``s (which read go on the
-    host).  Returns the record."""
+GATED_WIDTHS = ((N_CHECK, 16384), (4096, 512), (1024, 1024), (512, 512))
+
+
+def gated_sweep_checks(sim):
+    """Phase 4h (and 12a): the block's first launch, the sweep gated on the
+    exit word's go (``record_phase`` with ``go`` and a conditional
+    handle), in ``sim``'s dtype and both semantics at ``GATED_WIDTHS`` on
+    ``hot_kernels.synthetic_record`` pools: with go clear no byte of the
+    pool, spectrum, counters or bias terms changes; with go set it is the
+    ungated sweep bit for bit; captured ahead of an IF node on its handle
+    (one add to a count), each replay sets the node's condition from go
+    (with go clear the node does not run, the handle left at 0).  Timed at
+    65,536 lanes with go clear and set (device us a launch).  Prints one
+    ``gated sweep`` line; fails on a differing bit."""
     import torch
 
     from grmonty_tpu_torch.transport import engine, hot_kernels
 
-    n_super = 16
-    occ = torch.zeros(N_CHECK, dtype=torch.bool, device=dev)
-    occ[::3] = True
-    lanes = int(occ.sum())
-    pos, sec, nv = (torch.tensor(v, dtype=torch.int64, device=dev) for v in (3, 0, 3))
-    te = torch.tensor(0, dtype=torch.int64, device=dev)
-    word = torch.zeros(engine.EXIT_WORD, dtype=torch.int64, device=dev)
-    go = torch.zeros((), dtype=torch.bool, device=dev)
+    mc, dev, dt = sim.mc, sim.device, sim.cfg.dtype
+    flat = {}
+    for reference in (False, True):
+        for n, k in GATED_WIDTHS:
+            pool, spec, counters, cfg = hot_kernels.synthetic_record(mc, n, k, 5 * n + k, dt,
+                                                                     dev, reference=reference)
+            ticket = hot_kernels.record_ticket(dev, n)
+
+            def tensors(rec, terms):
+                return engine.pool_tensors(rec[0]) + [rec[1], *rec[2], *terms]
+
+            def sweep(rec, terms, **gate):
+                hot_kernels.record_phase(*rec, k, mc, cfg, ticket, sweep=True, record=False,
+                                         free=False, bias=terms, **gate)
+
+            first = hot_kernels.clone_record(pool, spec, counters)
+            want = hot_kernels.clone_record(pool, spec, counters)
+            want_terms = hot_kernels.record_bias(dt, dev)
+            sweep(want, want_terms)
+            for go in (False, True):
+                got, terms = hot_kernels.clone_record(pool, spec, counters), \
+                    hot_kernels.record_bias(dt, dev)
+                sweep(got, terms, go=torch.tensor(go, device=dev))
+                ref = (tensors(want, want_terms) if go
+                       else tensors(first, hot_kernels.record_bias(dt, dev)))
+                if not all(bool(hot_kernels._same_bits(a, b).all())
+                           for a, b in zip(tensors(got, terms), ref, strict=True)):
+                    fail(f"gated sweep {dt} {'reference' if reference else 'shipped'}@{n}: "
+                         f"go {go}: not {'the sweep' if go else 'untouched'}")
+            work, terms = hot_kernels.clone_record(pool, spec, counters), \
+                hot_kernels.record_bias(dt, dev)
+            g = torch.zeros((), dtype=torch.bool, device=dev)
+            count = torch.zeros((), dtype=torch.int64, device=dev)
+            capture, stream = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+            mem, graph = torch.cuda.MemPool(), torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=capture):
+                handle = hot_kernels.exit_handle(dev)
+                sweep(work, terms, go=g, handle=handle)
+                hot_kernels.exit_guard(handle, lambda: count.add_(1), stream, mem)
+            for go in (False, True):
+                for dst, src in zip(tensors(work, terms),
+                                    tensors(first, hot_kernels.record_bias(dt, dev))):
+                    dst.copy_(src)
+                g.fill_(go)
+                count.zero_()
+                graph.replay()
+                torch.cuda.synchronize()
+                ref = (tensors(want, want_terms) if go
+                       else tensors(first, hot_kernels.record_bias(dt, dev)))
+                if int(count) != int(go) or not all(
+                        bool(hot_kernels._same_bits(a, b).all())
+                        for a, b in zip(tensors(work, terms), ref, strict=True)) or not (
+                        hot_kernels.record_at_rest(ticket, n)):
+                    fail(f"gated sweep {dt} {'reference' if reference else 'shipped'}@{n}: "
+                         f"replayed at go {go}: count {int(count)}")
+            if n == N_CHECK:
+                for go in (False, True):
+                    g.fill_(go)
+                    flat[f"{'reference' if reference else 'shipped'}_go{int(go)}_device_us"] = (
+                        1e3 * cuda_ms(lambda: sweep(work, terms, go=g), queued=True))
+            del graph
+    rec = {"dtype": str(dt).removeprefix("torch."), "widths": [n for n, _ in GATED_WIDTHS],
+           "bitwise": True, **flat}
+    print(f"gated sweep: {json.dumps(rec)}")
+    return rec
+
+
+REPLAY_COST_REPS = 200
+
+
+def replay_cost_check(dev):
+    """Phase 4h: what a replay costs the card alone, device us a replay of
+    a graph replayed ``REPLAY_COST_REPS`` times back to back (queued behind
+    a GPU sleep): a graph of one IF node with an empty body, whose
+    condition no launch sets; the same node with one add to a count in its
+    body; and a graph of one kernel of one element (an add to a 0-d
+    tensor).  Prints one ``replay cost`` line and returns its record."""
+    import torch
+
+    from grmonty_tpu_torch.transport import hot_kernels
+
     count = torch.zeros((), dtype=torch.int64, device=dev)
-    plain = {"word": torch.zeros_like(word), "go": torch.zeros_like(go),
-             "count": torch.zeros_like(count)}
-    capture, stream, pool = torch.cuda.Stream(dev), torch.cuda.Stream(dev), torch.cuda.MemPool()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=capture):
-        handles = [hot_kernels.exit_handle(dev) for _ in range(2)]
-        hot_kernels.exit_guard(handles[0], lambda: count.add_(1), stream, pool, go=go)
-        hot_kernels.exit_test(occ, pos, sec, nv, te, word, go, n_super, engine.MAX_OUTER,
-                              handle=handles[1])
-        hot_kernels.exit_guard(handles[1], lambda: count.add_(10), stream, pool)
-
-    def plain_blocks():
-        if bool(plain["go"]):
-            plain["count"].add_(1)
-        engine.exit_test_plain(occ, pos, sec, nv, te, plain["word"], plain["go"], n_super,
-                               engine.MAX_OUTER)
-        if bool(plain["go"]):
-            plain["count"].add_(10)
-
-    def start(first, tail_exit):
-        te.fill_(tail_exit)
-        for w, g, c in ((word, go, count), (plain["word"], plain["go"], plain["count"])):
-            w.zero_()
-            g.fill_(first)
-            c.zero_()
-
-    for first in (True, False):
-        for tail_exit in (lanes - 1, lanes):  # the test's go set, clear
-            start(first, tail_exit)
-            graph.replay()
-            plain_blocks()
-            torch.cuda.synchronize()
-            got = {"word": word, "go": go, "count": count}
-            if not all(torch.equal(got[k], plain[k]) for k in got):
-                fail(f"exit_guard: go {first}, tail_exit {tail_exit}: count {int(count)}, "
-                     f"word {word.tolist()} against the plain if's {int(plain['count'])}, "
-                     f"{plain['word'].tolist()}")
-    start(True, lanes - 1)
-    rec = time_kernel("exit_guard", {"count": plain["count"]}, {"count": count}, plain_blocks,
-                      graph.replay, nbytes(go, count) + nbytes(count), ops=1, n=1,
-                      extra={"max_abs_err": 0.0, "max_rel_err": 0.0, "mask_mismatch": 0.0,
-                             "blocks": 1, "threads": 1,
-                             "note": "ms and device_ms: one replay of the guard, two nodes, "
-                                     "the exit test between them and the blocks' two adds"})
+    capture, stream, mem = torch.cuda.Stream(dev), torch.cuda.Stream(dev), torch.cuda.MemPool()
+    graphs = {name: torch.cuda.CUDAGraph() for name in ("if_empty", "if_add", "add")}
+    rec = {}
+    try:  # the runtime may refuse a conditional node with an empty body
+        with torch.cuda.graph(graphs["if_empty"], stream=capture):
+            hot_kernels.exit_guard(hot_kernels.exit_handle(dev), lambda: None, stream, mem)
+    except RuntimeError as err:
+        rec["if_empty_refused"] = str(err)[:200]
+        del graphs["if_empty"]
+    with torch.cuda.graph(graphs["if_add"], stream=capture):
+        hot_kernels.exit_guard(hot_kernels.exit_handle(dev), lambda: count.add_(1), stream, mem)
+    with torch.cuda.graph(graphs["add"], stream=capture):
+        count.add_(1)
+    for _ in range(2):
+        for name, graph in graphs.items():
+            rec.setdefault(f"{name}_device_us", []).append(
+                1e3 * cuda_ms(graph.replay, reps=REPLAY_COST_REPS, queued=True))
     torch.cuda.synchronize()
-    return [rec]
+    count.zero_()
+    graphs["if_add"].replay()
+    torch.cuda.synchronize()
+    if int(count) != 0:
+        fail(f"replay cost: an IF node whose condition no launch set ran its body ({count})")
+    print(f"replay cost: {json.dumps(rec)}")
+    return rec
 
 
 class Copies:
@@ -2867,13 +2952,13 @@ def path_launches(cfg, stats):
     dtype once in each full phase; the track start of its dtype and
     semantics once in each full and light phase (under reference semantics
     it fetches its raw rows itself); the exit test at each engine run's
-    entry and then once a block (eager) or once for each of a graph
-    replay's ``engine.GRAPH_BODIES`` blocks, and the guard that sets the
-    condition of a replay's first block (``exit_guard``) once a replay;
-    the record of its dtype, one launch a
-    call (``hot_kernels.record_launches``): the sweep alone
-    and the record with the frees in each full phase, the three at once in
-    each light phase, the record alone in each closing flush; the
+    entry and at the end of each block run (the bodies); the record of its dtype, one launch a call
+    (``hot_kernels.record_launches``): the sweep alone in each block
+    (eager) or in each of a graph replay's ``engine.GRAPH_BODIES`` blocks
+    (graphed: the block's gated first launch, which runs whether or not
+    the block does), the record with the frees in each full phase, the
+    three at once in each light phase, the record alone in each closing
+    flush (one a run); the
     compaction at least twice a full phase (the events, the
     refill) and once a light one (the ``COMPACT_MORE`` of
     :func:`launch_failures`: the cascade's gathers and merges compact too);
@@ -2892,9 +2977,12 @@ def path_launches(cfg, stats):
             fail(f"the record launches {one} kernels a call in mode {mode}, not 1")
         return one
 
-    records = sum(f * (launched(sweep) + launched(rec | free))
-                  + li * launched(sweep | rec | free) + fl * launched(rec)
-                  for _, f, li, fl in stats["engine_phases"])
+    # the sweeps: one in each block slot of a replay (graphed), else a block
+    graphed = stats["replays"] > 0
+    sweeps = engine.GRAPH_BODIES * stats["replays"] if graphed else full
+    records = sweeps * launched(sweep) + sum(
+        f * launched(rec | free) + li * launched(sweep | rec | free) + fl * launched(rec)
+        for _, f, li, fl in stats["engine_phases"])
     draw = hot_kernels.entry_point("hot_step", dt, ref, draw=True)
     want = {draw: full + stats["light_phases"],
             hot_kernels.entry_point("event_phase", dt): full,
@@ -2902,12 +2990,8 @@ def path_launches(cfg, stats):
             "compact": 2 * full + stats["light_phases"],
             hot_kernels.entry_point("record_phase", dt): records,
             hot_kernels.entry_point("fresh_init", dt, ref): full + stats["light_phases"]}
-    # the exit test at each run's entry, then after each block (eager) or
-    # after each of a replay's blocks; the first block's guard once a replay
-    graphed = stats["replays"] > 0
-    want["exit_test"] = stats["engine_runs"] + (engine.GRAPH_BODIES * stats["replays"]
-                                                if graphed else stats["bodies"])
-    want["exit_guard"] = stats["replays"]
+    # the exit test at each run's entry and at the end of each block run
+    want["exit_test"] = stats["engine_runs"] + stats["bodies"]
     out = {name: want.get(name, 0) for name in hot_kernels.launches}
     out.update({f"{name}{STEPS}": stats["hot_iters"] if name == draw else 0
                 for name in hot_kernels.run_steps})
@@ -3029,10 +3113,9 @@ def graph_summary(stats):
     """The run's blocks as its graphs ran them: {blocks (one full phase
     each), bodies (the blocks the exit tests let run), replays,
     skipped_replays (those that ran no block), engine_runs, graph_bodies
-    (``engine.GRAPH_BODIES``, blocks a replay), flushes, flush_reads (the
-    host reads of the runs' closing flushes, derived from the counted
-    flushes and runs by the loop's structure: one a flush and one a run to
-    find none left), ms_per_body (device window over blocks), capture_s}."""
+    (``engine.GRAPH_BODIES``, blocks a replay), flushes (one record call a
+    run, read nothing on the host), ms_per_body (device window over
+    blocks), capture_s}."""
     from grmonty_tpu_torch.transport import engine
 
     blocks = stats["full_phases"]
@@ -3040,7 +3123,6 @@ def graph_summary(stats):
     return {"blocks": blocks, "bodies": stats["bodies"], "replays": stats["replays"],
             "skipped_replays": stats["skipped_replays"], "engine_runs": stats["engine_runs"],
             "graph_bodies": engine.GRAPH_BODIES, "flushes": flushes,
-            "flush_reads": flushes + stats["engine_runs"],
             "ms_per_body": 1e3 * stats["device_s"] / max(1, blocks),
             "capture_s": stats["capture_s"]}
 
@@ -3097,6 +3179,9 @@ def drive(sim, label):
     bad = launch_failures(sim.cfg, stats, counts)
     if bad or any(plain_steps.values()):
         fail(f"{label}: {bad or ''} plain calls {plain_steps}")
+    if result["graph"]["flushes"] != stats["engine_runs"]:
+        fail(f"{label}: {result['graph']['flushes']} closing flushes in "
+             f"{stats['engine_runs']} engine runs")
     return stats, counts
 
 
@@ -3502,10 +3587,10 @@ def graph_check(root, card):
                  f"{differ[:8]}")
         if not np.allclose(spec_g, spec_e, rtol=1e-6, atol=0.0):
             fail(f"graph {label}: the spectra differ by {max_rel} relative")
-        # every launch but the loop's own: the exit test after each block
-        # (eager) or each of a replay's blocks, and the guard of each
-        # replay's first block (path_launches holds both runs to theirs)
-        loop = ("exit_test", "exit_guard")
+        # every launch but the loop's own: the sweep, once a block (eager)
+        # or in each of a replay's blocks (path_launches holds both runs to
+        # theirs)
+        loop = (hot_kernels.entry_point("record_phase", cfg.dtype),)
         moved = [k for k in keys + ("bodies", "engine_runs") if st_g[k] != st_e[k]]
         if moved or any(launches_g[k] != launches_e[k] for k in launches_g if k not in loop):
             fail(f"graph {label}: counts differ: {moved}, launches {launches_g} against "
@@ -3680,9 +3765,7 @@ def main():
             print(f"  ptxas: {line.strip()}")
     usage = ptxas_usage(log)
     print("hot step ptxas: " + json.dumps({
-        "{}/{}/G{}/T{}/{}".format("reference" if v[0] else "shipped", v[1], v[2], v[3],
-                                  "draw" if v[4] else "explicit"): u
-        for f, u in usage.items() for v in [hot_step_variant(f)] if v}))
+        ptxas_label(v): u for f, u in usage.items() for v in [hot_step_variant(f)] if v}))
     sass = {}
     for path in paths:
         sass.update(sass_counts(path))
@@ -3726,7 +3809,7 @@ def main():
 
     _, counts = drive(sim, "shipped")
     for name in ("hot_step_draw", "fresh_init", "event_phase", "compact_rows", "compact",
-                 "record_phase", "exit_test", "exit_guard"):
+                 "record_phase", "exit_test"):
         kernels[name]["launches"] = counts[name]
     kernels["hot_step_draw"]["run_steps"] = counts["hot_step_draw" + STEPS]
     # off the path since the event phase is one kernel (the counts, 0, are

@@ -14,17 +14,13 @@
 // of this run, bodies * n_super, as its host loop did).  It writes
 // word = [occ, pos, sec, bodies + go, go] (int64) and go (bool), and adds
 // go to the run's body count held in word[3]: word[3] counts the bodies
-// the run has run or is about to.  Inside a captured graph it also sets
-// the condition of the conditional IF node that guards the next block
-// (a handle passed in, `set_handle`).  The plain version is
+// the run has run or is about to.  The plain version is
 // engine.exit_test_plain.
 //
 // Contract: occupied (N,) bool (bytes 0 or 1), any alignment; backlog_pos,
 // sec_count, n_valid, tail_exit int64 scalars; word (5,) int64; go one
-// bool byte; all on the card; the handle (a cudaGraphConditionalHandle
-// passed as a pointer's bits, read only where set_handle).  Scalars:
-// n_super, max_outer, set_handle.  One launch of one block, in place on
-// word and go.
+// bool byte; all on the card.  Scalars: n_super, max_outer.  One launch of
+// one block, in place on word and go.
 //
 // What bounds it on the H100: latency.  It reads N bytes of occupied (64 KiB
 // at the path's 65,536 lanes, 0.02 us at 3.35 TB/s) and a few words; its
@@ -36,25 +32,27 @@
 // word.  The count is exact, so the word is bit for bit the plain version's.
 //
 // Interface: the plain C convention of hot_step.cu: an array of device
-// pointers (occupied, backlog_pos, sec_count, n_valid, tail_exit, word, go,
-// the handle), an array of double scalars (n_super, max_outer, set_handle),
+// pointers (occupied, backlog_pos, sec_count, n_valid, tail_exit, word, go),
+// an array of double scalars (n_super, max_outer),
 // the lane count N and the CUDA stream; returns cudaGetLastError() after
 // the launch.
+//
+// The engine takes it at a run's entry and at the end of every block, as
+// the block's last launch (inside the block's conditional node in a graph
+// replay, so that it runs only where the block does).
 //
 // The same file builds the conditional nodes that guard the blocks of a
 // replay on `go`, through the CUDA runtime on the graph that PyTorch is
 // capturing (exit_guard_handle, exit_guard_begin / exit_guard_end): a
-// conditional handle on that graph for each block, made before the exit
-// test that sets it is captured; an IF node on it, and the block captured
-// into the node's body graph from a second stream; the capture stream then
-// continues after the node.  The exit test after block i sets block i + 1's
-// condition.  The first block of a replay has no test before it in the same
-// graph launch (its test closed the previous replay, or ran at the run's
-// entry outside the graph), and a condition's value does not carry over
-// from one launch of a graph to the next; so one one-thread kernel at the
-// head of each replay (exit_guard_kernel) sets that block's condition from
-// `go`.  (PyTorch 2.11's CUDAGraph has no conditional node of its own; this
-// is what its later begin_capture_to_if_node does.)
+// conditional handle on that graph for each block, made before the kernel
+// that sets it is captured; an IF node on it, and the rest of the block
+// captured into the node's body graph from a second stream; the capture
+// stream then continues after the node.  Each block's first launch, its
+// sweep (record.cu, gated on go), is captured ahead of its node and sets
+// the node's condition from go (a condition's value does not carry over
+// from one launch of a graph to the next).  (PyTorch 2.11's CUDAGraph has
+// no conditional node of its own; this is what its later
+// begin_capture_to_if_node does.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,8 +68,7 @@ __global__ void __launch_bounds__(THREADS)
                      const long long *__restrict__ sec_count,
                      const long long *__restrict__ n_valid,
                      const long long *__restrict__ tail_exit, long long *__restrict__ word,
-                     bool *__restrict__ go, long long n_super, long long max_outer,
-                     cudaGraphConditionalHandle handle, int set_handle) {
+                     bool *__restrict__ go, long long n_super, long long max_outer) {
   __shared__ unsigned warp_sum[WARPS];
   const int t = threadIdx.x;
   const uintptr_t at = (uintptr_t)occupied;
@@ -107,13 +104,6 @@ __global__ void __launch_bounds__(THREADS)
   word[3] = bodies + (g ? 1 : 0);
   word[4] = g ? 1 : 0;
   *go = g;
-  if (set_handle) cudaGraphSetConditional(handle, g ? 1u : 0u);
-}
-
-// The condition of a replay's first block from the exit word's go, at the
-// head of each graph launch.
-__global__ void exit_guard_kernel(cudaGraphConditionalHandle handle, const bool *go) {
-  cudaGraphSetConditional(handle, *go ? 1u : 0u);
 }
 
 cudaError_t capture_info(cudaStream_t stream, cudaStreamCaptureStatus *status, cudaGraph_t *graph,
@@ -147,12 +137,10 @@ int exit_guard_handle(void *stream, unsigned long long *handle) {
 }
 
 // Capture an IF node on `handle` (exit_guard_handle) into the graph that
-// `stream` is capturing, after one launch of exit_guard_kernel that sets
-// its condition from *go where go is not null (a replay's first block),
-// and start capturing `body_stream` into the node's body graph.  Returns a
-// CUDA error, or -1 when `stream` is not capturing.
-int exit_guard_begin(void *stream, void *body_stream, unsigned long long handle,
-                     const void *go) {
+// `stream` is capturing, after the work captured so far, and start
+// capturing `body_stream` into the node's body graph.  Returns a CUDA
+// error, or -1 when `stream` is not capturing.
+int exit_guard_begin(void *stream, void *body_stream, unsigned long long handle) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;
@@ -161,13 +149,6 @@ int exit_guard_begin(void *stream, void *body_stream, unsigned long long handle,
   cudaError_t err = capture_info(s, &status, &graph, &deps, &n_deps);
   if (err != cudaSuccess) return (int)err;
   if (status != cudaStreamCaptureStatusActive) return -1;
-  if (go != nullptr) {
-    exit_guard_kernel<<<1, 1, 0, s>>>((cudaGraphConditionalHandle)handle, (const bool *)go);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    err = capture_info(s, &status, &graph, &deps, &n_deps);
-    if (err != cudaSuccess) return (int)err;
-  }
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = (cudaGraphConditionalHandle)handle;
@@ -198,15 +179,14 @@ int exit_guard_end(void *body_stream) {
   return (int)cudaStreamEndCapture((cudaStream_t)body_stream, &body);
 }
 
-int exit_test_nptrs() { return 8; }
-int exit_test_nscal() { return 3; }
+int exit_test_nptrs() { return 7; }
+int exit_test_nscal() { return 2; }
 
 int exit_test_launch(void **ptrs, const double *scal, int n, void *stream) {
   exit_test_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
       (const unsigned char *)ptrs[0], n, (const long long *)ptrs[1],
       (const long long *)ptrs[2], (const long long *)ptrs[3], (const long long *)ptrs[4],
-      (long long *)ptrs[5], (bool *)ptrs[6], (long long)scal[0], (long long)scal[1],
-      (cudaGraphConditionalHandle)(uintptr_t)ptrs[7], scal[2] != 0.0);
+      (long long *)ptrs[5], (bool *)ptrs[6], (long long)scal[0], (long long)scal[1]);
   return (int)cudaGetLastError();
 }
 

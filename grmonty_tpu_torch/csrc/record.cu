@@ -38,6 +38,12 @@
 //     multiply, as Tensor.__rtruediv__); avg the EMA, or under CUMUL the
 //     reference's n_scatt_rec / (n_recorded + 1).  The sweep alone writes
 //     them from the counters as it finds them.
+// The sweep alone is every block's first launch, and in a graph replay it
+// guards the block (the XLA while_loop running its body where cond holds,
+// grmonty_tpu/transport/engine.py:2547): given the exit word's go, every
+// thread returns at entry where go is clear, before any load, store or
+// term, and given a conditional handle, block 0's first thread sets the
+// condition of the IF node that holds the rest of the block from go.
 //
 // Design.  A block owns a tile of NT threads, four consecutive lanes a
 // thread: one block of 1,024 lanes up to 1,024 (no look-back, no ticket),
@@ -144,6 +150,11 @@ struct RecordPtrs {  // order = hot_kernels._RECORD_PTRS
   // calls): the ticket and the tile counter, the tiles' status words, the
   // blocks' counters
   u8 *scratch;
+  // the sweep alone, gated (null without): the exit word's go, which it
+  // reads before anything else, and the bits of the conditional handle of
+  // the block it opens (a cudaGraphConditionalHandle; 0 for none)
+  const bool *go;
+  unsigned long long handle;
 };
 constexpr int RECORD_NPTRS = sizeof(RecordPtrs<float>) / sizeof(void *);
 static_assert(sizeof(RecordPtrs<double>) == sizeof(RecordPtrs<float>), "one pointer layout");
@@ -535,6 +546,12 @@ __global__ void __launch_bounds__(NT)
   unsigned long long *status = reinterpret_cast<unsigned long long *>(P.scratch + 8);
 
   if (!(C.mode & (RECORD | FREE))) {  // the sweep alone, and the terms as found
+    if (P.go != nullptr) {  // gated: a block's first launch in a replay
+      const bool g = *P.go;
+      if (P.handle != 0ull && blockIdx.x == 0 && t == 0)
+        cudaGraphSetConditional((cudaGraphConditionalHandle)P.handle, g ? 1u : 0u);
+      if (!g) return;
+    }
     if ((C.mode & TERMS) && blockIdx.x == 0 && t == 0) {
       const Olds<T> o = read_olds(P);
       bias_finish(P, C, o.rec0, o.nsc0, o.old, o.avg0, 0, 0);

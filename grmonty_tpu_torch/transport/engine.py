@@ -39,21 +39,22 @@ Photons are an SoA pool of (N,) tensors stepped in lockstep:
   :func:`refill_sources_plain` and :func:`init_fresh_plain`;
 * :meth:`Engine.run` runs those blocks until the JAX engine's
   ``lax.while_loop`` ``cond`` fails, the exit test computed on the device
-  at the run's entry and after every block (``hot_kernels.exit_test``,
-  plain :func:`exit_test_plain`, into an :class:`ExitWord`; the progress
-  logged every ``PROGRESS_ITERS`` iterations of a long run from the words).
-  A block (the while-loop's body: the full phase, the hot steps, each
-  light phase and its hot steps) runs in place on a state the engine owns,
-  with a static backlog buffer and a device ``n_valid`` and ``tail_exit``,
-  so nothing in it reads the host.  On the card (``graphed``) a replay of
-  one CUDA graph runs ``GRAPH_BODIES`` blocks, each under a conditional IF
-  node (``hot_kernels.exit_guard``) whose condition the test before it
-  sets (a replay's first block's from the word's ``go``, at the replay's
-  head) and followed by the test, and the host issues the next replay before it waits on the
-  last one's word (:func:`pipelined_loop`), so the card does not idle on
-  the host's read; one replay a run comes after the exit and runs no
+  at the run's entry and at the end of every block
+  (``hot_kernels.exit_test``, plain :func:`exit_test_plain`, into an
+  :class:`ExitWord`; the progress logged every ``PROGRESS_ITERS``
+  iterations of a long run from the words).  A block (the while-loop's
+  body: the full phase, the hot steps, each light phase and its hot steps)
+  runs in place on a state the engine owns, with a static backlog buffer
+  and a device ``n_valid`` and ``tail_exit``, so nothing in it reads the
+  host.  On the card (``graphed``) a replay of one CUDA graph runs
+  ``GRAPH_BODIES`` blocks: each block's first launch, its sweep, reads the
+  word's ``go`` (doing nothing where it is clear) and sets the condition
+  of a conditional IF node (``hot_kernels.exit_guard``) that holds the
+  rest of the block; the host issues the next replay before it waits on
+  the last one's word (:func:`pipelined_loop`), so the card does not idle
+  on the host's read; one replay a run comes after the exit and runs no
   block.  Elsewhere each block runs eagerly and the word is read after it
-  (:func:`host_loop`).
+  (:func:`host_loop`).  The closing flush is one record call.
 
 RNG: one ``torch.Generator`` per engine; every draw site takes a whole
 batch from it.  The hot phases take their uniforms as arguments, so the
@@ -1164,6 +1165,26 @@ def record_phase_plain(p: Pool, spec, counters, width, mc, cfg: EngineConfig, sw
     return p, spec, counters
 
 
+# the flags the poison sweep clears
+SWEPT = ("alive", "occupied", "record_pending", "at_event", "ev_pending")
+
+
+def gated_sweep_plain(p: Pool, spec, counters, go, mc, cfg: EngineConfig, bias=None):
+    """The plain version of the gated sweep (``hot_kernels.record_phase``
+    with ``go``: a block's first launch): where ``go`` (a bool scalar) is
+    set, the poison sweep (:func:`poison_sweep_plain`) and, into ``bias``
+    (:class:`BiasTerms` of 0-d tensors, or None), the bias's terms from
+    ``counters`` as found; where it is clear, every flag and term as it
+    was.  Reads nothing on the host.  Returns (pool, spec, counters)."""
+    q = poison_sweep_plain(p)
+    q = q._replace(**{f: torch.where(go, getattr(q, f), getattr(p, f)) for f in SWEPT})
+    if bias is not None:
+        terms = bias_terms_plain(counters, mc.bias_norm, spec.dtype, cfg.reference)[1]
+        for dst, src in zip(bias, terms):
+            dst.copy_(torch.where(go, src, dst))
+    return q, spec, counters
+
+
 class BiasTerms(typing.NamedTuple):
     """The bias's terms after a phase's record (0-d tensors): the
     denominators bias_norm * max_tau * (avg + 2) that refill's track start
@@ -1277,22 +1298,22 @@ class _Progress:
         return word
 
 
-def host_loop(word: ExitWord, body, test, n_super) -> RunLoop:
+def host_loop(word: ExitWord, body, read, n_super) -> RunLoop:
     """The plain version of :func:`pipelined_loop`: while ``word`` says the
-    next block runs, run it (``body()``) and take the exit test after it
-    (``test()``, which returns its word read on the host).  ``word``: the
-    test's word at the run's entry."""
+    next block runs, run it (``body()``, which ends with the exit test) and
+    read the test's word on the host (``read()``).  ``word``: the test's
+    word at the run's entry."""
     progress = _Progress(n_super)
     while progress(word).go:
         body()
-        word = test()
+        word = read()
     return RunLoop(word, 0, 0)
 
 
 def pipelined_loop(entry, launch, read, n_super) -> RunLoop:
     """The loop of a graphed run, the host one replay ahead of the word it
     reads: ``launch()`` issues one replay (its blocks, each guarded by the
-    exit word's ``go`` and followed by the exit test) and the copy of its
+    exit word's ``go`` and ending with the exit test) and the copy of its
     last word to the host, and returns the copy's handle; ``read(handle)``
     waits for that copy alone and returns its :class:`ExitWord`; ``entry``:
     the handle of the word of the test at the run's entry.  Replay n + 1 is
@@ -1326,8 +1347,10 @@ def rewound_offset(offset, base, step, k, replays, bodies):
 
 def run_credit(body, replay, bodies, replays):
     """What a graphed run adds to the launch and phase counts: ``body``
-    ({name: n}, {phase: n}, a block's) once a block run, ``replay`` (a
-    replay's own launches: its exit tests) once a replay."""
+    ({name: n}, {phase: n}: a block's under its node, its exit test
+    included) once a block run, ``replay`` (a replay's own launches: its
+    blocks' gated sweeps, which run whether or not their blocks do) once a
+    replay."""
     launched = {k: v * bodies for k, v in body[0].items()}
     for k, v in replay[0].items():
         launched[k] = launched.get(k, 0) + v * replays
@@ -1369,7 +1392,7 @@ class Engine:
         self.rf_k = min(n, cfg.refill_k) if cfg.refill_k else self.ev_k
         self.light_k = min(n, cfg.light_k if cfg.light_k else min(self.ev_k, self.rf_k))
         self.phases = {"full": 0, "light": 0}  # calls since fresh_state, on the host
-        self.flushes = 0  # Engine.run's closing records since fresh_state
+        self.flushes = 0  # Engine.run's closing records (one a run) since fresh_state
         # The bias's terms (BiasTerms), each 0-d tensor made here, outside
         # any capture: under the live bias every record writes them in place
         # (hot_kernels.record_phase's ``bias``) and the phases read them;
@@ -1408,12 +1431,14 @@ class Engine:
         self._record_ticket = hot_kernels.record_ticket(self.device, n)
         self._fresh_ticket = torch.zeros(3, dtype=torch.int32, device=self.device)
         # The exit test's inputs and outputs (hot_kernels.exit_test): the
-        # run's tail_exit on the device, the word (ExitWord) and go, the
-        # predicate of a replay's first block's node; on the card the host
-        # reads the word from two pinned slots, each with its event.
+        # run's tail_exit on the device, the word (ExitWord) and go, which a
+        # replay's gated sweeps read; the go of an eager block, always set;
+        # on the card the host reads the word from two pinned slots, each
+        # with its event.
         self._tail_exit = torch.zeros((), dtype=torch.int64, device=self.device)
         self._exit_word = torch.zeros(EXIT_WORD, dtype=torch.int64, device=self.device)
         self._go = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._one = torch.ones((), dtype=torch.bool, device=self.device)
         self._host_words = torch.zeros((2, EXIT_WORD), dtype=torch.int64, pin_memory=cuda)
         self._word_events = (torch.cuda.Event(), torch.cuda.Event()) if cuda else None
         # A replay's blocks (GRAPH_BODIES), and what one block advances the
@@ -1584,22 +1609,36 @@ class Engine:
             self._fresh_ticket)
         return p, spec, counters, sec, backlog_pos
 
-    def periodic_phase(self, state: State, backlog_rows, n_valid=None) -> State:
-        """The full phase: the poison sweep (which takes the bias's terms as
-        it finds the counters), scatter events, record, free, the bias's
-        EMA fold (shipped) and terms, refill, init."""
+    def full_sweep(self, state: State, go=None, handle=None) -> State:
+        """The full phase's first launch: the poison sweep alone, which
+        takes the bias's terms as it finds the counters (before the event
+        set; ``hot_kernels.record_phase``).  Given ``go`` (the exit word's
+        bool scalar) it does nothing where ``go`` is clear, and given
+        ``handle`` it sets that conditional node's condition from ``go``:
+        in a replay it guards its block."""
         from grmonty_tpu_torch.transport import hot_kernels
 
+        p, spec, counters = hot_kernels.record_phase(
+            state.pool, state.spec, state.counters, self.ev_k, self.mc, self.cfg,
+            self._record_ticket, sweep=True, record=False, free=False, bias=self._bias_out,
+            go=go, handle=handle)
+        return state._replace(pool=p, spec=spec, counters=counters)
+
+    def periodic_phase(self, state: State, backlog_rows, n_valid=None) -> State:
+        """The full phase: the poison sweep (:meth:`full_sweep`), scatter
+        events, record, free, the bias's EMA fold (shipped) and terms,
+        refill, init."""
+        return self.periodic_rest(self.full_sweep(state), backlog_rows, n_valid)
+
+    def periodic_rest(self, state: State, backlog_rows, n_valid=None) -> State:
+        """The full phase after its sweep (:meth:`periodic_phase`)."""
         if n_valid is None:
             n_valid = backlog_rows.shape[0]
         self.phases["full"] += 1
-        # the sweep alone: it comes before the event set
-        p, spec, counters = hot_kernels.record_phase(
-            state.pool, state.spec, state.counters, self.ev_k, self.mc, self.cfg,
-            self._record_ticket, sweep=True, record=False, free=False, bias=self._bias_out)
+        p, counters = state.pool, state.counters
         p, sec, counters = self.process_scatters(p, state.sec, counters, self._bias.event_den)
         p, spec, counters, sec, backlog_pos = self._record_free_refill(
-            p, spec, counters, sec, backlog_rows, state.backlog_pos, n_valid,
+            p, state.spec, counters, sec, backlog_rows, state.backlog_pos, n_valid,
             fold=not self.cfg.reference)
         return state._replace(pool=p, spec=spec, counters=counters, sec=sec,
                               backlog_pos=backlog_pos)
@@ -1650,36 +1689,51 @@ class Engine:
         self._tail_exit.fill_(self.cfg.tail_exit if tail_exit is None else tail_exit)
         self._exit_word.zero_()
 
-    def _exit_test(self, handle=None):
-        """The exit test on the engine's own state, in place on the exit
-        word and ``go`` (``hot_kernels.exit_test``: one launch on the card,
-        :func:`exit_test_plain` on the CPU), and on ``handle``'s condition
-        where given (the next block's node in a capture); it reads nothing
-        on the host."""
+    def _exit_test(self):
+        """The exit test on the engine's own state, at a run's entry and at
+        the end of every block (:meth:`_rest`), in place on the exit word
+        and ``go`` (``hot_kernels.exit_test``: one launch on the card,
+        :func:`exit_test_plain` on the CPU); it reads nothing on the
+        host."""
         from grmonty_tpu_torch.transport import hot_kernels
 
         st = self._state
         hot_kernels.exit_test(st.pool.occupied, st.backlog_pos, st.sec.count, self._n_valid,
                               self._tail_exit, self._exit_word, self._go, self.n_super,
-                              MAX_OUTER, handle=handle)
+                              MAX_OUTER)
 
     def _body(self):
-        """One block on the engine's own state, in place: the full phase,
-        then the hot steps, each light phase and its hot steps (the JAX
-        engine's while-loop body).  The hot steps read the bias scale that
-        the last phase's record left in the engine's bias terms.  On the card
-        the block draws one key (``hot_kernels.draw_key``) and each run of
-        hot steps (an entry of ``blocks``) is one launch in place
-        (:meth:`hot_run`), whose steps draw their uniforms at their indices
-        in the block; on the CPU each hot step draws them from the
-        generator.  It reads nothing on the host and makes no tensor from
-        host data, so that it can be captured.  What the phases and runs
-        did not write in place is copied into the state at the end
-        (``assign_state``)."""
+        """One block on the engine's own state, in place (the JAX engine's
+        while-loop body, then its ``cond``): the full phase's sweep
+        (:meth:`full_sweep`, gated on a ``go`` that is always set), then
+        :meth:`_rest`."""
+        self._sweep(self._one)
+        self._rest()
+
+    def _sweep(self, go, handle=None):
+        """The block's first launch on the engine's own state, gated on
+        ``go`` (:meth:`full_sweep`), its outputs copied into that state
+        where they are not in place (the CPU's)."""
+        st = self._state
+        assign_state(st, self.full_sweep(st, go=go, handle=handle))
+
+    def _rest(self):
+        """The rest of a block after its sweep: the full phase, then the
+        hot steps, each light phase and its hot steps, and the exit test.
+        The hot steps read the bias scale that the last phase's record left
+        in the engine's bias terms.  On the card the block draws one key
+        (``hot_kernels.draw_key``) and each run of hot steps (an entry of
+        ``blocks``) is one launch in place (:meth:`hot_run`), whose steps
+        draw their uniforms at their indices in the block; on the CPU each
+        hot step draws them from the generator.  It reads nothing on the
+        host and makes no tensor from host data, so that it can be
+        captured.  What the phases and runs did not write in place is
+        copied into the state (``assign_state``) before the exit test
+        (:meth:`_exit_test`)."""
         from grmonty_tpu_torch.transport import hot_kernels
 
         st = self._state
-        state = self.periodic_phase(st, self._backlog, self._n_valid)
+        state = self.periodic_rest(st, self._backlog, self._n_valid)
         scale = self._bias.scale
         key = (hot_kernels.draw_key(self.gen, self.device) if self.device.type == "cuda"
                else None)
@@ -1694,6 +1748,7 @@ class Engine:
                 state = self.hot_run(state, nb, scale, key, step)
             step += nb
         assign_state(st, state)
+        self._exit_test()
 
     def _counting(self, fn):
         """Run ``fn`` and return what it added to the kernels' launch counts
@@ -1709,16 +1764,15 @@ class Engine:
             self.phases.update(phases0)
         return launched, phased
 
-    def _guarded(self, guard, body=None, handles=None):
-        """A replay's blocks: ``graph_bodies`` times the block
-        (``body``, :meth:`_body` when None) under ``guard(self._go, body)``,
-        then the exit test after it, whose word guards the next block;
-        ``handles`` (the capture's, :meth:`_if_node`): the blocks'
-        conditional handles, the test after block i setting block i + 1's."""
+    def _guarded(self, guard, rest=None, handles=None):
+        """A replay's blocks: ``graph_bodies`` times the block's gated sweep
+        (:meth:`_sweep` on the exit word's ``go``), then the rest of the
+        block (``rest``, :meth:`_rest` when None) under ``guard(self._go,
+        rest)``; ``handles`` (the capture's, :meth:`_if_node`): the blocks'
+        conditional handles, block i's sweep setting handle i."""
         for i in range(self.graph_bodies):
-            guard(self._go, body or self._body)
-            nxt = i + 1
-            self._exit_test(handles[nxt] if handles and nxt < len(handles) else None)
+            self._sweep(self._go, handles[i] if handles else None)
+            guard(self._go, rest or self._rest)
 
     def _if_node(self):
         """The guard of the capture and the blocks' conditional handles
@@ -1726,32 +1780,29 @@ class Engine:
         function it is given under a conditional IF node on the next handle
         (``hot_kernels.exit_guard``, the block's own stream and memory
         pool), which a replay runs only where that handle's condition is
-        set: the first block's from its predicate at the replay's head, each
-        other block's by the exit test before it."""
+        set: by the block's gated sweep, captured before the node."""
         from grmonty_tpu_torch.transport import hot_kernels
 
         handles = [hot_kernels.exit_handle(self.device) for _ in range(self.graph_bodies)]
-        nodes = iter(enumerate(handles))
+        nodes = iter(handles)
 
         def guard(pred, fn):
-            i, handle = next(nodes)
-            hot_kernels.exit_guard(handle, fn, self._body_stream, self._body_pool,
-                                   go=pred if i == 0 else None)
+            hot_kernels.exit_guard(next(nodes), fn, self._body_stream, self._body_pool)
         return guard, handles
 
     def capture(self, state: State, backlog_rows, n_valid=None):
         """Capture a replay into a CUDA graph at a graphed engine's first
-        run (else do nothing): ``graph_bodies`` blocks, each under a
-        conditional node on the exit word's ``go`` and followed by the exit
-        test (:meth:`_guarded`; the nodes :meth:`_if_node`).  One
-        eager block and exit test on a side
-        stream first load every kernel and fill the wrappers' caches and
-        measure what a block advances the generator by; then the capture
-        records the replay with the run's generator registered.  The launch
-        and phase counts, the generator and the engine's copy of ``state``
-        are left as they were found; what one block adds to the counts, and
-        what a replay adds besides its blocks (its exit tests), are kept and
-        credited by the blocks and replays a run ran.  The garbage collector
+        run (else do nothing): ``graph_bodies`` blocks, each its sweep gated
+        on the exit word's ``go`` and the rest of it, which ends with the
+        exit test, under a conditional node whose condition the sweep sets
+        (:meth:`_guarded`; the nodes :meth:`_if_node`).  One eager block
+        on a side stream first loads every kernel and fills the wrappers'
+        caches and measures what a block advances the generator by; then
+        the capture records the replay with the run's generator registered.
+        The launch and phase counts, the generator and the engine's copy of
+        ``state`` are left as they were found; what one block's rest adds to
+        the counts, and what a replay adds besides (its gated sweeps), are
+        kept and credited by the blocks and replays a run ran.  The garbage collector
         is off during the capture.  Returns the seconds it took.  A capture
         that fails, or a conditional node that the CUDA runtime refuses,
         raises: a graphed engine never falls back to the host loop."""
@@ -1778,13 +1829,12 @@ class Engine:
         with torch.cuda.stream(side):
             self._counting(self._body)
             step = self.gen.get_offset() - offset0
-            self._counting(self._exit_test)
         cur.wait_stream(side)
         graph.register_generator_state(self.gen)
         bodies = []
 
         def body():
-            bodies.append(self._counting(self._body))
+            bodies.append(self._counting(self._rest))
 
         # No collection inside the capture: another engine's graph left in a
         # reference cycle and collected there would be destroyed inside it,
@@ -1812,8 +1862,8 @@ class Engine:
         return time.monotonic() - t0
 
     def _replay(self):
-        """One replay of the graph: its blocks run where their exit tests
-        say (what it launched is credited by :meth:`_run_replays`)."""
+        """One replay of the graph: its blocks run where the exit word's
+        ``go`` says (what it launched is credited by :meth:`_run_replays`)."""
         self._graph.replay()
         self.replays += 1
 
@@ -1846,8 +1896,9 @@ class Engine:
     def _run_replays(self):
         """The blocks of a graphed run (:func:`pipelined_loop`): the entry
         test's word, then one replay ahead of each word read.  Credits the
-        blocks' launches and phases by the blocks run and the exit tests by
-        the replays (:func:`run_credit`), and rewinds the
+        blocks' launches and phases (their exit tests included) by the
+        blocks run and the gated sweeps by the replays (:func:`run_credit`),
+        and rewinds the
         generator to where an eager run of as many blocks leaves it
         (:func:`rewound_offset`)."""
         from grmonty_tpu_torch.transport import hot_kernels
@@ -1870,9 +1921,8 @@ class Engine:
         self.skipped += out.skipped
         return out
 
-    def _test_and_read(self):
-        """The exit test after an eager block, its word read on the host."""
-        self._exit_test()
+    def _read_word(self):
+        """The exit word, read on the host."""
         return ExitWord(*self._exit_word.tolist())
 
     def run(self, state: State, backlog_rows, tail_exit=None, n_valid=None) -> State:
@@ -1880,14 +1930,19 @@ class Engine:
         ``tail_exit`` lanes remain occupied, then flush the pending records.
         The block runs on the engine's copy of ``state`` and
         ``backlog_rows``'s first ``n_valid`` rows (all when None).  The exit
-        test (:meth:`_exit_test`) runs on the device at the entry and after
-        every block.  Graphed (captured here at the first run, unless
-        :meth:`capture` ran first), each replay's blocks run under
-        conditional nodes on its word, and the host reads each replay's word
-        while the next replay runs (:func:`pipelined_loop`); else each
-        block is issued op by op and the word read after it
-        (:func:`host_loop`).  Returns a state of tensors of its own, which
-        no later run overwrites."""
+        test runs on the device at the entry (:meth:`_exit_test`) and at
+        the end of every block (:meth:`_rest`).  Graphed
+        (captured here at the first run, unless :meth:`capture` ran first),
+        each replay's blocks run where their gated sweeps find the word's
+        ``go`` set, and the host reads each replay's word while the next
+        replay runs (:func:`pipelined_loop`); else each block is issued op
+        by op and the word read after it (:func:`host_loop`).  The closing
+        flush (the JAX engine's second ``lax.while_loop``, whose calls of
+        ``EV_K`` lanes each record exactly the pending lanes that hold no
+        unconsumed event) is one record of up to the pool's width, queued
+        behind the blocks with nothing read on the host; a lane still
+        holding an event records on a later phase.  Returns a state of
+        tensors of its own, which no later run overwrites."""
         nv = backlog_rows.shape[0] if n_valid is None else n_valid
         self.capture(state, backlog_rows, nv)
         self._load(state, backlog_rows, nv, tail_exit)
@@ -1895,15 +1950,11 @@ class Engine:
         if self.graphed:
             out = self._run_replays()
         else:
-            out = host_loop(ExitWord(*self._exit_word.tolist()), self._body,
-                            self._test_and_read, self.n_super)
+            out = host_loop(self._read_word(), self._body, self._read_word, self.n_super)
         self.runs += 1
         self.bodies += out.word.bodies
         state = clone_state(self._state)._replace(it=state.it + out.word.bodies * self.n_super)
-        # final flush of pending records; a record_pending lane still holding
-        # an unconsumed detached event records on a later phase
-        spec, counters, p = state.spec, state.counters, state.pool
-        while bool((p.record_pending & ~p.ev_pending).any()):
-            self.flushes += 1
-            spec, counters, p = self.spectrum_add(spec, counters, p)
+        self.flushes += 1
+        spec, counters, p = self.spectrum_add(state.spec, state.counters, state.pool,
+                                              width=self.cfg.n_pool)
         return state._replace(pool=p, spec=spec, counters=counters)

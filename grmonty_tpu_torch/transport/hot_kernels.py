@@ -80,12 +80,12 @@ where the JAX engine runs XLA (``grmonty_tpu/transport/engine.py:1819``,
 ``csrc/exit_test.cu`` holds the engine run's exit test (:func:`exit_test`;
 ``engine.exit_test_plain``), the JAX engine's ``lax.while_loop`` ``cond``
 (XLA, ``grmonty_tpu/transport/engine.py:2531``): one block counts the
-occupied lanes and writes the exit word and ``go``, and inside a graph
-sets the condition of the next block's node; and the conditional IF node
-that guards each block of a graph replay (:func:`exit_guard`, on a handle
-of :func:`exit_handle`), built through the CUDA runtime on the graph
-PyTorch is capturing, with a one-thread kernel that sets the condition of
-a replay's first block from ``go``.
+occupied lanes and writes the exit word and ``go`` (the engine takes it
+at a run's entry and at the end of every block); and the conditional IF node that guards each block of a graph replay
+(:func:`exit_guard`, on a handle of :func:`exit_handle`), built through
+the CUDA runtime on the graph PyTorch is capturing, whose condition the
+block's first launch, its sweep (:func:`record_phase` gated on ``go``),
+sets.
 
 The headers of the ``.cu`` files say what bounds each kernel on the card.
 
@@ -146,8 +146,7 @@ launches = {"hot_step": 0, "hot_step_ref": 0, "row_gather": 0, "hot_step_f64": 0
             "philox_words": 0, "fresh_init": 0, "fresh_init_ref": 0, "fresh_init_f64": 0,
             "fresh_init_ref_f64": 0, "event_fluid": 0, "event_fluid_f64": 0,
             "event_phase": 0, "event_phase_f64": 0, "compact": 0, "compact_rows": 0,
-            "compact_rows_f64": 0, "record_phase": 0, "record_phase_f64": 0, "exit_test": 0,
-            "exit_guard": 0}
+            "compact_rows_f64": 0, "record_phase": 0, "record_phase_f64": 0, "exit_test": 0}
 # The dtypes the hot step and the row gather have kernels for, and the
 # suffix of their entry points: the float32 kernels keep their names.
 DTYPE_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
@@ -188,7 +187,7 @@ def launches_during(fn):
 
 def credit(added):
     """Add ``added`` (:func:`launches_during`) to ``launches`` and
-    ``run_steps``: the launches and steps of one replay of a captured
+    ``run_steps``: the launches and steps of the replays of a captured
     graph."""
     for (what, k), v in added.items():
         _COUNTS[what][k] += v
@@ -284,7 +283,8 @@ _PHASE_PTRS = (_PHASE_READ + _PHASE_WRITE
 # The record (RecordPtrs of csrc/record.cu): the pool's fields it reads,
 # the flags it updates in place, the birth state (null when the trace is
 # off), the spectrum and the counters it adds to and folds, the bias's
-# terms it writes (null without) and the engine's scratch.  Its scalars
+# terms it writes (null without), the engine's scratch, and the gated
+# sweep's go and conditional handle (null and 0 without).  Its scalars
 # (RecordScal): the width, the mode's bits, the step cap, the bins'
 # counts, the bins' constants as the plain version's torch operations take
 # them on the card, the bias's norm and the EMA's weight.
@@ -295,7 +295,7 @@ _RECORD_COUNTERS = ("n_recorded n_scatt_rec max_tau_scatt n_retired n_steps_reti
                     "w_stall mt_bx mt_bk mt_bw mt_nsc0 avg_ema ema_scatt_mark "
                     "ema_rec_mark").split()
 _RECORD_PTRS = (_RECORD_READ + _RECORD_FLAGS + _BIRTH + ["spec"] + _RECORD_COUNTERS
-                + list(engine.BiasTerms._fields) + ["scratch"])
+                + list(engine.BiasTerms._fields) + ["scratch", "go", "handle"])
 _RECORD_SCAL = "k mode stall_steps n_th n_e mid x_stop2 inv_dx2 l_e_0 inv_d_l_e bias_norm ema".split()
 # the record's stages (the mode's bits): the sweep, the record, the frees,
 # the EMA fold, the bias's terms written, the cumulative average in them
@@ -334,9 +334,8 @@ _ABI = {**{f"hot_step{r}{x}{d}": (len(_HOT_REF_PTRS if r else _HOT_PTRS),
         **{f"record_phase{x}": (len(_RECORD_PTRS), len(_RECORD_SCAL))
            for x in DTYPE_SUFFIX.values()},
         # the exit test: occupied, backlog_pos, sec_count, n_valid,
-        # tail_exit, the word, go, the conditional handle; the scalars
-        # n_super, max_outer and whether it sets the handle
-        "exit_test": (8, 3)}
+        # tail_exit, the word, go; the scalars n_super and max_outer
+        "exit_test": (7, 2)}
 
 
 # The hot step's entry points, and their drawing instances; the track
@@ -374,8 +373,7 @@ _INT_FNS = ("gather_rowsum_persistent_pass_rows", "gather_rowsum_rowloop_wave_ro
 # The conditional nodes' builders of csrc/exit_test.cu (exit_handle,
 # exit_guard): their arguments.
 _GUARD_FNS = {"exit_guard_handle": [ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)],
-              "exit_guard_begin": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
-                                   ctypes.c_void_p],
+              "exit_guard_begin": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong],
               "exit_guard_end": [ctypes.c_void_p]}
 
 
@@ -1151,7 +1149,7 @@ def _record_scalars(mc, width, mode, stall_steps, dev, dt):
 
 
 def record_phase(pool, spec, counters, width, mc, cfg, ticket=None, sweep=True, record=True,
-                 free=True, fold=False, bias=None):
+                 free=True, fold=False, bias=None, go=None, handle=None):
     """The phases' upkeep of the pool (``engine.record_phase_plain``, then
     ``engine.bias_terms_plain``): under ``sweep`` the poison sweep, under
     ``record`` the record of up to ``width`` escaped lanes into ``spec``
@@ -1167,9 +1165,20 @@ def record_phase(pool, spec, counters, width, mc, cfg, ticket=None, sweep=True, 
     occupied, record_pending, at_event, ev_pending), ``spec``, the counters
     and ``bias`` in place through ``ticket`` (a :func:`record_ticket` for
     the pool's lanes) and returns them, or raise.  Returns (pool, spec,
-    counters).  No host sync."""
+    counters).  No host sync.
+
+    The sweep alone may be gated (a block's first launch): given ``go``
+    (the exit word's bool scalar), it changes nothing, the bias's terms
+    included, where ``go`` is clear (the plain version keeps every tensor
+    it would write where ``go`` is clear, ``engine.gated_sweep_plain``);
+    given ``handle`` (:func:`exit_handle`, inside a capture on the card)
+    it also sets that conditional node's condition from ``go``."""
     if not (sweep or record or free):
         raise ValueError("record_phase: no stage to run")
+    if (go is not None or handle is not None) and (record or free or not sweep):
+        raise ValueError("record_phase: only the sweep alone takes go and a handle")
+    if handle is not None and go is None:
+        raise ValueError("record_phase: a conditional handle is set from go")
     if fold and not record:
         raise ValueError("record_phase: the EMA fold comes with the record")
     n = pool.w.shape[0]
@@ -1177,6 +1186,10 @@ def record_phase(pool, spec, counters, width, mc, cfg, ticket=None, sweep=True, 
         raise ValueError(f"record_phase: width must be an int in [1, {n}], got {width!r}")
     dt = pool.w.dtype
     if pool.w.device.type == "cpu":
+        if handle is not None:
+            raise ValueError("record_phase: a conditional handle exists only on the card")
+        if go is not None:
+            return engine.gated_sweep_plain(pool, spec, counters, go, mc, cfg, bias)
         pool, spec, counters = engine.record_phase_plain(pool, spec, counters, width, mc, cfg,
                                                          sweep=sweep, record=record, free=free)
         if fold or bias is not None:
@@ -1222,10 +1235,13 @@ def record_phase(pool, spec, counters, width, mc, cfg, ticket=None, sweep=True, 
         raise ValueError(f"{name}: expected the record's scratch (record_ticket) for {n} lanes "
                          f"on {dev}, got "
                          f"{None if ticket is None else (ticket.dtype, tuple(ticket.shape))}")
+    if go is not None:
+        _check_scalar(f"{name} go", go, torch.bool, dev)
     mode = (sweep * RECORD_SWEEP + record * RECORD_RECORD + free * RECORD_FREE
             + fold * RECORD_FOLD + (bias is not None) * RECORD_TERMS
             + cfg.reference * RECORD_CUMUL)
-    _launch(name, read + flags + (birth or [None] * 9) + [spec] + cs + terms + [ticket],
+    _launch(name, read + flags + (birth or [None] * 9) + [spec] + cs + terms
+            + [ticket, go, 0 if handle is None else int(handle)],
             _record_scalars(mc, width if record else 1, mode, cfg.stall_steps, dev, dt),
             n, dev, kernels=record_launches(mode))
     return pool, spec, counters
@@ -1246,21 +1262,17 @@ def record_launches(mode):
 
 
 def exit_test(occupied, backlog_pos, sec_count, n_valid, tail_exit, word, go, n_super,
-              max_outer, handle=None):
+              max_outer):
     """The run's exit test (``engine.exit_test_plain``): whether the next
     block runs, ``go`` = (occupied lanes > ``tail_exit`` or ``backlog_pos``
     < ``n_valid`` or ``sec_count`` > 0) and ``word[3] * n_super <
     max_outer``, written into ``word`` = [occ, pos, sec, bodies + go, go]
-    (int64 (``engine.EXIT_WORD``,)) and ``go`` (a bool scalar, the graph's
-    conditional node's predicate), in place.  ``occupied``: the (N,) bool
-    mask; the other four int64 scalars.  ``handle`` (:func:`exit_handle`,
-    inside a capture on the card): the conditional node whose condition the
-    test also sets to go.  On CPU tensors the plain version (no handle), on
-    CUDA tensors one launch of ``exit_test`` (``csrc/exit_test.cu``), or
+    (int64 (``engine.EXIT_WORD``,)) and ``go`` (a bool scalar, which the
+    blocks' gated sweeps read), in place.  ``occupied``: the (N,) bool
+    mask; the other four int64 scalars.  On CPU tensors the plain version,
+    on CUDA tensors one launch of ``exit_test`` (``csrc/exit_test.cu``), or
     raise.  Returns (word, go).  No host sync."""
     if occupied.device.type == "cpu":
-        if handle is not None:
-            raise ValueError("exit_test: a conditional handle exists only on the card")
         return engine.exit_test_plain(occupied, backlog_pos, sec_count, n_valid, tail_exit,
                                       word, go, n_super, max_outer)
     dev, n = _cuda_device(occupied), occupied.shape[0]
@@ -1276,18 +1288,18 @@ def exit_test(occupied, backlog_pos, sec_count, n_valid, tail_exit, word, go, n_
     if not (isinstance(n_super, int) and isinstance(max_outer, int) and n_super >= 1
             and 0 <= max_outer < 2**53):
         raise ValueError(f"exit_test: n_super {n_super!r} and max_outer {max_outer!r}")
-    _launch("exit_test", [occupied, backlog_pos, sec_count, n_valid, tail_exit, word, go,
-                          0 if handle is None else int(handle)],
-            [n_super, max_outer, handle is not None], n, dev)
+    _launch("exit_test", [occupied, backlog_pos, sec_count, n_valid, tail_exit, word, go],
+            [n_super, max_outer], n, dev)
     return word, go
 
 
 def exit_handle(device):
     """A conditional handle (its condition 0 at each launch unless a kernel
     sets it) on the CUDA graph that ``device``'s current stream is
-    capturing: made before the exit test that sets it is captured
-    (:func:`exit_test`'s ``handle``), and given to the node that it guards
-    (:func:`exit_guard`).  Raises where the stream is not capturing."""
+    capturing: made before the launch that sets it is captured (the
+    gated sweep, :func:`record_phase`'s ``handle``), and given to the node
+    that it guards (:func:`exit_guard`).  Raises where the stream is not
+    capturing."""
     build()
     out = ctypes.c_ulonglong(0)
     rc = _Build.guard_fns["exit_guard_handle"](torch.cuda.current_stream(device).cuda_stream,
@@ -1298,37 +1310,30 @@ def exit_handle(device):
     return out.value
 
 
-def exit_guard(handle, fn, body_stream, pool, go=None):
+def exit_guard(handle, fn, body_stream, pool):
     """Capture ``fn()`` under a conditional IF node on ``handle``
     (:func:`exit_handle`) into the CUDA graph that the current stream is
-    capturing: a replay runs what ``fn`` launched only where the handle's
-    condition is set when the node is reached.  The exit test captured
-    before the node sets it (:func:`exit_test`'s ``handle``); or, where
-    ``go`` (a bool CUDA scalar) is given, one launch of ``exit_guard_kernel``
-    (``csrc/exit_test.cu``) goes into the graph before the node and sets it
-    from ``go``: a replay's first block, since a condition does not carry
-    over from the graph's last launch.  ``fn`` runs with ``body_stream`` (a
-    ``torch.cuda.Stream`` other than the current one, not capturing) as the
-    current stream, capturing into the node's body, and its allocations
-    come from ``pool`` (a ``torch.cuda.MemPool`` that the graph's owner
-    keeps as long as the graph).  The plain version is Python's ``if``: a
-    graph exists only on the card.  Raises where the current stream is not
-    capturing or the CUDA runtime refuses the node."""
+    capturing, after what it captured so far: a replay runs what ``fn``
+    launched only where the handle's condition is set when the node is
+    reached, by a launch captured before the node (the block's gated
+    sweep, :func:`record_phase`'s ``handle``).  ``fn`` runs with
+    ``body_stream`` (a ``torch.cuda.Stream`` other than the current one,
+    not capturing) as the current stream, capturing into the node's body,
+    and its allocations come from ``pool`` (a ``torch.cuda.MemPool`` that
+    the graph's owner keeps as long as the graph).  The plain version is
+    Python's ``if``: a graph exists only on the card.  Raises where the
+    current stream is not capturing or the CUDA runtime refuses the
+    node."""
     build()
     dev = body_stream.device
-    if go is not None:
-        _check_scalar("exit_guard go", go, torch.bool, dev)
     stream = torch.cuda.current_stream(dev)
     if stream.cuda_stream == body_stream.cuda_stream:
         raise ValueError("exit_guard: the body's stream is the stream capturing the graph")
     rc = _Build.guard_fns["exit_guard_begin"](stream.cuda_stream, body_stream.cuda_stream,
-                                              int(handle),
-                                              None if go is None else go.data_ptr())
+                                              int(handle))
     if rc != 0:
         raise RuntimeError(f"exit_guard: the conditional node was refused ("
                            f"{'the stream is not capturing' if rc < 0 else f'CUDA error {rc}'})")
-    if go is not None:
-        launches["exit_guard"] += 1
     try:
         with torch.cuda.stream(body_stream), torch.cuda.use_mem_pool(pool, dev):
             fn()
@@ -2056,10 +2061,11 @@ def compare_fresh(name, pool, load, ref, got):
 
 
 # The record's widths on the path: (pool lanes, width) of the wave engine's
-# full phase (ev_k) and light phase (light_k) and of the cascade's engines
-# (the width their pools), each also cut below its recording lanes.
-RECORD_WIDTHS = ((65536, 16384), (65536, 12288), (4096, 4096), (4096, 512), (512, 512),
-                 (512, 64))
+# full phase (ev_k), light phase (light_k) and closing flush (the pool's
+# width) and of the cascade's engines (the width their pools), each also
+# cut below its recording lanes.
+RECORD_WIDTHS = ((65536, 16384), (65536, 12288), (65536, 65536), (4096, 4096), (4096, 512),
+                 (512, 512), (512, 64))
 # The step cap of the synthetic record's pools.
 RECORD_STALL = 1000
 
@@ -2288,7 +2294,6 @@ KERNEL_TOLERANCE.update({
     "compact_rows": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
     "compact_rows_f64": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
     "exit_test": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
-    "exit_guard": dict(rtol=0.0, atol=0.0, mask_frac=0.0),
 })
 # the pool's fields held within the tolerance (every other field bit for bit)
 EVENT_PHASE_TOL = ("alpha_scatti", "alpha_absi", "bi")

@@ -34,8 +34,10 @@ window are not the run's.
    a second ``Simulation`` with ``graphed=False`` (the block issued op by
    op, as before the graph), whose phases are clocked: every call of the
    engine's phases (``hot_run``, a block's run of hot steps, one launch;
-   ``hot_step`` before the run; ``periodic_phase``, ``light_phase`` and, inside them,
-   ``process_scatters`` and ``refill_slots``) and of the kernels' wrappers
+   ``hot_step`` before the run; the full phase, as a block runs it its
+   gated sweep ``full_sweep`` and ``periodic_rest`` (``periodic_phase``
+   before), ``light_phase`` and, inside them, ``process_scatters`` and
+   ``refill_slots``) and of the kernels' wrappers
    inside them (``hot_kernels.event_phase`` and ``compact_rows`` inside
    ``process_scatters``, ``compact`` inside it and ``refill_slots``,
    ``record_phase`` (the sweep, the record and the frees) and
@@ -112,9 +114,14 @@ import chip_smoke
 
 # the engine's phases clocked (a checkout from before the run has no
 # hot_run, and a run on the card no hot_step: a name the engine lacks is
-# skipped)
-PHASES = ("hot_step", "hot_run", "periodic_phase", "light_phase", "process_scatters",
-          "refill_slots")
+# skipped; a block that a gated sweep guards runs the full phase as that
+# sweep, full_sweep, and the rest, periodic_rest)
+PHASES = ("hot_step", "hot_run", "periodic_phase", "full_sweep", "periodic_rest",
+          "light_phase", "process_scatters", "refill_slots")
+# the top-level phases, which split a block (a checkout runs either
+# periodic_phase or full_sweep and periodic_rest)
+TOP_PHASES = ("hot_step", "hot_run", "periodic_phase", "full_sweep", "periodic_rest",
+              "light_phase")
 # the kernels' wrappers clocked as phases (hot_kernels functions, each nested
 # in one of PHASES: event_phase and compact_rows in process_scatters, compact
 # in it and in refill_slots, record_phase and refill_fresh in the full and
@@ -680,8 +687,7 @@ def main():
             ms = sum(e0.elapsed_time(e1) for e0, e1 in pairs)
             phases[name] = {"calls": len(pairs), "ms": ms,
                             "ms_per_call": ms / max(1, len(pairs)), "share": ms / window_ms}
-        top = sum(phases[n]["ms"]
-                  for n in ("hot_step", "hot_run", "periodic_phase", "light_phase"))
+        top = sum(phases[n]["ms"] for n in TOP_PHASES)
         eager.update(phases=phases, outside_phases_share=1.0 - top / window_ms)
         result["eager"] = eager
     print(card)

@@ -256,7 +256,7 @@ def _counting_wrappers(monkeypatch, cfg):
                             ("event_fluid", "event_fluid"), ("scatter_event", "scatter_event"),
                             ("refill_fresh", "fresh_init"), ("event_phase", "event_phase"),
                             ("compact", "compact"), ("compact_rows", "compact_rows"),
-                            ("exit_test", "exit_test")):
+                            ("record_phase", "record_phase"), ("exit_test", "exit_test")):
         name = kernel if kernel == "exit_test" else hot_kernels.entry_point(kernel, dt, ref)
         fn = getattr(hot_kernels, wrapper)
 
@@ -285,23 +285,24 @@ def test_replayed_blocks_count_what_the_eager_run_counts(dump, reference, dtype,
     want, launches, phases = counted_run(lambda state: None)
 
     def stand_in(state):
-        """A graph that replays its blocks, each guarded by the exit word's
-        go and followed by the exit test, and passes no Python counter; the
-        credit is one block's counts and the replay's exit tests, taken as
-        the capture takes them (the generator and the state then restored).
-        The stand-in generator's offset moves a whole graph's draws a
-        replay, as a registered generator's does on the card."""
+        """A graph that replays its blocks, each its sweep gated on the exit
+        word's go and the rest of it (which ends with the exit test) where
+        go is set, and passes no Python counter; the credit is one block's
+        rest and the replay's gated sweeps, taken as the capture takes them
+        (the generator and the state then restored).  The stand-in
+        generator's offset moves a whole graph's draws a replay, as a
+        registered generator's does on the card."""
         g = sim.gen.get_state()
         eng._load(state, rows[0], WAVES[0])
-        body = eng._counting(eng._body)
+        eng._counting(lambda: eng._sweep(eng._one))
+        body = eng._counting(eng._rest)
+        sweeps = eng._counting(lambda: eng._guarded(lambda go, fn: None))
         sim.gen.set_state(g)
         eng.graphed = True
         eng._gen_step = STEP
         eng._gen_offset = lambda: offset[0]
         eng._set_gen_offset = lambda o: offset.__setitem__(0, o)
-        k = eng.graph_bodies
-        eng._credit = (body, ({("launches", "exit_test"): k, ("launches", "exit_guard"): 1},
-                              {}))
+        eng._credit = (body, sweeps)
 
         def replay():
             offset[0] += eng.graph_bodies * STEP
@@ -323,14 +324,15 @@ def test_replayed_blocks_count_what_the_eager_run_counts(dump, reference, dtype,
     assert eng.bodies == blocks == BLOCKS and eng.skipped == 1
     assert eng.replays == -(-blocks // k) + 1
     assert offset[0] == blocks * STEP
-    # every launch and phase as the eager run's, but the exit tests: one at
-    # the entry and one after each block there, one at the entry and one
-    # after each of a replay's blocks here, and the guard of a replay's
-    # first block
-    tests, tests_g = launches.pop("exit_test"), launches_g.pop("exit_test")
-    assert tests == 1 + blocks and tests_g == 1 + k * eng.replays
-    assert launches.pop("exit_guard") == 0 and launches_g.pop("exit_guard") == eng.replays
+    # every launch and phase as the eager run's, but the sweeps: one a
+    # block there, one in each of a replay's blocks here, whether or not
+    # the block runs; the exit test at the run's entry and at the end of
+    # each block, the closing flush one record
+    record = hot_kernels.entry_point("record_phase", dtype)
+    assert launches.pop("exit_test") == launches_g.pop("exit_test") == 1 + blocks
+    assert launches_g.pop(record) - launches.pop(record) == k * eng.replays - blocks
     assert launches_g == launches and phases_g == phases
+    assert eng._credit[1] == ({("launches", record): k}, {})
     assert phases == {"full": blocks, "light": blocks * (len(eng.blocks) - 1)}
     assert launches[hot_kernels.entry_point("hot_step", dtype, reference)] == want.it
     assert got.it == want.it
@@ -364,13 +366,14 @@ def test_graphed_run_equals_the_eager_run_on_the_card(dump, reference, dtype, op
     for i, (g, w) in enumerate(zip(got, want)):
         _assert_same(g, w, f"run {i}", spec_rtol=1e-6)
     assert torch.equal(gen_g, gen_e)
-    # three runs (two waves, a stage): the exit test at each entry, then
-    # after each block (eager) or once a replay's block (graphed)
     replays, bodies, skipped = (sum(r[j] for r in runs_g) for j in range(3))
-    assert launches_e.pop("exit_test") == 3 + bodies
-    assert launches_g.pop("exit_test") == 3 + replays * engine.GRAPH_BODIES
-    assert launches_g.pop("exit_guard") == replays
-    assert launches_e.pop("exit_guard") == 0
+    # three runs (two waves, a stage): the exit test at each entry and at
+    # the end of each block; the gated sweep in each of a replay's blocks
+    # (graphed) or in each block (eager)
+    record = hot_kernels.entry_point("record_phase", dtype)
+    assert launches_e.pop("exit_test") == launches_g.pop("exit_test") == 3 + bodies
+    assert (launches_g.pop(record) - launches_e.pop(record)
+            == replays * engine.GRAPH_BODIES - bodies)
     assert launches_g == launches_e and phases_g == phases_e
     assert bodies == sum(r[1] for r in runs_e) == sum(p["full"] for p in phases_g) > 0
     assert skipped == 3 and sum(r[0] + r[2] for r in runs_e) == 0
@@ -391,14 +394,14 @@ def test_capture_holds_the_collector_off(dump, monkeypatch):
     sim = _sim(dump, False, torch.float32, device="cuda")
     rows = _rows(sim)
     seen = []
-    body = engine.Engine._body
+    rest = engine.Engine._rest
 
     def watched(self):
         if torch.cuda.is_current_stream_capturing():
             seen.append(gc.isenabled())
-        body(self)
+        rest(self)
 
-    monkeypatch.setattr(engine.Engine, "_body", watched)
+    monkeypatch.setattr(engine.Engine, "_rest", watched)
     assert gc.isenabled()
     sim.engine.run(sim.engine.fresh_state(), rows[0], tail_exit=0)
     assert seen == [False] * sim.engine.graph_bodies and gc.isenabled()
@@ -424,4 +427,4 @@ def test_capture_leaves_state_generator_and_counts_as_found(dump):
     _assert_same(state, before, "the caller's state after the capture")
     assert eng._credit[0][1] == {"full": 1, "light": len(eng.blocks) - 1}
     k = eng.graph_bodies
-    assert eng._credit[1] == ({("launches", "exit_test"): k, ("launches", "exit_guard"): 1}, {})
+    assert eng._credit[1] == ({("launches", "record_phase"): k}, {})

@@ -532,13 +532,14 @@ def test_graphed_block_equals_the_eager_one(dump, dtype, reference):
         a.view(torch.int64 if a.element_size() == 8 else torch.int32),
         b.view(torch.int64 if b.element_size() == 8 else torch.int32))) for a, b in zip(xg, xe))
     np.testing.assert_allclose(sg, se, rtol=1e-6, atol=0.0)
-    # the loop's own launches: the exit test at each run's entry, then
-    # after each block (eager) or each of a replay's blocks; the guard of
-    # a replay's first block once a replay
+    # the loop's own launches: the exit test at each run's entry and at the
+    # end of each block; the gated sweep in each block (eager) or each of a
+    # replay's blocks
     k, runs = engine.GRAPH_BODIES, tg["engine_runs"]
-    assert (lg.pop("exit_test"), lg.pop("exit_guard")) == (runs + k * tg["replays"],
-                                                           tg["replays"])
-    assert (le.pop("exit_test"), le.pop("exit_guard")) == (runs + te["bodies"], 0)
+    record = hot_kernels.entry_point("record_phase", dtype)
+    rec_g, rec_e = lg.pop(record), le.pop(record)
+    assert lg.pop("exit_test") == le.pop("exit_test") == runs + te["bodies"]
+    assert rec_g - rec_e == k * tg["replays"] - te["bodies"]
     assert lg == le and tg["hot_iters"] == te["hot_iters"] > 0
     assert tg["bodies"] == te["bodies"] == tg["full_phases"] and te["replays"] == 0
     assert lg[hot_kernels.entry_point("event_phase", dtype)] == tg["full_phases"]
@@ -549,8 +550,8 @@ def test_graphed_block_equals_the_eager_one(dump, dtype, reference):
     kernels = sum(f * (hot_kernels.record_launches(sweep) + hot_kernels.record_launches(
                   rec | free)) + li * hot_kernels.record_launches(sweep | rec | free)
                   + fl * hot_kernels.record_launches(rec)
-                  for _, f, li, fl in tg["engine_phases"])
-    assert lg[hot_kernels.entry_point("record_phase", dtype)] == kernels
+                  for _, f, li, fl in te["engine_phases"])
+    assert rec_e == kernels
     assert kernels >= 2 * tg["full_phases"] + tg["light_phases"]
     for off in ("row_gather", "event_fluid", "scatter_event"):
         assert lg[hot_kernels.entry_point(off, dtype)] == 0, off

@@ -311,10 +311,15 @@ def test_one_launch_of_s_steps_equals_s_launches(setup, semantics, dtype):
 
 def _traced(fn):
     """The names of the card's activities during ``fn``, in
-    ``torch.profiler``'s trace."""
+    ``torch.profiler``'s trace (after a session of its own: a process's
+    first session can miss the card's first launches)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):
+        torch.cuda._sleep(1 << 10)
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     return [e.name() for e in prof.profiler.kineto_results.events()

@@ -25,8 +25,8 @@
 * On the card (``cuda`` tests, ``python -m pytest --noconftest -m cuda
   tests/test_torch_record.py``): the record kernel against the plain
   version at the path's widths (``hot_kernels.RECORD_WIDTHS``: 65,536 x
-  16,384 and 12,288, 4,096 and 512 lanes, each also cut below its pending
-  lanes) and at widths no tile divides, in both dtypes
+  16,384, 12,288 and 65,536 (the closing flush), 4,096 and 512 lanes,
+  each also cut below its pending lanes) and at widths no tile divides, in both dtypes
   (``hot_kernels.compare_record``: the flags, the counters, the ratchet,
   the capture, the fold and the terms bit for bit; the spectrum and
   w_stall within the slack of their sums' order), one launch a call (the
@@ -1075,3 +1075,61 @@ def test_the_bias_terms_are_the_plain_terms_on_the_card(card_sims, dtype, semant
     assert after == 3
     if semantics == "frozen":
         assert all(bool(hot_kernels._same_bits(a, b)) for a, b in zip(eng._bias, fixed))
+
+
+GATED_WIDTHS = ((65536, 16384), (4096, 512), (1024, 1024), (512, 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reference", [False, True], ids=["shipped", "reference"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_the_gated_sweep_on_the_card(card_sims, dtype, reference):
+    """A block's first launch, the sweep gated on go (``record_phase``'s
+    ``go``): with go clear no byte of the pool, the spectrum, the counters
+    or the terms changes; with go set it is the ungated sweep bit for bit,
+    terms included.  Captured with a conditional handle ahead of a node on
+    it (one add to a count), each replay sets the node's condition from go:
+    with go clear the node does not run and the handle is left at 0."""
+    mc = card_sims[dtype].mc
+    dev = torch.device("cuda")
+    for n, k in GATED_WIDTHS:
+        pool, spec, counters, cfg = hot_kernels.synthetic_record(mc, n, k, 3 * n + k, dtype,
+                                                                 "cuda", reference=reference)
+        want_bias = hot_kernels.record_bias(dtype, "cuda")
+        want = _kernel_record(pool, spec, counters, k, mc, cfg, bias=want_bias, sweep=True,
+                              record=False, free=False)
+        for go in (False, True):
+            bias = hot_kernels.record_bias(dtype, "cuda")
+            g = torch.tensor(go, device=dev)
+            got = _kernel_record(pool, spec, counters, k, mc, cfg, bias=bias, sweep=True,
+                                 record=False, free=False, go=g)
+            _assert_same(got, want if go else (pool, spec, counters))
+            for a, b in zip(bias, want_bias if go else hot_kernels.record_bias(dtype, "cuda")):
+                assert _same(a, b), (n, go)
+        # in a graph, ahead of an IF node on the handle it sets
+        work = hot_kernels.clone_record(pool, spec, counters)
+        first = hot_kernels.clone_record(pool, spec, counters)
+        bias = hot_kernels.record_bias(dtype, "cuda")
+        ticket = hot_kernels.record_ticket("cuda", n)
+        g = torch.zeros((), dtype=torch.bool, device=dev)
+        count = torch.zeros((), dtype=torch.int64, device=dev)
+        capture, stream = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+        mem, graph = torch.cuda.MemPool(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=capture):
+            handle = hot_kernels.exit_handle(dev)
+            hot_kernels.record_phase(*work, k, mc, cfg, ticket, sweep=True, record=False,
+                                     free=False, bias=bias, go=g, handle=handle)
+            hot_kernels.exit_guard(handle, lambda: count.add_(1), stream, mem)
+        for go in (False, True):
+            g.fill_(go)
+            count.zero_()
+            for dst, src in zip(engine.pool_tensors(work[0]) + [work[1], *work[2]],
+                                engine.pool_tensors(first[0]) + [first[1], *first[2]]):
+                dst.copy_(src)
+            for t in bias:
+                t.fill_(math.nan)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert int(count) == int(go), (n, go)
+            _assert_same(work, want if go else first)
+            assert hot_kernels.record_at_rest(ticket, n)

@@ -3,11 +3,12 @@ one replay ahead of the word it reads.
 
 ``Engine.run`` takes the JAX engine's ``lax.while_loop`` ``cond`` as a
 device computation (``hot_kernels.exit_test``; the plain version
-``engine.exit_test_plain``) at the run's entry and after every block.  On
-the card a graph replay holds its blocks, each under a conditional node on
-the word's ``go``, and the host issues replay n + 1 before it waits on
-replay n's word (``engine.pipelined_loop``); ``graphed=False`` and the CPU
-read the word after each block (``engine.host_loop``).
+``engine.exit_test_plain``) at the run's entry and at the end of every
+block.  On the card a graph replay holds its blocks, each under a
+conditional node whose condition the block's gated sweep sets from the
+word's ``go``, and the host issues replay n + 1 before it waits on replay
+n's word (``engine.pipelined_loop``); ``graphed=False`` and the CPU read
+the word after each block (``engine.host_loop``).
 
 On the CPU:
 
@@ -27,7 +28,7 @@ replay bit for bit the eager run in both semantics and dtypes, a replay
 issued by hand after a run changes no byte, a run whose exit holds at its
 entry runs no block, the kernel bit for bit its plain version at
 65,536, 4,096, 1,024 and 512 lanes at each edge (both values of go at each
-width), and the test setting the next block's condition in a graph.
+width).
 """
 
 import logging
@@ -113,9 +114,9 @@ class FakeRun:
     """A fake engine's run: ``n`` lanes, ``occ0`` of them occupied, a backlog
     of ``nv`` rows and ``sec0`` queued secondaries; each block retires two
     lanes, loads up to three rows and takes one secondary into free lanes,
-    and draws ``STEP`` from the generator.  Its exit test is
-    ``engine.exit_test_plain``; the launches and phases are counted as the
-    wrappers count them on the card."""
+    draws ``STEP`` from the generator and ends with the exit test
+    (``engine.exit_test_plain``); the launches and phases are counted as
+    the wrappers count them on the card."""
 
     STEP = 4
 
@@ -127,7 +128,7 @@ class FakeRun:
         self.sec = torch.tensor(sec0, dtype=torch.int64)
         self.word, self.go = _word(), torch.zeros((), dtype=torch.bool)
         self.max_outer, self.offset = max_outer, 0
-        self.launches = {"body": 0, "exit_test": 0}
+        self.launches = {"body": 0, "exit_test": 0, "sweep": 0}
         self.phases = {"full": 0, "light": 0}
 
     def test(self):
@@ -153,6 +154,7 @@ class FakeRun:
         if int(self.sec) > 0:
             self.sec -= 1
             self.occ[torch.nonzero(~self.occ).flatten()[:1]] = True
+        self.test()
 
     def state(self):
         return self.occ.clone(), int(self.pos), int(self.sec)
@@ -169,24 +171,21 @@ def _host(spec, caplog):
     caplog.clear()
     fake.test()
 
-    def test():
-        fake.test()
-        return fake.read()
-
     def body():
         words.append(fake.read())
         fake.body()
 
-    out = engine.host_loop(fake.read(), body, test, N_SUPER)
+    out = engine.host_loop(fake.read(), body, fake.read, N_SUPER)
     words.append(out.word)
     return fake, out, words, [r.getMessage() for r in caplog.records]
 
 
 def _pipelined(spec, k, caplog):
-    """The graphed run's loop: a launch is a replay of k blocks, each under
-    its guard, then the copy of the word; the replay passes no Python
-    counter (what it ran is credited by engine.run_credit), and advances
-    the generator by the whole graph's draws."""
+    """The graphed run's loop: a launch is a replay of k blocks, each its
+    gated sweep, then the block where the word's go is set, then the copy
+    of the word; the replay passes no Python counter (what it ran is
+    credited by engine.run_credit), and advances the generator by the
+    whole graph's draws."""
     fake = FakeRun(*spec)
     caplog.clear()
     fake.test()
@@ -197,9 +196,9 @@ def _pipelined(spec, k, caplog):
     def launch():
         fake.offset += k * FakeRun.STEP
         for _ in range(k):
+            fake.launches["sweep"] += 1
             if bool(fake.go):
                 fake.body(draw=False)
-            fake.test()
         return fake.word.clone()
 
     def read_word(handle):
@@ -208,8 +207,8 @@ def _pipelined(spec, k, caplog):
 
     out = engine.pipelined_loop(fake.word.clone(), launch, read_word, N_SUPER)
     fake.launches, fake.phases = counts  # the replays counted nothing
-    launched, phased = engine.run_credit(({"body": 1}, {"full": 1, "light": 2}),
-                                         ({"exit_test": k}, {}), out.word.bodies, out.replays)
+    launched, phased = engine.run_credit(({"body": 1, "exit_test": 1}, {"full": 1, "light": 2}),
+                                         ({"sweep": k}, {}), out.word.bodies, out.replays)
     for d, add in ((fake.launches, launched), (fake.phases, phased)):
         for name, v in add.items():
             d[name] += v
@@ -238,10 +237,10 @@ def test_pipelined_loop_runs_what_the_host_loop_runs(run, k, caplog, monkeypatch
     assert pipe.phases == host.phases == {"full": bodies, "light": 2 * bodies}
     assert pipe.launches["body"] == host.launches["body"] == bodies
     assert pipe.offset == host.offset == bodies * FakeRun.STEP
-    # the exit tests: the entry's, then one after each block or k a replay;
-    # one replay past the exit, which ran no block
-    assert host.launches["exit_test"] == 1 + bodies
-    assert pipe.launches["exit_test"] == 1 + k * out_p.replays
+    # the exit tests: the entry's, then one at the end of each block; the
+    # sweeps: k a replay; one replay past the exit, which ran no block
+    assert host.launches["exit_test"] == pipe.launches["exit_test"] == 1 + bodies
+    assert pipe.launches["sweep"] == k * out_p.replays
     assert out_p.skipped == 1 and out_p.replays == -(-bodies // k) + 1
     # the words read: the host loop's at every k-th block, its last among
     # them; the progress log the host loop's where k = 1
@@ -343,9 +342,11 @@ def test_graphed_loop_equals_the_host_loop_on_the_card(dump, reference, dtype, k
     replays, bodies, skipped = (sum(c[j] for c in counts_g) for j in range(3))
     assert bodies == sum(c[1] for c in counts_e) == sum(p["full"] for p in phases_g)
     assert skipped == 2 and all(c[0] == -(-c[1] // k) + 1 for c in counts_g)
-    assert launches_e.pop("exit_test") == 2 + bodies
-    assert launches_g.pop("exit_test") == 2 + k * replays
-    assert launches_g.pop("exit_guard") == replays and launches_e.pop("exit_guard") == 0
+    # the exit test at each run's entry and at the end of each block; the
+    # gated sweep in each of a replay's k blocks (graphed)
+    record = hot_kernels.entry_point("record_phase", dtype)
+    assert launches_e.pop("exit_test") == launches_g.pop("exit_test") == 2 + bodies
+    assert launches_g.pop(record) - launches_e.pop(record) == k * replays - bodies
     assert launches_g == launches_e and phases_g == phases_e
 
 
@@ -382,8 +383,9 @@ def test_a_run_whose_exit_holds_at_entry_runs_no_block(dump):
     assert (eng.replays, eng.bodies, eng.skipped) == (1, 0, 1)
     assert out.it == 0 and eng.phases == {"full": 0, "light": 0}
     assert torch.equal(sim.gen.get_state(), g0)
+    # the entry test, the skipped replay's gated sweeps, the closing flush
     assert {k: v for k, v in hot_kernels.launches.items() if v} == {
-        "exit_test": 1 + eng.graph_bodies, "exit_guard": 1}
+        "exit_test": 1, "record_phase": eng.graph_bodies + 1}
     for a, b in zip(engine.state_tensors(out), engine.state_tensors(state), strict=True):
         assert torch.equal(_bits(a), _bits(b))
 
@@ -422,48 +424,3 @@ def test_exit_test_kernel_equals_its_plain_version(n):
                 assert outs[0] == outs[1], (n, density, shift, te, pos, nv, sec, bodies)
                 gos.add(outs[1][1])
     assert gos == {False, True}
-
-
-@pytest.mark.cuda
-def test_the_exit_test_sets_the_next_blocks_condition():
-    """A graph of two blocks (one add each to a count) under their nodes:
-    the first's condition set from go at the replay's head (the guard), the
-    second's by the exit test between them; replayed at every go and every
-    outcome of the test, against Python's ``if`` around the plain test."""
-    _card()
-    dev = torch.device("cuda")
-    occ = torch.zeros(4096, dtype=torch.bool, device=dev)
-    occ[::3] = True
-    count_lanes = int(occ.sum())
-    pos, sec, nv = (torch.tensor(v, dtype=torch.int64, device=dev) for v in (3, 0, 3))
-    te = torch.tensor(0, dtype=torch.int64, device=dev)
-    word = torch.zeros(engine.EXIT_WORD, dtype=torch.int64, device=dev)
-    go = torch.zeros((), dtype=torch.bool, device=dev)
-    count = torch.zeros((), dtype=torch.int64, device=dev)
-    capture, stream, pool = torch.cuda.Stream(dev), torch.cuda.Stream(dev), torch.cuda.MemPool()
-    graph = torch.cuda.CUDAGraph()
-    hot_kernels.reset_launches()
-    with torch.cuda.graph(graph, stream=capture):
-        handles = [hot_kernels.exit_handle(dev) for _ in range(2)]
-        hot_kernels.exit_guard(handles[0], lambda: count.add_(1), stream, pool, go=go)
-        hot_kernels.exit_test(occ, pos, sec, nv, te, word, go, N_SUPER, engine.MAX_OUTER,
-                              handle=handles[1])
-        hot_kernels.exit_guard(handles[1], lambda: count.add_(10), stream, pool)
-    assert {k: v for k, v in hot_kernels.launches.items() if v} == {
-        "exit_test": 1, "exit_guard": 1}
-    for first in (True, False):
-        for tail_exit in (count_lanes - 1, count_lanes):  # the test's go set, clear
-            go.fill_(first)
-            te.fill_(tail_exit)
-            word.zero_()
-            count.zero_()
-            graph.replay()
-            want_word = torch.zeros_like(word)
-            want_go = torch.tensor(first, device=dev)
-            want = 1 if first else 0
-            engine.exit_test_plain(occ, pos, sec, nv, te, want_word, want_go, N_SUPER,
-                                   engine.MAX_OUTER)
-            want += 10 if bool(want_go) else 0
-            torch.cuda.synchronize()
-            assert int(count) == want, (first, tail_exit)
-            assert torch.equal(word, want_word) and torch.equal(go, want_go)
